@@ -1,0 +1,38 @@
+"""iqwaveform-torch: the PyTorch / CUDA port of iqwaveform-tpu.
+
+The flagship WidebandMonitor runs on an NVIDIA Hopper card through
+hand-written CUDA kernels (ops.kernels), and on the CPU through their
+plain PyTorch versions. Entry points run on the card unless the caller
+passes ``device='cpu'``. The package imports torch, numpy and scipy, and
+nothing of JAX.
+"""
+
+__version__ = '0.1.0'
+
+from . import models, ops, utils  # noqa: F401
+from .models import (  # noqa: F401
+    MonitorDesign,
+    WidebandMonitor,
+    design_from_reference,
+    design_wideband_monitor,
+    resolve_monitor_design,
+)
+from .ops import (  # noqa: F401
+    design_cola_resampler,
+    equivalent_noise_bandwidth,
+    get_window,
+)
+
+__all__ = [
+    'MonitorDesign',
+    'WidebandMonitor',
+    'design_cola_resampler',
+    'design_from_reference',
+    'design_wideband_monitor',
+    'equivalent_noise_bandwidth',
+    'get_window',
+    'models',
+    'ops',
+    'resolve_monitor_design',
+    'utils',
+]

@@ -1,0 +1,204 @@
+// One-pass channelizer statistics of a resampled stream.
+//
+// Replaces: iqwaveform_tpu/ops/pallas/chan_stats_pallas.py
+//   chan_stats_packed_pallas and chan_stats_pallas (_chan_call /
+//   _chan_stats_kernel). The port feeds complex y, so one kernel meets the
+//   contract of both.
+//
+// Each block walks a run of `frames_per_block` channelizer frames of nfft
+// samples (blockIdx.y is the batch row). For each frame it
+//   - writes the detector-binned power: mean of |y|^2 over navg samples;
+//   - runs the windowed nfft-point FFT in shared memory (window =
+//     channelizer window / nfft, fftshift baked in, so bins come out in
+//     centred order);
+//   - forms spg = |Y|^2, and keeps per-bin running sums of ln(spg + 1e-25)
+//     and maxima of spg in registers;
+//   - writes each channel's power: the sum of spg over its `abins` kept
+//     bins, after skipping `skip_half` bins at the low edge.
+// The block then writes its per-bin partials to (batch, n_blocks, nfft);
+// chan_reduce_kernel folds them over blocks in a fixed order, so the sums
+// are deterministic (no float atomics).
+//
+// What bounds it on an H100: one read of y (8 B/sample) and the write of
+// the binned power (4 B per navg samples); about 69 MB at the flagship
+// step, ~21 us at 3.35 TB/s. The FFT work (0.5 GFLOP) is below that. Each
+// frame stays in shared memory (32 KiB at nfft = 4096) from load to the
+// channel sums, so y is read from device memory once, plus a second read of
+// the same frame for the binned power that L1/L2 serve. This simple version
+// pays one barrier per radix-2 stage.
+#include <math.h>
+
+#include "fft.cuh"
+
+namespace {
+
+constexpr int kMaxThreads = 1024;
+constexpr float kEps = 1e-25f;
+
+// PT = bins per thread (nfft / blockDim.x); per-bin accumulators live in
+// registers for the whole run of frames.
+template <int PT>
+__global__ void __launch_bounds__(kMaxThreads)
+chan_stats_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
+                  const float2* __restrict__ tw, float* __restrict__ part_log,
+                  float* __restrict__ part_max, float* __restrict__ chp,
+                  float* __restrict__ pbin, long long row_len, int n_frames,
+                  int log2_nfft, int navg, int channel_count, int abins,
+                  int skip_half, int frames_per_block) {
+  extern __shared__ float2 buf[];
+  const int nfft = 1 << log2_nfft;
+  const int row = blockIdx.y;
+  const int bins_per_frame = nfft / navg;
+  const float2* yr = y + row * row_len;
+  float* pr = pbin + static_cast<long long>(row) * n_frames * bins_per_frame;
+  float* cr = chp + static_cast<long long>(row) * n_frames * channel_count;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+
+  float ls[PT], mx[PT];
+#pragma unroll
+  for (int r = 0; r < PT; ++r) {
+    ls[r] = 0.f;
+    mx[r] = -INFINITY;
+  }
+
+  const int f0 = blockIdx.x * frames_per_block;
+  const int f1 = min(f0 + frames_per_block, n_frames);
+  for (int f = f0; f < f1; ++f) {
+    const float2* fr = yr + static_cast<long long>(f) * nfft;
+    for (int t = threadIdx.x; t < bins_per_frame; t += blockDim.x) {
+      float s = 0.f;
+      for (int i = 0; i < navg; ++i) {
+        const float2 v = fr[t * navg + i];
+        s += v.x * v.x + v.y * v.y;
+      }
+      pr[static_cast<long long>(f) * bins_per_frame + t] = s / navg;
+    }
+    for (int n = threadIdx.x; n < nfft; n += blockDim.x) {
+      buf[iqt::bitrev(n, log2_nfft)] = iqt::cmul(fr[n], w[n]);
+    }
+    iqt::fft_radix2(buf, tw, log2_nfft, false);
+
+    float spg[PT];
+#pragma unroll
+    for (int r = 0; r < PT; ++r) {
+      const float2 v = buf[threadIdx.x + r * blockDim.x];
+      spg[r] = v.x * v.x + v.y * v.y;
+      ls[r] += logf(spg[r] + kEps);
+      mx[r] = fmaxf(mx[r], spg[r]);
+    }
+    __syncthreads();
+    // the spectrum is in registers now; reuse the buffer for spg
+    float* sp = reinterpret_cast<float*>(buf);
+#pragma unroll
+    for (int r = 0; r < PT; ++r) sp[threadIdx.x + r * blockDim.x] = spg[r];
+    __syncthreads();
+
+    for (int c = warp; c < channel_count; c += n_warps) {
+      const float* cb = sp + skip_half + c * abins;
+      float s = 0.f;
+      for (int i = lane; i < abins; i += 32) s += cb[i];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+      if (lane == 0) cr[static_cast<long long>(f) * channel_count + c] = s;
+    }
+    __syncthreads();
+  }
+
+  const long long base =
+      (static_cast<long long>(row) * gridDim.x + blockIdx.x) * nfft;
+#pragma unroll
+  for (int r = 0; r < PT; ++r) {
+    const int k = threadIdx.x + r * blockDim.x;
+    part_log[base + k] = ls[r];
+    part_max[base + k] = mx[r];
+  }
+}
+
+// psd_log_sum / psd_max per (row, bin): fold the blocks' partials in order
+__global__ void chan_reduce_kernel(const float* __restrict__ part_log,
+                                   const float* __restrict__ part_max,
+                                   float* __restrict__ log_sum,
+                                   float* __restrict__ max_out, int n_blocks,
+                                   int nfft) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= nfft) return;
+  const long long row = blockIdx.y;
+  float s = 0.f;
+  float m = -INFINITY;
+  for (int b = 0; b < n_blocks; ++b) {
+    const long long i = (row * n_blocks + b) * nfft + k;
+    s += part_log[i];
+    m = fmaxf(m, part_max[i]);
+  }
+  log_sum[row * nfft + k] = s;
+  max_out[row * nfft + k] = m;
+}
+
+template <int PT>
+cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                   const float2* y, const float2* w, const float2* tw,
+                   float* part_log, float* part_max, float* chp, float* pbin,
+                   long long row_len, int n_frames, int log2_nfft, int navg,
+                   int channel_count, int abins, int skip_half,
+                   int frames_per_block) {
+  const cudaError_t err = iqt::allow_smem(chan_stats_kernel<PT>, smem);
+  if (err != cudaSuccess) return err;
+  chan_stats_kernel<PT><<<grid, threads, smem, stream>>>(
+      y, w, tw, part_log, part_max, chp, pbin, row_len, n_frames, log2_nfft,
+      navg, channel_count, abins, skip_half, frames_per_block);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// y: (batch, row_len) complex64 with n_frames * nfft <= row_len;
+// part_log / part_max: (batch, n_blocks, nfft) scratch with n_blocks =
+// ceil(n_frames / frames_per_block); outputs log_sum / max_out (batch,
+// nfft), chp (batch, n_frames, channel_count), pbin (batch, n_frames *
+// nfft / navg). nfft is a power of two up to 16384 and navg divides it.
+extern "C" int iqt_chan_stats(const void* y, const void* w, const void* tw,
+                              void* part_log, void* part_max, void* log_sum,
+                              void* max_out, void* chp, void* pbin,
+                              int batch, int row_len, int n_frames,
+                              int log2_nfft, int navg, int channel_count,
+                              int abins, int skip_half, int frames_per_block,
+                              int n_blocks, void* stream) {
+  const int nfft = 1 << log2_nfft;
+  const int threads = nfft < kMaxThreads ? nfft : kMaxThreads;
+  const int pt = nfft / threads;
+  const size_t smem = static_cast<size_t>(nfft) * sizeof(float2);
+  const dim3 grid(n_blocks, batch);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto yp = static_cast<const float2*>(y);
+  auto wp = static_cast<const float2*>(w);
+  auto tp = static_cast<const float2*>(tw);
+  auto pl = static_cast<float*>(part_log);
+  auto pm = static_cast<float*>(part_max);
+  auto cp = static_cast<float*>(chp);
+  auto pb = static_cast<float*>(pbin);
+  cudaError_t err;
+#define IQT_CHAN(P)                                                          \
+  case P:                                                                    \
+    err = launch<P>(grid, threads, smem, s, yp, wp, tp, pl, pm, cp, pb,      \
+                    row_len, n_frames, log2_nfft, navg, channel_count,       \
+                    abins, skip_half, frames_per_block);                     \
+    break;
+  switch (pt) {
+    IQT_CHAN(1)
+    IQT_CHAN(2)
+    IQT_CHAN(4)
+    IQT_CHAN(8)
+    IQT_CHAN(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef IQT_CHAN
+  if (err != cudaSuccess) return err;
+  const int rthreads = 256;
+  chan_reduce_kernel<<<dim3((nfft + rthreads - 1) / rthreads, batch),
+                       rthreads, 0, s>>>(pl, pm, static_cast<float*>(log_sum),
+                                         static_cast<float*>(max_out),
+                                         n_blocks, nfft);
+  return cudaGetLastError();
+}

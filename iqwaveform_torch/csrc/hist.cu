@@ -1,0 +1,86 @@
+// Fixed-edge histogram counts: counts[b] = #{e[b-1] < p <= e[b]}.
+//
+// Replaces: iqwaveform_tpu/ops/pallas/hist_pallas.py
+//   histogram_edge_counts_pallas (_hist_impl / _hist_kernel).
+//
+// The edges sit in shared memory. Each thread finds a sample's bin by a
+// lower-bound binary search, the number of edges strictly below p, which
+// with exact float32 compares is searchsorted(edges, p, 'left'); a NaN
+// sample goes to the last bin, where a sort places it. Counts gather in a
+// shared-memory int32 histogram of n_edges + 1 bins with atomicAdd, then
+// in the global one with atomicAdd. Integer atomics commute, so the counts
+// are exact and the same on every run.
+//
+// What bounds it on an H100: it reads 4 B per sample, 2 MB for the
+// flagship's 524,288 binned samples, well under a microsecond at
+// 3.35 TB/s, so a launch costs more than the data. The design keeps the
+// grid small (a few blocks per SM, each walking many samples) so that the
+// global merge stays at most n_blocks * (n_edges + 1) atomics.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kSamplesPerThread = 16;
+
+__global__ void __launch_bounds__(kThreads)
+hist_kernel(const float* __restrict__ p, const float* __restrict__ edges,
+            int* __restrict__ counts, long long n, int n_edges) {
+  extern __shared__ float sh[];
+  float* e = sh;
+  int* c = reinterpret_cast<int*>(sh + n_edges);
+  const float* pr = p + blockIdx.y * n;
+  int* out = counts + static_cast<long long>(blockIdx.y) * (n_edges + 1);
+
+  for (int i = threadIdx.x; i < n_edges; i += blockDim.x) e[i] = edges[i];
+  for (int i = threadIdx.x; i <= n_edges; i += blockDim.x) c[i] = 0;
+  __syncthreads();
+
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const float v = pr[i];
+    int lo = 0;
+    int hi = n_edges;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (e[mid] < v) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (v != v) lo = n_edges;
+    atomicAdd(&c[lo], 1);
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i <= n_edges; i += blockDim.x) {
+    if (c[i]) atomicAdd(&out[i], c[i]);
+  }
+}
+
+}  // namespace
+
+// p: (batch, n) float32; edges: (n_edges,) float32, sorted; counts:
+// (batch, n_edges + 1) int32, zeroed by the caller.
+extern "C" int iqt_hist(const void* p, const void* edges, void* counts,
+                        int batch, int n, int n_edges, int sm_count,
+                        void* stream) {
+  const size_t smem = sizeof(float) * n_edges + sizeof(int) * (n_edges + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  long long blocks =
+      (static_cast<long long>(n) + kThreads * kSamplesPerThread - 1) /
+      (kThreads * kSamplesPerThread);
+  const long long cap = 2LL * sm_count;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  hist_kernel<<<dim3(static_cast<unsigned>(blocks), batch), kThreads, smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(edges),
+      static_cast<int*>(counts), n, n_edges);
+  return cudaGetLastError();
+}

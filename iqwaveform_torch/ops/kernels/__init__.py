@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels of the port (the counterpart of
+iqwaveform_tpu/ops/pallas/), each beside its plain PyTorch version.
+
+Each wrapper runs the plain version for a tensor on the CPU and launches
+its kernel for a tensor on the card, counting launches in
+``<wrapper>.launches``. The kernels are built from ``csrc/`` at first
+launch (ops.kernels._build), never at import.
+"""
+
+from .chan_stats import chan_stats, chan_stats_plain
+from .fused_ola import fused_ola, fused_ola_plain
+from .hist import hist, hist_plain
+
+KERNELS = (fused_ola, chan_stats, hist)
+
+__all__ = [
+    'KERNELS',
+    'chan_stats',
+    'chan_stats_plain',
+    'fused_ola',
+    'fused_ola_plain',
+    'hist',
+    'hist_plain',
+]

@@ -1,0 +1,199 @@
+"""Build and load of the port's CUDA kernels (the counterpart of
+iqwaveform_tpu/ops/pallas/_common.py).
+
+The sources in ``iqwaveform_torch/csrc/`` have a plain C interface. At
+first use, ``nvcc`` compiles each one for Hopper (``sm_90a``), all at
+once in parallel, and links them into one shared library that ``ctypes``
+loads. Nothing is built when a module is imported, so the package imports
+on a machine without ``nvcc``. The library lands in
+``<repo>/build/iqwaveform_torch/<hash>/``, keyed by a hash of the sources
+and flags, so an edited source is never served by a stale build.
+
+Every C entry point returns ``cudaGetLastError()`` after its launches; a
+launch the card refuses (too much shared memory, too many threads) never
+runs, and only that code shows it. :func:`check` turns a nonzero code
+into a ``RuntimeError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+__all__ = [
+    'build_dir',
+    'check',
+    'library',
+    'ptxas_report',
+    'require',
+    'stream_of',
+    'twiddles',
+    'log2_exact',
+]
+
+CSRC = Path(__file__).resolve().parents[2] / 'csrc'
+SOURCES = ('common.cu', 'fused_ola.cu', 'chan_stats.cu', 'hist.cu')
+HEADERS = ('fft.cuh',)
+
+# no --use_fast_math: the kernels are held to 1e-5 relative RMS against
+# full-precision float32, with accurate logf and division
+NVCC_FLAGS = (
+    '-gencode', 'arch=compute_90a,code=sm_90a',
+    '-O3', '-std=c++17', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C signatures: pointers and the stream as c_void_p (a plain int would be
+# cut to 32 bits), sizes as int
+SIGNATURES = {
+    'iqt_error_string': ([_I], ctypes.c_char_p),
+    'iqt_fused_ola': ([_P] * 6 + [_I] * 13 + [_P], _I),
+    'iqt_chan_stats': ([_P] * 9 + [_I] * 10 + [_P], _I),
+    'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def build_dir() -> Path:
+    """``<repo>/build/iqwaveform_torch``: beside the package, listed in
+    .gitignore."""
+    return CSRC.parents[1] / 'build' / 'iqwaveform_torch'
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get('CUDA_HOME'), os.environ.get('CUDA_PATH')):
+        if home and (Path(home) / 'bin' / 'nvcc').exists():
+            return str(Path(home) / 'bin' / 'nvcc')
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    if Path('/usr/local/cuda/bin/nvcc').exists():
+        return '/usr/local/cuda/bin/nvcc'
+    raise RuntimeError(
+        'nvcc not found (set CUDA_HOME); the CUDA kernels are built from '
+        'iqwaveform_torch/csrc at first use'
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> None:
+    """compile every source in parallel (one nvcc each), then link. The
+    compiler's register / shared-memory report goes to ``ptxas.txt``."""
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (name + '.o')
+            cmd = [nvcc, *NVCC_FLAGS, '-c', str(CSRC / name), '-o', str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )))
+        reports, failed = [], []
+        for name, _, proc in procs:
+            text, _ = proc.communicate()
+            reports.append(f'== {name}\n{text}')
+            if proc.returncode:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(
+                f'nvcc failed on {failed}:\n' + '\n'.join(reports)
+            )
+        lib_tmp = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, '-shared', '-gencode', 'arch=compute_90a,code=sm_90a',
+             *[str(obj) for _, obj, _ in procs], '-o', str(lib_tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f'nvcc link failed:\n{link.stdout}')
+        (out.parent / 'ptxas.txt').write_text('\n'.join(reports))
+        os.replace(lib_tmp, out)
+
+
+def library() -> ctypes.CDLL:
+    """the loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = build_dir() / _source_hash() / 'libiqwaveform_torch.so'
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def ptxas_report() -> str:
+    """what the compiler said about each kernel's registers and shared
+    memory in the current build."""
+    library()
+    return (build_dir() / _source_hash() / 'ptxas.txt').read_text()
+
+
+def check(err: int, what: str) -> None:
+    """raise if a C entry point returned a CUDA error."""
+    if err:
+        msg = library().iqt_error_string(err).decode()
+        raise RuntimeError(f'{what}: CUDA error {err} ({msg})')
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """the raw handle of the current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name: str, *, device, dtype, shape=None) -> None:
+    """raise unless ``t`` is a contiguous tensor of ``dtype`` on
+    ``device`` (and of ``shape``, where given): the kernels take raw
+    pointers and read them as exactly that."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f'{name} must be a torch.Tensor, not {type(t)!r}')
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} must be {dtype}, not {t.dtype}')
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+
+
+@functools.lru_cache(maxsize=None)
+def twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """the FFT kernels' twiddle table exp(-2 pi i k / n), k < n/2: float64
+    on the host, rounded once to complex64, kept on ``device`` (shared by
+    every caller; read only)."""
+    table = np.exp(-2j * np.pi * np.arange(n // 2) / n).astype('complex64')
+    return torch.from_numpy(table).to(device)
+
+
+def log2_exact(n: int) -> int:
+    """log2 of a power of two; -1 for anything else."""
+    return n.bit_length() - 1 if n > 0 and n & (n - 1) == 0 else -1

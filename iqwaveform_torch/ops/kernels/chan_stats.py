@@ -1,0 +1,149 @@
+"""One-pass channelizer statistics: the CUDA kernel and its plain PyTorch
+version.
+
+Replaces the TPU kernels ``chan_stats_packed_pallas`` and
+``chan_stats_pallas`` (iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301
+and :248, through ``_chan_call``): per channelizer frame the windowed FFT,
+the spectrogram's running sum of logs and max, the per-channel power and
+the detector-binned power, in one read of the resampled stream
+(``csrc/chan_stats.cu``). What bounds it on the card and what its design
+does about that are set out at the head of the CUDA source.
+
+The plain version is the XLA formulation of the monitor
+(iqwaveform_tpu/models/monitor.py:703-719) on ``torch.fft``, returning the
+kernel's outputs: sums of ln rather than of dB, maxima of power rather
+than of dB.
+
+:func:`chan_stats` takes the plain version only for a tensor on the CPU;
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import fft as _fft
+from ..power import binned_mean
+from . import _build
+
+__all__ = ['chan_stats', 'chan_stats_plain']
+
+_EPS = 1e-25
+MAX_CUDA_FFT = 16384
+FRAMES_PER_BLOCK = 16
+
+
+def chan_stats_plain(
+    y: torch.Tensor,
+    *,
+    nfft_big: int,
+    channel_count: int,
+    window: torch.Tensor,
+    navg: int = 1,
+    skip_bins: int = 0,
+) -> dict:
+    """plain PyTorch version of :func:`chan_stats` (same arguments)."""
+    lead = y.shape[:-1]
+    n_frames = y.shape[-1] // nfft_big
+    yk = y[..., : n_frames * nfft_big]
+    frames = yk.reshape(*lead, n_frames, nfft_big)
+    Y = _fft.fft(frames * window, axis=-1)
+    spg = Y.real * Y.real + Y.imag * Y.imag
+
+    sb = skip_bins
+    kept = spg[..., sb // 2 : nfft_big - sb // 2] if sb else spg
+    abins = (nfft_big - sb) // channel_count
+    channel_power = kept.reshape(*lead, n_frames, channel_count, abins).sum(-1)
+
+    p = yk.real * yk.real + yk.imag * yk.imag
+    return {
+        'psd_log_sum': torch.log(spg + _EPS).sum(dim=-2),
+        'psd_max': spg.amax(dim=-2),
+        'channel_power': channel_power,
+        'p_binned': binned_mean(p, navg),
+    }
+
+
+def chan_stats(
+    y: torch.Tensor,
+    *,
+    nfft_big: int,
+    channel_count: int,
+    window: torch.Tensor,
+    navg: int = 1,
+    skip_bins: int = 0,
+) -> dict:
+    """channelizer statistics of a resampled stream ``y`` (..., S)
+    complex64, over its ``S // nfft_big`` whole frames.
+
+    window: (nfft_big,) complex64 channelizer window with the 1/nfft_big
+        normalization and the fftshift delay baked in.
+    skip_bins: total analysis-bandwidth trim (reference
+        fourier.py:1399-1404): the outer skip_bins/2 bins on each side
+        join no channel; channel c owns (nfft_big - skip_bins) /
+        channel_count contiguous kept bins.
+
+    Returns dict of float32 tensors (natural bin order):
+        psd_log_sum: (..., nfft_big) sum over frames of ln(|Y|^2 + 1e-25)
+        psd_max: (..., nfft_big) max over frames of |Y|^2
+        channel_power: (..., frames, channel_count)
+        p_binned: (..., frames * nfft_big // navg) mean of |y|^2 over navg
+    """
+    if y.device.type == 'cpu':
+        return chan_stats_plain(
+            y, nfft_big=nfft_big, channel_count=channel_count, window=window,
+            navg=navg, skip_bins=skip_bins,
+        )
+    if y.device.type != 'cuda':
+        raise ValueError(f'chan_stats runs on cpu or cuda tensors, not {y.device}')
+    log2n = _build.log2_exact(nfft_big)
+    if not (64 <= nfft_big <= MAX_CUDA_FFT and log2n > 0 and nfft_big % navg == 0):
+        raise NotImplementedError(
+            'the CUDA channelizer-statistics kernel takes a power-of-two '
+            f'nfft_big in [64, {MAX_CUDA_FFT}] that navg divides; got '
+            f'nfft_big={nfft_big}, navg={navg} (ROADMAP Queue 1 item 5c)'
+        )
+    abins, rem = divmod(nfft_big - skip_bins, channel_count)
+    if rem or skip_bins % 2 or skip_bins < 0:
+        raise ValueError(
+            f'skip_bins={skip_bins} does not leave {channel_count} equal '
+            'channels with an even trim'
+        )
+    dev = y.device
+    _build.require(y, 'y', device=dev, dtype=torch.complex64)
+    _build.require(window, 'window', device=dev, dtype=torch.complex64, shape=(nfft_big,))
+    lead, row_len = y.shape[:-1], y.shape[-1]
+    batch = y.numel() // row_len if row_len else 0
+    n_frames = row_len // nfft_big
+    if n_frames == 0 or batch == 0:
+        raise ValueError(f'chan_stats needs at least one frame ({nfft_big} samples) per row')
+    if row_len >= 2**31 or batch >= 2**16:
+        raise ValueError('chan_stats takes rows below 2**31 samples and batches below 2**16')
+    n_blocks = -(-n_frames // FRAMES_PER_BLOCK)
+    n_bin = n_frames * nfft_big // navg
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_log = torch.empty((batch, n_blocks, nfft_big), **f32)
+    part_max = torch.empty((batch, n_blocks, nfft_big), **f32)
+    log_sum = torch.empty((batch, nfft_big), **f32)
+    psd_max = torch.empty((batch, nfft_big), **f32)
+    channel_power = torch.empty((batch, n_frames, channel_count), **f32)
+    p_binned = torch.empty((batch, n_bin), **f32)
+    err = _build.library().iqt_chan_stats(
+        y.data_ptr(), window.data_ptr(), _build.twiddles(nfft_big, dev).data_ptr(),
+        part_log.data_ptr(), part_max.data_ptr(), log_sum.data_ptr(),
+        psd_max.data_ptr(), channel_power.data_ptr(), p_binned.data_ptr(),
+        batch, row_len, n_frames, log2n, navg, channel_count, abins,
+        skip_bins // 2, FRAMES_PER_BLOCK, n_blocks, _build.stream_of(y),
+    )
+    _build.check(err, 'chan_stats')
+    chan_stats.launches += 1
+    return {
+        'psd_log_sum': log_sum.reshape(*lead, nfft_big),
+        'psd_max': psd_max.reshape(*lead, nfft_big),
+        'channel_power': channel_power.reshape(*lead, n_frames, channel_count),
+        'p_binned': p_binned.reshape(*lead, n_bin),
+    }
+
+
+chan_stats.launches = 0

@@ -1,0 +1,67 @@
+"""Array-backend dispatch between numpy (host) and torch (device).
+
+The torch counterpart of iqwaveform_tpu/utils/dispatch.py: ``numpy`` holds
+host-side design math (windows, index tables), ``torch`` everything that
+touches waveform data, on the CPU or on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    'array_namespace',
+    'is_torch_tensor',
+    'resolve_device',
+    'to_device',
+    'to_host',
+    'unpack_iq',
+]
+
+
+def is_torch_tensor(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def array_namespace(a):
+    """return the array module (numpy or torch) for ``a``; TypeError for
+    anything else."""
+    if is_torch_tensor(a):
+        return torch
+    if isinstance(a, (np.ndarray, np.generic)):
+        return np
+    raise TypeError(f'unrecognized object type {type(a)!r}')
+
+
+def resolve_device(device=None) -> torch.device:
+    """the device an entry point runs on: the card unless the caller asks
+    for another. Asking for CUDA on a machine without it raises; nothing
+    drops to the CPU on its own."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'CUDA is not available; pass device="cpu" to run the plain '
+            'PyTorch versions on the CPU'
+        )
+    return device
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """numpy array or tensor -> tensor on ``device`` (no copy when it is
+    already there with the requested dtype)."""
+    if not is_torch_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=dtype)
+
+
+def to_host(x) -> np.ndarray:
+    """tensor (any device) or array-like -> numpy array."""
+    if is_torch_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def unpack_iq(ri: torch.Tensor) -> torch.Tensor:
+    """rebuild complex IQ from (2, ...) float32 (real, imag) planes."""
+    return torch.complex(ri[0], ri[1])

@@ -1,0 +1,133 @@
+"""Each kernel's plain PyTorch version against the JAX package's Pallas
+kernel (interpret mode on the CPU), at the flagship widths.
+
+The same inputs, made from a seed with numpy, go through both packages.
+Tolerances: relative RMS <= 1e-5 for the OLA and the channelizer
+statistics (float32 FFTs in two libraries, 'highest' DFT passes on the
+JAX side); exact equality for the histogram counts (exact float32
+compares on both sides). The CUDA kernels are held against these plain
+versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import iqwaveform_torch as it
+from iqwaveform_torch.ops import kernels
+from iqwaveform_tpu.models import WidebandMonitor as JaxMonitor
+from iqwaveform_tpu.models import design_wideband_monitor as jax_design
+from iqwaveform_tpu.ops.pallas.chan_stats_pallas import chan_stats_pallas
+from iqwaveform_tpu.ops.pallas.hist_pallas import histogram_edge_counts_pallas
+
+FLAGSHIP = dict(
+    bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
+    window='hamming', apd_bins=2048, apd_navg=16, min_fft_size=8191,
+)
+KERNEL_FIELDS = dict(
+    fft_backend='mxu', ola_kernel='pallas', apd_kernel='pallas',
+    chan_kernel='pallas', fft_precision='highest',
+)
+
+
+def rel_rms(got, ref):
+    got, ref = np.asarray(got, np.complex128), np.asarray(ref, np.complex128)
+    return float(np.sqrt(np.mean(np.abs(got - ref) ** 2) / np.mean(np.abs(ref) ** 2)))
+
+
+def _monitors(**overrides):
+    """the JAX monitor with its Pallas kernels armed, and the port's CPU
+    monitor from the same design."""
+    jd = jax_design(122.88e6, 61.44e6, **dict(FLAGSHIP, **KERNEL_FIELDS, **overrides))
+    td = it.design_from_reference(dataclasses.asdict(jd))
+    return JaxMonitor(jd), it.WidebandMonitor(td, device='cpu')
+
+
+def _complex(rng, shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(
+        'complex64'
+    )
+
+
+def test_fused_ola_plain_matches_pallas_strided():
+    jm, tm = _monitors()
+    assert jm._strided_ola is not None
+    n_frames = 8
+    rng = np.random.default_rng(11)
+    x = _complex(rng, n_frames * jm.hop_in)
+
+    planes = jnp.asarray(np.stack([x.real, x.imag]))
+    halo = jnp.zeros((2, jm.hop_in), jnp.float32)
+    packed, _ = jm._strided_ola(
+        planes, halo, n_frames=n_frames, precision='highest', interpret=True
+    )
+    packed = np.asarray(packed)
+    # packed rows: real in columns 0:128, imag in 128:256; tail dropped
+    ref = packed[:, :128].reshape(-1) + 1j * packed[:, 128:].reshape(-1)
+
+    got = kernels.fused_ola(torch.from_numpy(x), **tm.ola_kwargs).numpy()
+    assert got.shape == ref.shape == (n_frames * tm.hop_out,)
+    assert got.dtype == np.complex64
+    assert rel_rms(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize('analysis_bins', [256, 192])
+def test_chan_stats_plain_matches_pallas(analysis_bins):
+    jm, tm = _monitors(analysis_bins_per_channel=analysis_bins)
+    kw = tm.chan_kwargs
+    assert (kw['skip_bins'] > 0) == (analysis_bins < 256)
+    n_frames = 8
+    rng = np.random.default_rng(12)
+    y = _complex(rng, n_frames * kw['nfft_big'])
+
+    ref = chan_stats_pallas(
+        jnp.asarray(y), nfft_big=kw['nfft_big'], channel_count=kw['channel_count'],
+        window=np.asarray(jm._w_ch) / kw['nfft_big'], navg=kw['navg'],
+        skip_bins=kw['skip_bins'], precision='highest', interpret=True,
+    )
+    got = kernels.chan_stats(torch.from_numpy(y), **kw)
+    assert set(got) == set(ref)
+    for key in ref:
+        r, g = np.asarray(ref[key]), got[key].numpy()
+        assert g.shape == r.shape and g.dtype == np.float32, key
+        assert rel_rms(g, r) <= 1e-5, key
+
+
+def test_hist_plain_matches_pallas_exactly():
+    _, tm = _monitors()
+    edges = tm._apd_edges_pow
+    rng = np.random.default_rng(13)
+    vals = np.concatenate([
+        10 ** rng.uniform(-13, 4, 20000),  # across and beyond the edge range
+        edges[::5],  # exactly on edges
+        [0.0, edges[0] / 2, edges[-1] * 2, 1e30],  # below the first, above the last
+    ]).astype('float32')
+    rng.shuffle(vals)
+
+    ref = np.asarray(histogram_edge_counts_pallas(jnp.asarray(vals), edges, interpret=True))
+    got = kernels.hist(torch.from_numpy(vals), tm.apd_edges).numpy()
+    assert got.dtype == np.int32 and got.shape == (edges.size + 1,)
+    np.testing.assert_array_equal(got, ref.astype(np.int64))
+    assert got[0] > 0 and got[-1] > 0
+
+
+def test_plain_versions_take_a_batch_axis():
+    """(B, N) rows go through the plain versions as independent rows."""
+    _, tm = _monitors()
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(_complex(rng, (2, 2 * tm.min_input_multiple())))
+    y = kernels.fused_ola(x, **tm.ola_kwargs)
+    for r in range(2):
+        torch.testing.assert_close(y[r], kernels.fused_ola(x[r], **tm.ola_kwargs))
+    cs = kernels.chan_stats(y, **tm.chan_kwargs)
+    for r in range(2):
+        one = kernels.chan_stats(y[r], **tm.chan_kwargs)
+        for key in cs:
+            torch.testing.assert_close(cs[key][r], one[key])
+    counts = kernels.hist(cs['p_binned'], tm.apd_edges)
+    assert counts.shape == (2, tm.apd_edges.numel() + 1)
+    for r in range(2):
+        assert torch.equal(counts[r], kernels.hist(cs['p_binned'][r], tm.apd_edges))

@@ -1,0 +1,140 @@
+"""The port's WidebandMonitor.step on the CPU against the JAX monitor's.
+
+Both monitors are built from one JAX design (design_from_reference) and
+fed the same numpy inputs. Tolerances (the slice's numerics bar,
+tests/test_monitor.py:436-437 and :473-475): channel power within 1e-5
+relative RMS; psd_mean / psd_max within 0.01 dB on bins where the JAX value
+is above -100 dB; APD totals equal and L1 within max(2, total // 1000).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import iqwaveform_torch as it
+from iqwaveform_tpu.models import WidebandMonitor as JaxMonitor
+from iqwaveform_tpu.models import design_wideband_monitor as jax_design
+
+DESIGNS = {
+    'flagship': ((122.88e6, 61.44e6), dict(
+        bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
+        window='hamming', apd_bins=2048, apd_navg=16, min_fft_size=8191,
+    )),
+    # tests/test_monitor.py:23-34
+    'small': ((2e6, 1e6), dict(
+        bw=0.8e6, channel_count=4, fft_size_per_channel=64, window='hamming',
+        apd_bins=256, min_fft_size=255, fs_sdr=2e6,
+    )),
+}
+
+
+def rel_rms(got, ref):
+    return float(np.sqrt(np.mean((got - ref) ** 2) / np.mean(ref**2)))
+
+
+def assert_step_close(got: dict, ref: dict):
+    assert set(got) == set(ref)
+    for key, r in ref.items():
+        g = got[key].numpy()
+        assert g.shape == r.shape, key
+        assert g.dtype == (np.int32 if key == 'apd_counts' else np.float32), key
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(got[key].numpy(), ref[key]) <= 1e-5, key
+    for key in ('psd_mean', 'psd_max'):
+        band = ref[key] > -100
+        assert band.sum() > 0
+        np.testing.assert_allclose(got[key].numpy()[band], ref[key][band], atol=0.01)
+    a, b = got['apd_counts'].numpy().astype(np.int64), ref['apd_counts'].astype(np.int64)
+    assert a.sum() == b.sum()
+    assert np.abs(a - b).sum() <= max(2, b.sum() // 1000)
+
+
+def _pair(name):
+    rates, kw = DESIGNS[name]
+    jd = jax_design(*rates, **kw)
+    td = it.design_from_reference(dataclasses.asdict(jd))
+    return JaxMonitor(jd), it.WidebandMonitor(td, device='cpu')
+
+
+@pytest.mark.parametrize(
+    'name,shape',
+    [
+        ('flagship', (4 * 16384,)),
+        ('flagship', (2, 4 * 16384)),
+        ('small', None),
+    ],
+)
+def test_step_matches_jax(name, shape):
+    jm, tm = _pair(name)
+    if shape is None:
+        shape = (8 * jm.min_input_multiple(),)
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype('complex64')
+
+    ref = {k: np.asarray(v) for k, v in jax.jit(jm.step)(jnp.asarray(x)).items()}
+    got = tm.step(x)
+    assert_step_close(got, ref)
+    # the same step through the plain versions, named as such
+    for key, v in tm.reference_step(torch.from_numpy(x)).items():
+        assert torch.equal(v, got[key]), key
+
+
+def test_step_batch_rows_match_single_rows():
+    _, tm = _pair('small')
+    rng = np.random.default_rng(22)
+    n = 2 * tm.min_input_multiple()
+    x = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))).astype('complex64')
+    out = tm.step(x)
+    for r in range(3):
+        one = tm.step(x[r])
+        for key in out:
+            torch.testing.assert_close(out[key][r], one[key], rtol=1e-6, atol=0)
+
+
+def test_step_rejects_short_and_misshaped_input():
+    _, tm = _pair('small')
+    with pytest.raises(ValueError, match='min_input_multiple'):
+        tm.step(np.zeros(8, 'complex64'))
+    with pytest.raises(ValueError, match=r'\(N,\) or \(B, N\)'):
+        tm.step(np.zeros((1, 1, tm.min_input_multiple()), 'complex64'))
+
+
+def test_default_device_is_cuda(monkeypatch):
+    rates, kw = DESIGNS['small']
+    design = it.design_wideband_monitor(*rates, **kw)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        it.WidebandMonitor(design)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        it.WidebandMonitor(design, device='cuda')
+    assert it.WidebandMonitor(design, device='cpu').device.type == 'cpu'
+
+
+@pytest.mark.parametrize(
+    'field,value',
+    [('fft_precision', 'bf16'), ('fft_precision', 'i16'), ('apd_kernel', 'packed')],
+)
+def test_unported_tiers_raise(field, value):
+    rates, kw = DESIGNS['small']
+    design = dataclasses.replace(it.design_wideband_monitor(*rates, **kw), **{field: value})
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        it.WidebandMonitor(design, device='cpu')
+
+
+def test_input_scale_folds_into_the_window():
+    """input_scale multiplies the raw samples: a scaled design on x equals
+    the unscaled design on scale * x."""
+    rates, kw = DESIGNS['small']
+    base = it.design_wideband_monitor(*rates, **kw)
+    scaled = dataclasses.replace(base, input_scale=0.5)
+    rng = np.random.default_rng(23)
+    n = 4 * it.WidebandMonitor(base, device='cpu').min_input_multiple()
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    a = it.WidebandMonitor(scaled, device='cpu').step(x)
+    b = it.WidebandMonitor(base, device='cpu').step(0.5 * x)
+    for key in ('channel_power', 'psd_mean'):
+        torch.testing.assert_close(a[key], b[key], rtol=1e-5, atol=1e-6)
