@@ -18,7 +18,27 @@ build/iqwaveform_torch/), then, at the flagship WidebandMonitor design
    on a short input;
 3. times the step and each kernel with CUDA events (median of REPS runs
    after warm-up), beside the kernel's bound, its plain version and, where
-   one exists, the PyTorch call that computes the same function.
+   one exists, the PyTorch call that computes the same function;
+
+then, at BASELINE config #3 (bench.py:312-325: streaming persistence
+spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
+(-150, 50) dB, chunks of 2^24 samples, apd_navg 16, 512 APD edges):
+
+4. over 2^30 samples of (2, n) float32 planes made on the card (64
+   distinct chunks): (a) on chunk 0, the levels, column-count and APD
+   kernels against their plain versions; (b) the fold of the first 4
+   chunks against the plain-version fold; (c) the fold of all 64 chunks
+   through ``persistence_apd_fold``, which must launch each of those three
+   kernels exactly 64 times, then ``persistence_finalize``; (d) a profile
+   of one chunk's fold, which may show no cuFFT / cuBLAS / CUTLASS kernel;
+   (e) the 1 GS time, and the device-busy share of one chunk;
+5. the public ``streaming_persistence_spectrum`` on 4 chunks plus a
+   131072-multiple tail and 3072 samples that its rules drop, against the
+   plain path;
+6. the unfused path (2048 histogram bins: ``spectrogram_dB`` and the
+   column counter on float values) on one chunk, against the plain path;
+7. the stats-only design (BASELINE config #1, hist_bins=0) on one chunk,
+   against the plain path.
 
 It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -33,8 +53,10 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -65,6 +87,7 @@ _RATES = (
 )
 FORBIDDEN = ('fft', 'cublas', 'gemm', 'cutlass', 'xmma')
 
+MONITOR_KERNELS = ('fused_ola', 'chan_stats', 'hist')
 KERNEL_INFO = {
     'fused_ola': ('iqwaveform_torch/csrc/fused_ola.cu',
                   'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571'),
@@ -72,7 +95,27 @@ KERNEL_INFO = {
                    'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
     'hist': ('iqwaveform_torch/csrc/hist.cu',
              'iqwaveform_tpu/ops/pallas/hist_pallas.py:51'),
+    'spectrogram_dB': ('iqwaveform_torch/csrc/spectrogram.cu',
+                       'iqwaveform_tpu/ops/pallas/spectrogram_pallas.py:258'),
+    'spectrogram_levels': ('iqwaveform_torch/csrc/spectrogram.cu',
+                           'iqwaveform_tpu/ops/pallas/spectrogram_pallas.py:414'),
+    'colhist': ('iqwaveform_torch/csrc/colhist.cu',
+                'iqwaveform_tpu/ops/pallas/colhist_pallas.py:309'),
+    # the same kernel on float values (its colhist_kernel<true> instance),
+    # reported inside the colhist row
+    'colhist_values': ('iqwaveform_torch/csrc/colhist.cu',
+                       'iqwaveform_tpu/ops/pallas/colhist_pallas.py:106'),
 }
+
+# BASELINE config #3 (bench.py:312-325)
+PERSISTENCE = dict(
+    nfft=1024, window='hann', hist_bins=1024, hist_range_dB=(-150.0, 50.0),
+    fft_backend='pallas', fft_precision='high',
+)
+CHUNK = 1 << 24
+N_CHUNKS = 64
+APD_NAVG = 16
+N_FOLD_CHECK = 4
 
 
 class CheckFailed(RuntimeError):
@@ -148,6 +191,381 @@ def check_step(out, ref, label: str) -> None:
         require(v.shape == ref[key].shape, f'{label} {key}: shape {tuple(v.shape)}')
         if v.is_floating_point():
             require(bool(torch.isfinite(v).all()), f'{label} {key}: not finite')
+
+
+def kernel_row(kname, result, nbytes, nops, kernel_fn, plain_fn, library_fn,
+               mem_rate, fp32_rate) -> dict:
+    """one entry of the kernels line: the bound from this run's shapes, and
+    the kernel, its plain version and the library call timed here."""
+    t_bytes = nbytes / mem_rate * 1e3
+    t_ops = nops / fp32_rate * 1e3
+    return {
+        'name': kname,
+        'route': 'cuda',
+        'source': KERNEL_INFO[kname][0],
+        'replaces': KERNEL_INFO[kname][1],
+        'launches': result['launches'],
+        'max_abs_err': result['max_abs_err'],
+        'ms': timed_ms(kernel_fn),
+        'plain_ms': timed_ms(plain_fn),
+        'bound_ms': max(t_bytes, t_ops),
+        'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+        'library_ms': None if library_fn is None else timed_ms(library_fn),
+    }
+
+
+def merge_rows(first: list, later: list) -> list:
+    """the kernels line: a kernel of several paths keeps the row of the
+    newest path's run, with the earlier path's numbers beside it."""
+    rows = {r['name']: r for r in first}
+    for r in later:
+        if r['name'] in rows:
+            r['earlier_path'] = {k: rows[r['name']][k] for k in ('launches', 'ms', 'bound_ms')}
+        rows[r['name']] = r
+    return list(rows.values())
+
+
+def fft_ops(n: int) -> float:
+    return 5 * n * math.log2(n)
+
+
+def min_gate(got_min, ref_min, ref_mean) -> tuple:
+    """min of dB is each bin's deepest value. Per value a float32 FFT's
+    error is relative to the frame's energy, so two FFTs agree in dB the
+    less the deeper the value: over 2^16 frames of white noise the mins lie
+    some 45 dB below the mean and differ by up to ~1e-2 dB. The gate holds
+    them in linear power against the bin's mean power:
+    |10^(a/10) - 10^(b/10)| <= 1e-6 * 10^(mean/10). Returns (largest dB
+    difference, largest power difference over the mean power)."""
+    band = ref_min > -100
+    require(int(band.sum()) > 0, 'no min above -100 dB')
+    a, b, m = (v[band].double() for v in (got_min, ref_min, ref_mean))
+    lin = float(((10 ** (a / 10) - 10 ** (b / 10)).abs() / 10 ** (m / 10)).max())
+    return float((a - b).abs().max()), lin
+
+
+def check_persistence(got: dict, ref: dict, label: str, frames: int) -> dict:
+    """a finalized persistence result against the plain path's: mean and max
+    of dB within 1e-3 dB where above -100 dB (the JAX package's bar,
+    tests/test_parallel.py:423-506), min by min_gate; histogram per-column
+    totals equal, L1 within 2e-3 of the counted entries (a level that moves
+    by one bin changes two cells; the kernel gate allows 1e-3 of the levels
+    to move), quantiles within one bin width. Returns the largest
+    differences."""
+    errs = {}
+    for key in ('mean_dB', 'max_dB', 'min_dB'):
+        a, b = got[key], ref[key]
+        require(a.shape == b.shape, f'{label} {key}: shape {tuple(a.shape)}')
+        require(bool(torch.isfinite(a).all()), f'{label} {key}: not finite')
+    for key in ('mean_dB', 'max_dB'):
+        band = ref[key] > -100
+        require(int(band.sum()) > 0, f'{label} {key}: no bin above -100 dB')
+        errs[key] = max_abs(got[key][band], ref[key][band])
+        require(errs[key] <= 1e-3, f'{label} {key}: {errs[key]:.4g} dB > 1e-3 dB')
+    errs['min_dB'], errs['min_power_over_mean'] = min_gate(
+        got['min_dB'], ref['min_dB'], ref['mean_dB'])
+    require(errs['min_power_over_mean'] <= 1e-6,
+            f'{label} min_dB: power differs by {errs["min_power_over_mean"]:.3g} of the mean')
+    if 'hist' in ref:
+        g, r = got['hist'].long(), ref['hist'].long()
+        require(bool((g.sum(dim=1) == frames).all()), f'{label} hist: a column total is not {frames}')
+        require(torch.equal(g.sum(dim=1), r.sum(dim=1)), f'{label} hist: totals differ')
+        l1 = int((g - r).abs().sum())
+        require(l1 <= 2e-3 * g.shape[0] * frames,
+                f'{label} hist: L1 {l1} above 2e-3 of {frames * g.shape[0]} entries')
+        width = float(ref['hist_edges_dB'][1] - ref['hist_edges_dB'][0])
+        dq = max_abs(got['quantiles_dB'], ref['quantiles_dB'])
+        require(dq <= width, f'{label} quantiles: {dq:.4g} dB > one bin ({width:.4g} dB)')
+        errs['hist_L1'] = l1
+        errs['quantiles_dB'] = dq
+    else:
+        require('hist' not in got, f'{label}: a stats-only design returned a histogram')
+    return errs
+
+
+def check_apd(got, ref, label: str, total: int) -> int:
+    a, b = got.long(), ref.long()
+    require(int(a.sum()) == int(b.sum()) == total, f'{label} apd: totals differ from {total}')
+    l1 = int((a - b).abs().sum())
+    require(l1 <= max(2, total // 1000), f'{label} apd: L1 {l1}')
+    return l1
+
+
+def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phases 4-7; returns the kernels line's rows of this path."""
+    from iqwaveform_torch import parallel as P
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
+    from torch.profiler import ProfilerActivity, profile
+
+    design = P.design_persistence(**PERSISTENCE)
+    nfft = design['nfft']
+    quant = design['quant']
+    w = torch.from_numpy(design['kernel_window']).to(dev)
+    apd_edges = torch.from_numpy(
+        (10 ** (np.linspace(-120.0, 30.0, 513) / 10.0)).astype('float32')
+    ).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((2, N_CHUNKS * CHUNK), device=dev, generator=gen)
+    n_total = x.shape[1]
+
+    def chunk(i):
+        return x[:, i * CHUNK:(i + 1) * CHUNK]
+
+    def fold(carry, apd, i, plain=False):
+        return P.persistence_apd_fold(carry, apd, chunk(i), design, apd_edges=apd_edges,
+                                      apd_navg=APD_NAVG, plain=plain)
+
+    def apd_zeros():
+        return torch.zeros(apd_edges.numel() + 1, dtype=torch.int32, device=dev)
+
+    results = {}
+    frames = CHUNK // nfft
+    c0 = chunk(0)
+
+    # ---- phase 4a: the path's kernels against their plain versions, chunk 0
+    lv = kernels.spectrogram_levels(c0, w, nfft, quant=quant, apd_navg=APD_NAVG)
+    lv_ref = kernels.spectrogram_levels_plain(c0, w, nfft, quant=quant, apd_navg=APD_NAVG)
+    diff = (lv['levels'] - lv_ref['levels']).abs()
+    moved = float((diff > 0).float().mean())
+    print(f'spectrogram_levels: {tuple(c0.shape)} -> levels {tuple(lv["levels"].shape)}, '
+          f'{moved:.3g} of levels differ (max {int(diff.max())})')
+    require(int(diff.max()) <= 1 and moved <= 1e-3,
+            f'spectrogram_levels: {moved:.3g} of levels differ, by up to {int(diff.max())}')
+    errs = {
+        'mean_dB': max_abs(lv['psum'] / frames, lv_ref['psum'] / frames),
+        'max_dB': max_abs(lv['pmax'], lv_ref['pmax']),
+    }
+    errs['min_dB'], min_lin = min_gate(lv['pmin'], lv_ref['pmin'], lv_ref['psum'] / frames)
+    pb_err = rel_rms(lv['p_binned'], lv_ref['p_binned'])
+    print(f'spectrogram_levels: stats vs plain {json.dumps(errs)} (min power differs by '
+          f'{min_lin:.3g} of the mean), p_binned {tuple(lv["p_binned"].shape)} relative '
+          f'RMS {pb_err:.3g}')
+    for key in ('mean_dB', 'max_dB'):
+        require(errs[key] <= 1e-3, f'spectrogram_levels {key}: {errs[key]:.4g} dB > 1e-3 dB')
+    require(min_lin <= 1e-6, f'spectrogram_levels min_dB: power differs by {min_lin:.3g} of the mean')
+    require(pb_err <= 1e-5, f'spectrogram_levels p_binned relative RMS {pb_err:.3g} > 1e-5')
+    results['spectrogram_levels'] = {'max_abs_err': max(errs.values())}
+
+    levels = lv['levels']
+    ch = kernels.colhist(levels, torch.zeros((nfft, quant[2]), dtype=torch.int32, device=dev))
+    ch_ref = kernels.colhist_plain(levels, torch.zeros_like(ch))
+    ch_l1 = int((ch.long() - ch_ref.long()).abs().sum())
+    print(f'colhist: levels {tuple(levels.shape)} -> {tuple(ch.shape)} L1 vs plain {ch_l1}')
+    require(ch_l1 == 0, 'colhist differs from bincount on the same levels')
+    require(bool((ch.sum(dim=1) == frames).all()), 'colhist: a column total is not the frame count')
+    results['colhist'] = {'max_abs_err': float(ch_l1)}
+
+    pbin = lv['p_binned']
+    ac = kernels.hist(pbin, apd_edges)
+    ac_l1 = int((ac.long() - kernels.hist_plain(pbin, apd_edges).long()).abs().sum())
+    print(f'hist: {tuple(pbin.shape)} -> {tuple(ac.shape)} L1 vs plain {ac_l1}')
+    require(ac_l1 == 0 and int(ac.sum()) == pbin.numel(), 'hist differs from sort + searchsorted')
+    results['hist'] = {'max_abs_err': float(ac_l1)}
+    torch.cuda.synchronize()
+
+    # ---- phase 4b: the fold of the first chunks against the plain fold
+    runs = []
+    for plain in (False, True):
+        c, a = P.persistence_init(design, dev), apd_zeros()
+        for i in range(N_FOLD_CHECK):
+            c, a = fold(c, a, i, plain=plain)
+        runs.append((P.persistence_finalize(c, design, fs=1.0), a))
+    errs = check_persistence(runs[0][0], runs[1][0], f'fold of {N_FOLD_CHECK} chunks',
+                             N_FOLD_CHECK * frames)
+    errs['apd_L1'] = check_apd(runs[0][1], runs[1][1], f'fold of {N_FOLD_CHECK} chunks',
+                               N_FOLD_CHECK * CHUNK // APD_NAVG)
+    print(f'fold of {N_FOLD_CHECK} chunks vs plain fold: {json.dumps(errs)}')
+    del runs
+
+    # ---- phase 4c/e: the full 1 GS through the kernels, timed
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    carry, apd = P.persistence_init(design, dev), apd_zeros()
+    carry, apd = fold(carry, apd, 0)  # warm-up: allocator, first-use setup
+    carry, apd = P.persistence_init(design, dev), apd_zeros()
+    torch.cuda.synchronize()
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    for i in range(N_CHUNKS):
+        carry, apd = fold(carry, apd, i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = {name: k.launches for name, k in kset.items()}
+    print(f'launches over {N_CHUNKS} chunks: ' + json.dumps(launched))
+    for kname in ('spectrogram_levels', 'colhist', 'hist'):
+        require(launched[kname] == N_CHUNKS,
+                f'{kname} launched {launched[kname]} times over {N_CHUNKS} chunks')
+        results[kname]['launches'] = launched[kname]
+    require(launched['spectrogram_dB'] == 0, 'the fused path launched spectrogram_dB')
+    out = P.persistence_finalize(carry, design, fs=1.0)
+    all_frames = n_total // nfft
+    require(carry.count == all_frames, f'folded {carry.count} frames, not {all_frames}')
+    require(bool((out['hist'].sum(dim=1) == all_frames).all()), '1 GS hist: column totals')
+    require(int(apd.sum()) == n_total // APD_NAVG, '1 GS apd: total')
+    for key in ('mean_dB', 'max_dB', 'min_dB', 'quantiles_dB'):
+        require(bool(torch.isfinite(out[key]).all()), f'1 GS {key}: not finite')
+    # white noise of unit variance per plane through the unit-power window:
+    # E|Y|^2 = 2 / nfft, and the mean of 10 log10 of an exponential variate
+    # lies 10 * euler_gamma / ln 10 dB below 10 log10 of its mean
+    theory = 10 * math.log10(2 / nfft) - 10 * 0.5772156649015329 / math.log(10)
+    dev_mean = float((out['mean_dB'] - theory).abs().max())
+    print(f'1 GS mean_dB: {float(out["mean_dB"].mean()):.5f} dB, theory {theory:.5f} dB, '
+          f'largest bin deviation {dev_mean:.5f} dB')
+    require(dev_mean <= 0.05, f'1 GS mean_dB deviates {dev_mean:.4g} dB from white noise')
+    ms_chunk = dt * 1e3 / N_CHUNKS
+    print(f'1 GS fold: {n_total} samples in {dt:.4f} s = {n_total / dt / 1e9:.4f} GS/s, '
+          f'{ms_chunk:.4f} ms per {CHUNK}-sample chunk ({smi})')
+
+    # ---- phase 4d: one chunk's fold under the profiler
+    c, a = carry, apd
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        c, a = fold(c, a, 1)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = sorted({e.name for e in events})
+    device_us = {}
+    for e in events:
+        key = short_name(e.name)
+        device_us[key] = device_us.get(key, 0.0) + e.time_range.elapsed_us()
+    print('chunk fold device kernels: ' + json.dumps(names))
+    for k in ('spectrogram_kernel', 'colhist_kernel', 'hist_kernel'):
+        require(any(k in n for n in names), f'profiler shows no {k} in the fold')
+    bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
+    require(not bad, f'library FFT / GEMM kernels in the fold: {bad}')
+    busy_ms = sum(device_us.values()) / 1e3
+    print('chunk fold device time by kernel (us): ' + json.dumps(
+        dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+    print(f'chunk fold device busy: {busy_ms:.4f} ms of {ms_chunk:.4f} ms per chunk '
+          f'(busy share {min(1.0, busy_ms / ms_chunk):.3f})')
+    del c, a, carry, apd, out
+
+    # ---- phase 5: the public entry point, against the plain path
+    n5 = N_FOLD_CHECK * CHUNK + 5 * 131072 + 3 * 1024
+    xc = torch.randn(n5, dtype=torch.complex64, device=dev, generator=gen)
+    kw = dict(fs=1.0, window='hann', nfft=nfft, chunk_frames=CHUNK // nfft, hist_bins=1024,
+              hist_range_dB=(-150.0, 50.0), device=dev)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        got = P.streaming_persistence_spectrum(xc, **kw)
+    launched = {name: k.launches for name, k in kset.items()}
+    ref = P.streaming_persistence_spectrum(xc, **kw, plain=True)
+    dropped = [str(m.message) for m in caught if 'dropping' in str(m.message)]
+    require(dropped == ['dropping 3072 trailing samples (shorter than one pallas slab)'],
+            f'entry point: expected one warning for 3072 dropped samples, got {dropped}')
+    frames5 = (N_FOLD_CHECK * CHUNK + 5 * 131072) // nfft
+    require(got['_carry'].count == frames5, f'entry point folded {got["_carry"].count} frames')
+    require(launched['spectrogram_levels'] == N_FOLD_CHECK + 1 == launched['colhist'],
+            f'entry point launches {launched}')
+    errs = check_persistence(got, ref, 'entry point', frames5)
+    print(f'entry point: {n5} samples, {frames5} frames folded, launches {json.dumps(launched)}, '
+          f'vs plain path {json.dumps(errs)}')
+    del xc, got, ref
+
+    # ---- phase 6: the unfused path (2048 bins), one chunk
+    d6 = P.design_persistence(**dict(PERSISTENCE, hist_bins=2048))
+    db = kernels.spectrogram_dB(c0, w, nfft)
+    db_ref = kernels.spectrogram_dB_plain(c0, w, nfft)
+    band = db_ref > -100
+    mean_p = torch.log10((10 ** (db_ref.double() / 10)).mean(dim=1, keepdim=True)) * 10
+    shallow = band & (db_ref > mean_p - 40)
+    err_db = max_abs(db[shallow], db_ref[shallow])
+    print(f'spectrogram_dB: {tuple(c0.shape)} -> {tuple(db.shape)}, |dB diff| {err_db:.3g} on the '
+          f'{float(shallow.double().mean()):.6f} of values above -100 dB and within 40 dB of '
+          f'their frame mean, {max_abs(db[band], db_ref[band]):.3g} on all above -100 dB')
+    require(err_db <= 1e-3, f'spectrogram_dB: {err_db:.4g} dB > 1e-3 dB')
+    results['spectrogram_dB'] = {'max_abs_err': err_db}
+    lo, scale, b6 = d6['quant']
+    chf = kernels.colhist(db, torch.zeros((nfft, b6), dtype=torch.int32, device=dev),
+                          lo=lo, scale=scale)
+    chf_ref = kernels.colhist_plain(db, torch.zeros_like(chf), lo=lo, scale=scale)
+    require(torch.equal(chf, chf_ref), 'colhist on float values differs from bincount')
+    require(bool((chf.sum(dim=1) == frames).all()), 'colhist on float values: column totals')
+    results['colhist_values'] = {'max_abs_err': 0.0}
+    for k in kernels.KERNELS:
+        k.launches = 0
+    c6 = P.persistence_fold(P.persistence_init(d6, dev), c0, d6)
+    torch.cuda.synchronize()
+    launched = {name: k.launches for name, k in kset.items()}
+    require(launched['spectrogram_dB'] == 1 == launched['colhist']
+            and launched['spectrogram_levels'] == 0, f'unfused fold launches {launched}')
+    results['spectrogram_dB']['launches'] = launched['spectrogram_dB']
+    results['colhist_values']['launches'] = launched['colhist']
+    ref6 = P.persistence_fold(P.persistence_init(d6, dev), c0, d6, plain=True)
+    errs = check_persistence(P.persistence_finalize(c6, d6, fs=1.0),
+                             P.persistence_finalize(ref6, d6, fs=1.0), 'unfused fold', frames)
+    print(f'unfused fold (2048 bins): launches {json.dumps(launched)}, vs plain '
+          f'{json.dumps(errs)}')
+    del c6, ref6, chf, chf_ref
+
+    # ---- phase 7: stats only (BASELINE config #1), one chunk
+    d7 = P.design_persistence(**dict(PERSISTENCE, hist_bins=0))
+    for k in kernels.KERNELS:
+        k.launches = 0
+    c7 = P.persistence_fold(P.persistence_init(d7, dev), c0, d7)
+    torch.cuda.synchronize()
+    launched = {name: k.launches for name, k in kset.items()}
+    require(launched['spectrogram_levels'] == 1 and launched['colhist'] == 0
+            and launched['spectrogram_dB'] == 0, f'stats-only fold launches {launched}')
+    require(c7.hist is None, 'stats-only fold carried a histogram')
+    ref7 = P.persistence_fold(P.persistence_init(d7, dev), c0, d7, plain=True)
+    errs = check_persistence(P.persistence_finalize(c7, d7, fs=1.0),
+                             P.persistence_finalize(ref7, d7, fs=1.0), 'stats-only fold', frames)
+    print(f'stats-only fold: launches {json.dumps(launched)}, vs plain {json.dumps(errs)}')
+
+    # ---- times of this path's kernels at the shapes it gives them
+    scratch = torch.zeros((nfft, quant[2]), dtype=torch.int32, device=dev)
+    cols = torch.arange(nfft, device=dev, dtype=torch.int64)
+    flat = (levels.long() + cols * quant[2]).reshape(-1)
+    scratch6 = torch.zeros((nfft, b6), dtype=torch.int32, device=dev)
+    flat6 = (quantize_uniform(db, lo, scale, b6).long() + cols * b6).reshape(-1)
+    n = CHUNK
+    per_frame = fft_ops(nfft) + 12 * nfft
+    work = {
+        'spectrogram_levels': (8 * n + 4 * n + 4 * n // APD_NAVG + 8 * nfft + 12 * nfft,
+                               frames * per_frame + 3 * n),
+        'spectrogram_dB': (8 * n + 4 * n + 8 * nfft, frames * per_frame),
+        'colhist': (4 * levels.numel() + 2 * 4 * scratch.numel(), levels.numel()),
+        'colhist_values': (4 * db.numel() + 2 * 4 * scratch6.numel(), 4 * db.numel()),
+        'hist': (4 * pbin.numel() + 4 * apd_edges.numel() + 4 * ac.numel(),
+                 pbin.numel() * math.ceil(math.log2(apd_edges.numel() + 1))),
+    }
+    spg_levels = lambda: kernels.spectrogram_levels(c0, w, nfft, quant=quant,  # noqa: E731
+                                                    apd_navg=APD_NAVG)
+    spg_levels_plain = lambda: kernels.spectrogram_levels_plain(  # noqa: E731
+        c0, w, nfft, quant=quant, apd_navg=APD_NAVG)
+    spg_db_plain = lambda: kernels.spectrogram_dB_plain(c0, w, nfft)  # noqa: E731
+    calls = {
+        # library: the torch.fft formulation (the plain version) for the
+        # spectrogram rows, one torch.bincount for the column counts; no
+        # single PyTorch call counts fixed-edge histograms
+        'spectrogram_levels': (spg_levels, spg_levels_plain, spg_levels_plain),
+        'spectrogram_dB': (lambda: kernels.spectrogram_dB(c0, w, nfft), spg_db_plain,
+                           spg_db_plain),
+        'colhist': (lambda: kernels.colhist(levels, scratch),
+                    lambda: kernels.colhist_plain(levels, scratch),
+                    lambda: torch.bincount(flat, minlength=scratch.numel())),
+        'colhist_values': (lambda: kernels.colhist(db, scratch6, lo=lo, scale=scale),
+                           lambda: kernels.colhist_plain(db, scratch6, lo=lo, scale=scale),
+                           lambda: torch.bincount(flat6, minlength=scratch6.numel())),
+        'hist': (lambda: kernels.hist(pbin, apd_edges),
+                 lambda: kernels.hist_plain(pbin, apd_edges), None),
+    }
+    rows = {}
+    for kname, (kernel_fn, plain_fn, library_fn) in calls.items():
+        nbytes, nops = work[kname]
+        row = kernel_row(kname, results[kname], nbytes, nops, kernel_fn, plain_fn,
+                         library_fn, mem_rate, fp32_rate)
+        rows[kname] = row
+        print(f'{kname}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+              f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms, library '
+              f'{row["library_ms"]}) on {smi}')
+    # one kernel, one row: its float-value instance rides along in it
+    rows['colhist']['float_values'] = rows.pop('colhist_values')
+    return list(rows.values())
 
 
 def main() -> int:
@@ -226,11 +644,11 @@ def main() -> int:
         k.launches = 0
     out = mon.step(x)
     torch.cuda.synchronize()
-    for k in kernels.KERNELS:
-        results[k.__name__]['launches'] = k.launches
-        require(k.launches > 0, f'the step launched no {k.__name__} kernel')
-    print('launches in one step: ' + ', '.join(
-        f'{k.__name__}={k.launches}' for k in kernels.KERNELS))
+    launched = {k.__name__: k.launches for k in kernels.KERNELS}
+    for kname in MONITOR_KERNELS:
+        results[kname]['launches'] = launched[kname]
+        require(launched[kname] > 0, f'the step launched no {kname} kernel')
+    print('launches in one step: ' + json.dumps(launched))
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -314,26 +732,16 @@ def main() -> int:
     rows = []
     for kname, (kernel_fn, plain_fn) in calls.items():
         nbytes, nops = work[kname]
-        t_bytes = nbytes / mem_rate * 1e3
-        t_ops = nops / fp32_rate * 1e3
-        row = {
-            'name': kname,
-            'route': 'cuda',
-            'source': KERNEL_INFO[kname][0],
-            'replaces': KERNEL_INFO[kname][1],
-            'launches': results[kname]['launches'],
-            'max_abs_err': results[kname]['max_abs_err'],
-            'ms': timed_ms(kernel_fn),
-            'plain_ms': timed_ms(plain_fn),
-            'bound_ms': max(t_bytes, t_ops),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'library_ms': (
-                None if library[kname] is None else timed_ms(library[kname])
-            ),
-        }
+        row = kernel_row(kname, results[kname], nbytes, nops, kernel_fn, plain_fn,
+                         library[kname], mem_rate, fp32_rate)
         rows.append(row)
         print(f'{kname}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
               f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms) on {smi}')
+    del x, y, cs, p, counts, out, mon
+    torch.cuda.empty_cache()
+
+    # ---- phases 4-7: the streaming persistence spectrum + APD
+    rows = merge_rows(rows, persistence_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -1,15 +1,16 @@
 """iqwaveform-torch: the PyTorch / CUDA port of iqwaveform-tpu.
 
-The flagship WidebandMonitor runs on an NVIDIA Hopper card through
-hand-written CUDA kernels (ops.kernels), and on the CPU through their
-plain PyTorch versions. Entry points run on the card unless the caller
+The flagship WidebandMonitor and the streaming persistence spectrum and
+APD (parallel) run on an NVIDIA Hopper card through hand-written CUDA
+kernels (ops.kernels), and on the CPU through their plain PyTorch
+versions. Entry points run on the card unless the caller
 passes ``device='cpu'``. The package imports torch, numpy and scipy, and
 nothing of JAX.
 """
 
 __version__ = '0.1.0'
 
-from . import models, ops, utils  # noqa: F401
+from . import models, ops, parallel, utils  # noqa: F401
 from .models import (  # noqa: F401
     MonitorDesign,
     WidebandMonitor,
@@ -22,17 +23,36 @@ from .ops import (  # noqa: F401
     equivalent_noise_bandwidth,
     get_window,
 )
+from .parallel import (  # noqa: F401
+    carry_from_reference,
+    design_persistence,
+    persistence_apd_fold,
+    persistence_finalize,
+    persistence_fold,
+    persistence_init,
+    streaming_apd,
+    streaming_persistence_spectrum,
+)
 
 __all__ = [
     'MonitorDesign',
     'WidebandMonitor',
+    'carry_from_reference',
     'design_cola_resampler',
     'design_from_reference',
+    'design_persistence',
     'design_wideband_monitor',
     'equivalent_noise_bandwidth',
     'get_window',
     'models',
     'ops',
+    'parallel',
+    'persistence_apd_fold',
+    'persistence_finalize',
+    'persistence_fold',
+    'persistence_init',
     'resolve_monitor_design',
+    'streaming_apd',
+    'streaming_persistence_spectrum',
     'utils',
 ]

@@ -142,8 +142,6 @@ cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    long long row_len, int n_frames, int log2_nfft, int navg,
                    int channel_count, int abins, int skip_half,
                    int frames_per_block) {
-  const cudaError_t err = iqt::allow_smem(chan_stats_kernel<PT>, smem);
-  if (err != cudaSuccess) return err;
   chan_stats_kernel<PT><<<grid, threads, smem, stream>>>(
       y, w, tw, part_log, part_max, chp, pbin, row_len, n_frames, log2_nfft,
       navg, channel_count, abins, skip_half, frames_per_block);
@@ -151,6 +149,17 @@ cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
 }
 
 }  // namespace
+
+// once per device, before the first launch: allow up to `max_smem` bytes
+// of dynamic shared memory (one frame)
+extern "C" int iqt_chan_stats_prepare(int max_smem) {
+  cudaError_t err;
+  if ((err = iqt::allow_smem(chan_stats_kernel<1>, max_smem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_kernel<2>, max_smem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_kernel<4>, max_smem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_kernel<8>, max_smem))) return err;
+  return iqt::allow_smem(chan_stats_kernel<16>, max_smem);
+}
 
 // y: (batch, row_len) complex64 with n_frames * nfft <= row_len;
 // part_log / part_max: (batch, n_blocks, nfft) scratch with n_blocks =

@@ -102,8 +102,6 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
                    int n_in, int n_out, int log2_nfft, int log2_nfft_out,
                    int hop_in, int hop_out, int zero_lo, int zero_hi,
                    int in_lo, int out_lo, int out_hi) {
-  const cudaError_t err = iqt::allow_smem(fused_ola_kernel<PT>, smem);
-  if (err != cudaSuccess) return err;
   fused_ola_kernel<PT><<<grid, kThreads, smem, stream>>>(
       x, w_in, tw_in, w_out, tw_out, y, n_in, n_out, log2_nfft,
       log2_nfft_out, hop_in, hop_out, zero_lo, zero_hi, in_lo, out_lo,
@@ -112,6 +110,17 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
 }
 
 }  // namespace
+
+// once per device, before the first launch: allow up to `max_smem` bytes
+// of dynamic shared memory (the larger of the two frames)
+extern "C" int iqt_fused_ola_prepare(int max_smem) {
+  cudaError_t err;
+  if ((err = iqt::allow_smem(fused_ola_kernel<1>, max_smem))) return err;
+  if ((err = iqt::allow_smem(fused_ola_kernel<2>, max_smem))) return err;
+  if ((err = iqt::allow_smem(fused_ola_kernel<4>, max_smem))) return err;
+  if ((err = iqt::allow_smem(fused_ola_kernel<8>, max_smem))) return err;
+  return iqt::allow_smem(fused_ola_kernel<16>, max_smem);
+}
 
 // x: (batch, n_in) complex64; y: (batch, n_out) complex64, zeroed by the
 // caller; n_frames frames per row. Sizes are powers of two up to 16384.

@@ -16,7 +16,7 @@
 // 3.35 TB/s, so a launch costs more than the data. The design keeps the
 // grid small (a few blocks per SM, each walking many samples) so that the
 // global merge stays at most n_blocks * (n_edges + 1) atomics.
-#include <cuda_runtime.h>
+#include "fft.cuh"
 
 namespace {
 
@@ -62,16 +62,18 @@ hist_kernel(const float* __restrict__ p, const float* __restrict__ edges,
 
 }  // namespace
 
+// once per device, before the first launch: allow up to `max_smem` bytes
+// of dynamic shared memory (the edges and the block's counts)
+extern "C" int iqt_hist_prepare(int max_smem) {
+  return iqt::allow_smem(hist_kernel, max_smem);
+}
+
 // p: (batch, n) float32; edges: (n_edges,) float32, sorted; counts:
 // (batch, n_edges + 1) int32, zeroed by the caller.
 extern "C" int iqt_hist(const void* p, const void* edges, void* counts,
                         int batch, int n, int n_edges, int sm_count,
                         void* stream) {
   const size_t smem = sizeof(float) * n_edges + sizeof(int) * (n_edges + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   long long blocks =
       (static_cast<long long>(n) + kThreads * kSamplesPerThread - 1) /
       (kThreads * kSamplesPerThread);

@@ -8,17 +8,30 @@ launch (ops.kernels._build), never at import.
 """
 
 from .chan_stats import chan_stats, chan_stats_plain
+from .colhist import colhist, colhist_plain
 from .fused_ola import fused_ola, fused_ola_plain
 from .hist import hist, hist_plain
+from .spectrogram import (
+    spectrogram_dB,
+    spectrogram_dB_plain,
+    spectrogram_levels,
+    spectrogram_levels_plain,
+)
 
-KERNELS = (fused_ola, chan_stats, hist)
+KERNELS = (fused_ola, chan_stats, hist, spectrogram_dB, spectrogram_levels, colhist)
 
 __all__ = [
     'KERNELS',
     'chan_stats',
     'chan_stats_plain',
+    'colhist',
+    'colhist_plain',
     'fused_ola',
     'fused_ola_plain',
     'hist',
     'hist_plain',
+    'spectrogram_dB',
+    'spectrogram_dB_plain',
+    'spectrogram_levels',
+    'spectrogram_levels_plain',
 ]

@@ -34,15 +34,21 @@ __all__ = [
     'build_dir',
     'check',
     'library',
+    'log2_exact',
+    'prepare',
     'ptxas_report',
     'require',
+    'sm_count',
+    'smem_optin',
     'stream_of',
     'twiddles',
-    'log2_exact',
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
-SOURCES = ('common.cu', 'fused_ola.cu', 'chan_stats.cu', 'hist.cu')
+SOURCES = (
+    'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'hist.cu', 'spectrogram.cu',
+    'colhist.cu',
+)
 HEADERS = ('fft.cuh',)
 
 # no --use_fast_math: the kernels are held to 1e-5 relative RMS against
@@ -54,14 +60,23 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # C signatures: pointers and the stream as c_void_p (a plain int would be
-# cut to 32 bits), sizes as int
+# cut to 32 bits), sizes as int, quantization constants as float
 SIGNATURES = {
     'iqt_error_string': ([_I], ctypes.c_char_p),
+    'iqt_device_attrs': ([_I, _P], _I),
+    'iqt_fused_ola_prepare': ([_I], _I),
     'iqt_fused_ola': ([_P] * 6 + [_I] * 13 + [_P], _I),
+    'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 10 + [_P], _I),
+    'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
+    'iqt_spectrogram_prepare': ([_I], _I),
+    'iqt_spectrogram': ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
+    'iqt_colhist_prepare': ([_I], _I),
+    'iqt_colhist': ([_P] * 2 + [_I] * 7 + [_F] * 2 + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -162,6 +177,42 @@ def check(err: int, what: str) -> None:
     if err:
         msg = library().iqt_error_string(err).decode()
         raise RuntimeError(f'{what}: CUDA error {err} ({msg})')
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+@functools.lru_cache(maxsize=None)
+def _device_attrs(index: int) -> tuple:
+    out = (ctypes.c_int * 2)()
+    check(library().iqt_device_attrs(index, ctypes.addressof(out)), 'device attributes')
+    return out[0], out[1]
+
+
+def sm_count(device) -> int:
+    """the number of SMs of ``device``, queried once per device."""
+    return _device_attrs(_index(device))[0]
+
+
+def smem_optin(device) -> int:
+    """the most dynamic shared memory one block of ``device`` may opt in
+    to (232,448 bytes on an H100), queried once per device."""
+    return _device_attrs(_index(device))[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _prepared(entry: str, index: int) -> None:
+    with torch.cuda.device(index):
+        check(getattr(library(), entry)(smem_optin(index)), entry)
+
+
+def prepare(entry: str, device) -> None:
+    """run a kernel's C ``*_prepare`` entry once per device: it opts the
+    kernel's functions in to the device's full dynamic shared memory, so
+    that no launch pays ``cudaFuncSetAttribute``."""
+    _prepared(entry, _index(device))
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -129,6 +129,7 @@ def chan_stats(
     psd_max = torch.empty((batch, nfft_big), **f32)
     channel_power = torch.empty((batch, n_frames, channel_count), **f32)
     p_binned = torch.empty((batch, n_bin), **f32)
+    _build.prepare('iqt_chan_stats_prepare', dev)
     err = _build.library().iqt_chan_stats(
         y.data_ptr(), window.data_ptr(), _build.twiddles(nfft_big, dev).data_ptr(),
         part_log.data_ptr(), part_max.data_ptr(), log_sum.data_ptr(),

@@ -171,6 +171,7 @@ def fused_ola(
     (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
 
     y = torch.zeros((batch, n_out), dtype=torch.complex64, device=dev)
+    _build.prepare('iqt_fused_ola_prepare', dev)
     err = _build.library().iqt_fused_ola(
         x.data_ptr(), w_in.data_ptr(), _build.twiddles(nfft, dev).data_ptr(),
         w_shift_out.data_ptr(), _build.twiddles(nfft_out, dev).data_ptr(),

@@ -52,10 +52,15 @@ def hist(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
         return counts.reshape(*lead, n_edges + 1)
     if n >= 2**31 or batch >= 2**16:
         raise ValueError('hist takes rows below 2**31 samples and batches below 2**16')
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    if 8 * n_edges + 4 > _build.smem_optin(dev):
+        raise NotImplementedError(
+            f'the CUDA histogram kernel keeps its {n_edges} edges and counts in '
+            'shared memory, which they overflow'
+        )
+    _build.prepare('iqt_hist_prepare', dev)
     err = _build.library().iqt_hist(
         p.data_ptr(), edges.data_ptr(), counts.data_ptr(), batch, n, n_edges,
-        sm_count, _build.stream_of(p),
+        _build.sm_count(dev), _build.stream_of(p),
     )
     _build.check(err, 'hist')
     hist.launches += 1

@@ -1,0 +1,230 @@
+"""Spectrogram frames in dB, and the fused persistence-fold kernel: the CUDA
+kernel and its plain PyTorch versions.
+
+Replaces the TPU kernels ``spectrogram_dB_pallas`` and
+``spectrogram_levels_pallas`` (iqwaveform_tpu/ops/pallas/
+spectrogram_pallas.py:258 and :414): per non-overlapping ``nfft`` frame the
+windowed FFT, |Y|^2 in dB, and either the dB frame itself
+(:func:`spectrogram_dB`) or the frame's uniform histogram levels, the
+per-bin sum / max / min of dB over all frames of the call and, optionally,
+the detector-binned raw power (:func:`spectrogram_levels`). One CUDA body
+(``csrc/spectrogram.cu``) serves both; what bounds it on the card and what
+its design does about that are set out at the head of the source.
+
+Bins come out in natural (centred) order, as ``jnp.fft.fft`` gives them
+with the fftshift baked into the window; the TPU kernels' factored
+(k1, k2) order is a Mosaic layout that the port does not keep.
+
+Input ``x`` is either (n,) complex64 or (2, n) float32 (real, imag) planes
+whose planes are each contiguous (a (2, n) slice of longer planes is fine),
+with n a multiple of ``nfft``. ``window`` is the design window divided by
+``nfft``, (nfft,) complex64.
+
+Each wrapper takes its plain version only for a tensor on the CPU; on a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import fft as _fft
+from ..power import binned_mean
+from . import _build
+from .colhist import quantize_uniform
+
+__all__ = [
+    'spectrogram_dB',
+    'spectrogram_dB_plain',
+    'spectrogram_levels',
+    'spectrogram_levels_plain',
+]
+
+_EPS = 1e-25
+_DB_PER_LN = 10.0 / math.log(10.0)
+MAX_CUDA_FFT = 16384
+_MODE_DB, _MODE_LEVELS, _MODE_STATS = 0, 1, 2
+
+
+def _planes(x: torch.Tensor):
+    """(real, imag) of complex (n,) or (2, n) float planes."""
+    if x.is_complex():
+        if x.ndim != 1:
+            raise ValueError(f'complex input must be 1-D, not {tuple(x.shape)}')
+        return x.real, x.imag
+    if x.ndim != 2 or x.shape[0] != 2:
+        raise ValueError(f'float input must be (2, n) planes, not {tuple(x.shape)}')
+    return x[0], x[1]
+
+
+def _dB_frames(x, window, nfft):
+    xr, xi = _planes(x)
+    if xr.shape[0] % nfft:
+        raise ValueError(f'{xr.shape[0]} samples are not whole {nfft}-sample frames')
+    frames = torch.complex(xr, xi).reshape(-1, nfft) * window
+    Y = _fft.fft(frames, axis=-1)
+    p = Y.real * Y.real + Y.imag * Y.imag
+    return _DB_PER_LN * torch.log(p + _EPS)
+
+
+def spectrogram_dB_plain(x: torch.Tensor, window: torch.Tensor, nfft: int) -> torch.Tensor:
+    """plain PyTorch version of :func:`spectrogram_dB` (same arguments)."""
+    return _dB_frames(x, window, nfft)
+
+
+def spectrogram_levels_plain(
+    x: torch.Tensor,
+    window: torch.Tensor,
+    nfft: int,
+    *,
+    quant: tuple = None,
+    apd_navg: int = 0,
+) -> dict:
+    """plain PyTorch version of :func:`spectrogram_levels` (same
+    arguments)."""
+    dB = _dB_frames(x, window, nfft)
+    out = {
+        'levels': None if quant is None else quantize_uniform(dB, *quant),
+        'psum': dB.sum(dim=0),
+        'pmax': dB.amax(dim=0),
+        'pmin': dB.amin(dim=0),
+        'p_binned': None,
+    }
+    if apd_navg:
+        if nfft % apd_navg:
+            raise ValueError(f'apd_navg={apd_navg} must divide nfft={nfft}')
+        xr, xi = _planes(x)
+        out['p_binned'] = binned_mean(xr * xr + xi * xi, apd_navg)
+    return out
+
+
+def _check_cuda(name, x, window, nfft, apd_navg=0):
+    """validate a CUDA call; returns (xr, xi, stride, n_frames, log2n)."""
+    log2n = _build.log2_exact(nfft)
+    if not (64 <= nfft <= MAX_CUDA_FFT and log2n > 0):
+        raise NotImplementedError(
+            f'the CUDA spectrogram kernel takes a power-of-two nfft in [64, '
+            f'{MAX_CUDA_FFT}], not {nfft}'
+        )
+    if apd_navg and (apd_navg < 1 or nfft % apd_navg):
+        raise NotImplementedError(
+            f'the CUDA spectrogram kernel bins power by an apd_navg that divides '
+            f'nfft={nfft}, not {apd_navg}'
+        )
+    dev = x.device
+    _build.require(window, 'window', device=dev, dtype=torch.complex64, shape=(nfft,))
+    if x.is_complex():
+        _build.require(x, 'x', device=dev, dtype=torch.complex64)
+        xr, xi = _planes(x)
+        stride = 2
+    else:
+        if x.dtype != torch.float32:
+            raise TypeError(f'x must be complex64 or float32 planes, not {x.dtype}')
+        xr, xi = _planes(x)
+        if not (xr.is_contiguous() and xi.is_contiguous()):
+            raise ValueError('x must hold two contiguous planes')
+        stride = 1
+    n = xr.shape[0]
+    if n % nfft or n == 0:
+        raise ValueError(f'{name} needs whole {nfft}-sample frames, not {n} samples')
+    if n >= 2**31:
+        raise ValueError(f'{name} takes calls below 2**31 samples')
+    return xr, xi, stride, n // nfft, log2n
+
+
+def _grid(n_frames: int, device) -> tuple:
+    """(frames per block, blocks): about four blocks per SM."""
+    target = 4 * _build.sm_count(device)
+    per_block = -(-n_frames // target)
+    return per_block, -(-n_frames // per_block)
+
+
+def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name):
+    xr, xi, stride, n_frames, log2n = _check_cuda(name, x, window, nfft, apd_navg)
+    dev = x.device
+    _build.prepare('iqt_spectrogram_prepare', dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    db = levels = part = psum = pmax = pmin = pbin = None
+    per_block, n_blocks = _grid(n_frames, dev)
+    if mode == _MODE_DB:
+        db = torch.empty((n_frames, nfft), **f32)
+    else:
+        part = torch.empty((3, n_blocks, nfft), **f32)
+        psum = torch.empty(nfft, **f32)
+        pmax = torch.empty(nfft, **f32)
+        pmin = torch.empty(nfft, **f32)
+        if mode == _MODE_LEVELS:
+            levels = torch.empty((n_frames, nfft), dtype=torch.int32, device=dev)
+        if apd_navg:
+            pbin = torch.empty(n_frames * nfft // apd_navg, **f32)
+    lo, scale, n_bins = quant if quant is not None else (0.0, 1.0, 1)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.library().iqt_spectrogram(
+        xr.data_ptr(), xi.data_ptr(), window.data_ptr(),
+        _build.twiddles(nfft, dev).data_ptr(), ptr(db), ptr(levels), ptr(part),
+        ptr(psum), ptr(pmax), ptr(pmin), ptr(pbin), stride, n_frames, log2n,
+        mode, int(n_bins), int(apd_navg), per_block, n_blocks, float(lo),
+        float(scale), _build.stream_of(x),
+    )
+    _build.check(err, name)
+    if mode == _MODE_DB:
+        return db
+    return {'levels': levels, 'psum': psum, 'pmax': pmax, 'pmin': pmin, 'p_binned': pbin}
+
+
+def spectrogram_dB(x: torch.Tensor, window: torch.Tensor, nfft: int) -> torch.Tensor:
+    """dB spectrogram of the non-overlapping ``nfft`` frames of ``x``:
+    10 log10(|FFT(frame * window)|^2 + 1e-25), (n // nfft, nfft) float32,
+    natural bin order."""
+    if x.device.type == 'cpu':
+        return spectrogram_dB_plain(x, window, nfft)
+    if x.device.type != 'cuda':
+        raise ValueError(f'spectrogram_dB runs on cpu or cuda tensors, not {x.device}')
+    out = _launch(x, window, nfft, _MODE_DB, name='spectrogram_dB')
+    spectrogram_dB.launches += 1
+    return out
+
+
+spectrogram_dB.launches = 0
+
+
+def spectrogram_levels(
+    x: torch.Tensor,
+    window: torch.Tensor,
+    nfft: int,
+    *,
+    quant: tuple = None,
+    apd_navg: int = 0,
+) -> dict:
+    """the persistence fold's per-chunk work in one read of ``x``: the dB
+    spectrogram of its ``nfft`` frames, reduced without being written.
+
+    quant: (lo, scale, n_bins) of the uniform histogram rule
+        (:func:`quantize_uniform`), or None for the stats-only variant that
+        writes no levels.
+    apd_navg: > 0 also bins the raw power |x|^2 by means over
+        ``apd_navg`` consecutive samples (it must divide nfft).
+
+    Returns dict (natural bin order):
+        levels: (n // nfft, nfft) int32 histogram levels, or None
+        psum / pmax / pmin: (nfft,) float32 sum / max / min of dB over
+            the frames
+        p_binned: (n // apd_navg,) float32 in time order, or None
+    """
+    if x.device.type == 'cpu':
+        return spectrogram_levels_plain(x, window, nfft, quant=quant, apd_navg=apd_navg)
+    if x.device.type != 'cuda':
+        raise ValueError(f'spectrogram_levels runs on cpu or cuda tensors, not {x.device}')
+    mode = _MODE_STATS if quant is None else _MODE_LEVELS
+    out = _launch(x, window, nfft, mode, quant=quant, apd_navg=apd_navg,
+                  name='spectrogram_levels')
+    spectrogram_levels.launches += 1
+    return out
+
+
+spectrogram_levels.launches = 0
