@@ -38,7 +38,24 @@ spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
 6. the unfused path (2048 histogram bins: ``spectrogram_dB`` and the
    column counter on float values) on one chunk, against the plain path;
 7. the stats-only design (BASELINE config #1, hist_bins=0) on one chunk,
-   against the plain path.
+   against the plain path;
+
+then the filtering path of BASELINE config #2 (bench.py:457-555: a 100 Ms
+capture at 61.44 MS/s) and the monitor beyond 2:1 overlap:
+
+8. the public ``ola_filter`` (nfft 16384 -> 8192, hamming, passband
+   +-10 MHz) on 99,999,744 complex64 samples of noise made on the card: one
+   launch of the frame-batch OLA kernel, the output against the plain
+   route on the card and, on its first 2^22 samples, the torch.fft stage
+   chain; timed (median of 10 calls, MS/s) and profiled (no cuFFT /
+   cuBLAS / cuDNN kernel);
+9. the public ``upfirdn`` with the 4001-tap ``design_fir_lpf(20e6,
+   61.44e6)`` at up/down 1/2 and 2/3 on 10^8 samples: the kernel against
+   the plain float32 conv1d (TF32 off), its first 2^20 outputs against a
+   float64 conv on the card, launches, the kernel and the conv timed;
+10. ``WidebandMonitor.step`` at the blackman COLA design (30.72 -> 15.36
+   MS/s, nfft 12288 -> 6144, R=3) on 16,785,408 samples: launches, the step
+   against ``reference_step`` with phase 3's gates, timed.
 
 It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -105,7 +122,25 @@ KERNEL_INFO = {
     # reported inside the colhist row
     'colhist_values': ('iqwaveform_torch/csrc/colhist.cu',
                        'iqwaveform_tpu/ops/pallas/colhist_pallas.py:106'),
+    'fused_ola_frames': ('iqwaveform_torch/csrc/fused_ola.cu',
+                         'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
+    'upfirdn': ('iqwaveform_torch/csrc/upfirdn.cu',
+                'iqwaveform_tpu/ops/pallas/upfirdn_pallas.py:210'),
 }
+
+# BASELINE config #2 (bench.py:457-555): the largest multiple of the output
+# overlap (4096) not above 10^8 samples, and the ola_filter call
+N_OLA = 24414 * 4096
+OLA_KW = dict(fs=61.44e6, nfft=16384, nfft_out=8192, window='hamming',
+              passband=(-10e6, 10e6))
+N_OLA_CHAIN = 1 << 22  # output samples held against the stage chain
+N_UPFIRDN = 10**8
+UPFIRDN_PAIRS = ((1, 2), (2, 3))
+N_UPFIRDN_F64 = 1 << 20  # outputs held against float64
+FILTER_REPS = 10
+# the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
+BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
+N_MONITOR_R3 = 683 * 24576  # whole min_input_multiple()s, at least 2^24
 
 # BASELINE config #3 (bench.py:312-325)
 PERSISTENCE = dict(
@@ -153,9 +188,9 @@ def card_rates(name: str):
     return 3.35e12, 67e12
 
 
-def timed_ms(fn, reps=REPS) -> float:
+def timed_ms(fn, reps=REPS, warmup=WARMUP) -> float:
     """median of ``reps`` single-call CUDA-event times after warm-up."""
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -194,11 +229,12 @@ def check_step(out, ref, label: str) -> None:
 
 
 def kernel_row(kname, result, nbytes, nops, kernel_fn, plain_fn, library_fn,
-               mem_rate, fp32_rate) -> dict:
+               mem_rate, fp32_rate, reps=REPS, warmup=WARMUP) -> dict:
     """one entry of the kernels line: the bound from this run's shapes, and
     the kernel, its plain version and the library call timed here."""
     t_bytes = nbytes / mem_rate * 1e3
     t_ops = nops / fp32_rate * 1e3
+    timed = lambda fn: timed_ms(fn, reps, warmup)  # noqa: E731
     return {
         'name': kname,
         'route': 'cuda',
@@ -206,11 +242,11 @@ def kernel_row(kname, result, nbytes, nops, kernel_fn, plain_fn, library_fn,
         'replaces': KERNEL_INFO[kname][1],
         'launches': result['launches'],
         'max_abs_err': result['max_abs_err'],
-        'ms': timed_ms(kernel_fn),
-        'plain_ms': timed_ms(plain_fn),
+        'ms': timed(kernel_fn),
+        'plain_ms': timed(plain_fn),
         'bound_ms': max(t_bytes, t_ops),
         'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-        'library_ms': None if library_fn is None else timed_ms(library_fn),
+        'library_ms': None if library_fn is None else timed(library_fn),
     }
 
 
@@ -568,6 +604,226 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     return list(rows.values())
 
 
+def device_kernels(fn) -> tuple:
+    """run ``fn`` once under the profiler: (sorted device kernel names,
+    device microseconds by short name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = {}
+    for e in events:
+        key = short_name(e.name)
+        device_us[key] = device_us.get(key, 0.0) + e.time_range.elapsed_us()
+    return sorted({e.name for e in events}), device_us
+
+
+def upfirdn_flop(len_h, n_in, n_out, up, down, per_tap, dev) -> float:
+    """the flop this call's data needs: per output, the taps that meet a
+    sample inside the row, times the flop of one product."""
+    total = 0
+    for start in range(0, n_out, 1 << 26):
+        n = torch.arange(start, min(n_out, start + (1 << 26)), device=dev, dtype=torch.int64)
+        t = n * down
+        p, i0 = t % up, t // up
+        taps = (len_h - p + up - 1) // up
+        hi = torch.minimum(taps - 1, i0)
+        lo = torch.clamp(i0 - n_in + 1, min=0)
+        total += int((hi - lo + 1).clamp(min=0).sum())
+    return float(total * per_tap)
+
+
+def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phases 8-10; returns the kernels line's rows of this path."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import filtering as TF
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.upfirdn import upfirdn_output_len
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nfft, nfft_out = OLA_KW['nfft'], OLA_KW['nfft_out']
+    hop = nfft // 2
+
+    def reset():
+        for k in kernels.KERNELS:
+            k.launches = 0
+
+    def counts():
+        return {name: k.launches for name, k in kset.items() if k.launches}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- phase 8: ola_filter at BASELINE config #2
+    x = torch.randn(N_OLA, dtype=torch.complex64, device=dev, generator=gen)
+    it.ola_filter(x[: 4 * nfft], **OLA_KW)  # warm-up: build, first-use setup
+    torch.cuda.synchronize()
+    reset()
+    y = it.ola_filter(x, **OLA_KW)
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f'ola_filter launches: {json.dumps(launched)}')
+    require(launched == {'fused_ola_frames': 1}, f'ola_filter launches {launched}')
+    ref = it.ola_filter(x, **OLA_KW, plain=True)
+    require(y.shape == ref.shape == (N_OLA * nfft_out // nfft,), f'ola_filter shape {tuple(y.shape)}')
+    require(bool(torch.isfinite(torch.view_as_real(y)).all()), 'ola_filter output not finite')
+    err_route = rel_rms(y, ref)
+    n_pre = 2 * N_OLA_CHAIN + nfft // 2  # a prefix whose frames cover the first samples
+    chain = it.ola_filter(x[:n_pre], **OLA_KW, fft_backend='xla')
+    err_chain = rel_rms(y[:N_OLA_CHAIN], chain[:N_OLA_CHAIN])
+    print(f'ola_filter: {N_OLA} -> {y.numel()} samples, vs plain route relative RMS '
+          f'{err_route:.3g}, first {N_OLA_CHAIN} vs the torch.fft stage chain {err_chain:.3g}')
+    require(err_route <= 1e-5, f'ola_filter vs plain route: relative RMS {err_route:.3g} > 1e-5')
+    require(err_chain <= 1e-5, f'ola_filter vs stage chain: relative RMS {err_chain:.3g} > 1e-5')
+    del ref, chain
+    ola_ms = timed_ms(lambda: it.ola_filter(x, **OLA_KW), reps=FILTER_REPS, warmup=1)
+    names, device_us = device_kernels(lambda: it.ola_filter(x, **OLA_KW))
+    print('ola_filter device kernels: ' + json.dumps(names))
+    require(any('fused_ola_frames_kernel' in n for n in names), 'profiler shows no fused_ola_frames_kernel')
+    # by name without the parameter list: the kernel's own takes iqt::FftPlan
+    bad = [n for n in names if any(f in short_name(n).lower() for f in FORBIDDEN + ('cudnn',))]
+    require(not bad, f'library FFT / GEMM / cuDNN kernels in ola_filter: {bad}')
+    busy = sum(device_us.values()) / 1e3
+    print('ola_filter device time by kernel (us): ' + json.dumps(
+        dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+    print(f'ola_filter: {ola_ms:.4f} ms for {N_OLA} samples = {N_OLA / ola_ms / 1e3:.1f} MS/s; '
+          f'device busy {busy:.4f} ms (idle share {max(0.0, 1 - busy / ola_ms):.3f}) ({smi})')
+
+    # the frame kernel alone at this path's shapes
+    enbw = it.equivalent_noise_bandwidth('hamming', nfft_out, fftbins=False)
+    zero_lo, zero_hi, b_in, b_out = TF._ola_bin_bounds(
+        nfft, nfft_out, OLA_KW['fs'], OLA_KW['passband'], enbw, True)
+    w_in, w_out = TF._ola_windows('hamming', nfft, nfft_out, hop, dev)
+    fkw = dict(w_in=w_in, w_shift_out=w_out, nfft=nfft, nfft_out=nfft_out, zero_lo=zero_lo,
+               zero_hi=zero_hi, bounds_in=b_in, bounds_out=b_out)
+    frames = x.unfold(-1, nfft, hop)
+    got_f = kernels.fused_ola_frames(frames, **fkw)
+    ref_f = kernels.fused_ola_frames_plain(frames, **fkw)
+    err = rel_rms(got_f, ref_f)
+    print(f'fused_ola_frames: frames {tuple(frames.shape)} -> {tuple(got_f.shape)} relative RMS {err:.3g}')
+    require(err <= 1e-5, f'fused_ola_frames relative RMS {err:.3g} > 1e-5')
+    n_frames = frames.shape[0]
+    frames_row = kernel_row(
+        'fused_ola_frames', {'launches': launched.get('fused_ola_frames', 0),
+                             'max_abs_err': max_abs(got_f, ref_f)},
+        8 * x.numel() + 8 * got_f.numel() + 8 * (nfft + nfft_out),
+        n_frames * (fft_ops(nfft) + fft_ops(nfft_out) + 6 * (nfft + nfft_out)),
+        lambda: kernels.fused_ola_frames(frames, **fkw),
+        lambda: kernels.fused_ola_frames_plain(frames, **fkw),
+        lambda: kernels.fused_ola_frames_plain(frames, **fkw),
+        mem_rate, fp32_rate, reps=FILTER_REPS, warmup=1,
+    )
+    frames_row['path'] = 'ola_filter, BASELINE config #2'
+    frames_row['path_ms'] = ola_ms
+    print(f'fused_ola_frames: {frames_row["ms"]:.4f} ms (bound {frames_row["bound_ms"]:.4f} ms by '
+          f'{frames_row["bound_by"]}, plain {frames_row["plain_ms"]:.4f} ms) on {smi}')
+    del x, y, got_f, ref_f, frames
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: upfirdn at 4001 taps on 10^8 samples
+    h = torch.from_numpy(it.design_fir_lpf(20e6, 61.44e6)).to(dev)
+    x9 = torch.randn(N_UPFIRDN, dtype=torch.complex64, device=dev, generator=gen)
+    it.upfirdn(h, x9[:65536], 1, 2)  # warm-up
+    torch.cuda.synchronize()
+    pairs = {}
+    for up, down in UPFIRDN_PAIRS:
+        reset()
+        y9 = it.upfirdn(h, x9, up, down)
+        torch.cuda.synchronize()
+        launched = counts()
+        require(launched == {'upfirdn_cuda': 1}, f'upfirdn {up}/{down} launches {launched}')
+        n_out = upfirdn_output_len(h.numel(), N_UPFIRDN, up, down)
+        ref9 = it.upfirdn(h, x9, up, down, backend='xla')
+        require(y9.shape == ref9.shape == (n_out,), f'upfirdn shape {tuple(y9.shape)}')
+        require(bool(torch.isfinite(torch.view_as_real(y9)).all()), 'upfirdn output not finite')
+        err = rel_rms(y9, ref9)
+        prefix = x9[: (N_UPFIRDN_F64 * down) // up + 1].to(torch.complex128)
+        y64 = kernels.upfirdn_plain(h.double(), prefix[None], up, down)[0, :N_UPFIRDN_F64]
+        err64 = rel_rms(y9[:N_UPFIRDN_F64], y64)
+        print(f'upfirdn {up}/{down}: {N_UPFIRDN} -> {n_out} samples, {h.numel()} taps, vs plain '
+              f'conv1d relative RMS {err:.3g}, first {N_UPFIRDN_F64} vs float64 {err64:.3g}, '
+              f'launches {json.dumps(launched)}')
+        require(err <= 1e-5, f'upfirdn {up}/{down} vs plain: relative RMS {err:.3g} > 1e-5')
+        require(err64 <= 1e-5, f'upfirdn {up}/{down} vs float64: relative RMS {err64:.3g} > 1e-5')
+        row = kernel_row(
+            'upfirdn', {'launches': launched.get('upfirdn_cuda', 0), 'max_abs_err': max_abs(y9, ref9)},
+            8 * N_UPFIRDN + 4 * h.numel() + 8 * n_out,
+            upfirdn_flop(h.numel(), N_UPFIRDN, n_out, up, down, 4, dev),
+            lambda: kernels.upfirdn_cuda(h, x9[None], up, down),
+            lambda: kernels.upfirdn_plain(h, x9[None], up, down),
+            lambda: kernels.upfirdn_plain(h, x9[None], up, down),
+            mem_rate, fp32_rate, reps=5, warmup=1,
+        )
+        row['up_down'] = [up, down]
+        row['MS_per_s'] = N_UPFIRDN / row['ms'] / 1e3
+        print(f'upfirdn {up}/{down}: {row["ms"]:.4f} ms = {row["MS_per_s"]:.1f} MS/s in '
+              f'(bound {row["bound_ms"]:.4f} ms by {row["bound_by"]}, plain conv1d '
+              f'{row["plain_ms"]:.4f} ms, library conv1d {row["library_ms"]:.4f} ms) on {smi}')
+        pairs[(up, down)] = row
+        del y9, ref9, y64, prefix
+    up_row = pairs[UPFIRDN_PAIRS[0]]
+    up_row['other_pairs'] = [
+        {k: r[k] for k in ('up_down', 'launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                           'bound_by', 'library_ms')}
+        for pair, r in pairs.items() if pair != UPFIRDN_PAIRS[0]
+    ]
+    del x9
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the monitor at the blackman design (R = 3)
+    mon = it.WidebandMonitor(it.design_wideband_monitor(30.72e6, 15.36e6, **BLACKMAN))
+    d = mon.design
+    require((d.nfft, d.nfft_out) == (12288, 6144), f'blackman design {d.nfft} -> {d.nfft_out}')
+    x10 = torch.randn(N_MONITOR_R3, dtype=torch.complex64, device=dev, generator=gen)
+    mon.step(x10[: 4 * mon.min_input_multiple()])  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    out = mon.step(x10)
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f'blackman step launches: {json.dumps(launched)}')
+    require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
+            f'blackman step launches {launched}')
+    check_step(out, mon.reference_step(x10), 'blackman step vs plain-version step')
+    step_ms = timed_ms(lambda: mon.step(x10))
+    names, device_us = device_kernels(lambda: mon.step(x10))
+    bad = [n for n in names if any(f in short_name(n).lower() for f in FORBIDDEN + ('cudnn',))]
+    require(not bad, f'library FFT / GEMM / cuDNN kernels in the blackman step: {bad}')
+    busy = sum(device_us.values()) / 1e3
+    print('blackman step device time by kernel (us): ' + json.dumps(
+        dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+    print(f'blackman step: {step_ms:.4f} ms for {N_MONITOR_R3} samples = '
+          f'{N_MONITOR_R3 / step_ms / 1e3:.1f} MS/s; device busy {busy:.4f} ms (idle share '
+          f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+    kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    n_fr = N_MONITOR_R3 // mon.hop_in
+    xe = torch.cat([x10, x10.new_zeros(mon.noverlap_in)])
+    fr = xe.unfold(-1, d.nfft, mon.hop_in)[:n_fr]
+    got_f = kernels.fused_ola_frames(fr, **kw)
+    err = rel_rms(got_f, kernels.fused_ola_frames_plain(fr, **kw))
+    require(err <= 1e-5, f'fused_ola_frames at the blackman design: relative RMS {err:.3g}')
+    t_bytes = (8 * x10.numel() + 8 * got_f.numel()) / mem_rate * 1e3
+    t_ops = n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)) / fp32_rate * 1e3
+    blackman = {
+        'launches': launched.get('fused_ola_frames', 0), 'relative_rms': err,
+        'ms': timed_ms(lambda: kernels.fused_ola_frames(fr, **kw)),
+        'plain_ms': timed_ms(lambda: kernels.fused_ola_frames_plain(fr, **kw)),
+        'library_ms': timed_ms(lambda: kernels.fused_ola_frames_plain(fr, **kw)),
+        'bound_ms': max(t_bytes, t_ops), 'step_ms': step_ms,
+    }
+    frames_row['monitor_blackman'] = blackman
+    print(f'fused_ola_frames at the blackman design: frames {tuple(fr.shape)} relative RMS '
+          f'{err:.3g}, {blackman["ms"]:.4f} ms (bound {blackman["bound_ms"]:.4f} ms, plain '
+          f'{blackman["plain_ms"]:.4f} ms) on {smi}')
+    del x10, xe, fr, got_f, out, mon
+    torch.cuda.empty_cache()
+    print(f'phases 8-10 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return [frames_row, up_row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -742,6 +998,9 @@ def main() -> int:
 
     # ---- phases 4-7: the streaming persistence spectrum + APD
     rows = merge_rows(rows, persistence_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phases 8-10: the filtering path and the monitor beyond 2:1
+    rows = merge_rows(rows, filtering_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -1,8 +1,9 @@
 """iqwaveform-torch: the PyTorch / CUDA port of iqwaveform-tpu.
 
-The flagship WidebandMonitor and the streaming persistence spectrum and
-APD (parallel) run on an NVIDIA Hopper card through hand-written CUDA
-kernels (ops.kernels), and on the CPU through their plain PyTorch
+The flagship WidebandMonitor, the streaming persistence spectrum and APD
+(parallel), and the filtering path (fourier: ola_filter, oaresample,
+upfirdn and the STFT) run on an NVIDIA Hopper card through hand-written
+CUDA kernels (ops.kernels), and on the CPU through their plain PyTorch
 versions. Entry points run on the card unless the caller
 passes ``device='cpu'``. The package imports torch, numpy and scipy, and
 nothing of JAX.
@@ -10,7 +11,18 @@ nothing of JAX.
 
 __version__ = '0.1.0'
 
-from . import models, ops, parallel, utils  # noqa: F401
+from . import fourier, models, ops, parallel, utils  # noqa: F401
+from .fourier import (  # noqa: F401
+    design_fir_lpf,
+    design_fir_resampler,
+    istft,
+    oaconvolve,
+    oaresample,
+    ola_filter,
+    resample,
+    stft,
+    upfirdn,
+)
 from .models import (  # noqa: F401
     MonitorDesign,
     WidebandMonitor,
@@ -39,20 +51,30 @@ __all__ = [
     'WidebandMonitor',
     'carry_from_reference',
     'design_cola_resampler',
+    'design_fir_lpf',
+    'design_fir_resampler',
     'design_from_reference',
     'design_persistence',
     'design_wideband_monitor',
     'equivalent_noise_bandwidth',
+    'fourier',
     'get_window',
+    'istft',
     'models',
+    'oaconvolve',
+    'oaresample',
+    'ola_filter',
     'ops',
     'parallel',
     'persistence_apd_fold',
     'persistence_finalize',
     'persistence_fold',
     'persistence_init',
+    'resample',
     'resolve_monitor_design',
+    'stft',
     'streaming_apd',
     'streaming_persistence_spectrum',
+    'upfirdn',
     'utils',
 ]

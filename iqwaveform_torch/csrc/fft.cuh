@@ -1,5 +1,6 @@
-// Shared device code of the port's kernels: complex arithmetic and an
-// in-place radix-2 FFT in shared memory.
+// Shared device code of the port's kernels: complex arithmetic, an in-place
+// radix-2 FFT in shared memory, and an in-place mixed-radix (2, 3, 4, 5)
+// one for sizes 2^a 3^b 5^c.
 //
 // Each kernel computes its DFT in its own body, as the TPU kernels it
 // replaces do (they run the DFT as matmuls against constant planes). The
@@ -44,6 +45,130 @@ __device__ inline void fft_radix2(float2* a, const float2* __restrict__ tw,
       a[i] = make_float2(u.x + v.x, u.y + v.y);
       a[j] = make_float2(u.x - v.x, u.y - v.y);
     }
+    __syncthreads();
+  }
+}
+
+// ---- mixed-radix (2, 3, 4, 5) in-place FFT ------------------------------
+//
+// n = r_0 r_1 ... r_{S-1}. The input sits in shared memory in the plan's
+// digit-reversed order (the host's permutation table: input sample i goes
+// to position d_0 + r_0 (d_1 + r_1 (d_2 + ...)), where d_{S-1} = i mod
+// r_{S-1}, d_{S-2} = (i / r_{S-1}) mod r_{S-2}, ...). Stage s combines r_s
+// neighbouring sub-transforms of length m = r_0 ... r_{s-1} into one of
+// length L = r_s m: each butterfly reads and writes the same r_s positions,
+// so the transform stays in place with one barrier per stage. `tw` is
+// exp(-2 pi i t / n) for t < n. The output is in natural order.
+
+// the plan of one size: S stages, radix of stage s in bits [3s, 3s + 3)
+struct FftPlan {
+  int n;
+  int stages;
+  int code;
+};
+
+template <int R>
+__device__ __forceinline__ void dft_small(float2* v, bool inverse);
+
+template <>
+__device__ __forceinline__ void dft_small<2>(float2* v, bool) {
+  const float2 a = v[0], b = v[1];
+  v[0] = make_float2(a.x + b.x, a.y + b.y);
+  v[1] = make_float2(a.x - b.x, a.y - b.y);
+}
+
+// -i z (forward) or +i z (inverse)
+__device__ __forceinline__ float2 rot90(float2 z, bool inverse) {
+  return inverse ? make_float2(-z.y, z.x) : make_float2(z.y, -z.x);
+}
+
+template <>
+__device__ __forceinline__ void dft_small<4>(float2* v, bool inverse) {
+  const float2 t0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 t1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 t2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  const float2 t3 = rot90(make_float2(v[1].x - v[3].x, v[1].y - v[3].y), inverse);
+  v[0] = make_float2(t0.x + t2.x, t0.y + t2.y);
+  v[2] = make_float2(t0.x - t2.x, t0.y - t2.y);
+  v[1] = make_float2(t1.x + t3.x, t1.y + t3.y);
+  v[3] = make_float2(t1.x - t3.x, t1.y - t3.y);
+}
+
+template <>
+__device__ __forceinline__ void dft_small<3>(float2* v, bool inverse) {
+  constexpr float c = -0.5f;
+  constexpr float s = 0.86602540378443864676f;  // sin(2 pi / 3)
+  const float2 t = make_float2(v[1].x + v[2].x, v[1].y + v[2].y);
+  const float2 d = rot90(make_float2(s * (v[1].x - v[2].x), s * (v[1].y - v[2].y)), inverse);
+  const float2 a = make_float2(v[0].x + c * t.x, v[0].y + c * t.y);
+  v[0] = make_float2(v[0].x + t.x, v[0].y + t.y);
+  v[1] = make_float2(a.x + d.x, a.y + d.y);
+  v[2] = make_float2(a.x - d.x, a.y - d.y);
+}
+
+template <>
+__device__ __forceinline__ void dft_small<5>(float2* v, bool inverse) {
+  constexpr float c1 = 0.30901699437494742410f;   // cos(2 pi / 5)
+  constexpr float c2 = -0.80901699437494742410f;  // cos(4 pi / 5)
+  constexpr float s1 = 0.95105651629515357212f;   // sin(2 pi / 5)
+  constexpr float s2 = 0.58778525229247312917f;   // sin(4 pi / 5)
+  const float2 t1 = make_float2(v[1].x + v[4].x, v[1].y + v[4].y);
+  const float2 d1 = make_float2(v[1].x - v[4].x, v[1].y - v[4].y);
+  const float2 t2 = make_float2(v[2].x + v[3].x, v[2].y + v[3].y);
+  const float2 d2 = make_float2(v[2].x - v[3].x, v[2].y - v[3].y);
+  const float2 a1 = make_float2(v[0].x + c1 * t1.x + c2 * t2.x, v[0].y + c1 * t1.y + c2 * t2.y);
+  const float2 a2 = make_float2(v[0].x + c2 * t1.x + c1 * t2.x, v[0].y + c2 * t1.y + c1 * t2.y);
+  // y1 = a1 - i (s1 d1 + s2 d2), y2 = a2 - i (s2 d1 - s1 d2) (forward)
+  const float2 b1 = rot90(make_float2(s1 * d1.x + s2 * d2.x, s1 * d1.y + s2 * d2.y), inverse);
+  const float2 b2 = rot90(make_float2(s2 * d1.x - s1 * d2.x, s2 * d1.y - s1 * d2.y), inverse);
+  v[0] = make_float2(v[0].x + t1.x + t2.x, v[0].y + t1.y + t2.y);
+  v[1] = make_float2(a1.x + b1.x, a1.y + b1.y);
+  v[4] = make_float2(a1.x - b1.x, a1.y - b1.y);
+  v[2] = make_float2(a2.x + b2.x, a2.y + b2.y);
+  v[3] = make_float2(a2.x - b2.x, a2.y - b2.y);
+}
+
+// one radix-R stage: sub-transforms of length m become ones of length R m
+template <int R>
+__device__ __forceinline__ void fft_stage(float2* a, const float2* __restrict__ tw,
+                                          int n, int m, bool inverse) {
+  const int len = R * m;
+  const int tstride = n / len;
+  const int nb = n / R;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    const int blk = b / m;
+    const int k = b - blk * m;
+    const int base = blk * len + k;
+    float2 v[R];
+    v[0] = a[base];
+#pragma unroll
+    for (int j = 1; j < R; ++j) {
+      float2 w = __ldg(&tw[j * k * tstride]);
+      if (inverse) w.y = -w.y;
+      v[j] = cmul(a[base + j * m], w);
+    }
+    dft_small<R>(v, inverse);
+#pragma unroll
+    for (int q = 0; q < R; ++q) a[base + q * m] = v[q];
+  }
+}
+
+// In-place FFT of plan.n points in shared memory (input digit-reversed,
+// output natural; inverse=true conjugates, no 1/n scaling). Synchronizes
+// the block on entry and after each stage.
+__device__ inline void fft_mixed(float2* a, const float2* __restrict__ tw,
+                                 FftPlan plan, bool inverse) {
+  __syncthreads();
+  int m = 1;
+  for (int s = 0; s < plan.stages; ++s) {
+    const int r = (plan.code >> (3 * s)) & 7;
+    switch (r) {
+      case 2: fft_stage<2>(a, tw, plan.n, m, inverse); break;
+      case 3: fft_stage<3>(a, tw, plan.n, m, inverse); break;
+      case 4: fft_stage<4>(a, tw, plan.n, m, inverse); break;
+      default: fft_stage<5>(a, tw, plan.n, m, inverse); break;
+    }
+    m *= r;
     __syncthreads();
   }
 }

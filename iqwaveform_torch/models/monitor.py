@@ -6,14 +6,17 @@ power, spectrogram statistics and the detector-binned APD, the same six
 outputs as the JAX ``WidebandMonitor.step``.
 
 On the card each stage is a hand-written CUDA kernel (ops.kernels:
-``fused_ola``, ``chan_stats``, ``hist``); on the CPU each is that kernel's
-plain PyTorch version. The design layer (windows, bin geometry, APD edges)
+``fused_ola`` at 2:1 overlap, ``fused_ola_frames`` with a grouped
+overlap-add for the blackman (R=3) and blackmanharris (R=5) COLA windows,
+``chan_stats``, ``hist``); on the CPU each is that kernel's plain PyTorch
+version. The design layer (windows, bin geometry, APD edges)
 is host numpy, equal bit for bit to the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import typing
 
@@ -30,9 +33,15 @@ from ..ops.kernels import (
     chan_stats,
     chan_stats_plain,
     fused_ola,
+    fused_ola_frames,
     fused_ola_plain,
     hist,
     hist_plain,
+)
+from ..ops.kernels.fused_ola import (
+    fused_ola_cuda_supported,
+    fused_ola_frames_supported,
+    ola_grouped,
 )
 from ..ops.window_design import equivalent_noise_bandwidth, get_window
 from ..utils import resolve_device, to_device
@@ -306,6 +315,21 @@ class WidebandMonitor:
         )
         self.apd_edges = to_device(self._apd_edges_pow, dev)
 
+        # the OLA route, from the design: the 2:1 kernel with its in-kernel
+        # overlap-add where it applies (hamming at power-of-two sizes), else
+        # the frame-batch kernel and a grouped overlap-add in a fixed order
+        # (iqwaveform_tpu/models/monitor.py:789-804)
+        if fused_ola_cuda_supported(d.nfft, d.nfft_out, self.noverlap_in, self.noverlap_out):
+            self._ola = fused_ola
+        else:
+            if dev.type == 'cuda' and not fused_ola_frames_supported(d.nfft, d.nfft_out, dev):
+                raise NotImplementedError(
+                    f'OLA frames of {d.nfft} -> {d.nfft_out} points are outside the '
+                    'CUDA kernels\' scope (sizes 2^a 3^b 5^c within one block\'s '
+                    'shared memory; ROADMAP Queue 1 item 5c)'
+                )
+            self._ola = functools.partial(ola_grouped, frames_fn=fused_ola_frames)
+
     def _input(self, iq) -> torch.Tensor:
         x = to_device(iq, self.device, dtype=torch.complex64).contiguous()
         if x.ndim not in (1, 2):
@@ -338,11 +362,14 @@ class WidebandMonitor:
         """forward step. iq: (N,) or (B, N) complex (numpy or tensor; moved
         to the monitor's device as complex64), with N a multiple of
         min_input_multiple() for whole frames throughout."""
-        return self._body(self._input(iq), fused_ola, chan_stats, hist)
+        return self._body(self._input(iq), self._ola, chan_stats, hist)
 
     def reference_step(self, iq) -> dict:
         """the same step through each kernel's plain PyTorch version, on the
-        monitor's device: the yardstick the kernels are held against."""
+        monitor's device: the yardstick the kernels are held against. The
+        plain OLA is the grouped overlap-add of the frames' plain chain,
+        which is the route of the frame-batch kernel and the sum the 2:1
+        kernel forms in place."""
         return self._body(
             self._input(iq), fused_ola_plain, chan_stats_plain, hist_plain
         )

@@ -2,8 +2,9 @@
 
 The port's counterpart of iqwaveform_tpu/ops/fft.py: the host ``fftfreq``
 (reference fourier.py:248-269) that the passband design reads, and the
-``torch.fft`` calls that the kernels' plain versions make. The CUDA main
-path never calls these: each kernel computes its own DFT.
+public ``fft`` / ``ifft`` on ``torch.fft``, which handles every size (the
+JAX package's Bluestein and four-step routes are TPU workarounds). The
+CUDA kernels never call these: each computes its own DFT.
 """
 
 from __future__ import annotations
@@ -11,17 +12,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ['fft', 'fftfreq', 'ifft']
+from ..utils import resolve_device, to_device
+
+__all__ = ['check_fft_backend', 'fft', 'fftfreq', 'ifft', 'to_float32']
+
+# the JAX package's FFT backends; every one is torch.fft here
+FFT_BACKENDS = ('auto', 'xla', 'mxu')
 
 
-def fft(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """forward DFT along ``axis`` (no normalization)."""
-    return torch.fft.fft(x, dim=axis)
+def check_fft_backend(backend: str) -> None:
+    """ValueError unless ``backend`` is one the JAX package accepts."""
+    if backend not in FFT_BACKENDS:
+        raise ValueError(f'fft backend must be one of {FFT_BACKENDS}, not {backend!r}')
 
 
-def ifft(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """inverse DFT along ``axis``, scaled by 1/n."""
-    return torch.fft.ifft(x, dim=axis)
+def to_float32(x, device) -> torch.Tensor:
+    """numpy array or tensor -> tensor on ``device``, complex as complex64
+    and real as float32 (the port computes in float32 throughout)."""
+    x = to_device(x, device)
+    return x.to(torch.complex64 if x.is_complex() else torch.float32)
+
+
+def fft(x, axis=-1, out=None, overwrite_x=False, plan=None, workers=None,
+        backend='xla', *, device=None) -> torch.Tensor:
+    """forward DFT along ``axis``, no normalization (reference
+    fourier.py:200-218). ``x`` moves to ``device`` (None: the card);
+    ``out``, ``overwrite_x``, ``plan`` and ``workers`` are accepted for
+    API compatibility."""
+    check_fft_backend(backend)
+    return torch.fft.fft(to_float32(x, resolve_device(device)), dim=axis)
+
+
+def ifft(x, axis=-1, out=None, overwrite_x=False, plan=None, workers=None,
+         backend='xla', *, device=None) -> torch.Tensor:
+    """inverse DFT along ``axis``, scaled by 1/n (reference
+    fourier.py:221-245); arguments as :func:`fft`."""
+    check_fft_backend(backend)
+    return torch.fft.ifft(to_float32(x, resolve_device(device)), dim=axis)
 
 
 def fftfreq(n: int, d: float, *, xp=np, dtype='float64'):

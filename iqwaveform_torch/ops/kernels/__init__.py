@@ -9,7 +9,12 @@ launch (ops.kernels._build), never at import.
 
 from .chan_stats import chan_stats, chan_stats_plain
 from .colhist import colhist, colhist_plain
-from .fused_ola import fused_ola, fused_ola_plain
+from .fused_ola import (
+    fused_ola,
+    fused_ola_frames,
+    fused_ola_frames_plain,
+    fused_ola_plain,
+)
 from .hist import hist, hist_plain
 from .spectrogram import (
     spectrogram_dB,
@@ -17,8 +22,12 @@ from .spectrogram import (
     spectrogram_levels,
     spectrogram_levels_plain,
 )
+from .upfirdn import upfirdn_cuda, upfirdn_plain
 
-KERNELS = (fused_ola, chan_stats, hist, spectrogram_dB, spectrogram_levels, colhist)
+KERNELS = (
+    fused_ola, chan_stats, hist, spectrogram_dB, spectrogram_levels, colhist,
+    fused_ola_frames, upfirdn_cuda,
+)
 
 __all__ = [
     'KERNELS',
@@ -27,6 +36,8 @@ __all__ = [
     'colhist',
     'colhist_plain',
     'fused_ola',
+    'fused_ola_frames',
+    'fused_ola_frames_plain',
     'fused_ola_plain',
     'hist',
     'hist_plain',
@@ -34,4 +45,6 @@ __all__ = [
     'spectrogram_dB_plain',
     'spectrogram_levels',
     'spectrogram_levels_plain',
+    'upfirdn_cuda',
+    'upfirdn_plain',
 ]

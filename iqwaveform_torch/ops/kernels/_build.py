@@ -33,6 +33,9 @@ import torch
 __all__ = [
     'build_dir',
     'check',
+    'digit_reversal',
+    'fft_plan',
+    'plan_code',
     'library',
     'log2_exact',
     'prepare',
@@ -42,12 +45,13 @@ __all__ = [
     'smem_optin',
     'stream_of',
     'twiddles',
+    'twiddles_full',
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
     'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'hist.cu', 'spectrogram.cu',
-    'colhist.cu',
+    'colhist.cu', 'upfirdn.cu',
 )
 HEADERS = ('fft.cuh',)
 
@@ -61,6 +65,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures: pointers and the stream as c_void_p (a plain int would be
 # cut to 32 bits), sizes as int, quantization constants as float
@@ -69,6 +74,8 @@ SIGNATURES = {
     'iqt_device_attrs': ([_I, _P], _I),
     'iqt_fused_ola_prepare': ([_I], _I),
     'iqt_fused_ola': ([_P] * 6 + [_I] * 13 + [_P], _I),
+    'iqt_fused_ola_frames_prepare': ([_I], _I),
+    'iqt_fused_ola_frames': ([_P, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 10 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
@@ -77,6 +84,8 @@ SIGNATURES = {
     'iqt_spectrogram': ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
     'iqt_colhist_prepare': ([_I], _I),
     'iqt_colhist': ([_P] * 2 + [_I] * 7 + [_F] * 2 + [_P], _I),
+    'iqt_upfirdn_prepare': ([_I], _I),
+    'iqt_upfirdn': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 13 + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -248,3 +257,55 @@ def twiddles(n: int, device: torch.device) -> torch.Tensor:
 def log2_exact(n: int) -> int:
     """log2 of a power of two; -1 for anything else."""
     return n.bit_length() - 1 if n > 0 and n & (n - 1) == 0 else -1
+
+
+def fft_plan(n: int) -> tuple:
+    """the radices of the mixed-radix FFT of ``csrc/fft.cuh`` for ``n``
+    points: 4s (and one 2 for an odd power of two), then 3s, then 5s.
+    Empty for n = 1; ValueError for a size with another prime factor."""
+    radices, rest = [], n
+    for r in (4, 2, 3, 5):
+        while rest % r == 0 and (r != 2 or rest % 4):
+            radices.append(r)
+            rest //= r
+    if rest != 1 or n < 1:
+        raise ValueError(f'{n} is not of the form 2^a 3^b 5^c')
+    return tuple(radices)
+
+
+def plan_code(n: int) -> tuple:
+    """(stages, code) of ``n``'s plan as the kernels take it: the radix of
+    stage s in bits [3s, 3s + 3) of code."""
+    radices = fft_plan(n)
+    return len(radices), sum(r << (3 * s) for s, r in enumerate(radices))
+
+
+@functools.lru_cache(maxsize=None)
+def _digit_reversal_host(n: int) -> np.ndarray:
+    radices = fft_plan(n)
+    rest = np.arange(n)
+    digits = []
+    for r in reversed(radices):
+        digits.append(rest % r)
+        rest = rest // r
+    digits.reverse()  # digits[s] is the digit of radix radices[s]
+    pos, weight = np.zeros(n, np.int64), 1
+    for d, r in zip(digits, radices):
+        pos += d * weight
+        weight *= r
+    return pos.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def digit_reversal(n: int, device: torch.device) -> torch.Tensor:
+    """the position in shared memory of each input sample of ``n``'s
+    mixed-radix plan (int32, on ``device``; read only)."""
+    return torch.from_numpy(_digit_reversal_host(n)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def twiddles_full(n: int, device: torch.device) -> torch.Tensor:
+    """the mixed-radix FFT's twiddle table exp(-2 pi i t / n), t < n:
+    float64 on the host, rounded once to complex64, on ``device``."""
+    table = np.exp(-2j * np.pi * np.arange(n) / n).astype('complex64')
+    return torch.from_numpy(table).to(device)

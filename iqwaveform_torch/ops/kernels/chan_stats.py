@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import torch
 
-from .. import fft as _fft
 from ..power import binned_mean
 from . import _build
 
@@ -47,7 +46,7 @@ def chan_stats_plain(
     n_frames = y.shape[-1] // nfft_big
     yk = y[..., : n_frames * nfft_big]
     frames = yk.reshape(*lead, n_frames, nfft_big)
-    Y = _fft.fft(frames * window, axis=-1)
+    Y = torch.fft.fft(frames * window, dim=-1)
     spg = Y.real * Y.real + Y.imag * Y.imag
 
     sb = skip_bins

@@ -1,35 +1,59 @@
-"""Fused OLA bandpass + rational resample: the CUDA kernel and its plain
-PyTorch version.
+"""Fused OLA bandpass + rational resample: the CUDA kernels and their
+plain PyTorch versions.
 
-Replaces the TPU kernel ``fused_ola_strided``
-(iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571): framing at 2:1
-overlap, analysis window, forward DFT, passband mask, trim nfft ->
-nfft_out, inverse DFT, shift window and overlap-add, in one kernel
-(``csrc/fused_ola.cu``, one block per frame). What bounds it on the card
-(device memory: one read of the input, one write of the output) and what
-its design does about that are set out at the head of the CUDA source.
+Two kernels of ``csrc/fused_ola.cu``, one block per frame:
 
-The plain version is the single-device body of the JAX package's
-``_sharded_ola_body`` (iqwaveform_tpu/parallel/sharded.py:252, with
-``axis_name=None``) on ``torch.fft``: the 'extend' semantics (the capture
-end is zero-padded by ``noverlap_in`` samples) and the output trimmed to
+* :func:`fused_ola` replaces the TPU kernel ``fused_ola_strided``
+  (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571): framing at 2:1
+  overlap, analysis window, forward DFT, passband mask, trim nfft ->
+  nfft_out, inverse DFT, shift window and overlap-add, in one kernel.
+* :func:`fused_ola_frames` replaces ``fused_ola_pallas`` (:394) and
+  ``fused_ola_packed`` (:492): the same per-frame chain on a batch of
+  frames, at sizes 2^a 3^b 5^c, with no overlap-add. The public
+  ``ola_filter`` / ``oaresample`` and the monitor's overlap of more than
+  2:1 (blackman R=3, blackmanharris R=5) add its frames up outside, as a
+  sum of R groups in a fixed order (:func:`ola_grouped`).
+
+What bounds each on the card (device memory) and what its design does
+about that are set out in the CUDA source.
+
+The plain version of the per-frame chain is ``torch.fft`` on the same
+frames; that of the 2:1 kernel is the single-device body of the JAX
+package's ``_sharded_ola_body`` (iqwaveform_tpu/parallel/sharded.py:252,
+with ``axis_name=None``): the 'extend' semantics (the capture end is
+zero-padded by ``noverlap_in`` samples) and the output trimmed to
 ``n_frames * hop_out`` samples, the final frame's tail dropped.
 
-:func:`fused_ola` takes the plain version only for a tensor on the CPU;
-on a CUDA tensor it launches the kernel or raises.
+Each wrapper takes its plain version only for a tensor on the CPU; on a
+CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import fft as _fft
+from ..stft import _unstack_stft_windows
 from . import _build
 
-__all__ = ['fused_ola', 'fused_ola_cuda_supported', 'fused_ola_plain']
+__all__ = [
+    'fused_ola',
+    'fused_ola_cuda_supported',
+    'fused_ola_frames',
+    'fused_ola_frames_plain',
+    'fused_ola_frames_supported',
+    'fused_ola_plain',
+    'ola_grouped',
+]
 
-# the largest frame one block holds in shared memory (128 KiB of complex64)
+# the largest frame the 2:1 kernel holds in shared memory (128 KiB)
 MAX_CUDA_FFT = 16384
+# the frame-batch kernel's threads per block, and the most trimmed-spectrum
+# bins each thread carries through registers
+_FRAMES_THREADS = 1024
+_FRAMES_MAX_BINS_PER_THREAD = 32
+# an H100's opt-in shared memory per block: the frame-batch kernel's
+# scope on a device that is not a card (the routes stay those of the card)
+H100_SMEM_OPTIN = 232448
 
 
 def _local_frames(x_ext: torch.Tensor, nperseg: int, hop: int, n_frames: int):
@@ -46,6 +70,179 @@ def _copy_bounds(nfft, nfft_out, bounds_in, bounds_out):
     return tuple(bounds_in), tuple(bounds_out)
 
 
+def fused_ola_frames_plain(
+    frames: torch.Tensor,
+    *,
+    w_in: torch.Tensor,
+    w_shift_out: torch.Tensor,
+    nfft: int,
+    nfft_out: int,
+    zero_lo: int,
+    zero_hi,
+    bounds_in,
+    bounds_out,
+) -> torch.Tensor:
+    """plain PyTorch version of :func:`fused_ola_frames` (same arguments)."""
+    Y = torch.fft.fft(frames * w_in, dim=-1)
+    if zero_lo > 0:
+        Y[..., :zero_lo] = 0
+    if zero_hi is not None and zero_hi < nfft:
+        Y[..., zero_hi:] = 0
+    (in_lo, in_hi), (out_lo, out_hi) = _copy_bounds(
+        nfft, nfft_out, bounds_in, bounds_out
+    )
+    if (out_lo, out_hi) == (0, nfft_out):
+        Y = Y[..., in_lo:in_hi]
+    else:
+        Z = Y.new_zeros(*Y.shape[:-1], nfft_out)
+        Z[..., out_lo:out_hi] = Y[..., in_lo:in_hi]
+        Y = Z
+    return torch.fft.ifft(Y, dim=-1) * w_shift_out
+
+
+def _smooth235(n: int) -> bool:
+    for p in (2, 3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
+    """the frame-batch kernel's scope: both sizes of the form 2^a 3^b 5^c,
+    and the larger frame (8 bytes a point) within the opt-in shared memory
+    of one block of ``device`` (an H100's where ``device`` is not a card:
+    about 29k points)."""
+    device = torch.device('cpu' if device is None else device)
+    smem = _build.smem_optin(device) if device.type == 'cuda' else H100_SMEM_OPTIN
+    return (
+        min(nfft, nfft_out) >= 1
+        and _smooth235(nfft)
+        and _smooth235(nfft_out)
+        and 8 * max(nfft, nfft_out) <= smem
+        and nfft_out <= _FRAMES_THREADS * _FRAMES_MAX_BINS_PER_THREAD
+    )
+
+
+def fused_ola_frames(
+    frames: torch.Tensor,
+    *,
+    w_in: torch.Tensor,
+    w_shift_out: torch.Tensor,
+    nfft: int,
+    nfft_out: int,
+    zero_lo: int,
+    zero_hi,
+    bounds_in,
+    bounds_out,
+) -> torch.Tensor:
+    """OLA spectral chain of each frame of ``frames`` (..., M, nfft)
+    complex64: times ``w_in`` (the analysis window with 1/sum|w[::hop_in]|
+    and any input scale folded in), FFT, bins outside [zero_lo, zero_hi)
+    zeroed, bins [bounds_in) moved to [bounds_out) of an nfft_out-bin
+    spectrum, inverse FFT, times ``w_shift_out``.
+
+    ``frames`` may be a strided view of a capture (``x.unfold(-1, nfft,
+    hop)``): the kernel reads each frame where it lies. Returns (..., M,
+    nfft_out) complex64, one row per frame, not overlap-added.
+    """
+    kw = dict(
+        w_in=w_in, w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+        zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
+        bounds_out=bounds_out,
+    )
+    if frames.device.type == 'cpu':
+        return fused_ola_frames_plain(frames, **kw)
+    if frames.device.type != 'cuda':
+        raise ValueError(f'fused_ola_frames runs on cpu or cuda tensors, not {frames.device}')
+    dev = frames.device
+    if not fused_ola_frames_supported(nfft, nfft_out, dev):
+        raise NotImplementedError(
+            'the CUDA frame-batch OLA kernel takes sizes 2^a 3^b 5^c whose '
+            f'frame fits one block\'s shared memory ({_build.smem_optin(dev)} '
+            f'bytes, 8 a point); got nfft={nfft}, nfft_out={nfft_out} '
+            '(ROADMAP Queue 1 item 5c)'
+        )
+    if frames.dtype != torch.complex64:
+        raise TypeError(f'frames must be torch.complex64, not {frames.dtype}')
+    if frames.dim() < 2 or frames.shape[-1] != nfft or frames.stride(-1) != 1:
+        raise ValueError(
+            f'frames must be (..., M, {nfft}) with unit stride along the '
+            f'last axis, not shape {tuple(frames.shape)} strides {frames.stride()}'
+        )
+    _build.require(w_in, 'w_in', device=dev, dtype=torch.complex64, shape=(nfft,))
+    _build.require(
+        w_shift_out, 'w_shift_out', device=dev, dtype=torch.complex64,
+        shape=(nfft_out,),
+    )
+    lead = frames.shape[:-2]
+    f3 = frames.reshape(-1, *frames.shape[-2:]) if frames.dim() != 3 else frames
+    batch, n_frames = f3.shape[0], f3.shape[1]
+    if batch == 0 or n_frames == 0:
+        raise ValueError('fused_ola_frames needs at least one frame')
+    if batch >= 2**16 or n_frames >= 2**31:
+        raise ValueError('fused_ola_frames takes batches below 2**16 and below 2**31 frames')
+    (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
+
+    y = torch.empty((batch, n_frames, nfft_out), dtype=torch.complex64, device=dev)
+    _build.prepare('iqt_fused_ola_frames_prepare', dev)
+    err = _build.library().iqt_fused_ola_frames(
+        f3.data_ptr(), f3.stride(0), f3.stride(1),
+        w_in.data_ptr(), _build.twiddles_full(nfft, dev).data_ptr(),
+        _build.digit_reversal(nfft, dev).data_ptr(),
+        w_shift_out.data_ptr(), _build.twiddles_full(nfft_out, dev).data_ptr(),
+        _build.digit_reversal(nfft_out, dev).data_ptr(), y.data_ptr(),
+        batch, n_frames, nfft, *_build.plan_code(nfft),
+        nfft_out, *_build.plan_code(nfft_out),
+        int(zero_lo), nfft if zero_hi is None else int(zero_hi),
+        int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
+    )
+    _build.check(err, 'fused_ola_frames')
+    fused_ola_frames.launches += 1
+    return y.reshape(*lead, n_frames, nfft_out)
+
+
+fused_ola_frames.launches = 0
+
+
+def ola_grouped(
+    x: torch.Tensor,
+    *,
+    frames_fn,
+    w_in: torch.Tensor,
+    w_shift_out: torch.Tensor,
+    nfft: int,
+    nfft_out: int,
+    noverlap_in: int,
+    noverlap_out: int,
+    zero_lo: int,
+    zero_hi,
+    bounds_in,
+    bounds_out,
+) -> torch.Tensor:
+    """the monitor's OLA stage at any COLA overlap: ``x`` (..., N)
+    zero-extended by ``noverlap_in`` samples, ``N // hop_in`` frames at
+    ``hop_in`` through ``frames_fn`` (:func:`fused_ola_frames` or its plain
+    version), then the R = nfft_out / hop_out groups of every R-th frame
+    added at their offsets in a fixed order (the grouped pass of
+    iqwaveform_tpu/models/monitor.py:789-804). Returns (..., (N // hop_in)
+    * hop_out) complex64, the final frame's tail dropped."""
+    hop_in = nfft - noverlap_in
+    hop_out = nfft_out - noverlap_out
+    lead = x.shape[:-1]
+    n_frames = x.shape[-1] // hop_in
+
+    if noverlap_in > 0:
+        x = torch.cat([x, x.new_zeros(*lead, noverlap_in)], dim=-1)
+    xstack = frames_fn(
+        _local_frames(x, nfft, hop_in, n_frames), w_in=w_in,
+        w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+        zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
+        bounds_out=bounds_out,
+    )
+    y = _unstack_stft_windows(xstack, noverlap=noverlap_out, nperseg=nfft_out, axis=xstack.ndim - 2)
+    return y[..., : n_frames * hop_out]
+
+
 def fused_ola_plain(
     x: torch.Tensor,
     *,
@@ -60,42 +257,14 @@ def fused_ola_plain(
     bounds_in,
     bounds_out,
 ) -> torch.Tensor:
-    """plain PyTorch version of :func:`fused_ola` (same arguments)."""
-    hop_in = nfft - noverlap_in
-    hop_out = nfft_out - noverlap_out
-    lead = x.shape[:-1]
-    n_frames = x.shape[-1] // hop_in
-    r_out = nfft_out // hop_out
-
-    if noverlap_in > 0:
-        x = torch.cat([x, x.new_zeros(*lead, noverlap_in)], dim=-1)
-    frames = _local_frames(x, nfft, hop_in, n_frames)
-    Y = _fft.fft(frames * w_in, axis=-1)
-
-    if zero_lo > 0:
-        Y[..., :zero_lo] = 0
-    if zero_hi is not None and zero_hi < nfft:
-        Y[..., zero_hi:] = 0
-    (in_lo, in_hi), (out_lo, out_hi) = _copy_bounds(
-        nfft, nfft_out, bounds_in, bounds_out
+    """plain PyTorch version of :func:`fused_ola` (same arguments): the
+    grouped overlap-add of the frames' plain chain."""
+    return ola_grouped(
+        x, frames_fn=fused_ola_frames_plain, w_in=w_in,
+        w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+        noverlap_in=noverlap_in, noverlap_out=noverlap_out, zero_lo=zero_lo,
+        zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
     )
-    if (out_lo, out_hi) == (0, nfft_out):
-        Y = Y[..., in_lo:in_hi]
-    else:
-        Z = Y.new_zeros(*Y.shape[:-1], nfft_out)
-        Z[..., out_lo:out_hi] = Y[..., in_lo:in_hi]
-        Y = Z
-
-    xstack = _fft.ifft(Y, axis=-1) * w_shift_out
-    s_out = n_frames * hop_out
-    out_len = s_out + noverlap_out
-    xr = xstack.new_zeros(*lead, out_len)
-    for offs in range(r_out):
-        group = xstack[..., offs::r_out, :].reshape(*lead, -1)
-        start = offs * hop_out
-        length = min(group.shape[-1], out_len - start)
-        xr[..., start : start + length] += group[..., :length]
-    return xr[..., :s_out]
 
 
 def fused_ola_cuda_supported(nfft: int, nfft_out: int, noverlap_in: int, noverlap_out: int) -> bool:

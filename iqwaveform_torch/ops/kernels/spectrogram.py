@@ -30,7 +30,6 @@ import math
 
 import torch
 
-from .. import fft as _fft
 from ..power import binned_mean
 from . import _build
 from .colhist import quantize_uniform
@@ -64,7 +63,7 @@ def _dB_frames(x, window, nfft):
     if xr.shape[0] % nfft:
         raise ValueError(f'{xr.shape[0]} samples are not whole {nfft}-sample frames')
     frames = torch.complex(xr, xi).reshape(-1, nfft) * window
-    Y = _fft.fft(frames, axis=-1)
+    Y = torch.fft.fft(frames, dim=-1)
     p = Y.real * Y.real + Y.imag * Y.imag
     return _DB_PER_LN * torch.log(p + _EPS)
 

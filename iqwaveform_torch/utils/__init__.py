@@ -1,4 +1,5 @@
-"""Host-side helpers of the port: caching, numerics, array dispatch."""
+"""Host-side helpers of the port: caching, numerics, array dispatch, and
+the axis-generic framing and slicing of the filtering path."""
 
 from .caching import lazy_import, lru_cache
 from .dispatch import (
@@ -9,17 +10,21 @@ from .dispatch import (
     to_host,
     unpack_iq,
 )
+from .framing import axis_slice, pad_along_axis, to_blocks
 from .numerics import ceildiv, dtype_change_float, isroundmod
 
 __all__ = [
     'array_namespace',
+    'axis_slice',
     'ceildiv',
     'dtype_change_float',
     'is_torch_tensor',
     'isroundmod',
     'lazy_import',
     'lru_cache',
+    'pad_along_axis',
     'resolve_device',
+    'to_blocks',
     'to_device',
     'to_host',
     'unpack_iq',

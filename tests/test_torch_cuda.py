@@ -16,7 +16,9 @@ on the deepest values of white noise two float32 FFTs differ by a few
 deepest value of each bin, the JAX package's bar for it), at
 most 1e-3 of the levels differing and by one bin, the binned power within
 1e-5 relative RMS; the column counts of the same levels or values exactly
-equal.
+equal. The frame-batch OLA kernel (a mixed-radix FFT against cuFFT) and
+the upfirdn kernel (float32 sums of up to 4001 products against cuDNN's
+float32 convolution, TF32 off): relative RMS <= 1e-5.
 """
 
 import numpy as np
@@ -79,7 +81,7 @@ def test_step_launches_each_kernel_and_matches_plain_step(monitor):
     for k in kernels.KERNELS:
         k.launches = 0
     out = monitor.step(x)
-    assert [k.launches for k in kernels.KERNELS] == [1, 1, 1, 0, 0, 0]
+    assert [k.launches for k in kernels.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0]
     ref = monitor.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -185,3 +187,97 @@ def test_fold_over_two_chunks_matches_plain_fold(card, hist_bins):
         assert torch.equal(g.sum(dim=1), r.sum(dim=1))
         assert int((g - r).abs().sum()) <= 2e-3 * 2 * 2**20
         assert float((got['quantiles_dB'] - ref['quantiles_dB']).abs().max()) <= 200 / hist_bins
+
+
+# ---- the filtering path: frame-batch OLA and upfirdn ----
+
+R_DESIGNS = {  # window -> the monitor design's (nfft, nfft_out)
+    'hamming': (16384, 8192),
+    'blackman': (12288, 6144),
+    'blackmanharris': (20480, 10240),
+}
+
+
+def _r_monitor(window):
+    design = it.design_wideband_monitor(30.72e6, 15.36e6, fs_sdr=30.72e6, min_fft_size=2047,
+                                        window=window)
+    if window == 'hamming':
+        design = it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP)
+    return it.WidebandMonitor(design)
+
+
+@pytest.mark.parametrize('window', sorted(R_DESIGNS))
+def test_fused_ola_frames_matches_plain(card, window):
+    mon = _r_monitor(window)
+    assert (mon.design.nfft, mon.design.nfft_out) == R_DESIGNS[window]
+    kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    capture = _noise((2, 40 * mon.hop_in + 3), 9)
+    # a strided view: frames at hop_in of a capture that starts 3 samples in
+    frames = capture[:, 3:].unfold(-1, mon.design.nfft, mon.hop_in)
+    got = kernels.fused_ola_frames(frames, **kw)
+    ref = kernels.fused_ola_frames_plain(frames, **kw)
+    assert got.shape == ref.shape == (2, frames.shape[1], mon.design.nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    batch = frames[0].contiguous()
+    assert rel_rms(kernels.fused_ola_frames(batch, **kw), ref[0]) <= 1e-5
+
+
+@pytest.mark.parametrize('window', ['blackman', 'blackmanharris'])
+def test_monitor_beyond_2_to_1_launches_the_frame_kernel(card, window):
+    mon = _r_monitor(window)
+    x = _noise(4 * mon.min_input_multiple(), 10)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.launches == 1 and kernels.fused_ola.launches == 0
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+
+
+def test_ola_filter_takes_the_frame_kernel(card):
+    x = _noise(64 * 4096, 11)
+    kw = dict(fs=61.44e6, nfft=16384, nfft_out=8192, window='hamming', passband=(-10e6, 10e6))
+    kernels.fused_ola_frames.launches = 0
+    got = it.ola_filter(x, **kw)
+    assert kernels.fused_ola_frames.launches == 1
+    ref = it.ola_filter(x, fft_backend='xla', **kw)
+    assert kernels.fused_ola_frames.launches == 1
+    assert rel_rms(got, ref) <= 1e-5
+
+
+def test_frames_above_shared_memory_raise(card):
+    with pytest.raises(NotImplementedError, match='Queue 1 item 5c'):
+        kernels.fused_ola_frames(
+            torch.zeros((2, 40960), dtype=torch.complex64, device='cuda'),
+            w_in=torch.ones(40960, dtype=torch.complex64, device='cuda'),
+            w_shift_out=torch.ones(20480, dtype=torch.complex64, device='cuda'),
+            nfft=40960, nfft_out=20480, zero_lo=0, zero_hi=None,
+            bounds_in=(10240, 30720), bounds_out=(0, 20480),
+        )
+    design = it.design_cola_resampler(122.88e6, 61.44e6, bw=40e6, window='blackmanharris')
+    assert design['nfft'] == 40960
+    with pytest.raises(NotImplementedError, match='Queue 1 item 5c'):
+        it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, bw=40e6, window='blackmanharris'))
+    assert it.ola_filter(_noise(4 * 40960, 12), fs=122.88e6, nfft=40960, nfft_out=20480,
+                         window='blackmanharris', passband=(-20e6, 20e6)).shape == (81920,)
+
+
+@pytest.mark.parametrize('up,down', [(1, 2), (2, 3), (3, 2), (2, 5)])
+@pytest.mark.parametrize('xc,hc', [(False, False), (True, False), (False, True), (True, True)])
+def test_upfirdn_matches_plain(card, up, down, xc, hc):
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    x = torch.randn((3, 50000), device='cuda', generator=gen, dtype=torch.complex64 if xc else torch.float32)
+    h = torch.from_numpy(it.design_fir_lpf(20e6, 61.44e6)).cuda()
+    if hc:
+        h = h * torch.exp(0.01j * torch.arange(h.numel(), device='cuda'))
+    kernels.upfirdn_cuda.launches = 0
+    got = kernels.upfirdn_cuda(h, x, up, down)
+    assert kernels.upfirdn_cuda.launches == 1
+    ref = kernels.upfirdn_plain(h, x, up, down)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert rel_rms(got, ref) <= 1e-5
+    public = it.upfirdn(h, x.t().contiguous(), up, down, axis=0)
+    assert kernels.upfirdn_cuda.launches == 2
+    assert rel_rms(public.t(), ref) <= 1e-5

@@ -21,6 +21,7 @@ from iqwaveform_torch.ops import kernels
 from iqwaveform_tpu.models import WidebandMonitor as JaxMonitor
 from iqwaveform_tpu.models import design_wideband_monitor as jax_design
 from iqwaveform_tpu.ops.pallas.chan_stats_pallas import chan_stats_pallas
+from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_pallas
 from iqwaveform_tpu.ops.pallas.hist_pallas import histogram_edge_counts_pallas
 
 FLAGSHIP = dict(
@@ -72,6 +73,30 @@ def test_fused_ola_plain_matches_pallas_strided():
     assert got.shape == ref.shape == (n_frames * tm.hop_out,)
     assert got.dtype == np.complex64
     assert rel_rms(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize('nfft,nfft_out,bounds_in,bounds_out,zero', [
+    (4096, 2048, (1024, 3072), (0, 2048), (1200, 2900)),  # ola_filter's trim
+    (4096, 4096, (0, 4096), (0, 4096), (0, None)),  # bandpass only
+    (3072, 1536, (768, 2304), (0, 1536), (0, None)),  # blackman sizes
+])
+def test_fused_ola_frames_plain_matches_pallas(nfft, nfft_out, bounds_in, bounds_out, zero):
+    """row 3: the frame-batch chain against fused_ola_pallas (interpret
+    mode, 'highest'), the same raw frames and windows on both sides."""
+    rng = np.random.default_rng(nfft + nfft_out)
+    frames = _complex(rng, (6, nfft))
+    w_in = (_complex(rng, nfft) / nfft).astype('complex64')
+    w_out = np.where(np.arange(nfft_out) % 2, -1, 1).astype('complex64')
+    kw = dict(nfft=nfft, nfft_out=nfft_out, zero_lo=zero[0], zero_hi=zero[1],
+              bounds_in=bounds_in, bounds_out=bounds_out)
+    ref = np.asarray(fused_ola_pallas(jnp.asarray(frames), w_in=w_in, w_shift_out=w_out,
+                                      precision='highest', interpret=True, **kw))
+    got = kernels.fused_ola_frames(
+        torch.from_numpy(frames), w_in=torch.from_numpy(w_in),
+        w_shift_out=torch.from_numpy(w_out), **kw,
+    )
+    assert got.shape == ref.shape == (6, nfft_out)
+    assert rel_rms(got.numpy(), ref) <= 1e-5
 
 
 @pytest.mark.parametrize('analysis_bins', [256, 192])
@@ -131,3 +156,47 @@ def test_plain_versions_take_a_batch_axis():
     assert counts.shape == (2, tm.apd_edges.numel() + 1)
     for r in range(2):
         assert torch.equal(counts[r], kernels.hist(cs['p_binned'][r], tm.apd_edges))
+
+
+def _mixed_radix_model(x, inverse=False):
+    """numpy model of csrc/fft.cuh fft_mixed: the host plan's
+    digit-reversed load, then each stage's in-place radix-r butterflies
+    with the full twiddle table."""
+    from iqwaveform_torch.ops.kernels import _build
+
+    n = x.size
+    tw = np.exp(-2j * np.pi * np.arange(n) / n)
+    if inverse:
+        tw = tw.conj()
+    a = np.empty(n, complex)
+    a[_build._digit_reversal_host(n)] = x
+    m = 1
+    for r in _build.fft_plan(n):
+        length = r * m
+        W = np.exp((2j if inverse else -2j) * np.pi * np.outer(np.arange(r), np.arange(r)) / r)
+        b = np.arange(n // r)
+        blk, k = b // m, b % m
+        idx = (blk * length + k)[:, None] + np.arange(r)[None, :] * m
+        v = a[idx] * tw[(np.arange(r)[None, :] * k[:, None]) * (n // length)]
+        a[idx] = v @ W.T
+        m *= r
+    return a
+
+
+@pytest.mark.parametrize('n', [2, 3, 5, 8, 48, 120, 500, 1536, 6144])
+def test_mixed_radix_plan_computes_the_dft(n):
+    """the plan and permutation the frame-batch OLA kernel follows give
+    the DFT (float64 model, 1e-12 relative)."""
+    from iqwaveform_torch.ops.kernels import _build
+
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    radices = _build.fft_plan(n)
+    assert np.prod(radices) == n and set(radices) <= {2, 3, 4, 5}
+    stages, code = _build.plan_code(n)
+    assert [(code >> (3 * s)) & 7 for s in range(stages)] == list(radices)
+    ref = np.fft.fft(x)
+    assert np.abs(_mixed_radix_model(x) - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert np.abs(_mixed_radix_model(x, inverse=True) - np.fft.ifft(x) * n).max() <= 1e-12 * np.abs(ref).max()
+    with pytest.raises(ValueError, match='2\\^a 3\\^b 5\\^c'):
+        _build.fft_plan(7 * n)
