@@ -55,7 +55,27 @@ capture at 61.44 MS/s) and the monitor beyond 2:1 overlap:
    float64 conv on the card, launches, the kernel and the conv timed;
 10. ``WidebandMonitor.step`` at the blackman COLA design (30.72 -> 15.36
    MS/s, nfft 12288 -> 6144, R=3) on 16,785,408 samples: launches, the step
-   against ``reference_step`` with phase 3's gates, timed.
+   against ``reference_step`` with phase 3's gates, timed;
+
+then the OFDM path on 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at
+30.72 MS/s made on the card (QPSK on 1201 subcarriers, CP 160 / 144, noise
+20 dB below the signal), and ``channelize_power`` at BASELINE config #4:
+
+11. ``corr_at_indices`` at ``Phy3GPP(20e6).index_cyclic_prefix(frames=
+   range(100))`` (14,000 rows of 144) on the capture delayed by 700
+   samples: one kernel launch per call, norm on and off within 2e-5 of the
+   plain version, the peak at the planted lag, no library kernel in its
+   profile, timed;
+12. ``BasebandClockSynchronizer(20e6)`` on that capture squeezed by 31
+   samples: it converges and corrects 31 +- 1 samples, timed;
+13. ``SymbolDecoder(20e6)`` on the clean capture: the card's decode
+   against the CPU's and against the planted QPSK, MS/s;
+14. ``CellSearch(30.72e6, 15e3)`` on 20 ms with a PSS / SSS planted for
+   cell 635: the cell and offset found exactly, timed;
+15. ``channelize_power`` on 4 x 9,994,240 samples of noise, 64 channels of
+   192 of 256 bins, hamming: one launch of the channel-only channelizer
+   kernel, within 1e-5 of its plain version, the per-capture statistics of
+   bench.py, no library kernel in its profile, timed.
 
 It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -126,6 +146,12 @@ KERNEL_INFO = {
                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
     'upfirdn': ('iqwaveform_torch/csrc/upfirdn.cu',
                 'iqwaveform_tpu/ops/pallas/upfirdn_pallas.py:210'),
+    'corr_at_indices': ('iqwaveform_torch/csrc/corr.cu',
+                        'iqwaveform_tpu/ops/pallas/corr_pallas.py:97'),
+    # the channelizer kernel in its channel-only mode (emit_psd=False,
+    # emit_pbin=False), as channelize_power launches it
+    'chan_stats_channels': ('iqwaveform_torch/csrc/chan_stats.cu',
+                            'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:248'),
 }
 
 # BASELINE config #2 (bench.py:457-555): the largest multiple of the output
@@ -142,6 +168,26 @@ FILTER_REPS = 10
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
 N_MONITOR_R3 = 683 * 24576  # whole min_input_multiple()s, at least 2^24
 
+# the OFDM path: 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at 30.72 MS/s
+LTE_BW = 20e6
+LTE_SLOTS = 1000  # 1 ms each
+LTE_SNR_DB = 20
+CORR_DELAY = 700  # samples the capture is delayed by for the CP correlation
+CLOCK_SLIP = 31  # samples the capture slips over its length (about 1 ppm)
+# one SSB period with a planted PSS / SSS
+CELL_PERIOD = 20e-3
+CELL_ID = 635
+CELL_OFFSET = 123457
+CELL_NOISE = 0.05
+CELL_GAIN = 100.0
+# BASELINE config #4 (bench.py:558-600): 4 captures of 610 frames of
+# 64 x 256 points, 192 analysis bins per channel
+CHANNELIZE = dict(fft_size_per_channel=256, analysis_bins_per_channel=192, window='hamming',
+                  channel_count=64)
+CHANNELIZE_TS = 1 / 122.88e6
+CHANNELIZE_CAPTURES = 4
+CHANNELIZE_FRAMES = 610
+
 # BASELINE config #3 (bench.py:312-325)
 PERSISTENCE = dict(
     nfft=1024, window='hann', hist_bins=1024, hist_range_dB=(-150.0, 50.0),
@@ -151,6 +197,12 @@ CHUNK = 1 << 24
 N_CHUNKS = 64
 APD_NAVG = 16
 N_FOLD_CHECK = 4
+# device_kernels: traces taken in this process before the trace is taken
+# in a fresh one, and the host wait inside each trace before the call and
+# after its synchronize
+PROFILE_TRIES = 3
+PROFILE_SETTLE_S = 0.05
+FRESH_TRACE_TIMEOUT_S = 300
 
 
 class CheckFailed(RuntimeError):
@@ -332,7 +384,6 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     from iqwaveform_torch import parallel as P
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
-    from torch.profiler import ProfilerActivity, profile
 
     design = P.design_persistence(**PERSISTENCE)
     nfft = design['nfft']
@@ -454,19 +505,10 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
           f'{ms_chunk:.4f} ms per {CHUNK}-sample chunk ({smi})')
 
     # ---- phase 4d: one chunk's fold under the profiler
-    c, a = carry, apd
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        c, a = fold(c, a, 1)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    names = sorted({e.name for e in events})
-    device_us = {}
-    for e in events:
-        key = short_name(e.name)
-        device_us[key] = device_us.get(key, 0.0) + e.time_range.elapsed_us()
+    fold_kernels = ('spectrogram_kernel', 'colhist_kernel', 'hist_kernel')
+    names, device_us = device_kernels(lambda: fold(carry, apd, 1), *fold_kernels)
     print('chunk fold device kernels: ' + json.dumps(names))
-    for k in ('spectrogram_kernel', 'colhist_kernel', 'hist_kernel'):
+    for k in fold_kernels:
         require(any(k in n for n in names), f'profiler shows no {k} in the fold')
     bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
     require(not bad, f'library FFT / GEMM kernels in the fold: {bad}')
@@ -475,7 +517,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
         dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
     print(f'chunk fold device busy: {busy_ms:.4f} ms of {ms_chunk:.4f} ms per chunk '
           f'(busy share {min(1.0, busy_ms / ms_chunk):.3f})')
-    del c, a, carry, apd, out
+    del carry, apd, out
 
     # ---- phase 5: the public entry point, against the plain path
     n5 = N_FOLD_CHECK * CHUNK + 5 * 131072 + 3 * 1024
@@ -604,21 +646,101 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     return list(rows.values())
 
 
-def device_kernels(fn) -> tuple:
+def library_kernels(names) -> list:
+    """the device kernels among ``names`` that come from a library: cuFFT,
+    cuBLAS, CUTLASS or cuDNN (by name without the parameter list: the
+    frame kernel's own takes iqt::FftPlan)."""
+    return [n for n in names if any(f in short_name(n).lower() for f in FORBIDDEN + ('cudnn',))]
+
+
+def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
     """run ``fn`` once under the profiler: (sorted device kernel names,
-    device microseconds by short name)."""
+    device microseconds by short name).
+
+    On an H100 (torch 2.11, CUDA 12.8) a trace of a call made only of the
+    port's kernels (``corr_at_indices``, ``channelize_power``) late in this
+    script now and then holds no device event, though the wrapper counted
+    the launch; in some processes every such trace does, however often it
+    is taken, while a fresh process traces the same call. A trace that
+    lacks a kernel whose name holds one of ``expect`` is therefore taken
+    again, up to ``PROFILE_TRIES`` times, and then, where ``fresh`` names
+    the call (see ``trace_call``), in a fresh process. Each retake is
+    printed.
+    """
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = {}
-    for e in events:
-        key = short_name(e.name)
-        device_us[key] = device_us.get(key, 0.0) + e.time_range.elapsed_us()
-    return sorted({e.name for e in events}), device_us
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_SETTLE_S)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        missing = [k for k in expect if not any(k in e.name for e in events)]
+        if not missing:
+            device_us = {}
+            for e in events:
+                key = short_name(e.name)
+                device_us[key] = device_us.get(key, 0.0) + e.time_range.elapsed_us()
+            return sorted({e.name for e in events}), device_us
+        host = sorted({e.name for e in prof.events() if e.name.startswith('cuda')})
+        print(f'profiler: trace {attempt + 1} of {PROFILE_TRIES} holds no {missing} '
+              f'({len(events)} device events; host CUDA calls {host})')
+    if fresh is None:
+        return [], {}
+    print(f'profiler: taking the trace of {fresh} in a fresh process')
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), '--trace', fresh],
+                          capture_output=True, text=True, timeout=FRESH_TRACE_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f'profiler ({fresh}, fresh process): {line}')
+    if proc.returncode or not lines:
+        print(f'profiler: the fresh process exited {proc.returncode}: {proc.stderr[-2000:]}')
+        return [], {}
+    got = json.loads(lines[-1])
+    return got['names'], got['device_us']
+
+
+def trace_call(name: str) -> int:
+    """``python3 chip_smoke.py --trace corr|channelize``: make the call of
+    phase 11 or 15 at its shapes, on noise from ``SEED`` (its kernels' work
+    does not depend on the values), warm it up, trace it with
+    ``device_kernels`` and print (names, device us by kernel) as the last
+    line, a JSON object. Exits 1 if the trace lacks a kernel."""
+    sys.path.insert(0, str(ROOT))
+    from iqwaveform_torch import channelize_power, ofdm
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if name == 'corr':
+        phy = ofdm.Phy3GPP(LTE_BW)
+        inds = phy.index_cyclic_prefix(frames=range(LTE_SLOTS // 10))
+        x = torch.randn(LTE_SLOTS * phy.contiguous_size, dtype=torch.complex64, device=dev,
+                        generator=gen)
+
+        def fn():
+            return ofdm.corr_at_indices(inds, x, phy.nfft)
+
+        expect = ('corr_accumulate_kernel', 'corr_finish_kernel')
+    elif name == 'channelize':
+        per = CHANNELIZE['fft_size_per_channel']
+        n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
+        x = torch.randn(CHANNELIZE_CAPTURES * n_use, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        kw = {k: v for k, v in CHANNELIZE.items() if k != 'fft_size_per_channel'}
+
+        def fn():
+            return channelize_power(x, CHANNELIZE_TS, per, **kw)
+
+        expect = ('chan_stats_kernel',)
+    else:
+        raise ValueError(f'no call named {name!r} to trace')
+    fn()
+    torch.cuda.synchronize()
+    names, device_us = device_kernels(fn, *expect)
+    print(json.dumps({'names': names, 'device_us': device_us}))
+    return 0 if names else 1
 
 
 def upfirdn_flop(len_h, n_in, n_out, up, down, per_tap, dev) -> float:
@@ -680,11 +802,10 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     require(err_chain <= 1e-5, f'ola_filter vs stage chain: relative RMS {err_chain:.3g} > 1e-5')
     del ref, chain
     ola_ms = timed_ms(lambda: it.ola_filter(x, **OLA_KW), reps=FILTER_REPS, warmup=1)
-    names, device_us = device_kernels(lambda: it.ola_filter(x, **OLA_KW))
+    names, device_us = device_kernels(lambda: it.ola_filter(x, **OLA_KW), 'fused_ola_frames_kernel')
     print('ola_filter device kernels: ' + json.dumps(names))
     require(any('fused_ola_frames_kernel' in n for n in names), 'profiler shows no fused_ola_frames_kernel')
-    # by name without the parameter list: the kernel's own takes iqt::FftPlan
-    bad = [n for n in names if any(f in short_name(n).lower() for f in FORBIDDEN + ('cudnn',))]
+    bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in ola_filter: {bad}')
     busy = sum(device_us.values()) / 1e3
     print('ola_filter device time by kernel (us): ' + json.dumps(
@@ -789,8 +910,9 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             f'blackman step launches {launched}')
     check_step(out, mon.reference_step(x10), 'blackman step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x10))
-    names, device_us = device_kernels(lambda: mon.step(x10))
-    bad = [n for n in names if any(f in short_name(n).lower() for f in FORBIDDEN + ('cudnn',))]
+    names, device_us = device_kernels(lambda: mon.step(x10), 'fused_ola_frames_kernel',
+                                      'chan_stats_kernel', 'hist_kernel')
+    bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in the blackman step: {bad}')
     busy = sum(device_us.values()) / 1e3
     print('blackman step device time by kernel (us): ' + json.dumps(
@@ -822,6 +944,276 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     torch.cuda.empty_cache()
     print(f'phases 8-10 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
     return [frames_row, up_row]
+
+
+def lte_waveform(phy, n_slots: int, gen, dev) -> tuple:
+    """an LTE-like waveform for ``phy`` made on the card: QPSK on the
+    ``phy.subcarriers`` middle subcarriers, each slot at its own power
+    (uniform in [0.5, 2)), CPs copied per ``phy.cp_sizes`` as
+    tests/_synth.py:27-38 does on the host. Returns the (n_slots *
+    contiguous_size,) complex64 samples and the (14 n_slots, nfft)
+    subcarrier values in fftshifted order, scaled as SymbolDecoder
+    returns them."""
+    nfft, sc, per_slot = phy.nfft, phy.subcarriers, len(phy.cp_sizes)
+    n_sym = per_slot * n_slots
+    bits = torch.randint(0, 4, (n_sym, sc), generator=gen, device=dev)
+    qpsk = torch.complex(1 - 2 * (bits & 1).float(), 1 - 2 * (bits >> 1).float()) / math.sqrt(2)
+    amp = torch.sqrt(0.5 + 1.5 * torch.rand(n_slots, generator=gen, device=dev))
+    X = torch.zeros((n_sym, nfft), dtype=torch.complex64, device=dev)
+    lo = nfft // 2 - sc // 2
+    X[:, lo:lo + sc] = qpsk * amp.repeat_interleave(per_slot)[:, None]
+    tdom = torch.fft.ifft(torch.fft.ifftshift(X, dim=-1), dim=-1) * math.sqrt(2 * nfft)
+    # one slot's samples: symbol k's last cp_sizes[k] samples, then symbol k
+    sym, pos = [], []
+    for k, cp in enumerate(np.asarray(phy.cp_sizes)):
+        sym += [k] * (cp + nfft)
+        pos += list(range(nfft - cp, nfft)) + list(range(nfft))
+    sym, pos = (torch.tensor(v, device=dev) for v in (sym, pos))
+    wave = tdom.reshape(n_slots, per_slot, nfft)[:, sym, pos].reshape(-1)
+    return wave, X
+
+
+def corr_ops(n_starts: int, span: int, n_lags: int, ncp: int, norm: bool) -> float:
+    """the flop of one correlation: per start and acc position the lag
+    product (6) and, with norm, both powers (6); the ncp-wide moving sums
+    of the 2 or 4 rows and the normalization."""
+    rows = 4 if norm else 2
+    return n_starts * span * (12 if norm else 6) + n_lags * (rows * ncp + 4)
+
+
+def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phases 11-15; returns the kernels line's rows of this path."""
+    from iqwaveform_torch import channelize_power, ofdm
+    from iqwaveform_torch.models import CellSearch
+    from iqwaveform_torch.ops import kernels, spectral
+    from iqwaveform_torch.ops.filtering import resample
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.corr import corr_blocking
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def reset():
+        for k in kernels.KERNELS:
+            k.launches = 0
+
+    def counts():
+        return {name: k.launches for name, k in kset.items() if k.launches}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    phy = ofdm.Phy3GPP(LTE_BW)
+    nfft = phy.nfft
+    clean, planted = lte_waveform(phy, LTE_SLOTS, gen, dev)
+    n = clean.numel()
+    p_sig = float((clean.real.square() + clean.imag.square()).mean())
+    noise = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
+    capture = clean + math.sqrt(p_sig / 10 ** (LTE_SNR_DB / 10)) * noise
+    del noise
+    print(f'LTE capture: Phy3GPP({LTE_BW:g}) nfft {nfft}, CP {sorted(set(phy.cp_sizes.tolist()))}, '
+          f'{phy.subcarriers} QPSK subcarriers, {n} samples = {n / phy.sample_rate:g} s, '
+          f'noise {LTE_SNR_DB} dB below the signal')
+
+    # ---- phase 11: corr_at_indices through the kernel
+    inds = phy.index_cyclic_prefix(frames=range(LTE_SLOTS // 10))
+    ncp = inds.shape[-1]
+    starts = inds.reshape(-1, ncp)[:, 0]
+    # the capture delayed by CORR_DELAY samples: the slot starts sit there,
+    # clear of the wrap of the synchronizer's offsets (phase 12)
+    delayed = torch.roll(capture, CORR_DELAY)
+    del capture
+    x11 = delayed
+    ofdm.corr_at_indices(inds, x11[: 4 * phy.contiguous_size], nfft)  # warm-up
+    torch.cuda.synchronize()
+    got, ref = {}, {}
+    reset()
+    for norm in (True, False):
+        got[norm] = ofdm.corr_at_indices(inds, x11, nfft, norm=norm)
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f'corr_at_indices: index set {inds.shape} ({starts.size} rows of {ncp}), '
+          f'launches over 2 calls {json.dumps(launched)}')
+    require(launched == {'corr': 2}, f'corr_at_indices launches {launched}')
+    errs = {}
+    for norm in (True, False):
+        ref[norm] = kernels.corr_plain(starts, x11, nfft, ncp, norm)
+        require(got[norm].shape == (nfft + ncp,) and bool(torch.isfinite(got[norm]).all()),
+                f'corr norm={norm}: shape {tuple(got[norm].shape)} or not finite')
+        errs[norm] = max_abs(got[norm], ref[norm])
+        require(errs[norm] <= 2e-5, f'corr norm={norm}: max |diff| {errs[norm]:.3g} > 2e-5')
+    peak = int(got[True].abs().argmax())
+    print(f'corr_at_indices: max |diff| vs plain {errs[True]:.3g} (norm) {errs[False]:.3g} '
+          f'(no norm); |corr| peaks at lag {peak} = {float(got[True][peak].abs()):.4f}, '
+          f'planted {CORR_DELAY}')
+    require(peak == CORR_DELAY, f'corr peak at lag {peak}, planted at {CORR_DELAY}')
+    names, device_us = device_kernels(lambda: ofdm.corr_at_indices(inds, x11, nfft),
+                                      'corr_accumulate_kernel', 'corr_finish_kernel',
+                                      fresh='corr')
+    corr_device_ms = sum(device_us.values()) / 1e3
+    print('corr_at_indices device time by kernel (us): ' + json.dumps(device_us))
+    require(any('corr_accumulate_kernel' in nm for nm in names), 'profiler shows no corr kernel')
+    bad = library_kernels(names)
+    require(not bad, f'library FFT / GEMM / cuDNN kernels in corr_at_indices: {bad}')
+    path_ms = timed_ms(lambda: ofdm.corr_at_indices(inds, x11, nfft))
+    blk = corr_blocking(starts.size, nfft, ncp, _build.sm_count(dev))
+    corr_row = kernel_row(
+        'corr_at_indices', {'launches': launched.get('corr', 0), 'max_abs_err': max(errs.values())},
+        8 * n + 8 * starts.size + 8 * blk['n_lags'],
+        corr_ops(starts.size, blk['span'], blk['n_lags'], ncp, True),
+        lambda: kernels.corr(starts, x11, nfft, ncp, True),
+        lambda: kernels.corr_plain(starts, x11, nfft, ncp, True),
+        None, mem_rate, fp32_rate,
+    )
+    corr_row['library_note'] = 'no single PyTorch call computes a correlation at an index set'
+    corr_row['path_ms'] = path_ms
+    corr_row['profiled_device_ms'] = corr_device_ms
+    corr_row['MS_per_s'] = n / corr_row['ms'] / 1e3
+    print(f'corr: {corr_row["ms"]:.4f} ms = {corr_row["MS_per_s"]:.1f} MS/s of capture (bound '
+          f'{corr_row["bound_ms"]:.4f} ms by {corr_row["bound_by"]}, plain '
+          f'{corr_row["plain_ms"]:.4f} ms; {corr_device_ms:.4f} ms of device time in the profiled '
+          f'call); corr_at_indices {path_ms:.4f} ms on {smi}')
+    del got, ref
+
+    # ---- phase 12: the clock synchronizer on a capture that slips: the
+    # delayed capture squeezed by CLOCK_SLIP samples, which the synchronizer
+    # corrects by resampling to CLOCK_SLIP more
+    slipped = resample(delayed, n - CLOCK_SLIP)
+    del x11, delayed
+    sync = ofdm.BasebandClockSynchronizer(LTE_BW)
+    sync(slipped[: 4 * sync.sync_size], max_passes=0, on_fail='ignore')  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out12 = sync(slipped)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    last = sync._regression_info['slipped_samples']
+    print(f'BasebandClockSynchronizer: {slipped.numel()} samples ({slipped.numel() // sync.sync_size} '
+          f'windows of {sync.sync_size}), {sync.passes} passes, total slip '
+          f'{sync.total_sample_slip} (planted {-CLOCK_SLIP}), last pass {last}, {sync_s:.4f} s '
+          f'({smi})')
+    require(last == 0, f'synchronizer: the last pass slipped {last} samples')
+    require(abs(sync.total_sample_slip + CLOCK_SLIP) <= 1,
+            f'synchronizer: total slip {sync.total_sample_slip}, planted {CLOCK_SLIP}')
+    require(out12.numel() > 0 and out12.numel() % (2 * phy.contiguous_size) == 0,
+            f'synchronizer output of {out12.numel()} samples')
+    require(bool(torch.isfinite(torch.view_as_real(out12)).all()), 'synchronizer output not finite')
+    del slipped, out12
+
+    # ---- phase 13: the symbol decoder, card against CPU
+    dec = ofdm.SymbolDecoder(LTE_BW)
+    syms = dec(clean)
+    torch.cuda.synchronize()
+    dec_ms = timed_ms(lambda: dec(clean), reps=5, warmup=1)
+    cpu = ofdm.SymbolDecoder(LTE_BW, device='cpu')(clean.cpu())
+    require(syms.shape == cpu.shape, f'decoder: card {tuple(syms.shape)}, CPU {tuple(cpu.shape)}')
+    err = max_abs(syms.cpu(), cpu)
+    print(f'SymbolDecoder: {n} samples -> {tuple(syms.shape)} symbols, card vs CPU max |diff| '
+          f'{err:.3g}; {dec_ms:.4f} ms = {n / dec_ms / 1e3:.1f} MS/s ({smi})')
+    require(err <= 1e-4, f'decoder: card vs CPU max |diff| {err:.3g} > 1e-4')
+    # the decoder keeps the first slot of each pair (ofdm.py:1235) and the
+    # middle 2 (subcarriers // 2) bins
+    per_slot, half = len(phy.cp_sizes), phy.subcarriers // 2
+    want = planted.reshape(LTE_SLOTS // 2, 2 * per_slot, nfft)[:, :per_slot].reshape(-1, nfft)
+    err_sym = max_abs(dec._decode_symbols(clean), want[:, nfft // 2 - half:nfft // 2 + half])
+    print(f'SymbolDecoder: decoded vs planted QPSK max |diff| {err_sym:.3g}')
+    require(err_sym <= 1e-3, f'decoder: decoded vs planted QPSK max |diff| {err_sym:.3g} > 1e-3')
+    del syms, cpu, clean, planted, want
+
+    # ---- phase 14: the cell search on one SSB period
+    fs, scs = phy.sample_rate, phy.subcarrier_spacing
+    search = CellSearch(fs, scs)
+    n14 = round(CELL_PERIOD * fs)
+    x14 = CELL_NOISE * torch.randn(n14, dtype=torch.complex64, device=dev, generator=gen)
+    pss = torch.from_numpy(np.asarray(ofdm.pss_5g_nr(fs, scs, pad_cp=False))).to(dev)
+    sss = torch.from_numpy(np.asarray(ofdm.sss_5g_nr(fs, scs, pad_cp=False))).to(dev)
+    x14[CELL_OFFSET:CELL_OFFSET + pss.shape[1]] += CELL_GAIN * pss[CELL_ID % 3]
+    s0 = CELL_OFFSET + search.sss_stride
+    x14[s0:s0 + sss.shape[1]] += CELL_GAIN * sss[CELL_ID]
+    search(x14)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = search(x14)
+    cell_ms = (time.perf_counter() - t0) * 1e3
+    print(f'CellSearch({fs:g}, {scs:g}): {n14} samples, found {found}, planted n_id {CELL_ID} at '
+          f'{CELL_OFFSET}; {cell_ms:.4f} ms for a {CELL_PERIOD * 1e3:g} ms capture ({smi})')
+    require((found.n_id, found.n_id2, found.offset) == (CELL_ID, CELL_ID % 3, CELL_OFFSET),
+            f'cell search found {found}')
+    require(found.peak > 0.5 and found.sss_peak > 0.5, f'cell search peaks {found}')
+    del x14
+
+    # ---- phase 15: channelize_power at BASELINE config #4
+    n_use = CHANNELIZE_FRAMES * CHANNELIZE['fft_size_per_channel'] * CHANNELIZE['channel_count']
+    iq = torch.randn((CHANNELIZE_CAPTURES, n_use), dtype=torch.complex64, device=dev, generator=gen)
+    flat = iq.reshape(-1)
+    n_ch = CHANNELIZE['channel_count']
+    nperseg = n_ch * CHANNELIZE['fft_size_per_channel']
+    skip = n_ch * (CHANNELIZE['fft_size_per_channel'] - CHANNELIZE['analysis_bins_per_channel'])
+    kw15 = {k: v for k, v in CHANNELIZE.items() if k != 'fft_size_per_channel'}
+
+    def channelize():
+        return channelize_power(flat, CHANNELIZE_TS, CHANNELIZE['fft_size_per_channel'], **kw15)
+
+    channelize()  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    freqs, times, cp = channelize()
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f'channelize_power: {CHANNELIZE_CAPTURES} x {n_use} samples -> {tuple(cp.shape)}, '
+          f'launches {json.dumps(launched)}')
+    require(launched == {'chan_stats': 1}, f'channelize_power launches {launched}')
+    n_frames = CHANNELIZE_CAPTURES * CHANNELIZE_FRAMES
+    require(cp.shape == (n_frames, n_ch) and len(times) == n_frames
+            and len(freqs) == CHANNELIZE['analysis_bins_per_channel'],
+            f'channelize_power shapes {tuple(cp.shape)}, {len(times)} times, {len(freqs)} freqs')
+    require(bool(torch.isfinite(cp).all()), 'channel power not finite')
+    w15 = spectral._kernel_window(CHANNELIZE['window'], nperseg, dev)
+    ckw = dict(nfft_big=nperseg, channel_count=n_ch, window=w15, skip_bins=skip,
+               emit_psd=False, emit_pbin=False)
+    cp_ref = kernels.chan_stats_plain(flat, **ckw)['channel_power']
+    err15 = rel_rms(cp, cp_ref)
+    # white noise of unit power through the unit-power window over nperseg:
+    # each bin's expected power is 1 / nperseg
+    expect = CHANNELIZE['analysis_bins_per_channel'] / nperseg
+    mean15 = float(cp.double().mean())
+    by_capture = cp.reshape(CHANNELIZE_CAPTURES, -1, n_ch)
+    stats = torch.stack([by_capture.mean(dim=1), by_capture.amax(dim=1),
+                         by_capture.square().mean(dim=1).sqrt()], dim=1)
+    print(f'channelize_power: vs plain relative RMS {err15:.3g}; mean channel power {mean15:.6g} '
+          f'(white noise: {expect:.6g}); per capture and channel mean / max / rms over time: '
+          f'{tuple(stats.shape)}, capture 0 channel 0 {stats[0, :, 0].tolist()}')
+    require(err15 <= 1e-5, f'channelize_power vs plain: relative RMS {err15:.3g} > 1e-5')
+    require(abs(mean15 / expect - 1) <= 0.01, f'mean channel power {mean15:.6g}, expected {expect:.6g}')
+    require(bool(torch.isfinite(stats).all()), 'channel statistics not finite')
+    names, device_us = device_kernels(channelize, 'chan_stats_kernel', fresh='channelize')
+    chan_device_ms = sum(device_us.values()) / 1e3
+    print('channelize_power device time by kernel (us): ' + json.dumps(device_us))
+    mode = [nm for nm in names if 'chan_stats_kernel' in nm]
+    require(len(mode) == 1 and '<16, false, false>' in short_name(mode[0])
+            and not any('chan_reduce_kernel' in nm for nm in names),
+            f'channelize_power did not run the channel-only kernel alone: {names}')
+    bad = library_kernels(names)
+    require(not bad, f'library FFT / GEMM / cuDNN kernels in channelize_power: {bad}')
+    path_ms = timed_ms(channelize)
+    chan_row = kernel_row(
+        'chan_stats_channels', {'launches': launched.get('chan_stats', 0), 'max_abs_err': max_abs(cp, cp_ref)},
+        8 * flat.numel() + 8 * nperseg + 4 * cp.numel(),
+        n_frames * (fft_ops(nperseg) + 6 * nperseg + 2 * (nperseg - skip)),
+        lambda: kernels.chan_stats(flat, **ckw),
+        lambda: kernels.chan_stats_plain(flat, **ckw),
+        lambda: kernels.chan_stats_plain(flat, **ckw),
+        mem_rate, fp32_rate,
+    )
+    chan_row['path_ms'] = path_ms
+    chan_row['profiled_device_ms'] = chan_device_ms
+    chan_row['MS_per_s'] = flat.numel() / path_ms / 1e3
+    print(f'chan_stats (channel-only): {chan_row["ms"]:.4f} ms (bound {chan_row["bound_ms"]:.4f} ms '
+          f'by {chan_row["bound_by"]}, plain {chan_row["plain_ms"]:.4f} ms; {chan_device_ms:.4f} ms '
+          f'of device time in the profiled call); channelize_power '
+          f'{path_ms:.4f} ms = {chan_row["MS_per_s"]:.1f} MS/s on {smi}')
+    del iq, flat, cp, cp_ref, by_capture
+    torch.cuda.empty_cache()
+    print(f'phases 11-15 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return [corr_row, chan_row]
 
 
 def main() -> int:
@@ -906,24 +1298,12 @@ def main() -> int:
         require(launched[kname] > 0, f'the step launched no {kname} kernel')
     print('launches in one step: ' + json.dumps(launched))
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        mon.step(x)
-        torch.cuda.synchronize()
-    kernel_events = [
-        e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    device_kernels = sorted({e.name for e in kernel_events})
-    device_us = {}
-    for e in kernel_events:
-        key = short_name(e.name)
-        device_us[key] = device_us.get(key, 0.0) + e.time_range.elapsed_us()
-    print('step device kernels: ' + json.dumps(device_kernels))
-    for k in ('fused_ola_kernel', 'chan_stats_kernel', 'hist_kernel'):
-        require(any(k in n for n in device_kernels),
-                f'profiler shows no {k} in the step')
-    bad = [n for n in device_kernels if any(f in n.lower() for f in FORBIDDEN)]
+    step_kernels = ('fused_ola_kernel', 'chan_stats_kernel', 'hist_kernel')
+    names, device_us = device_kernels(lambda: mon.step(x), *step_kernels)
+    print('step device kernels: ' + json.dumps(names))
+    for k in step_kernels:
+        require(any(k in n for n in names), f'profiler shows no {k} in the step')
+    bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
     require(not bad, f'library FFT / GEMM kernels in the step: {bad}')
 
     ref = mon.reference_step(x)
@@ -1002,6 +1382,9 @@ def main() -> int:
     # ---- phases 8-10: the filtering path and the monitor beyond 2:1
     rows = merge_rows(rows, filtering_phases(dev, smi, mem_rate, fp32_rate))
 
+    # ---- phases 11-15: the OFDM path and channelize_power
+    rows = merge_rows(rows, ofdm_phases(dev, smi, mem_rate, fp32_rate))
+
     print(json.dumps({'kernels': rows}))
     print(json.dumps({
         'ok': True,
@@ -1015,4 +1398,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if len(sys.argv) == 3 and sys.argv[1] == '--trace':
+        sys.exit(trace_call(sys.argv[2]))
     sys.exit(main())

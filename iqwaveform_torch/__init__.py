@@ -1,9 +1,11 @@
 """iqwaveform-torch: the PyTorch / CUDA port of iqwaveform-tpu.
 
 The flagship WidebandMonitor, the streaming persistence spectrum and APD
-(parallel), and the filtering path (fourier: ola_filter, oaresample,
-upfirdn and the STFT) run on an NVIDIA Hopper card through hand-written
-CUDA kernels (ops.kernels), and on the CPU through their plain PyTorch
+(parallel), the filtering path (fourier: ola_filter, oaresample, upfirdn
+and the STFT), the OFDM analysis family (ofdm: CP correlation, clock
+synchronization, symbol decoding; models.CellSearch) and
+channelize_power run on an NVIDIA Hopper card through hand-written CUDA
+kernels (ops.kernels), and on the CPU through their plain PyTorch
 versions. Entry points run on the card unless the caller
 passes ``device='cpu'``. The package imports torch, numpy and scipy, and
 nothing of JAX.
@@ -11,7 +13,7 @@ nothing of JAX.
 
 __version__ = '0.1.0'
 
-from . import fourier, models, ops, parallel, utils  # noqa: F401
+from . import fourier, models, ofdm, ops, parallel, utils  # noqa: F401
 from .fourier import (  # noqa: F401
     design_fir_lpf,
     design_fir_resampler,
@@ -24,6 +26,8 @@ from .fourier import (  # noqa: F401
     upfirdn,
 )
 from .models import (  # noqa: F401
+    CellSearch,
+    CellSearchResult,
     MonitorDesign,
     WidebandMonitor,
     design_from_reference,
@@ -31,6 +35,7 @@ from .models import (  # noqa: F401
     resolve_monitor_design,
 )
 from .ops import (  # noqa: F401
+    channelize_power,
     design_cola_resampler,
     equivalent_noise_bandwidth,
     get_window,
@@ -47,9 +52,12 @@ from .parallel import (  # noqa: F401
 )
 
 __all__ = [
+    'CellSearch',
+    'CellSearchResult',
     'MonitorDesign',
     'WidebandMonitor',
     'carry_from_reference',
+    'channelize_power',
     'design_cola_resampler',
     'design_fir_lpf',
     'design_fir_resampler',
@@ -62,6 +70,7 @@ __all__ = [
     'istft',
     'models',
     'oaconvolve',
+    'ofdm',
     'oaresample',
     'ola_filter',
     'ops',

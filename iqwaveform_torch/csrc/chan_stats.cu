@@ -19,6 +19,14 @@
 // chan_reduce_kernel folds them over blocks in a fixed order, so the sums
 // are deterministic (no float atomics).
 //
+// Channel-only mode (chan_stats_pallas with emit_psd=False and
+// emit_pbin=False, the channelize_power route): the template flags PSD and
+// PBIN drop the ln / max accumulators with their partial writes and the
+// reduce launch, and the binned-power loop with its write. Each frame is
+// then one read of y, the FFT and the channel sums; at BASELINE config #4
+// (4 x 9,994,240 samples, nfft 16384) that is 320 MB, 0.095 ms at
+// 3.35 TB/s.
+//
 // What bounds it on an H100: one read of y (8 B/sample) and the write of
 // the binned power (4 B per navg samples); about 69 MB at the flagship
 // step, ~21 us at 3.35 TB/s. The FFT work (0.5 GFLOP) is below that. Each
@@ -36,8 +44,9 @@ constexpr int kMaxThreads = 1024;
 constexpr float kEps = 1e-25f;
 
 // PT = bins per thread (nfft / blockDim.x); per-bin accumulators live in
-// registers for the whole run of frames.
-template <int PT>
+// registers for the whole run of frames. PSD: keep the ln / max partials;
+// PBIN: write the binned power.
+template <int PT, bool PSD, bool PBIN>
 __global__ void __launch_bounds__(kMaxThreads)
 chan_stats_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
                   const float2* __restrict__ tw, float* __restrict__ part_log,
@@ -50,7 +59,9 @@ chan_stats_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
   const int row = blockIdx.y;
   const int bins_per_frame = nfft / navg;
   const float2* yr = y + row * row_len;
-  float* pr = pbin + static_cast<long long>(row) * n_frames * bins_per_frame;
+  float* pr =
+      PBIN ? pbin + static_cast<long long>(row) * n_frames * bins_per_frame
+           : nullptr;
   float* cr = chp + static_cast<long long>(row) * n_frames * channel_count;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -67,13 +78,15 @@ chan_stats_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
   const int f1 = min(f0 + frames_per_block, n_frames);
   for (int f = f0; f < f1; ++f) {
     const float2* fr = yr + static_cast<long long>(f) * nfft;
-    for (int t = threadIdx.x; t < bins_per_frame; t += blockDim.x) {
-      float s = 0.f;
-      for (int i = 0; i < navg; ++i) {
-        const float2 v = fr[t * navg + i];
-        s += v.x * v.x + v.y * v.y;
+    if (PBIN) {
+      for (int t = threadIdx.x; t < bins_per_frame; t += blockDim.x) {
+        float s = 0.f;
+        for (int i = 0; i < navg; ++i) {
+          const float2 v = fr[t * navg + i];
+          s += v.x * v.x + v.y * v.y;
+        }
+        pr[static_cast<long long>(f) * bins_per_frame + t] = s / navg;
       }
-      pr[static_cast<long long>(f) * bins_per_frame + t] = s / navg;
     }
     for (int n = threadIdx.x; n < nfft; n += blockDim.x) {
       buf[iqt::bitrev(n, log2_nfft)] = iqt::cmul(fr[n], w[n]);
@@ -85,8 +98,10 @@ chan_stats_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
     for (int r = 0; r < PT; ++r) {
       const float2 v = buf[threadIdx.x + r * blockDim.x];
       spg[r] = v.x * v.x + v.y * v.y;
-      ls[r] += logf(spg[r] + kEps);
-      mx[r] = fmaxf(mx[r], spg[r]);
+      if (PSD) {
+        ls[r] += logf(spg[r] + kEps);
+        mx[r] = fmaxf(mx[r], spg[r]);
+      }
     }
     __syncthreads();
     // the spectrum is in registers now; reuse the buffer for spg
@@ -105,13 +120,15 @@ chan_stats_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
     __syncthreads();
   }
 
-  const long long base =
-      (static_cast<long long>(row) * gridDim.x + blockIdx.x) * nfft;
+  if (PSD) {
+    const long long base =
+        (static_cast<long long>(row) * gridDim.x + blockIdx.x) * nfft;
 #pragma unroll
-  for (int r = 0; r < PT; ++r) {
-    const int k = threadIdx.x + r * blockDim.x;
-    part_log[base + k] = ls[r];
-    part_max[base + k] = mx[r];
+    for (int r = 0; r < PT; ++r) {
+      const int k = threadIdx.x + r * blockDim.x;
+      part_log[base + k] = ls[r];
+      part_max[base + k] = mx[r];
+    }
   }
 }
 
@@ -135,17 +152,43 @@ __global__ void chan_reduce_kernel(const float* __restrict__ part_log,
   max_out[row * nfft + k] = m;
 }
 
-template <int PT>
+template <int PT, bool PSD, bool PBIN>
 cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    const float2* y, const float2* w, const float2* tw,
                    float* part_log, float* part_max, float* chp, float* pbin,
                    long long row_len, int n_frames, int log2_nfft, int navg,
                    int channel_count, int abins, int skip_half,
                    int frames_per_block) {
-  chan_stats_kernel<PT><<<grid, threads, smem, stream>>>(
+  chan_stats_kernel<PT, PSD, PBIN><<<grid, threads, smem, stream>>>(
       y, w, tw, part_log, part_max, chp, pbin, row_len, n_frames, log2_nfft,
       navg, channel_count, abins, skip_half, frames_per_block);
   return cudaGetLastError();
+}
+
+template <int PT>
+cudaError_t launch_mode(bool psd, bool pbin, dim3 grid, int threads,
+                        size_t smem, cudaStream_t stream, const float2* y,
+                        const float2* w, const float2* tw, float* part_log,
+                        float* part_max, float* chp, float* pb,
+                        long long row_len, int n_frames, int log2_nfft,
+                        int navg, int channel_count, int abins, int skip_half,
+                        int frames_per_block) {
+#define IQT_MODE(A, B)                                                       \
+  launch<PT, A, B>(grid, threads, smem, stream, y, w, tw, part_log,          \
+                   part_max, chp, pb, row_len, n_frames, log2_nfft, navg,    \
+                   channel_count, abins, skip_half, frames_per_block)
+  if (psd) return pbin ? IQT_MODE(true, true) : IQT_MODE(true, false);
+  return pbin ? IQT_MODE(false, true) : IQT_MODE(false, false);
+#undef IQT_MODE
+}
+
+template <int PT>
+cudaError_t allow_modes(int max_smem) {
+  cudaError_t err;
+  if ((err = iqt::allow_smem(chan_stats_kernel<PT, true, true>, max_smem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_kernel<PT, true, false>, max_smem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_kernel<PT, false, true>, max_smem))) return err;
+  return iqt::allow_smem(chan_stats_kernel<PT, false, false>, max_smem);
 }
 
 }  // namespace
@@ -154,11 +197,11 @@ cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
 // of dynamic shared memory (one frame)
 extern "C" int iqt_chan_stats_prepare(int max_smem) {
   cudaError_t err;
-  if ((err = iqt::allow_smem(chan_stats_kernel<1>, max_smem))) return err;
-  if ((err = iqt::allow_smem(chan_stats_kernel<2>, max_smem))) return err;
-  if ((err = iqt::allow_smem(chan_stats_kernel<4>, max_smem))) return err;
-  if ((err = iqt::allow_smem(chan_stats_kernel<8>, max_smem))) return err;
-  return iqt::allow_smem(chan_stats_kernel<16>, max_smem);
+  if ((err = allow_modes<1>(max_smem))) return err;
+  if ((err = allow_modes<2>(max_smem))) return err;
+  if ((err = allow_modes<4>(max_smem))) return err;
+  if ((err = allow_modes<8>(max_smem))) return err;
+  return allow_modes<16>(max_smem);
 }
 
 // y: (batch, row_len) complex64 with n_frames * nfft <= row_len;
@@ -166,13 +209,16 @@ extern "C" int iqt_chan_stats_prepare(int max_smem) {
 // ceil(n_frames / frames_per_block); outputs log_sum / max_out (batch,
 // nfft), chp (batch, n_frames, channel_count), pbin (batch, n_frames *
 // nfft / navg). nfft is a power of two up to 16384 and navg divides it.
+// emit_psd = 0 skips the ln / max sums (part_log, part_max, log_sum and
+// max_out are then not touched, and may be null); emit_pbin = 0 skips pbin.
 extern "C" int iqt_chan_stats(const void* y, const void* w, const void* tw,
                               void* part_log, void* part_max, void* log_sum,
                               void* max_out, void* chp, void* pbin,
                               int batch, int row_len, int n_frames,
                               int log2_nfft, int navg, int channel_count,
                               int abins, int skip_half, int frames_per_block,
-                              int n_blocks, void* stream) {
+                              int n_blocks, int emit_psd, int emit_pbin,
+                              void* stream) {
   const int nfft = 1 << log2_nfft;
   const int threads = nfft < kMaxThreads ? nfft : kMaxThreads;
   const int pt = nfft / threads;
@@ -189,9 +235,10 @@ extern "C" int iqt_chan_stats(const void* y, const void* w, const void* tw,
   cudaError_t err;
 #define IQT_CHAN(P)                                                          \
   case P:                                                                    \
-    err = launch<P>(grid, threads, smem, s, yp, wp, tp, pl, pm, cp, pb,      \
-                    row_len, n_frames, log2_nfft, navg, channel_count,       \
-                    abins, skip_half, frames_per_block);                     \
+    err = launch_mode<P>(emit_psd != 0, emit_pbin != 0, grid, threads, smem, \
+                         s, yp, wp, tp, pl, pm, cp, pb, row_len, n_frames,   \
+                         log2_nfft, navg, channel_count, abins, skip_half,   \
+                         frames_per_block);                                  \
     break;
   switch (pt) {
     IQT_CHAN(1)
@@ -203,7 +250,7 @@ extern "C" int iqt_chan_stats(const void* y, const void* w, const void* tw,
       return cudaErrorInvalidValue;
   }
 #undef IQT_CHAN
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !emit_psd) return err;
   const int rthreads = 256;
   chan_reduce_kernel<<<dim3((nfft + rthreads - 1) / rthreads, batch),
                        rthreads, 0, s>>>(pl, pm, static_cast<float*>(log_sum),

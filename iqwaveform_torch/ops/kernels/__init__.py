@@ -9,6 +9,7 @@ launch (ops.kernels._build), never at import.
 
 from .chan_stats import chan_stats, chan_stats_plain
 from .colhist import colhist, colhist_plain
+from .corr import corr, corr_plain
 from .fused_ola import (
     fused_ola,
     fused_ola_frames,
@@ -26,7 +27,7 @@ from .upfirdn import upfirdn_cuda, upfirdn_plain
 
 KERNELS = (
     fused_ola, chan_stats, hist, spectrogram_dB, spectrogram_levels, colhist,
-    fused_ola_frames, upfirdn_cuda,
+    fused_ola_frames, upfirdn_cuda, corr,
 )
 
 __all__ = [
@@ -35,6 +36,8 @@ __all__ = [
     'chan_stats_plain',
     'colhist',
     'colhist_plain',
+    'corr',
+    'corr_plain',
     'fused_ola',
     'fused_ola_frames',
     'fused_ola_frames_plain',

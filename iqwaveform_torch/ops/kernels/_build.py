@@ -51,7 +51,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
     'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'hist.cu', 'spectrogram.cu',
-    'colhist.cu', 'upfirdn.cu',
+    'colhist.cu', 'upfirdn.cu', 'corr.cu',
 )
 HEADERS = ('fft.cuh',)
 
@@ -77,7 +77,7 @@ SIGNATURES = {
     'iqt_fused_ola_frames_prepare': ([_I], _I),
     'iqt_fused_ola_frames': ([_P, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
-    'iqt_chan_stats': ([_P] * 9 + [_I] * 10 + [_P], _I),
+    'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
     'iqt_spectrogram_prepare': ([_I], _I),
@@ -86,6 +86,8 @@ SIGNATURES = {
     'iqt_colhist': ([_P] * 2 + [_I] * 7 + [_F] * 2 + [_P], _I),
     'iqt_upfirdn_prepare': ([_I], _I),
     'iqt_upfirdn': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 13 + [_P], _I),
+    'iqt_corr_prepare': ([_I], _I),
+    'iqt_corr': ([_P] * 4 + [_L] + [_I] * 8 + [_F] + [_P], _I),
 }
 
 _lock = threading.Lock()

@@ -9,6 +9,11 @@ the detector-binned power, in one read of the resampled stream
 (``csrc/chan_stats.cu``). What bounds it on the card and what its design
 does about that are set out at the head of the CUDA source.
 
+With ``emit_psd=False, emit_pbin=False`` (the arguments of
+``chan_stats_pallas``, chan_stats_pallas.py:259-260) only the channel power
+is computed: the channel-only mode that ``channelize_power`` takes
+(iqwaveform_tpu/ops/spectral.py:708-801).
+
 The plain version is the XLA formulation of the monitor
 (iqwaveform_tpu/models/monitor.py:703-719) on ``torch.fft``, returning the
 kernel's outputs: sums of ln rather than of dB, maxima of power rather
@@ -25,7 +30,7 @@ import torch
 from ..power import binned_mean
 from . import _build
 
-__all__ = ['chan_stats', 'chan_stats_plain']
+__all__ = ['chan_stats', 'chan_stats_plain', 'covers']
 
 _EPS = 1e-25
 MAX_CUDA_FFT = 16384
@@ -40,6 +45,8 @@ def chan_stats_plain(
     window: torch.Tensor,
     navg: int = 1,
     skip_bins: int = 0,
+    emit_psd: bool = True,
+    emit_pbin: bool = True,
 ) -> dict:
     """plain PyTorch version of :func:`chan_stats` (same arguments)."""
     lead = y.shape[:-1]
@@ -54,13 +61,20 @@ def chan_stats_plain(
     abins = (nfft_big - sb) // channel_count
     channel_power = kept.reshape(*lead, n_frames, channel_count, abins).sum(-1)
 
-    p = yk.real * yk.real + yk.imag * yk.imag
-    return {
-        'psd_log_sum': torch.log(spg + _EPS).sum(dim=-2),
-        'psd_max': spg.amax(dim=-2),
-        'channel_power': channel_power,
-        'p_binned': binned_mean(p, navg),
-    }
+    out = {'channel_power': channel_power}
+    if emit_psd:
+        out['psd_log_sum'] = torch.log(spg + _EPS).sum(dim=-2)
+        out['psd_max'] = spg.amax(dim=-2)
+    if emit_pbin:
+        out['p_binned'] = binned_mean(yk.real * yk.real + yk.imag * yk.imag, navg)
+    return out
+
+
+def covers(nfft_big: int, navg: int = 1) -> bool:
+    """whether the CUDA kernel takes frames of ``nfft_big`` points
+    binned by ``navg``: a power of two in [64, MAX_CUDA_FFT] that navg
+    divides."""
+    return 64 <= nfft_big <= MAX_CUDA_FFT and _build.log2_exact(nfft_big) > 0 and nfft_big % navg == 0
 
 
 def chan_stats(
@@ -71,6 +85,8 @@ def chan_stats(
     window: torch.Tensor,
     navg: int = 1,
     skip_bins: int = 0,
+    emit_psd: bool = True,
+    emit_pbin: bool = True,
 ) -> dict:
     """channelizer statistics of a resampled stream ``y`` (..., S)
     complex64, over its ``S // nfft_big`` whole frames.
@@ -82,21 +98,26 @@ def chan_stats(
         join no channel; channel c owns (nfft_big - skip_bins) /
         channel_count contiguous kept bins.
 
+    emit_psd / emit_pbin: False drops psd_log_sum and psd_max / p_binned
+        (the kernel then skips their work and writes).
+
     Returns dict of float32 tensors (natural bin order):
         psd_log_sum: (..., nfft_big) sum over frames of ln(|Y|^2 + 1e-25)
-        psd_max: (..., nfft_big) max over frames of |Y|^2
+            [emit_psd]
+        psd_max: (..., nfft_big) max over frames of |Y|^2 [emit_psd]
         channel_power: (..., frames, channel_count)
         p_binned: (..., frames * nfft_big // navg) mean of |y|^2 over navg
+            [emit_pbin]
     """
     if y.device.type == 'cpu':
         return chan_stats_plain(
             y, nfft_big=nfft_big, channel_count=channel_count, window=window,
-            navg=navg, skip_bins=skip_bins,
+            navg=navg, skip_bins=skip_bins, emit_psd=emit_psd, emit_pbin=emit_pbin,
         )
     if y.device.type != 'cuda':
         raise ValueError(f'chan_stats runs on cpu or cuda tensors, not {y.device}')
     log2n = _build.log2_exact(nfft_big)
-    if not (64 <= nfft_big <= MAX_CUDA_FFT and log2n > 0 and nfft_big % navg == 0):
+    if not covers(nfft_big, navg):
         raise NotImplementedError(
             'the CUDA channelizer-statistics kernel takes a power-of-two '
             f'nfft_big in [64, {MAX_CUDA_FFT}] that navg divides; got '
@@ -118,32 +139,48 @@ def chan_stats(
         raise ValueError(f'chan_stats needs at least one frame ({nfft_big} samples) per row')
     if row_len >= 2**31 or batch >= 2**16:
         raise ValueError('chan_stats takes rows below 2**31 samples and batches below 2**16')
-    n_blocks = -(-n_frames // FRAMES_PER_BLOCK)
+    frames_per_block = FRAMES_PER_BLOCK
+    if not emit_psd:
+        # no per-bin partials to fold: spread the frames over one wave of
+        # the blocks the card holds at once
+        threads = min(nfft_big, 1024)
+        per_sm = max(1, min(2048 // threads, _build.smem_optin(dev) // (8 * nfft_big)))
+        frames_per_block = -(-n_frames * batch // (per_sm * _build.sm_count(dev)))
+    n_blocks = -(-n_frames // frames_per_block)
     n_bin = n_frames * nfft_big // navg
 
     f32 = dict(dtype=torch.float32, device=dev)
-    part_log = torch.empty((batch, n_blocks, nfft_big), **f32)
-    part_max = torch.empty((batch, n_blocks, nfft_big), **f32)
-    log_sum = torch.empty((batch, nfft_big), **f32)
-    psd_max = torch.empty((batch, nfft_big), **f32)
-    channel_power = torch.empty((batch, n_frames, channel_count), **f32)
-    p_binned = torch.empty((batch, n_bin), **f32)
+    out = {'channel_power': torch.empty((batch, n_frames, channel_count), **f32)}
+    if emit_psd:
+        part_log = torch.empty((batch, n_blocks, nfft_big), **f32)
+        part_max = torch.empty((batch, n_blocks, nfft_big), **f32)
+        out['psd_log_sum'] = torch.empty((batch, nfft_big), **f32)
+        out['psd_max'] = torch.empty((batch, nfft_big), **f32)
+    if emit_pbin:
+        out['p_binned'] = torch.empty((batch, n_bin), **f32)
+
+    def ptr(key):
+        return out[key].data_ptr() if key in out else None
+
     _build.prepare('iqt_chan_stats_prepare', dev)
     err = _build.library().iqt_chan_stats(
         y.data_ptr(), window.data_ptr(), _build.twiddles(nfft_big, dev).data_ptr(),
-        part_log.data_ptr(), part_max.data_ptr(), log_sum.data_ptr(),
-        psd_max.data_ptr(), channel_power.data_ptr(), p_binned.data_ptr(),
+        part_log.data_ptr() if emit_psd else None,
+        part_max.data_ptr() if emit_psd else None,
+        ptr('psd_log_sum'), ptr('psd_max'), ptr('channel_power'), ptr('p_binned'),
         batch, row_len, n_frames, log2n, navg, channel_count, abins,
-        skip_bins // 2, FRAMES_PER_BLOCK, n_blocks, _build.stream_of(y),
+        skip_bins // 2, frames_per_block, n_blocks, int(emit_psd), int(emit_pbin),
+        _build.stream_of(y),
     )
     _build.check(err, 'chan_stats')
     chan_stats.launches += 1
-    return {
-        'psd_log_sum': log_sum.reshape(*lead, nfft_big),
-        'psd_max': psd_max.reshape(*lead, nfft_big),
-        'channel_power': channel_power.reshape(*lead, n_frames, channel_count),
-        'p_binned': p_binned.reshape(*lead, n_bin),
+    shapes = {
+        'psd_log_sum': (nfft_big,),
+        'psd_max': (nfft_big,),
+        'channel_power': (n_frames, channel_count),
+        'p_binned': (n_bin,),
     }
+    return {key: v.reshape(*lead, *shapes[key]) for key, v in out.items()}
 
 
 chan_stats.launches = 0

@@ -11,7 +11,7 @@ from .dispatch import (
     unpack_iq,
 )
 from .framing import axis_slice, pad_along_axis, to_blocks
-from .numerics import ceildiv, dtype_change_float, isroundmod
+from .numerics import ceildiv, dtype_change_float, isclosetoint, isroundmod
 
 __all__ = [
     'array_namespace',
@@ -19,6 +19,7 @@ __all__ = [
     'ceildiv',
     'dtype_change_float',
     'is_torch_tensor',
+    'isclosetoint',
     'isroundmod',
     'lazy_import',
     'lru_cache',

@@ -1,8 +1,8 @@
 """Host-side numeric helpers of the design layer.
 
 Copied from iqwaveform_tpu/utils/numerics.py (reference util.py:136-141,
-util.py:545-568, util.py:592-594): only the helpers that the window and
-resampler design code calls.
+util.py:545-568, util.py:592-594, ofdm.py:643-645): only the helpers that
+the window, resampler and OFDM numerology design code calls.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ import math
 import numpy as np
 
 from .caching import lru_cache
+from .dispatch import to_host
 
-__all__ = ['ceildiv', 'dtype_change_float', 'isroundmod']
+__all__ = ['ceildiv', 'dtype_change_float', 'isclosetoint', 'isroundmod']
 
 
 def ceildiv(a: int, b: int) -> int:
@@ -57,3 +58,10 @@ def dtype_change_float(dtype, float_basis_dtype) -> np.dtype:
         f'unable to identify output dtype similar to {dtype} '
         f'matching floating point {float_basis_dtype}'
     )
+
+
+def isclosetoint(v, atol=1e-6) -> bool:
+    """True if v (scalar, array or tensor) is within atol of an integer
+    (reference ofdm.py:643-645)."""
+    r = to_host(v) % 1
+    return bool(np.any(np.isclose(r, 0, atol=atol) | np.isclose(r, 1, atol=atol)))

@@ -18,15 +18,23 @@ most 1e-3 of the levels differing and by one bin, the binned power within
 1e-5 relative RMS; the column counts of the same levels or values exactly
 equal. The frame-batch OLA kernel (a mixed-radix FFT against cuFFT) and
 the upfirdn kernel (float32 sums of up to 4001 products against cuDNN's
-float32 convolution, TF32 off): relative RMS <= 1e-5.
+float32 convolution, TF32 off): relative RMS <= 1e-5. The CP-correlation
+kernel: max |difference| <= 2e-5 against its plain version (the JAX
+package's bar, tests/test_pallas.py:79), NaN at the same lags; its
+gradient within 1e-5 of the largest plain gradient (the backward is the
+plain version's). The channel-only channelizer: relative RMS <= 1e-5.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import iqwaveform_torch as it
-from iqwaveform_torch.ops import kernels
+from iqwaveform_torch import ofdm
+from iqwaveform_torch.ops import kernels, spectral
 from iqwaveform_torch.ops.kernels.colhist import uniform_quant
 from iqwaveform_torch.parallel import streaming as TS
 
@@ -36,6 +44,9 @@ FLAGSHIP = dict(
 )
 
 pytestmark = pytest.mark.cuda
+
+sys.path.insert(0, str(Path(__file__).parent))
+from _synth import make_cp_waveform  # noqa: E402
 
 
 def rel_rms(got, ref):
@@ -81,7 +92,7 @@ def test_step_launches_each_kernel_and_matches_plain_step(monitor):
     for k in kernels.KERNELS:
         k.launches = 0
     out = monitor.step(x)
-    assert [k.launches for k in kernels.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0]
+    assert [k.launches for k in kernels.KERNELS] == [1, 1, 1] + [0] * (len(kernels.KERNELS) - 3)
     ref = monitor.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -281,3 +292,103 @@ def test_upfirdn_matches_plain(card, up, down, xc, hc):
     public = it.upfirdn(h, x.t().contiguous(), up, down, axis=0)
     assert kernels.upfirdn_cuda.launches == 2
     assert rel_rms(public.t(), ref) <= 1e-5
+
+
+# ---- the OFDM path: CP correlation; channelize_power ----
+
+
+def _corr_inputs(bw, n_slots, cut=None, seed=14):
+    phy = ofdm.Phy3GPP(bw)
+    wave = make_cp_waveform(phy, n_slots=n_slots, seed=seed)
+    if cut is not None:
+        wave = wave[:cut]
+    inds = phy.index_cyclic_prefix(slots=range(min(n_slots, 10)))
+    starts = inds.reshape(-1, inds.shape[-1])[:, 0]
+    return phy, torch.from_numpy(wave).cuda(), starts, inds.shape[-1]
+
+
+def _close_with_nans(got, ref, atol=2e-5):
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert float((got - ref)[~nan].abs().max()) <= atol
+    return int(nan.sum())
+
+
+@pytest.mark.parametrize('norm', [True, False])
+@pytest.mark.parametrize('bw,n_slots,cut', [(1.4e6, 10, None), (1.4e6, 2, 228),
+                                            (20e6, 12, None), (20e6, 1, 2048 + 1000)])
+def test_corr_kernel_matches_plain(card, bw, n_slots, cut, norm):
+    phy, x, starts, ncp = _corr_inputs(bw, n_slots, cut)
+    kernels.corr.launches = 0
+    got = kernels.corr(starts, x, phy.nfft, ncp, norm)
+    assert kernels.corr.launches == 1
+    ref = kernels.corr_plain(starts, x, phy.nfft, ncp, norm)
+    assert got.shape == ref.shape == (phy.nfft + ncp,) and got.dtype == torch.complex64
+    n_nan = _close_with_nans(got, ref)
+    # a capture shorter than 2 nfft + ncp leaves lags with no pair in range
+    assert (n_nan > 0) == (cut is not None and norm)
+    if cut is None and norm:
+        assert int(got.abs().argmax()) == 0 and float(got[0].abs()) > 0.99
+
+
+def test_corr_at_indices_routes(card):
+    phy, x, starts, ncp = _corr_inputs(1.4e6, 10)
+    inds = phy.index_cyclic_prefix(slots=range(10))
+    kernels.corr.launches = 0
+    got = ofdm.corr_at_indices(inds, x, phy.nfft, backend='xla')
+    assert kernels.corr.launches == 1
+    # a host input goes to the card (device=None) and takes the kernel too
+    got_p = ofdm.corr_at_indices(inds, x.cpu(), phy.nfft, backend='pallas')
+    assert kernels.corr.launches == 2 and got_p.device.type == 'cuda'
+    assert torch.equal(got, got_p)
+    assert float((got - ofdm.corr_at_indices(inds, x.cpu(), phy.nfft, device='cpu').cuda()).abs().max()) <= 2e-5
+    rows = np.sort(np.random.default_rng(0).choice(2000, size=(4, 16), replace=False), axis=1)
+    ofdm.corr_at_indices(rows, x, phy.nfft)  # unstructured: the direct gather
+    assert kernels.corr.launches == 2
+    with pytest.raises(ValueError, match='contiguous'):
+        ofdm.corr_at_indices(rows, x, phy.nfft, backend='pallas')
+
+
+def test_corr_gradient_matches_plain(card):
+    phy, x, starts, ncp = _corr_inputs(1.4e6, 4)
+    grads = []
+    for fn in (kernels.corr, kernels.corr_plain):
+        xg = x.clone().requires_grad_()
+        (fn(starts, xg, phy.nfft, ncp, True).abs() ** 2).sum().backward()
+        grads.append(xg.grad)
+    scale = float(grads[1].abs().max())
+    assert scale > 0 and float((grads[0] - grads[1]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize('emit', [(False, False), (True, True)])
+def test_chan_stats_at_baseline4_matches_plain(card, emit):
+    """BASELINE config #4's frames: 16384 points, 64 channels of 192 of
+    256 bins (skip 4096), hamming."""
+    emit_psd, emit_pbin = emit
+    x = _noise(40 * 16384 + 77, 15)
+    w = spectral._kernel_window('hamming', 16384, card)
+    kw = dict(nfft_big=16384, channel_count=64, window=w, skip_bins=4096, navg=16,
+              emit_psd=emit_psd, emit_pbin=emit_pbin)
+    kernels.chan_stats.launches = 0
+    got = kernels.chan_stats(x, **kw)
+    assert kernels.chan_stats.launches == 1
+    ref = kernels.chan_stats_plain(x, **kw)
+    assert sorted(got) == sorted(ref)
+    assert len(got) == (4 if emit_psd else 1)
+    for key in got:
+        assert got[key].shape == ref[key].shape, key
+        assert rel_rms(got[key], ref[key]) <= 1e-5, key
+
+
+def test_channelize_power_launches_the_channel_only_kernel(card):
+    x = _noise(4 * 6 * 16384, 16)
+    kw = dict(analysis_bins_per_channel=192, window='hamming', channel_count=64)
+    kernels.chan_stats.launches = 0
+    freqs, times, cp = it.channelize_power(x, 1 / 122.88e6, 256, **kw)
+    assert kernels.chan_stats.launches == 1 and cp.shape == (24, 64)
+    f_ref, t_ref, ref = it.channelize_power(x.cpu(), 1 / 122.88e6, 256, **kw, device='cpu')
+    assert np.array_equal(freqs, f_ref) and np.array_equal(times, t_ref)
+    assert rel_rms(cp.cpu(), ref) <= 1e-5
+    # another frame layout takes the stft route: no launch
+    it.channelize_power(x, 1 / 122.88e6, 256, **kw, fft_overlap_per_channel=128)
+    assert kernels.chan_stats.launches == 1
