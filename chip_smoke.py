@@ -45,17 +45,23 @@ capture at 61.44 MS/s) and the monitor beyond 2:1 overlap:
 
 8. the public ``ola_filter`` (nfft 16384 -> 8192, hamming, passband
    +-10 MHz) on 99,999,744 complex64 samples of noise made on the card: one
-   launch of the frame-batch OLA kernel, the output against the plain
-   route on the card and, on its first 2^22 samples, the torch.fft stage
-   chain; timed (median of 10 calls, MS/s) and profiled (no cuFFT /
-   cuBLAS / cuDNN kernel);
+   launch of the frame-batch OLA kernel, through its register-resident
+   instance for this size (``fused_ola_frames_reg_kernel``), the output
+   against the plain route on the card and, on its first 2^22 samples, the
+   torch.fft stage chain; timed (median of 10 calls, MS/s) and profiled
+   (that kernel, and no generic frame kernel, cuFFT, cuBLAS or cuDNN
+   kernel); the frame kernel alone against its plain version, and on the
+   first 512 frames, with the generic ``fused_ola_frames_kernel``, against
+   the plain chain in complex128 (its error at most twice the generic
+   kernel's), each timed;
 9. the public ``upfirdn`` with the 4001-tap ``design_fir_lpf(20e6,
    61.44e6)`` at up/down 1/2 and 2/3 on 10^8 samples: the kernel against
    the plain float32 conv1d (TF32 off), its first 2^20 outputs against a
    float64 conv on the card, launches, the kernel and the conv timed;
 10. ``WidebandMonitor.step`` at the blackman COLA design (30.72 -> 15.36
-   MS/s, nfft 12288 -> 6144, R=3) on 16,785,408 samples: launches, the step
-   against ``reference_step`` with phase 3's gates, timed;
+   MS/s, nfft 12288 -> 6144, R=3) on 16,785,408 samples: launches (the
+   register-resident frame kernel), the step against ``reference_step``
+   with phase 3's gates, timed, profiled; the frame kernel as in phase 8;
 
 then the OFDM path on 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at
 30.72 MS/s made on the card (QPSK on 1201 subcarriers, CP 160 / 144, noise
@@ -160,6 +166,11 @@ N_OLA = 24414 * 4096
 OLA_KW = dict(fs=61.44e6, nfft=16384, nfft_out=8192, window='hamming',
               passband=(-10e6, 10e6))
 N_OLA_CHAIN = 1 << 22  # output samples held against the stage chain
+N_F64_FRAMES = 512  # frames held against the plain chain in complex128
+# the frame kernel's instances: the one its paths run at their sizes, and
+# the generic one, which their profiles may not show
+REG_KERNEL = 'fused_ola_frames_reg_kernel'
+GENERIC_KERNEL = 'fused_ola_frames_kernel'
 N_UPFIRDN = 10**8
 UPFIRDN_PAIRS = ((1, 2), (2, 3))
 N_UPFIRDN_F64 = 1 << 20  # outputs held against float64
@@ -758,11 +769,33 @@ def upfirdn_flop(len_h, n_in, n_out, up, down, per_tap, dev) -> float:
     return float(total * per_tap)
 
 
+def frames_f64(frames, kw) -> tuple:
+    """relative RMS of the frame kernel its path runs and of the generic
+    frame kernel against the plain chain in complex128, on the first
+    N_F64_FRAMES frames (the windows as the kernels take them, widened)."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_generic
+
+    f = frames[:N_F64_FRAMES]
+    wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    ref = kernels.fused_ola_frames_plain(f.to(torch.complex128), **wide)
+    return rel_rms(kernels.fused_ola_frames(f, **kw), ref), rel_rms(_fused_ola_frames_generic(f, **kw), ref)
+
+
+def require_frame_kernel(names, label: str) -> None:
+    """the profile of ``label`` holds the register-resident frame kernel and
+    no generic one."""
+    require(any(REG_KERNEL in n for n in names), f'profiler shows no {REG_KERNEL} in {label}')
+    generic = [n for n in names if GENERIC_KERNEL in n]
+    require(not generic, f'the generic frame kernel ran in {label}: {generic}')
+
+
 def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     """phases 8-10; returns the kernels line's rows of this path."""
     import iqwaveform_torch as it
     from iqwaveform_torch.ops import filtering as TF
     from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_generic
     from iqwaveform_torch.ops.kernels.upfirdn import upfirdn_output_len
 
     kset = {k.__name__: k for k in kernels.KERNELS}
@@ -773,9 +806,15 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     def reset():
         for k in kernels.KERNELS:
             k.launches = 0
+        kernels.fused_ola_frames.route_launches.update(reg=0, generic=0)
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
+
+    def frame_routes(label):
+        routes = dict(kernels.fused_ola_frames.route_launches)
+        print(f'{label} frame kernels: {json.dumps(routes)}')
+        require(routes == {'reg': 1, 'generic': 0}, f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -789,6 +828,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     launched = counts()
     print(f'ola_filter launches: {json.dumps(launched)}')
     require(launched == {'fused_ola_frames': 1}, f'ola_filter launches {launched}')
+    frame_routes('ola_filter')
     ref = it.ola_filter(x, **OLA_KW, plain=True)
     require(y.shape == ref.shape == (N_OLA * nfft_out // nfft,), f'ola_filter shape {tuple(y.shape)}')
     require(bool(torch.isfinite(torch.view_as_real(y)).all()), 'ola_filter output not finite')
@@ -802,9 +842,9 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     require(err_chain <= 1e-5, f'ola_filter vs stage chain: relative RMS {err_chain:.3g} > 1e-5')
     del ref, chain
     ola_ms = timed_ms(lambda: it.ola_filter(x, **OLA_KW), reps=FILTER_REPS, warmup=1)
-    names, device_us = device_kernels(lambda: it.ola_filter(x, **OLA_KW), 'fused_ola_frames_kernel')
+    names, device_us = device_kernels(lambda: it.ola_filter(x, **OLA_KW), REG_KERNEL)
     print('ola_filter device kernels: ' + json.dumps(names))
-    require(any('fused_ola_frames_kernel' in n for n in names), 'profiler shows no fused_ola_frames_kernel')
+    require_frame_kernel(names, 'ola_filter')
     bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in ola_filter: {bad}')
     busy = sum(device_us.values()) / 1e3
@@ -826,6 +866,11 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     err = rel_rms(got_f, ref_f)
     print(f'fused_ola_frames: frames {tuple(frames.shape)} -> {tuple(got_f.shape)} relative RMS {err:.3g}')
     require(err <= 1e-5, f'fused_ola_frames relative RMS {err:.3g} > 1e-5')
+    err64, err64_generic = frames_f64(frames, fkw)
+    print(f'fused_ola_frames: first {N_F64_FRAMES} frames vs the complex128 chain: relative RMS '
+          f'{err64:.4g}, generic kernel {err64_generic:.4g}')
+    require(err64 <= 2 * err64_generic,
+            f'fused_ola_frames complex128 error {err64:.4g} > 2 x the generic kernel\'s {err64_generic:.4g}')
     n_frames = frames.shape[0]
     frames_row = kernel_row(
         'fused_ola_frames', {'launches': launched.get('fused_ola_frames', 0),
@@ -837,10 +882,15 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         lambda: kernels.fused_ola_frames_plain(frames, **fkw),
         mem_rate, fp32_rate, reps=FILTER_REPS, warmup=1,
     )
+    frames_row['generic_ms'] = timed_ms(lambda: _fused_ola_frames_generic(frames, **fkw),
+                                        reps=FILTER_REPS, warmup=1)
+    frames_row['f64_rel_rms'] = err64
+    frames_row['generic_f64_rel_rms'] = err64_generic
     frames_row['path'] = 'ola_filter, BASELINE config #2'
     frames_row['path_ms'] = ola_ms
     print(f'fused_ola_frames: {frames_row["ms"]:.4f} ms (bound {frames_row["bound_ms"]:.4f} ms by '
-          f'{frames_row["bound_by"]}, plain {frames_row["plain_ms"]:.4f} ms) on {smi}')
+          f'{frames_row["bound_by"]}, plain {frames_row["plain_ms"]:.4f} ms, generic kernel '
+          f'{frames_row["generic_ms"]:.4f} ms) on {smi}')
     del x, y, got_f, ref_f, frames
     torch.cuda.empty_cache()
 
@@ -908,10 +958,12 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'blackman step launches: {json.dumps(launched)}')
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'blackman step launches {launched}')
+    frame_routes('blackman step')
     check_step(out, mon.reference_step(x10), 'blackman step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x10))
-    names, device_us = device_kernels(lambda: mon.step(x10), 'fused_ola_frames_kernel',
+    names, device_us = device_kernels(lambda: mon.step(x10), REG_KERNEL,
                                       'chan_stats_kernel', 'hist_kernel')
+    require_frame_kernel(names, 'the blackman step')
     bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in the blackman step: {bad}')
     busy = sum(device_us.values()) / 1e3
@@ -927,6 +979,12 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     got_f = kernels.fused_ola_frames(fr, **kw)
     err = rel_rms(got_f, kernels.fused_ola_frames_plain(fr, **kw))
     require(err <= 1e-5, f'fused_ola_frames at the blackman design: relative RMS {err:.3g}')
+    err64, err64_generic = frames_f64(fr, kw)
+    print(f'fused_ola_frames at the blackman design: first {N_F64_FRAMES} frames vs the complex128 '
+          f'chain: relative RMS {err64:.4g}, generic kernel {err64_generic:.4g}')
+    require(err64 <= 2 * err64_generic,
+            f'fused_ola_frames (blackman) complex128 error {err64:.4g} > 2 x the generic kernel\'s '
+            f'{err64_generic:.4g}')
     t_bytes = (8 * x10.numel() + 8 * got_f.numel()) / mem_rate * 1e3
     t_ops = n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)) / fp32_rate * 1e3
     blackman = {
@@ -935,11 +993,13 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         'plain_ms': timed_ms(lambda: kernels.fused_ola_frames_plain(fr, **kw)),
         'library_ms': timed_ms(lambda: kernels.fused_ola_frames_plain(fr, **kw)),
         'bound_ms': max(t_bytes, t_ops), 'step_ms': step_ms,
+        'generic_ms': timed_ms(lambda: _fused_ola_frames_generic(fr, **kw)),
+        'f64_rel_rms': err64, 'generic_f64_rel_rms': err64_generic,
     }
     frames_row['monitor_blackman'] = blackman
     print(f'fused_ola_frames at the blackman design: frames {tuple(fr.shape)} relative RMS '
           f'{err:.3g}, {blackman["ms"]:.4f} ms (bound {blackman["bound_ms"]:.4f} ms, plain '
-          f'{blackman["plain_ms"]:.4f} ms) on {smi}')
+          f'{blackman["plain_ms"]:.4f} ms, generic kernel {blackman["generic_ms"]:.4f} ms) on {smi}')
     del x10, xe, fr, got_f, out, mon
     torch.cuda.empty_cache()
     print(f'phases 8-10 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
@@ -996,9 +1056,15 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     def reset():
         for k in kernels.KERNELS:
             k.launches = 0
+        kernels.fused_ola_frames.route_launches.update(reg=0, generic=0)
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
+
+    def frame_routes(label):
+        routes = dict(kernels.fused_ola_frames.route_launches)
+        print(f'{label} frame kernels: {json.dumps(routes)}')
+        require(routes == {'reg': 1, 'generic': 0}, f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
     phy = ofdm.Phy3GPP(LTE_BW)

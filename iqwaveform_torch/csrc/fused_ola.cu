@@ -31,6 +31,7 @@
 // block-wide barrier per radix-2 stage (27 stages per flagship frame);
 // radix-4/8 stages in registers are the next step.
 #include "fft.cuh"
+#include "fft_reg.cuh"
 
 namespace {
 
@@ -204,6 +205,117 @@ cudaError_t launch_frames(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// ---- the frame-batch entry at its two main-path sizes -------------------
+//
+// Replaces the same TPU kernels as fused_ola_frames_kernel above
+// (fused_ola_pallas.py fused_ola_pallas and fused_ola_packed), with the
+// same contract, at the two size pairs its paths run: 16384 -> 8192
+// (ola_filter / oaresample at BASELINE config #2) and 12288 -> 6144 (the
+// monitor's blackman design, R = 3). Every other size keeps the generic
+// kernel; the host route (ops/kernels/fused_ola.py frames_route) picks by
+// size before the launch.
+//
+// Bound on an H100 (device memory: each input sample read once, each
+// output written once, 8 B each): 1.6 GB, 0.4776 ms at 3.35 TB/s for
+// 12206 frames of 16384 -> 8192 on a 99,999,744-sample capture; 0.1002 ms
+// for 4098 frames of 12288 -> 6144. The FFT work (about 2.1e10 flop at
+// 16384) is below that at 67 TFLOP/s.
+//
+// What held the generic kernel back, and what this one does about it:
+// - one block-wide barrier per radix-4/2/3/5 stage, about 14 per frame:
+//   here four radix-16 passes (the last radix 4, 3 or 2; 16.16.8.3 at
+//   6144) per transform, with a barrier before and after each exchange;
+// - a shared-memory round trip per element per stage, with bank conflicts
+//   at the early strides: here one per pass, the exchange padded by one
+//   float2 in 16 so that every half-warp access is conflict-free;
+// - twiddles gathered per butterfly from the full n-point table in device
+//   memory: here two small tables per pass in shared memory (1952 float2
+//   for both transforms at 16384 -> 8192), copied in once per block from a
+//   table the host builds in float64;
+// - an integer division per butterfly by a runtime stage length: here the
+//   sizes are template arguments, so every index is a shift or a mask;
+// - a host-built permutation gather per loaded sample (perm_in, perm_out):
+//   the autosort passes need none. Pass 0 reads the strided frame straight
+//   from device memory, coalesced, times w_in in registers; the trim is
+//   folded into the inverse's first load (bin j reads forward bin
+//   in_lo + j - out_lo, masked by [zero_lo, zero_hi) and [out_lo,
+//   out_hi)); the inverse's last pass writes y in natural order, coalesced,
+//   times w_shift_out / nfft_out.
+// 512 threads hold up to 32 points each (the forward at 16384: two
+// radix-16 butterflies per pass) within the 128 registers a thread may
+// take; the exchange buffer takes 136 KiB at 16384, so one block runs per
+// SM, one block per frame. (A persistent grid that walks the frames keeps
+// index math live across its loop, and ptxas spills it.) Fixed-order
+// arithmetic, no atomics: the output is deterministic. Not done here:
+// overlapping the next frame's load with this frame's passes (TMA or
+// cp.async into a ring), and two blocks per SM through a real / imaginary
+// split of the exchange.
+template <int N1, int N2>
+struct RegShape {
+  // float2 of both transforms' twiddle tables, forward (N1) then inverse
+  static constexpr int tw_count = iqt::reg::table_total<N1>() + iqt::reg::table_total<N2>();
+  static constexpr size_t smem =
+      static_cast<size_t>(iqt::reg::padded_size(N1) + tw_count) * sizeof(float2);
+};
+
+// One block per frame (blockIdx.x = m, blockIdx.y = batch row b), frames
+// addressed as in fused_ola_frames_kernel. `tw` holds the RegShape
+// tables, built on the host from float64 (ops/kernels/fused_ola.py
+// reg_twiddles).
+template <int N1, int N2, int T>
+__global__ void __launch_bounds__(T, 1)
+fused_ola_frames_reg_kernel(const float2* __restrict__ x, long long batch_stride,
+                            long long frame_stride, const float2* __restrict__ w_in,
+                            const float2* __restrict__ w_out,
+                            const float2* __restrict__ tw, float2* __restrict__ y,
+                            int n_frames, int zero_lo, int zero_hi, int in_lo,
+                            int out_lo, int out_hi) {
+  namespace R = iqt::reg;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* tw_fwd = smem + R::padded_size(N1);
+  float2* tw_inv = tw_fwd + R::table_total<N1>();
+  // pass 0 reads no table; the barrier after it orders these stores
+  // before the first table read
+  for (int e = threadIdx.x; e < RegShape<N1, N2>::tw_count; e += T) tw_fwd[e] = __ldg(&tw[e]);
+
+  const int m = blockIdx.x;
+  const float2* xf = x + blockIdx.y * batch_stride + m * frame_stride;
+  float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * N2;
+  const float scale = 1.0f / static_cast<float>(N2);
+
+  R::fft<N1, false, T, false>(
+      buf, tw_fwd, [xf, w_in](int i) { return iqt::cmul(xf[i], __ldg(&w_in[i])); },
+      [buf](int i, float2 v) { buf[R::pad(i)] = v; });
+  __syncthreads();
+  R::fft<N2, true, T, true>(
+      buf, tw_inv,
+      [=](int j) {
+        float2 v = make_float2(0.f, 0.f);
+        if (j >= out_lo && j < out_hi) {
+          const int k = in_lo + (j - out_lo);
+          if (k >= zero_lo && k < zero_hi) v = buf[R::pad(k)];
+        }
+        return v;
+      },
+      [=](int n, float2 v) {
+        yf[n] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&w_out[n]));
+      });
+}
+
+template <int N1, int N2, int T>
+cudaError_t launch_frames_reg(dim3 grid, cudaStream_t stream, const float2* x,
+                              long long batch_stride, long long frame_stride,
+                              const float2* w_in, const float2* w_out, const float2* tw,
+                              int n_tw, float2* y, int n_frames, int zero_lo, int zero_hi,
+                              int in_lo, int out_lo, int out_hi) {
+  if (n_tw != RegShape<N1, N2>::tw_count) return cudaErrorInvalidValue;
+  fused_ola_frames_reg_kernel<N1, N2, T><<<grid, T, RegShape<N1, N2>::smem, stream>>>(
+      x, batch_stride, frame_stride, w_in, w_out, tw, y, n_frames, zero_lo, zero_hi, in_lo,
+      out_lo, out_hi);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int iqt_fused_ola_frames_prepare(int max_smem) {
@@ -213,7 +325,39 @@ extern "C" int iqt_fused_ola_frames_prepare(int max_smem) {
   if ((err = iqt::allow_smem(fused_ola_frames_kernel<4>, max_smem))) return err;
   if ((err = iqt::allow_smem(fused_ola_frames_kernel<8>, max_smem))) return err;
   if ((err = iqt::allow_smem(fused_ola_frames_kernel<16>, max_smem))) return err;
-  return iqt::allow_smem(fused_ola_frames_kernel<32>, max_smem);
+  if ((err = iqt::allow_smem(fused_ola_frames_kernel<32>, max_smem))) return err;
+  if ((err = iqt::allow_smem(fused_ola_frames_reg_kernel<16384, 8192, 512>,
+                             RegShape<16384, 8192>::smem)))
+    return err;
+  return iqt::allow_smem(fused_ola_frames_reg_kernel<12288, 6144, 512>,
+                         RegShape<12288, 6144>::smem);
+}
+
+// the frame-batch chain at (nfft, nfft_out) = (16384, 8192) or (12288,
+// 6144), by fused_ola_frames_reg_kernel: frames and y as for
+// iqt_fused_ola_frames; tw: the n_tw twiddle-table entries of the pair.
+// Any other pair, or another table length: cudaErrorInvalidValue.
+extern "C" int iqt_fused_ola_frames_reg(
+    const void* x, long long batch_stride, long long frame_stride,
+    const void* w_in, const void* w_out, const void* tw, void* y, int n_tw,
+    int batch, int n_frames, int nfft, int nfft_out, int zero_lo, int zero_hi,
+    int in_lo, int out_lo, int out_hi, void* stream) {
+  const dim3 grid(n_frames, batch);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const float2*>(x);
+  auto wi = static_cast<const float2*>(w_in);
+  auto wo = static_cast<const float2*>(w_out);
+  auto tp = static_cast<const float2*>(tw);
+  auto yp = static_cast<float2*>(y);
+  if (nfft == 16384 && nfft_out == 8192)
+    return launch_frames_reg<16384, 8192, 512>(grid, s, xp, batch_stride, frame_stride, wi, wo,
+                                               tp, n_tw, yp, n_frames, zero_lo, zero_hi, in_lo,
+                                               out_lo, out_hi);
+  if (nfft == 12288 && nfft_out == 6144)
+    return launch_frames_reg<12288, 6144, 512>(grid, s, xp, batch_stride, frame_stride, wi, wo,
+                                               tp, n_tw, yp, n_frames, zero_lo, zero_hi, in_lo,
+                                               out_lo, out_hi);
+  return cudaErrorInvalidValue;
 }
 
 // frames (batch, n_frames, nfft) complex64 at the given element strides

@@ -111,10 +111,10 @@ _CHOICES = {
 
 # what the port does not do yet, and the ROADMAP item that brings it
 _NOT_PORTED = {
-    ('fft_precision', 'bf16'): "ROADMAP Queue 1 item 5b: the 'bf16' frame-storage tier",
-    ('fft_precision', 'i16'): "ROADMAP Queue 1 item 5b: step_planes and the 'i16' tier",
+    ('fft_precision', 'bf16'): "ROADMAP Queue 1 item 2d: the 'bf16' frame-storage tier",
+    ('fft_precision', 'i16'): "ROADMAP Queue 1 item 2d: step_planes and the 'i16' tier",
     ('apd_kernel', 'packed'): (
-        'ROADMAP Queue 2 item 7: the packed APD counter '
+        'ROADMAP Queue 1 item 2b: the packed APD counter '
         '(columnwise_histogram_packed_raw)'
     ),
 }
@@ -326,7 +326,7 @@ class WidebandMonitor:
                 raise NotImplementedError(
                     f'OLA frames of {d.nfft} -> {d.nfft_out} points are outside the '
                     'CUDA kernels\' scope (sizes 2^a 3^b 5^c within one block\'s '
-                    'shared memory; ROADMAP Queue 1 item 5c)'
+                    'shared memory; ROADMAP Queue 2 item 1)'
                 )
             self._ola = functools.partial(ola_grouped, frames_fn=fused_ola_frames)
 

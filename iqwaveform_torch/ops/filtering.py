@@ -544,7 +544,7 @@ def _check_precision(fft_precision: str) -> None:
     if fft_precision in ('bf16', 'i16'):
         raise NotImplementedError(
             f"fft_precision={fft_precision!r} is not ported (ROADMAP Queue 1 "
-            "item 5b); 'auto', 'highest' and 'high' all run float32"
+            "item 2d); 'auto', 'highest' and 'high' all run float32"
         )
     if fft_precision not in _PRECISIONS:
         raise ValueError(f'fft_precision must be one of {_PRECISIONS}, not {fft_precision!r}')

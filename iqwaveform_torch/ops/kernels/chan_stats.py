@@ -121,7 +121,7 @@ def chan_stats(
         raise NotImplementedError(
             'the CUDA channelizer-statistics kernel takes a power-of-two '
             f'nfft_big in [64, {MAX_CUDA_FFT}] that navg divides; got '
-            f'nfft_big={nfft_big}, navg={navg} (ROADMAP Queue 1 item 5c)'
+            f'nfft_big={nfft_big}, navg={navg} (ROADMAP Queue 2 item 2)'
         )
     abins, rem = divmod(nfft_big - skip_bins, channel_count)
     if rem or skip_bins % 2 or skip_bins < 0:

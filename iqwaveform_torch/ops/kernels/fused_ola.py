@@ -9,7 +9,12 @@ Two kernels of ``csrc/fused_ola.cu``, one block per frame:
   nfft_out, inverse DFT, shift window and overlap-add, in one kernel.
 * :func:`fused_ola_frames` replaces ``fused_ola_pallas`` (:394) and
   ``fused_ola_packed`` (:492): the same per-frame chain on a batch of
-  frames, at sizes 2^a 3^b 5^c, with no overlap-add. The public
+  frames, at sizes 2^a 3^b 5^c, with no overlap-add. At the two size
+  pairs its paths run (:data:`REG_PAIRS`: 16384 -> 8192 and 12288 ->
+  6144) it launches ``fused_ola_frames_reg_kernel``, register-resident
+  radix-16 passes compiled for those sizes (``csrc/fft_reg.cuh``); at
+  every other size the generic mixed-radix ``fused_ola_frames_kernel``
+  (:func:`frames_route` picks by size, before the launch). The public
   ``ola_filter`` / ``oaresample`` and the monitor's overlap of more than
   2:1 (blackman R=3, blackmanharris R=5) add its frames up outside, as a
   sum of R groups in a fixed order (:func:`ola_grouped`).
@@ -30,6 +35,9 @@ CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..stft import _unstack_stft_windows
@@ -42,7 +50,9 @@ __all__ = [
     'fused_ola_frames_plain',
     'fused_ola_frames_supported',
     'fused_ola_plain',
+    'frames_route',
     'ola_grouped',
+    'reg_twiddles',
 ]
 
 # the largest frame the 2:1 kernel holds in shared memory (128 KiB)
@@ -51,6 +61,16 @@ MAX_CUDA_FFT = 16384
 # bins each thread carries through registers
 _FRAMES_THREADS = 1024
 _FRAMES_MAX_BINS_PER_THREAD = 32
+# the (nfft, nfft_out) pairs fused_ola_frames_reg_kernel is compiled for,
+# the passes of each size (csrc/fft_reg.cuh Plan) and its threads per block
+REG_PAIRS = ((16384, 8192), (12288, 6144))
+REG_PLANS = {
+    16384: (16, 16, 16, 4),
+    12288: (16, 16, 16, 3),
+    8192: (16, 16, 16, 2),
+    6144: (16, 16, 8, 3),
+}
+REG_THREADS = 512
 # an H100's opt-in shared memory per block: the frame-batch kernel's
 # scope on a device that is not a card (the routes stay those of the card)
 H100_SMEM_OPTIN = 232448
@@ -123,6 +143,45 @@ def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
     )
 
 
+def _reg_pass_tables(n: int, inverse: bool) -> np.ndarray:
+    """the twiddle tables of ``n``'s register-resident transform, pass by
+    pass as csrc/fft_reg.cuh reads them: for pass s (radix R, NS = the
+    product of the radices before it) and r = 1 .. R-1, a row of the
+    high_count(NS) factors exp(-+2 pi i r kh LS / (NS R)), then the LS
+    factors exp(-+2 pi i r kl / (NS R)); LS = 2^ceil(log2(NS) / 2), at
+    least 16; no high factors where NS <= LS; pass 0 has none."""
+    sign = 1 if inverse else -1
+    parts, ns = [], 1
+    for r in REG_PLANS[n]:
+        if ns > 1:
+            ls = max(16, 1 << (((ns - 1).bit_length() + 1) // 2))
+            nh = ns // ls if ns > ls else 0
+            q = np.arange(1, r)[:, None]
+            high = np.exp(sign * 2j * np.pi * q * np.arange(nh) * ls / (ns * r))
+            low = np.exp(sign * 2j * np.pi * q * np.arange(ls) / (ns * r))
+            parts.append(np.concatenate([high, low], axis=1).ravel())
+        ns *= r
+    return np.concatenate(parts)
+
+
+@functools.lru_cache(maxsize=None)
+def reg_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor:
+    """the register-resident kernel's twiddle tables for a pair of
+    :data:`REG_PAIRS`: the forward transform's of nfft, then the inverse's
+    of nfft_out; float64 on the host, rounded once to complex64, kept on
+    ``device`` (read only)."""
+    table = np.concatenate([_reg_pass_tables(nfft, False), _reg_pass_tables(nfft_out, True)])
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
+def frames_route(nfft: int, nfft_out: int) -> str:
+    """the kernel :func:`fused_ola_frames` launches for a supported size
+    pair: ``'reg'`` (``fused_ola_frames_reg_kernel``) at the pairs of
+    :data:`REG_PAIRS`, ``'generic'`` (``fused_ola_frames_kernel``) at every
+    other, an unresampled nfft_out == nfft among them."""
+    return 'reg' if (nfft, nfft_out) in REG_PAIRS else 'generic'
+
+
 def fused_ola_frames(
     frames: torch.Tensor,
     *,
@@ -154,13 +213,40 @@ def fused_ola_frames(
         return fused_ola_frames_plain(frames, **kw)
     if frames.device.type != 'cuda':
         raise ValueError(f'fused_ola_frames runs on cpu or cuda tensors, not {frames.device}')
+    return _launch_frames(frames, frames_route(nfft, nfft_out), **kw)
+
+
+def _fused_ola_frames_generic(frames: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`fused_ola_frames` on a CUDA tensor through the generic
+    ``fused_ola_frames_kernel`` at any supported size, the specialised
+    pairs too: the yardstick of the register-resident kernel in
+    chip_smoke.py and the card tests, never a route of the port."""
+    return _launch_frames(frames, 'generic', **kw)
+
+
+def _launch_frames(
+    frames: torch.Tensor,
+    route: str,
+    *,
+    w_in: torch.Tensor,
+    w_shift_out: torch.Tensor,
+    nfft: int,
+    nfft_out: int,
+    zero_lo: int,
+    zero_hi,
+    bounds_in,
+    bounds_out,
+) -> torch.Tensor:
+    """launch ``route``'s frame kernel ('reg' or 'generic') on CUDA
+    ``frames``; counts the launch in ``fused_ola_frames.launches`` and
+    ``fused_ola_frames.route_launches[route]``."""
     dev = frames.device
     if not fused_ola_frames_supported(nfft, nfft_out, dev):
         raise NotImplementedError(
             'the CUDA frame-batch OLA kernel takes sizes 2^a 3^b 5^c whose '
             f'frame fits one block\'s shared memory ({_build.smem_optin(dev)} '
             f'bytes, 8 a point); got nfft={nfft}, nfft_out={nfft_out} '
-            '(ROADMAP Queue 1 item 5c)'
+            '(ROADMAP Queue 2 item 1)'
         )
     if frames.dtype != torch.complex64:
         raise TypeError(f'frames must be torch.complex64, not {frames.dtype}')
@@ -185,23 +271,35 @@ def fused_ola_frames(
 
     y = torch.empty((batch, n_frames, nfft_out), dtype=torch.complex64, device=dev)
     _build.prepare('iqt_fused_ola_frames_prepare', dev)
-    err = _build.library().iqt_fused_ola_frames(
-        f3.data_ptr(), f3.stride(0), f3.stride(1),
-        w_in.data_ptr(), _build.twiddles_full(nfft, dev).data_ptr(),
-        _build.digit_reversal(nfft, dev).data_ptr(),
-        w_shift_out.data_ptr(), _build.twiddles_full(nfft_out, dev).data_ptr(),
-        _build.digit_reversal(nfft_out, dev).data_ptr(), y.data_ptr(),
-        batch, n_frames, nfft, *_build.plan_code(nfft),
-        nfft_out, *_build.plan_code(nfft_out),
-        int(zero_lo), nfft if zero_hi is None else int(zero_hi),
-        int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
-    )
-    _build.check(err, 'fused_ola_frames')
+    zero_hi = nfft if zero_hi is None else int(zero_hi)
+    if route == 'reg':
+        tw = reg_twiddles(nfft, nfft_out, dev)
+        err = _build.library().iqt_fused_ola_frames_reg(
+            f3.data_ptr(), f3.stride(0), f3.stride(1), w_in.data_ptr(),
+            w_shift_out.data_ptr(), tw.data_ptr(), y.data_ptr(), tw.numel(),
+            batch, n_frames, nfft, nfft_out, int(zero_lo), zero_hi,
+            int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
+        )
+    else:
+        err = _build.library().iqt_fused_ola_frames(
+            f3.data_ptr(), f3.stride(0), f3.stride(1),
+            w_in.data_ptr(), _build.twiddles_full(nfft, dev).data_ptr(),
+            _build.digit_reversal(nfft, dev).data_ptr(),
+            w_shift_out.data_ptr(), _build.twiddles_full(nfft_out, dev).data_ptr(),
+            _build.digit_reversal(nfft_out, dev).data_ptr(), y.data_ptr(),
+            batch, n_frames, nfft, *_build.plan_code(nfft),
+            nfft_out, *_build.plan_code(nfft_out), int(zero_lo), zero_hi,
+            int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
+        )
+    _build.check(err, f'fused_ola_frames ({route} kernel)')
     fused_ola_frames.launches += 1
+    fused_ola_frames.route_launches[route] += 1
     return y.reshape(*lead, n_frames, nfft_out)
 
 
 fused_ola_frames.launches = 0
+# launches by kernel: 'reg' (fused_ola_frames_reg_kernel), 'generic'
+fused_ola_frames.route_launches = {'reg': 0, 'generic': 0}
 
 
 def ola_grouped(
@@ -318,7 +416,7 @@ def fused_ola(
             'the CUDA fused OLA kernel takes power-of-two sizes up to '
             f'{MAX_CUDA_FFT} at 2:1 overlap (hamming COLA); got nfft={nfft}, '
             f'nfft_out={nfft_out}, noverlap_in={noverlap_in}, '
-            f'noverlap_out={noverlap_out} (ROADMAP Queue 1 item 5c)'
+            f'noverlap_out={noverlap_out} (ROADMAP Queue 2 item 1)'
         )
     dev = x.device
     _build.require(x, 'x', device=dev, dtype=torch.complex64)

@@ -1,7 +1,7 @@
 """Streaming reductions of the port (the counterpart of
 iqwaveform_tpu/parallel/): the persistence spectrum and the APD of long
 captures, folded chunk by chunk, and the histogram helpers they read out
-through. The sharded paths wait for ROADMAP Queue 1 item 10."""
+through. The sharded paths wait for ROADMAP Queue 1 item 5."""
 
 from .sharded import columnwise_histogram, quantile_from_histogram
 from .streaming import (

@@ -4,7 +4,7 @@ The port of two functions of iqwaveform_tpu/parallel/sharded.py: the
 sort + searchsorted per-column histogram (:547, the oracle the uniform
 counting rule is held against) and the histogram-to-quantile readout
 (:866) that persistence_finalize uses. The sharded entry points themselves
-wait for ROADMAP Queue 1 item 10.
+wait for ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations

@@ -33,8 +33,8 @@ reads through persistence_finalize:
   splits, kept in the design's fingerprint only;
 * the carry's frame count is a Python int.
 
-Not ported yet (ROADMAP): ``exact_quantiles=True`` (Queue 1 item 7),
-``save_carry`` / ``load_carry``, and the sharded paths (Queue 1 item 10).
+Not ported yet (ROADMAP): ``exact_quantiles=True`` and ``save_carry`` /
+``load_carry`` (Queue 1 item 4), and the sharded paths (Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -531,7 +531,7 @@ def streaming_persistence_spectrum(
     """
     if exact_quantiles:
         raise NotImplementedError(
-            'exact_quantiles=True is not ported yet (ROADMAP Queue 1 item 7); '
+            'exact_quantiles=True is not ported yet (ROADMAP Queue 1 item 4); '
             "use the histogram quantiles in 'quantiles_dB'"
         )
     dev = resolve_device(device)

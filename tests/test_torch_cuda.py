@@ -16,8 +16,9 @@ on the deepest values of white noise two float32 FFTs differ by a few
 deepest value of each bin, the JAX package's bar for it), at
 most 1e-3 of the levels differing and by one bin, the binned power within
 1e-5 relative RMS; the column counts of the same levels or values exactly
-equal. The frame-batch OLA kernel (a mixed-radix FFT against cuFFT) and
-the upfirdn kernel (float32 sums of up to 4001 products against cuDNN's
+equal. The frame-batch OLA kernels (a mixed-radix FFT, and register-resident
+radix-16 passes at 16384 -> 8192 and 12288 -> 6144, against cuFFT and
+against each other) and the upfirdn kernel (float32 sums of up to 4001 products against cuDNN's
 float32 convolution, TF32 off): relative RMS <= 1e-5. The CP-correlation
 kernel: max |difference| <= 2e-5 against its plain version (the JAX
 package's bar, tests/test_pallas.py:79), NaN at the same lags; its
@@ -36,6 +37,7 @@ import iqwaveform_torch as it
 from iqwaveform_torch import ofdm
 from iqwaveform_torch.ops import kernels, spectral
 from iqwaveform_torch.ops.kernels.colhist import uniform_quant
+from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_generic, frames_route
 from iqwaveform_torch.parallel import streaming as TS
 
 FLAGSHIP = dict(
@@ -239,9 +241,13 @@ def test_monitor_beyond_2_to_1_launches_the_frame_kernel(card, window):
     x = _noise(4 * mon.min_input_multiple(), 10)
     for k in kernels.KERNELS:
         k.launches = 0
+    _reset_frame_routes()
     out = mon.step(x)
     torch.cuda.synchronize()
     assert kernels.fused_ola_frames.launches == 1 and kernels.fused_ola.launches == 0
+    route = frames_route(mon.design.nfft, mon.design.nfft_out)
+    assert route == ('reg' if window == 'blackman' else 'generic')
+    assert kernels.fused_ola_frames.route_launches[route] == 1
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -250,16 +256,65 @@ def test_monitor_beyond_2_to_1_launches_the_frame_kernel(card, window):
 def test_ola_filter_takes_the_frame_kernel(card):
     x = _noise(64 * 4096, 11)
     kw = dict(fs=61.44e6, nfft=16384, nfft_out=8192, window='hamming', passband=(-10e6, 10e6))
-    kernels.fused_ola_frames.launches = 0
+    _reset_frame_routes()
     got = it.ola_filter(x, **kw)
     assert kernels.fused_ola_frames.launches == 1
+    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'generic': 0}
     ref = it.ola_filter(x, fft_backend='xla', **kw)
     assert kernels.fused_ola_frames.launches == 1
     assert rel_rms(got, ref) <= 1e-5
 
 
+def _reset_frame_routes():
+    kernels.fused_ola_frames.launches = 0
+    kernels.fused_ola_frames.route_launches.update(reg=0, generic=0)
+
+
+@pytest.mark.parametrize('window', ['hamming', 'blackman'])
+def test_register_kernel_matches_plain_and_generic(card, window):
+    """the register-resident kernel at its two pairs, on a strided view
+    with a batch axis and on a contiguous batch: within 1e-5 of the plain
+    chain and of the generic kernel, one launch each, counted on its
+    route; its complex128 error at most twice the generic kernel's."""
+    mon = _r_monitor(window)
+    nfft, nfft_out = mon.design.nfft, mon.design.nfft_out
+    assert frames_route(nfft, nfft_out) == 'reg'
+    kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    capture = _noise((3, 40 * mon.hop_in + 5), 21)
+    frames = capture[:, 5:].unfold(-1, nfft, mon.hop_in)
+    _reset_frame_routes()
+    got = kernels.fused_ola_frames(frames, **kw)
+    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'generic': 0}
+    generic = _fused_ola_frames_generic(frames, **kw)
+    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'generic': 1}
+    ref = kernels.fused_ola_frames_plain(frames, **kw)
+    assert got.shape == generic.shape == ref.shape == (3, frames.shape[1], nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    assert rel_rms(got, generic) <= 1e-5
+    batch = frames[1].contiguous()
+    assert rel_rms(kernels.fused_ola_frames(batch, **kw), ref[1]) <= 1e-5
+    assert kernels.fused_ola_frames.launches == 3
+
+    wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **wide)
+    assert rel_rms(got, ref64) <= 2 * rel_rms(generic, ref64)
+
+
+def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
+    nfft, nfft_out = 1536, 768
+    assert frames_route(nfft, nfft_out) == 'generic'
+    frames = _noise((7, nfft), 22)
+    kw = dict(w_in=_noise(nfft, 23), w_shift_out=_noise(nfft_out, 24), nfft=nfft,
+              nfft_out=nfft_out, zero_lo=100, zero_hi=1400, bounds_in=(384, 1152),
+              bounds_out=(0, 768))
+    _reset_frame_routes()
+    got = kernels.fused_ola_frames(frames, **kw)
+    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'generic': 1}
+    assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
+
+
 def test_frames_above_shared_memory_raise(card):
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5c'):
+    with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
         kernels.fused_ola_frames(
             torch.zeros((2, 40960), dtype=torch.complex64, device='cuda'),
             w_in=torch.ones(40960, dtype=torch.complex64, device='cuda'),
@@ -269,7 +324,7 @@ def test_frames_above_shared_memory_raise(card):
         )
     design = it.design_cola_resampler(122.88e6, 61.44e6, bw=40e6, window='blackmanharris')
     assert design['nfft'] == 40960
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5c'):
+    with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
         it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, bw=40e6, window='blackmanharris'))
     assert it.ola_filter(_noise(4 * 40960, 12), fs=122.88e6, nfft=40960, nfft_out=20480,
                          window='blackmanharris', passband=(-20e6, 20e6)).shape == (81920,)

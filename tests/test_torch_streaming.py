@@ -243,7 +243,7 @@ def test_design_resolution_and_errors():
 def test_entry_point_errors_and_flush():
     x = make_tone_noise(CHUNK, fs=FS, seed=37)
     kw = dict(fs=FS, window='hann', nfft=NFFT, device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
+    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
         it.streaming_persistence_spectrum(x, exact_quantiles=True, **kw)
     with pytest.raises(ValueError, match='131072'):
         it.streaming_persistence_spectrum(x, chunk_frames=100, fft_backend='pallas', **kw)
