@@ -11,14 +11,20 @@ build/iqwaveform_torch/), then, at the flagship WidebandMonitor design
 1. holds each kernel against its plain PyTorch version on the card, at the
    shapes the step gives it (OLA on 2^24 samples, channelizer statistics
    on the 2^23 resampled samples, the histogram on the 524,288 binned
-   samples);
+   samples); the 2:1 OLA kernel of this pair (the register-resident
+   ``fused_ola_reg_kernel``) also against the radix-2 ``fused_ola_kernel``
+   it replaces here, and both, on the first 512 frames, against the plain
+   version in complex128 (its error at most twice the radix-2 kernel's);
 2. drives the full ``step`` on 2^24 complex64 samples: each kernel's
-   launch count must rise, no cuFFT or cuBLAS kernel may run, and the
-   outputs must match the plain-version step on the card and the CPU step
-   on a short input;
+   launch count must rise, the OLA and channelizer route counts must name
+   ``fused_ola_reg_kernel`` and the 4096-point ``chan_stats_kernel``, the
+   profile must hold those and no ``fused_ola_kernel``, no cuFFT or cuBLAS
+   kernel may run, and the outputs must match the plain-version step on
+   the card and the CPU step on a short input;
 3. times the step and each kernel with CUDA events (median of REPS runs
    after warm-up), beside the kernel's bound, its plain version and, where
-   one exists, the PyTorch call that computes the same function;
+   one exists, the PyTorch call that computes the same function; the OLA
+   row also times the radix-2 kernel (``generic_ms``);
 
 then, at BASELINE config #3 (bench.py:312-325: streaming persistence
 spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
@@ -80,8 +86,12 @@ then the OFDM path on 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at
    cell 635: the cell and offset found exactly, timed;
 15. ``channelize_power`` on 4 x 9,994,240 samples of noise, 64 channels of
    192 of 256 bins, hamming: one launch of the channel-only channelizer
-   kernel, within 1e-5 of its plain version, the per-capture statistics of
-   bench.py, no library kernel in its profile, timed.
+   kernel at 16384 points (``chan_power_reg_kernel``, alone in its
+   profile, with no ``chan_stats_kernel``), within 1e-5 of its plain
+   version and of the radix-2 kernel, its complex128 error on the first
+   512 frames at most twice the radix-2 kernel's, the per-capture
+   statistics of bench.py, no library kernel in its profile, timed beside
+   the radix-2 kernel.
 
 It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -171,6 +181,12 @@ N_F64_FRAMES = 512  # frames held against the plain chain in complex128
 # the generic one, which their profiles may not show
 REG_KERNEL = 'fused_ola_frames_reg_kernel'
 GENERIC_KERNEL = 'fused_ola_frames_kernel'
+# the 2:1 OLA kernel the flagship step runs at 16384 -> 8192, and the
+# radix-2 one it replaces there, which the step's profile may not show;
+# likewise the channel-only channelizer of channelize_power at 16384
+OLA_REG_KERNEL = 'fused_ola_reg_kernel'
+OLA_GENERIC_KERNEL = 'fused_ola_kernel'
+CHAN_REG_KERNEL = 'chan_power_reg_kernel'
 N_UPFIRDN = 10**8
 UPFIRDN_PAIRS = ((1, 2), (2, 3))
 N_UPFIRDN_F64 = 1 << 20  # outputs held against float64
@@ -744,7 +760,7 @@ def trace_call(name: str) -> int:
         def fn():
             return channelize_power(x, CHANNELIZE_TS, per, **kw)
 
-        expect = ('chan_stats_kernel',)
+        expect = (CHAN_REG_KERNEL,)
     else:
         raise ValueError(f'no call named {name!r} to trace')
     fn()
@@ -769,17 +785,45 @@ def upfirdn_flop(len_h, n_in, n_out, up, down, per_tap, dev) -> float:
     return float(total * per_tap)
 
 
+def f64_errors(inp, kw, kernel_fn, generic_fn, plain_fn, pick=lambda out: out) -> tuple:
+    """relative RMS of ``kernel_fn`` (the kernel its route runs) and of
+    ``generic_fn`` (the older kernel it replaces there) against
+    ``plain_fn`` in complex128 on ``inp``, the arguments widened;
+    ``pick`` takes the compared tensor from a call's result."""
+    wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    ref = pick(plain_fn(inp.to(torch.complex128), **wide))
+    return rel_rms(pick(kernel_fn(inp, **kw)), ref), rel_rms(pick(generic_fn(inp, **kw)), ref)
+
+
 def frames_f64(frames, kw) -> tuple:
-    """relative RMS of the frame kernel its path runs and of the generic
-    frame kernel against the plain chain in complex128, on the first
-    N_F64_FRAMES frames (the windows as the kernels take them, widened)."""
+    """the frame kernel's errors (``f64_errors``) on the first
+    N_F64_FRAMES frames."""
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_generic
 
-    f = frames[:N_F64_FRAMES]
-    wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
-    ref = kernels.fused_ola_frames_plain(f.to(torch.complex128), **wide)
-    return rel_rms(kernels.fused_ola_frames(f, **kw), ref), rel_rms(_fused_ola_frames_generic(f, **kw), ref)
+    return f64_errors(frames[:N_F64_FRAMES], kw, kernels.fused_ola_frames,
+                      _fused_ola_frames_generic, kernels.fused_ola_frames_plain)
+
+
+def ola_f64(x, kw) -> tuple:
+    """the 2:1 OLA kernel's errors (``f64_errors``) on the output span of
+    the first N_F64_FRAMES frames (a prefix of that many hops)."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_generic
+
+    return f64_errors(x[: N_F64_FRAMES * (kw['nfft'] - kw['noverlap_in'])], kw, kernels.fused_ola,
+                      _fused_ola_generic, kernels.fused_ola_plain)
+
+
+def chan_f64(y, kw) -> tuple:
+    """the channelizer kernel's errors (``f64_errors``) in channel power
+    on the first N_F64_FRAMES frames."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic
+
+    return f64_errors(y[: N_F64_FRAMES * kw['nfft_big']], kw, kernels.chan_stats,
+                      _chan_stats_generic, kernels.chan_stats_plain,
+                      pick=lambda out: out['channel_power'])
 
 
 def require_frame_kernel(names, label: str) -> None:
@@ -1048,6 +1092,7 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     from iqwaveform_torch.ops import kernels, spectral
     from iqwaveform_torch.ops.filtering import resample
     from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic
     from iqwaveform_torch.ops.kernels.corr import corr_blocking
 
     kset = {k.__name__: k for k in kernels.KERNELS}
@@ -1056,7 +1101,8 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     def reset():
         for k in kernels.KERNELS:
             k.launches = 0
-        kernels.fused_ola_frames.route_launches.update(reg=0, generic=0)
+        for k in (kernels.fused_ola_frames, kernels.chan_stats):
+            k.route_launches.update(reg=0, generic=0)
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
@@ -1227,6 +1273,9 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'channelize_power: {CHANNELIZE_CAPTURES} x {n_use} samples -> {tuple(cp.shape)}, '
           f'launches {json.dumps(launched)}')
     require(launched == {'chan_stats': 1}, f'channelize_power launches {launched}')
+    routes15 = dict(kernels.chan_stats.route_launches)
+    print(f'channelize_power channelizer kernels: {json.dumps(routes15)}')
+    require(routes15 == {'reg': 1, 'generic': 0}, f'channelize_power channelizer kernels {routes15}')
     n_frames = CHANNELIZE_CAPTURES * CHANNELIZE_FRAMES
     require(cp.shape == (n_frames, n_ch) and len(times) == n_frames
             and len(freqs) == CHANNELIZE['analysis_bins_per_channel'],
@@ -1250,12 +1299,20 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     require(err15 <= 1e-5, f'channelize_power vs plain: relative RMS {err15:.3g} > 1e-5')
     require(abs(mean15 / expect - 1) <= 0.01, f'mean channel power {mean15:.6g}, expected {expect:.6g}')
     require(bool(torch.isfinite(stats).all()), 'channel statistics not finite')
-    names, device_us = device_kernels(channelize, 'chan_stats_kernel', fresh='channelize')
+    err_generic = rel_rms(cp, _chan_stats_generic(flat, **ckw)['channel_power'])
+    chan64, chan64_generic = chan_f64(flat, ckw)
+    print(f'channelize_power: {CHAN_REG_KERNEL} vs the radix-2 chan_stats_kernel relative RMS '
+          f'{err_generic:.3g}; first {N_F64_FRAMES} frames vs the complex128 plain version '
+          f'{chan64:.4g}, radix-2 kernel {chan64_generic:.4g}')
+    require(err_generic <= 1e-5, f'channelize_power vs the radix-2 kernel: relative RMS {err_generic:.3g}')
+    require(chan64 <= 2 * chan64_generic,
+            f'channel power complex128 error {chan64:.4g} > 2 x the radix-2 kernel\'s {chan64_generic:.4g}')
+    names, device_us = device_kernels(channelize, CHAN_REG_KERNEL, fresh='channelize')
     chan_device_ms = sum(device_us.values()) / 1e3
     print('channelize_power device time by kernel (us): ' + json.dumps(device_us))
-    mode = [nm for nm in names if 'chan_stats_kernel' in nm]
-    require(len(mode) == 1 and '<16, false, false>' in short_name(mode[0])
-            and not any('chan_reduce_kernel' in nm for nm in names),
+    mode = [nm for nm in names if CHAN_REG_KERNEL in nm]
+    require(len(mode) == 1
+            and not any('chan_stats_kernel' in nm or 'chan_reduce_kernel' in nm for nm in names),
             f'channelize_power did not run the channel-only kernel alone: {names}')
     bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in channelize_power: {bad}')
@@ -1269,11 +1326,15 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         lambda: kernels.chan_stats_plain(flat, **ckw),
         mem_rate, fp32_rate,
     )
+    chan_row['generic_ms'] = timed_ms(lambda: _chan_stats_generic(flat, **ckw))
+    chan_row['f64_rel_rms'] = chan64
+    chan_row['generic_f64_rel_rms'] = chan64_generic
     chan_row['path_ms'] = path_ms
     chan_row['profiled_device_ms'] = chan_device_ms
     chan_row['MS_per_s'] = flat.numel() / path_ms / 1e3
     print(f'chan_stats (channel-only): {chan_row["ms"]:.4f} ms (bound {chan_row["bound_ms"]:.4f} ms '
-          f'by {chan_row["bound_by"]}, plain {chan_row["plain_ms"]:.4f} ms; {chan_device_ms:.4f} ms '
+          f'by {chan_row["bound_by"]}, plain {chan_row["plain_ms"]:.4f} ms, radix-2 kernel '
+          f'{chan_row["generic_ms"]:.4f} ms; {chan_device_ms:.4f} ms '
           f'of device time in the profiled call); channelize_power '
           f'{path_ms:.4f} ms = {chan_row["MS_per_s"]:.1f} MS/s on {smi}')
     del iq, flat, cp, cp_ref, by_capture
@@ -1290,6 +1351,7 @@ def main() -> int:
     from iqwaveform_torch import WidebandMonitor, design_wideband_monitor
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_generic
 
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -1308,7 +1370,8 @@ def main() -> int:
     _build.library()
     print(f'build: {time.perf_counter() - t0:.1f} s')
     for line in _build.ptxas_report().splitlines():
-        if 'registers' in line or 'spill' in line or line.startswith('=='):
+        if ('registers' in line or 'spill' in line or line.startswith('==')
+                or ('Compiling entry' in line and 'reg_kernel' in line)):
             print(f'ptxas: {line.strip()}')
 
     design = design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP)
@@ -1325,6 +1388,14 @@ def main() -> int:
     print(f'fused_ola: {tuple(x.shape)} -> {tuple(y.shape)} relative RMS {err:.3g}')
     require(err <= 1e-5, f'fused_ola relative RMS {err:.3g} > 1e-5')
     results['fused_ola'] = {'max_abs_err': max_abs(y, y_ref)}
+    err = rel_rms(y, _fused_ola_generic(x, **mon.ola_kwargs))
+    print(f'fused_ola: {OLA_REG_KERNEL} vs the radix-2 {OLA_GENERIC_KERNEL}: relative RMS {err:.3g}')
+    require(err <= 1e-5, f'fused_ola vs the radix-2 kernel: relative RMS {err:.3g} > 1e-5')
+    ola64, ola64_generic = ola_f64(x, mon.ola_kwargs)
+    print(f'fused_ola: first {N_F64_FRAMES} frames vs the complex128 plain version: relative RMS '
+          f'{ola64:.4g}, radix-2 kernel {ola64_generic:.4g}')
+    require(ola64 <= 2 * ola64_generic,
+            f'fused_ola complex128 error {ola64:.4g} > 2 x the radix-2 kernel\'s {ola64_generic:.4g}')
 
     # full-band noise of the resampled stream's shape: the resampled stream
     # itself has bins the OLA zeroed, whose ln(|Y|^2 + 1e-25) is the log of
@@ -1356,6 +1427,8 @@ def main() -> int:
     # ---- phase 2: the full step through the kernels
     for k in kernels.KERNELS:
         k.launches = 0
+    for k in (kernels.fused_ola, kernels.chan_stats):
+        k.route_launches.update(reg=0, generic=0)
     out = mon.step(x)
     torch.cuda.synchronize()
     launched = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -1363,12 +1436,19 @@ def main() -> int:
         results[kname]['launches'] = launched[kname]
         require(launched[kname] > 0, f'the step launched no {kname} kernel')
     print('launches in one step: ' + json.dumps(launched))
+    routes = {'fused_ola': dict(kernels.fused_ola.route_launches),
+              'chan_stats': dict(kernels.chan_stats.route_launches)}
+    print('kernels by route in one step: ' + json.dumps(routes))
+    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': {'reg': 0, 'generic': 1}},
+            f'the step\'s routes {routes}')
 
-    step_kernels = ('fused_ola_kernel', 'chan_stats_kernel', 'hist_kernel')
+    step_kernels = (OLA_REG_KERNEL, 'chan_stats_kernel', 'hist_kernel')
     names, device_us = device_kernels(lambda: mon.step(x), *step_kernels)
     print('step device kernels: ' + json.dumps(names))
     for k in step_kernels:
         require(any(k in n for n in names), f'profiler shows no {k} in the step')
+    old_ola = [n for n in names if OLA_GENERIC_KERNEL in n]
+    require(not old_ola, f'the radix-2 OLA kernel ran in the step: {old_ola}')
     bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
     require(not bad, f'library FFT / GEMM kernels in the step: {bad}')
 
@@ -1436,6 +1516,11 @@ def main() -> int:
         nbytes, nops = work[kname]
         row = kernel_row(kname, results[kname], nbytes, nops, kernel_fn, plain_fn,
                          library[kname], mem_rate, fp32_rate)
+        if kname == 'fused_ola':
+            row['generic_ms'] = timed_ms(lambda: _fused_ola_generic(x, **mon.ola_kwargs))
+            row['f64_rel_rms'] = ola64
+            row['generic_f64_rel_rms'] = ola64_generic
+            print(f'fused_ola: radix-2 kernel {row["generic_ms"]:.4f} ms on {smi}')
         rows.append(row)
         print(f'{kname}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
               f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms) on {smi}')

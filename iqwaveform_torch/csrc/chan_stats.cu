@@ -33,10 +33,12 @@
 // frame stays in shared memory (32 KiB at nfft = 4096) from load to the
 // channel sums, so y is read from device memory once, plus a second read of
 // the same frame for the binned power that L1/L2 serve. This simple version
-// pays one barrier per radix-2 stage.
+// pays one barrier per radix-2 stage; in the channel-only mode at 16384
+// points chan_power_reg_kernel below takes its place.
 #include <math.h>
 
 #include "fft.cuh"
+#include "fft_reg.cuh"
 
 namespace {
 
@@ -191,6 +193,86 @@ cudaError_t allow_modes(int max_smem) {
   return iqt::allow_smem(chan_stats_kernel<PT, false, false>, max_smem);
 }
 
+// ---- the channel-only mode at 16384 points --------------------------------
+//
+// Replaces the same TPU kernel as chan_stats_kernel<PT, false, false>
+// above (chan_stats_pallas.py chan_stats_pallas with emit_psd=False,
+// emit_pbin=False, the mode channelize_power takes), with the same
+// contract, at nfft = 16384 (BASELINE config #4's 64 channels of 256
+// points). Every other size and mode keeps chan_stats_kernel; the host
+// route (ops/kernels/chan_stats.py chan_route) picks before the launch.
+//
+// Per frame f of row b (block f, blockIdx.y = b): pass 0 of the forward
+// 16384-point plan of csrc/fft_reg.cuh (16.16.16.4) loads y[b, f * 16384
+// + i] times w[i] (the channelizer window / nfft with the fftshift delay,
+// so bins come out in centred order), coalesced, straight from device
+// memory; the last pass, whose loads have all finished at its barrier,
+// writes |Y_k|^2 over the exchange buffer viewed as float, in natural bin
+// order; after one more barrier each warp sums the `abins` kept bins of
+// its channels from skip_half + c * abins (lane i takes bins i, i + 32,
+// ..., then a shuffle tree: a fixed order, no float atomics) and writes
+// chp[b, f, c].
+//
+// Bound on an H100: one read of y (8 B/sample) and the write of the
+// channel power (4 B per channel and frame); at BASELINE config #4 (2440
+// frames of 16384) 320 MB, 0.0957 ms at 3.35 TB/s. The FFT work (about
+// 2.8e9 flop) is below that at 67 TFLOP/s.
+//
+// What held chan_stats_kernel<16, false, false> back, and what this one
+// does about it:
+// - one block-wide barrier and a shared-memory round trip per radix-2
+//   stage (14 per frame) with twiddles gathered from device memory: here
+//   four register-resident radix-16 passes (the last radix 4), the
+//   exchange padded conflict-free, and the forward tables of
+//   fused_ola_reg_kernel (1104 float2, the first entries of the same host
+//   table) copied into shared memory once per block;
+// - a bit-reversed scatter of the windowed frame: pass 0 reads it in
+//   natural order;
+// - a run of frames per block, with the window and the FFT loop live
+//   across the frame loop: here one block per frame and no frame loop (a
+//   persistent loop keeps index math live and ptxas spills it).
+// 512 threads; the exchange buffer and the tables take 145 KiB, so one
+// block runs per SM.
+template <int N, int T>
+__global__ void __launch_bounds__(T, 1)
+chan_power_reg_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
+                      const float2* __restrict__ tw, float* __restrict__ chp,
+                      long long row_len, int n_frames, int channel_count, int abins,
+                      int skip_half) {
+  namespace R = iqt::reg;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* tws = smem + R::padded_size(N);
+  // pass 0 reads no table; the barrier after it orders these stores
+  // before the first table read
+  for (int e = threadIdx.x; e < R::table_total<N>(); e += T) tws[e] = __ldg(&tw[e]);
+
+  const int f = blockIdx.x;
+  const float2* fr = y + blockIdx.y * row_len + static_cast<long long>(f) * N;
+  float* sp = reinterpret_cast<float*>(buf);
+  R::fft<N, false, T, false>(
+      buf, tws, [fr, w](int i) { return iqt::cmul(fr[i], __ldg(&w[i])); },
+      [sp](int k, float2 v) { sp[k] = v.x * v.x + v.y * v.y; });
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* cr = chp + (static_cast<long long>(blockIdx.y) * n_frames + f) * channel_count;
+  for (int c = warp; c < channel_count; c += T / 32) {
+    const float* cb = sp + skip_half + c * abins;
+    float s = 0.f;
+    for (int i = lane; i < abins; i += 32) s += cb[i];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) cr[c] = s;
+  }
+}
+
+constexpr int kRegN = 16384;
+constexpr int kRegThreads = 512;
+constexpr size_t kRegSmem =
+    static_cast<size_t>(iqt::reg::padded_size(kRegN) + iqt::reg::table_total<kRegN>()) *
+    sizeof(float2);
+
 }  // namespace
 
 // once per device, before the first launch: allow up to `max_smem` bytes
@@ -201,7 +283,24 @@ extern "C" int iqt_chan_stats_prepare(int max_smem) {
   if ((err = allow_modes<2>(max_smem))) return err;
   if ((err = allow_modes<4>(max_smem))) return err;
   if ((err = allow_modes<8>(max_smem))) return err;
-  return allow_modes<16>(max_smem);
+  if ((err = allow_modes<16>(max_smem))) return err;
+  return iqt::allow_smem(chan_power_reg_kernel<kRegN, kRegThreads>, kRegSmem);
+}
+
+// the channel-only mode at nfft = 16384, by chan_power_reg_kernel: y and
+// chp as for iqt_chan_stats; tw: the n_tw forward twiddle-table entries
+// of 16384 (the first of ops/kernels/fused_ola.py reg_twiddles). Another
+// nfft or table length: cudaErrorInvalidValue.
+extern "C" int iqt_chan_power_reg(const void* y, const void* w, const void* tw, void* chp,
+                                  int n_tw, int batch, int row_len, int n_frames, int nfft,
+                                  int channel_count, int abins, int skip_half, void* stream) {
+  if (nfft != kRegN || n_tw != iqt::reg::table_total<kRegN>()) return cudaErrorInvalidValue;
+  chan_power_reg_kernel<kRegN, kRegThreads>
+      <<<dim3(n_frames, batch), kRegThreads, kRegSmem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float2*>(y), static_cast<const float2*>(w),
+          static_cast<const float2*>(tw), static_cast<float*>(chp), row_len, n_frames,
+          channel_count, abins, skip_half);
+  return cudaGetLastError();
 }
 
 // y: (batch, row_len) complex64 with n_frames * nfft <= row_len;

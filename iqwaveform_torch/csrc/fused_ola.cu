@@ -28,8 +28,8 @@
 // intermediate (frame, both spectra) in shared memory: a 16384-point frame
 // is 128 KiB of the SM's 227 KiB, so one block of 1024 threads holds an SM.
 // What this simple version pays instead is shared-memory bandwidth and one
-// block-wide barrier per radix-2 stage (27 stages per flagship frame);
-// radix-4/8 stages in registers are the next step.
+// block-wide barrier per radix-2 stage (27 stages per flagship frame); at
+// the flagship pair fused_ola_reg_kernel below takes its place.
 #include "fft.cuh"
 #include "fft_reg.cuh"
 
@@ -258,20 +258,20 @@ struct RegShape {
       static_cast<size_t>(iqt::reg::padded_size(N1) + tw_count) * sizeof(float2);
 };
 
-// One block per frame (blockIdx.x = m, blockIdx.y = batch row b), frames
-// addressed as in fused_ola_frames_kernel. `tw` holds the RegShape
-// tables, built on the host from float64 (ops/kernels/fused_ola.py
-// reg_twiddles).
-template <int N1, int N2, int T>
-__global__ void __launch_bounds__(T, 1)
-fused_ola_frames_reg_kernel(const float2* __restrict__ x, long long batch_stride,
-                            long long frame_stride, const float2* __restrict__ w_in,
-                            const float2* __restrict__ w_out,
-                            const float2* __restrict__ tw, float2* __restrict__ y,
-                            int n_frames, int zero_lo, int zero_hi, int in_lo,
-                            int out_lo, int out_hi) {
+// The per-frame chain of the register-resident kernels, by a block of T
+// threads: copy the RegShape tables (`tw`, built on the host from float64:
+// ops/kernels/fused_ola.py reg_twiddles) into shared memory after the
+// exchange buffer, the forward N1-point transform of load(i) (the frame
+// sample i times w_in), the trim folded into the inverse's first load
+// (output bin j reads forward bin in_lo + j - out_lo, masked by [zero_lo,
+// zero_hi) and [out_lo, out_hi)), the inverse N2-point transform, and
+// store(n, v) of each output sample times w_out[n] / N2, in natural order.
+template <int N1, int N2, int T, class Load, class Store>
+__device__ __forceinline__ void reg_frame_chain(float2* smem, const float2* __restrict__ tw,
+                                                const float2* __restrict__ w_out, int zero_lo,
+                                                int zero_hi, int in_lo, int out_lo, int out_hi,
+                                                Load load, Store store) {
   namespace R = iqt::reg;
-  extern __shared__ float2 smem[];
   float2* buf = smem;
   float2* tw_fwd = smem + R::padded_size(N1);
   float2* tw_inv = tw_fwd + R::table_total<N1>();
@@ -279,14 +279,8 @@ fused_ola_frames_reg_kernel(const float2* __restrict__ x, long long batch_stride
   // before the first table read
   for (int e = threadIdx.x; e < RegShape<N1, N2>::tw_count; e += T) tw_fwd[e] = __ldg(&tw[e]);
 
-  const int m = blockIdx.x;
-  const float2* xf = x + blockIdx.y * batch_stride + m * frame_stride;
-  float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * N2;
   const float scale = 1.0f / static_cast<float>(N2);
-
-  R::fft<N1, false, T, false>(
-      buf, tw_fwd, [xf, w_in](int i) { return iqt::cmul(xf[i], __ldg(&w_in[i])); },
-      [buf](int i, float2 v) { buf[R::pad(i)] = v; });
+  R::fft<N1, false, T, false>(buf, tw_fwd, load, [buf](int i, float2 v) { buf[R::pad(i)] = v; });
   __syncthreads();
   R::fft<N2, true, T, true>(
       buf, tw_inv,
@@ -299,8 +293,28 @@ fused_ola_frames_reg_kernel(const float2* __restrict__ x, long long batch_stride
         return v;
       },
       [=](int n, float2 v) {
-        yf[n] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&w_out[n]));
+        store(n, iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&w_out[n])));
       });
+}
+
+// One block per frame (blockIdx.x = m, blockIdx.y = batch row b), frames
+// addressed as in fused_ola_frames_kernel, each written whole to y[b, m, :].
+template <int N1, int N2, int T>
+__global__ void __launch_bounds__(T, 1)
+fused_ola_frames_reg_kernel(const float2* __restrict__ x, long long batch_stride,
+                            long long frame_stride, const float2* __restrict__ w_in,
+                            const float2* __restrict__ w_out,
+                            const float2* __restrict__ tw, float2* __restrict__ y,
+                            int n_frames, int zero_lo, int zero_hi, int in_lo,
+                            int out_lo, int out_hi) {
+  extern __shared__ float2 smem[];
+  const int m = blockIdx.x;
+  const float2* xf = x + blockIdx.y * batch_stride + m * frame_stride;
+  float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * N2;
+  reg_frame_chain<N1, N2, T>(
+      smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
+      [xf, w_in](int i) { return iqt::cmul(xf[i], __ldg(&w_in[i])); },
+      [yf](int n, float2 v) { yf[n] = v; });
 }
 
 template <int N1, int N2, int T>
@@ -314,6 +328,78 @@ cudaError_t launch_frames_reg(dim3 grid, cudaStream_t stream, const float2* x,
       x, batch_stride, frame_stride, w_in, w_out, tw, y, n_frames, zero_lo, zero_hi, in_lo,
       out_lo, out_hi);
   return cudaGetLastError();
+}
+
+// ---- the 2:1 entry at the flagship pair ----------------------------------
+//
+// Replaces the same TPU kernel as fused_ola_kernel above
+// (fused_ola_pallas.py fused_ola_strided), with the same contract, at the
+// size pair the flagship monitor step runs: 16384 -> 8192 at 2:1 (the
+// hamming COLA design). Every other pair keeps fused_ola_kernel; the host
+// route (ops/kernels/fused_ola.py ola_route) picks by size before the
+// launch.
+//
+// Per frame m of batch row b (block m, blockIdx.y = b): the chain of
+// fused_ola_frames_reg_kernel (reg_frame_chain above) on the frame at
+// x[b, m * hop_in], whose samples at and past the row's n_in read as zero
+// (the 'extend' halo: pass 0 masks its load, coalesced, straight from
+// device memory); the last pass overlap-adds each output sample into
+// y[b, m * hop_out + n] with a float2 atomicAdd (one vector reduction
+// per sample; compute capability 9.0 and CUDA 12.x) onto the zeroed y,
+// dropping the samples at and past n_out (the last frame's dangling
+// tail). Determinism: each float of the pair is added atomically on its
+// own; at 2:1 overlap every output float receives exactly two
+// contributions onto zero, and fl(0 + a + b) == fl(0 + b + a), so the
+// result does not depend on the order in which blocks finish.
+//
+// Bound on an H100 (device memory: each input sample read once, each
+// output written once, 8 B each): 201 MB, 0.0602 ms at 3.35 TB/s for the
+// flagship step's 2048 frames on 2^24 samples; its FFT work (about
+// 3.4e9 flop) is below that at 67 TFLOP/s.
+//
+// What held fused_ola_kernel back, and what this one does about it:
+// - one block-wide barrier and a shared-memory round trip per radix-2
+//   stage, 14 + 13 = 27 per frame: here four register-resident radix-16
+//   Stockham passes per transform (csrc/fft_reg.cuh), a barrier before
+//   and after each exchange, the exchange padded so that every half-warp
+//   access is conflict-free;
+// - twiddles gathered per butterfly from device memory: here the two
+//   small tables per pass of fused_ola_frames_reg_kernel, copied into
+//   shared memory once per block (1952 float2, the same host table);
+// - a bit-reversed scatter of the windowed frame into shared memory and a
+//   copy pass for the trim: here pass 0 reads the frame in natural order
+//   and the trim is the inverse's first load;
+// - runtime sizes (shifts by a runtime log2, a loop over stages): here the
+//   sizes are template arguments.
+// The atomics stay, one float2 reduction per sample where
+// fused_ola_kernel issues two float ones: two contributions per output
+// float onto zero are deterministic, and the alternative (each frame's
+// halves to scratch, summed by a second pass) writes and reads the output
+// twice more. 512 threads, the exchange buffer and both tables take
+// RegShape<16384, 8192>::smem = 151 KiB: one block per SM, one block per
+// frame.
+template <int N1, int N2, int T>
+__global__ void __launch_bounds__(T, 1)
+fused_ola_reg_kernel(const float2* __restrict__ x, const float2* __restrict__ w_in,
+                     const float2* __restrict__ w_out, const float2* __restrict__ tw,
+                     float* __restrict__ y, int n_in, int n_out, int hop_in, int hop_out,
+                     int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi) {
+  extern __shared__ float2 smem[];
+  const int m = blockIdx.x;
+  // m * hop_in < n_in and m * hop_out < n_out (the host sizes the grid)
+  const int start = m * hop_in;
+  const int valid = min(n_in - start, N1);
+  const int room = min(n_out - m * hop_out, N2);
+  const float2* xf = x + static_cast<long long>(blockIdx.y) * n_in + start;
+  float* yf = y + 2 * (static_cast<long long>(blockIdx.y) * n_out + m * hop_out);
+  reg_frame_chain<N1, N2, T>(
+      smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
+      [=](int i) {
+        return i < valid ? iqt::cmul(xf[i], __ldg(&w_in[i])) : make_float2(0.f, 0.f);
+      },
+      [=](int n, float2 v) {
+        if (n < room) atomicAdd(reinterpret_cast<float2*>(yf) + n, v);
+      });
 }
 
 }  // namespace
@@ -409,7 +495,30 @@ extern "C" int iqt_fused_ola_prepare(int max_smem) {
   if ((err = iqt::allow_smem(fused_ola_kernel<2>, max_smem))) return err;
   if ((err = iqt::allow_smem(fused_ola_kernel<4>, max_smem))) return err;
   if ((err = iqt::allow_smem(fused_ola_kernel<8>, max_smem))) return err;
-  return iqt::allow_smem(fused_ola_kernel<16>, max_smem);
+  if ((err = iqt::allow_smem(fused_ola_kernel<16>, max_smem))) return err;
+  return iqt::allow_smem(fused_ola_reg_kernel<16384, 8192, 512>, RegShape<16384, 8192>::smem);
+}
+
+// the 2:1 chain at (nfft, nfft_out) = (16384, 8192), by
+// fused_ola_reg_kernel: x, y and the bounds as for iqt_fused_ola; tw: the
+// n_tw twiddle-table entries of the pair (those of
+// iqt_fused_ola_frames_reg). Any other pair, or another table length:
+// cudaErrorInvalidValue.
+extern "C" int iqt_fused_ola_reg(const void* x, const void* w_in, const void* w_out,
+                                 const void* tw, void* y, int n_tw, int batch, int n_in,
+                                 int n_frames, int n_out, int nfft, int nfft_out, int hop_in,
+                                 int hop_out, int zero_lo, int zero_hi, int in_lo, int out_lo,
+                                 int out_hi, void* stream) {
+  if (nfft != 16384 || nfft_out != 8192 || n_tw != RegShape<16384, 8192>::tw_count)
+    return cudaErrorInvalidValue;
+  fused_ola_reg_kernel<16384, 8192, 512>
+      <<<dim3(n_frames, batch), 512, RegShape<16384, 8192>::smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float2*>(x), static_cast<const float2*>(w_in),
+          static_cast<const float2*>(w_out), static_cast<const float2*>(tw),
+          static_cast<float*>(y), n_in, n_out, hop_in, hop_out, zero_lo, zero_hi, in_lo, out_lo,
+          out_hi);
+  return cudaGetLastError();
 }
 
 // x: (batch, n_in) complex64; y: (batch, n_out) complex64, zeroed by the

@@ -74,11 +74,13 @@ SIGNATURES = {
     'iqt_device_attrs': ([_I, _P], _I),
     'iqt_fused_ola_prepare': ([_I], _I),
     'iqt_fused_ola': ([_P] * 6 + [_I] * 13 + [_P], _I),
+    'iqt_fused_ola_reg': ([_P] * 5 + [_I] * 14 + [_P], _I),
     'iqt_fused_ola_frames_prepare': ([_I], _I),
     'iqt_fused_ola_frames': ([_P, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
     'iqt_fused_ola_frames_reg': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
+    'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
     'iqt_spectrogram_prepare': ([_I], _I),

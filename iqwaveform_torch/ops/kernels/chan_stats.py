@@ -12,7 +12,11 @@ does about that are set out at the head of the CUDA source.
 With ``emit_psd=False, emit_pbin=False`` (the arguments of
 ``chan_stats_pallas``, chan_stats_pallas.py:259-260) only the channel power
 is computed: the channel-only mode that ``channelize_power`` takes
-(iqwaveform_tpu/ops/spectral.py:708-801).
+(iqwaveform_tpu/ops/spectral.py:708-801). In that mode at nfft_big =
+16384 (BASELINE config #4) :func:`chan_stats` launches
+``chan_power_reg_kernel``, on the register-resident passes of
+``csrc/fft_reg.cuh``; every other size and mode takes the radix-2
+``chan_stats_kernel`` (:func:`chan_route` picks, before the launch).
 
 The plain version is the XLA formulation of the monitor
 (iqwaveform_tpu/models/monitor.py:703-719) on ``torch.fft``, returning the
@@ -29,12 +33,15 @@ import torch
 
 from ..power import binned_mean
 from . import _build
+from .fused_ola import reg_forward_twiddles
 
-__all__ = ['chan_stats', 'chan_stats_plain', 'covers']
+__all__ = ['chan_route', 'chan_stats', 'chan_stats_plain', 'covers']
 
 _EPS = 1e-25
 MAX_CUDA_FFT = 16384
 FRAMES_PER_BLOCK = 16
+# the frame size chan_power_reg_kernel is compiled for
+REG_NFFT = 16384
 
 
 def chan_stats_plain(
@@ -77,6 +84,14 @@ def covers(nfft_big: int, navg: int = 1) -> bool:
     return 64 <= nfft_big <= MAX_CUDA_FFT and _build.log2_exact(nfft_big) > 0 and nfft_big % navg == 0
 
 
+def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True) -> str:
+    """the kernel :func:`chan_stats` launches for frames it covers:
+    ``'reg'`` (``chan_power_reg_kernel``) in the channel-only mode at
+    nfft_big = :data:`REG_NFFT`, ``'generic'`` (``chan_stats_kernel``) at
+    every other size or mode."""
+    return 'reg' if nfft_big == REG_NFFT and not emit_psd and not emit_pbin else 'generic'
+
+
 def chan_stats(
     y: torch.Tensor,
     *,
@@ -116,6 +131,36 @@ def chan_stats(
         )
     if y.device.type != 'cuda':
         raise ValueError(f'chan_stats runs on cpu or cuda tensors, not {y.device}')
+    return _launch(
+        y, chan_route(nfft_big, emit_psd, emit_pbin), nfft_big=nfft_big,
+        channel_count=channel_count, window=window, navg=navg, skip_bins=skip_bins,
+        emit_psd=emit_psd, emit_pbin=emit_pbin,
+    )
+
+
+def _chan_stats_generic(y: torch.Tensor, **kw) -> dict:
+    """:func:`chan_stats` on a CUDA tensor through the radix-2
+    ``chan_stats_kernel`` in any mode, the channel-only mode at 16384
+    too: the yardstick of ``chan_power_reg_kernel`` in chip_smoke.py and
+    the card tests, never a route of the port."""
+    return _launch(y, 'generic', **kw)
+
+
+def _launch(
+    y: torch.Tensor,
+    route: str,
+    *,
+    nfft_big: int,
+    channel_count: int,
+    window: torch.Tensor,
+    navg: int = 1,
+    skip_bins: int = 0,
+    emit_psd: bool = True,
+    emit_pbin: bool = True,
+) -> dict:
+    """launch ``route``'s kernel ('reg' or 'generic') on CUDA ``y``;
+    counts the launch in ``chan_stats.launches`` and
+    ``chan_stats.route_launches[route]``."""
     log2n = _build.log2_exact(nfft_big)
     if not covers(nfft_big, navg):
         raise NotImplementedError(
@@ -139,41 +184,50 @@ def chan_stats(
         raise ValueError(f'chan_stats needs at least one frame ({nfft_big} samples) per row')
     if row_len >= 2**31 or batch >= 2**16:
         raise ValueError('chan_stats takes rows below 2**31 samples and batches below 2**16')
-    frames_per_block = FRAMES_PER_BLOCK
-    if not emit_psd:
-        # no per-bin partials to fold: spread the frames over one wave of
-        # the blocks the card holds at once
-        threads = min(nfft_big, 1024)
-        per_sm = max(1, min(2048 // threads, _build.smem_optin(dev) // (8 * nfft_big)))
-        frames_per_block = -(-n_frames * batch // (per_sm * _build.sm_count(dev)))
-    n_blocks = -(-n_frames // frames_per_block)
     n_bin = n_frames * nfft_big // navg
 
     f32 = dict(dtype=torch.float32, device=dev)
     out = {'channel_power': torch.empty((batch, n_frames, channel_count), **f32)}
-    if emit_psd:
-        part_log = torch.empty((batch, n_blocks, nfft_big), **f32)
-        part_max = torch.empty((batch, n_blocks, nfft_big), **f32)
-        out['psd_log_sum'] = torch.empty((batch, nfft_big), **f32)
-        out['psd_max'] = torch.empty((batch, nfft_big), **f32)
-    if emit_pbin:
-        out['p_binned'] = torch.empty((batch, n_bin), **f32)
-
-    def ptr(key):
-        return out[key].data_ptr() if key in out else None
-
     _build.prepare('iqt_chan_stats_prepare', dev)
-    err = _build.library().iqt_chan_stats(
-        y.data_ptr(), window.data_ptr(), _build.twiddles(nfft_big, dev).data_ptr(),
-        part_log.data_ptr() if emit_psd else None,
-        part_max.data_ptr() if emit_psd else None,
-        ptr('psd_log_sum'), ptr('psd_max'), ptr('channel_power'), ptr('p_binned'),
-        batch, row_len, n_frames, log2n, navg, channel_count, abins,
-        skip_bins // 2, frames_per_block, n_blocks, int(emit_psd), int(emit_pbin),
-        _build.stream_of(y),
-    )
-    _build.check(err, 'chan_stats')
+    if route == 'reg':
+        tw = reg_forward_twiddles(nfft_big, dev)
+        err = _build.library().iqt_chan_power_reg(
+            y.data_ptr(), window.data_ptr(), tw.data_ptr(), out['channel_power'].data_ptr(),
+            tw.numel(), batch, row_len, n_frames, nfft_big, channel_count, abins,
+            skip_bins // 2, _build.stream_of(y),
+        )
+    else:
+        frames_per_block = FRAMES_PER_BLOCK
+        if not emit_psd:
+            # no per-bin partials to fold: spread the frames over one wave of
+            # the blocks the card holds at once
+            threads = min(nfft_big, 1024)
+            per_sm = max(1, min(2048 // threads, _build.smem_optin(dev) // (8 * nfft_big)))
+            frames_per_block = -(-n_frames * batch // (per_sm * _build.sm_count(dev)))
+        n_blocks = -(-n_frames // frames_per_block)
+        if emit_psd:
+            part_log = torch.empty((batch, n_blocks, nfft_big), **f32)
+            part_max = torch.empty((batch, n_blocks, nfft_big), **f32)
+            out['psd_log_sum'] = torch.empty((batch, nfft_big), **f32)
+            out['psd_max'] = torch.empty((batch, nfft_big), **f32)
+        if emit_pbin:
+            out['p_binned'] = torch.empty((batch, n_bin), **f32)
+
+        def ptr(key):
+            return out[key].data_ptr() if key in out else None
+
+        err = _build.library().iqt_chan_stats(
+            y.data_ptr(), window.data_ptr(), _build.twiddles(nfft_big, dev).data_ptr(),
+            part_log.data_ptr() if emit_psd else None,
+            part_max.data_ptr() if emit_psd else None,
+            ptr('psd_log_sum'), ptr('psd_max'), ptr('channel_power'), ptr('p_binned'),
+            batch, row_len, n_frames, log2n, navg, channel_count, abins,
+            skip_bins // 2, frames_per_block, n_blocks, int(emit_psd), int(emit_pbin),
+            _build.stream_of(y),
+        )
+    _build.check(err, f'chan_stats ({route} kernel)')
     chan_stats.launches += 1
+    chan_stats.route_launches[route] += 1
     shapes = {
         'psd_log_sum': (nfft_big,),
         'psd_max': (nfft_big,),
@@ -184,3 +238,6 @@ def chan_stats(
 
 
 chan_stats.launches = 0
+# launches by kernel: 'reg' (chan_power_reg_kernel), 'generic'
+# (chan_stats_kernel)
+chan_stats.route_launches = {'reg': 0, 'generic': 0}

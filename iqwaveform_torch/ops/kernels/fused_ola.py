@@ -6,7 +6,11 @@ Two kernels of ``csrc/fused_ola.cu``, one block per frame:
 * :func:`fused_ola` replaces the TPU kernel ``fused_ola_strided``
   (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571): framing at 2:1
   overlap, analysis window, forward DFT, passband mask, trim nfft ->
-  nfft_out, inverse DFT, shift window and overlap-add, in one kernel.
+  nfft_out, inverse DFT, shift window and overlap-add, in one kernel. At
+  the flagship pair (:data:`OLA_REG_PAIR`, 16384 -> 8192) it launches
+  ``fused_ola_reg_kernel``, on the register-resident passes of the frame
+  kernel below; at every other pair the radix-2 ``fused_ola_kernel``
+  (:func:`ola_route` picks by size, before the launch).
 * :func:`fused_ola_frames` replaces ``fused_ola_pallas`` (:394) and
   ``fused_ola_packed`` (:492): the same per-frame chain on a batch of
   frames, at sizes 2^a 3^b 5^c, with no overlap-add. At the two size
@@ -52,6 +56,8 @@ __all__ = [
     'fused_ola_plain',
     'frames_route',
     'ola_grouped',
+    'ola_route',
+    'reg_forward_twiddles',
     'reg_twiddles',
 ]
 
@@ -71,6 +77,9 @@ REG_PLANS = {
     6144: (16, 16, 8, 3),
 }
 REG_THREADS = 512
+# the (nfft, nfft_out) pair fused_ola_reg_kernel (the 2:1 kernel on the
+# same passes) is compiled for: the flagship monitor design's
+OLA_REG_PAIR = (16384, 8192)
 # an H100's opt-in shared memory per block: the frame-batch kernel's
 # scope on a device that is not a card (the routes stay those of the card)
 H100_SMEM_OPTIN = 232448
@@ -172,6 +181,16 @@ def reg_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor
     ``device`` (read only)."""
     table = np.concatenate([_reg_pass_tables(nfft, False), _reg_pass_tables(nfft_out, True)])
     return torch.from_numpy(table.astype('complex64')).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def reg_forward_twiddles(nfft: int, device: torch.device) -> torch.Tensor:
+    """the forward tables of ``nfft`` alone (the channel-only channelizer
+    at 16384 runs no inverse): a view of the first entries of
+    :func:`reg_twiddles` at the pair of :data:`REG_PAIRS` that starts at
+    ``nfft``, with no copy."""
+    nfft_out = dict(REG_PAIRS)[nfft]
+    return reg_twiddles(nfft, nfft_out, device)[: _reg_pass_tables(nfft, False).size]
 
 
 def frames_route(nfft: int, nfft_out: int) -> str:
@@ -365,6 +384,13 @@ def fused_ola_plain(
     )
 
 
+def ola_route(nfft: int, nfft_out: int) -> str:
+    """the kernel :func:`fused_ola` launches for a supported pair:
+    ``'reg'`` (``fused_ola_reg_kernel``) at :data:`OLA_REG_PAIR`,
+    ``'generic'`` (the radix-2 ``fused_ola_kernel``) at every other."""
+    return 'reg' if (nfft, nfft_out) == OLA_REG_PAIR else 'generic'
+
+
 def fused_ola_cuda_supported(nfft: int, nfft_out: int, noverlap_in: int, noverlap_out: int) -> bool:
     """the CUDA kernel's scope: power-of-two sizes up to MAX_CUDA_FFT at
     exactly 2:1 overlap on both sides (the hamming COLA design)."""
@@ -411,6 +437,39 @@ def fused_ola(
         )
     if x.device.type != 'cuda':
         raise ValueError(f'fused_ola runs on cpu or cuda tensors, not {x.device}')
+    return _launch_ola(
+        x, ola_route(nfft, nfft_out), w_in=w_in, w_shift_out=w_shift_out, nfft=nfft,
+        nfft_out=nfft_out, noverlap_in=noverlap_in, noverlap_out=noverlap_out,
+        zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
+    )
+
+
+def _fused_ola_generic(x: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`fused_ola` on a CUDA tensor through the radix-2
+    ``fused_ola_kernel`` at any supported pair, the flagship pair too: the
+    yardstick of ``fused_ola_reg_kernel`` in chip_smoke.py and the card
+    tests, never a route of the port."""
+    return _launch_ola(x, 'generic', **kw)
+
+
+def _launch_ola(
+    x: torch.Tensor,
+    route: str,
+    *,
+    w_in: torch.Tensor,
+    w_shift_out: torch.Tensor,
+    nfft: int,
+    nfft_out: int,
+    noverlap_in: int,
+    noverlap_out: int,
+    zero_lo: int,
+    zero_hi,
+    bounds_in,
+    bounds_out,
+) -> torch.Tensor:
+    """launch ``route``'s 2:1 kernel ('reg' or 'generic') on CUDA ``x``;
+    counts the launch in ``fused_ola.launches`` and
+    ``fused_ola.route_launches[route]``."""
     if not fused_ola_cuda_supported(nfft, nfft_out, noverlap_in, noverlap_out):
         raise NotImplementedError(
             'the CUDA fused OLA kernel takes power-of-two sizes up to '
@@ -436,20 +495,34 @@ def fused_ola(
     if n_in >= 2**31 or batch >= 2**16:
         raise ValueError('fused_ola takes rows below 2**31 samples and batches below 2**16')
     (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
+    zero_hi = nfft if zero_hi is None else int(zero_hi)
 
     y = torch.zeros((batch, n_out), dtype=torch.complex64, device=dev)
     _build.prepare('iqt_fused_ola_prepare', dev)
-    err = _build.library().iqt_fused_ola(
-        x.data_ptr(), w_in.data_ptr(), _build.twiddles(nfft, dev).data_ptr(),
-        w_shift_out.data_ptr(), _build.twiddles(nfft_out, dev).data_ptr(),
-        y.data_ptr(), batch, n_in, n_frames, n_out,
-        _build.log2_exact(nfft), _build.log2_exact(nfft_out), hop_in, hop_out,
-        int(zero_lo), nfft if zero_hi is None else int(zero_hi),
-        int(in_lo), int(out_lo), int(out_hi), _build.stream_of(x),
-    )
-    _build.check(err, 'fused_ola')
+    if route == 'reg':
+        tw = reg_twiddles(nfft, nfft_out, dev)
+        err = _build.library().iqt_fused_ola_reg(
+            x.data_ptr(), w_in.data_ptr(), w_shift_out.data_ptr(), tw.data_ptr(),
+            y.data_ptr(), tw.numel(), batch, n_in, n_frames, n_out, nfft, nfft_out,
+            hop_in, hop_out, int(zero_lo), zero_hi, int(in_lo), int(out_lo),
+            int(out_hi), _build.stream_of(x),
+        )
+    else:
+        err = _build.library().iqt_fused_ola(
+            x.data_ptr(), w_in.data_ptr(), _build.twiddles(nfft, dev).data_ptr(),
+            w_shift_out.data_ptr(), _build.twiddles(nfft_out, dev).data_ptr(),
+            y.data_ptr(), batch, n_in, n_frames, n_out,
+            _build.log2_exact(nfft), _build.log2_exact(nfft_out), hop_in, hop_out,
+            int(zero_lo), zero_hi, int(in_lo), int(out_lo), int(out_hi),
+            _build.stream_of(x),
+        )
+    _build.check(err, f'fused_ola ({route} kernel)')
     fused_ola.launches += 1
+    fused_ola.route_launches[route] += 1
     return y.reshape(*lead, n_out)
 
 
 fused_ola.launches = 0
+# launches by kernel: 'reg' (fused_ola_reg_kernel), 'generic'
+# (fused_ola_kernel)
+fused_ola.route_launches = {'reg': 0, 'generic': 0}

@@ -23,7 +23,11 @@ float32 convolution, TF32 off): relative RMS <= 1e-5. The CP-correlation
 kernel: max |difference| <= 2e-5 against its plain version (the JAX
 package's bar, tests/test_pallas.py:79), NaN at the same lags; its
 gradient within 1e-5 of the largest plain gradient (the backward is the
-plain version's). The channel-only channelizer: relative RMS <= 1e-5.
+plain version's). The channel-only channelizer: relative RMS <= 1e-5. The
+register-resident 2:1 OLA and channel-only kernels at 16384 points: within
+1e-5 relative RMS of their plain versions and of the radix-2 kernels they
+replace there, and their error against complex128 at most twice the
+radix-2 kernels' (a product of two rounded table twiddles against one).
 """
 
 import sys
@@ -36,8 +40,14 @@ import torch
 import iqwaveform_torch as it
 from iqwaveform_torch import ofdm
 from iqwaveform_torch.ops import kernels, spectral
+from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic, chan_route
 from iqwaveform_torch.ops.kernels.colhist import uniform_quant
-from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_generic, frames_route
+from iqwaveform_torch.ops.kernels.fused_ola import (
+    _fused_ola_frames_generic,
+    _fused_ola_generic,
+    frames_route,
+    ola_route,
+)
 from iqwaveform_torch.parallel import streaming as TS
 
 FLAGSHIP = dict(
@@ -89,12 +99,22 @@ def test_kernels_match_plain(monitor, batch):
     assert torch.equal(counts, kernels.hist_plain(p, monitor.apd_edges))
 
 
+def _reset_routes():
+    for k in (kernels.fused_ola, kernels.chan_stats, kernels.fused_ola_frames):
+        k.route_launches.update(reg=0, generic=0)
+
+
 def test_step_launches_each_kernel_and_matches_plain_step(monitor):
     x = _noise(8 * monitor.min_input_multiple(), 5)
     for k in kernels.KERNELS:
         k.launches = 0
+    _reset_routes()
     out = monitor.step(x)
     assert [k.launches for k in kernels.KERNELS] == [1, 1, 1] + [0] * (len(kernels.KERNELS) - 3)
+    # the 2:1 OLA at 16384 -> 8192 through fused_ola_reg_kernel; the
+    # 4096-point PSD + PBIN channelizer through chan_stats_kernel
+    assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.chan_stats.route_launches == {'reg': 0, 'generic': 1}
     ref = monitor.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -104,6 +124,75 @@ def test_step_launches_each_kernel_and_matches_plain_step(monitor):
     a, b = out['apd_counts'].long(), ref['apd_counts'].long()
     assert int(a.sum()) == int(b.sum())
     assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
+
+
+def _wide(kw):
+    return {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+
+
+@pytest.mark.parametrize('batch', [None, 2])
+def test_ola_register_kernel_matches_plain_and_generic(monitor, batch):
+    """fused_ola_reg_kernel at the flagship pair on rows of 41 hops and
+    123 samples (the last frame reads past the end: the halo): within
+    1e-5 of the plain version and of the radix-2 kernel, one launch each
+    on its route; its complex128 error at most twice the radix-2
+    kernel's."""
+    kw = monitor.ola_kwargs
+    assert ola_route(kw['nfft'], kw['nfft_out']) == 'reg'
+    n = 41 * (kw['nfft'] // 2) + 123
+    x = _noise((n,) if batch is None else (batch, n), 25)
+    _reset_routes()
+    got = kernels.fused_ola(x, **kw)
+    assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 0}
+    generic = _fused_ola_generic(x, **kw)
+    assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 1}
+    ref = kernels.fused_ola_plain(x, **kw)
+    assert got.shape == generic.shape == ref.shape
+    assert rel_rms(got, ref) <= 1e-5
+    assert rel_rms(got, generic) <= 1e-5
+    ref64 = kernels.fused_ola_plain(x.to(torch.complex128), **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(generic, ref64)
+
+
+def test_other_ola_pairs_take_the_radix2_kernel(card):
+    """a 2:1 pair other than 16384 -> 8192 keeps fused_ola_kernel."""
+    nfft, nfft_out = 8192, 4096
+    assert ola_route(nfft, nfft_out) == 'generic'
+    kw = dict(w_in=_noise(nfft, 26), w_shift_out=_noise(nfft_out, 27), nfft=nfft,
+              nfft_out=nfft_out, noverlap_in=nfft // 2, noverlap_out=nfft_out // 2,
+              zero_lo=300, zero_hi=7900, bounds_in=(2048, 6144), bounds_out=(0, 4096))
+    x = _noise((2, 20 * 4096 + 7), 28)
+    _reset_routes()
+    got = kernels.fused_ola(x, **kw)
+    assert kernels.fused_ola.route_launches == {'reg': 0, 'generic': 1}
+    assert rel_rms(got, kernels.fused_ola_plain(x, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize('channels', [64, 48])
+def test_chan_power_register_kernel_matches_plain_and_generic(card, channels):
+    """chan_power_reg_kernel on two rows of 40 frames of 16384 (and 77
+    samples that join no frame), channels of (16384 - 4096) / channels
+    bins: within 1e-5 of the plain version and of the radix-2
+    chan_stats_kernel; its complex128 error at most twice the radix-2
+    kernel's. A PSD mode at 16384 keeps the radix-2 kernel."""
+    x = _noise((2, 40 * 16384 + 77), 29)
+    w = spectral._kernel_window('hamming', 16384, card)
+    kw = dict(nfft_big=16384, channel_count=channels, window=w, skip_bins=4096,
+              emit_psd=False, emit_pbin=False)
+    assert chan_route(16384, False, False) == 'reg'
+    _reset_routes()
+    got = kernels.chan_stats(x, **kw)['channel_power']
+    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
+    generic = _chan_stats_generic(x, **kw)['channel_power']
+    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 1}
+    ref = kernels.chan_stats_plain(x, **kw)['channel_power']
+    assert got.shape == generic.shape == ref.shape == (2, 40, channels)
+    assert rel_rms(got, ref) <= 1e-5
+    assert rel_rms(got, generic) <= 1e-5
+    ref64 = kernels.chan_stats_plain(x.to(torch.complex128), **_wide(kw))['channel_power']
+    assert rel_rms(got, ref64) <= 2 * rel_rms(generic, ref64)
+    kernels.chan_stats(x, **dict(kw, emit_psd=True))
+    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 2}
 
 
 def test_wrappers_check_their_inputs(monitor):
@@ -439,8 +528,10 @@ def test_channelize_power_launches_the_channel_only_kernel(card):
     x = _noise(4 * 6 * 16384, 16)
     kw = dict(analysis_bins_per_channel=192, window='hamming', channel_count=64)
     kernels.chan_stats.launches = 0
+    _reset_routes()
     freqs, times, cp = it.channelize_power(x, 1 / 122.88e6, 256, **kw)
     assert kernels.chan_stats.launches == 1 and cp.shape == (24, 64)
+    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
     f_ref, t_ref, ref = it.channelize_power(x.cpu(), 1 / 122.88e6, 256, **kw, device='cpu')
     assert np.array_equal(freqs, f_ref) and np.array_equal(times, t_ref)
     assert rel_rms(cp.cpu(), ref) <= 1e-5

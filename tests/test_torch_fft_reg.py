@@ -1,31 +1,48 @@
-"""A numpy model of the register-resident frame kernel
-(``fused_ola_frames_reg_kernel``, csrc/fused_ola.cu on csrc/fft_reg.cuh),
-held against np.fft and against the plain frame chain on the CPU, and the
-host route that picks it.
+"""A numpy model of the register-resident kernels on csrc/fft_reg.cuh:
+the frame kernel (``fused_ola_frames_reg_kernel``), the 2:1 OLA kernel
+(``fused_ola_reg_kernel``, both csrc/fused_ola.cu) and the channel-only
+channelizer (``chan_power_reg_kernel``, csrc/chan_stats.cu), held against
+np.fft and against the plain versions on the CPU, and the host routes that
+pick them.
 
 The model follows the kernel's own index math in float64: the threads of
 a block and the butterflies each takes per pass (t, t + T, ...; the last
 round masked where T does not divide N / R), the Stockham read and write
 indices, the padded exchange buffer, the H / L twiddle tables in their
 shared-memory layout, the trim folded into the inverse's first load, and
-the last pass's scaled, windowed store. Tolerance: 1e-12 relative (float64
-roundoff of a few passes). The kernel itself runs only on the card
-(tests/test_torch_cuda.py, chip_smoke.py phases 8 and 10).
+the last pass's scaled, windowed store; for the 2:1 kernel also the
+masked halo load past the row's end and the overlap-add cut at n_out; for
+the channelizer the |Y|^2 store over the exchange buffer and the warp sums
+of each channel's kept bins. Tolerance: 1e-12 relative (float64 roundoff
+of a few passes). The kernels themselves run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py phases 1-3, 8, 10 and 15).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from iqwaveform_torch.ops import kernels
+import iqwaveform_torch as it
+from iqwaveform_torch.ops import kernels, spectral
+from iqwaveform_torch.ops.kernels.chan_stats import REG_NFFT, chan_route
 from iqwaveform_torch.ops.kernels.fused_ola import (
     H100_SMEM_OPTIN,
+    OLA_REG_PAIR,
     REG_PAIRS,
     REG_PLANS,
     REG_THREADS,
     frames_route,
+    fused_ola_cuda_supported,
     fused_ola_frames_supported,
+    ola_route,
+    reg_forward_twiddles,
     reg_twiddles,
+)
+
+# the flagship monitor design (bench.py:83-109), whose OLA is 16384 -> 8192
+FLAGSHIP = dict(
+    bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
+    window='hamming', apd_bins=2048, apd_navg=16, min_fft_size=8191,
 )
 
 
@@ -113,28 +130,98 @@ def fft_model(n, inverse, first, last, buf):
             buf[pad(out)] = v
 
 
+def frame_model(load, store, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
+                buf):
+    """the register-resident chain of one frame (csrc/fused_ola.cu
+    reg_frame_chain): the forward transform of ``load(idx)``, the trim as
+    the inverse's first load, the inverse, and ``store(idx, v)`` of each
+    output times w_out / nfft_out."""
+
+    def keep(idx, v):
+        buf[pad(idx)] = v
+
+    fft_model(nfft, False, load, keep, buf)
+
+    def trim(j):
+        k = in_lo + (j - out_lo)
+        ok = (j >= out_lo) & (j < out_hi) & (k >= zero_lo) & (k < zero_hi)
+        return np.where(ok, buf[pad(np.clip(k, 0, nfft - 1))], 0)
+
+    fft_model(nfft_out, True, trim, lambda idx, v: store(idx, v * w_out[idx] / nfft_out), buf)
+
+
 def chain_model(frames, w_in, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo, out_hi):
-    """the kernel's per-frame chain on (M, nfft) frames."""
+    """the frame kernel's per-frame chain on (M, nfft) frames."""
     buf = np.zeros(nfft + nfft // 16, complex)
     y = np.zeros((frames.shape[0], nfft_out), complex)
-    scale = 1.0 / nfft_out
     for m, frame in enumerate(frames):
 
-        def keep(idx, v):
-            buf[pad(idx)] = v
-
-        fft_model(nfft, False, lambda idx: frame[idx] * w_in[idx], keep, buf)
-
-        def trim(j):
-            k = in_lo + (j - out_lo)
-            ok = (j >= out_lo) & (j < out_hi) & (k >= zero_lo) & (k < zero_hi)
-            return np.where(ok, buf[pad(np.clip(k, 0, nfft - 1))], 0)
-
         def store(idx, v, m=m):
-            y[m, idx] = v * scale * w_out[idx]
+            y[m, idx] = v
 
-        fft_model(nfft_out, True, trim, store, buf)
+        frame_model(lambda idx, frame=frame: frame[idx] * w_in[idx], store, w_out, nfft,
+                    nfft_out, zero_lo, zero_hi, in_lo, out_lo, out_hi, buf)
     return y
+
+
+def ola_model(x, w_in, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo, out_hi):
+    """the 2:1 kernel on (batch, n_in) ``x``: block (m, b) loads the frame
+    at m hop_in, zero at and past n_in, runs the frame chain and adds each
+    output into y[b, m hop_out + n] below n_out (two contributions onto
+    zero per sample)."""
+    batch, n_in = x.shape
+    hop_in, hop_out = nfft // 2, nfft_out // 2
+    n_frames = n_in // hop_in
+    n_out = n_frames * hop_out
+    buf = np.zeros(nfft + nfft // 16, complex)
+    y = np.zeros((batch, n_out), complex)
+    for b in range(batch):
+        for m in range(n_frames):
+            start = m * hop_in
+            valid = min(n_in - start, nfft)
+            room = min(n_out - m * hop_out, nfft_out)
+
+            def load(idx, b=b, start=start, valid=valid):
+                return np.where(idx < valid, x[b, start + np.minimum(idx, valid - 1)] * w_in[idx], 0)
+
+            def store(idx, v, b=b, m=m, room=room):
+                inside = idx < room
+                y[b, m * hop_out + idx[inside]] += v[inside]
+
+            frame_model(load, store, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                        out_hi, buf)
+    return y
+
+
+def warp_sum(vals):
+    """one warp's sum of ``vals``: lane l adds vals[l], vals[l + 32], ...
+    in order, then the shuffle tree at offsets 16, 8, 4, 2, 1."""
+    lanes = np.array([vals[lane::32].sum() if lane < vals.size else 0.0 for lane in range(32)])
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[:o] + lanes[o:2 * o]
+    return lanes[0]
+
+
+def chan_model(y, w, nfft, channel_count, skip_half, abins):
+    """the channel-only channelizer on one row: per frame the forward
+    transform of y times w, |Y|^2 stored over the exchange buffer by the
+    last pass in natural bin order, then each channel's warp sum of its
+    abins kept bins from skip_half + c abins."""
+    n_frames = y.size // nfft
+    buf = np.zeros(nfft + nfft // 16, complex)
+    chp = np.zeros((n_frames, channel_count))
+    for f in range(n_frames):
+        fr = y[f * nfft:(f + 1) * nfft]
+        sp = np.full(nfft, np.nan)
+
+        def store(idx, v):
+            sp[idx] = v.real ** 2 + v.imag ** 2
+
+        fft_model(nfft, False, lambda idx, fr=fr: fr[idx] * w[idx], store, buf)
+        assert not np.isnan(sp).any()
+        for c in range(channel_count):
+            chp[f, c] = warp_sum(sp[skip_half + c * abins:skip_half + (c + 1) * abins])
+    return chp
 
 
 def rel(got, ref):
@@ -280,3 +367,116 @@ def test_cpu_tensors_take_the_plain_chain_at_the_specialised_sizes():
     got = kernels.fused_ola_frames(frames, **kw)
     torch.testing.assert_close(got, kernels.fused_ola_frames_plain(frames, **kw))
     assert (dict(kernels.fused_ola_frames.route_launches), kernels.fused_ola_frames.launches) == before
+
+
+def _flagship_ola_kwargs():
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP),
+                             device='cpu')
+    kw = mon.ola_kwargs
+    assert (kw['nfft'], kw['nfft_out']) == OLA_REG_PAIR
+    assert (kw['noverlap_in'], kw['noverlap_out']) == (8192, 4096)
+    return kw
+
+
+@pytest.mark.parametrize('batch', [1, 2])
+def test_ola_model_matches_plain(batch):
+    """the modelled 2:1 kernel at the flagship design against
+    fused_ola_plain in complex128, on rows of 3 hops (a multiple of
+    hop_in, not of nfft: the last frame reads 8192 samples past the end,
+    which the halo makes zero) and batch 1 and 2."""
+    kw = _flagship_ola_kwargs()
+    nfft, nfft_out = OLA_REG_PAIR
+    rng = np.random.default_rng(batch)
+    x = rng.standard_normal((batch, 3 * nfft // 2)) + 1j * rng.standard_normal((batch, 3 * nfft // 2))
+    wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    ref = kernels.fused_ola_plain(torch.from_numpy(x), **wide).numpy()
+    (in_lo, _), (out_lo, out_hi) = kw['bounds_in'], kw['bounds_out']
+    zero_hi = nfft if kw['zero_hi'] is None else kw['zero_hi']
+    got = ola_model(x, wide['w_in'].numpy(), wide['w_shift_out'].numpy(), nfft, nfft_out,
+                    kw['zero_lo'], zero_hi, in_lo, out_lo, out_hi)
+    assert got.shape == ref.shape == (batch, 3 * nfft_out // 2)
+    assert rel(got, ref) <= 1e-12
+    # the halo: the zeros past the end matter (a frame that read on would differ)
+    tail = np.concatenate([x, rng.standard_normal((batch, nfft // 2)) + 0j], axis=1)
+    longer = ola_model(tail, wide['w_in'].numpy(), wide['w_shift_out'].numpy(), nfft, nfft_out,
+                       kw['zero_lo'], zero_hi, in_lo, out_lo, out_hi)
+    n_out = got.shape[1]
+    assert rel(longer[:, :n_out - nfft_out // 2], got[:, :n_out - nfft_out // 2]) <= 1e-12
+    assert rel(longer[:, n_out - nfft_out // 2:n_out], got[:, n_out - nfft_out // 2:]) > 1e-3
+
+
+@pytest.mark.parametrize('channels,skip', [(64, 4096), (48, 4096)])
+def test_chan_model_matches_plain(channels, skip):
+    """the modelled channel-only channelizer at 16384 points against
+    chan_stats_plain in float64: BASELINE config #4's 64 channels of 192
+    kept bins (skip 4096), and 48 channels of 256."""
+    nfft = REG_NFFT
+    abins = (nfft - skip) // channels
+    assert abins * channels == nfft - skip
+    rng = np.random.default_rng(channels)
+    y = rng.standard_normal(2 * nfft + 5) + 1j * rng.standard_normal(2 * nfft + 5)
+    w = spectral._kernel_window('hamming', nfft, torch.device('cpu')).to(torch.complex128)
+    ref = kernels.chan_stats_plain(
+        torch.from_numpy(y), nfft_big=nfft, channel_count=channels, window=w, skip_bins=skip,
+        emit_psd=False, emit_pbin=False,
+    )['channel_power'].numpy()
+    got = chan_model(y, w.numpy(), nfft, channels, skip // 2, abins)
+    assert got.shape == ref.shape == (2, channels)
+    assert rel(got, ref) <= 1e-12
+
+
+def test_last_pass_of_the_channelizer_stores_consecutive_bins():
+    """16384's last pass (radix 4, NS = 4096): thread t holds bins b, b +
+    4096, b + 8192, b + 12288 of its butterflies b = t + 512 i, so a warp's
+    |Y|^2 stores (floats over the exchange buffer) are 32 consecutive
+    words: no bank conflict."""
+    r, ns = passes(REG_NFFT)[-1]
+    assert (r, ns) == (4, 4096)
+    b = butterflies(REG_NFFT // r)
+    k = b & (ns - 1)
+    out = ((b - k) * r + k)[:, None] + np.arange(r)[None, :] * ns
+    assert np.array_equal(out, b[:, None] + np.arange(r)[None, :] * ns)
+    for warp in out.reshape(-1, 32, r).transpose(0, 2, 1).reshape(-1, 32):
+        assert np.array_equal(np.diff(warp), np.ones(31))
+
+
+def test_forward_table_is_a_view_of_the_pair_table():
+    """the channelizer reads 16384's forward tables: the model's, the first
+    entries of the pair's table, with no copy; exchange buffer and tables
+    fit one block."""
+    dev = torch.device('cpu')
+    fwd = reg_forward_twiddles(REG_NFFT, dev)
+    np.testing.assert_array_equal(fwd.numpy(), tables(REG_NFFT, False)[0].astype('complex64'))
+    pair = reg_twiddles(REG_NFFT, dict(REG_PAIRS)[REG_NFFT], dev)
+    assert fwd.data_ptr() == pair.data_ptr() and fwd.numel() == 1104 < pair.numel()
+    assert 8 * (REG_NFFT + REG_NFFT // 16 + fwd.numel()) == 148096 <= H100_SMEM_OPTIN
+
+
+def test_ola_and_channelizer_routes():
+    """fused_ola takes the register-resident kernel at 16384 -> 8192 only;
+    chan_stats only in the channel-only mode at 16384 points."""
+    assert ola_route(*OLA_REG_PAIR) == 'reg' and fused_ola_cuda_supported(16384, 8192, 8192, 4096)
+    for pair in [(8192, 4096), (16384, 16384), (4096, 2048), (16384, 4096), (8192, 16384), (64, 32)]:
+        assert ola_route(*pair) == 'generic', pair
+    assert chan_route(REG_NFFT, emit_psd=False, emit_pbin=False) == 'reg'
+    for args in [(16384, True, True), (16384, True, False), (16384, False, True),
+                 (4096, False, False), (8192, False, False), (4096, True, True)]:
+        assert chan_route(*args) == 'generic', args
+
+
+def test_cpu_tensors_take_the_plain_ola_and_channelizer():
+    """on the CPU both wrappers run their plain versions at the new
+    kernels' shapes, and count no launch on either route."""
+    kw = _flagship_ola_kwargs()
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.standard_normal(3 * 8192) + 1j).astype('complex64'))
+    before = dict(kernels.fused_ola.route_launches), kernels.fused_ola.launches
+    torch.testing.assert_close(kernels.fused_ola(x, **kw), kernels.fused_ola_plain(x, **kw))
+    assert (dict(kernels.fused_ola.route_launches), kernels.fused_ola.launches) == before
+    w = spectral._kernel_window('hamming', REG_NFFT, torch.device('cpu'))
+    ckw = dict(nfft_big=REG_NFFT, channel_count=64, window=w, skip_bins=4096,
+               emit_psd=False, emit_pbin=False)
+    before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
+    got = kernels.chan_stats(torch.cat([x, x]), **ckw)
+    torch.testing.assert_close(got, kernels.chan_stats_plain(torch.cat([x, x]), **ckw))
+    assert (dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches) == before
