@@ -32,12 +32,20 @@ spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
 
 4. over 2^30 samples of (2, n) float32 planes made on the card (64
    distinct chunks): (a) on chunk 0, the levels, column-count and APD
-   kernels against their plain versions; (b) the fold of the first 4
-   chunks against the plain-version fold; (c) the fold of all 64 chunks
+   kernels against their plain versions, and on its first 512 frames the
+   levels kernel of this size (the register-resident
+   ``spectrogram_levels_reg_kernel``) and the radix-2 body it replaces
+   here against the plain version in float64 (its RMS error of mean and
+   max of dB at most twice the radix-2 body's); (b) the fold of the first
+   4 chunks against the plain-version fold; (c) the fold of all 64 chunks
    through ``persistence_apd_fold``, which must launch each of those three
-   kernels exactly 64 times, then ``persistence_finalize``; (d) a profile
-   of one chunk's fold, which may show no cuFFT / cuBLAS / CUTLASS kernel;
-   (e) the 1 GS time, and the device-busy share of one chunk;
+   kernels exactly 64 times, the levels kernel on its register-resident
+   route each time, then ``persistence_finalize``; (d) a profile of one
+   chunk's fold, which must hold ``spectrogram_levels_reg_kernel`` and no
+   radix-2 ``spectrogram_kernel`` and may show no cuFFT / cuBLAS /
+   CUTLASS kernel; (e) the 1 GS time, and the device-busy share of one
+   chunk; the levels kernel is timed beside the radix-2 body
+   (``generic_ms``);
 5. the public ``streaming_persistence_spectrum`` on 4 chunks plus a
    131072-multiple tail and 3072 samples that its rules drop, against the
    plain path;
@@ -61,9 +69,12 @@ capture at 61.44 MS/s) and the monitor beyond 2:1 overlap:
    the plain chain in complex128 (its error at most twice the generic
    kernel's), each timed;
 9. the public ``upfirdn`` with the 4001-tap ``design_fir_lpf(20e6,
-   61.44e6)`` at up/down 1/2 and 2/3 on 10^8 samples: the kernel against
+   61.44e6)`` at up/down 1/2 and 2/3 on 10^8 samples: one launch each, of
+   the register-windowed ``upfirdn_reg_kernel`` (route counts), against
    the plain float32 conv1d (TF32 off), its first 2^20 outputs against a
-   float64 conv on the card, launches, the kernel and the conv timed;
+   float64 conv on the card (its error at most twice that of the generic
+   ``upfirdn_kernel`` it replaces there), the kernel, the generic kernel
+   and the conv timed;
 10. ``WidebandMonitor.step`` at the blackman COLA design (30.72 -> 15.36
    MS/s, nfft 12288 -> 6144, R=3) on 16,785,408 samples: launches (the
    register-resident frame kernel), the step against ``reference_step``
@@ -190,6 +201,12 @@ CHAN_REG_KERNEL = 'chan_power_reg_kernel'
 N_UPFIRDN = 10**8
 UPFIRDN_PAIRS = ((1, 2), (2, 3))
 N_UPFIRDN_F64 = 1 << 20  # outputs held against float64
+# the upfirdn kernel both pairs run
+UPFIRDN_REG_KERNEL = 'upfirdn_reg_kernel'
+# the levels kernel the persistence fold runs at nfft 1024, and the radix-2
+# body it replaces there, which the fold's profile may not show
+LEVELS_REG_KERNEL = 'spectrogram_levels_reg_kernel'
+LEVELS_GENERIC_KERNEL = 'spectrogram_kernel'
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -398,6 +415,26 @@ def check_persistence(got: dict, ref: dict, label: str, frames: int) -> dict:
     return errs
 
 
+def levels_f64(planes, w, nfft: int, quant) -> tuple:
+    """RMS over bins of the dB error of the mean (psum / frames) and of
+    the max of dB over the first N_F64_FRAMES frames of ``planes``,
+    against the plain version in float64: (the levels kernel of this
+    size's route, the radix-2 body)."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.spectrogram import _spectrogram_levels_generic
+
+    head = planes[:, : N_F64_FRAMES * nfft]
+    ref = kernels.spectrogram_levels_plain(head.double(), w.to(torch.complex128), nfft, quant=quant)
+
+    def errs(out):
+        return {'mean_dB': float(((out['psum'].double() - ref['psum']) / N_F64_FRAMES)
+                                 .pow(2).mean().sqrt()),
+                'max_dB': float((out['pmax'].double() - ref['pmax']).pow(2).mean().sqrt())}
+
+    return (errs(kernels.spectrogram_levels(head, w, nfft, quant=quant)),
+            errs(_spectrogram_levels_generic(head, w, nfft, quant=quant)))
+
+
 def check_apd(got, ref, label: str, total: int) -> int:
     a, b = got.long(), ref.long()
     require(int(a.sum()) == int(b.sum()) == total, f'{label} apd: totals differ from {total}')
@@ -411,6 +448,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     from iqwaveform_torch import parallel as P
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
+    from iqwaveform_torch.ops.kernels.spectrogram import _spectrogram_levels_generic
 
     design = P.design_persistence(**PERSISTENCE)
     nfft = design['nfft']
@@ -460,6 +498,15 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     require(min_lin <= 1e-6, f'spectrogram_levels min_dB: power differs by {min_lin:.3g} of the mean')
     require(pb_err <= 1e-5, f'spectrogram_levels p_binned relative RMS {pb_err:.3g} > 1e-5')
     results['spectrogram_levels'] = {'max_abs_err': max(errs.values())}
+    # the register-resident kernel (this route) and the radix-2 body it
+    # replaces here against the plain version in float64, first frames
+    lv64, lv64_generic = levels_f64(c0, w, nfft, quant)
+    print(f'spectrogram_levels: first {N_F64_FRAMES} frames vs float64, RMS dB error of mean / max: '
+          f'{json.dumps(lv64)}, radix-2 body {json.dumps(lv64_generic)}')
+    for key in lv64:
+        require(lv64[key] <= 2 * lv64_generic[key],
+                f'spectrogram_levels {key} float64 error {lv64[key]:.4g} > 2 x the radix-2 '
+                f'body\'s {lv64_generic[key]:.4g}')
 
     levels = lv['levels']
     ch = kernels.colhist(levels, torch.zeros((nfft, quant[2]), dtype=torch.int32, device=dev))
@@ -500,13 +547,18 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     torch.cuda.synchronize()
     for k in kernels.KERNELS:
         k.launches = 0
+    kernels.spectrogram_levels.route_launches.update(reg=0, generic=0)
     t0 = time.perf_counter()
     for i in range(N_CHUNKS):
         carry, apd = fold(carry, apd, i)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launched = {name: k.launches for name, k in kset.items()}
-    print(f'launches over {N_CHUNKS} chunks: ' + json.dumps(launched))
+    routes = dict(kernels.spectrogram_levels.route_launches)
+    print(f'launches over {N_CHUNKS} chunks: ' + json.dumps(launched)
+          + f'; levels kernels {json.dumps(routes)}')
+    require(routes == {'reg': N_CHUNKS, 'generic': 0},
+            f'levels kernels over {N_CHUNKS} chunks {routes}, not {LEVELS_REG_KERNEL} alone')
     for kname in ('spectrogram_levels', 'colhist', 'hist'):
         require(launched[kname] == N_CHUNKS,
                 f'{kname} launched {launched[kname]} times over {N_CHUNKS} chunks')
@@ -532,14 +584,17 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
           f'{ms_chunk:.4f} ms per {CHUNK}-sample chunk ({smi})')
 
     # ---- phase 4d: one chunk's fold under the profiler
-    fold_kernels = ('spectrogram_kernel', 'colhist_kernel', 'hist_kernel')
+    fold_kernels = (LEVELS_REG_KERNEL, 'colhist_kernel', 'hist_kernel')
     names, device_us = device_kernels(lambda: fold(carry, apd, 1), *fold_kernels)
     print('chunk fold device kernels: ' + json.dumps(names))
     for k in fold_kernels:
         require(any(k in n for n in names), f'profiler shows no {k} in the fold')
+    radix2 = [n for n in names if LEVELS_GENERIC_KERNEL in n]
+    require(not radix2, f'the radix-2 levels body ran in the fold: {radix2}')
     bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
     require(not bad, f'library FFT / GEMM kernels in the fold: {bad}')
     busy_ms = sum(device_us.values()) / 1e3
+    levels_device_ms = sum(us for k, us in device_us.items() if LEVELS_REG_KERNEL in k) / 1e3
     print('chunk fold device time by kernel (us): ' + json.dumps(
         dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
     print(f'chunk fold device busy: {busy_ms:.4f} ms of {ms_chunk:.4f} ms per chunk '
@@ -668,6 +723,14 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
         print(f'{kname}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
               f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms, library '
               f'{row["library_ms"]}) on {smi}')
+    levels_row = rows['spectrogram_levels']
+    levels_row['generic_ms'] = timed_ms(lambda: _spectrogram_levels_generic(
+        c0, w, nfft, quant=quant, apd_navg=APD_NAVG))
+    levels_row['f64_rms_dB'] = lv64
+    levels_row['generic_f64_rms_dB'] = lv64_generic
+    levels_row['profiled_device_ms'] = levels_device_ms
+    print(f'spectrogram_levels: radix-2 body {levels_row["generic_ms"]:.4f} ms; '
+          f'{levels_device_ms:.4f} ms of device time in the profiled chunk fold, on {smi}')
     # one kernel, one row: its float-value instance rides along in it
     rows['colhist']['float_values'] = rows.pop('colhist_values')
     return list(rows.values())
@@ -840,7 +903,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     from iqwaveform_torch.ops import filtering as TF
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_generic
-    from iqwaveform_torch.ops.kernels.upfirdn import upfirdn_output_len
+    from iqwaveform_torch.ops.kernels.upfirdn import _upfirdn_generic, upfirdn_output_len
 
     kset = {k.__name__: k for k in kernels.KERNELS}
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -851,6 +914,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         for k in kernels.KERNELS:
             k.launches = 0
         kernels.fused_ola_frames.route_launches.update(reg=0, generic=0)
+        kernels.upfirdn_cuda.route_launches.update(reg=0, generic=0)
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
@@ -950,19 +1014,31 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         torch.cuda.synchronize()
         launched = counts()
         require(launched == {'upfirdn_cuda': 1}, f'upfirdn {up}/{down} launches {launched}')
+        routes = dict(kernels.upfirdn_cuda.route_launches)
+        require(routes == {'reg': 1, 'generic': 0},
+                f'upfirdn {up}/{down} kernels {routes}, not one of {UPFIRDN_REG_KERNEL}')
         n_out = upfirdn_output_len(h.numel(), N_UPFIRDN, up, down)
         ref9 = it.upfirdn(h, x9, up, down, backend='xla')
         require(y9.shape == ref9.shape == (n_out,), f'upfirdn shape {tuple(y9.shape)}')
         require(bool(torch.isfinite(torch.view_as_real(y9)).all()), 'upfirdn output not finite')
         err = rel_rms(y9, ref9)
-        prefix = x9[: (N_UPFIRDN_F64 * down) // up + 1].to(torch.complex128)
-        y64 = kernels.upfirdn_plain(h.double(), prefix[None], up, down)[0, :N_UPFIRDN_F64]
+        # the outputs below N_UPFIRDN_F64 read no sample past this prefix,
+        # and neither kernel's order of summation depends on the blocking,
+        # so a call on the prefix gives the full call's first outputs
+        prefix = x9[: (N_UPFIRDN_F64 * down) // up + 1]
+        y64 = kernels.upfirdn_plain(h.double(), prefix[None].to(torch.complex128), up,
+                                    down)[0, :N_UPFIRDN_F64]
         err64 = rel_rms(y9[:N_UPFIRDN_F64], y64)
+        generic64 = rel_rms(_upfirdn_generic(h, prefix[None], up, down)[0, :N_UPFIRDN_F64], y64)
         print(f'upfirdn {up}/{down}: {N_UPFIRDN} -> {n_out} samples, {h.numel()} taps, vs plain '
-              f'conv1d relative RMS {err:.3g}, first {N_UPFIRDN_F64} vs float64 {err64:.3g}, '
-              f'launches {json.dumps(launched)}')
+              f'conv1d relative RMS {err:.3g}, first {N_UPFIRDN_F64} vs float64 {err64:.4g} '
+              f'(generic kernel {generic64:.4g}), launches {json.dumps(launched)}, kernels '
+              f'{json.dumps(routes)}')
         require(err <= 1e-5, f'upfirdn {up}/{down} vs plain: relative RMS {err:.3g} > 1e-5')
         require(err64 <= 1e-5, f'upfirdn {up}/{down} vs float64: relative RMS {err64:.3g} > 1e-5')
+        require(err64 <= 2 * generic64,
+                f'upfirdn {up}/{down} float64 error {err64:.4g} > 2 x the generic kernel\'s '
+                f'{generic64:.4g}')
         row = kernel_row(
             'upfirdn', {'launches': launched.get('upfirdn_cuda', 0), 'max_abs_err': max_abs(y9, ref9)},
             8 * N_UPFIRDN + 4 * h.numel() + 8 * n_out,
@@ -972,17 +1048,23 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             lambda: kernels.upfirdn_plain(h, x9[None], up, down),
             mem_rate, fp32_rate, reps=5, warmup=1,
         )
+        row['generic_ms'] = timed_ms(lambda: _upfirdn_generic(h, x9[None], up, down),
+                                     reps=5, warmup=1)
+        row['f64_rel_rms'] = err64
+        row['generic_f64_rel_rms'] = generic64
         row['up_down'] = [up, down]
         row['MS_per_s'] = N_UPFIRDN / row['ms'] / 1e3
         print(f'upfirdn {up}/{down}: {row["ms"]:.4f} ms = {row["MS_per_s"]:.1f} MS/s in '
-              f'(bound {row["bound_ms"]:.4f} ms by {row["bound_by"]}, plain conv1d '
-              f'{row["plain_ms"]:.4f} ms, library conv1d {row["library_ms"]:.4f} ms) on {smi}')
+              f'(bound {row["bound_ms"]:.4f} ms by {row["bound_by"]}, generic kernel '
+              f'{row["generic_ms"]:.4f} ms, plain conv1d {row["plain_ms"]:.4f} ms, library '
+              f'conv1d {row["library_ms"]:.4f} ms) on {smi}')
         pairs[(up, down)] = row
         del y9, ref9, y64, prefix
     up_row = pairs[UPFIRDN_PAIRS[0]]
     up_row['other_pairs'] = [
-        {k: r[k] for k in ('up_down', 'launches', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-                           'bound_by', 'library_ms')}
+        {k: r[k] for k in ('up_down', 'launches', 'max_abs_err', 'ms', 'generic_ms', 'plain_ms',
+                           'bound_ms', 'bound_by', 'library_ms', 'f64_rel_rms',
+                           'generic_f64_rel_rms')}
         for pair, r in pairs.items() if pair != UPFIRDN_PAIRS[0]
     ]
     del x9

@@ -30,9 +30,13 @@
 // consecutive and H reads a broadcast. Every index is a shift, a mask or
 // a constant.
 //
+// A pass may also run for a group of T threads inside a larger block
+// (pass_lane): the group's own lane index takes the place of threadIdx.x
+// and its own barrier that of __syncthreads.
+//
 // Sizes and plans (tests/test_torch_fft_reg.py holds a numpy model of
 // them against np.fft): 16384 = 16.16.16.4, 12288 = 16.16.16.3,
-// 8192 = 16.16.16.2, 6144 = 16.16.8.3.
+// 8192 = 16.16.16.2, 6144 = 16.16.8.3, 1024 = 16.16.4 (forward only).
 #pragma once
 
 #include "fft.cuh"
@@ -61,6 +65,11 @@ template <>
 struct Plan<6144> {
   static constexpr int stages = 4;
   __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : (s == 2 ? 8 : 3); }
+};
+template <>
+struct Plan<1024> {
+  static constexpr int stages = 3;
+  __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : 4; }
 };
 
 // NS of pass s: the product of the radices before it
@@ -185,11 +194,16 @@ __device__ __forceinline__ void twiddle(float2 (&v)[R], int k, const float2* t) 
   }
 }
 
-// pass S of the N-point plan: points in through `load(i)`, out through
-// `store(i, v)`; SYNC puts a barrier between the last load and the first
-// store (needed whenever both touch the same buffer)
-template <int N, int S, bool INV, int T, bool SYNC, class Load, class Store>
-__device__ __forceinline__ void pass(const float2* tw, Load load, Store store) {
+// pass S of the N-point plan for the butterflies lane, lane + T, ... of a
+// group of T threads (lane < T): point i comes in through `load(slot, i)`
+// and output i goes out through `store(slot, i, v)`, where slot = round *
+// R + r is a compile-time constant once the pass is unrolled (a caller may
+// keep per-point state in registers by it); SYNC calls `sync()`, the
+// group's barrier, between the last load and the first store (needed
+// whenever both touch the same buffer)
+template <int N, int S, bool INV, int T, bool SYNC, class Load, class Store, class Sync>
+__device__ __forceinline__ void pass_lane(int lane, const float2* tw, Load load, Store store,
+                                          Sync sync) {
   constexpr int R = Plan<N>::radix(S);
   constexpr int NS = span<N>(S);
   constexpr int NB = N / R;
@@ -198,26 +212,35 @@ __device__ __forceinline__ void pass(const float2* tw, Load load, Store store) {
   float2 v[BPT][R];
 #pragma unroll
   for (int i = 0; i < BPT; ++i) {
-    const int b = threadIdx.x + i * T;
+    const int b = lane + i * T;
     if (!ragged || b < NB) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) v[i][r] = load(b + r * NB);
+      for (int r = 0; r < R; ++r) v[i][r] = load(i * R + r, b + r * NB);
     }
   }
-  if constexpr (SYNC) __syncthreads();
+  if constexpr (SYNC) sync();
   const float2* t = tw + table_offset<N>(S);
 #pragma unroll
   for (int i = 0; i < BPT; ++i) {
-    const int b = threadIdx.x + i * T;
+    const int b = lane + i * T;
     if (!ragged || b < NB) {
       const int k = b & (NS - 1);
       twiddle<NS, R>(v[i], k, t);
       dft<R, INV>(v[i]);
       const int base = (b - k) * R + k;
 #pragma unroll
-      for (int r = 0; r < R; ++r) store(base + r * NS, v[i][r]);
+      for (int r = 0; r < R; ++r) store(i * R + r, base + r * NS, v[i][r]);
     }
   }
+}
+
+// pass S by a whole block of T threads: points in through `load(i)`, out
+// through `store(i, v)`, __syncthreads where SYNC
+template <int N, int S, bool INV, int T, bool SYNC, class Load, class Store>
+__device__ __forceinline__ void pass(const float2* tw, Load load, Store store) {
+  pass_lane<N, S, INV, T, SYNC>(
+      threadIdx.x, tw, [&load](int, int i) { return load(i); },
+      [&store](int, int i, float2 v) { store(i, v); }, [] { __syncthreads(); });
 }
 
 template <int N, int S, bool INV, int T>

@@ -34,13 +34,17 @@
 // What bounds it on an H100: at the persistence design (nfft 1024, 2^24
 // samples a chunk) it reads 128 MiB of planes and writes 64 MiB of levels
 // and 4 MiB of binned power, about 0.061 ms at 3.35 TB/s; the FFT work
-// (0.9 GFLOP) would take 0.014 ms at the fp32 peak. This simple version is
+// (0.9 GFLOP) would take 0.014 ms at the fp32 peak. spectrogram_kernel is
 // bound by neither: it pays one block barrier and a shared-memory round
 // trip per radix-2 stage, and reads each frame twice when navg > 0 (the
-// second read is served by L1 / L2).
+// second read is served by L1 / L2). At nfft 1024 with navg in {0, 1, 2,
+// 4, 8, 16}, the levels and stats modes run spectrogram_levels_reg_kernel
+// instead (below; ops/kernels/spectrogram.py levels_route picks before the
+// launch); kDb and every other size keep spectrogram_kernel.
 #include <math.h>
 
 #include "fft.cuh"
+#include "fft_reg.cuh"
 
 namespace {
 
@@ -172,6 +176,228 @@ spectrogram_reduce_kernel(const float* __restrict__ part,
   pmin[k] = mn;
 }
 
+// ---- the levels and stats modes at nfft 1024 ---------------------------
+//
+// Replaces the same TPU kernel as spectrogram_kernel<PT, kLevels / kStats>
+// above, with the same contract and rounding, at nfft = 1024 (BASELINE
+// config #3) and navg in {0, 1, 2, 4, 8, 16}.
+//
+// A block of kLvGroups groups of 64 threads walks a run of frames; group g
+// takes frames f0 + g, f0 + g + kLvGroups, ... and syncs on its own named
+// barrier (bar.sync 1 + g, 64). Per frame the three register-resident
+// passes of csrc/fft_reg.cuh's 16.16.4 plan run through the group's padded
+// exchange buffer (Stockham passes, twiddles from the 336-entry forward
+// table of ops/kernels/fused_ola.py reg_forward_twiddles, copied into
+// shared memory once per block), with four group barriers a frame:
+// - pass 0 loads x[t + 64 r] (r < 16) times the window, coalesced, and
+//   keeps |x|^2 of those 16 samples; the navg samples of one detector bin
+//   sit in navg adjacent lanes at one r, so a transposing shuffle
+//   reduction (lanes exchange half their sums per step, 16 - 16 / navg
+//   shuffles a lane) leaves each lane the sums of 16 / navg bins, which it
+//   writes as means: no second read of the frame;
+// - the last pass (radix 4) leaves lane t bins t + 64 i + 256 r (i, r <
+//   4), the same 16 bins every frame, so dB, the level store (a warp's
+//   stores are 32 consecutive int32) and the bins' statistics stay with
+//   the lane across the run: the sums in registers, the max and min in
+//   the group's slice of shared memory (slot-major, conflict-free), which
+//   keeps the kernel within 128 registers without spilling; the group's
+//   barrier after the pass frees the exchange buffer for the next frame.
+// At the end the groups' statistics fold in group order into the block's
+// partials, and spectrogram_reduce_kernel folds the blocks as before: the
+// same fixed order in kLevels and kStats, so their statistics are
+// bit-equal.
+//
+// What held spectrogram_kernel<2, kLevels> back at this size, and what
+// this one does about it: ten radix-2 stages, each a block-wide barrier
+// and a shared-memory round trip (here three radix-16 / 16 / 4 passes in
+// registers and four 64-thread barriers); a bit-reversed scatter of the
+// windowed frame (here pass 0 reads it in natural order); a second,
+// serial read of the frame for the binned power (here shuffles of the
+// samples pass 0 holds); 512 threads holding 2 bins each.
+constexpr int kLvN = 1024;
+constexpr int kLvT = 64;         // threads of a frame group
+constexpr int kLvGroups = 4;     // frame groups of a block
+constexpr int kLvThreads = kLvT * kLvGroups;
+constexpr int kLvBins = 16;      // bins of one lane
+// float2 units: the groups' exchange buffers, the table, then per group
+// the max and min of its lanes' bins (2 x 16 x 64 floats)
+constexpr int kLvTable = kLvGroups * iqt::reg::padded_size(kLvN);
+constexpr int kLvExtremes = kLvTable + iqt::reg::table_total<kLvN>();
+constexpr size_t kLvSmem =
+    static_cast<size_t>(kLvExtremes + kLvGroups * kLvBins * kLvT) * sizeof(float2);
+static_assert(kLvBins * kLvT <= 2 * kLvTable, "the groups' sums fold through the exchange buffers");
+
+// the detector-binned power of one frame from the |x|^2 of samples lane +
+// 64 r (r < 16): the means over NAVG consecutive samples, at out[(lane +
+// 64 r) / NAVG]. Each step of the reduction halves the sums a lane holds
+// and exchanges the other half with the lane `o` away; after log2(NAVG)
+// steps lane l holds the bins of r = (l mod NAVG) * 16 / NAVG + j.
+template <int NAVG>
+__device__ __forceinline__ void bin_power(const float (&pw)[kLvBins], int lane, float* out) {
+  constexpr int kSteps = NAVG >= 16 ? 4 : NAVG >= 8 ? 3 : NAVG >= 4 ? 2 : NAVG >= 2 ? 1 : 0;
+  constexpr int kKept = kLvBins / NAVG;
+  float v[kLvBins];
+#pragma unroll
+  for (int r = 0; r < kLvBins; ++r) v[r] = pw[r];
+#pragma unroll
+  for (int step = 0; step < kSteps; ++step) {
+    const int o = (NAVG / 2) >> step;
+    const int n = (kLvBins / 2) >> step;
+    const bool hi = (lane & o) != 0;
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      const float send = hi ? v[j] : v[j + n];
+      const float keep = hi ? v[j + n] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  const int r0 = (lane & (NAVG - 1)) * kKept;
+#pragma unroll
+  for (int j = 0; j < kKept; ++j)
+    out[lane / NAVG + (kLvT / NAVG) * (r0 + j)] = v[j] / static_cast<float>(NAVG);
+}
+
+template <int MODE, int NAVG>
+__global__ void __launch_bounds__(kLvThreads, 2)
+spectrogram_levels_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                              int stride, const float2* __restrict__ w,
+                              const float2* __restrict__ tw, int* __restrict__ levels,
+                              float* __restrict__ part, float* __restrict__ pbin, int n_frames,
+                              int n_bins, int frames_per_block, float e0, float scale) {
+  namespace R = iqt::reg;
+  constexpr int N = kLvN;
+  constexpr int T = kLvT;
+  extern __shared__ float2 smem[];
+  const int group = threadIdx.x / T;
+  const int lane = threadIdx.x % T;
+  float2* buf = smem + group * R::padded_size(N);
+  float2* tws = smem + kLvTable;
+  // slot q of this lane: max at ext[q T + lane], min at ext[(16 + q) T + lane]
+  float* const ext0 = reinterpret_cast<float*>(smem + kLvExtremes);
+  float* ext = ext0 + group * 2 * kLvBins * T + lane;
+  for (int e = threadIdx.x; e < R::table_total<N>(); e += kLvThreads) tws[e] = __ldg(&tw[e]);
+  const auto sync = [group] {
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(T) : "memory");
+  };
+
+  float sm[kLvBins];
+#pragma unroll
+  for (int q = 0; q < kLvBins; ++q) {
+    sm[q] = 0.f;
+    ext[q * T] = -INFINITY;
+    ext[(kLvBins + q) * T] = INFINITY;
+  }
+  __syncthreads();
+
+  const int f0 = blockIdx.x * frames_per_block;
+  const int f1 = min(f0 + frames_per_block, n_frames);
+  for (int f = f0 + group; f < f1; f += kLvGroups) {
+    const long long base = static_cast<long long>(f) * N;
+    float pw[kLvBins];
+    R::pass_lane<N, 0, false, T, false>(
+        lane, tws,
+        [&](int slot, int i) {
+          const long long j = (base + i) * stride;
+          const float a = xr[j];
+          const float b = xi[j];
+          if constexpr (NAVG > 0) pw[slot] = a * a + b * b;
+          return iqt::cmul(make_float2(a, b), __ldg(&w[i]));
+        },
+        [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
+    if constexpr (NAVG > 0) bin_power<NAVG>(pw, lane, pbin + static_cast<long long>(f) * (N / NAVG));
+    sync();
+    R::pass_lane<N, 1, false, T, true>(
+        lane, tws, [buf](int, int i) { return buf[R::pad(i)]; },
+        [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
+    sync();
+    R::pass_lane<N, 2, false, T, false>(
+        lane, tws, [buf](int, int i) { return buf[R::pad(i)]; },
+        [&](int slot, int k, float2 v) {
+          const float p = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+          const float d = __fmul_rn(kDbPerLn, logf(p + kEps));
+          if (MODE == kLevels) {
+            float q = floorf(__fmul_rn(__fsub_rn(d, e0), scale));
+            q = fminf(fmaxf(q, 0.f), static_cast<float>(n_bins - 1));
+            levels[base + k] = static_cast<int>(q);
+          }
+          sm[slot] += d;
+          ext[slot * T] = fmaxf(ext[slot * T], d);
+          ext[(kLvBins + slot) * T] = fminf(ext[(kLvBins + slot) * T], d);
+        },
+        sync);
+    sync();  // the next frame's pass 0 overwrites buf
+  }
+
+  // fold groups 1, 2, ... into group 0 in order: the sums through the
+  // exchange buffers, which every group has left once all reach the
+  // barrier, the extremes where they lie
+  float* fold = reinterpret_cast<float*>(smem) + lane;
+  for (int g = 1; g < kLvGroups; ++g) {
+    __syncthreads();
+    if (group == g) {
+#pragma unroll
+      for (int q = 0; q < kLvBins; ++q) fold[q * T] = sm[q];
+    }
+    __syncthreads();
+    if (group == 0) {
+      const float* other = ext0 + g * 2 * kLvBins * T + lane;
+#pragma unroll
+      for (int q = 0; q < kLvBins; ++q) {
+        sm[q] += fold[q * T];
+        ext[q * T] = fmaxf(ext[q * T], other[q * T]);
+        ext[(kLvBins + q) * T] = fminf(ext[(kLvBins + q) * T], other[(kLvBins + q) * T]);
+      }
+    }
+  }
+  if (group == 0) {
+    const long long plane = static_cast<long long>(gridDim.x) * N;
+    float* pb = part + static_cast<long long>(blockIdx.x) * N;
+#pragma unroll
+    for (int q = 0; q < kLvBins; ++q) {
+      const int k = lane + T * (q / 4) + 4 * T * (q % 4);  // slot q = 4 i + r
+      pb[k] = sm[q];
+      pb[plane + k] = ext[q * T];
+      pb[2 * plane + k] = ext[(kLvBins + q) * T];
+    }
+  }
+}
+
+template <int MODE>
+cudaError_t allow_levels_reg() {
+  cudaError_t err;
+  if ((err = iqt::allow_smem(spectrogram_levels_reg_kernel<MODE, 0>, kLvSmem))) return err;
+  if ((err = iqt::allow_smem(spectrogram_levels_reg_kernel<MODE, 1>, kLvSmem))) return err;
+  if ((err = iqt::allow_smem(spectrogram_levels_reg_kernel<MODE, 2>, kLvSmem))) return err;
+  if ((err = iqt::allow_smem(spectrogram_levels_reg_kernel<MODE, 4>, kLvSmem))) return err;
+  if ((err = iqt::allow_smem(spectrogram_levels_reg_kernel<MODE, 8>, kLvSmem))) return err;
+  return iqt::allow_smem(spectrogram_levels_reg_kernel<MODE, 16>, kLvSmem);
+}
+
+template <int MODE>
+cudaError_t launch_levels_reg(int navg, int n_blocks, cudaStream_t s, const float* xr,
+                              const float* xi, int stride, const float2* w, const float2* tw,
+                              int* levels, float* part, float* pbin, int n_frames, int n_bins,
+                              int frames_per_block, float e0, float scale) {
+#define IQT_LV(A)                                                                          \
+  case A:                                                                                  \
+    spectrogram_levels_reg_kernel<MODE, A><<<n_blocks, kLvThreads, kLvSmem, s>>>(          \
+        xr, xi, stride, w, tw, levels, part, pbin, n_frames, n_bins, frames_per_block, e0, \
+        scale);                                                                            \
+    break;
+  switch (navg) {
+    IQT_LV(0)
+    IQT_LV(1)
+    IQT_LV(2)
+    IQT_LV(4)
+    IQT_LV(8)
+    IQT_LV(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef IQT_LV
+  return cudaGetLastError();
+}
+
 template <int PT, int MODE>
 cudaError_t launch(int n_blocks, int threads, size_t smem, cudaStream_t s,
                    const float* xr, const float* xi, int stride,
@@ -203,7 +429,9 @@ extern "C" int iqt_spectrogram_prepare(int max_smem) {
   cudaError_t err;
   if ((err = allow_mode<kDb>(max_smem))) return err;
   if ((err = allow_mode<kLevels>(max_smem))) return err;
-  return allow_mode<kStats>(max_smem);
+  if ((err = allow_mode<kStats>(max_smem))) return err;
+  if ((err = allow_levels_reg<kLevels>())) return err;
+  return allow_levels_reg<kStats>();
 }
 
 // xr / xi: the frames' samples at element stride `stride`, n_frames * nfft
@@ -269,5 +497,41 @@ extern "C" int iqt_spectrogram(const void* xr, const void* xi, const void* w,
   spectrogram_reduce_kernel<<<nfft / 32, kReduceWarps * 32, 0, s>>>(
       pp, static_cast<float*>(psum), static_cast<float*>(pmax),
       static_cast<float*>(pmin), n_blocks, nfft);
+  return cudaGetLastError();
+}
+
+// the levels (mode 1) or stats (mode 2) mode at nfft = 1024 by
+// spectrogram_levels_reg_kernel: arguments as for iqt_spectrogram, with tw
+// the n_tw entries of 1024's forward tables (ops/kernels/fused_ola.py
+// reg_forward_twiddles) and navg in {0, 1, 2, 4, 8, 16}. Another nfft,
+// mode, navg or table length: cudaErrorInvalidValue.
+extern "C" int iqt_spectrogram_levels_reg(const void* xr, const void* xi, const void* w,
+                                          const void* tw, void* levels, void* part, void* psum,
+                                          void* pmax, void* pmin, void* pbin, int n_tw,
+                                          int stride, int n_frames, int nfft, int mode,
+                                          int n_bins, int navg, int frames_per_block,
+                                          int n_blocks, float e0, float scale, void* stream) {
+  if (nfft != kLvN || n_tw != iqt::reg::table_total<kLvN>()) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xrp = static_cast<const float*>(xr);
+  auto xip = static_cast<const float*>(xi);
+  auto wp = static_cast<const float2*>(w);
+  auto tp = static_cast<const float2*>(tw);
+  auto lp = static_cast<int*>(levels);
+  auto pp = static_cast<float*>(part);
+  auto bp = static_cast<float*>(pbin);
+  cudaError_t err;
+  if (mode == kLevels)
+    err = launch_levels_reg<kLevels>(navg, n_blocks, s, xrp, xip, stride, wp, tp, lp, pp, bp,
+                                     n_frames, n_bins, frames_per_block, e0, scale);
+  else if (mode == kStats)
+    err = launch_levels_reg<kStats>(navg, n_blocks, s, xrp, xip, stride, wp, tp, lp, pp, bp,
+                                    n_frames, n_bins, frames_per_block, e0, scale);
+  else
+    return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  spectrogram_reduce_kernel<<<nfft / 32, kReduceWarps * 32, 0, s>>>(
+      pp, static_cast<float*>(psum), static_cast<float*>(pmax), static_cast<float*>(pmin),
+      n_blocks, nfft);
   return cudaGetLastError();
 }

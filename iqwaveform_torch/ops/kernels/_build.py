@@ -85,10 +85,12 @@ SIGNATURES = {
     'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
     'iqt_spectrogram_prepare': ([_I], _I),
     'iqt_spectrogram': ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
+    'iqt_spectrogram_levels_reg': ([_P] * 10 + [_I] * 9 + [_F] * 2 + [_P], _I),
     'iqt_colhist_prepare': ([_I], _I),
     'iqt_colhist': ([_P] * 2 + [_I] * 7 + [_F] * 2 + [_P], _I),
     'iqt_upfirdn_prepare': ([_I], _I),
     'iqt_upfirdn': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 13 + [_P], _I),
+    'iqt_upfirdn_reg': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 14 + [_P], _I),
     'iqt_corr_prepare': ([_I], _I),
     'iqt_corr': ([_P] * 4 + [_L] + [_I] * 8 + [_F] + [_P], _I),
 }

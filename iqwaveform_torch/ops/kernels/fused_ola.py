@@ -68,13 +68,15 @@ MAX_CUDA_FFT = 16384
 _FRAMES_THREADS = 1024
 _FRAMES_MAX_BINS_PER_THREAD = 32
 # the (nfft, nfft_out) pairs fused_ola_frames_reg_kernel is compiled for,
-# the passes of each size (csrc/fft_reg.cuh Plan) and its threads per block
+# the passes of each size (csrc/fft_reg.cuh Plan; 1024 is the levels
+# kernel's, ops/kernels/spectrogram.py) and its threads per block
 REG_PAIRS = ((16384, 8192), (12288, 6144))
 REG_PLANS = {
     16384: (16, 16, 16, 4),
     12288: (16, 16, 16, 3),
     8192: (16, 16, 16, 2),
     6144: (16, 16, 8, 3),
+    1024: (16, 16, 4),
 }
 REG_THREADS = 512
 # the (nfft, nfft_out) pair fused_ola_reg_kernel (the 2:1 kernel on the
@@ -186,11 +188,16 @@ def reg_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor
 @functools.lru_cache(maxsize=None)
 def reg_forward_twiddles(nfft: int, device: torch.device) -> torch.Tensor:
     """the forward tables of ``nfft`` alone (the channel-only channelizer
-    at 16384 runs no inverse): a view of the first entries of
-    :func:`reg_twiddles` at the pair of :data:`REG_PAIRS` that starts at
-    ``nfft``, with no copy."""
-    nfft_out = dict(REG_PAIRS)[nfft]
-    return reg_twiddles(nfft, nfft_out, device)[: _reg_pass_tables(nfft, False).size]
+    at 16384 and the levels kernel at 1024 run no inverse): at a size that
+    starts a pair of :data:`REG_PAIRS`, a view of the first entries of
+    :func:`reg_twiddles`, with no copy; at any other size of
+    :data:`REG_PLANS`, its own table, float64 on the host rounded once to
+    complex64."""
+    forward = _reg_pass_tables(nfft, False)
+    pairs = dict(REG_PAIRS)
+    if nfft in pairs:
+        return reg_twiddles(nfft, pairs[nfft], device)[: forward.size]
+    return torch.from_numpy(forward.astype('complex64')).to(device)
 
 
 def frames_route(nfft: int, nfft_out: int) -> str:

@@ -7,9 +7,13 @@ spectrogram_pallas.py:258 and :414): per non-overlapping ``nfft`` frame the
 windowed FFT, |Y|^2 in dB, and either the dB frame itself
 (:func:`spectrogram_dB`) or the frame's uniform histogram levels, the
 per-bin sum / max / min of dB over all frames of the call and, optionally,
-the detector-binned raw power (:func:`spectrogram_levels`). One CUDA body
-(``csrc/spectrogram.cu``) serves both; what bounds it on the card and what
-its design does about that are set out at the head of the source.
+the detector-binned raw power (:func:`spectrogram_levels`). One radix-2
+CUDA body (``spectrogram_kernel``, ``csrc/spectrogram.cu``) serves both; at
+nfft 1024 (BASELINE config #3) the levels and stats modes run
+``spectrogram_levels_reg_kernel`` instead, on the register-resident passes
+of ``csrc/fft_reg.cuh`` (:func:`levels_route` picks by size, before the
+launch). What bounds each on the card and what its design does about that
+are set out in the source.
 
 Bins come out in natural (centred) order, as ``jnp.fft.fft`` gives them
 with the fftshift baked into the window; the TPU kernels' factored
@@ -33,8 +37,10 @@ import torch
 from ..power import binned_mean
 from . import _build
 from .colhist import quantize_uniform
+from .fused_ola import reg_forward_twiddles
 
 __all__ = [
+    'levels_route',
     'spectrogram_dB',
     'spectrogram_dB_plain',
     'spectrogram_levels',
@@ -45,6 +51,12 @@ _EPS = 1e-25
 _DB_PER_LN = 10.0 / math.log(10.0)
 MAX_CUDA_FFT = 16384
 _MODE_DB, _MODE_LEVELS, _MODE_STATS = 0, 1, 2
+# spectrogram_levels_reg_kernel: its size, the apd_navg it bins power by
+# (0: none), its threads per frame group and frame groups per block
+LEVELS_REG_NFFT = 1024
+LEVELS_REG_NAVG = (0, 1, 2, 4, 8, 16)
+LEVELS_REG_THREADS = 64
+LEVELS_REG_GROUPS = 4
 
 
 def _planes(x: torch.Tensor):
@@ -133,20 +145,29 @@ def _check_cuda(name, x, window, nfft, apd_navg=0):
     return xr, xi, stride, n // nfft, log2n
 
 
-def _grid(n_frames: int, device) -> tuple:
-    """(frames per block, blocks): about four blocks per SM."""
-    target = 4 * _build.sm_count(device)
+def _grid(n_frames: int, blocks_per_sm: int, device) -> tuple:
+    """(frames per block, blocks): about ``blocks_per_sm`` blocks per SM."""
+    target = blocks_per_sm * _build.sm_count(device)
     per_block = -(-n_frames // target)
     return per_block, -(-n_frames // per_block)
 
 
-def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name):
+def levels_route(nfft: int, apd_navg: int = 0) -> str:
+    """the kernel :func:`spectrogram_levels` launches for a supported
+    call: ``'reg'`` (``spectrogram_levels_reg_kernel``) at nfft 1024 with
+    apd_navg in :data:`LEVELS_REG_NAVG`, ``'generic'`` (the radix-2
+    ``spectrogram_kernel``) at every other."""
+    return 'reg' if nfft == LEVELS_REG_NFFT and apd_navg in LEVELS_REG_NAVG else 'generic'
+
+
+def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name, route='generic'):
     xr, xi, stride, n_frames, log2n = _check_cuda(name, x, window, nfft, apd_navg)
     dev = x.device
     _build.prepare('iqt_spectrogram_prepare', dev)
     f32 = dict(dtype=torch.float32, device=dev)
     db = levels = part = psum = pmax = pmin = pbin = None
-    per_block, n_blocks = _grid(n_frames, dev)
+    # two 256-thread blocks of the register-resident kernel fit an SM
+    per_block, n_blocks = _grid(n_frames, 2 if route == 'reg' else 4, dev)
     if mode == _MODE_DB:
         db = torch.empty((n_frames, nfft), **f32)
     else:
@@ -163,14 +184,23 @@ def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _build.library().iqt_spectrogram(
-        xr.data_ptr(), xi.data_ptr(), window.data_ptr(),
-        _build.twiddles(nfft, dev).data_ptr(), ptr(db), ptr(levels), ptr(part),
-        ptr(psum), ptr(pmax), ptr(pmin), ptr(pbin), stride, n_frames, log2n,
-        mode, int(n_bins), int(apd_navg), per_block, n_blocks, float(lo),
-        float(scale), _build.stream_of(x),
-    )
-    _build.check(err, name)
+    if route == 'reg':
+        tw = reg_forward_twiddles(nfft, dev)
+        err = _build.library().iqt_spectrogram_levels_reg(
+            xr.data_ptr(), xi.data_ptr(), window.data_ptr(), tw.data_ptr(), ptr(levels),
+            ptr(part), ptr(psum), ptr(pmax), ptr(pmin), ptr(pbin), tw.numel(), stride,
+            n_frames, nfft, mode, int(n_bins), int(apd_navg), per_block, n_blocks,
+            float(lo), float(scale), _build.stream_of(x),
+        )
+    else:
+        err = _build.library().iqt_spectrogram(
+            xr.data_ptr(), xi.data_ptr(), window.data_ptr(),
+            _build.twiddles(nfft, dev).data_ptr(), ptr(db), ptr(levels), ptr(part),
+            ptr(psum), ptr(pmax), ptr(pmin), ptr(pbin), stride, n_frames, log2n,
+            mode, int(n_bins), int(apd_navg), per_block, n_blocks, float(lo),
+            float(scale), _build.stream_of(x),
+        )
+    _build.check(err, f'{name} ({route} kernel)')
     if mode == _MODE_DB:
         return db
     return {'levels': levels, 'psum': psum, 'pmax': pmax, 'pmin': pmin, 'p_binned': pbin}
@@ -219,11 +249,33 @@ def spectrogram_levels(
         return spectrogram_levels_plain(x, window, nfft, quant=quant, apd_navg=apd_navg)
     if x.device.type != 'cuda':
         raise ValueError(f'spectrogram_levels runs on cpu or cuda tensors, not {x.device}')
+    return _launch_levels(x, window, nfft, quant, apd_navg, levels_route(nfft, apd_navg))
+
+
+def _spectrogram_levels_generic(
+    x: torch.Tensor, window: torch.Tensor, nfft: int, *, quant: tuple = None, apd_navg: int = 0
+) -> dict:
+    """:func:`spectrogram_levels` on a CUDA tensor through the radix-2
+    ``spectrogram_kernel`` at any supported size, 1024 too: the yardstick
+    of ``spectrogram_levels_reg_kernel`` in chip_smoke.py and the card
+    tests, never a route of the port."""
+    return _launch_levels(x, window, nfft, quant, apd_navg, 'generic')
+
+
+def _launch_levels(x, window, nfft, quant, apd_navg, route: str) -> dict:
+    """launch ``route``'s kernel ('reg' or 'generic') in the levels mode
+    (or the stats mode where ``quant`` is None); counts the launch in
+    ``spectrogram_levels.launches`` and
+    ``spectrogram_levels.route_launches[route]``."""
     mode = _MODE_STATS if quant is None else _MODE_LEVELS
     out = _launch(x, window, nfft, mode, quant=quant, apd_navg=apd_navg,
-                  name='spectrogram_levels')
+                  name='spectrogram_levels', route=route)
     spectrogram_levels.launches += 1
+    spectrogram_levels.route_launches[route] += 1
     return out
 
 
 spectrogram_levels.launches = 0
+# launches by kernel: 'reg' (spectrogram_levels_reg_kernel), 'generic'
+# (spectrogram_kernel)
+spectrogram_levels.route_launches = {'reg': 0, 'generic': 0}

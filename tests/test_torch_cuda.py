@@ -28,6 +28,12 @@ register-resident 2:1 OLA and channel-only kernels at 16384 points: within
 1e-5 relative RMS of their plain versions and of the radix-2 kernels they
 replace there, and their error against complex128 at most twice the
 radix-2 kernels' (a product of two rounded table twiddles against one).
+The register-windowed upfirdn kernel and the register-resident levels
+kernel at nfft 1024: the gates above against their plain versions and
+against the older kernels they replace there, and their error against
+float64 at most twice those kernels' (the same float32 sums in another
+order; for the levels kernel the RMS over bins of the dB error of mean and
+max).
 """
 
 import sys
@@ -40,6 +46,7 @@ import torch
 import iqwaveform_torch as it
 from iqwaveform_torch import ofdm
 from iqwaveform_torch.ops import kernels, spectral
+from iqwaveform_torch.ops.kernels import _build
 from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic, chan_route
 from iqwaveform_torch.ops.kernels.colhist import uniform_quant
 from iqwaveform_torch.ops.kernels.fused_ola import (
@@ -48,6 +55,8 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     frames_route,
     ola_route,
 )
+from iqwaveform_torch.ops.kernels.spectrogram import _spectrogram_levels_generic, levels_route
+from iqwaveform_torch.ops.kernels.upfirdn import _upfirdn_generic, upfirdn_route
 from iqwaveform_torch.parallel import streaming as TS
 
 FLAGSHIP = dict(
@@ -252,6 +261,65 @@ def test_spectrogram_kernels_match_plain(card, nfft):
     assert bool((counts.sum(dim=1) == frames).all())
 
 
+@pytest.mark.parametrize('navg', [0, 1, 4, 16])
+@pytest.mark.parametrize('complex_input', [False, True])
+def test_levels_register_kernel_matches_plain_and_radix2(card, navg, complex_input):
+    """spectrogram_levels_reg_kernel at nfft 1024 on 600 frames (blocks of
+    a few frames each, the last ones short): one launch on its route, the
+    gates of test_spectrogram_kernels_match_plain against the plain
+    version and against the radix-2 body, statistics bit-equal between
+    the levels and the stats modes, and its RMS error of mean and max of
+    dB against float64 at most twice the radix-2 body's."""
+    nfft = 1024
+    assert levels_route(nfft, navg) == 'reg'
+    design = TS.design_persistence(nfft=nfft, window='hann', hist_bins=1024)
+    w = torch.from_numpy(design['kernel_window']).to(card)
+    planes = _planes(600 * nfft + 7, 31)[:, 7:]
+    x = torch.complex(planes[0], planes[1]) if complex_input else planes
+    quant = design['quant']
+    kernels.spectrogram_levels.route_launches.update(reg=0, generic=0)
+    got = kernels.spectrogram_levels(x, w, nfft, quant=quant, apd_navg=navg)
+    assert kernels.spectrogram_levels.route_launches == {'reg': 1, 'generic': 0}
+    generic = _spectrogram_levels_generic(x, w, nfft, quant=quant, apd_navg=navg)
+    assert kernels.spectrogram_levels.route_launches == {'reg': 1, 'generic': 1}
+    ref = kernels.spectrogram_levels_plain(x, w, nfft, quant=quant, apd_navg=navg)
+    frames = 600
+    for other in (ref, generic):
+        for key, tol in (('psum', 1e-3 * frames), ('pmax', 1e-3), ('pmin', 5e-3)):
+            assert float((got[key] - other[key]).abs().max()) <= tol, key
+        diff = (got['levels'] - other['levels']).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+        if navg:
+            assert rel_rms(got['p_binned'], other['p_binned']) <= 1e-5
+    assert (got['p_binned'] is None) == (navg == 0)
+    stats = kernels.spectrogram_levels(x, w, nfft, apd_navg=navg)
+    assert stats['levels'] is None
+    for key in ('psum', 'pmax', 'pmin'):
+        assert torch.equal(stats[key], got[key]), key
+    assert kernels.spectrogram_levels.route_launches == {'reg': 2, 'generic': 1}
+    ref64 = kernels.spectrogram_levels_plain(
+        planes.double(), w.to(torch.complex128), nfft, quant=quant)
+    for key, scale in (('psum', 1 / frames), ('pmax', 1.0)):
+        err = float(((got[key].double() - ref64[key]) * scale).pow(2).mean().sqrt())
+        err_generic = float(((generic[key].double() - ref64[key]) * scale).pow(2).mean().sqrt())
+        assert err <= 2 * err_generic, key
+
+
+def test_levels_other_sizes_and_navg_take_the_radix2_body(card):
+    """nfft 1024 with apd_navg 32, and nfft 2048, keep spectrogram_kernel."""
+    for nfft, navg in ((1024, 32), (2048, 16)):
+        assert levels_route(nfft, navg) == 'generic'
+        design = TS.design_persistence(nfft=nfft, window='hann', hist_bins=1024)
+        w = torch.from_numpy(design['kernel_window']).to(card)
+        x = _planes(40 * nfft, 32)
+        kernels.spectrogram_levels.route_launches.update(reg=0, generic=0)
+        got = kernels.spectrogram_levels(x, w, nfft, quant=design['quant'], apd_navg=navg)
+        assert kernels.spectrogram_levels.route_launches == {'reg': 0, 'generic': 1}
+        ref = kernels.spectrogram_levels_plain(x, w, nfft, quant=design['quant'], apd_navg=navg)
+        assert float((got['pmax'] - ref['pmax']).abs().max()) <= 1e-3
+        assert rel_rms(got['p_binned'], ref['p_binned']) <= 1e-5
+
+
 @pytest.mark.parametrize('n_bins', [256, 2048, 8192])
 def test_colhist_on_float_values_matches_plain(card, n_bins):
     edges = np.linspace(-150.0, 50.0, n_bins + 1).astype('float32')
@@ -422,20 +490,51 @@ def test_frames_above_shared_memory_raise(card):
 @pytest.mark.parametrize('up,down', [(1, 2), (2, 3), (3, 2), (2, 5)])
 @pytest.mark.parametrize('xc,hc', [(False, False), (True, False), (False, True), (True, True)])
 def test_upfirdn_matches_plain(card, up, down, xc, hc):
+    """the register-windowed kernel at 4001 taps: one launch on its route,
+    within 1e-5 of the plain conv and of the generic kernel, its float64
+    error at most twice the generic kernel's; the public entry point
+    along axis 0 takes it too."""
     gen = torch.Generator(device='cuda').manual_seed(13)
     x = torch.randn((3, 50000), device='cuda', generator=gen, dtype=torch.complex64 if xc else torch.float32)
     h = torch.from_numpy(it.design_fir_lpf(20e6, 61.44e6)).cuda()
     if hc:
         h = h * torch.exp(0.01j * torch.arange(h.numel(), device='cuda'))
+    assert upfirdn_route(h.numel(), up, down, xc, hc) == 'reg'
     kernels.upfirdn_cuda.launches = 0
+    kernels.upfirdn_cuda.route_launches.update(reg=0, generic=0)
     got = kernels.upfirdn_cuda(h, x, up, down)
     assert kernels.upfirdn_cuda.launches == 1
+    assert kernels.upfirdn_cuda.route_launches == {'reg': 1, 'generic': 0}
     ref = kernels.upfirdn_plain(h, x, up, down)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert rel_rms(got, ref) <= 1e-5
     public = it.upfirdn(h, x.t().contiguous(), up, down, axis=0)
     assert kernels.upfirdn_cuda.launches == 2
     assert rel_rms(public.t(), ref) <= 1e-5
+    generic = _upfirdn_generic(h, x, up, down)
+    assert kernels.upfirdn_cuda.route_launches == {'reg': 2, 'generic': 1}
+    assert rel_rms(got, generic) <= 1e-5
+    wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+    ref64 = kernels.upfirdn_plain(h.to(wide[h.dtype]), x.to(wide[x.dtype]), up, down)
+    assert rel_rms(got, ref64) <= 2 * rel_rms(generic, ref64)
+
+
+def test_upfirdn_taps_beyond_the_register_kernel_take_the_generic_kernel(card):
+    """taps that leave too little shared memory for the register kernel's
+    smallest blocking but not for the generic kernel's take the generic
+    kernel; more taps raise."""
+    smem = _build.smem_optin(card)
+    n = next(n for n in range(28000, 29500, 10)
+             if upfirdn_route(n, 1, 1, False, False, smem) == 'generic')
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    x = torch.randn((2, 3000), device='cuda', generator=gen)
+    h = torch.randn(n, device='cuda', generator=gen) / n
+    kernels.upfirdn_cuda.route_launches.update(reg=0, generic=0)
+    got = kernels.upfirdn_cuda(h, x, 1, 1)
+    assert kernels.upfirdn_cuda.route_launches == {'reg': 0, 'generic': 1}
+    assert rel_rms(got, kernels.upfirdn_plain(h, x, 1, 1)) <= 1e-5
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        kernels.upfirdn_cuda(torch.ones(40000, device='cuda'), x, 1, 1)
 
 
 # ---- the OFDM path: CP correlation; channelize_power ----

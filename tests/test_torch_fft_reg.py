@@ -1,9 +1,10 @@
 """A numpy model of the register-resident kernels on csrc/fft_reg.cuh:
 the frame kernel (``fused_ola_frames_reg_kernel``), the 2:1 OLA kernel
-(``fused_ola_reg_kernel``, both csrc/fused_ola.cu) and the channel-only
-channelizer (``chan_power_reg_kernel``, csrc/chan_stats.cu), held against
-np.fft and against the plain versions on the CPU, and the host routes that
-pick them.
+(``fused_ola_reg_kernel``, both csrc/fused_ola.cu), the channel-only
+channelizer (``chan_power_reg_kernel``, csrc/chan_stats.cu) and the
+persistence levels kernel (``spectrogram_levels_reg_kernel``,
+csrc/spectrogram.cu), held against np.fft and against the plain versions
+on the CPU, and the host routes that pick them.
 
 The model follows the kernel's own index math in float64: the threads of
 a block and the butterflies each takes per pass (t, t + T, ...; the last
@@ -13,9 +14,13 @@ shared-memory layout, the trim folded into the inverse's first load, and
 the last pass's scaled, windowed store; for the 2:1 kernel also the
 masked halo load past the row's end and the overlap-add cut at n_out; for
 the channelizer the |Y|^2 store over the exchange buffer and the warp sums
-of each channel's kept bins. Tolerance: 1e-12 relative (float64 roundoff
-of a few passes). The kernels themselves run only on the card
-(tests/test_torch_cuda.py, chip_smoke.py phases 1-3, 8, 10 and 15).
+of each channel's kept bins; for the levels kernel the 64-thread frame
+groups of a block, the windowed pass-0 load, the shuffle-binned detector
+power, each lane's 16 bins with their levels and statistics, and the fold
+of the groups and blocks. Tolerance: 1e-12 relative (float64 roundoff of
+a few passes); levels exactly equal (both quantize in float32). The
+kernels themselves run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py phases 1-4, 8, 10 and 15).
 """
 
 import numpy as np
@@ -25,6 +30,7 @@ import torch
 import iqwaveform_torch as it
 from iqwaveform_torch.ops import kernels, spectral
 from iqwaveform_torch.ops.kernels.chan_stats import REG_NFFT, chan_route
+from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
 from iqwaveform_torch.ops.kernels.fused_ola import (
     H100_SMEM_OPTIN,
     OLA_REG_PAIR,
@@ -38,6 +44,14 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     reg_forward_twiddles,
     reg_twiddles,
 )
+from iqwaveform_torch.ops.kernels.spectrogram import (
+    LEVELS_REG_GROUPS,
+    LEVELS_REG_NAVG,
+    LEVELS_REG_NFFT,
+    LEVELS_REG_THREADS,
+    levels_route,
+)
+from iqwaveform_torch.parallel import streaming as TS
 
 # the flagship monitor design (bench.py:83-109), whose OLA is 16384 -> 8192
 FLAGSHIP = dict(
@@ -99,16 +113,24 @@ def butterflies(nb, threads=REG_THREADS):
     return b[b < nb]
 
 
+def threads_of(n):
+    """the threads that run one ``n``-point transform: a 64-thread frame
+    group of the levels kernel at 1024, a 512-thread block otherwise."""
+    return LEVELS_REG_THREADS if n == LEVELS_REG_NFFT else REG_THREADS
+
+
 def fft_model(n, inverse, first, last, buf):
     """``n``'s transform as the kernel runs it: pass 0 loads through
     ``first(idx)``, the passes between go through the padded ``buf``, the
-    last stores through ``last(idx, v)``."""
+    last stores through ``last(idx, v)``; row j of ``idx`` and ``v`` is
+    butterfly j of the pass (round j // T of thread j mod T), column r its
+    point r."""
     tw, offsets = tables(n, inverse)
     sign = 1 if inverse else -1
     plan = passes(n)
     for s, (r, ns) in enumerate(plan):
         nb = n // r
-        b = butterflies(nb)
+        b = butterflies(nb, threads_of(n))
         idx = b[:, None] + np.arange(r)[None, :] * nb
         v = first(idx) if s == 0 else buf[pad(idx)].copy()
         k = b & (ns - 1)
@@ -230,10 +252,11 @@ def rel(got, ref):
 
 @pytest.mark.parametrize('n', sorted(REG_PLANS))
 def test_plans_factor_each_size(n):
-    """four passes, radices the kernel has DFTs for, and every NS a power
-    of two (k = b mod NS is a mask, the write base a shift)."""
+    """four passes (three at 1024), radices the kernel has DFTs for, and
+    every NS a power of two (k = b mod NS is a mask, the write base a
+    shift)."""
     radices = REG_PLANS[n]
-    assert np.prod(radices) == n and len(radices) == 4
+    assert np.prod(radices) == n and len(radices) == (3 if n == 1024 else 4)
     assert set(radices) <= {16, 8, 4, 3, 2}
     for _, ns in passes(n):
         assert ns & (ns - 1) == 0
@@ -262,7 +285,7 @@ def test_thread_mapping_and_banks(n):
     address)."""
     for s, (r, ns) in enumerate(passes(n)):
         nb = n // r
-        b = butterflies(nb)
+        b = butterflies(nb, threads_of(n))
         reads = b[:, None] + np.arange(r)[None, :] * nb
         k = b & (ns - 1)
         writes = ((b - k) * r + k)[:, None] + np.arange(r)[None, :] * ns
@@ -314,14 +337,19 @@ def test_chain_model_matches_plain(pair, trim):
     assert rel(got, ref) <= 1e-12
 
 
-@pytest.mark.parametrize('pair', REG_PAIRS)
+@pytest.mark.parametrize('pair', REG_PAIRS + ((LEVELS_REG_NFFT, None),))
 def test_host_tables_are_the_models(pair):
     """the tables the wrapper hands the kernel (float64 on the host,
     rounded once to complex64): the model's forward tables of nfft, then
-    its inverse tables of nfft_out."""
+    its inverse tables of nfft_out; at 1024 (the levels kernel, no
+    inverse) the forward tables alone."""
     nfft, nfft_out = pair
-    want = np.concatenate([tables(nfft, False)[0], tables(nfft_out, True)[0]]).astype('complex64')
-    got = reg_twiddles(nfft, nfft_out, torch.device('cpu'))
+    if nfft_out is None:
+        want = tables(nfft, False)[0].astype('complex64')
+        got = reg_forward_twiddles(nfft, torch.device('cpu'))
+    else:
+        want = np.concatenate([tables(nfft, False)[0], tables(nfft_out, True)[0]]).astype('complex64')
+        got = reg_twiddles(nfft, nfft_out, torch.device('cpu'))
     assert got.dtype == torch.complex64
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -480,3 +508,179 @@ def test_cpu_tensors_take_the_plain_ola_and_channelizer():
     got = kernels.chan_stats(torch.cat([x, x]), **ckw)
     torch.testing.assert_close(got, kernels.chan_stats_plain(torch.cat([x, x]), **ckw))
     assert (dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches) == before
+
+
+def bin_power_model(pw, navg):
+    """the levels kernel's detector binning of one frame: ``pw`` (T, 16)
+    holds each lane's |x|^2 of samples lane + 64 r. Each of log2(navg)
+    steps halves the sums a lane keeps (the upper half where its bit o is
+    set) and adds the partner's (lane ^ o) other half, as __shfl_xor_sync
+    does; lane l then writes the means of r = (l mod navg) 16 / navg + j
+    at (l + 64 r) / navg, each bin exactly once."""
+    T = pw.shape[0]
+    lanes = np.arange(T)
+    v, n, o = pw.copy(), 16, navg // 2
+    while o >= 1:
+        n //= 2
+        hi = ((lanes & o) != 0)[:, None]
+        send = np.where(hi, v[:, :n], v[:, n:2 * n])
+        keep = np.where(hi, v[:, n:2 * n], v[:, :n])
+        assert ((lanes ^ o) // 32 == lanes // 32).all()  # a partner in the same warp
+        v, o = keep + send[lanes ^ o], o // 2
+    out = np.full(LEVELS_REG_NFFT // navg, np.nan)
+    r0 = (lanes & (navg - 1)) * (16 // navg)
+    for j in range(16 // navg):
+        idx = lanes // navg + (T // navg) * (r0 + j)
+        assert np.isnan(out[idx]).all() and np.unique(idx).size == T
+        out[idx] = v[:, j] / navg
+    assert not np.isnan(out).any()
+    return out
+
+
+def levels_model(xr, xi, w, quant, navg, per_block):
+    """spectrogram_levels_reg_kernel on float64 planes: blocks of
+    ``per_block`` frames, each walked by LEVELS_REG_GROUPS groups of 64
+    threads (group g takes frames f0 + g, f0 + g + 4, ...); per frame
+    pass 0 loads x times w and keeps |x|^2 (binned by bin_power_model),
+    the last pass leaves lane t bins t + 64 i + 256 r (slot 4 i + r),
+    whose dB, level (quantized in float32, as the kernel does) and sum /
+    max / min it keeps; the groups fold in order into the block's
+    partials, the blocks' partials fold into the statistics."""
+    N, T, G = LEVELS_REG_NFFT, LEVELS_REG_THREADS, LEVELS_REG_GROUPS
+    n_frames = xr.size // N
+    n_blocks = -(-n_frames // per_block)
+    buf = np.zeros(N + N // 16, complex)
+    levels = np.full((n_frames, N), -1)
+    pbin = np.full(xr.size // navg if navg else 0, np.nan)
+    part = np.zeros((3, n_blocks, N))
+    lanes = np.arange(T)
+    for blk in range(n_blocks):
+        f0, f1 = blk * per_block, min((blk + 1) * per_block, n_frames)
+        sm = np.zeros((G, T, 16))
+        mx = np.full((G, T, 16), -np.inf)
+        mn = np.full((G, T, 16), np.inf)
+        for g in range(G):
+            for f in range(f0 + g, f1, G):
+                base = f * N
+                pw = np.zeros((T, 16))
+
+                def first(idx, base=base, pw=pw):
+                    assert np.array_equal(idx, lanes[:, None] + T * np.arange(16)[None, :])
+                    pw[:] = xr[base + idx] ** 2 + xi[base + idx] ** 2
+                    return (xr[base + idx] + 1j * xi[base + idx]) * w[idx]
+
+                def last(idx, v, f=f, g=g):
+                    rows = np.arange(idx.shape[0])
+                    t, i = rows % T, rows // T
+                    assert np.array_equal(idx, (t + T * i)[:, None] + 4 * T * np.arange(4)[None, :])
+                    d = 10 / np.log(10) * np.log(np.abs(v) ** 2 + 1e-25)
+                    if quant is not None:
+                        lo, scale, n_bins = (np.float32(q) for q in quant)
+                        q = np.floor((d.astype(np.float32) - lo) * scale)
+                        levels[f, idx] = np.clip(q, 0, n_bins - 1).astype(int)
+                    slot = (4 * i)[:, None] + np.arange(4)[None, :]
+                    np.add.at(sm[g], (t[:, None], slot), d)
+                    np.maximum.at(mx[g], (t[:, None], slot), d)
+                    np.minimum.at(mn[g], (t[:, None], slot), d)
+
+                fft_model(N, False, first, last, buf)
+                if navg:
+                    pbin[f * (N // navg):(f + 1) * (N // navg)] = bin_power_model(pw, navg)
+        for g in range(1, G):
+            sm[0] += sm[g]
+            mx[0] = np.maximum(mx[0], mx[g])
+            mn[0] = np.minimum(mn[0], mn[g])
+        q = np.arange(16)
+        k = lanes[:, None] + T * (q // 4)[None, :] + 4 * T * (q % 4)[None, :]
+        for plane, stat in enumerate((sm[0], mx[0], mn[0])):
+            part[plane, blk, k] = stat
+    return {'levels': levels if quant is not None else None, 'psum': part[0].sum(axis=0),
+            'pmax': part[1].max(axis=0), 'pmin': part[2].min(axis=0),
+            'p_binned': pbin if navg else None}
+
+
+@pytest.mark.parametrize('navg', LEVELS_REG_NAVG)
+@pytest.mark.parametrize('mode', ['levels', 'stats'])
+def test_levels_model_matches_plain(mode, navg):
+    """the modelled levels kernel at BASELINE config #3's design (nfft 1024
+    hann, 1024 bins over (-150, 50) dB) on 23 frames of float64 noise in
+    blocks of 7 (groups of 2, 2, 2 and 1 frames; the last block's groups 2
+    and 3 take none) against spectrogram_levels_plain in float64: levels
+    equal, statistics and binned power within 1e-12."""
+    design = TS.design_persistence(nfft=1024, window='hann', hist_bins=1024,
+                                   hist_range_dB=(-150.0, 50.0))
+    quant = design['quant'] if mode == 'levels' else None
+    w = np.asarray(design['kernel_window'], np.complex128)
+    rng = np.random.default_rng(navg + 7)
+    xr, xi = rng.standard_normal((2, 23 * 1024)) * 1e-2
+    got = levels_model(xr, xi, w, quant, navg, per_block=7)
+    ref = kernels.spectrogram_levels_plain(
+        torch.from_numpy(np.stack([xr, xi])), torch.from_numpy(w), 1024, quant=quant,
+        apd_navg=navg)
+    for key in ('psum', 'pmax', 'pmin'):
+        r = ref[key].numpy()
+        assert np.abs(got[key] - r).max() <= 1e-12 * np.abs(r).max(), key
+    if quant is None:
+        assert got['levels'] is None and ref['levels'] is None
+    else:
+        assert np.array_equal(got['levels'], ref['levels'].numpy())
+        assert np.array_equal(ref['levels'].numpy(), quantize_uniform(
+            torch.from_numpy(10 / np.log(10) * np.log(np.abs(np.fft.fft(
+                (xr + 1j * xi).reshape(-1, 1024) * w)) ** 2 + 1e-25)), *quant).numpy())
+    if navg:
+        r = ref['p_binned'].numpy()
+        assert got['p_binned'].shape == r.shape
+        assert np.abs(got['p_binned'] - r).max() <= 1e-12 * np.abs(r).max()
+    else:
+        assert got['p_binned'] is None and ref['p_binned'] is None
+
+
+def test_levels_table_and_shared_memory():
+    """the levels kernel reads 1024's forward tables (336 entries, the
+    model's, its own: 1024 starts no pair); four exchange buffers and the
+    table fit a block with room for two on an SM, and the groups' fold of
+    3 x 16 statistics a lane fits the exchange buffers."""
+    fwd = reg_forward_twiddles(LEVELS_REG_NFFT, torch.device('cpu'))
+    np.testing.assert_array_equal(fwd.numpy(), tables(1024, False)[0].astype('complex64'))
+    assert fwd.numel() == 336
+    buffers = LEVELS_REG_GROUPS * (1024 + 1024 // 16)
+    assert 8 * (buffers + fwd.numel()) == 37504 and 2 * (37504 + 1024) <= 233472
+    assert 4 * 3 * 16 * LEVELS_REG_THREADS <= 8 * buffers
+
+
+def test_levels_last_pass_stores_consecutive_bins():
+    """1024's last pass (radix 4, NS = 256) for a 64-thread group: lane t
+    of round i holds bins t + 64 i + 256 r, the same 16 every frame, and a
+    warp's stores of one slot are 32 consecutive words."""
+    r, ns = passes(1024)[-1]
+    assert (r, ns) == (4, 256)
+    b = butterflies(1024 // r, LEVELS_REG_THREADS)
+    k = b & (ns - 1)
+    out = ((b - k) * r + k)[:, None] + np.arange(r)[None, :] * ns
+    t, i = b % 64, b // 64
+    assert np.array_equal(out, (t + 64 * i)[:, None] + 256 * np.arange(r)[None, :])
+    for warp in out.reshape(-1, 32, r).transpose(0, 2, 1).reshape(-1, 32):
+        assert np.array_equal(np.diff(warp), np.ones(31))
+
+
+def test_levels_route_and_cpu_tensors():
+    """the register-resident levels kernel takes nfft 1024 at every
+    apd_navg it bins (0 to 16); other navg and every other size keep the
+    radix-2 kernel; a CPU tensor runs the plain version and counts no
+    launch."""
+    for navg in LEVELS_REG_NAVG:
+        assert levels_route(1024, navg) == 'reg'
+    for nfft, navg in [(1024, 32), (1024, 64), (1024, 1024), (512, 16), (2048, 16), (64, 0),
+                       (16384, 0), (4096, 1)]:
+        assert levels_route(nfft, navg) == 'generic', (nfft, navg)
+    design = TS.design_persistence(nfft=1024, window='hann', hist_bins=1024)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 4 * 1024)).astype('float32'))
+    w = torch.from_numpy(design['kernel_window'])
+    k = kernels.spectrogram_levels
+    before = dict(k.route_launches), k.launches
+    got = k(x, w, 1024, quant=design['quant'], apd_navg=16)
+    ref = kernels.spectrogram_levels_plain(x, w, 1024, quant=design['quant'], apd_navg=16)
+    for key in ('levels', 'psum', 'pmax', 'pmin', 'p_binned'):
+        torch.testing.assert_close(got[key], ref[key])
+    assert (dict(k.route_launches), k.launches) == before

@@ -158,3 +158,138 @@ def test_kernel_blocking_covers_every_output(up, down, ntaps):
     exact = scipy.signal.upfirdn(h, x, up, down)
     assert not np.isnan(got).any()
     assert np.abs(got - exact).max() <= 1e-12 * np.abs(exact).max()
+
+
+def _reg_model(h, x, up, down, writes=None):
+    """numpy model of csrc/upfirdn.cu upfirdn_reg_kernel on one row: the
+    host blocking, the taps regrouped into one zero-padded row per (class,
+    residue), the per-residue span (NaN where nothing is staged), and each
+    lane's register window: slot (m - i) mod REG_M holds z[k - i + m],
+    preloaded for m >= 1, one new sample and one tap per step, the last
+    round guarded. ``writes`` counts the stores of each output."""
+    from iqwaveform_torch.ops.kernels.upfirdn import REG_ITEM, REG_M, _reg_blocking
+
+    N, L = x.size, h.size
+    b = _reg_blocking(L, up, down, 8, h.itemsize, 232448)
+    P, D, j_max, k_blk, span_d, tstride = (
+        b[k] for k in ('P', 'D', 'j_max', 'k_blk', 'span_d', 'tstride'))
+    assert k_blk % REG_ITEM == 0 and REG_M % 2 == 1
+    n_out = t_output_len(L, N, up, down)
+    y = np.full(n_out, np.nan, complex)
+    t = np.arange(P * D * tstride)
+    row = t // tstride
+    c, jr, i = row // D, row % D, t % tstride
+    tap = (c * down) % up + (jr + D * i) * up
+    hs = np.where(tap < L, h[np.minimum(tap, L - 1)], 0)
+    lanes = np.arange(32)
+    for bx in range(-(-n_out // (P * k_blk))):
+        lo = bx * k_blk * D - (j_max - 1)
+        t = np.arange(b['span'])
+        xs = np.full(D * span_d, np.nan, complex)
+        src = lo + t
+        xs[(t % D) * span_d + t // D] = np.where((src >= 0) & (src < N), x[np.clip(src, 0, N - 1)], 0)
+        for item in range(P * (k_blk // REG_ITEM)):
+            c, kc = divmod(item, k_blk // REG_ITEM)
+            k = kc * REG_ITEM + lanes * REG_M
+            p = (c * down) % up
+            taps = -(-(L - p) // up) if p < L else 0
+            base = j_max - 1 + (c * down) // up
+            acc = np.zeros((32, REG_M), complex)
+            for jr in range(min(D, taps)):
+                s0, r = divmod(base - jr, D)
+                zp = r * span_d + s0 + k  # &z[k] of each lane
+                n_i = -(-(taps - jr) // D)
+                gp = (c * D + jr) * tstride
+                win = np.full((32, REG_M), np.nan, complex)
+                for m in range(1, REG_M):
+                    win[:, m] = xs[zp + m]
+                for step in range(n_i):
+                    u = step % REG_M
+                    assert (zp - step >= r * span_d).all()
+                    win[:, (REG_M - u) % REG_M] = xs[zp - step]
+                    acc += hs[gp + step] * win[:, (np.arange(REG_M) - u) % REG_M]
+            n = bx * P * k_blk + c + P * (k[:, None] + np.arange(REG_M)[None, :])
+            inside = n < n_out
+            y[n[inside]] = acc[inside]
+            if writes is not None:
+                np.add.at(writes, n[inside], 1)
+    return y
+
+
+@pytest.mark.parametrize('xc,hc', [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize('up,down,ntaps', [(1, 2, 4001), (2, 3, 4001), (3, 2, 40), (2, 5, 17),
+                                           (7, 5, 64), (3, 1, 31)])
+def test_register_kernel_model_matches_scipy(up, down, ntaps, xc, hc):
+    """the register-windowed kernel's blocking, tap regrouping, residue
+    streams and sliding window give scipy's upfirdn in float64 (1e-12 of
+    the largest output), every output written exactly once; at 4001 taps
+    the main path's two resamplers (its class 1 at 2/3 has one tap fewer),
+    the first block's span starting before sample 0, ragged last blocks."""
+    rng = np.random.default_rng(ntaps + up + down)
+    x = rng.standard_normal(3000) + (1j * rng.standard_normal(3000) if xc else 0)
+    h = rng.standard_normal(ntaps) + (1j * rng.standard_normal(ntaps) if hc else 0)
+    n_out = t_output_len(ntaps, x.size, up, down)
+    writes = np.zeros(n_out, int)
+    got = _reg_model(h, x, up, down, writes)
+    exact = scipy.signal.upfirdn(h, x, up, down)
+    assert (writes == 1).all()
+    assert np.abs(got - exact).max() <= 1e-12 * np.abs(exact).max()
+
+
+@pytest.mark.parametrize('x_bytes', [4, 8])
+def test_register_kernel_loads_of_one_step_fall_on_distinct_banks(x_bytes):
+    """lane l reads z[k0 + l REG_M - i] at step i: an odd REG_M puts a
+    warp's 32 float loads on 32 banks, and each half-warp's 16 float2
+    loads (a 64-bit load is served a half-warp at a time) on 16 distinct
+    bank pairs, whatever the step, residue row and span offset."""
+    from iqwaveform_torch.ops.kernels.upfirdn import REG_M, _reg_blocking
+
+    b = _reg_blocking(4001, 1, 2, x_bytes, 4, 232448)
+    words = x_bytes // 4
+    for r, s0, step in [(0, 2000, 0), (1, 1999, 7), (1, 2000, 1234)]:
+        elem = r * b['span_d'] + s0 + np.arange(32) * REG_M - step
+        addr = b['taps_bytes'] // 4 + elem * words
+        if words == 1:
+            assert np.unique(addr % 32).size == 32
+        else:
+            for half in addr.reshape(2, 16):
+                assert np.unique((half // 2) % 16).size == 16
+
+
+def test_register_blocking_at_the_main_path():
+    """BASELINE config #2 (4001 taps, complex64 x, real taps): 1/2 takes 8
+    items of one class and 2/3 4 items of each of its two, so each of a
+    block's 8 warps takes one item, and two blocks share an SM."""
+    from iqwaveform_torch.ops.kernels.upfirdn import REG_ITEM, _reg_blocking
+
+    for (up, down), items in {(1, 2): 8, (2, 3): 4}.items():
+        b = _reg_blocking(4001, up, down, 8, 4, 232448)
+        assert b['k_blk'] == items * REG_ITEM and b['P'] * items == 8
+        assert 2 * (b['smem'] + 1024) <= 233472
+        assert b['taps_bytes'] % 16 == 0 and b['taps_bytes'] >= 4 * 4001
+
+
+def test_upfirdn_route_by_size_and_cpu_tensors():
+    """every call of the main path and of the tests takes the register
+    kernel; taps that leave too little shared memory for its smallest
+    blocking but not for the generic kernel's take the generic kernel; a
+    CPU tensor runs the plain version and counts no launch."""
+    from iqwaveform_torch.ops.kernels import upfirdn as U
+
+    for up, down, ntaps in [(1, 2, 4001), (2, 3, 4001), (3, 2, 4001), (2, 5, 4001), (7, 5, 64),
+                            (3, 1, 31), (1, 1, 1)]:
+        for xc in (False, True):
+            for hc in (False, True):
+                assert U.upfirdn_route(ntaps, up, down, xc, hc) == 'reg'
+    smem = U.H100_SMEM_OPTIN
+    edge = [n for n in range(28700, 29100, 10)
+            if U._reg_blocking(n, 1, 1, 4, 4, smem) is None
+            and U._blocking(n, 1, 1, 4, 4, smem)['smem'] <= smem]
+    assert edge and U.upfirdn_route(edge[0], 1, 1, False, False) == 'generic'
+    assert U._blocking(29100, 1, 1, 4, 4, smem)['smem'] > smem
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy(_taps(rng, 255, False))
+    x = torch.from_numpy(_signal(rng, (2, 900), True))
+    before = dict(U.upfirdn_cuda.route_launches), U.upfirdn_cuda.launches
+    torch.testing.assert_close(U.upfirdn_cuda(h, x, 2, 3), U.upfirdn_plain(h, x, 2, 3))
+    assert (dict(U.upfirdn_cuda.route_launches), U.upfirdn_cuda.launches) == before
