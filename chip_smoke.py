@@ -15,16 +15,20 @@ build/iqwaveform_torch/), then, at the flagship WidebandMonitor design
    ``fused_ola_reg_kernel``) also against the radix-2 ``fused_ola_kernel``
    it replaces here, and both, on the first 512 frames, against the plain
    version in complex128 (its error at most twice the radix-2 kernel's);
+   the same for the channelizer statistics kernel of this size
+   (``chan_stats_reg_kernel``) against the radix-2 ``chan_stats_kernel``,
+   on each of its four outputs; ptxas must report no spill in it or in
+   ``colhist_reg_kernel``;
 2. drives the full ``step`` on 2^24 complex64 samples: each kernel's
    launch count must rise, the OLA and channelizer route counts must name
-   ``fused_ola_reg_kernel`` and the 4096-point ``chan_stats_kernel``, the
-   profile must hold those and no ``fused_ola_kernel``, no cuFFT or cuBLAS
-   kernel may run, and the outputs must match the plain-version step on
-   the card and the CPU step on a short input;
+   ``fused_ola_reg_kernel`` and ``chan_stats_reg_kernel``, the profile
+   must hold those and no ``fused_ola_kernel`` or ``chan_stats_kernel``,
+   no cuFFT or cuBLAS kernel may run, and the outputs must match the
+   plain-version step on the card and the CPU step on a short input;
 3. times the step and each kernel with CUDA events (median of REPS runs
    after warm-up), beside the kernel's bound, its plain version and, where
    one exists, the PyTorch call that computes the same function; the OLA
-   row also times the radix-2 kernel (``generic_ms``);
+   and channelizer rows also time the radix-2 kernels (``generic_ms``);
 
 then, at BASELINE config #3 (bench.py:312-325: streaming persistence
 spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
@@ -32,25 +36,30 @@ spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
 
 4. over 2^30 samples of (2, n) float32 planes made on the card (64
    distinct chunks): (a) on chunk 0, the levels, column-count and APD
-   kernels against their plain versions, and on its first 512 frames the
+   kernels against their plain versions, the column counter of this size
+   (``colhist_reg_kernel``) also against the older ``colhist_kernel``
+   (equal counts), and on its first 512 frames the
    levels kernel of this size (the register-resident
    ``spectrogram_levels_reg_kernel``) and the radix-2 body it replaces
    here against the plain version in float64 (its RMS error of mean and
    max of dB at most twice the radix-2 body's); (b) the fold of the first
    4 chunks against the plain-version fold; (c) the fold of all 64 chunks
    through ``persistence_apd_fold``, which must launch each of those three
-   kernels exactly 64 times, the levels kernel on its register-resident
-   route each time, then ``persistence_finalize``; (d) a profile of one
-   chunk's fold, which must hold ``spectrogram_levels_reg_kernel`` and no
-   radix-2 ``spectrogram_kernel`` and may show no cuFFT / cuBLAS /
-   CUTLASS kernel; (e) the 1 GS time, and the device-busy share of one
-   chunk; the levels kernel is timed beside the radix-2 body
-   (``generic_ms``);
+   kernels exactly 64 times, the levels kernel and the column counter on
+   their new routes each time, then ``persistence_finalize``; (d) a
+   profile of one chunk's fold, which must hold
+   ``spectrogram_levels_reg_kernel`` and ``colhist_reg_kernel`` and no
+   radix-2 ``spectrogram_kernel`` or older ``colhist_kernel`` and may show
+   no cuFFT / cuBLAS / CUTLASS kernel, and the fold's host time per chunk
+   split by wrapper and by the carry's torch ops; (e) the 1 GS time, and
+   the device-busy share of one chunk; the levels kernel and the column
+   counter are timed beside the older kernels (``generic_ms``);
 5. the public ``streaming_persistence_spectrum`` on 4 chunks plus a
    131072-multiple tail and 3072 samples that its rules drop, against the
    plain path;
 6. the unfused path (2048 histogram bins: ``spectrogram_dB`` and the
-   column counter on float values) on one chunk, against the plain path;
+   column counter on float values, equal to bincount and to the older
+   counter) on one chunk, against the plain path;
 7. the stats-only design (BASELINE config #1, hist_bins=0) on one chunk,
    against the plain path;
 
@@ -77,8 +86,10 @@ capture at 61.44 MS/s) and the monitor beyond 2:1 overlap:
    and the conv timed;
 10. ``WidebandMonitor.step`` at the blackman COLA design (30.72 -> 15.36
    MS/s, nfft 12288 -> 6144, R=3) on 16,785,408 samples: launches (the
-   register-resident frame kernel), the step against ``reference_step``
-   with phase 3's gates, timed, profiled; the frame kernel as in phase 8;
+   register-resident frame kernel and ``chan_stats_reg_kernel``, no
+   ``chan_stats_kernel`` in the profile), the step against
+   ``reference_step`` with phase 3's gates, timed, profiled; the frame
+   kernel as in phase 8;
 
 then the OFDM path on 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at
 30.72 MS/s made on the card (QPSK on 1201 subcarriers, CP 160 / 144, noise
@@ -198,6 +209,12 @@ GENERIC_KERNEL = 'fused_ola_frames_kernel'
 OLA_REG_KERNEL = 'fused_ola_reg_kernel'
 OLA_GENERIC_KERNEL = 'fused_ola_kernel'
 CHAN_REG_KERNEL = 'chan_power_reg_kernel'
+STATS_REG_KERNEL = 'chan_stats_reg_kernel'
+STATS_GENERIC_KERNEL = 'chan_stats_kernel'
+COLHIST_REG_KERNEL = 'colhist_reg_kernel'
+COLHIST_GENERIC_KERNEL = 'colhist_kernel'
+# kernels whose ptxas report must show no spill
+NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL)
 N_UPFIRDN = 10**8
 UPFIRDN_PAIRS = ((1, 2), (2, 3))
 N_UPFIRDN_F64 = 1 << 20  # outputs held against float64
@@ -241,6 +258,7 @@ CHUNK = 1 << 24
 N_CHUNKS = 64
 APD_NAVG = 16
 N_FOLD_CHECK = 4
+N_HOST_SPLIT = 16  # chunks whose fold's host time is split by part
 # device_kernels: traces taken in this process before the trace is taken
 # in a fresh one, and the host wait inside each trace before the call and
 # after its synchronize
@@ -435,6 +453,62 @@ def levels_f64(planes, w, nfft: int, quant) -> tuple:
             errs(_spectrogram_levels_generic(head, w, nfft, quant=quant)))
 
 
+def fold_host_split(fold_chunk) -> dict:
+    """the host time per chunk of ``fold_chunk(i)`` (the fold of chunk
+    i) by part, in ms: the three kernel wrappers (``spectrogram_levels``,
+    ``colhist``, ``hist``) and the carry's torch ops (``_merge``, the
+    histogram's ``h.clone()``, ``_edges_on``), each by the host clock
+    around its calls with no synchronize inside; ``other`` is the rest of
+    the fold's own host work, ``total`` the whole, ``unwrapped`` the same
+    chunks' host time with no part timed (what the timing costs is their
+    difference). Mean over N_HOST_SPLIT chunks after one warm-up."""
+    from iqwaveform_torch.parallel import streaming as S
+
+    spent = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    saved = S._CUDA, S._merge, S._edges_on
+    own_clone = 'clone' in torch.Tensor.__dict__
+    clone = torch.Tensor.clone
+    S._CUDA = S._Kernels(**{f: timed(f, getattr(S._CUDA, f)) for f in S._Kernels._fields})
+    S._merge = timed('_merge', S._merge)
+    S._edges_on = timed('_edges_on', S._edges_on)
+    torch.Tensor.clone = timed('h.clone()', clone)
+    try:
+        fold_chunk(0)
+        torch.cuda.synchronize()
+        spent.clear()
+        t0 = time.perf_counter()
+        for i in range(N_HOST_SPLIT):
+            fold_chunk(i % N_CHUNKS)
+        total = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        S._CUDA, S._merge, S._edges_on = saved
+        if own_clone:
+            torch.Tensor.clone = clone
+        else:
+            del torch.Tensor.clone
+    t0 = time.perf_counter()
+    for i in range(N_HOST_SPLIT):
+        fold_chunk(i % N_CHUNKS)
+    unwrapped = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    split = {k: v * 1e3 / N_HOST_SPLIT for k, v in spent.items()}
+    split['other'] = total * 1e3 / N_HOST_SPLIT - sum(split.values())
+    split['total'] = total * 1e3 / N_HOST_SPLIT
+    split['unwrapped'] = unwrapped * 1e3 / N_HOST_SPLIT
+    return split
+
+
 def check_apd(got, ref, label: str, total: int) -> int:
     a, b = got.long(), ref.long()
     require(int(a.sum()) == int(b.sum()) == total, f'{label} apd: totals differ from {total}')
@@ -447,7 +521,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     """phases 4-7; returns the kernels line's rows of this path."""
     from iqwaveform_torch import parallel as P
     from iqwaveform_torch.ops import kernels
-    from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
+    from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, quantize_uniform
     from iqwaveform_torch.ops.kernels.spectrogram import _spectrogram_levels_generic
 
     design = P.design_persistence(**PERSISTENCE)
@@ -509,12 +583,20 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
                 f'body\'s {lv64_generic[key]:.4g}')
 
     levels = lv['levels']
+    kernels.colhist.route_launches.update(reg=0, generic=0)
     ch = kernels.colhist(levels, torch.zeros((nfft, quant[2]), dtype=torch.int32, device=dev))
+    ch_routes = dict(kernels.colhist.route_launches)
     ch_ref = kernels.colhist_plain(levels, torch.zeros_like(ch))
     ch_l1 = int((ch.long() - ch_ref.long()).abs().sum())
-    print(f'colhist: levels {tuple(levels.shape)} -> {tuple(ch.shape)} L1 vs plain {ch_l1}')
+    ch_old = _colhist_generic(levels, torch.zeros_like(ch))
+    print(f'colhist: levels {tuple(levels.shape)} -> {tuple(ch.shape)} L1 vs plain {ch_l1}, '
+          f'equal to the older {COLHIST_GENERIC_KERNEL}: {torch.equal(ch, ch_old)}; '
+          f'kernels {json.dumps(ch_routes)}')
+    require(ch_routes == {'reg': 1, 'generic': 0}, f'colhist kernels {ch_routes}')
     require(ch_l1 == 0, 'colhist differs from bincount on the same levels')
+    require(torch.equal(ch, ch_old), f'colhist differs from the older {COLHIST_GENERIC_KERNEL}')
     require(bool((ch.sum(dim=1) == frames).all()), 'colhist: a column total is not the frame count')
+    del ch_old
     results['colhist'] = {'max_abs_err': float(ch_l1)}
 
     pbin = lv['p_binned']
@@ -547,7 +629,8 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     torch.cuda.synchronize()
     for k in kernels.KERNELS:
         k.launches = 0
-    kernels.spectrogram_levels.route_launches.update(reg=0, generic=0)
+    for k in (kernels.spectrogram_levels, kernels.colhist):
+        k.route_launches.update(reg=0, generic=0)
     t0 = time.perf_counter()
     for i in range(N_CHUNKS):
         carry, apd = fold(carry, apd, i)
@@ -555,10 +638,13 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     dt = time.perf_counter() - t0
     launched = {name: k.launches for name, k in kset.items()}
     routes = dict(kernels.spectrogram_levels.route_launches)
+    ch_routes = dict(kernels.colhist.route_launches)
     print(f'launches over {N_CHUNKS} chunks: ' + json.dumps(launched)
-          + f'; levels kernels {json.dumps(routes)}')
+          + f'; levels kernels {json.dumps(routes)}; column counters {json.dumps(ch_routes)}')
     require(routes == {'reg': N_CHUNKS, 'generic': 0},
             f'levels kernels over {N_CHUNKS} chunks {routes}, not {LEVELS_REG_KERNEL} alone')
+    require(ch_routes == {'reg': N_CHUNKS, 'generic': 0},
+            f'column counters over {N_CHUNKS} chunks {ch_routes}, not {COLHIST_REG_KERNEL} alone')
     for kname in ('spectrogram_levels', 'colhist', 'hist'):
         require(launched[kname] == N_CHUNKS,
                 f'{kname} launched {launched[kname]} times over {N_CHUNKS} chunks')
@@ -584,21 +670,27 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
           f'{ms_chunk:.4f} ms per {CHUNK}-sample chunk ({smi})')
 
     # ---- phase 4d: one chunk's fold under the profiler
-    fold_kernels = (LEVELS_REG_KERNEL, 'colhist_kernel', 'hist_kernel')
+    fold_kernels = (LEVELS_REG_KERNEL, COLHIST_REG_KERNEL, 'hist_kernel')
     names, device_us = device_kernels(lambda: fold(carry, apd, 1), *fold_kernels)
     print('chunk fold device kernels: ' + json.dumps(names))
     for k in fold_kernels:
         require(any(k in n for n in names), f'profiler shows no {k} in the fold')
     radix2 = [n for n in names if LEVELS_GENERIC_KERNEL in n]
     require(not radix2, f'the radix-2 levels body ran in the fold: {radix2}')
+    old_ch = [n for n in names if COLHIST_GENERIC_KERNEL in n]
+    require(not old_ch, f'the older column counter ran in the fold: {old_ch}')
     bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
     require(not bad, f'library FFT / GEMM kernels in the fold: {bad}')
     busy_ms = sum(device_us.values()) / 1e3
     levels_device_ms = sum(us for k, us in device_us.items() if LEVELS_REG_KERNEL in k) / 1e3
+    colhist_device_ms = sum(us for k, us in device_us.items() if COLHIST_REG_KERNEL in k) / 1e3
     print('chunk fold device time by kernel (us): ' + json.dumps(
         dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
     print(f'chunk fold device busy: {busy_ms:.4f} ms of {ms_chunk:.4f} ms per chunk '
           f'(busy share {min(1.0, busy_ms / ms_chunk):.3f})')
+    split = fold_host_split(lambda i: fold(carry, apd, i))
+    print(f'chunk fold host time per chunk by part (ms, mean of {N_HOST_SPLIT} chunks, no '
+          f'synchronize inside): ' + json.dumps(split))
     del carry, apd, out
 
     # ---- phase 5: the public entry point, against the plain path
@@ -643,6 +735,8 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
                           lo=lo, scale=scale)
     chf_ref = kernels.colhist_plain(db, torch.zeros_like(chf), lo=lo, scale=scale)
     require(torch.equal(chf, chf_ref), 'colhist on float values differs from bincount')
+    require(torch.equal(chf, _colhist_generic(db, torch.zeros_like(chf), lo=lo, scale=scale)),
+            f'colhist on float values differs from the older {COLHIST_GENERIC_KERNEL}')
     require(bool((chf.sum(dim=1) == frames).all()), 'colhist on float values: column totals')
     results['colhist_values'] = {'max_abs_err': 0.0}
     for k in kernels.KERNELS:
@@ -729,6 +823,16 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     levels_row['f64_rms_dB'] = lv64
     levels_row['generic_f64_rms_dB'] = lv64_generic
     levels_row['profiled_device_ms'] = levels_device_ms
+    rows['colhist']['generic_ms'] = timed_ms(lambda: _colhist_generic(levels, scratch))
+    rows['colhist']['profiled_device_ms'] = colhist_device_ms
+    rows['colhist_values']['generic_ms'] = timed_ms(
+        lambda: _colhist_generic(db, scratch6, lo=lo, scale=scale))
+    rows['colhist_values']['profiled_device_ms'] = sum(device_kernels(
+        lambda: kernels.colhist(db, scratch6, lo=lo, scale=scale), COLHIST_REG_KERNEL)[1].values()) / 1e3
+    print(f'colhist: the older {COLHIST_GENERIC_KERNEL} {rows["colhist"]["generic_ms"]:.4f} ms '
+          f'({colhist_device_ms:.4f} ms of device time in the profiled chunk fold); on float '
+          f'values {rows["colhist_values"]["profiled_device_ms"]:.4f} ms of device time, the '
+          f'older kernel {rows["colhist_values"]["generic_ms"]:.4f} ms, on {smi}')
     print(f'spectrogram_levels: radix-2 body {levels_row["generic_ms"]:.4f} ms; '
           f'{levels_device_ms:.4f} ms of device time in the profiled chunk fold, on {smi}')
     # one kernel, one row: its float-value instance rides along in it
@@ -897,6 +1001,29 @@ def require_frame_kernel(names, label: str) -> None:
     require(not generic, f'the generic frame kernel ran in {label}: {generic}')
 
 
+def require_stats_kernel(names, label: str) -> None:
+    """the profile of ``label`` holds the register-resident channelizer
+    statistics kernel and no radix-2 one."""
+    require(any(STATS_REG_KERNEL in n for n in names),
+            f'profiler shows no {STATS_REG_KERNEL} in {label}')
+    old = [n for n in names if STATS_GENERIC_KERNEL in n or 'chan_reduce_kernel' in n]
+    require(not old, f'the radix-2 channelizer kernel ran in {label}: {old}')
+
+
+def require_no_spill(report: str) -> None:
+    """ptxas reports 0 bytes of spill for every instance of the kernels
+    in NO_SPILL."""
+    lines = report.splitlines()
+    seen = 0
+    for i, line in enumerate(lines):
+        if 'Compiling entry' in line and any(k in line for k in NO_SPILL):
+            props = next((ln for ln in lines[i + 1:i + 4] if 'spill stores' in ln), '')
+            seen += 1
+            require('0 bytes spill stores, 0 bytes spill loads' in props,
+                    f'ptxas: {line.strip()[:120]} spills: {props.strip()}')
+    require(seen > 0, f'ptxas reports no instance of {NO_SPILL}')
+
+
 def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     """phases 8-10; returns the kernels line's rows of this path."""
     import iqwaveform_torch as it
@@ -913,8 +1040,8 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     def reset():
         for k in kernels.KERNELS:
             k.launches = 0
-        kernels.fused_ola_frames.route_launches.update(reg=0, generic=0)
-        kernels.upfirdn_cuda.route_launches.update(reg=0, generic=0)
+        for k in (kernels.fused_ola_frames, kernels.upfirdn_cuda, kernels.chan_stats):
+            k.route_launches.update(reg=0, generic=0)
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
@@ -1085,11 +1212,15 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'blackman step launches {launched}')
     frame_routes('blackman step')
+    chan_routes = dict(kernels.chan_stats.route_launches)
+    print(f'blackman step channelizer kernels: {json.dumps(chan_routes)}')
+    require(chan_routes == {'reg': 1, 'generic': 0}, f'blackman step channelizer kernels {chan_routes}')
     check_step(out, mon.reference_step(x10), 'blackman step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x10))
     names, device_us = device_kernels(lambda: mon.step(x10), REG_KERNEL,
-                                      'chan_stats_kernel', 'hist_kernel')
+                                      STATS_REG_KERNEL, 'hist_kernel')
     require_frame_kernel(names, 'the blackman step')
+    require_stats_kernel(names, 'the blackman step')
     bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in the blackman step: {bad}')
     busy = sum(device_us.values()) / 1e3
@@ -1433,6 +1564,7 @@ def main() -> int:
     from iqwaveform_torch import WidebandMonitor, design_wideband_monitor
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic
     from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_generic
 
     smi = subprocess.run(
@@ -1455,6 +1587,7 @@ def main() -> int:
         if ('registers' in line or 'spill' in line or line.startswith('==')
                 or ('Compiling entry' in line and 'reg_kernel' in line)):
             print(f'ptxas: {line.strip()}')
+    require_no_spill(_build.ptxas_report())
 
     design = design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP)
     mon = WidebandMonitor(design)
@@ -1486,14 +1619,33 @@ def main() -> int:
     y_noise = torch.randn(y.shape, dtype=torch.complex64, device=dev, generator=gen)
     cs_noise = kernels.chan_stats(y_noise, **mon.chan_kwargs)
     cs_ref = kernels.chan_stats_plain(y_noise, **mon.chan_kwargs)
+    cs_generic = _chan_stats_generic(y_noise, **mon.chan_kwargs)
     worst = 0.0
     for key in cs_noise:
         err = rel_rms(cs_noise[key], cs_ref[key])
-        print(f'chan_stats {key}: {tuple(cs_noise[key].shape)} relative RMS {err:.3g}')
+        err_generic = rel_rms(cs_noise[key], cs_generic[key])
+        print(f'chan_stats {key}: {tuple(cs_noise[key].shape)} relative RMS {err:.3g}; '
+              f'{STATS_REG_KERNEL} vs the radix-2 {STATS_GENERIC_KERNEL} {err_generic:.3g}')
         require(err <= 1e-5, f'chan_stats {key} relative RMS {err:.3g} > 1e-5')
+        require(err_generic <= 1e-5,
+                f'chan_stats {key} vs the radix-2 kernel: relative RMS {err_generic:.3g} > 1e-5')
         worst = max(worst, max_abs(cs_noise[key], cs_ref[key]))
     results['chan_stats'] = {'max_abs_err': worst}
-    del y_noise, cs_noise
+    # the register-resident kernel (this route) and the radix-2 kernel it
+    # replaces here against the plain version in complex128, first frames
+    chan64, chan64_generic = {}, {}
+    for key in cs_noise:
+        chan64[key], chan64_generic[key] = f64_errors(
+            y_noise[: N_F64_FRAMES * mon.chan_kwargs['nfft_big']], mon.chan_kwargs,
+            kernels.chan_stats, _chan_stats_generic, kernels.chan_stats_plain,
+            pick=lambda out, key=key: out[key])
+    print(f'chan_stats: first {N_F64_FRAMES} frames vs the complex128 plain version, relative '
+          f'RMS {json.dumps(chan64)}, radix-2 kernel {json.dumps(chan64_generic)}')
+    for key in chan64:
+        require(chan64[key] <= 2 * chan64_generic[key],
+                f'chan_stats {key} complex128 error {chan64[key]:.4g} > 2 x the radix-2 '
+                f'kernel\'s {chan64_generic[key]:.4g}')
+    del y_noise, cs_noise, cs_generic
     cs = kernels.chan_stats(y, **mon.chan_kwargs)
 
     p = cs['p_binned']
@@ -1521,16 +1673,17 @@ def main() -> int:
     routes = {'fused_ola': dict(kernels.fused_ola.route_launches),
               'chan_stats': dict(kernels.chan_stats.route_launches)}
     print('kernels by route in one step: ' + json.dumps(routes))
-    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': {'reg': 0, 'generic': 1}},
+    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': {'reg': 1, 'generic': 0}},
             f'the step\'s routes {routes}')
 
-    step_kernels = (OLA_REG_KERNEL, 'chan_stats_kernel', 'hist_kernel')
+    step_kernels = (OLA_REG_KERNEL, STATS_REG_KERNEL, 'hist_kernel')
     names, device_us = device_kernels(lambda: mon.step(x), *step_kernels)
     print('step device kernels: ' + json.dumps(names))
     for k in step_kernels:
         require(any(k in n for n in names), f'profiler shows no {k} in the step')
     old_ola = [n for n in names if OLA_GENERIC_KERNEL in n]
     require(not old_ola, f'the radix-2 OLA kernel ran in the step: {old_ola}')
+    require_stats_kernel(names, 'the step')
     bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
     require(not bad, f'library FFT / GEMM kernels in the step: {bad}')
 
@@ -1603,6 +1756,14 @@ def main() -> int:
             row['f64_rel_rms'] = ola64
             row['generic_f64_rel_rms'] = ola64_generic
             print(f'fused_ola: radix-2 kernel {row["generic_ms"]:.4f} ms on {smi}')
+        if kname == 'chan_stats':
+            row['generic_ms'] = timed_ms(lambda: _chan_stats_generic(y, **mon.chan_kwargs))
+            row['f64_rel_rms'] = chan64
+            row['generic_f64_rel_rms'] = chan64_generic
+            row['profiled_device_ms'] = sum(
+                us for k, us in device_us.items() if STATS_REG_KERNEL in k or 'chan_fold' in k) / 1e3
+            print(f'chan_stats: radix-2 kernel {row["generic_ms"]:.4f} ms; '
+                  f'{row["profiled_device_ms"]:.4f} ms of device time in the profiled step, on {smi}')
         rows.append(row)
         print(f'{kname}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
               f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms) on {smi}')

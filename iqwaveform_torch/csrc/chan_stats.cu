@@ -34,7 +34,8 @@
 // channel sums, so y is read from device memory once, plus a second read of
 // the same frame for the binned power that L1/L2 serve. This simple version
 // pays one barrier per radix-2 stage; in the channel-only mode at 16384
-// points chan_power_reg_kernel below takes its place.
+// points chan_power_reg_kernel below takes its place, and in the PSD +
+// binned-power mode at 4096 points (the monitor step's) chan_stats_reg_kernel.
 #include <math.h>
 
 #include "fft.cuh"
@@ -199,8 +200,10 @@ cudaError_t allow_modes(int max_smem) {
 // above (chan_stats_pallas.py chan_stats_pallas with emit_psd=False,
 // emit_pbin=False, the mode channelize_power takes), with the same
 // contract, at nfft = 16384 (BASELINE config #4's 64 channels of 256
-// points). Every other size and mode keeps chan_stats_kernel; the host
-// route (ops/kernels/chan_stats.py chan_route) picks before the launch.
+// points). The PSD + binned-power mode at 4096 points takes
+// chan_stats_reg_kernel below, every other size and mode chan_stats_kernel;
+// the host route (ops/kernels/chan_stats.py chan_route) picks before the
+// launch.
 //
 // Per frame f of row b (block f, blockIdx.y = b): pass 0 of the forward
 // 16384-point plan of csrc/fft_reg.cuh (16.16.16.4) loads y[b, f * 16384
@@ -273,6 +276,189 @@ constexpr size_t kRegSmem =
     static_cast<size_t>(iqt::reg::padded_size(kRegN) + iqt::reg::table_total<kRegN>()) *
     sizeof(float2);
 
+// ---- the PSD + binned-power mode at 4096 points ---------------------------
+//
+// Replaces the same TPU kernel as chan_stats_kernel<4, true, true> above
+// (chan_stats_pallas.py chan_stats_packed_pallas, the mode the monitor
+// step takes), with the same contract, at nfft = 4096 (the flagship
+// design's 16 channels of 256 points, and the blackman design's) with
+// navg in {1, 2, 4, 8, 16}. Every other size and mode keeps the kernels
+// above; the host route (ops/kernels/chan_stats.py chan_route) picks
+// before the launch.
+//
+// A block of 256 threads walks a run of frames of one row (blockIdx.y),
+// one frame at a time, through the three radix-16 passes of csrc/
+// fft_reg.cuh's 16.16.16 plan (Stockham passes, one butterfly a thread a
+// pass, twiddles from the 720-entry forward table of ops/kernels/
+// fused_ola.py reg_forward_twiddles, copied into shared memory once per
+// block), with four block barriers a frame:
+// - pass 0 loads y[t + 256 r] (r < 16) times the window, coalesced,
+//   straight from device memory, and keeps |y|^2 of those 16 samples; the
+//   navg samples of one detector bin sit in navg adjacent lanes at one r,
+//   so the transposing shuffle of fft_reg.cuh bin_power writes the binned
+//   power with no second read of the frame;
+// - the last pass leaves thread t bins t + 256 r, the same 16 bins every
+//   frame, so the running sums of ln(|Y|^2 + 1e-25) stay in the thread's
+//   registers across the run and the maxima in its slots of shared memory
+//   (slot-major, conflict-free: 32 statistics a lane beside a 16-point
+//   butterfly would not fit 128 registers); it also stores |Y|^2 to a
+//   float buffer of its own, in natural bin order;
+// - after a barrier each warp sums the `abins` kept bins of its channels
+//   from skip_half + c * abins (lane i takes bins i, i + 32, ..., then a
+//   shuffle tree: a fixed order) and writes chp[b, f, c]; the next
+//   frame's passes write that buffer only after two more barriers.
+// At the end the block writes its per-bin partials, and chan_fold_kernel
+// folds them over blocks in a fixed order (no float atomics).
+//
+// What held chan_stats_kernel<4, true, true> back, and what this one does
+// about it: 16 frames a block made 128 blocks of 1024 threads, less than
+// a wave (here runs of about 8 frames make a wave of two blocks an SM);
+// twelve radix-2 stages a frame, each a block barrier and a shared-memory
+// round trip with twiddles gathered from device memory (here three
+// register-resident radix-16 passes and four barriers); a bit-reversed
+// scatter of the windowed frame (here pass 0 reads it in natural order);
+// a second, serial read of the frame for the binned power (here shuffles
+// of the samples pass 0 holds). Each frame is still one read of y; the
+// partials add 8 bytes a bin a block (8 MiB at the flagship's 256 blocks,
+// mostly served from L2 to the fold).
+constexpr int kStN = 4096;
+constexpr int kStT = 256;     // threads of a block: one butterfly each a pass
+constexpr int kStBins = 16;   // bins of one thread
+// float2 units: the exchange buffer, the table, then as floats |Y|^2 of
+// the frame (kStN) and the maxima (kStBins x kStT)
+constexpr int kStTable = iqt::reg::padded_size(kStN);
+constexpr int kStSpg = kStTable + iqt::reg::table_total<kStN>();
+constexpr size_t kStSmem =
+    static_cast<size_t>(kStSpg) * sizeof(float2) + (kStN + kStBins * kStT) * sizeof(float);
+static_assert(kStN / 16 == kStT, "one butterfly a thread in every pass");
+
+template <int NAVG>
+__global__ void __launch_bounds__(kStT, 2)
+chan_stats_reg_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
+                      const float2* __restrict__ tw, float* __restrict__ part_log,
+                      float* __restrict__ part_max, float* __restrict__ chp,
+                      float* __restrict__ pbin, long long row_len, int n_frames,
+                      int channel_count, int abins, int skip_half, int frames_per_block) {
+  namespace R = iqt::reg;
+  constexpr int N = kStN;
+  constexpr int T = kStT;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* tws = smem + kStTable;
+  float* sp = reinterpret_cast<float*>(smem + kStSpg);
+  // slot q of this thread's maxima: mx[q T] (bin t + 256 q)
+  float* mx = sp + N + threadIdx.x;
+  const int t = threadIdx.x;
+  // pass 0 reads no table; the barrier after it orders these stores
+  // before the first table read
+  for (int e = t; e < R::table_total<N>(); e += T) tws[e] = __ldg(&tw[e]);
+  const auto sync = [] { __syncthreads(); };
+
+  float ls[kStBins];
+#pragma unroll
+  for (int q = 0; q < kStBins; ++q) {
+    ls[q] = 0.f;
+    mx[q * T] = -INFINITY;
+  }
+
+  const int row = blockIdx.y;
+  const float2* yr = y + row * row_len;
+  float* pr = pbin + static_cast<long long>(row) * n_frames * (N / NAVG);
+  float* cr = chp + static_cast<long long>(row) * n_frames * channel_count;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int f0 = blockIdx.x * frames_per_block;
+  const int f1 = min(f0 + frames_per_block, n_frames);
+  for (int f = f0; f < f1; ++f) {
+    const float2* fr = yr + static_cast<long long>(f) * N;
+    float pw[kStBins];
+    R::pass_lane<N, 0, false, T, false>(
+        t, tws,
+        [&](int slot, int i) {
+          const float2 v = fr[i];
+          pw[slot] = v.x * v.x + v.y * v.y;
+          return iqt::cmul(v, __ldg(&w[i]));
+        },
+        [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
+    R::bin_power<NAVG, T>(pw, t, pr + static_cast<long long>(f) * (N / NAVG));
+    __syncthreads();
+    R::pass_lane<N, 1, false, T, true>(
+        t, tws, [buf](int, int i) { return buf[R::pad(i)]; },
+        [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
+    __syncthreads();
+    R::pass_lane<N, 2, false, T, false>(
+        t, tws, [buf](int, int i) { return buf[R::pad(i)]; },
+        [&](int slot, int k, float2 v) {
+          const float p = v.x * v.x + v.y * v.y;
+          ls[slot] += logf(p + kEps);
+          mx[slot * T] = fmaxf(mx[slot * T], p);
+          sp[k] = p;
+        },
+        sync);
+    __syncthreads();
+    float* cf = cr + static_cast<long long>(f) * channel_count;
+    for (int c = warp; c < channel_count; c += T / 32) {
+      const float* cb = sp + skip_half + c * abins;
+      float s = 0.f;
+      for (int i = lane; i < abins; i += 32) s += cb[i];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+      if (lane == 0) cf[c] = s;
+    }
+  }
+
+  const long long base = (static_cast<long long>(row) * gridDim.x + blockIdx.x) * N;
+#pragma unroll
+  for (int q = 0; q < kStBins; ++q) {
+    part_log[base + t + q * T] = ls[q];
+    part_max[base + t + q * T] = mx[q * T];
+  }
+}
+
+// psd_log_sum / psd_max per (row, bin) from chan_stats_reg_kernel's
+// partials, in a fixed order: a block of 32 warps owns 32 bins (one a
+// lane); warp w folds partials w, w + 32, ..., and warp 0 then folds the
+// 32 warps' results in warp order
+constexpr int kFoldWarps = 32;
+
+__global__ void __launch_bounds__(kFoldWarps * 32)
+chan_fold_kernel(const float* __restrict__ part_log, const float* __restrict__ part_max,
+                 float* __restrict__ log_sum, float* __restrict__ max_out, int n_blocks,
+                 int nfft) {
+  __shared__ float ws[kFoldWarps][32], wx[kFoldWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * 32 + lane;  // nfft is a multiple of 32
+  const long long row = blockIdx.y;
+  float s = 0.f;
+  float m = -INFINITY;
+  for (int b = warp; b < n_blocks; b += kFoldWarps) {
+    const long long i = (row * n_blocks + b) * nfft + k;
+    s += part_log[i];
+    m = fmaxf(m, part_max[i]);
+  }
+  ws[warp][lane] = s;
+  wx[warp][lane] = m;
+  __syncthreads();
+  if (warp != 0) return;
+  s = 0.f;
+  m = -INFINITY;
+  for (int v = 0; v < kFoldWarps; ++v) {
+    s += ws[v][lane];
+    m = fmaxf(m, wx[v][lane]);
+  }
+  log_sum[row * nfft + k] = s;
+  max_out[row * nfft + k] = m;
+}
+
+cudaError_t allow_stats_reg() {
+  cudaError_t err;
+  if ((err = iqt::allow_smem(chan_stats_reg_kernel<1>, kStSmem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_reg_kernel<2>, kStSmem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_reg_kernel<4>, kStSmem))) return err;
+  if ((err = iqt::allow_smem(chan_stats_reg_kernel<8>, kStSmem))) return err;
+  return iqt::allow_smem(chan_stats_reg_kernel<16>, kStSmem);
+}
+
 }  // namespace
 
 // once per device, before the first launch: allow up to `max_smem` bytes
@@ -284,6 +470,7 @@ extern "C" int iqt_chan_stats_prepare(int max_smem) {
   if ((err = allow_modes<4>(max_smem))) return err;
   if ((err = allow_modes<8>(max_smem))) return err;
   if ((err = allow_modes<16>(max_smem))) return err;
+  if ((err = allow_stats_reg())) return err;
   return iqt::allow_smem(chan_power_reg_kernel<kRegN, kRegThreads>, kRegSmem);
 }
 
@@ -300,6 +487,47 @@ extern "C" int iqt_chan_power_reg(const void* y, const void* w, const void* tw, 
           static_cast<const float2*>(y), static_cast<const float2*>(w),
           static_cast<const float2*>(tw), static_cast<float*>(chp), row_len, n_frames,
           channel_count, abins, skip_half);
+  return cudaGetLastError();
+}
+
+// the PSD + binned-power mode at nfft = 4096, by chan_stats_reg_kernel
+// and chan_fold_kernel: arguments as for iqt_chan_stats below (both
+// outputs on), with tw the n_tw entries of 4096's forward tables
+// (ops/kernels/fused_ola.py reg_forward_twiddles) and navg in {1, 2, 4, 8,
+// 16}. Another nfft, navg or table length: cudaErrorInvalidValue.
+extern "C" int iqt_chan_stats_reg(const void* y, const void* w, const void* tw, void* part_log,
+                                  void* part_max, void* log_sum, void* max_out, void* chp,
+                                  void* pbin, int n_tw, int batch, int row_len, int n_frames,
+                                  int nfft, int navg, int channel_count, int abins,
+                                  int skip_half, int frames_per_block, int n_blocks,
+                                  void* stream) {
+  if (nfft != kStN || n_tw != iqt::reg::table_total<kStN>()) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pl = static_cast<float*>(part_log);
+  auto pm = static_cast<float*>(part_max);
+  const dim3 grid(n_blocks, batch);
+#define IQT_ST(A)                                                                           \
+  case A:                                                                                   \
+    chan_stats_reg_kernel<A><<<grid, kStT, kStSmem, s>>>(                                   \
+        static_cast<const float2*>(y), static_cast<const float2*>(w),                      \
+        static_cast<const float2*>(tw), pl, pm, static_cast<float*>(chp),                  \
+        static_cast<float*>(pbin), row_len, n_frames, channel_count, abins, skip_half,     \
+        frames_per_block);                                                                  \
+    break;
+  switch (navg) {
+    IQT_ST(1)
+    IQT_ST(2)
+    IQT_ST(4)
+    IQT_ST(8)
+    IQT_ST(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef IQT_ST
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  chan_fold_kernel<<<dim3(kStN / 32, batch), kFoldWarps * 32, 0, s>>>(
+      pl, pm, static_cast<float*>(log_sum), static_cast<float*>(max_out), n_blocks, kStN);
   return cudaGetLastError();
 }
 

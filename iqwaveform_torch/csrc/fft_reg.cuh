@@ -36,7 +36,8 @@
 //
 // Sizes and plans (tests/test_torch_fft_reg.py holds a numpy model of
 // them against np.fft): 16384 = 16.16.16.4, 12288 = 16.16.16.3,
-// 8192 = 16.16.16.2, 6144 = 16.16.8.3, 1024 = 16.16.4 (forward only).
+// 8192 = 16.16.16.2, 6144 = 16.16.8.3, 4096 = 16.16.16 and 1024 = 16.16.4
+// (forward only).
 #pragma once
 
 #include "fft.cuh"
@@ -65,6 +66,11 @@ template <>
 struct Plan<6144> {
   static constexpr int stages = 4;
   __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : (s == 2 ? 8 : 3); }
+};
+template <>
+struct Plan<4096> {
+  static constexpr int stages = 3;
+  __host__ __device__ static constexpr int radix(int) { return 16; }
 };
 template <>
 struct Plan<1024> {
@@ -269,6 +275,42 @@ __device__ __forceinline__ void fft(float2* buf, const float2* tw, First first, 
   __syncthreads();
   middle_passes<N, 1, INV, T>(buf, tw);
   pass<N, Plan<N>::stages - 1, INV, T, true>(tw, [buf](int i) { return buf[pad(i)]; }, last);
+}
+
+// The detector-binned power of one frame from pass 0 of a plan whose
+// first radix is 16, run by T lanes: pw[r] = |x|^2 of sample lane + T r
+// (r < 16). The NAVG samples of one detector bin sit in NAVG adjacent
+// lanes at one r, so a transposing shuffle reduction bins them with no
+// second read of the frame: each of log2(NAVG) steps halves the sums a
+// lane holds and exchanges the other half with the lane `o` away (16 -
+// 16 / NAVG shuffles a lane); lane l then holds the sums of r = (l mod
+// NAVG) * 16 / NAVG + j, which it writes as means at out[(lane + T r) /
+// NAVG]. NAVG is a power of two up to 16, so every partner is in the
+// same warp.
+template <int NAVG, int T>
+__device__ __forceinline__ void bin_power(const float (&pw)[16], int lane, float* out) {
+  static_assert(NAVG >= 1 && NAVG <= 16 && (NAVG & (NAVG - 1)) == 0, "NAVG in 1, 2, 4, 8, 16");
+  constexpr int kSteps = NAVG >= 16 ? 4 : NAVG >= 8 ? 3 : NAVG >= 4 ? 2 : NAVG >= 2 ? 1 : 0;
+  constexpr int kKept = 16 / NAVG;
+  float v[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) v[r] = pw[r];
+#pragma unroll
+  for (int step = 0; step < kSteps; ++step) {
+    const int o = (NAVG / 2) >> step;
+    const int n = 8 >> step;
+    const bool hi = (lane & o) != 0;
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      const float send = hi ? v[j] : v[j + n];
+      const float keep = hi ? v[j + n] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  const int r0 = (lane & (NAVG - 1)) * kKept;
+#pragma unroll
+  for (int j = 0; j < kKept; ++j)
+    out[lane / NAVG + (T / NAVG) * (r0 + j)] = v[j] / static_cast<float>(NAVG);
 }
 
 }  // namespace reg

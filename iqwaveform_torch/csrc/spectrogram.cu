@@ -227,36 +227,6 @@ constexpr size_t kLvSmem =
     static_cast<size_t>(kLvExtremes + kLvGroups * kLvBins * kLvT) * sizeof(float2);
 static_assert(kLvBins * kLvT <= 2 * kLvTable, "the groups' sums fold through the exchange buffers");
 
-// the detector-binned power of one frame from the |x|^2 of samples lane +
-// 64 r (r < 16): the means over NAVG consecutive samples, at out[(lane +
-// 64 r) / NAVG]. Each step of the reduction halves the sums a lane holds
-// and exchanges the other half with the lane `o` away; after log2(NAVG)
-// steps lane l holds the bins of r = (l mod NAVG) * 16 / NAVG + j.
-template <int NAVG>
-__device__ __forceinline__ void bin_power(const float (&pw)[kLvBins], int lane, float* out) {
-  constexpr int kSteps = NAVG >= 16 ? 4 : NAVG >= 8 ? 3 : NAVG >= 4 ? 2 : NAVG >= 2 ? 1 : 0;
-  constexpr int kKept = kLvBins / NAVG;
-  float v[kLvBins];
-#pragma unroll
-  for (int r = 0; r < kLvBins; ++r) v[r] = pw[r];
-#pragma unroll
-  for (int step = 0; step < kSteps; ++step) {
-    const int o = (NAVG / 2) >> step;
-    const int n = (kLvBins / 2) >> step;
-    const bool hi = (lane & o) != 0;
-#pragma unroll
-    for (int j = 0; j < n; ++j) {
-      const float send = hi ? v[j] : v[j + n];
-      const float keep = hi ? v[j + n] : v[j];
-      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-  const int r0 = (lane & (NAVG - 1)) * kKept;
-#pragma unroll
-  for (int j = 0; j < kKept; ++j)
-    out[lane / NAVG + (kLvT / NAVG) * (r0 + j)] = v[j] / static_cast<float>(NAVG);
-}
-
 template <int MODE, int NAVG>
 __global__ void __launch_bounds__(kLvThreads, 2)
 spectrogram_levels_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -304,7 +274,8 @@ spectrogram_levels_reg_kernel(const float* __restrict__ xr, const float* __restr
           return iqt::cmul(make_float2(a, b), __ldg(&w[i]));
         },
         [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
-    if constexpr (NAVG > 0) bin_power<NAVG>(pw, lane, pbin + static_cast<long long>(f) * (N / NAVG));
+    if constexpr (NAVG > 0)
+      R::bin_power<NAVG, T>(pw, lane, pbin + static_cast<long long>(f) * (N / NAVG));
     sync();
     R::pass_lane<N, 1, false, T, true>(
         lane, tws, [buf](int, int i) { return buf[R::pad(i)]; },

@@ -81,6 +81,7 @@ SIGNATURES = {
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),
+    'iqt_chan_stats_reg': ([_P] * 9 + [_I] * 11 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
     'iqt_spectrogram_prepare': ([_I], _I),
@@ -88,6 +89,7 @@ SIGNATURES = {
     'iqt_spectrogram_levels_reg': ([_P] * 10 + [_I] * 9 + [_F] * 2 + [_P], _I),
     'iqt_colhist_prepare': ([_I], _I),
     'iqt_colhist': ([_P] * 2 + [_I] * 7 + [_F] * 2 + [_P], _I),
+    'iqt_colhist_reg': ([_P] * 2 + [_I] * 6 + [_F] * 2 + [_P], _I),
     'iqt_upfirdn_prepare': ([_I], _I),
     'iqt_upfirdn': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 13 + [_P], _I),
     'iqt_upfirdn_reg': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 14 + [_P], _I),

@@ -14,7 +14,9 @@ With ``emit_psd=False, emit_pbin=False`` (the arguments of
 is computed: the channel-only mode that ``channelize_power`` takes
 (iqwaveform_tpu/ops/spectral.py:708-801). In that mode at nfft_big =
 16384 (BASELINE config #4) :func:`chan_stats` launches
-``chan_power_reg_kernel``, on the register-resident passes of
+``chan_power_reg_kernel``, and with both outputs on at nfft_big = 4096
+and navg in {1, 2, 4, 8, 16} (the monitor step's designs)
+``chan_stats_reg_kernel``, both on the register-resident passes of
 ``csrc/fft_reg.cuh``; every other size and mode takes the radix-2
 ``chan_stats_kernel`` (:func:`chan_route` picks, before the launch).
 
@@ -42,6 +44,12 @@ MAX_CUDA_FFT = 16384
 FRAMES_PER_BLOCK = 16
 # the frame size chan_power_reg_kernel is compiled for
 REG_NFFT = 16384
+# chan_stats_reg_kernel: its frame size, the navg it bins power by, its
+# threads per block and the blocks per SM its grid is sized for
+STATS_REG_NFFT = 4096
+STATS_REG_NAVG = (1, 2, 4, 8, 16)
+STATS_REG_THREADS = 256
+STATS_REG_BLOCKS_PER_SM = 2
 
 
 def chan_stats_plain(
@@ -84,12 +92,28 @@ def covers(nfft_big: int, navg: int = 1) -> bool:
     return 64 <= nfft_big <= MAX_CUDA_FFT and _build.log2_exact(nfft_big) > 0 and nfft_big % navg == 0
 
 
-def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True) -> str:
+def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True,
+               navg: int = 1) -> str:
     """the kernel :func:`chan_stats` launches for frames it covers:
-    ``'reg'`` (``chan_power_reg_kernel``) in the channel-only mode at
-    nfft_big = :data:`REG_NFFT`, ``'generic'`` (``chan_stats_kernel``) at
+    ``'reg'`` in the channel-only mode at nfft_big = :data:`REG_NFFT`
+    (``chan_power_reg_kernel``) and with both outputs on at nfft_big =
+    :data:`STATS_REG_NFFT` and navg in :data:`STATS_REG_NAVG`
+    (``chan_stats_reg_kernel``), ``'generic'`` (``chan_stats_kernel``) at
     every other size or mode."""
-    return 'reg' if nfft_big == REG_NFFT and not emit_psd and not emit_pbin else 'generic'
+    if nfft_big == REG_NFFT and not emit_psd and not emit_pbin:
+        return 'reg'
+    if nfft_big == STATS_REG_NFFT and emit_psd and emit_pbin and navg in STATS_REG_NAVG:
+        return 'reg'
+    return 'generic'
+
+
+def _stats_reg_grid(n_frames: int, batch: int, sms: int) -> tuple:
+    """(frames per block, blocks per row) of ``chan_stats_reg_kernel``:
+    runs of frames that make one wave of STATS_REG_BLOCKS_PER_SM blocks on
+    each of ``sms`` SMs over the ``batch`` rows."""
+    rows_blocks = max(1, -(-STATS_REG_BLOCKS_PER_SM * sms // batch))
+    frames_per_block = -(-n_frames // rows_blocks)
+    return frames_per_block, -(-n_frames // frames_per_block)
 
 
 def chan_stats(
@@ -132,7 +156,7 @@ def chan_stats(
     if y.device.type != 'cuda':
         raise ValueError(f'chan_stats runs on cpu or cuda tensors, not {y.device}')
     return _launch(
-        y, chan_route(nfft_big, emit_psd, emit_pbin), nfft_big=nfft_big,
+        y, chan_route(nfft_big, emit_psd, emit_pbin, navg), nfft_big=nfft_big,
         channel_count=channel_count, window=window, navg=navg, skip_bins=skip_bins,
         emit_psd=emit_psd, emit_pbin=emit_pbin,
     )
@@ -140,9 +164,10 @@ def chan_stats(
 
 def _chan_stats_generic(y: torch.Tensor, **kw) -> dict:
     """:func:`chan_stats` on a CUDA tensor through the radix-2
-    ``chan_stats_kernel`` in any mode, the channel-only mode at 16384
-    too: the yardstick of ``chan_power_reg_kernel`` in chip_smoke.py and
-    the card tests, never a route of the port."""
+    ``chan_stats_kernel`` in any mode, at the register-resident kernels'
+    sizes too: the yardstick of ``chan_power_reg_kernel`` and
+    ``chan_stats_reg_kernel`` in chip_smoke.py and the card tests, never
+    a route of the port."""
     return _launch(y, 'generic', **kw)
 
 
@@ -189,12 +214,26 @@ def _launch(
     f32 = dict(dtype=torch.float32, device=dev)
     out = {'channel_power': torch.empty((batch, n_frames, channel_count), **f32)}
     _build.prepare('iqt_chan_stats_prepare', dev)
-    if route == 'reg':
+    if route == 'reg' and not emit_psd:
         tw = reg_forward_twiddles(nfft_big, dev)
         err = _build.library().iqt_chan_power_reg(
             y.data_ptr(), window.data_ptr(), tw.data_ptr(), out['channel_power'].data_ptr(),
             tw.numel(), batch, row_len, n_frames, nfft_big, channel_count, abins,
             skip_bins // 2, _build.stream_of(y),
+        )
+    elif route == 'reg':
+        frames_per_block, n_blocks = _stats_reg_grid(n_frames, batch, _build.sm_count(dev))
+        tw = reg_forward_twiddles(nfft_big, dev)
+        part = torch.empty((2, batch, n_blocks, nfft_big), **f32)
+        for key in ('psd_log_sum', 'psd_max'):
+            out[key] = torch.empty((batch, nfft_big), **f32)
+        out['p_binned'] = torch.empty((batch, n_bin), **f32)
+        err = _build.library().iqt_chan_stats_reg(
+            y.data_ptr(), window.data_ptr(), tw.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), out['psd_log_sum'].data_ptr(), out['psd_max'].data_ptr(),
+            out['channel_power'].data_ptr(), out['p_binned'].data_ptr(), tw.numel(), batch,
+            row_len, n_frames, nfft_big, navg, channel_count, abins, skip_bins // 2,
+            frames_per_block, n_blocks, _build.stream_of(y),
         )
     else:
         frames_per_block = FRAMES_PER_BLOCK
@@ -238,6 +277,6 @@ def _launch(
 
 
 chan_stats.launches = 0
-# launches by kernel: 'reg' (chan_power_reg_kernel), 'generic'
-# (chan_stats_kernel)
+# launches by kernel: 'reg' (chan_power_reg_kernel or
+# chan_stats_reg_kernel), 'generic' (chan_stats_kernel)
 chan_stats.route_launches = {'reg': 0, 'generic': 0}

@@ -7,8 +7,11 @@ readout ``unpack_packed_counts``) and ``columnwise_histogram_pallas`` /
 :414, :106, :462, :508): hist[c, b] += #{t : level(vals[t, c]) == b}, for
 int32 levels or for float32 values under uniform edges (``csrc/colhist.cu``:
 shared-memory counters per column slice, integer atomics, so the counts are
-exact). What bounds it on the card and what its design does about that are
-set out at the head of the CUDA source.
+exact). Wherever 32 columns of 16-bit counters fit a block (n_bins up to
+about 3600) it launches ``colhist_reg_kernel``, whose counters sit one
+column a bank, else the older ``colhist_kernel`` (:func:`colhist_route`
+picks, before the launch). What bounds each on the card and what its design
+does about that are set out in the CUDA source.
 
 The TPU kernels count into float32 raw tiles (an MXU workaround) that a
 readout unpacks; the port counts straight into the int32 table. The numpy
@@ -33,6 +36,7 @@ from . import _build
 __all__ = [
     'colhist',
     'colhist_plain',
+    'colhist_route',
     'packed_plan',
     'quantize_uniform',
     'uniform_quant',
@@ -44,6 +48,11 @@ _THREADS = 512  # csrc/colhist.cu kThreads
 _MAX_COLS = 32  # columns per block
 _SMEM_TARGET = 64 * 1024  # counters per block, so that three blocks share an SM
 _MIN_ROWS = 256  # rows per block, so that the global adds stay a small share
+# colhist_reg_kernel: columns and threads of a block (one block an SM),
+# and the most rows of a block (its 16-bit counters hold at most 65535)
+REG_COLS = 32
+REG_THREADS = 1024
+REG_MAX_ROWS = 65535
 
 
 def uniform_quant(edges) -> tuple:
@@ -90,6 +99,31 @@ def _layout(n_rows: int, n_cols: int, n_bins: int, device) -> tuple:
     return cols, rows, -(-n_rows // rows)
 
 
+def _reg_smem(n_bins: int) -> int:
+    """colhist_reg_kernel's shared memory: REG_COLS words of two 16-bit
+    counters for each of ceil(n_bins / 2) levels."""
+    return 4 * REG_COLS * (-(-n_bins // 2))
+
+
+def colhist_route(n_bins: int, smem: int) -> str:
+    """the kernel :func:`colhist` launches for a table of ``n_bins``
+    levels on a device whose blocks opt in to ``smem`` bytes of shared
+    memory: ``'reg'`` (``colhist_reg_kernel``) where its 32 columns of
+    16-bit counters fit, else ``'generic'`` (``colhist_kernel``)."""
+    return 'reg' if _reg_smem(n_bins) <= smem else 'generic'
+
+
+def _reg_layout(n_rows: int, n_cols: int, sms: int) -> tuple:
+    """(rows per block, row blocks) of colhist_reg_kernel: as few row runs
+    as give the grid of ceil(n_cols / 32) column blocks one block on each
+    of ``sms`` SMs without a second wave (each run adds its counters into
+    the table with global atomics), none longer than REG_MAX_ROWS."""
+    col_blocks = -(-n_cols // REG_COLS)
+    row_blocks = max(sms // col_blocks, -(-n_rows // REG_MAX_ROWS), 1)
+    rows = -(-n_rows // min(row_blocks, n_rows))
+    return rows, -(-n_rows // rows)
+
+
 def colhist(
     vals: torch.Tensor, hist: torch.Tensor, *, lo: float = None, scale: float = None
 ) -> torch.Tensor:
@@ -129,19 +163,48 @@ def colhist(
         raise ValueError('colhist takes calls below 2**31 values and table cells')
     if n_rows == 0 or n_cols == 0:
         return hist
-    cols, rows, row_blocks = _layout(n_rows, n_cols, n_bins, dev)
+    return _launch(vals, hist, colhist_route(n_bins, _build.smem_optin(dev)), lo, scale)
+
+
+def _colhist_generic(vals: torch.Tensor, hist: torch.Tensor, *, lo: float = None,
+                     scale: float = None) -> torch.Tensor:
+    """:func:`colhist` on CUDA tensors through the older
+    ``colhist_kernel``, wherever the new kernel fits too: its yardstick in
+    chip_smoke.py and the card tests, never a route of the port."""
+    return _launch(vals, hist, 'generic', lo, scale)
+
+
+def _launch(vals, hist, route: str, lo, scale):
+    """launch ``route``'s kernel ('reg' or 'generic') on CUDA ``vals``
+    (checked by :func:`colhist`); counts the launch in ``colhist.launches``
+    and ``colhist.route_launches[route]``."""
+    dev = vals.device
+    n_rows, n_cols = vals.shape
+    n_bins = hist.shape[1]
+    is_float = vals.dtype == torch.float32
     _build.prepare('iqt_colhist_prepare', dev)
-    err = _build.library().iqt_colhist(
-        vals.data_ptr(), hist.data_ptr(), n_rows, n_cols, n_bins, int(is_float),
-        cols, rows, row_blocks, float(lo or 0.0), float(scale or 1.0),
-        _build.stream_of(vals),
-    )
-    _build.check(err, 'colhist')
+    if route == 'reg':
+        rows, row_blocks = _reg_layout(n_rows, n_cols, _build.sm_count(dev))
+        err = _build.library().iqt_colhist_reg(
+            vals.data_ptr(), hist.data_ptr(), n_rows, n_cols, n_bins, int(is_float), rows,
+            row_blocks, float(lo or 0.0), float(scale or 1.0), _build.stream_of(vals),
+        )
+    else:
+        cols, rows, row_blocks = _layout(n_rows, n_cols, n_bins, dev)
+        err = _build.library().iqt_colhist(
+            vals.data_ptr(), hist.data_ptr(), n_rows, n_cols, n_bins, int(is_float),
+            cols, rows, row_blocks, float(lo or 0.0), float(scale or 1.0),
+            _build.stream_of(vals),
+        )
+    _build.check(err, f'colhist ({route} kernel)')
     colhist.launches += 1
+    colhist.route_launches[route] += 1
     return hist
 
 
 colhist.launches = 0
+# launches by kernel: 'reg' (colhist_reg_kernel), 'generic' (colhist_kernel)
+colhist.route_launches = {'reg': 0, 'generic': 0}
 
 
 # ---- host readout of the JAX package's raw-tile layout (numpy copies of

@@ -68,7 +68,8 @@ MAX_CUDA_FFT = 16384
 _FRAMES_THREADS = 1024
 _FRAMES_MAX_BINS_PER_THREAD = 32
 # the (nfft, nfft_out) pairs fused_ola_frames_reg_kernel is compiled for,
-# the passes of each size (csrc/fft_reg.cuh Plan; 1024 is the levels
+# the passes of each size (csrc/fft_reg.cuh Plan; 4096 is the channelizer
+# statistics kernel's, ops/kernels/chan_stats.py, 1024 the levels
 # kernel's, ops/kernels/spectrogram.py) and its threads per block
 REG_PAIRS = ((16384, 8192), (12288, 6144))
 REG_PLANS = {
@@ -76,6 +77,7 @@ REG_PLANS = {
     12288: (16, 16, 16, 3),
     8192: (16, 16, 16, 2),
     6144: (16, 16, 8, 3),
+    4096: (16, 16, 16),
     1024: (16, 16, 4),
 }
 REG_THREADS = 512
@@ -187,10 +189,10 @@ def reg_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor
 
 @functools.lru_cache(maxsize=None)
 def reg_forward_twiddles(nfft: int, device: torch.device) -> torch.Tensor:
-    """the forward tables of ``nfft`` alone (the channel-only channelizer
-    at 16384 and the levels kernel at 1024 run no inverse): at a size that
-    starts a pair of :data:`REG_PAIRS`, a view of the first entries of
-    :func:`reg_twiddles`, with no copy; at any other size of
+    """the forward tables of ``nfft`` alone (the channelizer kernels at
+    16384 and 4096 and the levels kernel at 1024 run no inverse): at a
+    size that starts a pair of :data:`REG_PAIRS`, a view of the first
+    entries of :func:`reg_twiddles`, with no copy; at any other size of
     :data:`REG_PLANS`, its own table, float64 on the host rounded once to
     complex64."""
     forward = _reg_pass_tables(nfft, False)

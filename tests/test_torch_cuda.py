@@ -28,12 +28,13 @@ register-resident 2:1 OLA and channel-only kernels at 16384 points: within
 1e-5 relative RMS of their plain versions and of the radix-2 kernels they
 replace there, and their error against complex128 at most twice the
 radix-2 kernels' (a product of two rounded table twiddles against one).
-The register-windowed upfirdn kernel and the register-resident levels
-kernel at nfft 1024: the gates above against their plain versions and
-against the older kernels they replace there, and their error against
-float64 at most twice those kernels' (the same float32 sums in another
-order; for the levels kernel the RMS over bins of the dB error of mean and
-max).
+The register-windowed upfirdn kernel, the register-resident levels
+kernel at nfft 1024 and the channelizer statistics kernel at 4096: the
+gates above against their plain versions and against the older kernels
+they replace there, and their error against float64 at most twice those
+kernels' (the same float32 sums in another order; for the levels kernel
+the RMS over bins of the dB error of mean and max). The column-pair
+counter: counts equal to bincount's and the older counter's.
 """
 
 import sys
@@ -48,7 +49,7 @@ from iqwaveform_torch import ofdm
 from iqwaveform_torch.ops import kernels, spectral
 from iqwaveform_torch.ops.kernels import _build
 from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic, chan_route
-from iqwaveform_torch.ops.kernels.colhist import uniform_quant
+from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route, uniform_quant
 from iqwaveform_torch.ops.kernels.fused_ola import (
     _fused_ola_frames_generic,
     _fused_ola_generic,
@@ -121,9 +122,9 @@ def test_step_launches_each_kernel_and_matches_plain_step(monitor):
     out = monitor.step(x)
     assert [k.launches for k in kernels.KERNELS] == [1, 1, 1] + [0] * (len(kernels.KERNELS) - 3)
     # the 2:1 OLA at 16384 -> 8192 through fused_ola_reg_kernel; the
-    # 4096-point PSD + PBIN channelizer through chan_stats_kernel
+    # 4096-point PSD + PBIN channelizer through chan_stats_reg_kernel
     assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 0}
-    assert kernels.chan_stats.route_launches == {'reg': 0, 'generic': 1}
+    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
     ref = monitor.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -202,6 +203,62 @@ def test_chan_power_register_kernel_matches_plain_and_generic(card, channels):
     assert rel_rms(got, ref64) <= 2 * rel_rms(generic, ref64)
     kernels.chan_stats(x, **dict(kw, emit_psd=True))
     assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 2}
+
+
+@pytest.mark.parametrize('navg,batch', [(16, None), (1, None), (4, 2)])
+def test_chan_stats_register_kernel_matches_plain_and_generic(monitor, navg, batch):
+    """chan_stats_reg_kernel at the flagship design (16 channels of 256,
+    4096 points) on rows of 300 frames and 77 samples that join no frame,
+    binned by navg 16 (the flagship), 1 (the blackman design) and 4 on two
+    rows: each output within 1e-5 of the plain version and of the radix-2
+    chan_stats_kernel, one launch each; its complex128 error at most twice
+    the radix-2 kernel's."""
+    kw = dict(monitor.chan_kwargs, navg=navg)
+    assert chan_route(4096, True, True, navg) == 'reg'
+    n = 300 * 4096 + 77
+    y = _noise((n,) if batch is None else (batch, n), 31 + navg)
+    _reset_routes()
+    got = kernels.chan_stats(y, **kw)
+    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
+    generic = _chan_stats_generic(y, **kw)
+    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 1}
+    ref = kernels.chan_stats_plain(y, **kw)
+    ref64 = kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw))
+    assert set(got) == set(ref)
+    for key in ref:
+        assert got[key].shape == generic[key].shape == ref[key].shape, key
+        assert rel_rms(got[key], ref[key]) <= 1e-5, key
+        assert rel_rms(got[key], generic[key]) <= 1e-5, key
+        assert rel_rms(got[key], ref64[key]) <= 2 * rel_rms(generic[key], ref64[key]), key
+
+
+@pytest.mark.parametrize('shape,n_bins', [((16384, 1024), 1024), ((3000, 70), 257),
+                                          ((70000, 32 * 132), 64)])
+def test_colhist_register_kernel_matches_plain_and_generic(card, shape, n_bins):
+    """colhist_reg_kernel on int levels: BASELINE config #3's chunk, a
+    ragged column block with odd bins, and 70,000 rows of as many column
+    blocks as an H100 has SMs, one column on one level, so that only the
+    65535-row cap keeps a 16-bit half from carrying; counts added to a
+    table of ones equal to bincount's and the older colhist_kernel's, one
+    launch each; out-of-range levels skipped."""
+    assert colhist_route(n_bins, _build.smem_optin(card)) == 'reg'
+    gen = torch.Generator(device='cuda').manual_seed(n_bins)
+    vals = (torch.randn(shape, device=card, generator=gen) * n_bins / 8 + n_bins / 2).round()
+    vals = vals.clamp(0, n_bins - 1).to(torch.int32)
+    vals[0, :2] = torch.tensor([-1, n_bins], dtype=torch.int32)
+    vals[1:, 5] = n_bins - 1
+    start = torch.ones((shape[1], n_bins), dtype=torch.int32, device=card)
+    k = kernels.colhist
+    k.route_launches.update(reg=0, generic=0)
+    got = k(vals, start.clone())
+    assert k.route_launches == {'reg': 1, 'generic': 0}
+    old = _colhist_generic(vals, start.clone())
+    assert k.route_launches == {'reg': 1, 'generic': 1}
+    ok = (vals >= 0) & (vals < n_bins)
+    flat = (vals.long() + torch.arange(shape[1], device=card) * n_bins)[ok]
+    want = torch.bincount(flat, minlength=shape[1] * n_bins).reshape(shape[1], n_bins) + 1
+    assert torch.equal(got.long(), want)
+    assert torch.equal(got, old)
 
 
 def test_wrappers_check_their_inputs(monitor):

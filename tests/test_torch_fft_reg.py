@@ -1,7 +1,8 @@
 """A numpy model of the register-resident kernels on csrc/fft_reg.cuh:
 the frame kernel (``fused_ola_frames_reg_kernel``), the 2:1 OLA kernel
 (``fused_ola_reg_kernel``, both csrc/fused_ola.cu), the channel-only
-channelizer (``chan_power_reg_kernel``, csrc/chan_stats.cu) and the
+channelizer (``chan_power_reg_kernel``), the channelizer statistics
+kernel (``chan_stats_reg_kernel``, both csrc/chan_stats.cu) and the
 persistence levels kernel (``spectrogram_levels_reg_kernel``,
 csrc/spectrogram.cu), held against np.fft and against the plain versions
 on the CPU, and the host routes that pick them.
@@ -14,10 +15,13 @@ shared-memory layout, the trim folded into the inverse's first load, and
 the last pass's scaled, windowed store; for the 2:1 kernel also the
 masked halo load past the row's end and the overlap-add cut at n_out; for
 the channelizer the |Y|^2 store over the exchange buffer and the warp sums
-of each channel's kept bins; for the levels kernel the 64-thread frame
-groups of a block, the windowed pass-0 load, the shuffle-binned detector
-power, each lane's 16 bins with their levels and statistics, and the fold
-of the groups and blocks. Tolerance: 1e-12 relative (float64 roundoff of
+of each channel's kept bins; for the statistics kernel the runs of
+frames of a block, the windowed pass-0 load, the shuffle-binned detector
+power, each thread's 16 bins with their sums of ln and maxima, and the
+fixed-order fold of the blocks' partials; for the levels kernel the
+64-thread frame groups of a block, the windowed pass-0 load, the
+shuffle-binned detector power, each lane's 16 bins with their levels and
+statistics, and the fold of the groups and blocks. Tolerance: 1e-12 relative (float64 roundoff of
 a few passes); levels exactly equal (both quantize in float32). The
 kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py phases 1-4, 8, 10 and 15).
@@ -29,7 +33,15 @@ import torch
 
 import iqwaveform_torch as it
 from iqwaveform_torch.ops import kernels, spectral
-from iqwaveform_torch.ops.kernels.chan_stats import REG_NFFT, chan_route
+from iqwaveform_torch.ops.kernels.chan_stats import (
+    REG_NFFT,
+    STATS_REG_BLOCKS_PER_SM,
+    STATS_REG_NAVG,
+    STATS_REG_NFFT,
+    STATS_REG_THREADS,
+    _stats_reg_grid,
+    chan_route,
+)
 from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
 from iqwaveform_torch.ops.kernels.fused_ola import (
     H100_SMEM_OPTIN,
@@ -115,8 +127,10 @@ def butterflies(nb, threads=REG_THREADS):
 
 def threads_of(n):
     """the threads that run one ``n``-point transform: a 64-thread frame
-    group of the levels kernel at 1024, a 512-thread block otherwise."""
-    return LEVELS_REG_THREADS if n == LEVELS_REG_NFFT else REG_THREADS
+    group of the levels kernel at 1024, the statistics kernel's 256-thread
+    block at 4096, a 512-thread block otherwise."""
+    return {LEVELS_REG_NFFT: LEVELS_REG_THREADS,
+            STATS_REG_NFFT: STATS_REG_THREADS}.get(n, REG_THREADS)
 
 
 def fft_model(n, inverse, first, last, buf):
@@ -252,11 +266,11 @@ def rel(got, ref):
 
 @pytest.mark.parametrize('n', sorted(REG_PLANS))
 def test_plans_factor_each_size(n):
-    """four passes (three at 1024), radices the kernel has DFTs for, and
-    every NS a power of two (k = b mod NS is a mask, the write base a
-    shift)."""
+    """four passes (three at 1024 and 4096), radices the kernel has DFTs
+    for, and every NS a power of two (k = b mod NS is a mask, the write
+    base a shift)."""
     radices = REG_PLANS[n]
-    assert np.prod(radices) == n and len(radices) == (3 if n == 1024 else 4)
+    assert np.prod(radices) == n and len(radices) == (3 if n in (1024, 4096) else 4)
     assert set(radices) <= {16, 8, 4, 3, 2}
     for _, ns in passes(n):
         assert ns & (ns - 1) == 0
@@ -337,12 +351,12 @@ def test_chain_model_matches_plain(pair, trim):
     assert rel(got, ref) <= 1e-12
 
 
-@pytest.mark.parametrize('pair', REG_PAIRS + ((LEVELS_REG_NFFT, None),))
+@pytest.mark.parametrize('pair', REG_PAIRS + ((LEVELS_REG_NFFT, None), (STATS_REG_NFFT, None)))
 def test_host_tables_are_the_models(pair):
     """the tables the wrapper hands the kernel (float64 on the host,
     rounded once to complex64): the model's forward tables of nfft, then
-    its inverse tables of nfft_out; at 1024 (the levels kernel, no
-    inverse) the forward tables alone."""
+    its inverse tables of nfft_out; at 1024 and 4096 (the levels and
+    statistics kernels, no inverse) the forward tables alone."""
     nfft, nfft_out = pair
     if nfft_out is None:
         want = tables(nfft, False)[0].astype('complex64')
@@ -482,13 +496,14 @@ def test_forward_table_is_a_view_of_the_pair_table():
 
 def test_ola_and_channelizer_routes():
     """fused_ola takes the register-resident kernel at 16384 -> 8192 only;
-    chan_stats only in the channel-only mode at 16384 points."""
+    chan_stats in the channel-only mode at 16384 points, and with both
+    outputs on at 4096 (test_stats_route_and_cpu_tensors)."""
     assert ola_route(*OLA_REG_PAIR) == 'reg' and fused_ola_cuda_supported(16384, 8192, 8192, 4096)
     for pair in [(8192, 4096), (16384, 16384), (4096, 2048), (16384, 4096), (8192, 16384), (64, 32)]:
         assert ola_route(*pair) == 'generic', pair
     assert chan_route(REG_NFFT, emit_psd=False, emit_pbin=False) == 'reg'
     for args in [(16384, True, True), (16384, True, False), (16384, False, True),
-                 (4096, False, False), (8192, False, False), (4096, True, True)]:
+                 (4096, False, False), (8192, False, False), (4096, True, False)]:
         assert chan_route(*args) == 'generic', args
 
 
@@ -511,12 +526,13 @@ def test_cpu_tensors_take_the_plain_ola_and_channelizer():
 
 
 def bin_power_model(pw, navg):
-    """the levels kernel's detector binning of one frame: ``pw`` (T, 16)
-    holds each lane's |x|^2 of samples lane + 64 r. Each of log2(navg)
+    """fft_reg.cuh bin_power, the detector binning of one frame by the
+    levels (T = 64) and statistics (T = 256) kernels: ``pw`` (T, 16)
+    holds each lane's |x|^2 of samples lane + T r. Each of log2(navg)
     steps halves the sums a lane keeps (the upper half where its bit o is
     set) and adds the partner's (lane ^ o) other half, as __shfl_xor_sync
     does; lane l then writes the means of r = (l mod navg) 16 / navg + j
-    at (l + 64 r) / navg, each bin exactly once."""
+    at (l + T r) / navg, each bin exactly once."""
     T = pw.shape[0]
     lanes = np.arange(T)
     v, n, o = pw.copy(), 16, navg // 2
@@ -527,7 +543,7 @@ def bin_power_model(pw, navg):
         keep = np.where(hi, v[:, n:2 * n], v[:, :n])
         assert ((lanes ^ o) // 32 == lanes // 32).all()  # a partner in the same warp
         v, o = keep + send[lanes ^ o], o // 2
-    out = np.full(LEVELS_REG_NFFT // navg, np.nan)
+    out = np.full(16 * T // navg, np.nan)
     r0 = (lanes & (navg - 1)) * (16 // navg)
     for j in range(16 // navg):
         idx = lanes // navg + (T // navg) * (r0 + j)
@@ -684,3 +700,161 @@ def test_levels_route_and_cpu_tensors():
     for key in ('levels', 'psum', 'pmax', 'pmin', 'p_binned'):
         torch.testing.assert_close(got[key], ref[key])
     assert (dict(k.route_launches), k.launches) == before
+
+
+def fold_model(part, op):
+    """chan_fold_kernel on one row's partials (n_blocks, N): per bin, warp
+    w of 32 folds partials w, w + 32, ... in order, then the 32 warps'
+    results fold in warp order."""
+    start = 0.0 if op is np.add else -np.inf
+    warps = []
+    for w in range(32):
+        acc = np.full(part.shape[1], start)
+        for b in range(w, part.shape[0], 32):
+            acc = op(acc, part[b])
+        warps.append(acc)
+    out = np.full(part.shape[1], start)
+    for acc in warps:
+        out = op(out, acc)
+    return out
+
+
+def stats_model(y, w, channel_count, skip_half, abins, navg, per_block):
+    """chan_stats_reg_kernel and chan_stats_fold on one float64 row: blocks
+    of ``per_block`` frames, each walked one frame at a time by 256
+    threads; per frame pass 0 loads y times w and keeps |y|^2 (binned by
+    bin_power_model), the last pass leaves thread t bins t + 256 r (slot
+    r), whose ln(|Y|^2 + 1e-25) it sums and whose max it keeps, and stores
+    |Y|^2 in natural order for the warp sums of each channel; the blocks'
+    partials fold in fold_model's order."""
+    N, T = STATS_REG_NFFT, STATS_REG_THREADS
+    n_frames = y.size // N
+    n_blocks = -(-n_frames // per_block)
+    buf = np.zeros(N + N // 16, complex)
+    threads = np.arange(T)
+    mine = threads[:, None] + T * np.arange(16)[None, :]
+    chp = np.zeros((n_frames, channel_count))
+    pbin = np.full(n_frames * N // navg, np.nan)
+    part_log = np.zeros((n_blocks, N))
+    part_max = np.zeros((n_blocks, N))
+    for blk in range(n_blocks):
+        ls = np.zeros((T, 16))
+        mx = np.full((T, 16), -np.inf)
+        for f in range(blk * per_block, min((blk + 1) * per_block, n_frames)):
+            fr = y[f * N:(f + 1) * N]
+            pw = np.zeros((T, 16))
+            sp = np.full(N, np.nan)
+
+            def first(idx, fr=fr, pw=pw):
+                assert np.array_equal(idx, mine)
+                pw[:] = np.abs(fr[idx]) ** 2
+                return fr[idx] * w[idx]
+
+            def last(idx, v, sp=sp):
+                assert np.array_equal(idx, mine)
+                p = np.abs(v) ** 2
+                ls[:] += np.log(p + 1e-25)
+                mx[:] = np.maximum(mx, p)
+                sp[idx] = p
+
+            fft_model(N, False, first, last, buf)
+            pbin[f * (N // navg):(f + 1) * (N // navg)] = bin_power_model(pw, navg)
+            assert not np.isnan(sp).any()
+            for c in range(channel_count):
+                chp[f, c] = warp_sum(sp[skip_half + c * abins:skip_half + (c + 1) * abins])
+        part_log[blk, mine] = ls
+        part_max[blk, mine] = mx
+    return {'psd_log_sum': fold_model(part_log, np.add),
+            'psd_max': fold_model(part_max, np.maximum),
+            'channel_power': chp, 'p_binned': pbin}
+
+
+def _flagship_chan_kwargs():
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP),
+                             device='cpu')
+    kw = mon.chan_kwargs
+    assert (kw['nfft_big'], kw['channel_count'], kw['navg'], kw['skip_bins']) == (4096, 16, 16, 0)
+    return kw
+
+
+@pytest.mark.parametrize('navg,channels,skip', [(1, 16, 0), (2, 12, 256), (4, 16, 1024),
+                                                (8, 15, 256), (16, 16, 0)])
+def test_stats_model_matches_plain(navg, channels, skip):
+    """the modelled statistics kernel against chan_stats_plain in float64
+    on 37 frames of 4096 (and 5 samples that join no frame) in blocks of
+    8 (the last of 5), with the flagship design's window: the flagship's
+    16 channels of 256 at navg 16, the blackman design's binning navg 1,
+    and trimmed channel sets at the other navg; all four outputs within
+    1e-12."""
+    window = _flagship_chan_kwargs()['window'].to(torch.complex128)
+    N = STATS_REG_NFFT
+    abins = (N - skip) // channels
+    assert abins * channels == N - skip
+    rng = np.random.default_rng(navg + channels)
+    y = rng.standard_normal(37 * N + 5) + 1j * rng.standard_normal(37 * N + 5)
+    got = stats_model(y, window.numpy(), channels, skip // 2, abins, navg, per_block=8)
+    ref = kernels.chan_stats_plain(torch.from_numpy(y), nfft_big=N, channel_count=channels,
+                                   window=window, navg=navg, skip_bins=skip)
+    assert set(ref) == set(got)
+    for key, r in ref.items():
+        r = r.numpy()
+        assert got[key].shape == r.shape, key
+        assert np.abs(got[key] - r).max() <= 1e-12 * np.abs(r).max(), key
+
+
+def test_stats_last_pass_holds_each_threads_bins():
+    """4096's passes (16.16.16) for 256 threads: one butterfly a thread a
+    pass; pass 0 reads samples t + 256 r and the last pass (NS = 256)
+    writes bins t + 256 r, the same 16 every frame, so a warp's |Y|^2
+    stores and max slots of one r are 32 consecutive words."""
+    assert passes(STATS_REG_NFFT) == [(16, 1), (16, 16), (16, 256)]
+    t = butterflies(256, STATS_REG_THREADS)
+    assert np.array_equal(t, np.arange(256))
+    want = t[:, None] + 256 * np.arange(16)[None, :]
+    r, ns = passes(STATS_REG_NFFT)[-1]
+    k = t & (ns - 1)
+    assert np.array_equal(((t - k) * r + k)[:, None] + np.arange(r)[None, :] * ns, want)
+    assert np.array_equal(t[:, None] + np.arange(16)[None, :] * (STATS_REG_NFFT // 16), want)
+    for warp in want.reshape(-1, 32, 16).transpose(0, 2, 1).reshape(-1, 32):
+        assert np.array_equal(np.diff(warp), np.ones(31))
+
+
+def test_stats_table_grid_and_shared_memory():
+    """the statistics kernel reads 4096's forward tables (720 entries, the
+    model's, its own: 4096 starts no pair); the exchange buffer, the table,
+    |Y|^2 and the maxima take 73,344 bytes, so two blocks share an SM; the
+    flagship's 2048 frames (and the blackman design's 2049) make runs of 8
+    frames, one wave of 256 (257) blocks on 132 SMs, whose partials are 8
+    MiB."""
+    fwd = reg_forward_twiddles(STATS_REG_NFFT, torch.device('cpu'))
+    np.testing.assert_array_equal(fwd.numpy(), tables(STATS_REG_NFFT, False)[0].astype('complex64'))
+    assert fwd.numel() == 720
+    smem = 8 * (STATS_REG_NFFT + STATS_REG_NFFT // 16 + fwd.numel()) + 4 * (STATS_REG_NFFT + 16 * 256)
+    assert smem == 73344 and STATS_REG_BLOCKS_PER_SM * (smem + 1024) <= H100_SMEM_OPTIN + 1024
+    assert _stats_reg_grid(2048, 1, 132) == (8, 256)
+    assert _stats_reg_grid(2049, 1, 132) == (8, 257)
+    assert _stats_reg_grid(40, 3, 132) == (1, 40)
+    assert 2 * 4 * 256 * STATS_REG_NFFT == 8 * 2**20
+
+
+def test_stats_route_and_cpu_tensors():
+    """chan_stats launches the statistics kernel with both outputs on at
+    4096 and navg 1-16; other navg, sizes and modes keep the radix-2 kernel
+    (the channel-only mode at 16384 its own); a CPU tensor runs the plain
+    version at the flagship design and counts no launch."""
+    for navg in STATS_REG_NAVG:
+        assert chan_route(STATS_REG_NFFT, True, True, navg) == 'reg'
+    for args in [(4096, True, True, 32), (4096, True, False, 16), (4096, False, True, 16),
+                 (4096, False, False, 1), (2048, True, True, 16), (8192, True, True, 1),
+                 (16384, True, True, 16)]:
+        assert chan_route(*args) == 'generic', args
+    kw = _flagship_chan_kwargs()
+    rng = np.random.default_rng(11)
+    y = torch.from_numpy((rng.standard_normal(3 * 4096) + 1j * rng.standard_normal(3 * 4096))
+                         .astype('complex64'))
+    before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
+    got = kernels.chan_stats(y, **kw)
+    ref = kernels.chan_stats_plain(y, **kw)
+    for key in ref:
+        torch.testing.assert_close(got[key], ref[key])
+    assert (dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches) == before
