@@ -17,18 +17,23 @@ build/iqwaveform_torch/), then, at the flagship WidebandMonitor design
    version in complex128 (its error at most twice the radix-2 kernel's);
    the same for the channelizer statistics kernel of this size
    (``chan_stats_reg_kernel``) against the radix-2 ``chan_stats_kernel``,
-   on each of its four outputs; ptxas must report no spill in it or in
-   ``colhist_reg_kernel``;
+   on each of its four outputs; the histogram through its bucket-table
+   kernel (``hist_bucket_kernel``); ptxas must report no spill in the
+   register-resident channelizer, levels and dB kernels, the column-pair
+   counter or the bucket-table histogram;
 2. drives the full ``step`` on 2^24 complex64 samples: each kernel's
-   launch count must rise, the OLA and channelizer route counts must name
-   ``fused_ola_reg_kernel`` and ``chan_stats_reg_kernel``, the profile
-   must hold those and no ``fused_ola_kernel`` or ``chan_stats_kernel``,
+   launch count must rise, the OLA, channelizer and histogram route counts
+   must name ``fused_ola_reg_kernel``, ``chan_stats_reg_kernel`` and
+   ``hist_bucket_kernel``, the profile must hold those and no
+   ``fused_ola_kernel``, ``chan_stats_kernel`` or older ``hist_kernel``,
    no cuFFT or cuBLAS kernel may run, and the outputs must match the
    plain-version step on the card and the CPU step on a short input;
 3. times the step and each kernel with CUDA events (median of REPS runs
    after warm-up), beside the kernel's bound, its plain version and, where
-   one exists, the PyTorch call that computes the same function; the OLA
-   and channelizer rows also time the radix-2 kernels (``generic_ms``);
+   one exists, the PyTorch call that computes the same function; the OLA,
+   channelizer and histogram rows also time the older kernels
+   (``generic_ms``), the histogram's also their device times and both
+   wrappers' host times;
 
 then, at BASELINE config #3 (bench.py:312-325: streaming persistence
 spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
@@ -45,21 +50,30 @@ spectrum + detector-binned APD, nfft 1024 'hann', 1024 histogram bins over
    max of dB at most twice the radix-2 body's); (b) the fold of the first
    4 chunks against the plain-version fold; (c) the fold of all 64 chunks
    through ``persistence_apd_fold``, which must launch each of those three
-   kernels exactly 64 times, the levels kernel and the column counter on
-   their new routes each time, then ``persistence_finalize``; (d) a
-   profile of one chunk's fold, which must hold
-   ``spectrogram_levels_reg_kernel`` and ``colhist_reg_kernel`` and no
-   radix-2 ``spectrogram_kernel`` or older ``colhist_kernel`` and may show
+   kernels exactly 64 times, the levels kernel, the column counter and the
+   histogram on their new routes each time, then
+   ``persistence_finalize``; (d) a profile of one chunk's fold, which must
+   hold ``spectrogram_levels_reg_kernel``, ``colhist_reg_kernel`` and
+   ``hist_bucket_kernel`` and no radix-2 ``spectrogram_kernel``, older
+   ``colhist_kernel`` or older ``hist_kernel`` and may show
    no cuFFT / cuBLAS / CUTLASS kernel, and the fold's host time per chunk
    split by wrapper and by the carry's torch ops; (e) the 1 GS time, and
-   the device-busy share of one chunk; the levels kernel and the column
-   counter are timed beside the older kernels (``generic_ms``);
+   the device-busy share of one chunk; the levels kernel, the column
+   counter and the histogram are timed beside the older kernels
+   (``generic_ms``);
 5. the public ``streaming_persistence_spectrum`` on 4 chunks plus a
    131072-multiple tail and 3072 samples that its rules drop, against the
+   plain path, and the public ``streaming_apd`` on the same capture (one
+   launch of ``hist_bucket_kernel`` a chunk and the tail), equal to the
    plain path;
-6. the unfused path (2048 histogram bins: ``spectrogram_dB`` and the
-   column counter on float values, equal to bincount and to the older
-   counter) on one chunk, against the plain path;
+6. the unfused path (2048 histogram bins: ``spectrogram_dB`` through the
+   register-resident ``spectrogram_db_reg_kernel`` at nfft 1024, within
+   1e-3 dB of the plain version and of the radix-2 body, its float64 error
+   on the first 512 frames at most twice the radix-2 body's; the column
+   counter on float values, equal to bincount and to the older counter) on
+   one chunk, against the plain path; the unfused fold of the chunk timed
+   through this route and, in turns, through the radix-2 body, and
+   profiled;
 7. the stats-only design (BASELINE config #1, hist_bins=0) on one chunk,
    against the plain path;
 
@@ -86,10 +100,13 @@ capture at 61.44 MS/s) and the monitor beyond 2:1 overlap:
    and the conv timed;
 10. ``WidebandMonitor.step`` at the blackman COLA design (30.72 -> 15.36
    MS/s, nfft 12288 -> 6144, R=3) on 16,785,408 samples: launches (the
-   register-resident frame kernel and ``chan_stats_reg_kernel``, no
-   ``chan_stats_kernel`` in the profile), the step against
-   ``reference_step`` with phase 3's gates, timed, profiled; the frame
-   kernel as in phase 8;
+   register-resident frame kernel, ``chan_stats_reg_kernel`` and
+   ``hist_bucket_kernel``, no ``chan_stats_kernel`` or older ``hist_kernel``
+   in the profile), the step against ``reference_step`` with phase 3's
+   gates, timed, profiled; the frame kernel as in phase 8; the histogram
+   at the step's shape (8,392,704 samples, 2048 edges) against its plain
+   version, timed beside its bound and the older kernel, and on a row of
+   one bin;
 
 then the OFDM path on 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at
 30.72 MS/s made on the card (QPSK on 1201 subcarriers, CP 160 / 144, noise
@@ -213,8 +230,12 @@ STATS_REG_KERNEL = 'chan_stats_reg_kernel'
 STATS_GENERIC_KERNEL = 'chan_stats_kernel'
 COLHIST_REG_KERNEL = 'colhist_reg_kernel'
 COLHIST_GENERIC_KERNEL = 'colhist_kernel'
-# kernels whose ptxas report must show no spill
-NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL)
+# the histogram kernel every APD of the paths runs, and the older one it
+# replaces there, which no path's profile may show
+HIST_KERNEL = 'hist_bucket_kernel'
+HIST_GENERIC_KERNEL = 'hist_kernel'
+# the dB spectrogram kernel of the unfused persistence path at nfft 1024
+DB_REG_KERNEL = 'spectrogram_db_reg_kernel'
 N_UPFIRDN = 10**8
 UPFIRDN_PAIRS = ((1, 2), (2, 3))
 N_UPFIRDN_F64 = 1 << 20  # outputs held against float64
@@ -224,6 +245,8 @@ UPFIRDN_REG_KERNEL = 'upfirdn_reg_kernel'
 # body it replaces there, which the fold's profile may not show
 LEVELS_REG_KERNEL = 'spectrogram_levels_reg_kernel'
 LEVELS_GENERIC_KERNEL = 'spectrogram_kernel'
+# kernels whose ptxas report must show no spill
+NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL)
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -263,6 +286,8 @@ N_HOST_SPLIT = 16  # chunks whose fold's host time is split by part
 # in a fresh one, and the host wait inside each trace before the call and
 # after its synchronize
 PROFILE_TRIES = 3
+HOST_CALLS = 1000  # calls whose host time host_ms averages
+HOST_ROUNDS = 6  # turns of the two wrappers whose host times hist_times compares
 PROFILE_SETTLE_S = 0.05
 FRESH_TRACE_TIMEOUT_S = 300
 
@@ -364,13 +389,17 @@ def kernel_row(kname, result, nbytes, nops, kernel_fn, plain_fn, library_fn,
     }
 
 
+EARLIER_KEYS = ('launches', 'ms', 'bound_ms', 'plain_ms', 'generic_ms', 'profiled_device_ms',
+                'generic_profiled_device_ms', 'host_ms', 'generic_host_ms')
+
+
 def merge_rows(first: list, later: list) -> list:
     """the kernels line: a kernel of several paths keeps the row of the
     newest path's run, with the earlier path's numbers beside it."""
     rows = {r['name']: r for r in first}
     for r in later:
         if r['name'] in rows:
-            r['earlier_path'] = {k: rows[r['name']][k] for k in ('launches', 'ms', 'bound_ms')}
+            r['earlier_path'] = {k: v for k, v in rows[r['name']].items() if k in EARLIER_KEYS}
         rows[r['name']] = r
     return list(rows.values())
 
@@ -522,7 +551,11 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     from iqwaveform_torch import parallel as P
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, quantize_uniform
-    from iqwaveform_torch.ops.kernels.spectrogram import _spectrogram_levels_generic
+    from iqwaveform_torch.ops.kernels.spectrogram import (
+        _spectrogram_dB_generic,
+        _spectrogram_levels_generic,
+    )
+    from iqwaveform_torch.parallel import streaming as S
 
     design = P.design_persistence(**PERSISTENCE)
     nfft = design['nfft']
@@ -600,9 +633,13 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     results['colhist'] = {'max_abs_err': float(ch_l1)}
 
     pbin = lv['p_binned']
+    kernels.hist.route_launches.update(bucket=0, generic=0)
     ac = kernels.hist(pbin, apd_edges)
+    hist_routes = dict(kernels.hist.route_launches)
     ac_l1 = int((ac.long() - kernels.hist_plain(pbin, apd_edges).long()).abs().sum())
-    print(f'hist: {tuple(pbin.shape)} -> {tuple(ac.shape)} L1 vs plain {ac_l1}')
+    print(f'hist: {tuple(pbin.shape)} -> {tuple(ac.shape)} L1 vs plain {ac_l1}; '
+          f'kernels {json.dumps(hist_routes)}')
+    require(hist_routes == {'bucket': 1, 'generic': 0}, f'hist kernels {hist_routes}')
     require(ac_l1 == 0 and int(ac.sum()) == pbin.numel(), 'hist differs from sort + searchsorted')
     results['hist'] = {'max_abs_err': float(ac_l1)}
     torch.cuda.synchronize()
@@ -631,6 +668,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
         k.launches = 0
     for k in (kernels.spectrogram_levels, kernels.colhist):
         k.route_launches.update(reg=0, generic=0)
+    kernels.hist.route_launches.update(bucket=0, generic=0)
     t0 = time.perf_counter()
     for i in range(N_CHUNKS):
         carry, apd = fold(carry, apd, i)
@@ -639,12 +677,16 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     launched = {name: k.launches for name, k in kset.items()}
     routes = dict(kernels.spectrogram_levels.route_launches)
     ch_routes = dict(kernels.colhist.route_launches)
+    hist_routes = dict(kernels.hist.route_launches)
     print(f'launches over {N_CHUNKS} chunks: ' + json.dumps(launched)
-          + f'; levels kernels {json.dumps(routes)}; column counters {json.dumps(ch_routes)}')
+          + f'; levels kernels {json.dumps(routes)}; column counters {json.dumps(ch_routes)}'
+          + f'; histogram kernels {json.dumps(hist_routes)}')
     require(routes == {'reg': N_CHUNKS, 'generic': 0},
             f'levels kernels over {N_CHUNKS} chunks {routes}, not {LEVELS_REG_KERNEL} alone')
     require(ch_routes == {'reg': N_CHUNKS, 'generic': 0},
             f'column counters over {N_CHUNKS} chunks {ch_routes}, not {COLHIST_REG_KERNEL} alone')
+    require(hist_routes == {'bucket': N_CHUNKS, 'generic': 0},
+            f'histogram kernels over {N_CHUNKS} chunks {hist_routes}, not {HIST_KERNEL} alone')
     for kname in ('spectrogram_levels', 'colhist', 'hist'):
         require(launched[kname] == N_CHUNKS,
                 f'{kname} launched {launched[kname]} times over {N_CHUNKS} chunks')
@@ -670,11 +712,12 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
           f'{ms_chunk:.4f} ms per {CHUNK}-sample chunk ({smi})')
 
     # ---- phase 4d: one chunk's fold under the profiler
-    fold_kernels = (LEVELS_REG_KERNEL, COLHIST_REG_KERNEL, 'hist_kernel')
+    fold_kernels = (LEVELS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL)
     names, device_us = device_kernels(lambda: fold(carry, apd, 1), *fold_kernels)
     print('chunk fold device kernels: ' + json.dumps(names))
     for k in fold_kernels:
         require(any(k in n for n in names), f'profiler shows no {k} in the fold')
+    require_hist_kernel(names, 'the fold')
     radix2 = [n for n in names if LEVELS_GENERIC_KERNEL in n]
     require(not radix2, f'the radix-2 levels body ran in the fold: {radix2}')
     old_ch = [n for n in names if COLHIST_GENERIC_KERNEL in n]
@@ -684,6 +727,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     busy_ms = sum(device_us.values()) / 1e3
     levels_device_ms = sum(us for k, us in device_us.items() if LEVELS_REG_KERNEL in k) / 1e3
     colhist_device_ms = sum(us for k, us in device_us.items() if COLHIST_REG_KERNEL in k) / 1e3
+    hist_device_ms = device_ms(device_us, HIST_KERNEL)
     print('chunk fold device time by kernel (us): ' + json.dumps(
         dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
     print(f'chunk fold device busy: {busy_ms:.4f} ms of {ms_chunk:.4f} ms per chunk '
@@ -715,21 +759,58 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     errs = check_persistence(got, ref, 'entry point', frames5)
     print(f'entry point: {n5} samples, {frames5} frames folded, launches {json.dumps(launched)}, '
           f'vs plain path {json.dumps(errs)}')
-    del xc, got, ref
+    # the APD's entry point on the same capture: chunks of CHUNK samples and
+    # the tail, each binned by APD_NAVG and counted by the histogram kernel
+    for k in kernels.KERNELS:
+        k.launches = 0
+    kernels.hist.route_launches.update(bucket=0, generic=0)
+    apd5 = P.streaming_apd(xc, edges=apd_edges, chunk_size=CHUNK, navg=APD_NAVG, device=dev)
+    apd_launches = kernels.hist.launches
+    hist_routes = dict(kernels.hist.route_launches)
+    apd5_ref = P.streaming_apd(xc, edges=apd_edges, chunk_size=CHUNK, navg=APD_NAVG, device=dev,
+                               plain=True)
+    print(f'streaming_apd: {n5} samples, {apd_launches} histogram launches, kernels '
+          f'{json.dumps(hist_routes)}, equal to the plain path: {torch.equal(apd5, apd5_ref)}')
+    require(hist_routes == {'bucket': N_FOLD_CHECK + 1, 'generic': 0},
+            f'streaming_apd histogram kernels {hist_routes}')
+    require(torch.equal(apd5, apd5_ref), 'streaming_apd differs from the plain path')
+    require(int(apd5.sum()) == n5 // APD_NAVG, 'streaming_apd: total')
+    del xc, got, ref, apd5, apd5_ref
 
     # ---- phase 6: the unfused path (2048 bins), one chunk
     d6 = P.design_persistence(**dict(PERSISTENCE, hist_bins=2048))
+    kernels.spectrogram_dB.route_launches.update(reg=0, generic=0)
     db = kernels.spectrogram_dB(c0, w, nfft)
+    db_routes = dict(kernels.spectrogram_dB.route_launches)
     db_ref = kernels.spectrogram_dB_plain(c0, w, nfft)
+    db_generic = _spectrogram_dB_generic(c0, w, nfft)
     band = db_ref > -100
     mean_p = torch.log10((10 ** (db_ref.double() / 10)).mean(dim=1, keepdim=True)) * 10
     shallow = band & (db_ref > mean_p - 40)
     err_db = max_abs(db[shallow], db_ref[shallow])
-    print(f'spectrogram_dB: {tuple(c0.shape)} -> {tuple(db.shape)}, |dB diff| {err_db:.3g} on the '
-          f'{float(shallow.double().mean()):.6f} of values above -100 dB and within 40 dB of '
-          f'their frame mean, {max_abs(db[band], db_ref[band]):.3g} on all above -100 dB')
+    err_generic = max_abs(db[shallow], db_generic[shallow])
+    print(f'spectrogram_dB: {tuple(c0.shape)} -> {tuple(db.shape)}, kernels {json.dumps(db_routes)}, '
+          f'|dB diff| {err_db:.3g} on the {float(shallow.double().mean()):.6f} of values above '
+          f'-100 dB and within 40 dB of their frame mean, {max_abs(db[band], db_ref[band]):.3g} on '
+          f'all above -100 dB; vs the radix-2 body {err_generic:.3g} on the first')
+    require(db_routes == {'reg': 1, 'generic': 0}, f'spectrogram_dB kernels {db_routes}')
     require(err_db <= 1e-3, f'spectrogram_dB: {err_db:.4g} dB > 1e-3 dB')
+    require(err_generic <= 1e-3, f'spectrogram_dB vs the radix-2 body: {err_generic:.4g} dB > 1e-3 dB')
     results['spectrogram_dB'] = {'max_abs_err': err_db}
+    # the register-resident kernel (this route) and the radix-2 body it
+    # replaces here against the plain version in float64, first frames, on
+    # the values of the gate above: RMS of the dB error
+    head = c0[:, : N_F64_FRAMES * nfft]
+    db64 = kernels.spectrogram_dB_plain(head.double(), w.to(torch.complex128), nfft)
+    sel = shallow[:N_F64_FRAMES]
+    db64_err = float((db[:N_F64_FRAMES].double() - db64)[sel].pow(2).mean().sqrt())
+    db64_err_generic = float((db_generic[:N_F64_FRAMES].double() - db64)[sel].pow(2).mean().sqrt())
+    print(f'spectrogram_dB: first {N_F64_FRAMES} frames vs float64, RMS dB error {db64_err:.4g}, '
+          f'radix-2 body {db64_err_generic:.4g} (ratio {db64_err / db64_err_generic:.3f})')
+    require(db64_err <= 2 * db64_err_generic,
+            f'spectrogram_dB float64 error {db64_err:.4g} > 2 x the radix-2 body\'s '
+            f'{db64_err_generic:.4g}')
+    del db_generic, db64
     lo, scale, b6 = d6['quant']
     chf = kernels.colhist(db, torch.zeros((nfft, b6), dtype=torch.int32, device=dev),
                           lo=lo, scale=scale)
@@ -741,19 +822,53 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     results['colhist_values'] = {'max_abs_err': 0.0}
     for k in kernels.KERNELS:
         k.launches = 0
-    c6 = P.persistence_fold(P.persistence_init(d6, dev), c0, d6)
+    kernels.spectrogram_dB.route_launches.update(reg=0, generic=0)
+    c6_init = P.persistence_init(d6, dev)
+    c6 = P.persistence_fold(c6_init, c0, d6)
     torch.cuda.synchronize()
     launched = {name: k.launches for name, k in kset.items()}
+    db_routes = dict(kernels.spectrogram_dB.route_launches)
     require(launched['spectrogram_dB'] == 1 == launched['colhist']
             and launched['spectrogram_levels'] == 0, f'unfused fold launches {launched}')
+    require(db_routes == {'reg': 1, 'generic': 0},
+            f'unfused fold dB kernels {db_routes}, not {DB_REG_KERNEL} alone')
     results['spectrogram_dB']['launches'] = launched['spectrogram_dB']
     results['colhist_values']['launches'] = launched['colhist']
     ref6 = P.persistence_fold(P.persistence_init(d6, dev), c0, d6, plain=True)
     errs = check_persistence(P.persistence_finalize(c6, d6, fs=1.0),
                              P.persistence_finalize(ref6, d6, fs=1.0), 'unfused fold', frames)
-    print(f'unfused fold (2048 bins): launches {json.dumps(launched)}, vs plain '
-          f'{json.dumps(errs)}')
+    print(f'unfused fold (2048 bins): launches {json.dumps(launched)}, dB kernels '
+          f'{json.dumps(db_routes)}, vs plain {json.dumps(errs)}')
     del c6, ref6, chf, chf_ref
+    # the unfused fold of one chunk timed (from the same empty carry, which
+    # a fold leaves as it was) through this route and, in turns, through
+    # the radix-2 body, then profiled
+    fold6 = lambda: P.persistence_fold(c6_init, c0, d6)  # noqa: E731
+    cuda_kernels = S._CUDA
+    generic_kernels = cuda_kernels._replace(spectrogram_dB=_spectrogram_dB_generic)
+    unfused = {'reg': [], 'generic': []}
+    for route in ('generic', 'reg', 'reg', 'generic'):
+        S._CUDA = generic_kernels if route == 'generic' else cuda_kernels
+        try:
+            unfused[route].append(timed_ms(fold6))
+        finally:
+            S._CUDA = cuda_kernels
+    names6, device_us6 = device_kernels(fold6, DB_REG_KERNEL, COLHIST_REG_KERNEL)
+    for k in (DB_REG_KERNEL, COLHIST_REG_KERNEL):
+        require(any(k in n for n in names6), f'profiler shows no {k} in the unfused fold')
+    radix2 = [n for n in names6 if LEVELS_GENERIC_KERNEL in n]
+    require(not radix2, f'the radix-2 body ran in the unfused fold: {radix2}')
+    bad = library_kernels(names6)
+    require(not bad, f'library FFT / GEMM kernels in the unfused fold: {bad}')
+    unfused_ms = sum(unfused['reg']) / 2
+    busy6 = sum(device_us6.values()) / 1e3
+    db_device_ms = device_ms(device_us6, DB_REG_KERNEL)
+    print('unfused fold device time by kernel (us): ' + json.dumps(
+        dict(sorted(device_us6.items(), key=lambda kv: -kv[1]))))
+    print(f'unfused fold of one chunk: {unfused_ms:.4f} ms (the radix-2 dB body: '
+          f'{sum(unfused["generic"]) / 2:.4f} ms; in turns generic, reg, reg, generic '
+          f'{json.dumps(unfused)}); device busy {busy6:.4f} ms (idle share '
+          f'{max(0.0, 1 - busy6 / unfused_ms):.3f}) ({smi})')
 
     # ---- phase 7: stats only (BASELINE config #1), one chunk
     d7 = P.design_persistence(**dict(PERSISTENCE, hist_bins=0))
@@ -835,6 +950,29 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
           f'older kernel {rows["colhist_values"]["generic_ms"]:.4f} ms, on {smi}')
     print(f'spectrogram_levels: radix-2 body {levels_row["generic_ms"]:.4f} ms; '
           f'{levels_device_ms:.4f} ms of device time in the profiled chunk fold, on {smi}')
+    hist_row = rows['hist']
+    hist_row.update(hist_times(pbin, apd_edges, hist_device_ms))
+    print(f'hist: {hist_device_ms:.4f} ms of device time in the profiled chunk fold; the older '
+          f'{HIST_GENERIC_KERNEL} {hist_row["generic_ms"]:.4f} ms, '
+          f'{hist_row["generic_profiled_device_ms"]:.4f} ms of device time alone; host time a '
+          f'call {hist_row["host_ms"]:.4f} ms, the older wrapper {hist_row["generic_host_ms"]:.4f} '
+          f'ms, on {smi}')
+    db_row = rows['spectrogram_dB']
+    db_row['generic_ms'] = timed_ms(lambda: _spectrogram_dB_generic(c0, w, nfft))
+    _, generic_us = device_kernels(lambda: _spectrogram_dB_generic(c0, w, nfft),
+                                   LEVELS_GENERIC_KERNEL)
+    db_row.update({
+        'profiled_device_ms': db_device_ms,
+        'generic_profiled_device_ms': device_ms(generic_us, LEVELS_GENERIC_KERNEL),
+        'f64_rms_dB': db64_err,
+        'generic_f64_rms_dB': db64_err_generic,
+        'unfused_fold_ms': unfused_ms,
+        'unfused_fold_generic_ms': sum(unfused['generic']) / 2,
+        'unfused_fold_busy_ms': busy6,
+    })
+    print(f'spectrogram_dB: {db_device_ms:.4f} ms of device time in the profiled unfused fold; '
+          f'the radix-2 body {db_row["generic_ms"]:.4f} ms, '
+          f'{db_row["generic_profiled_device_ms"]:.4f} ms of device time alone, on {smi}')
     # one kernel, one row: its float-value instance rides along in it
     rows['colhist']['float_values'] = rows.pop('colhist_values')
     return list(rows.values())
@@ -1010,6 +1148,58 @@ def require_stats_kernel(names, label: str) -> None:
     require(not old, f'the radix-2 channelizer kernel ran in {label}: {old}')
 
 
+def require_hist_kernel(names, label: str) -> None:
+    """the profile of ``label`` holds the bucket-table histogram kernel
+    and not the older one (by its name without the parameter list:
+    ``colhist_kernel`` holds ``hist_kernel`` too)."""
+    require(any(HIST_KERNEL in n for n in names), f'profiler shows no {HIST_KERNEL} in {label}')
+    old = [n for n in names if short_name(n) == HIST_GENERIC_KERNEL]
+    require(not old, f'the older histogram kernel ran in {label}: {old}')
+
+
+def device_ms(device_us: dict, kernel: str) -> float:
+    """the device milliseconds of the kernels named ``kernel`` (exactly,
+    without the parameter list) in a device_kernels breakdown."""
+    return sum(us for k, us in device_us.items() if k.split('<')[0] == kernel) / 1e3
+
+
+def host_ms(fn, calls: int = HOST_CALLS) -> float:
+    """the host milliseconds a call of ``fn`` takes to return, by the host
+    clock around ``calls`` calls with no synchronize inside (the device
+    runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / calls
+
+
+def hist_times(p, edges, profiled_ms: float) -> dict:
+    """the bucket-table kernel's profiled device time in the path's run
+    beside the older kernel's, timed by events and profiled alone, on the
+    path's samples ``p`` and ``edges``; and the host time of a call of
+    :func:`hist` and of the older kernel's wrapper, taken in HOST_ROUNDS
+    turns (older first, then new first, ...), the median of each."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.hist import _hist_generic
+
+    _, generic_us = device_kernels(lambda: _hist_generic(p, edges), HIST_GENERIC_KERNEL)
+    host = {kernels.hist: [], _hist_generic: []}
+    for turn in range(HOST_ROUNDS):
+        for fn in (_hist_generic, kernels.hist)[::1 if turn % 2 == 0 else -1]:
+            host[fn].append(host_ms(lambda: fn(p, edges)))
+    return {
+        'profiled_device_ms': profiled_ms,
+        'generic_ms': timed_ms(lambda: _hist_generic(p, edges)),
+        'generic_profiled_device_ms': device_ms(generic_us, HIST_GENERIC_KERNEL),
+        'host_ms': float(np.median(host[kernels.hist])),
+        'generic_host_ms': float(np.median(host[_hist_generic])),
+    }
+
+
 def require_no_spill(report: str) -> None:
     """ptxas reports 0 bytes of spill for every instance of the kernels
     in NO_SPILL."""
@@ -1024,8 +1214,9 @@ def require_no_spill(report: str) -> None:
     require(seen > 0, f'ptxas reports no instance of {NO_SPILL}')
 
 
-def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
-    """phases 8-10; returns the kernels line's rows of this path."""
+def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
+    """phases 8-10; returns the kernels line's rows of this path, and the
+    histogram's numbers at the blackman step's shape (for its row)."""
     import iqwaveform_torch as it
     from iqwaveform_torch.ops import filtering as TF
     from iqwaveform_torch.ops import kernels
@@ -1042,6 +1233,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             k.launches = 0
         for k in (kernels.fused_ola_frames, kernels.upfirdn_cuda, kernels.chan_stats):
             k.route_launches.update(reg=0, generic=0)
+        kernels.hist.route_launches.update(bucket=0, generic=0)
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
@@ -1213,14 +1405,18 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             f'blackman step launches {launched}')
     frame_routes('blackman step')
     chan_routes = dict(kernels.chan_stats.route_launches)
-    print(f'blackman step channelizer kernels: {json.dumps(chan_routes)}')
+    hist_routes = dict(kernels.hist.route_launches)
+    print(f'blackman step channelizer kernels: {json.dumps(chan_routes)}; histogram kernels '
+          f'{json.dumps(hist_routes)}')
     require(chan_routes == {'reg': 1, 'generic': 0}, f'blackman step channelizer kernels {chan_routes}')
+    require(hist_routes == {'bucket': 1, 'generic': 0}, f'blackman step histogram kernels {hist_routes}')
     check_step(out, mon.reference_step(x10), 'blackman step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x10))
     names, device_us = device_kernels(lambda: mon.step(x10), REG_KERNEL,
-                                      STATS_REG_KERNEL, 'hist_kernel')
+                                      STATS_REG_KERNEL, HIST_KERNEL)
     require_frame_kernel(names, 'the blackman step')
     require_stats_kernel(names, 'the blackman step')
+    require_hist_kernel(names, 'the blackman step')
     bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in the blackman step: {bad}')
     busy = sum(device_us.values()) / 1e3
@@ -1257,10 +1453,46 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'fused_ola_frames at the blackman design: frames {tuple(fr.shape)} relative RMS '
           f'{err:.3g}, {blackman["ms"]:.4f} ms (bound {blackman["bound_ms"]:.4f} ms, plain '
           f'{blackman["plain_ms"]:.4f} ms, generic kernel {blackman["generic_ms"]:.4f} ms) on {smi}')
-    del x10, xe, fr, got_f, out, mon
+    # the histogram at this step's shape: the binned samples the step hands
+    # it (its body with the histogram call captured), against its plain
+    # version, timed beside its bound and the older kernel
+    seen = {}
+
+    def capture(p, edges):
+        seen['p'], seen['edges'] = p, edges
+        return kernels.hist(p, edges)
+
+    mon._body(mon._input(x10), mon._ola, kernels.chan_stats, capture)
+    pb, eb = seen['p'], seen['edges']
+    cb = kernels.hist(pb, eb)
+    require(torch.equal(cb, kernels.hist_plain(pb, eb)),
+            'hist at the blackman design differs from sort + searchsorted')
+    t_bytes = (4 * pb.numel() + 4 * eb.numel() + 4 * cb.numel()) / mem_rate * 1e3
+    t_ops = pb.numel() * math.ceil(math.log2(eb.numel() + 1)) / fp32_rate * 1e3
+    # the same row with every sample in one bin: the counters' contention
+    one_bin = torch.full_like(pb, float(pb.median()))
+    require(torch.equal(kernels.hist(one_bin, eb), kernels.hist_plain(one_bin, eb)),
+            'hist of one bin differs from sort + searchsorted')
+    hist_blackman = {
+        'launches': launched.get('hist', 0), 'samples': pb.numel(), 'edges': eb.numel(),
+        'ms': timed_ms(lambda: kernels.hist(pb, eb)),
+        'plain_ms': timed_ms(lambda: kernels.hist_plain(pb, eb)),
+        'bound_ms': max(t_bytes, t_ops), 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+        **hist_times(pb, eb, device_ms(device_us, HIST_KERNEL)),
+        'one_bin_profiled_device_ms': device_ms(device_kernels(
+            lambda: kernels.hist(one_bin, eb), HIST_KERNEL)[1], HIST_KERNEL),
+    }
+    print(f'hist at the blackman design: {pb.numel()} samples x {eb.numel()} edges, '
+          f'{hist_blackman["ms"]:.4f} ms (bound {hist_blackman["bound_ms"]:.5f} ms, plain '
+          f'{hist_blackman["plain_ms"]:.4f} ms), {hist_blackman["profiled_device_ms"]:.4f} ms of '
+          f'device time in the profiled step; the older {HIST_GENERIC_KERNEL} '
+          f'{hist_blackman["generic_ms"]:.4f} ms, {hist_blackman["generic_profiled_device_ms"]:.4f} '
+          f'ms of device time alone; all samples in one bin '
+          f'{hist_blackman["one_bin_profiled_device_ms"]:.4f} ms of device time, on {smi}')
+    del x10, xe, fr, got_f, out, mon, pb, cb, seen, one_bin
     torch.cuda.empty_cache()
     print(f'phases 8-10 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
-    return [frames_row, up_row]
+    return [frames_row, up_row], hist_blackman
 
 
 def lte_waveform(phy, n_slots: int, gen, dev) -> tuple:
@@ -1649,10 +1881,14 @@ def main() -> int:
     cs = kernels.chan_stats(y, **mon.chan_kwargs)
 
     p = cs['p_binned']
+    kernels.hist.route_launches.update(bucket=0, generic=0)
     counts = kernels.hist(p, mon.apd_edges)
+    hist_routes = dict(kernels.hist.route_launches)
     counts_ref = kernels.hist_plain(p, mon.apd_edges)
     diff = (counts.long() - counts_ref.long()).abs()
-    print(f'hist: {tuple(p.shape)} -> {tuple(counts.shape)} L1 vs plain {int(diff.sum())}')
+    print(f'hist: {tuple(p.shape)} -> {tuple(counts.shape)} L1 vs plain {int(diff.sum())}; '
+          f'kernels {json.dumps(hist_routes)}')
+    require(hist_routes == {'bucket': 1, 'generic': 0}, f'hist kernels {hist_routes}')
     require(int(diff.sum()) == 0, 'hist differs from sort + searchsorted')
     require(int(counts.sum()) == p.numel(), 'hist total differs from sample count')
     results['hist'] = {'max_abs_err': float(diff.max())}
@@ -1663,6 +1899,7 @@ def main() -> int:
         k.launches = 0
     for k in (kernels.fused_ola, kernels.chan_stats):
         k.route_launches.update(reg=0, generic=0)
+    kernels.hist.route_launches.update(bucket=0, generic=0)
     out = mon.step(x)
     torch.cuda.synchronize()
     launched = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -1671,12 +1908,14 @@ def main() -> int:
         require(launched[kname] > 0, f'the step launched no {kname} kernel')
     print('launches in one step: ' + json.dumps(launched))
     routes = {'fused_ola': dict(kernels.fused_ola.route_launches),
-              'chan_stats': dict(kernels.chan_stats.route_launches)}
+              'chan_stats': dict(kernels.chan_stats.route_launches),
+              'hist': dict(kernels.hist.route_launches)}
     print('kernels by route in one step: ' + json.dumps(routes))
-    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': {'reg': 1, 'generic': 0}},
+    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': {'reg': 1, 'generic': 0},
+                       'hist': {'bucket': 1, 'generic': 0}},
             f'the step\'s routes {routes}')
 
-    step_kernels = (OLA_REG_KERNEL, STATS_REG_KERNEL, 'hist_kernel')
+    step_kernels = (OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
     names, device_us = device_kernels(lambda: mon.step(x), *step_kernels)
     print('step device kernels: ' + json.dumps(names))
     for k in step_kernels:
@@ -1684,6 +1923,7 @@ def main() -> int:
     old_ola = [n for n in names if OLA_GENERIC_KERNEL in n]
     require(not old_ola, f'the radix-2 OLA kernel ran in the step: {old_ola}')
     require_stats_kernel(names, 'the step')
+    require_hist_kernel(names, 'the step')
     bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
     require(not bad, f'library FFT / GEMM kernels in the step: {bad}')
 
@@ -1764,6 +2004,13 @@ def main() -> int:
                 us for k, us in device_us.items() if STATS_REG_KERNEL in k or 'chan_fold' in k) / 1e3
             print(f'chan_stats: radix-2 kernel {row["generic_ms"]:.4f} ms; '
                   f'{row["profiled_device_ms"]:.4f} ms of device time in the profiled step, on {smi}')
+        if kname == 'hist':
+            row.update(hist_times(p, mon.apd_edges, device_ms(device_us, HIST_KERNEL)))
+            print(f'hist: {row["profiled_device_ms"]:.4f} ms of device time in the profiled step; '
+                  f'the older {HIST_GENERIC_KERNEL} {row["generic_ms"]:.4f} ms, '
+                  f'{row["generic_profiled_device_ms"]:.4f} ms of device time alone; host time a '
+                  f'call {row["host_ms"]:.4f} ms, the older wrapper {row["generic_host_ms"]:.4f} '
+                  f'ms, on {smi}')
         rows.append(row)
         print(f'{kname}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
               f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms) on {smi}')
@@ -1774,7 +2021,9 @@ def main() -> int:
     rows = merge_rows(rows, persistence_phases(dev, smi, mem_rate, fp32_rate))
 
     # ---- phases 8-10: the filtering path and the monitor beyond 2:1
-    rows = merge_rows(rows, filtering_phases(dev, smi, mem_rate, fp32_rate))
+    filter_rows, hist_blackman = filtering_phases(dev, smi, mem_rate, fp32_rate)
+    rows = merge_rows(rows, filter_rows)
+    next(r for r in rows if r['name'] == 'hist')['monitor_blackman'] = hist_blackman
 
     # ---- phases 11-15: the OFDM path and channelize_power
     rows = merge_rows(rows, ofdm_phases(dev, smi, mem_rate, fp32_rate))

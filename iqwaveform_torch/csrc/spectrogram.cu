@@ -39,8 +39,9 @@
 // trip per radix-2 stage, and reads each frame twice when navg > 0 (the
 // second read is served by L1 / L2). At nfft 1024 with navg in {0, 1, 2,
 // 4, 8, 16}, the levels and stats modes run spectrogram_levels_reg_kernel
-// instead (below; ops/kernels/spectrogram.py levels_route picks before the
-// launch); kDb and every other size keep spectrogram_kernel.
+// instead, and at nfft 1024 kDb runs spectrogram_db_reg_kernel (below;
+// ops/kernels/spectrogram.py levels_route and db_route pick before the
+// launch); every other size keeps spectrogram_kernel.
 #include <math.h>
 
 #include "fft.cuh"
@@ -227,6 +228,48 @@ constexpr size_t kLvSmem =
     static_cast<size_t>(kLvExtremes + kLvGroups * kLvBins * kLvT) * sizeof(float2);
 static_assert(kLvBins * kLvT <= 2 * kLvTable, "the groups' sums fold through the exchange buffers");
 
+// one frame of the 16.16.4 plan by lane `lane` of a 64-thread group whose
+// exchange buffer is `buf` and barrier `sync`: pass 0 loads x[base + i]
+// times the window (with NAVG > 0 it also bins |x|^2 into `pbin`, the
+// frame's N / NAVG means), and the last pass hands each of the lane's 16
+// bins to emit(slot, k, dB), slot = 4 i + r of bin k = lane + 64 i + 256 r.
+// The group's barrier after the last pass frees buf for the next frame.
+template <int NAVG, class Sync, class Emit>
+__device__ __forceinline__ void reg_frame_dB(const float* __restrict__ xr,
+                                             const float* __restrict__ xi, int stride,
+                                             const float2* __restrict__ w, const float2* tws,
+                                             float2* buf, int lane, long long base,
+                                             float* __restrict__ pbin, Sync sync, Emit emit) {
+  namespace R = iqt::reg;
+  constexpr int N = kLvN;
+  constexpr int T = kLvT;
+  float pw[kLvBins];
+  R::pass_lane<N, 0, false, T, false>(
+      lane, tws,
+      [&](int slot, int i) {
+        const long long j = (base + i) * stride;
+        const float a = xr[j];
+        const float b = xi[j];
+        if constexpr (NAVG > 0) pw[slot] = a * a + b * b;
+        return iqt::cmul(make_float2(a, b), __ldg(&w[i]));
+      },
+      [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
+  if constexpr (NAVG > 0) R::bin_power<NAVG, T>(pw, lane, pbin);
+  sync();
+  R::pass_lane<N, 1, false, T, true>(
+      lane, tws, [buf](int, int i) { return buf[R::pad(i)]; },
+      [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
+  sync();
+  R::pass_lane<N, 2, false, T, false>(
+      lane, tws, [buf](int, int i) { return buf[R::pad(i)]; },
+      [&](int slot, int k, float2 v) {
+        const float p = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+        emit(slot, k, __fmul_rn(kDbPerLn, logf(p + kEps)));
+      },
+      sync);
+  sync();
+}
+
 template <int MODE, int NAVG>
 __global__ void __launch_bounds__(kLvThreads, 2)
 spectrogram_levels_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -263,29 +306,11 @@ spectrogram_levels_reg_kernel(const float* __restrict__ xr, const float* __restr
   const int f1 = min(f0 + frames_per_block, n_frames);
   for (int f = f0 + group; f < f1; f += kLvGroups) {
     const long long base = static_cast<long long>(f) * N;
-    float pw[kLvBins];
-    R::pass_lane<N, 0, false, T, false>(
-        lane, tws,
-        [&](int slot, int i) {
-          const long long j = (base + i) * stride;
-          const float a = xr[j];
-          const float b = xi[j];
-          if constexpr (NAVG > 0) pw[slot] = a * a + b * b;
-          return iqt::cmul(make_float2(a, b), __ldg(&w[i]));
-        },
-        [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
-    if constexpr (NAVG > 0)
-      R::bin_power<NAVG, T>(pw, lane, pbin + static_cast<long long>(f) * (N / NAVG));
-    sync();
-    R::pass_lane<N, 1, false, T, true>(
-        lane, tws, [buf](int, int i) { return buf[R::pad(i)]; },
-        [buf](int, int i, float2 v) { buf[R::pad(i)] = v; }, sync);
-    sync();
-    R::pass_lane<N, 2, false, T, false>(
-        lane, tws, [buf](int, int i) { return buf[R::pad(i)]; },
-        [&](int slot, int k, float2 v) {
-          const float p = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
-          const float d = __fmul_rn(kDbPerLn, logf(p + kEps));
+    float* frame_pbin = nullptr;
+    if constexpr (NAVG > 0) frame_pbin = pbin + static_cast<long long>(f) * (N / NAVG);
+    reg_frame_dB<NAVG>(
+        xr, xi, stride, w, tws, buf, lane, base, frame_pbin, sync,
+        [&](int slot, int k, float d) {
           if (MODE == kLevels) {
             float q = floorf(__fmul_rn(__fsub_rn(d, e0), scale));
             q = fminf(fmaxf(q, 0.f), static_cast<float>(n_bins - 1));
@@ -294,9 +319,7 @@ spectrogram_levels_reg_kernel(const float* __restrict__ xr, const float* __restr
           sm[slot] += d;
           ext[slot * T] = fmaxf(ext[slot * T], d);
           ext[(kLvBins + slot) * T] = fminf(ext[(kLvBins + slot) * T], d);
-        },
-        sync);
-    sync();  // the next frame's pass 0 overwrites buf
+        });
   }
 
   // fold groups 1, 2, ... into group 0 in order: the sums through the
@@ -330,6 +353,49 @@ spectrogram_levels_reg_kernel(const float* __restrict__ xr, const float* __restr
       pb[plane + k] = ext[q * T];
       pb[2 * plane + k] = ext[(kLvBins + q) * T];
     }
+  }
+}
+
+// ---- the dB mode at nfft 1024 -----------------------------------------
+//
+// Replaces the same TPU kernel as spectrogram_kernel<PT, kDb>
+// (spectrogram_dB_pallas), with the same contract and rounding, at nfft =
+// 1024: the frames of the levels kernel above (frame groups of 64 threads
+// on their own barriers, the 16.16.4 passes through reg_frame_dB), with
+// the dB value stored where the last pass leaves it. Lane t holds bins
+// t + 64 i + 256 r, so a warp's stores of one slot are 32 consecutive
+// float32. It keeps no statistics, writes no partials and bins no power,
+// and no reduce kernel follows. Bound on an H100: 128 MiB of planes in and
+// 64 MiB of dB out a 2^24-sample chunk, about 0.060 ms at 3.35 TB/s; it
+// replaces the radix-2 body's ten block-wide barriers and shared-memory
+// round trips a frame, its bit-reversed scatter, and its 512 threads of
+// 2 bins each.
+constexpr size_t kDbSmem = static_cast<size_t>(kLvExtremes) * sizeof(float2);
+
+__global__ void __launch_bounds__(kLvThreads, 2)
+spectrogram_db_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi, int stride,
+                          const float2* __restrict__ w, const float2* __restrict__ tw,
+                          float* __restrict__ db, int n_frames, int frames_per_block) {
+  namespace R = iqt::reg;
+  constexpr int N = kLvN;
+  constexpr int T = kLvT;
+  extern __shared__ float2 smem[];
+  const int group = threadIdx.x / T;
+  const int lane = threadIdx.x % T;
+  float2* buf = smem + group * R::padded_size(N);
+  float2* tws = smem + kLvTable;
+  for (int e = threadIdx.x; e < R::table_total<N>(); e += kLvThreads) tws[e] = __ldg(&tw[e]);
+  const auto sync = [group] {
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(T) : "memory");
+  };
+  __syncthreads();
+
+  const int f0 = blockIdx.x * frames_per_block;
+  const int f1 = min(f0 + frames_per_block, n_frames);
+  for (int f = f0 + group; f < f1; f += kLvGroups) {
+    float* out = db + static_cast<long long>(f) * N;
+    reg_frame_dB<0>(xr, xi, stride, w, tws, buf, lane, static_cast<long long>(f) * N, nullptr,
+                    sync, [out](int, int k, float d) { out[k] = d; });
   }
 }
 
@@ -402,7 +468,8 @@ extern "C" int iqt_spectrogram_prepare(int max_smem) {
   if ((err = allow_mode<kLevels>(max_smem))) return err;
   if ((err = allow_mode<kStats>(max_smem))) return err;
   if ((err = allow_levels_reg<kLevels>())) return err;
-  return allow_levels_reg<kStats>();
+  if ((err = allow_levels_reg<kStats>())) return err;
+  return iqt::allow_smem(spectrogram_db_reg_kernel, kDbSmem);
 }
 
 // xr / xi: the frames' samples at element stride `stride`, n_frames * nfft
@@ -504,5 +571,21 @@ extern "C" int iqt_spectrogram_levels_reg(const void* xr, const void* xi, const 
   spectrogram_reduce_kernel<<<nfft / 32, kReduceWarps * 32, 0, s>>>(
       pp, static_cast<float*>(psum), static_cast<float*>(pmax), static_cast<float*>(pmin),
       n_blocks, nfft);
+  return cudaGetLastError();
+}
+
+// the dB mode at nfft = 1024 by spectrogram_db_reg_kernel: arguments as for
+// iqt_spectrogram, with tw the n_tw entries of 1024's forward tables
+// (ops/kernels/fused_ola.py reg_forward_twiddles). Another nfft or table
+// length: cudaErrorInvalidValue.
+extern "C" int iqt_spectrogram_db_reg(const void* xr, const void* xi, const void* w,
+                                      const void* tw, void* db, int n_tw, int stride,
+                                      int n_frames, int nfft, int frames_per_block,
+                                      int n_blocks, void* stream) {
+  if (nfft != kLvN || n_tw != iqt::reg::table_total<kLvN>()) return cudaErrorInvalidValue;
+  spectrogram_db_reg_kernel<<<n_blocks, kLvThreads, kDbSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xr), static_cast<const float*>(xi), stride,
+      static_cast<const float2*>(w), static_cast<const float2*>(tw), static_cast<float*>(db),
+      n_frames, frames_per_block);
   return cudaGetLastError();
 }

@@ -84,9 +84,11 @@ SIGNATURES = {
     'iqt_chan_stats_reg': ([_P] * 9 + [_I] * 11 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
+    'iqt_hist_bucket': ([_P] * 3 + [_I] * 4 + [_P], _I),
     'iqt_spectrogram_prepare': ([_I], _I),
     'iqt_spectrogram': ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
     'iqt_spectrogram_levels_reg': ([_P] * 10 + [_I] * 9 + [_F] * 2 + [_P], _I),
+    'iqt_spectrogram_db_reg': ([_P] * 5 + [_I] * 6 + [_P], _I),
     'iqt_colhist_prepare': ([_I], _I),
     'iqt_colhist': ([_P] * 2 + [_I] * 7 + [_F] * 2 + [_P], _I),
     'iqt_colhist_reg': ([_P] * 2 + [_I] * 6 + [_F] * 2 + [_P], _I),

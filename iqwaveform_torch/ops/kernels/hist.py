@@ -1,19 +1,23 @@
-"""Fixed-edge histogram counts: the CUDA kernel and its plain PyTorch
+"""Fixed-edge histogram counts: the CUDA kernels and their plain PyTorch
 version.
 
 Replaces the TPU kernel ``histogram_edge_counts_pallas``
 (iqwaveform_tpu/ops/pallas/hist_pallas.py:51, ``_hist_impl`` :83):
-counts[b] = #{e[b-1] < p <= e[b]} from exact float32 compares
-(``csrc/hist.cu``: a binary search per sample over edges in shared
-memory, integer atomics, so the counts are exact). What bounds it on the
-card and what its design does about that are set out at the head of the
-CUDA source.
+counts[b] = #{e[b-1] < p <= e[b]} from exact float32 compares, integer
+atomics, so the counts are exact (``csrc/hist.cu``). Wherever its shared
+memory fits (up to about 27,000 edges on an H100) it launches
+``hist_bucket_kernel``, which finds a sample's bin from a table of the
+edges by the top bits of the sample's float32 key and a short search,
+else the older ``hist_kernel`` (a binary search over all edges);
+:func:`hist_route` picks, before the launch. What bounds each on the card
+and what its design does about that are set out at the head of the CUDA
+source.
 
 The plain version is sort + searchsorted (``ops.power.
 histogram_edge_counts``), as the JAX package's sort path.
 
 :func:`hist` takes the plain version only for a tensor on the CPU; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,7 +27,12 @@ import torch
 from ..power import histogram_edge_counts
 from . import _build
 
-__all__ = ['hist', 'hist_plain']
+__all__ = ['hist', 'hist_plain', 'hist_route']
+
+# hist_bucket_kernel: its table's buckets (csrc/hist.cu kBuckets) and the
+# warps of a block (kBkWarps), whose sums share its shared memory
+BUCKETS = 4096
+BUCKET_WARPS = 16
 
 
 def hist_plain(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
@@ -31,15 +40,49 @@ def hist_plain(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return histogram_edge_counts(p, edges).to(torch.int32)
 
 
+def _generic_smem(n_edges: int) -> int:
+    """hist_kernel's shared memory: the edges and the counts."""
+    return 4 * n_edges + 4 * (n_edges + 1)
+
+
+def _bucket_smem(n_edges: int) -> int:
+    """hist_bucket_kernel's shared memory: the edges, the table of
+    BUCKETS + 1 entries, the warps' scan sums and the counts."""
+    return 4 * n_edges + 4 * (BUCKETS + 1 + BUCKET_WARPS) + 4 * (n_edges + 1)
+
+
+def hist_route(n_edges: int, smem: int) -> str:
+    """the kernel :func:`hist` launches for ``n_edges`` edges on a device
+    whose blocks opt in to ``smem`` bytes of shared memory: ``'bucket'``
+    (``hist_bucket_kernel``) where its table and counts fit, else
+    ``'generic'`` (``hist_kernel``)."""
+    return 'bucket' if _bucket_smem(n_edges) <= smem else 'generic'
+
+
 def hist(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """histogram counts of ``p`` (..., n) float32 against sorted float32
     ``edges`` (E,): counts[..., b] = #{e[b-1] < p <= e[b]}, b in [0, E],
-    int32 (..., E + 1)."""
-    if p.device.type == 'cpu':
-        return hist_plain(p, edges)
-    if p.device.type != 'cuda':
-        raise ValueError(f'hist runs on cpu or cuda tensors, not {p.device}')
+    int32 (..., E + 1); NaN counts in the last bin."""
     dev = p.device
+    if dev.type == 'cpu':
+        return hist_plain(p, edges)
+    if dev.type != 'cuda':
+        raise ValueError(f'hist runs on cpu or cuda tensors, not {dev}')
+    n_edges = edges.shape[0] if isinstance(edges, torch.Tensor) and edges.ndim == 1 else 0
+    return _launch(p, edges, hist_route(n_edges, _build.smem_optin(dev)), dev)
+
+
+def _hist_generic(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """:func:`hist` on CUDA tensors through the older ``hist_kernel``,
+    wherever the bucket kernel fits too: its yardstick in chip_smoke.py and
+    the card tests, never a route of the port."""
+    return _launch(p, edges, 'generic', p.device)
+
+
+def _launch(p, edges, route: str, dev):
+    """launch ``route``'s kernel ('bucket' or 'generic') on ``p``'s device
+    ``dev``; counts the launch in ``hist.launches`` and
+    ``hist.route_launches[route]``."""
     _build.require(p, 'p', device=dev, dtype=torch.float32)
     _build.require(edges, 'edges', device=dev, dtype=torch.float32)
     if edges.ndim != 1 or edges.shape[0] == 0:
@@ -52,19 +95,25 @@ def hist(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
         return counts.reshape(*lead, n_edges + 1)
     if n >= 2**31 or batch >= 2**16:
         raise ValueError('hist takes rows below 2**31 samples and batches below 2**16')
-    if 8 * n_edges + 4 > _build.smem_optin(dev):
+    # the bucket route is taken only where its larger shared memory fits
+    if route == 'generic' and _generic_smem(n_edges) > _build.smem_optin(dev):
         raise NotImplementedError(
-            f'the CUDA histogram kernel keeps its {n_edges} edges and counts in '
+            f'the CUDA histogram kernels keep the {n_edges} edges and counts in '
             'shared memory, which they overflow'
         )
     _build.prepare('iqt_hist_prepare', dev)
-    err = _build.library().iqt_hist(
+    lib = _build.library()
+    entry = lib.iqt_hist_bucket if route == 'bucket' else lib.iqt_hist
+    err = entry(
         p.data_ptr(), edges.data_ptr(), counts.data_ptr(), batch, n, n_edges,
         _build.sm_count(dev), _build.stream_of(p),
     )
-    _build.check(err, 'hist')
+    _build.check(err, f'hist ({route} kernel)')
     hist.launches += 1
+    hist.route_launches[route] += 1
     return counts.reshape(*lead, n_edges + 1)
 
 
 hist.launches = 0
+# launches by kernel: 'bucket' (hist_bucket_kernel), 'generic' (hist_kernel)
+hist.route_launches = {'bucket': 0, 'generic': 0}

@@ -10,10 +10,11 @@ per-bin sum / max / min of dB over all frames of the call and, optionally,
 the detector-binned raw power (:func:`spectrogram_levels`). One radix-2
 CUDA body (``spectrogram_kernel``, ``csrc/spectrogram.cu``) serves both; at
 nfft 1024 (BASELINE config #3) the levels and stats modes run
-``spectrogram_levels_reg_kernel`` instead, on the register-resident passes
-of ``csrc/fft_reg.cuh`` (:func:`levels_route` picks by size, before the
-launch). What bounds each on the card and what its design does about that
-are set out in the source.
+``spectrogram_levels_reg_kernel`` instead, and the dB mode its sibling
+``spectrogram_db_reg_kernel``, on the same register-resident passes of
+``csrc/fft_reg.cuh`` (:func:`levels_route` and :func:`db_route` pick by
+size, before the launch). What bounds each on the card and what its design
+does about that are set out in the source.
 
 Bins come out in natural (centred) order, as ``jnp.fft.fft`` gives them
 with the fftshift baked into the window; the TPU kernels' factored
@@ -40,6 +41,7 @@ from .colhist import quantize_uniform
 from .fused_ola import reg_forward_twiddles
 
 __all__ = [
+    'db_route',
     'levels_route',
     'spectrogram_dB',
     'spectrogram_dB_plain',
@@ -160,13 +162,21 @@ def levels_route(nfft: int, apd_navg: int = 0) -> str:
     return 'reg' if nfft == LEVELS_REG_NFFT and apd_navg in LEVELS_REG_NAVG else 'generic'
 
 
+def db_route(nfft: int) -> str:
+    """the kernel :func:`spectrogram_dB` launches for a supported call:
+    ``'reg'`` (``spectrogram_db_reg_kernel``) at nfft 1024, ``'generic'``
+    (the radix-2 ``spectrogram_kernel``) at every other. The two
+    register-resident kernels share their frame groups and passes."""
+    return 'reg' if nfft == LEVELS_REG_NFFT else 'generic'
+
+
 def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name, route='generic'):
     xr, xi, stride, n_frames, log2n = _check_cuda(name, x, window, nfft, apd_navg)
     dev = x.device
     _build.prepare('iqt_spectrogram_prepare', dev)
     f32 = dict(dtype=torch.float32, device=dev)
     db = levels = part = psum = pmax = pmin = pbin = None
-    # two 256-thread blocks of the register-resident kernel fit an SM
+    # two 256-thread blocks of a register-resident kernel fit an SM
     per_block, n_blocks = _grid(n_frames, 2 if route == 'reg' else 4, dev)
     if mode == _MODE_DB:
         db = torch.empty((n_frames, nfft), **f32)
@@ -184,7 +194,13 @@ def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name, route='gener
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    if route == 'reg':
+    if route == 'reg' and mode == _MODE_DB:
+        tw = reg_forward_twiddles(nfft, dev)
+        err = _build.library().iqt_spectrogram_db_reg(
+            xr.data_ptr(), xi.data_ptr(), window.data_ptr(), tw.data_ptr(), db.data_ptr(),
+            tw.numel(), stride, n_frames, nfft, per_block, n_blocks, _build.stream_of(x),
+        )
+    elif route == 'reg':
         tw = reg_forward_twiddles(nfft, dev)
         err = _build.library().iqt_spectrogram_levels_reg(
             xr.data_ptr(), xi.data_ptr(), window.data_ptr(), tw.data_ptr(), ptr(levels),
@@ -214,12 +230,31 @@ def spectrogram_dB(x: torch.Tensor, window: torch.Tensor, nfft: int) -> torch.Te
         return spectrogram_dB_plain(x, window, nfft)
     if x.device.type != 'cuda':
         raise ValueError(f'spectrogram_dB runs on cpu or cuda tensors, not {x.device}')
-    out = _launch(x, window, nfft, _MODE_DB, name='spectrogram_dB')
+    return _launch_dB(x, window, nfft, db_route(nfft))
+
+
+def _spectrogram_dB_generic(x: torch.Tensor, window: torch.Tensor, nfft: int) -> torch.Tensor:
+    """:func:`spectrogram_dB` on a CUDA tensor through the radix-2
+    ``spectrogram_kernel`` at any supported size, 1024 too: the yardstick
+    of ``spectrogram_db_reg_kernel`` in chip_smoke.py and the card tests,
+    never a route of the port."""
+    return _launch_dB(x, window, nfft, 'generic')
+
+
+def _launch_dB(x, window, nfft, route: str) -> torch.Tensor:
+    """launch ``route``'s kernel ('reg' or 'generic') in the dB mode; counts
+    the launch in ``spectrogram_dB.launches`` and
+    ``spectrogram_dB.route_launches[route]``."""
+    out = _launch(x, window, nfft, _MODE_DB, name='spectrogram_dB', route=route)
     spectrogram_dB.launches += 1
+    spectrogram_dB.route_launches[route] += 1
     return out
 
 
 spectrogram_dB.launches = 0
+# launches by kernel: 'reg' (spectrogram_db_reg_kernel), 'generic'
+# (spectrogram_kernel)
+spectrogram_dB.route_launches = {'reg': 0, 'generic': 0}
 
 
 def spectrogram_levels(

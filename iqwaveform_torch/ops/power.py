@@ -32,8 +32,12 @@ def histogram_edge_counts(a, edges):
     a_sorted = torch.sort(a, dim=-1).values
     e = torch.as_tensor(edges, dtype=a.dtype, device=a.device)
     e = e.expand(*a_sorted.shape[:-1], e.shape[0]).contiguous()
-    # cum[..., b] = #{sample <= e_b}
+    # cum[..., b] = #{sample <= e_b}; the sort puts NaNs last, where
+    # searchsorted would count them at or below an edge of +inf: cap at
+    # the non-NaN count, so that NaN lands in the last bin, as numpy's
+    # searchsorted and the JAX package's sort path place it
     cum = torch.searchsorted(a_sorted, e, side='right')
+    cum = torch.minimum(cum, (~torch.isnan(a_sorted)).sum(dim=-1, keepdim=True))
     n = a_sorted.shape[-1]
     tail = n - cum[..., -1:]
     return torch.cat([cum[..., :1], torch.diff(cum, dim=-1), tail], dim=-1)

@@ -34,7 +34,11 @@ gates above against their plain versions and against the older kernels
 they replace there, and their error against float64 at most twice those
 kernels' (the same float32 sums in another order; for the levels kernel
 the RMS over bins of the dB error of mean and max). The column-pair
-counter: counts equal to bincount's and the older counter's.
+counter: counts equal to bincount's and the older counter's. The
+bucket-table histogram kernel: counts equal to the plain version's and
+the older hist_kernel's. The dB kernel at nfft 1024: phase 6's gate
+against the plain version and the radix-2 body, its error against
+float64 at most twice the radix-2 body's.
 """
 
 import sys
@@ -56,7 +60,13 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     frames_route,
     ola_route,
 )
-from iqwaveform_torch.ops.kernels.spectrogram import _spectrogram_levels_generic, levels_route
+from iqwaveform_torch.ops.kernels.hist import _hist_generic, hist_route
+from iqwaveform_torch.ops.kernels.spectrogram import (
+    _spectrogram_dB_generic,
+    _spectrogram_levels_generic,
+    db_route,
+    levels_route,
+)
 from iqwaveform_torch.ops.kernels.upfirdn import _upfirdn_generic, upfirdn_route
 from iqwaveform_torch.parallel import streaming as TS
 
@@ -261,6 +271,86 @@ def test_colhist_register_kernel_matches_plain_and_generic(card, shape, n_bins):
     assert torch.equal(got, old)
 
 
+def _power(shape, seed):
+    """detector-binned noise power: the mean of 16 |x|^2 of unit complex
+    noise, as the monitor and the fold bin it."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn((*shape, 16, 2), device='cuda', generator=gen)
+    return (x * x).sum(dim=-1).mean(dim=-1)
+
+
+def _apd_edges(n_edges, lo_dB=-120.0, hi_dB=30.0):
+    return torch.from_numpy(
+        (10 ** (np.linspace(lo_dB, hi_dB, n_edges) / 10.0)).astype('float32')).cuda()
+
+
+def _hist_cases():
+    """(p, edges) of each case of test_hist_bucket_kernel_matches_plain."""
+    blackman = it.design_wideband_monitor(30.72e6, 15.36e6, fs_sdr=30.72e6, min_fft_size=2047,
+                                          window='blackman')
+    monitor_edges = it.WidebandMonitor(it.design_wideband_monitor(
+        122.88e6, 61.44e6, **FLAGSHIP)).apd_edges
+    nan_inf = _power((70001,), 43)
+    nan_inf[::97] = float('nan')
+    nan_inf[5::89] = float('inf')
+    nan_inf[7::101] = float('-inf')
+    nan_inf[9::103] = -0.0
+    return {
+        # the three path shapes, cut in length: the flagship (2048 edges,
+        # 524,288 samples, here 2^17 + 3), the fold (513 edges, 2^20, here
+        # 2^18, on an unaligned start), the blackman step (2048 edges of its
+        # design, 8,392,704 samples, here 2^21 + 1)
+        'flagship': (_power((131075,), 40), monitor_edges),
+        'fold': (_power((262145,), 41)[1:], _apd_edges(513)),
+        'blackman': (_power((2097153,), 42), it.WidebandMonitor(blackman).apd_edges),
+        'one bin': (torch.full((300001,), 2.0, device='cuda'), monitor_edges),
+        'nan and inf': (nan_inf, monitor_edges),
+        'one edge': (_power((50003,), 44), torch.tensor([2.0], device='cuda')),
+        'infinite edges': (nan_inf, torch.cat([
+            torch.tensor([-float('inf')], device='cuda'), _apd_edges(511),
+            torch.tensor([float('inf')], device='cuda')])),
+        'batch': (_power((3, 40001), 45), _apd_edges(513)),
+        'last bucket edges': (_power((100000,), 46), _apd_edges(26999, -200.0, 100.0)),
+    }
+
+
+@pytest.mark.parametrize('case', ['flagship', 'fold', 'blackman', 'one bin', 'nan and inf',
+                                  'infinite edges', 'one edge', 'batch', 'last bucket edges'])
+def test_hist_bucket_kernel_matches_plain(card, case):
+    """hist_bucket_kernel: counts equal to hist_plain's (sort + searchsorted)
+    and to the older hist_kernel's, one launch each on its route, at the
+    three path shapes (shorter rows), with every sample in one bin, with
+    NaN, +-inf and -0 samples against finite edges and against edges from
+    -inf to +inf, against one edge, on three rows of a batch,
+    and at the most edges its shared memory takes on an H100 (26,999)."""
+    p, edges = _hist_cases()[case]
+    assert hist_route(edges.numel(), _build.smem_optin(card)) == 'bucket'
+    k = kernels.hist
+    k.route_launches.update(bucket=0, generic=0)
+    got = k(p, edges)
+    assert k.route_launches == {'bucket': 1, 'generic': 0}
+    old = _hist_generic(p, edges)
+    assert k.route_launches == {'bucket': 1, 'generic': 1}
+    assert got.shape == (*p.shape[:-1], edges.numel() + 1) and got.dtype == torch.int32
+    assert torch.equal(got, kernels.hist_plain(p, edges))
+    assert torch.equal(got, old)
+    assert bool((got.sum(dim=-1) == p.shape[-1]).all())
+
+
+def test_hist_above_the_bucket_kernel_takes_the_older_kernel(card):
+    """27,000 edges overflow the bucket kernel's shared memory on an H100:
+    hist launches hist_kernel, with the same counts as the plain version."""
+    edges = _apd_edges(27000, -200.0, 100.0)
+    assert hist_route(26999, _build.smem_optin(card)) == 'bucket'
+    assert hist_route(edges.numel(), _build.smem_optin(card)) == 'generic'
+    p = _power((100000,), 47)
+    k = kernels.hist
+    k.route_launches.update(bucket=0, generic=0)
+    got = k(p, edges)
+    assert k.route_launches == {'bucket': 0, 'generic': 1}
+    assert torch.equal(got, kernels.hist_plain(p, edges))
+
+
 def test_wrappers_check_their_inputs(monitor):
     x = torch.zeros(monitor.min_input_multiple(), dtype=torch.complex64, device='cuda')
     with pytest.raises(TypeError):
@@ -360,6 +450,45 @@ def test_levels_register_kernel_matches_plain_and_radix2(card, navg, complex_inp
         err = float(((got[key].double() - ref64[key]) * scale).pow(2).mean().sqrt())
         err_generic = float(((generic[key].double() - ref64[key]) * scale).pow(2).mean().sqrt())
         assert err <= 2 * err_generic, key
+
+
+@pytest.mark.parametrize('complex_input', [False, True])
+def test_db_register_kernel_matches_plain_and_radix2(card, complex_input):
+    """spectrogram_db_reg_kernel at nfft 1024 on 601 frames (not a multiple
+    of a block's 4 frame groups; the last blocks short): one launch on its
+    route, within phase 6's gate (1e-3 dB where the plain version is above
+    -100 dB and within 40 dB below its frame's mean power) of the plain
+    version and of the radix-2 body, and its RMS dB error against float64
+    on those values at most twice the radix-2 body's. Other sizes keep the
+    radix-2 body."""
+    nfft = 1024
+    assert db_route(nfft) == 'reg'
+    design = TS.design_persistence(nfft=nfft, window='hann', hist_bins=2048)
+    w = torch.from_numpy(design['kernel_window']).to(card)
+    planes = _planes(601 * nfft + 3, 33)[:, 3:]
+    x = torch.complex(planes[0], planes[1]) if complex_input else planes
+    k = kernels.spectrogram_dB
+    k.route_launches.update(reg=0, generic=0)
+    got = k(x, w, nfft)
+    assert k.route_launches == {'reg': 1, 'generic': 0}
+    generic = _spectrogram_dB_generic(x, w, nfft)
+    assert k.route_launches == {'reg': 1, 'generic': 1}
+    ref = kernels.spectrogram_dB_plain(x, w, nfft)
+    assert got.shape == generic.shape == ref.shape == (601, nfft)
+    mean_dB = 10 * torch.log10((10 ** (ref.double() / 10)).mean(dim=1, keepdim=True))
+    band = (ref > -100) & (ref > mean_dB - 40)
+    assert float(band.float().mean()) > 0.999
+    for other in (ref, generic):
+        assert float((got - other)[band].abs().max()) <= 1e-3
+    ref64 = kernels.spectrogram_dB_plain(planes.double(), w.to(torch.complex128), nfft)
+    err = float((got.double() - ref64)[band].pow(2).mean().sqrt())
+    err_generic = float((generic.double() - ref64)[band].pow(2).mean().sqrt())
+    assert err <= 2 * err_generic
+    w2048 = torch.from_numpy(TS.design_persistence(
+        nfft=2048, window='hann', hist_bins=2048)['kernel_window']).to(card)
+    assert db_route(2048) == 'generic'
+    k(planes[:, : 40 * 2048], w2048, 2048)
+    assert k.route_launches == {'reg': 1, 'generic': 2}
 
 
 def test_levels_other_sizes_and_navg_take_the_radix2_body(card):

@@ -2,10 +2,11 @@
 the frame kernel (``fused_ola_frames_reg_kernel``), the 2:1 OLA kernel
 (``fused_ola_reg_kernel``, both csrc/fused_ola.cu), the channel-only
 channelizer (``chan_power_reg_kernel``), the channelizer statistics
-kernel (``chan_stats_reg_kernel``, both csrc/chan_stats.cu) and the
-persistence levels kernel (``spectrogram_levels_reg_kernel``,
-csrc/spectrogram.cu), held against np.fft and against the plain versions
-on the CPU, and the host routes that pick them.
+kernel (``chan_stats_reg_kernel``, both csrc/chan_stats.cu), the
+persistence levels kernel (``spectrogram_levels_reg_kernel``) and its dB
+sibling (``spectrogram_db_reg_kernel``, both csrc/spectrogram.cu), held
+against np.fft and against the plain versions on the CPU, and the host
+routes that pick them.
 
 The model follows the kernel's own index math in float64: the threads of
 a block and the butterflies each takes per pass (t, t + T, ...; the last
@@ -21,7 +22,9 @@ power, each thread's 16 bins with their sums of ln and maxima, and the
 fixed-order fold of the blocks' partials; for the levels kernel the
 64-thread frame groups of a block, the windowed pass-0 load, the
 shuffle-binned detector power, each lane's 16 bins with their levels and
-statistics, and the fold of the groups and blocks. Tolerance: 1e-12 relative (float64 roundoff of
+statistics, and the fold of the groups and blocks; for the dB kernel
+the same frame groups and passes, each lane's 16 bins stored as dB.
+Tolerance: 1e-12 relative (float64 roundoff of
 a few passes); levels exactly equal (both quantize in float32). The
 kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py phases 1-4, 8, 10 and 15).
@@ -700,6 +703,57 @@ def test_levels_route_and_cpu_tensors():
     for key in ('levels', 'psum', 'pmax', 'pmin', 'p_binned'):
         torch.testing.assert_close(got[key], ref[key])
     assert (dict(k.route_launches), k.launches) == before
+
+
+def db_model(xr, xi, w, per_block):
+    """spectrogram_db_reg_kernel on float64 planes: the levels kernel's
+    blocks of ``per_block`` frames, each walked by its frame groups, the
+    windowed pass-0 load and the three passes; the last pass leaves lane t
+    bins t + 64 i + 256 r, stored as dB in the frame's row. Returns the
+    (frames, 1024) dB and how often each value was stored."""
+    N, T, G = LEVELS_REG_NFFT, LEVELS_REG_THREADS, LEVELS_REG_GROUPS
+    n_frames = xr.size // N
+    buf = np.zeros(N + N // 16, complex)
+    db = np.zeros((n_frames, N))
+    stores = np.zeros((n_frames, N), int)
+    lanes = np.arange(T)
+    for blk in range(-(-n_frames // per_block)):
+        f0, f1 = blk * per_block, min((blk + 1) * per_block, n_frames)
+        for g in range(G):
+            for f in range(f0 + g, f1, G):
+                base = f * N
+
+                def first(idx, base=base):
+                    assert np.array_equal(idx, lanes[:, None] + T * np.arange(16)[None, :])
+                    return (xr[base + idx] + 1j * xi[base + idx]) * w[idx]
+
+                def last(idx, v, f=f):
+                    rows = np.arange(idx.shape[0])
+                    t, i = rows % T, rows // T
+                    assert np.array_equal(idx, (t + T * i)[:, None] + 4 * T * np.arange(4)[None, :])
+                    db[f, idx] = 10 / np.log(10) * np.log(np.abs(v) ** 2 + 1e-25)
+                    np.add.at(stores[f], idx, 1)
+
+                fft_model(N, False, first, last, buf)
+    return db, stores
+
+
+@pytest.mark.parametrize('n_frames,per_block', [(23, 7), (9, 16), (1, 1)])
+def test_db_model_matches_plain(n_frames, per_block):
+    """the modelled dB kernel at BASELINE config #3's window (nfft 1024
+    hann) on float64 noise, with frame counts that leave the last block's
+    groups short or empty: every value stored once, within 1e-12 of
+    spectrogram_dB_plain in float64."""
+    design = TS.design_persistence(nfft=1024, window='hann', hist_bins=2048)
+    w = np.asarray(design['kernel_window'], np.complex128)
+    rng = np.random.default_rng(n_frames)
+    xr, xi = rng.standard_normal((2, n_frames * 1024)) * 1e-2
+    got, stores = db_model(xr, xi, w, per_block)
+    assert (stores == 1).all()
+    ref = kernels.spectrogram_dB_plain(torch.from_numpy(np.stack([xr, xi])), torch.from_numpy(w),
+                                       1024).numpy()
+    assert got.shape == ref.shape == (n_frames, 1024)
+    assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
 def fold_model(part, op):

@@ -121,9 +121,16 @@ def test_chan_stats_plain_matches_pallas(analysis_bins):
         assert rel_rms(g, r) <= 1e-5, key
 
 
-def test_hist_plain_matches_pallas_exactly():
+@pytest.mark.parametrize('path', ['monitor', 'fold'])
+def test_hist_plain_matches_pallas_exactly(path):
+    """the monitor's 2048 APD edges, and the persistence + APD fold's 513
+    (10^(linspace(-120, 30, 513) / 10), chip_smoke.py phase 4)."""
     _, tm = _monitors()
-    edges = tm._apd_edges_pow
+    if path == 'monitor':
+        edges, edges_t = tm._apd_edges_pow, tm.apd_edges
+    else:
+        edges = (10 ** (np.linspace(-120.0, 30.0, 513) / 10.0)).astype('float32')
+        edges_t = torch.from_numpy(edges)
     rng = np.random.default_rng(13)
     vals = np.concatenate([
         10 ** rng.uniform(-13, 4, 20000),  # across and beyond the edge range
@@ -133,7 +140,7 @@ def test_hist_plain_matches_pallas_exactly():
     rng.shuffle(vals)
 
     ref = np.asarray(histogram_edge_counts_pallas(jnp.asarray(vals), edges, interpret=True))
-    got = kernels.hist(torch.from_numpy(vals), tm.apd_edges).numpy()
+    got = kernels.hist(torch.from_numpy(vals), edges_t).numpy()
     assert got.dtype == np.int32 and got.shape == (edges.size + 1,)
     np.testing.assert_array_equal(got, ref.astype(np.int64))
     assert got[0] > 0 and got[-1] > 0

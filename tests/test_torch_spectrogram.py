@@ -22,6 +22,7 @@ import torch
 
 from iqwaveform_torch.ops import kernels
 from iqwaveform_torch.ops.kernels.colhist import packed_plan, uniform_quant, unpack_packed_counts
+from iqwaveform_torch.ops.kernels.spectrogram import db_route
 from iqwaveform_torch.parallel import sharded as port_sharded
 from iqwaveform_torch.parallel import streaming as port_streaming
 from iqwaveform_tpu.ops.mxu_fft import plan_factors as jax_plan_factors
@@ -79,6 +80,23 @@ def test_spectrogram_dB_plain_matches_pallas(nfft):
         assert got.shape == ref.shape == (SLAB // nfft, nfft) and got.dtype == np.float32
         assert np.abs(got - ref)[shallow].max() <= 1e-3
         assert np.abs(got - exact)[band].max() <= 1e-3
+
+
+def test_db_route_and_cpu_tensors():
+    """the register-resident dB kernel takes nfft 1024; every other size
+    keeps the radix-2 kernel; a CPU tensor runs the plain version and
+    counts no launch."""
+    assert db_route(1024) == 'reg'
+    for nfft in (64, 256, 512, 2048, 4096, 16384):
+        assert db_route(nfft) == 'generic', nfft
+    design = port_streaming.design_persistence(nfft=1024, window='hann', hist_bins=2048)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 3 * 1024)).astype('float32'))
+    w = torch.from_numpy(design['kernel_window'])
+    k = kernels.spectrogram_dB
+    before = dict(k.route_launches), k.launches
+    torch.testing.assert_close(k(x, w, 1024), kernels.spectrogram_dB_plain(x, w, 1024))
+    assert (dict(k.route_launches), k.launches) == before
 
 
 @pytest.mark.parametrize('stats_only', [False, True])
