@@ -20,7 +20,7 @@ build/iqwaveform_torch/), then, at the flagship WidebandMonitor design
    on each of its four outputs; the histogram through its bucket-table
    kernel (``hist_bucket_kernel``); ptxas must report no spill in the
    register-resident channelizer, levels and dB kernels, the column-pair
-   counter or the bucket-table histogram;
+   counter, the bucket-table histogram or the cluster frame kernel;
 2. drives the full ``step`` on 2^24 complex64 samples: each kernel's
    launch count must rise, the OLA, channelizer and histogram route counts
    must name ``fused_ola_reg_kernel``, ``chan_stats_reg_kernel`` and
@@ -130,7 +130,32 @@ then the OFDM path on 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at
    version and of the radix-2 kernel, its complex128 error on the first
    512 frames at most twice the radix-2 kernel's, the per-capture
    statistics of bench.py, no library kernel in its profile, timed beside
-   the radix-2 kernel.
+   the radix-2 kernel;
+
+then the monitor at frames above one block's shared memory, on the frame
+kernel's cluster route (``fused_ola_frames_cluster_kernel``: one frame on
+a thread-block cluster of C blocks):
+
+16. (a) the cluster kernel at each compiled pair (32768 -> 8192 and
+   16384, 36864 -> 12288, 40960 -> 20480 and 40960, 49152 -> 24576,
+   81920 -> 40960) on 64 frames: one launch on its route, within 1e-5 of
+   the plain chain, its complex128 error at most twice the plain chain's;
+   (b) ``WidebandMonitor.step`` at the blackmanharris design of the
+   flagship rates (81920 -> 40960, R = 5) on 16,793,600 samples: one
+   cluster launch, the step gates of phase 3 against ``reference_step``;
+   (c) the path: ``WidebandMonitor.step`` at the blackman design of the
+   flagship rates (``design_wideband_monitor(122.88e6, 61.44e6, bw=40e6,
+   fs_sdr=122.88e6, window='blackman')``: 49152 -> 24576 at R = 3, a 16 x
+   256 channelizer at navg 1, 2048 APD edges) on 2^24 samples: one launch
+   each of the cluster kernel, ``chan_stats_reg_kernel`` and
+   ``hist_bucket_kernel`` (route counts), no other frame kernel and no
+   cuFFT / cuBLAS / cuDNN kernel in its profile, phase 3's gates against
+   ``reference_step`` and the CPU step on a short input, timed (median of
+   20 after 3 warm-ups) with the device time by kernel; the cluster kernel
+   on the step's 1024 frames against the plain chain, its first 512 frames
+   against complex128 (at most twice the plain chain's error), timed
+   beside its bound, the plain chain and the torch.fft chain (its library
+   call).
 
 It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -199,6 +224,10 @@ KERNEL_INFO = {
                        'iqwaveform_tpu/ops/pallas/colhist_pallas.py:106'),
     'fused_ola_frames': ('iqwaveform_torch/csrc/fused_ola.cu',
                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
+    # the same wrapper's cluster route (fused_ola_frames_cluster_kernel), as
+    # the monitor's grouped overlap-add runs it at R = 3
+    'fused_ola_frames_cluster': ('iqwaveform_torch/csrc/fused_ola.cu',
+                                 'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
     'upfirdn': ('iqwaveform_torch/csrc/upfirdn.cu',
                 'iqwaveform_tpu/ops/pallas/upfirdn_pallas.py:210'),
     'corr_at_indices': ('iqwaveform_torch/csrc/corr.cu',
@@ -245,12 +274,28 @@ UPFIRDN_REG_KERNEL = 'upfirdn_reg_kernel'
 # body it replaces there, which the fold's profile may not show
 LEVELS_REG_KERNEL = 'spectrogram_levels_reg_kernel'
 LEVELS_GENERIC_KERNEL = 'spectrogram_kernel'
+# the frame kernel of frames above one block's shared memory, one frame a
+# thread-block cluster
+CLUSTER_KERNEL = 'fused_ola_frames_cluster_kernel'
 # kernels whose ptxas report must show no spill
-NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL)
+NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL,
+            CLUSTER_KERNEL)
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
 N_MONITOR_R3 = 683 * 24576  # whole min_input_multiple()s, at least 2^24
+
+# the monitor at the blackman design of the flagship rates: 122.88 -> 61.44
+# MS/s, 40 MHz, frames of 49152 -> 24576 at R = 3 on the cluster kernel, a
+# 16 x 256 channelizer (navg 1), 2048 APD edges; 2^24 samples a step
+CLUSTER_MONITOR = dict(bw=40e6, fs_sdr=122.88e6, window='blackman')
+N_CLUSTER_STEP = 1 << 24
+# the blackmanharris design of the same rates (81920 -> 40960, R = 5): one
+# step on whole min_input_multiple()s, about 2^24 samples
+CLUSTER_MONITOR_BH = dict(bw=40e6, fs_sdr=122.88e6, window='blackmanharris')
+N_CLUSTER_STEP_BH = 205 * 81920
+# each compiled pair on a few frames against the plain chain and complex128
+N_CLUSTER_FRAMES = 64
 
 # the OFDM path: 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at 30.72 MS/s
 LTE_BW = 20e6
@@ -1035,13 +1080,13 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
 
 
 def trace_call(name: str) -> int:
-    """``python3 chip_smoke.py --trace corr|channelize``: make the call of
-    phase 11 or 15 at its shapes, on noise from ``SEED`` (its kernels' work
-    does not depend on the values), warm it up, trace it with
+    """``python3 chip_smoke.py --trace corr|channelize|cluster``: make the
+    call of phase 11, 15 or 16c at its shapes, on noise from ``SEED`` (its
+    kernels' work does not depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
     line, a JSON object. Exits 1 if the trace lacks a kernel."""
     sys.path.insert(0, str(ROOT))
-    from iqwaveform_torch import channelize_power, ofdm
+    from iqwaveform_torch import WidebandMonitor, channelize_power, design_wideband_monitor, ofdm
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1055,6 +1100,14 @@ def trace_call(name: str) -> int:
             return ofdm.corr_at_indices(inds, x, phy.nfft)
 
         expect = ('corr_accumulate_kernel', 'corr_finish_kernel')
+    elif name == 'cluster':
+        mon = WidebandMonitor(design_wideband_monitor(122.88e6, 61.44e6, **CLUSTER_MONITOR))
+        x = torch.randn(N_CLUSTER_STEP, dtype=torch.complex64, device=dev, generator=gen)
+
+        def fn():
+            return mon.step(x)
+
+        expect = (CLUSTER_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -1241,7 +1294,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'generic': 0}, f'{label} frame kernels {routes}')
+        require(routes == {'reg': 1, 'cluster': 0, 'generic': 0}, f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -1555,7 +1608,7 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'generic': 0}, f'{label} frame kernels {routes}')
+        require(routes == {'reg': 1, 'cluster': 0, 'generic': 0}, f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
     phy = ofdm.Phy3GPP(LTE_BW)
@@ -1788,6 +1841,183 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     return [corr_row, chan_row]
 
 
+def reset_counts() -> None:
+    """every kernel wrapper's launch count, and each of its route counts,
+    to 0."""
+    from iqwaveform_torch.ops import kernels
+
+    for k in kernels.KERNELS:
+        k.launches = 0
+        routes = getattr(k, 'route_launches', None)
+        if routes is not None:
+            routes.update(dict.fromkeys(routes, 0))
+
+
+def cluster_kwargs(nfft: int, nfft_out: int, gen, dev) -> dict:
+    """the frame kernel's arguments at a cluster pair: random windows and an
+    offset trim (a nonzero zero_lo, an output range inside the spectrum,
+    in_lo - out_lo no multiple of C); every bin kept where nothing is
+    resampled."""
+    if nfft_out == nfft:
+        zero, b_in, b_out = (1203, nfft - 901), (0, nfft), (0, nfft)
+    else:
+        zero, b_in, b_out = (901, nfft - 1203), (1501, 1501 + nfft_out - 333), (111, nfft_out - 222)
+    w = torch.randn(nfft + nfft_out, dtype=torch.complex64, device=dev, generator=gen)
+    return dict(w_in=w[:nfft] / nfft, w_shift_out=w[nfft:], nfft=nfft, nfft_out=nfft_out,
+                zero_lo=zero[0], zero_hi=zero[1], bounds_in=b_in, bounds_out=b_out)
+
+
+def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 16; returns the kernels line's row of the cluster route."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import CLUSTER_PAIRS
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def wide(kw):
+        return {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+
+    # ---- phase 16a: each compiled pair against the plain chain and
+    # complex128: its error at most twice the plain chain's (float32 torch.fft)
+    pairs = {}
+    for (nfft, nfft_out), c in sorted(CLUSTER_PAIRS.items()):
+        kw = cluster_kwargs(nfft, nfft_out, gen, dev)
+        hop = nfft // 3
+        capture = torch.randn(N_CLUSTER_FRAMES * hop + nfft, dtype=torch.complex64, device=dev,
+                              generator=gen)
+        frames = capture.unfold(-1, nfft, hop)[:N_CLUSTER_FRAMES]
+        reset_counts()
+        got = kernels.fused_ola_frames(frames, **kw)
+        torch.cuda.synchronize()
+        routes = dict(kernels.fused_ola_frames.route_launches)
+        require(routes == {'reg': 0, 'cluster': 1, 'generic': 0},
+                f'fused_ola_frames at {nfft} -> {nfft_out}: kernels {routes}')
+        ref = kernels.fused_ola_frames_plain(frames, **kw)
+        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **wide(kw))
+        err, err64, plain64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+        pairs[f'{nfft}->{nfft_out}'] = {'C': c, 'relative_rms': err, 'f64_rel_rms': err64,
+                                         'plain_f64_rel_rms': plain64}
+        print(f'{CLUSTER_KERNEL} {nfft} -> {nfft_out} (C = {c}), {N_CLUSTER_FRAMES} frames: vs '
+              f'plain relative RMS {err:.3g}; vs complex128 {err64:.4g}, the plain chain '
+              f'{plain64:.4g}')
+        require(err <= 1e-5, f'{CLUSTER_KERNEL} {nfft} -> {nfft_out}: relative RMS {err:.3g}')
+        require(err64 <= 2 * plain64,
+                f'{CLUSTER_KERNEL} {nfft} -> {nfft_out}: complex128 error {err64:.4g} > 2 x the '
+                f'plain chain\'s {plain64:.4g}')
+        del capture, frames, got, ref, ref64
+    torch.cuda.empty_cache()
+
+    # ---- phase 16b: the blackmanharris monitor (81920 -> 40960, R = 5)
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **CLUSTER_MONITOR_BH))
+    d = mon.design
+    require((d.nfft, d.nfft_out) == (81920, 40960), f'blackmanharris design {d.nfft} -> {d.nfft_out}')
+    x = torch.randn(N_CLUSTER_STEP_BH, dtype=torch.complex64, device=dev, generator=gen)
+    reset_counts()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    routes = dict(kernels.fused_ola_frames.route_launches)
+    require(routes == {'reg': 0, 'cluster': 1, 'generic': 0}, f'blackmanharris step kernels {routes}')
+    check_step(out, mon.reference_step(x), 'blackmanharris 81920 -> 40960 step vs plain-version step')
+    print(f'blackmanharris step: {N_CLUSTER_STEP_BH} samples, 81920 -> 40960 frames, kernels '
+          f'{json.dumps(routes)}, within the step gates of the plain-version step')
+    del mon, x, out
+    torch.cuda.empty_cache()
+
+    # ---- phase 16c: the blackman step (49152 -> 24576, R = 3) on 2^24
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **CLUSTER_MONITOR))
+    d = mon.design
+    require((d.nfft, d.nfft_out, mon.chan_kwargs['nfft_big'], d.apd_navg, d.apd_bins)
+            == (49152, 24576, 4096, 1, 2048),
+            f'blackman design {d.nfft} -> {d.nfft_out}, channelizer {mon.chan_kwargs["nfft_big"]}')
+    x = torch.randn(N_CLUSTER_STEP, dtype=torch.complex64, device=dev, generator=gen)
+    mon.step(x[: 4 * mon.min_input_multiple()])  # warm-up: first-use setup
+    torch.cuda.synchronize()
+    reset_counts()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    launched = {name: k.launches for name, k in kset.items() if k.launches}
+    routes = {'fused_ola_frames': dict(kernels.fused_ola_frames.route_launches),
+              'chan_stats': dict(kernels.chan_stats.route_launches),
+              'hist': dict(kernels.hist.route_launches)}
+    print(f'cluster step launches: {json.dumps(launched)}; kernels by route {json.dumps(routes)}')
+    require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
+            f'cluster step launches {launched}')
+    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'generic': 0},
+                       'chan_stats': {'reg': 1, 'generic': 0},
+                       'hist': {'bucket': 1, 'generic': 0}},
+            f'cluster step routes {routes}')
+    n_fr = N_CLUSTER_STEP // mon.hop_in
+    require(out['channel_power'].shape[-2] == n_fr * mon.hop_out // mon.chan_kwargs['nfft_big'],
+            f'cluster step channel power {tuple(out["channel_power"].shape)}')
+    check_step(out, mon.reference_step(x), 'cluster step vs plain-version step')
+    small = x[: 4 * mon.min_input_multiple()].cpu()
+    check_step({k: v.cpu() for k, v in mon.step(small).items()},
+               it.WidebandMonitor(d, device='cpu').step(small),
+               'cluster step: card vs CPU step (short input)')
+    step_ms = timed_ms(lambda: mon.step(x))
+    names, device_us = device_kernels(lambda: mon.step(x), CLUSTER_KERNEL, STATS_REG_KERNEL,
+                                      HIST_KERNEL, fresh='cluster')
+    print('cluster step device kernels: ' + json.dumps(names))
+    require(any(CLUSTER_KERNEL in n for n in names), f'profiler shows no {CLUSTER_KERNEL} in the step')
+    other = [n for n in names if REG_KERNEL in n or GENERIC_KERNEL in n]
+    require(not other, f'another frame kernel ran in the cluster step: {other}')
+    require_stats_kernel(names, 'the cluster step')
+    require_hist_kernel(names, 'the cluster step')
+    bad = library_kernels(names)
+    require(not bad, f'library FFT / GEMM / cuDNN kernels in the cluster step: {bad}')
+    busy = sum(device_us.values()) / 1e3
+    print('cluster step device time by kernel (us): ' + json.dumps(
+        dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+    print(f'cluster step: {step_ms:.4f} ms for {N_CLUSTER_STEP} samples = '
+          f'{N_CLUSTER_STEP / step_ms / 1e3:.1f} MS/s; device busy {busy:.4f} ms (idle share '
+          f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+
+    # the kernel alone on the step's frames
+    kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    xe = torch.cat([x, x.new_zeros(mon.noverlap_in)])
+    fr = xe.unfold(-1, d.nfft, mon.hop_in)[:n_fr]
+    got = kernels.fused_ola_frames(fr, **kw)
+    ref = kernels.fused_ola_frames_plain(fr, **kw)
+    err = rel_rms(got, ref)
+    ref64 = kernels.fused_ola_frames_plain(fr[:N_F64_FRAMES].to(torch.complex128), **wide(kw))
+    err64, plain64 = rel_rms(got[:N_F64_FRAMES], ref64), rel_rms(ref[:N_F64_FRAMES], ref64)
+    print(f'{CLUSTER_KERNEL} on the step\'s frames {tuple(fr.shape)} -> {tuple(got.shape)}: vs '
+          f'plain relative RMS {err:.3g}; first {N_F64_FRAMES} frames vs complex128 {err64:.4g}, '
+          f'the plain chain {plain64:.4g}')
+    require(err <= 1e-5, f'{CLUSTER_KERNEL} on the step\'s frames: relative RMS {err:.3g}')
+    require(err64 <= 2 * plain64,
+            f'{CLUSTER_KERNEL} on the step\'s frames: complex128 error {err64:.4g} > 2 x the '
+            f'plain chain\'s {plain64:.4g}')
+    row = kernel_row(
+        'fused_ola_frames_cluster',
+        {'launches': launched.get('fused_ola_frames', 0), 'max_abs_err': max_abs(got, ref)},
+        8 * x.numel() + 8 * got.numel(),
+        n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)),
+        lambda: kernels.fused_ola_frames(fr, **kw),
+        lambda: kernels.fused_ola_frames_plain(fr, **kw),
+        lambda: kernels.fused_ola_frames_plain(fr, **kw),
+        mem_rate, fp32_rate,
+    )
+    row['profiled_device_ms'] = device_ms(device_us, CLUSTER_KERNEL)
+    row['f64_rel_rms'] = err64
+    row['plain_f64_rel_rms'] = plain64
+    row['path'] = 'WidebandMonitor.step, blackman 122.88 -> 61.44 MS/s, 49152 -> 24576, R = 3'
+    row['path_ms'] = step_ms
+    row['pairs'] = pairs
+    print(f'{CLUSTER_KERNEL}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+          f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms, library (torch.fft chain) '
+          f'{row["library_ms"]:.4f} ms), {row["profiled_device_ms"]:.4f} ms of device time in the '
+          f'profiled step, on {smi}')
+    del x, xe, fr, got, ref, ref64, out, mon
+    torch.cuda.empty_cache()
+    print(f'phase 16 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return [row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1817,7 +2047,7 @@ def main() -> int:
     print(f'build: {time.perf_counter() - t0:.1f} s')
     for line in _build.ptxas_report().splitlines():
         if ('registers' in line or 'spill' in line or line.startswith('==')
-                or ('Compiling entry' in line and 'reg_kernel' in line)):
+                or ('Compiling entry' in line and ('reg_kernel' in line or 'cluster_kernel' in line))):
             print(f'ptxas: {line.strip()}')
     require_no_spill(_build.ptxas_report())
 
@@ -2027,6 +2257,9 @@ def main() -> int:
 
     # ---- phases 11-15: the OFDM path and channelize_power
     rows = merge_rows(rows, ofdm_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 16: the monitor at frames above one block (cluster kernel)
+    rows = merge_rows(rows, cluster_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

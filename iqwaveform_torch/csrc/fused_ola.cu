@@ -1,4 +1,5 @@
-// Fused OLA bandpass + rational resample, one block per OLA frame.
+// Fused OLA bandpass + rational resample, one block per OLA frame (one
+// thread-block cluster per frame above one block's shared memory).
 //
 // Replaces: iqwaveform_tpu/ops/pallas/fused_ola_pallas.py
 //   fused_ola_strided (_fused_ola_strided_kernel); its per-frame chain is
@@ -31,6 +32,7 @@
 // block-wide barrier per radix-2 stage (27 stages per flagship frame); at
 // the flagship pair fused_ola_reg_kernel below takes its place.
 #include "fft.cuh"
+#include "fft_cluster.cuh"
 #include "fft_reg.cuh"
 
 namespace {
@@ -330,6 +332,214 @@ cudaError_t launch_frames_reg(dim3 grid, cudaStream_t stream, const float2* x,
   return cudaGetLastError();
 }
 
+// ---- the frame-batch entry above one block's shared memory --------------
+//
+// Replaces the same TPU kernels as fused_ola_frames_kernel above
+// (fused_ola_pallas.py fused_ola_packed and fused_ola_pallas), with the
+// same contract, at frames no block can hold: 8 bytes a point, 49152 ->
+// 24576 is 384 KiB, above an H100 block's 227 KiB. These are the monitor's
+// frames at the blackman and blackmanharris designs of the flagship rates
+// (R = 3 and 5, the grouped overlap-add in torch) and ola_filter's at
+// such windows; the host route (ops/kernels/fused_ola.py frames_route)
+// picks this kernel at the pairs it is compiled for (CLUSTER_PAIRS).
+//
+// One frame runs on a thread-block cluster of C blocks (launched with
+// cudaLaunchKernelEx and a cluster dimension of C; blockIdx.x = C m +
+// rank), each holding M1 = N1 / C, then M2 = N2 / C points in its own
+// padded exchange buffer, on the register-resident M-point passes of
+// csrc/fft_reg.cuh (csrc/fft_cluster.cuh sets out the split):
+//   1. cluster barrier: every block has begun;
+//   2. the forward radix-C step: block `rank` owns frame offsets n of its
+//      slice of [0, M1): it reads samples c M1 + n (c < C) times w_in,
+//      coalesced, takes their C-point DFT in registers, and stores output
+//      r times exp(-2 pi i r n / N1) at n in block r's buffer;  cluster
+//      barrier;
+//   3. block r's M1-point forward passes, in its own buffer: bins X[C k +
+//      r];  cluster barrier;
+//   4. the trim as the inverse's pass-0 load: inverse bin j = C i + r of
+//      block r reads forward bin k = in_lo + j - out_lo, masked by
+//      [zero_lo, zero_hi) and [out_lo, out_hi), which lies in one block,
+//      (r + in_lo - out_lo) mod C, at a fixed offset from i: a gather from
+//      that block's buffer (cluster barrier before the stores); block r's
+//      M2-point inverse passes, times exp(+2 pi i r n / N2), into its
+//      buffer;  cluster barrier;
+//   5. the inverse radix-C step: block `rank` owns offsets n of its slice
+//      of [0, M2): it reads point n of every block's buffer, takes their
+//      C-point inverse DFT, and writes output sample s M2 + n times w_out /
+//      N2, coalesced;  cluster barrier, so that no block exits while
+//      another reads its buffer.
+//
+// Bound on an H100 (device memory: each input sample read once, each
+// output written once, 8 B each): 0.1002 ms at 3.35 TB/s for the 1024
+// frames of 49152 -> 24576 on 2^24 samples; the FFT work (about 5.8e9
+// flop) takes 0.086 ms at 67 TFLOP/s. This first version is simple and
+// right: one frame a cluster, six cluster barriers a frame, the cross
+// twiddles read from device memory (L2) and not from shared memory (a
+// block's buffer and pass tables leave no room for them), each block's
+// exchange buffer shared by both transforms. Distributed shared memory is
+// slower than a block's own: each radix-C step has one block touch each
+// point of every part once (it owns the point), rather than every block
+// read every part. Not done here: overlapping the next frame's load with
+// this frame's passes, and the radix-C steps inside the neighbouring
+// passes.
+template <int N1, int N2, int C>
+struct ClusterShape {
+  static constexpr int m1 = N1 / C, m2 = N2 / C;
+  static_assert(m1 * C == N1 && m2 * C == N2, "C divides both sizes");
+  static constexpr int m_max = m1 > m2 ? m1 : m2;
+  // the host table (fused_ola.py _cluster_tables): both transforms' pass
+  // tables, then the cross twiddles of the forward (C x M1) and inverse
+  // (C x M2)
+  static constexpr int passes = iqt::reg::table_total<m1>() + iqt::reg::table_total<m2>();
+  static constexpr int fwd_cross = passes;
+  static constexpr int inv_cross = fwd_cross + C * m1;
+  static constexpr int tw_count = inv_cross + C * m2;
+  static constexpr size_t smem =
+      static_cast<size_t>(iqt::reg::padded_size(m_max) + passes) * sizeof(float2);
+};
+
+template <int N1, int N2, int C, int T>
+__global__ void __launch_bounds__(T, 1)
+fused_ola_frames_cluster_kernel(const float2* __restrict__ x, long long batch_stride,
+                                long long frame_stride, const float2* __restrict__ w_in,
+                                const float2* __restrict__ w_out,
+                                const float2* __restrict__ tw, float2* __restrict__ y,
+                                int n_frames, int zero_lo, int zero_hi, int in_lo, int out_lo,
+                                int out_hi) {
+  namespace R = iqt::reg;
+  namespace CL = iqt::cluster;
+  using S = ClusterShape<N1, N2, C>;
+  constexpr int M1 = S::m1, M2 = S::m2;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* tw_fwd = smem + R::padded_size(S::m_max);
+  float2* tw_inv = tw_fwd + R::table_total<M1>();
+  CL::cg::cluster_group cluster = CL::cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int m = blockIdx.x / C;
+  const float2* xf = x + blockIdx.y * batch_stride + m * frame_stride;
+  float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * N2;
+  float2* part[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) part[c] = cluster.map_shared_rank(buf, c);
+
+  // 1. the pass tables, read after the barriers below; every block begun
+  for (int e = threadIdx.x; e < S::passes; e += T) tw_fwd[e] = __ldg(&tw[e]);
+  cluster.sync();
+
+  // 2. the forward radix-C step over this block's slice of offsets
+  for (int n = CL::slice_lo(M1, rank, C) + threadIdx.x; n < CL::slice_lo(M1, rank + 1, C);
+       n += T) {
+    float2 v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = iqt::cmul(xf[c * M1 + n], __ldg(&w_in[c * M1 + n]));
+    iqt::dft_small<C>(v, false);
+    part[0][R::pad(n)] = v[0];
+#pragma unroll
+    for (int r = 1; r < C; ++r)
+      part[r][R::pad(n)] = iqt::cmul(v[r], __ldg(&tw[S::fwd_cross + r * M1 + n]));
+  }
+  cluster.sync();
+
+  // 3. the M1-point forward passes in this block's buffer
+  R::fft<M1, false, T, true>(
+      buf, tw_fwd, [buf](int i) { return buf[R::pad(i)]; },
+      [buf](int k, float2 v) { buf[R::pad(k)] = v; });
+  cluster.sync();
+
+  // 4. inverse: bins C i + rank, gathered from the one block that holds
+  // each, M2 points, the cross twiddle
+  const int shift = rank + in_lo - out_lo;
+  const int src = ((shift % C) + C) % C;
+  const int q = (shift - src) / C;
+  const float2* from = part[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c)
+    if (src == c) from = part[c];
+  const float2* cross_inv = tw + S::inv_cross + rank * M2;
+  CL::fft<M2, true, T>(
+      buf, tw_inv,
+      [=](int i) {
+        const int j = C * i + rank;
+        const int k = in_lo + (j - out_lo);
+        float2 v = make_float2(0.f, 0.f);
+        if (j >= out_lo && j < out_hi && k >= zero_lo && k < zero_hi) v = from[R::pad(i + q)];
+        return v;
+      },
+      [buf, cross_inv](int n, float2 v) { buf[R::pad(n)] = iqt::cmul(v, __ldg(&cross_inv[n])); },
+      [&cluster] { cluster.sync(); });
+  cluster.sync();
+
+  // 5. the inverse radix-C step over this block's slice, scaled, windowed
+  const float scale = 1.0f / static_cast<float>(N2);
+  for (int n = CL::slice_lo(M2, rank, C) + threadIdx.x; n < CL::slice_lo(M2, rank + 1, C);
+       n += T) {
+    float2 v[C];
+#pragma unroll
+    for (int r = 0; r < C; ++r) v[r] = part[r][R::pad(n)];
+    iqt::dft_small<C>(v, true);
+#pragma unroll
+    for (int s = 0; s < C; ++s)
+      yf[s * M2 + n] =
+          iqt::cmul(make_float2(v[s].x * scale, v[s].y * scale), __ldg(&w_out[s * M2 + n]));
+  }
+  cluster.sync();
+}
+
+template <int N1, int N2, int C, int T>
+cudaLaunchConfig_t cluster_config(dim3 grid, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = ClusterShape<N1, N2, C>::smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int N1, int N2, int C, int T>
+cudaError_t launch_frames_cluster(int batch, int n_frames, cudaStream_t stream, const float2* x,
+                                  long long batch_stride, long long frame_stride,
+                                  const float2* w_in, const float2* w_out, const float2* tw,
+                                  int n_tw, float2* y, int zero_lo, int zero_hi, int in_lo,
+                                  int out_lo, int out_hi) {
+  if (n_tw != ClusterShape<N1, N2, C>::tw_count) return cudaErrorInvalidValue;
+  if (static_cast<long long>(n_frames) * C >= (1LL << 31)) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config<N1, N2, C, T>(dim3(n_frames * C, batch), stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fused_ola_frames_cluster_kernel<N1, N2, C, T>, x, batch_stride, frame_stride, w_in,
+      w_out, tw, y, n_frames, zero_lo, zero_hi, in_lo, out_lo, out_hi);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// the clusters of one instance a device can hold at once
+template <int N1, int N2, int C, int T>
+cudaError_t cluster_occupancy(int* out) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<N1, N2, C, T>(dim3(C), nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(out, fused_ola_frames_cluster_kernel<N1, N2, C, T>, &cfg);
+}
+
+constexpr int kClusterThreads = 512;
+
+// the compiled pairs (ops/kernels/fused_ola.py CLUSTER_PAIRS): F(N1, N2, C)
+#define IQT_CLUSTER_PAIRS(F) \
+  F(49152, 24576, 3)         \
+  F(81920, 40960, 5)         \
+  F(40960, 20480, 5)         \
+  F(40960, 40960, 5)         \
+  F(32768, 8192, 2)          \
+  F(32768, 16384, 2)         \
+  F(36864, 12288, 3)
+
 // ---- the 2:1 entry at the flagship pair ----------------------------------
 //
 // Replaces the same TPU kernel as fused_ola_kernel above
@@ -415,8 +625,48 @@ extern "C" int iqt_fused_ola_frames_prepare(int max_smem) {
   if ((err = iqt::allow_smem(fused_ola_frames_reg_kernel<16384, 8192, 512>,
                              RegShape<16384, 8192>::smem)))
     return err;
-  return iqt::allow_smem(fused_ola_frames_reg_kernel<12288, 6144, 512>,
-                         RegShape<12288, 6144>::smem);
+  if ((err = iqt::allow_smem(fused_ola_frames_reg_kernel<12288, 6144, 512>,
+                             RegShape<12288, 6144>::smem)))
+    return err;
+#define IQT_ALLOW(N1, N2, C)                                                              \
+  if ((err = iqt::allow_smem(fused_ola_frames_cluster_kernel<N1, N2, C, kClusterThreads>, \
+                             ClusterShape<N1, N2, C>::smem)))                             \
+    return err;
+  IQT_CLUSTER_PAIRS(IQT_ALLOW)
+#undef IQT_ALLOW
+  return cudaSuccess;
+}
+
+// the frame-batch chain at a pair of IQT_CLUSTER_PAIRS, by
+// fused_ola_frames_cluster_kernel: arguments as for iqt_fused_ola_frames_reg,
+// tw the n_tw entries of the pair's cluster table. Any other pair, or
+// another table length: cudaErrorInvalidValue; a cluster the card refuses:
+// the launch's own error.
+extern "C" int iqt_fused_ola_frames_cluster(
+    const void* x, long long batch_stride, long long frame_stride,
+    const void* w_in, const void* w_out, const void* tw, void* y, int n_tw,
+    int batch, int n_frames, int nfft, int nfft_out, int zero_lo, int zero_hi,
+    int in_lo, int out_lo, int out_hi, void* stream) {
+#define IQT_LAUNCH(N1, N2, C)                                                               \
+  if (nfft == N1 && nfft_out == N2)                                                          \
+    return launch_frames_cluster<N1, N2, C, kClusterThreads>(                                \
+        batch, n_frames, static_cast<cudaStream_t>(stream), static_cast<const float2*>(x),   \
+        batch_stride, frame_stride, static_cast<const float2*>(w_in),                        \
+        static_cast<const float2*>(w_out), static_cast<const float2*>(tw), n_tw,             \
+        static_cast<float2*>(y), zero_lo, zero_hi, in_lo, out_lo, out_hi);
+  IQT_CLUSTER_PAIRS(IQT_LAUNCH)
+#undef IQT_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// out[0] = the clusters of the pair's kernel the current device can hold
+// at once (0: it cannot launch one); after iqt_fused_ola_frames_prepare
+extern "C" int iqt_fused_ola_frames_cluster_occupancy(int nfft, int nfft_out, int* out) {
+#define IQT_OCCUPANCY(N1, N2, C) \
+  if (nfft == N1 && nfft_out == N2) return cluster_occupancy<N1, N2, C, kClusterThreads>(out);
+  IQT_CLUSTER_PAIRS(IQT_OCCUPANCY)
+#undef IQT_OCCUPANCY
+  return cudaErrorInvalidValue;
 }
 
 // the frame-batch chain at (nfft, nfft_out) = (16384, 8192) or (12288,

@@ -326,7 +326,8 @@ class WidebandMonitor:
                 raise NotImplementedError(
                     f'OLA frames of {d.nfft} -> {d.nfft_out} points are outside the '
                     'CUDA kernels\' scope (sizes 2^a 3^b 5^c within one block\'s '
-                    'shared memory; ROADMAP Queue 2 item 1)'
+                    'shared memory, and the pairs a thread-block cluster takes, '
+                    'CLUSTER_PAIRS of ops/kernels/fused_ola.py; ROADMAP Queue 2 item 1)'
                 )
             self._ola = functools.partial(ola_grouped, frames_fn=fused_ola_frames)
 

@@ -53,7 +53,7 @@ SOURCES = (
     'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'hist.cu', 'spectrogram.cu',
     'colhist.cu', 'upfirdn.cu', 'corr.cu',
 )
-HEADERS = ('fft.cuh', 'fft_reg.cuh')
+HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh')
 
 # no --use_fast_math: the kernels are held to 1e-5 relative RMS against
 # full-precision float32, with accurate logf and division
@@ -78,6 +78,8 @@ SIGNATURES = {
     'iqt_fused_ola_frames_prepare': ([_I], _I),
     'iqt_fused_ola_frames': ([_P, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
     'iqt_fused_ola_frames_reg': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
+    'iqt_fused_ola_frames_cluster': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
+    'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),

@@ -69,8 +69,10 @@ def uniform_quant(edges) -> tuple:
 
 def quantize_uniform(vals: torch.Tensor, lo: float, scale: float, n_bins: int):
     """uniform histogram level of each value, clipped into the end bins:
-    clip(floor((v - lo) * scale), 0, n_bins - 1) in float32, as int32."""
+    clip(floor((v - lo) * scale), 0, n_bins - 1) in float32, as int32;
+    NaN at level 0, as the JAX package's cast and the CUDA kernels put it."""
     q = torch.floor((vals.to(torch.float32) - lo) * scale)
+    q = q.nan_to_num_(nan=0.0)
     return q.clamp_(0, n_bins - 1).to(torch.int32)
 
 

@@ -1,7 +1,8 @@
 """Fused OLA bandpass + rational resample: the CUDA kernels and their
 plain PyTorch versions.
 
-Two kernels of ``csrc/fused_ola.cu``, one block per frame:
+Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
+(one thread-block cluster per frame on the cluster route):
 
 * :func:`fused_ola` replaces the TPU kernel ``fused_ola_strided``
   (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571): framing at 2:1
@@ -17,8 +18,12 @@ Two kernels of ``csrc/fused_ola.cu``, one block per frame:
   pairs its paths run (:data:`REG_PAIRS`: 16384 -> 8192 and 12288 ->
   6144) it launches ``fused_ola_frames_reg_kernel``, register-resident
   radix-16 passes compiled for those sizes (``csrc/fft_reg.cuh``); at
-  every other size the generic mixed-radix ``fused_ola_frames_kernel``
-  (:func:`frames_route` picks by size, before the launch). The public
+  the pairs of :data:`CLUSTER_PAIRS` (frames of 32768-81920 points, above
+  one block's shared memory) ``fused_ola_frames_cluster_kernel``, each
+  frame split over a thread-block cluster of C blocks
+  (``csrc/fft_cluster.cuh``); at every other size the generic mixed-radix
+  ``fused_ola_frames_kernel`` (:func:`frames_route` picks by size, before
+  the launch). The public
   ``ola_filter`` / ``oaresample`` and the monitor's overlap of more than
   2:1 (blackman R=3, blackmanharris R=5) add its frames up outside, as a
   sum of R groups in a fixed order (:func:`ola_grouped`).
@@ -39,6 +44,7 @@ CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -48,6 +54,7 @@ from ..stft import _unstack_stft_windows
 from . import _build
 
 __all__ = [
+    'cluster_twiddles',
     'fused_ola',
     'fused_ola_cuda_supported',
     'fused_ola_frames',
@@ -81,6 +88,23 @@ REG_PLANS = {
     1024: (16, 16, 4),
 }
 REG_THREADS = 512
+# the (nfft, nfft_out) pairs fused_ola_frames_cluster_kernel is compiled
+# for, each with C, the blocks of the cluster that holds one frame: N / C
+# points of either transform a block, on the register-resident passes of
+# REG_PLANS (the monitor at the blackman and blackmanharris designs of the
+# flagship rates, 122.88 -> 61.44 and 61.44 -> 30.72 MS/s: 49152 -> 24576
+# and 81920 -> 40960; its unresampled and ola_filter's resampling
+# blackmanharris 40960-point frames; hamming at 122.88 -> 30.72 MS/s and
+# at min_fft_size=16383; blackman 36864 -> 12288)
+CLUSTER_PAIRS = {
+    (49152, 24576): 3,
+    (81920, 40960): 5,
+    (40960, 20480): 5,
+    (40960, 40960): 5,
+    (32768, 8192): 2,
+    (32768, 16384): 2,
+    (36864, 12288): 3,
+}
 # the (nfft, nfft_out) pair fused_ola_reg_kernel (the 2:1 kernel on the
 # same passes) is compiled for: the flagship monitor design's
 OLA_REG_PAIR = (16384, 8192)
@@ -141,12 +165,15 @@ def _smooth235(n: int) -> bool:
 
 
 def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
-    """the frame-batch kernel's scope: both sizes of the form 2^a 3^b 5^c,
-    and the larger frame (8 bytes a point) within the opt-in shared memory
-    of one block of ``device`` (an H100's where ``device`` is not a card:
-    about 29k points)."""
+    """the frame-batch kernel's scope: the pairs of :data:`CLUSTER_PAIRS`
+    (a frame split over a cluster of blocks), and both sizes of the form
+    2^a 3^b 5^c with the larger frame (8 bytes a point) within the opt-in
+    shared memory of one block of ``device`` (an H100's where ``device`` is
+    not a card: about 29k points)."""
     device = torch.device('cpu' if device is None else device)
     smem = _build.smem_optin(device) if device.type == 'cuda' else H100_SMEM_OPTIN
+    if (nfft, nfft_out) in CLUSTER_PAIRS:
+        return cluster_smem(nfft, nfft_out) <= smem
     return (
         min(nfft, nfft_out) >= 1
         and _smooth235(nfft)
@@ -202,12 +229,63 @@ def reg_forward_twiddles(nfft: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(forward.astype('complex64')).to(device)
 
 
+def _cluster_tables(nfft: int, nfft_out: int) -> tuple:
+    """the cluster kernel's tables for a pair of :data:`CLUSTER_PAIRS`, in
+    float64, and the offset of each part, in the order
+    csrc/fused_ola.cu ClusterShape reads them (M1 = nfft / C, M2 = nfft_out
+    / C):
+
+    * ``'passes'``: the register-resident tables of the M1-point forward
+      transform, then those of the M2-point inverse (:func:`_reg_pass_tables`),
+      which each block copies into its shared memory;
+    * ``'fwd_cross'``: row r < C of M1 factors exp(-2 pi i r k / nfft), the
+      twiddles of the forward radix-C step's output r (row 0 is ones);
+    * ``'inv_cross'``: row r of M2 factors exp(+2 pi i r n / nfft_out),
+      those block r applies after its inverse passes.
+
+    (The radix-C DFTs across the cluster take their constants from the
+    kernel's own C-point DFTs, csrc/fft.cuh dft_small.)"""
+    c = CLUSTER_PAIRS[(nfft, nfft_out)]
+    m1, m2 = nfft // c, nfft_out // c
+    r = np.arange(c)[:, None]
+    parts = {
+        'passes': np.concatenate([_reg_pass_tables(m1, False), _reg_pass_tables(m2, True)]),
+        'fwd_cross': np.exp(-2j * np.pi * r * np.arange(m1) / nfft).ravel(),
+        'inv_cross': np.exp(2j * np.pi * r * np.arange(m2) / nfft_out).ravel(),
+    }
+    offsets = dict(zip(parts, np.cumsum([0] + [p.size for p in parts.values()])[:-1].tolist()))
+    return np.concatenate(list(parts.values())), offsets
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor:
+    """the tables of :func:`_cluster_tables`, rounded once to complex64 and
+    kept on ``device`` (read only)."""
+    table, _ = _cluster_tables(nfft, nfft_out)
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_smem(nfft: int, nfft_out: int) -> int:
+    """the cluster kernel's dynamic shared memory per block at a pair of
+    :data:`CLUSTER_PAIRS`: the padded exchange buffer of the larger part
+    and both transforms' pass tables (ClusterShape::smem)."""
+    c = CLUSTER_PAIRS[(nfft, nfft_out)]
+    m = max(nfft, nfft_out) // c
+    _, offsets = _cluster_tables(nfft, nfft_out)
+    return 8 * (m + m // 16 + offsets['fwd_cross'])
+
+
 def frames_route(nfft: int, nfft_out: int) -> str:
     """the kernel :func:`fused_ola_frames` launches for a supported size
     pair: ``'reg'`` (``fused_ola_frames_reg_kernel``) at the pairs of
-    :data:`REG_PAIRS`, ``'generic'`` (``fused_ola_frames_kernel``) at every
-    other, an unresampled nfft_out == nfft among them."""
-    return 'reg' if (nfft, nfft_out) in REG_PAIRS else 'generic'
+    :data:`REG_PAIRS`, ``'cluster'`` (``fused_ola_frames_cluster_kernel``)
+    at those of :data:`CLUSTER_PAIRS`, ``'generic'``
+    (``fused_ola_frames_kernel``) at every other, an unresampled nfft_out
+    == nfft among them."""
+    if (nfft, nfft_out) in REG_PAIRS:
+        return 'reg'
+    return 'cluster' if (nfft, nfft_out) in CLUSTER_PAIRS else 'generic'
 
 
 def fused_ola_frames(
@@ -265,15 +343,16 @@ def _launch_frames(
     bounds_in,
     bounds_out,
 ) -> torch.Tensor:
-    """launch ``route``'s frame kernel ('reg' or 'generic') on CUDA
-    ``frames``; counts the launch in ``fused_ola_frames.launches`` and
+    """launch ``route``'s frame kernel ('reg', 'cluster' or 'generic') on
+    CUDA ``frames``; counts the launch in ``fused_ola_frames.launches`` and
     ``fused_ola_frames.route_launches[route]``."""
     dev = frames.device
     if not fused_ola_frames_supported(nfft, nfft_out, dev):
         raise NotImplementedError(
-            'the CUDA frame-batch OLA kernel takes sizes 2^a 3^b 5^c whose '
+            'the CUDA frame-batch OLA kernels take sizes 2^a 3^b 5^c whose '
             f'frame fits one block\'s shared memory ({_build.smem_optin(dev)} '
-            f'bytes, 8 a point); got nfft={nfft}, nfft_out={nfft_out} '
+            'bytes, 8 a point) and, split over a cluster of blocks, the pairs '
+            f'{sorted(CLUSTER_PAIRS)}; got nfft={nfft}, nfft_out={nfft_out} '
             '(ROADMAP Queue 2 item 1)'
         )
     if frames.dtype != torch.complex64:
@@ -300,9 +379,13 @@ def _launch_frames(
     y = torch.empty((batch, n_frames, nfft_out), dtype=torch.complex64, device=dev)
     _build.prepare('iqt_fused_ola_frames_prepare', dev)
     zero_hi = nfft if zero_hi is None else int(zero_hi)
-    if route == 'reg':
-        tw = reg_twiddles(nfft, nfft_out, dev)
-        err = _build.library().iqt_fused_ola_frames_reg(
+    if route in ('reg', 'cluster'):
+        if route == 'reg':
+            tw, entry = reg_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_reg'
+        else:
+            _require_cluster_residency(nfft, nfft_out, dev)
+            tw, entry = cluster_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_cluster'
+        err = getattr(_build.library(), entry)(
             f3.data_ptr(), f3.stride(0), f3.stride(1), w_in.data_ptr(),
             w_shift_out.data_ptr(), tw.data_ptr(), y.data_ptr(), tw.numel(),
             batch, n_frames, nfft, nfft_out, int(zero_lo), zero_hi,
@@ -326,8 +409,33 @@ def _launch_frames(
 
 
 fused_ola_frames.launches = 0
-# launches by kernel: 'reg' (fused_ola_frames_reg_kernel), 'generic'
-fused_ola_frames.route_launches = {'reg': 0, 'generic': 0}
+# launches by kernel: 'reg' (fused_ola_frames_reg_kernel), 'cluster'
+# (fused_ola_frames_cluster_kernel), 'generic' (fused_ola_frames_kernel)
+fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'generic': 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _require_cluster_residency(nfft: int, nfft_out: int, device: torch.device) -> int:
+    """the clusters of the pair's kernel that ``device`` can hold at
+    once (cudaOccupancyMaxActiveClusters), asked once per pair and device
+    before the first launch; raises where it is none: a cluster the card
+    cannot co-schedule fails only at the launch, and there is no other
+    route on the card."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.prepare('iqt_fused_ola_frames_prepare', device)
+        _build.check(
+            _build.library().iqt_fused_ola_frames_cluster_occupancy(
+                nfft, nfft_out, ctypes.addressof(out)),
+            f'cluster occupancy of the {nfft} -> {nfft_out} frame kernel',
+        )
+    if out.value < 1:
+        raise RuntimeError(
+            f'the card cannot hold one cluster of {CLUSTER_PAIRS[(nfft, nfft_out)]} blocks '
+            f'of the {nfft} -> {nfft_out} frame kernel '
+            f'({cluster_smem(nfft, nfft_out)} bytes of shared memory a block)'
+        )
+    return out.value
 
 
 def ola_grouped(

@@ -30,14 +30,18 @@ def histogram_edge_counts(a, edges):
         return np.bincount(edge_inds, minlength=np.shape(edges)[0] + 1)
 
     a_sorted = torch.sort(a, dim=-1).values
+    # the sort puts NaNs last, but a binary search that meets one takes it
+    # as not greater than the edge and runs on past the finite tail: as
+    # +inf they keep their place and compare as they sort
+    nan = torch.isnan(a_sorted)
+    a_sorted = a_sorted.masked_fill(nan, float('inf'))
     e = torch.as_tensor(edges, dtype=a.dtype, device=a.device)
     e = e.expand(*a_sorted.shape[:-1], e.shape[0]).contiguous()
-    # cum[..., b] = #{sample <= e_b}; the sort puts NaNs last, where
-    # searchsorted would count them at or below an edge of +inf: cap at
-    # the non-NaN count, so that NaN lands in the last bin, as numpy's
-    # searchsorted and the JAX package's sort path place it
+    # cum[..., b] = #{sample <= e_b}; at an edge of +inf that counts the
+    # NaNs too: cap at the non-NaN count, so that NaN lands in the last
+    # bin, as numpy's searchsorted and the JAX package's sort path place it
     cum = torch.searchsorted(a_sorted, e, side='right')
-    cum = torch.minimum(cum, (~torch.isnan(a_sorted)).sum(dim=-1, keepdim=True))
+    cum = torch.minimum(cum, (~nan).sum(dim=-1, keepdim=True))
     n = a_sorted.shape[-1]
     tail = n - cum[..., -1:]
     return torch.cat([cum[..., :1], torch.diff(cum, dim=-1), tail], dim=-1)

@@ -21,6 +21,9 @@ def columnwise_histogram(vals: torch.Tensor, edges) -> torch.Tensor:
     edges, as the JAX package counts on the XLA path)."""
     n_rows, n_cols = vals.shape
     s = torch.sort(vals, dim=0).values.T.contiguous()  # (cols, rows)
+    # NaNs sort last; as +inf a binary search compares them as they sort,
+    # so they land in the clip-high bin, as the JAX package counts them
+    s = s.masked_fill(torch.isnan(s), float('inf'))
     e = torch.as_tensor(edges, dtype=vals.dtype, device=vals.device)
     # cum[c, k] = #{v in column c: v < e_k}
     cum = torch.searchsorted(s, e.expand(n_cols, -1).contiguous(), side='left')

@@ -25,6 +25,8 @@ from iqwaveform_torch.ops.kernels.colhist import (
     _reg_layout,
     _reg_smem,
     colhist_route,
+    quantize_uniform,
+    uniform_quant,
 )
 from iqwaveform_torch.ops.kernels.fused_ola import H100_SMEM_OPTIN
 
@@ -156,3 +158,80 @@ def test_colhist_route_and_cpu_tensors():
     want = torch.from_numpy(bincount(vals.numpy().astype(np.int64), 64).astype('int32')) + 1
     assert torch.equal(got, want)
     assert (dict(k.route_launches), k.launches) == before
+
+
+def test_columnwise_histogram_puts_nan_in_the_clip_high_bin():
+    """a column with every fourth value NaN: the sort-based counter puts
+    each NaN in the clip-high bin, as the JAX package's does."""
+    import jax.numpy as jnp
+
+    from iqwaveform_torch.parallel import columnwise_histogram
+    from iqwaveform_tpu.parallel.sharded import columnwise_histogram as jax_columnwise
+
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal((120, 5)).astype(np.float32)
+    v[::4] = np.nan
+    edges = np.linspace(-2, 2, 9).astype(np.float32)
+    ref = np.asarray(jax_columnwise(jnp.asarray(v), edges))
+    got = columnwise_histogram(torch.from_numpy(v), edges)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # the last bin: [e_-2, e_-1) and the values clipped above it
+    high = (np.nan_to_num(v, nan=-np.inf) >= edges[-2]).sum(axis=0)
+    np.testing.assert_array_equal(ref[:, -1], 30 + high)
+
+
+def test_uniform_levels_send_nan_to_level_0():
+    """NaN at level 0, as the JAX package's clip(floor(.)).astype(int32)
+    and the CUDA kernels place it; the counter then takes it."""
+    vals = torch.tensor([[np.nan, -1e9, 0.5], [1e9, np.nan, 2.5]], dtype=torch.float32)
+    lo, scale, n_bins = uniform_quant(np.linspace(0.0, 4.0, 5))
+    idx = quantize_uniform(vals, lo, scale, n_bins)
+    assert idx.tolist() == [[0, 0, 0], [3, 0, 2]]
+    counts = kernels.colhist_plain(vals, torch.zeros((3, n_bins), dtype=torch.int32), lo=lo,
+                                   scale=scale)
+    assert counts.tolist() == [[1, 0, 0, 1], [2, 0, 0, 0], [1, 0, 1, 0]]
+
+
+@pytest.mark.parametrize('run', [(65536, 98304), (70000, 70001)])
+def test_persistence_spectrum_with_nan_matches_jax(run):
+    """streaming_persistence_spectrum(device='cpu') on 4 x 65536 noise
+    samples with a NaN run returns, as the JAX call does: mean, max and
+    min NaN in every bin on both sides, and every frame the run touches
+    at level 0 of each column. The JAX Pallas levels kernel carries a NaN
+    to each frame of its 16-frame group (ROADMAP, findings about the JAX
+    package), so the counts equal JAX's where the run covers whole groups
+    (frames 64-95); a run of one sample moves one frame of the clean
+    capture's counts to level 0 in each column."""
+    import warnings
+
+    import jax.numpy as jnp
+
+    from iqwaveform_torch import streaming_persistence_spectrum
+    from iqwaveform_tpu.parallel import streaming as JS
+
+    rng = np.random.default_rng(3)
+    n, nfft = 4 * 65536, 1024
+    clean = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    x = clean.copy()
+    x[run[0]:run[1]] = np.nan
+    kw = dict(fs=1e6, window='hann', nfft=nfft, chunk_frames=128, hist_bins=256,
+              fft_backend='pallas', fft_precision='highest')
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        ref = JS.streaming_persistence_spectrum(jnp.asarray(x), **kw)
+        got = streaming_persistence_spectrum(x, **kw, device='cpu')
+    for key in ('mean_dB', 'max_dB', 'min_dB'):
+        assert np.isnan(got[key].numpy()).all() and np.isnan(np.asarray(ref[key])).all(), key
+    g, r = got['hist'].numpy().astype(np.int64), np.asarray(ref['hist']).astype(np.int64)
+    assert g.shape == r.shape
+    assert (g.sum(axis=1) == n // nfft).all() and (r.sum(axis=1) == n // nfft).all()
+    touched = (run[1] - 1) // nfft - run[0] // nfft + 1
+    assert (g[:, 0] == touched).all()
+    if touched % 16 == 0:
+        np.testing.assert_array_equal(g, r)
+    else:
+        base = streaming_persistence_spectrum(clean, **kw, device='cpu')['hist'].numpy()
+        moved = g - base.astype(np.int64)
+        assert (moved[:, 0] == touched).all()
+        assert (moved[:, 1:] <= 0).all() and (moved.sum(axis=1) == 0).all()

@@ -38,7 +38,10 @@ counter: counts equal to bincount's and the older counter's. The
 bucket-table histogram kernel: counts equal to the plain version's and
 the older hist_kernel's. The dB kernel at nfft 1024: phase 6's gate
 against the plain version and the radix-2 body, its error against
-float64 at most twice the radix-2 body's.
+float64 at most twice the radix-2 body's. The cluster frame kernel
+(one frame on a thread-block cluster, at the pairs above one block's
+shared memory): within 1e-5 of the plain chain, its complex128 error at
+most twice the plain chain's (the torch.fft chain in float32).
 """
 
 import sys
@@ -55,6 +58,7 @@ from iqwaveform_torch.ops.kernels import _build
 from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic, chan_route
 from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route, uniform_quant
 from iqwaveform_torch.ops.kernels.fused_ola import (
+    CLUSTER_PAIRS,
     _fused_ola_frames_generic,
     _fused_ola_generic,
     frames_route,
@@ -295,6 +299,8 @@ def _hist_cases():
     nan_inf[5::89] = float('inf')
     nan_inf[7::101] = float('-inf')
     nan_inf[9::103] = -0.0
+    nan_run = _power((70001,), 47)
+    nan_run[1000:21000] = float('nan')
     return {
         # the three path shapes, cut in length: the flagship (2048 edges,
         # 524,288 samples, here 2^17 + 3), the fold (513 edges, 2^20, here
@@ -305,6 +311,7 @@ def _hist_cases():
         'blackman': (_power((2097153,), 42), it.WidebandMonitor(blackman).apd_edges),
         'one bin': (torch.full((300001,), 2.0, device='cuda'), monitor_edges),
         'nan and inf': (nan_inf, monitor_edges),
+        'nan run': (nan_run, monitor_edges),
         'one edge': (_power((50003,), 44), torch.tensor([2.0], device='cuda')),
         'infinite edges': (nan_inf, torch.cat([
             torch.tensor([-float('inf')], device='cuda'), _apd_edges(511),
@@ -315,13 +322,15 @@ def _hist_cases():
 
 
 @pytest.mark.parametrize('case', ['flagship', 'fold', 'blackman', 'one bin', 'nan and inf',
-                                  'infinite edges', 'one edge', 'batch', 'last bucket edges'])
+                                  'nan run', 'infinite edges', 'one edge', 'batch',
+                                  'last bucket edges'])
 def test_hist_bucket_kernel_matches_plain(card, case):
     """hist_bucket_kernel: counts equal to hist_plain's (sort + searchsorted)
     and to the older hist_kernel's, one launch each on its route, at the
     three path shapes (shorter rows), with every sample in one bin, with
     NaN, +-inf and -0 samples against finite edges and against edges from
-    -inf to +inf, against one edge, on three rows of a batch,
+    -inf to +inf, with a run of 20,000 NaN (all in the last bin), against
+    one edge, on three rows of a batch,
     and at the most edges its shared memory takes on an H100 (26,999)."""
     p, edges = _hist_cases()[case]
     assert hist_route(edges.numel(), _build.smem_optin(card)) == 'bucket'
@@ -602,7 +611,7 @@ def test_ola_filter_takes_the_frame_kernel(card):
     _reset_frame_routes()
     got = it.ola_filter(x, **kw)
     assert kernels.fused_ola_frames.launches == 1
-    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'cluster': 0, 'generic': 0}
     ref = it.ola_filter(x, fft_backend='xla', **kw)
     assert kernels.fused_ola_frames.launches == 1
     assert rel_rms(got, ref) <= 1e-5
@@ -610,7 +619,7 @@ def test_ola_filter_takes_the_frame_kernel(card):
 
 def _reset_frame_routes():
     kernels.fused_ola_frames.launches = 0
-    kernels.fused_ola_frames.route_launches.update(reg=0, generic=0)
+    kernels.fused_ola_frames.route_launches.update(reg=0, cluster=0, generic=0)
 
 
 @pytest.mark.parametrize('window', ['hamming', 'blackman'])
@@ -627,9 +636,9 @@ def test_register_kernel_matches_plain_and_generic(card, window):
     frames = capture[:, 5:].unfold(-1, nfft, mon.hop_in)
     _reset_frame_routes()
     got = kernels.fused_ola_frames(frames, **kw)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'cluster': 0, 'generic': 0}
     generic = _fused_ola_frames_generic(frames, **kw)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'generic': 1}
+    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'cluster': 0, 'generic': 1}
     ref = kernels.fused_ola_frames_plain(frames, **kw)
     assert got.shape == generic.shape == ref.shape == (3, frames.shape[1], nfft_out)
     assert rel_rms(got, ref) <= 1e-5
@@ -652,25 +661,116 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
               bounds_out=(0, 768))
     _reset_frame_routes()
     got = kernels.fused_ola_frames(frames, **kw)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'generic': 1}
+    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 0, 'generic': 1}
     assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
 
 
 def test_frames_above_shared_memory_raise(card):
-    with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
-        kernels.fused_ola_frames(
-            torch.zeros((2, 40960), dtype=torch.complex64, device='cuda'),
-            w_in=torch.ones(40960, dtype=torch.complex64, device='cuda'),
-            w_shift_out=torch.ones(20480, dtype=torch.complex64, device='cuda'),
-            nfft=40960, nfft_out=20480, zero_lo=0, zero_hi=None,
-            bounds_in=(10240, 30720), bounds_out=(0, 20480),
-        )
-    design = it.design_cola_resampler(122.88e6, 61.44e6, bw=40e6, window='blackmanharris')
-    assert design['nfft'] == 40960
-    with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
-        it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, bw=40e6, window='blackmanharris'))
-    assert it.ola_filter(_noise(4 * 40960, 12), fs=122.88e6, nfft=40960, nfft_out=20480,
-                         window='blackmanharris', passband=(-20e6, 20e6)).shape == (81920,)
+    """frames above one block's shared memory that no cluster pair takes
+    (the blackman and blackmanharris designs at 122.88 -> 30.72 MS/s:
+    98304 -> 24576 and 163840 -> 40960) raise, naming ROADMAP Queue 2 item
+    1; so does the monitor at such a design; ola_filter takes its torch.fft
+    stage chain there."""
+    for nfft, nfft_out in ((98304, 24576), (163840, 40960)):
+        assert frames_route(nfft, nfft_out) == 'generic'
+        with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
+            kernels.fused_ola_frames(
+                torch.zeros((2, nfft), dtype=torch.complex64, device='cuda'),
+                w_in=torch.ones(nfft, dtype=torch.complex64, device='cuda'),
+                w_shift_out=torch.ones(nfft_out, dtype=torch.complex64, device='cuda'),
+                nfft=nfft, nfft_out=nfft_out, zero_lo=0, zero_hi=None,
+                bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
+                bounds_out=(0, nfft_out),
+            )
+    for window, nfft in (('blackman', 98304), ('blackmanharris', 163840)):
+        design = it.design_wideband_monitor(122.88e6, 30.72e6, bw=20e6, fs_sdr=122.88e6,
+                                            window=window)
+        assert design.nfft == nfft
+        with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
+            it.WidebandMonitor(design)
+    _reset_frame_routes()
+    assert it.ola_filter(_noise(4 * 98304, 12), fs=122.88e6, nfft=98304, nfft_out=24576,
+                         window='blackman', passband=(-10e6, 10e6)).shape == (98304,)
+    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 0, 'generic': 0}
+
+
+def _cluster_kwargs(nfft, nfft_out, seed):
+    """random windows and an offset trim (a nonzero zero_lo, an output
+    range inside the spectrum, in_lo - out_lo no multiple of C); every bin
+    kept where nothing is resampled."""
+    if nfft_out == nfft:
+        zero, b_in, b_out = (1203, nfft - 901), (0, nfft), (0, nfft)
+    else:
+        zero, b_in, b_out = (901, nfft - 1203), (1501, 1501 + nfft_out - 333), (111, nfft_out - 222)
+    return dict(w_in=_noise(nfft, seed) / nfft, w_shift_out=_noise(nfft_out, seed + 1),
+                nfft=nfft, nfft_out=nfft_out, zero_lo=zero[0], zero_hi=zero[1],
+                bounds_in=b_in, bounds_out=b_out)
+
+
+@pytest.mark.parametrize('pair', sorted(CLUSTER_PAIRS))
+def test_cluster_kernel_matches_plain_and_complex128(card, pair):
+    """the cluster kernel at each compiled pair, on a strided view with a
+    batch axis and on a contiguous batch: one launch each on its route,
+    within 1e-5 of the plain chain, its complex128 error at most twice the
+    plain chain's (the torch.fft chain in float32)."""
+    nfft, nfft_out = pair
+    assert frames_route(nfft, nfft_out) == 'cluster'
+    kw = _cluster_kwargs(nfft, nfft_out, 41)
+    hop = nfft // 3
+    capture = _noise((2, 5 * hop + nfft + 5), 40)
+    frames = capture[:, 5:].unfold(-1, nfft, hop)
+    _reset_frame_routes()
+    got = kernels.fused_ola_frames(frames, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 1, 'generic': 0}
+    ref = kernels.fused_ola_frames_plain(frames, **kw)
+    assert got.shape == ref.shape == (2, frames.shape[1], nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    batch = frames[1].contiguous()
+    assert rel_rms(kernels.fused_ola_frames(batch, **kw), ref[1]) <= 1e-5
+    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 2, 'generic': 0}
+    wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **wide)
+    assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
+
+
+@pytest.mark.parametrize('rates,kw,pair', [
+    ((122.88e6, 61.44e6), dict(bw=40e6, fs_sdr=122.88e6, window='blackman'), (49152, 24576)),
+    ((122.88e6, 61.44e6), dict(bw=40e6, fs_sdr=122.88e6, window='blackmanharris'),
+     (81920, 40960)),
+    ((122.88e6, 61.44e6), dict(bw=40e6, window='blackmanharris'), (40960, 40960)),
+    ((122.88e6, 30.72e6), dict(bw=20e6, fs_sdr=122.88e6, window='hamming'), (32768, 8192)),
+])
+def test_cluster_monitor_constructs_and_steps(card, rates, kw, pair):
+    """the monitor at the designs whose frames the cluster kernel takes:
+    it constructs, and a step launches that kernel once and matches the
+    plain-version step (channel power within 1e-5)."""
+    mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw))
+    assert (mon.design.nfft, mon.design.nfft_out) == pair
+    x = _noise(4 * mon.min_input_multiple(), 42)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    _reset_frame_routes()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.launches == 1 and kernels.fused_ola.launches == 0
+    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 1, 'generic': 0}
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+
+
+def test_ola_filter_takes_the_cluster_kernel(card):
+    """ola_filter at the blackmanharris 40960 -> 20480 frames: one launch
+    of the cluster kernel, within 1e-5 of the torch.fft stage chain."""
+    kw = dict(fs=122.88e6, nfft=40960, nfft_out=20480, window='blackmanharris',
+              passband=(-20e6, 20e6))
+    x = _noise(8 * 40960, 43)
+    _reset_frame_routes()
+    got = it.ola_filter(x, **kw)
+    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 1, 'generic': 0}
+    ref = it.ola_filter(x, fft_backend='xla', **kw)
+    assert got.shape == ref.shape and rel_rms(got, ref) <= 1e-5
 
 
 @pytest.mark.parametrize('up,down', [(1, 2), (2, 3), (3, 2), (2, 5)])

@@ -383,7 +383,9 @@ def test_shared_memory_per_block():
 def test_route_by_size():
     """the specialised kernel takes exactly its two pairs; unresampled,
     swapped and other sizes keep the generic kernel, and the scope of
-    fused_ola_frames_supported is as before."""
+    fused_ola_frames_supported is as before, with the cluster kernel's
+    pairs above one block's shared memory added to it
+    (tests/test_torch_ola_cluster.py)."""
     assert REG_PAIRS == ((16384, 8192), (12288, 6144))
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg'
@@ -392,8 +394,9 @@ def test_route_by_size():
                  (8192, 16384), (20480, 10240), (3072, 1536), (16384, 4096)]:
         assert frames_route(*pair) == 'generic', pair
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
-                 (28800, 14400): True, (40960, 20480): False, (7 * 1024, 3584): False,
-                 (32768, 16384): False, (1, 1): True}
+                 (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): False,
+                 (32768, 16384): True, (32768, 32768): False, (98304, 24576): False,
+                 (1, 1): True}
     for pair, ok in supported.items():
         assert fused_ola_frames_supported(*pair) == ok, pair
 

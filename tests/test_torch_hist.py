@@ -322,3 +322,51 @@ def test_monitor_edges_are_the_design_s():
     lo, hi = d['apd_range_dB']
     np.testing.assert_array_equal(
         edges, (10 ** (np.linspace(lo, hi, 2048) / 10.0)).astype('float32'))
+
+
+# NaN in the plain histogram (the CPU path of the monitor, apd_fold and
+# streaming_apd, and the yardstick of the kernels): numpy's searchsorted
+# and the JAX package's sort path put NaN in the last bin, above +inf
+NAN_PROBES = {
+    'nan run': ([1, 2, 3, 5, 6, 7] + [np.nan] * 6, [4.0], [3, 9]),
+    'nan and infinities': ([1, np.nan, 3, -1, np.inf, -np.inf], [0.0, 2.0, 4.0], [2, 1, 1, 2]),
+    'edge of +inf': ([np.nan, np.inf, 1.0, np.nan], [0.0, np.inf], [0, 2, 2]),
+}
+
+
+@pytest.mark.parametrize('name', sorted(NAN_PROBES))
+def test_plain_histogram_puts_nan_last(name):
+    import jax.numpy as jnp
+
+    from iqwaveform_tpu.ops.power import histogram_edge_counts as jax_counts
+
+    samples, edges, want = NAN_PROBES[name]
+    a = np.asarray(samples, np.float32)
+    e = np.asarray(edges, np.float32)
+    assert np.bincount(np.searchsorted(e, a, side='left'), minlength=e.size + 1).tolist() == want
+    assert np.asarray(jax_counts(jnp.asarray(a), jnp.asarray(e))).tolist() == want
+    assert it.ops.power.histogram_edge_counts(torch.from_numpy(a), e).tolist() == want
+    got = kernels.hist_plain(torch.from_numpy(np.stack([a, a[::-1].copy()])), torch.from_numpy(e))
+    assert got.tolist() == [want, want]
+
+
+def test_streaming_apd_with_a_nan_run_matches_jax():
+    """4 x 65536 noise samples with a run of 20,000 NaN, 256 edges: the
+    port's CPU fold against the JAX package's (the bars of
+    tests/test_torch_streaming.py: totals equal, L1 within max(2, total /
+    1000)); every NaN sample in the last bin on both sides."""
+    import jax.numpy as jnp
+
+    from iqwaveform_tpu.parallel import streaming as JS
+
+    rng = np.random.default_rng(3)
+    n = 4 * 65536
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    x[70000:90000] = np.nan
+    edges = (10 ** (np.linspace(-120.0, 30.0, 256) / 10.0)).astype('float32')
+    ref = np.asarray(JS.streaming_apd(jnp.asarray(x), edges=edges, chunk_size=65536))
+    got = it.streaming_apd(x, edges=edges, chunk_size=65536, device='cpu').numpy()
+    assert got.dtype == np.int32 and got.shape == ref.shape
+    assert got.sum() == ref.sum() == n
+    assert got[-1] == ref[-1] == 20000
+    assert np.abs(got.astype(np.int64) - ref).sum() <= max(2, n // 1000)

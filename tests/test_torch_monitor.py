@@ -122,6 +122,37 @@ def test_step_matches_jax_beyond_2_to_1_overlap(name):
         assert torch.equal(v, got[key]), key
 
 
+# the slice of the frame kernel's cluster route: the blackman and
+# blackmanharris designs of the flagship rates, at full width (frames of
+# 49152 -> 24576 at R = 3 and 81920 -> 40960 at R = 5, a 16 x 256
+# channelizer at navg 1, 2048 APD edges)
+CLUSTER_DESIGNS = {
+    'blackman': (49152, 24576),
+    'blackmanharris': (81920, 40960),
+}
+
+
+@pytest.mark.parametrize('window', sorted(CLUSTER_DESIGNS))
+def test_step_matches_jax_at_the_cluster_designs(window):
+    """the port's CPU step (the plain versions) against the JAX monitor's
+    on 4 min_input_multiple()s of noise: the gates of assert_step_close,
+    psd_mean and psd_max on the bins above -90 dB as for the other blackman
+    designs above."""
+    jd = jax_design(122.88e6, 61.44e6, bw=40e6, fs_sdr=122.88e6, window=window)
+    jm = JaxMonitor(jd)
+    tm = it.WidebandMonitor(it.design_from_reference(dataclasses.asdict(jd)), device='cpu')
+    assert (tm.design.nfft, tm.design.nfft_out) == CLUSTER_DESIGNS[window]
+    assert (tm.chan_kwargs['nfft_big'], tm.design.apd_navg, tm.design.apd_bins) == (4096, 1, 2048)
+    n = 4 * jm.min_input_multiple()
+    rng = np.random.default_rng(49)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    ref = {k: np.asarray(v) for k, v in jax.jit(jm.step)(jnp.asarray(x)).items()}
+    got = tm.step(x)
+    assert_step_close(got, ref, floor_dB=-90)
+    for key, v in tm.reference_step(torch.from_numpy(x)).items():
+        assert torch.equal(v, got[key]), key
+
+
 def test_step_batch_rows_match_single_rows():
     _, tm = _pair('small')
     rng = np.random.default_rng(22)
