@@ -20,7 +20,9 @@ build/iqwaveform_torch/), then, at the flagship WidebandMonitor design
    on each of its four outputs; the histogram through its bucket-table
    kernel (``hist_bucket_kernel``); ptxas must report no spill in the
    register-resident channelizer, levels and dB kernels, the column-pair
-   counter, the bucket-table histogram or the cluster frame kernel;
+   counter, the bucket-table histogram, the cluster frame kernel, the
+   channel-only channelizer or the mixed-size and cluster channelizer
+   statistics kernels, at any of their instances;
 2. drives the full ``step`` on 2^24 complex64 samples: each kernel's
    launch count must rise, the OLA, channelizer and histogram route counts
    must name ``fused_ola_reg_kernel``, ``chan_stats_reg_kernel`` and
@@ -138,8 +140,10 @@ a thread-block cluster of C blocks):
 
 16. (a) the cluster kernel at each compiled pair (32768 -> 8192 and
    16384, 36864 -> 12288, 40960 -> 20480 and 40960, 49152 -> 24576,
-   81920 -> 40960) on 64 frames: one launch on its route, within 1e-5 of
-   the plain chain, its complex128 error at most twice the plain chain's;
+   81920 -> 40960, 98304 -> 24576 on 6 blocks, 163840 -> 40960 on 10) on
+   64 frames: one launch on its route, within 1e-5 of the plain chain, its
+   complex128 error at most twice the plain chain's, and the clusters of
+   it the card holds at once (``cudaOccupancyMaxActiveClusters``);
    (b) ``WidebandMonitor.step`` at the blackmanharris design of the
    flagship rates (81920 -> 40960, R = 5) on 16,793,600 samples: one
    cluster launch, the step gates of phase 3 against ``reference_step``;
@@ -155,7 +159,38 @@ a thread-block cluster of C blocks):
    on the step's 1024 frames against the plain chain, its first 512 frames
    against complex128 (at most twice the plain chain's error), timed
    beside its bound, the plain chain and the torch.fft chain (its library
-   call).
+   call); (d) ``WidebandMonitor.step`` at the blackman design of 122.88 ->
+   30.72 MS/s (98304 -> 24576 on clusters of 6 blocks) on 16,809,984
+   samples (171 min_input_multiple()s): launches and routes, phase 3's
+   gates against ``reference_step``, timed and profiled, the kernel on the
+   step's frames as in (c) (kernels-line row ``fused_ola_frames_cluster6``);
+   the blackmanharris design (163840 -> 40960 on 10 blocks) once on
+   16,711,680 samples, gated, its kernel as in (c) without a profile
+   (``fused_ola_frames_cluster10``);
+
+then the channelizer statistics at every frame size of ``CHAN_SIZES``
+(1024-65536 points, 2^a 3^b 5^c with 2^a >= 1024 and b, c <= 1):
+
+17. (a) each size on 2^23 samples of noise, 24 channels, in the monitor's
+   statistics mode (navg 16) and the channel-only mode: one launch on its
+   route (``chan_stats_mixed_kernel`` at one block's sizes,
+   ``chan_stats_cluster_kernel`` on a cluster above them and for 15360's
+   statistics, ``chan_power_reg_kernel`` channel-only at one block's
+   sizes, ``chan_stats_reg_kernel`` at 4096 / navg 16), every output
+   within 1e-5 of the plain version, the channel power's complex128 error
+   at most twice the plain version's (the other outputs' reported), timed
+   beside the torch.fft formulation, the radix-2 kernel at the powers of
+   two and, at 4096, the mixed-size kernel; (b) ``WidebandMonitor.step``
+   of the flagship rates at 48, 96 and 64 x 512 channels (12288-, 24576-
+   and 32768-point channelizers) on whole min_input_multiple()s near 2^24:
+   launches and routes, phase 3's gates against ``reference_step``, the
+   profile (the 2:1 OLA, channelizer and histogram kernels, no radix-2 or
+   library kernel), timed; the channelizer on the 48- and 96-channel
+   steps' streams (kernels-line rows ``chan_stats_mixed`` and
+   ``chan_stats_cluster``); (c) ``channelize_power`` at 48 channels of 192
+   of 256 bins (12288 points) on 610 frames: one launch of the channel-only
+   kernel, within 1e-5 of the plain version, timed (row
+   ``chan_stats_channels_mixed``).
 
 It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -228,6 +263,21 @@ KERNEL_INFO = {
     # the monitor's grouped overlap-add runs it at R = 3
     'fused_ola_frames_cluster': ('iqwaveform_torch/csrc/fused_ola.cu',
                                  'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
+    # its instances on clusters of 6 and 10 blocks (98304 -> 24576 and
+    # 163840 -> 40960), as the monitor at 122.88 -> 30.72 MS/s runs them
+    'fused_ola_frames_cluster6': ('iqwaveform_torch/csrc/fused_ola.cu',
+                                  'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
+    'fused_ola_frames_cluster10': ('iqwaveform_torch/csrc/fused_ola.cu',
+                                   'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
+    # the channelizer statistics at the other frame sizes of one block
+    # (chan_stats_mixed_kernel) and above one block (chan_stats_cluster_kernel),
+    # and the channel-only kernel at a size that is no power of two
+    'chan_stats_mixed': ('iqwaveform_torch/csrc/chan_mixed.cu',
+                         'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
+    'chan_stats_cluster': ('iqwaveform_torch/csrc/chan_cluster.cu',
+                           'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
+    'chan_stats_channels_mixed': ('iqwaveform_torch/csrc/chan_stats.cu',
+                                  'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:248'),
     'upfirdn': ('iqwaveform_torch/csrc/upfirdn.cu',
                 'iqwaveform_tpu/ops/pallas/upfirdn_pallas.py:210'),
     'corr_at_indices': ('iqwaveform_torch/csrc/corr.cu',
@@ -277,9 +327,15 @@ LEVELS_GENERIC_KERNEL = 'spectrogram_kernel'
 # the frame kernel of frames above one block's shared memory, one frame a
 # thread-block cluster
 CLUSTER_KERNEL = 'fused_ola_frames_cluster_kernel'
+# chan_stats' route counts after one launch of a register-resident kernel
+# (chan_stats_reg_kernel or chan_power_reg_kernel)
+CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'generic': 0}
 # kernels whose ptxas report must show no spill
+# the channelizer statistics at the other sizes of one block and above it
+MIXED_KERNEL = 'chan_stats_mixed_kernel'
+CHAN_CLUSTER_KERNEL = 'chan_stats_cluster_kernel'
 NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL,
-            CLUSTER_KERNEL)
+            CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL)
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -294,6 +350,29 @@ N_CLUSTER_STEP = 1 << 24
 # step on whole min_input_multiple()s, about 2^24 samples
 CLUSTER_MONITOR_BH = dict(bw=40e6, fs_sdr=122.88e6, window='blackmanharris')
 N_CLUSTER_STEP_BH = 205 * 81920
+# the blackman and blackmanharris designs at 122.88 -> 30.72 MS/s (20 MHz):
+# frames of 98304 -> 24576 on clusters of 6 blocks and 163840 -> 40960 on
+# 10; a step each on whole min_input_multiple()s near N_CLUSTER_STEP
+WIDE_CLUSTER_MONITOR = dict(bw=20e6, fs_sdr=122.88e6)
+# the channelizer at the frame sizes of CHAN_SIZES: each on 2^23 samples
+# of noise in whole frames (the length of the flagship step's resampled
+# stream), in the monitor's statistics mode and the channel-only mode
+CHAN_SIZE_SAMPLES = 1 << 23
+CHAN_SIZE_MODES = {'stats': dict(emit_psd=True, emit_pbin=True, navg=16),
+                   'channels': dict(emit_psd=False, emit_pbin=False, navg=1)}
+# the monitor of the flagship rates (hamming, 16384 -> 8192, navg 1) at the
+# channelizer designs the slice adds: name -> (design arguments, route,
+# kernel, kernels-line row or None)
+CHAN_MONITOR = dict(bw=40e6, fs_sdr=122.88e6)
+CHAN_DESIGNS = {
+    'channels48': (dict(channel_count=48), 'mixed', 'chan_stats_mixed_kernel', 'chan_stats_mixed'),
+    'channels96': (dict(channel_count=96), 'cluster', 'chan_stats_cluster_kernel',
+                   'chan_stats_cluster'),
+    'channels64x512': (dict(channel_count=64, fft_size_per_channel=512), 'cluster',
+                       'chan_stats_cluster_kernel', None),
+}
+# chan_stats' route counts before a launch
+CHAN_NO_ROUTE = {'reg': 0, 'mixed': 0, 'cluster': 0, 'generic': 0}
 # each compiled pair on a few frames against the plain chain and complex128
 N_CLUSTER_FRAMES = 64
 
@@ -1080,8 +1159,9 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
 
 
 def trace_call(name: str) -> int:
-    """``python3 chip_smoke.py --trace corr|channelize|cluster``: make the
-    call of phase 11, 15 or 16c at its shapes, on noise from ``SEED`` (its
+    """``python3 chip_smoke.py --trace corr|channelize|cluster|cluster6|
+    channels48|channels96|channels64x512``: make the call of phase 11, 15,
+    16c, 16d or 17b at its shapes, on noise from ``SEED`` (its
     kernels' work does not depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
     line, a JSON object. Exits 1 if the trace lacks a kernel."""
@@ -1100,14 +1180,30 @@ def trace_call(name: str) -> int:
             return ofdm.corr_at_indices(inds, x, phy.nfft)
 
         expect = ('corr_accumulate_kernel', 'corr_finish_kernel')
-    elif name == 'cluster':
-        mon = WidebandMonitor(design_wideband_monitor(122.88e6, 61.44e6, **CLUSTER_MONITOR))
-        x = torch.randn(N_CLUSTER_STEP, dtype=torch.complex64, device=dev, generator=gen)
+    elif name in ('cluster', 'cluster6'):
+        if name == 'cluster':
+            mon = WidebandMonitor(design_wideband_monitor(122.88e6, 61.44e6, **CLUSTER_MONITOR))
+        else:
+            mon = WidebandMonitor(design_wideband_monitor(122.88e6, 30.72e6, window='blackman',
+                                                          **WIDE_CLUSTER_MONITOR))
+        n = (N_CLUSTER_STEP if name == 'cluster'
+             else round(N_CLUSTER_STEP / mon.min_input_multiple()) * mon.min_input_multiple())
+        x = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
 
         def fn():
             return mon.step(x)
 
         expect = (CLUSTER_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
+    elif name in CHAN_DESIGNS:
+        extra, _, kernel, _ = CHAN_DESIGNS[name]
+        mon = WidebandMonitor(design_wideband_monitor(122.88e6, 61.44e6, **CHAN_MONITOR, **extra))
+        n = (N_STEP // mon.min_input_multiple()) * mon.min_input_multiple()
+        x = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
+
+        def fn():
+            return mon.step(x)
+
+        expect = (OLA_REG_KERNEL, kernel, HIST_KERNEL)
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -1281,12 +1377,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     nfft, nfft_out = OLA_KW['nfft'], OLA_KW['nfft_out']
     hop = nfft // 2
 
-    def reset():
-        for k in kernels.KERNELS:
-            k.launches = 0
-        for k in (kernels.fused_ola_frames, kernels.upfirdn_cuda, kernels.chan_stats):
-            k.route_launches.update(reg=0, generic=0)
-        kernels.hist.route_launches.update(bucket=0, generic=0)
+    reset = reset_counts
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
@@ -1461,7 +1552,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     hist_routes = dict(kernels.hist.route_launches)
     print(f'blackman step channelizer kernels: {json.dumps(chan_routes)}; histogram kernels '
           f'{json.dumps(hist_routes)}')
-    require(chan_routes == {'reg': 1, 'generic': 0}, f'blackman step channelizer kernels {chan_routes}')
+    require(chan_routes == CHAN_REG_ROUTE, f'blackman step channelizer kernels {chan_routes}')
     require(hist_routes == {'bucket': 1, 'generic': 0}, f'blackman step histogram kernels {hist_routes}')
     check_step(out, mon.reference_step(x10), 'blackman step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x10))
@@ -1596,11 +1687,7 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     kset = {k.__name__: k for k in kernels.KERNELS}
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def reset():
-        for k in kernels.KERNELS:
-            k.launches = 0
-        for k in (kernels.fused_ola_frames, kernels.chan_stats):
-            k.route_launches.update(reg=0, generic=0)
+    reset = reset_counts
 
     def counts():
         return {name: k.launches for name, k in kset.items() if k.launches}
@@ -1773,7 +1860,7 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     require(launched == {'chan_stats': 1}, f'channelize_power launches {launched}')
     routes15 = dict(kernels.chan_stats.route_launches)
     print(f'channelize_power channelizer kernels: {json.dumps(routes15)}')
-    require(routes15 == {'reg': 1, 'generic': 0}, f'channelize_power channelizer kernels {routes15}')
+    require(routes15 == CHAN_REG_ROUTE, f'channelize_power channelizer kernels {routes15}')
     n_frames = CHANNELIZE_CAPTURES * CHANNELIZE_FRAMES
     require(cp.shape == (n_frames, n_ch) and len(times) == n_frames
             and len(freqs) == CHANNELIZE['analysis_bins_per_channel'],
@@ -1871,15 +1958,11 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     """phase 16; returns the kernels line's row of the cluster route."""
     import iqwaveform_torch as it
     from iqwaveform_torch.ops import kernels
-    from iqwaveform_torch.ops.kernels.fused_ola import CLUSTER_PAIRS
+    from iqwaveform_torch.ops.kernels.fused_ola import CLUSTER_PAIRS, _require_cluster_residency
 
     kset = {k.__name__: k for k in kernels.KERNELS}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats(dev)
-
-    def wide(kw):
-        return {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v
-                for k, v in kw.items()}
 
     # ---- phase 16a: each compiled pair against the plain chain and
     # complex128: its error at most twice the plain chain's (float32 torch.fft)
@@ -1897,13 +1980,14 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         require(routes == {'reg': 0, 'cluster': 1, 'generic': 0},
                 f'fused_ola_frames at {nfft} -> {nfft_out}: kernels {routes}')
         ref = kernels.fused_ola_frames_plain(frames, **kw)
-        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **wide(kw))
+        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
         err, err64, plain64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+        clusters = _require_cluster_residency(nfft, nfft_out, dev)
         pairs[f'{nfft}->{nfft_out}'] = {'C': c, 'relative_rms': err, 'f64_rel_rms': err64,
-                                         'plain_f64_rel_rms': plain64}
-        print(f'{CLUSTER_KERNEL} {nfft} -> {nfft_out} (C = {c}), {N_CLUSTER_FRAMES} frames: vs '
-              f'plain relative RMS {err:.3g}; vs complex128 {err64:.4g}, the plain chain '
-              f'{plain64:.4g}')
+                                         'plain_f64_rel_rms': plain64, 'max_active_clusters': clusters}
+        print(f'{CLUSTER_KERNEL} {nfft} -> {nfft_out} (C = {c}, cudaOccupancyMaxActiveClusters '
+              f'{clusters}), {N_CLUSTER_FRAMES} frames: vs plain relative RMS {err:.3g}; vs '
+              f'complex128 {err64:.4g}, the plain chain {plain64:.4g}')
         require(err <= 1e-5, f'{CLUSTER_KERNEL} {nfft} -> {nfft_out}: relative RMS {err:.3g}')
         require(err64 <= 2 * plain64,
                 f'{CLUSTER_KERNEL} {nfft} -> {nfft_out}: complex128 error {err64:.4g} > 2 x the '
@@ -1947,7 +2031,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'cluster step launches {launched}')
     require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'generic': 0},
-                       'chan_stats': {'reg': 1, 'generic': 0},
+                       'chan_stats': CHAN_REG_ROUTE,
                        'hist': {'bucket': 1, 'generic': 0}},
             f'cluster step routes {routes}')
     n_fr = N_CLUSTER_STEP // mon.hop_in
@@ -1976,14 +2060,90 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
           f'{N_CLUSTER_STEP / step_ms / 1e3:.1f} MS/s; device busy {busy:.4f} ms (idle share '
           f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
 
-    # the kernel alone on the step's frames
+    row = cluster_frame_row('fused_ola_frames_cluster', mon, x, launched, device_us, step_ms,
+                            mem_rate, fp32_rate, smi)
+    row['path'] = 'WidebandMonitor.step, blackman 122.88 -> 61.44 MS/s, 49152 -> 24576, R = 3'
+    row['pairs'] = pairs
+    rows = [row]
+    del x, out, mon
+    torch.cuda.empty_cache()
+
+    # ---- phase 16d: the monitor at 122.88 -> 30.72 MS/s, frames on clusters
+    # of 6 and 10 blocks: the blackman step (98304 -> 24576, C = 6) on whole
+    # min_input_multiple()s near 2^24 samples, timed and profiled; the
+    # blackmanharris step (163840 -> 40960, C = 10) once, gated
+    for window, pair, fresh in (('blackman', (98304, 24576), 'cluster6'),
+                                ('blackmanharris', (163840, 40960), None)):
+        mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 30.72e6, window=window,
+                                                            **WIDE_CLUSTER_MONITOR))
+        d = mon.design
+        require((d.nfft, d.nfft_out) == pair, f'{window} design {d.nfft} -> {d.nfft_out}')
+        n = round(N_CLUSTER_STEP / mon.min_input_multiple()) * mon.min_input_multiple()
+        x = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
+        mon.step(x[: mon.min_input_multiple()])  # warm-up: first-use setup
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {name: k.launches for name, k in kset.items() if k.launches}
+        routes = {'fused_ola_frames': dict(kernels.fused_ola_frames.route_launches),
+                  'chan_stats': dict(kernels.chan_stats.route_launches)}
+        print(f'{window} 30.72 MS/s step ({n} samples, {pair[0]} -> {pair[1]}, C = '
+              f'{CLUSTER_PAIRS[pair]}): launches {json.dumps(launched)}; routes {json.dumps(routes)}')
+        require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
+                f'{window} 30.72 MS/s step launches {launched}')
+        require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'generic': 0},
+                           'chan_stats': CHAN_REG_ROUTE}, f'{window} 30.72 MS/s step routes {routes}')
+        check_step(out, mon.reference_step(x), f'{window} 30.72 MS/s step vs plain-version step')
+        step_ms, device_us = None, {}
+        if fresh:
+            step_ms = timed_ms(lambda: mon.step(x))
+            names, device_us = device_kernels(lambda: mon.step(x), CLUSTER_KERNEL, STATS_REG_KERNEL,
+                                              HIST_KERNEL, fresh=fresh)
+            require(any(CLUSTER_KERNEL in nm for nm in names),
+                    f'profiler shows no {CLUSTER_KERNEL} in the {window} 30.72 MS/s step')
+            bad = library_kernels(names)
+            require(not bad, f'library FFT / GEMM / cuDNN kernels in the {window} step: {bad}')
+            busy = sum(device_us.values()) / 1e3
+            print(f'{window} 30.72 MS/s step device time by kernel (us): ' + json.dumps(
+                dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+            print(f'{window} 30.72 MS/s step: {step_ms:.4f} ms for {n} samples = '
+                  f'{n / step_ms / 1e3:.1f} MS/s; device busy {busy:.4f} ms (idle share '
+                  f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+        row = cluster_frame_row(f'fused_ola_frames_cluster{CLUSTER_PAIRS[pair]}', mon, x, launched,
+                                device_us, step_ms, mem_rate, fp32_rate, smi)
+        row['path'] = (f'WidebandMonitor.step, {window} 122.88 -> 30.72 MS/s, {pair[0]} -> '
+                       f'{pair[1]}, C = {CLUSTER_PAIRS[pair]}')
+        row['max_active_clusters'] = _require_cluster_residency(*pair, dev)
+        rows.append(row)
+        del x, out, mon
+        torch.cuda.empty_cache()
+    print(f'phase 16 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
+
+
+def _wide_kw(kw):
+    return {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+
+
+def cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
+                      smi) -> dict:
+    """the cluster frame kernel alone on the frames of ``mon``'s step on
+    ``x``: within 1e-5 of the plain chain, its first N_F64_FRAMES frames
+    against complex128 (at most twice the plain chain's error), and its
+    kernels-line row, timed beside its bound, the plain chain and the
+    torch.fft chain (its library call)."""
+    from iqwaveform_torch.ops import kernels
+
+    d = mon.design
     kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    n_fr = x.numel() // mon.hop_in
     xe = torch.cat([x, x.new_zeros(mon.noverlap_in)])
     fr = xe.unfold(-1, d.nfft, mon.hop_in)[:n_fr]
     got = kernels.fused_ola_frames(fr, **kw)
     ref = kernels.fused_ola_frames_plain(fr, **kw)
     err = rel_rms(got, ref)
-    ref64 = kernels.fused_ola_frames_plain(fr[:N_F64_FRAMES].to(torch.complex128), **wide(kw))
+    ref64 = kernels.fused_ola_frames_plain(fr[:N_F64_FRAMES].to(torch.complex128), **_wide_kw(kw))
     err64, plain64 = rel_rms(got[:N_F64_FRAMES], ref64), rel_rms(ref[:N_F64_FRAMES], ref64)
     print(f'{CLUSTER_KERNEL} on the step\'s frames {tuple(fr.shape)} -> {tuple(got.shape)}: vs '
           f'plain relative RMS {err:.3g}; first {N_F64_FRAMES} frames vs complex128 {err64:.4g}, '
@@ -1993,8 +2153,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             f'{CLUSTER_KERNEL} on the step\'s frames: complex128 error {err64:.4g} > 2 x the '
             f'plain chain\'s {plain64:.4g}')
     row = kernel_row(
-        'fused_ola_frames_cluster',
-        {'launches': launched.get('fused_ola_frames', 0), 'max_abs_err': max_abs(got, ref)},
+        name, {'launches': launched.get('fused_ola_frames', 0), 'max_abs_err': max_abs(got, ref)},
         8 * x.numel() + 8 * got.numel(),
         n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)),
         lambda: kernels.fused_ola_frames(fr, **kw),
@@ -2002,20 +2161,214 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         lambda: kernels.fused_ola_frames_plain(fr, **kw),
         mem_rate, fp32_rate,
     )
-    row['profiled_device_ms'] = device_ms(device_us, CLUSTER_KERNEL)
+    row['profiled_device_ms'] = device_ms(device_us, CLUSTER_KERNEL) if device_us else None
     row['f64_rel_rms'] = err64
     row['plain_f64_rel_rms'] = plain64
-    row['path'] = 'WidebandMonitor.step, blackman 122.88 -> 61.44 MS/s, 49152 -> 24576, R = 3'
     row['path_ms'] = step_ms
-    row['pairs'] = pairs
-    print(f'{CLUSTER_KERNEL}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
-          f'{row["bound_by"]}, plain {row["plain_ms"]:.4f} ms, library (torch.fft chain) '
-          f'{row["library_ms"]:.4f} ms), {row["profiled_device_ms"]:.4f} ms of device time in the '
-          f'profiled step, on {smi}')
-    del x, xe, fr, got, ref, ref64, out, mon
+    profiled = ('not profiled' if row['profiled_device_ms'] is None
+                else f'{row["profiled_device_ms"]:.4f} ms of device time in the profiled step')
+    print(f'{name} ({d.nfft} -> {d.nfft_out}): {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms '
+          f'by {row["bound_by"]}, plain {row["plain_ms"]:.4f} ms, library (torch.fft chain) '
+          f'{row["library_ms"]:.4f} ms), {profiled}, on {smi}')
+    return row
+
+
+def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: float) -> dict:
+    """one channelizer frame size in one mode (``mode``: emit_psd,
+    emit_pbin, navg) on CHAN_SIZE_SAMPLES of noise in whole frames, 24
+    channels of (3 / 4) n / 24 bins: the kernel its route launches, once,
+    within 1e-5 of the plain version in every output, its channel power's
+    error against complex128 on the first N_F64_FRAMES frames at most twice
+    the plain version's (as chan_f64 holds the flagship's; the other
+    outputs' errors are reported); timed beside its bound, the torch.fft formulation (the
+    plain version, its library call) and, at the powers of two, the radix-2
+    kernel (at 4096 also the mixed-size kernel beside the flagship's)."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.chan_stats import (
+        _chan_stats_generic,
+        _chan_stats_mixed,
+        chan_route,
+    )
+
+    frames = CHAN_SIZE_SAMPLES // n
+    y = torch.randn(frames * n, dtype=torch.complex64, device=dev, generator=gen)
+    w = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen) / n
+    kw = dict(nfft_big=n, channel_count=24, window=w, skip_bins=n // 4, **mode)
+    route = chan_route(n, mode['emit_psd'], mode['emit_pbin'], mode['navg'])
+    reset_counts()
+    got = kernels.chan_stats(y, **kw)
+    torch.cuda.synchronize()
+    routes = dict(kernels.chan_stats.route_launches)
+    require(routes == dict(CHAN_NO_ROUTE, **{route: 1}), f'chan_stats at {n} {mode}: routes {routes}')
+    ref = kernels.chan_stats_plain(y, **kw)
+    y64 = y[: min(frames, N_F64_FRAMES) * n]
+    got64, plain64 = ((got, ref) if y64.numel() == y.numel()
+                      else (kernels.chan_stats(y64, **kw), kernels.chan_stats_plain(y64, **kw)))
+    ref64 = kernels.chan_stats_plain(y64.to(torch.complex128), **_wide_kw(kw))
+    out = {'route': route, 'frames': frames}
+    for key in ref:
+        err = rel_rms(got[key], ref[key])
+        e64, p64 = rel_rms(got64[key], ref64[key]), rel_rms(plain64[key], ref64[key])
+        require(err <= 1e-5, f'chan_stats {key} at {n} {mode}: relative RMS {err:.3g}')
+        if key == 'channel_power':
+            require(e64 <= 2 * p64, f'chan_stats {key} at {n} {mode}: complex128 error {e64:.4g} '
+                    f'> 2 x the plain version\'s {p64:.4g}')
+        out[key] = {'relative_rms': err, 'f64_rel_rms': e64, 'plain_f64_rel_rms': p64}
+    nbytes = 8 * y.numel() + 8 * n + 4 * sum(v.numel() for v in got.values())
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, frames * (fft_ops(n) + 12 * n) / fp32_rate * 1e3
+    out['bound_ms'] = max(t_bytes, t_ops)
+    out['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+    out['ms'] = timed_ms(lambda: kernels.chan_stats(y, **kw))
+    out['plain_ms'] = timed_ms(lambda: kernels.chan_stats_plain(y, **kw))
+    if n & (n - 1) == 0 and n <= 16384:
+        out['generic_ms'] = timed_ms(lambda: _chan_stats_generic(y, **kw))
+    if route == 'reg' and mode['emit_psd']:
+        out['mixed_ms'] = timed_ms(lambda: _chan_stats_mixed(y, **kw))
+    out['max_abs_err'] = max(max_abs(got[k], ref[k]) for k in ref)
+    return out
+
+
+def channelizer_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 17; returns the kernels line's rows of the channelizer at the
+    sizes this slice adds."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels, spectral
+    from iqwaveform_torch.ops.kernels.chan_stats import CHAN_SIZES
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- phase 17a: every frame size of CHAN_SIZES in the statistics mode
+    # the monitor runs (navg 16) and the channel-only mode
+    sizes = {}
+    for n in sorted(CHAN_SIZES):
+        sizes[n] = {name: chan_size_check(n, mode, gen, dev, mem_rate, fp32_rate)
+                    for name, mode in CHAN_SIZE_MODES.items()}
+        print(f'chan_stats at {n}: ' + json.dumps(
+            {name: {k: (v if not isinstance(v, dict) else
+                        {e: f'{x:.3g}' for e, x in v.items() if 'f64' in e})
+                    for k, v in r.items() if k not in ('frames', 'max_abs_err', 'bound_by')}
+             for name, r in sizes[n].items()}) + f' ({smi})')
     torch.cuda.empty_cache()
-    print(f'phase 16 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
-    return [row]
+
+    # ---- phase 17b: the monitor of the flagship rates at 48, 96 and 64 x
+    # 512 channels, a step each on whole min_input_multiple()s near 2^24
+    # samples: launches and routes, phase 3's gates against reference_step,
+    # the profile, the step timed; the channelizer alone on the step's
+    # resampled stream
+    rows = []
+    for name, (extra, want_route, kernel, rname) in CHAN_DESIGNS.items():
+        mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **CHAN_MONITOR,
+                                                            **extra))
+        ckw = mon.chan_kwargs
+        nb = ckw['nfft_big']
+        n = (N_STEP // mon.min_input_multiple()) * mon.min_input_multiple()
+        x = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
+        mon.step(x[: mon.min_input_multiple()])  # warm-up: first-use setup
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: v.launches for k, v in kset.items() if v.launches}
+        routes = dict(kernels.chan_stats.route_launches)
+        print(f'{name} step ({nb}-point channelizer, {n} samples): launches '
+              f'{json.dumps(launched)}; channelizer kernels {json.dumps(routes)}')
+        require(launched == {'fused_ola': 1, 'chan_stats': 1, 'hist': 1},
+                f'{name} step launches {launched}')
+        require(routes == dict(CHAN_NO_ROUTE, **{want_route: 1}), f'{name} step routes {routes}')
+        check_step(out, mon.reference_step(x), f'{name} step vs plain-version step')
+        step_ms = timed_ms(lambda: mon.step(x))
+        names, device_us = device_kernels(lambda: mon.step(x), OLA_REG_KERNEL, kernel, HIST_KERNEL,
+                                          fresh=name)
+        for k in (OLA_REG_KERNEL, kernel, HIST_KERNEL):
+            require(any(k in nm for nm in names), f'profiler shows no {k} in the {name} step')
+        old = [nm for nm in names if STATS_GENERIC_KERNEL in nm or 'chan_reduce_kernel' in nm]
+        require(not old, f'the radix-2 channelizer kernel ran in the {name} step: {old}')
+        bad = library_kernels(names)
+        require(not bad, f'library FFT / GEMM / cuDNN kernels in the {name} step: {bad}')
+        busy = sum(device_us.values()) / 1e3
+        print(f'{name} step device time by kernel (us): ' + json.dumps(
+            dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+        print(f'{name} step: {step_ms:.4f} ms for {n} samples = {n / step_ms / 1e3:.1f} MS/s; '
+              f'device busy {busy:.4f} ms (idle share {max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+        if rname is not None:
+            y = kernels.fused_ola(x, **mon.ola_kwargs)
+            cs = kernels.chan_stats(y, **ckw)
+            ref = kernels.chan_stats_plain(y, **ckw)
+            for key in ref:
+                err = rel_rms(cs[key], ref[key])
+                require(err <= 1e-5, f'chan_stats {key} on the {name} stream: relative RMS {err:.3g}')
+            row = kernel_row(
+                rname,
+                {'launches': launched.get('chan_stats', 0),
+                 'max_abs_err': max(max_abs(cs[k], ref[k]) for k in ref)},
+                8 * y.numel() + 8 * nb + 4 * sum(v.numel() for v in cs.values()),
+                (y.shape[-1] // nb) * (fft_ops(nb) + 12 * nb),
+                lambda: kernels.chan_stats(y, **ckw),
+                lambda: kernels.chan_stats_plain(y, **ckw),
+                lambda: kernels.chan_stats_plain(y, **ckw),
+                mem_rate, fp32_rate,
+            )
+            row['profiled_device_ms'] = sum(
+                us for k, us in device_us.items() if kernel in k or 'chan_fold' in k) / 1e3
+            row['path'] = f'WidebandMonitor.step, {name}, {nb}-point channelizer'
+            row['path_ms'] = step_ms
+            row['idle_share'] = max(0.0, 1 - busy / step_ms)
+            row['sizes'] = {str(sz): r for sz, r in sizes.items() if r['stats']['route'] == want_route}
+            print(f'{rname} at {nb}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+                  f'{row["bound_by"]}, plain / library {row["plain_ms"]:.4f} ms), '
+                  f'{row["profiled_device_ms"]:.4f} ms of device time in the profiled step, on {smi}')
+            rows.append(row)
+            del y, cs, ref
+        del x, out, mon
+        torch.cuda.empty_cache()
+
+    # ---- phase 17c: channelize_power at a frame size that is no power of
+    # two: 48 channels of 192 of 256 bins, 12288 points, hamming
+    per, n_ch, abins = 256, 48, 192
+    nperseg = per * n_ch
+    iq = torch.randn(CHANNELIZE_FRAMES * nperseg, dtype=torch.complex64, device=dev, generator=gen)
+    pkw = dict(analysis_bins_per_channel=abins, window='hamming', channel_count=n_ch)
+    it.channelize_power(iq, CHANNELIZE_TS, per, **pkw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    _, _, cp = it.channelize_power(iq, CHANNELIZE_TS, per, **pkw)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in kset.items() if v.launches}
+    routes = dict(kernels.chan_stats.route_launches)
+    require(launched == {'chan_stats': 1} and routes == CHAN_REG_ROUTE,
+            f'channelize_power at {nperseg}: launches {launched}, routes {routes}')
+    skip = n_ch * (per - abins)
+    ckw = dict(nfft_big=nperseg, channel_count=n_ch, skip_bins=skip, emit_psd=False,
+               emit_pbin=False, window=spectral._kernel_window('hamming', nperseg, dev))
+    cp_ref = kernels.chan_stats_plain(iq, **ckw)['channel_power']
+    err = rel_rms(cp, cp_ref)
+    print(f'channelize_power at {n_ch} x {per} = {nperseg} points: {tuple(cp.shape)}, kernels '
+          f'{json.dumps(routes)}, vs the plain version relative RMS {err:.3g}')
+    require(err <= 1e-5, f'channelize_power at {nperseg}: relative RMS {err:.3g}')
+    require(cp.shape == (CHANNELIZE_FRAMES, n_ch), f'channelize_power at {nperseg}: {tuple(cp.shape)}')
+    row = kernel_row(
+        'chan_stats_channels_mixed',
+        {'launches': launched.get('chan_stats', 0), 'max_abs_err': max_abs(cp, cp_ref)},
+        8 * iq.numel() + 8 * nperseg + 4 * cp.numel(),
+        CHANNELIZE_FRAMES * (fft_ops(nperseg) + 6 * nperseg + 2 * (nperseg - skip)),
+        lambda: kernels.chan_stats(iq, **ckw),
+        lambda: kernels.chan_stats_plain(iq, **ckw),
+        lambda: kernels.chan_stats_plain(iq, **ckw),
+        mem_rate, fp32_rate,
+    )
+    row['path'] = f'channelize_power, {n_ch} channels of {abins} of {per} bins ({nperseg} points)'
+    row['path_ms'] = timed_ms(lambda: it.channelize_power(iq, CHANNELIZE_TS, per, **pkw))
+    row['sizes'] = {str(sz): r['channels'] for sz, r in sizes.items()}
+    print(f'chan_stats (channel-only) at {nperseg}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} '
+          f'ms by {row["bound_by"]}, plain / library {row["plain_ms"]:.4f} ms); channelize_power '
+          f'{row["path_ms"]:.4f} ms on {smi}')
+    rows.append(row)
+    del iq, cp, cp_ref
+    torch.cuda.empty_cache()
+    print(f'phase 17 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
 
 
 def main() -> int:
@@ -2125,11 +2478,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- phase 2: the full step through the kernels
-    for k in kernels.KERNELS:
-        k.launches = 0
-    for k in (kernels.fused_ola, kernels.chan_stats):
-        k.route_launches.update(reg=0, generic=0)
-    kernels.hist.route_launches.update(bucket=0, generic=0)
+    reset_counts()
     out = mon.step(x)
     torch.cuda.synchronize()
     launched = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -2141,7 +2490,7 @@ def main() -> int:
               'chan_stats': dict(kernels.chan_stats.route_launches),
               'hist': dict(kernels.hist.route_launches)}
     print('kernels by route in one step: ' + json.dumps(routes))
-    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': {'reg': 1, 'generic': 0},
+    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': CHAN_REG_ROUTE,
                        'hist': {'bucket': 1, 'generic': 0}},
             f'the step\'s routes {routes}')
 
@@ -2260,6 +2609,9 @@ def main() -> int:
 
     # ---- phase 16: the monitor at frames above one block (cluster kernel)
     rows = merge_rows(rows, cluster_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 17: the channelizer at the frame sizes of CHAN_SIZES
+    rows = merge_rows(rows, channelizer_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -33,11 +33,16 @@
 // frame stays in shared memory (32 KiB at nfft = 4096) from load to the
 // channel sums, so y is read from device memory once, plus a second read of
 // the same frame for the binned power that L1/L2 serve. This simple version
-// pays one barrier per radix-2 stage; in the channel-only mode at 16384
-// points chan_power_reg_kernel below takes its place, and in the PSD +
-// binned-power mode at 4096 points (the monitor step's) chan_stats_reg_kernel.
+// pays one barrier per radix-2 stage, and is the route at the powers of two
+// 64-512 alone (and at navg above 128): in the channel-only mode at
+// 1024-16384 points chan_power_reg_kernel below takes its place, in the
+// PSD + binned-power mode at 4096 points (the monitor step's)
+// chan_stats_reg_kernel, in the other modes at one block's sizes
+// chan_stats_mixed_kernel (csrc/chan_mixed.cu) and above one block
+// chan_stats_cluster_kernel (csrc/chan_cluster.cu).
 #include <math.h>
 
+#include "chan_common.cuh"
 #include "fft.cuh"
 #include "fft_reg.cuh"
 
@@ -194,20 +199,23 @@ cudaError_t allow_modes(int max_smem) {
   return iqt::allow_smem(chan_stats_kernel<PT, false, false>, max_smem);
 }
 
-// ---- the channel-only mode at 16384 points --------------------------------
+// ---- the channel-only mode at one block's frame sizes ----------------------
 //
 // Replaces the same TPU kernel as chan_stats_kernel<PT, false, false>
 // above (chan_stats_pallas.py chan_stats_pallas with emit_psd=False,
 // emit_pbin=False, the mode channelize_power takes), with the same
-// contract, at nfft = 16384 (BASELINE config #4's 64 channels of 256
-// points). The PSD + binned-power mode at 4096 points takes
-// chan_stats_reg_kernel below, every other size and mode chan_stats_kernel;
-// the host route (ops/kernels/chan_stats.py chan_route) picks before the
-// launch.
+// contract, at every frame size of IQT_CHAN_SIZES (csrc/chan_common.cuh:
+// 1024-16384 points, 2^a 3^b 5^c with b, c <= 1; BASELINE config #4's 64
+// channels of 256 points at 16384). The PSD + binned-power mode at 4096
+// points takes chan_stats_reg_kernel below, the other modes at these sizes
+// chan_stats_mixed_kernel (csrc/chan_mixed.cu), frames above 16384 points
+// chan_stats_cluster_kernel (csrc/chan_cluster.cu) and the powers of two
+// 64-512 chan_stats_kernel; the host route (ops/kernels/chan_stats.py
+// chan_route) picks before the launch.
 //
 // Per frame f of row b (block f, blockIdx.y = b): pass 0 of the forward
-// 16384-point plan of csrc/fft_reg.cuh (16.16.16.4) loads y[b, f * 16384
-// + i] times w[i] (the channelizer window / nfft with the fftshift delay,
+// plan of csrc/fft_reg.cuh (16.16.16.4 at 16384) loads y[b, f * N + i]
+// times w[i] (the channelizer window / nfft with the fftshift delay,
 // so bins come out in centred order), coalesced, straight from device
 // memory; the last pass, whose loads have all finished at its barrier,
 // writes |Y_k|^2 over the exchange buffer viewed as float, in natural bin
@@ -234,8 +242,8 @@ cudaError_t allow_modes(int max_smem) {
 // - a run of frames per block, with the window and the FFT loop live
 //   across the frame loop: here one block per frame and no frame loop (a
 //   persistent loop keeps index math live and ptxas spills it).
-// 512 threads; the exchange buffer and the tables take 145 KiB, so one
-// block runs per SM.
+// 512 threads at 16384 (N / 16, at most 512, at every size); the exchange
+// buffer and the tables take 145 KiB there, so one block runs per SM.
 template <int N, int T>
 __global__ void __launch_bounds__(T, 1)
 chan_power_reg_kernel(const float2* __restrict__ y, const float2* __restrict__ w,
@@ -270,11 +278,11 @@ chan_power_reg_kernel(const float2* __restrict__ y, const float2* __restrict__ w
   }
 }
 
-constexpr int kRegN = 16384;
-constexpr int kRegThreads = 512;
-constexpr size_t kRegSmem =
-    static_cast<size_t>(iqt::reg::padded_size(kRegN) + iqt::reg::table_total<kRegN>()) *
-    sizeof(float2);
+template <int N>
+constexpr size_t power_smem() {
+  return static_cast<size_t>(iqt::reg::padded_size(N) + iqt::reg::table_total<N>()) *
+         sizeof(float2);
+}
 
 // ---- the PSD + binned-power mode at 4096 points ---------------------------
 //
@@ -308,7 +316,8 @@ constexpr size_t kRegSmem =
 //   shuffle tree: a fixed order) and writes chp[b, f, c]; the next
 //   frame's passes write that buffer only after two more barriers.
 // At the end the block writes its per-bin partials, and chan_fold_kernel
-// folds them over blocks in a fixed order (no float atomics).
+// (csrc/chan_common.cuh) folds them over blocks in a fixed order (no float
+// atomics).
 //
 // What held chan_stats_kernel<4, true, true> back, and what this one does
 // about it: 16 frames a block made 128 blocks of 1024 threads, less than
@@ -414,42 +423,6 @@ chan_stats_reg_kernel(const float2* __restrict__ y, const float2* __restrict__ w
   }
 }
 
-// psd_log_sum / psd_max per (row, bin) from chan_stats_reg_kernel's
-// partials, in a fixed order: a block of 32 warps owns 32 bins (one a
-// lane); warp w folds partials w, w + 32, ..., and warp 0 then folds the
-// 32 warps' results in warp order
-constexpr int kFoldWarps = 32;
-
-__global__ void __launch_bounds__(kFoldWarps * 32)
-chan_fold_kernel(const float* __restrict__ part_log, const float* __restrict__ part_max,
-                 float* __restrict__ log_sum, float* __restrict__ max_out, int n_blocks,
-                 int nfft) {
-  __shared__ float ws[kFoldWarps][32], wx[kFoldWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int k = blockIdx.x * 32 + lane;  // nfft is a multiple of 32
-  const long long row = blockIdx.y;
-  float s = 0.f;
-  float m = -INFINITY;
-  for (int b = warp; b < n_blocks; b += kFoldWarps) {
-    const long long i = (row * n_blocks + b) * nfft + k;
-    s += part_log[i];
-    m = fmaxf(m, part_max[i]);
-  }
-  ws[warp][lane] = s;
-  wx[warp][lane] = m;
-  __syncthreads();
-  if (warp != 0) return;
-  s = 0.f;
-  m = -INFINITY;
-  for (int v = 0; v < kFoldWarps; ++v) {
-    s += ws[v][lane];
-    m = fmaxf(m, wx[v][lane]);
-  }
-  log_sum[row * nfft + k] = s;
-  max_out[row * nfft + k] = m;
-}
-
 cudaError_t allow_stats_reg() {
   cudaError_t err;
   if ((err = iqt::allow_smem(chan_stats_reg_kernel<1>, kStSmem))) return err;
@@ -471,23 +444,35 @@ extern "C" int iqt_chan_stats_prepare(int max_smem) {
   if ((err = allow_modes<8>(max_smem))) return err;
   if ((err = allow_modes<16>(max_smem))) return err;
   if ((err = allow_stats_reg())) return err;
-  return iqt::allow_smem(chan_power_reg_kernel<kRegN, kRegThreads>, kRegSmem);
+#define IQT_ALLOW(N, T) \
+  if ((err = iqt::allow_smem(chan_power_reg_kernel<N, T>, power_smem<N>()))) return err;
+  IQT_CHAN_SIZES(IQT_ALLOW)
+#undef IQT_ALLOW
+  return cudaSuccess;
 }
 
-// the channel-only mode at nfft = 16384, by chan_power_reg_kernel: y and
-// chp as for iqt_chan_stats; tw: the n_tw forward twiddle-table entries
-// of 16384 (the first of ops/kernels/fused_ola.py reg_twiddles). Another
-// nfft or table length: cudaErrorInvalidValue.
+// the channel-only mode at a size of IQT_CHAN_SIZES, by
+// chan_power_reg_kernel: y and chp as for iqt_chan_stats; tw: the n_tw
+// forward twiddle-table entries of nfft (ops/kernels/fused_ola.py
+// reg_forward_twiddles). Another nfft or table length:
+// cudaErrorInvalidValue.
 extern "C" int iqt_chan_power_reg(const void* y, const void* w, const void* tw, void* chp,
                                   int n_tw, int batch, int row_len, int n_frames, int nfft,
                                   int channel_count, int abins, int skip_half, void* stream) {
-  if (nfft != kRegN || n_tw != iqt::reg::table_total<kRegN>()) return cudaErrorInvalidValue;
-  chan_power_reg_kernel<kRegN, kRegThreads>
-      <<<dim3(n_frames, batch), kRegThreads, kRegSmem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float2*>(y), static_cast<const float2*>(w),
-          static_cast<const float2*>(tw), static_cast<float*>(chp), row_len, n_frames,
-          channel_count, abins, skip_half);
-  return cudaGetLastError();
+#define IQT_POWER(N, T)                                                                  \
+  if (nfft == N) {                                                                       \
+    if (n_tw != iqt::reg::table_total<N>()) return cudaErrorInvalidValue;                \
+    constexpr size_t smem = power_smem<N>();                                             \
+    chan_power_reg_kernel<N, T>                                                          \
+        <<<dim3(n_frames, batch), T, smem, static_cast<cudaStream_t>(stream)>>>(         \
+            static_cast<const float2*>(y), static_cast<const float2*>(w),                \
+            static_cast<const float2*>(tw), static_cast<float*>(chp), row_len, n_frames, \
+            channel_count, abins, skip_half);                                            \
+    return cudaGetLastError();                                                           \
+  }
+  IQT_CHAN_SIZES(IQT_POWER)
+#undef IQT_POWER
+  return cudaErrorInvalidValue;
 }
 
 // the PSD + binned-power mode at nfft = 4096, by chan_stats_reg_kernel
@@ -526,9 +511,8 @@ extern "C" int iqt_chan_stats_reg(const void* y, const void* w, const void* tw, 
 #undef IQT_ST
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  chan_fold_kernel<<<dim3(kStN / 32, batch), kFoldWarps * 32, 0, s>>>(
-      pl, pm, static_cast<float*>(log_sum), static_cast<float*>(max_out), n_blocks, kStN);
-  return cudaGetLastError();
+  return iqt::chan::launch_fold(pl, pm, static_cast<float*>(log_sum),
+                                static_cast<float*>(max_out), batch, n_blocks, kStN, 1, s);
 }
 
 // y: (batch, row_len) complex64 with n_frames * nfft <= row_len;

@@ -128,6 +128,56 @@ __device__ __forceinline__ void dft_small<5>(float2* v, bool inverse) {
   v[3] = make_float2(a2.x - b2.x, a2.y - b2.y);
 }
 
+// the multiple of B below A B that is 1 mod A (A, B coprime)
+__host__ __device__ constexpr int crt_unit(int a, int b) {
+  int e = 0;
+  while ((e * b) % a != 1) ++e;
+  return e * b;
+}
+
+// DFT of A B points, A and B coprime, by the prime-factor (Good-Thomas)
+// split, with no twiddles: input n = (B a + A b) mod A B goes through B
+// A-point DFTs, then A B-point DFTs, and output (k1, k2) lands at k =
+// (crt_unit(A, B) k1 + crt_unit(B, A) k2) mod A B (k = k1 mod A, k = k2
+// mod B). Every index is a compile-time constant once unrolled.
+template <int A, int B>
+__device__ __forceinline__ void dft_pfa(float2* v, bool inverse) {
+  constexpr int N = A * B;
+  constexpr int e1 = crt_unit(A, B), e2 = crt_unit(B, A);
+  float2 t[B][A];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) t[b][a] = v[(B * a + A * b) % N];
+    dft_small<A>(t[b], inverse);
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < A; ++k1) {
+    float2 u[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) u[b] = t[b][k1];
+    dft_small<B>(u, inverse);
+#pragma unroll
+    for (int k2 = 0; k2 < B; ++k2) v[(e1 * k1 + e2 * k2) % N] = u[k2];
+  }
+}
+
+// the radix-6, -10 and -15 steps of a cluster of 6 or 10 blocks
+// (csrc/fused_ola.cu) and the last pass of 15360 = 16.16.4.15
+// (csrc/fft_reg.cuh)
+template <>
+__device__ __forceinline__ void dft_small<6>(float2* v, bool inverse) {
+  dft_pfa<2, 3>(v, inverse);
+}
+template <>
+__device__ __forceinline__ void dft_small<10>(float2* v, bool inverse) {
+  dft_pfa<2, 5>(v, inverse);
+}
+template <>
+__device__ __forceinline__ void dft_small<15>(float2* v, bool inverse) {
+  dft_pfa<3, 5>(v, inverse);
+}
+
 // one radix-R stage: sub-transforms of length m become ones of length R m
 template <int R>
 __device__ __forceinline__ void fft_stage(float2* a, const float2* __restrict__ tw,

@@ -1,7 +1,7 @@
 // Register-resident Stockham FFT passes at compile-time sizes.
 //
 // A transform of N points runs as a few passes of radix 16 (and one of
-// radix 8, 4, 3 or 2), each in the autosort (Stockham) form: no
+// radix 8, 4, 3, 2, 5, 10 or 15), each in the autosort (Stockham) form: no
 // digit-reversal table, input and output in natural order. Pass s, with
 // NS = the product of the radices before it and NB = N / R butterflies:
 //
@@ -35,9 +35,12 @@
 // and its own barrier that of __syncthreads.
 //
 // Sizes and plans (tests/test_torch_fft_reg.py holds a numpy model of
-// them against np.fft): 16384 = 16.16.16.4, 12288 = 16.16.16.3,
-// 8192 = 16.16.16.2, 6144 = 16.16.8.3, 4096 = 16.16.16 and 1024 = 16.16.4
-// (forward only).
+// them against np.fft): 16384 = 16.16.16.4, 15360 = 16.16.4.15, 12288 =
+// 16.16.16.3, 10240 = 16.16.4.10, 8192 = 16.16.16.2, 6144 = 16.16.8.3,
+// 5120 = 16.16.4.5, 4096 = 16.16.16, 3072 = 16.16.4.3, 2048 = 16.16.8 and
+// 1024 = 16.16.4. A radix that is no power of two comes last, so that NS
+// is one in every pass (k = b mod NS is a mask); radices 10 and 15 are the
+// prime-factor DFTs of fft.cuh.
 #pragma once
 
 #include "fft.cuh"
@@ -66,6 +69,31 @@ template <>
 struct Plan<6144> {
   static constexpr int stages = 4;
   __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : (s == 2 ? 8 : 3); }
+};
+template <>
+struct Plan<15360> {
+  static constexpr int stages = 4;
+  __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : (s == 2 ? 4 : 15); }
+};
+template <>
+struct Plan<10240> {
+  static constexpr int stages = 4;
+  __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : (s == 2 ? 4 : 10); }
+};
+template <>
+struct Plan<5120> {
+  static constexpr int stages = 4;
+  __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : (s == 2 ? 4 : 5); }
+};
+template <>
+struct Plan<3072> {
+  static constexpr int stages = 4;
+  __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : (s == 2 ? 4 : 3); }
+};
+template <>
+struct Plan<2048> {
+  static constexpr int stages = 3;
+  __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : 8; }
 };
 template <>
 struct Plan<4096> {

@@ -339,9 +339,14 @@ cudaError_t launch_frames_reg(dim3 grid, cudaStream_t stream, const float2* x,
 // same contract, at frames no block can hold: 8 bytes a point, 49152 ->
 // 24576 is 384 KiB, above an H100 block's 227 KiB. These are the monitor's
 // frames at the blackman and blackmanharris designs of the flagship rates
-// (R = 3 and 5, the grouped overlap-add in torch) and ola_filter's at
-// such windows; the host route (ops/kernels/fused_ola.py frames_route)
-// picks this kernel at the pairs it is compiled for (CLUSTER_PAIRS).
+// (R = 3 and 5, the grouped overlap-add in torch), of 122.88 -> 30.72 MS/s
+// (98304 -> 24576 on C = 6 and 163840 -> 40960 on C = 10) and ola_filter's
+// at such windows; the host route (ops/kernels/fused_ola.py frames_route)
+// picks this kernel at the pairs it is compiled for (CLUSTER_PAIRS). The
+// radix-6 and -10 steps are the prime-factor DFTs of csrc/fft.cuh; C = 10
+// is above the portable cluster size of 8, so that instance opts in to a
+// non-portable one (allow_cluster_size) before any occupancy query or
+// launch.
 //
 // One frame runs on a thread-block cluster of C blocks (launched with
 // cudaLaunchKernelEx and a cluster dimension of C; blockIdx.x = C m +
@@ -419,9 +424,9 @@ fused_ola_frames_cluster_kernel(const float2* __restrict__ x, long long batch_st
   const int m = blockIdx.x / C;
   const float2* xf = x + blockIdx.y * batch_stride + m * frame_stride;
   float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * N2;
-  float2* part[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) part[c] = cluster.map_shared_rank(buf, c);
+  // block c's exchange buffer, mapped where it is used: an array of C
+  // mapped pointers held across the passes costs 2 C registers
+  const auto part = [&cluster, buf](int c) { return cluster.map_shared_rank(buf, c); };
 
   // 1. the pass tables, read after the barriers below; every block begun
   for (int e = threadIdx.x; e < S::passes; e += T) tw_fwd[e] = __ldg(&tw[e]);
@@ -434,10 +439,10 @@ fused_ola_frames_cluster_kernel(const float2* __restrict__ x, long long batch_st
 #pragma unroll
     for (int c = 0; c < C; ++c) v[c] = iqt::cmul(xf[c * M1 + n], __ldg(&w_in[c * M1 + n]));
     iqt::dft_small<C>(v, false);
-    part[0][R::pad(n)] = v[0];
+    part(0)[R::pad(n)] = v[0];
 #pragma unroll
     for (int r = 1; r < C; ++r)
-      part[r][R::pad(n)] = iqt::cmul(v[r], __ldg(&tw[S::fwd_cross + r * M1 + n]));
+      part(r)[R::pad(n)] = iqt::cmul(v[r], __ldg(&tw[S::fwd_cross + r * M1 + n]));
   }
   cluster.sync();
 
@@ -452,10 +457,7 @@ fused_ola_frames_cluster_kernel(const float2* __restrict__ x, long long batch_st
   const int shift = rank + in_lo - out_lo;
   const int src = ((shift % C) + C) % C;
   const int q = (shift - src) / C;
-  const float2* from = part[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c)
-    if (src == c) from = part[c];
+  const float2* from = part(src);
   const float2* cross_inv = tw + S::inv_cross + rank * M2;
   CL::fft<M2, true, T>(
       buf, tw_inv,
@@ -476,7 +478,7 @@ fused_ola_frames_cluster_kernel(const float2* __restrict__ x, long long batch_st
        n += T) {
     float2 v[C];
 #pragma unroll
-    for (int r = 0; r < C; ++r) v[r] = part[r][R::pad(n)];
+    for (int r = 0; r < C; ++r) v[r] = part(r)[R::pad(n)];
     iqt::dft_small<C>(v, true);
 #pragma unroll
     for (int s = 0; s < C; ++s)
@@ -530,6 +532,14 @@ cudaError_t cluster_occupancy(int* out) {
 
 constexpr int kClusterThreads = 512;
 
+// a cluster above the portable 8 blocks (C = 10) is refused at the launch
+// and by cudaOccupancyMaxActiveClusters unless the kernel opts in
+template <int C, typename Kernel>
+cudaError_t allow_cluster_size(Kernel kernel) {
+  if (C <= 8) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 // the compiled pairs (ops/kernels/fused_ola.py CLUSTER_PAIRS): F(N1, N2, C)
 #define IQT_CLUSTER_PAIRS(F) \
   F(49152, 24576, 3)         \
@@ -538,7 +548,9 @@ constexpr int kClusterThreads = 512;
   F(40960, 40960, 5)         \
   F(32768, 8192, 2)          \
   F(32768, 16384, 2)         \
-  F(36864, 12288, 3)
+  F(36864, 12288, 3)         \
+  F(98304, 24576, 6)         \
+  F(163840, 40960, 10)
 
 // ---- the 2:1 entry at the flagship pair ----------------------------------
 //
@@ -631,6 +643,8 @@ extern "C" int iqt_fused_ola_frames_prepare(int max_smem) {
 #define IQT_ALLOW(N1, N2, C)                                                              \
   if ((err = iqt::allow_smem(fused_ola_frames_cluster_kernel<N1, N2, C, kClusterThreads>, \
                              ClusterShape<N1, N2, C>::smem)))                             \
+    return err;                                                                           \
+  if ((err = allow_cluster_size<C>(fused_ola_frames_cluster_kernel<N1, N2, C, kClusterThreads>))) \
     return err;
   IQT_CLUSTER_PAIRS(IQT_ALLOW)
 #undef IQT_ALLOW

@@ -50,10 +50,10 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
-    'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'hist.cu', 'spectrogram.cu',
-    'colhist.cu', 'upfirdn.cu', 'corr.cu',
+    'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu',
+    'spectrogram.cu', 'colhist.cu', 'upfirdn.cu', 'corr.cu',
 )
-HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh')
+HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh')
 
 # no --use_fast_math: the kernels are held to 1e-5 relative RMS against
 # full-precision float32, with accurate logf and division
@@ -84,6 +84,12 @@ SIGNATURES = {
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),
     'iqt_chan_stats_reg': ([_P] * 9 + [_I] * 11 + [_P], _I),
+    'iqt_chan_mixed_prepare': ([_I], _I),
+    'iqt_chan_mixed_occupancy': ([_I, _P], _I),
+    'iqt_chan_stats_mixed': ([_P] * 9 + [_I] * 11 + [_P], _I),
+    'iqt_chan_cluster_prepare': ([_I], _I),
+    'iqt_chan_cluster_occupancy': ([_I, _P], _I),
+    'iqt_chan_stats_cluster': ([_P] * 9 + [_I] * 11 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
     'iqt_hist_bucket': ([_P] * 3 + [_I] * 4 + [_P], _I),

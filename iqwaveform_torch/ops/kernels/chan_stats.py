@@ -12,13 +12,30 @@ does about that are set out at the head of the CUDA source.
 With ``emit_psd=False, emit_pbin=False`` (the arguments of
 ``chan_stats_pallas``, chan_stats_pallas.py:259-260) only the channel power
 is computed: the channel-only mode that ``channelize_power`` takes
-(iqwaveform_tpu/ops/spectral.py:708-801). In that mode at nfft_big =
-16384 (BASELINE config #4) :func:`chan_stats` launches
-``chan_power_reg_kernel``, and with both outputs on at nfft_big = 4096
-and navg in {1, 2, 4, 8, 16} (the monitor step's designs)
-``chan_stats_reg_kernel``, both on the register-resident passes of
-``csrc/fft_reg.cuh``; every other size and mode takes the radix-2
-``chan_stats_kernel`` (:func:`chan_route` picks, before the launch).
+(iqwaveform_tpu/ops/spectral.py:708-801).
+
+The CUDA kernels take the frame sizes of :data:`CHAN_SIZES` (every
+``nfft_big = 2^a 3^b 5^c`` up to 65536 with 2^a >= 1024 and b, c <= 1:
+the products of the usual channel counts and channel FFT sizes that the
+JAX kernel takes, multiples of 1024) at navg 1-128, and the
+powers of two 64-512 (:func:`covers`); :func:`chan_route` picks, before
+the launch:
+
+* ``'reg'``: the channel-only mode at the one-block sizes
+  (:data:`ONE_BLOCK_SIZES`, 1024-16384 points), ``chan_power_reg_kernel``;
+  both outputs on at 4096 points with navg 1-16 (the flagship step),
+  ``chan_stats_reg_kernel``;
+* ``'mixed'``: every other mode at the one-block sizes but 15360
+  (:data:`MIXED_SIZES`), ``chan_stats_mixed_kernel`` (``csrc/chan_mixed.cu``);
+* ``'cluster'``: frames above 16384 points, and 15360 in its statistics
+  modes (:data:`CLUSTER_SIZES`), each on a thread-block cluster of C
+  blocks, ``chan_stats_cluster_kernel`` (``csrc/chan_cluster.cu``);
+* ``'generic'``: the radix-2 ``chan_stats_kernel`` at the powers of two
+  64-512, and at powers of two up to 16384 binned by navg above 128.
+
+All but the radix-2 kernel run on the register-resident passes of
+``csrc/fft_reg.cuh``. Any other size raises ``NotImplementedError``
+(ROADMAP Queue 2 item 2).
 
 The plain version is the XLA formulation of the monitor
 (iqwaveform_tpu/models/monitor.py:703-719) on ``torch.fft``, returning the
@@ -31,25 +48,51 @@ on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from ..power import binned_mean
 from . import _build
-from .fused_ola import reg_forward_twiddles
+from .fused_ola import _reg_pass_tables, reg_forward_twiddles
 
-__all__ = ['chan_route', 'chan_stats', 'chan_stats_plain', 'covers']
+__all__ = ['CHAN_SIZES', 'chan_route', 'chan_stats', 'chan_stats_plain', 'cluster_tables',
+           'covers']
 
 _EPS = 1e-25
 MAX_CUDA_FFT = 16384
 FRAMES_PER_BLOCK = 16
-# the frame size chan_power_reg_kernel is compiled for
+# BASELINE config #4's frame size (chan_power_reg_kernel runs at every
+# size of ONE_BLOCK_SIZES)
 REG_NFFT = 16384
 # chan_stats_reg_kernel: its frame size, the navg it bins power by, its
-# threads per block and the blocks per SM its grid is sized for
+# threads per block and the blocks per SM its grid (_wave_grid) is sized
+# for
 STATS_REG_NFFT = 4096
 STATS_REG_NAVG = (1, 2, 4, 8, 16)
 STATS_REG_THREADS = 256
 STATS_REG_BLOCKS_PER_SM = 2
+# the frame sizes one block holds, each with its threads (csrc/
+# chan_common.cuh IQT_CHAN_SIZES: chan_power_reg_kernel), those of the
+# statistics modes among them (IQT_CHAN_STATS_SIZES:
+# chan_stats_mixed_kernel; not 15360, whose instance spills), and those
+# split over a cluster of C blocks of N / C points (csrc/chan_cluster.cu
+# IQT_CHAN_CLUSTER_SIZES)
+ONE_BLOCK_SIZES = {
+    1024: 64, 2048: 128, 3072: 192, 4096: 256, 5120: 320, 6144: 384, 8192: 512,
+    10240: 512, 12288: 512, 15360: 512, 16384: 512,
+}
+MIXED_SIZES = tuple(n for n in ONE_BLOCK_SIZES if n != 15360)
+CLUSTER_SIZES = {
+    15360: 5, 20480: 5, 24576: 3, 30720: 5, 32768: 2, 40960: 5, 49152: 3, 61440: 5, 65536: 4,
+}
+CHAN_SIZES = frozenset(ONE_BLOCK_SIZES) | frozenset(CLUSTER_SIZES)
+# the binnings of the mixed and cluster kernels (the JAX kernel's: navg
+# divides 128), and the powers of two only the radix-2 kernel takes
+NAVG = (1, 2, 4, 8, 16, 32, 64, 128)
+RADIX2_SIZES = (64, 128, 256, 512)
 
 
 def chan_stats_plain(
@@ -86,34 +129,93 @@ def chan_stats_plain(
 
 
 def covers(nfft_big: int, navg: int = 1) -> bool:
-    """whether the CUDA kernel takes frames of ``nfft_big`` points
-    binned by ``navg``: a power of two in [64, MAX_CUDA_FFT] that navg
-    divides."""
+    """whether the CUDA kernels take frames of ``nfft_big`` points binned
+    by ``navg``: a size of :data:`CHAN_SIZES` with navg in :data:`NAVG`, or
+    a power of two in [64, MAX_CUDA_FFT] that navg divides."""
+    if nfft_big in CHAN_SIZES and navg in NAVG:
+        return True
     return 64 <= nfft_big <= MAX_CUDA_FFT and _build.log2_exact(nfft_big) > 0 and nfft_big % navg == 0
 
 
 def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True,
                navg: int = 1) -> str:
     """the kernel :func:`chan_stats` launches for frames it covers:
-    ``'reg'`` in the channel-only mode at nfft_big = :data:`REG_NFFT`
+    ``'reg'`` in the channel-only mode at :data:`ONE_BLOCK_SIZES`
     (``chan_power_reg_kernel``) and with both outputs on at nfft_big =
     :data:`STATS_REG_NFFT` and navg in :data:`STATS_REG_NAVG`
-    (``chan_stats_reg_kernel``), ``'generic'`` (``chan_stats_kernel``) at
-    every other size or mode."""
-    if nfft_big == REG_NFFT and not emit_psd and not emit_pbin:
+    (``chan_stats_reg_kernel``); ``'mixed'`` (``chan_stats_mixed_kernel``)
+    in every other mode at :data:`MIXED_SIZES`; ``'cluster'``
+    (``chan_stats_cluster_kernel``) at :data:`CLUSTER_SIZES` (15360 in its
+    statistics modes among them); ``'generic'`` (``chan_stats_kernel``) at
+    the powers of two 64-512, and where the binned power is on at a navg
+    outside :data:`NAVG`."""
+    if nfft_big in RADIX2_SIZES or (emit_pbin and navg not in NAVG):
+        return 'generic'
+    if not emit_psd and not emit_pbin and nfft_big in ONE_BLOCK_SIZES:
         return 'reg'
     if nfft_big == STATS_REG_NFFT and emit_psd and emit_pbin and navg in STATS_REG_NAVG:
         return 'reg'
-    return 'generic'
+    if nfft_big in MIXED_SIZES:
+        return 'mixed'
+    return 'cluster' if nfft_big in CLUSTER_SIZES else 'generic'
 
 
-def _stats_reg_grid(n_frames: int, batch: int, sms: int) -> tuple:
-    """(frames per block, blocks per row) of ``chan_stats_reg_kernel``:
-    runs of frames that make one wave of STATS_REG_BLOCKS_PER_SM blocks on
-    each of ``sms`` SMs over the ``batch`` rows."""
-    rows_blocks = max(1, -(-STATS_REG_BLOCKS_PER_SM * sms // batch))
+def _wave_grid(n_frames: int, batch: int, slots: int) -> tuple:
+    """(frames per block, blocks per row): runs of frames that make one
+    wave of ``slots`` blocks (or clusters) over the ``batch`` rows."""
+    rows_blocks = max(1, -(-slots // batch))
     frames_per_block = -(-n_frames // rows_blocks)
     return frames_per_block, -(-n_frames // frames_per_block)
+
+
+# the C entry of each statistics kernel (one signature)
+STATS_ENTRIES = {'reg': 'iqt_chan_stats_reg', 'mixed': 'iqt_chan_stats_mixed',
+                 'cluster': 'iqt_chan_stats_cluster'}
+
+
+def cluster_tables(nfft_big: int) -> tuple:
+    """the cluster kernel's table for a size of :data:`CLUSTER_SIZES`, in
+    float64, and the offset of each part, in the order csrc/
+    chan_cluster.cu Shape reads them (M = nfft_big / C):
+
+    * ``'passes'``: the register-resident tables of the M-point forward
+      transform (ops/kernels/fused_ola.py _reg_pass_tables), which each
+      block copies into its shared memory;
+    * ``'cross'``: row r < C of M factors exp(-2 pi i r n / nfft_big), the
+      twiddles of the radix-C step's output r (row 0 is ones)."""
+    c = CLUSTER_SIZES[nfft_big]
+    m = nfft_big // c
+    parts = {
+        'passes': _reg_pass_tables(m, False),
+        'cross': np.exp(-2j * np.pi * np.arange(c)[:, None] * np.arange(m) / nfft_big).ravel(),
+    }
+    return np.concatenate(list(parts.values())), {'passes': 0, 'cross': parts['passes'].size}
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_twiddles(nfft_big: int, device: torch.device) -> torch.Tensor:
+    """:func:`cluster_tables` rounded once to complex64, on ``device``
+    (read only)."""
+    table, _ = cluster_tables(nfft_big)
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(route: str, nfft_big: int, device: torch.device) -> int:
+    """the blocks of the mixed kernel one SM holds, or the clusters of the
+    cluster kernel the card holds, at ``nfft_big`` (asked once per size
+    and device); raises where it is none: there is no other route on the
+    card."""
+    entry = {'mixed': 'iqt_chan_mixed', 'cluster': 'iqt_chan_cluster'}[route]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.prepare(entry + '_prepare', device)
+        _build.check(getattr(_build.library(), entry + '_occupancy')(nfft_big, ctypes.addressof(out)),
+                     f'occupancy of the {route} channelizer kernel at {nfft_big}')
+    if out.value < 1:
+        raise RuntimeError(f'the card cannot hold one {route} channelizer block or cluster at '
+                           f'{nfft_big} points')
+    return out.value
 
 
 def chan_stats(
@@ -165,10 +267,20 @@ def chan_stats(
 def _chan_stats_generic(y: torch.Tensor, **kw) -> dict:
     """:func:`chan_stats` on a CUDA tensor through the radix-2
     ``chan_stats_kernel`` in any mode, at the register-resident kernels'
-    sizes too: the yardstick of ``chan_power_reg_kernel`` and
-    ``chan_stats_reg_kernel`` in chip_smoke.py and the card tests, never
-    a route of the port."""
+    power-of-two sizes too: the yardstick of ``chan_power_reg_kernel``,
+    ``chan_stats_reg_kernel`` and ``chan_stats_mixed_kernel`` in
+    chip_smoke.py and the card tests, never a route of the port."""
+    if _build.log2_exact(kw['nfft_big']) < 0:
+        raise ValueError(f'the radix-2 kernel takes powers of two, not {kw["nfft_big"]}')
     return _launch(y, 'generic', **kw)
+
+
+def _chan_stats_mixed(y: torch.Tensor, **kw) -> dict:
+    """:func:`chan_stats` on a CUDA tensor through
+    ``chan_stats_mixed_kernel`` at a size of :data:`MIXED_SIZES` in any
+    mode: the yardstick of ``chan_stats_reg_kernel`` at 4096 points in
+    chip_smoke.py, never a route of the port there."""
+    return _launch(y, 'mixed', **kw)
 
 
 def _launch(
@@ -183,15 +295,16 @@ def _launch(
     emit_psd: bool = True,
     emit_pbin: bool = True,
 ) -> dict:
-    """launch ``route``'s kernel ('reg' or 'generic') on CUDA ``y``;
-    counts the launch in ``chan_stats.launches`` and
+    """launch ``route``'s kernel ('reg', 'mixed', 'cluster' or 'generic')
+    on CUDA ``y``; counts the launch in ``chan_stats.launches`` and
     ``chan_stats.route_launches[route]``."""
     log2n = _build.log2_exact(nfft_big)
     if not covers(nfft_big, navg):
         raise NotImplementedError(
-            'the CUDA channelizer-statistics kernel takes a power-of-two '
-            f'nfft_big in [64, {MAX_CUDA_FFT}] that navg divides; got '
-            f'nfft_big={nfft_big}, navg={navg} (ROADMAP Queue 2 item 2)'
+            'the CUDA channelizer-statistics kernels take nfft_big = 2^a 3^b 5^c up to '
+            '65536 with 2^a >= 1024 and b, c <= 1 at navg 1-128, and powers of two in '
+            f'[64, {MAX_CUDA_FFT}] that navg divides; got nfft_big={nfft_big}, '
+            f'navg={navg} (ROADMAP Queue 2 item 2)'
         )
     abins, rem = divmod(nfft_big - skip_bins, channel_count)
     if rem or skip_bins % 2 or skip_bins < 0:
@@ -221,19 +334,33 @@ def _launch(
             tw.numel(), batch, row_len, n_frames, nfft_big, channel_count, abins,
             skip_bins // 2, _build.stream_of(y),
         )
-    elif route == 'reg':
-        frames_per_block, n_blocks = _stats_reg_grid(n_frames, batch, _build.sm_count(dev))
-        tw = reg_forward_twiddles(nfft_big, dev)
-        part = torch.empty((2, batch, n_blocks, nfft_big), **f32)
-        for key in ('psd_log_sum', 'psd_max'):
-            out[key] = torch.empty((batch, nfft_big), **f32)
-        out['p_binned'] = torch.empty((batch, n_bin), **f32)
-        err = _build.library().iqt_chan_stats_reg(
-            y.data_ptr(), window.data_ptr(), tw.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), out['psd_log_sum'].data_ptr(), out['psd_max'].data_ptr(),
-            out['channel_power'].data_ptr(), out['p_binned'].data_ptr(), tw.numel(), batch,
-            row_len, n_frames, nfft_big, navg, channel_count, abins, skip_bins // 2,
-            frames_per_block, n_blocks, _build.stream_of(y),
+    elif route != 'generic':
+        # the statistics kernels: the flagship's (route 'reg' with both
+        # outputs on), the mixed-size one, the cluster one; one C signature
+        if route == 'reg':
+            slots, tw = STATS_REG_BLOCKS_PER_SM * _build.sm_count(dev), reg_forward_twiddles(nfft_big, dev)
+        elif route == 'mixed':
+            slots = _occupancy(route, nfft_big, dev) * _build.sm_count(dev)
+            tw = reg_forward_twiddles(nfft_big, dev)
+        else:
+            slots, tw = _occupancy(route, nfft_big, dev), _cluster_twiddles(nfft_big, dev)
+        frames_per_block, n_blocks = _wave_grid(n_frames, batch, slots)
+        part = torch.empty((2, batch, n_blocks, nfft_big), **f32) if emit_psd else None
+        if emit_psd:
+            for key in ('psd_log_sum', 'psd_max'):
+                out[key] = torch.empty((batch, nfft_big), **f32)
+        if emit_pbin:
+            out['p_binned'] = torch.empty((batch, n_bin), **f32)
+
+        def ptr(key):
+            return out[key].data_ptr() if key in out else None
+
+        err = getattr(_build.library(), STATS_ENTRIES[route])(
+            y.data_ptr(), window.data_ptr(), tw.data_ptr(),
+            part[0].data_ptr() if emit_psd else None, part[1].data_ptr() if emit_psd else None,
+            ptr('psd_log_sum'), ptr('psd_max'), out['channel_power'].data_ptr(), ptr('p_binned'),
+            tw.numel(), batch, row_len, n_frames, nfft_big, navg, channel_count, abins,
+            skip_bins // 2, frames_per_block, n_blocks, _build.stream_of(y),
         )
     else:
         frames_per_block = FRAMES_PER_BLOCK
@@ -278,5 +405,6 @@ def _launch(
 
 chan_stats.launches = 0
 # launches by kernel: 'reg' (chan_power_reg_kernel or
-# chan_stats_reg_kernel), 'generic' (chan_stats_kernel)
-chan_stats.route_launches = {'reg': 0, 'generic': 0}
+# chan_stats_reg_kernel), 'mixed' (chan_stats_mixed_kernel), 'cluster'
+# (chan_stats_cluster_kernel), 'generic' (chan_stats_kernel)
+chan_stats.route_launches = {'reg': 0, 'mixed': 0, 'cluster': 0, 'generic': 0}

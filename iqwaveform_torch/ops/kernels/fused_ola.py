@@ -18,7 +18,7 @@ Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
   pairs its paths run (:data:`REG_PAIRS`: 16384 -> 8192 and 12288 ->
   6144) it launches ``fused_ola_frames_reg_kernel``, register-resident
   radix-16 passes compiled for those sizes (``csrc/fft_reg.cuh``); at
-  the pairs of :data:`CLUSTER_PAIRS` (frames of 32768-81920 points, above
+  the pairs of :data:`CLUSTER_PAIRS` (frames of 32768-163840 points, above
   one block's shared memory) ``fused_ola_frames_cluster_kernel``, each
   frame split over a thread-block cluster of C blocks
   (``csrc/fft_cluster.cuh``); at every other size the generic mixed-radix
@@ -75,16 +75,22 @@ MAX_CUDA_FFT = 16384
 _FRAMES_THREADS = 1024
 _FRAMES_MAX_BINS_PER_THREAD = 32
 # the (nfft, nfft_out) pairs fused_ola_frames_reg_kernel is compiled for,
-# the passes of each size (csrc/fft_reg.cuh Plan; 4096 is the channelizer
-# statistics kernel's, ops/kernels/chan_stats.py, 1024 the levels
-# kernel's, ops/kernels/spectrogram.py) and its threads per block
+# the passes of each size (csrc/fft_reg.cuh Plan; the channelizer kernels
+# of ops/kernels/chan_stats.py run every size from 1024 to 16384, the
+# levels kernel of ops/kernels/spectrogram.py 1024) and its threads per
+# block
 REG_PAIRS = ((16384, 8192), (12288, 6144))
 REG_PLANS = {
     16384: (16, 16, 16, 4),
+    15360: (16, 16, 4, 15),
     12288: (16, 16, 16, 3),
+    10240: (16, 16, 4, 10),
     8192: (16, 16, 16, 2),
     6144: (16, 16, 8, 3),
+    5120: (16, 16, 4, 5),
     4096: (16, 16, 16),
+    3072: (16, 16, 4, 3),
+    2048: (16, 16, 8),
     1024: (16, 16, 4),
 }
 REG_THREADS = 512
@@ -95,7 +101,9 @@ REG_THREADS = 512
 # flagship rates, 122.88 -> 61.44 and 61.44 -> 30.72 MS/s: 49152 -> 24576
 # and 81920 -> 40960; its unresampled and ola_filter's resampling
 # blackmanharris 40960-point frames; hamming at 122.88 -> 30.72 MS/s and
-# at min_fft_size=16383; blackman 36864 -> 12288)
+# at min_fft_size=16383; blackman 36864 -> 12288; blackman and
+# blackmanharris at 122.88 -> 30.72 MS/s: 98304 -> 24576 on 6 blocks and
+# 163840 -> 40960 on 10, above the portable cluster size of 8)
 CLUSTER_PAIRS = {
     (49152, 24576): 3,
     (81920, 40960): 5,
@@ -104,6 +112,8 @@ CLUSTER_PAIRS = {
     (32768, 8192): 2,
     (32768, 16384): 2,
     (36864, 12288): 3,
+    (98304, 24576): 6,
+    (163840, 40960): 10,
 }
 # the (nfft, nfft_out) pair fused_ola_reg_kernel (the 2:1 kernel on the
 # same passes) is compiled for: the flagship monitor design's

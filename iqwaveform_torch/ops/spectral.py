@@ -6,11 +6,13 @@ reference fourier.py:1330-1415). Two routes, chosen from the arguments
 before any launch:
 
 * a 1-D complex input with a window spec, no overlap, an even trim, more
-  than one channel and a frame size the kernel takes goes through the
-  ``chan_stats`` kernel in its channel-only mode (ops.kernels.chan_stats,
-  ``emit_psd=False, emit_pbin=False``; the JAX package's
-  ``_channelize_power_pallas``, :708-801); on the CPU that is the kernel's
-  plain version;
+  than one channel and a frame size the kernels take (``covers``: the
+  sizes of ``CHAN_SIZES``, 1024-65536 points of the form 2^a 3^b 5^c with
+  2^a >= 1024 and b, c <= 1, the JAX kernel's, and the powers of two
+  64-512) goes through the ``chan_stats`` kernels in their channel-only
+  mode (ops.kernels.chan_stats, ``emit_psd=False, emit_pbin=False``; the
+  JAX package's ``_channelize_power_pallas``, :708-801); on the CPU that
+  is the kernels' plain version;
 * any other input goes through the port's ``stft`` and a reshape-sum
   (:601-628).
 

@@ -180,10 +180,15 @@ def test_kernel_window_is_the_jax_window():
 
 
 def test_chan_stats_covers():
+    """the powers of two 64-16384 as before, and now the frame sizes above
+    16384 and the non-powers of two of CHAN_SIZES (test_torch_chan_sizes.py
+    holds the whole set); other sizes, and navg outside 1-128 there, not."""
     from iqwaveform_torch.ops.kernels.chan_stats import MAX_CUDA_FFT, covers
 
     assert covers(64) and covers(MAX_CUDA_FFT) and covers(1024, navg=16)
-    assert not covers(32) and not covers(2 * MAX_CUDA_FFT) and not covers(1536)
+    assert covers(2 * MAX_CUDA_FFT) and covers(12288) and covers(61440, navg=128)
+    assert not covers(32) and not covers(8 * MAX_CUDA_FFT) and not covers(1536)
+    assert not covers(7168) and not covers(28672) and not covers(32768, navg=256)
     assert not covers(1024, navg=3)
 
 

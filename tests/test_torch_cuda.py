@@ -55,7 +55,7 @@ import iqwaveform_torch as it
 from iqwaveform_torch import ofdm
 from iqwaveform_torch.ops import kernels, spectral
 from iqwaveform_torch.ops.kernels import _build
-from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic, chan_route
+from iqwaveform_torch.ops.kernels.chan_stats import CHAN_SIZES, _chan_stats_generic, chan_route
 from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route, uniform_quant
 from iqwaveform_torch.ops.kernels.fused_ola import (
     CLUSTER_PAIRS,
@@ -125,7 +125,11 @@ def test_kernels_match_plain(monitor, batch):
 
 def _reset_routes():
     for k in (kernels.fused_ola, kernels.chan_stats, kernels.fused_ola_frames):
-        k.route_launches.update(reg=0, generic=0)
+        k.route_launches.update(dict.fromkeys(k.route_launches, 0))
+
+
+def _chan_routes(reg=0, mixed=0, cluster=0, generic=0):
+    return {'reg': reg, 'mixed': mixed, 'cluster': cluster, 'generic': generic}
 
 
 def test_step_launches_each_kernel_and_matches_plain_step(monitor):
@@ -138,7 +142,7 @@ def test_step_launches_each_kernel_and_matches_plain_step(monitor):
     # the 2:1 OLA at 16384 -> 8192 through fused_ola_reg_kernel; the
     # 4096-point PSD + PBIN channelizer through chan_stats_reg_kernel
     assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 0}
-    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.chan_stats.route_launches == _chan_routes(reg=1)
     ref = monitor.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -198,7 +202,8 @@ def test_chan_power_register_kernel_matches_plain_and_generic(card, channels):
     samples that join no frame), channels of (16384 - 4096) / channels
     bins: within 1e-5 of the plain version and of the radix-2
     chan_stats_kernel; its complex128 error at most twice the radix-2
-    kernel's. A PSD mode at 16384 keeps the radix-2 kernel."""
+    kernel's. A PSD mode at 16384 takes the mixed-size statistics
+    kernel."""
     x = _noise((2, 40 * 16384 + 77), 29)
     w = spectral._kernel_window('hamming', 16384, card)
     kw = dict(nfft_big=16384, channel_count=channels, window=w, skip_bins=4096,
@@ -206,9 +211,9 @@ def test_chan_power_register_kernel_matches_plain_and_generic(card, channels):
     assert chan_route(16384, False, False) == 'reg'
     _reset_routes()
     got = kernels.chan_stats(x, **kw)['channel_power']
-    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.chan_stats.route_launches == _chan_routes(reg=1)
     generic = _chan_stats_generic(x, **kw)['channel_power']
-    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 1}
+    assert kernels.chan_stats.route_launches == _chan_routes(reg=1, generic=1)
     ref = kernels.chan_stats_plain(x, **kw)['channel_power']
     assert got.shape == generic.shape == ref.shape == (2, 40, channels)
     assert rel_rms(got, ref) <= 1e-5
@@ -216,7 +221,7 @@ def test_chan_power_register_kernel_matches_plain_and_generic(card, channels):
     ref64 = kernels.chan_stats_plain(x.to(torch.complex128), **_wide(kw))['channel_power']
     assert rel_rms(got, ref64) <= 2 * rel_rms(generic, ref64)
     kernels.chan_stats(x, **dict(kw, emit_psd=True))
-    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 2}
+    assert kernels.chan_stats.route_launches == _chan_routes(reg=1, mixed=1, generic=1)
 
 
 @pytest.mark.parametrize('navg,batch', [(16, None), (1, None), (4, 2)])
@@ -233,9 +238,9 @@ def test_chan_stats_register_kernel_matches_plain_and_generic(monitor, navg, bat
     y = _noise((n,) if batch is None else (batch, n), 31 + navg)
     _reset_routes()
     got = kernels.chan_stats(y, **kw)
-    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.chan_stats.route_launches == _chan_routes(reg=1)
     generic = _chan_stats_generic(y, **kw)
-    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 1}
+    assert kernels.chan_stats.route_launches == _chan_routes(reg=1, generic=1)
     ref = kernels.chan_stats_plain(y, **kw)
     ref64 = kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw))
     assert set(got) == set(ref)
@@ -667,11 +672,13 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
 
 def test_frames_above_shared_memory_raise(card):
     """frames above one block's shared memory that no cluster pair takes
-    (the blackman and blackmanharris designs at 122.88 -> 30.72 MS/s:
-    98304 -> 24576 and 163840 -> 40960) raise, naming ROADMAP Queue 2 item
-    1; so does the monitor at such a design; ola_filter takes its torch.fft
-    stage chain there."""
-    for nfft, nfft_out in ((98304, 24576), (163840, 40960)):
+    (the blackman design at 122.88 -> 15.36 MS/s: 196608 -> 24576, and
+    131072 -> 32768) raise, naming ROADMAP Queue 2 item 1; so does the
+    monitor at such a design; ola_filter takes its torch.fft stage chain
+    there. The 98304- and 163840-point frames of 122.88 -> 30.72 MS/s,
+    which raised before clusters of 6 and 10 blocks, step
+    (test_cluster_monitor_constructs_and_steps)."""
+    for nfft, nfft_out in ((196608, 24576), (131072, 32768)):
         assert frames_route(nfft, nfft_out) == 'generic'
         with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
             kernels.fused_ola_frames(
@@ -682,15 +689,14 @@ def test_frames_above_shared_memory_raise(card):
                 bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
                 bounds_out=(0, nfft_out),
             )
-    for window, nfft in (('blackman', 98304), ('blackmanharris', 163840)):
-        design = it.design_wideband_monitor(122.88e6, 30.72e6, bw=20e6, fs_sdr=122.88e6,
-                                            window=window)
-        assert design.nfft == nfft
-        with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
-            it.WidebandMonitor(design)
+    design = it.design_wideband_monitor(122.88e6, 15.36e6, bw=10e6, fs_sdr=122.88e6,
+                                        window='blackman')
+    assert (design.nfft, design.nfft_out) == (196608, 24576)
+    with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
+        it.WidebandMonitor(design)
     _reset_frame_routes()
-    assert it.ola_filter(_noise(4 * 98304, 12), fs=122.88e6, nfft=98304, nfft_out=24576,
-                         window='blackman', passband=(-10e6, 10e6)).shape == (98304,)
+    assert it.ola_filter(_noise(4 * 196608, 12), fs=122.88e6, nfft=196608, nfft_out=24576,
+                         window='blackman', passband=(-5e6, 5e6)).shape == (4 * 24576,)
     assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 0, 'generic': 0}
 
 
@@ -740,11 +746,15 @@ def test_cluster_kernel_matches_plain_and_complex128(card, pair):
      (81920, 40960)),
     ((122.88e6, 61.44e6), dict(bw=40e6, window='blackmanharris'), (40960, 40960)),
     ((122.88e6, 30.72e6), dict(bw=20e6, fs_sdr=122.88e6, window='hamming'), (32768, 8192)),
+    ((122.88e6, 30.72e6), dict(bw=20e6, fs_sdr=122.88e6, window='blackman'), (98304, 24576)),
+    ((122.88e6, 30.72e6), dict(bw=20e6, fs_sdr=122.88e6, window='blackmanharris'),
+     (163840, 40960)),
 ])
 def test_cluster_monitor_constructs_and_steps(card, rates, kw, pair):
-    """the monitor at the designs whose frames the cluster kernel takes:
-    it constructs, and a step launches that kernel once and matches the
-    plain-version step (channel power within 1e-5)."""
+    """the monitor at the designs whose frames the cluster kernel takes
+    (among them 98304 -> 24576 on clusters of 6 blocks and 163840 -> 40960
+    on 10): it constructs, and a step launches that kernel once and
+    matches the plain-version step (channel power within 1e-5)."""
     mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw))
     assert (mon.design.nfft, mon.design.nfft_out) == pair
     x = _noise(4 * mon.min_input_multiple(), 42)
@@ -916,10 +926,131 @@ def test_channelize_power_launches_the_channel_only_kernel(card):
     _reset_routes()
     freqs, times, cp = it.channelize_power(x, 1 / 122.88e6, 256, **kw)
     assert kernels.chan_stats.launches == 1 and cp.shape == (24, 64)
-    assert kernels.chan_stats.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.chan_stats.route_launches == _chan_routes(reg=1)
     f_ref, t_ref, ref = it.channelize_power(x.cpu(), 1 / 122.88e6, 256, **kw, device='cpu')
     assert np.array_equal(freqs, f_ref) and np.array_equal(times, t_ref)
     assert rel_rms(cp.cpu(), ref) <= 1e-5
     # another frame layout takes the stft route: no launch
     it.channelize_power(x, 1 / 122.88e6, 256, **kw, fft_overlap_per_channel=128)
     assert kernels.chan_stats.launches == 1
+
+
+def _chan_kwargs(nfft, seed, channels=24, navg=1, emit=(True, True)):
+    """random window, channels of (3 / 4) nfft / channels kept bins (a
+    trim of nfft / 4)"""
+    return dict(nfft_big=nfft, channel_count=channels, window=_noise(nfft, seed) / nfft,
+                navg=navg, skip_bins=nfft // 4, emit_psd=emit[0], emit_pbin=emit[1])
+
+
+def _check_chan(got, ref, ref64):
+    """every output finite and within 1e-5 of the plain version; the
+    channel power's complex128 error at most twice the plain version's
+    (the rule of chip_smoke.py chan_f64)."""
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        assert got[key].shape == ref[key].shape, key
+        assert bool(torch.isfinite(got[key]).all()), key
+        assert rel_rms(got[key], ref[key]) <= 1e-5, key
+    key = 'channel_power'
+    assert rel_rms(got[key], ref64[key]) <= 2 * rel_rms(ref[key], ref64[key])
+
+
+@pytest.mark.parametrize('nfft', sorted(CHAN_SIZES))
+@pytest.mark.parametrize('mode', [(True, True, 1), (True, True, 16), (True, True, 128),
+                                  (False, False, 1)])
+def test_chan_stats_at_every_size_matches_plain_and_complex128(card, nfft, mode):
+    """each frame size of CHAN_SIZES on its route (the mixed-size kernel or
+    the channel-only register kernel at one block's sizes, the cluster
+    kernel above and for the statistics at 15360), on two rows of 11 frames and 77 samples that join no
+    frame: each output within 1e-5 of the plain version, its complex128
+    error at most twice the plain version's; at the powers of two also
+    within 1e-5 of the radix-2 kernel."""
+    emit_psd, emit_pbin, navg = mode
+    kw = _chan_kwargs(nfft, 50, navg=navg, emit=(emit_psd, emit_pbin))
+    y = _noise((2, 11 * nfft + 77), 51)
+    route = chan_route(nfft, emit_psd, emit_pbin, navg)
+    if not emit_psd:
+        assert route == ('reg' if nfft <= 16384 else 'cluster')
+    else:
+        assert route == ('reg' if (nfft, navg) in ((4096, 1), (4096, 16))
+                         else 'mixed' if nfft <= 16384 and nfft != 15360 else 'cluster')
+    _reset_routes()
+    got = kernels.chan_stats(y, **kw)
+    torch.cuda.synchronize()
+    assert kernels.chan_stats.route_launches == _chan_routes(**{route: 1})
+    ref = kernels.chan_stats_plain(y, **kw)
+    ref64 = kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw))
+    _check_chan(got, ref, ref64)
+    if nfft & (nfft - 1) == 0 and nfft <= 16384:
+        generic = _chan_stats_generic(y, **kw)
+        for key in ref:
+            assert rel_rms(got[key], generic[key]) <= 1e-5, key
+
+
+@pytest.mark.parametrize('nfft', [3072, 12288, 16384, 24576, 65536])
+@pytest.mark.parametrize('emit,navg', [((True, False), 1), ((False, True), 32),
+                                       ((False, True), 64), ((True, True), 2)])
+def test_chan_stats_other_modes_and_navg(card, nfft, emit, navg):
+    """the PSD-only and binned-only modes, and navg 2, 32 and 64, on the
+    mixed and cluster kernels (one frame, and one row of 5 frames), with
+    more channels (192) than a warp takes in one round."""
+    kw = _chan_kwargs(nfft, 52, channels=192, navg=navg, emit=emit)
+    for shape in ((nfft,), (5 * nfft + 3,)):
+        y = _noise(shape, 53)
+        _reset_routes()
+        got = kernels.chan_stats(y, **kw)
+        route = 'cluster' if nfft > 16384 else 'mixed'
+        assert kernels.chan_stats.route_launches == _chan_routes(**{route: 1})
+        ref = kernels.chan_stats_plain(y, **kw)
+        _check_chan(got, ref, kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw)))
+
+
+def test_chan_stats_cluster_channel_chunks(card):
+    """the cluster kernel at 20480 points with 2048 channels of 8 bins,
+    more than one chunk of channel partials (640)."""
+    kw = dict(nfft_big=20480, channel_count=2048, window=_noise(20480, 54) / 20480, navg=4,
+              skip_bins=4096)
+    y = _noise(7 * 20480, 55)
+    got = kernels.chan_stats(y, **kw)
+    ref = kernels.chan_stats_plain(y, **kw)
+    _check_chan(got, ref, kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw)))
+
+
+def test_chan_stats_raises_outside_its_sizes(card):
+    """frames outside CHAN_SIZES and the powers of two 64-512 raise,
+    naming ROADMAP Queue 2 item 2; so does navg 256 at a cluster size."""
+    for nfft, navg in ((7168, 1), (28672, 1), (131072, 1), (32768, 256)):
+        with pytest.raises(NotImplementedError, match='Queue 2 item 2'):
+            kernels.chan_stats(_noise(2 * nfft, 56), **_chan_kwargs(nfft, 57, navg=navg))
+
+
+CHAN_DESIGNS = {
+    'channels48': (dict(channel_count=48), 12288, 'mixed'),
+    'channels96': (dict(channel_count=96), 24576, 'cluster'),
+    'channels64x512': (dict(channel_count=64, fft_size_per_channel=512), 32768, 'cluster'),
+    'channels32x768': (dict(channel_count=32, fft_size_per_channel=768), 24576, 'cluster'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(CHAN_DESIGNS))
+def test_monitor_at_the_channelizer_designs_steps(card, name):
+    """the flagship-rate monitor at 48, 96, 64 x 512 and 32 x 768
+    channels: one launch of the new channelizer route, within the step
+    gates of the plain-version step (channel power 1e-5; psd within 0.01
+    dB above -100 dB)."""
+    extra, nfft_big, route = CHAN_DESIGNS[name]
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, bw=40e6,
+                                                        fs_sdr=122.88e6, **extra))
+    assert mon.chan_kwargs['nfft_big'] == nfft_big
+    x = _noise(8 * mon.min_input_multiple(), 58)
+    _reset_routes()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.chan_stats.route_launches == _chan_routes(**{route: 1})
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+    for key in ('psd_mean', 'psd_max'):
+        band = ref[key] > -100
+        assert int(band.sum()) > 0
+        assert float((out[key][band] - ref[key][band]).abs().max()) <= 0.01, key

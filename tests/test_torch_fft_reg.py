@@ -42,7 +42,7 @@ from iqwaveform_torch.ops.kernels.chan_stats import (
     STATS_REG_NAVG,
     STATS_REG_NFFT,
     STATS_REG_THREADS,
-    _stats_reg_grid,
+    _wave_grid,
     chan_route,
 )
 from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
@@ -269,12 +269,14 @@ def rel(got, ref):
 
 @pytest.mark.parametrize('n', sorted(REG_PLANS))
 def test_plans_factor_each_size(n):
-    """four passes (three at 1024 and 4096), radices the kernel has DFTs
-    for, and every NS a power of two (k = b mod NS is a mask, the write
-    base a shift)."""
+    """four passes (three at 1024, 2048 and 4096), radices the kernel has
+    DFTs for (10 and 15 the prime-factor ones), a radix that is no power of
+    two only in the last pass, and every NS a power of two (k = b mod NS is
+    a mask, the write base a shift)."""
     radices = REG_PLANS[n]
-    assert np.prod(radices) == n and len(radices) == (3 if n in (1024, 4096) else 4)
-    assert set(radices) <= {16, 8, 4, 3, 2}
+    assert np.prod(radices) == n and len(radices) == (3 if n in (1024, 2048, 4096) else 4)
+    assert set(radices) <= {16, 8, 4, 3, 2, 5, 10, 15}
+    assert radices[0] == 16 and all(r & (r - 1) == 0 for r in radices[:-1])
     for _, ns in passes(n):
         assert ns & (ns - 1) == 0
 
@@ -395,8 +397,8 @@ def test_route_by_size():
         assert frames_route(*pair) == 'generic', pair
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
                  (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): False,
-                 (32768, 16384): True, (32768, 32768): False, (98304, 24576): False,
-                 (1, 1): True}
+                 (32768, 16384): True, (32768, 32768): False, (98304, 24576): True,
+                 (163840, 40960): True, (196608, 24576): False, (1, 1): True}
     for pair, ok in supported.items():
         assert fused_ola_frames_supported(*pair) == ok, pair
 
@@ -502,15 +504,19 @@ def test_forward_table_is_a_view_of_the_pair_table():
 
 def test_ola_and_channelizer_routes():
     """fused_ola takes the register-resident kernel at 16384 -> 8192 only;
-    chan_stats in the channel-only mode at 16384 points, and with both
-    outputs on at 4096 (test_stats_route_and_cpu_tensors)."""
+    chan_stats the channel-only register kernel at every one-block size
+    (16384 among them), the mixed-size statistics kernel in the other modes
+    there, the radix-2 kernel at the powers of two 64-512 (and
+    test_stats_route_and_cpu_tensors, tests/test_torch_chan_sizes.py)."""
     assert ola_route(*OLA_REG_PAIR) == 'reg' and fused_ola_cuda_supported(16384, 8192, 8192, 4096)
     for pair in [(8192, 4096), (16384, 16384), (4096, 2048), (16384, 4096), (8192, 16384), (64, 32)]:
         assert ola_route(*pair) == 'generic', pair
     assert chan_route(REG_NFFT, emit_psd=False, emit_pbin=False) == 'reg'
-    for args in [(16384, True, True), (16384, True, False), (16384, False, True),
-                 (4096, False, False), (8192, False, False), (4096, True, False)]:
-        assert chan_route(*args) == 'generic', args
+    for args, want in [((16384, True, True), 'mixed'), ((16384, True, False), 'mixed'),
+                       ((16384, False, True), 'mixed'), ((4096, False, False), 'reg'),
+                       ((8192, False, False), 'reg'), ((4096, True, False), 'mixed'),
+                       ((512, False, False), 'generic'), ((64, True, True), 'generic')]:
+        assert chan_route(*args) == want, args
 
 
 def test_cpu_tensors_take_the_plain_ola_and_channelizer():
@@ -888,23 +894,27 @@ def test_stats_table_grid_and_shared_memory():
     assert fwd.numel() == 720
     smem = 8 * (STATS_REG_NFFT + STATS_REG_NFFT // 16 + fwd.numel()) + 4 * (STATS_REG_NFFT + 16 * 256)
     assert smem == 73344 and STATS_REG_BLOCKS_PER_SM * (smem + 1024) <= H100_SMEM_OPTIN + 1024
-    assert _stats_reg_grid(2048, 1, 132) == (8, 256)
-    assert _stats_reg_grid(2049, 1, 132) == (8, 257)
-    assert _stats_reg_grid(40, 3, 132) == (1, 40)
+    slots = STATS_REG_BLOCKS_PER_SM * 132
+    assert _wave_grid(2048, 1, slots) == (8, 256)
+    assert _wave_grid(2049, 1, slots) == (8, 257)
+    assert _wave_grid(40, 3, slots) == (1, 40)
     assert 2 * 4 * 256 * STATS_REG_NFFT == 8 * 2**20
 
 
 def test_stats_route_and_cpu_tensors():
     """chan_stats launches the statistics kernel with both outputs on at
-    4096 and navg 1-16; other navg, sizes and modes keep the radix-2 kernel
-    (the channel-only mode at 16384 its own); a CPU tensor runs the plain
-    version at the flagship design and counts no launch."""
+    4096 and navg 1-16; other navg and modes at 4096 and the other
+    one-block sizes take the mixed-size kernel (the channel-only mode the
+    channel-only register kernel, navg above 128 the radix-2 kernel); a CPU
+    tensor runs the plain version at the flagship design and counts no
+    launch."""
     for navg in STATS_REG_NAVG:
         assert chan_route(STATS_REG_NFFT, True, True, navg) == 'reg'
-    for args in [(4096, True, True, 32), (4096, True, False, 16), (4096, False, True, 16),
-                 (4096, False, False, 1), (2048, True, True, 16), (8192, True, True, 1),
-                 (16384, True, True, 16)]:
-        assert chan_route(*args) == 'generic', args
+    for args, want in [((4096, True, True, 32), 'mixed'), ((4096, True, False, 16), 'mixed'),
+                       ((4096, False, True, 16), 'mixed'), ((4096, False, False, 1), 'reg'),
+                       ((2048, True, True, 16), 'mixed'), ((8192, True, True, 1), 'mixed'),
+                       ((16384, True, True, 16), 'mixed'), ((16384, True, True, 256), 'generic')]:
+        assert chan_route(*args) == want, args
     kw = _flagship_chan_kwargs()
     rng = np.random.default_rng(11)
     y = torch.from_numpy((rng.standard_normal(3 * 4096) + 1j * rng.standard_normal(3 * 4096))

@@ -151,7 +151,8 @@ def test_ola_filter_routes_by_design():
     assert route(12288, 6144, 8192) == 'pallas'  # monitor blackman
     assert route(20480, 10240, 16384) == 'pallas'  # monitor blackmanharris
     assert route(40960, 20480, 32768) == 'pallas'  # a cluster pair
-    assert route(98304, 24576, 65536) == 'xla'  # above shared memory, no cluster pair
+    assert route(98304, 24576, 65536) == 'pallas'  # a cluster pair of 6 blocks
+    assert route(196608, 24576, 131072) == 'xla'  # above shared memory, no cluster pair
     assert route(14 * 1024, 7 * 1024, 7 * 1024) == 'xla'  # factor 7
     assert route(4096, 2048, 2048, size=4000) == 'xla'  # shorter than a frame
     assert TF.fused_ola_frames_supported(28800, 14400)

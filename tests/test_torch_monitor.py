@@ -153,6 +153,66 @@ def test_step_matches_jax_at_the_cluster_designs(window):
         assert torch.equal(v, got[key]), key
 
 
+# the frames the clusters of 6 and 10 blocks take: the blackman and
+# blackmanharris designs at 122.88 -> 30.72 MS/s (98304 -> 24576 at R = 3,
+# 163840 -> 40960 at R = 5; a 16 x 256 channelizer at navg 1, 2048 edges)
+WIDER_CLUSTER_DESIGNS = {
+    'blackman': (98304, 24576),
+    'blackmanharris': (163840, 40960),
+}
+
+
+@pytest.mark.parametrize('window', sorted(WIDER_CLUSTER_DESIGNS))
+def test_step_matches_jax_at_the_wider_cluster_designs(window):
+    """the port's CPU step against the JAX monitor's at the 122.88 -> 30.72
+    MS/s designs on 4 min_input_multiple()s of noise: the gates of
+    assert_step_close, psd_mean and psd_max on the bins above -90 dB as for
+    the other blackman designs above."""
+    jd = jax_design(122.88e6, 30.72e6, bw=20e6, fs_sdr=122.88e6, window=window)
+    jm = JaxMonitor(jd)
+    tm = it.WidebandMonitor(it.design_from_reference(dataclasses.asdict(jd)), device='cpu')
+    assert (tm.design.nfft, tm.design.nfft_out) == WIDER_CLUSTER_DESIGNS[window]
+    assert (tm.chan_kwargs['nfft_big'], tm.design.apd_navg, tm.design.apd_bins) == (4096, 1, 2048)
+    n = 4 * jm.min_input_multiple()
+    rng = np.random.default_rng(98)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    ref = {k: np.asarray(v) for k, v in jax.jit(jm.step)(jnp.asarray(x)).items()}
+    got = tm.step(x)
+    assert_step_close(got, ref, floor_dB=-90)
+    for key, v in tm.reference_step(torch.from_numpy(x)).items():
+        assert torch.equal(v, got[key]), key
+
+
+# the channelizer sizes the slice adds, at the flagship rates (hamming,
+# 16384 -> 8192): 48 and 96 channels of 256 points and 64 of 512 (frames of
+# 12288, 24576 and 32768 points; navg 1, 2048 edges)
+CHANNEL_DESIGNS = {
+    'channels48': (dict(channel_count=48), 12288),
+    'channels96': (dict(channel_count=96), 24576),
+    'channels64x512': (dict(channel_count=64, fft_size_per_channel=512), 32768),
+}
+
+
+@pytest.mark.parametrize('name', sorted(CHANNEL_DESIGNS))
+def test_step_matches_jax_at_the_channelizer_designs(name):
+    """the port's CPU step against the JAX monitor's at the channelizer
+    designs of the flagship rates, on 4 min_input_multiple()s of noise: the
+    gates of assert_step_close."""
+    extra, nfft_big = CHANNEL_DESIGNS[name]
+    jd = jax_design(122.88e6, 61.44e6, bw=40e6, fs_sdr=122.88e6, **extra)
+    jm = JaxMonitor(jd)
+    tm = it.WidebandMonitor(it.design_from_reference(dataclasses.asdict(jd)), device='cpu')
+    assert tm.chan_kwargs['nfft_big'] == nfft_big
+    n = 4 * jm.min_input_multiple()
+    rng = np.random.default_rng(nfft_big)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    ref = {k: np.asarray(v) for k, v in jax.jit(jm.step)(jnp.asarray(x)).items()}
+    got = tm.step(x)
+    assert_step_close(got, ref)
+    for key, v in tm.reference_step(torch.from_numpy(x)).items():
+        assert torch.equal(v, got[key]), key
+
+
 def test_step_batch_rows_match_single_rows():
     _, tm = _pair('small')
     rng = np.random.default_rng(22)

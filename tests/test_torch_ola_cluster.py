@@ -56,10 +56,12 @@ from iqwaveform_tpu.models import design_wideband_monitor as jax_design
 from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_packed
 
 PAIRS = sorted(CLUSTER_PAIRS)
-# frames the JAX package runs on its packed kernel that no CUDA route takes
-# yet (ROADMAP Queue 2 item 1): blackman and blackmanharris at 122.88 ->
-# 30.72 MS/s
-OUTSIDE = ((98304, 24576), (163840, 40960))
+# frames above one block's shared memory that no CUDA route takes yet
+# (ROADMAP Queue 2 item 1): blackman at 122.88 -> 15.36 MS/s, and a
+# power-of-two pair; the blackman and blackmanharris frames at 122.88 ->
+# 30.72 MS/s (98304 -> 24576, 163840 -> 40960) were here until clusters of
+# 6 and 10 blocks took them
+OUTSIDE = ((196608, 24576), (131072, 32768))
 
 
 def model_tables(nfft, nfft_out):
@@ -261,14 +263,17 @@ def test_host_tables_are_the_models(pair):
 
 def test_cluster_shapes_and_shared_memory():
     """each pair splits into sizes that csrc/fft_reg.cuh has plans for, by
-    a portable cluster (C <= 8), and one block's buffer and pass tables
-    fit an H100's opt-in shared memory (one block an SM)."""
+    a cluster of at most 10 blocks (above the portable 8 only at 163840 ->
+    40960, whose instance opts in to a non-portable size), and one block's
+    buffer and pass tables fit an H100's opt-in shared memory (one block an
+    SM)."""
     want = {(49152, 24576): 154880, (81920, 40960): 154880, (40960, 20480): 82176,
             (40960, 40960): 83200, (32768, 8192): 153856, (32768, 16384): 154880,
-            (36864, 12288): 118016}
+            (36864, 12288): 118016, (98304, 24576): 153856, (163840, 40960): 153856}
     assert set(want) == set(CLUSTER_PAIRS)
+    assert [p for p, c in CLUSTER_PAIRS.items() if c > 8] == [(163840, 40960)]
     for (nfft, nfft_out), c in CLUSTER_PAIRS.items():
-        assert 2 <= c <= 8 and nfft % c == 0 and nfft_out % c == 0
+        assert 2 <= c <= 10 and nfft % c == 0 and nfft_out % c == 0
         m1, m2 = nfft // c, nfft_out // c
         assert m1 in REG_PLANS and m2 in REG_PLANS
         assert 8 * max(nfft, nfft_out) > H100_SMEM_OPTIN  # one block cannot hold it
@@ -276,9 +281,10 @@ def test_cluster_shapes_and_shared_memory():
 
 
 def test_route_and_scope_by_size():
-    """'cluster' at exactly the compiled pairs, which the scope now takes;
-    the register-resident pairs, the generic sizes and the scope of every
-    other size as before; the 98304- and 163840-point frames outside."""
+    """'cluster' at exactly the compiled pairs, which the scope now takes
+    (the 98304- and 163840-point frames among them); the register-resident
+    pairs, the generic sizes and the scope of every other size as before;
+    the frames of OUTSIDE outside."""
     for pair in PAIRS:
         assert frames_route(*pair) == 'cluster'
         assert fused_ola_frames_supported(*pair)
@@ -308,9 +314,10 @@ def test_route_and_scope_by_size():
 ])
 def test_designs_take_the_cluster_route(rates, kw, pair):
     """the monitor designs whose frames the cluster kernel takes (the JAX
-    package's packed kernel takes them too), and the two it leaves to
-    ROADMAP Queue 2 item 1: the route functions the monitor and
-    ola_filter consult pick it, with no change of their own."""
+    package's packed kernel takes them too), the blackman and
+    blackmanharris frames of 122.88 -> 30.72 MS/s among them on clusters of
+    6 and 10 blocks: the route functions the monitor and ola_filter
+    consult pick it, with no change of their own."""
     d = it.design_wideband_monitor(*rates, **kw)
     assert (d.nfft, d.nfft_out) == pair
     jd = jax_design(*rates, **kw)
@@ -353,6 +360,34 @@ def test_plain_chain_matches_jax_packed_at_the_slice_design():
     nfft, nfft_out = kw['nfft'], kw['nfft_out']
     assert (nfft, nfft_out) == (49152, 24576)
     rng = np.random.default_rng(49152)
+    frames = (rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))).astype(
+        'complex64')
+    packed = np.asarray(fused_ola_packed(
+        jnp.asarray(frames.real), jnp.asarray(frames.imag), nfft=nfft, nfft_out=nfft_out,
+        zero_lo=kw['zero_lo'], zero_hi=kw['zero_hi'], bounds_in=kw['bounds_in'],
+        bounds_out=kw['bounds_out'], w_in=kw['w_in'].numpy(), w_shift_out=kw['w_shift_out'].numpy(),
+        precision='highest', interpret=True,
+    ))
+    ref = (packed[:, :128] + 1j * packed[:, 128:]).reshape(2, nfft_out)
+    got = kernels.fused_ola_frames(torch.from_numpy(frames), **kw).numpy()
+    assert got.shape == ref.shape and got.dtype == np.complex64
+    assert rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize('window,pair', [('blackman', (98304, 24576)),
+                                         ('blackmanharris', (163840, 40960))])
+def test_plain_chain_matches_jax_packed_at_the_wider_clusters(window, pair):
+    """row 2 at the pairs of the clusters of 6 and 10 blocks, the blackman
+    and blackmanharris designs of 122.88 -> 30.72 MS/s: the plain chain
+    against the JAX package's fused_ola_packed in interpret mode
+    ('highest'), on 2 frames of the design's windows and bounds, within
+    1e-5 relative RMS."""
+    d = jax_design(122.88e6, 30.72e6, bw=20e6, fs_sdr=122.88e6, window=window)
+    mon = it.WidebandMonitor(it.design_from_reference(dataclasses.asdict(d)), device='cpu')
+    kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    nfft, nfft_out = kw['nfft'], kw['nfft_out']
+    assert (nfft, nfft_out) == pair and frames_route(*pair) == 'cluster'
+    rng = np.random.default_rng(nfft)
     frames = (rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))).astype(
         'complex64')
     packed = np.asarray(fused_ola_packed(
