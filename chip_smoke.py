@@ -189,8 +189,8 @@ then the channelizer statistics at every frame size of ``CHAN_SIZES``
    steps' streams (kernels-line rows ``chan_stats_mixed`` and
    ``chan_stats_cluster``); (c) ``channelize_power`` at 48 channels of 192
    of 256 bins (12288 points) on 610 frames: one launch of the channel-only
-   kernel, within 1e-5 of the plain version, timed (row
-   ``chan_stats_channels_mixed``).
+   kernel (``chan_power_reg_kernel<12288>``), within 1e-5 of the plain
+   version, timed (row ``chan_power_reg_12288``).
 
 It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -276,8 +276,8 @@ KERNEL_INFO = {
                          'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
     'chan_stats_cluster': ('iqwaveform_torch/csrc/chan_cluster.cu',
                            'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
-    'chan_stats_channels_mixed': ('iqwaveform_torch/csrc/chan_stats.cu',
-                                  'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:248'),
+    'chan_power_reg_12288': ('iqwaveform_torch/csrc/chan_stats.cu',
+                             'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:248'),
     'upfirdn': ('iqwaveform_torch/csrc/upfirdn.cu',
                 'iqwaveform_tpu/ops/pallas/upfirdn_pallas.py:210'),
     'corr_at_indices': ('iqwaveform_torch/csrc/corr.cu',
@@ -371,6 +371,15 @@ CHAN_DESIGNS = {
     'channels64x512': (dict(channel_count=64, fft_size_per_channel=512), 'cluster',
                        'chan_stats_cluster_kernel', None),
 }
+# each output's complex128 error in phase 17a at most this many times the
+# plain version's (psd_log_sum: the kernels' fixed-order sums of ln over
+# frames read 1.4-2.2x the plain version's), and below the error of the
+# plain version on the input rounded to float16 (the gate's control)
+CHAN_F64_LIMIT = {'channel_power': 2, 'psd_log_sum': 3, 'psd_max': 2, 'p_binned': 2}
+# the two 4096-point statistics kernels by device time: the calls in one
+# trace, and the binnings (navg 1: the blackman designs; 16: the flagship)
+STATS_CMP_CALLS = 10
+STATS_CMP_NAVG = (1, 16)
 # chan_stats' route counts before a launch
 CHAN_NO_ROUTE = {'reg': 0, 'mixed': 0, 'cluster': 0, 'generic': 0}
 # each compiled pair on a few frames against the plain chain and complex128
@@ -1160,11 +1169,12 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
 
 def trace_call(name: str) -> int:
     """``python3 chip_smoke.py --trace corr|channelize|cluster|cluster6|
-    channels48|channels96|channels64x512``: make the call of phase 11, 15,
-    16c, 16d or 17b at its shapes, on noise from ``SEED`` (its
+    channels48|channels96|channels64x512|stats4096``: make the call of
+    phase 11, 15, 16c, 16d or 17b at its shapes, on noise from ``SEED`` (its
     kernels' work does not depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
-    line, a JSON object. Exits 1 if the trace lacks a kernel."""
+    line, a JSON object. Exits 1 if the trace lacks a kernel. ``--trace
+    stats4096`` prints ``stats4096_device_ms`` instead (phase 17a)."""
     sys.path.insert(0, str(ROOT))
     from iqwaveform_torch import WidebandMonitor, channelize_power, design_wideband_monitor, ofdm
 
@@ -1204,6 +1214,10 @@ def trace_call(name: str) -> int:
             return mon.step(x)
 
         expect = (OLA_REG_KERNEL, kernel, HIST_KERNEL)
+    elif name == 'stats4096':
+        got = stats4096_device_ms(dev, fresh=False)
+        print(json.dumps(got))
+        return 0 if got else 1
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -2177,12 +2191,14 @@ def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: fl
     """one channelizer frame size in one mode (``mode``: emit_psd,
     emit_pbin, navg) on CHAN_SIZE_SAMPLES of noise in whole frames, 24
     channels of (3 / 4) n / 24 bins: the kernel its route launches, once,
-    within 1e-5 of the plain version in every output, its channel power's
-    error against complex128 on the first N_F64_FRAMES frames at most twice
-    the plain version's (as chan_f64 holds the flagship's; the other
-    outputs' errors are reported); timed beside its bound, the torch.fft formulation (the
-    plain version, its library call) and, at the powers of two, the radix-2
-    kernel (at 4096 also the mixed-size kernel beside the flagship's)."""
+    within 1e-5 of the plain version in every output, each output's error
+    against complex128 on the first N_F64_FRAMES frames within
+    CHAN_F64_LIMIT of the plain version's (channel power at twice, as
+    chan_f64 holds the flagship's), a limit below the plain version's error
+    on that input rounded to float16; timed beside its bound, the torch.fft
+    formulation (the plain version, its library call) and, at the powers
+    of two, the radix-2 kernel (at 4096 also the mixed-size kernel beside
+    the flagship's)."""
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels.chan_stats import (
         _chan_stats_generic,
@@ -2205,15 +2221,20 @@ def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: fl
     got64, plain64 = ((got, ref) if y64.numel() == y.numel()
                       else (kernels.chan_stats(y64, **kw), kernels.chan_stats_plain(y64, **kw)))
     ref64 = kernels.chan_stats_plain(y64.to(torch.complex128), **_wide_kw(kw))
+    y16 = torch.complex(y64.real.half().double(), y64.imag.half().double())
+    ctl64 = kernels.chan_stats_plain(y16, **_wide_kw(kw))
     out = {'route': route, 'frames': frames}
     for key in ref:
         err = rel_rms(got[key], ref[key])
         e64, p64 = rel_rms(got64[key], ref64[key]), rel_rms(plain64[key], ref64[key])
+        c64, lim = rel_rms(ctl64[key], ref64[key]), CHAN_F64_LIMIT[key]
         require(err <= 1e-5, f'chan_stats {key} at {n} {mode}: relative RMS {err:.3g}')
-        if key == 'channel_power':
-            require(e64 <= 2 * p64, f'chan_stats {key} at {n} {mode}: complex128 error {e64:.4g} '
-                    f'> 2 x the plain version\'s {p64:.4g}')
-        out[key] = {'relative_rms': err, 'f64_rel_rms': e64, 'plain_f64_rel_rms': p64}
+        require(e64 <= lim * p64, f'chan_stats {key} at {n} {mode}: complex128 error {e64:.4g} '
+                f'> {lim} x the plain version\'s {p64:.4g}')
+        require(lim * p64 < c64, f'chan_stats {key} at {n} {mode}: the gate {lim} x {p64:.4g} '
+                f'passes the float16-rounded input\'s error {c64:.4g}')
+        out[key] = {'relative_rms': err, 'f64_rel_rms': e64, 'plain_f64_rel_rms': p64,
+                    'f16_input_f64_rel_rms': c64}
     nbytes = 8 * y.numel() + 8 * n + 4 * sum(v.numel() for v in got.values())
     t_bytes, t_ops = nbytes / mem_rate * 1e3, frames * (fft_ops(n) + 12 * n) / fp32_rate * 1e3
     out['bound_ms'] = max(t_bytes, t_ops)
@@ -2226,6 +2247,61 @@ def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: fl
         out['mixed_ms'] = timed_ms(lambda: _chan_stats_mixed(y, **kw))
     out['max_abs_err'] = max(max_abs(got[k], ref[k]) for k in ref)
     return out
+
+
+def stats4096_device_ms(dev, fresh: bool = True) -> dict:
+    """the device milliseconds a call of each 4096-point statistics kernel
+    takes, its fold included: ``chan_stats_reg_kernel`` (the route) and
+    ``chan_stats_mixed_kernel`` (through the private ``_chan_stats_mixed``),
+    on the flagship step's channelizer stream (2^23 samples of noise from
+    SEED: 2048 frames of 4096 points, 16 channels of 256) at each navg of
+    STATS_CMP_NAVG; each kernel traced twice, in the order reg, mixed,
+    mixed, reg, STATS_CMP_CALLS calls a trace. Returns {'navg N': {'reg':
+    [ms, ms], 'mixed': [ms, ms]}}, or {} where a trace lacks its kernel in
+    this process and (with ``fresh``) in a fresh one (``python3
+    chip_smoke.py --trace stats4096``)."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_mixed, chan_route
+
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y = torch.randn(CHAN_SIZE_SAMPLES, dtype=torch.complex64, device=dev, generator=gen)
+    calls = {'reg': (kernels.chan_stats, STATS_REG_KERNEL),
+             'mixed': (_chan_stats_mixed, MIXED_KERNEL)}
+    out = {}
+    for navg in STATS_CMP_NAVG:
+        kw = dict(mon.chan_kwargs, navg=navg)
+        require(chan_route(kw['nfft_big'], True, True, navg) == 'reg',
+                f'chan_stats at {kw["nfft_big"]}, navg {navg} is not on chan_stats_reg_kernel')
+        got = {'reg': [], 'mixed': []}
+        for route in ('reg', 'mixed', 'mixed', 'reg'):
+            call, kernel = calls[route]
+
+            def fn():
+                for _ in range(STATS_CMP_CALLS):
+                    call(y, **kw)
+
+            fn()
+            torch.cuda.synchronize()
+            _, device_us = device_kernels(fn, kernel)
+            if not device_us:
+                return _fresh_stats4096() if fresh else {}
+            got[route].append(sum(device_us.values()) / 1e3 / STATS_CMP_CALLS)
+        out[f'navg {navg}'] = got
+    return out
+
+
+def _fresh_stats4096() -> dict:
+    """``stats4096_device_ms`` in a fresh process ({} if it fails)."""
+    print('profiler: taking the 4096-point statistics comparison in a fresh process')
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), '--trace', 'stats4096'],
+                          capture_output=True, text=True, timeout=FRESH_TRACE_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode or not lines:
+        print(f'profiler: the fresh process exited {proc.returncode}: {proc.stderr[-2000:]}')
+        return {}
+    return json.loads(lines[-1])
 
 
 def channelizer_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
@@ -2250,6 +2326,12 @@ def channelizer_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
                         {e: f'{x:.3g}' for e, x in v.items() if 'f64' in e})
                     for k, v in r.items() if k not in ('frames', 'max_abs_err', 'bound_by')}
              for name, r in sizes[n].items()}) + f' ({smi})')
+    torch.cuda.empty_cache()
+    # the two kernels of the statistics mode at 4096 points by device time
+    cmp4096 = stats4096_device_ms(dev)
+    print('chan_stats at 4096, the flagship\'s 2048 frames, device ms a call with the fold '
+          f'(traced reg, mixed, mixed, reg): {json.dumps(cmp4096) if cmp4096 else "not measured"} '
+          f'({smi})')
     torch.cuda.empty_cache()
 
     # ---- phase 17b: the monitor of the flagship rates at 48, 96 and 64 x
@@ -2316,6 +2398,8 @@ def channelizer_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
             row['path_ms'] = step_ms
             row['idle_share'] = max(0.0, 1 - busy / step_ms)
             row['sizes'] = {str(sz): r for sz, r in sizes.items() if r['stats']['route'] == want_route}
+            if want_route == 'mixed':
+                row['device_ms_at_4096_vs_reg'] = cmp4096
             print(f'{rname} at {nb}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
                   f'{row["bound_by"]}, plain / library {row["plain_ms"]:.4f} ms), '
                   f'{row["profiled_device_ms"]:.4f} ms of device time in the profiled step, on {smi}')
@@ -2349,7 +2433,7 @@ def channelizer_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     require(err <= 1e-5, f'channelize_power at {nperseg}: relative RMS {err:.3g}')
     require(cp.shape == (CHANNELIZE_FRAMES, n_ch), f'channelize_power at {nperseg}: {tuple(cp.shape)}')
     row = kernel_row(
-        'chan_stats_channels_mixed',
+        'chan_power_reg_12288',
         {'launches': launched.get('chan_stats', 0), 'max_abs_err': max_abs(cp, cp_ref)},
         8 * iq.numel() + 8 * nperseg + 4 * cp.numel(),
         CHANNELIZE_FRAMES * (fft_ops(nperseg) + 6 * nperseg + 2 * (nperseg - skip)),

@@ -441,3 +441,45 @@ def test_cpu_tensors_take_the_plain_version_at_the_new_sizes():
         for key in ref:
             torch.testing.assert_close(got[key], ref[key])
     assert (dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches) == before
+
+
+# ---- the order of the ln sums in float32 -----------------------------------
+
+FOLD_WARPS = 32  # csrc/chan_common.cuh kFoldWarps
+
+
+def kernel_order_sum(values: np.ndarray, frames_per_block: int) -> np.ndarray:
+    """the statistics kernels' float32 sum over frames (axis 0) in their
+    order: each block's run of frames_per_block frames in order, then
+    chan_fold_kernel's warp w summing blocks w, w + 32, ... in order, and
+    warp 0 summing the 32 warps' sums in order."""
+    def in_order(rows):
+        return np.cumsum(rows, axis=0, dtype=np.float32)[-1]
+
+    n_blocks = -(-values.shape[0] // frames_per_block)
+    part = np.stack([in_order(values[b * frames_per_block:(b + 1) * frames_per_block])
+                     for b in range(n_blocks)])
+    warps = np.stack([in_order(part[w::FOLD_WARPS]) if w < n_blocks
+                      else np.zeros(values.shape[1], np.float32) for w in range(FOLD_WARPS)])
+    return in_order(warps)
+
+
+@pytest.mark.parametrize('frames_per_block', [2, 8, 32])
+def test_kernel_order_ln_sums_within_the_card_gate(frames_per_block):
+    """psd_log_sum's float32 sums of ln(|Y|^2 + 1e-25) over 512 frames of
+    4096 bins of noise (chip_smoke.py's complex128 check), summed in the
+    kernels' order, stay within 3x the error of torch's float32 sum
+    against float64 (chip_smoke.py CHAN_F64_LIMIT['psd_log_sum']); the
+    rounding of the ln values to float32 alone is far below either: the
+    sums' order alone puts the kernels above torch's sum here, as on the
+    card (where torch's CUDA sum has an order of its own)."""
+    rng = np.random.default_rng(frames_per_block)
+    y = (rng.standard_normal((512, 4096)) + 1j * rng.standard_normal((512, 4096))) / 4096
+    ln64 = np.log(np.abs(y) ** 2 + EPS)
+    ln32 = ln64.astype(np.float32)
+    ref = ln64.sum(axis=0)
+    kernel = rel(kernel_order_sum(ln32, frames_per_block).astype(np.float64), ref)
+    plain = rel(torch.from_numpy(ln32).sum(dim=0).double().numpy(), ref)
+    inputs = rel(ln32.astype(np.float64).sum(axis=0), ref)
+    assert kernel <= 3 * plain
+    assert inputs <= 0.1 * min(kernel, plain)
