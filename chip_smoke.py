@@ -21,8 +21,9 @@ build/iqwaveform_torch/), then, at the flagship WidebandMonitor design
    kernel (``hist_bucket_kernel``); ptxas must report no spill in the
    register-resident channelizer, levels and dB kernels, the column-pair
    counter, the bucket-table histogram, the cluster frame kernel, the
-   channel-only channelizer or the mixed-size and cluster channelizer
-   statistics kernels, at any of their instances;
+   channel-only channelizer, the mixed-size and cluster channelizer
+   statistics kernels or the CP correlation's ring kernel, at any of their
+   instances;
 2. drives the full ``step`` on 2^24 complex64 samples: each kernel's
    launch count must rise, the OLA, channelizer and histogram route counts
    must name ``fused_ola_reg_kernel``, ``chan_stats_reg_kernel`` and
@@ -116,9 +117,16 @@ then the OFDM path on 1 s of a 20 MHz LTE / 5G-NR (15 kHz) capture at
 
 11. ``corr_at_indices`` at ``Phy3GPP(20e6).index_cyclic_prefix(frames=
    range(100))`` (14,000 rows of 144) on the capture delayed by 700
-   samples: one kernel launch per call, norm on and off within 2e-5 of the
-   plain version, the peak at the planted lag, no library kernel in its
-   profile, timed;
+   samples: one kernel launch per call, through the ring kernel
+   (``corr_ring_kernel``, its partials folded by ``corr_fold_kernel``),
+   the table's structure checked at its first call and never again, norm
+   on and off within 2e-5 of the plain version, the peak at the planted
+   lag, the ring kernel also on ``x[1:]`` and on captures cut short of
+   their last windows against the plain version, no library kernel in its
+   profile, timed, with the host time a call; with ``--parent DIR`` (a
+   tree of an earlier commit, such as a ``git archive`` of it), the same
+   call through DIR's package timed in turns with this one (``generic_*``
+   of the kernels-line row; ``corr_times``);
 12. ``BasebandClockSynchronizer(20e6)`` on that capture squeezed by 31
    samples: it converges and corrects 31 +- 1 samples, timed;
 13. ``SymbolDecoder(20e6)`` on the clean capture: the card's decode
@@ -192,7 +200,8 @@ then the channelizer statistics at every frame size of ``CHAN_SIZES``
    kernel (``chan_power_reg_kernel<12288>``), within 1e-5 of the plain
    version, timed (row ``chan_power_reg_12288``).
 
-It prints the card's name and power limit, one JSON line ``{"kernels":
+``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
+DIR's package. It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits nonzero without that line; so does a
 machine without CUDA, or a directory without the package.
@@ -334,8 +343,11 @@ CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'generic': 0}
 # the channelizer statistics at the other sizes of one block and above it
 MIXED_KERNEL = 'chan_stats_mixed_kernel'
 CHAN_CLUSTER_KERNEL = 'chan_stats_cluster_kernel'
+# the CP correlation's ring kernel and the kernels after it
+CORR_KERNEL = 'corr_ring_kernel'
+CORR_KERNELS = (CORR_KERNEL, 'corr_fold_kernel', 'corr_finish_kernel')
 NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL,
-            CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL)
+            CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL, CORR_KERNEL)
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -420,6 +432,7 @@ N_HOST_SPLIT = 16  # chunks whose fold's host time is split by part
 # after its synchronize
 PROFILE_TRIES = 3
 HOST_CALLS = 1000  # calls whose host time host_ms averages
+CORR_HOST_CALLS = 100  # corr_at_indices calls (three launches each) host_ms averages
 HOST_ROUNDS = 6  # turns of the two wrappers whose host times hist_times compares
 PROFILE_SETTLE_S = 0.05
 FRESH_TRACE_TIMEOUT_S = 300
@@ -1181,15 +1194,12 @@ def trace_call(name: str) -> int:
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(SEED)
     if name == 'corr':
-        phy = ofdm.Phy3GPP(LTE_BW)
-        inds = phy.index_cyclic_prefix(frames=range(LTE_SLOTS // 10))
-        x = torch.randn(LTE_SLOTS * phy.contiguous_size, dtype=torch.complex64, device=dev,
-                        generator=gen)
+        phy, inds, x = corr_noise(ofdm, gen, dev)
 
         def fn():
             return ofdm.corr_at_indices(inds, x, phy.nfft)
 
-        expect = ('corr_accumulate_kernel', 'corr_finish_kernel')
+        expect = CORR_KERNELS
     elif name in ('cluster', 'cluster6'):
         if name == 'cluster':
             mon = WidebandMonitor(design_wideband_monitor(122.88e6, 61.44e6, **CLUSTER_MONITOR))
@@ -1680,6 +1690,81 @@ def lte_waveform(phy, n_slots: int, gen, dev) -> tuple:
     return wave, X
 
 
+def corr_noise(ofdm, gen, dev) -> tuple:
+    """phase 11's numerology, index table and a capture of its length of
+    noise, through the ``ofdm`` module given: (phy, inds, x)."""
+    phy = ofdm.Phy3GPP(LTE_BW)
+    inds = phy.index_cyclic_prefix(frames=range(LTE_SLOTS // 10))
+    x = torch.randn(LTE_SLOTS * phy.contiguous_size, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    return phy, inds, x
+
+
+def corr_times(root: str) -> dict:
+    """``python3 chip_smoke.py --corr-times DIR``: phase 11's call at its
+    shapes on noise from ``SEED``, through the package under DIR (this
+    checkout, or a tree of an earlier commit): the device microseconds by
+    kernel of one profiled ``corr`` call (its kernels' work does not depend
+    on the values), its time by events, and ``corr_at_indices``' time by
+    events and host time a call. Prints them as the last line, a JSON
+    object."""
+    base = Path(root).resolve()
+    sys.path.insert(0, str(base))
+    import iqwaveform_torch
+    from iqwaveform_torch import ofdm
+    from iqwaveform_torch.ops import kernels
+
+    require(Path(iqwaveform_torch.__file__).resolve().is_relative_to(base),
+            f'imported {iqwaveform_torch.__file__}, not the package under {base}')
+    dev = torch.device('cuda')
+    phy, inds, x = corr_noise(ofdm, torch.Generator(device=dev).manual_seed(SEED), dev)
+    ncp = inds.shape[-1]
+    starts = inds.reshape(-1, ncp)[:, 0]
+    module = sys.modules['iqwaveform_torch.ops.kernels.corr']
+    # a start table kept across calls where the package has one
+    table = module.StartTable(starts) if hasattr(module, 'StartTable') else starts
+
+    def kernel():
+        return kernels.corr(table, x, phy.nfft, ncp, True)
+
+    def path():
+        return ofdm.corr_at_indices(inds, x, phy.nfft)
+
+    path()
+    kernel()
+    torch.cuda.synchronize()
+    _, device_us = device_kernels(kernel, 'corr_finish_kernel')
+    require(bool(device_us), f'no trace of the correlation kernels of {base}')
+    return {'root': str(base), 'device_us': device_us,
+            'device_ms': sum(device_us.values()) / 1e3, 'ms': timed_ms(kernel),
+            'path_ms': timed_ms(path), 'host_ms': host_ms(path, calls=CORR_HOST_CALLS)}
+
+
+def corr_ab(parent: str, smi: str) -> dict:
+    """phase 11's call through the package of ``parent`` (the older kernel)
+    and of this checkout, each in a fresh process (:func:`corr_times`), in
+    the turns parent, this, this, parent: the parent's means as the
+    kernels-line row's ``generic_*`` numbers, every turn under ``ab``."""
+    turns = []
+    for root in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), '--corr-times',
+                               str(root)], capture_output=True, text=True,
+                              timeout=FRESH_TRACE_TIMEOUT_S)
+        lines = proc.stdout.strip().splitlines()
+        require(proc.returncode == 0 and bool(lines),
+                f'corr times of {root}: exit {proc.returncode}: {proc.stderr[-2000:]}')
+        turns.append(json.loads(lines[-1]))
+        print(f'corr turn {len(turns)} ({turns[-1]["root"]}): {json.dumps(turns[-1])}')
+    older = turns[0::3]
+    out = {f'generic_{k}': float(np.mean([t[k] for t in older]))
+           for k in ('device_ms', 'ms', 'path_ms', 'host_ms')}
+    out['ab'] = turns
+    print(f'corr: the parent\'s kernels {out["generic_device_ms"]:.4f} ms of device time, '
+          f'this tree\'s {np.mean([t["device_ms"] for t in turns[1:3]]):.4f} ms '
+          f'(turns parent, this, this, parent) on {smi}')
+    return out
+
+
 def corr_ops(n_starts: int, span: int, n_lags: int, ncp: int, norm: bool) -> float:
     """the flop of one correlation: per start and acc position the lag
     product (6) and, with norm, both powers (6); the ncp-wide moving sums
@@ -1688,15 +1773,17 @@ def corr_ops(n_starts: int, span: int, n_lags: int, ncp: int, norm: bool) -> flo
     return n_starts * span * (12 if norm else 6) + n_lags * (rows * ncp + 4)
 
 
-def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
-    """phases 11-15; returns the kernels line's rows of this path."""
+def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float, parent: str | None = None) -> list:
+    """phases 11-15; returns the kernels line's rows of this path. With
+    ``parent``, phase 11 times the same call through that tree's package
+    too (:func:`corr_ab`)."""
     from iqwaveform_torch import channelize_power, ofdm
     from iqwaveform_torch.models import CellSearch
     from iqwaveform_torch.ops import kernels, spectral
     from iqwaveform_torch.ops.filtering import resample
     from iqwaveform_torch.ops.kernels import _build
     from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic
-    from iqwaveform_torch.ops.kernels.corr import corr_blocking
+    from iqwaveform_torch.ops.kernels.corr import StartTable, corr_blocking
 
     kset = {k.__name__: k for k in kernels.KERNELS}
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1733,17 +1820,25 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     delayed = torch.roll(capture, CORR_DELAY)
     del capture
     x11 = delayed
+    checks = ofdm.corr_at_indices.structure_checks
     ofdm.corr_at_indices(inds, x11[: 4 * phy.contiguous_size], nfft)  # warm-up
     torch.cuda.synchronize()
+    first_checks = ofdm.corr_at_indices.structure_checks - checks
     got, ref = {}, {}
     reset()
+    checks = ofdm.corr_at_indices.structure_checks
     for norm in (True, False):
         got[norm] = ofdm.corr_at_indices(inds, x11, nfft, norm=norm)
     torch.cuda.synchronize()
     launched = counts()
+    checks = ofdm.corr_at_indices.structure_checks - checks
     print(f'corr_at_indices: index set {inds.shape} ({starts.size} rows of {ncp}), '
-          f'launches over 2 calls {json.dumps(launched)}')
+          f'launches over 2 calls {json.dumps(launched)}; full structure checks of the table: '
+          f'{first_checks} at its first call, {checks} in the next 2')
     require(launched == {'corr': 2}, f'corr_at_indices launches {launched}')
+    require(first_checks == 1 and checks == 0,
+            f'corr_at_indices checked the table {first_checks} times at its first call and '
+            f'{checks} times in the next 2 (once, then never)')
     errs = {}
     for norm in (True, False):
         ref[norm] = kernels.corr_plain(starts, x11, nfft, ncp, norm)
@@ -1756,33 +1851,59 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
           f'(no norm); |corr| peaks at lag {peak} = {float(got[True][peak].abs()):.4f}, '
           f'planted {CORR_DELAY}')
     require(peak == CORR_DELAY, f'corr peak at lag {peak}, planted at {CORR_DELAY}')
+    del got, ref
+    # the ring kernel where x[0] sits 8 bytes above a 16-byte boundary and
+    # where the capture ends inside the last windows (lags past it NaN)
+    slot0 = inds[:, 0, 0, 0]  # the 14 symbols of the first slot
+    edge_cases = {'x[1:]': (starts, x11[1:]), 'cut 3001 short': (starts, x11[: n - 3001]),
+                  'x[1:] cut 3000 short': (starts, x11[1: n - 3000]),
+                  'slot 0 on 2048 + 1001, x[1:]': (slot0, x11[1: 2048 + 1001])}
+    for label, (rows_, xs) in edge_cases.items():
+        for norm in (True, False):
+            k_out = kernels.corr(rows_, xs, nfft, ncp, norm)
+            p_out = kernels.corr_plain(rows_, xs, nfft, ncp, norm)
+            nan = torch.isnan(p_out)
+            require(torch.equal(torch.isnan(k_out), nan), f'corr {label} norm={norm}: NaN lags differ')
+            err = max_abs(k_out[~nan], p_out[~nan])
+            print(f'corr {label} norm={norm}: {xs.numel()} samples, {len(rows_)} rows, '
+                  f'{int(nan.sum())} NaN lags, max |diff| vs plain {err:.3g}')
+            require(err <= 2e-5, f'corr {label} norm={norm}: max |diff| {err:.3g} > 2e-5')
+            errs[f'{label}, norm={norm}'] = err
     names, device_us = device_kernels(lambda: ofdm.corr_at_indices(inds, x11, nfft),
-                                      'corr_accumulate_kernel', 'corr_finish_kernel',
-                                      fresh='corr')
+                                      *CORR_KERNELS, fresh='corr')
     corr_device_ms = sum(device_us.values()) / 1e3
     print('corr_at_indices device time by kernel (us): ' + json.dumps(device_us))
-    require(any('corr_accumulate_kernel' in nm for nm in names), 'profiler shows no corr kernel')
+    require(any(CORR_KERNEL in nm for nm in names), f'profiler shows no {CORR_KERNEL}')
     bad = library_kernels(names)
     require(not bad, f'library FFT / GEMM / cuDNN kernels in corr_at_indices: {bad}')
     path_ms = timed_ms(lambda: ofdm.corr_at_indices(inds, x11, nfft))
-    blk = corr_blocking(starts.size, nfft, ncp, _build.sm_count(dev))
+    call_ms = host_ms(lambda: ofdm.corr_at_indices(inds, x11, nfft), calls=CORR_HOST_CALLS)
+    blk = corr_blocking(starts.size, nfft, ncp, _build.sm_count(dev), _build.smem_optin(dev),
+                        _build.smem_per_sm(dev))
+    table = StartTable(starts)
     corr_row = kernel_row(
         'corr_at_indices', {'launches': launched.get('corr', 0), 'max_abs_err': max(errs.values())},
         8 * n + 8 * starts.size + 8 * blk['n_lags'],
         corr_ops(starts.size, blk['span'], blk['n_lags'], ncp, True),
-        lambda: kernels.corr(starts, x11, nfft, ncp, True),
+        lambda: kernels.corr(table, x11, nfft, ncp, True),
         lambda: kernels.corr_plain(starts, x11, nfft, ncp, True),
         None, mem_rate, fp32_rate,
     )
     corr_row['library_note'] = 'no single PyTorch call computes a correlation at an index set'
     corr_row['path_ms'] = path_ms
+    corr_row['host_ms'] = call_ms
     corr_row['profiled_device_ms'] = corr_device_ms
+    corr_row['device_us'] = device_us
     corr_row['MS_per_s'] = n / corr_row['ms'] / 1e3
+    corr_row['blocking'] = blk
+    print(f'corr: blocking {json.dumps(blk)}')
     print(f'corr: {corr_row["ms"]:.4f} ms = {corr_row["MS_per_s"]:.1f} MS/s of capture (bound '
           f'{corr_row["bound_ms"]:.4f} ms by {corr_row["bound_by"]}, plain '
           f'{corr_row["plain_ms"]:.4f} ms; {corr_device_ms:.4f} ms of device time in the profiled '
-          f'call); corr_at_indices {path_ms:.4f} ms on {smi}')
-    del got, ref
+          f'call); corr_at_indices {path_ms:.4f} ms by events, {call_ms:.4f} ms of host time a '
+          f'call, on {smi}')
+    if parent is not None:
+        corr_row.update(corr_ab(parent, smi))
 
     # ---- phase 12: the clock synchronizer on a capture that slips: the
     # delayed capture squeezed by CLOCK_SLIP samples, which the synchronizer
@@ -2455,7 +2576,7 @@ def channelizer_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     return rows
 
 
-def main() -> int:
+def main(parent: str | None = None) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
@@ -2484,7 +2605,8 @@ def main() -> int:
     print(f'build: {time.perf_counter() - t0:.1f} s')
     for line in _build.ptxas_report().splitlines():
         if ('registers' in line or 'spill' in line or line.startswith('==')
-                or ('Compiling entry' in line and ('reg_kernel' in line or 'cluster_kernel' in line))):
+                or ('Compiling entry' in line and ('reg_kernel' in line or 'cluster_kernel' in line
+                                                   or CORR_KERNEL in line))):
             print(f'ptxas: {line.strip()}')
     require_no_spill(_build.ptxas_report())
 
@@ -2689,7 +2811,7 @@ def main() -> int:
     next(r for r in rows if r['name'] == 'hist')['monitor_blackman'] = hist_blackman
 
     # ---- phases 11-15: the OFDM path and channelize_power
-    rows = merge_rows(rows, ofdm_phases(dev, smi, mem_rate, fp32_rate))
+    rows = merge_rows(rows, ofdm_phases(dev, smi, mem_rate, fp32_rate, parent))
 
     # ---- phase 16: the monitor at frames above one block (cluster kernel)
     rows = merge_rows(rows, cluster_phases(dev, smi, mem_rate, fp32_rate))
@@ -2712,4 +2834,13 @@ def main() -> int:
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--trace':
         sys.exit(trace_call(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--corr-times':
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        print(json.dumps(corr_times(sys.argv[2])))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == '--parent':
+        sys.exit(main(sys.argv[2]))
+    if len(sys.argv) != 1:
+        sys.exit(f'usage: {sys.argv[0]} [--parent DIR | --trace CALL | --corr-times DIR]')
     sys.exit(main())

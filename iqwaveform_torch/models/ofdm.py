@@ -13,6 +13,8 @@ BasebandClockSynchronizer (:947-1206) and the SymbolDecoder (:1209-1300).
   ``backend`` says; on a CPU tensor they take its plain version. Arbitrary
   index sets take the direct torch gather, as the JAX package does outside
   Pallas. A failed build or launch raises: nothing warns and falls back.
+  The tables ``index_cyclic_prefix`` returns are read-only, and their rows
+  are checked once, at their first call; any other table on every call.
 * The clock synchronizer runs the coarse and fine CP searches of every
   sync window in one batched device pass of torch gathers and reads back
   one (n_windows, 3) array; the slip loop stays on the host and each pass
@@ -27,6 +29,7 @@ from __future__ import annotations
 import functools
 import logging
 import typing
+import weakref
 from math import ceil
 from numbers import Number
 
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.filtering import resample
-from ..ops.kernels.corr import corr
+from ..ops.kernels.corr import StartTable, corr
 from ..ops.window_design import get_window
 from ..utils import (
     array_namespace,
@@ -186,6 +189,48 @@ def _corr_at_indices_direct(flat_inds, x, nfft: int, ncp: int, norm: bool):
     return corr_ / flat_inds.shape[0]
 
 
+# CP index tables this module built, by id: [a weak reference to the
+# table, its start table once its structure was checked]. A built table is
+# a view of an immutable bytes object, which numpy will not make writeable,
+# so its verdict never goes stale.
+_BUILT_TABLES: dict = {}
+_UNCHECKED = object()
+
+
+def _register_built(table: np.ndarray) -> np.ndarray:
+    """``table`` as an array no one can write (a view of an immutable
+    copy of its bytes), registered so that its structure is checked once."""
+    frozen = np.frombuffer(table.tobytes(), dtype=table.dtype).reshape(table.shape)
+    key = id(frozen)
+
+    def forget(ref, key=key):
+        if _BUILT_TABLES.get(key, (None,))[0] is ref:
+            del _BUILT_TABLES[key]
+
+    _BUILT_TABLES[key] = [weakref.ref(frozen, forget), _UNCHECKED]
+    return frozen
+
+
+def _cp_start_table(inds: np.ndarray):
+    """the :class:`StartTable` of an index set whose rows (last axis) are
+    contiguous runs ``start + arange(ncp)``, or None for any other set.
+    The full check of every row runs on every call, but once per table
+    this module built (``corr_at_indices.structure_checks`` counts them)."""
+    entry = _BUILT_TABLES.get(id(inds))
+    built = entry is not None and entry[0]() is inds
+    if built and entry[1] is not _UNCHECKED:
+        return entry[1]
+    ncp = inds.shape[-1]
+    rows = inds.reshape(-1, ncp)
+    starts = rows[:, 0]
+    corr_at_indices.structure_checks += 1
+    structured = np.array_equal(rows, starts[:, None] + np.arange(ncp)[None, :])
+    table = StartTable(starts) if structured else None
+    if built:
+        entry[1] = table
+    return table
+
+
 def corr_at_indices(inds, x, nfft: int, norm: bool = True, out=None, *,
                     backend: str = 'xla', device=None):
     """normalized correlation of a waveform against its nfft-shifted self at
@@ -195,7 +240,8 @@ def corr_at_indices(inds, x, nfft: int, norm: bool = True, out=None, *,
     cyclic prefix. Rows that are contiguous runs (the output of
     index_cyclic_prefix) take the correlation kernel on a CUDA tensor and
     its plain version on a CPU tensor; arbitrary index sets take a direct
-    gather.
+    gather. The rows of a table from ``index_cyclic_prefix`` are checked
+    once, at its first call; those of any other table on every call.
 
     Args:
         backend: 'xla' (default) or 'pallas', as in the JAX package; both
@@ -213,14 +259,12 @@ def corr_at_indices(inds, x, nfft: int, norm: bool = True, out=None, *,
         raise ValueError(f"backend must be 'xla' or 'pallas', not {backend!r}")
     inds_host = np.asarray(inds)
     ncp = inds_host.shape[-1]
-    rows = inds_host.reshape(-1, ncp)
-    starts = rows[:, 0]
-    structured = np.array_equal(rows, starts[:, None] + np.arange(ncp)[None, :])
-    if backend == 'pallas' and not structured:
+    starts = _cp_start_table(inds_host)
+    if backend == 'pallas' and starts is None:
         raise ValueError('the pallas backend requires contiguous index rows')
 
     x = _on_device(x, device)
-    if structured:
+    if starts is not None:
         result = corr(starts, x, int(nfft), int(ncp), bool(norm))
     else:
         result = _corr_at_indices_direct(
@@ -231,6 +275,9 @@ def corr_at_indices(inds, x, nfft: int, norm: bool = True, out=None, *,
         out[:] = result.detach().cpu().numpy()
         return out
     return result
+
+
+corr_at_indices.structure_checks = 0
 
 
 class SyncParams(typing.NamedTuple):
@@ -596,7 +643,8 @@ class PhyOFDM:
     def _cp_index_grid(self, offset_axes) -> np.ndarray:
         """broadcast-sum a list of 1-D offset axes plus the cp-sample axis
         into the correlation index tensor (shared by the per-standard
-        index_cyclic_prefix methods; reference ofdm.py:617-640, 776-795).
+        index_cyclic_prefix methods; reference ofdm.py:617-640, 776-795),
+        read-only and registered with ``corr_at_indices``.
         """
         axes = [np.atleast_1d(np.squeeze(np.asarray(ax))) for ax in offset_axes]
         axes.append(np.arange(int(self.cp_sizes[1])))
@@ -607,7 +655,8 @@ class PhyOFDM:
             shape = [1] * len(axes)
             shape[dim] = ax.size
             total = total + ax.reshape(shape)
-        return total
+        # read-only: the instance cache hands the same table to every caller
+        return _register_built(total)
 
 
 class Phy3GPP(PhyOFDM):

@@ -43,6 +43,7 @@ __all__ = [
     'require',
     'sm_count',
     'smem_optin',
+    'smem_per_sm',
     'stream_of',
     'twiddles',
     'twiddles_full',
@@ -104,7 +105,7 @@ SIGNATURES = {
     'iqt_upfirdn': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 13 + [_P], _I),
     'iqt_upfirdn_reg': ([_P] * 3 + [_I] * 2 + [_L] + [_I] * 14 + [_P], _I),
     'iqt_corr_prepare': ([_I], _I),
-    'iqt_corr': ([_P] * 4 + [_L] + [_I] * 8 + [_F] + [_P], _I),
+    'iqt_corr': ([_P] * 5 + [_L] + [_I] * 16 + [_F] + [_P], _I),
 }
 
 _lock = threading.Lock()
@@ -214,9 +215,9 @@ def _index(device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _device_attrs(index: int) -> tuple:
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 3)()
     check(library().iqt_device_attrs(index, ctypes.addressof(out)), 'device attributes')
-    return out[0], out[1]
+    return out[0], out[1], out[2]
 
 
 def sm_count(device) -> int:
@@ -228,6 +229,13 @@ def smem_optin(device) -> int:
     """the most dynamic shared memory one block of ``device`` may opt in
     to (232,448 bytes on an H100), queried once per device."""
     return _device_attrs(_index(device))[1]
+
+
+def smem_per_sm(device) -> int:
+    """the shared memory of one SM of ``device`` (233,472 bytes on an
+    H100), which the blocks resident on it share, queried once per
+    device."""
+    return _device_attrs(_index(device))[2]
 
 
 @functools.lru_cache(maxsize=None)

@@ -57,6 +57,7 @@ from iqwaveform_torch.ops import kernels, spectral
 from iqwaveform_torch.ops.kernels import _build
 from iqwaveform_torch.ops.kernels.chan_stats import CHAN_SIZES, _chan_stats_generic, chan_route
 from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route, uniform_quant
+from iqwaveform_torch.ops.kernels.corr import corr_blocking
 from iqwaveform_torch.ops.kernels.fused_ola import (
     CLUSTER_PAIRS,
     _fused_ola_frames_generic,
@@ -870,6 +871,48 @@ def test_corr_kernel_matches_plain(card, bw, n_slots, cut, norm):
         assert int(got.abs().argmax()) == 0 and float(got[0].abs()) > 0.99
 
 
+def _ring_case(name):
+    """inputs the ring kernel takes on other paths than phase 11's:
+    (x on the card, starts, nfft, ncp)."""
+    if name == 'offset':
+        # x[1:]: x[0] one sample above a 16-byte boundary
+        phy, x, starts, ncp = _corr_inputs(20e6, 12)
+        return x[1:], starts, phy.nfft, ncp
+    if name == 'offset-short':
+        phy, x, starts, ncp = _corr_inputs(20e6, 1, 2048 + 1001)
+        return x[1:], starts, phy.nfft, ncp
+    if name == 'sparse':
+        # one symbol a slot, frames 0, 2 and 3: windows far apart
+        phy = ofdm.Phy3GPP(20e6)
+        x = torch.from_numpy(make_cp_waveform(phy, n_slots=40, seed=15)).cuda()
+        inds = phy.index_cyclic_prefix(frames=(0, 2, 3), symbols=[0])
+        return x, inds.reshape(-1, inds.shape[-1])[:, 0], phy.nfft, inds.shape[-1]
+    if name == 'odd':
+        phy, x, starts, ncp = _corr_inputs(1.4e6, 10)
+        return x, np.concatenate([starts + 1, starts[5:6] + 1]), phy.nfft, ncp
+    if name == 'split':
+        # nfft 10240: lag tiles on two rings (ops/kernels/corr.py corr_blocking)
+        phy = ofdm.Phy3GPP(100e6)
+        x = torch.from_numpy(make_cp_waveform(phy, n_slots=2, seed=16)).cuda()
+        inds = phy.index_cyclic_prefix(slots=(0, 1))
+        return x, inds.reshape(-1, inds.shape[-1])[:, 0], phy.nfft, inds.shape[-1]
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize('norm', [True, False])
+@pytest.mark.parametrize('name', ['offset', 'offset-short', 'sparse', 'odd', 'split'])
+def test_corr_ring_kernel_cases(card, name, norm):
+    x, starts, nfft, ncp = _ring_case(name)
+    blk = corr_blocking(len(starts), nfft, ncp, _build.sm_count(card))
+    assert blk['split'] == (name == 'split')
+    kernels.corr.launches = 0
+    got = kernels.corr(starts, x, nfft, ncp, norm)
+    assert kernels.corr.launches == 1
+    ref = kernels.corr_plain(starts, x, nfft, ncp, norm)
+    n_nan = _close_with_nans(got, ref)
+    assert (n_nan > 0) == (name == 'offset-short' and norm)
+
+
 def test_corr_at_indices_routes(card):
     phy, x, starts, ncp = _corr_inputs(1.4e6, 10)
     inds = phy.index_cyclic_prefix(slots=range(10))
@@ -886,6 +929,19 @@ def test_corr_at_indices_routes(card):
     assert kernels.corr.launches == 2
     with pytest.raises(ValueError, match='contiguous'):
         ofdm.corr_at_indices(rows, x, phy.nfft, backend='pallas')
+
+
+def test_corr_at_indices_checks_a_built_table_once(card):
+    phy, x, starts, ncp = _corr_inputs(20e6, 12)
+    inds = phy.index_cyclic_prefix(slots=range(10))
+    before = ofdm.corr_at_indices.structure_checks
+    kernels.corr.launches = 0
+    got = [ofdm.corr_at_indices(inds, x, phy.nfft) for _ in range(3)]
+    assert ofdm.corr_at_indices.structure_checks == before + 1 and kernels.corr.launches == 3
+    assert torch.equal(got[0], got[2])
+    # a writeable copy takes the full check each call, and the same kernel
+    assert torch.equal(ofdm.corr_at_indices(np.array(inds), x, phy.nfft), got[0])
+    assert ofdm.corr_at_indices.structure_checks == before + 2
 
 
 def test_corr_gradient_matches_plain(card):

@@ -9,8 +9,8 @@ Tolerances:
 * ``corr_at_indices``: max |difference| <= 2e-5 against the JAX XLA path
   and against ``corr_at_indices_pallas`` in interpret mode (the JAX
   package's own bar, tests/test_pallas.py:79), NaN positions equal;
-* the numpy model of the CUDA kernel's blocking: the same 2e-5 against the
-  plain version;
+* the numpy model of the CUDA kernel's blocking (tests/_corr_model.py):
+  the same 2e-5 against the plain version;
 * the clock synchronizer: the same per-window offsets, weights and noise
   within 1e-4 relative (tests/test_ofdm.py's device-vs-host bar), the same
   slip per pass, the output within 2e-4 relative RMS (float32 FFT roundoff
@@ -40,6 +40,7 @@ from iqwaveform_tpu.ops import czt as jczt
 from iqwaveform_tpu.ops.pallas.corr_pallas import corr_at_indices_pallas
 
 sys.path.insert(0, str(Path(__file__).parent))
+from _corr_model import ring_model  # noqa: E402
 from _synth import make_cp_waveform  # noqa: E402
 
 # the module, not the function of the same name that ops.kernels exports
@@ -248,55 +249,11 @@ def test_corr_at_indices_arguments():
     assert corr.argmax() == 0 and corr[0] > 0.99
 
 
-def _kernel_model(starts, x, nfft, ncp, norm, sm_count):
-    """numpy float32 model of csrc/corr.cu: pass 1 over (tiles of acc
-    positions, groups of sorted starts), pass 2 folding the groups in order
-    into each lag tile plus its halo, then the moving sum and the
-    normalization."""
-    blk = tcorr.corr_blocking(len(starts), nfft, ncp, sm_count)
-    span, n_lags, gs, n_groups = blk['span'], blk['n_lags'], blk['group_size'], blk['n_groups']
-    starts = np.sort(np.asarray(starts, np.int64))
-    n = x.shape[0]
-    f = np.float32
-    part = np.zeros((n_groups, 4, span), f)
-    for g in range(n_groups):
-        for tile in range(blk['n_tiles']):
-            pos = tile * tcorr.TILE_ACC + np.arange(tcorr.TILE_ACC)
-            pos = pos[pos < span]
-            acc = np.zeros((4, pos.size), f)
-            for s in starts[g * gs:(g + 1) * gs]:
-                t = s + pos
-                ok = t < n - nfft
-                a = np.where(ok, x[np.minimum(t, n - 1)], 0).astype('complex64')
-                b = np.where(ok, x[np.minimum(t + nfft, n - 1)], 0).astype('complex64')
-                acc[0] += a.real * b.real + a.imag * b.imag
-                acc[1] += a.imag * b.real - a.real * b.imag
-                acc[2] += a.real * a.real + a.imag * a.imag
-                acc[3] += b.real * b.real + b.imag * b.imag
-            part[g][:, pos] = acc
-    out = np.zeros(n_lags, 'complex64')
-    width = tcorr.TILE_LAGS + ncp - 1
-    for j0 in range(0, n_lags, tcorr.TILE_LAGS):
-        pos = j0 + np.arange(width)
-        acc = np.zeros((4, width), f)
-        for g in range(n_groups):
-            acc += np.where(pos < span, part[g][:, np.minimum(pos, span - 1)], 0)
-        for jj in range(min(tcorr.TILE_LAGS, n_lags - j0)):
-            m = acc[:, jj:jj + ncp].sum(axis=1, dtype=f)
-            with np.errstate(invalid='ignore', divide='ignore'):
-                if norm:
-                    d = np.sqrt(m[2] * m[3])
-                    out[j0 + jj] = m[0] / d + 1j * (m[1] / d)
-                else:
-                    out[j0 + jj] = (m[0] + 1j * m[1]) / f(len(starts) * ncp)
-    return out
-
-
 @pytest.mark.parametrize('norm', [True, False])
 @pytest.mark.parametrize('case,sm_count', [('3gpp', 1), ('3gpp', 132), ('nan-tail', 3), ('lte20', 132)])
 def test_kernel_blocking_model_matches_plain(case, sm_count, norm):
     if case == 'lte20':
-        # ncp 144 > one pass-2 tile's 128 lags: the halo spans a tile
+        # the ring kernel's full width: ten positions a thread, a 4383-sample window
         phy = T.Phy3GPP(20e6)
         wave = make_cp_waveform(phy, n_slots=2, seed=4)
         inds, nfft = phy.index_cyclic_prefix(symbols=(0, 3, 7), slots=(0,)), phy.nfft
@@ -307,7 +264,7 @@ def test_kernel_blocking_model_matches_plain(case, sm_count, norm):
     blk = tcorr.corr_blocking(len(starts), nfft, ncp, sm_count)
     assert blk['n_groups'] * blk['group_size'] >= len(starts) > (blk['n_groups'] - 1) * blk['group_size']
     ref = _np(tcorr.corr_plain(starts, torch.from_numpy(wave), nfft, ncp, norm))
-    _close_with_nans(_kernel_model(starts, wave, nfft, ncp, norm, sm_count), ref, 2e-5)
+    _close_with_nans(ring_model(starts, wave, nfft, ncp, norm, blk)[0], ref, 2e-5)
 
 
 def test_corr_gradient_matches_jax():
