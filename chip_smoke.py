@@ -200,6 +200,41 @@ then the channelizer statistics at every frame size of ``CHAN_SIZES``
    kernel (``chan_power_reg_kernel<12288>``), within 1e-5 of the plain
    version, timed (row ``chan_power_reg_12288``).
 
+then the monitor's long-capture path on row 1's full contract
+(``fused_ola_strided``: (2, N) planes of float32, int16 or bfloat16, a
+halo, the tail), at the flagship design:
+
+18. (a) ``fused_ola_strided`` on 2^24 samples (2048 frames) with a halo:
+   float32 planes against ``fused_ola`` on the same complex64 samples
+   (no halo), int16 counts against float32 planes of the same integers
+   (2e-5 of the largest value); (b) ``step_planes`` at the float32, 'i16'
+   and 'bf16' tiers (input_scale 2^-15) on 2^24 samples of planes made on
+   the card: one launch each of the register 2:1 kernel on that input
+   type, the channelizer and the histogram, phase 3's gates against
+   ``reference_step`` on the same values, timed; the 'i16' step profiled
+   (the register kernel, no radix-2 or library kernel); each tier's kernel
+   against its plain version with the output and tail, timed beside its
+   bound (rows ``fused_ola_strided_f32``, ``_i16``, ``_bf16``); (c)
+   ``accumulate_step`` / ``flush`` over 8 chunks of 2^24 complex64 samples
+   against one ``step`` on their 2^27 samples (apd_counts equal, the JAX
+   stream test's bar on every bin), then 64 chunks (2^30 samples) timed,
+   one launch of rows 1, 5 and 6 a chunk, one chunk profiled (its idle
+   share; row ``fused_ola_strided``); (d) the same stream from a 1 GiB
+   ci16 file written with numpy under ``build/`` (deleted after) through
+   ``io.CapturePrefetcher`` in plane mode, each chunk unpacked on the card:
+   MS/s with the reads, the host ms a chunk, the idle share, and equal
+   statistics to the same samples streamed from the card; (e)
+   ``apd_kernel='packed'`` at the blackman step (8,392,704 binned samples,
+   2049 levels): one ``colhist_reg_kernel`` launch and no histogram
+   kernel, totals equal to ``hist``'s, cumulative counts within 2 of
+   ``hist``'s on the first 2^19 samples (the JAX bar at its test's size)
+   and, on all, within three times the drift of the JAX package's float32
+   rule run in numpy on the same samples, the route equal to its plain
+   version, timed beside ``hist_bucket_kernel``
+   (row ``colhist_packed_apd``); (f) ``profile_step`` on the flagship
+   step, its report printed. ptxas must report no spill in
+   ``fused_ola_reg_kernel`` at any input type.
+
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package. It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
@@ -295,6 +330,21 @@ KERNEL_INFO = {
     # emit_pbin=False), as channelize_power launches it
     'chan_stats_channels': ('iqwaveform_torch/csrc/chan_stats.cu',
                             'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:248'),
+    # the 2:1 kernels through fused_ola_strided (a halo, the tail): on the
+    # stream's complex64 chunks, and on (2, N) planes of float32, int16 and
+    # bfloat16 (step_planes at the storage tiers)
+    'fused_ola_strided': ('iqwaveform_torch/csrc/fused_ola.cu',
+                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571'),
+    'fused_ola_strided_f32': ('iqwaveform_torch/csrc/fused_ola.cu',
+                              'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571'),
+    'fused_ola_strided_i16': ('iqwaveform_torch/csrc/fused_ola.cu',
+                              'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571'),
+    'fused_ola_strided_bf16': ('iqwaveform_torch/csrc/fused_ola.cu',
+                               'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571'),
+    # the column counter on the packed APD route's int levels
+    # (columnwise_histogram_packed_raw with its column-sum readout)
+    'colhist_packed_apd': ('iqwaveform_torch/csrc/colhist.cu',
+                           'iqwaveform_tpu/ops/pallas/colhist_pallas.py:309'),
 }
 
 # BASELINE config #2 (bench.py:457-555): the largest multiple of the output
@@ -347,7 +397,8 @@ CHAN_CLUSTER_KERNEL = 'chan_stats_cluster_kernel'
 CORR_KERNEL = 'corr_ring_kernel'
 CORR_KERNELS = (CORR_KERNEL, 'corr_fold_kernel', 'corr_finish_kernel')
 NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL,
-            CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL, CORR_KERNEL)
+            CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL, CORR_KERNEL,
+            OLA_REG_KERNEL)
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -1182,8 +1233,9 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
 
 def trace_call(name: str) -> int:
     """``python3 chip_smoke.py --trace corr|channelize|cluster|cluster6|
-    channels48|channels96|channels64x512|stats4096``: make the call of
-    phase 11, 15, 16c, 16d or 17b at its shapes, on noise from ``SEED`` (its
+    channels48|channels96|channels64x512|stats4096|planes_i16|stream``: make
+    the call of phase 11, 15, 16c, 16d, 17b or 18b-c at its shapes, on noise
+    from ``SEED`` (its
     kernels' work does not depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
     line, a JSON object. Exits 1 if the trace lacks a kernel. ``--trace
@@ -1224,6 +1276,28 @@ def trace_call(name: str) -> int:
             return mon.step(x)
 
         expect = (OLA_REG_KERNEL, kernel, HIST_KERNEL)
+    elif name in ('planes_i16', 'stream'):
+        import dataclasses
+
+        mon = WidebandMonitor(design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP))
+        if name == 'planes_i16':
+            mon = WidebandMonitor(dataclasses.replace(mon.design, fft_precision='i16',
+                                                      input_scale=I16_INPUT_SCALE))
+            p = (PLANES_SCALE * torch.randn((2, N_PLANES), device=dev, generator=gen)).round()
+            p = p.to(torch.int16)
+
+            def fn():
+                return mon.step_planes(p)
+        else:
+            chunks = torch.randn(3 * STREAM_CHUNK, dtype=torch.complex64, device=dev,
+                                 generator=gen).split(STREAM_CHUNK)
+            carry = mon.accumulate_step(mon.accumulate_step(mon.init_carry(STREAM_CHUNK),
+                                                            chunks[0]), chunks[1])
+
+            def fn():
+                return mon.accumulate_step(carry, chunks[2])
+
+        expect = (OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
     elif name == 'stats4096':
         got = stats4096_device_ms(dev, fresh=False)
         print(json.dumps(got))
@@ -1626,11 +1700,11 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     # version, timed beside its bound and the older kernel
     seen = {}
 
-    def capture(p, edges):
-        seen['p'], seen['edges'] = p, edges
-        return kernels.hist(p, edges)
+    def capture(p):
+        seen['p'], seen['edges'] = p, mon.apd_edges
+        return kernels.hist(p, mon.apd_edges)
 
-    mon._body(mon._input(x10), mon._ola, kernels.chan_stats, capture)
+    mon._outputs(mon._step_ola(mon._input(x10)), kernels.chan_stats, capture)
     pb, eb = seen['p'], seen['edges']
     cb = kernels.hist(pb, eb)
     require(torch.equal(cb, kernels.hist_plain(pb, eb)),
@@ -2064,15 +2138,15 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float, parent: str | 
 
 
 def reset_counts() -> None:
-    """every kernel wrapper's launch count, and each of its route counts,
-    to 0."""
+    """every kernel wrapper's launch count, and each of its route and
+    input-layout counts, to 0."""
     from iqwaveform_torch.ops import kernels
 
     for k in kernels.KERNELS:
         k.launches = 0
-        routes = getattr(k, 'route_launches', None)
-        if routes is not None:
-            routes.update(dict.fromkeys(routes, 0))
+        for counts in (getattr(k, 'route_launches', None), getattr(k, 'layout_launches', None)):
+            if counts is not None:
+                counts.update(dict.fromkeys(counts, 0))
 
 
 def cluster_kwargs(nfft: int, nfft_out: int, gen, dev) -> dict:
@@ -2576,6 +2650,451 @@ def channelizer_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     return rows
 
 
+
+# the flagship pair's 2:1 kernel on (2, N) planes of each storage tier,
+# 2^24 samples (2048 frames) with a halo and the tail
+N_PLANES = 1 << 24
+TIER_ROWS = {'highest': 'fused_ola_strided_f32', 'i16': 'fused_ola_strided_i16',
+             'bf16': 'fused_ola_strided_bf16'}
+TIER_LAYOUT = {'highest': 'float32', 'i16': 'int16', 'bf16': 'bfloat16'}
+TIER_BYTES = {'highest': 4, 'i16': 2, 'bf16': 2}  # a value of a plane
+# the planes' RMS in counts, and the scale to physical units at every tier
+# (the SigMF ci16 convention)
+PLANES_SCALE = 3000.0
+I16_INPUT_SCALE = 2.0**-15
+# the stream: chunks of 2^24 complex64 samples; N_STREAM_CHECK of them held
+# against one step on their 2^27 samples, N_STREAM (2^30 samples, 8.7 s of
+# capture at 122.88 MS/s) timed
+STREAM_CHUNK = 1 << 24
+N_STREAM_CHECK = 8
+N_STREAM = 64
+STREAM_RATE = 122.88e6  # the flagship capture's real-time rate
+# the same stream read from a ci16 file of N_DISK samples (1 GiB)
+N_DISK = 1 << 28
+DISK_DEPTH = 2
+# the packed APD route at the blackman step's shape (8,392,704 binned
+# samples x 2049 edges, apd_navg 1); its cumulative counts are held to
+# hist's within 2 (the JAX bar, tests/test_monitor.py:621-645) on the
+# first PACKED_BAR_SAMPLES, the JAX test's binned samples (0.5 M), and on
+# all of them to the JAX package's own float32 rule run in numpy on the
+# same samples (packed_rule_host), within the rounding band of each level
+# boundary (packed_band_host)
+N_PACKED_APD = 8_392_704
+PACKED_BAR_SAMPLES = 1 << 19
+# the rounding of one float32 evaluation of the packed rule, ceil((10
+# log10 p - lo) / w): log10 within PACKED_LOG10_ULP ulp (the card's log10f
+# is within 2, numpy's vectorised float32 log10 within 4), half an ulp
+# each for the product with 10 and the difference from lo, rounded up to
+# one, and PACKED_LEVEL_ULP ulp of the level (the card multiplies by
+# 1 / w, numpy divides by w)
+PACKED_LOG10_ULP = 4
+PACKED_LEVEL_ULP = 2
+
+
+def packed_drift(a, b) -> int:
+    """the largest difference of two histograms' cumulative counts."""
+    a, b = torch.as_tensor(a).long().cpu(), torch.as_tensor(b).long().cpu()
+    return int((a.cumsum(0) - b.cumsum(0)).abs().max())
+
+
+def packed_rule_host(p, design) -> tuple:
+    """the JAX package's packed APD levels in numpy float32
+    (iqwaveform_tpu/models/monitor.py:603-636: ceil((10 log10 p - lo) / w)
+    clipped to [0, B]) and the exact edge counts (searchsorted on the
+    float32 edges), on the host: (packed counts, edge counts)."""
+    lo, hi = design.apd_range_dB
+    n_bins = design.apd_bins
+    w = (hi - lo) / (n_bins - 1)
+    ph = p.detach().cpu().numpy().astype(np.float32)
+    v = (np.float32(10.0) * np.log10(ph)).astype(np.float32)
+    idx = np.clip(np.ceil((v - np.float32(lo)) / np.float32(w)), 0, n_bins).astype(np.int64)
+    e32 = (10 ** (np.linspace(lo, hi, n_bins) / 10.0)).astype(np.float32)
+    ref = np.searchsorted(e32, ph, side='left')
+    return (np.bincount(idx, minlength=n_bins + 1), np.bincount(ref, minlength=n_bins + 1))
+
+
+def packed_band_host(p, design) -> np.ndarray:
+    """(apd_bins,) counts: at each level boundary k (level <= k against
+    level > k), the values of ``p`` whose exact level (10 log10 p - lo) / w,
+    in float64, lies within two float32 evaluations' rounding of k
+    (PACKED_LOG10_ULP, PACKED_LEVEL_ULP): the most by which the cumulative
+    counts of two sound evaluations of the packed rule can differ at k, as
+    only those values can fall on different sides of it."""
+    lo, hi = design.apd_range_dB
+    n_bins = design.apd_bins
+    w = (hi - lo) / (n_bins - 1)
+    ph = p.detach().cpu().numpy().astype(np.float32)
+    ph = ph[np.isfinite(ph) & (ph > 0)]
+    l32 = np.log10(ph)
+    v32 = np.float32(10.0) * l32
+    t64 = (10.0 * np.log10(ph.astype(np.float64)) - lo) / w
+
+    def ulp(a):
+        return np.spacing(np.abs(a).astype(np.float32)).astype(np.float64)
+
+    one = ((10 * PACKED_LOG10_ULP * ulp(l32) + ulp(v32) + ulp(v32 - np.float32(lo))) / w
+           + PACKED_LEVEL_ULP * ulp(t64))
+    k = np.rint(t64)
+    near = (np.abs(t64 - k) <= 2 * one) & (k >= 0) & (k < n_bins)
+    return np.bincount(k[near].astype(np.int64), minlength=n_bins)[:n_bins]
+
+
+def _stream(mon, chunks) -> tuple:
+    """accumulate_step over ``chunks`` (an iterable of complex64 chunks on
+    the card) and flush; returns (statistics, chunks folded)."""
+    carry, n = None, 0
+    for x in chunks:
+        carry = mon.init_carry(x.numel()) if carry is None else carry
+        carry = mon.accumulate_step(carry, x)
+        n += 1
+    return mon.flush(carry), n
+
+
+def check_stream(got: dict, ref: dict, label: str) -> dict:
+    """the JAX stream test's bar (tests/test_monitor.py:147-175) on every
+    bin, and apd_counts equal: psd_mean rtol 1e-4 / atol 1e-3 dB, psd_max
+    atol 1e-3 dB, channel_power_mean rtol 1e-4."""
+    worst = {}
+    for key, rtol, atol in (('psd_mean', 1e-4, 1e-3), ('psd_max', 0.0, 1e-3),
+                            ('channel_power_mean', 1e-4, 0.0), ('channel_power_max', 1e-4, 0.0)):
+        a, b = _wide(got[key]), _wide(ref[key])
+        excess = float(((a - b).abs() - (atol + rtol * b.abs())).max())
+        worst[key] = max_abs(a, b)
+        require(excess <= 0, f'{label} {key}: max |diff| {worst[key]:.4g} beyond rtol {rtol} '
+                             f'atol {atol}')
+        require(bool(torch.isfinite(got[key]).all()), f'{label} {key}: not finite')
+    require(torch.equal(got['apd_counts'].long(), ref['apd_counts'].long()),
+            f'{label} apd_counts differ')
+    return worst
+
+
+def strided_row(name, kw, planes, halo, launches, mem_rate, fp32_rate, smi) -> dict:
+    """the kernels-line row of one input layout of fused_ola_strided at the
+    flagship pair: its output and tail against the plain version, timed
+    beside its bound (the input's bytes once, the output's and tail's),
+    the plain version and the torch.fft chain (the plain version: its
+    library call)."""
+    from iqwaveform_torch.ops import kernels
+
+    n_frames = planes.shape[-1] // kw['hop_in']
+    y, tail = kernels.fused_ola_strided(planes, halo, n_frames=n_frames, **kw)
+    ry, rt = kernels.fused_ola_strided_plain(planes, halo, n_frames=n_frames, **kw)
+    got, ref = torch.cat([y, tail]), torch.cat([ry, rt])
+    err = rel_rms(got, ref)
+    print(f'{name}: {tuple(planes.shape)} {planes.dtype} + halo -> {tuple(y.shape)} + tail '
+          f'{tuple(tail.shape)}: relative RMS {err:.3g} vs the plain version')
+    require(err <= 1e-5, f'{name}: relative RMS {err:.3g} > 1e-5')
+    in_bytes = planes.element_size() * (planes.numel() + halo.numel())
+    nfft, nfft_out = kw['nfft'], kw['nfft_out']
+    row = kernel_row(
+        name, {'launches': launches, 'max_abs_err': max_abs(got, ref)},
+        in_bytes + 8 * got.numel() + 8 * (nfft + nfft_out),
+        n_frames * (fft_ops(nfft) + fft_ops(nfft_out) + 6 * (nfft + nfft_out)),
+        lambda: kernels.fused_ola_strided(planes, halo, n_frames=n_frames, **kw),
+        lambda: kernels.fused_ola_strided_plain(planes, halo, n_frames=n_frames, **kw),
+        lambda: kernels.fused_ola_strided_plain(planes, halo, n_frames=n_frames, **kw),
+        mem_rate, fp32_rate,
+    )
+    row['relative_rms'] = err
+    print(f'{name}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by {row["bound_by"]}, '
+          f'plain {row["plain_ms"]:.4f} ms), on {smi}')
+    return row
+
+
+def stream_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 18; returns the kernels line's rows of fused_ola_strided (one
+    per input layout) and of the packed APD route."""
+    import dataclasses
+    import tempfile
+
+    import iqwaveform_torch as it
+    from iqwaveform_torch.io import CapturePrefetcher, read_iq_planes
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.utils import unpack_iq
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    strided = kernels.fused_ola_strided
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    design = it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP)
+    mon = it.WidebandMonitor(design)
+    hop = mon.hop_in
+    rows = []
+
+    # ---- 18a: row 1 on (2, N) planes of each tier, a halo and the tail
+    noise = PLANES_SCALE * torch.randn((2, N_PLANES + hop), device=dev, generator=gen)
+    counts = noise.round().clamp(-32768, 32767)
+    sources = {'highest': noise, 'i16': counts.to(torch.int16), 'bf16': noise.to(torch.bfloat16)}
+    # f32 planes against the complex-input fused_ola on the same samples
+    # (no halo: the end zero-extended, the tail dropped)
+    kw = mon.strided_kwargs
+    x = noise[:, :N_PLANES].contiguous()
+    y_planes, _ = strided(x, None, n_frames=N_PLANES // hop, **kw)
+    y_complex = kernels.fused_ola(unpack_iq(x), **mon.ola_kwargs)
+    err = rel_rms(y_planes, y_complex)
+    print(f'fused_ola_strided on float32 planes vs fused_ola on the same complex64 samples: '
+          f'relative RMS {err:.3g}, max |diff| {max_abs(y_planes, y_complex):.3g}')
+    require(err <= 1e-6, f'float32 planes vs complex64: relative RMS {err:.3g}')
+    # int16 counts against float32 planes holding the same integers (the
+    # JAX bar of tests/test_monitor.py:603-609: 2e-5 of the largest value)
+    x16, h16 = counts[:, :N_PLANES], counts[:, N_PLANES:]
+    yi, ti = strided(x16.to(torch.int16), h16.to(torch.int16), n_frames=N_PLANES // hop,
+                     **{**kw, 'precision': 'i16'})
+    yf, tf = strided(x16.contiguous(), h16.contiguous(), n_frames=N_PLANES // hop, **kw)
+    ref = torch.cat([yf, tf])
+    diff = max_abs(torch.cat([yi, ti]), ref)
+    print(f'fused_ola_strided int16 counts vs float32 planes of the same integers: max |diff| '
+          f'{diff:.3g} ({diff / float(ref.abs().max()):.3g} of the largest value)')
+    require(diff <= 2e-5 * float(ref.abs().max()), f'int16 vs float32 planes: {diff:.3g}')
+    del y_planes, y_complex, yi, ti, yf, tf, ref
+    torch.cuda.empty_cache()
+
+    # ---- 18b: step_planes at the flagship design, each tier; 'i16' with
+    # input_scale 2^-15 on 2^24 int16 counts: routes, profile, phase 3's
+    # gates against reference_step on the same values, MS/s
+    planes_ms = {}
+    for tier, src in sources.items():
+        tmon = it.WidebandMonitor(dataclasses.replace(design, fft_precision=tier,
+                                                      input_scale=I16_INPUT_SCALE))
+        p = src[:, :N_PLANES].contiguous()
+        reset_counts()
+        out = tmon.step_planes(p)
+        torch.cuda.synchronize()
+        launched = {k: v.launches for k, v in kset.items()}
+        layouts = dict(strided.layout_launches)
+        print(f'step_planes ({tier}): launches {json.dumps(launched)}; fused_ola_strided '
+              f'routes {json.dumps(strided.route_launches)}, inputs {json.dumps(layouts)}')
+        require(launched['fused_ola_strided'] == 1 and launched['chan_stats'] == 1
+                and launched['hist'] == 1 and launched['fused_ola'] == 0,
+                f'step_planes ({tier}) launches {launched}')
+        require(strided.route_launches == {'reg': 1, 'generic': 0},
+                f'step_planes ({tier}): routes {strided.route_launches}')
+        require(layouts[TIER_LAYOUT[tier]] == 1, f'step_planes ({tier}): inputs {layouts}')
+        row_launches = launched['fused_ola_strided']
+        ref = tmon.reference_step(unpack_iq(p.to(torch.float32)))
+        check_step(out, ref, f'step_planes ({tier}) vs reference_step')
+        planes_ms[tier] = timed_ms(lambda: tmon.step_planes(p))
+        print(f'step_planes ({tier}): {planes_ms[tier]:.4f} ms for {N_PLANES} samples = '
+              f'{N_PLANES / planes_ms[tier] / 1e3:.1f} MS/s ({smi})')
+        if tier == 'i16':
+            names, device_us = device_kernels(lambda: tmon.step_planes(p), OLA_REG_KERNEL,
+                                              STATS_REG_KERNEL, HIST_KERNEL, fresh='planes_i16')
+            print('step_planes (i16) device kernels: ' + json.dumps(names))
+            require(any(OLA_REG_KERNEL in n for n in names),
+                    f'the profile of step_planes shows no {OLA_REG_KERNEL}')
+            require(not [n for n in names if OLA_GENERIC_KERNEL in n],
+                    'the radix-2 OLA kernel ran in step_planes')
+            bad = library_kernels(names)
+            require(not bad, f'library kernels in step_planes: {bad}')
+            busy = sum(device_us.values()) / 1e3
+            print('step_planes (i16) device time by kernel (us): ' + json.dumps(
+                dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+            print(f'step_planes (i16) device busy {busy:.4f} ms of {planes_ms[tier]:.4f} ms '
+                  f'(idle share {max(0.0, 1 - busy / planes_ms[tier]):.3f})')
+            i16_device_us = device_us
+        kwt = {**mon.strided_kwargs, 'precision': tier}
+        row = strided_row(TIER_ROWS[tier], kwt, p, src[:, N_PLANES:].contiguous(), row_launches,
+                          mem_rate, fp32_rate, smi)
+        row['path_ms'] = planes_ms[tier]
+        if tier == 'i16':
+            row['profiled_device_ms'] = device_ms(i16_device_us, OLA_REG_KERNEL)
+        rows.append(row)
+        del out, ref, tmon
+    del noise, counts, sources
+    torch.cuda.empty_cache()
+
+    # ---- 18c: the stream on the card: N_STREAM_CHECK chunks against one
+    # step on their samples, then N_STREAM chunks timed
+    n_check = N_STREAM_CHECK * STREAM_CHUNK
+    x = torch.randn(n_check, dtype=torch.complex64, device=dev, generator=gen)
+    got, _ = _stream(mon, x.split(STREAM_CHUNK))
+    one = mon.step(x)
+    worst = check_stream(got, one, f'stream of {N_STREAM_CHECK} chunks vs one step')
+    print(f'stream of {N_STREAM_CHECK} x {STREAM_CHUNK} samples vs one step on {n_check}: '
+          f'apd_counts equal, max |diff| {json.dumps(worst)}')
+    del x, one, got
+    torch.cuda.empty_cache()
+
+    capture = torch.randn(N_STREAM * STREAM_CHUNK, dtype=torch.complex64, device=dev,
+                          generator=gen)
+    chunks = capture.split(STREAM_CHUNK)
+    _stream(mon, chunks[:2])  # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats, n_chunks = _stream(mon, chunks)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launched = {k: v.launches for k, v in kset.items()}
+    print(f'stream launches over {n_chunks} chunks: {json.dumps(launched)}')
+    for k in ('fused_ola_strided', 'chan_stats', 'hist'):
+        require(launched[k] == n_chunks, f'the stream launched {launched[k]} {k} for {n_chunks}')
+    require(launched['fused_ola'] == 0 and strided.route_launches['generic'] == 0,
+            f'the stream took another OLA kernel: {launched}, {strided.route_launches}')
+    stream_launches = launched['fused_ola_strided']
+    require(int(stats['apd_counts'].sum()) == capture.numel() // 2 // design.apd_navg,
+            'the stream\'s APD total differs from its binned samples')
+    for key, v in stats.items():
+        if v.is_floating_point():
+            require(bool(torch.isfinite(v).all()), f'stream {key}: not finite')
+    rate = capture.numel() / stream_s / 1e6
+    print(f'stream: {n_chunks} chunks, {capture.numel()} samples in {stream_s:.4f} s = '
+          f'{rate:.1f} MS/s, {rate * 1e6 / STREAM_RATE:.1f}x real time at 122.88 MS/s ({smi})')
+    carry = mon.accumulate_step(mon.accumulate_step(mon.init_carry(STREAM_CHUNK), chunks[0]),
+                                chunks[1])
+    chunk_ms = timed_ms(lambda: mon.accumulate_step(carry, chunks[2]))
+    names, chunk_us = device_kernels(lambda: mon.accumulate_step(carry, chunks[2]),
+                                     OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL, fresh='stream')
+    chunk_busy = sum(chunk_us.values()) / 1e3
+    print('stream chunk device kernels (us): ' + json.dumps(
+        dict(sorted(chunk_us.items(), key=lambda kv: -kv[1]))))
+    print(f'stream chunk: {chunk_ms:.4f} ms by events, device busy {chunk_busy:.4f} ms (idle '
+          f'share {max(0.0, 1 - chunk_busy / chunk_ms):.3f}), on {smi}')
+    bad = library_kernels(names)
+    require(not bad, f'library kernels in the stream: {bad}')
+    row = strided_row('fused_ola_strided', mon.strided_kwargs, chunks[0],
+                      chunks[1][: mon.noverlap_in], stream_launches, mem_rate, fp32_rate, smi)
+    row['path_ms'] = stream_s * 1e3 / n_chunks
+    row['profiled_device_ms'] = device_ms(chunk_us, OLA_REG_KERNEL)
+    rows.append(row)
+    del capture, chunks, carry, stats
+    torch.cuda.empty_cache()
+
+    # ---- 18d: the same stream from a ci16 file on disk
+    (ROOT / 'build').mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / 'build') as tmp:
+        path = Path(tmp) / 'capture.ci16.sigmf-data'
+        rng = np.random.default_rng(SEED)
+        t0 = time.perf_counter()
+        with open(path, 'wb') as f:
+            for _ in range(N_DISK // STREAM_CHUNK):
+                (PLANES_SCALE * rng.standard_normal(2 * STREAM_CHUNK)).astype('<i2').tofile(f)
+        print(f'disk: wrote {path.stat().st_size} bytes of ci16 in '
+              f'{time.perf_counter() - t0:.1f} s')
+        waits, moves, folds = [], [], []
+        carry = mon.init_carry(STREAM_CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CapturePrefetcher(path, STREAM_CHUNK, 'ci16_le', planes=True,
+                               depth=DISK_DEPTH) as feed:
+            it_feed = iter(feed)
+            while True:
+                t1 = time.perf_counter()
+                planes = next(it_feed, None)
+                if planes is None:
+                    break
+                t2 = time.perf_counter()
+                x = unpack_iq(torch.from_numpy(planes).to(dev))
+                t3 = time.perf_counter()
+                carry = mon.accumulate_step(carry, x)
+                t4 = time.perf_counter()
+                waits.append(t2 - t1)
+                moves.append(t3 - t2)
+                folds.append(t4 - t3)
+        disk_stats = mon.flush(carry)
+        torch.cuda.synchronize()
+        disk_s = time.perf_counter() - t0
+        n_disk = len(folds)
+        # the same samples read in one piece and streamed from the card
+        whole = unpack_iq(torch.from_numpy(read_iq_planes(path)).to(dev))
+        ref, _ = _stream(mon, whole.split(STREAM_CHUNK))
+        del whole
+    for key in disk_stats:
+        require(torch.equal(disk_stats[key], ref[key]),
+                f'the stream from disk differs from the same samples on the card: {key}')
+    disk_rate = N_DISK / disk_s / 1e6
+    host = {'wait_ms': 1e3 * float(np.median(waits)), 'to_card_ms': 1e3 * float(np.median(moves)),
+            'accumulate_ms': 1e3 * float(np.median(folds))}
+    idle = max(0.0, 1 - n_disk * chunk_busy / (disk_s * 1e3))
+    print(f'disk stream: {n_disk} chunks, {N_DISK} samples in {disk_s:.4f} s = {disk_rate:.1f} '
+          f'MS/s with the reads, {disk_rate * 1e6 / STREAM_RATE:.2f}x real time (on the card: '
+          f'{rate:.1f} MS/s); host ms a chunk (median) {json.dumps(host)}, '
+          f'{disk_s * 1e3 / n_disk:.2f} ms a chunk in all; device idle share {idle:.3f} '
+          f'({chunk_busy:.4f} ms busy a chunk); equal to the card-resident stream, on {smi}')
+    torch.cuda.empty_cache()
+
+    # ---- 18e: the packed APD route at the blackman step's shape
+    bmon = it.WidebandMonitor(dataclasses.replace(
+        it.design_wideband_monitor(30.72e6, 15.36e6, **BLACKMAN), apd_kernel='packed'))
+    emon = it.WidebandMonitor(dataclasses.replace(bmon.design, apd_kernel='auto'))
+    n_b = (N_MONITOR_R3 // bmon.min_input_multiple()) * bmon.min_input_multiple()
+    xb = torch.randn(n_b, dtype=torch.complex64, device=dev, generator=gen)
+    reset_counts()
+    kernels.colhist.route_launches.update(reg=0, generic=0)
+    out = bmon.step(xb)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in kset.items()}
+    print(f'blackman step, packed APD: launches {json.dumps(launched)}, colhist routes '
+          f'{json.dumps(kernels.colhist.route_launches)}')
+    require(launched['colhist'] == 1 and launched['hist'] == 0
+            and kernels.colhist.route_launches == {'reg': 1, 'generic': 0},
+            f'the packed APD route launched {launched}, {kernels.colhist.route_launches}')
+    packed_launches = launched['colhist']
+    edge = emon.step(xb)['apd_counts'].long()
+    a = out['apd_counts'].long()
+    require(int(a.sum()) == int(edge.sum()),
+            f'packed APD vs hist: totals {int(a.sum())} / {int(edge.sum())}')
+    p = kernels.chan_stats(emon._step_ola(xb), **emon.chan_kwargs)['p_binned']
+    require(p.numel() == N_PACKED_APD, f'the blackman step bins {p.numel()} samples')
+    got = bmon._packed_counts(p, counter=kernels.colhist)
+    plain = bmon._packed_counts(p, counter=kernels.colhist_plain)
+    require(torch.equal(got, plain), 'the packed APD route differs from its plain version')
+    edges = bmon.apd_edges
+    n_levels = bmon.design.apd_bins + 1
+    library = torch.bincount(bmon._packed_levels(p), minlength=n_levels)
+    require(torch.equal(library.int(), got),
+            'the packed APD route differs from torch.bincount on the same levels')
+    rule_counts, edge_host = packed_rule_host(p, bmon.design)
+    band = packed_band_host(p, bmon.design)
+    off = np.abs(np.cumsum(got.long().cpu().numpy()) - np.cumsum(rule_counts))[: len(band)]
+    drift = packed_drift(got, kernels.hist(p, edges))
+    rule = packed_drift(rule_counts, edge_host)
+    head = packed_drift(bmon._packed_counts(p[:PACKED_BAR_SAMPLES], counter=kernels.colhist),
+                        kernels.hist(p[:PACKED_BAR_SAMPLES], edges))
+    print(f'packed APD on the blackman step ({p.numel()} binned samples): totals '
+          f'{int(a.sum())} / {int(edge.sum())}; against the JAX package\'s float32 rule in '
+          f'numpy on the same samples, cumulative counts within {int(off.max())} (boundaries '
+          f'off: {int((off > 0).sum())} of {len(band)}; the rounding band holds {int(band.sum())} '
+          f'values, at most {int(band.max())} at a boundary, and at the worst boundary '
+          f'{int(off[np.argmax(off)])} of {int(band[np.argmax(off)])}); against hist within '
+          f'{drift} (the numpy rule against exact edges: {rule}); on the first '
+          f'{PACKED_BAR_SAMPLES} against hist within {head}')
+    require(head <= 2, f'packed APD vs hist on {PACKED_BAR_SAMPLES} samples: drift {head} > 2')
+    require(bool((off <= band).all()),
+            f'packed APD vs the JAX rule in numpy: cumulative counts off by {int(off.max())}, '
+            f'beyond the rounding band at {int((off > band).sum())} boundaries')
+    row = kernel_row(
+        'colhist_packed_apd', {'launches': packed_launches, 'max_abs_err': 0.0},
+        4 * p.numel() + 4 * got.numel(), 8 * p.numel(),
+        lambda: bmon._packed_counts(p, counter=kernels.colhist),
+        lambda: bmon._packed_counts(p, counter=kernels.colhist_plain),
+        lambda: torch.bincount(bmon._packed_levels(p), minlength=n_levels), mem_rate, fp32_rate,
+    )
+    row['hist_ms'] = timed_ms(lambda: kernels.hist(p, edges))
+    _, packed_us = device_kernels(lambda: bmon._packed_counts(p, counter=kernels.colhist),
+                                  COLHIST_REG_KERNEL)
+    _, hist_us = device_kernels(lambda: kernels.hist(p, edges), HIST_KERNEL)
+    row['profiled_device_ms'] = sum(packed_us.values()) / 1e3
+    row['colhist_device_ms'] = device_ms(packed_us, COLHIST_REG_KERNEL)
+    row['hist_device_ms'] = device_ms(hist_us, HIST_KERNEL)
+    print(f'packed APD on {p.numel()} binned samples x {edges.numel() + 1} levels: '
+          f'{row["ms"]:.4f} ms by events ({row["profiled_device_ms"]:.4f} ms of device time, '
+          f'{COLHIST_REG_KERNEL} {row["colhist_device_ms"]:.4f}; by kernel '
+          f'{json.dumps(packed_us)}), bound {row["bound_ms"]:.4f} ms by {row["bound_by"]}, '
+          f'plain {row["plain_ms"]:.4f} ms; {HIST_KERNEL} {row["hist_ms"]:.4f} ms by events, '
+          f'{row["hist_device_ms"]:.4f} ms of device time, on {smi}')
+    rows.append(row)
+    del xb, out, p, bmon, emon
+    torch.cuda.empty_cache()
+
+    # ---- 18f: profile_step on the flagship step
+    x = torch.randn(N_STEP, dtype=torch.complex64, device=dev, generator=gen)
+    timer = mon.profile_step(x)
+    print('profile_step (flagship, 2^24 samples):\n' + timer.report())
+    require(set(timer.durations) == {'ola_resample', 'chan_stats_apd'},
+            f'profile_step stages {sorted(timer.durations)}')
+    return rows
+
+
 def main(parent: str | None = None) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2818,6 +3337,9 @@ def main(parent: str | None = None) -> int:
 
     # ---- phase 17: the channelizer at the frame sizes of CHAN_SIZES
     rows = merge_rows(rows, channelizer_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 18: the long-capture path on row 1's full contract
+    rows = merge_rows(rows, stream_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -13,7 +13,7 @@ nothing of JAX.
 
 __version__ = '0.1.0'
 
-from . import fourier, models, ofdm, ops, parallel, utils  # noqa: F401
+from . import fourier, io, models, ofdm, ops, parallel, utils  # noqa: F401
 from .fourier import (  # noqa: F401
     design_fir_lpf,
     design_fir_resampler,
@@ -32,6 +32,7 @@ from .models import (  # noqa: F401
     WidebandMonitor,
     design_from_reference,
     design_wideband_monitor,
+    monitor_carry_from_reference,
     resolve_monitor_design,
 )
 from .ops import (  # noqa: F401
@@ -65,10 +66,12 @@ __all__ = [
     'design_persistence',
     'design_wideband_monitor',
     'equivalent_noise_bandwidth',
+    'io',
     'fourier',
     'get_window',
     'istft',
     'models',
+    'monitor_carry_from_reference',
     'oaconvolve',
     'ofdm',
     'oaresample',

@@ -5,9 +5,12 @@
 //   fused_ola_strided (_fused_ola_strided_kernel); its per-frame chain is
 //   also that of fused_ola_packed and fused_ola_pallas.
 //
-// Per frame m (block m, batch row blockIdx.y):
-//   1. load x[m*hop_in : m*hop_in + nfft], zero past the row's end (the
-//      single-device 'extend' halo), times the complex analysis window
+// Per frame m (block m, batch row blockIdx.y) of the 2:1 kernels:
+//   1. load x[m*hop_in : m*hop_in + nfft] (interleaved complex64, or (2, n)
+//      planes of float32, int16 or bfloat16 dequantized on load: Src
+//      below); samples past the row's end come from the halo (the next
+//      chunk's or shard's head) where the caller gives one, else zero (the
+//      single-device 'extend' halo); times the complex analysis window
 //      (fftshift delay, 1/sum|w[::hop]| and the input scale baked in),
 //      into bit-reversed order in shared memory;
 //   2. forward FFT of nfft points;
@@ -16,21 +19,26 @@
 //      zero elsewhere;
 //   4. inverse FFT of nfft_out points, times 1/nfft_out and w_out;
 //   5. overlap-add into y at m*hop_out with atomicAdd; samples past the
-//      row's n_out (the last frame's dangling tail) are dropped.
+//      row's n_out (the last frame's dangling second half) go to the row's
+//      tail where the caller asks for it (one frame writes each, a plain
+//      store), else are dropped.
 //
 // Determinism: at 2:1 overlap every output sample receives exactly two
 // contributions onto zero, and fl(0 + a + b) == fl(0 + b + a), so the
 // result does not depend on the order in which blocks finish.
 //
 // What bounds it on an H100: device memory traffic is one read of the
-// input (8 B/sample) and one write of the output (8 B per output sample),
-// about 200 MB at the flagship 2^24-sample step, ~60 us at 3.35 TB/s; the
-// ~3.4 GFLOP of float32 FFT work is below that. The design keeps every
-// intermediate (frame, both spectra) in shared memory: a 16384-point frame
-// is 128 KiB of the SM's 227 KiB, so one block of 1024 threads holds an SM.
-// What this simple version pays instead is shared-memory bandwidth and one
+// input (8 B/sample complex64 or float32 planes, 4 B at int16 or bfloat16)
+// and one write of the output (8 B per output sample), about 200 MB at the
+// flagship 2^24-sample step, ~60 us at 3.35 TB/s; the ~3.4 GFLOP of
+// float32 FFT work is below that. The design keeps every intermediate
+// (frame, both spectra) in shared memory: a 16384-point frame is 128 KiB
+// of the SM's 227 KiB, so one block of 1024 threads holds an SM. What this
+// simple version pays instead is shared-memory bandwidth and one
 // block-wide barrier per radix-2 stage (27 stages per flagship frame); at
 // the flagship pair fused_ola_reg_kernel below takes its place.
+#include <cuda_bf16.h>
+
 #include "fft.cuh"
 #include "fft_cluster.cuh"
 #include "fft_reg.cuh"
@@ -39,29 +47,73 @@ namespace {
 
 constexpr int kThreads = 1024;
 
+// ---- the 2:1 kernels' input ----------------------------------------------
+//
+// Src<E> reads sample i of a row whose elements are of type E: (2, n)
+// planes of float32, int16 or bfloat16 (a row's real plane, then its
+// imaginary plane n elements further: imag(p, n) points there),
+// dequantized to float on load (every int16 and bfloat16 value is exact in
+// float32), or, for E = float2, interleaved complex64. A row of n samples
+// holds kRows * n elements. The storage tiers round on the host
+// (ops/kernels/fused_ola.py to_storage); the kernels read what they are
+// given.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(short v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <class E>
+struct Src {
+  static constexpr int kRows = 2;
+  __device__ static const E* imag(const E* p, int n) { return p + n; }
+  __device__ static float2 read(const E* __restrict__ re, const E* __restrict__ im, int i) {
+    return make_float2(to_float(re[i]), to_float(im[i]));
+  }
+};
+template <>
+struct Src<float2> {
+  static constexpr int kRows = 1;
+  __device__ static const float2* imag(const float2* p, int) { return p; }
+  __device__ static float2 read(const float2* __restrict__ p, const float2*, int i) {
+    return p[i];
+  }
+};
+
+// sample i of a frame whose first `valid` samples lie at x (a row of n_in
+// samples), the next ones in the halo h (n_halo samples) up to `end`, zero
+// after
+template <class E>
+__device__ __forceinline__ float2 frame_sample(const E* x, int n_in, const E* h, int n_halo,
+                                               int valid, int end, int i) {
+  if (i < valid) return Src<E>::read(x, Src<E>::imag(x, n_in), i);
+  if (i < end) return Src<E>::read(h, Src<E>::imag(h, n_halo), i - valid);
+  return make_float2(0.f, 0.f);
+}
+
 // PT = output-spectrum bins per thread (nfft_out / kThreads, at least 1):
 // the trimmed spectrum passes through registers so that it can overwrite
-// the input spectrum in place.
-template <int PT>
+// the input spectrum in place. E: the input's element type (Src).
+template <int PT, class E>
 __global__ void __launch_bounds__(kThreads)
-fused_ola_kernel(const float2* __restrict__ x, const float2* __restrict__ w_in,
-                 const float2* __restrict__ tw_in,
-                 const float2* __restrict__ w_out,
-                 const float2* __restrict__ tw_out, float* __restrict__ y,
-                 int n_in, int n_out, int log2_nfft, int log2_nfft_out,
-                 int hop_in, int hop_out, int zero_lo, int zero_hi, int in_lo,
-                 int out_lo, int out_hi) {
+fused_ola_kernel(const E* __restrict__ x, const E* __restrict__ halo, int n_halo,
+                 const float2* __restrict__ w_in, const float2* __restrict__ tw_in,
+                 const float2* __restrict__ w_out, const float2* __restrict__ tw_out,
+                 float* __restrict__ y, float2* __restrict__ tail, int n_in, int n_out,
+                 int log2_nfft, int log2_nfft_out, int hop_in, int hop_out, int zero_lo,
+                 int zero_hi, int in_lo, int out_lo, int out_hi) {
   extern __shared__ float2 buf[];
   const int nfft = 1 << log2_nfft;
   const int nfft_out = 1 << log2_nfft_out;
   const int m = blockIdx.x;
-  const float2* xr = x + static_cast<long long>(blockIdx.y) * n_in;
+  // m * hop_in < n_in (the host sizes the grid)
+  const int start = m * hop_in;
+  const int valid = min(n_in - start, nfft);
+  const int end = min(valid + n_halo, nfft);
+  const E* xf = x + static_cast<long long>(blockIdx.y) * Src<E>::kRows * n_in + start;
+  const E* hr = halo + static_cast<long long>(blockIdx.y) * Src<E>::kRows * n_halo;
   float* yr = y + 2 * static_cast<long long>(blockIdx.y) * n_out;
 
-  const long long start = static_cast<long long>(m) * hop_in;
   for (int n = threadIdx.x; n < nfft; n += blockDim.x) {
-    const long long idx = start + n;
-    const float2 v = idx < n_in ? xr[idx] : make_float2(0.f, 0.f);
+    const float2 v = frame_sample<E>(xf, n_in, hr, n_halo, valid, end, n);
     buf[iqt::bitrev(n, log2_nfft)] = iqt::cmul(v, w_in[n]);
   }
   iqt::fft_radix2(buf, tw_in, log2_nfft, false);
@@ -86,29 +138,32 @@ fused_ola_kernel(const float2* __restrict__ x, const float2* __restrict__ w_in,
   iqt::fft_radix2(buf, tw_out, log2_nfft_out, true);
 
   const float scale = 1.0f / static_cast<float>(nfft_out);
+  // at 2:1 only the row's last frame reaches past n_out, by at most
+  // nfft_out - hop_out samples: the tail
   const long long out0 = static_cast<long long>(m) * hop_out;
   for (int n = threadIdx.x; n < nfft_out; n += blockDim.x) {
     const long long o = out0 + n;
+    float2 v = buf[n];
+    v = iqt::cmul(make_float2(v.x * scale, v.y * scale), w_out[n]);
     if (o < n_out) {
-      float2 v = buf[n];
-      v = iqt::cmul(make_float2(v.x * scale, v.y * scale), w_out[n]);
       atomicAdd(&yr[2 * o], v.x);
       atomicAdd(&yr[2 * o + 1], v.y);
+    } else if (tail != nullptr) {
+      tail[static_cast<long long>(blockIdx.y) * (nfft_out - hop_out) + (o - n_out)] = v;
     }
   }
 }
 
-template <int PT>
-cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
-                   const float2* x, const float2* w_in, const float2* tw_in,
-                   const float2* w_out, const float2* tw_out, float* y,
-                   int n_in, int n_out, int log2_nfft, int log2_nfft_out,
-                   int hop_in, int hop_out, int zero_lo, int zero_hi,
-                   int in_lo, int out_lo, int out_hi) {
-  fused_ola_kernel<PT><<<grid, kThreads, smem, stream>>>(
-      x, w_in, tw_in, w_out, tw_out, y, n_in, n_out, log2_nfft,
-      log2_nfft_out, hop_in, hop_out, zero_lo, zero_hi, in_lo, out_lo,
-      out_hi);
+template <int PT, class E>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const void* x, const void* halo,
+                   int n_halo, const float2* w_in, const float2* tw_in, const float2* w_out,
+                   const float2* tw_out, float* y, float2* tail, int n_in, int n_out,
+                   int log2_nfft, int log2_nfft_out, int hop_in, int hop_out, int zero_lo,
+                   int zero_hi, int in_lo, int out_lo, int out_hi) {
+  fused_ola_kernel<PT, E><<<grid, kThreads, smem, stream>>>(
+      static_cast<const E*>(x), static_cast<const E*>(halo), n_halo, w_in, tw_in, w_out, tw_out,
+      y, tail, n_in, n_out, log2_nfft, log2_nfft_out, hop_in, hop_out, zero_lo, zero_hi, in_lo,
+      out_lo, out_hi);
   return cudaGetLastError();
 }
 
@@ -268,7 +323,9 @@ struct RegShape {
 // (output bin j reads forward bin in_lo + j - out_lo, masked by [zero_lo,
 // zero_hi) and [out_lo, out_hi)), the inverse N2-point transform, and
 // store(n, v) of each output sample times w_out[n] / N2, in natural order.
-template <int N1, int N2, int T, class Load, class Store>
+// STAGED: the caller has stored the windowed frame into the exchange
+// buffer (load is not called), and pass 0 reads it from there.
+template <int N1, int N2, int T, bool STAGED = false, class Load, class Store>
 __device__ __forceinline__ void reg_frame_chain(float2* smem, const float2* __restrict__ tw,
                                                 const float2* __restrict__ w_out, int zero_lo,
                                                 int zero_hi, int in_lo, int out_lo, int out_hi,
@@ -282,7 +339,17 @@ __device__ __forceinline__ void reg_frame_chain(float2* smem, const float2* __re
   for (int e = threadIdx.x; e < RegShape<N1, N2>::tw_count; e += T) tw_fwd[e] = __ldg(&tw[e]);
 
   const float scale = 1.0f / static_cast<float>(N2);
-  R::fft<N1, false, T, false>(buf, tw_fwd, load, [buf](int i, float2 v) { buf[R::pad(i)] = v; });
+  if constexpr (STAGED) {
+    // the windowed frame is in `buf` already: the forward pass 0 reads it
+    // after every thread has stored its share, and stores after every
+    // thread has read
+    __syncthreads();
+    R::fft<N1, false, T, true>(buf, tw_fwd, [buf](int i) { return buf[R::pad(i)]; },
+                               [buf](int i, float2 v) { buf[R::pad(i)] = v; });
+  } else {
+    R::fft<N1, false, T, false>(buf, tw_fwd, load,
+                                [buf](int i, float2 v) { buf[R::pad(i)] = v; });
+  }
   __syncthreads();
   R::fft<N2, true, T, true>(
       buf, tw_inv,
@@ -563,21 +630,25 @@ cudaError_t allow_cluster_size(Kernel kernel) {
 //
 // Per frame m of batch row b (block m, blockIdx.y = b): the chain of
 // fused_ola_frames_reg_kernel (reg_frame_chain above) on the frame at
-// x[b, m * hop_in], whose samples at and past the row's n_in read as zero
-// (the 'extend' halo: pass 0 masks its load, coalesced, straight from
-// device memory); the last pass overlap-adds each output sample into
-// y[b, m * hop_out + n] with a float2 atomicAdd (one vector reduction
-// per sample; compute capability 9.0 and CUDA 12.x) onto the zeroed y,
-// dropping the samples at and past n_out (the last frame's dangling
-// tail). Determinism: each float of the pair is added atomically on its
-// own; at 2:1 overlap every output float receives exactly two
-// contributions onto zero, and fl(0 + a + b) == fl(0 + b + a), so the
-// result does not depend on the order in which blocks finish.
+// x[b, m * hop_in] (any input of Src: complex64, or planes of float32,
+// int16 or bfloat16), whose samples at and past the row's n_in come from
+// the row's halo while it lasts, then read as zero (the 'extend' halo:
+// pass 0 masks its load, coalesced, straight from device memory); the
+// last pass overlap-adds each output sample into y[b, m * hop_out + n]
+// with a float2 atomicAdd (one vector reduction per sample; compute
+// capability 9.0 and CUDA 12.x) onto the zeroed y, and stores the samples
+// at and past n_out (the last frame's dangling second half) into the row's
+// tail, or drops them where the caller gives none. Determinism: each float
+// of the pair is added atomically on its own; at 2:1 overlap every output
+// float receives exactly two contributions onto zero, and fl(0 + a + b) ==
+// fl(0 + b + a), so the result does not depend on the order in which
+// blocks finish. One frame writes each tail sample.
 //
 // Bound on an H100 (device memory: each input sample read once, each
-// output written once, 8 B each): 201 MB, 0.0602 ms at 3.35 TB/s for the
-// flagship step's 2048 frames on 2^24 samples; its FFT work (about
-// 3.4e9 flop) is below that at 67 TFLOP/s.
+// output written once): 201 MB, 0.0602 ms at 3.35 TB/s for the flagship
+// step's 2048 frames on 2^24 complex64 samples (8 B in, 8 B out); 134 MB,
+// 0.0401 ms from int16 or bfloat16 planes (4 B a sample in); its FFT work
+// (about 3.4e9 flop) is below that at 67 TFLOP/s.
 //
 // What held fused_ola_kernel back, and what this one does about it:
 // - one block-wide barrier and a shared-memory round trip per radix-2
@@ -600,29 +671,172 @@ cudaError_t allow_cluster_size(Kernel kernel) {
 // twice more. 512 threads, the exchange buffer and both tables take
 // RegShape<16384, 8192>::smem = 151 KiB: one block per SM, one block per
 // frame.
-template <int N1, int N2, int T>
-__global__ void __launch_bounds__(T, 1)
-fused_ola_reg_kernel(const float2* __restrict__ x, const float2* __restrict__ w_in,
-                     const float2* __restrict__ w_out, const float2* __restrict__ tw,
-                     float* __restrict__ y, int n_in, int n_out, int hop_in, int hop_out,
-                     int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi) {
-  extern __shared__ float2 smem[];
-  const int m = blockIdx.x;
+//
+// Input types (E, see Src): at complex64, pass 0 reads the frame from
+// device memory as above. The plane instances (float32, int16, bfloat16:
+// the storage tiers of fused_ola_strided) read two values a sample from
+// two planes, which costs pass 0 the registers it does not have (128 a
+// thread; ptxas spilled 20 bytes): they first stage the windowed frame
+// into the exchange buffer, a coalesced loop, and pass 0 reads it back
+// from there after a barrier (reg_frame_chain's STAGED). That is one more
+// shared-memory round trip and barrier a frame; the input's bytes in
+// device memory halve at int16 and bfloat16. A row's last frame, which
+// reads the halo and writes the tail, takes an EDGE path of its own
+// (reg_ola_frame below), staged at every input type.
+
+// The block's row index, read anew where it is used, through asm the
+// compiler may not hoist: the halo and tail addresses are computed inside
+// the branches that only a row's last frame takes, so that they hold no
+// register across the passes (the kernel has none to spare: 128 a thread).
+__device__ __forceinline__ int fresh_block_y() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(v));
+  return v;
+}
+
+// The staging of a whole frame of planes (valid == N1) by 16-byte loads:
+// each thread reads 16 / sizeof(E) consecutive values of each plane at once
+// (four rounds a frame for int16 and bfloat16, eight for float32, where
+// the scalar loop takes 32), times w_in, into the padded exchange buffer
+__device__ __forceinline__ bool vector_aligned(const void* a, const void* b) {
+  return ((reinterpret_cast<unsigned long long>(a) | reinterpret_cast<unsigned long long>(b)) &
+          15) == 0;
+}
+
+template <int N1, int T, class E>
+__device__ __forceinline__ void stage_vectors(float2* buf, const E* __restrict__ re,
+                                              const E* __restrict__ im,
+                                              const float2* __restrict__ w_in) {
+  constexpr int V = 16 / sizeof(E);
+  static_assert(N1 % (T * V) == 0, "whole rounds of 16-byte loads");
+#pragma unroll 1
+  for (int base = threadIdx.x * V; base < N1; base += T * V) {
+    const uint4 r = __ldg(reinterpret_cast<const uint4*>(re + base));
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(im + base));
+    const E* rv = reinterpret_cast<const E*>(&r);
+    const E* qv = reinterpret_cast<const E*>(&q);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float2 v = make_float2(to_float(rv[k]), to_float(qv[k]));
+      buf[iqt::reg::pad(base + k)] = iqt::cmul(v, __ldg(&w_in[base + k]));
+    }
+  }
+}
+
+// Frame m of row b = blockIdx.y of the 2:1 chain: EDGE the row's last
+// frame, which reads the halo past the row's end and
+// stores its second half into the tail; every other frame without that
+// code (its branches around the loads and stores cost the other frames 40 %
+// of their time: 420 us against 299 at the flagship step).
+template <int N1, int N2, int T, class E, bool EDGE>
+__device__ __forceinline__ void reg_ola_frame(
+    float2* smem, int m, const E* __restrict__ x, const E* __restrict__ halo, int n_halo,
+    const float2* __restrict__ w_in, const float2* __restrict__ w_out,
+    const float2* __restrict__ tw, float* __restrict__ y, float2* __restrict__ tail, int n_in,
+    int n_out, int hop_in, int hop_out, int zero_lo, int zero_hi, int in_lo, int out_lo,
+    int out_hi) {
   // m * hop_in < n_in and m * hop_out < n_out (the host sizes the grid)
   const int start = m * hop_in;
   const int valid = min(n_in - start, N1);
   const int room = min(n_out - m * hop_out, N2);
-  const float2* xf = x + static_cast<long long>(blockIdx.y) * n_in + start;
+  const E* xf = x + static_cast<long long>(blockIdx.y) * Src<E>::kRows * n_in + start;
   float* yf = y + 2 * (static_cast<long long>(blockIdx.y) * n_out + m * hop_out);
-  reg_frame_chain<N1, N2, T>(
-      smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
-      [=](int i) {
-        return i < valid ? iqt::cmul(xf[i], __ldg(&w_in[i])) : make_float2(0.f, 0.f);
-      },
-      [=](int n, float2 v) {
-        if (n < room) atomicAdd(reinterpret_cast<float2*>(yf) + n, v);
-      });
+  const auto load = [=](int i) {
+    if constexpr (!EDGE) {
+      return i < valid ? iqt::cmul(Src<E>::read(xf, Src<E>::imag(xf, n_in), i), __ldg(&w_in[i]))
+                       : make_float2(0.f, 0.f);
+    } else {
+      float2 v = make_float2(0.f, 0.f);
+      if (i < valid) {
+        v = Src<E>::read(xf, Src<E>::imag(xf, n_in), i);
+      } else if (i - valid < n_halo) {
+        // the samples past the row's end, from the halo
+        const E* hr = halo + static_cast<long long>(fresh_block_y()) * Src<E>::kRows * n_halo;
+        v = Src<E>::read(hr, Src<E>::imag(hr, n_halo), i - valid);
+      }
+      return iqt::cmul(v, __ldg(&w_in[i]));
+    }
+  };
+  const auto store = [=](int n, float2 v) {
+    if (n < room) {
+      atomicAdd(reinterpret_cast<float2*>(yf) + n, v);
+    } else if constexpr (EDGE) {
+      // the frame's second half past n_out: the row's tail
+      if (tail != nullptr)
+        tail[static_cast<long long>(fresh_block_y()) * (N2 - hop_out) + (n - room)] = v;
+    }
+  };
+  if constexpr (Src<E>::kRows == 2 || EDGE) {
+    // planes (two loads a point from two planes) and the edge frame (the
+    // halo branch) leave pass 0 too few of the 128 registers a thread may
+    // hold, and the passes spill; the windowed frame is staged into the
+    // exchange buffer first, coalesced, and pass 0 reads it from there:
+    // a whole frame of aligned planes by 16-byte loads (stage_vectors),
+    // any other one sample at a time, two rounds of the loop in flight
+    // (one or four, and some instance spills, by ptxas)
+    bool staged = false;
+    if constexpr (!EDGE) {
+      if (valid == N1 && vector_aligned(xf, Src<E>::imag(xf, n_in))) {
+        stage_vectors<N1, T>(smem, xf, Src<E>::imag(xf, n_in), w_in);
+        staged = true;
+      }
+    }
+    if (!staged) {
+#pragma unroll 2
+      for (int i = threadIdx.x; i < N1; i += T) smem[iqt::reg::pad(i)] = load(i);
+    }
+    reg_frame_chain<N1, N2, T, true>(smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
+                                     load, store);
+  } else {
+    reg_frame_chain<N1, N2, T>(smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi, load,
+                               store);
+  }
 }
+
+template <int N1, int N2, int T, class E>
+__global__ void __launch_bounds__(T, 1)
+fused_ola_reg_kernel(const E* __restrict__ x, const E* __restrict__ halo, int n_halo,
+                     const float2* __restrict__ w_in, const float2* __restrict__ w_out,
+                     const float2* __restrict__ tw, float* __restrict__ y,
+                     float2* __restrict__ tail, int n_in, int n_out, int hop_in, int hop_out,
+                     int edge, int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi) {
+  extern __shared__ float2 smem[];
+  // with an edge, block 0 takes the row's last frame, so that its longer
+  // path starts in the first wave and not alone after the others
+  if (edge && blockIdx.x == 0) {
+    reg_ola_frame<N1, N2, T, E, true>(smem, gridDim.x - 1, x, halo, n_halo, w_in, w_out, tw, y,
+                                      tail, n_in, n_out, hop_in, hop_out, zero_lo, zero_hi,
+                                      in_lo, out_lo, out_hi);
+  } else {
+    reg_ola_frame<N1, N2, T, E, false>(smem, blockIdx.x - edge, x, halo, n_halo, w_in, w_out,
+                                       tw, y, tail, n_in, n_out, hop_in, hop_out, zero_lo,
+                                       zero_hi, in_lo, out_lo, out_hi);
+  }
+}
+
+// every frame of the rows in one grid; with a halo or a tail, each row's
+// last frame takes the EDGE path
+template <class E>
+cudaError_t launch_reg(int n_frames, int batch, cudaStream_t stream, const void* x,
+                       const void* halo, int n_halo, const float2* w_in, const float2* w_out,
+                       const float2* tw, float* y, float2* tail, int n_in, int n_out,
+                       int hop_in, int hop_out, int zero_lo, int zero_hi, int in_lo, int out_lo,
+                       int out_hi) {
+  const int edge = halo != nullptr || tail != nullptr;
+  fused_ola_reg_kernel<16384, 8192, 512, E>
+      <<<dim3(n_frames, batch), 512, RegShape<16384, 8192>::smem, stream>>>(
+          static_cast<const E*>(x), static_cast<const E*>(halo), n_halo, w_in, w_out, tw, y,
+          tail, n_in, n_out, hop_in, hop_out, edge, zero_lo, zero_hi, in_lo, out_lo, out_hi);
+  return cudaGetLastError();
+}
+
+// the 2:1 kernels' input layouts, by the code the host passes
+// (ops/kernels/fused_ola.py LAYOUTS): F(code, element type)
+#define IQT_LAYOUTS(F) \
+  F(0, float2)         \
+  F(1, float)          \
+  F(2, short)          \
+  F(3, __nv_bfloat16)
 
 }  // namespace
 
@@ -755,70 +969,82 @@ extern "C" int iqt_fused_ola_frames(
 // of dynamic shared memory (the larger of the two frames)
 extern "C" int iqt_fused_ola_prepare(int max_smem) {
   cudaError_t err;
-  if ((err = iqt::allow_smem(fused_ola_kernel<1>, max_smem))) return err;
-  if ((err = iqt::allow_smem(fused_ola_kernel<2>, max_smem))) return err;
-  if ((err = iqt::allow_smem(fused_ola_kernel<4>, max_smem))) return err;
-  if ((err = iqt::allow_smem(fused_ola_kernel<8>, max_smem))) return err;
-  if ((err = iqt::allow_smem(fused_ola_kernel<16>, max_smem))) return err;
-  return iqt::allow_smem(fused_ola_reg_kernel<16384, 8192, 512>, RegShape<16384, 8192>::smem);
+#define IQT_ALLOW(CODE, E)                                                                   \
+  if ((err = iqt::allow_smem(fused_ola_kernel<1, E>, max_smem))) return err;                 \
+  if ((err = iqt::allow_smem(fused_ola_kernel<2, E>, max_smem))) return err;                 \
+  if ((err = iqt::allow_smem(fused_ola_kernel<4, E>, max_smem))) return err;                 \
+  if ((err = iqt::allow_smem(fused_ola_kernel<8, E>, max_smem))) return err;                 \
+  if ((err = iqt::allow_smem(fused_ola_kernel<16, E>, max_smem))) return err;                \
+  if ((err = iqt::allow_smem(fused_ola_reg_kernel<16384, 8192, 512, E>,                      \
+                             RegShape<16384, 8192>::smem)))                                   \
+    return err;
+  IQT_LAYOUTS(IQT_ALLOW)
+#undef IQT_ALLOW
+  return cudaSuccess;
 }
 
 // the 2:1 chain at (nfft, nfft_out) = (16384, 8192), by
-// fused_ola_reg_kernel: x, y and the bounds as for iqt_fused_ola; tw: the
-// n_tw twiddle-table entries of the pair (those of
-// iqt_fused_ola_frames_reg). Any other pair, or another table length:
-// cudaErrorInvalidValue.
-extern "C" int iqt_fused_ola_reg(const void* x, const void* w_in, const void* w_out,
-                                 const void* tw, void* y, int n_tw, int batch, int n_in,
-                                 int n_frames, int n_out, int nfft, int nfft_out, int hop_in,
-                                 int hop_out, int zero_lo, int zero_hi, int in_lo, int out_lo,
-                                 int out_hi, void* stream) {
+// fused_ola_reg_kernel: arguments as for iqt_fused_ola; tw: the n_tw
+// twiddle-table entries of the pair (those of iqt_fused_ola_frames_reg).
+// Any other pair, layout or table length: cudaErrorInvalidValue.
+extern "C" int iqt_fused_ola_reg(const void* x, int layout, const void* halo, int n_halo,
+                                 const void* w_in, const void* w_out, const void* tw, void* y,
+                                 void* tail, int n_tw, int batch, int n_in, int n_frames,
+                                 int n_out, int nfft, int nfft_out, int hop_in, int hop_out,
+                                 int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi,
+                                 void* stream) {
   if (nfft != 16384 || nfft_out != 8192 || n_tw != RegShape<16384, 8192>::tw_count)
     return cudaErrorInvalidValue;
-  fused_ola_reg_kernel<16384, 8192, 512>
-      <<<dim3(n_frames, batch), 512, RegShape<16384, 8192>::smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float2*>(x), static_cast<const float2*>(w_in),
-          static_cast<const float2*>(w_out), static_cast<const float2*>(tw),
-          static_cast<float*>(y), n_in, n_out, hop_in, hop_out, zero_lo, zero_hi, in_lo, out_lo,
-          out_hi);
-  return cudaGetLastError();
+#define IQT_REG(CODE, E)                                                                     \
+  if (layout == CODE)                                                                        \
+    return launch_reg<E>(n_frames, batch, static_cast<cudaStream_t>(stream), x, halo, n_halo, \
+                         static_cast<const float2*>(w_in), static_cast<const float2*>(w_out),  \
+                         static_cast<const float2*>(tw), static_cast<float*>(y),               \
+                         static_cast<float2*>(tail), n_in, n_out, hop_in, hop_out, zero_lo,    \
+                         zero_hi, in_lo, out_lo, out_hi);
+  IQT_LAYOUTS(IQT_REG)
+#undef IQT_REG
+  return cudaErrorInvalidValue;
 }
 
-// x: (batch, n_in) complex64; y: (batch, n_out) complex64, zeroed by the
-// caller; n_frames frames per row. Sizes are powers of two up to 16384.
-extern "C" int iqt_fused_ola(const void* x, const void* w_in,
-                             const void* tw_in, const void* w_out,
-                             const void* tw_out, void* y, int batch,
-                             int n_in, int n_frames, int n_out,
-                             int log2_nfft, int log2_nfft_out, int hop_in,
-                             int hop_out, int zero_lo, int zero_hi,
-                             int in_lo, int out_lo, int out_hi,
-                             void* stream) {
+// x: (batch, n_in) complex64 (layout 0) or (batch, 2, n_in) planes of
+// float32, int16 or bfloat16 (layouts 1-3); halo: n_halo samples a row in
+// the same layout (nullptr and 0: zeros); y: (batch, n_out) complex64,
+// zeroed by the caller; tail: (batch, nfft_out - hop_out) complex64, or
+// nullptr to drop the last frame's dangling half. n_frames frames per row.
+// Sizes are powers of two up to 16384.
+extern "C" int iqt_fused_ola(const void* x, int layout, const void* halo, int n_halo,
+                             const void* w_in, const void* tw_in, const void* w_out,
+                             const void* tw_out, void* y, void* tail, int batch, int n_in,
+                             int n_frames, int n_out, int log2_nfft, int log2_nfft_out,
+                             int hop_in, int hop_out, int zero_lo, int zero_hi, int in_lo,
+                             int out_lo, int out_hi, void* stream) {
   const int nmax = 1 << (log2_nfft > log2_nfft_out ? log2_nfft : log2_nfft_out);
   const size_t smem = static_cast<size_t>(nmax) * sizeof(float2);
   const int pt = (1 << log2_nfft_out) > kThreads ? (1 << log2_nfft_out) / kThreads : 1;
   const dim3 grid(n_frames, batch);
   auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float2*>(x);
   auto wi = static_cast<const float2*>(w_in);
   auto ti = static_cast<const float2*>(tw_in);
   auto wo = static_cast<const float2*>(w_out);
   auto to = static_cast<const float2*>(tw_out);
   auto yp = static_cast<float*>(y);
-#define IQT_OLA(P)                                                        \
-  case P:                                                                 \
-    return launch<P>(grid, smem, s, xp, wi, ti, wo, to, yp, n_in, n_out,  \
-                     log2_nfft, log2_nfft_out, hop_in, hop_out, zero_lo,  \
-                     zero_hi, in_lo, out_lo, out_hi);
-  switch (pt) {
-    IQT_OLA(1)
-    IQT_OLA(2)
-    IQT_OLA(4)
-    IQT_OLA(8)
-    IQT_OLA(16)
-    default:
-      return cudaErrorInvalidValue;
+  auto tp = static_cast<float2*>(tail);
+#define IQT_OLA(P, E)                                                                        \
+  if (pt == P)                                                                               \
+    return launch<P, E>(grid, smem, s, x, halo, n_halo, wi, ti, wo, to, yp, tp, n_in, n_out, \
+                        log2_nfft, log2_nfft_out, hop_in, hop_out, zero_lo, zero_hi, in_lo,  \
+                        out_lo, out_hi);
+#define IQT_OLA_LAYOUT(CODE, E) \
+  if (layout == CODE) {         \
+    IQT_OLA(1, E)               \
+    IQT_OLA(2, E)               \
+    IQT_OLA(4, E)               \
+    IQT_OLA(8, E)               \
+    IQT_OLA(16, E)              \
   }
+  IQT_LAYOUTS(IQT_OLA_LAYOUT)
+#undef IQT_OLA_LAYOUT
 #undef IQT_OLA
+  return cudaErrorInvalidValue;
 }

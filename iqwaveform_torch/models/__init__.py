@@ -8,6 +8,7 @@ from .monitor import (
     WidebandMonitor,
     design_from_reference,
     design_wideband_monitor,
+    monitor_carry_from_reference,
     resolve_monitor_design,
 )
 
@@ -18,6 +19,7 @@ __all__ = [
     'WidebandMonitor',
     'design_from_reference',
     'design_wideband_monitor',
+    'monitor_carry_from_reference',
     'ofdm',
     'resolve_monitor_design',
 ]

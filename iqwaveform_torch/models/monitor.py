@@ -3,14 +3,18 @@
 The port of iqwaveform_tpu/models/monitor.py. A long wideband capture runs
 through OLA bandpass + rational resample -> channelizer FFT -> channel
 power, spectrogram statistics and the detector-binned APD, the same six
-outputs as the JAX ``WidebandMonitor.step``.
+outputs as the JAX ``WidebandMonitor.step``; ``step_planes`` takes raw
+(2, N) sample planes (int16 counts of a SigMF ci16 capture at the 'i16'
+tier), and ``init_carry`` / ``accumulate_step`` / ``flush`` fold a capture
+of any length chunk by chunk at fixed memory (BASELINE config #5).
 
 On the card each stage is a hand-written CUDA kernel (ops.kernels:
-``fused_ola`` at 2:1 overlap, ``fused_ola_frames`` with a grouped
-overlap-add for the blackman (R=3) and blackmanharris (R=5) COLA windows,
-``chan_stats``, ``hist``); on the CPU each is that kernel's plain PyTorch
-version. The design layer (windows, bin geometry, APD edges)
-is host numpy, equal bit for bit to the JAX package's.
+``fused_ola`` / ``fused_ola_strided`` at 2:1 overlap, ``fused_ola_frames``
+with a grouped overlap-add for the blackman (R=3) and blackmanharris (R=5)
+COLA windows, ``chan_stats``, ``hist`` or, for ``apd_kernel='packed'``,
+``colhist``); on the CPU each is that kernel's plain PyTorch version. The
+design layer (windows, bin geometry, APD edges) is host numpy, equal bit
+for bit to the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import time
 import typing
 
 import numpy as np
@@ -32,25 +37,34 @@ from ..ops.filtering import (
 from ..ops.kernels import (
     chan_stats,
     chan_stats_plain,
+    colhist,
+    colhist_plain,
     fused_ola,
     fused_ola_frames,
+    fused_ola_frames_plain,
     fused_ola_plain,
     hist,
     hist_plain,
 )
 from ..ops.kernels.fused_ola import (
+    dequantize,
     fused_ola_cuda_supported,
     fused_ola_frames_supported,
+    fused_ola_strided,
+    fused_ola_strided_plain,
     ola_grouped,
+    storage_dtype,
+    stored,
 )
 from ..ops.window_design import equivalent_noise_bandwidth, get_window
-from ..utils import resolve_device, to_device
+from ..utils import StageTimer, counter_int64, fence, resolve_device, to_device
 
 __all__ = [
     'MonitorDesign',
     'WidebandMonitor',
     'design_from_reference',
     'design_wideband_monitor',
+    'monitor_carry_from_reference',
     'resolve_monitor_design',
 ]
 
@@ -69,10 +83,21 @@ class MonitorDesign:
     * ``fft_backend``, ``ola_kernel`` and ``chan_kernel`` choose between
       TPU implementations and have no effect here: the device decides
       between a kernel and its plain version.
-    * ``fft_precision`` 'auto', 'highest' and 'high' all mean float32
-      throughout; 'bf16' and 'i16' raise NotImplementedError.
-    * ``apd_kernel`` 'auto', 'sort' and 'pallas' give the same exact
-      counts; 'packed' raises NotImplementedError.
+    * ``fft_precision`` picks how the input samples are stored before the
+      OLA kernel reads them; the arithmetic is float32 at every tier.
+      'auto', 'highest' and 'high' store float32 (or complex64); 'bf16'
+      stores bfloat16 planes and 'i16' int16 counts (float samples round to
+      the nearest integer first; pass raw ADC counts and set
+      ``input_scale``). The 2:1 kernel reads int16 and bfloat16 planes as
+      they are and dequantizes on load; beyond 2:1 one rounding pass makes
+      complex64 for the frame kernel. The TPU tiers' 1-pass and 3-pass
+      bf16 dots are not copied: only the stored samples differ.
+    * ``apd_kernel`` 'auto', 'sort' and 'pallas' count the APD with the
+      edge histogram (``hist``: exact float32 compares). 'packed' takes the
+      JAX package's packed rule: levels ceil((10 log10 p - lo) / w)
+      clipped to [0, apd_bins] in float32, counted by the column counter
+      (``colhist``) over 128 columns; totals are equal, and a value within
+      float32 rounding of an edge may land one bin over.
     * ``input_scale`` multiplies the raw samples, folded into the OLA
       analysis window.
     """
@@ -108,17 +133,6 @@ _CHOICES = {
     'apd_kernel': ('auto', 'sort', 'pallas', 'packed'),
     'chan_kernel': ('auto', 'xla', 'pallas'),
 }
-
-# what the port does not do yet, and the ROADMAP item that brings it
-_NOT_PORTED = {
-    ('fft_precision', 'bf16'): "ROADMAP Queue 1 item 2d: the 'bf16' frame-storage tier",
-    ('fft_precision', 'i16'): "ROADMAP Queue 1 item 2d: step_planes and the 'i16' tier",
-    ('apd_kernel', 'packed'): (
-        'ROADMAP Queue 1 item 2b: the packed APD counter '
-        '(columnwise_histogram_packed_raw)'
-    ),
-}
-
 
 def design_wideband_monitor(
     fs_base: float,
@@ -203,17 +217,12 @@ def resolve_monitor_design(design: MonitorDesign) -> MonitorDesign:
     """validate the implementation-choice fields and resolve
     ``fft_precision='auto'`` to 'highest' (float32 throughout).
 
-    Raises ValueError for a value the JAX package does not accept either,
-    and NotImplementedError for one the port does not run yet."""
+    Raises ValueError for a value the JAX package does not accept either."""
     d = design
     for name, choices in _CHOICES.items():
         value = getattr(d, name)
         if value not in choices:
             raise ValueError(f'{name} must be one of {choices}, not {value!r}')
-        if (name, value) in _NOT_PORTED:
-            raise NotImplementedError(
-                f'{name}={value!r} is not ported yet ({_NOT_PORTED[name, value]})'
-            )
     if d.fft_precision == 'auto':
         return dataclasses.replace(d, fft_precision='highest')
     return d
@@ -226,13 +235,19 @@ class WidebandMonitor:
 
         mon = WidebandMonitor(design)                  # on the card
         out = mon.step(iq)        # iq: (N,) or (B, N) complex64
+        out = mon.step_planes(planes)  # (2, N) or (B, 2, N) real planes
         mon = WidebandMonitor(design, device='cpu')    # plain versions
+
+        carry = mon.init_carry(chunk)                  # a long capture
+        for x in chunks:                               # (chunk,) complex64
+            carry = mon.accumulate_step(carry, x)
+        stats = mon.flush(carry)
 
     ``device=None`` means 'cuda', and raises RuntimeError where CUDA is
     not available.
 
-    Outputs (dict of tensors on the monitor's device; a (B, N) input
-    prefixes each with B):
+    Outputs of ``step`` (dict of tensors on the monitor's device; a batch
+    input prefixes each with B):
         channel_power: (frames, channels) per-channel power time series
         channel_power_mean/max: (channels,) detector statistics
         psd_mean/psd_max: (total fft bins,) persistence statistics (dB)
@@ -319,8 +334,17 @@ class WidebandMonitor:
         # overlap-add where it applies (hamming at power-of-two sizes), else
         # the frame-batch kernel and a grouped overlap-add in a fixed order
         # (iqwaveform_tpu/models/monitor.py:789-804)
-        if fused_ola_cuda_supported(d.nfft, d.nfft_out, self.noverlap_in, self.noverlap_out):
+        self._strided = fused_ola_cuda_supported(
+            d.nfft, d.nfft_out, self.noverlap_in, self.noverlap_out
+        )
+        if self._strided:
             self._ola = fused_ola
+            # fused_ola_strided's arguments: the same window and bounds
+            self.strided_kwargs = dict(
+                hop_in=self.hop_in, precision=d.fft_precision,
+                **{k: v for k, v in self.ola_kwargs.items()
+                   if k not in ('noverlap_in', 'noverlap_out')},
+            )
         else:
             if dev.type == 'cuda' and not fused_ola_frames_supported(d.nfft, d.nfft_out, dev):
                 raise NotImplementedError(
@@ -330,6 +354,17 @@ class WidebandMonitor:
                     'CLUSTER_PAIRS of ops/kernels/fused_ola.py; ROADMAP Queue 2 item 1)'
                 )
             self._ola = functools.partial(ola_grouped, frames_fn=fused_ola_frames)
+
+        # the APD counter, from the design: the edge histogram, or the
+        # packed rule's uniform dB levels in 128 columns (_packed_counts)
+        if d.apd_kernel == 'packed':
+            self._counts = functools.partial(self._packed_counts, counter=colhist)
+            self._counts_plain = functools.partial(self._packed_counts, counter=colhist_plain)
+        else:
+            self._counts = functools.partial(hist, edges=self.apd_edges)
+            self._counts_plain = functools.partial(hist_plain, edges=self.apd_edges)
+
+    # ---- stages ----
 
     def _input(self, iq) -> torch.Tensor:
         x = to_device(iq, self.device, dtype=torch.complex64).contiguous()
@@ -343,8 +378,68 @@ class WidebandMonitor:
             )
         return x
 
-    def _body(self, x, ola, chan, counts) -> dict:
-        y = ola(x, **self.ola_kwargs)
+    def _tiered(self, x: torch.Tensor) -> torch.Tensor:
+        """complex ``x`` or real (..., 2, N) planes through the storage
+        tier's rounding, as complex64 (complex64 ``x`` itself at the float32
+        tiers)."""
+        return dequantize(stored(x, self.design.fft_precision))
+
+    def _step_ola(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """the OLA stage of ``step``: complex ``x`` (..., N), the capture end
+        zero-extended and the last frame's tail dropped."""
+        return (fused_ola_plain if plain else self._ola)(self._tiered(x), **self.ola_kwargs)
+
+    def _resample(self, src: torch.Tensor, halo=None, plain: bool = False) -> tuple:
+        """the OLA stage of ``step_planes`` and the stream: ``src`` complex
+        (..., N) or real (..., 2, N) planes, N a whole number of hops, read
+        in the design's storage tier, extended by ``halo`` (the next
+        chunk's first noverlap_in samples, in the same layout) or zeros.
+        Returns (y, tail): the resampled (..., N / hop_in * hop_out)
+        complex64 and the final frame's dangling (..., noverlap_out). At
+        2:1 one launch of ``fused_ola_strided``; beyond, the tier's
+        rounding into complex64 and the grouped overlap-add of the frame
+        kernel."""
+        n_frames = src.shape[-1] // self.hop_in
+        if self._strided:
+            fn = fused_ola_strided_plain if plain else fused_ola_strided
+            return fn(src, halo, n_frames=n_frames, **self.strided_kwargs)
+        return ola_grouped(
+            self._tiered(src), halo=None if halo is None else self._tiered(halo), return_tail=True,
+            frames_fn=fused_ola_frames_plain if plain else fused_ola_frames, **self.ola_kwargs,
+        )
+
+    def _packed_levels(self, p: torch.Tensor) -> torch.Tensor:
+        """the packed rule's int32 level of each value of ``p``
+        (iqwaveform_tpu/models/monitor.py:603-636): clip(ceil((10 log10 p -
+        lo) / w), 0, apd_bins) in float32, NaN at apd_bins."""
+        d = self.design
+        lo, hi = d.apd_range_dB
+        w = (hi - lo) / (d.apd_bins - 1)
+        idx = torch.ceil((10.0 * torch.log10(p) - lo) / w).nan_to_num_(nan=d.apd_bins)
+        return idx.clamp_(0, d.apd_bins).to(torch.int32)
+
+    def _packed_counts(self, p: torch.Tensor, *, counter) -> torch.Tensor:
+        """the APD counts of ``p`` (..., n) by the JAX package's packed rule:
+        each row's levels (:meth:`_packed_levels`; NaN at apd_bins, as
+        ``hist`` counts it in the last bin), padded to a multiple of 128
+        with the level apd_bins + 1, which no readout keeps; ``counter``
+        (:func:`colhist` or its plain version) counts the (n / 128, 128)
+        levels per column, and the columns are summed. Returns (...,
+        apd_bins + 1) int32."""
+        n_levels = self.design.apd_bins + 1
+        rows = p.reshape(-1, p.shape[-1])
+        counts = []
+        for row in rows:
+            idx = self._packed_levels(row)
+            pad = (-idx.numel()) % 128
+            if pad:
+                idx = torch.cat([idx, idx.new_full((pad,), n_levels)])
+            table = torch.zeros((128, n_levels + 1), dtype=torch.int32, device=p.device)
+            counter(idx.reshape(-1, 128), table)
+            counts.append(table[:, :n_levels].sum(dim=0, dtype=torch.int32))
+        return torch.stack(counts).reshape(*p.shape[:-1], n_levels)
+
+    def _outputs(self, y, chan, counts) -> dict:
         cs = chan(y, **self.chan_kwargs)
         channel_power = cs['channel_power']
         n_frames = channel_power.shape[-2]
@@ -356,14 +451,17 @@ class WidebandMonitor:
             'channel_power_max': channel_power.amax(dim=-2),
             'psd_mean': psd_mean,
             'psd_max': psd_max,
-            'apd_counts': counts(cs['p_binned'], self.apd_edges),
+            'apd_counts': counts(cs['p_binned']),
         }
+
+    # ---- one-shot entry points ----
 
     def step(self, iq) -> dict:
         """forward step. iq: (N,) or (B, N) complex (numpy or tensor; moved
         to the monitor's device as complex64), with N a multiple of
-        min_input_multiple() for whole frames throughout."""
-        return self._body(self._input(iq), self._ola, chan_stats, hist)
+        min_input_multiple() for whole frames throughout. At the 'bf16' and
+        'i16' tiers the samples are rounded to the tier's storage first."""
+        return self._outputs(self._step_ola(self._input(iq)), chan_stats, self._counts)
 
     def reference_step(self, iq) -> dict:
         """the same step through each kernel's plain PyTorch version, on the
@@ -371,9 +469,224 @@ class WidebandMonitor:
         plain OLA is the grouped overlap-add of the frames' plain chain,
         which is the route of the frame-batch kernel and the sum the 2:1
         kernel forms in place."""
-        return self._body(
-            self._input(iq), fused_ola_plain, chan_stats_plain, hist_plain
+        return self._outputs(
+            self._step_ola(self._input(iq), plain=True), chan_stats_plain, self._counts_plain
         )
+
+    def _planes_applies(self, n_samples: int) -> bool:
+        """the lengths ``step_planes`` takes: the JAX package's rule for its
+        fully-packed path (``_packed_applies``,
+        iqwaveform_tpu/models/monitor.py:723): whole OLA hops in whole
+        frame groups, and a whole, nonzero multiple of 8 channelizer frames.
+        (The JAX rule also needs its TPU kernels armed; the port's kernels
+        take every design.)"""
+        d = self.design
+        hop_in, hop_out = self.hop_in, self.hop_out
+        if self.noverlap_in == 0 or d.nfft % hop_in or n_samples % hop_in:
+            return False
+        n_frames = n_samples // hop_in
+        if n_frames % (d.nfft // hop_in) or d.nfft // hop_in != d.nfft_out // hop_out:
+            return False
+        chan_frames = n_frames * hop_out // self._nfft_big
+        return n_frames * hop_out % self._nfft_big == 0 and chan_frames % 8 == 0 and chan_frames > 0
+
+    def _planes(self, planes) -> torch.Tensor:
+        p = to_device(planes, self.device)
+        if p.dtype not in (torch.float32, torch.int16, torch.bfloat16):
+            p = p.to(torch.float32)
+        if p.ndim not in (2, 3) or p.shape[-2] != 2 or p.is_complex():
+            raise ValueError(f'planes must be real (2, N) or (B, 2, N), not {tuple(p.shape)}')
+        if not self._planes_applies(p.shape[-1]):
+            raise ValueError(
+                'step_planes takes the lengths of the fully-packed path: whole '
+                'OLA frame groups giving a nonzero multiple of 8 channelizer '
+                f'frames, not {p.shape[-1]} samples (see min_input_multiple)'
+            )
+        return p.contiguous()
+
+    def step_planes(self, planes) -> dict:
+        """forward step on raw (2, N) or (B, 2, N) (real, imag) sample
+        planes, with no complex intermediate on the way in: the native
+        entry for integer SDR captures. At fft_precision='i16', pass int16
+        planes straight from a SigMF ci16 payload (io.read_iq_planes, or
+        the file's int16 pairs) and set design.input_scale to the ADC
+        scale; the OLA kernel reads them at half the float32 bytes and
+        dequantizes on load. At the float tiers, float32 planes give the
+        same result as step(unpack_iq(planes)); at 'i16', float planes
+        are rounded to the nearest integer count first (pass raw counts,
+        not pre-scaled values). ValueError for a length the JAX package's
+        packed path does not take either."""
+        y, _ = self._resample(self._planes(planes))
+        return self._outputs(y, chan_stats, self._counts)
+
+    def profile_step(self, iq, *, reps: int = 3) -> StageTimer:
+        """stage attribution of :meth:`step` (or of :meth:`step_planes`
+        for (2, N) planes of a length it takes): times the OLA resample
+        stage alone, then the full step, each fenced
+        (``utils.profiling.fence``) and difference-timed ((time of 1 +
+        reps calls) - (time of 1 call), the median of 3 such pairs), and
+        attributes the difference to the channelizer + statistics + APD
+        stage. Returns a :class:`~iqwaveform_torch.utils.StageTimer` with
+        the stages 'ola_resample' and 'chan_stats_apd'; ``report()`` prints
+        them. For the card's own kernel times use ``torch.profiler``
+        (``utils.trace``)."""
+        x = to_device(iq, self.device)
+        planes = x.ndim == 2 and x.shape[0] == 2 and not x.is_complex()
+        if x.ndim != 1 and not planes:
+            raise ValueError(
+                'profile_step profiles a single capture: 1-D complex iq or (2, N) planes'
+            )
+        if planes and self._planes_applies(x.shape[-1]):
+            x = self._planes(x)
+
+            def ola_only():
+                return self._resample(x)[0]
+
+            def full():
+                return self.step_planes(x)
+        else:
+            if planes:
+                x = dequantize(x)
+            x = self._input(x)
+
+            def ola_only():
+                return self._step_ola(x)
+
+            def full():
+                return self.step(x)
+
+        def measure(fn):
+            fence(fn())  # warm up
+
+            def run(n):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    out = fn()
+                fence(out)
+                return time.perf_counter() - t0
+
+            dts = [(run(1 + reps) - run(1)) / reps for _ in range(3)]
+            # floored at 1 ns: below the clock's resolution, kept positive
+            return max(float(np.median(dts)), 1e-9)
+
+        t_ola = measure(ola_only)
+        t_full = measure(full)
+        timer = StageTimer()
+        timer.durations['ola_resample'] = t_ola
+        timer.durations['chan_stats_apd'] = max(t_full - t_ola, 0.0)
+        return timer
+
+    # ---- streaming accumulation over long captures ----
+    #
+    # chunk-exact streaming (iqwaveform_tpu/models/monitor.py:1125-1297):
+    # chunk k is processed when chunk k+1 arrives, so the OLA framing sees
+    # the true noverlap_in-sample right halo, and the overlap-add tail
+    # (noverlap_out samples) carries into the next chunk's head. The
+    # statistics therefore match the one-shot step() on the whole capture
+    # (whose end flush() zero-extends, as step() does). The carry holds
+    # exact int64 counters where the JAX carry holds float32 (hi, lo) pairs
+    # (a TPU-transfer workaround; monitor_carry_from_reference reads them).
+
+    def init_carry(self, chunk_samples: int) -> dict:
+        """zeroed accumulator for accumulate_step. ``chunk_samples`` is the
+        fixed chunk length, a multiple of min_input_multiple()."""
+        if chunk_samples <= 0 or chunk_samples % self.min_input_multiple():
+            raise ValueError(
+                f'chunk_samples must be a multiple of min_input_multiple() = '
+                f'{self.min_input_multiple()}, not {chunk_samples}'
+            )
+        d, dev = self.design, self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        return {
+            'pending': torch.zeros(chunk_samples, dtype=torch.complex64, device=dev),
+            'started': False,
+            'tail_out': torch.zeros(self.noverlap_out, dtype=torch.complex64, device=dev),
+            'channel_power_sum': torch.zeros(d.channel_count, **f32),
+            'channel_power_max': torch.full((d.channel_count,), -math.inf, **f32),
+            'psd_sum': torch.zeros(self._nfft_big, **f32),
+            'psd_max': torch.full((self._nfft_big,), -math.inf, **f32),
+            'apd_counts': torch.zeros(d.apd_bins + 1, dtype=torch.int64, device=dev),
+            'n_frames': 0,
+        }
+
+    def _ola_chunk(self, x, halo, tail_in) -> tuple:
+        """OLA resample of one chunk with an explicit right halo (None:
+        zeros) and the carried overlap-add tail added to its head. Returns
+        (y_chunk, tail_out)."""
+        y, tail = self._resample(x, halo)
+        if self.noverlap_out:
+            y[..., : self.noverlap_out] += tail_in
+        return y, tail
+
+    def _chunk_stats(self, y) -> dict:
+        """channelizer + statistics of one resampled chunk: sums and maxima
+        over its frames, and its exact APD counts."""
+        cs = chan_stats(y, **self.chan_kwargs)
+        channel_power = cs['channel_power']
+        return {
+            'channel_power_sum': channel_power.sum(dim=-2),
+            'channel_power_max': channel_power.amax(dim=-2),
+            'psd_sum': (10.0 / math.log(10.0)) * cs['psd_log_sum'],
+            'psd_max': 10.0 * torch.log10(cs['psd_max'] + _EPS),
+            'apd_counts': self._counts(cs['p_binned']).to(torch.int64),
+            'n_frames': channel_power.shape[-2],
+        }
+
+    @staticmethod
+    def _fold(carry: dict, delta: dict) -> dict:
+        return {
+            **carry,
+            'channel_power_sum': carry['channel_power_sum'] + delta['channel_power_sum'],
+            'channel_power_max': torch.maximum(
+                carry['channel_power_max'], delta['channel_power_max']
+            ),
+            'psd_sum': carry['psd_sum'] + delta['psd_sum'],
+            'psd_max': torch.maximum(carry['psd_max'], delta['psd_max']),
+            'apd_counts': carry['apd_counts'] + delta['apd_counts'],
+            'n_frames': carry['n_frames'] + delta['n_frames'],
+        }
+
+    def accumulate_step(self, carry: dict, x_chunk) -> dict:
+        """fold one capture chunk into the running statistics and return
+        the new carry.
+
+        ``x_chunk``: (chunk_samples,) complex (numpy or tensor; moved to the
+        monitor's device as complex64), from io.iter_capture_chunks or
+        io.CapturePrefetcher, at fixed memory for any capture length.
+        Processing lags by one chunk so that the framing sees true halos:
+        the carry keeps this chunk (without a copy where it is already a
+        complex64 tensor on the device: leave it unchanged until the next
+        call) and processes the previous one. Call flush() after the last
+        chunk."""
+        x = to_device(x_chunk, self.device, dtype=torch.complex64)
+        if tuple(x.shape) != tuple(carry['pending'].shape):
+            raise ValueError(
+                f'chunks must be {tuple(carry["pending"].shape)} samples (init_carry), '
+                f'not {tuple(x.shape)}'
+            )
+        x = x.contiguous()
+        if carry['started']:
+            y, tail = self._ola_chunk(carry['pending'], x[: self.noverlap_in], carry['tail_out'])
+            carry = self._fold(carry, self._chunk_stats(y))
+            carry['tail_out'] = tail
+        # a never-started carry keeps a zero tail
+        return {**carry, 'pending': x, 'started': True}
+
+    def flush(self, carry: dict) -> dict:
+        """process the final pending chunk (zero-extended) and return the
+        statistics: channel_power_mean / max, psd_mean / max (dB) and
+        apd_counts (int64), the keys of the JAX monitor's flush."""
+        if carry['started']:
+            y, _ = self._ola_chunk(carry['pending'], None, carry['tail_out'])
+            carry = self._fold(carry, self._chunk_stats(y))
+        n = max(carry['n_frames'], 1)
+        return {
+            'channel_power_mean': carry['channel_power_sum'] / n,
+            'channel_power_max': carry['channel_power_max'],
+            'psd_mean': carry['psd_sum'] / n,
+            'psd_max': carry['psd_max'],
+            'apd_counts': carry['apd_counts'],
+        }
 
     def min_input_multiple(self) -> int:
         """smallest time length quantum: whole OLA hops that produce whole
@@ -382,3 +695,52 @@ class WidebandMonitor:
         lcm_out = math.lcm(self.hop_out, self._nfft_big)
         per_shard_in = lcm_out * self.hop_in // self.hop_out
         return math.lcm(per_shard_in, d.nfft)
+
+
+def monitor_carry_from_reference(carry_arrays, design, device=None) -> dict:
+    """the port's streaming carry, on ``device``, from a carry of the JAX
+    package's ``WidebandMonitor`` (the dict of ``init_carry`` /
+    ``accumulate_step``, its values as numpy arrays) and the design it ran
+    (the port's MonitorDesign, or ``dataclasses.asdict`` of the JAX one):
+    the float32 (hi, lo) pair counters become exact int64 counts through
+    float64 (utils.counter_int64), the rest carries over as it is. A
+    capture started in JAX then finishes in the port with the same counts.
+    The monitor's counterpart of parallel.carry_from_reference.
+
+    Only at ``input_scale == 1`` and a float32 storage tier: the JAX
+    stream (``_ola_chunk``) applies neither the input scale nor the tier's
+    rounding, where the port's stream applies both as its step does, so a
+    JAX carry of any other design holds sums the port would not have formed
+    (ValueError)."""
+    if not isinstance(design, MonitorDesign):
+        design = design_from_reference(design)
+    tier = resolve_monitor_design(design).fft_precision
+    if design.input_scale != 1 or storage_dtype(tier) != torch.float32:
+        raise ValueError(
+            'a JAX monitor carry carries over only at input_scale 1 and a float32 '
+            f'storage tier (the JAX stream applies neither), not input_scale='
+            f'{design.input_scale}, fft_precision={design.fft_precision!r}'
+        )
+    f = {k: np.asarray(v) for k, v in dict(carry_arrays).items()}
+    dev = resolve_device(device)
+    n_bins = design.fft_size_per_channel * design.channel_count
+    for key, size in (('psd_sum', n_bins), ('channel_power_sum', design.channel_count),
+                      ('apd_counts_hi', design.apd_bins + 1)):
+        if f[key].shape != (size,):
+            raise ValueError(f'the carry\'s {key} has shape {f[key].shape}, not ({size},): '
+                             'another design')
+
+    def tensor(key, dtype):
+        return to_device(np.ascontiguousarray(f[key].astype(dtype)), dev)
+
+    return {
+        'pending': tensor('pending', np.complex64),
+        'started': bool(f['started'] > 0),
+        'tail_out': tensor('tail_out', np.complex64),
+        'channel_power_sum': tensor('channel_power_sum', np.float32),
+        'channel_power_max': tensor('channel_power_max', np.float32),
+        'psd_sum': tensor('psd_sum', np.float32),
+        'psd_max': tensor('psd_max', np.float32),
+        'apd_counts': to_device(counter_int64(f['apd_counts_hi'], f['apd_counts_lo']), dev),
+        'n_frames': int(counter_int64(f['n_frames_hi'], f['n_frames_lo'])),
+    }

@@ -543,8 +543,9 @@ _PRECISIONS = ('auto', 'highest', 'high')
 def _check_precision(fft_precision: str) -> None:
     if fft_precision in ('bf16', 'i16'):
         raise NotImplementedError(
-            f"fft_precision={fft_precision!r} is not ported (ROADMAP Queue 1 "
-            "item 2d); 'auto', 'highest' and 'high' all run float32"
+            f"fft_precision={fft_precision!r} is not ported here (ROADMAP Queue 2 "
+            "item 3: the frame kernel's storage tiers); 'auto', 'highest' and 'high' "
+            "all run float32"
         )
     if fft_precision not in _PRECISIONS:
         raise ValueError(f'fft_precision must be one of {_PRECISIONS}, not {fft_precision!r}')

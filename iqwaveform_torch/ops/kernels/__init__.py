@@ -15,6 +15,8 @@ from .fused_ola import (
     fused_ola_frames,
     fused_ola_frames_plain,
     fused_ola_plain,
+    fused_ola_strided,
+    fused_ola_strided_plain,
 )
 from .hist import hist, hist_plain
 from .spectrogram import (
@@ -27,7 +29,7 @@ from .upfirdn import upfirdn_cuda, upfirdn_plain
 
 KERNELS = (
     fused_ola, chan_stats, hist, spectrogram_dB, spectrogram_levels, colhist,
-    fused_ola_frames, upfirdn_cuda, corr,
+    fused_ola_frames, upfirdn_cuda, corr, fused_ola_strided,
 )
 
 __all__ = [
@@ -42,6 +44,8 @@ __all__ = [
     'fused_ola_frames',
     'fused_ola_frames_plain',
     'fused_ola_plain',
+    'fused_ola_strided',
+    'fused_ola_strided_plain',
     'hist',
     'hist_plain',
     'spectrogram_dB',

@@ -74,8 +74,8 @@ SIGNATURES = {
     'iqt_error_string': ([_I], ctypes.c_char_p),
     'iqt_device_attrs': ([_I, _P], _I),
     'iqt_fused_ola_prepare': ([_I], _I),
-    'iqt_fused_ola': ([_P] * 6 + [_I] * 13 + [_P], _I),
-    'iqt_fused_ola_reg': ([_P] * 5 + [_I] * 14 + [_P], _I),
+    'iqt_fused_ola': ([_P, _I, _P, _I] + [_P] * 6 + [_I] * 13 + [_P], _I),
+    'iqt_fused_ola_reg': ([_P, _I, _P, _I] + [_P] * 5 + [_I] * 14 + [_P], _I),
     'iqt_fused_ola_frames_prepare': ([_I], _I),
     'iqt_fused_ola_frames': ([_P, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
     'iqt_fused_ola_frames_reg': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),

@@ -4,11 +4,16 @@ plain PyTorch versions.
 Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
 (one thread-block cluster per frame on the cluster route):
 
-* :func:`fused_ola` replaces the TPU kernel ``fused_ola_strided``
-  (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571): framing at 2:1
-  overlap, analysis window, forward DFT, passband mask, trim nfft ->
-  nfft_out, inverse DFT, shift window and overlap-add, in one kernel. At
-  the flagship pair (:data:`OLA_REG_PAIR`, 16384 -> 8192) it launches
+* :func:`fused_ola_strided` and :func:`fused_ola` replace the TPU kernel
+  ``fused_ola_strided`` (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571):
+  framing at 2:1 overlap, analysis window, forward DFT, passband mask,
+  trim nfft -> nfft_out, inverse DFT, shift window and overlap-add, in
+  one kernel. :func:`fused_ola_strided` has the TPU kernel's contract:
+  (2, N) sample planes of float32, int16 or bfloat16 (the storage tiers,
+  :func:`to_storage`) or complex64, dequantized on load, a halo read past
+  the end and the final frame's tail returned; :func:`fused_ola` reads
+  complex64, zero-extends the end and drops the tail. At the flagship
+  pair (:data:`OLA_REG_PAIR`, 16384 -> 8192) both launch
   ``fused_ola_reg_kernel``, on the register-resident passes of the frame
   kernel below; at every other pair the radix-2 ``fused_ola_kernel``
   (:func:`ola_route` picks by size, before the launch).
@@ -36,7 +41,9 @@ frames; that of the 2:1 kernel is the single-device body of the JAX
 package's ``_sharded_ola_body`` (iqwaveform_tpu/parallel/sharded.py:252,
 with ``axis_name=None``): the 'extend' semantics (the capture end is
 zero-padded by ``noverlap_in`` samples) and the output trimmed to
-``n_frames * hop_out`` samples, the final frame's tail dropped.
+``n_frames * hop_out`` samples, the final frame's tail dropped; that of
+:func:`fused_ola_strided` the tier's rounding, the halo in place of the
+zeros and the tail kept (:func:`fused_ola_strided_plain`).
 
 Each wrapper takes its plain version only for a tensor on the CPU; on a
 CUDA tensor it launches its kernel or raises.
@@ -54,18 +61,25 @@ from ..stft import _unstack_stft_windows
 from . import _build
 
 __all__ = [
+    'LAYOUTS',
     'cluster_twiddles',
+    'dequantize',
     'fused_ola',
     'fused_ola_cuda_supported',
     'fused_ola_frames',
     'fused_ola_frames_plain',
     'fused_ola_frames_supported',
     'fused_ola_plain',
+    'fused_ola_strided',
+    'fused_ola_strided_plain',
     'frames_route',
     'ola_grouped',
     'ola_route',
     'reg_forward_twiddles',
     'reg_twiddles',
+    'storage_dtype',
+    'stored',
+    'to_storage',
 ]
 
 # the largest frame the 2:1 kernel holds in shared memory (128 KiB)
@@ -462,21 +476,26 @@ def ola_grouped(
     zero_hi,
     bounds_in,
     bounds_out,
-) -> torch.Tensor:
+    halo: torch.Tensor = None,
+    return_tail: bool = False,
+):
     """the monitor's OLA stage at any COLA overlap: ``x`` (..., N)
-    zero-extended by ``noverlap_in`` samples, ``N // hop_in`` frames at
-    ``hop_in`` through ``frames_fn`` (:func:`fused_ola_frames` or its plain
-    version), then the R = nfft_out / hop_out groups of every R-th frame
-    added at their offsets in a fixed order (the grouped pass of
-    iqwaveform_tpu/models/monitor.py:789-804). Returns (..., (N // hop_in)
-    * hop_out) complex64, the final frame's tail dropped."""
+    extended by ``noverlap_in`` samples (``halo`` (..., noverlap_in), the
+    next chunk's head, or zeros), ``N // hop_in`` frames at ``hop_in``
+    through ``frames_fn`` (:func:`fused_ola_frames` or its plain version),
+    then the R = nfft_out / hop_out groups of every R-th frame added at
+    their offsets in a fixed order (the grouped pass of
+    iqwaveform_tpu/models/monitor.py:789-804 and :1162-1168). Returns (...,
+    (N // hop_in) * hop_out) complex64; with ``return_tail``, also the final
+    frame's dangling tail (..., noverlap_out), which is dropped otherwise."""
     hop_in = nfft - noverlap_in
     hop_out = nfft_out - noverlap_out
     lead = x.shape[:-1]
     n_frames = x.shape[-1] // hop_in
 
     if noverlap_in > 0:
-        x = torch.cat([x, x.new_zeros(*lead, noverlap_in)], dim=-1)
+        ext = x.new_zeros(*lead, noverlap_in) if halo is None else halo.to(x.dtype)
+        x = torch.cat([x, ext], dim=-1)
     xstack = frames_fn(
         _local_frames(x, nfft, hop_in, n_frames), w_in=w_in,
         w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
@@ -484,7 +503,10 @@ def ola_grouped(
         bounds_out=bounds_out,
     )
     y = _unstack_stft_windows(xstack, noverlap=noverlap_out, nperseg=nfft_out, axis=xstack.ndim - 2)
-    return y[..., : n_frames * hop_out]
+    n_out = n_frames * hop_out
+    if return_tail:
+        return y[..., :n_out], y[..., n_out : n_out + noverlap_out]
+    return y[..., :n_out]
 
 
 def fused_ola_plain(
@@ -555,20 +577,18 @@ def fused_ola(
 
     Returns (..., (N // hop_in) * hop_out) complex64.
     """
+    kw = dict(
+        w_in=w_in, w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+        noverlap_in=noverlap_in, noverlap_out=noverlap_out, zero_lo=zero_lo,
+        zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
+    )
     if x.device.type == 'cpu':
-        return fused_ola_plain(
-            x, w_in=w_in, w_shift_out=w_shift_out, nfft=nfft,
-            nfft_out=nfft_out, noverlap_in=noverlap_in,
-            noverlap_out=noverlap_out, zero_lo=zero_lo, zero_hi=zero_hi,
-            bounds_in=bounds_in, bounds_out=bounds_out,
-        )
+        return fused_ola_plain(x, **kw)
     if x.device.type != 'cuda':
         raise ValueError(f'fused_ola runs on cpu or cuda tensors, not {x.device}')
-    return _launch_ola(
-        x, ola_route(nfft, nfft_out), w_in=w_in, w_shift_out=w_shift_out, nfft=nfft,
-        nfft_out=nfft_out, noverlap_in=noverlap_in, noverlap_out=noverlap_out,
-        zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
-    )
+    _build.require(x, 'x', device=x.device, dtype=torch.complex64)
+    y, _ = _launch_ola(x, None, ola_route(nfft, nfft_out), counter=fused_ola, tail=False, **kw)
+    return y
 
 
 def _fused_ola_generic(x: torch.Tensor, **kw) -> torch.Tensor:
@@ -576,13 +596,190 @@ def _fused_ola_generic(x: torch.Tensor, **kw) -> torch.Tensor:
     ``fused_ola_kernel`` at any supported pair, the flagship pair too: the
     yardstick of ``fused_ola_reg_kernel`` in chip_smoke.py and the card
     tests, never a route of the port."""
-    return _launch_ola(x, 'generic', **kw)
+    _build.require(x, 'x', device=x.device, dtype=torch.complex64)
+    y, _ = _launch_ola(x, None, 'generic', counter=fused_ola, tail=False, **kw)
+    return y
+
+
+# the 2:1 kernels' input layouts: the element type of the samples they
+# read, and its code in csrc/fused_ola.cu (IQT_LAYOUTS): interleaved
+# complex64, or (2, N) planes of float32, int16 or bfloat16
+LAYOUTS = {torch.complex64: 0, torch.float32: 1, torch.int16: 2, torch.bfloat16: 3}
+# the storage type of each fft_precision tier (the JAX package's
+# _storage_dtype, iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:329): the
+# 'bf16' tier stores the samples as bfloat16, 'i16' as int16 counts, every
+# other tier as float32
+_STORAGE = {'bf16': torch.bfloat16, 'i16': torch.int16}
+
+
+def storage_dtype(precision) -> torch.dtype:
+    """the sample storage type of an ``fft_precision`` tier."""
+    return _STORAGE.get(precision, torch.float32)
+
+
+def to_storage(planes: torch.Tensor, precision) -> torch.Tensor:
+    """(..., 2, N) real planes in the storage type of ``precision``'s tier,
+    as the JAX package's ``_to_storage`` (fused_ola_pallas.py:348) converts
+    them: float planes round to the nearest integer for the 'i16' tier
+    (half to even; a plain cast would truncate), any other conversion is a
+    cast. Planes of a type the float32 tier holds exactly (int16,
+    bfloat16) stay as they are there: the kernels dequantize them on load,
+    to the same values."""
+    sdt = storage_dtype(precision)
+    if planes.dtype == sdt or (sdt == torch.float32 and planes.dtype in (torch.int16, torch.bfloat16)):
+        return planes
+    if sdt == torch.int16 and planes.is_floating_point():
+        return torch.round(planes).to(torch.int16)
+    return planes.to(sdt)
+
+
+def stored(x: torch.Tensor, precision) -> torch.Tensor:
+    """the 2:1 kernels' input for ``x``: a complex64 (..., N) tensor as it
+    is at the float32 tier, else its planes; real (..., 2, N) planes in the
+    tier's storage type (:func:`to_storage`)."""
+    if x.is_complex():
+        if storage_dtype(precision) == torch.float32:
+            return x.to(torch.complex64)
+        x = torch.stack([x.real, x.imag], dim=-2)
+    if x.dim() < 2 or x.shape[-2] != 2:
+        raise ValueError(f'planes must be (..., 2, N) real, not {tuple(x.shape)}')
+    return to_storage(x, precision)
+
+
+def dequantize(src: torch.Tensor) -> torch.Tensor:
+    """complex64 samples of a kernel input (:func:`stored`): the planes'
+    values in float32 (exact for int16 and bfloat16), as the kernels read
+    them."""
+    if src.is_complex():
+        return src.to(torch.complex64)
+    src = src.to(torch.float32)
+    return torch.complex(src[..., 0, :], src[..., 1, :])
+
+
+def _strided_kwargs(nfft, nfft_out, hop_in, **kw) -> dict:
+    """the 2:1 overlaps of fused_ola_strided's contract, checked."""
+    if nfft != 2 * hop_in or nfft_out % 2:
+        raise ValueError(
+            'fused_ola_strided takes 2:1 frame overlap (nfft = 2 hop_in, even '
+            f'nfft_out), not nfft={nfft}, hop_in={hop_in}, nfft_out={nfft_out}'
+        )
+    return dict(nfft=nfft, nfft_out=nfft_out, noverlap_in=hop_in, noverlap_out=nfft_out // 2, **kw)
+
+
+def _check_strided(src, halo, n_frames, hop_in):
+    n = src.shape[-1]
+    if n != n_frames * hop_in:
+        raise ValueError(
+            f'the input holds {n} samples a row, not n_frames * hop_in = {n_frames * hop_in}'
+        )
+    if halo is not None and (halo.shape[:-1] != src.shape[:-1] or halo.shape[-1] != hop_in):
+        raise ValueError(
+            f'halo must be the input\'s layout with {hop_in} samples a row: '
+            f'{tuple(halo.shape)} against {tuple(src.shape)}'
+        )
+
+
+def fused_ola_strided_plain(
+    planes: torch.Tensor,
+    halo: torch.Tensor = None,
+    *,
+    n_frames: int,
+    hop_in: int,
+    nfft: int,
+    nfft_out: int,
+    zero_lo: int,
+    zero_hi,
+    bounds_in,
+    bounds_out,
+    w_in: torch.Tensor,
+    w_shift_out: torch.Tensor,
+    precision='highest',
+) -> tuple:
+    """plain PyTorch version of :func:`fused_ola_strided` (same arguments):
+    the tier's rounding, then the grouped overlap-add of the frames' plain
+    chain, extended by the halo, with the tail."""
+    src = stored(planes, precision)
+    h = None if halo is None else stored(halo, precision)
+    _check_strided(src, h, n_frames, hop_in)
+    return ola_grouped(
+        dequantize(src), frames_fn=fused_ola_frames_plain,
+        halo=None if h is None else dequantize(h), return_tail=True,
+        **_strided_kwargs(
+            nfft, nfft_out, hop_in, w_in=w_in, w_shift_out=w_shift_out, zero_lo=zero_lo,
+            zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
+        ),
+    )
+
+
+def fused_ola_strided(
+    planes: torch.Tensor,
+    halo: torch.Tensor = None,
+    *,
+    n_frames: int,
+    hop_in: int,
+    nfft: int,
+    nfft_out: int,
+    zero_lo: int,
+    zero_hi,
+    bounds_in,
+    bounds_out,
+    w_in: torch.Tensor,
+    w_shift_out: torch.Tensor,
+    precision='highest',
+) -> tuple:
+    """OLA bandpass + resample at 2:1 frame overlap, with framing, the
+    overlap-add, a halo and the tail: the contract of the JAX package's
+    ``fused_ola_strided`` (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571),
+    in the port's layouts.
+
+    planes: (..., 2, n_frames * hop_in) raw (real, imag) sample planes of
+        float32, int16 or bfloat16, or a complex64 (..., n_frames * hop_in)
+        tensor. ``precision`` picks the storage tier (:func:`storage_dtype`):
+        the samples are converted to it first (:func:`to_storage`; complex
+        input at the 'bf16' and 'i16' tiers becomes planes), and the kernel
+        dequantizes them on load.
+    halo: the samples past the end, in the same layout with ``hop_in``
+        samples a row (the next chunk's or shard's head), or None for zeros.
+
+    Frames of nfft = 2 hop_in samples every hop_in, times ``w_in`` (the
+    analysis window with 1/sum|w[::hop_in]| and any input scale folded in),
+    FFT, bins outside [zero_lo, zero_hi) zeroed, bins [bounds_in) moved to
+    [bounds_out) of an nfft_out-bin spectrum, inverse FFT, times
+    ``w_shift_out``, overlap-added every hop_out = nfft_out / 2.
+
+    Returns (y, tail): y (..., n_frames * hop_out) complex64, the
+    overlap-added output; tail (..., hop_out) complex64, the final frame's
+    dangling second half (add it to the next chunk's first outputs, or
+    drop it to match a one-shot OLA trimmed to n_frames * hop_out).
+    """
+    kw = dict(
+        n_frames=n_frames, hop_in=hop_in, nfft=nfft, nfft_out=nfft_out, zero_lo=zero_lo,
+        zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out, w_in=w_in,
+        w_shift_out=w_shift_out, precision=precision,
+    )
+    if planes.device.type == 'cpu':
+        return fused_ola_strided_plain(planes, halo, **kw)
+    if planes.device.type != 'cuda':
+        raise ValueError(f'fused_ola_strided runs on cpu or cuda tensors, not {planes.device}')
+    src = stored(planes, precision)
+    h = None if halo is None else stored(halo, precision).to(src.dtype)
+    _check_strided(src, h, n_frames, hop_in)
+    ola_kw = _strided_kwargs(
+        nfft, nfft_out, hop_in, w_in=w_in, w_shift_out=w_shift_out, zero_lo=zero_lo,
+        zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
+    )
+    return _launch_ola(
+        src, h, ola_route(nfft, nfft_out), counter=fused_ola_strided, tail=True, **ola_kw
+    )
 
 
 def _launch_ola(
-    x: torch.Tensor,
+    src: torch.Tensor,
+    halo,
     route: str,
     *,
+    counter,
+    tail: bool,
     w_in: torch.Tensor,
     w_shift_out: torch.Tensor,
     nfft: int,
@@ -593,10 +790,16 @@ def _launch_ola(
     zero_hi,
     bounds_in,
     bounds_out,
-) -> torch.Tensor:
-    """launch ``route``'s 2:1 kernel ('reg' or 'generic') on CUDA ``x``;
-    counts the launch in ``fused_ola.launches`` and
-    ``fused_ola.route_launches[route]``."""
+) -> tuple:
+    """launch ``route``'s 2:1 kernel ('reg' or 'generic') on CUDA ``src``
+    (complex64 (..., N), or (..., 2, N) planes of a type of
+    :data:`LAYOUTS`), reading ``halo`` (the same layout, ``noverlap_in``
+    samples a row, or None) past the end; returns (y, tail), tail None
+    unless asked for. With a halo or a tail, each row's last frame takes
+    the register kernel's edge path (csrc/fused_ola.cu reg_ola_frame).
+    Counts the launch in ``counter.launches`` (the calling wrapper),
+    ``counter.route_launches[route]`` and
+    ``counter.layout_launches[dtype name]``."""
     if not fused_ola_cuda_supported(nfft, nfft_out, noverlap_in, noverlap_out):
         raise NotImplementedError(
             'the CUDA fused OLA kernel takes power-of-two sizes up to '
@@ -604,52 +807,75 @@ def _launch_ola(
             f'nfft_out={nfft_out}, noverlap_in={noverlap_in}, '
             f'noverlap_out={noverlap_out} (ROADMAP Queue 2 item 1)'
         )
-    dev = x.device
-    _build.require(x, 'x', device=dev, dtype=torch.complex64)
+    dev = src.device
+    if src.dtype not in LAYOUTS:
+        raise TypeError(f'the 2:1 kernels read {sorted(map(str, LAYOUTS))}, not {src.dtype}')
+    _build.require(src, 'x', device=dev, dtype=src.dtype)
     _build.require(w_in, 'w_in', device=dev, dtype=torch.complex64, shape=(nfft,))
     _build.require(
         w_shift_out, 'w_shift_out', device=dev, dtype=torch.complex64,
         shape=(nfft_out,),
     )
+    rows = 1 if src.dtype == torch.complex64 else 2
+    if rows == 2 and (src.dim() < 2 or src.shape[-2] != 2):
+        raise ValueError(f'planes must be (..., 2, N), not {tuple(src.shape)}')
+    lead = src.shape[: src.dim() - rows]
+    n_in = src.shape[-1]
+    batch = src.numel() // (rows * n_in) if n_in else 0
     hop_in = nfft - noverlap_in
     hop_out = nfft_out - noverlap_out
-    lead, n_in = x.shape[:-1], x.shape[-1]
-    batch = x.numel() // n_in if n_in else 0
     n_frames = n_in // hop_in
     n_out = n_frames * hop_out
     if n_frames == 0 or batch == 0:
         raise ValueError(f'fused_ola needs at least one frame ({hop_in} samples) per row')
     if n_in >= 2**31 or batch >= 2**16:
         raise ValueError('fused_ola takes rows below 2**31 samples and batches below 2**16')
+    n_halo = 0
+    if halo is not None:
+        _build.require(halo, 'halo', device=dev, dtype=src.dtype)
+        n_halo = halo.shape[-1]
+        if halo.numel() != batch * rows * n_halo or n_halo > noverlap_in:
+            raise ValueError(
+                f'halo must hold at most {noverlap_in} samples a row of the input\'s '
+                f'{batch} rows, not shape {tuple(halo.shape)}'
+            )
     (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
     zero_hi = nfft if zero_hi is None else int(zero_hi)
 
     y = torch.zeros((batch, n_out), dtype=torch.complex64, device=dev)
+    t = torch.empty((batch, noverlap_out), dtype=torch.complex64, device=dev) if tail else None
+    layout = LAYOUTS[src.dtype]
+    halo_ptr = None if halo is None else halo.data_ptr()
+    tail_ptr = None if t is None else t.data_ptr()
     _build.prepare('iqt_fused_ola_prepare', dev)
     if route == 'reg':
         tw = reg_twiddles(nfft, nfft_out, dev)
         err = _build.library().iqt_fused_ola_reg(
-            x.data_ptr(), w_in.data_ptr(), w_shift_out.data_ptr(), tw.data_ptr(),
-            y.data_ptr(), tw.numel(), batch, n_in, n_frames, n_out, nfft, nfft_out,
-            hop_in, hop_out, int(zero_lo), zero_hi, int(in_lo), int(out_lo),
-            int(out_hi), _build.stream_of(x),
+            src.data_ptr(), layout, halo_ptr, n_halo, w_in.data_ptr(), w_shift_out.data_ptr(),
+            tw.data_ptr(), y.data_ptr(), tail_ptr, tw.numel(), batch, n_in, n_frames, n_out,
+            nfft, nfft_out, hop_in, hop_out, int(zero_lo), zero_hi, int(in_lo), int(out_lo),
+            int(out_hi), _build.stream_of(src),
         )
     else:
         err = _build.library().iqt_fused_ola(
-            x.data_ptr(), w_in.data_ptr(), _build.twiddles(nfft, dev).data_ptr(),
-            w_shift_out.data_ptr(), _build.twiddles(nfft_out, dev).data_ptr(),
-            y.data_ptr(), batch, n_in, n_frames, n_out,
-            _build.log2_exact(nfft), _build.log2_exact(nfft_out), hop_in, hop_out,
-            int(zero_lo), zero_hi, int(in_lo), int(out_lo), int(out_hi),
-            _build.stream_of(x),
+            src.data_ptr(), layout, halo_ptr, n_halo, w_in.data_ptr(),
+            _build.twiddles(nfft, dev).data_ptr(), w_shift_out.data_ptr(),
+            _build.twiddles(nfft_out, dev).data_ptr(), y.data_ptr(), tail_ptr, batch, n_in,
+            n_frames, n_out, _build.log2_exact(nfft), _build.log2_exact(nfft_out), hop_in,
+            hop_out, int(zero_lo), zero_hi, int(in_lo), int(out_lo), int(out_hi),
+            _build.stream_of(src),
         )
-    _build.check(err, f'fused_ola ({route} kernel)')
-    fused_ola.launches += 1
-    fused_ola.route_launches[route] += 1
-    return y.reshape(*lead, n_out)
+    _build.check(err, f'{counter.__name__} ({route} kernel, {src.dtype} input)')
+    counter.launches += 1
+    counter.route_launches[route] += 1
+    counter.layout_launches[str(src.dtype).split('.')[-1]] += 1
+    return y.reshape(*lead, n_out), None if t is None else t.reshape(*lead, noverlap_out)
 
 
-fused_ola.launches = 0
 # launches by kernel: 'reg' (fused_ola_reg_kernel), 'generic'
-# (fused_ola_kernel)
-fused_ola.route_launches = {'reg': 0, 'generic': 0}
+# (fused_ola_kernel); and by the input's element type
+for _wrapper in (fused_ola, fused_ola_strided):
+    _wrapper.launches = 0
+    _wrapper.route_launches = {'reg': 0, 'generic': 0}
+    _wrapper.layout_launches = {'complex64': 0, 'float32': 0, 'int16': 0, 'bfloat16': 0}
+del _wrapper

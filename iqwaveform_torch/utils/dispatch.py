@@ -13,6 +13,7 @@ import torch
 __all__ = [
     'array_namespace',
     'is_torch_tensor',
+    'pack_iq_f32',
     'resolve_device',
     'to_device',
     'to_host',
@@ -60,6 +61,14 @@ def to_host(x) -> np.ndarray:
     if is_torch_tensor(x):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def pack_iq_f32(x) -> np.ndarray:
+    """complex IQ as a (2, ...) float32 array of (real, imag) planes (the
+    layout of ``WidebandMonitor.step_planes`` and ``read_iq_planes``),
+    on the host; ``unpack_iq`` rebuilds the complex samples."""
+    x = np.asarray(to_host(x))
+    return np.stack([x.real, x.imag]).astype('float32')
 
 
 def unpack_iq(ri: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Host-side numeric helpers of the design layer.
 
 Copied from iqwaveform_tpu/utils/numerics.py (reference util.py:136-141,
-util.py:545-568, util.py:592-594, ofdm.py:643-645): only the helpers that
-the window, resampler and OFDM numerology design code calls.
+util.py:545-568, util.py:592-594, ofdm.py:643-645): the helpers that the
+window, resampler and OFDM numerology design code calls, and the float32
+pair counters of the JAX monitor's streaming carry, which the port reads
+to carry a capture over (models.monitor_carry_from_reference).
 """
 
 from __future__ import annotations
@@ -12,9 +14,55 @@ import math
 import numpy as np
 
 from .caching import lru_cache
-from .dispatch import to_host
+from .dispatch import array_namespace, to_host
 
-__all__ = ['ceildiv', 'dtype_change_float', 'isclosetoint', 'isroundmod']
+__all__ = [
+    'ceildiv',
+    'counter_fold',
+    'counter_int64',
+    'counter_value',
+    'dtype_change_float',
+    'isclosetoint',
+    'isroundmod',
+]
+
+# ---- exact wide counters as float32 (hi, lo) pairs
+#
+# The JAX monitor's streaming carry keeps each count as two float32
+# planes, value = hi * 2**23 + lo with lo in [0, 2**23), both integers
+# below 2**24 where float32 is exact (iqwaveform_tpu/utils/numerics.py:
+# 32-60): a TPU-transfer workaround. The port's own carry keeps int64
+# counters; these copies fold and read the pairs for parity and to carry a
+# JAX capture's state over.
+
+COUNTER_SCALE = float(1 << 23)
+
+
+def counter_fold(hi, lo, delta):
+    """fold integer-valued ``delta`` (integer-valued float32 below 2**24
+    per element) into the (hi, lo) float32 pair counter; numpy arrays or
+    tensors."""
+    xp = array_namespace(hi)
+    delta = delta.astype(hi.dtype) if xp is np else delta.to(hi.dtype)
+    d_hi = xp.floor(delta / COUNTER_SCALE)
+    d_lo = delta - d_hi * COUNTER_SCALE
+    lo1 = lo + d_lo
+    spill = xp.floor(lo1 / COUNTER_SCALE)
+    return hi + d_hi + spill, lo1 - spill * COUNTER_SCALE
+
+
+def counter_value(hi, lo):
+    """read a (hi, lo) pair counter as float32 (exact below 2**24,
+    nearest-float32 above), as the JAX monitor's flush reads it."""
+    return hi * COUNTER_SCALE + lo
+
+
+def counter_int64(hi, lo) -> np.ndarray:
+    """a (hi, lo) pair counter as exact int64 counts: each part is an
+    integer below 2**24, so the float64 sum is exact up to 2**53."""
+    hi = np.asarray(to_host(hi), dtype=np.float64)
+    lo = np.asarray(to_host(lo), dtype=np.float64)
+    return np.rint(hi * COUNTER_SCALE + lo).astype(np.int64)
 
 
 def ceildiv(a: int, b: int) -> int:

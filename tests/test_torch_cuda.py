@@ -60,6 +60,7 @@ from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route
 from iqwaveform_torch.ops.kernels.corr import corr_blocking
 from iqwaveform_torch.ops.kernels.fused_ola import (
     CLUSTER_PAIRS,
+    fused_ola_strided_plain,
     _fused_ola_frames_generic,
     _fused_ola_generic,
     frames_route,
@@ -1110,3 +1111,159 @@ def test_monitor_at_the_channelizer_designs_steps(card, name):
         band = ref[key] > -100
         assert int(band.sum()) > 0
         assert float((out[key][band] - ref[key][band]).abs().max()) <= 0.01, key
+
+
+# ---- row 1's full contract (planes at the storage tiers, a halo, the
+# tail) and the monitor's long-capture path: step_planes, the stream and
+# the packed APD route ----
+
+LAYOUT_OF_TIER = {'highest': 'float32', 'i16': 'int16', 'bf16': 'bfloat16'}
+
+
+def _strided_kw(monitor, route, tier):
+    """the flagship pair (the register kernel) or 8192 -> 4096 (the radix-2
+    kernel) at ``tier``."""
+    if route == 'reg':
+        return {**monitor.strided_kwargs, 'precision': tier}
+    return dict(hop_in=4096, nfft=8192, nfft_out=4096, zero_lo=300, zero_hi=7900,
+                bounds_in=(2048, 6144), bounds_out=(0, 4096), w_in=_noise(8192, 26),
+                w_shift_out=_noise(4096, 27), precision=tier)
+
+
+def _reset_strided():
+    k = kernels.fused_ola_strided
+    k.launches = 0
+    k.route_launches.update(reg=0, generic=0)
+    k.layout_launches.update(dict.fromkeys(k.layout_launches, 0))
+
+
+@pytest.mark.parametrize('route', ['reg', 'generic'])
+@pytest.mark.parametrize('tier', sorted(LAYOUT_OF_TIER))
+def test_strided_kernel_matches_plain(monitor, tier, route):
+    """fused_ola_strided on two rows of (2, N) planes of the tier's storage
+    type, with a halo: one launch on its route reading that type, the
+    output and tail as one within 1e-5 relative RMS of the plain version;
+    at float32 the same samples as complex64 give the same output bit for
+    bit, and without a halo fused_ola's."""
+    kw = _strided_kw(monitor, route, tier)
+    hop, n_frames = kw['hop_in'], 41
+    gen = torch.Generator(device='cuda').manual_seed(40)
+    planes = 1000 * torch.randn((2, 2, (n_frames + 1) * hop), device='cuda', generator=gen)
+    if tier == 'i16':
+        planes = planes.round().to(torch.int16)
+    elif tier == 'bf16':
+        planes = planes.to(torch.bfloat16)
+    x, h = planes[..., : n_frames * hop].contiguous(), planes[..., n_frames * hop :].contiguous()
+    _reset_strided()
+    y, tail = kernels.fused_ola_strided(x, h, n_frames=n_frames, **kw)
+    torch.cuda.synchronize()
+    k = kernels.fused_ola_strided
+    assert (k.launches, k.route_launches[route], k.layout_launches[LAYOUT_OF_TIER[tier]]) == (1, 1, 1)
+    assert y.shape == (2, n_frames * kw['nfft_out'] // 2) and tail.shape == (2, kw['nfft_out'] // 2)
+    ry, rt = fused_ola_strided_plain(x, h, n_frames=n_frames, **kw)
+    assert rel_rms(torch.cat([y, tail], -1), torch.cat([ry, rt], -1)) <= 1e-5
+    if tier == 'highest':
+        z, zh = torch.complex(x[:, 0], x[:, 1]), torch.complex(h[:, 0], h[:, 1])
+        yc, tc = kernels.fused_ola_strided(z, zh, n_frames=n_frames, **kw)
+        assert k.layout_launches['complex64'] == 1
+        assert torch.equal(yc, y) and torch.equal(tc, tail)
+        ola_kw = {key: v for key, v in kw.items() if key not in ('hop_in', 'precision')}
+        y0 = kernels.fused_ola(z, noverlap_in=hop, noverlap_out=kw['nfft_out'] // 2, **ola_kw)
+        assert torch.equal(kernels.fused_ola_strided(z, None, n_frames=n_frames, **kw)[0], y0)
+
+
+def test_strided_int16_equals_float_planes_of_the_same_integers(monitor):
+    """int16 planes at 'i16' and float32 planes holding the same integers
+    at 'highest' give the same output bit for bit (the kernel dequantizes
+    int16 exactly)."""
+    gen = torch.Generator(device='cuda').manual_seed(41)
+    n_frames, hop = 64, monitor.hop_in
+    counts = (3000 * torch.randn((2, (n_frames + 1) * hop), device='cuda', generator=gen)).round()
+    x, h = counts[:, : n_frames * hop], counts[:, n_frames * hop :]
+    kw = monitor.strided_kwargs
+    yi, ti = kernels.fused_ola_strided(x.to(torch.int16), h.to(torch.int16), n_frames=n_frames,
+                                       **{**kw, 'precision': 'i16'})
+    yf, tf = kernels.fused_ola_strided(x.contiguous(), h.contiguous(), n_frames=n_frames, **kw)
+    assert torch.equal(yi, yf) and torch.equal(ti, tf)
+
+
+def _check_stats(out, ref, exact_apd):
+    for key in ('channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+    for key in ('psd_mean', 'psd_max'):
+        band = ref[key] > -90
+        assert float((out[key] - ref[key])[band].abs().max()) <= 0.01, key
+    a, b = out['apd_counts'].long(), ref['apd_counts'].long()
+    assert int(a.sum()) == int(b.sum())
+    if exact_apd:
+        assert torch.equal(a, b)
+    else:
+        assert int((a.cumsum(0) - b.cumsum(0)).abs().max()) <= 2
+
+
+def test_step_planes_i16_launches_the_int16_kernel(monitor):
+    """step_planes on int16 counts at 'i16' (input_scale 2^-15): one launch
+    each of the 2:1 register kernel on int16 planes, the channelizer and
+    the histogram, the outputs within the step gates of reference_step on
+    the same values."""
+    import dataclasses
+
+    mon = it.WidebandMonitor(dataclasses.replace(monitor.design, fft_precision='i16',
+                                                 input_scale=2.0**-15))
+    gen = torch.Generator(device='cuda').manual_seed(42)
+    n = 8 * mon.min_input_multiple()
+    counts = (8000 * torch.randn((2, n), device='cuda', generator=gen)).round().to(torch.int16)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    _reset_strided()
+    out = mon.step_planes(counts)
+    torch.cuda.synchronize()
+    assert (kernels.fused_ola_strided.launches, kernels.chan_stats.launches,
+            kernels.hist.launches, kernels.fused_ola.launches) == (1, 1, 1, 0)
+    assert kernels.fused_ola_strided.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.fused_ola_strided.layout_launches['int16'] == 1
+    ref = mon.reference_step(torch.complex(counts[0].float(), counts[1].float()))
+    _check_stats(out, ref, exact_apd=False)
+    assert rel_rms(out['channel_power'], ref['channel_power']) <= 1e-5
+
+
+def test_stream_on_the_card_matches_the_step(monitor):
+    """accumulate_step over 4 chunks and flush: one launch each of rows 1,
+    5 and 6 per chunk, the statistics of the one-shot step on the whole
+    capture (apd_counts equal: the stream's resampled samples are the
+    step's, bit for bit)."""
+    chunk = 2 * monitor.min_input_multiple()
+    x = _noise(4 * chunk, 43)
+    carry = monitor.init_carry(chunk)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    for i in range(4):
+        carry = monitor.accumulate_step(carry, x[i * chunk : (i + 1) * chunk])
+    out = monitor.flush(carry)
+    torch.cuda.synchronize()
+    assert (kernels.fused_ola_strided.launches, kernels.chan_stats.launches,
+            kernels.hist.launches) == (4, 4, 4)
+    assert out['apd_counts'].dtype == torch.int64
+    _check_stats(out, monitor.step(x), exact_apd=True)
+
+
+def test_packed_apd_launches_the_column_counter(monitor):
+    """apd_kernel='packed': one launch of colhist_reg_kernel on the binned
+    power's levels and no histogram kernel; the counts of the plain column
+    counter on the same samples exactly, and of the edge histogram within
+    the packed rule's bar."""
+    import dataclasses
+
+    mon = it.WidebandMonitor(dataclasses.replace(monitor.design, apd_kernel='packed'))
+    x = _noise(8 * mon.min_input_multiple(), 44)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    kernels.colhist.route_launches.update(reg=0, generic=0)
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert (kernels.colhist.launches, kernels.hist.launches) == (1, 0)
+    assert kernels.colhist.route_launches == {'reg': 1, 'generic': 0}
+    p = kernels.chan_stats(mon._step_ola(x), **mon.chan_kwargs)['p_binned']
+    assert torch.equal(mon._packed_counts(p, counter=kernels.colhist),
+                       mon._packed_counts(p, counter=kernels.colhist_plain))
+    _check_stats(out, monitor.step(x), exact_apd=False)

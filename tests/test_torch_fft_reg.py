@@ -14,7 +14,9 @@ round masked where T does not divide N / R), the Stockham read and write
 indices, the padded exchange buffer, the H / L twiddle tables in their
 shared-memory layout, the trim folded into the inverse's first load, and
 the last pass's scaled, windowed store; for the 2:1 kernel also the
-masked halo load past the row's end and the overlap-add cut at n_out; for
+masked halo load past the row's end and the overlap-add cut at n_out,
+and, as fused_ola_strided launches it, the load from two planes, the halo
+read past the end and the tail stored past n_out; for
 the channelizer the |Y|^2 store over the exchange buffer and the warp sums
 of each channel's kept bins; for the statistics kernel the runs of
 frames of a block, the windowed pass-0 load, the shuffle-binned detector
@@ -55,6 +57,7 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     frames_route,
     fused_ola_cuda_supported,
     fused_ola_frames_supported,
+    ola_grouped,
     ola_route,
     reg_forward_twiddles,
     reg_twiddles,
@@ -230,6 +233,46 @@ def ola_model(x, w_in, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo, o
             frame_model(load, store, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
                         out_hi, buf)
     return y
+
+
+def strided_model(planes, halo, w_in, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                  out_hi):
+    """the 2:1 kernel as fused_ola_strided launches it, on (batch, 2, n_in)
+    planes and a (batch, 2, n_halo) halo: frame sample i of block (m, b)
+    reads the row below ``valid`` (its real plane, then the imaginary one
+    n_in values on), the halo below valid + n_halo, zero after; each output
+    below n_out is added into y, each at and past it stored into the row's
+    tail (one frame, the last, reaches past n_out)."""
+    batch, _, n_in = planes.shape
+    n_halo = halo.shape[-1]
+    hop_in, hop_out = nfft // 2, nfft_out // 2
+    n_frames = n_in // hop_in
+    n_out = n_frames * hop_out
+    buf = np.zeros(nfft + nfft // 16, complex)
+    y = np.zeros((batch, n_out), complex)
+    tail = np.full((batch, nfft_out - hop_out), np.nan, complex)
+    for b in range(batch):
+        row = planes[b, 0] + 1j * planes[b, 1]
+        hrow = halo[b, 0] + 1j * halo[b, 1]
+        for m in range(n_frames):
+            start = m * hop_in
+            valid = min(n_in - start, nfft)
+            room = min(n_out - m * hop_out, nfft_out)
+
+            def load(idx, start=start, valid=valid, row=row, hrow=hrow):
+                own = row[start + np.clip(idx, 0, valid - 1)]
+                past = hrow[np.clip(idx - valid, 0, n_halo - 1)] if n_halo else 0
+                v = np.where(idx < valid, own, np.where(idx - valid < n_halo, past, 0))
+                return v * w_in[idx]
+
+            def store(idx, v, b=b, m=m, room=room):
+                inside = idx < room
+                y[b, m * hop_out + idx[inside]] += v[inside]
+                tail[b, idx[~inside] - room] = v[~inside]
+
+            frame_model(load, store, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                        out_hi, buf)
+    return y, tail
 
 
 def warp_sum(vals):
@@ -453,6 +496,33 @@ def test_ola_model_matches_plain(batch):
     n_out = got.shape[1]
     assert rel(longer[:, :n_out - nfft_out // 2], got[:, :n_out - nfft_out // 2]) <= 1e-12
     assert rel(longer[:, n_out - nfft_out // 2:n_out], got[:, n_out - nfft_out // 2:]) > 1e-3
+
+
+@pytest.mark.parametrize('n_halo', [8192, 100, 0])
+def test_strided_model_matches_plain(n_halo):
+    """the modelled 2:1 kernel on planes with a halo and the tail, at the
+    flagship design, against the plain chain (ola_grouped with the halo
+    and the tail) in complex128, on two rows of 5 hops; a halo shorter
+    than noverlap_in reads zeros after it."""
+    kw = _flagship_ola_kwargs()
+    nfft, nfft_out = OLA_REG_PAIR
+    rng = np.random.default_rng(n_halo)
+    planes = rng.standard_normal((2, 2, 5 * nfft // 2))
+    halo = rng.standard_normal((2, 2, n_halo))
+    wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    (in_lo, _), (out_lo, out_hi) = kw['bounds_in'], kw['bounds_out']
+    zero_hi = nfft if kw['zero_hi'] is None else kw['zero_hi']
+    y, tail = strided_model(planes, halo, wide['w_in'].numpy(), wide['w_shift_out'].numpy(),
+                            nfft, nfft_out, kw['zero_lo'], zero_hi, in_lo, out_lo, out_hi)
+    full = np.zeros((2, 2, nfft // 2))
+    full[..., :n_halo] = halo
+    x = torch.from_numpy(planes[:, 0] + 1j * planes[:, 1])
+    h = torch.from_numpy(full[:, 0] + 1j * full[:, 1])
+    ry, rt = ola_grouped(x, frames_fn=kernels.fused_ola_frames_plain, halo=h, return_tail=True,
+                         **wide)
+    assert y.shape == ry.shape == (2, 5 * nfft_out // 2)
+    assert tail.shape == rt.shape == (2, nfft_out // 2)
+    assert rel(y, ry.numpy()) <= 1e-12 and rel(tail, rt.numpy()) <= 1e-12
 
 
 @pytest.mark.parametrize('channels,skip', [(64, 4096), (48, 4096)])

@@ -244,15 +244,48 @@ def test_default_device_is_cuda(monkeypatch):
     assert it.WidebandMonitor(design, device='cpu').device.type == 'cpu'
 
 
+# the JAX package's smallest design with its Pallas kernels armed
+# (tests/test_monitor.py:665-675), at 'highest'
+SMALL_PACKED = dict(
+    bw=10e6, fs_sdr=30.72e6, channel_count=8, fft_size_per_channel=128, window='hamming',
+    apd_bins=64, apd_navg=8, fft_backend='mxu', min_fft_size=2047, ola_kernel='pallas',
+    apd_kernel='pallas', chan_kernel='pallas', fft_precision='highest',
+)
+
+
 @pytest.mark.parametrize(
     'field,value',
     [('fft_precision', 'bf16'), ('fft_precision', 'i16'), ('apd_kernel', 'packed')],
 )
-def test_unported_tiers_raise(field, value):
-    rates, kw = DESIGNS['small']
-    design = dataclasses.replace(it.design_wideband_monitor(*rates, **kw), **{field: value})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        it.WidebandMonitor(design, device='cpu')
+def test_tiers_and_packed_apd_match_jax(field, value):
+    """the settings the port took last: the storage tiers and the packed
+    APD route, each in step() against the JAX monitor's step at the same
+    setting, on 8 min_input_multiple()s of noise (integer counts for
+    'i16'): channel power within 2e-2 of the mean where it is inside the
+    passband (the JAX bf16 bar, tests/test_monitor.py:506-542; 'i16' within
+    2e-5 of the largest value, :603-609), APD totals equal and cumulative
+    counts within 2."""
+    jd = jax_design(30.72e6, 15.36e6, **{**SMALL_PACKED, field: value})
+    jm = JaxMonitor(jd)
+    tm = it.WidebandMonitor(it.design_from_reference(dataclasses.asdict(jd)), device='cpu')
+    assert getattr(tm.design, field) == value
+    n = 8 * jm.min_input_multiple()
+    rng = np.random.default_rng(24)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    if value == 'i16':
+        x = np.round(1000 * x.real) + 1j * np.round(1000 * x.imag)
+    x = x.astype('complex64')
+    ref = {k: np.asarray(v) for k, v in jax.jit(jm.step)(jnp.asarray(x)).items()}
+    got = {k: v.numpy() for k, v in tm.step(x).items()}
+    cp, cp_ref = got['channel_power_mean'], ref['channel_power_mean']
+    inside = cp_ref > 1e-6 * cp_ref.max()
+    if value == 'i16':
+        np.testing.assert_allclose(cp, cp_ref, atol=2e-5 * np.abs(cp_ref).max())
+    else:
+        np.testing.assert_allclose(cp[inside], cp_ref[inside], rtol=2e-2)
+    a, b = got['apd_counts'].astype(np.int64), ref['apd_counts'].astype(np.int64)
+    assert a.sum() == b.sum() == n // 2 // tm.design.apd_navg
+    assert np.abs(np.cumsum(a) - np.cumsum(b)).max() <= 2
 
 
 def test_input_scale_folds_into_the_window():
