@@ -233,10 +233,36 @@ halo, the tail), at the flagship design:
    version, timed beside ``hist_bucket_kernel``
    (row ``colhist_packed_apd``); (f) ``profile_step`` on the flagship
    step, its report printed. ptxas must report no spill in
-   ``fused_ola_reg_kernel`` at any input type.
+   ``fused_ola_reg_kernel`` at any input type;
+
+then BASELINE config #1 (bench.py:212-251 and :399-455) on 2^24 complex64
+samples of a tone + noise 10 dB below it at 122.88 MS/s, made on the card,
+nfft 1024 hann:
+
+19. (a) ``spectrogram`` against a float64 numpy / scipy spectrogram of the
+   same samples (1e-5 relative RMS; freqs and times exactly),
+   ``iq_to_bin_power`` (Tbin = 1024 Ts; mean, peak, 0.5) against float64,
+   ``sample_ccdf`` on the envelope power with 513 edges: one launch of
+   ``hist_bucket_kernel``, counts equal to ``hist_plain``'s and summing to
+   n; (b) ``power_spectral_density`` at its default (statistics mean, max,
+   0.5, 0.95, 0.99): one launch of ``spectrogram_db_reg_kernel``, held
+   against float64, the 'xla' route and the CPU on the first 2^20 samples
+   (1e-3 dB within 40 dB of the spectrum's level, the float32 FFT bound in
+   linear power below it), its peak device memory; (c)
+   ``quantile_method='histogram'`` at 1024 bins (one launch each of
+   ``spectrogram_levels_reg_kernel`` and ``colhist_reg_kernel``) and 2048
+   bins (``spectrogram_db_reg_kernel`` and ``colhist_reg_kernel`` on
+   values): the named rows at (b)'s gate, the quantiles within 2 bins of
+   (b)'s and 1 bin of the CPU's; (d) each call timed (MS/s against the
+   122.88 MS/s real-time rate), four profiled (no library FFT and no older
+   kernel; idle shares), the largest capture the default PSD holds on the
+   card; rows 6-10 of the kernels line gain ``baseline1``: this path's
+   launches a call and its kernel at this path's shapes against its plain
+   version, timed beside its bound and profiled.
 
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
-DIR's package. It prints the card's name and power limit, one JSON line ``{"kernels":
+DIR's package; ``--step-times DIR`` times the flagship step through DIR's
+package alone (run in turns on two trees to compare them). It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits nonzero without that line; so does a
 machine without CUDA, or a directory without the package.
@@ -1233,10 +1259,11 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
 
 def trace_call(name: str) -> int:
     """``python3 chip_smoke.py --trace corr|channelize|cluster|cluster6|
-    channels48|channels96|channels64x512|stats4096|planes_i16|stream``: make
-    the call of phase 11, 15, 16c, 16d, 17b or 18b-c at its shapes, on noise
-    from ``SEED`` (its
-    kernels' work does not depend on the values), warm it up, trace it with
+    channels48|channels96|channels64x512|stats4096|planes_i16|stream|
+    psd_default|psd_histogram_1024|psd_histogram_2048|sample_ccdf``: make
+    the call of phase 11, 15, 16c, 16d, 17b, 18b-c or 19d at its shapes, on
+    noise from ``SEED`` (phase 19's on its tone + noise; the kernels' work
+    does not depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
     line, a JSON object. Exits 1 if the trace lacks a kernel. ``--trace
     stats4096`` prints ``stats4096_device_ms`` instead (phase 17a)."""
@@ -1302,6 +1329,12 @@ def trace_call(name: str) -> int:
         got = stats4096_device_ms(dev, fresh=False)
         print(json.dumps(got))
         return 0 if got else 1
+    elif name in PSD_TRACES:
+        import iqwaveform_torch as it
+
+        x = psd_capture(dev)
+        fn = psd_calls(it, x, it.envtopow(x), ccdf_edges())[name]
+        expect = PSD_TRACES[name]
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -1812,6 +1845,33 @@ def corr_times(root: str) -> dict:
     return {'root': str(base), 'device_us': device_us,
             'device_ms': sum(device_us.values()) / 1e3, 'ms': timed_ms(kernel),
             'path_ms': timed_ms(path), 'host_ms': host_ms(path, calls=CORR_HOST_CALLS)}
+
+
+def step_times(root: str) -> dict:
+    """``python3 chip_smoke.py --step-times DIR``: the flagship
+    ``WidebandMonitor.step`` on 2^24 samples of noise from ``SEED``, through
+    the package under DIR (this checkout, or a tree of an earlier commit):
+    its time by events (timed_ms) and the mean of HOST_ROUNDS x 40
+    back-to-back calls by the host clock. Prints them as the last line, a
+    JSON object; run it in turns on two trees to compare them on one
+    card."""
+    base = Path(root).resolve()
+    sys.path.insert(0, str(base))
+    import iqwaveform_torch as it
+
+    require(Path(it.__file__).resolve().is_relative_to(base),
+            f'imported {it.__file__}, not the package under {base}')
+    dev = torch.device('cuda')
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP))
+    x = torch.randn(N_STEP, dtype=torch.complex64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    ms = timed_ms(lambda: mon.step(x))
+    calls = HOST_ROUNDS * 40
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        mon.step(x)
+    torch.cuda.synchronize()
+    return {'root': str(base), 'ms': ms, 'wall_ms': (time.perf_counter() - t0) * 1e3 / calls}
 
 
 def corr_ab(parent: str, smi: str) -> dict:
@@ -3095,6 +3155,387 @@ def stream_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     return rows
 
 
+# BASELINE config #1 (bench.py:212-251 the spectrogram, :399-455
+# power_spectral_density): 2^24 complex64 samples of a tone + noise at
+# 122.88 MS/s made on the card, nfft 1024 hann, the statistics of
+# bench.py; N_PSD_CPU samples of it held against the CPU (the kernels'
+# plain versions), CCDF_EDGES power edges for sample_ccdf
+N_PSD = 1 << 24
+PSD_FS = 122.88e6
+PSD_NFFT = 1024
+PSD_STATS = ['mean', 'max', 0.5, 0.95, 0.99]
+PSD_TONE_HZ = 10.1e6  # off every bin centre
+PSD_SNR_DB = 10  # tests/_synth.make_tone_noise's
+N_PSD_CPU = 1 << 20
+CCDF_EDGES = 513
+PSD_HIST_BINS = (1024, 2048)  # rows 10 + 7 up to 1024 bins, rows 9 + 8 above
+
+
+def psd_capture(dev) -> torch.Tensor:
+    """phase 19's capture: a tone at PSD_TONE_HZ plus complex white noise
+    PSD_SNR_DB below it, N_PSD complex64 samples made on the card from
+    SEED."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = torch.arange(N_PSD, device=dev, dtype=torch.float64) / PSD_FS
+    tone = torch.exp(2j * math.pi * PSD_TONE_HZ * t).to(torch.complex64)
+    noise = torch.randn(N_PSD, dtype=torch.complex64, device=dev, generator=gen)
+    return tone + 10 ** (-PSD_SNR_DB / 20) * noise
+
+
+def psd_kwargs(**extra) -> dict:
+    return dict(fs=PSD_FS, window='hann', resolution=PSD_FS / PSD_NFFT, statistics=PSD_STATS,
+                **extra)
+
+
+def ccdf_edges() -> np.ndarray:
+    """sample_ccdf's power edges: CCDF_EDGES from -40 to 15 dB, float32."""
+    return (10 ** (np.linspace(-40.0, 15.0, CCDF_EDGES) / 10)).astype('float32')
+
+
+# phase 19's profiled calls and the kernels each must show
+PSD_TRACES = {
+    'psd_default': (DB_REG_KERNEL,),
+    'psd_histogram_1024': (LEVELS_REG_KERNEL, COLHIST_REG_KERNEL),
+    'psd_histogram_2048': (DB_REG_KERNEL, COLHIST_REG_KERNEL),
+    'sample_ccdf': (HIST_KERNEL,),
+}
+
+
+def psd_calls(it, x, p, edges) -> dict:
+    """phase 19's timed calls on the capture ``x`` and its power ``p``."""
+    nfft = PSD_NFFT
+    return {
+        'spectrogram': lambda: it.spectrogram(x, fs=PSD_FS, window='hann', nperseg=nfft),
+        'psd_default': lambda: it.power_spectral_density(x, **psd_kwargs()),
+        'psd_xla': lambda: it.power_spectral_density(x, **psd_kwargs(fft_backend='xla')),
+        'psd_histogram_1024': lambda: it.power_spectral_density(
+            x, **psd_kwargs(quantile_method='histogram', hist_bins=1024)),
+        'psd_histogram_2048': lambda: it.power_spectral_density(
+            x, **psd_kwargs(quantile_method='histogram', hist_bins=2048)),
+        'sample_ccdf': lambda: it.sample_ccdf(p, edges),
+        'iq_to_bin_power': lambda: it.iq_to_bin_power(x, 1 / PSD_FS, nfft / PSD_FS),
+    }
+
+
+U32 = 2.0**-24  # float32 unit roundoff
+
+
+def fft_power_bound(p_ref, level: float, nfft: int):
+    """the most the power of one bin can differ between two float32 FFTs
+    of an nfft frame, for a bin of (linear) power ``p_ref`` in a spectrum
+    of mean power ``level`` (dB) a bin: each transform is within
+    u log2(nfft) ||X|| of the exact one, with ||X||^2 = nfft 10^(level/10),
+    so |dp| <= 2 * 2 sqrt(p) u log2(nfft) ||X||. Per value the error is
+    relative to the frame's energy, not to the value."""
+    lin = 10 ** (level / 10)
+    return 4 * (p_ref * lin * nfft).sqrt() * U32 * math.log2(nfft)
+
+
+def psd_gate(got, ref, level: float, label: str, nfft: int = PSD_NFFT) -> dict:
+    """the persistence spectrum's gate (tests/test_torch_psd.py), on dB
+    statistics: 1e-3 dB on values within 40 dB of the spectrum's ``level``
+    (its mean power a bin, dB); below it, the values' linear powers within
+    fft_power_bound. Returns the largest dB difference within the 40 dB,
+    the deep values' largest share of their bound, and their share of all
+    values."""
+    got, ref = got.double(), ref.to(got.device).double()
+    require(got.shape == ref.shape, f'{label}: shape {tuple(got.shape)} != {tuple(ref.shape)}')
+    require(bool(torch.isfinite(got).all()), f'{label}: not finite')
+    shallow = ref >= level - 40
+    d = (got - ref).abs()
+    err = float(d[shallow].max()) if bool(shallow.any()) else 0.0
+    require(err <= 1e-3, f'{label}: {err:.4g} dB > 1e-3 dB within 40 dB of the level')
+    p_ref = 10 ** (ref[~shallow] / 10)
+    lin = (10 ** (got[~shallow] / 10) - p_ref).abs()
+    deep = float((lin / fft_power_bound(p_ref, level, nfft)).max()) if lin.numel() else 0.0
+    require(deep <= 1, f'{label}: deep values at {deep:.3g} x the float32 FFT bound')
+    return {'dB': err, 'deep_over_bound': deep, 'deep_share': float((~shallow).double().mean())}
+
+
+def value_gate(got, ref, level: float, nfft: int, label: str) -> dict:
+    """a dB spectrogram against another, value by value: every value's
+    linear power within fft_power_bound of the reference's. Returns the
+    largest dB difference within 40 dB of the level and the largest share
+    of the bound."""
+    got, ref = got.double(), ref.double()
+    p_ref = 10 ** (ref / 10)
+    share = float(((10 ** (got / 10) - p_ref).abs() / fft_power_bound(p_ref, level, nfft)).max())
+    require(share <= 1, f'{label}: a value at {share:.3g} x the float32 FFT bound')
+    shallow = ref >= level - 40
+    return {'dB': max_abs(got[shallow], ref[shallow]), 'over_bound': share}
+
+
+def psd_float64(x, nfft: int, fs: float) -> tuple:
+    """the spectrogram of ``x`` in float64 with numpy and scipy, on the
+    host: (power (frames, nfft) with the bins centred, freqs, times)."""
+    import scipy.signal
+
+    xh = x.cpu().numpy().astype(np.complex128)
+    w = scipy.signal.get_window('hann', nfft)
+    w = w / np.sqrt(np.mean(w**2))
+    Y = np.fft.fftshift(np.fft.fft(xh.reshape(-1, nfft) * w, axis=1) / nfft, axes=1)
+    spg = Y.real**2 + Y.imag**2
+    return spg, (np.arange(nfft) - nfft // 2) * (fs / nfft), np.arange(spg.shape[0]) * (nfft / fs)
+
+
+def psd_launches(fn) -> tuple:
+    """(result, {kernel: launches}, {kernel: launches by route}) of one call
+    of ``fn``, every count set to 0 just before it."""
+    from iqwaveform_torch.ops import kernels
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches for k in kernels.KERNELS if k.launches}
+    routes = {k.__name__: {r: c for r, c in k.route_launches.items() if c}
+              for k in kernels.KERNELS if k.launches and hasattr(k, 'route_launches')}
+    return out, launched, routes
+
+
+def psd_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> dict:
+    """phase 19; returns, by kernels-line row name (rows 6-10), the numbers
+    of this path: launches per call, the kernel at this path's shapes
+    against its plain version, timed beside its bound and profiled."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
+    from iqwaveform_torch.parallel import streaming as S
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, nfft, fs = N_PSD, PSD_NFFT, PSD_FS
+    frames = n // nfft
+    x = psd_capture(dev)
+    spg64, freqs64, times64 = psd_float64(x, nfft, fs)
+    level = float(10 * np.log10(spg64.mean()))
+    print(f'phase 19: {n} samples of a {PSD_TONE_HZ / 1e6} MHz tone + noise {PSD_SNR_DB} dB below '
+          f'it at {fs / 1e6} MS/s, nfft {nfft}: spectrum level {level:.3f} dB a bin ({smi})')
+
+    # ---- 19a: spectrogram, iq_to_bin_power, sample_ccdf
+    (f, tt, spg), launched, _ = psd_launches(
+        lambda: it.spectrogram(x, fs=fs, window='hann', nperseg=nfft))
+    spg64_t = torch.from_numpy(spg64).to(dev)
+    err = rel_rms(spg, spg64_t)
+    print(f'spectrogram: {tuple(spg.shape)} {spg.dtype}, relative RMS {err:.4g} against float64 '
+          f'numpy / scipy; freqs and times equal: {np.array_equal(f, freqs64)}, '
+          f'{np.array_equal(tt, times64)}; kernel launches {json.dumps(launched)}')
+    require(err <= 1e-5, f'spectrogram vs float64: relative RMS {err:.4g} > 1e-5')
+    require(np.array_equal(f, freqs64) and np.array_equal(tt, times64),
+            'spectrogram freqs / times differ from the float64 axes')
+    del spg
+    p64 = (x.real.double() ** 2 + x.imag.double() ** 2).reshape(-1, nfft)
+    s64 = p64.sort(dim=1).values
+    bin_refs = {'mean': p64.mean(dim=1), 'peak': s64[:, -1],
+                0.5: (s64[:, nfft // 2 - 1] + s64[:, nfft // 2]) / 2}
+    bin_errs = {}
+    for kind, ref in bin_refs.items():
+        got = it.iq_to_bin_power(x, 1 / fs, nfft / fs, kind=kind)
+        bin_errs[str(kind)] = rel_rms(got, ref)
+        require(tuple(got.shape) == (frames,) and got.dtype == torch.float32,
+                f'iq_to_bin_power {kind}: {tuple(got.shape)} {got.dtype}')
+        require(bin_errs[str(kind)] <= 1e-5,
+                f'iq_to_bin_power {kind} vs float64: relative RMS {bin_errs[str(kind)]:.4g}')
+    print(f'iq_to_bin_power (Tbin = {nfft} Ts): relative RMS against float64 {json.dumps(bin_errs)}')
+    del p64, s64, bin_refs
+
+    p = it.envtopow(x)
+    edges = ccdf_edges()
+    ccdf, ccdf_launched, ccdf_routes = psd_launches(lambda: it.sample_ccdf(p, edges, density=False))
+    counts_plain = kernels.hist_plain(p, torch.from_numpy(edges).to(dev)).long()
+    counts = it.power_analysis.histogram_edge_counts(p, edges)
+    ccdf_plain = (n - counts_plain.cumsum(0))[:-1]
+    print(f'sample_ccdf: {n} samples x {CCDF_EDGES} edges, launches {json.dumps(ccdf_launched)}, '
+          f'routes {json.dumps(ccdf_routes)}, counts equal to hist_plain: '
+          f'{torch.equal(counts, counts_plain)}, total {int(counts.sum())}')
+    require(ccdf_launched == {'hist': 1} and ccdf_routes == {'hist': {'bucket': 1}},
+            f'sample_ccdf launches {ccdf_launched} {ccdf_routes}')
+    require(torch.equal(counts, counts_plain), 'histogram_edge_counts differs from hist_plain')
+    require(int(counts.sum()) == n, 'histogram_edge_counts total differs from the sample count')
+    require(torch.equal(ccdf, ccdf_plain), 'sample_ccdf differs from the plain counts')
+    del counts, ccdf_plain
+
+    # ---- 19b: power_spectral_density at its default (exact quantiles)
+    kw = psd_kwargs()
+    torch.cuda.synchronize()
+    peak_phase = torch.cuda.max_memory_allocated()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    psd, launched, routes = psd_launches(lambda: it.power_spectral_density(x, **kw))
+    psd_peak = torch.cuda.max_memory_allocated() - before
+    print(f'psd default: {tuple(psd.shape)}, launches {json.dumps(launched)}, routes '
+          f'{json.dumps(routes)}; peak device memory above its input {psd_peak / 2**20:.1f} MiB '
+          f'({psd_peak / n:.2f} B a sample)')
+    require(launched == {'spectrogram_dB': 1} and routes == {'spectrogram_dB': {'reg': 1}},
+            f'psd default launches {launched} {routes}')
+    db64 = 10 * torch.log10(spg64_t + 1e-25)
+    q = torch.tensor([s for s in PSD_STATS if isinstance(s, float)], dtype=torch.float64,
+                     device=dev)
+    ref64 = torch.cat([db64.mean(dim=0)[None], db64.amax(dim=0)[None],
+                       torch.quantile(db64, q, dim=0)])
+    del db64, spg64_t
+    gates = {'float64': psd_gate(psd, ref64, level, 'psd default vs float64')}
+    gates['xla'] = psd_gate(psd, it.power_spectral_density(x, fft_backend='xla', **kw), level,
+                            'psd default vs xla')
+    small = x[:N_PSD_CPU]
+    level_small = float(10 * np.log10(spg64[: N_PSD_CPU // nfft].mean()))
+    gates['cpu'] = psd_gate(it.power_spectral_density(small, **kw),
+                            it.power_spectral_density(small.cpu(), device='cpu', **kw),
+                            level_small, f'psd default vs the CPU on {N_PSD_CPU} samples')
+    print(f'psd default gates (largest dB difference within 40 dB of the level, the deep '
+          f'values\' largest share of the float32 FFT bound, their share): {json.dumps(gates)}')
+
+    # ---- 19c: quantile_method='histogram' at 1024 and 2048 bins
+    want = {1024: ({'spectrogram_levels': 1, 'colhist': 1},
+                   {'spectrogram_levels': {'reg': 1}, 'colhist': {'reg': 1}}),
+            2048: ({'spectrogram_dB': 1, 'colhist': 1},
+                   {'spectrogram_dB': {'reg': 1}, 'colhist': {'reg': 1}})}
+    hist_gates = {}
+    for bins in PSD_HIST_BINS:
+        hkw = psd_kwargs(quantile_method='histogram', hist_bins=bins)
+        h, launched, routes = psd_launches(lambda: it.power_spectral_density(x, **hkw))
+        require((launched, routes) == want[bins],
+                f'psd histogram {bins} bins: launches {launched} {routes}')
+        width = 200.0 / bins
+        g = {'named_vs_default': psd_gate(h[:2], psd[:2], level, f'psd histogram {bins} named'),
+             'quantiles_vs_default_bins': max_abs(h[2:], psd[2:]) / width}
+        require(g['quantiles_vs_default_bins'] <= 2,
+                f'psd histogram {bins}: quantiles {g["quantiles_vs_default_bins"]:.3g} bins '
+                'from the exact ones')
+        h_cpu = it.power_spectral_density(small.cpu(), device='cpu', **hkw)
+        h_small = it.power_spectral_density(small, **hkw)
+        g['named_vs_cpu'] = psd_gate(h_small[:2], h_cpu[:2], level_small,
+                                     f'psd histogram {bins} vs the CPU')
+        g['quantiles_vs_cpu_bins'] = max_abs(h_small[2:].cpu(), h_cpu[2:]) / width
+        require(g['quantiles_vs_cpu_bins'] <= 1,
+                f'psd histogram {bins} vs the CPU: quantiles {g["quantiles_vs_cpu_bins"]:.3g} bins')
+        g['launches'] = launched
+        hist_gates[bins] = g
+        print(f'psd histogram {bins} bins: launches {json.dumps(launched)}, routes '
+              f'{json.dumps(routes)}, gates {json.dumps(g)}')
+    del h, h_small, h_cpu
+
+    # ---- 19d: times, the profile, memory
+    calls = psd_calls(it, x, p, edges)
+    times = {}
+    for name, fn in calls.items():
+        times[name] = timed_ms(fn)
+        rate = n / times[name] / 1e3
+        print(f'{name}: {times[name]:.4f} ms for {n} samples = {rate:.1f} MS/s, '
+              f'{rate / (PSD_FS / 1e6):.2f}x the {PSD_FS / 1e6} MS/s real-time rate ({smi})')
+    traces = {}
+    older = (LEVELS_GENERIC_KERNEL, COLHIST_GENERIC_KERNEL, HIST_GENERIC_KERNEL)
+    for name, expect in PSD_TRACES.items():
+        names, device_us = device_kernels(calls[name], *expect, fresh=name)
+        for k in expect:
+            require(any(k in n for n in names), f'profiler shows no {k} in {name}')
+        bad = library_kernels(names)
+        require(not bad, f'library FFT / GEMM kernels in {name}: {bad}')
+        old = [k for k in names if short_name(k).split('<')[0] in older]
+        require(not old, f'an older kernel ran in {name}: {old}')
+        busy = sum(device_us.values()) / 1e3
+        traces[name] = {'device_us': device_us, 'busy_ms': busy,
+                        'idle_share': max(0.0, 1 - busy / times[name])}
+        print(f'{name} device time by kernel (us): ' + json.dumps(
+            dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+        print(f'{name}: device busy {busy:.4f} ms of {times[name]:.4f} ms (idle share '
+              f'{traces[name]["idle_share"]:.3f}) ({smi})')
+    torch.cuda.synchronize()
+    peak_phase = max(peak_phase, torch.cuda.max_memory_allocated())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    # the default PSD holds its input (8 B a sample) and psd_peak / n more
+    largest = int(total / (8 + psd_peak / n)) // nfft * nfft
+    print(f'phase 19 peak device memory {peak_phase / 2**30:.3f} GiB; the default PSD '
+          f'(exact quantiles, one device sort) needs {8 + psd_peak / n:.2f} B a sample with its '
+          f'input, so this card ({total / 2**30:.1f} GiB) holds a capture of at most {largest} '
+          f'samples ({largest // nfft} frames of {nfft}: a {4 * largest / 2**30:.1f} GiB float32 '
+          f'spectrogram) ({smi})')
+
+    # ---- the kernels of this path at its shapes, against their plain
+    # versions, beside their bounds
+    d = S.design_persistence(nfft=nfft, window='hann', hist_bins=0, fft_backend='pallas',
+                             fft_precision='highest')
+    w = torch.from_numpy(d['kernel_window']).to(dev)
+    db = kernels.spectrogram_dB(x, w, nfft)
+    db_plain = kernels.spectrogram_dB_plain(x, w, nfft)
+    db_gate = value_gate(db, db_plain, level, nfft, 'spectrogram_dB at phase 19')
+    db_err = db_gate['dB']
+    print(f'spectrogram_dB at phase 19 against its plain version: {json.dumps(db_gate)}')
+    quants = {b: S.design_persistence(nfft=nfft, window='hann', hist_bins=b)['quant']
+              for b in PSD_HIST_BINS}
+    quant = quants[1024]
+    lv = kernels.spectrogram_levels(x, w, nfft, quant=quant)
+    lv_plain = kernels.spectrogram_levels_plain(x, w, nfft, quant=quant)
+    moved = (lv['levels'] - lv_plain['levels']).abs()
+    require(int(moved.max()) <= 1 and float((moved > 0).double().mean()) <= 1e-3,
+            f'spectrogram_levels at phase 19: levels moved by up to {int(moved.max())}, '
+            f'{float((moved > 0).double().mean()):.3g} of them')
+    levels = lv['levels']
+    scratch = torch.zeros((nfft, quant[2]), dtype=torch.int32, device=dev)
+    ch = kernels.colhist(levels, scratch)
+    require(torch.equal(ch, kernels.colhist_plain(levels, scratch)), 'colhist at phase 19')
+    lo, scale, b2 = quants[2048]
+    scratch2 = torch.zeros((nfft, b2), dtype=torch.int32, device=dev)
+    chv = kernels.colhist(db, scratch2, lo=lo, scale=scale)
+    require(torch.equal(chv, kernels.colhist_plain(db, scratch2, lo=lo, scale=scale)),
+            'colhist on values at phase 19')
+    e_t = torch.from_numpy(edges).to(dev)
+    cols = torch.arange(nfft, device=dev, dtype=torch.int64)
+    flat = (levels.long() + cols * quant[2]).reshape(-1)
+    flat2 = (quantize_uniform(db, lo, scale, b2).long() + cols * b2).reshape(-1)
+    per_frame = fft_ops(nfft) + 12 * nfft
+    spec = {
+        # name: (launches a call, max_abs_err, bytes, operations, kernel,
+        # plain, library, trace, kernel name in it)
+        'spectrogram_dB': (1, db_err, 8 * n + 4 * n + 8 * nfft, frames * per_frame,
+                           lambda: kernels.spectrogram_dB(x, w, nfft),
+                           lambda: kernels.spectrogram_dB_plain(x, w, nfft),
+                           lambda: kernels.spectrogram_dB_plain(x, w, nfft),
+                           'psd_default', DB_REG_KERNEL),
+        'spectrogram_levels': (1, float(moved.max()), 8 * n + 4 * n + 8 * nfft + 12 * nfft,
+                               frames * per_frame,
+                               lambda: kernels.spectrogram_levels(x, w, nfft, quant=quant),
+                               lambda: kernels.spectrogram_levels_plain(x, w, nfft, quant=quant),
+                               lambda: kernels.spectrogram_levels_plain(x, w, nfft, quant=quant),
+                               'psd_histogram_1024', LEVELS_REG_KERNEL),
+        'colhist': (1, 0.0, 4 * levels.numel() + 2 * 4 * scratch.numel(), levels.numel(),
+                    lambda: kernels.colhist(levels, scratch),
+                    lambda: kernels.colhist_plain(levels, scratch),
+                    lambda: torch.bincount(flat, minlength=scratch.numel()),
+                    'psd_histogram_1024', COLHIST_REG_KERNEL),
+        'colhist_values': (1, 0.0, 4 * db.numel() + 2 * 4 * scratch2.numel(), 4 * db.numel(),
+                           lambda: kernels.colhist(db, scratch2, lo=lo, scale=scale),
+                           lambda: kernels.colhist_plain(db, scratch2, lo=lo, scale=scale),
+                           lambda: torch.bincount(flat2, minlength=scratch2.numel()),
+                           'psd_histogram_2048', COLHIST_REG_KERNEL),
+        'hist': (1, 0.0, 4 * n + 4 * e_t.numel() + 4 * (e_t.numel() + 1),
+                 n * math.ceil(math.log2(e_t.numel() + 1)),
+                 lambda: kernels.hist(p, e_t), lambda: kernels.hist_plain(p, e_t), None,
+                 'sample_ccdf', HIST_KERNEL),
+    }
+    added = {}
+    for kname, (per_call, kerr, nbytes, nops, kfn, pfn, lfn, trace, kernel) in spec.items():
+        row = kernel_row(kname, {'launches': per_call, 'max_abs_err': kerr}, nbytes, nops,
+                         kfn, pfn, lfn, mem_rate, fp32_rate)
+        row = {k: v for k, v in row.items() if k not in ('name', 'route', 'source', 'replaces')}
+        row['profiled_device_ms'] = device_ms(traces[trace]['device_us'], kernel)
+        row['in_call'] = trace
+        added[kname] = row
+        print(f'{kname} on the phase 19 path ({trace}): {row["ms"]:.4f} ms by events, '
+              f'{row["profiled_device_ms"]:.4f} ms of device time in the call, bound '
+              f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}, plain {row["plain_ms"]:.4f} ms, '
+              f'library {row["library_ms"]} ({smi})')
+    added['colhist']['float_values'] = added.pop('colhist_values')
+    summary = {'times_ms': times, 'idle_share': {k: v['idle_share'] for k, v in traces.items()},
+               'psd_peak_bytes': psd_peak, 'phase_peak_bytes': peak_phase,
+               'largest_capture_samples': largest, 'gates': gates,
+               'hist_gates': {str(k): v for k, v in hist_gates.items()},
+               'bin_power_rel_rms': bin_errs}
+    print('phase 19 summary: ' + json.dumps(summary))
+    del x, p, db, db_plain, lv, lv_plain, levels, flat, flat2, psd
+    torch.cuda.empty_cache()
+    return added
+
+
 def main(parent: str | None = None) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -3341,6 +3782,13 @@ def main(parent: str | None = None) -> int:
     # ---- phase 18: the long-capture path on row 1's full contract
     rows = merge_rows(rows, stream_phases(dev, smi, mem_rate, fp32_rate))
 
+    # ---- phase 19: BASELINE config #1 (spectrogram, envelope power, PSD):
+    # rows 6-10 gain this path's launches and times beside their own
+    baseline1 = psd_phases(dev, smi, mem_rate, fp32_rate)
+    for row in rows:
+        if row['name'] in baseline1:
+            row['baseline1'] = baseline1[row['name']]
+
     print(json.dumps({'kernels': rows}))
     print(json.dumps({
         'ok': True,
@@ -3361,8 +3809,14 @@ if __name__ == '__main__':
             sys.exit(1)
         print(json.dumps(corr_times(sys.argv[2])))
         sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == '--step-times':
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        print(json.dumps(step_times(sys.argv[2])))
+        sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == '--parent':
         sys.exit(main(sys.argv[2]))
     if len(sys.argv) != 1:
-        sys.exit(f'usage: {sys.argv[0]} [--parent DIR | --trace CALL | --corr-times DIR]')
+        sys.exit(f'usage: {sys.argv[0]} [--parent DIR | --trace CALL | --corr-times DIR | '
+                 '--step-times DIR]')
     sys.exit(main())

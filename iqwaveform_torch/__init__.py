@@ -2,7 +2,9 @@
 
 The flagship WidebandMonitor, the streaming persistence spectrum and APD
 (parallel), the filtering path (fourier: ola_filter, oaresample, upfirdn
-and the STFT), the OFDM analysis family (ofdm: CP correlation, clock
+and the STFT), the spectrogram and its persistence spectrum
+(power_spectral_density) with the envelope-power statistics
+(power_analysis), the OFDM analysis family (ofdm: CP correlation, clock
 synchronization, symbol decoding; models.CellSearch) and
 channelize_power run on an NVIDIA Hopper card through hand-written CUDA
 kernels (ops.kernels), and on the CPU through their plain PyTorch
@@ -13,16 +15,20 @@ nothing of JAX.
 
 __version__ = '0.1.0'
 
-from . import fourier, io, models, ofdm, ops, parallel, utils  # noqa: F401
+from . import fourier, io, models, ofdm, ops, parallel, power_analysis, utils  # noqa: F401
 from .fourier import (  # noqa: F401
     design_fir_lpf,
     design_fir_resampler,
+    iq_to_stft_spectrogram,
     istft,
     oaconvolve,
     oaresample,
     ola_filter,
+    power_spectral_density,
     resample,
+    spectrogram,
     stft,
+    time_to_frequency,
     upfirdn,
 )
 from .models import (  # noqa: F401
@@ -41,6 +47,25 @@ from .ops import (  # noqa: F401
     equivalent_noise_bandwidth,
     get_window,
 )
+from .power_analysis import (  # noqa: F401
+    dBlinmean,
+    dBlinsum,
+    dBtopow,
+    envtodB,
+    envtopow,
+    iq_to_bin_power,
+    iq_to_cyclic_power,
+    power_histogram_along_axis,
+    powtodB,
+    sample_ccdf,
+)
+from .utils import (  # noqa: F401
+    Domain,
+    get_input_domain,
+    histogram_last_axis,
+    isroundmod,
+    set_input_domain,
+)
 from .parallel import (  # noqa: F401
     carry_from_reference,
     design_persistence,
@@ -55,26 +80,38 @@ from .parallel import (  # noqa: F401
 __all__ = [
     'CellSearch',
     'CellSearchResult',
+    'Domain',
     'MonitorDesign',
     'WidebandMonitor',
     'carry_from_reference',
     'channelize_power',
+    'dBlinmean',
+    'dBlinsum',
+    'dBtopow',
     'design_cola_resampler',
     'design_fir_lpf',
     'design_fir_resampler',
     'design_from_reference',
     'design_persistence',
     'design_wideband_monitor',
+    'envtodB',
+    'envtopow',
     'equivalent_noise_bandwidth',
-    'io',
     'fourier',
+    'get_input_domain',
     'get_window',
+    'histogram_last_axis',
+    'io',
+    'iq_to_bin_power',
+    'iq_to_cyclic_power',
+    'iq_to_stft_spectrogram',
+    'isroundmod',
     'istft',
     'models',
     'monitor_carry_from_reference',
     'oaconvolve',
-    'ofdm',
     'oaresample',
+    'ofdm',
     'ola_filter',
     'ops',
     'parallel',
@@ -82,11 +119,19 @@ __all__ = [
     'persistence_finalize',
     'persistence_fold',
     'persistence_init',
+    'power_analysis',
+    'power_histogram_along_axis',
+    'power_spectral_density',
+    'powtodB',
     'resample',
     'resolve_monitor_design',
+    'sample_ccdf',
+    'set_input_domain',
+    'spectrogram',
     'stft',
     'streaming_apd',
     'streaming_persistence_spectrum',
+    'time_to_frequency',
     'upfirdn',
     'utils',
 ]

@@ -13,8 +13,10 @@ else the older ``hist_kernel`` (a binary search over all edges);
 and what its design does about that are set out at the head of the CUDA
 source.
 
-The plain version is sort + searchsorted (``ops.power.
-histogram_edge_counts``), as the JAX package's sort path.
+The plain version is sort + searchsorted (the sort path of
+``ops.power.histogram_edge_counts``), as the JAX package's sort path;
+``histogram_edge_counts`` itself, and ``sample_ccdf`` on it, launch this
+kernel for 1-D float32 samples on the card.
 
 :func:`hist` takes the plain version only for a tensor on the CPU; on a
 CUDA tensor it launches a kernel or raises.
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..power import histogram_edge_counts
+from ..power import _sorted_edge_counts
 from . import _build
 
 __all__ = ['hist', 'hist_plain', 'hist_route']
@@ -37,7 +39,7 @@ BUCKET_WARPS = 16
 
 def hist_plain(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """plain PyTorch version of :func:`hist` (same arguments)."""
-    return histogram_edge_counts(p, edges).to(torch.int32)
+    return _sorted_edge_counts(p, edges).to(torch.int32)
 
 
 def _generic_smem(n_edges: int) -> int:

@@ -1,9 +1,33 @@
-"""Channelized power: ``channelize_power`` on the CUDA channelizer kernel
-or on the STFT.
+"""Spectrogram-derived analyses: the persistence spectrum
+(``power_spectral_density``), the channelizer (``channelize_power``), the
+spectrogram as a DataFrame and the single full-size FFT.
 
-The port of ``channelize_power`` (iqwaveform_tpu/ops/spectral.py:511-628,
-reference fourier.py:1330-1415). Two routes, chosen from the arguments
-before any launch:
+The port of iqwaveform_tpu/ops/spectral.py (reference fourier.py:1236-1473).
+
+``power_spectral_density`` (reference fourier.py:1236-1327) has two routes,
+chosen from the arguments before any launch:
+
+* the kernel route (fft_backend 'mxu' or 'pallas', or 'auto' where it
+  applies; the JAX package's ``_psd_factored_fast``, :266-449): 1-D
+  TIME-domain input, no overlap, whole windows, dB. With exact quantiles
+  (the default) the dB spectrogram comes from the ``spectrogram_dB`` kernel
+  (ops.kernels.spectrogram), then one sort serves every quantile; with
+  quantile_method='histogram' the persistence fold of parallel.streaming
+  counts it (``spectrogram_levels`` + ``colhist`` up to 1024 bins at
+  nfft >= 1024, ``spectrogram_dB`` + ``colhist`` on values otherwise) and
+  the quantiles are read from the histogram. On the CPU each kernel is its
+  plain version. Bins stay in natural order throughout: the JAX package's
+  factored order and its unscramble are a TPU layout;
+* fft_backend 'xla': ``spectrogram`` on torch.fft, dB, the statistics.
+
+'auto' resolves as the JAX package resolves it on its accelerator, whatever
+the device: the kernel route where its constraints hold and nfft has a
+four-step factorization, 'xla' otherwise (also for a window vector, which
+the kernel route's cached design does not take). The JAX package's
+bracketed exact-quantile refinement runs only on a TPU; the port sorts on
+the device at every size, as the JAX package does on every other platform.
+
+``channelize_power`` (reference fourier.py:1330-1415) has two routes:
 
 * a 1-D complex input with a window spec, no overlap, an even trim, more
   than one channel and a frame size the kernels take (``covers``: the
@@ -16,8 +40,8 @@ before any launch:
 * any other input goes through the port's ``stft`` and a reshape-sum
   (:601-628).
 
-Nothing falls back from one route to the other: a failed build or launch
-raises.
+Nothing falls back from one route to another: a shape the kernels do not
+take, or a failed build or launch, raises.
 """
 
 from __future__ import annotations
@@ -27,16 +51,41 @@ import functools
 import numpy as np
 import torch
 
-from ..utils import resolve_device, to_blocks
-from .fft import FFT_BACKENDS, to_float32
+from ..parallel import streaming as _streaming
+from ..utils import (
+    Domain,
+    axis_slice,
+    device_constant,
+    find_float_inds,
+    get_input_domain,
+    isroundmod,
+    lazy_import,
+    resolve_device,
+    to_blocks,
+    to_host,
+)
+from .fft import FFT_BACKENDS, fftfreq, to_float32
+from .filtering import INF, _freq_band_edges
 from .kernels.chan_stats import chan_stats, covers
-from .stft import _get_stft_axes, stft
+from .kernels.spectrogram import spectrogram_dB
+from .power import _quantile, envtodB, envtopow, powtodB, stat_ufunc_from_shorthand
+from .stft import _get_stft_axes, broadcast_onto, spectrogram, stft
 from .window_design import get_window
 
-__all__ = ['channelize_power']
+signal = lazy_import('scipy.signal')
 
-# the JAX package's channelize backends; the route here follows the input
+__all__ = [
+    'channelize_power',
+    'iq_to_stft_spectrogram',
+    'power_spectral_density',
+    'time_to_frequency',
+]
+
+# the JAX package's channelize and PSD backends; the route here follows the
+# input (channelize_power) or the backend's rules (power_spectral_density)
 CHANNELIZE_BACKENDS = FFT_BACKENDS + ('pallas',)
+PSD_BACKENDS = CHANNELIZE_BACKENDS
+_HIST_NAMED = ('mean', 'max', 'peak', 'min')
 
 
 def _is_window_spec(window) -> bool:
@@ -156,3 +205,298 @@ def channelize_power(
     # per-channel minor axis
     channel_power = to_blocks(power, analysis_bins_per_channel, axis=axis + 1).sum(dim=axis + 2)
     return to_blocks(freqs, analysis_bins_per_channel)[0], times, channel_power
+
+
+def _domain_stft(x, *, fs, window, nfft, nzero, noverlap, axis):
+    """(domain, freqs, frames) for the active input domain: TIME runs
+    the spectrogram; FREQUENCY treats x as an already-computed complex
+    STFT (reference fourier.py:1266-1287)."""
+    domain = get_input_domain()
+    if domain == Domain.FREQUENCY:
+        freqs, _ = _get_stft_axes(
+            fs, nfft=nfft, time_size=x.shape[axis], overlap_frac=noverlap / nfft, xp=np,
+        )
+        return domain, freqs, x
+    if domain != Domain.TIME:
+        raise ValueError(f'unsupported persistence spectrum domain "{domain}"')
+    freqs, _, X = spectrogram(
+        x, window=window, fs=fs, nperseg=nfft, nzero=nzero, noverlap=noverlap, axis=axis,
+        device=x.device,
+    )
+    return domain, freqs, X
+
+
+def _stat_rows(spg: torch.Tensor, statistics, isquantile, quantiles, axis: int) -> list:
+    """the statistics of ``spg`` along ``axis`` in the order asked: every
+    quantile from one sort, each named statistic by its reduction."""
+    if quantiles:
+        q_rows = _quantile(spg, quantiles, axis=axis)
+    rows, qi = [], 0
+    for stat, is_q in zip(statistics, isquantile):
+        if is_q:
+            rows.append(q_rows[qi])
+            qi += 1
+        else:
+            rows.append(stat_ufunc_from_shorthand(stat, xp=torch)(spg, axis=axis))
+    return rows
+
+
+def power_spectral_density(
+    x,
+    *,
+    fs: float,
+    bandwidth=INF,
+    window,
+    resolution: float,
+    fractional_overlap=0,
+    fractional_window: float = 1,
+    statistics: list,
+    truncate=True,
+    dB=True,
+    axis=0,
+    fft_backend: str = 'auto',
+    quantile_method: str = 'exact',
+    hist_bins: int = 1024,
+    hist_range_dB=(-150.0, 50.0),
+    device=None,
+):
+    """persistence spectrum: spectrogram -> bandwidth trim -> dB -> a stack
+    of per-frequency statistics across time (reference fourier.py:1236-1327).
+
+    Args:
+        x: TIME-domain IQ, or a FREQUENCY-domain STFT (see
+            utils.set_input_domain); numpy or tensor, moved to ``device``
+            (None: the card)
+        statistics: list of quantiles (floats, or strings such as '0.5')
+            and/or named detectors ('min','max','peak','mean','rms',
+            'median', callable)
+        fft_backend: 'xla', or 'mxu' / 'pallas' (both the kernel route, see
+            the module docstring); 'auto' (default) picks the kernel route
+            where its constraints hold, else 'xla'
+        quantile_method: 'exact' (order statistics by one sort) or
+            'histogram' (quantiles inverted from a per-frequency dB
+            histogram of ``hist_bins`` bins over ``hist_range_dB``; the
+            kernel route's constraints, and only the named statistics
+            mean / max / peak / min)
+
+    Returns:
+        float32 tensor (len(statistics), nfreq) on ``device`` (the
+        statistics stacked along ``axis``), frequencies in monotonic order.
+    """
+    if fft_backend not in PSD_BACKENDS:
+        raise ValueError(f'fft_backend must be one of {PSD_BACKENDS}, not {fft_backend!r}')
+    if isroundmod(fs, resolution):
+        nfft = round(fs / resolution)
+        noverlap = round(fractional_overlap * nfft)
+    else:
+        raise ValueError('sample_rate_Hz/resolution must be a counting number')
+    x = to_float32(x, resolve_device(device))
+
+    if fft_backend == 'auto':
+        fft_backend = _resolve_psd_backend(
+            x, nfft=nfft, noverlap=noverlap, fractional_window=fractional_window, dB=dB,
+            axis=axis, window=window,
+        )
+
+    if fft_backend != 'xla' or quantile_method == 'histogram':
+        return _psd_kernel_route(
+            x, fs=fs, bandwidth=bandwidth, window=window, nfft=nfft, noverlap=noverlap,
+            fractional_window=fractional_window, statistics=statistics, truncate=truncate,
+            dB=dB, axis=axis, fft_backend=fft_backend, quantile_method=quantile_method,
+            hist_bins=hist_bins, hist_range_dB=hist_range_dB,
+        )
+
+    if isroundmod((1 - fractional_window) * nfft, 1):
+        nzero = round((1 - fractional_window) * nfft)
+    else:
+        raise ValueError(
+            '(1-fractional_window) * (sample_rate/frequency_resolution) '
+            'must be a counting number'
+        )
+
+    domain, freqs, X = _domain_stft(
+        x, fs=fs, window=window, nfft=nfft, nzero=nzero, noverlap=noverlap, axis=axis,
+    )
+
+    if truncate:
+        band = (None, None) if bandwidth == INF else (-bandwidth / 2, bandwidth / 2)
+        ilo, ihi = _freq_band_edges(freqs.size, 1.0 / fs, *band)
+        X = axis_slice(X, ilo, ihi, axis=axis + 1)
+
+    # TIME-domain frames arrive as linear power; FREQUENCY frames are the
+    # raw complex STFT and need the envelope transform
+    if dB:
+        to_dB = powtodB if domain == Domain.TIME else envtodB
+        spg = to_dB(X, eps=1e-25)
+    elif domain == Domain.TIME:
+        spg = X.to(torch.float32)
+    else:
+        spg = envtopow(X)
+
+    if spg.shape[axis] == 0:
+        raise ValueError(
+            'no whole FFT frames fit the input (input shorter than '
+            'sample_rate/resolution samples)'
+        )
+
+    isquantile = find_float_inds(tuple(statistics))
+    quantiles = [float(s) for s, q in zip(statistics, isquantile) if q]
+    rows = _stat_rows(spg, statistics, isquantile, quantiles, axis)
+    return torch.stack(rows, dim=axis).to(torch.float32)
+
+
+def _resolve_psd_backend(x: torch.Tensor, *, nfft, noverlap, fractional_window, dB, axis,
+                         window) -> str:
+    """fft_backend='auto' for power_spectral_density, as the JAX package
+    resolves it on its accelerator (iqwaveform_tpu/ops/spectral.py:202-240):
+    'pallas' or 'mxu' (both the kernel route) where every kernel-route
+    constraint holds and nfft has a four-step factorization, 'xla'
+    otherwise; also 'xla' for a window vector. Never raises."""
+    if (
+        get_input_domain() != Domain.TIME
+        or x.ndim != 1
+        or axis != 0
+        or noverlap
+        or fractional_window != 1
+        or not dB
+        or x.shape[0] < nfft
+        or not _is_window_spec(window)
+    ):
+        return 'xla'
+    return _streaming._resolve_backend(nfft, chunk_samples=x.shape[0] // nfft * nfft)
+
+
+def _psd_kernel_route(
+    x, *, fs, bandwidth, window, nfft, noverlap, fractional_window,
+    statistics, truncate, dB, axis, fft_backend, quantile_method,
+    hist_bins, hist_range_dB,
+):
+    """power_spectral_density on the spectrogram kernels (the JAX package's
+    ``_psd_factored_fast``, iqwaveform_tpu/ops/spectral.py:266-449, without
+    its TPU-only refinement branch)."""
+    if (
+        get_input_domain() != Domain.TIME
+        or x.ndim != 1
+        or axis != 0
+        or noverlap
+        or fractional_window != 1
+        or not dB
+    ):
+        raise ValueError(
+            "fft_backend='mxu'/'pallas' and quantile_method='histogram' "
+            'require 1-D TIME-domain input with '
+            'fractional_overlap=0, fractional_window=1, dB=True'
+        )
+    if quantile_method not in ('exact', 'histogram'):
+        raise ValueError(
+            "quantile_method must be 'exact' or 'histogram', "
+            f'not {quantile_method!r}'
+        )
+
+    backend = 'mxu' if fft_backend == 'xla' else fft_backend
+
+    isquantile = find_float_inds(tuple(statistics))
+    quantiles = tuple(float(s) for s, q in zip(statistics, isquantile) if q)
+    named = [s for s, q in zip(statistics, isquantile) if not q]
+
+    n_keep = x.shape[0] // nfft * nfft
+    if n_keep == 0:
+        raise ValueError(
+            'no whole FFT frames fit the input (input shorter than '
+            'sample_rate/resolution samples)'
+        )
+    x = x[:n_keep].to(torch.complex64)
+
+    if quantile_method == 'histogram':
+        unsupported = {s for s in named if s not in _HIST_NAMED}
+        if unsupported:
+            raise ValueError(
+                "quantile_method='histogram' supports named statistics "
+                f'mean/max/peak/min, not {sorted(map(str, unsupported))}'
+            )
+        design = _streaming.design_persistence(
+            nfft=nfft, window=window, dtype='complex64',
+            hist_range_dB=tuple(float(v) for v in hist_range_dB), hist_bins=int(hist_bins),
+            fft_backend=backend, fft_precision='highest',
+        )
+        carry = _streaming.persistence_fold(
+            _streaming.persistence_init(design, x.device), x, design)
+        out = _streaming.persistence_finalize(carry, design, fs=fs, quantiles=quantiles or (0.5,))
+        stat_map = {'mean': out['mean_dB'], 'max': out['max_dB'], 'peak': out['max_dB'],
+                    'min': out['min_dB']}
+        q_rows = iter(out['quantiles_dB'])
+        rows = [next(q_rows) if is_q else stat_map[s] for s, is_q in zip(statistics, isquantile)]
+    else:
+        design = _streaming.design_persistence(
+            nfft=nfft, window=window, dtype='complex64', hist_bins=0, fft_backend=backend,
+            fft_precision='highest',
+        )
+        w = device_constant(design['kernel_window'], x.device)
+        rows = _stat_rows(spectrogram_dB(x, w, nfft), statistics, isquantile, quantiles, 0)
+
+    stack = torch.stack(rows, dim=0)
+    if truncate:
+        band = (None, None) if bandwidth == INF else (-bandwidth / 2, bandwidth / 2)
+        ilo, ihi = _freq_band_edges(nfft, 1.0 / fs, *band)
+        stack = stack[:, ilo:ihi]
+    return stack.to(torch.float32)
+
+
+def iq_to_stft_spectrogram(
+    iq,
+    window,
+    nfft: int,
+    Ts: float,
+    overlap=True,
+    analysis_bandwidth=None,
+    *,
+    device=None,
+):
+    """spectrogram packed into a pandas DataFrame with frequency columns and
+    time index, optionally trimmed to an analysis bandwidth
+    (reference fourier.py:1418-1456). The STFT runs on ``device`` (None:
+    the card); the frame comes back on the host."""
+    pd = lazy_import('pandas')
+    freqs, times, X = stft(
+        iq,
+        fs=1.0 / Ts,
+        window=window,
+        nperseg=nfft,
+        noverlap=nfft // 2 if overlap else 0,
+        norm='power',
+        axis=0,
+        device=device,
+    )
+
+    spg = pd.DataFrame(to_host(envtopow(X)), columns=freqs, index=times)
+
+    if analysis_bandwidth is not None:
+        throwaway = spg.shape[1] * (1 - analysis_bandwidth * Ts)
+        if len(times) > 1 and abs(throwaway - round(throwaway)) > 1e-6:
+            raise ValueError(
+                f'analysis bandwidth yield integral number of samples, but got {throwaway}'
+            )
+        # the reference's slice, kept as it is
+        spg = spg.iloc[
+            :, int(np.floor(throwaway / 2)) : -int(np.ceil(throwaway // 2))
+        ]
+
+    return spg
+
+
+def time_to_frequency(iq, Ts: float, window=None, axis=0, *, device=None):
+    """single full-size windowed FFT with fftshift
+    (reference fourier.py:1459-1473). ``iq`` moves to ``device`` (None: the
+    card); the window (default blackmanharris) is scaled on the host in
+    float64. Returns (numpy freqs, complex tensor)."""
+    iq = to_float32(iq, resolve_device(device))
+
+    if window is None:
+        window = signal.windows.blackmanharris(iq.shape[0], sym=False)
+    window = np.asarray(to_host(window), dtype='float64')
+    window = window / (iq.shape[0] * np.sqrt(window.mean()))
+    w = broadcast_onto(torch.from_numpy(window.astype('float32')).to(iq.device), iq, axis=0)
+
+    X = torch.fft.fftshift(torch.fft.fft(iq * w, dim=0), dim=0)
+    fftfreqs = fftfreq(X.shape[0], Ts, xp=np)
+    return fftfreqs, X

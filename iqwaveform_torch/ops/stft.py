@@ -1,8 +1,9 @@
 """STFT and ISTFT on torch.fft.
 
-The port of iqwaveform_tpu/ops/stft.py:41-348 (reference fourier.py:335-357
+The port of iqwaveform_tpu/ops/stft.py (reference fourier.py:335-357
 broadcast_onto / _get_stft_axes, fourier.py:545-649 the framing and the
-grouped overlap-add, fourier.py:927-1104 stft / istft).
+grouped overlap-add, fourier.py:927-1104 stft / istft, fourier.py:1203-1233
+spectrogram).
 
 * Overlapping frames are a strided view (``Tensor.unfold``): no gather and
   no copy until the window multiply. The JAX package gathers hop-sized
@@ -26,11 +27,13 @@ import torch
 
 from ..utils import lru_cache, resolve_device, to_blocks
 from .fft import check_fft_backend, fftfreq, to_float32
+from .power import envtopow
 from .window_design import get_window
 
 __all__ = [
     'broadcast_onto',
     'istft',
+    'spectrogram',
     'stft',
     'stft_frame_count',
 ]
@@ -295,3 +298,47 @@ def istft(
             x = x[_axis_tuple(x.ndim, axis, slice(trim // 2, x.shape[axis] - (trim - trim // 2)))]
 
     return x
+
+
+def spectrogram(
+    x,
+    *,
+    fs: float,
+    window,
+    nperseg: int = 256,
+    noverlap: int = 0,
+    nzero: int = 0,
+    axis: int = 0,
+    truncate: bool = True,
+    return_axis_arrays: bool = True,
+    fft_backend: str = 'auto',
+    device=None,
+):
+    """power spectrogram, scaled so noise bandwidth equals the frequency
+    resolution (reference fourier.py:1203-1233): :func:`stft` with
+    norm='power', then |Y|^2, on torch.fft.
+
+    Arguments as :func:`stft`. Returns (freqs, times, power) with power a
+    float32 tensor (frames, nperseg), or power alone if return_axis_arrays
+    is False.
+    """
+    ret = stft(
+        x,
+        fs=fs,
+        window=window,
+        nperseg=nperseg,
+        noverlap=noverlap,
+        nzero=nzero,
+        axis=axis,
+        truncate=truncate,
+        norm='power',
+        return_axis_arrays=return_axis_arrays,
+        fft_backend=fft_backend,
+        device=device,
+    )
+
+    if not return_axis_arrays:
+        return envtopow(ret)
+
+    freqs, times, X = ret
+    return freqs, times, envtopow(X)

@@ -61,7 +61,7 @@ from ..ops.kernels import (
 from ..ops.kernels.colhist import packed_plan, uniform_quant, unpack_packed_counts
 from ..ops.power import binned_mean
 from ..ops.window_design import get_window
-from ..utils import resolve_device, to_device
+from ..utils import device_constant, resolve_device, to_device
 from .sharded import quantile_from_histogram
 
 __all__ = [
@@ -252,23 +252,11 @@ def design_persistence(
     }
 
 
-@functools.lru_cache(maxsize=64)
-def _cached_on(data: bytes, dtype: str, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.frombuffer(data, dtype=dtype).copy()).to(device)
-
-
-def _on_device(arr: np.ndarray, device) -> torch.Tensor:
-    """a 1-D host constant on ``device``, copied there once per value and
-    device."""
-    arr = np.ascontiguousarray(arr)
-    return _cached_on(arr.tobytes(), arr.dtype.str, torch.device(device))
-
-
 def _edges_on(edges, device) -> torch.Tensor:
     """histogram edges (numpy or tensor) as float32 on ``device``."""
     if isinstance(edges, torch.Tensor):
         return edges.to(device=device, dtype=torch.float32)
-    return _on_device(np.asarray(edges, dtype='float32'), device)
+    return device_constant(np.asarray(edges, dtype='float32'), device)
 
 
 def persistence_init(design: dict, device=None) -> PersistenceCarry:
@@ -345,7 +333,7 @@ def _levels_fold(carry, chunk, design, k: _Kernels, apd_navg: int = 0):
     """fold through the fused levels kernel: returns (carry, p_binned)."""
     nfft = design['nfft']
     n_frames = _checked_frames(carry, chunk, nfft)
-    w = _on_device(design['kernel_window'], chunk.device)
+    w = device_constant(design['kernel_window'], chunk.device)
     out = k.spectrogram_levels(chunk, w, nfft, quant=design['quant'], apd_navg=apd_navg)
     h = carry.hist
     if out['levels'] is not None:
@@ -357,7 +345,7 @@ def _dB_fold(carry, chunk, design, k: _Kernels) -> PersistenceCarry:
     """fold through the dB spectrogram kernel and the float counter."""
     nfft = design['nfft']
     n_frames = _checked_frames(carry, chunk, nfft)
-    w = _on_device(design['kernel_window'], chunk.device)
+    w = device_constant(design['kernel_window'], chunk.device)
     dB = k.spectrogram_dB(chunk, w, nfft)
     h = carry.hist
     if design['quant'] is not None:
@@ -476,9 +464,9 @@ def persistence_finalize(
     }
     if carry.hist is not None:
         edges = design['edges_dB']
-        out['quantiles_dB'] = quantile_from_histogram(
-            carry.hist, _edges_on(edges, carry.hist.device), tuple(float(v) for v in quantiles)
-        )
+        dev = carry.hist.device
+        q = device_constant(np.asarray(quantiles, dtype='float32'), dev)
+        out['quantiles_dB'] = quantile_from_histogram(carry.hist, _edges_on(edges, dev), q)
         out['hist'] = carry.hist
         out['hist_edges_dB'] = np.asarray(edges)
     return out

@@ -7,11 +7,15 @@ touches waveform data, on the CPU or on the card.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 __all__ = [
     'array_namespace',
+    'device_constant',
+    'is_cupy_array',
     'is_torch_tensor',
     'pack_iq_f32',
     'resolve_device',
@@ -23,6 +27,12 @@ __all__ = [
 
 def is_torch_tensor(x) -> bool:
     return isinstance(x, torch.Tensor)
+
+
+def is_cupy_array(x) -> bool:
+    """compat shim for code ported from the reference (util.py:12): the
+    card is reached through torch here, so this is always False."""
+    return False
 
 
 def array_namespace(a):
@@ -54,6 +64,21 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
     if not is_torch_tensor(x):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(device=device, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_on(data: bytes, dtype: str, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data, dtype=dtype).copy()).to(device)
+
+
+def device_constant(arr, device) -> torch.Tensor:
+    """a small 1-D host constant (a window, edges, quantiles) on
+    ``device``, copied there once per value and device and shared by
+    every caller (read only). A copy from pageable host memory waits for
+    the work queued before it, so a call that copies its constants anew
+    each time serializes with the card."""
+    arr = np.ascontiguousarray(arr).reshape(-1)
+    return _cached_on(arr.tobytes(), arr.dtype.str, torch.device(device))
 
 
 def to_host(x) -> np.ndarray:

@@ -1,10 +1,11 @@
 """Host-side numeric helpers of the design layer.
 
-Copied from iqwaveform_tpu/utils/numerics.py (reference util.py:136-141,
-util.py:545-568, util.py:592-594, ofdm.py:643-645): the helpers that the
-window, resampler and OFDM numerology design code calls, and the float32
-pair counters of the JAX monitor's streaming carry, which the port reads
-to carry a capture over (models.monitor_carry_from_reference).
+Copied from iqwaveform_tpu/utils/numerics.py (reference util.py:121-141,
+util.py:365-397, util.py:545-568, util.py:592-594, ofdm.py:643-645): the
+helpers that the window, resampler and OFDM numerology design code and the
+power statistics call, and the float32 pair counters of the JAX monitor's
+streaming carry, which the port reads to carry a capture over
+(models.monitor_carry_from_reference).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .caching import lru_cache
 from .dispatch import array_namespace, to_host
@@ -22,6 +24,8 @@ __all__ = [
     'counter_int64',
     'counter_value',
     'dtype_change_float',
+    'find_float_inds',
+    'float_dtype_like',
     'isclosetoint',
     'isroundmod',
 ]
@@ -68,6 +72,55 @@ def counter_int64(hi, lo) -> np.ndarray:
 def ceildiv(a: int, b: int) -> int:
     """Returns ceil(a/b) (reference util.py:592-594)."""
     return -(-a // b)
+
+
+@lru_cache()
+def find_float_inds(seq: tuple) -> list[bool]:
+    """flag whether each element can be converted to float (reference
+    util.py:121-133): a quantile such as 0.5 or '0.5' among named
+    statistics."""
+    ret = []
+    for s in seq:
+        try:
+            float(s)
+        except (ValueError, TypeError):
+            ret.append(False)
+        else:
+            ret.append(True)
+    return ret
+
+
+def float_dtype_like(x, min_dtype=None):
+    """floating-point dtype corresponding to x (reference util.py:365-397).
+
+    complex64 -> float32, complex128 -> float64; floats map to themselves;
+    non-float dtypes map to float32. For a tensor or a torch dtype the
+    result is a torch dtype, for anything else a numpy dtype.
+    """
+    if isinstance(x, (torch.Tensor, torch.dtype)):
+        dtype = x if isinstance(x, torch.dtype) else x.dtype
+        if dtype.is_complex:
+            dtype = dtype.to_real()
+        elif not dtype.is_floating_point:
+            dtype = torch.float32
+        if min_dtype is not None:
+            if not isinstance(min_dtype, torch.dtype):
+                min_dtype = getattr(torch, np.dtype(min_dtype).name)
+            if min_dtype.itemsize > dtype.itemsize:
+                dtype = min_dtype
+        return dtype
+
+    try:
+        dtype = np.finfo(np.asarray(x).dtype).dtype
+    except ValueError:
+        dtype = np.dtype('float32')
+
+    if min_dtype is not None:
+        min_dtype = np.dtype(min_dtype)
+        if min_dtype.itemsize > dtype.itemsize:
+            dtype = min_dtype
+
+    return dtype
 
 
 def isroundmod(value, div, atol=1e-6) -> bool:

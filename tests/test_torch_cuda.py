@@ -41,7 +41,12 @@ against the plain version and the radix-2 body, its error against
 float64 at most twice the radix-2 body's. The cluster frame kernel
 (one frame on a thread-block cluster, at the pairs above one block's
 shared memory): within 1e-5 of the plain chain, its complex128 error at
-most twice the plain chain's (the torch.fft chain in float32).
+most twice the plain chain's (the torch.fft chain in float32). The
+persistence spectrum (power_spectral_density) on the card against the
+same call on the CPU (the kernels' plain versions): dB rows within 1e-3 dB
+where within 40 dB of the spectrum's level, deeper values in linear power
+within the float32 FFT bound (tests/test_torch_psd.py's gate); sample_ccdf's counts through the
+histogram kernel exactly equal to the CPU's.
 """
 
 import sys
@@ -1267,3 +1272,75 @@ def test_packed_apd_launches_the_column_counter(monitor):
     assert torch.equal(mon._packed_counts(p, counter=kernels.colhist),
                        mon._packed_counts(p, counter=kernels.colhist_plain))
     _check_stats(out, monitor.step(x), exact_apd=False)
+
+
+def _psd_gate(got, ref, level, nfft=1024):
+    """tests/test_torch_psd.py's gate: 1e-3 dB within 40 dB of ``level``,
+    the float32 FFT bound in linear power below it."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    shallow = ref >= level - 40
+    assert float((got - ref)[shallow].abs().max()) <= 1e-3
+    p_ref = 10 ** (ref[~shallow] / 10)
+    bound = 4 * (p_ref * 10 ** (level / 10) * nfft).sqrt() * 2.0**-24 * np.log2(nfft)
+    assert float(((10 ** (got[~shallow] / 10) - p_ref).abs() / bound).max()) <= 1
+
+
+@pytest.mark.parametrize('method,hist_bins,launched', [
+    ('exact', 1024, {'spectrogram_dB': 1}),
+    ('histogram', 1024, {'spectrogram_levels': 1, 'colhist': 1}),
+    ('histogram', 2048, {'spectrogram_dB': 1, 'colhist': 1}),
+])
+def test_psd_kernel_routes_match_the_cpu(card, method, hist_bins, launched):
+    gen = torch.Generator(device='cuda').manual_seed(21)
+    n = 1 << 21
+    t = torch.arange(n, device='cuda') / 1e6
+    x = torch.exp(2j * np.pi * 1e5 * t).to(torch.complex64) + 0.3 * torch.randn(
+        n, dtype=torch.complex64, device='cuda', generator=gen)
+    stats = ['mean', 'max', 0.5, 0.99, 'min']
+    kw = dict(fs=1e6, window='hann', resolution=1e6 / 1024, statistics=stats,
+              quantile_method=method, hist_bins=hist_bins)
+    _reset_routes()
+    for k in kernels.KERNELS:
+        k.launches = 0
+    got = it.power_spectral_density(x, **kw)
+    counts = {k.__name__: k.launches for k in kernels.KERNELS if k.launches}
+    assert counts == launched
+    ref = it.power_spectral_density(x.cpu(), device='cpu', **kw)
+    level = 10 * float(torch.log10((x.abs() ** 2).double().mean() / 1024))
+    if method == 'exact':
+        _psd_gate(got, ref, level)
+    else:
+        named = [0, 1, 4]
+        _psd_gate(got[named], ref[named], level)
+        width = 200.0 / hist_bins
+        assert float((got[[2, 3]].cpu() - ref[[2, 3]]).abs().max()) <= width
+
+
+def test_psd_raises_on_a_size_the_dB_kernel_does_not_take(card):
+    x = torch.zeros(1000 * 16, dtype=torch.complex64, device='cuda')
+    with pytest.raises(NotImplementedError, match='not 1000'):
+        it.power_spectral_density(x, fs=1e6, window='hann', resolution=1e3, statistics=['mean'])
+
+
+def test_sample_ccdf_launches_the_histogram_kernel(card):
+    gen = torch.Generator(device='cuda').manual_seed(22)
+    p = torch.randn(1 << 20, device='cuda', generator=gen).abs() ** 2
+    p[100:140] = float('nan')
+    edges = np.linspace(0, 6, 513).astype('float32')
+    kernels.hist.launches = 0
+    got = it.sample_ccdf(p, edges, density=False)
+    assert kernels.hist.launches == 1
+    assert torch.equal(got.cpu(), it.sample_ccdf(p.cpu(), edges, density=False, device='cpu'))
+    assert int(got[0]) + int((p <= 0).sum()) == p.numel()
+    # the sort path: batched rows, another dtype, edges out of order
+    it.power_analysis.histogram_edge_counts(p.reshape(2, -1), edges)
+    it.power_analysis.histogram_edge_counts(p.double(), edges)
+    it.power_analysis.histogram_edge_counts(p, edges[::-1].copy())
+    assert kernels.hist.launches == 1
+
+
+def test_sample_ccdf_raises_above_the_kernels_edges(card):
+    p = torch.ones(1024, device='cuda')
+    with pytest.raises(NotImplementedError, match='40000 edges'):
+        it.sample_ccdf(p, np.linspace(0, 1, 40000))

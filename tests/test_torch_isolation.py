@@ -78,3 +78,41 @@ def test_runs_without_jax_and_builds_nothing(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith('ok')
+
+
+_NO_PANDAS = r'''
+import sys
+sys.modules['pandas'] = None
+sys.modules['jax'] = None
+sys.modules['iqwaveform_tpu'] = None
+import numpy as np
+import iqwaveform_torch as it
+
+rng = np.random.default_rng(0)
+x = (rng.standard_normal(1 << 14) + 1j * rng.standard_normal(1 << 14)).astype('complex64')
+psd = it.power_spectral_density(x, fs=1e6, window='hann', resolution=1e6 / 1024,
+                                statistics=['mean', 0.5], device='cpu')
+ccdf = it.sample_ccdf(np.abs(x) ** 2, np.linspace(0, 4, 9), device='cpu')
+assert tuple(psd.shape) == (2, 1024) and tuple(ccdf.shape) == (9,)
+assert it.powtodB(10.0) == 10.0
+try:
+    it.iq_to_stft_spectrogram(x, 'hann', 1024, 1e-6, device='cpu')
+except ImportError as e:
+    print('ok', e)
+'''
+
+
+def test_runs_without_pandas(tmp_path):
+    """importing the port, and its power statistics and persistence
+    spectrum on the CPU, need no pandas (the machine with the card has
+    none); a function that builds a DataFrame raises ImportError there."""
+    proc = subprocess.run(
+        [sys.executable, '-c', _NO_PANDAS],
+        cwd=ROOT,
+        env={'PATH': str(tmp_path), 'PYTHONPATH': str(ROOT), 'HOME': str(tmp_path)},
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
