@@ -1260,10 +1260,11 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
 def trace_call(name: str) -> int:
     """``python3 chip_smoke.py --trace corr|channelize|cluster|cluster6|
     channels48|channels96|channels64x512|stats4096|planes_i16|stream|
-    psd_default|psd_histogram_1024|psd_histogram_2048|sample_ccdf``: make
-    the call of phase 11, 15, 16c, 16d, 17b, 18b-c or 19d at its shapes, on
-    noise from ``SEED`` (phase 19's on its tone + noise; the kernels' work
-    does not depend on the values), warm it up, trace it with
+    psd_default|psd_histogram_1024|psd_histogram_2048|sample_ccdf|
+    psd_sort_2e28|psd_refined_2e28``: make the call of phase 11, 15, 16c,
+    16d, 17b, 18b-c, 19d or 20a at its shapes, on noise from ``SEED``
+    (phases 19-20's on their tone + noise; the kernels' work does not
+    depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
     line, a JSON object. Exits 1 if the trace lacks a kernel. ``--trace
     stats4096`` prints ``stats4096_device_ms`` instead (phase 17a)."""
@@ -1335,6 +1336,13 @@ def trace_call(name: str) -> int:
         x = psd_capture(dev)
         fn = psd_calls(it, x, it.envtopow(x), ccdf_edges())[name]
         expect = PSD_TRACES[name]
+    elif name in REFINE_TRACES:
+        import iqwaveform_torch as it
+
+        x = long_capture(dev, N_REFINE_BOTH)
+        fn = ((lambda: it.power_spectral_density(x, **psd_kwargs())) if name == 'psd_sort_2e28'
+              else (lambda: refined_psd(x)))
+        expect = REFINE_TRACES[name]
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -3536,6 +3544,405 @@ def psd_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> dict:
     return added
 
 
+# ---- phase 20: exact quantiles without the sort (the refinement), the
+# carry's checkpoint, and the routes by shape
+N_REFINE_BOTH = 1 << 28  # 20a: both PSD routes hold it
+N_REFINE_BIG = 1 << 31  # 20b: the sort does not
+N_EXACT_STREAM = 1 << 30  # 20c: BASELINE #3's capture
+N_EXACT_ORACLE = 1 << 26  # 20c: where _quantile of row 9's dB fits beside it
+N_CAPTURE_PIECE = 1 << 26  # long_capture makes its samples in pieces of this
+ORACLE_BINS = 16
+REFINE_REPS = 5
+N_ROUTE = 1 << 24  # 20d: the calls at shapes the kernels do not take
+N_ROUTE_CPU = 1 << 20
+ROUTE_NFFT = (1000, 1536)
+ROUTE_EDGES = 40000
+ROUTE_TAPS = 40000
+N_ROUTE_UPFIRDN = 1 << 16
+SORT_FIXED_BYTES = 64 << 20  # 20a: the sort's bytes beside its 52 a sample
+SORT_NEAR = 0.9  # 20a: the sort's run near the threshold, as a share of it
+# the refinement's passes on the card: rows 10 + 7 (the fold), 9 + 7 (the
+# narrowing), 9 (the collect)
+REFINE_KERNELS = (LEVELS_REG_KERNEL, COLHIST_REG_KERNEL, DB_REG_KERNEL)
+REFINE_TRACES = {'psd_sort_2e28': (DB_REG_KERNEL,), 'psd_refined_2e28': REFINE_KERNELS}
+
+
+def long_capture(dev, n: int) -> torch.Tensor:
+    """phase 19's tone + noise at n samples, made on the card in pieces of
+    N_CAPTURE_PIECE (a float64 time axis of the whole would not fit beside
+    2^31 samples), the noise of piece i from seed SEED + i."""
+    x = torch.empty(n, dtype=torch.complex64, device=dev)
+    for i, lo in enumerate(range(0, n, N_CAPTURE_PIECE)):
+        m = min(N_CAPTURE_PIECE, n - lo)
+        gen = torch.Generator(device=dev).manual_seed(SEED + i)
+        t = torch.arange(lo, lo + m, device=dev, dtype=torch.float64) / PSD_FS
+        x[lo:lo + m] = torch.exp(2j * math.pi * PSD_TONE_HZ * t).to(torch.complex64)
+        x[lo:lo + m] += 10 ** (-PSD_SNR_DB / 20) * torch.randn(
+            m, dtype=torch.complex64, device=dev, generator=gen)
+    return x
+
+
+def refined_psd(x, **kw):
+    """the default PSD through the refinement whatever its size (the
+    threshold set to 0 samples for the call)."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import spectral
+
+    saved = spectral._refine_above
+    spectral._refine_above = lambda device: 0
+    try:
+        return it.power_spectral_density(x, **psd_kwargs(**kw))
+    finally:
+        spectral._refine_above = saved
+
+
+def peak_call(fn) -> tuple:
+    """(result, peak device bytes above what was allocated before, seconds
+    by the host clock to the synchronize) of one call of ``fn``, every
+    launch count set to 0 just before it; and {kernel: launches}."""
+    from iqwaveform_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in kernels.KERNELS if k.launches}
+    return out, torch.cuda.max_memory_allocated() - before, seconds, launched
+
+
+def collect_capacity() -> list:
+    """wrap the refinement's collect pass so that each call records its
+    capacity C; returns the list it appends to (restore with
+    ``unwrap_capacity``)."""
+    from iqwaveform_torch.parallel import streaming as S
+
+    seen = []
+    inner = S._collect_pass
+
+    def spy(*args):
+        seen.append(args[-1])
+        return inner(*args)
+
+    spy.inner = inner
+    S._collect_pass = spy
+    return seen
+
+
+def unwrap_capacity() -> None:
+    from iqwaveform_torch.parallel import streaming as S
+
+    S._collect_pass = S._collect_pass.inner
+
+
+def narrow_labels_check(call) -> dict:
+    """run ``call`` with the refinement's narrowing pass spied on, then
+    hold ``colhist`` on the first chunk's stacked sub-bin labels (frames,
+    nq * nfft) int32 of _B_SUB + 1 levels, the shape that pass launches it
+    at, against ``colhist_plain``; fails unless they are equal. Returns
+    the call's result and the comparison."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.parallel import streaming as S
+
+    seen = []
+    inner = S._narrow_pass
+
+    def spy(*args):
+        seen.append(args)
+        return inner(*args)
+
+    S._narrow_pass = spy
+    try:
+        out = call()
+    finally:
+        S._narrow_pass = inner
+    require(bool(seen), 'the refinement ran no narrowing pass')
+    chunks, _, w, nfft, lo, hi, invw = seen[0]
+    labels = S._sub_idx_map(kernels.spectrogram_dB(chunks[0], w, nfft), lo, hi, invw)
+    labels = labels.reshape(labels.shape[0], -1)
+    zeros = torch.zeros((labels.shape[1], S._B_SUB + 1), dtype=torch.int32, device=lo.device)
+    got = kernels.colhist(labels, zeros.clone())
+    ref = kernels.colhist_plain(labels, zeros.clone())
+    err = int((got - ref).abs().max())
+    require(torch.equal(got, ref) and bool((got.sum(dim=1) == labels.shape[0]).all()),
+            f'colhist on the narrowing pass\'s labels {tuple(labels.shape)} differs from '
+            f'colhist_plain by up to {err}')
+    check = {'shape': list(labels.shape), 'levels': S._B_SUB + 1, 'max_abs_err': err,
+             'ms': timed_ms(lambda: kernels.colhist(labels, zeros.clone())),
+             'plain_ms': timed_ms(lambda: kernels.colhist_plain(labels, zeros.clone()))}
+    del labels, zeros, got, ref
+    return out, check
+
+
+def quantile_columns(chunks, w, nfft: int, bins, qs) -> torch.Tensor:
+    """_quantile over the columns ``bins`` of row 9's dB of ``chunks``,
+    chunk by chunk, kept on the card: (len(qs), len(bins))."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.power import _quantile
+
+    cols = torch.cat([kernels.spectrogram_dB(c, w, nfft)[:, bins] for c in chunks])
+    return _quantile(cols, qs, axis=0)
+
+
+def refinement_phases(dev, smi: str) -> dict:
+    """phase 20; returns, by kernels-line row name (rows 7, 9, 10), the
+    launches and device time of the refinement on this path."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch import parallel as P
+    from iqwaveform_torch.ops import kernels, spectral
+    from iqwaveform_torch.parallel import streaming as S
+
+    nfft, fs = PSD_NFFT, PSD_FS
+    q_rows = [i for i, s in enumerate(PSD_STATS) if isinstance(s, float)]
+    named = [i for i in range(len(PSD_STATS)) if i not in q_rows]
+    qs = tuple(PSD_STATS[i] for i in q_rows)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    limit = spectral._refine_above(dev)
+    print(f'phase 20: the default PSD sorts up to {limit} samples on this card ({total} B, '
+          f'{spectral._SORT_BYTES_PER_SAMPLE} + {spectral._INPUT_BYTES_PER_SAMPLE} B a sample, '
+          f'{spectral._MEMORY_MARGIN} B kept back), and refines above ({smi})')
+    summary = {'sort_limit_samples': limit}
+
+    # ---- 20a: both routes of the default PSD at 2^28 samples, one call
+    n = N_REFINE_BOTH
+    x = long_capture(dev, n)
+    level = float(10 * torch.log10((x[:1 << 24].abs() ** 2).double().mean() / nfft))
+    sort, sort_peak, _, sort_launched = peak_call(
+        lambda: it.power_spectral_density(x, **psd_kwargs()))
+    (refined, refine_peak, _, refine_launched), narrow_check = narrow_labels_check(
+        lambda: peak_call(lambda: refined_psd(x)))
+    print(f'20a: colhist on the narrowing pass\'s labels of one chunk against colhist_plain: '
+          f'{json.dumps(narrow_check)} ({smi})')
+    require(sort_launched == {'spectrogram_dB': 1},
+            f'20a: the sort route launched {sort_launched}')
+    require(all(refine_launched.get(k, 0) > 0
+                for k in ('spectrogram_levels', 'spectrogram_dB', 'colhist')),
+            f'20a: the refinement launched {refine_launched}')
+    equal = torch.equal(refined[q_rows], sort[q_rows])
+    named_gate = psd_gate(refined[named], sort[named], level, '20a named rows, refined vs sort')
+    require(equal, '20a: the refinement\'s quantile rows differ from the sort\'s')
+    per_sample = sort_peak / n
+    print(f'20a: {n} samples, quantile rows of the two routes torch.equal: {equal}; named rows '
+          f'{json.dumps(named_gate)}; launches: sort {json.dumps(sort_launched)}, refinement '
+          f'{json.dumps(refine_launched)}; peak above the input: sort {sort_peak / 2**20:.1f} MiB '
+          f'({per_sample:.2f} B a sample), refinement {refine_peak / 2**20:.1f} MiB '
+          f'({refine_peak / n:.3f} B a sample) ({smi})')
+    # the threshold's margin covers what the sort holds beside its bytes a
+    # sample; a growth with the capture would not be covered
+    fixed = sort_peak - spectral._SORT_BYTES_PER_SAMPLE * n
+    require(fixed <= SORT_FIXED_BYTES,
+            f'20a: the sort holds {per_sample:.4f} B a sample ({fixed} B above the '
+            f'{spectral._SORT_BYTES_PER_SAMPLE} B a sample the threshold assumes)')
+    times = {'sort': timed_ms(lambda: it.power_spectral_density(x, **psd_kwargs()),
+                              reps=REFINE_REPS, warmup=1),
+             'refined': timed_ms(lambda: refined_psd(x), reps=REFINE_REPS, warmup=1)}
+    for route, ms in times.items():
+        print(f'20a {route}: {ms:.4f} ms for {n} samples = {n / ms / 1e3:.1f} MS/s '
+              f'({smi})')
+    traces = {}
+    for name, expect in REFINE_TRACES.items():
+        fn = ((lambda: it.power_spectral_density(x, **psd_kwargs())) if name == 'psd_sort_2e28'
+              else (lambda: refined_psd(x)))
+        names, device_us = device_kernels(fn, *expect, fresh=name)
+        for k in expect:
+            require(any(k in m for m in names), f'profiler shows no {k} in {name}')
+        bad = library_kernels(names)
+        require(not bad, f'library FFT / GEMM kernels in {name}: {bad}')
+        busy = sum(device_us.values()) / 1e3
+        traces[name] = {'device_us': device_us, 'busy_ms': busy}
+        print(f'20a {name} device time by kernel (us): ' + json.dumps(
+            dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+        print(f'20a {name}: device busy {busy:.4f} ms ({smi})')
+    summary['20a'] = {'ms': times, 'MSps': {k: n / v / 1e3 for k, v in times.items()},
+                      'peak_bytes': {'sort': sort_peak, 'refined': refine_peak},
+                      'sort_bytes_per_sample': per_sample, 'named_gate': named_gate,
+                      'launches': {'sort': sort_launched, 'refined': refine_launched},
+                      'colhist_narrow_labels': narrow_check}
+    del x, sort, refined
+
+    # the sort's bytes a sample, measured above, set the threshold: the
+    # default PSD sorts a capture near it within the card's memory less the
+    # margin, by the allocator's reserve as well as by what it allocated
+    n = int(limit * SORT_NEAR) // nfft * nfft
+    x = long_capture(dev, n)
+    psd, near_peak, near_s, near_launched = peak_call(
+        lambda: it.power_spectral_density(x, **psd_kwargs()))
+    allocated, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    require(near_launched == {'spectrogram_dB': 1},
+            f'20a: the default PSD on {n} samples did not take the sort ({near_launched})')
+    require(tuple(psd.shape) == (len(PSD_STATS), nfft) and bool(torch.isfinite(psd).all()),
+            f'20a: the sort on {n} samples gave {tuple(psd.shape)}')
+    room = total - spectral._MEMORY_MARGIN
+    require(allocated <= room and reserved <= room,
+            f'20a: the sort on {n} samples peaked at {allocated} B allocated, {reserved} B '
+            f'reserved, beyond the {room} B the threshold allows')
+    print(f'20a: the default PSD sorts {n} samples ({n / limit:.3f} of the threshold) in '
+          f'{near_s * 1e3:.1f} ms: peak {allocated} B allocated ({near_peak / n:.4f} B a sample '
+          f'above the input), {reserved} B reserved, of the {room} B the threshold allows '
+          f'({smi})')
+    summary['20a_near'] = {'samples': n, 'ms': near_s * 1e3, 'peak_allocated': allocated,
+                           'peak_reserved': reserved, 'room': room,
+                           'bytes_per_sample': near_peak / n}
+    del x, psd
+
+    # ---- 20b: the default PSD at 2^31 samples takes the refinement itself
+    n = N_REFINE_BIG
+    x = long_capture(dev, n)
+    seen = collect_capacity()
+    try:
+        psd, peak, seconds, launched = peak_call(lambda: it.power_spectral_density(
+            x, **psd_kwargs()))
+    finally:
+        unwrap_capacity()
+    for k in ('spectrogram_levels', 'spectrogram_dB', 'colhist'):
+        require(launched.get(k, 0) > 0, f'20b: the refinement launched no {k}: {launched}')
+    require(len(seen) == 1, f'20b: the default PSD did not take the refinement ({seen})')
+    require(tuple(psd.shape) == (len(PSD_STATS), nfft) and bool(torch.isfinite(psd).all()),
+            f'20b: {tuple(psd.shape)}, finite {bool(torch.isfinite(psd).all())}')
+    chunk_frames = spectral._FOLD_CHUNK_SAMPLES // nfft
+    hist = it.power_spectral_density(x, **psd_kwargs(quantile_method='histogram',
+                                                     hist_bins=1024))
+    width = 200.0 / 1024
+    off_bins = max_abs(psd[q_rows], hist[q_rows]) / width
+    require(off_bins <= 1, f'20b: {off_bins:.3g} bins from the histogram quantiles')
+    bins = torch.from_numpy(np.linspace(0, nfft - 1, ORACLE_BINS).round().astype('int64')).to(dev)
+    w = torch.from_numpy(S.design_persistence(nfft=nfft, window='hann', hist_bins=0)
+                         ['kernel_window']).to(dev)
+    chunk = chunk_frames * nfft
+    oracle = quantile_columns([x[i:i + chunk] for i in range(0, n, chunk)], w, nfft, bins, qs)
+    exact = torch.equal(psd[q_rows][:, bins], oracle)
+    require(exact, '20b: the refined quantiles differ from _quantile of row 9 on the sampled bins')
+    del hist, oracle
+    print(f'20b: {n} complex64 samples ({n * 8 / 2**30:.0f} GiB): {seconds * 1e3:.1f} ms = '
+          f'{n / seconds / 1e6:.1f} MS/s ({n / PSD_FS:.2f} s of capture at {PSD_FS / 1e6} MS/s), '
+          f'peak above the input {peak / 2**20:.1f} MiB, collect capacity C {seen}, launches '
+          f'{json.dumps(launched)}; quantiles {off_bins:.3f} bins from the histogram ones; '
+          f'bit for bit on {ORACLE_BINS} bins: {exact} ({smi})')
+    summary['20b'] = {'ms': seconds * 1e3, 'MSps': n / seconds / 1e6, 'peak_bytes': peak,
+                      'C': seen, 'launches': launched, 'hist_bins_off': off_bins}
+    del x, psd
+
+    # ---- 20c: streaming_persistence_spectrum(exact_quantiles=True) at
+    # BASELINE #3, and a checkpoint halfway through its fold
+    design = P.design_persistence(**PERSISTENCE)
+    kw = dict(fs=1.0, window=PERSISTENCE['window'], nfft=nfft, chunk_frames=CHUNK // nfft,
+              hist_bins=PERSISTENCE['hist_bins'], hist_range_dB=PERSISTENCE['hist_range_dB'],
+              quantiles=qs, fft_backend=PERSISTENCE['fft_backend'],
+              fft_precision=PERSISTENCE['fft_precision'])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((2, N_EXACT_STREAM), device=dev, generator=gen)
+    small = x[:, :N_EXACT_ORACLE]
+    got = it.streaming_persistence_spectrum(small, exact_quantiles=True, **kw)
+    oracle = quantile_columns([small[:, i:i + CHUNK] for i in range(0, N_EXACT_ORACLE, CHUNK)],
+                              torch.from_numpy(design['kernel_window']).to(dev), nfft,
+                              torch.arange(nfft, device=dev), qs)
+    require(got.get('quantiles_exact') is True and torch.equal(got['quantiles_dB'], oracle),
+            f'20c: exact quantiles on {N_EXACT_ORACLE} samples differ from _quantile of row 9')
+    del got, oracle
+    fold, _, fold_s, fold_launched = peak_call(
+        lambda: it.streaming_persistence_spectrum(x, **kw))
+    out, exact_peak, exact_s, exact_launched = peak_call(
+        lambda: it.streaming_persistence_spectrum(x, exact_quantiles=True, **kw))
+    require(fold_launched.get('spectrogram_levels', 0) == N_EXACT_STREAM // CHUNK,
+            f'20c: the fold launched {fold_launched}')
+    require(exact_launched.get('spectrogram_dB', 0) >= N_EXACT_STREAM // CHUNK,
+            f'20c: the refinement launched {exact_launched}')
+    width = 200.0 / PERSISTENCE['hist_bins']
+    off_bins = max_abs(out['quantiles_dB'], fold['quantiles_dB']) / width
+    require(off_bins <= 1, f'20c: {off_bins:.3g} bins from the histogram quantiles')
+    # the checkpoint: fold half the chunks, save, load, fold the rest
+    half = N_EXACT_STREAM // 2
+    first = it.streaming_persistence_spectrum(x[:, :half], **kw)
+    path = ROOT / 'build' / 'phase20_carry.npz'
+    path.parent.mkdir(exist_ok=True)
+    P.save_carry(path, first['_carry'])
+    restored = P.load_carry(path, P.persistence_init(design, dev))
+    path.unlink()
+    resumed = it.streaming_persistence_spectrum(x[:, half:], init_carry=restored, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(
+        (resumed['_carry'].hist, resumed['_carry'].psum, resumed['_carry'].pmax,
+         resumed['_carry'].pmin, resumed['quantiles_dB']),
+        (fold['_carry'].hist, fold['_carry'].psum, fold['_carry'].pmax, fold['_carry'].pmin,
+         fold['quantiles_dB'])))
+    require(same and resumed['_carry'].count == fold['_carry'].count,
+            '20c: the fold resumed from a checkpoint differs from the uninterrupted one')
+    print(f'20c: BASELINE #3 on {N_EXACT_STREAM} samples: the fold {fold_s * 1e3:.1f} ms, with '
+          f'the exact quantiles {exact_s * 1e3:.1f} ms (the refinement '
+          f'{(exact_s - fold_s) * 1e3:.1f} ms), peak {exact_peak / 2**20:.1f} MiB above the '
+          f'input; quantiles {off_bins:.3f} bins from the histogram ones; bit for bit with '
+          f'_quantile of row 9 on {N_EXACT_ORACLE} samples; resumed from a checkpoint at '
+          f'{half} samples: torch.equal {same}; launches {json.dumps(exact_launched)} ({smi})')
+    summary['20c'] = {'fold_ms': fold_s * 1e3, 'exact_ms': exact_s * 1e3,
+                      'peak_bytes': exact_peak, 'hist_bins_off': off_bins,
+                      'launches': exact_launched}
+    del x, small, fold, out, first, restored, resumed
+
+    # ---- 20d: shapes the kernels do not take route before any launch
+    x = long_capture(dev, N_ROUTE)
+    small = x[:N_ROUTE_CPU]
+    routes = {}
+    for route_nfft in ROUTE_NFFT:
+        kw = dict(fs=fs, window='hann', resolution=fs / route_nfft, statistics=PSD_STATS)
+        got, _, _, launched = peak_call(lambda: it.power_spectral_density(x, **kw))
+        require(launched == {}, f'20d: the PSD at nfft {route_nfft} launched {launched}')
+        lvl = float(10 * torch.log10((small.abs() ** 2).double().mean() / route_nfft))
+        g = psd_gate(it.power_spectral_density(small, **kw),
+                     it.power_spectral_density(small.cpu(), device='cpu', **kw), lvl,
+                     f'20d PSD at nfft {route_nfft} vs the CPU', nfft=route_nfft)
+        routes[f'psd_{route_nfft}'] = {'launches': launched, 'gate': g,
+                                       'shape': list(got.shape)}
+    fkw = dict(fs=fs, window='hann', nfft=1536, chunk_frames=N_ROUTE // 2 // 1536, hist_bins=1024,
+               quantiles=qs, fft_backend='mxu')
+    got, _, _, launched = peak_call(lambda: it.streaming_persistence_spectrum(x, **fkw))
+    require(launched.get('colhist', 0) > 0 and set(launched) == {'colhist'},
+            f'20d: the fold at nfft 1536 launched {launched}')
+    small_kw = dict(fkw, chunk_frames=N_ROUTE_CPU // 1536)
+    card = it.streaming_persistence_spectrum(small, **small_kw)
+    cpu = it.streaming_persistence_spectrum(small.cpu(), device='cpu', **small_kw)
+    lvl = float(10 * torch.log10((small.abs() ** 2).double().mean() / 1536))
+    g = {k: psd_gate(card[k], cpu[k], lvl, f'20d fold at 1536 {k} vs the CPU', nfft=1536)
+         for k in ('mean_dB', 'max_dB')}
+    drift = int((card['hist'].cpu().long().cumsum(1) - cpu['hist'].long().cumsum(1)).abs().max())
+    require(drift <= 2, f'20d fold at 1536: cumulative counts {drift} from the CPU\'s')
+    routes['fold_1536'] = {'launches': launched, 'gate': g, 'hist_drift': drift}
+    p = it.envtopow(x)
+    edges = (10 ** (np.linspace(-40.0, 15.0, ROUTE_EDGES) / 10)).astype('float32')
+    got, _, _, launched = peak_call(lambda: it.sample_ccdf(p, edges, density=False))
+    require(launched == {}, f'20d: sample_ccdf with {ROUTE_EDGES} edges launched {launched}')
+    require(torch.equal(got.cpu(), it.sample_ccdf(p.cpu(), edges, density=False, device='cpu')),
+            f'20d: sample_ccdf with {ROUTE_EDGES} edges differs from the CPU\'s')
+    routes['sample_ccdf_40000'] = {'launches': launched}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = torch.randn((1, N_ROUTE_UPFIRDN), device=dev, generator=gen)
+    h = torch.randn(ROUTE_TAPS, device=dev, generator=gen) / math.sqrt(ROUTE_TAPS)
+    got, _, _, launched = peak_call(lambda: it.fourier.upfirdn(h, xs, 1, 1))
+    require(launched == {}, f'20d: upfirdn at {ROUTE_TAPS} taps launched {launched}')
+    err = rel_rms(got.cpu(), it.fourier.upfirdn(h.cpu(), xs.cpu(), 1, 1, device='cpu'))
+    require(err <= 1e-5, f'20d: upfirdn at {ROUTE_TAPS} taps vs the CPU: {err:.3g}')
+    routes['upfirdn_40000'] = {'launches': launched, 'rel_rms_vs_cpu': err}
+    print('20d: the routes at shapes the kernels do not take (no launch of the refusing '
+          'kernel; each against the CPU port): ' + json.dumps(routes))
+    summary['20d'] = routes
+    print('phase 20 summary: ' + json.dumps(summary))
+    del x, small, p, xs, h, got
+    torch.cuda.empty_cache()
+
+    device_ms_of = {name: device_ms(traces['psd_refined_2e28']['device_us'], kernel)
+                    for name, kernel in (('spectrogram_dB', DB_REG_KERNEL),
+                                         ('spectrogram_levels', LEVELS_REG_KERNEL),
+                                         ('colhist', COLHIST_REG_KERNEL))}
+    rows = {name: {'launches': summary['20b']['launches'].get(name, 0),
+                   'in_call': f'power_spectral_density on {N_REFINE_BIG} samples (refined)',
+                   'profiled_device_ms_2e28': device_ms_of[name]}
+            for name in device_ms_of}
+    rows['colhist']['narrow_labels'] = narrow_check
+    return rows
+
+
 def main(parent: str | None = None) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -3788,6 +4195,13 @@ def main(parent: str | None = None) -> int:
     for row in rows:
         if row['name'] in baseline1:
             row['baseline1'] = baseline1[row['name']]
+
+    # ---- phase 20: exact quantiles by the refinement (rows 7, 9, 10 on its
+    # passes), the carry's checkpoint, the routes by shape
+    refinement = refinement_phases(dev, smi)
+    for row in rows:
+        if row['name'] in refinement:
+            row['refinement'] = refinement[row['name']]
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -37,6 +37,7 @@ __all__ = [
     'colhist',
     'colhist_plain',
     'colhist_route',
+    'colhist_takes',
     'packed_plan',
     'quantize_uniform',
     'uniform_quant',
@@ -107,6 +108,14 @@ def _reg_smem(n_bins: int) -> int:
     return 4 * REG_COLS * (-(-n_bins // 2))
 
 
+def colhist_takes(n_bins: int, smem: int) -> bool:
+    """whether the CUDA column counters take a table of ``n_bins`` levels
+    on a device whose blocks opt in to ``smem`` bytes of shared memory (a
+    column's int32 counters must fit). The routes ask this before they
+    launch; :func:`colhist` raises where it is false."""
+    return n_bins * 4 <= smem
+
+
 def colhist_route(n_bins: int, smem: int) -> str:
     """the kernel :func:`colhist` launches for a table of ``n_bins``
     levels on a device whose blocks opt in to ``smem`` bytes of shared
@@ -156,7 +165,7 @@ def colhist(
     _build.require(hist, 'hist', device=dev, dtype=torch.int32)
     n_rows, n_cols = vals.shape
     n_bins = hist.shape[1]
-    if n_bins * 4 > _build.smem_optin(dev):
+    if not colhist_takes(n_bins, _build.smem_optin(dev)):
         raise NotImplementedError(
             f'the CUDA column-histogram kernel keeps a column\'s {n_bins} '
             'counters in shared memory, which they overflow'

@@ -29,7 +29,7 @@ import torch
 from ..power import _sorted_edge_counts
 from . import _build
 
-__all__ = ['hist', 'hist_plain', 'hist_route']
+__all__ = ['hist', 'hist_plain', 'hist_route', 'hist_takes']
 
 # hist_bucket_kernel: its table's buckets (csrc/hist.cu kBuckets) and the
 # warps of a block (kBkWarps), whose sums share its shared memory
@@ -59,6 +59,17 @@ def hist_route(n_edges: int, smem: int) -> str:
     (``hist_bucket_kernel``) where its table and counts fit, else
     ``'generic'`` (``hist_kernel``)."""
     return 'bucket' if _bucket_smem(n_edges) <= smem else 'generic'
+
+
+def hist_takes(n_edges: int, n: int, smem: int, batch: int = 1) -> bool:
+    """whether the CUDA histogram kernels take ``batch`` rows of ``n``
+    samples against ``n_edges`` edges on a device whose blocks opt in to
+    ``smem`` bytes of shared memory: rows below 2**31 samples, batches
+    below 2**16, and the older kernel's edges and counts in shared memory
+    (the bucket kernel is taken only where its larger table fits too). The
+    routes ask this before they launch; :func:`hist` raises where it is
+    false."""
+    return n < 2**31 and batch < 2**16 and _generic_smem(n_edges) <= smem
 
 
 def hist(p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
@@ -95,13 +106,11 @@ def _launch(p, edges, route: str, dev):
     counts = torch.zeros((batch, n_edges + 1), dtype=torch.int32, device=dev)
     if batch == 0:
         return counts.reshape(*lead, n_edges + 1)
-    if n >= 2**31 or batch >= 2**16:
-        raise ValueError('hist takes rows below 2**31 samples and batches below 2**16')
-    # the bucket route is taken only where its larger shared memory fits
-    if route == 'generic' and _generic_smem(n_edges) > _build.smem_optin(dev):
+    if not hist_takes(n_edges, n, _build.smem_optin(dev), batch):
         raise NotImplementedError(
-            f'the CUDA histogram kernels keep the {n_edges} edges and counts in '
-            'shared memory, which they overflow'
+            f'the CUDA histogram kernels take rows below 2**31 samples and batches below '
+            f'2**16, and keep the edges and counts in shared memory: not {batch} rows of '
+            f'{n} samples against {n_edges} edges'
         )
     _build.prepare('iqt_hist_prepare', dev)
     lib = _build.library()

@@ -43,6 +43,7 @@ from .fused_ola import reg_forward_twiddles
 __all__ = [
     'db_route',
     'levels_route',
+    'spectrogram_takes',
     'spectrogram_dB',
     'spectrogram_dB_plain',
     'spectrogram_levels',
@@ -113,19 +114,36 @@ def spectrogram_levels_plain(
     return out
 
 
+def _nfft_taken(nfft: int) -> bool:
+    return 64 <= nfft <= MAX_CUDA_FFT and nfft & (nfft - 1) == 0
+
+
+def _navg_taken(nfft: int, apd_navg: int) -> bool:
+    return not apd_navg or (apd_navg >= 1 and nfft % apd_navg == 0)
+
+
+def spectrogram_takes(nfft: int, apd_navg: int = 0) -> bool:
+    """whether the CUDA spectrogram kernels take frames of ``nfft`` points
+    (a power of two in [64, MAX_CUDA_FFT]) and, for
+    :func:`spectrogram_levels`, power binned by ``apd_navg`` (0, or a
+    divisor of nfft). The routes ask this before they launch; the wrappers
+    raise where it is false."""
+    return _nfft_taken(nfft) and _navg_taken(nfft, apd_navg)
+
+
 def _check_cuda(name, x, window, nfft, apd_navg=0):
     """validate a CUDA call; returns (xr, xi, stride, n_frames, log2n)."""
-    log2n = _build.log2_exact(nfft)
-    if not (64 <= nfft <= MAX_CUDA_FFT and log2n > 0):
+    if not _nfft_taken(nfft):
         raise NotImplementedError(
             f'the CUDA spectrogram kernel takes a power-of-two nfft in [64, '
             f'{MAX_CUDA_FFT}], not {nfft}'
         )
-    if apd_navg and (apd_navg < 1 or nfft % apd_navg):
+    if not _navg_taken(nfft, apd_navg):
         raise NotImplementedError(
             f'the CUDA spectrogram kernel bins power by an apd_navg that divides '
             f'nfft={nfft}, not {apd_navg}'
         )
+    log2n = _build.log2_exact(nfft)
     dev = x.device
     _build.require(window, 'window', device=dev, dtype=torch.complex64, shape=(nfft,))
     if x.is_complex():

@@ -38,7 +38,7 @@ import torch
 from . import _build
 from .fused_ola import H100_SMEM_OPTIN
 
-__all__ = ['upfirdn_cuda', 'upfirdn_output_len', 'upfirdn_plain', 'upfirdn_route']
+__all__ = ['upfirdn_cuda', 'upfirdn_output_len', 'upfirdn_plain', 'upfirdn_route', 'upfirdn_takes']
 
 _THREADS = 256
 _CHUNK = 128  # outputs of one phase class per warp work item (32 lanes x 4)
@@ -160,6 +160,31 @@ def upfirdn_route(len_h: int, up: int, down: int, x_complex: bool, h_complex: bo
     return 'reg' if _reg_blocking(len_h, up, down, xb, hb, smem) is not None else 'generic'
 
 
+def _plan(route: str, len_h: int, up: int, down: int, x_bytes: int, h_bytes: int,
+          smem: int):
+    """``route``'s blocking ('reg' or 'generic'), None where it does not
+    fit ``smem`` bytes of shared memory."""
+    if route == 'reg':
+        return _reg_blocking(len_h, up, down, x_bytes, h_bytes, smem)
+    plan = _blocking(len_h, up, down, x_bytes, h_bytes, smem)
+    return plan if plan['smem'] <= smem else None
+
+
+def upfirdn_takes(len_h: int, up: int, down: int, x_complex: bool, h_complex: bool,
+                  smem: int, batch: int = 1, n: int = 1, route: str = None) -> bool:
+    """whether the CUDA upfirdn kernels take ``len_h`` taps at ``up`` /
+    ``down`` on (``batch``, ``n``) rows, on a device whose blocks opt in to
+    ``smem`` bytes of shared memory: the blocking of ``route`` (by default
+    :func:`upfirdn_route`'s) fits, and the rows, the batch and the ratio
+    are within the kernels' index range. The routes ask this before they
+    launch; :func:`upfirdn_cuda` raises where it is false."""
+    if n >= 2**31 or batch >= 2**16 or up * down >= 2**31:
+        return False
+    route = route or upfirdn_route(len_h, up, down, x_complex, h_complex, smem)
+    xb, hb = (8 if x_complex else 4), (8 if h_complex else 4)
+    return _plan(route, len_h, up, down, xb, hb, smem) is not None
+
+
 def upfirdn_cuda(h: torch.Tensor, x: torch.Tensor, up: int, down: int) -> torch.Tensor:
     """upsample by ``up``, FIR filter with ``h``, downsample by ``down``
     along the last axis of ``x`` (B, N): y[b, n] = sum_j h[p + j up] x[b,
@@ -193,13 +218,10 @@ def _check_cuda(h: torch.Tensor, x: torch.Tensor, up: int, down: int) -> None:
         _build.require(t, name, device=dev, dtype=t.dtype)
     if x.dim() != 2 or h.dim() != 1 or h.numel() == 0:
         raise ValueError('upfirdn takes x (B, N) and a non-empty 1-D h')
-    B, N = x.shape
-    if N == 0 or B == 0:
+    if x.shape[0] == 0 or x.shape[1] == 0:
         raise ValueError('upfirdn needs a non-empty input')
-    if N >= 2**31 or B >= 2**16:
-        raise ValueError('upfirdn takes rows below 2**31 samples and batches below 2**16')
-    if up < 1 or down < 1 or up * down >= 2**31:
-        raise ValueError(f'up ({up}) and down ({down}) must be positive, with a product below 2**31')
+    if up < 1 or down < 1:
+        raise ValueError(f'up ({up}) and down ({down}) must be positive')
 
 
 def _launch(h: torch.Tensor, x: torch.Tensor, up: int, down: int, route: str) -> torch.Tensor:
@@ -211,14 +233,13 @@ def _launch(h: torch.Tensor, x: torch.Tensor, up: int, down: int, route: str) ->
     len_h = h.shape[0]
     n_out = upfirdn_output_len(len_h, N, up, down)
     smem = _build.smem_optin(dev)
-    sizes = (len_h, up, down, x.element_size(), h.element_size(), smem)
-    plan = _reg_blocking(*sizes) if route == 'reg' else _blocking(*sizes)
-    if plan is None or plan['smem'] > smem:
+    if not upfirdn_takes(len_h, up, down, x.is_complex(), h.is_complex(), smem, B, N, route):
         raise NotImplementedError(
-            f'the CUDA upfirdn kernel stages the taps and an input span in '
-            f'shared memory: {len_h} taps at up={up}, down={down} need '
-            f'{_blocking(*sizes)["smem"]} bytes, above the {smem} one block may use'
+            f'the CUDA upfirdn kernels take rows below 2**31 samples, batches below 2**16 and '
+            f'up * down below 2**31, and stage the taps and an input span in shared memory '
+            f'({smem} bytes a block): not {len_h} taps at up={up}, down={down} on ({B}, {N})'
         )
+    plan = _plan(route, len_h, up, down, x.element_size(), h.element_size(), smem)
     y = torch.empty((B, n_out), dtype=_out_dtype(h, x), device=dev)
     _build.prepare('iqt_upfirdn_prepare', dev)
     common = (x.data_ptr(), h.data_ptr(), y.data_ptr(), B, N, n_out, len_h, up, down,

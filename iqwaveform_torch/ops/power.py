@@ -119,6 +119,22 @@ def unit_wave_to_linear(s: str):
     )
 
 
+def _rank(q: float, n: int) -> tuple:
+    """numpy's linear rule for quantile ``q`` (a float32 value) of ``n``
+    values: (lo, hi, t), the ranks of the two order statistics and the
+    weight of the higher, the position q (n - 1) taken in float64."""
+    pos = float(q) * (n - 1)
+    lo = min(int(np.floor(pos)), n - 1)
+    return lo, min(lo + 1, n - 1), pos - lo
+
+
+def _lerp(a_lo: torch.Tensor, a_hi: torch.Tensor, t: float) -> torch.Tensor:
+    """a_lo + (a_hi - a_lo) t in the tensors' dtype, as numpy's _lerp
+    takes it: from the nearer end, so the result stays monotonic."""
+    diff = a_hi - a_lo
+    return a_hi - diff * (1 - t) if t >= 0.5 else a_lo + diff * t
+
+
 def _quantile(a: torch.Tensor, q, axis=0) -> torch.Tensor:
     """quantiles of ``a`` along ``axis`` (None: all of it) by one sort,
     with numpy's default linear interpolation between the order statistics
@@ -139,14 +155,8 @@ def _quantile(a: torch.Tensor, q, axis=0) -> torch.Tensor:
     has_nan = torch.isnan(s.select(axis, n - 1))
     rows = []
     for qi in q_host.reshape(-1):
-        pos = float(qi) * (n - 1)
-        lo = min(int(np.floor(pos)), n - 1)
-        t = pos - lo
-        a_lo = s.select(axis, lo)
-        a_hi = s.select(axis, min(lo + 1, n - 1))
-        diff = a_hi - a_lo
-        # numpy's _lerp: from the nearer end, so the result stays monotonic
-        v = a_hi - diff * (1 - t) if t >= 0.5 else a_lo + diff * t
+        lo, hi, t = _rank(qi, n)
+        v = _lerp(s.select(axis, lo), s.select(axis, hi), t)
         rows.append(v.masked_fill(has_nan, float('nan')))
     if q_host.ndim == 0:
         return rows[0]
@@ -596,8 +606,14 @@ def _sorted_edge_counts(a: torch.Tensor, edges) -> torch.Tensor:
 def _kernel_edges(a: torch.Tensor, edges):
     """the edges as float32 on ``a``'s device where the CUDA ``hist``
     kernel counts ``a`` (1-D float32 samples on the card, 1-D edges in
-    order), else None."""
+    order, as many edges and samples as the kernel takes), else None."""
     if a.device.type != 'cuda' or a.ndim != 1 or a.dtype != torch.float32:
+        return None
+    from .kernels import _build
+    from .kernels.hist import hist_takes
+
+    n_edges = edges.shape[0] if is_torch_tensor(edges) and edges.ndim == 1 else np.size(edges)
+    if not hist_takes(n_edges, a.shape[0], _build.smem_optin(a.device)):
         return None
     if is_torch_tensor(edges):
         e = edges.to(device=a.device, dtype=torch.float32)
@@ -615,8 +631,9 @@ def histogram_edge_counts(a, edges):
     over the last axis of ``a``; NaN counts in the last bin.
 
     numpy input: searchsorted + bincount (1-D). A 1-D float32 tensor on
-    the card against 1-D edges in order: the CUDA ``hist`` kernel. Any
-    other tensor: sort + searchsorted of the edges into the sorted samples,
+    the card against 1-D edges in order: the CUDA ``hist`` kernel, where it
+    takes the edges and the sample count (``hist_takes``). Any other
+    tensor: sort + searchsorted of the edges into the sorted samples,
     batched over the leading axes. Tensor counts are int64; the edges
     compare in the samples' dtype.
     """

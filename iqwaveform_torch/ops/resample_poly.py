@@ -5,11 +5,15 @@ the polyphase upfirdn kernels, C14 in SURVEY.md; fourier.py:1476-1509, the
 upfirdn dispatcher and oaconvolve).
 
 ``upfirdn`` routes, from its arguments and never by catching a failure:
-``backend='auto'`` or 'pallas' takes the hand-written polyphase kernel
-(ops.kernels.upfirdn_cuda, the CUDA port of ``upfirdn_pallas``) for every
-shape; 'xla' takes the plain float32 ``conv1d``. On the CPU the kernel
-route runs the kernel's plain version. The JAX package's numpy -> scipy
-dispatch is not copied: scipy is an oracle in the tests, not a route.
+``backend='auto'`` takes the hand-written polyphase kernel
+(ops.kernels.upfirdn_cuda, the CUDA port of ``upfirdn_pallas``) wherever
+it takes the shape (``upfirdn_takes``: a blocking of the taps and an input
+span fits one block's shared memory, up to about 29,000 taps at 1/1), and
+the plain float32 ``conv1d`` elsewhere, as the JAX 'auto' never raises;
+'pallas' takes the kernel at every shape and raises where it does not
+take it; 'xla' takes the plain ``conv1d``. On the CPU the kernel route
+runs the kernel's plain version. The JAX package's numpy -> scipy dispatch
+is not copied: scipy is an oracle in the tests, not a route.
 
 ``oaconvolve`` is an FFT convolution on ``torch.fft``, as the JAX package
 computes it outside any Pallas kernel (its XLA ``fftconvolve``).
@@ -21,7 +25,8 @@ import torch
 
 from ..utils import resolve_device
 from .fft import to_float32
-from .kernels.upfirdn import upfirdn_cuda, upfirdn_output_len, upfirdn_plain
+from .kernels import _build
+from .kernels.upfirdn import upfirdn_cuda, upfirdn_output_len, upfirdn_plain, upfirdn_takes
 
 __all__ = ['oaconvolve', 'upfirdn', 'upfirdn_output_len']
 
@@ -55,7 +60,8 @@ def upfirdn(
             cuda.py:497-500)
         precision: accepted for API compatibility; the port computes in
             float32 (the JAX package's HIGHEST)
-        backend: 'auto' or 'pallas' (the polyphase kernel), 'xla' (the
+        backend: 'auto' (the polyphase kernel where it takes the shape,
+            else the plain conv1d), 'pallas' (the kernel), 'xla' (the
             plain conv1d)
 
     Returns:
@@ -82,6 +88,11 @@ def upfirdn(
     batch_shape = xm.shape[:-1]
     x2d = xm.reshape(-1, xm.shape[-1]).contiguous()
     run = upfirdn_plain if backend == 'xla' else upfirdn_cuda
+    if backend == 'auto' and x2d.device.type == 'cuda' and not upfirdn_takes(
+        h.shape[0], up, down, x2d.is_complex(), h.is_complex(),
+        _build.smem_optin(x2d.device), *x2d.shape,
+    ):
+        run = upfirdn_plain
     y2d = run(h.contiguous(), x2d, up, down)
     return y2d.reshape(*batch_shape, y2d.shape[-1]).movedim(-1, axis)
 

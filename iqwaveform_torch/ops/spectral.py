@@ -11,21 +11,34 @@ chosen from the arguments before any launch:
   applies; the JAX package's ``_psd_factored_fast``, :266-449): 1-D
   TIME-domain input, no overlap, whole windows, dB. With exact quantiles
   (the default) the dB spectrogram comes from the ``spectrogram_dB`` kernel
-  (ops.kernels.spectrogram), then one sort serves every quantile; with
-  quantile_method='histogram' the persistence fold of parallel.streaming
-  counts it (``spectrogram_levels`` + ``colhist`` up to 1024 bins at
-  nfft >= 1024, ``spectrogram_dB`` + ``colhist`` on values otherwise) and
-  the quantiles are read from the histogram. On the CPU each kernel is its
-  plain version. Bins stay in natural order throughout: the JAX package's
-  factored order and its unscramble are a TPU layout;
+  (ops.kernels.spectrogram) where it takes nfft (a power of two in [64,
+  16384]), else from its plain version, then one sort serves every
+  quantile; with quantile_method='histogram' the persistence fold of
+  parallel.streaming counts it in chunks of _FOLD_CHUNK_SAMPLES
+  (``spectrogram_levels`` + ``colhist`` up to 1024 bins at nfft >= 1024,
+  ``spectrogram_dB`` + ``colhist`` on values otherwise, each kernel where
+  it takes the shapes) and the quantiles are read from the histogram. On the CPU each kernel is its plain version.
+  Bins stay in natural order throughout: the JAX package's factored order
+  and its unscramble are a TPU layout;
 * fft_backend 'xla': ``spectrogram`` on torch.fft, dB, the statistics.
 
 'auto' resolves as the JAX package resolves it on its accelerator, whatever
 the device: the kernel route where its constraints hold and nfft has a
 four-step factorization, 'xla' otherwise (also for a window vector, which
-the kernel route's cached design does not take). The JAX package's
-bracketed exact-quantile refinement runs only on a TPU; the port sorts on
-the device at every size, as the JAX package does on every other platform.
+the kernel route's cached design does not take).
+
+On the card, exact quantiles of a capture whose sort would not fit the
+card's memory (``_refine_above``: the sort's peak of _SORT_BYTES_PER_SAMPLE
+a sample beside the input, against the card's total memory less
+_MEMORY_MARGIN) take the bracketed refinement of
+``streaming_persistence_spectrum(exact_quantiles=True)`` instead of the
+sort, as the JAX package does on its accelerator above 2 GiB of
+spectrogram: the same quantiles bit for bit, in the memory of one chunk's
+temporaries and a buffer of C values a (quantile, bin), never the whole
+spectrogram. C grows with the capture where a bin's values concentrate (a
+tone's bins): on an H100 the peak above the input was 0.97 GiB on 2^28
+samples and 5.37 GiB on 2^31, at C = 31,464. On the CPU the sort is the
+route at every size.
 
 ``channelize_power`` (reference fourier.py:1330-1415) has two routes:
 
@@ -67,7 +80,7 @@ from ..utils import (
 from .fft import FFT_BACKENDS, fftfreq, to_float32
 from .filtering import INF, _freq_band_edges
 from .kernels.chan_stats import chan_stats, covers
-from .kernels.spectrogram import spectrogram_dB
+from .kernels.spectrogram import spectrogram_dB, spectrogram_dB_plain, spectrogram_takes
 from .power import _quantile, envtodB, envtopow, powtodB, stat_ufunc_from_shorthand
 from .stft import _get_stft_axes, broadcast_onto, spectrogram, stft
 from .window_design import get_window
@@ -86,6 +99,23 @@ __all__ = [
 CHANNELIZE_BACKENDS = FFT_BACKENDS + ('pallas',)
 PSD_BACKENDS = CHANNELIZE_BACKENDS
 _HIST_NAMED = ('mean', 'max', 'peak', 'min')
+# the named statistics the refinement's persistence fold gives ('rms' of
+# the dB is their mean, as stat_ufunc_from_shorthand takes it)
+_REFINE_NAMED = _HIST_NAMED + ('rms',)
+# the default PSD's sort on the card holds this many bytes a sample beside
+# its 8-byte input (the dB spectrogram, its transposed copy, the sort's
+# values, int64 indices and buffers; chip_smoke.py phase 20a measures it:
+# 52 on 2^28 samples, 32 on 0.9 of the threshold on an H100, so the
+# threshold is conservative there), and a card keeps this much back for
+# its context and the allocator
+_SORT_BYTES_PER_SAMPLE = 52
+_INPUT_BYTES_PER_SAMPLE = 8
+_MEMORY_MARGIN = 4 << 30
+# the chunks of the histogram route's fold and of the refinement: 2^24
+# samples, the persistence fold's (one kernel call takes fewer than 2^31)
+_FOLD_CHUNK_SAMPLES = 1 << 24
+# the spectrogram_dB kernel takes calls below 2^31 samples
+_KERNEL_MAX_SAMPLES = 2**31
 
 
 def _is_window_spec(window) -> bool:
@@ -366,14 +396,44 @@ def _resolve_psd_backend(x: torch.Tensor, *, nfft, noverlap, fractional_window, 
     return _streaming._resolve_backend(nfft, chunk_samples=x.shape[0] // nfft * nfft)
 
 
+def _refine_above(device: torch.device):
+    """the most samples whose exact quantiles the sort takes on
+    ``device``: the card's total memory, less _MEMORY_MARGIN, over the
+    sort's bytes a sample with its input; None on the CPU, where the sort
+    takes every size. It reads no free memory, so the route does not
+    depend on what else the card holds at the moment of the call."""
+    if device.type != 'cuda':
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    return (total - _MEMORY_MARGIN) // (_SORT_BYTES_PER_SAMPLE + _INPUT_BYTES_PER_SAMPLE)
+
+
+def _refined_exact_applies(x: torch.Tensor, n_keep: int, nfft: int, quantiles, named) -> bool:
+    """whether the default PSD's exact quantiles take the bracketed
+    refinement in place of the sort: on the card, with quantiles, every
+    named statistic one the persistence fold gives, 2048 frames or more
+    (the JAX package's rule, iqwaveform_tpu/ops/spectral.py:244-262,
+    :384-392), and more samples than the sort holds on the card
+    (``_refine_above``) or than one spectrogram_dB call takes."""
+    limit = _refine_above(x.device)
+    return (
+        limit is not None
+        and bool(quantiles)
+        and n_keep // nfft >= 2048
+        and all(s in _REFINE_NAMED for s in named)
+        and (n_keep > limit or n_keep >= _KERNEL_MAX_SAMPLES)
+    )
+
+
 def _psd_kernel_route(
     x, *, fs, bandwidth, window, nfft, noverlap, fractional_window,
     statistics, truncate, dB, axis, fft_backend, quantile_method,
     hist_bins, hist_range_dB,
 ):
     """power_spectral_density on the spectrogram kernels (the JAX package's
-    ``_psd_factored_fast``, iqwaveform_tpu/ops/spectral.py:266-449, without
-    its TPU-only refinement branch)."""
+    ``_psd_factored_fast``, iqwaveform_tpu/ops/spectral.py:266-449), with
+    its refinement branch (:384-435) where the sort would not fit the
+    card."""
     if (
         get_input_domain() != Domain.TIME
         or x.ndim != 1
@@ -419,11 +479,26 @@ def _psd_kernel_route(
             hist_range_dB=tuple(float(v) for v in hist_range_dB), hist_bins=int(hist_bins),
             fft_backend=backend, fft_precision='highest',
         )
-        carry = _streaming.persistence_fold(
-            _streaming.persistence_init(design, x.device), x, design)
+        carry = _streaming.persistence_init(design, x.device)
+        chunk = max(1, _FOLD_CHUNK_SAMPLES // nfft) * nfft
+        for lo in range(0, n_keep, chunk):
+            carry = _streaming.persistence_fold(carry, x[lo:lo + chunk], design)
         out = _streaming.persistence_finalize(carry, design, fs=fs, quantiles=quantiles or (0.5,))
         stat_map = {'mean': out['mean_dB'], 'max': out['max_dB'], 'peak': out['max_dB'],
                     'min': out['min_dB']}
+        q_rows = iter(out['quantiles_dB'])
+        rows = [next(q_rows) if is_q else stat_map[s] for s, is_q in zip(statistics, isquantile)]
+    elif _refined_exact_applies(x, n_keep, nfft, quantiles, named):
+        # exact quantiles without a resident spectrogram: the same order
+        # statistics as the sort below, from chunks of row 9's dB
+        out = _streaming.streaming_persistence_spectrum(
+            x, fs=fs, window=window, nfft=nfft,
+            chunk_frames=max(1, min(_FOLD_CHUNK_SAMPLES // nfft, n_keep // nfft)),
+            hist_bins=1024, quantiles=quantiles, fft_backend='mxu', fft_precision='highest',
+            exact_quantiles=True, device=x.device,
+        )
+        stat_map = {'mean': out['mean_dB'], 'rms': out['mean_dB'], 'max': out['max_dB'],
+                    'peak': out['max_dB'], 'min': out['min_dB']}
         q_rows = iter(out['quantiles_dB'])
         rows = [next(q_rows) if is_q else stat_map[s] for s, is_q in zip(statistics, isquantile)]
     else:
@@ -432,7 +507,9 @@ def _psd_kernel_route(
             fft_precision='highest',
         )
         w = device_constant(design['kernel_window'], x.device)
-        rows = _stat_rows(spectrogram_dB(x, w, nfft), statistics, isquantile, quantiles, 0)
+        # row 9 where it takes nfft, its plain version on the card elsewhere
+        to_dB = spectrogram_dB if spectrogram_takes(nfft) else spectrogram_dB_plain
+        rows = _stat_rows(to_dB(x, w, nfft), statistics, isquantile, quantiles, 0)
 
     stack = torch.stack(rows, dim=0)
     if truncate:

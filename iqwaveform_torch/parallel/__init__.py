@@ -9,11 +9,13 @@ from .streaming import (
     apd_fold,
     carry_from_reference,
     design_persistence,
+    load_carry,
     persistence_apd_fold,
     persistence_finalize,
     persistence_flush,
     persistence_fold,
     persistence_init,
+    save_carry,
     streaming_apd,
     streaming_persistence_spectrum,
 )
@@ -24,12 +26,14 @@ __all__ = [
     'carry_from_reference',
     'columnwise_histogram',
     'design_persistence',
+    'load_carry',
     'persistence_apd_fold',
     'persistence_finalize',
     'persistence_flush',
     'persistence_fold',
     'persistence_init',
     'quantile_from_histogram',
+    'save_carry',
     'streaming_apd',
     'streaming_persistence_spectrum',
 ]

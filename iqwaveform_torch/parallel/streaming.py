@@ -13,9 +13,20 @@ histogram levels + per-bin sum / max / min + detector-binned power, one
 read of the chunk), the ``colhist`` per-column counter and the ``hist``
 APD counter; designs the fused kernel does not take (more than 1024
 histogram bins, or nfft below 1024) run ``spectrogram_dB`` and ``colhist``
-on the dB values. On the CPU each is that kernel's plain PyTorch version.
-``plain=True`` runs the plain versions on the card as well: the yardstick
-the kernels are held against.
+on the dB values. The fold picks each kernel from the design's shapes
+before any launch (``_fold_kernels``): where the spectrogram kernels do
+not take nfft (a power of two in [64, 16384]) or the column counters the
+bins, and where ``hist`` does not take the edges or the sample count, the
+chunk goes through that kernel's plain version on the card, as the JAX
+package runs plain XLA there. On the CPU each is that kernel's plain
+PyTorch version. ``plain=True`` runs the plain versions on the card as
+well: the yardstick the kernels are held against.
+
+``exact_quantiles=True`` refines the histogram's quantiles into exact
+order statistics by two more passes over the chunks the fold cut
+(``_refine_quantiles_exact``): they equal ``ops.power._quantile`` of the
+chunks' dB spectrogram bit for bit. ``save_carry`` / ``load_carry``
+checkpoint a carry so that a long capture's analysis can resume.
 
 Differences from the JAX package, none of which changes what a caller
 reads through persistence_finalize:
@@ -33,14 +44,15 @@ reads through persistence_finalize:
   splits, kept in the design's fingerprint only;
 * the carry's frame count is a Python int.
 
-Not ported yet (ROADMAP): ``exact_quantiles=True`` and ``save_carry`` /
-``load_carry`` (Queue 1 item 4), and the sharded paths (Queue 1 item 5).
+Not ported yet (ROADMAP): the sharded paths (Queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import math
+import os
 import warnings
 from typing import NamedTuple
 
@@ -58,8 +70,11 @@ from ..ops.kernels import (
     spectrogram_levels,
     spectrogram_levels_plain,
 )
-from ..ops.kernels.colhist import packed_plan, uniform_quant, unpack_packed_counts
-from ..ops.power import binned_mean
+from ..ops.kernels import _build
+from ..ops.kernels.colhist import colhist_takes, packed_plan, uniform_quant, unpack_packed_counts
+from ..ops.kernels.hist import hist_takes
+from ..ops.kernels.spectrogram import spectrogram_takes
+from ..ops.power import _lerp, _rank, binned_mean
 from ..ops.window_design import get_window
 from ..utils import device_constant, resolve_device, to_device
 from .sharded import quantile_from_histogram
@@ -69,12 +84,14 @@ __all__ = [
     'apd_fold',
     'carry_from_reference',
     'design_persistence',
+    'load_carry',
     'persistence_apd_fold',
     'persistence_finalize',
     'persistence_flush',
     'persistence_fold',
     'persistence_init',
     'plan_factors',
+    'save_carry',
     'streaming_apd',
     'streaming_persistence_spectrum',
 ]
@@ -95,6 +112,45 @@ class _Kernels(NamedTuple):
 
 _CUDA = _Kernels(spectrogram_dB, spectrogram_levels, colhist, hist)
 _PLAIN = _Kernels(spectrogram_dB_plain, spectrogram_levels_plain, colhist_plain, hist_plain)
+
+
+def _fold_kernels(design: dict, device: torch.device, plain: bool = False) -> _Kernels:
+    """the kernels a fold of ``design`` runs on ``device``: the plain
+    versions throughout with ``plain=True``; on the CPU every wrapper runs
+    its plain version; on the card, :func:`_card_kernels` of the design's
+    shapes. ``hist`` is routed per call by :func:`_apd_counts`."""
+    if plain:
+        return _PLAIN
+    if device.type != 'cuda':
+        return _CUDA
+    edges = design['edges_dB']
+    return _card_kernels(design['nfft'], 0 if edges is None else edges.shape[0] - 1, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_kernels(nfft: int, n_bins: int, device: torch.device) -> _Kernels:
+    """picked once for each shape and card, before any launch: each CUDA
+    kernel where it takes the shape (``spectrogram_takes`` for nfft,
+    ``colhist_takes`` for ``n_bins`` histogram bins, 0 for none), its
+    plain version on the card elsewhere."""
+    k = _CUDA
+    if not spectrogram_takes(nfft):
+        k = k._replace(spectrogram_dB=spectrogram_dB_plain,
+                       spectrogram_levels=spectrogram_levels_plain)
+    if n_bins and not colhist_takes(n_bins, _build.smem_optin(device)):
+        k = k._replace(colhist=colhist_plain)
+    return k
+
+
+def _apd_counts(k: _Kernels, p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """APD counts of the 1-D power ``p``: ``k.hist`` where the CUDA
+    histogram kernels take the edges and the sample count (or on the CPU),
+    the sort path (``hist_plain``) on the card elsewhere."""
+    if p.device.type == 'cuda' and not hist_takes(
+        edges.shape[0], p.shape[-1], _build.smem_optin(p.device)
+    ):
+        return hist_plain(p, edges)
+    return k.hist(p, edges)
 
 
 class PersistenceCarry(NamedTuple):
@@ -362,8 +418,8 @@ def persistence_fold(
     float planes (numpy or tensor), a whole number of frames. Returns a new
     carry and leaves ``carry`` as it was. ``plain=True`` runs the kernels'
     plain versions."""
-    k = _PLAIN if plain else _CUDA
     chunk = _chunk_on(chunk, carry.psum.device)
+    k = _fold_kernels(design, chunk.device, plain)
     if _fused_applies(design):
         return _levels_fold(carry, chunk, design, k)[0]
     return _dB_fold(carry, chunk, design, k)
@@ -387,8 +443,9 @@ def apd_fold(
     workflow); the chunk length must then be a multiple of navg. ``edges``
     are the power edges (numpy or tensor); counts[b] = #{e[b-1] < p <=
     e[b]}. ``kernel`` ('auto', 'sort', 'pallas') is kept for code written
-    for the JAX package: the device decides (the ``hist`` kernel on the
-    card, its plain version on the CPU).
+    for the JAX package: the device and the shapes decide (the ``hist``
+    kernel on the card where it takes the edges and the sample count, the
+    sort path elsewhere and on the CPU).
     """
     if kernel not in _APD_KERNELS:
         raise ValueError(f'kernel must be one of {_APD_KERNELS}, not {kernel!r}')
@@ -407,7 +464,7 @@ def apd_fold(
                 '(a detector window cannot span chunks)'
             )
         p = binned_mean(p, navg)
-    c = (_PLAIN if plain else _CUDA).hist(p.contiguous(), _edges_on(edges, dev))
+    c = _apd_counts(_PLAIN if plain else _CUDA, p.contiguous(), _edges_on(edges, dev))
     return counts + c.to(counts.dtype)
 
 
@@ -431,12 +488,12 @@ def persistence_apd_fold(
     """
     if apd_kernel not in _APD_KERNELS:
         raise ValueError(f'apd_kernel must be one of {_APD_KERNELS}, not {apd_kernel!r}')
-    k = _PLAIN if plain else _CUDA
     dev = pcarry.psum.device
     chunk = _chunk_on(chunk, dev)
+    k = _fold_kernels(design, dev, plain)
     if _fused_applies(design) and apd_navg >= 1 and design['nfft'] % apd_navg == 0:
         new_carry, p_binned = _levels_fold(pcarry, chunk, design, k, apd_navg=apd_navg)
-        c = k.hist(p_binned, _edges_on(apd_edges, dev))
+        c = _apd_counts(k, p_binned, _edges_on(apd_edges, dev))
         return new_carry, apd_counts + c.to(apd_counts.dtype)
     return (
         persistence_fold(pcarry, chunk, design, plain=plain),
@@ -508,19 +565,30 @@ def streaming_persistence_spectrum(
 
     ``init_carry`` resumes from a prior run: pass the previous call's
     result dict (its design fingerprint is checked) or a bare
-    PersistenceCarry (not checked). ``exact_quantiles=True`` is not ported
-    yet and raises NotImplementedError. ``plain=True`` runs the kernels'
-    plain versions.
+    PersistenceCarry, e.g. from save_carry / load_carry (not checked).
+    ``plain=True`` runs the kernels' plain versions.
+
+    ``exact_quantiles=True`` replaces the histogram's quantiles (accurate
+    to a bin width) with exact order statistics, by two more passes over
+    the same chunks (_refine_quantiles_exact): 'quantiles_dB' then equals
+    ``ops.power._quantile`` of the chunks' dB spectrogram bit for bit, and
+    'quantiles_exact' is True. It needs hist_bins > 0 to bracket them, and
+    no init_carry (the earlier capture is not there to pass over again).
 
     Returns:
         dict with 'freqs', 'mean_dB', 'max_dB', 'min_dB', 'quantiles_dB'
         (len(quantiles), nfreq), 'hist', 'hist_edges_dB', and
         '_carry' / '_design' (pass the dict back as init_carry).
     """
-    if exact_quantiles:
-        raise NotImplementedError(
-            'exact_quantiles=True is not ported yet (ROADMAP Queue 1 item 4); '
-            "use the histogram quantiles in 'quantiles_dB'"
+    if exact_quantiles and hist_bins == 0:
+        raise ValueError(
+            'exact_quantiles needs the histogram pass (hist_bins > 0) to bracket '
+            'the order statistics'
+        )
+    if exact_quantiles and init_carry is not None:
+        raise ValueError(
+            "exact_quantiles cannot refine a resumed carry: the earlier capture's "
+            'samples are not available to re-scan'
         )
     dev = resolve_device(device)
     x = _chunk_on(x, dev)
@@ -570,16 +638,262 @@ def streaming_persistence_spectrum(
     def piece(lo, hi):
         return x[lo:hi] if x.is_complex() else x[:, lo:hi]
 
-    for i in range(n_chunks):
-        carry = persistence_fold(carry, piece(i * chunk, (i + 1) * chunk), design, plain=plain)
+    # views of x: the refinement passes over the same chunks
+    pieces = [piece(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
     if tail_keep:
-        tail = piece(n_chunks * chunk, n_chunks * chunk + tail_keep)
-        carry = persistence_fold(carry, tail, design, plain=plain)
+        pieces.append(piece(n_chunks * chunk, n_chunks * chunk + tail_keep))
+    for p in pieces:
+        carry = persistence_fold(carry, p, design, plain=plain)
 
     out = persistence_finalize(carry, design, fs=fs, quantiles=quantiles)
     out['_carry'] = carry
     out['_design'] = design['fingerprint']
+    if exact_quantiles:
+        refined = _refine_quantiles_exact(pieces, design, carry, quantiles,
+                                          _fold_kernels(design, dev, plain))
+        if refined is not None:
+            out['quantiles_dB'] = refined
+            out['quantiles_exact'] = True
     return out
+
+
+# ---- the exact-quantile refinement: host numpy copies of the JAX
+# package's bracket planner (iqwaveform_tpu/parallel/streaming.py:966-1153)
+# and torch passes in place of its jitted scans (:1264-1356)
+
+_C_DIRECT = 2048  # coarse-bracket capacity above which the sub-histogram
+_B_SUB = 1024  # narrowing pass runs first (sub-bins per coarse bracket)
+_PAD_ULPS = 32  # the per-bin min / max clamps sit this far outside the fold's
+
+
+def _bracket_plan(hist_nat, edges, n, qs, pmin_nat, pmax_nat) -> dict:
+    """host bracketing of each quantile's two order statistics (the JAX
+    package's stage A). ``hist_nat`` (F, B) counts may carry a counter's
+    +-1-bin edge-tie slack: brackets absorb it with one extra bin per side,
+    and the per-bin min / max clamp them finite.
+
+    The ranks follow the port's ``_quantile`` (``ops.power._rank``: the
+    position q (n - 1) in float64, the higher rank lo + 1), not
+    jnp.quantile's float32 positions, so that the refined values equal
+    ``_quantile``'s bit for bit.
+
+    Returns a dict: low / high (nq,) int64 ranks and hw (nq,) float64
+    weights of the higher; lo / hi (nq, F) float32 value brackets [lo, hi);
+    cap (nq, F) int64, a bound on the in-bracket count.
+    """
+    F, B = hist_nat.shape
+    ranks = [_rank(np.float32(q), n) for q in qs]
+    low = np.array([r[0] for r in ranks], dtype=np.int64)
+    high = np.array([r[1] for r in ranks], dtype=np.int64)
+    hw = np.array([r[2] for r in ranks], dtype=np.float64)
+
+    cum = hist_nat.cumsum(axis=1)  # (F, B)
+
+    def bin_of(r):
+        # counted bin of 0-indexed rank r: first b with cum[b] >= r+1
+        return (cum[None, :, :] < (r[:, None, None] + 1)).sum(axis=2)
+
+    b_lo = np.clip(np.minimum(bin_of(low), bin_of(high)) - 1, 0, B - 1)
+    b_hi = np.clip(bin_of(high) + 1, 0, B - 1)
+    # the end bins are clipped catch-alls, so the per-bin min / max make
+    # every bracket finite. They come from the fold (row 10 on the card),
+    # the passes reread the dB through row 9, and the bracket is half-open:
+    # a column's extreme a few ulps past the fold's would fall out of its
+    # own bracket, so the clamps sit _PAD_ULPS ulps outside
+    lo_nat = np.where(b_lo == 0, -np.inf, edges[b_lo]).astype('float32')
+    hi_nat = np.where(b_hi == B - 1, np.inf, edges[b_hi + 1]).astype('float32')
+    pad_lo = (pmin_nat - _PAD_ULPS * np.spacing(np.abs(pmin_nat), dtype=np.float32)).astype(
+        'float32')
+    pad_hi = (pmax_nat + _PAD_ULPS * np.spacing(np.abs(pmax_nat), dtype=np.float32)).astype(
+        'float32')
+    lo_nat = np.maximum(lo_nat, pad_lo[None, :]).astype('float32')
+    hi_nat = np.minimum(hi_nat, pad_hi[None, :]).astype('float32')
+    # a true in-bracket value was counted within one bin of its true bin,
+    # so the counts over [b_lo - 1, b_hi + 1] bound the in-bracket count
+    csum = np.concatenate([np.zeros((F, 1), np.int64), cum], axis=1)
+    f_idx = np.arange(F)[None, :]
+    cap = (csum[f_idx, np.clip(b_hi + 1, 0, B - 1) + 1]
+           - csum[f_idx, np.clip(b_lo - 1, 0, B - 1)])
+    return {'low': low, 'high': high, 'hw': hw, 'lo': lo_nat, 'hi': hi_nat, 'cap': cap}
+
+
+def _bracket_invw(lo_nat, hi_nat) -> np.ndarray:
+    """host inverse sub-bin width of each finite bracket."""
+    width = np.maximum(np.asarray(hi_nat) - np.asarray(lo_nat), np.float32(1e-30))
+    return (np.float32(_B_SUB) / width).astype('float32')
+
+
+def _sub_idx_map(dB: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                 invw: torch.Tensor) -> torch.Tensor:
+    """the sub-bin labels floor((v - lo) invw), clipped to [0, _B_SUB - 1],
+    and the sentinel _B_SUB outside [lo, hi): (frames, F) dB -> (frames,
+    nq, F) int32, with lo / hi / invw (nq, F) float32. The narrowing and
+    collect passes share it, so both decide membership by the same integer
+    compares; monotone in v, so order statistics land in cumulative-count
+    order even where the float map is not uniform."""
+    v = dB[:, None, :]
+    inside = (v >= lo) & (v < hi)
+    idx = torch.floor((v - lo) * invw).clamp_(0, _B_SUB - 1).to(torch.int32)
+    return idx.masked_fill_(~inside, _B_SUB)
+
+
+def _narrow_brackets(sub_h, below2, low, high, valid=None) -> tuple:
+    """locate each target rank's sub-bin from the narrowing pass's own
+    exact counts (below2 and sub_h come from the same dB values, so they
+    agree); +-1 sub-bin of slack absorbs drift between the passes. Columns
+    where ``valid`` (F,) is false (NaN) are not checked. Returns (b2_lo,
+    b2_hi, C) with C the collect capacity, rounded up to 8."""
+    cums2 = sub_h.cumsum(axis=2)  # (nq, F, B_SUB)
+    r2_lo = low[:, None] - below2
+    r2_hi = high[:, None] - below2
+    missed = (r2_lo < 0) | (r2_hi >= cums2[..., -1])
+    if valid is not None:
+        missed &= valid[None, :]
+    if missed.any():
+        raise RuntimeError(
+            'exact-quantile coarse bracket missed its order statistic: the fold\'s '
+            "histogram and the narrowing pass's recount disagree by more than the "
+            'one-bin tie slack; report this capture'
+        )
+
+    def sub_bin_of(r):
+        # first sub-bin with cumulative count >= r+1
+        return (cums2 < (r[..., None] + 1)).sum(axis=2)
+
+    b2_lo = np.clip(sub_bin_of(r2_lo) - 1, 0, _B_SUB - 1)
+    b2_hi = np.clip(sub_bin_of(r2_hi) + 1, 0, _B_SUB - 1)
+    # the collect pass's values drift less than a sub-bin from the
+    # narrowing counts, so the counts over [b2_lo - 1, b2_hi + 1] bound
+    # the collected in-bracket total
+    nq, F = below2.shape
+    csum2 = np.concatenate([np.zeros((nq, F, 1), np.int64), cums2], axis=2)
+    cap2 = (
+        np.take_along_axis(csum2, np.clip(b2_hi + 1, 0, _B_SUB - 1)[..., None] + 1, axis=2)[..., 0]
+        - np.take_along_axis(csum2, np.clip(b2_lo - 1, 0, _B_SUB - 1)[..., None], axis=2)[..., 0]
+    )
+    if valid is not None:
+        cap2 = cap2[:, valid]
+    C = max(-(-int(cap2.max(initial=0)) // 8) * 8, 8)
+    return b2_lo, b2_hi, C
+
+
+def _gather_order_stats(buf, below, low, high, hw, valid) -> torch.Tensor:
+    """stage E: rank each target within the collected buffer (nq, F, C),
+    ascending, from the exact below-bracket recount (nq, F), gather the two
+    order statistics and interpolate them with ``ops.power._lerp``, as
+    ``_quantile`` does, so the result equals its bit for bit. NaN where
+    ``valid`` (F,) is false, as ``_quantile`` gives on a column holding a
+    NaN. Returns (nq, F) float32 on the buffer's device."""
+    dev = buf.device
+    C = buf.shape[2]
+    in_bracket = torch.isfinite(buf).sum(dim=2)
+    below = below.to(torch.int64)
+    r_lo = torch.from_numpy(low).to(dev)[:, None] - below
+    r_hi = torch.from_numpy(high).to(dev)[:, None] - below
+    missed = ((r_lo < 0) | (r_hi >= in_bracket)) & valid[None, :]
+    if bool(missed.any()):
+        raise RuntimeError(
+            'exact-quantile bracket missed its order statistic: the bracketing '
+            "passes and the collect pass's recount disagree by more than the tie "
+            'slack; report this capture'
+        )
+    v_lo = buf.gather(2, r_lo.clamp(0, C - 1)[..., None])[..., 0]
+    v_hi = buf.gather(2, r_hi.clamp(0, C - 1)[..., None])[..., 0]
+    rows = torch.stack([_lerp(v_lo[i], v_hi[i], float(t)) for i, t in enumerate(hw)])
+    return rows.masked_fill(~valid[None, :], float('nan'))
+
+
+def _narrow_pass(chunks, k: _Kernels, w, nfft: int, lo, hi, invw) -> tuple:
+    """the narrowing pass over ``chunks``, on one stream with no host
+    sync: the sub-bin counts of each bracket, (nq, F, _B_SUB) int32 (a
+    column histogram of the stacked labels 0.._B_SUB through ``k.colhist``,
+    the sentinel's column dropped), and the exact count below each
+    bracket, (nq, F) int32."""
+    nq, F = lo.shape
+    sub = torch.zeros((nq * F, _B_SUB + 1), dtype=torch.int32, device=lo.device)
+    below = torch.zeros((nq, F), dtype=torch.int32, device=lo.device)
+    for chunk in chunks:
+        dB = k.spectrogram_dB(chunk, w, nfft)
+        idx = _sub_idx_map(dB, lo, hi, invw)
+        k.colhist(idx.reshape(idx.shape[0], nq * F), sub)
+        below += (dB[:, None, :] < lo).sum(dim=0, dtype=torch.int32)
+    return sub.reshape(nq, F, _B_SUB + 1)[..., :_B_SUB], below
+
+
+def _collect_pass(chunks, k: _Kernels, w, nfft: int, lo, hi, invw, b2_lo, b2_hi,
+                  C: int) -> tuple:
+    """the collect pass over ``chunks``, on one stream with no host sync:
+    the C smallest values per (quantile, bin) within the fine bracket,
+    (nq, F, C) ascending with +inf where fewer, and the exact count below
+    it, (nq, F) int32. The C smallest of a union lie within the C smallest
+    of the prefix and the new chunk, so keeping C per chunk loses no rank
+    below C."""
+    nq, F = lo.shape
+    buf = torch.full((nq, F, C), math.inf, dtype=torch.float32, device=lo.device)
+    below = torch.zeros((nq, F), dtype=torch.int32, device=lo.device)
+    for chunk in chunks:
+        dB = k.spectrogram_dB(chunk, w, nfft)
+        idx = _sub_idx_map(dB, lo, hi, invw)
+        keep = (idx >= b2_lo) & (idx <= b2_hi)
+        below += ((dB[:, None, :] < lo) | (idx < b2_lo)).sum(dim=0, dtype=torch.int32)
+        cand = torch.where(keep, dB[:, None, :], math.inf).permute(1, 2, 0)
+        buf = torch.topk(torch.cat([buf, cand], dim=2), C, dim=2, largest=False).values
+    return buf, below
+
+
+def _refine_quantiles_exact(chunks, design: dict, carry: PersistenceCarry, quantiles,
+                            k: _Kernels):
+    """exact per-bin quantiles of the capture folded from ``chunks`` into
+    ``carry`` (the JAX package's ``_refine_quantiles_exact``, :1156-1261):
+    (nq, nfft) float32 equal to ``ops.power._quantile`` of the chunks' dB
+    spectrogram (``k.spectrogram_dB`` of each chunk) bit for bit, or None
+    without quantiles.
+
+    The fold's histogram brackets each quantile's two order statistics to
+    a bin per frequency, one bin wider on each side for a counter's tie
+    slack, clamped by the per-bin min / max. Where a bracket may hold more
+    than _C_DIRECT values, a narrowing pass first splits each bracket into
+    _B_SUB sub-bins (``_sub_idx_map``) and counts them exactly
+    (``k.colhist``), which shrinks the bracket about _B_SUB / 3-fold. The
+    collect pass then keeps the C smallest in-bracket values per (quantile,
+    bin) beside the exact count below the bracket, and the ranks pick the
+    order statistics. Two passes of ``k.spectrogram_dB`` over the chunks,
+    no copy of them: the memory is one chunk's temporaries and the (nq,
+    nfft, C) buffer, and C grows with the capture where a bin's values
+    concentrate (a tone's bins).
+    """
+    qs = [float(v) for v in quantiles]
+    if not qs:
+        return None
+    dev = carry.psum.device
+    nfft = design['nfft']
+    edges = np.asarray(design['edges_dB'], dtype='float32')
+    valid_h = ~np.isnan(carry.psum.cpu().numpy())
+    plan = _bracket_plan(carry.hist.cpu().numpy().astype(np.int64), edges, carry.count, qs,
+                         carry.pmin.cpu().numpy(), carry.pmax.cpu().numpy())
+    nq = len(qs)
+
+    def on_dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    lo, hi = on_dev(plan['lo'], np.float32), on_dev(plan['hi'], np.float32)
+    invw = on_dev(_bracket_invw(plan['lo'], plan['hi']), np.float32)
+    w = device_constant(design['kernel_window'], dev)
+    if int(plan['cap'][:, valid_h].max(initial=0)) > _C_DIRECT:
+        sub, below2 = _narrow_pass(chunks, k, w, nfft, lo, hi, invw)
+        b2_lo, b2_hi, C = _narrow_brackets(
+            sub.cpu().numpy().astype(np.int64), below2.cpu().numpy().astype(np.int64),
+            plan['low'], plan['high'], valid_h)
+    else:
+        # a coarse bracket small enough to collect directly: the fine
+        # bracket is the whole sub-bin range
+        C = max(-(-int(plan['cap'][:, valid_h].max(initial=0)) // 8) * 8, 8)
+        b2_lo = np.zeros((nq, nfft), np.int32)
+        b2_hi = np.full((nq, nfft), _B_SUB - 1, np.int32)
+    buf, below = _collect_pass(chunks, k, w, nfft, lo, hi, invw, on_dev(b2_lo, np.int32),
+                               on_dev(b2_hi, np.int32), C)
+    return _gather_order_stats(buf, below, plan['low'], plan['high'], plan['hw'],
+                               on_dev(valid_h, np.bool_))
 
 
 def streaming_apd(
@@ -689,3 +1003,96 @@ def carry_from_reference(carry_arrays, fingerprint, device=None) -> PersistenceC
         pmin=to_device(np.ascontiguousarray(stats['pmin']), dev),
         count=int(np.asarray(fields['count'])),
     )
+
+
+# ---- checkpoints of a carry
+
+
+def _carry_path(path) -> str:
+    """np.savez appends '.npz' where the suffix is missing: normalize, so
+    that save and load agree on the path the caller recorded."""
+    path = os.fspath(path)
+    return path if path.endswith('.npz') else path + '.npz'
+
+
+def _structure(carry, leaves: list):
+    """the structure record of a carry, as JSON-able lists: a named tuple
+    by its type and fields, a dict by its keys, a None field as None, a
+    tensor, array or number by its kind; each such leaf is appended to
+    ``leaves``."""
+    if carry is None:
+        return None
+    if isinstance(carry, (torch.Tensor, np.ndarray, bool, int, float)):
+        leaves.append(carry)
+        return type(carry).__name__
+    if isinstance(carry, tuple) and hasattr(carry, '_fields'):
+        return [type(carry).__name__,
+                [[f, _structure(v, leaves)] for f, v in zip(carry._fields, carry)]]
+    if isinstance(carry, dict):
+        return ['dict', [[str(k), _structure(v, leaves)] for k, v in carry.items()]]
+    raise TypeError(
+        'a carry is made of tensors, arrays, numbers and None, in named tuples and '
+        f'dicts, not {type(carry).__name__}'
+    )
+
+
+def _restore(like, leaves):
+    """``like`` rebuilt from the stored ``leaves`` (an iterator, in
+    _structure's order): tensors on the device of ``like``'s, numbers as
+    Python numbers."""
+    if like is None:
+        return None
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(next(leaves)).to(like.device)
+    if isinstance(like, np.ndarray):
+        return next(leaves)
+    if isinstance(like, (bool, int, float)):
+        return type(like)(next(leaves))
+    if isinstance(like, tuple):
+        return type(like)(*(_restore(v, leaves) for v in like))
+    return {k: _restore(v, leaves) for k, v in like.items()}
+
+
+def save_carry(path, carry) -> None:
+    """checkpoint a streaming-reduction carry (a PersistenceCarry, APD
+    counts, the monitor's accumulate_step dict: named tuples and dicts of
+    tensors, arrays and numbers) to an npz file, so that a long capture's analysis can
+    resume after an interruption: the only state worth checkpointing in
+    this library. The file holds each leaf as ``leaf_<i>`` and a structure
+    record (``__structure__``) naming the named tuple's type and fields and
+    which of them are None; '.npz' is appended where the path lacks it."""
+    leaves = []
+    record = json.dumps(_structure(carry, leaves))
+    host = [v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for v in leaves]
+    np.savez(
+        _carry_path(path),
+        __structure__=np.frombuffer(record.encode(), dtype=np.uint8),
+        **{f'leaf_{i}': v for i, v in enumerate(host)},
+    )
+
+
+def load_carry(path, like):
+    """restore a carry checkpointed with save_carry. ``like`` (e.g. a
+    fresh persistence_init) gives the structure, which the stored record
+    must match (the same fields, the same ones None, as many leaves), so a
+    checkpoint of another design raises instead of mapping its leaves onto
+    the wrong fields. Tensors go to the device of ``like``'s, in their
+    stored dtype; a carry's frame count stays a Python int."""
+    if not os.path.exists(path):
+        path = _carry_path(path)
+    like_leaves = []
+    want = json.dumps(_structure(like, like_leaves))
+    n_want = len(like_leaves)
+    with np.load(path) as data:
+        n_stored = sum(1 for k in data.files if k.startswith('leaf_'))
+        stored = (bytes(data['__structure__']).decode() if '__structure__' in data.files
+                  else None)
+        if stored != want or n_stored != n_want:
+            raise ValueError(
+                f'checkpoint structure ({n_stored} leaves, {stored!r}) does not match '
+                f'`like` ({n_want} leaves, {want!r})'
+            )
+        leaves = [data[f'leaf_{i}'] for i in range(n_stored)]
+    return _restore(like, iter(leaves))
+

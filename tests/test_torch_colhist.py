@@ -235,3 +235,16 @@ def test_persistence_spectrum_with_nan_matches_jax(run):
         moved = g - base.astype(np.int64)
         assert (moved[:, 0] == touched).all()
         assert (moved[:, 1:] <= 0).all() and (moved.sum(axis=1) == 0).all()
+
+
+def test_colhist_takes_a_column_of_counters_in_shared_memory():
+    """colhist_takes, which the wrapper raises on and the routes ask before
+    a launch: a column's int32 counters within the block's opt-in shared
+    memory, 58,112 levels on an H100."""
+    from iqwaveform_torch.ops.kernels.colhist import colhist_takes
+
+    for n_bins in (1, 1024, 1025, 2048, 3633, 58112):
+        assert colhist_takes(n_bins, H100_SMEM_OPTIN), n_bins
+    for n_bins in (58113, 65536):
+        assert not colhist_takes(n_bins, H100_SMEM_OPTIN), n_bins
+    assert colhist_takes(12288, 49152) and not colhist_takes(12289, 49152)

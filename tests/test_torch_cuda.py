@@ -1318,9 +1318,23 @@ def test_psd_kernel_routes_match_the_cpu(card, method, hist_bins, launched):
 
 
 def test_psd_raises_on_a_size_the_dB_kernel_does_not_take(card):
-    x = torch.zeros(1000 * 16, dtype=torch.complex64, device='cuda')
-    with pytest.raises(NotImplementedError, match='not 1000'):
-        it.power_spectral_density(x, fs=1e6, window='hann', resolution=1e3, statistics=['mean'])
+    """an nfft the dB kernel does not take (1000) no longer raises: the
+    route takes the kernel's plain version on the card before any launch,
+    and the result agrees with the CPU's."""
+    gen = torch.Generator(device='cuda').manual_seed(23)
+    n = 1000 * 4096
+    t = torch.arange(n, device='cuda') / 1e6
+    x = torch.exp(2j * np.pi * 1e5 * t).to(torch.complex64) + 0.3 * torch.randn(
+        n, dtype=torch.complex64, device='cuda', generator=gen)
+    kw = dict(fs=1e6, window='hann', resolution=1e3,
+              statistics=['mean', 'max', 0.5, 0.99, 'min'])
+    for k in kernels.KERNELS:
+        k.launches = 0
+    got = it.power_spectral_density(x, **kw)
+    assert {k.__name__: k.launches for k in kernels.KERNELS if k.launches} == {}
+    ref = it.power_spectral_density(x.cpu(), device='cpu', **kw)
+    level = 10 * float(torch.log10((x.abs() ** 2).double().mean() / 1000))
+    _psd_gate(got, ref, level, nfft=1000)
 
 
 def test_sample_ccdf_launches_the_histogram_kernel(card):
@@ -1341,6 +1355,79 @@ def test_sample_ccdf_launches_the_histogram_kernel(card):
 
 
 def test_sample_ccdf_raises_above_the_kernels_edges(card):
-    p = torch.ones(1024, device='cuda')
+    """40,000 edges, above what the histogram kernels keep in shared
+    memory, no longer raise: the route takes the sort path before any
+    launch, with the CPU's counts."""
+    gen = torch.Generator(device='cuda').manual_seed(24)
+    p = torch.rand(1 << 16, device='cuda', generator=gen)
+    edges = np.linspace(0, 1, 40000).astype('float32')
+    kernels.hist.launches = 0
+    got = it.sample_ccdf(p, edges, density=False)
+    assert kernels.hist.launches == 0
+    assert torch.equal(got.cpu(), it.sample_ccdf(p.cpu(), edges, density=False, device='cpu'))
     with pytest.raises(NotImplementedError, match='40000 edges'):
-        it.sample_ccdf(p, np.linspace(0, 1, 40000))
+        kernels.hist(p, torch.from_numpy(edges).cuda())
+
+
+def test_upfirdn_auto_beyond_the_kernel_s_taps_takes_the_plain_conv(card):
+    """'auto' at 40,000 taps (1/1), which no blocking of the kernels fits:
+    the plain conv1d on the card, no launch, the CPU's result; 'pallas'
+    asked for explicitly still raises."""
+    gen = torch.Generator(device='cuda').manual_seed(25)
+    x = torch.randn((1, 60000), device='cuda', generator=gen)
+    h = torch.randn(40000, device='cuda', generator=gen) / 200
+    kernels.upfirdn_cuda.launches = 0
+    got = it.fourier.upfirdn(h, x, 1, 1)
+    assert kernels.upfirdn_cuda.launches == 0
+    assert rel_rms(got.cpu(), it.fourier.upfirdn(h.cpu(), x.cpu(), 1, 1, device='cpu')) <= 1e-5
+    with pytest.raises(NotImplementedError, match='shared memory'):
+        it.fourier.upfirdn(h, x, 1, 1, backend='pallas')
+
+
+def test_fold_at_an_nfft_the_kernels_do_not_take(card):
+    """the persistence fold at nfft 1536: the plain spectrogram on the
+    card, the column counter kernel, against the plain fold."""
+    x = _noise(1536 * 512, 26)
+    d = TS.design_persistence(nfft=1536, window='hann', hist_bins=1024)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    c = TS.persistence_fold(TS.persistence_init(d, card), x, d)
+    assert {k.__name__: k.launches for k in kernels.KERNELS if k.launches} == {'colhist': 1}
+    ref = TS.persistence_fold(TS.persistence_init(d, card), x, d, plain=True)
+    assert torch.equal(c.hist, ref.hist) and torch.equal(c.pmax, ref.pmax)
+
+
+@pytest.mark.parametrize('nfft,narrowed', [(1024, False), (1024, True), (1536, True)])
+def test_exact_quantiles_equal_quantile_of_row_9(card, monkeypatch, nfft, narrowed):
+    """streaming_persistence_spectrum(exact_quantiles=True) on the card:
+    equal to _quantile of the chunks' dB spectrogram (row 9 where it takes
+    nfft, its plain version at 1536) bit for bit."""
+    from iqwaveform_torch.ops.power import _quantile
+
+    if narrowed:
+        monkeypatch.setattr(TS, '_C_DIRECT', 8)
+    cf = 256
+    x = _noise(cf * nfft * 5 + 3 * nfft, 27)
+    out = it.streaming_persistence_spectrum(x, fs=1e6, window='hann', nfft=nfft,
+                                            chunk_frames=cf, fft_backend='mxu',
+                                            exact_quantiles=True)
+    assert out['quantiles_exact'] is True
+    d = TS.design_persistence(nfft=nfft, window='hann', hist_bins=0)
+    w = torch.from_numpy(d['kernel_window']).cuda()
+    to_dB = kernels.spectrogram_dB if nfft == 1024 else kernels.spectrogram_dB_plain
+    bounds = [(i * cf * nfft, (i + 1) * cf * nfft) for i in range(5)] + [
+        (5 * cf * nfft, x.numel())]
+    spg = torch.cat([to_dB(x[a:b], w, nfft) for a, b in bounds])
+    assert torch.equal(out['quantiles_dB'], _quantile(spg, (0.5, 0.95, 0.99), axis=0))
+
+
+def test_psd_refinement_equals_the_sort_on_the_card(card, monkeypatch):
+    """the default PSD's refinement branch (threshold at 0 samples) gives
+    the sort route's quantile rows bit for bit on the card."""
+    x = _noise(1024 * 4096 * 3 + 5 * 1024, 28)
+    kw = dict(fs=1e6, window='hann', resolution=1e6 / 1024, statistics=['mean', 0.5, 0.99, 1.0])
+    sort = it.power_spectral_density(x, **kw)
+    monkeypatch.setattr(spectral, '_refine_above', lambda device: 0)
+    monkeypatch.setattr(spectral, '_FOLD_CHUNK_SAMPLES', 1 << 22)  # 3 chunks and a tail
+    refined = it.power_spectral_density(x, **kw)
+    assert torch.equal(refined[1:], sort[1:])

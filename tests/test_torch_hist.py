@@ -370,3 +370,40 @@ def test_streaming_apd_with_a_nan_run_matches_jax():
     assert got.sum() == ref.sum() == n
     assert got[-1] == ref[-1] == 20000
     assert np.abs(got.astype(np.int64) - ref).sum() <= max(2, n // 1000)
+
+
+@pytest.mark.parametrize('n_edges,n', [
+    (513, 1 << 20), (26999, 1000), (27000, 1000), (29055, 1000), (29056, 1000),
+    (40000, 1000), (513, 2**31 - 1), (513, 2**31),
+])
+def test_hist_takes_holds_the_kernel_conditions(monkeypatch, n_edges, n):
+    """hist_takes is true exactly where the wrapper's launch goes past its
+    checks to the build (stubbed here: the card's opt-in shared memory as
+    a number, the build raising a marker), and false where it raises that
+    the kernels do not take the shape."""
+    import sys
+
+    from iqwaveform_torch.ops.kernels import _build
+
+    module = sys.modules['iqwaveform_torch.ops.kernels.hist']
+
+    class Built(Exception):
+        pass
+
+    def built(*args):
+        raise Built
+
+    monkeypatch.setattr(_build, 'smem_optin', lambda device: H100_SMEM_OPTIN)
+    monkeypatch.setattr(_build, 'prepare', built)
+    # a row as long as n without its memory: a view of one value, which
+    # the contiguity check would refuse (stubbed)
+    monkeypatch.setattr(_build, 'require', lambda *args, **kwargs: None)
+    edges = torch.linspace(0, 1, n_edges)
+    p = torch.zeros(1).expand(n)
+    route = module.hist_route(n_edges, H100_SMEM_OPTIN)
+    if module.hist_takes(n_edges, n, H100_SMEM_OPTIN):
+        with pytest.raises(Built):
+            module._launch(p, edges, route, p.device)
+    else:
+        with pytest.raises((NotImplementedError, ValueError), match='shared memory|2\\*\\*31'):
+            module._launch(p, edges, route, p.device)

@@ -229,6 +229,30 @@ def test_psd_histogram_matches_jax_and_exact(monkeypatch, nfft, hist_bins, route
     assert np.abs(got[q_rows] - exact[q_rows]).max() <= 2 * width
 
 
+def test_psd_histogram_folds_in_chunks(monkeypatch):
+    """the histogram route folds the capture in chunks of
+    _FOLD_CHUNK_SAMPLES (one kernel call takes fewer than 2^31 samples):
+    against one chunk of the whole, the same histogram quantiles and the
+    named rows within psd_gate."""
+    x = make_tone_noise(64 * 1024 + 5 * 1024 + 3, fs=FS, seed=9)
+    kw = dict(resolution=FS / 1024, statistics=['mean', 0.5, 'max', 0.99, 'min'],
+              quantile_method='histogram')
+    whole = _port_psd(x, **kw)
+    calls = []
+    fold = port_streaming.persistence_fold
+
+    def counting(carry, chunk, design, **kwargs):
+        calls.append(chunk.shape[-1])
+        return fold(carry, chunk, design, **kwargs)
+
+    monkeypatch.setattr(port_streaming, 'persistence_fold', counting)
+    monkeypatch.setattr(spectral, '_FOLD_CHUNK_SAMPLES', 16 * 1024)
+    chunked = _port_psd(x, **kw)
+    assert calls == [16 * 1024] * 4 + [5 * 1024]
+    np.testing.assert_array_equal(chunked[[1, 3]], whole[[1, 3]])
+    psd_gate(chunked[[0, 2, 4]], whole[[0, 2, 4]], level_dB(x, 1024), 1024, 'named')
+
+
 def test_psd_histogram_rejects_other_named_statistics():
     x = make_tone_noise(1024 * 8, fs=FS)
     for psd, arr in ((_jax_psd, jnp.asarray(x)), (_port_psd, x)):
@@ -353,3 +377,44 @@ def test_time_to_frequency_matches_jax(n, window):
     err = np.sqrt(np.mean(np.abs(got.numpy() - ref) ** 2) / np.mean(np.abs(ref) ** 2))
     assert err <= 1e-5, err
     assert abs(f[np.abs(got.numpy()).argmax()] - 1.25e5) <= FS / n
+
+
+def fft_bound_gate(got, ref, level, nfft, label=''):
+    """every value's linear power within the float32 FFT bound of
+    ``psd_gate``'s deep part, at any level: the gate of a bin's minimum
+    over the frames at an nfft other than 1024, where two float32 FFTs
+    differ there by 1-2.4e-3 dB (the JAX package's own spectral tests
+    hold no min row to a dB bar)."""
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    assert got.shape == ref.shape and np.isfinite(got).all(), label
+    p_ref = 10 ** (ref / 10)
+    bound = 4 * np.sqrt(p_ref * 10 ** (level / 10) * nfft) * 2.0**-24 * np.log2(nfft)
+    share = (np.abs(10 ** (got / 10) - p_ref) / bound).max(initial=0)
+    assert share <= 1, f'{label}: {share:.3g} x the float32 FFT bound'
+
+
+@pytest.mark.parametrize('nfft', [1000, 1536, 24576])
+def test_psd_at_an_nfft_the_kernels_do_not_take_matches_jax(nfft):
+    """the default PSD at an nfft that is no power of two: 'auto' resolves
+    the kernel route ('mxu', as the JAX package on its accelerator), whose
+    dB spectrogram on the card then comes from row 9's plain version; the
+    CPU port against the JAX default, exact and histogram quantiles, at
+    psd_gate but the min row, held to the float32 FFT bound
+    (fft_bound_gate)."""
+    assert spectral._resolve_psd_backend(
+        torch.zeros(4 * nfft, dtype=torch.complex64), nfft=nfft, noverlap=0,
+        fractional_window=1, dB=True, axis=0, window='hann') == 'mxu'
+    x = make_tone_noise(max(8, (1 << 18) // nfft) * nfft + 7, fs=FS, seed=nfft)
+    stats = ['mean', 'max', 0.5, 0.95, 'min']
+    got = _port_psd(x, resolution=FS / nfft, statistics=stats)
+    ref = _jax_psd(jnp.asarray(x), resolution=FS / nfft, statistics=stats)
+    level = level_dB(x, nfft)
+    psd_gate(got[:4], ref[:4], level, nfft, f'exact at {nfft}')
+    fft_bound_gate(got[4], ref[4], level, nfft, f'exact min at {nfft}')
+    kw = dict(resolution=FS / nfft, statistics=stats, quantile_method='histogram', hist_bins=512)
+    got = _port_psd(x, **kw)
+    ref = _jax_psd(jnp.asarray(x), **kw)
+    psd_gate(got[:2], ref[:2], level, nfft, f'histogram at {nfft}')
+    fft_bound_gate(got[4], ref[4], level, nfft, f'histogram min at {nfft}')
+    assert np.abs(got[2:4] - ref[2:4]).max() <= 200.0 / 512

@@ -190,3 +190,23 @@ def test_quantile_from_histogram_matches_jax():
 @pytest.mark.parametrize('n', [64, 192, 256, 1000, 1024, 4096, 16384])
 def test_plan_factors_matches_jax(n):
     assert port_streaming.plan_factors(n) == jax_plan_factors(n)
+
+
+@pytest.mark.parametrize('nfft,apd_navg', [
+    (32, 0), (64, 0), (1000, 0), (1024, 0), (1024, 16), (1024, 3), (1536, 0), (16384, 0),
+    (24576, 0), (32768, 0), (512, 512), (512, 1024),
+])
+def test_spectrogram_takes_holds_the_kernel_conditions(nfft, apd_navg):
+    """spectrogram_takes is true exactly where the CUDA wrappers' check
+    lets the shape through (here on CPU tensors, which the check reads as
+    they are): a power-of-two nfft in [64, 16384], apd_navg 0 or a divisor
+    of nfft."""
+    from iqwaveform_torch.ops.kernels.spectrogram import _check_cuda, spectrogram_takes
+
+    x = torch.zeros(2 * nfft, dtype=torch.complex64)
+    w = torch.zeros(nfft, dtype=torch.complex64)
+    if spectrogram_takes(nfft, apd_navg):
+        assert _check_cuda('spectrogram_levels', x, w, nfft, apd_navg)[3] == 2
+    else:
+        with pytest.raises(NotImplementedError, match='CUDA spectrogram kernel'):
+            _check_cuda('spectrogram_levels', x, w, nfft, apd_navg)

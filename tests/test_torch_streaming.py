@@ -243,8 +243,8 @@ def test_design_resolution_and_errors():
 def test_entry_point_errors_and_flush():
     x = make_tone_noise(CHUNK, fs=FS, seed=37)
     kw = dict(fs=FS, window='hann', nfft=NFFT, device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        it.streaming_persistence_spectrum(x, exact_quantiles=True, **kw)
+    with pytest.raises(ValueError, match='hist_bins'):
+        it.streaming_persistence_spectrum(x, exact_quantiles=True, hist_bins=0, **kw)
     with pytest.raises(ValueError, match='131072'):
         it.streaming_persistence_spectrum(x, chunk_frames=100, fft_backend='pallas', **kw)
     with pytest.raises(ValueError, match='shorter than one chunk'):
@@ -252,6 +252,9 @@ def test_entry_point_errors_and_flush():
     first = it.streaming_persistence_spectrum(x, chunk_frames=128, **kw)
     again = it.streaming_persistence_spectrum(x, chunk_frames=128, init_carry=first, **kw)
     assert again['_carry'].count == 2 * first['_carry'].count
+    with pytest.raises(ValueError, match='resumed carry'):
+        it.streaming_persistence_spectrum(x, chunk_frames=128, init_carry=first,
+                                          exact_quantiles=True, **kw)
     with pytest.raises(ValueError, match='different design'):
         it.streaming_persistence_spectrum(x, chunk_frames=128, init_carry=first,
                                           hist_bins=512, **kw)
@@ -274,3 +277,55 @@ def test_entry_points_default_to_the_card(monkeypatch):
         it.streaming_persistence_spectrum(x, fs=FS, window='hann', nfft=NFFT)
     with pytest.raises(RuntimeError, match='CUDA'):
         it.streaming_apd(x, edges=APD_EDGES)
+
+
+@pytest.mark.parametrize('nfft,hist_bins,want', [
+    (1024, 1024, set()),
+    (1536, 1024, {'spectrogram_dB', 'spectrogram_levels'}),
+    (1000, 512, {'spectrogram_dB', 'spectrogram_levels'}),
+    (24576, 1024, {'spectrogram_dB', 'spectrogram_levels'}),
+    (1024, 65536, {'colhist'}),
+    (2048, 0, set()),
+])
+def test_fold_kernels_route_by_shape(monkeypatch, nfft, hist_bins, want):
+    """on the card (its opt-in shared memory as a number) the fold takes
+    each kernel where it takes the design's shapes and that kernel's plain
+    version elsewhere, picked before any launch; on the CPU and with
+    plain=True it takes the plain versions."""
+    from iqwaveform_torch.ops.kernels import _build
+
+    monkeypatch.setattr(_build, 'smem_optin', lambda device: 232448)
+    d = TS.design_persistence(nfft=nfft, window='hann', hist_bins=hist_bins)
+    k = TS._fold_kernels(d, torch.device('cuda'))
+    plain = {f for f, a, b in zip(TS._Kernels._fields, k, TS._PLAIN) if a is b}
+    assert plain == want
+    assert TS._fold_kernels(d, torch.device('cuda')) is k  # picked once a shape
+    assert TS._fold_kernels(d, torch.device('cuda'), plain=True) is TS._PLAIN
+    assert TS._fold_kernels(d, torch.device('cpu')) is TS._CUDA
+
+
+@pytest.mark.parametrize('nfft', [1000, 1536, 24576])
+def test_persistence_at_an_nfft_the_kernels_do_not_take_matches_jax(nfft):
+    """the fold at an nfft the card's spectrogram kernels do not take (on
+    the card it runs their plain versions there): the CPU port against
+    the JAX package's 'xla' fold, which its accelerator runs there too.
+    Mean and max at tests/test_torch_psd.py's psd_gate, min at its float32
+    FFT bound, the histogram and quantiles at check_persistence's bars."""
+    from test_torch_psd import fft_bound_gate, level_dB, psd_gate
+
+    cf = max(1, 65536 // nfft)
+    x = make_tone_noise(3 * cf * nfft + 2 * nfft, fs=FS, seed=nfft)
+    kw = dict(fs=FS, window='hann', nfft=nfft, chunk_frames=cf, hist_bins=1024,
+              fft_backend='xla', quantiles=(0.5, 0.95, 0.99))
+    ref = JS.streaming_persistence_spectrum(jnp.asarray(x), **kw)
+    got = it.streaming_persistence_spectrum(x, **kw, device='cpu')
+    frames = 3 * cf + 2
+    assert got['_carry'].count == frames
+    level = level_dB(x, nfft)
+    for key in ('mean_dB', 'max_dB'):
+        psd_gate(_np(got[key]), _np(ref[key]), level, nfft, key)
+    fft_bound_gate(_np(got['min_dB']), _np(ref['min_dB']), level, nfft, 'min_dB')
+    g, r = _np(got['hist']).astype(np.int64), _np(ref['hist']).astype(np.int64)
+    assert (g.sum(axis=1) == frames).all() and (r.sum(axis=1) == frames).all()
+    assert np.abs(np.cumsum(g, axis=1) - np.cumsum(r, axis=1)).max() <= 2
+    assert np.abs(_np(got['quantiles_dB']) - _np(ref['quantiles_dB'])).max() <= BIN_WIDTH

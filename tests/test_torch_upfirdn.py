@@ -293,3 +293,52 @@ def test_upfirdn_route_by_size_and_cpu_tensors():
     before = dict(U.upfirdn_cuda.route_launches), U.upfirdn_cuda.launches
     torch.testing.assert_close(U.upfirdn_cuda(h, x, 2, 3), U.upfirdn_plain(h, x, 2, 3))
     assert (dict(U.upfirdn_cuda.route_launches), U.upfirdn_cuda.launches) == before
+
+
+@pytest.mark.parametrize('up,down', [(1, 1), (1, 2), (2, 3), (5, 1)])
+def test_upfirdn_takes_holds_the_kernel_conditions(monkeypatch, up, down):
+    """upfirdn_takes is true exactly where the wrapper's launch finds a
+    blocking that fits (the card's opt-in shared memory as a number, the
+    build stubbed to raise a marker), around the largest taps it takes at
+    each ratio; 'auto' takes the plain conv1d beyond."""
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels import upfirdn as U
+
+    class Built(Exception):
+        pass
+
+    def built(*args):
+        raise Built
+
+    smem = U.H100_SMEM_OPTIN
+    monkeypatch.setattr(_build, 'smem_optin', lambda device: smem)
+    monkeypatch.setattr(_build, 'prepare', built)
+    most = max(n for n in range(1000, 60001, 1000)
+               if U.upfirdn_takes(n, up, down, False, False, smem))
+    assert 5000 <= most < 60000
+    x = torch.zeros((1, 64))
+    for n in (most, most + 1000):
+        h = torch.zeros(n)
+        route = U.upfirdn_route(n, up, down, False, False, smem)
+        if U.upfirdn_takes(n, up, down, False, False, smem):
+            with pytest.raises(Built):
+                U._launch(h, x, up, down, route)
+        else:
+            with pytest.raises(NotImplementedError, match='shared memory'):
+                U._launch(h, x, up, down, route)
+    assert not U.upfirdn_takes(4001, 1, 2, False, False, smem, batch=1, n=2**31)
+    assert not U.upfirdn_takes(4001, 1, 2, False, False, smem, batch=2**16, n=10)
+
+
+def test_upfirdn_beyond_the_kernel_s_taps_matches_jax_and_scipy():
+    """40,000 taps at 1/1, where the card takes the plain conv1d under
+    'auto': the CPU port (the same plain version) against the JAX 'auto'
+    (its XLA route) and scipy."""
+    rng = np.random.default_rng(41)
+    h = _taps(rng, 40000, False)
+    x = _signal(rng, (1, 50000), True)
+    got = T.upfirdn(h, x, 1, 1, device=CPU).numpy()
+    ref = np.asarray(J.upfirdn(jnp.asarray(h), jnp.asarray(x), 1, 1))
+    want = scipy.signal.upfirdn(h.astype('float64'), x.astype('complex128'), 1, 1)
+    assert rel_rms(got, want) <= 1e-5
+    assert rel_rms(got, ref) <= 1e-5
