@@ -260,9 +260,46 @@ nfft 1024 hann:
    launches a call and its kernel at this path's shapes against its plain
    version, timed beside its bound and profiled.
 
+then the sharded layer (``iqwaveform_torch.parallel``: ``time_mesh``, the
+sharded entry points, ``WidebandMonitor.sharded_step``) on a one-rank NCCL
+process group and a one-rank time mesh:
+
+21. (a) ``sharded_step`` at the flagship design, at the blackman design of
+   the flagship rates (49152 -> 24576 on clusters of 3) and with
+   ``apd_kernel='packed'`` on 2^24 samples: ``torch.equal`` to ``step`` on
+   the same block on every output (no exchange on one rank, three
+   all-reduces, no all-gather), one launch each of the step's kernels,
+   timed beside ``step``; (b) the flagship rank body (``_shard_body``) on
+   4 contiguous shards of that capture in one process, each shard's halo
+   and incoming tail cut from its neighbours, the statistics combined as
+   the collectives merge them: phase 3's gates against ``step``; (c)
+   ``sharded_psd_stats`` on phase 19's capture (mean, max, 0.5, 0.95, 0.99)
+   with and without ``exact_quantiles``: one ``spectrogram_db_reg_kernel``
+   launch, the named rows ``torch.equal`` to the same dB's and within the
+   PSD gate of ``power_spectral_density``, the exact quantiles
+   ``torch.equal`` to ``_quantile`` of the same dB, the histogram's within 2
+   bins, timed; (d) ``sharded_ola_filter`` at BASELINE #2 (99,999,744
+   samples), 'xla' (no kernel) and 'mxu' (one launch of the frame kernel),
+   within 1e-5 of ``ola_filter`` and, on the first 2^22 outputs, of the
+   plain chain in complex128, timed beside ``ola_filter``; (e)
+   ``sharded_apd_histogram`` on 2^24 samples x 513 edges: one
+   ``hist_bucket_kernel`` launch, counts and CCDF equal to
+   ``sample_ccdf``'s, timed; (f) the monitor where a kernel refuses the
+   design (196608 -> 24576 frames, 48 x 768 channels, 40,000 APD edges):
+   it constructs and steps, the stage's route is 'plain' and its kernel
+   never launches, within phase 3's gates of ``reference_step``. Each
+   kernel these paths launch gains a ``sharded`` entry on its kernels-line
+   row (launches and ms by path).
+
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
-package alone (run in turns on two trees to compare them). It prints the card's name and power limit, one JSON line ``{"kernels":
+package alone (run in turns on two trees to compare them); ``--ranks N``
+runs the sharded layer across N cards, one NCCL rank a card (the flagship
+and blackman ``sharded_step`` on 2^24 samples a rank, held on rank 0 to
+phase 3's gates against ``step`` on the whole capture; the exact
+``sharded_psd_stats`` ``torch.equal`` to ``_quantile`` of the whole
+capture's dB; ``sharded_apd_histogram`` equal to its counts; each timed).
+It prints the card's name and power limit, one JSON line ``{"kernels":
 [...]}``, and as its last line ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits nonzero without that line; so does a
 machine without CUDA, or a directory without the package.
@@ -3943,6 +3980,465 @@ def refinement_phases(dev, smi: str) -> dict:
     return rows
 
 
+# ---- phase 21: the sharded layer (iqwaveform_torch.parallel's mesh,
+# sharded entry points and WidebandMonitor.sharded_step) on one NCCL rank
+
+N_SHARDS = 4  # the in-process shards of 21b
+# the Step 0 designs (21f): frames no CUDA frame kernel takes (196608 ->
+# 24576 at 122.88 -> 15.36 MS/s), a channelizer size outside CHAN_SIZES (48
+# x 768 = 36864) and APD edges above hist's shared memory (40,000)
+REFUSED_DESIGNS = {
+    'frames196608': ((122.88e6, 15.36e6), dict(bw=10e6, fs_sdr=122.88e6, window='blackman'),
+                     'ola', 'fused_ola_frames'),
+    'chan36864': ((122.88e6, 61.44e6), dict(FLAGSHIP, channel_count=48,
+                                            fft_size_per_channel=768, apd_navg=1),
+                  'chan', 'chan_stats'),
+    'edges40000': ((122.88e6, 61.44e6), dict(FLAGSHIP, apd_bins=40000), 'apd', 'hist'),
+}
+
+
+def _launched() -> dict:
+    from iqwaveform_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    return {k.__name__: k.launches for k in kernels.KERNELS if k.launches}
+
+
+def sharded_step_check(mon_s, mon, x, label: str, smi: str) -> dict:
+    """21a: one sharded_step on the one rank's block against step on the
+    same block (torch.equal on every output), its launches and collective
+    calls, both timed."""
+    from iqwaveform_torch.parallel import _collectives
+
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.parallel.mesh import axis_of
+
+    reset_counts()
+    _collectives.reset_calls()
+    out_s = mon_s.sharded_step(x)
+    launched = _launched()
+    frame_routes = dict(kernels.fused_ola_frames.route_launches)
+    calls = dict(_collectives.calls)
+    out = mon.step(x)
+    equal = {k: torch.equal(out_s[k], v) for k, v in out.items()}
+    print(f'21a {label}: sharded_step launches {json.dumps(launched)}, collectives '
+          f'{json.dumps(calls)}, routes {json.dumps(mon_s.routes)}, torch.equal to step: '
+          f'{json.dumps(equal)}')
+    require(all(equal.values()), f'21a {label}: sharded_step differs from step: {equal}')
+    require(calls == {'halo': 0, 'tail': 0, 'all_reduce': 3, 'all_gather': 0},
+            f'21a {label}: collectives {calls}')
+    step_ms = timed_ms(lambda: mon.step(x))
+    sharded_ms = timed_ms(lambda: mon_s.sharded_step(x))
+    # the merge alone (three all-reduces and their packing) on the step's
+    # outputs, by events and by the host clock
+    group, _, n_time = axis_of(mon_s.mesh, mon_s.time_axis)
+    n_binned = out['channel_power'].shape[-2] * mon_s.chan_kwargs['nfft_big'] // mon_s.design.apd_navg
+    merge_ms = timed_ms(lambda: mon_s._merge_time(out, group, n_time, n_binned))
+    merge_host = host_ms(lambda: mon_s._merge_time(out, group, n_time, n_binned), calls=200)
+    step_host = host_ms(lambda: mon.step(x), calls=50)
+    sharded_host = host_ms(lambda: mon_s.sharded_step(x), calls=50)
+    n = x.numel()
+    print(f'21a {label}: step {step_ms:.4f} ms ({n / step_ms / 1e3:.1f} MS/s), sharded_step on '
+          f'one NCCL rank {sharded_ms:.4f} ms ({n / sharded_ms / 1e3:.1f} MS/s) on {n} samples; '
+          f'the merge alone {merge_ms:.4f} ms by events, {merge_host:.4f} ms of host time a call; '
+          f'host time a call: step {step_host:.4f} ms, sharded_step {sharded_host:.4f} ms ({smi})')
+    return {'launches': launched, 'frame_routes': frame_routes, 'ms': sharded_ms,
+            'step_ms': step_ms, 'merge_ms': merge_ms, 'merge_host_ms': merge_host,
+            'step_host_ms': step_host, 'host_ms': sharded_host, 'collectives': calls}
+
+
+def four_shards(mon, x) -> tuple:
+    """21b: the flagship rank body (``_shard_body``) on N_SHARDS contiguous
+    shards of ``x`` in one process, in order: each shard's halo cut from the
+    next shard's head, its incoming tail the previous shard's; the
+    statistics combined as the collectives merge them (means averaged,
+    maxima taken, counts summed). Returns (outputs, launches)."""
+    s = x.shape[-1] // N_SHARDS
+    nov = mon.noverlap_in
+    reset_counts()
+    outs, tail = [], None
+    for i in range(N_SHARDS):
+        halo = x[..., (i + 1) * s : (i + 1) * s + nov] if i < N_SHARDS - 1 else None
+        out, tail = mon._shard_body(x[..., i * s : (i + 1) * s], halo, tail,
+                                    tail=i < N_SHARDS - 1)
+        outs.append(out)
+    launched = _launched()
+    merged = {
+        'channel_power': torch.cat([o['channel_power'] for o in outs], dim=-2),
+        'channel_power_mean': torch.stack([o['channel_power_mean'] for o in outs]).mean(0),
+        'channel_power_max': torch.stack([o['channel_power_max'] for o in outs]).amax(0),
+        'psd_mean': torch.stack([o['psd_mean'] for o in outs]).mean(0),
+        'psd_max': torch.stack([o['psd_max'] for o in outs]).amax(0),
+        'apd_counts': torch.stack([o['apd_counts'].long() for o in outs]).sum(0).int(),
+    }
+    return merged, launched
+
+
+def sharded_phases(dev, smi: str) -> dict:
+    """phase 21; returns, by kernels-line row name, the launches and times
+    of the sharded paths that run the kernel (each row's ``sharded``
+    entry)."""
+    import os
+
+    import torch.distributed as dist
+
+    import iqwaveform_torch as it
+    from iqwaveform_torch import parallel
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import ola_grouped
+    from iqwaveform_torch.ops.power import _quantile, histogram_edge_counts
+    rows = {}
+
+    def note(row, path, launches, ms):
+        rows.setdefault(row, {'launches': {}, 'ms': {}})
+        rows[row]['launches'][path] = launches
+        rows[row]['ms'][path] = ms
+
+    store = ROOT / 'build' / 'nccl_rank0_store'
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group('nccl', init_method=f'file://{store}', rank=0, world_size=1)
+    try:
+        mesh = parallel.time_mesh(1)
+        require(parallel.mesh.mesh_device(mesh) == torch.device('cuda', torch.cuda.current_device()),
+                'the mesh\'s device is not the current card')
+        print(f'phase 21: one NCCL rank, {mesh} ({smi})')
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        # ---- 21a: sharded_step at the flagship, the blackman design of
+        # the flagship rates (C = 3 clusters) and the packed APD, torch.equal
+        # to step on the same 2^24 samples
+        x = torch.randn((1, N_STEP), dtype=torch.complex64, device=dev, generator=gen)
+        designs = {
+            'flagship': it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP),
+            'blackman_c3': it.design_wideband_monitor(122.88e6, 61.44e6, **CLUSTER_MONITOR),
+            'packed_apd': it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP,
+                                                     apd_kernel='packed'),
+        }
+        expect = {'flagship': ('fused_ola_strided', 'chan_stats', 'hist'),
+                  'blackman_c3': ('fused_ola_frames', 'chan_stats', 'hist'),
+                  'packed_apd': ('fused_ola_strided', 'chan_stats', 'colhist')}
+        row_of = {'flagship': {'fused_ola_strided': 'fused_ola_strided', 'chan_stats': 'chan_stats',
+                               'hist': 'hist'},
+                  'blackman_c3': {'fused_ola_frames': 'fused_ola_frames_cluster',
+                                  'chan_stats': 'chan_stats', 'hist': 'hist'},
+                  'packed_apd': {'fused_ola_strided': 'fused_ola_strided',
+                                 'chan_stats': 'chan_stats', 'colhist': 'colhist_packed_apd'}}
+        for name, design in designs.items():
+            mon_s = it.WidebandMonitor(design, mesh=mesh)
+            mon = it.WidebandMonitor(design)
+            res = sharded_step_check(mon_s, mon, x, name, smi)
+            require(set(res['launches']) == set(expect[name])
+                    and all(v == 1 for v in res['launches'].values()),
+                    f'21a {name}: launches {res["launches"]}, not one each of {expect[name]}')
+            if name == 'blackman_c3':
+                require(res['frame_routes']['cluster'] == 1,
+                        f'21a {name}: frame routes {res["frame_routes"]}')
+            for kname, n in res['launches'].items():
+                note(row_of[name][kname], f'sharded_step_{name}', n, res['ms'])
+            del mon_s, mon
+        torch.cuda.empty_cache()
+
+        # ---- 21b: four shards of the flagship capture in one process
+        mon = it.WidebandMonitor(designs['flagship'])
+        merged, launched = four_shards(mon, x)
+        print(f'21b: {N_SHARDS} shards of {N_STEP // N_SHARDS} samples through _shard_body, '
+              f'halos and tails from their neighbours: launches {json.dumps(launched)}')
+        require(launched == {'fused_ola_strided': N_SHARDS, 'chan_stats': N_SHARDS,
+                             'hist': N_SHARDS}, f'21b launches {launched}')
+        check_step(merged, mon.step(x), f'21b {N_SHARDS} shards vs step')
+        shards_ms = timed_ms(lambda: four_shards(mon, x), reps=5, warmup=1)
+        print(f'21b: {N_SHARDS} shards {shards_ms:.4f} ms for {N_STEP} samples; within phase 3\'s '
+              f'gates of step ({smi})')
+        for kname, n in launched.items():
+            note(kname, 'four_shards', n, shards_ms)
+        del x, merged, mon
+        torch.cuda.empty_cache()
+
+        # ---- 21c: sharded_psd_stats at BASELINE #1, with and without the
+        # exact quantiles
+        xp = psd_capture(dev)
+        nfft, fs = PSD_NFFT, PSD_FS
+        q_rows = [i for i, s in enumerate(PSD_STATS) if isinstance(s, float)]
+        named = [i for i in range(len(PSD_STATS)) if i not in q_rows]
+        qs = tuple(PSD_STATS[i] for i in q_rows)
+        skw = dict(mesh=mesh, fs=fs, window='hann', nperseg=nfft, statistics=PSD_STATS)
+        w = torch.from_numpy(it.get_window('hann', nfft, xp=np, dtype='complex64', norm=True,
+                                           fftshift=True) / nfft).to(torch.complex64).to(dev)
+        dB = kernels.spectrogram_dB(xp, w, nfft)
+        oracle = _quantile(dB, np.asarray(qs, dtype='float32'), axis=0)
+        named_ref = torch.stack([dB.mean(dim=0), dB.amax(dim=0)])
+        psd = it.power_spectral_density(xp, **psd_kwargs())
+        # the spectrum's level: its mean power a bin, dB
+        level = float(10 * torch.log10((10 ** (dB.double() / 10)).mean()))
+        width = 200.0 / 2048
+        for exact in (False, True):
+            label = 'exact' if exact else 'histogram'
+            (stats, hist, _), launched, routes = psd_launches(
+                lambda: parallel.sharded_psd_stats(xp, exact_quantiles=exact, **skw))
+            require(launched.get('spectrogram_dB') == 1 and routes.get('spectrogram_dB') == {'reg': 1}
+                    and launched.get('colhist', 0) >= 1,
+                    f'21c {label}: launches {launched} {routes}')
+            require(torch.equal(stats[named], named_ref), f'21c {label}: named rows differ from '
+                    'the same dB\'s mean / max')
+            require(int(hist.sum(dim=1).min()) == int(hist.sum(dim=1).max()) == N_PSD // nfft,
+                    f'21c {label}: histogram totals')
+            gate = psd_gate(stats[named], psd[named], level, f'21c {label} named vs psd default')
+            if exact:
+                require(torch.equal(stats[q_rows], oracle),
+                        '21c exact: quantiles differ from _quantile of the same dB')
+                q_err = 0.0
+            else:
+                q_err = max_abs(stats[q_rows], oracle) / width
+                require(q_err <= 2, f'21c histogram: quantiles {q_err:.3g} bins from the exact')
+            ms = timed_ms(lambda: parallel.sharded_psd_stats(xp, exact_quantiles=exact, **skw),
+                          reps=5, warmup=1)
+            print(f'21c sharded_psd_stats ({label}): launches {json.dumps(launched)}, routes '
+                  f'{json.dumps(routes)}; named rows torch.equal to the same dB\'s, vs the PSD '
+                  f'default {json.dumps(gate)}; quantiles {"torch.equal to _quantile" if exact else f"{q_err:.3f} bins from the exact"}; '
+                  f'{ms:.4f} ms = {N_PSD / ms / 1e3:.1f} MS/s ({smi})')
+            for kname, n in launched.items():
+                note(kname, f'sharded_psd_stats_{label}', n, ms)
+        psd_ms = timed_ms(lambda: it.power_spectral_density(xp, **psd_kwargs()), reps=5, warmup=1)
+        print(f'21c power_spectral_density default on the same capture: {psd_ms:.4f} ms ({smi})')
+        del xp, dB, psd, oracle, named_ref
+        torch.cuda.empty_cache()
+
+        # ---- 21d: sharded_ola_filter at BASELINE #2, 'xla' and 'mxu'
+        xo = torch.randn(N_OLA, dtype=torch.complex64, device=dev, generator=gen)
+        ref = it.ola_filter(xo, **OLA_KW)
+        ola_out = {}
+        for backend in ('xla', 'mxu'):
+            y, launched, routes = psd_launches(
+                lambda: parallel.sharded_ola_filter(xo, mesh=mesh, fft_backend=backend, **OLA_KW))
+            want = {'fused_ola_frames': 1} if backend == 'mxu' else {}
+            require(launched == want, f'21d {backend}: launches {launched}')
+            if backend == 'mxu':
+                require(routes.get('fused_ola_frames') == {'reg': 1}, f'21d mxu: routes {routes}')
+            m = min(y.shape[0], ref.shape[0]) - OLA_KW['nfft_out']
+            err = rel_rms(y[:m], ref[:m])
+            require(y.shape[0] == N_OLA // 2 and err <= 1e-5,
+                    f'21d {backend}: {tuple(y.shape)}, relative RMS {err:.3g} vs ola_filter')
+            ms = timed_ms(lambda: parallel.sharded_ola_filter(xo, mesh=mesh, fft_backend=backend,
+                                                              **OLA_KW), reps=5, warmup=1)
+            ola_out[backend] = (y[:N_OLA_CHAIN], err, ms, launched)
+            del y
+        # the first N_OLA_CHAIN output samples against the plain chain in
+        # complex128 on the same input
+        d = OLA_KW
+        hop_in = d['nfft'] // 2
+        n_in = 2 * N_OLA_CHAIN + d['nfft']
+        w_in, w_out = it.ops.filtering._ola_windows(d['window'], d['nfft'], d['nfft_out'], hop_in,
+                                                    dev)
+        enbw = float(it.equivalent_noise_bandwidth(d['window'], d['nfft_out'], fftbins=False))
+        zero_lo, zero_hi, b_in, b_out = it.ops.filtering._ola_bin_bounds(
+            d['nfft'], d['nfft_out'], d['fs'], d['passband'], enbw, True)
+        y64 = ola_grouped(xo[:n_in].to(torch.complex128), frames_fn=kernels.fused_ola_frames_plain,
+                          w_in=w_in.to(torch.complex128), w_shift_out=w_out.to(torch.complex128),
+                          nfft=d['nfft'], nfft_out=d['nfft_out'], noverlap_in=hop_in,
+                          noverlap_out=d['nfft_out'] // 2, zero_lo=zero_lo, zero_hi=zero_hi,
+                          bounds_in=b_in, bounds_out=b_out)[:N_OLA_CHAIN]
+        ola_ms = timed_ms(lambda: it.ola_filter(xo, **OLA_KW), reps=5, warmup=1)
+        for backend, (y, err, ms, launched) in ola_out.items():
+            err64 = rel_rms(y, y64)
+            require(err64 <= 1e-5, f'21d {backend}: relative RMS {err64:.3g} vs complex128')
+            print(f'21d sharded_ola_filter ({backend}) on {N_OLA} samples: launches '
+                  f'{json.dumps(launched)}, relative RMS {err:.3g} vs ola_filter, {err64:.3g} vs '
+                  f'complex128 on the first {N_OLA_CHAIN} outputs; {ms:.4f} ms = '
+                  f'{N_OLA / ms / 1e3:.1f} MS/s; ola_filter {ola_ms:.4f} ms ({smi})')
+            for kname, n in launched.items():
+                note(kname, f'sharded_ola_filter_{backend}', n, ms)
+        del xo, ref, ola_out, y64
+        torch.cuda.empty_cache()
+
+        # ---- 21e: sharded_apd_histogram beside sample_ccdf's counts
+        xa = torch.randn(N_PSD, dtype=torch.complex64, device=dev, generator=gen)
+        edges = ccdf_edges()
+        counts, launched, routes = psd_launches(
+            lambda: parallel.sharded_apd_histogram(xa, mesh=mesh, edges=edges))
+        p = xa.real * xa.real + xa.imag * xa.imag
+        ref = histogram_edge_counts(p, edges)
+        ccdf = parallel.ccdf_from_counts(counts, N_PSD)
+        ccdf_ref = it.sample_ccdf(p, edges)
+        require(launched == {'hist': 1} and routes == {'hist': {'bucket': 1}},
+                f'21e launches {launched} {routes}')
+        require(counts.dtype == torch.int32 and torch.equal(counts.long(), ref),
+                '21e: counts differ from histogram_edge_counts')
+        require(torch.equal(ccdf, ccdf_ref), '21e: the CCDF differs from sample_ccdf')
+        ms = timed_ms(lambda: parallel.sharded_apd_histogram(xa, mesh=mesh, edges=edges))
+        ccdf_ms = timed_ms(lambda: it.sample_ccdf(p, edges))
+        print(f'21e sharded_apd_histogram on {N_PSD} samples x {CCDF_EDGES} edges: launches '
+              f'{json.dumps(launched)}, counts equal to sample_ccdf\'s, the CCDF equal; {ms:.4f} ms '
+              f'= {N_PSD / ms / 1e3:.1f} MS/s; sample_ccdf {ccdf_ms:.4f} ms ({smi})')
+        for kname, n in launched.items():
+            note(kname, 'sharded_apd_histogram', n, ms)
+        del xa, p, counts, ref
+        torch.cuda.empty_cache()
+
+        # ---- 21f: Step 0, the monitor where a kernel refuses the design
+        for name, (rates, kw, stage, refused) in REFUSED_DESIGNS.items():
+            mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw))
+            m = mon.min_input_multiple()
+            xs = torch.randn((N_STEP // m) * m, dtype=torch.complex64, device=dev, generator=gen)
+            out, launched, routes = psd_launches(lambda: mon.step(xs))
+            require(mon.routes[stage] == 'plain' and refused not in launched,
+                    f'21f {name}: routes {mon.routes}, launches {launched}')
+            check_step(out, mon.reference_step(xs), f'21f {name} vs reference_step')
+            ms = timed_ms(lambda: mon.step(xs), reps=5, warmup=1)
+            print(f'21f {name}: routes {json.dumps(mon.routes)}, launches {json.dumps(launched)}, '
+                  f'no {refused} launch; within phase 3\'s gates of reference_step; '
+                  f'{ms:.4f} ms for {xs.numel()} samples ({smi})')
+            del mon, xs, out
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+# ---- phase 21 across several cards (``python3 chip_smoke.py --ranks N``):
+# the exchanges between NCCL ranks, which one card cannot show
+
+MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
+
+
+def _multi_rank(rank: int, world: int, store: str, results) -> None:
+    """one rank of ``--ranks``: the flagship and blackman (C = 3)
+    ``sharded_step`` on this rank's 2^24 samples of a world x 2^24 capture
+    made on every card from SEED, held (on rank 0) to phase 3's gates
+    against ``step`` on the whole capture, its collectives counted and
+    timed; the exact ``sharded_psd_stats`` on phase 19's capture split over
+    the ranks, ``torch.equal`` to ``_quantile`` of the whole capture's dB
+    on rank 0; ``sharded_apd_histogram`` equal to the whole capture's
+    counts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import iqwaveform_torch as it
+    from iqwaveform_torch import parallel
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.power import _quantile, histogram_edge_counts
+    from iqwaveform_torch.parallel import _collectives
+    from iqwaveform_torch.parallel.mesh import gather_time_axis, mesh_device
+
+    out = {'rank': rank}
+    try:
+        torch.cuda.set_device(rank)
+        dist.init_process_group('nccl', init_method=f'file://{store}', rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=MULTI_TIMEOUT_S))
+        mesh = parallel.time_mesh()
+        dev = mesh_device(mesh)
+        require(dev == torch.device('cuda', rank), f'rank {rank} on {dev}')
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn((1, world * N_STEP), dtype=torch.complex64, device=dev, generator=gen)
+        shard = x[:, rank * N_STEP : (rank + 1) * N_STEP].contiguous()
+        for name, kw in (('flagship', FLAGSHIP), ('blackman_c3', CLUSTER_MONITOR)):
+            design = it.design_wideband_monitor(122.88e6, 61.44e6, **kw)
+            mon = it.WidebandMonitor(design, mesh=mesh)
+            reset_counts()
+            _collectives.reset_calls()
+            got = mon.sharded_step(shard)
+            torch.cuda.synchronize()
+            calls = dict(_collectives.calls)
+            launched = {k.__name__: k.launches for k in kernels.KERNELS if k.launches}
+            require(calls == {'halo': 1, 'tail': 1, 'all_reduce': 3, 'all_gather': 0},
+                    f'{name}: collectives {calls}')
+            cp = gather_time_axis(got['channel_power'][0], mesh)
+            if rank == 0:
+                ref = it.WidebandMonitor(design).step(x)
+                check_step({**got, 'channel_power': cp[None]}, ref,
+                           f'{name}: {world} ranks vs step on the whole capture')
+            ms = timed_ms(lambda: mon.sharded_step(shard))
+            out[name] = {'ms': ms, 'launches': launched, 'collectives': calls}
+            del got, cp, mon
+        del x, shard
+        torch.cuda.empty_cache()
+
+        nfft = PSD_NFFT
+        xp = psd_capture(dev)
+        s = N_PSD // world
+        local = xp[rank * s : (rank + 1) * s].contiguous()
+        qs = tuple(v for v in PSD_STATS if isinstance(v, float))
+        stats, hist, _ = parallel.sharded_psd_stats(local, mesh=mesh, fs=PSD_FS, window='hann',
+                                                   nperseg=nfft, statistics=PSD_STATS,
+                                                   exact_quantiles=True)
+        if rank == 0:
+            w = torch.from_numpy(it.get_window('hann', nfft, xp=np, dtype='complex64', norm=True,
+                                               fftshift=True) / nfft).to(torch.complex64).to(dev)
+            dB = kernels.spectrogram_dB(xp, w, nfft)
+            require(torch.equal(stats[2:], _quantile(dB, np.asarray(qs, dtype='float32'), axis=0)),
+                    'exact quantiles differ from _quantile of the whole capture\'s dB')
+            require(torch.equal(stats[1], dB.amax(dim=0)), 'max differs from the whole dB\'s')
+            require(int(hist.sum()) == N_PSD // nfft * nfft, 'histogram total')
+        out['psd_exact_ms'] = timed_ms(lambda: parallel.sharded_psd_stats(
+            local, mesh=mesh, fs=PSD_FS, window='hann', nperseg=nfft, statistics=PSD_STATS,
+            exact_quantiles=True), reps=5, warmup=1)
+        edges = ccdf_edges()
+        counts = parallel.sharded_apd_histogram(local, mesh=mesh, edges=edges)
+        if rank == 0:
+            p = xp.real * xp.real + xp.imag * xp.imag
+            require(torch.equal(counts.long(), histogram_edge_counts(p, edges)),
+                    'sharded APD counts differ from the whole capture\'s')
+        out['apd_ms'] = timed_ms(lambda: parallel.sharded_apd_histogram(local, mesh=mesh,
+                                                                        edges=edges))
+        out['ok'] = True
+    except Exception as exc:  # reported to the parent, which fails the run
+        out['error'] = f'{type(exc).__name__}: {exc}'
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        results.put(out)
+
+
+def multi_card(world: int) -> int:
+    """``python3 chip_smoke.py --ranks N``: the sharded layer on N NCCL
+    ranks, one a card (spawned processes); prints each rank's result and,
+    last, the ``{"ok": ...}`` line; nonzero where any rank failed."""
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f'chip_smoke: --ranks {world} needs {world} cards', file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from iqwaveform_torch.ops.kernels import _build
+
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    print(f'cards: {smi}')
+    _build.library()  # build once, before the ranks load it
+    store = ROOT / 'build' / f'nccl_{world}_store'
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    ctx = mp.get_context('spawn')
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_multi_rank, args=(r, world, str(store), results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    outs = []
+    try:
+        for _ in range(world):
+            outs.append(results.get(timeout=600))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    outs.sort(key=lambda o: o['rank'])
+    for o in outs:
+        print(json.dumps(o))
+    ok = len(outs) == world and all(o.get('ok') for o in outs)
+    print(json.dumps({'ok': ok, 'ranks': world, 'cards': smi}))
+    return 0 if ok else 1
+
+
 def main(parent: str | None = None) -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -4203,6 +4699,15 @@ def main(parent: str | None = None) -> int:
         if row['name'] in refinement:
             row['refinement'] = refinement[row['name']]
 
+    # ---- phase 21: the sharded layer on one NCCL rank (the kernels of rows
+    # 1-3 and 5-9 through the sharded entry points and sharded_step)
+    sharded = sharded_phases(dev, smi)
+    for row in rows:
+        if row['name'] in sharded:
+            row['sharded'] = sharded[row['name']]
+    missing = set(sharded) - {row['name'] for row in rows}
+    require(not missing, f'phase 21 launched kernels with no row on the kernels line: {missing}')
+
     print(json.dumps({'kernels': rows}))
     print(json.dumps({
         'ok': True,
@@ -4230,7 +4735,9 @@ if __name__ == '__main__':
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == '--parent':
         sys.exit(main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--ranks':
+        sys.exit(multi_card(int(sys.argv[2])))
     if len(sys.argv) != 1:
         sys.exit(f'usage: {sys.argv[0]} [--parent DIR | --trace CALL | --corr-times DIR | '
-                 '--step-times DIR]')
+                 '--step-times DIR | --ranks N]')
     sys.exit(main())

@@ -1,7 +1,8 @@
 """iqwaveform-torch: the PyTorch / CUDA port of iqwaveform-tpu.
 
 The flagship WidebandMonitor, the streaming persistence spectrum and APD
-(parallel), the filtering path (fourier: ola_filter, oaresample, upfirdn
+and the time-sharded paths over a torch.distributed mesh (parallel), the
+filtering path (fourier: ola_filter, oaresample, upfirdn
 and the STFT), the spectrogram and its persistence spectrum
 (power_spectral_density) with the envelope-power statistics
 (power_analysis), the OFDM analysis family (ofdm: CP correlation, clock

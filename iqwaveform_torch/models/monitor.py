@@ -5,14 +5,19 @@ through OLA bandpass + rational resample -> channelizer FFT -> channel
 power, spectrogram statistics and the detector-binned APD, the same six
 outputs as the JAX ``WidebandMonitor.step``; ``step_planes`` takes raw
 (2, N) sample planes (int16 counts of a SigMF ci16 capture at the 'i16'
-tier), and ``init_carry`` / ``accumulate_step`` / ``flush`` fold a capture
-of any length chunk by chunk at fixed memory (BASELINE config #5).
+tier), ``init_carry`` / ``accumulate_step`` / ``flush`` fold a capture
+of any length chunk by chunk at fixed memory (BASELINE config #5), and
+``sharded_step`` runs one rank's block of a capture split over a mesh
+(torch.distributed: halo and tail exchanges with the neighbouring ranks,
+the statistics merged by all-reduces).
 
 On the card each stage is a hand-written CUDA kernel (ops.kernels:
 ``fused_ola`` / ``fused_ola_strided`` at 2:1 overlap, ``fused_ola_frames``
 with a grouped overlap-add for the blackman (R=3) and blackmanharris (R=5)
 COLA windows, ``chan_stats``, ``hist`` or, for ``apd_kernel='packed'``,
-``colhist``); on the CPU each is that kernel's plain PyTorch version. The
+``colhist``), where it takes the design's shapes (``routes``), else the
+kernel's plain version on the card; on the CPU each is that kernel's
+plain PyTorch version. The
 design layer (windows, bin geometry, APD edges) is host numpy, equal bit
 for bit to the JAX package's.
 """
@@ -46,20 +51,30 @@ from ..ops.kernels import (
     hist,
     hist_plain,
 )
+from ..ops.kernels import _build
+from ..ops.kernels.chan_stats import chan_route, covers
+from ..ops.kernels.colhist import colhist_route, colhist_takes
 from ..ops.kernels.fused_ola import (
+    H100_SMEM_OPTIN,
     dequantize,
+    frames_route,
     fused_ola_cuda_supported,
     fused_ola_frames_supported,
     fused_ola_strided,
     fused_ola_strided_plain,
     ola_grouped,
+    ola_route,
     storage_dtype,
     stored,
 )
+from ..ops.kernels.hist import hist_route, hist_takes
 from ..ops.window_design import equivalent_noise_bandwidth, get_window
+from ..parallel import _collectives
+from ..parallel.mesh import TIME_AXIS, axis_of, mesh_device
 from ..utils import StageTimer, counter_int64, fence, resolve_device, to_device
 
 __all__ = [
+    'BATCH_AXIS',
     'MonitorDesign',
     'WidebandMonitor',
     'design_from_reference',
@@ -69,6 +84,7 @@ __all__ = [
 ]
 
 _EPS = 1e-25
+BATCH_AXIS = 'rx_batch'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,8 +259,16 @@ class WidebandMonitor:
             carry = mon.accumulate_step(carry, x)
         stats = mon.flush(carry)
 
+        mon = WidebandMonitor(design, mesh=mesh)       # one rank of a mesh
+        out = mon.sharded_step(iq_local)  # this rank's (B_local, N_local)
+
     ``device=None`` means 'cuda', and raises RuntimeError where CUDA is
-    not available.
+    not available; with a ``mesh`` (parallel.time_mesh, or a DeviceMesh
+    with a ``batch_axis`` and a ``time_axis``) the device is this rank's.
+
+    Each stage takes its CUDA kernel where the kernel takes the design's
+    shapes and its plain PyTorch version on the card elsewhere, picked
+    before any launch by the kernels' predicates (:attr:`routes`).
 
     Outputs of ``step`` (dict of tensors on the monitor's device; a batch
     input prefixes each with B):
@@ -254,10 +278,18 @@ class WidebandMonitor:
         apd_counts: (apd_bins + 1,) int32 power histogram counts
     """
 
-    def __init__(self, design: MonitorDesign, device=None):
+    def __init__(self, design: MonitorDesign, device=None, *, mesh=None,
+                 time_axis: str = TIME_AXIS, batch_axis: str = BATCH_AXIS):
         self.requested_design = design
         design = resolve_monitor_design(design)
         self.design = design
+        self.mesh, self.time_axis, self.batch_axis = mesh, time_axis, batch_axis
+        if mesh is not None:
+            rank_device = mesh_device(mesh)
+            if device is not None and torch.device(device) != rank_device:
+                raise ValueError(f'with a mesh the monitor runs on the rank\'s device '
+                                 f'{rank_device}, not {device}')
+            device = rank_device
         self.device = resolve_device(device)
 
         d = design
@@ -330,38 +362,67 @@ class WidebandMonitor:
         )
         self.apd_edges = to_device(self._apd_edges_pow, dev)
 
-        # the OLA route, from the design: the 2:1 kernel with its in-kernel
-        # overlap-add where it applies (hamming at power-of-two sizes), else
-        # the frame-batch kernel and a grouped overlap-add in a fixed order
-        # (iqwaveform_tpu/models/monitor.py:789-804)
+        # each stage's route, picked here from the design before any launch
+        # by the kernels' predicates, and recorded in self.routes: the
+        # kernel's own route name where a CUDA kernel takes the shapes,
+        # 'plain' where none does (there the plain torch version runs on
+        # the card; on the CPU every wrapper runs its plain version anyway)
+        self._smem = _build.smem_optin(dev) if dev.type == 'cuda' else H100_SMEM_OPTIN
+        self.routes = {}
+
+        # the OLA: the 2:1 kernel with its in-kernel overlap-add where it
+        # applies (hamming at power-of-two sizes), else the frame-batch
+        # kernel and a grouped overlap-add in a fixed order
+        # (iqwaveform_tpu/models/monitor.py:789-804); frames no CUDA frame
+        # kernel takes (ROADMAP Queue 2 item 1) take the torch.fft chain
+        # there, as ola_filter does
         self._strided = fused_ola_cuda_supported(
             d.nfft, d.nfft_out, self.noverlap_in, self.noverlap_out
         )
         if self._strided:
             self._ola = fused_ola
+            self.routes['ola'] = ola_route(d.nfft, d.nfft_out)
             # fused_ola_strided's arguments: the same window and bounds
             self.strided_kwargs = dict(
                 hop_in=self.hop_in, precision=d.fft_precision,
                 **{k: v for k, v in self.ola_kwargs.items()
                    if k not in ('noverlap_in', 'noverlap_out')},
             )
+        elif fused_ola_frames_supported(d.nfft, d.nfft_out, dev):
+            self._frames = fused_ola_frames
+            self.routes['ola'] = frames_route(d.nfft, d.nfft_out)
         else:
-            if dev.type == 'cuda' and not fused_ola_frames_supported(d.nfft, d.nfft_out, dev):
-                raise NotImplementedError(
-                    f'OLA frames of {d.nfft} -> {d.nfft_out} points are outside the '
-                    'CUDA kernels\' scope (sizes 2^a 3^b 5^c within one block\'s '
-                    'shared memory, and the pairs a thread-block cluster takes, '
-                    'CLUSTER_PAIRS of ops/kernels/fused_ola.py; ROADMAP Queue 2 item 1)'
-                )
-            self._ola = functools.partial(ola_grouped, frames_fn=fused_ola_frames)
+            self._frames = fused_ola_frames_plain
+            self.routes['ola'] = 'plain'
+        if not self._strided:
+            self._ola = functools.partial(ola_grouped, frames_fn=self._frames)
 
-        # the APD counter, from the design: the edge histogram, or the
-        # packed rule's uniform dB levels in 128 columns (_packed_counts)
+        # the channelizer statistics: sizes outside CHAN_SIZES, or navg above
+        # 128 at a size no power of two (ROADMAP Queue 2 item 2), take the
+        # plain version
+        if covers(self._nfft_big, d.apd_navg):
+            self._chan = chan_stats
+            self.routes['chan'] = chan_route(self._nfft_big, True, True, d.apd_navg)
+        else:
+            self._chan = chan_stats_plain
+            self.routes['chan'] = 'plain'
+
+        # the APD counter, from the design: the edge histogram (routed per
+        # call by the sample count, :meth:`_hist_counts`; above its shared
+        # memory the sort path, ROADMAP Queue 2 item 5), or the packed
+        # rule's uniform dB levels in 128 columns (_packed_counts)
         if d.apd_kernel == 'packed':
-            self._counts = functools.partial(self._packed_counts, counter=colhist)
+            n_levels = d.apd_bins + 2  # the levels and the padding's
+            if colhist_takes(n_levels, self._smem):
+                counter, self.routes['apd'] = colhist, colhist_route(n_levels, self._smem)
+            else:
+                counter, self.routes['apd'] = colhist_plain, 'plain'
+            self._counts = functools.partial(self._packed_counts, counter=counter)
             self._counts_plain = functools.partial(self._packed_counts, counter=colhist_plain)
         else:
-            self._counts = functools.partial(hist, edges=self.apd_edges)
+            taken = hist_takes(d.apd_bins, 1, self._smem)
+            self.routes['apd'] = hist_route(d.apd_bins, self._smem) if taken else 'plain'
+            self._counts = self._hist_counts
             self._counts_plain = functools.partial(hist_plain, edges=self.apd_edges)
 
     # ---- stages ----
@@ -378,6 +439,19 @@ class WidebandMonitor:
             )
         return x
 
+    def _hist_counts(self, p: torch.Tensor) -> torch.Tensor:
+        """the edge-histogram APD counts of ``p`` (..., n): ``hist`` where
+        its kernels take the edges, the row length and the rows
+        (``hist_takes``, asked each call), ``hist_plain`` elsewhere; the
+        route taken is kept in ``routes['apd']``."""
+        n_edges, n = self.apd_edges.shape[0], p.shape[-1]
+        rows = p.numel() // n if n else 0
+        if hist_takes(n_edges, n, self._smem, rows):
+            self.routes['apd'] = hist_route(n_edges, self._smem)
+            return hist(p, self.apd_edges)
+        self.routes['apd'] = 'plain'
+        return hist_plain(p, self.apd_edges)
+
     def _tiered(self, x: torch.Tensor) -> torch.Tensor:
         """complex ``x`` or real (..., 2, N) planes through the storage
         tier's rounding, as complex64 (complex64 ``x`` itself at the float32
@@ -389,24 +463,26 @@ class WidebandMonitor:
         zero-extended and the last frame's tail dropped."""
         return (fused_ola_plain if plain else self._ola)(self._tiered(x), **self.ola_kwargs)
 
-    def _resample(self, src: torch.Tensor, halo=None, plain: bool = False) -> tuple:
-        """the OLA stage of ``step_planes`` and the stream: ``src`` complex
-        (..., N) or real (..., 2, N) planes, N a whole number of hops, read
-        in the design's storage tier, extended by ``halo`` (the next
-        chunk's first noverlap_in samples, in the same layout) or zeros.
-        Returns (y, tail): the resampled (..., N / hop_in * hop_out)
-        complex64 and the final frame's dangling (..., noverlap_out). At
-        2:1 one launch of ``fused_ola_strided``; beyond, the tier's
-        rounding into complex64 and the grouped overlap-add of the frame
-        kernel."""
+    def _resample(self, src: torch.Tensor, halo=None, plain: bool = False,
+                  tail: bool = True) -> tuple:
+        """the OLA stage of ``step_planes``, the stream and the sharded
+        step: ``src`` complex (..., N) or real (..., 2, N) planes, N a whole
+        number of hops, read in the design's storage tier, extended by
+        ``halo`` (the next chunk's or shard's first noverlap_in samples, in
+        the same layout) or zeros. Returns (y, tail): the resampled (...,
+        N / hop_in * hop_out) complex64 and the final frame's dangling (...,
+        noverlap_out), or None for ``tail=False``. At 2:1 one launch of
+        ``fused_ola_strided``; beyond, the tier's rounding into complex64
+        and the grouped overlap-add of the OLA route's frames."""
         n_frames = src.shape[-1] // self.hop_in
         if self._strided:
             fn = fused_ola_strided_plain if plain else fused_ola_strided
-            return fn(src, halo, n_frames=n_frames, **self.strided_kwargs)
-        return ola_grouped(
+            return fn(src, halo, n_frames=n_frames, tail=tail, **self.strided_kwargs)
+        y, t = ola_grouped(
             self._tiered(src), halo=None if halo is None else self._tiered(halo), return_tail=True,
-            frames_fn=fused_ola_frames_plain if plain else fused_ola_frames, **self.ola_kwargs,
+            frames_fn=fused_ola_frames_plain if plain else self._frames, **self.ola_kwargs,
         )
+        return y, t if tail else None
 
     def _packed_levels(self, p: torch.Tensor) -> torch.Tensor:
         """the packed rule's int32 level of each value of ``p``
@@ -461,7 +537,7 @@ class WidebandMonitor:
         to the monitor's device as complex64), with N a multiple of
         min_input_multiple() for whole frames throughout. At the 'bf16' and
         'i16' tiers the samples are rounded to the tier's storage first."""
-        return self._outputs(self._step_ola(self._input(iq)), chan_stats, self._counts)
+        return self._outputs(self._step_ola(self._input(iq)), self._chan, self._counts)
 
     def reference_step(self, iq) -> dict:
         """the same step through each kernel's plain PyTorch version, on the
@@ -517,7 +593,7 @@ class WidebandMonitor:
         not pre-scaled values). ValueError for a length the JAX package's
         packed path does not take either."""
         y, _ = self._resample(self._planes(planes))
-        return self._outputs(y, chan_stats, self._counts)
+        return self._outputs(y, self._chan, self._counts)
 
     def profile_step(self, iq, *, reps: int = 3) -> StageTimer:
         """stage attribution of :meth:`step` (or of :meth:`step_planes`
@@ -609,19 +685,23 @@ class WidebandMonitor:
             'n_frames': 0,
         }
 
-    def _ola_chunk(self, x, halo, tail_in) -> tuple:
-        """OLA resample of one chunk with an explicit right halo (None:
-        zeros) and the carried overlap-add tail added to its head. Returns
-        (y_chunk, tail_out)."""
-        y, tail = self._resample(x, halo)
-        if self.noverlap_out:
+    def _ola_chunk(self, x, halo, tail_in, tail: bool = True) -> tuple:
+        """OLA resample of one chunk or shard with an explicit right halo
+        (None: zeros) and the left neighbour's overlap-add tail added to its
+        head (None: zeros). Returns (y_chunk, tail_out), tail_out None for
+        ``tail=False``."""
+        y, tail_out = self._resample(x, halo, tail=tail)
+        return self._add_tail(y, tail_in), tail_out
+
+    def _add_tail(self, y, tail_in):
+        if self.noverlap_out and tail_in is not None:
             y[..., : self.noverlap_out] += tail_in
-        return y, tail
+        return y
 
     def _chunk_stats(self, y) -> dict:
         """channelizer + statistics of one resampled chunk: sums and maxima
         over its frames, and its exact APD counts."""
-        cs = chan_stats(y, **self.chan_kwargs)
+        cs = self._chan(y, **self.chan_kwargs)
         channel_power = cs['channel_power']
         return {
             'channel_power_sum': channel_power.sum(dim=-2),
@@ -688,13 +768,102 @@ class WidebandMonitor:
             'apd_counts': carry['apd_counts'],
         }
 
-    def min_input_multiple(self) -> int:
-        """smallest time length quantum: whole OLA hops that produce whole
-        channelizer frames, in whole OLA frame groups."""
+    # ---- the sharded step over a mesh ----
+    #
+    # iqwaveform_tpu/models/monitor.py:976-1007 on torch.distributed: each
+    # rank holds a (B_local, N_local) block of the capture, receivers split
+    # over the mesh's batch axis (where it has one) and time over its time
+    # axis. The rank body is the stream's (_ola_chunk): the OLA on the shard
+    # extended by the right neighbour's first noverlap_in samples (one
+    # right_halo exchange, in the storage tier the OLA reads), the last
+    # frame's tail sent to the right neighbour and the left neighbour's
+    # added at the head (one tail_to_right exchange); then step's
+    # channelizer, statistics and APD on the shard, through the same routes;
+    # then the statistics merged over the time axis in three all-reduces:
+    # pmean of psd_mean and channel_power_mean, pmax of psd_max and
+    # channel_power_max, psum of apd_counts. channel_power stays sharded
+    # along time. On one rank nothing is exchanged (the last frame's tail is
+    # not formed) and the all-reduces are the identity, so the step equals
+    # :meth:`step` on the same block.
+
+    def _shard_source(self, x_local) -> torch.Tensor:
+        """a shard as the OLA reads it: complex64 at the float32 tiers, the
+        storage tier's (..., 2, N) planes at 'bf16' and 'i16'."""
+        return stored(x_local, self.design.fft_precision)
+
+    def _shard_body(self, x_local, halo=None, tail_in=None, tail: bool = True) -> tuple:
+        """the rank body of :meth:`sharded_step` on one shard, with no
+        collective: ``x_local`` (..., N) complex (or the storage tier's
+        planes), ``halo`` the right neighbour's first noverlap_in samples in
+        the same layout (None: zeros), ``tail_in`` the left neighbour's
+        tail (None: zeros). Returns (outputs, tail_out): the outputs of
+        :meth:`step` on the shard before the merge over time, and the shard's
+        own tail for its right neighbour (None for ``tail=False``). Several
+        shards run in one process through it, in order, each taking the
+        previous one's tail."""
+        h = None if halo is None else self._shard_source(halo)
+        y, tail_out = self._ola_chunk(self._shard_source(x_local), h, tail_in, tail=tail)
+        return self._outputs(y, self._chan, self._counts), tail_out
+
+    def _merge_time(self, out: dict, group, n_time: int, n_binned: int) -> dict:
+        """the statistics of a shard's outputs merged over the time group:
+        three all-reduces (a float32 sum, a float32 max, an int64 sum).
+        apd_counts come back int32 where ``n_time * n_binned`` (the counts
+        of a row) fits it, int64 elsewhere."""
+        psd_mean, ch_mean = _collectives.pmean([out['psd_mean'], out['channel_power_mean']], group)
+        psd_max, ch_max = _collectives.pmax([out['psd_max'], out['channel_power_max']], group)
+        apd = _collectives.psum(out['apd_counts'].to(torch.int64), group)
+        if n_time * n_binned < 2**31:
+            apd = apd.to(torch.int32)
+        return {
+            'channel_power': out['channel_power'],
+            'channel_power_mean': ch_mean,
+            'channel_power_max': ch_max,
+            'psd_mean': psd_mean,
+            'psd_max': psd_max,
+            'apd_counts': apd,
+        }
+
+    def sharded_step(self, iq_local) -> dict:
+        """forward step over the mesh, on this rank's (B_local, N_local)
+        complex block (or (N_local,)): receivers split over the mesh's
+        ``batch_axis`` where it has one, time over its ``time_axis``, with
+        N_local whole OLA hops (a capture of a multiple of
+        min_input_multiple(n_time_shards) gives every shard whole
+        channelizer frames, so that the step's frames are the one-device
+        step's). Returns this rank's
+        outputs: channel_power (B_local, frames_local, channels), this
+        rank's frames; the other five merged over the time axis, the same
+        on every rank of the time group (apd_counts int32 where the total
+        fits, else int64). Collectives: one halo exchange in and one tail
+        exchange out (none on one rank), three all-reduces, no all-gather
+        (parallel._collectives.calls)."""
+        if self.mesh is None:
+            raise ValueError('construct WidebandMonitor with a mesh to use sharded_step')
+        group, _, n_time = axis_of(self.mesh, self.time_axis)
+        x = self._input(iq_local)
+        if x.shape[-1] % self.hop_in:
+            raise ValueError(
+                f'each rank\'s shard must hold whole OLA hops of {self.hop_in} samples, not '
+                f'{x.shape[-1]}; min_input_multiple(n_time_shards) gives capture lengths whose '
+                'shards also give whole channelizer frames'
+            )
+        src = self._shard_source(x)
+        halo = _collectives.right_halo(src, self.noverlap_in, group) if self.noverlap_in else None
+        y, tail = self._resample(src, halo, tail=n_time > 1 and self.noverlap_out > 0)
+        tail_in = None if tail is None else _collectives.tail_to_right(tail, group)
+        out = self._outputs(self._add_tail(y, tail_in), self._chan, self._counts)
+        n_binned = out['channel_power'].shape[-2] * self._nfft_big // self.design.apd_navg
+        return self._merge_time(out, group, n_time, n_binned)
+
+    def min_input_multiple(self, n_time_shards: int = 1) -> int:
+        """smallest time length quantum: every one of ``n_time_shards``
+        shards holds whole OLA hops that produce whole channelizer frames,
+        in whole OLA frame groups."""
         d = self.design
         lcm_out = math.lcm(self.hop_out, self._nfft_big)
         per_shard_in = lcm_out * self.hop_in // self.hop_out
-        return math.lcm(per_shard_in, d.nfft)
+        return math.lcm(per_shard_in, d.nfft) * n_time_shards
 
 
 def monitor_carry_from_reference(carry_arrays, design, device=None) -> dict:

@@ -694,6 +694,7 @@ def fused_ola_strided_plain(
     w_in: torch.Tensor,
     w_shift_out: torch.Tensor,
     precision='highest',
+    tail: bool = True,
 ) -> tuple:
     """plain PyTorch version of :func:`fused_ola_strided` (same arguments):
     the tier's rounding, then the grouped overlap-add of the frames' plain
@@ -701,7 +702,7 @@ def fused_ola_strided_plain(
     src = stored(planes, precision)
     h = None if halo is None else stored(halo, precision)
     _check_strided(src, h, n_frames, hop_in)
-    return ola_grouped(
+    y, t = ola_grouped(
         dequantize(src), frames_fn=fused_ola_frames_plain,
         halo=None if h is None else dequantize(h), return_tail=True,
         **_strided_kwargs(
@@ -709,6 +710,7 @@ def fused_ola_strided_plain(
             zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
         ),
     )
+    return y, t if tail else None
 
 
 def fused_ola_strided(
@@ -726,6 +728,7 @@ def fused_ola_strided(
     w_in: torch.Tensor,
     w_shift_out: torch.Tensor,
     precision='highest',
+    tail: bool = True,
 ) -> tuple:
     """OLA bandpass + resample at 2:1 frame overlap, with framing, the
     overlap-add, a halo and the tail: the contract of the JAX package's
@@ -750,12 +753,14 @@ def fused_ola_strided(
     Returns (y, tail): y (..., n_frames * hop_out) complex64, the
     overlap-added output; tail (..., hop_out) complex64, the final frame's
     dangling second half (add it to the next chunk's first outputs, or
-    drop it to match a one-shot OLA trimmed to n_frames * hop_out).
+    drop it to match a one-shot OLA trimmed to n_frames * hop_out); None
+    for ``tail=False``, where the kernel forms and stores none (with no
+    halo either, the launch is :func:`fused_ola`'s).
     """
     kw = dict(
         n_frames=n_frames, hop_in=hop_in, nfft=nfft, nfft_out=nfft_out, zero_lo=zero_lo,
         zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out, w_in=w_in,
-        w_shift_out=w_shift_out, precision=precision,
+        w_shift_out=w_shift_out, precision=precision, tail=tail,
     )
     if planes.device.type == 'cpu':
         return fused_ola_strided_plain(planes, halo, **kw)
@@ -769,7 +774,7 @@ def fused_ola_strided(
         zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
     )
     return _launch_ola(
-        src, h, ola_route(nfft, nfft_out), counter=fused_ola_strided, tail=True, **ola_kw
+        src, h, ola_route(nfft, nfft_out), counter=fused_ola_strided, tail=tail, **ola_kw
     )
 
 

@@ -44,7 +44,8 @@ reads through persistence_finalize:
   splits, kept in the design's fingerprint only;
 * the carry's frame count is a Python int.
 
-Not ported yet (ROADMAP): the sharded paths (Queue 1 item 5).
+The refinement's planner and passes serve the sharded exact quantiles
+too (parallel.sharded.sharded_psd_stats, :func:`_refine_by_plan`).
 """
 
 from __future__ import annotations
@@ -803,20 +804,41 @@ def _gather_order_stats(buf, below, low, high, hw, valid) -> torch.Tensor:
     return rows.masked_fill(~valid[None, :], float('nan'))
 
 
+def _narrow_counts(dB, colhist_fn, lo, hi, invw, sub, below) -> None:
+    """one piece's part of the narrowing pass, on the piece's dB frames
+    (frames, F): its sub-bin counts added into ``sub`` ((nq F, _B_SUB + 1)
+    int32: a column histogram of the stacked labels 0.._B_SUB through
+    ``colhist_fn``, the sentinel's column last) and its count below each
+    bracket into ``below`` ((nq, F) int32)."""
+    nq, F = lo.shape
+    idx = _sub_idx_map(dB, lo, hi, invw)
+    colhist_fn(idx.reshape(idx.shape[0], nq * F), sub)
+    below += (dB[:, None, :] < lo).sum(dim=0, dtype=torch.int32)
+
+
+def _collect_into(buf, dB, lo, hi, invw, b2_lo, b2_hi, below) -> torch.Tensor:
+    """one piece's part of the collect pass, on the piece's dB frames: its
+    count below each fine bracket added into ``below`` ((nq, F) int32), and
+    the C smallest of ``buf`` (nq, F, C) and the piece's in-bracket values
+    returned. The C smallest of a union lie within the C smallest of each
+    part, so keeping C per piece loses no rank below C."""
+    C = buf.shape[2]
+    idx = _sub_idx_map(dB, lo, hi, invw)
+    keep = (idx >= b2_lo) & (idx <= b2_hi)
+    below += ((dB[:, None, :] < lo) | (idx < b2_lo)).sum(dim=0, dtype=torch.int32)
+    cand = torch.where(keep, dB[:, None, :], math.inf).permute(1, 2, 0)
+    return torch.topk(torch.cat([buf, cand], dim=2), C, dim=2, largest=False).values
+
+
 def _narrow_pass(chunks, k: _Kernels, w, nfft: int, lo, hi, invw) -> tuple:
     """the narrowing pass over ``chunks``, on one stream with no host
-    sync: the sub-bin counts of each bracket, (nq, F, _B_SUB) int32 (a
-    column histogram of the stacked labels 0.._B_SUB through ``k.colhist``,
-    the sentinel's column dropped), and the exact count below each
-    bracket, (nq, F) int32."""
+    sync: the sub-bin counts of each bracket, (nq, F, _B_SUB) int32, and
+    the exact count below each bracket, (nq, F) int32."""
     nq, F = lo.shape
     sub = torch.zeros((nq * F, _B_SUB + 1), dtype=torch.int32, device=lo.device)
     below = torch.zeros((nq, F), dtype=torch.int32, device=lo.device)
     for chunk in chunks:
-        dB = k.spectrogram_dB(chunk, w, nfft)
-        idx = _sub_idx_map(dB, lo, hi, invw)
-        k.colhist(idx.reshape(idx.shape[0], nq * F), sub)
-        below += (dB[:, None, :] < lo).sum(dim=0, dtype=torch.int32)
+        _narrow_counts(k.spectrogram_dB(chunk, w, nfft), k.colhist, lo, hi, invw, sub, below)
     return sub.reshape(nq, F, _B_SUB + 1)[..., :_B_SUB], below
 
 
@@ -825,20 +847,48 @@ def _collect_pass(chunks, k: _Kernels, w, nfft: int, lo, hi, invw, b2_lo, b2_hi,
     """the collect pass over ``chunks``, on one stream with no host sync:
     the C smallest values per (quantile, bin) within the fine bracket,
     (nq, F, C) ascending with +inf where fewer, and the exact count below
-    it, (nq, F) int32. The C smallest of a union lie within the C smallest
-    of the prefix and the new chunk, so keeping C per chunk loses no rank
-    below C."""
+    it, (nq, F) int32."""
     nq, F = lo.shape
     buf = torch.full((nq, F, C), math.inf, dtype=torch.float32, device=lo.device)
     below = torch.zeros((nq, F), dtype=torch.int32, device=lo.device)
     for chunk in chunks:
-        dB = k.spectrogram_dB(chunk, w, nfft)
-        idx = _sub_idx_map(dB, lo, hi, invw)
-        keep = (idx >= b2_lo) & (idx <= b2_hi)
-        below += ((dB[:, None, :] < lo) | (idx < b2_lo)).sum(dim=0, dtype=torch.int32)
-        cand = torch.where(keep, dB[:, None, :], math.inf).permute(1, 2, 0)
-        buf = torch.topk(torch.cat([buf, cand], dim=2), C, dim=2, largest=False).values
+        buf = _collect_into(buf, k.spectrogram_dB(chunk, w, nfft), lo, hi, invw, b2_lo, b2_hi,
+                            below)
     return buf, below
+
+
+def _refine_by_plan(plan: dict, valid_h, dev: torch.device, narrow, collect) -> torch.Tensor:
+    """stages B-E of the refinement on a bracket plan (:func:`_bracket_plan`)
+    of the whole capture, with ``valid_h`` (F,) the columns holding no NaN:
+    where a bracket may hold more than _C_DIRECT values, ``narrow(lo, hi,
+    invw)`` gives the exact sub-bin and below-bracket counts of the whole
+    capture, (nq, F, _B_SUB) and (nq, F), which narrow the brackets; then
+    ``collect(lo, hi, invw, b2_lo, b2_hi, C)`` gives the C smallest
+    in-bracket values (nq, F, C) and the count below each fine bracket (nq,
+    F) of the whole capture, and the ranks pick the order statistics.
+    Returns (nq, F) float32 on ``dev``."""
+    nq, F = plan['lo'].shape
+
+    def on_dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    lo, hi = on_dev(plan['lo'], np.float32), on_dev(plan['hi'], np.float32)
+    invw = on_dev(_bracket_invw(plan['lo'], plan['hi']), np.float32)
+    cap = int(plan['cap'][:, valid_h].max(initial=0))
+    if cap > _C_DIRECT:
+        sub, below2 = narrow(lo, hi, invw)
+        b2_lo, b2_hi, C = _narrow_brackets(
+            sub.cpu().numpy().astype(np.int64), below2.cpu().numpy().astype(np.int64),
+            plan['low'], plan['high'], valid_h)
+    else:
+        # a coarse bracket small enough to collect directly: the fine
+        # bracket is the whole sub-bin range
+        C = max(-(-cap // 8) * 8, 8)
+        b2_lo = np.zeros((nq, F), np.int32)
+        b2_hi = np.full((nq, F), _B_SUB - 1, np.int32)
+    buf, below = collect(lo, hi, invw, on_dev(b2_lo, np.int32), on_dev(b2_hi, np.int32), C)
+    return _gather_order_stats(buf, below, plan['low'], plan['high'], plan['hw'],
+                               on_dev(valid_h, np.bool_))
 
 
 def _refine_quantiles_exact(chunks, design: dict, carry: PersistenceCarry, quantiles,
@@ -857,43 +907,26 @@ def _refine_quantiles_exact(chunks, design: dict, carry: PersistenceCarry, quant
     (``k.colhist``), which shrinks the bracket about _B_SUB / 3-fold. The
     collect pass then keeps the C smallest in-bracket values per (quantile,
     bin) beside the exact count below the bracket, and the ranks pick the
-    order statistics. Two passes of ``k.spectrogram_dB`` over the chunks,
-    no copy of them: the memory is one chunk's temporaries and the (nq,
-    nfft, C) buffer, and C grows with the capture where a bin's values
-    concentrate (a tone's bins).
+    order statistics (:func:`_refine_by_plan`). Two passes of
+    ``k.spectrogram_dB`` over the chunks, no copy of them: the memory is one
+    chunk's temporaries and the (nq, nfft, C) buffer, and C grows with the
+    capture where a bin's values concentrate (a tone's bins).
     """
     qs = [float(v) for v in quantiles]
     if not qs:
         return None
-    dev = carry.psum.device
     nfft = design['nfft']
     edges = np.asarray(design['edges_dB'], dtype='float32')
     valid_h = ~np.isnan(carry.psum.cpu().numpy())
     plan = _bracket_plan(carry.hist.cpu().numpy().astype(np.int64), edges, carry.count, qs,
                          carry.pmin.cpu().numpy(), carry.pmax.cpu().numpy())
-    nq = len(qs)
-
-    def on_dev(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-
-    lo, hi = on_dev(plan['lo'], np.float32), on_dev(plan['hi'], np.float32)
-    invw = on_dev(_bracket_invw(plan['lo'], plan['hi']), np.float32)
-    w = device_constant(design['kernel_window'], dev)
-    if int(plan['cap'][:, valid_h].max(initial=0)) > _C_DIRECT:
-        sub, below2 = _narrow_pass(chunks, k, w, nfft, lo, hi, invw)
-        b2_lo, b2_hi, C = _narrow_brackets(
-            sub.cpu().numpy().astype(np.int64), below2.cpu().numpy().astype(np.int64),
-            plan['low'], plan['high'], valid_h)
-    else:
-        # a coarse bracket small enough to collect directly: the fine
-        # bracket is the whole sub-bin range
-        C = max(-(-int(plan['cap'][:, valid_h].max(initial=0)) // 8) * 8, 8)
-        b2_lo = np.zeros((nq, nfft), np.int32)
-        b2_hi = np.full((nq, nfft), _B_SUB - 1, np.int32)
-    buf, below = _collect_pass(chunks, k, w, nfft, lo, hi, invw, on_dev(b2_lo, np.int32),
-                               on_dev(b2_hi, np.int32), C)
-    return _gather_order_stats(buf, below, plan['low'], plan['high'], plan['hw'],
-                               on_dev(valid_h, np.bool_))
+    w = device_constant(design['kernel_window'], carry.psum.device)
+    return _refine_by_plan(
+        plan, valid_h, carry.psum.device,
+        lambda lo, hi, invw: _narrow_pass(chunks, k, w, nfft, lo, hi, invw),
+        lambda lo, hi, invw, b2_lo, b2_hi, C: _collect_pass(
+            chunks, k, w, nfft, lo, hi, invw, b2_lo, b2_hi, C),
+    )
 
 
 def streaming_apd(

@@ -680,10 +680,13 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
 def test_frames_above_shared_memory_raise(card):
     """frames above one block's shared memory that no cluster pair takes
     (the blackman design at 122.88 -> 15.36 MS/s: 196608 -> 24576, and
-    131072 -> 32768) raise, naming ROADMAP Queue 2 item 1; so does the
-    monitor at such a design; ola_filter takes its torch.fft stage chain
-    there. The 98304- and 163840-point frames of 122.88 -> 30.72 MS/s,
-    which raised before clusters of 6 and 10 blocks, step
+    131072 -> 32768) raise in the frame kernel's wrapper, naming ROADMAP
+    Queue 2 item 1; the monitor at such a design takes the plain frames on
+    the card (routes['ola'] 'plain', picked before any launch): it
+    constructs, its step launches no frame kernel and matches
+    reference_step; ola_filter takes its torch.fft stage chain there. The
+    98304- and 163840-point frames of 122.88 -> 30.72 MS/s, which raised
+    before clusters of 6 and 10 blocks, step
     (test_cluster_monitor_constructs_and_steps)."""
     for nfft, nfft_out in ((196608, 24576), (131072, 32768)):
         assert frames_route(nfft, nfft_out) == 'generic'
@@ -699,8 +702,25 @@ def test_frames_above_shared_memory_raise(card):
     design = it.design_wideband_monitor(122.88e6, 15.36e6, bw=10e6, fs_sdr=122.88e6,
                                         window='blackman')
     assert (design.nfft, design.nfft_out) == (196608, 24576)
-    with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
-        it.WidebandMonitor(design)
+    mon = it.WidebandMonitor(design)
+    assert mon.routes['ola'] == 'plain'
+    x = _noise(2 * mon.min_input_multiple(), 13)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    _reset_frame_routes()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.launches == 0 and kernels.fused_ola.launches == 0
+    assert kernels.chan_stats.launches == 1 and kernels.hist.launches == 1
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+    for key in ('psd_mean', 'psd_max'):
+        band = ref[key] > -100
+        assert float((out[key] - ref[key])[band].abs().max()) <= 0.01, key
+    a, b = out['apd_counts'].long(), ref['apd_counts'].long()
+    assert int(a.sum()) == int(b.sum())
+    assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
     _reset_frame_routes()
     assert it.ola_filter(_noise(4 * 196608, 12), fs=122.88e6, nfft=196608, nfft_out=24576,
                          window='blackman', passband=(-5e6, 5e6)).shape == (4 * 24576,)
@@ -1076,6 +1096,33 @@ def test_chan_stats_cluster_channel_chunks(card):
     got = kernels.chan_stats(y, **kw)
     ref = kernels.chan_stats_plain(y, **kw)
     _check_chan(got, ref, kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw)))
+
+
+@pytest.mark.parametrize('kw,routes,quiet', [
+    (dict(channel_count=48, fft_size_per_channel=768, apd_navg=1),
+     {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}, 'chan_stats'),
+    (dict(apd_bins=40000), {'ola': 'reg', 'chan': 'reg', 'apd': 'plain'}, 'hist'),
+])
+def test_monitor_routes_refused_shapes_to_plain(card, kw, routes, quiet):
+    """the monitor at a channelizer size outside CHAN_SIZES (48 x 768 =
+    36864, ROADMAP Queue 2 item 2) and at APD edges above hist's shared
+    memory (40,000, Queue 2 item 5): the plain version of that stage on the
+    card, picked by the kernel's predicate before any launch; the refused
+    kernel never launches; the step matches reference_step"""
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **{**FLAGSHIP, **kw}))
+    x = _noise(4 * mon.min_input_multiple(), 14)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert mon.routes == routes
+    assert getattr(kernels, quiet).launches == 0 and kernels.fused_ola.launches == 1
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+    a, b = out['apd_counts'].long(), ref['apd_counts'].long()
+    assert int(a.sum()) == int(b.sum())
+    assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
 
 
 def test_chan_stats_raises_outside_its_sizes(card):
