@@ -147,8 +147,8 @@ kernel's cluster route (``fused_ola_frames_cluster_kernel``: one frame on
 a thread-block cluster of C blocks):
 
 16. (a) the cluster kernel at each compiled pair (32768 -> 8192 and
-   16384, 36864 -> 12288, 40960 -> 20480 and 40960, 49152 -> 24576,
-   81920 -> 40960, 98304 -> 24576 on 6 blocks, 163840 -> 40960 on 10) on
+   16384, 40960 -> 40960, 49152 -> 24576,
+   81920 -> 40960, 98304 -> 24576 on 6 blocks, and the two of 24576) on
    64 frames: one launch on its route, within 1e-5 of the plain chain, its
    complex128 error at most twice the plain chain's, and the clusters of
    it the card holds at once (``cudaOccupancyMaxActiveClusters``);
@@ -171,10 +171,9 @@ a thread-block cluster of C blocks):
    30.72 MS/s (98304 -> 24576 on clusters of 6 blocks) on 16,809,984
    samples (171 min_input_multiple()s): launches and routes, phase 3's
    gates against ``reference_step``, timed and profiled, the kernel on the
-   step's frames as in (c) (kernels-line row ``fused_ola_frames_cluster6``);
-   the blackmanharris design (163840 -> 40960 on 10 blocks) once on
-   16,711,680 samples, gated, its kernel as in (c) without a profile
-   (``fused_ola_frames_cluster10``);
+   step's frames as in (c) (kernels-line row ``fused_ola_frames_cluster6``;
+   the blackmanharris design there, 163840 -> 40960, runs on the split
+   route since it beat the cluster of 10 blocks: phase 22b);
 
 then the channelizer statistics at every frame size of ``CHAN_SIZES``
 (1024-65536 points, 2^a 3^b 5^c with 2^a >= 1024 and b, c <= 1):
@@ -285,11 +284,43 @@ process group and a one-rank time mesh:
    ``sharded_apd_histogram`` on 2^24 samples x 513 edges: one
    ``hist_bucket_kernel`` launch, counts and CCDF equal to
    ``sample_ccdf``'s, timed; (f) the monitor where a kernel refuses the
-   design (196608 -> 24576 frames, 48 x 768 channels, 40,000 APD edges):
+   design (172032 -> 24576 frames, 48 x 768 channels, 40,000 APD edges):
    it constructs and steps, the stage's route is 'plain' and its kernel
    never launches, within phase 3's gates of ``reference_step``. Each
    kernel these paths launch gains a ``sharded`` entry on its kernels-line
    row (launches and ms by path).
+
+then the frames of the 122.88 MS/s monitor grid above one block that no
+cluster pair takes, and the grid's pairs that ran the older bodies:
+
+22. (d) the OLA route of each of the grid's 36 designs (output rate 61.44,
+   40.96, 30.72 or 15.36 MS/s; hamming, blackman or blackmanharris;
+   ``min_fft_size`` 4095, 8191 or 16383; bw = inf and 0.66 of the output
+   rate) on the card: every one 'reg', 'cluster' or 'split', the 25 split
+   pairs among them; the ptxas lines of the split kernels and the new
+   instances, each source's nvcc seconds; (a) the split route
+   (``csrc/ola_split.cu``) at each split pair on 8 frames of a strided
+   capture: one 'split' launch, within 1e-5 of the plain chain, its
+   complex128 error at most twice the chain's, timed beside the
+   ``torch.fft`` chain and its bound at 65536 -> 16384, 196608 -> 24576
+   and 655360 -> 81920; (b) the monitor step at hamming 122.88 -> 30.72
+   MS/s (65536 -> 16384), blackman and blackmanharris 122.88 -> 15.36 MS/s
+   (196608 -> 24576, 655360 -> 81920), blackmanharris 122.88 -> 30.72 MS/s
+   (163840 -> 40960) near 2^24 samples: one split
+   launch, within the step gates of ``reference_step``, timed beside the
+   same step through the plain frames, profiled (the idle share, each
+   split kernel's device time), and the split kernels alone on the step's
+   frames (rows ``split_hamming_65536``, ``split_blackman_196608``,
+   ``split_blackmanharris_655360``, ``split_blackmanharris_163840``); (c)
+   ``fused_ola_reg_kernel`` at 8192
+   -> 4096 and 16384 -> 4096, ``fused_ola_frames_reg_kernel`` at 12288 ->
+   4096 and the cluster kernel on 2 blocks at 24576 -> 12288 and 24576 ->
+   8192, each on its design's step input against the plain version, the
+   older body it replaces and complex128 (at most twice the older body's
+   error), timed beside the older body and the ``torch.fft`` chain, with
+   a monitor step at each design, whose launches the row carries; (e) the
+   split route beside the cluster kernel at each cluster pair above one
+   block, on 2^24 samples at hop nfft / 3.
 
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
@@ -370,12 +401,10 @@ KERNEL_INFO = {
     # the monitor's grouped overlap-add runs it at R = 3
     'fused_ola_frames_cluster': ('iqwaveform_torch/csrc/fused_ola.cu',
                                  'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
-    # its instances on clusters of 6 and 10 blocks (98304 -> 24576 and
-    # 163840 -> 40960), as the monitor at 122.88 -> 30.72 MS/s runs them
+    # its instance on clusters of 6 blocks (98304 -> 24576), as the
+    # monitor at 122.88 -> 30.72 MS/s runs it
     'fused_ola_frames_cluster6': ('iqwaveform_torch/csrc/fused_ola.cu',
                                   'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
-    'fused_ola_frames_cluster10': ('iqwaveform_torch/csrc/fused_ola.cu',
-                                   'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
     # the channelizer statistics at the other frame sizes of one block
     # (chan_stats_mixed_kernel) and above one block (chan_stats_cluster_kernel),
     # and the channel-only kernel at a size that is no power of two
@@ -461,7 +490,8 @@ CORR_KERNEL = 'corr_ring_kernel'
 CORR_KERNELS = (CORR_KERNEL, 'corr_fold_kernel', 'corr_finish_kernel')
 NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL,
             CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL, CORR_KERNEL,
-            OLA_REG_KERNEL)
+            OLA_REG_KERNEL, 'split_radix_kernel', 'split_fwd_passes_kernel',
+            'split_inv_passes_kernel')
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -476,9 +506,9 @@ N_CLUSTER_STEP = 1 << 24
 # step on whole min_input_multiple()s, about 2^24 samples
 CLUSTER_MONITOR_BH = dict(bw=40e6, fs_sdr=122.88e6, window='blackmanharris')
 N_CLUSTER_STEP_BH = 205 * 81920
-# the blackman and blackmanharris designs at 122.88 -> 30.72 MS/s (20 MHz):
-# frames of 98304 -> 24576 on clusters of 6 blocks and 163840 -> 40960 on
-# 10; a step each on whole min_input_multiple()s near N_CLUSTER_STEP
+# the blackman design at 122.88 -> 30.72 MS/s (20 MHz): frames of 98304 ->
+# 24576 on clusters of 6 blocks; a step on whole min_input_multiple()s near
+# N_CLUSTER_STEP
 WIDE_CLUSTER_MONITOR = dict(bw=20e6, fs_sdr=122.88e6)
 # the channelizer at the frame sizes of CHAN_SIZES: each on 2^23 samples
 # of noise in whole frames (the length of the flagship step's resampled
@@ -1298,8 +1328,9 @@ def trace_call(name: str) -> int:
     """``python3 chip_smoke.py --trace corr|channelize|cluster|cluster6|
     channels48|channels96|channels64x512|stats4096|planes_i16|stream|
     psd_default|psd_histogram_1024|psd_histogram_2048|sample_ccdf|
-    psd_sort_2e28|psd_refined_2e28``: make the call of phase 11, 15, 16c,
-    16d, 17b, 18b-c, 19d or 20a at its shapes, on noise from ``SEED``
+    psd_sort_2e28|psd_refined_2e28|split_hamming_65536|split_blackman_196608|
+    split_blackmanharris_655360|split_blackmanharris_163840``: make the
+    call of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a or 22b at its shapes, on noise from ``SEED``
     (phases 19-20's on their tone + noise; the kernels' work does not
     depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
@@ -1380,6 +1411,15 @@ def trace_call(name: str) -> int:
         fn = ((lambda: it.power_spectral_density(x, **psd_kwargs())) if name == 'psd_sort_2e28'
               else (lambda: refined_psd(x)))
         expect = REFINE_TRACES[name]
+    elif name in SPLIT_STEPS:
+        fo, kw, _ = SPLIT_STEPS[name]
+        mon = split_design(fo, kw['window'], kw['min_fft_size'])
+        x, _ = split_step_frames(mon, N_SPLIT_STEP, gen, dev)
+
+        def fn():
+            return mon.step(x)
+
+        expect = SPLIT_KERNELS
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -1561,7 +1601,8 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'cluster': 0, 'generic': 0}, f'{label} frame kernels {routes}')
+        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'generic': 0},
+                f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -1975,7 +2016,8 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float, parent: str | 
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'cluster': 0, 'generic': 0}, f'{label} frame kernels {routes}')
+        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'generic': 0},
+                f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
     phy = ofdm.Phy3GPP(LTE_BW)
@@ -2291,7 +2333,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         got = kernels.fused_ola_frames(frames, **kw)
         torch.cuda.synchronize()
         routes = dict(kernels.fused_ola_frames.route_launches)
-        require(routes == {'reg': 0, 'cluster': 1, 'generic': 0},
+        require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
                 f'fused_ola_frames at {nfft} -> {nfft_out}: kernels {routes}')
         ref = kernels.fused_ola_frames_plain(frames, **kw)
         ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
@@ -2318,7 +2360,8 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     out = mon.step(x)
     torch.cuda.synchronize()
     routes = dict(kernels.fused_ola_frames.route_launches)
-    require(routes == {'reg': 0, 'cluster': 1, 'generic': 0}, f'blackmanharris step kernels {routes}')
+    require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
+            f'blackmanharris step kernels {routes}')
     check_step(out, mon.reference_step(x), 'blackmanharris 81920 -> 40960 step vs plain-version step')
     print(f'blackmanharris step: {N_CLUSTER_STEP_BH} samples, 81920 -> 40960 frames, kernels '
           f'{json.dumps(routes)}, within the step gates of the plain-version step')
@@ -2344,7 +2387,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'cluster step launches: {json.dumps(launched)}; kernels by route {json.dumps(routes)}')
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'cluster step launches {launched}')
-    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'generic': 0},
+    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
                        'chan_stats': CHAN_REG_ROUTE,
                        'hist': {'bucket': 1, 'generic': 0}},
             f'cluster step routes {routes}')
@@ -2383,55 +2426,51 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     torch.cuda.empty_cache()
 
     # ---- phase 16d: the monitor at 122.88 -> 30.72 MS/s, frames on clusters
-    # of 6 and 10 blocks: the blackman step (98304 -> 24576, C = 6) on whole
-    # min_input_multiple()s near 2^24 samples, timed and profiled; the
-    # blackmanharris step (163840 -> 40960, C = 10) once, gated
-    for window, pair, fresh in (('blackman', (98304, 24576), 'cluster6'),
-                                ('blackmanharris', (163840, 40960), None)):
-        mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 30.72e6, window=window,
-                                                            **WIDE_CLUSTER_MONITOR))
-        d = mon.design
-        require((d.nfft, d.nfft_out) == pair, f'{window} design {d.nfft} -> {d.nfft_out}')
-        n = round(N_CLUSTER_STEP / mon.min_input_multiple()) * mon.min_input_multiple()
-        x = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
-        mon.step(x[: mon.min_input_multiple()])  # warm-up: first-use setup
-        torch.cuda.synchronize()
-        reset_counts()
-        out = mon.step(x)
-        torch.cuda.synchronize()
-        launched = {name: k.launches for name, k in kset.items() if k.launches}
-        routes = {'fused_ola_frames': dict(kernels.fused_ola_frames.route_launches),
-                  'chan_stats': dict(kernels.chan_stats.route_launches)}
-        print(f'{window} 30.72 MS/s step ({n} samples, {pair[0]} -> {pair[1]}, C = '
-              f'{CLUSTER_PAIRS[pair]}): launches {json.dumps(launched)}; routes {json.dumps(routes)}')
-        require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
-                f'{window} 30.72 MS/s step launches {launched}')
-        require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'generic': 0},
-                           'chan_stats': CHAN_REG_ROUTE}, f'{window} 30.72 MS/s step routes {routes}')
-        check_step(out, mon.reference_step(x), f'{window} 30.72 MS/s step vs plain-version step')
-        step_ms, device_us = None, {}
-        if fresh:
-            step_ms = timed_ms(lambda: mon.step(x))
-            names, device_us = device_kernels(lambda: mon.step(x), CLUSTER_KERNEL, STATS_REG_KERNEL,
-                                              HIST_KERNEL, fresh=fresh)
-            require(any(CLUSTER_KERNEL in nm for nm in names),
-                    f'profiler shows no {CLUSTER_KERNEL} in the {window} 30.72 MS/s step')
-            bad = library_kernels(names)
-            require(not bad, f'library FFT / GEMM / cuDNN kernels in the {window} step: {bad}')
-            busy = sum(device_us.values()) / 1e3
-            print(f'{window} 30.72 MS/s step device time by kernel (us): ' + json.dumps(
-                dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
-            print(f'{window} 30.72 MS/s step: {step_ms:.4f} ms for {n} samples = '
-                  f'{n / step_ms / 1e3:.1f} MS/s; device busy {busy:.4f} ms (idle share '
-                  f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
-        row = cluster_frame_row(f'fused_ola_frames_cluster{CLUSTER_PAIRS[pair]}', mon, x, launched,
-                                device_us, step_ms, mem_rate, fp32_rate, smi)
-        row['path'] = (f'WidebandMonitor.step, {window} 122.88 -> 30.72 MS/s, {pair[0]} -> '
-                       f'{pair[1]}, C = {CLUSTER_PAIRS[pair]}')
-        row['max_active_clusters'] = _require_cluster_residency(*pair, dev)
-        rows.append(row)
-        del x, out, mon
-        torch.cuda.empty_cache()
+    # of 6 blocks: the blackman step (98304 -> 24576, C = 6) on whole
+    # min_input_multiple()s near 2^24 samples, timed and profiled
+    window, pair = 'blackman', (98304, 24576)
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 30.72e6, window=window,
+                                                        **WIDE_CLUSTER_MONITOR))
+    d = mon.design
+    require((d.nfft, d.nfft_out) == pair, f'{window} design {d.nfft} -> {d.nfft_out}')
+    n = round(N_CLUSTER_STEP / mon.min_input_multiple()) * mon.min_input_multiple()
+    x = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen)
+    mon.step(x[: mon.min_input_multiple()])  # warm-up: first-use setup
+    torch.cuda.synchronize()
+    reset_counts()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    launched = {name: k.launches for name, k in kset.items() if k.launches}
+    routes = {'fused_ola_frames': dict(kernels.fused_ola_frames.route_launches),
+              'chan_stats': dict(kernels.chan_stats.route_launches)}
+    print(f'{window} 30.72 MS/s step ({n} samples, {pair[0]} -> {pair[1]}, C = '
+          f'{CLUSTER_PAIRS[pair]}): launches {json.dumps(launched)}; routes {json.dumps(routes)}')
+    require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
+            f'{window} 30.72 MS/s step launches {launched}')
+    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
+                       'chan_stats': CHAN_REG_ROUTE}, f'{window} 30.72 MS/s step routes {routes}')
+    check_step(out, mon.reference_step(x), f'{window} 30.72 MS/s step vs plain-version step')
+    step_ms = timed_ms(lambda: mon.step(x))
+    names, device_us = device_kernels(lambda: mon.step(x), CLUSTER_KERNEL, STATS_REG_KERNEL,
+                                      HIST_KERNEL, fresh='cluster6')
+    require(any(CLUSTER_KERNEL in nm for nm in names),
+            f'profiler shows no {CLUSTER_KERNEL} in the {window} 30.72 MS/s step')
+    bad = library_kernels(names)
+    require(not bad, f'library FFT / GEMM / cuDNN kernels in the {window} step: {bad}')
+    busy = sum(device_us.values()) / 1e3
+    print(f'{window} 30.72 MS/s step device time by kernel (us): ' + json.dumps(
+        dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+    print(f'{window} 30.72 MS/s step: {step_ms:.4f} ms for {n} samples = '
+          f'{n / step_ms / 1e3:.1f} MS/s; device busy {busy:.4f} ms (idle share '
+          f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+    row = cluster_frame_row(f'fused_ola_frames_cluster{CLUSTER_PAIRS[pair]}', mon, x, launched,
+                            device_us, step_ms, mem_rate, fp32_rate, smi)
+    row['path'] = (f'WidebandMonitor.step, {window} 122.88 -> 30.72 MS/s, {pair[0]} -> '
+                   f'{pair[1]}, C = {CLUSTER_PAIRS[pair]}')
+    row['max_active_clusters'] = _require_cluster_residency(*pair, dev)
+    rows.append(row)
+    del x, out, mon
+    torch.cuda.empty_cache()
     print(f'phase 16 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
     return rows
 
@@ -2441,13 +2480,16 @@ def _wide_kw(kw):
 
 
 def cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
-                      smi) -> dict:
-    """the cluster frame kernel alone on the frames of ``mon``'s step on
-    ``x``: within 1e-5 of the plain chain, its first N_F64_FRAMES frames
-    against complex128 (at most twice the plain chain's error), and its
+                      smi, kernels_of=(CLUSTER_KERNEL,)) -> dict:
+    """the cluster frame kernel (or the route of ``kernels_of``, by device
+    kernel name) alone on the frames of ``mon``'s step on ``x``: within
+    1e-5 of the plain chain, its first N_F64_FRAMES frames against
+    complex128 (at most twice the plain chain's error), and its
     kernels-line row, timed beside its bound, the plain chain and the
     torch.fft chain (its library call)."""
     from iqwaveform_torch.ops import kernels
+
+    label = '+'.join(kernels_of)
 
     d = mon.design
     kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
@@ -2459,12 +2501,12 @@ def cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32
     err = rel_rms(got, ref)
     ref64 = kernels.fused_ola_frames_plain(fr[:N_F64_FRAMES].to(torch.complex128), **_wide_kw(kw))
     err64, plain64 = rel_rms(got[:N_F64_FRAMES], ref64), rel_rms(ref[:N_F64_FRAMES], ref64)
-    print(f'{CLUSTER_KERNEL} on the step\'s frames {tuple(fr.shape)} -> {tuple(got.shape)}: vs '
+    print(f'{label} on the step\'s frames {tuple(fr.shape)} -> {tuple(got.shape)}: vs '
           f'plain relative RMS {err:.3g}; first {N_F64_FRAMES} frames vs complex128 {err64:.4g}, '
           f'the plain chain {plain64:.4g}')
-    require(err <= 1e-5, f'{CLUSTER_KERNEL} on the step\'s frames: relative RMS {err:.3g}')
+    require(err <= 1e-5, f'{label} on the step\'s frames: relative RMS {err:.3g}')
     require(err64 <= 2 * plain64,
-            f'{CLUSTER_KERNEL} on the step\'s frames: complex128 error {err64:.4g} > 2 x the '
+            f'{label} on the step\'s frames: complex128 error {err64:.4g} > 2 x the '
             f'plain chain\'s {plain64:.4g}')
     row = kernel_row(
         name, {'launches': launched.get('fused_ola_frames', 0), 'max_abs_err': max_abs(got, ref)},
@@ -2475,7 +2517,8 @@ def cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32
         lambda: kernels.fused_ola_frames_plain(fr, **kw),
         mem_rate, fp32_rate,
     )
-    row['profiled_device_ms'] = device_ms(device_us, CLUSTER_KERNEL) if device_us else None
+    row['profiled_device_ms'] = (sum(device_ms(device_us, k) for k in kernels_of)
+                                 if device_us else None)
     row['f64_rel_rms'] = err64
     row['plain_f64_rel_rms'] = plain64
     row['path_ms'] = step_ms
@@ -3984,11 +4027,13 @@ def refinement_phases(dev, smi: str) -> dict:
 # sharded entry points and WidebandMonitor.sharded_step) on one NCCL rank
 
 N_SHARDS = 4  # the in-process shards of 21b
-# the Step 0 designs (21f): frames no CUDA frame kernel takes (196608 ->
-# 24576 at 122.88 -> 15.36 MS/s), a channelizer size outside CHAN_SIZES (48
-# x 768 = 36864) and APD edges above hist's shared memory (40,000)
+# the Step 0 designs (21f): frames no CUDA frame kernel takes (172032 ->
+# 24576 at 107.52 -> 15.36 MS/s, 7 x 2^k; 196608 -> 24576 at 122.88 ->
+# 15.36 MS/s until the split route took it), a channelizer size outside
+# CHAN_SIZES (48 x 768 = 36864) and APD edges above hist's shared memory
+# (40,000)
 REFUSED_DESIGNS = {
-    'frames196608': ((122.88e6, 15.36e6), dict(bw=10e6, fs_sdr=122.88e6, window='blackman'),
+    'frames172032': ((107.52e6, 15.36e6), dict(bw=10e6, fs_sdr=107.52e6, window='blackman'),
                      'ola', 'fused_ola_frames'),
     'chan36864': ((122.88e6, 61.44e6), dict(FLAGSHIP, channel_count=48,
                                             fft_size_per_channel=768, apd_navg=1),
@@ -4301,6 +4346,315 @@ def sharded_phases(dev, smi: str) -> dict:
 # ---- phase 21 across several cards (``python3 chip_smoke.py --ranks N``):
 # the exchanges between NCCL ranks, which one card cannot show
 
+# ---- phase 22: the split frame route and the register / cluster
+# instances of the remaining grid pairs
+SPLIT_KERNELS = ('split_radix_kernel', 'split_fwd_passes_kernel', 'split_inv_passes_kernel')
+# the monitor designs of the 122.88 MS/s grid (22d): output rate, window,
+# min_fft_size, each at bw = inf and at 0.66 of the output rate
+SPLIT_GRID = [(fo, w, m) for fo in (61.44e6, 40.96e6, 30.72e6, 15.36e6)
+              for w in ('hamming', 'blackman', 'blackmanharris') for m in (4095, 8191, 16383)]
+N_SPLIT_FRAMES = 8  # 22a: frames a pair, cut from a strided capture
+SPLIT_TIMED = ((65536, 16384), (196608, 24576), (655360, 81920))  # 22a: pairs timed
+N_SPLIT_STEP = 1 << 24  # 22b / 22c: the steps' samples, in whole min_input_multiple()s
+# 22b: the monitor steps on the split route
+SPLIT_STEPS = {
+    'split_hamming_65536': (30.72e6, dict(window='hamming', min_fft_size=16383), (65536, 16384)),
+    'split_blackman_196608': (15.36e6, dict(window='blackman', min_fft_size=8191),
+                              (196608, 24576)),
+    'split_blackmanharris_655360': (15.36e6, dict(window='blackmanharris', min_fft_size=16383),
+                                    (655360, 81920)),
+    # the pair the split route took from the cluster of 10 blocks (22e)
+    'split_blackmanharris_163840': (30.72e6, dict(window='blackmanharris', min_fft_size=8191),
+                                    (163840, 40960)),
+}
+# 22c: the five grid pairs of the new register and cluster instances, each
+# by the design that runs it: (output rate, window, min_fft_size), the
+# pair, the wrapper's route
+NEW_INSTANCES = {
+    'fused_ola_reg_8192_4096': ((61.44e6, 'hamming', 4095), (8192, 4096), 'reg'),
+    'fused_ola_reg_16384_4096': ((30.72e6, 'hamming', 4095), (16384, 4096), 'reg'),
+    'fused_ola_frames_reg_12288_4096': ((40.96e6, 'hamming', 4095), (12288, 4096), 'reg'),
+    'fused_ola_frames_cluster2_12288': ((61.44e6, 'blackman', 4095), (24576, 12288), 'cluster'),
+    'fused_ola_frames_cluster2_8192': ((40.96e6, 'hamming', 8191), (24576, 8192), 'cluster'),
+}
+for _name in NEW_INSTANCES:
+    KERNEL_INFO[_name] = ('iqwaveform_torch/csrc/fused_ola.cu',
+                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:'
+                          + ('571' if _name.startswith('fused_ola_reg') else '492'))
+for _name in SPLIT_STEPS:
+    KERNEL_INFO[_name] = ('iqwaveform_torch/csrc/ola_split.cu',
+                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492')
+del _name
+
+
+def split_design(fs_out: float, window: str, min_fft: int, bw=math.inf, device='cuda'):
+    """a monitor of the 122.88 MS/s grid on ``device``."""
+    import iqwaveform_torch as it
+
+    return it.WidebandMonitor(it.design_wideband_monitor(
+        122.88e6, fs_out, fs_sdr=122.88e6, window=window, min_fft_size=min_fft, bw=bw),
+        device=device)
+
+
+def split_step_frames(mon, n: int, gen, dev):
+    """``n`` samples of noise (whole min_input_multiple()s) and the step's
+    frames (the capture zero-extended by noverlap_in)."""
+    m = mon.min_input_multiple()
+    x = torch.randn(max(1, round(n / m)) * m, dtype=torch.complex64, device=dev, generator=gen)
+    xe = torch.cat([x, x.new_zeros(mon.noverlap_in)])
+    return x, xe.unfold(-1, mon.design.nfft, mon.hop_in)[: x.numel() // mon.hop_in]
+
+
+def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 22; returns the kernels line's rows of the split route and of
+    the new register and cluster instances."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_frames_generic,
+        CLUSTER_PAIRS,
+        H100_SMEM_OPTIN,
+        _fused_ola_generic,
+        _fused_ola_frames_split,
+        frames_route,
+        ola_route,
+        split_plan,
+    )
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames_k = kernels.fused_ola_frames
+    torch.cuda.reset_peak_memory_stats(dev)
+    no_split = {'reg': 0, 'cluster': 0, 'split': 1, 'generic': 0}
+
+    # ---- 22d first (no launch): the routes of the 36 grid designs on the
+    # card; the split pairs of 22a are the grid's
+    table, split_pairs = {}, set()
+    for fo, w, m in SPLIT_GRID:
+        for bw in (math.inf, 0.66 * fo):
+            mon = split_design(fo, w, m, bw)
+            pair = (mon.design.nfft, mon.design.nfft_out)
+            route = mon.routes['ola']
+            table[f'{fo / 1e6:g} {w} {m} {"inf" if bw == math.inf else "0.66"}'] = (
+                f'{pair[0]}->{pair[1]} {route}')
+            require(route in ('reg', 'cluster', 'split'),
+                    f'22d: {w} 122.88 -> {fo / 1e6:g} MS/s min_fft_size={m}: route {route}')
+            if route == 'split':
+                split_pairs.add(pair)
+    print('22d the OLA routes of the 36 grid designs (bw = inf, 0.66 of the output rate): '
+          + json.dumps(table))
+    require(len(split_pairs) == 25, f'22d: {len(split_pairs)} split pairs, not 25')
+    report = _build.ptxas_report()
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if 'Compiling entry' in line and (
+                any(k in line for k in SPLIT_KERNELS)
+                or any(f'ILi{a}ELi{b}E' in line for a, b in ((8192, 4096), (16384, 4096),
+                                                               (12288, 4096), (24576, 12288),
+                                                               (24576, 8192)))):
+            name = line.split("'")[1] if "'" in line else line
+            props = [ln.strip() for ln in lines[i + 1:i + 4] if 'registers' in ln or 'spill' in ln]
+            print(f'22d ptxas {name[:110]}: {"; ".join(props)}')
+    seconds = [ln for ln in lines if ln.startswith('== ')]
+    print('22d nvcc per source (the build ran them in parallel): ' + '; '.join(seconds))
+
+    # ---- 22a: each split pair against the plain chain and complex128
+    pairs = {}
+    for nfft, nfft_out in sorted(split_pairs):
+        kw = cluster_kwargs(nfft, nfft_out, gen, dev)
+        hop = nfft // 3
+        capture = torch.randn(N_SPLIT_FRAMES * hop + nfft, dtype=torch.complex64, device=dev,
+                              generator=gen)
+        frames = capture.unfold(-1, nfft, hop)[:N_SPLIT_FRAMES]
+        reset_counts()
+        got = frames_k(frames, **kw)
+        torch.cuda.synchronize()
+        routes = dict(frames_k.route_launches)
+        require(routes == no_split and frames_k.launches == 1,
+                f'22a {nfft} -> {nfft_out}: kernels {routes}')
+        ref = kernels.fused_ola_frames_plain(frames, **kw)
+        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
+        err, err64, plain64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+        (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
+        entry = {'C1': c1, 'M1': m1, 'C2': c2, 'M2': m2, 'relative_rms': err,
+                 'f64_rel_rms': err64, 'plain_f64_rel_rms': plain64}
+        if (nfft, nfft_out) in SPLIT_TIMED:
+            nbytes = 8 * capture.numel() + 8 * got.numel()
+            nops = N_SPLIT_FRAMES * (fft_ops(nfft) + fft_ops(nfft_out) + 6 * (nfft + nfft_out))
+            entry['ms'] = timed_ms(lambda: frames_k(frames, **kw))
+            entry['library_ms'] = timed_ms(lambda: kernels.fused_ola_frames_plain(frames, **kw))
+            entry['bound_ms'] = max(nbytes / mem_rate, nops / fp32_rate) * 1e3
+        pairs[f'{nfft}->{nfft_out}'] = entry
+        timed = ('' if 'ms' not in entry else
+                 f'; {entry["ms"]:.4f} ms, torch.fft chain {entry["library_ms"]:.4f} ms, bound '
+                 f'{entry["bound_ms"]:.4f} ms ({smi})')
+        print(f'22a split {nfft} -> {nfft_out} ({c1} x {m1} -> {c2} x {m2}), {N_SPLIT_FRAMES} '
+              f'frames: vs plain relative RMS {err:.3g}; vs complex128 {err64:.4g}, the plain '
+              f'chain {plain64:.4g}{timed}')
+        require(err <= 1e-5, f'22a split {nfft} -> {nfft_out}: relative RMS {err:.3g}')
+        require(err64 <= 2 * plain64,
+                f'22a split {nfft} -> {nfft_out}: complex128 error {err64:.4g} > 2 x the plain '
+                f'chain\'s {plain64:.4g}')
+        del capture, frames, got, ref, ref64
+    torch.cuda.empty_cache()
+
+    # ---- 22b: the monitor steps on the split route, against the plain
+    # frames (the torch.fft chain on the card, the route before this one)
+    rows = []
+    for name, (fo, kw, pair) in SPLIT_STEPS.items():
+        mon = split_design(fo, kw['window'], kw['min_fft_size'])
+        require((mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == 'split',
+                f'22b {name}: {mon.design.nfft} -> {mon.design.nfft_out}, routes {mon.routes}')
+        x, _ = split_step_frames(mon, N_SPLIT_STEP, gen, dev)
+        mon.step(x[: mon.min_input_multiple()])  # warm-up: first-use setup
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        routes = dict(frames_k.route_launches)
+        print(f'22b {name} ({x.numel()} samples, {pair[0]} -> {pair[1]}): launches '
+              f'{json.dumps(launched)}; frame routes {json.dumps(routes)}')
+        require(routes == no_split and launched.get('fused_ola_frames') == 1
+                and 'fused_ola' not in launched, f'22b {name}: launches {launched}, {routes}')
+        check_step(out, mon.reference_step(x), f'22b {name} vs reference_step')
+        step_ms = timed_ms(lambda: mon.step(x))
+
+        def plain_step(mon=mon, x=x):
+            return mon._outputs(mon._step_ola(mon._input(x), plain=True), mon._chan, mon._counts)
+
+        plain_step_ms = timed_ms(plain_step)
+        names, device_us = device_kernels(lambda: mon.step(x), *SPLIT_KERNELS, fresh=name)
+        require(all(any(k in n for n in names) for k in SPLIT_KERNELS[1:]),
+                f'22b {name}: profiler shows no split passes kernels: {names}')
+        bad = library_kernels(names) + [n for n in names if GENERIC_KERNEL in n]
+        require(not bad, f'22b {name}: library or generic kernels in the step: {bad}')
+        busy = sum(device_us.values()) / 1e3
+        split_us = {k: v for k, v in device_us.items() if k.split('<')[0] in SPLIT_KERNELS}
+        print(f'22b {name} device time by kernel (us): ' + json.dumps(
+            dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+        print(f'22b {name}: {step_ms:.4f} ms for {x.numel()} samples = '
+              f'{x.numel() / step_ms / 1e3:.1f} MS/s; through the plain frames {plain_step_ms:.4f} '
+              f'ms; device busy {busy:.4f} ms (idle share {max(0.0, 1 - busy / step_ms):.3f}) '
+              f'({smi})')
+        row = cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
+                                smi, kernels_of=SPLIT_KERNELS)
+        row['path'] = (f'WidebandMonitor.step, {kw["window"]} 122.88 -> {fo / 1e6:g} MS/s '
+                       f'min_fft_size={kw["min_fft_size"]}, {pair[0]} -> {pair[1]}')
+        row['plain_frames_path_ms'] = plain_step_ms
+        row['idle_share'] = max(0.0, 1 - busy / step_ms)
+        row['split_device_us'] = split_us
+        if pair == SPLIT_TIMED[0]:
+            row['pairs'] = pairs
+        rows.append(row)
+        del mon, x, out
+        torch.cuda.empty_cache()
+
+    # ---- 22c: the five pairs of the new register and cluster instances,
+    # each against its plain version, the older body and complex128, timed
+    # beside the older body and the torch.fft chain; the monitor step at
+    # each design, whose launches the row carries
+    for name, ((fo, w, m), pair, route) in NEW_INSTANCES.items():
+        mon = split_design(fo, w, m)
+        require((mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == route,
+                f'22c {name}: {mon.design.nfft} -> {mon.design.nfft_out}, routes {mon.routes}')
+        x, frames = split_step_frames(mon, N_SPLIT_STEP, gen, dev)
+        strided = name.startswith('fused_ola_reg')
+        if strided:
+            require(ola_route(*pair) == 'reg', f'22c {name}: ola_route {ola_route(*pair)}')
+            kw = mon.ola_kwargs
+            call = lambda kw=kw, x=x: kernels.fused_ola(x, **kw)  # noqa: E731
+            older = lambda kw=kw, x=x: _fused_ola_generic(x, **kw)  # noqa: E731
+            plain = lambda kw=kw, x=x: kernels.fused_ola_plain(x, **kw)  # noqa: E731
+            wrapper, inp = kernels.fused_ola, x[: N_F64_FRAMES * mon.hop_in]
+            plain_fn, older_fn = kernels.fused_ola_plain, _fused_ola_generic
+        else:
+            require(frames_route(*pair) == route, f'22c {name}: frames_route {frames_route(*pair)}')
+            kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+            call = lambda kw=kw, f=frames: kernels.fused_ola_frames(f, **kw)  # noqa: E731
+            older = lambda kw=kw, f=frames: _fused_ola_frames_generic(f, **kw)  # noqa: E731
+            plain = lambda kw=kw, f=frames: kernels.fused_ola_frames_plain(f, **kw)  # noqa: E731
+            wrapper, inp = frames_k, frames[:N_F64_FRAMES]
+            plain_fn, older_fn = kernels.fused_ola_frames_plain, _fused_ola_frames_generic
+        reset_counts()
+        got = call()
+        torch.cuda.synchronize()
+        got_routes = dict(wrapper.route_launches)
+        require(wrapper.launches == 1 and got_routes[route] == 1 and got_routes['generic'] == 0,
+                f'22c {name}: {wrapper.__name__} routes {got_routes}')
+        ref, old = plain(), older()
+        err, err_old = rel_rms(got, ref), rel_rms(got, old)
+        err64, old64 = f64_errors(inp, kw, wrapper, older_fn, plain_fn)
+        print(f'22c {name}: {wrapper.__name__} {route} vs plain relative RMS {err:.3g}, vs the '
+              f'older body {err_old:.3g}; first {N_F64_FRAMES} frames vs complex128 {err64:.4g}, '
+              f'the older body {old64:.4g}')
+        require(err <= 1e-5 and err_old <= 1e-5,
+                f'22c {name}: relative RMS {err:.3g}, {err_old:.3g}')
+        require(err64 <= 2 * old64,
+                f'22c {name}: complex128 error {err64:.4g} > 2 x the older body\'s {old64:.4g}')
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        require(wrapper.launches == 1 and wrapper.route_launches[route] == 1
+                and wrapper.route_launches['generic'] == 0,
+                f'22c {name} step: launches {launched}, {dict(wrapper.route_launches)}')
+        check_step(out, mon.reference_step(x), f'22c {name} step vs reference_step')
+        d = mon.design
+        n_fr = frames.shape[0]
+        row = kernel_row(
+            name, {'launches': launched.get(wrapper.__name__, 0), 'max_abs_err': max_abs(got, ref)},
+            8 * x.numel() + 8 * got.numel(),
+            n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)),
+            call, plain, plain, mem_rate, fp32_rate,
+        )
+        row['generic_ms'] = timed_ms(older)
+        row['f64_rel_rms'] = err64
+        row['generic_f64_rel_rms'] = old64
+        row['pair'] = f'{pair[0]}->{pair[1]}'
+        row['path'] = f'WidebandMonitor.step, {w} 122.88 -> {fo / 1e6:g} MS/s min_fft_size={m}'
+        row['path_ms'] = timed_ms(lambda mon=mon, x=x: mon.step(x))
+        print(f'22c {name} step: launches {json.dumps(launched)}, within the step gates of '
+              f'reference_step; {row["path_ms"]:.4f} ms for {x.numel()} samples ({smi})')
+        print(f'22c {name} ({pair[0]} -> {pair[1]}): {row["ms"]:.4f} ms, the older body '
+              f'{row["generic_ms"]:.4f} ms, torch.fft chain {row["library_ms"]:.4f} ms, bound '
+              f'{row["bound_ms"]:.4f} ms by {row["bound_by"]} ({smi})')
+        rows.append(row)
+        del mon, x, frames, got, ref, old, out
+        torch.cuda.empty_cache()
+
+    # ---- 22e: the split route beside the cluster kernel at the cluster
+    # pairs above one block, on the same frames (N_SPLIT_STEP samples at hop
+    # nfft / 3): whether the cluster instances earn their build time
+    versus = {}
+    for nfft, nfft_out in sorted(p for p in CLUSTER_PAIRS if 8 * max(p) > H100_SMEM_OPTIN):
+        kw = cluster_kwargs(nfft, nfft_out, gen, dev)
+        hop = nfft // 3
+        capture = torch.randn(N_SPLIT_STEP + nfft, dtype=torch.complex64, device=dev,
+                              generator=gen)
+        frames = capture.unfold(-1, nfft, hop)[: N_SPLIT_STEP // hop]
+        require(frames_route(nfft, nfft_out) == 'cluster',
+                f'22e {nfft} -> {nfft_out}: frames_route {frames_route(nfft, nfft_out)}')
+        got = _fused_ola_frames_split(frames, **kw)
+        ref = kernels.fused_ola_frames_plain(frames, **kw)
+        err = rel_rms(got, ref)
+        require(err <= 1e-5, f'22e split {nfft} -> {nfft_out}: relative RMS {err:.3g}')
+        split_ms = timed_ms(lambda f=frames, kw=kw: _fused_ola_frames_split(f, **kw))
+        cluster_ms = timed_ms(lambda f=frames, kw=kw: frames_k(f, **kw))
+        (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
+        versus[f'{nfft}->{nfft_out}'] = {
+            'frames': frames.shape[0], 'split_ms': split_ms, 'cluster_ms': cluster_ms,
+            'relative_rms': err}
+        print(f'22e {nfft} -> {nfft_out}, {frames.shape[0]} frames: split ({c1} x {m1} -> {c2} x '
+              f'{m2}) {split_ms:.4f} ms, cluster kernel {cluster_ms:.4f} ms '
+              f'({split_ms / cluster_ms:.3f}x); split vs plain relative RMS {err:.3g} ({smi})')
+        del capture, frames, got, ref
+        torch.cuda.empty_cache()
+    rows[0]['split_vs_cluster'] = versus
+    print(f'phase 22 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
+
+
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
 
@@ -4469,7 +4823,7 @@ def main(parent: str | None = None) -> int:
     for line in _build.ptxas_report().splitlines():
         if ('registers' in line or 'spill' in line or line.startswith('==')
                 or ('Compiling entry' in line and ('reg_kernel' in line or 'cluster_kernel' in line
-                                                   or CORR_KERNEL in line))):
+                                                   or CORR_KERNEL in line or 'split_' in line))):
             print(f'ptxas: {line.strip()}')
     require_no_spill(_build.ptxas_report())
 
@@ -4707,6 +5061,11 @@ def main(parent: str | None = None) -> int:
             row['sharded'] = sharded[row['name']]
     missing = set(sharded) - {row['name'] for row in rows}
     require(not missing, f'phase 21 launched kernels with no row on the kernels line: {missing}')
+
+    # ---- phase 22: the split frame route of rows 2-3 (frames above one
+    # block that no cluster pair takes) and the register / cluster instances
+    # of the grid's five remaining pairs
+    rows = merge_rows(rows, split_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

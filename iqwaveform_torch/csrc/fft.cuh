@@ -162,9 +162,9 @@ __device__ __forceinline__ void dft_pfa(float2* v, bool inverse) {
   }
 }
 
-// the radix-6, -10 and -15 steps of a cluster of 6 or 10 blocks
-// (csrc/fused_ola.cu) and the last pass of 15360 = 16.16.4.15
-// (csrc/fft_reg.cuh)
+// the radix-6, -10 and -15 steps: a cluster of 6 blocks
+// (csrc/fused_ola.cu), the last pass of 10240 = 16.16.4.10 and 15360 =
+// 16.16.4.15 (csrc/fft_reg.cuh)
 template <>
 __device__ __forceinline__ void dft_small<6>(float2* v, bool inverse) {
   dft_pfa<2, 3>(v, inverse);

@@ -305,6 +305,40 @@ __device__ __forceinline__ void fft(float2* buf, const float2* tw, First first, 
   pass<N, Plan<N>::stages - 1, INV, T, true>(tw, [buf](int i) { return buf[pad(i)]; }, last);
 }
 
+// the thread's index, read through asm the compiler may not hoist or merge
+// with an earlier read: index math of one transform then holds no
+// register across the passes of another
+__device__ __forceinline__ int fresh_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+template <int N, int S, bool INV, int T>
+__device__ __forceinline__ void fresh_middle_passes(float2* buf, const float2* tw) {
+  if constexpr (S < Plan<N>::stages - 1) {
+    pass_lane<N, S, INV, T, true>(
+        fresh_tid(), tw, [buf](int, int i) { return buf[pad(i)]; },
+        [buf](int, int i, float2 v) { buf[pad(i)] = v; }, [] { __syncthreads(); });
+    __syncthreads();
+    fresh_middle_passes<N, S + 1, INV, T>(buf, tw);
+  }
+}
+
+// fft above with the lane of every pass read anew (fresh_tid)
+template <int N, bool INV, int T, bool SYNC_FIRST, class First, class Last>
+__device__ __forceinline__ void fft_fresh(float2* buf, const float2* tw, First first, Last last) {
+  static_assert(Plan<N>::stages >= 2, "a plan of at least two passes");
+  pass_lane<N, 0, INV, T, SYNC_FIRST>(
+      fresh_tid(), tw, [&first](int, int i) { return first(i); },
+      [buf](int, int i, float2 v) { buf[pad(i)] = v; }, [] { __syncthreads(); });
+  __syncthreads();
+  fresh_middle_passes<N, 1, INV, T>(buf, tw);
+  pass_lane<N, Plan<N>::stages - 1, INV, T, true>(
+      fresh_tid(), tw, [buf](int, int i) { return buf[pad(i)]; },
+      [&last](int, int i, float2 v) { last(i, v); }, [] { __syncthreads(); });
+}
+
 // The detector-binned power of one frame from pass 0 of a plan whose
 // first radix is 16, run by T lanes: pw[r] = |x|^2 of sample lane + T r
 // (r < 16). The NAVG samples of one detector bin sit in NAVG adjacent

@@ -262,15 +262,16 @@ cudaError_t launch_frames(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// ---- the frame-batch entry at its two main-path sizes -------------------
+// ---- the frame-batch entry at its main-path sizes ------------------------
 //
 // Replaces the same TPU kernels as fused_ola_frames_kernel above
 // (fused_ola_pallas.py fused_ola_pallas and fused_ola_packed), with the
-// same contract, at the two size pairs its paths run: 16384 -> 8192
-// (ola_filter / oaresample at BASELINE config #2) and 12288 -> 6144 (the
-// monitor's blackman design, R = 3). Every other size keeps the generic
-// kernel; the host route (ops/kernels/fused_ola.py frames_route) picks by
-// size before the launch.
+// same contract, at the size pairs its paths run: 16384 -> 8192
+// (ola_filter / oaresample at BASELINE config #2), 12288 -> 6144 (the
+// monitor's blackman design, R = 3) and 12288 -> 4096 (hamming at 122.88 ->
+// 40.96 MS/s, min_fft_size=4095). Every other one-block size keeps the
+// generic kernel; the host route (ops/kernels/fused_ola.py frames_route)
+// picks by size before the launch.
 //
 // Bound on an H100 (device memory: each input sample read once, each
 // output written once, 8 B each): 1.6 GB, 0.4776 ms at 3.35 TB/s for
@@ -315,6 +316,19 @@ struct RegShape {
       static_cast<size_t>(iqt::reg::padded_size(N1) + tw_count) * sizeof(float2);
 };
 
+// the pairs whose inverse reads the lane anew at each pass (reg::fft_fresh):
+// at 16384 -> 4096 (a 4096-point inverse, half of the 512 threads idle)
+// the compiler kept two values of the forward's index math live into the
+// inverse and spilled them (16-20 bytes a thread in the 2:1 kernel)
+template <int N1, int N2>
+struct FreshInverse {
+  static constexpr bool value = false;
+};
+template <>
+struct FreshInverse<16384, 4096> {
+  static constexpr bool value = true;
+};
+
 // The per-frame chain of the register-resident kernels, by a block of T
 // threads: copy the RegShape tables (`tw`, built on the host from float64:
 // ops/kernels/fused_ola.py reg_twiddles) into shared memory after the
@@ -351,19 +365,22 @@ __device__ __forceinline__ void reg_frame_chain(float2* smem, const float2* __re
                                 [buf](int i, float2 v) { buf[R::pad(i)] = v; });
   }
   __syncthreads();
-  R::fft<N2, true, T, true>(
-      buf, tw_inv,
-      [=](int j) {
-        float2 v = make_float2(0.f, 0.f);
-        if (j >= out_lo && j < out_hi) {
-          const int k = in_lo + (j - out_lo);
-          if (k >= zero_lo && k < zero_hi) v = buf[R::pad(k)];
-        }
-        return v;
-      },
-      [=](int n, float2 v) {
-        store(n, iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&w_out[n])));
-      });
+  const auto trim = [=](int j) {
+    float2 v = make_float2(0.f, 0.f);
+    if (j >= out_lo && j < out_hi) {
+      const int k = in_lo + (j - out_lo);
+      if (k >= zero_lo && k < zero_hi) v = buf[R::pad(k)];
+    }
+    return v;
+  };
+  const auto out = [=](int n, float2 v) {
+    store(n, iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&w_out[n])));
+  };
+  if constexpr (FreshInverse<N1, N2>::value) {
+    R::fft_fresh<N2, true, T, true>(buf, tw_inv, trim, out);
+  } else {
+    R::fft<N2, true, T, true>(buf, tw_inv, trim, out);
+  }
 }
 
 // One block per frame (blockIdx.x = m, blockIdx.y = batch row b), frames
@@ -404,16 +421,18 @@ cudaError_t launch_frames_reg(dim3 grid, cudaStream_t stream, const float2* x,
 // Replaces the same TPU kernels as fused_ola_frames_kernel above
 // (fused_ola_pallas.py fused_ola_packed and fused_ola_pallas), with the
 // same contract, at frames no block can hold: 8 bytes a point, 49152 ->
-// 24576 is 384 KiB, above an H100 block's 227 KiB. These are the monitor's
+// 24576 is 384 KiB, above an H100 block's 227 KiB (and, below it, the
+// blackman and hamming frames 24576 -> 12288 and 24576 -> 8192 on two
+// blocks, in place of the generic kernel). These are the monitor's
 // frames at the blackman and blackmanharris designs of the flagship rates
-// (R = 3 and 5, the grouped overlap-add in torch), of 122.88 -> 30.72 MS/s
-// (98304 -> 24576 on C = 6 and 163840 -> 40960 on C = 10) and ola_filter's
-// at such windows; the host route (ops/kernels/fused_ola.py frames_route)
-// picks this kernel at the pairs it is compiled for (CLUSTER_PAIRS). The
-// radix-6 and -10 steps are the prime-factor DFTs of csrc/fft.cuh; C = 10
-// is above the portable cluster size of 8, so that instance opts in to a
-// non-portable one (allow_cluster_size) before any occupancy query or
-// launch.
+// (R = 3 and 5, the grouped overlap-add in torch), the blackman design of
+// 122.88 -> 30.72 MS/s (98304 -> 24576 on C = 6) and ola_filter's at such
+// windows; the host route (ops/kernels/fused_ola.py frames_route) picks
+// this kernel at the pairs it is compiled for (CLUSTER_PAIRS). The radix-6
+// step is the prime-factor DFT of csrc/fft.cuh. Every instance stays
+// within the portable cluster size of 8 (163840 -> 40960 on 10 blocks lost
+// to the split route, csrc/ola_split.cu, and 36864 -> 12288 on 3 and 40960
+// -> 20480 on 5 tied with it: none of them is compiled).
 //
 // One frame runs on a thread-block cluster of C blocks (launched with
 // cudaLaunchKernelEx and a cluster dimension of C; blockIdx.x = C m +
@@ -458,6 +477,7 @@ template <int N1, int N2, int C>
 struct ClusterShape {
   static constexpr int m1 = N1 / C, m2 = N2 / C;
   static_assert(m1 * C == N1 && m2 * C == N2, "C divides both sizes");
+  static_assert(C >= 2 && C <= 8, "a portable cluster size");
   static constexpr int m_max = m1 > m2 ? m1 : m2;
   // the host table (fused_ola.py _cluster_tables): both transforms' pass
   // tables, then the cross twiddles of the forward (C x M1) and inverse
@@ -599,34 +619,32 @@ cudaError_t cluster_occupancy(int* out) {
 
 constexpr int kClusterThreads = 512;
 
-// a cluster above the portable 8 blocks (C = 10) is refused at the launch
-// and by cudaOccupancyMaxActiveClusters unless the kernel opts in
-template <int C, typename Kernel>
-cudaError_t allow_cluster_size(Kernel kernel) {
-  if (C <= 8) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-}
+// the compiled one-block frame pairs (ops/kernels/fused_ola.py
+// REG_PAIRS): F(N1, N2)
+#define IQT_FRAMES_REG_PAIRS(F) \
+  F(16384, 8192)                \
+  F(12288, 6144)                \
+  F(12288, 4096)
 
 // the compiled pairs (ops/kernels/fused_ola.py CLUSTER_PAIRS): F(N1, N2, C)
 #define IQT_CLUSTER_PAIRS(F) \
   F(49152, 24576, 3)         \
   F(81920, 40960, 5)         \
-  F(40960, 20480, 5)         \
   F(40960, 40960, 5)         \
   F(32768, 8192, 2)          \
   F(32768, 16384, 2)         \
-  F(36864, 12288, 3)         \
   F(98304, 24576, 6)         \
-  F(163840, 40960, 10)
+  F(24576, 12288, 2)         \
+  F(24576, 8192, 2)
 
-// ---- the 2:1 entry at the flagship pair ----------------------------------
+// ---- the 2:1 entry at the hamming pairs ----------------------------------
 //
 // Replaces the same TPU kernel as fused_ola_kernel above
 // (fused_ola_pallas.py fused_ola_strided), with the same contract, at the
-// size pair the flagship monitor step runs: 16384 -> 8192 at 2:1 (the
-// hamming COLA design). Every other pair keeps fused_ola_kernel; the host
-// route (ops/kernels/fused_ola.py ola_route) picks by size before the
-// launch.
+// size pairs of IQT_OLA_REG_PAIRS below: the flagship monitor step's
+// 16384 -> 8192 at 2:1 (the hamming COLA design), 8192 -> 4096 and 16384
+// -> 4096. Every other pair keeps fused_ola_kernel; the host route
+// (ops/kernels/fused_ola.py ola_route) picks by size before the launch.
 //
 // Per frame m of batch row b (block m, blockIdx.y = b): the chain of
 // fused_ola_frames_reg_kernel (reg_frame_chain above) on the frame at
@@ -814,22 +832,6 @@ fused_ola_reg_kernel(const E* __restrict__ x, const E* __restrict__ halo, int n_
   }
 }
 
-// every frame of the rows in one grid; with a halo or a tail, each row's
-// last frame takes the EDGE path
-template <class E>
-cudaError_t launch_reg(int n_frames, int batch, cudaStream_t stream, const void* x,
-                       const void* halo, int n_halo, const float2* w_in, const float2* w_out,
-                       const float2* tw, float* y, float2* tail, int n_in, int n_out,
-                       int hop_in, int hop_out, int zero_lo, int zero_hi, int in_lo, int out_lo,
-                       int out_hi) {
-  const int edge = halo != nullptr || tail != nullptr;
-  fused_ola_reg_kernel<16384, 8192, 512, E>
-      <<<dim3(n_frames, batch), 512, RegShape<16384, 8192>::smem, stream>>>(
-          static_cast<const E*>(x), static_cast<const E*>(halo), n_halo, w_in, w_out, tw, y,
-          tail, n_in, n_out, hop_in, hop_out, edge, zero_lo, zero_hi, in_lo, out_lo, out_hi);
-  return cudaGetLastError();
-}
-
 // the 2:1 kernels' input layouts, by the code the host passes
 // (ops/kernels/fused_ola.py LAYOUTS): F(code, element type)
 #define IQT_LAYOUTS(F) \
@@ -837,6 +839,51 @@ cudaError_t launch_reg(int n_frames, int batch, cudaStream_t stream, const void*
   F(1, float)          \
   F(2, short)          \
   F(3, __nv_bfloat16)
+
+// every frame of the rows in one grid, in `layout`'s element type (any
+// other layout: cudaErrorInvalidValue); with a halo or a tail, each row's
+// last frame takes the EDGE path
+template <int N1, int N2>
+cudaError_t launch_reg(int layout, int n_frames, int batch, cudaStream_t stream, const void* x,
+                       const void* halo, int n_halo, const float2* w_in, const float2* w_out,
+                       const float2* tw, float* y, float2* tail, int n_in, int n_out,
+                       int hop_in, int hop_out, int zero_lo, int zero_hi, int in_lo, int out_lo,
+                       int out_hi) {
+  const int edge = halo != nullptr || tail != nullptr;
+#define IQT_REG(CODE, E)                                                                        \
+  if (layout == CODE) {                                                                         \
+    fused_ola_reg_kernel<N1, N2, 512, E><<<dim3(n_frames, batch), 512, RegShape<N1, N2>::smem,  \
+                                           stream>>>(                                           \
+        static_cast<const E*>(x), static_cast<const E*>(halo), n_halo, w_in, w_out, tw, y, tail, \
+        n_in, n_out, hop_in, hop_out, edge, zero_lo, zero_hi, in_lo, out_lo, out_hi);          \
+    return cudaGetLastError();                                                                  \
+  }
+  IQT_LAYOUTS(IQT_REG)
+#undef IQT_REG
+  return cudaErrorInvalidValue;
+}
+
+// allow the pair's 2:1 kernel of every layout its shared memory
+template <int N1, int N2>
+cudaError_t allow_reg() {
+  cudaError_t err;
+#define IQT_ALLOW_LAYOUT(CODE, E)                                                              \
+  if ((err = iqt::allow_smem(fused_ola_reg_kernel<N1, N2, 512, E>, RegShape<N1, N2>::smem))) \
+    return err;
+  IQT_LAYOUTS(IQT_ALLOW_LAYOUT)
+#undef IQT_ALLOW_LAYOUT
+  return cudaSuccess;
+}
+
+// the compiled 2:1 pairs (ops/kernels/fused_ola.py OLA_REG_PAIRS): the
+// flagship design's 16384 -> 8192, and hamming at 122.88 -> 61.44 MS/s and
+// 122.88 -> 30.72 MS/s with min_fft_size=4095: 8192 -> 4096, 16384 ->
+// 4096 (the 4096-point inverse leaves half of the 512 threads idle in each
+// pass: 256 radix-16 butterflies)
+#define IQT_OLA_REG_PAIRS(F) \
+  F(16384, 8192)             \
+  F(8192, 4096)              \
+  F(16384, 4096)
 
 }  // namespace
 
@@ -848,17 +895,14 @@ extern "C" int iqt_fused_ola_frames_prepare(int max_smem) {
   if ((err = iqt::allow_smem(fused_ola_frames_kernel<8>, max_smem))) return err;
   if ((err = iqt::allow_smem(fused_ola_frames_kernel<16>, max_smem))) return err;
   if ((err = iqt::allow_smem(fused_ola_frames_kernel<32>, max_smem))) return err;
-  if ((err = iqt::allow_smem(fused_ola_frames_reg_kernel<16384, 8192, 512>,
-                             RegShape<16384, 8192>::smem)))
+#define IQT_ALLOW_FRAMES_REG(N1, N2)                                                          \
+  if ((err = iqt::allow_smem(fused_ola_frames_reg_kernel<N1, N2, 512>, RegShape<N1, N2>::smem))) \
     return err;
-  if ((err = iqt::allow_smem(fused_ola_frames_reg_kernel<12288, 6144, 512>,
-                             RegShape<12288, 6144>::smem)))
-    return err;
+  IQT_FRAMES_REG_PAIRS(IQT_ALLOW_FRAMES_REG)
+#undef IQT_ALLOW_FRAMES_REG
 #define IQT_ALLOW(N1, N2, C)                                                              \
   if ((err = iqt::allow_smem(fused_ola_frames_cluster_kernel<N1, N2, C, kClusterThreads>, \
                              ClusterShape<N1, N2, C>::smem)))                             \
-    return err;                                                                           \
-  if ((err = allow_cluster_size<C>(fused_ola_frames_cluster_kernel<N1, N2, C, kClusterThreads>))) \
     return err;
   IQT_CLUSTER_PAIRS(IQT_ALLOW)
 #undef IQT_ALLOW
@@ -897,30 +941,24 @@ extern "C" int iqt_fused_ola_frames_cluster_occupancy(int nfft, int nfft_out, in
   return cudaErrorInvalidValue;
 }
 
-// the frame-batch chain at (nfft, nfft_out) = (16384, 8192) or (12288,
-// 6144), by fused_ola_frames_reg_kernel: frames and y as for
-// iqt_fused_ola_frames; tw: the n_tw twiddle-table entries of the pair.
-// Any other pair, or another table length: cudaErrorInvalidValue.
+// the frame-batch chain at a pair of IQT_FRAMES_REG_PAIRS, by
+// fused_ola_frames_reg_kernel: frames and y as for iqt_fused_ola_frames;
+// tw: the n_tw twiddle-table entries of the pair. Any other pair, or
+// another table length: cudaErrorInvalidValue.
 extern "C" int iqt_fused_ola_frames_reg(
     const void* x, long long batch_stride, long long frame_stride,
     const void* w_in, const void* w_out, const void* tw, void* y, int n_tw,
     int batch, int n_frames, int nfft, int nfft_out, int zero_lo, int zero_hi,
     int in_lo, int out_lo, int out_hi, void* stream) {
-  const dim3 grid(n_frames, batch);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float2*>(x);
-  auto wi = static_cast<const float2*>(w_in);
-  auto wo = static_cast<const float2*>(w_out);
-  auto tp = static_cast<const float2*>(tw);
-  auto yp = static_cast<float2*>(y);
-  if (nfft == 16384 && nfft_out == 8192)
-    return launch_frames_reg<16384, 8192, 512>(grid, s, xp, batch_stride, frame_stride, wi, wo,
-                                               tp, n_tw, yp, n_frames, zero_lo, zero_hi, in_lo,
-                                               out_lo, out_hi);
-  if (nfft == 12288 && nfft_out == 6144)
-    return launch_frames_reg<12288, 6144, 512>(grid, s, xp, batch_stride, frame_stride, wi, wo,
-                                               tp, n_tw, yp, n_frames, zero_lo, zero_hi, in_lo,
-                                               out_lo, out_hi);
+#define IQT_LAUNCH_FRAMES_REG(N1, N2)                                                          \
+  if (nfft == N1 && nfft_out == N2)                                                            \
+    return launch_frames_reg<N1, N2, 512>(                                                     \
+        dim3(n_frames, batch), static_cast<cudaStream_t>(stream), static_cast<const float2*>(x), \
+        batch_stride, frame_stride, static_cast<const float2*>(w_in),                          \
+        static_cast<const float2*>(w_out), static_cast<const float2*>(tw), n_tw,               \
+        static_cast<float2*>(y), n_frames, zero_lo, zero_hi, in_lo, out_lo, out_hi);
+  IQT_FRAMES_REG_PAIRS(IQT_LAUNCH_FRAMES_REG)
+#undef IQT_LAUNCH_FRAMES_REG
   return cudaErrorInvalidValue;
 }
 
@@ -974,36 +1012,37 @@ extern "C" int iqt_fused_ola_prepare(int max_smem) {
   if ((err = iqt::allow_smem(fused_ola_kernel<2, E>, max_smem))) return err;                 \
   if ((err = iqt::allow_smem(fused_ola_kernel<4, E>, max_smem))) return err;                 \
   if ((err = iqt::allow_smem(fused_ola_kernel<8, E>, max_smem))) return err;                 \
-  if ((err = iqt::allow_smem(fused_ola_kernel<16, E>, max_smem))) return err;                \
-  if ((err = iqt::allow_smem(fused_ola_reg_kernel<16384, 8192, 512, E>,                      \
-                             RegShape<16384, 8192>::smem)))                                   \
-    return err;
+  if ((err = iqt::allow_smem(fused_ola_kernel<16, E>, max_smem))) return err;
   IQT_LAYOUTS(IQT_ALLOW)
 #undef IQT_ALLOW
+#define IQT_ALLOW_REG(N1, N2) \
+  if ((err = allow_reg<N1, N2>())) return err;
+  IQT_OLA_REG_PAIRS(IQT_ALLOW_REG)
+#undef IQT_ALLOW_REG
   return cudaSuccess;
 }
 
-// the 2:1 chain at (nfft, nfft_out) = (16384, 8192), by
-// fused_ola_reg_kernel: arguments as for iqt_fused_ola; tw: the n_tw
-// twiddle-table entries of the pair (those of iqt_fused_ola_frames_reg).
-// Any other pair, layout or table length: cudaErrorInvalidValue.
+// the 2:1 chain at a pair of IQT_OLA_REG_PAIRS, by fused_ola_reg_kernel:
+// arguments as for iqt_fused_ola; tw: the n_tw twiddle-table entries of
+// the pair (those of iqt_fused_ola_frames_reg's layout). Any other pair,
+// layout or table length: cudaErrorInvalidValue.
 extern "C" int iqt_fused_ola_reg(const void* x, int layout, const void* halo, int n_halo,
                                  const void* w_in, const void* w_out, const void* tw, void* y,
                                  void* tail, int n_tw, int batch, int n_in, int n_frames,
                                  int n_out, int nfft, int nfft_out, int hop_in, int hop_out,
                                  int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi,
                                  void* stream) {
-  if (nfft != 16384 || nfft_out != 8192 || n_tw != RegShape<16384, 8192>::tw_count)
-    return cudaErrorInvalidValue;
-#define IQT_REG(CODE, E)                                                                     \
-  if (layout == CODE)                                                                        \
-    return launch_reg<E>(n_frames, batch, static_cast<cudaStream_t>(stream), x, halo, n_halo, \
-                         static_cast<const float2*>(w_in), static_cast<const float2*>(w_out),  \
-                         static_cast<const float2*>(tw), static_cast<float*>(y),               \
-                         static_cast<float2*>(tail), n_in, n_out, hop_in, hop_out, zero_lo,    \
-                         zero_hi, in_lo, out_lo, out_hi);
-  IQT_LAYOUTS(IQT_REG)
-#undef IQT_REG
+#define IQT_REG_PAIR(N1, N2)                                                                     \
+  if (nfft == N1 && nfft_out == N2) {                                                            \
+    if (n_tw != RegShape<N1, N2>::tw_count) return cudaErrorInvalidValue;                        \
+    return launch_reg<N1, N2>(layout, n_frames, batch, static_cast<cudaStream_t>(stream), x,     \
+                              halo, n_halo, static_cast<const float2*>(w_in),                    \
+                              static_cast<const float2*>(w_out), static_cast<const float2*>(tw), \
+                              static_cast<float*>(y), static_cast<float2*>(tail), n_in, n_out,   \
+                              hop_in, hop_out, zero_lo, zero_hi, in_lo, out_lo, out_hi);         \
+  }
+  IQT_OLA_REG_PAIRS(IQT_REG_PAIR)
+#undef IQT_REG_PAIR
   return cudaErrorInvalidValue;
 }
 

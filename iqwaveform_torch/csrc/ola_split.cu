@@ -1,0 +1,389 @@
+// The frame-batch OLA chain on frames above one block's shared memory that
+// no thread-block cluster pair takes, split into parts that pass through
+// device memory.
+//
+// Replaces: iqwaveform_tpu/ops/pallas/fused_ola_pallas.py fused_ola_packed
+//   and fused_ola_pallas, the per-frame chain (times w_in, forward DFT of
+//   N1 points, the [zero_lo, zero_hi) mask, the trim of bins [in_lo, ...)
+//   to [out_lo, out_hi) of an N2-bin spectrum, inverse DFT, times w_out /
+//   N2), with the contract of ops/kernels/fused_ola.py fused_ola_frames.
+//   The host route (frames_route 'split') takes every pair whose larger
+//   frame no block holds and that CLUSTER_PAIRS does not list, where both
+//   sizes are C M, M a size of csrc/fft_reg.cuh's plans (1024-16384) and
+//   C <= 64 of the factors 2, 3 and 5 (the forward and inverse may differ:
+//   N1 = C1 M1, N2 = C2 M2).
+//
+// The algorithm is the cluster kernel's (csrc/fft_cluster.cuh), with
+// device memory in place of distributed shared memory as the exchange
+// between parts, and one launch per step:
+//   1. split_radix_kernel<false>, the forward radix-C1 step: a block takes
+//      TN consecutive offsets n < M1 of one frame (TN a power of two from
+//      32 to 512, C1 TN <= 2048: tile_log2); it reads samples c M1 + n (c <
+//      C1) times w_in (TN consecutive samples a part: coalesced), takes
+//      their C1-point DFT in shared memory (Stockham passes of radix 4, 2,
+//      3 and 5 over the TN columns), and stores output r times
+//      exp(-2 pi i n r / N1) at offset n of part r of the scratch `a`
+//      (batch, frames, C1, M1);
+//   2. split_fwd_passes_kernel<M1>, one block per (frame, part r): the
+//      register-resident M1-point passes of fft_reg.cuh on part r, whose
+//      last pass holds forward bins K = C1 k + r; it stores each bin that
+//      survives the mask and the trim (K in [lo, hi), lo = max(zero_lo,
+//      in_lo), hi = min(zero_hi, in_lo + out_hi - out_lo)) as inverse bin
+//      j = K + out_lo - in_lo, at offset j / C2 of inverse part j mod C2 of
+//      y, taken as scratch (batch, frames, C2, M2). Nothing else is stored:
+//      the inverse never reads the other bins.
+//   3. split_inv_passes_kernel<M2>, one block per (frame, part p): its
+//      pass 0 reads bin j = C2 i + p of part p where step 2 stored it, zero
+//      elsewhere; the M2-point inverse passes; the last pass stores each
+//      point n times `post`[n] and `scale` back over the part it read
+//      (each block reads its whole part in pass 0, before the barriers of
+//      the passes that precede its stores): for C2 = 1 that is y itself,
+//      post = w_out and scale = 1 / N2; else post = exp(+2 pi i p n / N2).
+//   4. split_radix_kernel<true>, the inverse radix-C2 step (C2 > 1 only):
+//      a block takes TN offsets n < M2 of one frame, reads point n of every
+//      part, takes the C2-point inverse DFT, and writes output s times
+//      w_out[s M2 + n] / N2 at sample s M2 + n of y: the very addresses it
+//      read, so y is transformed in place.
+// Plain stores only, each address written by one block: the result does not
+// depend on the order in which blocks run. Scratch: `a`, batch * frames *
+// N1 complex64 from the caller (the wrapper's torch.empty), y itself for
+// the inverse side.
+//
+// Tables (ops/kernels/fused_ola.py _split_tables), built on the host in
+// float64 and rounded once to float32: each passes kernel's pass tables
+// (copied into its shared memory, as fused_ola_frames_reg_kernel does),
+// the cross twiddles of each side (C x M, read from device memory where
+// consecutive threads read consecutive entries) and exp(-+2 pi i j / C),
+// j < C, of each radix step, with its sign.
+//
+// Bound on an H100 (device memory: each input sample read once, each
+// output written once, 8 B each). This simple version moves the frame
+// through device memory three times more: the forward radix step writes
+// `a` (N1 points) and the passes read it; the inverse side writes and
+// reads y in place once per step. The radix steps run any C (its plan is a
+// launch argument) in one instance per direction; the passes kernels are
+// one instance per size of REG_PLANS and direction (no 15360-point inverse). Not done here: the
+// radix steps folded into the neighbouring passes (the cluster kernel's
+// gather), and the scratch kept in L2.
+#include "fft.cuh"
+#include "fft_reg.cuh"
+
+namespace {
+
+namespace R = iqt::reg;
+
+// a radix step's block: TN = 2^lt offsets (columns) of one frame, all C
+// parts, at most kPoints points
+constexpr int kRadixThreads = 256;
+constexpr int kMaxC = 64;
+constexpr int kPoints = 2048;
+
+// log2 of a radix step's tile width at C parts: the widest power of two
+// from 32 to 512 columns with C TN <= kPoints (32 at C = 64)
+int tile_log2(int c) {
+  int lt = 9;
+  while (lt > 5 && (c << lt) > kPoints) --lt;
+  return lt;
+}
+
+// one Stockham pass of radix RADIX over the C-point columns of `src`
+// (element c of column t at c TN + t): butterfly b < C / RADIX, k = b mod
+// ns, reads points b + r C / RADIX, multiplies point r by
+// exp(-+2 pi i r k / (ns RADIX)) = tab[r k C / (ns RADIX)], takes the
+// RADIX-point DFT and writes point r to (b - k) RADIX + k + r ns of `dst`.
+// A warp takes 32 columns of one butterfly: conflict-free.
+template <int RADIX, bool INV>
+__device__ __forceinline__ void radix_pass(const float2* src, float2* dst, const float2* tab,
+                                           int c, int ns, int lt) {
+  const int nb = c / RADIX;
+  const int step = c / (ns * RADIX);
+  const int tn = 1 << lt;
+  for (int e = threadIdx.x; e < nb << lt; e += kRadixThreads) {
+    const int t = e & (tn - 1);
+    const int b = e >> lt;
+    const int k = b % ns;
+    float2 v[RADIX];
+#pragma unroll
+    for (int r = 0; r < RADIX; ++r) v[r] = src[((b + r * nb) << lt) + t];
+#pragma unroll
+    for (int r = 1; r < RADIX; ++r) v[r] = iqt::cmul(v[r], tab[r * k * step]);
+    iqt::dft_small<RADIX>(v, INV);
+    const int base = (b - k) * RADIX + k;
+#pragma unroll
+    for (int r = 0; r < RADIX; ++r) dst[((base + r * ns) << lt) + t] = v[r];
+  }
+}
+
+// A radix-C step on TN = 2^lt offsets of one frame (blockIdx.x = frame *
+// (m / TN) + tile, blockIdx.y = batch row): point (c, n) of the frame lies at
+// in + c * m + n, times pre[c * m + n] where pre is given; the C-point DFT
+// (the plan's radices in bits [3s, 3s + 3) of `code`, tab = exp(-+2 pi i j
+// / C), j < C, with the direction's sign); output (r, n) times post[r * m +
+// n] and `scale` to out + r * m + n. `in` and `out` may be the same frames
+// (step 4): a block reads all its points before it writes any.
+template <bool INV>
+__global__ void __launch_bounds__(kRadixThreads)
+split_radix_kernel(const float2* in, long long in_batch, long long in_frame,
+                   const float2* __restrict__ pre, const float2* __restrict__ post, float scale,
+                   const float2* __restrict__ dft_tab, float2* out, long long out_batch,
+                   long long out_frame, int m, int c, int lt, int stages, int code) {
+  __shared__ float2 buf[2][kPoints];
+  __shared__ float2 tab[kMaxC];
+  const int tn = 1 << lt;
+  const int tiles = m >> lt;
+  const int f = blockIdx.x / tiles;
+  const int n0 = (blockIdx.x - f * tiles) << lt;
+  const float2* src = in + blockIdx.y * in_batch + f * in_frame + n0;
+  float2* dst = out + blockIdx.y * out_batch + f * out_frame + n0;
+  for (int e = threadIdx.x; e < c; e += kRadixThreads) tab[e] = __ldg(&dft_tab[e]);
+  for (int e = threadIdx.x; e < c << lt; e += kRadixThreads) {
+    const int at = (e >> lt) * m + (e & (tn - 1));
+    float2 v = src[at];
+    if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
+    buf[0][e] = v;
+  }
+  __syncthreads();
+  int cur = 0, ns = 1;
+  for (int s = 0; s < stages; ++s) {
+    const int r = (code >> (3 * s)) & 7;
+    switch (r) {
+      case 2: radix_pass<2, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      case 3: radix_pass<3, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      case 4: radix_pass<4, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      default: radix_pass<5, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+    }
+    __syncthreads();
+    cur ^= 1;
+    ns *= r;
+  }
+  for (int e = threadIdx.x; e < c << lt; e += kRadixThreads) {
+    const int at = (e >> lt) * m + (e & (tn - 1));
+    const float2 v = buf[cur][e];
+    dst[at] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&post[n0 + at]));
+  }
+}
+
+// the passes kernels' threads: 512 from 8192 points up (two radix-16
+// butterflies a thread at 16384, as fused_ola_frames_reg_kernel), 256 below
+template <int M>
+__host__ __device__ constexpr int passes_threads() {
+  return M >= 8192 ? 512 : 256;
+}
+
+template <int M>
+__host__ __device__ constexpr size_t passes_smem() {
+  return static_cast<size_t>(R::padded_size(M) + R::table_total<M>()) * sizeof(float2);
+}
+
+// Step 2 (blockIdx.x = frame * c1 + r, blockIdx.y = batch row): part r of
+// the frame's `a` through the M-point forward passes; each forward bin K =
+// c1 k + r in [lo, hi) to inverse bin j = K + d of the frame's y, stored at
+// (j mod c2) * m2 + j / c2.
+template <int M>
+__global__ void __launch_bounds__(passes_threads<M>(), 1)
+split_fwd_passes_kernel(const float2* __restrict__ a, const float2* __restrict__ tw,
+                        float2* __restrict__ y, int n_frames, int c1, int c2, int m2, int lo,
+                        int hi, int d) {
+  constexpr int T = passes_threads<M>();
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* tws = smem + R::padded_size(M);
+  // pass 0 reads no table; the barrier after it orders these stores before
+  // the first table read
+  for (int e = threadIdx.x; e < R::table_total<M>(); e += T) tws[e] = __ldg(&tw[e]);
+  const int f = blockIdx.x / c1;
+  const int r = blockIdx.x - f * c1;
+  const long long frame = static_cast<long long>(blockIdx.y) * n_frames + f;
+  const float2* part = a + frame * c1 * M + static_cast<long long>(r) * M;
+  float2* yf = y + frame * c2 * m2;
+  R::fft<M, false, T, false>(
+      buf, tws, [part](int i) { return part[i]; },
+      [=](int k, float2 v) {
+        const int K = c1 * k + r;
+        if (K >= lo && K < hi) {
+          const int j = K + d;
+          yf[(j % c2) * m2 + j / c2] = v;
+        }
+      });
+}
+
+// Step 3 (blockIdx.x = frame * c2 + p, blockIdx.y = batch row): part p of
+// the frame's y, bin j = c2 i + p read where j - d lies in [lo, hi), zero
+// elsewhere, through the M-point inverse passes, each point n times
+// post[p * M + n] and `scale`, stored back in place.
+template <int M>
+__global__ void __launch_bounds__(passes_threads<M>(), 1)
+split_inv_passes_kernel(float2* y, const float2* __restrict__ tw,
+                        const float2* __restrict__ post, float scale, int n_frames, int c2,
+                        int lo, int hi, int d) {
+  constexpr int T = passes_threads<M>();
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* tws = smem + R::padded_size(M);
+  for (int e = threadIdx.x; e < R::table_total<M>(); e += T) tws[e] = __ldg(&tw[e]);
+  const int f = blockIdx.x / c2;
+  const int p = blockIdx.x - f * c2;
+  const long long frame = static_cast<long long>(blockIdx.y) * n_frames + f;
+  float2* part = y + (frame * c2 + p) * M;
+  const float2* pp = post + static_cast<long long>(p) * M;
+  R::fft<M, true, T, false>(
+      buf, tws,
+      [=](int i) {
+        const int K = c2 * i + p - d;
+        return (K >= lo && K < hi) ? part[i] : make_float2(0.f, 0.f);
+      },
+      [=](int n, float2 v) {
+        part[n] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&pp[n]));
+      });
+}
+
+// the compiled part sizes (ops/kernels/fused_ola.py REG_PLANS): F(M); the
+// inverse side has no 15360-point instance (ptxas spilled 4 bytes a thread
+// there, the radix-15 last pass at 512 threads; SPLIT_INV_PLANS)
+#define IQT_SPLIT_INV_SIZES(F) \
+  F(16384)                     \
+  F(12288)                     \
+  F(10240)                     \
+  F(8192)                      \
+  F(6144)                      \
+  F(5120)                      \
+  F(4096)                      \
+  F(3072)                      \
+  F(2048)                      \
+  F(1024)
+#define IQT_SPLIT_FWD_SIZES(F) \
+  F(15360)                     \
+  IQT_SPLIT_INV_SIZES(F)
+
+template <int M>
+cudaError_t launch_fwd_passes(int batch, int n_frames, cudaStream_t stream, const float2* a,
+                              const float2* tw, float2* y, int c1, int c2, int m2, int lo,
+                              int hi, int d) {
+  split_fwd_passes_kernel<M><<<dim3(n_frames * c1, batch), passes_threads<M>(),
+                               passes_smem<M>(), stream>>>(a, tw, y, n_frames, c1, c2, m2, lo,
+                                                           hi, d);
+  return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch_inv_passes(int batch, int n_frames, cudaStream_t stream, float2* y,
+                              const float2* tw, const float2* post, float scale, int c2, int lo,
+                              int hi, int d) {
+  split_inv_passes_kernel<M><<<dim3(n_frames * c2, batch), passes_threads<M>(),
+                               passes_smem<M>(), stream>>>(y, tw, post, scale, n_frames, c2,
+                                                           lo, hi, d);
+  return cudaGetLastError();
+}
+
+cudaError_t fwd_passes(int m1, int batch, int n_frames, cudaStream_t stream, const float2* a,
+                       const float2* tw, float2* y, int c1, int c2, int m2, int lo, int hi,
+                       int d) {
+#define IQT_FWD(M) \
+  if (m1 == M) return launch_fwd_passes<M>(batch, n_frames, stream, a, tw, y, c1, c2, m2, lo, hi, d);
+  IQT_SPLIT_FWD_SIZES(IQT_FWD)
+#undef IQT_FWD
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t inv_passes(int m2, int batch, int n_frames, cudaStream_t stream, float2* y,
+                       const float2* tw, const float2* post, float scale, int c2, int lo, int hi,
+                       int d) {
+#define IQT_INV(M) \
+  if (m2 == M) return launch_inv_passes<M>(batch, n_frames, stream, y, tw, post, scale, c2, lo, hi, d);
+  IQT_SPLIT_INV_SIZES(IQT_INV)
+#undef IQT_INV
+  return cudaErrorInvalidValue;
+}
+
+// the table length of the M-point passes where M is compiled, else -1
+int passes_table(int m) {
+#define IQT_TABLE(M) \
+  if (m == M) return R::table_total<M>();
+  IQT_SPLIT_FWD_SIZES(IQT_TABLE)
+#undef IQT_TABLE
+  return -1;
+}
+
+// a radix step's launch: c parts of m points, plan (stages, code)
+bool radix_ok(int c, int m, int stages, int code) {
+  if (c < 1 || c > kMaxC || m % (1 << tile_log2(c))) return false;
+  int prod = 1;
+  for (int s = 0; s < stages; ++s) {
+    const int r = (code >> (3 * s)) & 7;
+    if (r < 2 || r > 5) return false;
+    prod *= r;
+  }
+  return prod == c;
+}
+
+}  // namespace
+
+// once per device, before the first launch: every passes kernel's dynamic
+// shared memory (above 48 KiB from 5120 points up)
+extern "C" int iqt_ola_split_prepare(int max_smem) {
+  cudaError_t err;
+  (void)max_smem;
+#define IQT_ALLOW_FWD(M) \
+  if ((err = iqt::allow_smem(split_fwd_passes_kernel<M>, passes_smem<M>()))) return err;
+#define IQT_ALLOW_INV(M) \
+  if ((err = iqt::allow_smem(split_inv_passes_kernel<M>, passes_smem<M>()))) return err;
+  IQT_SPLIT_FWD_SIZES(IQT_ALLOW_FWD)
+  IQT_SPLIT_INV_SIZES(IQT_ALLOW_INV)
+#undef IQT_ALLOW_FWD
+#undef IQT_ALLOW_INV
+  return cudaSuccess;
+}
+
+// The split frame chain: frames x (batch, n_frames, nfft) complex64 at the
+// given element strides (the last one 1), y (batch, n_frames, nfft_out)
+// contiguous, a (batch, n_frames, nfft) contiguous scratch. nfft = c1 m1,
+// nfft_out = c2 m2; plan1 / plan2 the radix steps' plans (stages, code);
+// tw_fwd / tw_inv the m1- and m2-point pass tables (n_fwd / n_inv
+// entries), fwd_cross (c1 x m1), inv_cross (c2 x m2), dft1 (c1), dft2 (c2);
+// [lo, hi) the forward bins kept, d = out_lo - in_lo. Launches steps 1-3,
+// and step 4 where c2 > 1, on `stream`; returns the first error. A size or
+// table that no instance takes: cudaErrorInvalidValue, before any launch.
+extern "C" int iqt_ola_split(const void* x, long long batch_stride, long long frame_stride,
+                             const void* w_in, const void* w_out, const void* tw_fwd,
+                             const void* tw_inv, const void* fwd_cross, const void* inv_cross,
+                             const void* dft1, const void* dft2, void* a, void* y, int n_fwd,
+                             int n_inv, int batch, int n_frames, int c1, int m1, int stages1,
+                             int code1, int c2, int m2, int stages2, int code2, int lo, int hi,
+                             int d, void* stream) {
+  if (passes_table(m1) != n_fwd || passes_table(m2) != n_inv) return cudaErrorInvalidValue;
+  if (!radix_ok(c1, m1, stages1, code1) || !radix_ok(c2, m2, stages2, code2))
+    return cudaErrorInvalidValue;
+  const int lt1 = tile_log2(c1), lt2 = tile_log2(c2);
+  if (static_cast<long long>(n_frames) * ((m1 >> lt1) > (m2 >> lt2) ? m1 >> lt1 : m2 >> lt2) >=
+      (1LL << 31))
+    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto yp = static_cast<float2*>(y);
+  auto ap = static_cast<float2*>(a);
+  const long long n1 = static_cast<long long>(c1) * m1;
+  const long long n2 = static_cast<long long>(c2) * m2;
+  const float inv_n2 = 1.0f / static_cast<float>(n2);
+  cudaError_t err;
+  // 1. the forward radix-c1 step into `a`
+  split_radix_kernel<false><<<dim3(n_frames * (m1 >> lt1), batch), kRadixThreads, 0, s>>>(
+      static_cast<const float2*>(x), batch_stride, frame_stride,
+      static_cast<const float2*>(w_in), static_cast<const float2*>(fwd_cross), 1.0f,
+      static_cast<const float2*>(dft1), ap, n_frames * n1, n1, m1, c1, lt1, stages1, code1);
+  if ((err = cudaGetLastError())) return err;
+  // 2. the m1-point forward passes, the kept bins into y's inverse parts
+  if ((err = fwd_passes(m1, batch, n_frames, s, ap, static_cast<const float2*>(tw_fwd), yp, c1,
+                        c2, m2, lo, hi, d)))
+    return err;
+  // 3. the m2-point inverse passes in place; at c2 = 1 the output itself
+  const bool last = c2 == 1;
+  if ((err = inv_passes(m2, batch, n_frames, s, yp, static_cast<const float2*>(tw_inv),
+                        static_cast<const float2*>(last ? w_out : inv_cross),
+                        last ? inv_n2 : 1.0f, c2, lo, hi, d)))
+    return err;
+  if (last) return cudaSuccess;
+  // 4. the inverse radix-c2 step in place, scaled, windowed
+  split_radix_kernel<true><<<dim3(n_frames * (m2 >> lt2), batch), kRadixThreads, 0, s>>>(
+      yp, n_frames * n2, n2, nullptr, static_cast<const float2*>(w_out), inv_n2,
+      static_cast<const float2*>(dft2), yp, n_frames * n2, n2, m2, c2, lt2, stages2, code2);
+  return cudaGetLastError();
+}

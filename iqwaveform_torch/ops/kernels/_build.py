@@ -25,6 +25,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -52,7 +54,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
     'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu',
-    'spectrogram.cu', 'colhist.cu', 'upfirdn.cu', 'corr.cu',
+    'spectrogram.cu', 'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu',
 )
 HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh')
 
@@ -81,6 +83,8 @@ SIGNATURES = {
     'iqt_fused_ola_frames_reg': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
     'iqt_fused_ola_frames_cluster': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
     'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _P], _I),
+    'iqt_ola_split_prepare': ([_I], _I),
+    'iqt_ola_split': ([_P, _L, _L] + [_P] * 10 + [_I] * 15 + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),
@@ -143,10 +147,13 @@ def _source_hash() -> str:
 
 def _build(out: Path) -> None:
     """compile every source in parallel (one nvcc each), then link. The
-    compiler's register / shared-memory report goes to ``ptxas.txt``."""
+    compiler's register / shared-memory report goes to ``ptxas.txt``, each
+    source's under a line ``== <source> (<seconds> s)``: the wall time of
+    its nvcc."""
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        t0 = time.perf_counter()
         procs = []
         for name in SOURCES:
             obj = Path(tmp) / (name + '.o')
@@ -155,11 +162,18 @@ def _build(out: Path) -> None:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )))
-        reports, failed = [], []
-        for name, _, proc in procs:
+
+        def finish(entry):
+            name, _, proc = entry
             text, _ = proc.communicate()
-            reports.append(f'== {name}\n{text}')
-            if proc.returncode:
+            return name, text, proc.returncode, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, procs))
+        reports, failed = [], []
+        for name, text, rc, seconds in done:
+            reports.append(f'== {name} ({seconds:.1f} s)\n{text}')
+            if rc:
                 failed.append(name)
         if failed:
             raise RuntimeError(

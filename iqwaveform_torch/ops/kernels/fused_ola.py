@@ -12,21 +12,26 @@ Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
   (2, N) sample planes of float32, int16 or bfloat16 (the storage tiers,
   :func:`to_storage`) or complex64, dequantized on load, a halo read past
   the end and the final frame's tail returned; :func:`fused_ola` reads
-  complex64, zero-extends the end and drops the tail. At the flagship
-  pair (:data:`OLA_REG_PAIR`, 16384 -> 8192) both launch
-  ``fused_ola_reg_kernel``, on the register-resident passes of the frame
-  kernel below; at every other pair the radix-2 ``fused_ola_kernel``
-  (:func:`ola_route` picks by size, before the launch).
+  complex64, zero-extends the end and drops the tail. At the pairs of
+  :data:`OLA_REG_PAIRS` (the flagship 16384 -> 8192, 8192 -> 4096 and
+  16384 -> 4096) both launch ``fused_ola_reg_kernel``, on the
+  register-resident passes of the frame kernel below; at every other pair
+  the radix-2 ``fused_ola_kernel`` (:func:`ola_route` picks by size,
+  before the launch).
 * :func:`fused_ola_frames` replaces ``fused_ola_pallas`` (:394) and
   ``fused_ola_packed`` (:492): the same per-frame chain on a batch of
-  frames, at sizes 2^a 3^b 5^c, with no overlap-add. At the two size
-  pairs its paths run (:data:`REG_PAIRS`: 16384 -> 8192 and 12288 ->
-  6144) it launches ``fused_ola_frames_reg_kernel``, register-resident
-  radix-16 passes compiled for those sizes (``csrc/fft_reg.cuh``); at
-  the pairs of :data:`CLUSTER_PAIRS` (frames of 32768-163840 points, above
-  one block's shared memory) ``fused_ola_frames_cluster_kernel``, each
-  frame split over a thread-block cluster of C blocks
-  (``csrc/fft_cluster.cuh``); at every other size the generic mixed-radix
+  frames, at sizes 2^a 3^b 5^c, with no overlap-add. At the size pairs of
+  :data:`REG_PAIRS` it launches ``fused_ola_frames_reg_kernel``,
+  register-resident radix-16 passes compiled for those sizes
+  (``csrc/fft_reg.cuh``); at the pairs of :data:`CLUSTER_PAIRS` (frames of
+  24576-98304 points) ``fused_ola_frames_cluster_kernel``, each frame
+  split over a thread-block cluster of C blocks (``csrc/fft_cluster.cuh``);
+  at every other pair whose larger frame one block cannot hold, where both
+  sizes split into C M with M a size of :data:`REG_PLANS` and C <= 64 of
+  the factors 2, 3 and 5 (:func:`split_shape`), the split route of
+  ``csrc/ola_split.cu``: a radix-C step, the M-point passes and the
+  inverse's through device memory, four launches (three where the output
+  is one part); at every other size the generic mixed-radix
   ``fused_ola_frames_kernel`` (:func:`frames_route` picks by size, before
   the launch). The public
   ``ola_filter`` / ``oaresample`` and the monitor's overlap of more than
@@ -77,6 +82,11 @@ __all__ = [
     'ola_route',
     'reg_forward_twiddles',
     'reg_twiddles',
+    'split_plan',
+    'split_shape',
+    'split_smem',
+    'split_takes',
+    'split_twiddles',
     'storage_dtype',
     'stored',
     'to_storage',
@@ -88,12 +98,14 @@ MAX_CUDA_FFT = 16384
 # bins each thread carries through registers
 _FRAMES_THREADS = 1024
 _FRAMES_MAX_BINS_PER_THREAD = 32
-# the (nfft, nfft_out) pairs fused_ola_frames_reg_kernel is compiled for,
+# the (nfft, nfft_out) pairs fused_ola_frames_reg_kernel is compiled for
+# (ola_filter at BASELINE config #2, the monitor's blackman design of the
+# flagship rates, hamming at 122.88 -> 40.96 MS/s with min_fft_size=4095),
 # the passes of each size (csrc/fft_reg.cuh Plan; the channelizer kernels
 # of ops/kernels/chan_stats.py run every size from 1024 to 16384, the
 # levels kernel of ops/kernels/spectrogram.py 1024) and its threads per
 # block
-REG_PAIRS = ((16384, 8192), (12288, 6144))
+REG_PAIRS = ((16384, 8192), (12288, 6144), (12288, 4096))
 REG_PLANS = {
     16384: (16, 16, 16, 4),
     15360: (16, 16, 4, 15),
@@ -113,25 +125,37 @@ REG_THREADS = 512
 # points of either transform a block, on the register-resident passes of
 # REG_PLANS (the monitor at the blackman and blackmanharris designs of the
 # flagship rates, 122.88 -> 61.44 and 61.44 -> 30.72 MS/s: 49152 -> 24576
-# and 81920 -> 40960; its unresampled and ola_filter's resampling
-# blackmanharris 40960-point frames; hamming at 122.88 -> 30.72 MS/s and
-# at min_fft_size=16383; blackman 36864 -> 12288; blackman and
-# blackmanharris at 122.88 -> 30.72 MS/s: 98304 -> 24576 on 6 blocks and
-# 163840 -> 40960 on 10, above the portable cluster size of 8)
+# and 81920 -> 40960; its unresampled blackmanharris 40960-point frames;
+# hamming at 122.88 -> 30.72 MS/s and
+# at min_fft_size=16383; blackman at 122.88 ->
+# 30.72 MS/s: 98304 -> 24576 on 6 blocks; blackman at 122.88 -> 61.44 MS/s
+# and hamming at 122.88 -> 40.96 MS/s with min_fft_size=4095 and 8191:
+# 24576 -> 12288 and 24576 -> 8192, which one block holds, on 2, in place
+# of the generic kernel). Each pair above one block stays here only where
+# the split route is slower on the same frames, beyond the spread of its
+# runs (chip_smoke.py 22e; 163840 -> 40960 on 10 blocks lost to it,
+# 36864 -> 12288 on 3 and 40960 -> 20480 on 5 tied, and they left)
 CLUSTER_PAIRS = {
     (49152, 24576): 3,
     (81920, 40960): 5,
-    (40960, 20480): 5,
     (40960, 40960): 5,
     (32768, 8192): 2,
     (32768, 16384): 2,
-    (36864, 12288): 3,
     (98304, 24576): 6,
-    (163840, 40960): 10,
+    (24576, 12288): 2,
+    (24576, 8192): 2,
 }
-# the (nfft, nfft_out) pair fused_ola_reg_kernel (the 2:1 kernel on the
-# same passes) is compiled for: the flagship monitor design's
-OLA_REG_PAIR = (16384, 8192)
+# the (nfft, nfft_out) pairs fused_ola_reg_kernel (the 2:1 kernel on the
+# same passes) is compiled for: the flagship monitor design's (the first),
+# and hamming at 122.88 -> 61.44 and 122.88 -> 30.72 MS/s with
+# min_fft_size=4095
+OLA_REG_PAIRS = ((16384, 8192), (8192, 4096), (16384, 4096))
+# the split route's largest radix step (csrc/ola_split.cu kMaxC): the
+# 122.88 MS/s grid needs 40 (655360 = 40 x 16384)
+SPLIT_MAX_C = 64
+# the split route's inverse part sizes: REG_PLANS but 15360, whose inverse
+# passes kernel spilled (a 15360-point output part splits as 3 x 5120)
+SPLIT_INV_PLANS = tuple(m for m in REG_PLANS if m != 15360)
 # an H100's opt-in shared memory per block: the frame-batch kernel's
 # scope on a device that is not a card (the routes stay those of the card)
 H100_SMEM_OPTIN = 232448
@@ -189,15 +213,18 @@ def _smooth235(n: int) -> bool:
 
 
 def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
-    """the frame-batch kernel's scope: the pairs of :data:`CLUSTER_PAIRS`
-    (a frame split over a cluster of blocks), and both sizes of the form
-    2^a 3^b 5^c with the larger frame (8 bytes a point) within the opt-in
-    shared memory of one block of ``device`` (an H100's where ``device`` is
-    not a card: about 29k points)."""
+    """the frame-batch kernels' scope: the pairs of :data:`CLUSTER_PAIRS`
+    (a frame split over a cluster of blocks), the pairs of the split route
+    (:func:`split_takes`), and both sizes of the form 2^a 3^b 5^c with the
+    larger frame (8 bytes a point) within the opt-in shared memory of one
+    block of ``device`` (an H100's where ``device`` is not a card: about
+    29k points)."""
     device = torch.device('cpu' if device is None else device)
     smem = _build.smem_optin(device) if device.type == 'cuda' else H100_SMEM_OPTIN
     if (nfft, nfft_out) in CLUSTER_PAIRS:
         return cluster_smem(nfft, nfft_out) <= smem
+    if split_takes(nfft, nfft_out):
+        return max(split_smem(m) for _, m in split_plan(nfft, nfft_out)) <= smem
     return (
         min(nfft, nfft_out) >= 1
         and _smooth235(nfft)
@@ -207,6 +234,46 @@ def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def split_shape(n: int, inverse: bool = False):
+    """(C, M) of an ``n``-point transform on the split route: the largest M
+    of :data:`REG_PLANS` (:data:`SPLIT_INV_PLANS` for the ``inverse``)
+    with n = C M, C at most :data:`SPLIT_MAX_C` and of the factors 2, 3
+    and 5 (C = 1 where n is itself such a size); None where there is none
+    (another prime factor, fewer than 2^10 in n, or C above
+    SPLIT_MAX_C)."""
+    for m in sorted(SPLIT_INV_PLANS if inverse else REG_PLANS, reverse=True):
+        c, rest = divmod(n, m)
+        if rest == 0 and 1 <= c <= SPLIT_MAX_C and _smooth235(c):
+            return c, m
+    return None
+
+
+def split_plan(nfft: int, nfft_out: int) -> tuple:
+    """((C1, M1), (C2, M2)): the split route's shapes of a pair it takes."""
+    return split_shape(nfft), split_shape(nfft_out, inverse=True)
+
+
+def split_takes(nfft: int, nfft_out: int) -> bool:
+    """the split route's pairs: the larger frame is above one H100 block's
+    shared memory (8 bytes a point), :data:`CLUSTER_PAIRS` does not list
+    the pair, and both sizes have a :func:`split_shape`."""
+    return (
+        8 * max(nfft, nfft_out) > H100_SMEM_OPTIN
+        and (nfft, nfft_out) not in CLUSTER_PAIRS
+        and None not in split_plan(nfft, nfft_out)
+    )
+
+
+def split_smem(m: int) -> int:
+    """the dynamic shared memory of the split route's M-point passes
+    kernels: the padded exchange buffer and the pass tables
+    (csrc/ola_split.cu passes_smem; forward and inverse tables are of one
+    size)."""
+    return 8 * (m + m // 16 + _reg_pass_tables(m, False).size)
+
+
+@functools.lru_cache(maxsize=None)
 def _reg_pass_tables(n: int, inverse: bool) -> np.ndarray:
     """the twiddle tables of ``n``'s register-resident transform, pass by
     pass as csrc/fft_reg.cuh reads them: for pass s (radix R, NS = the
@@ -247,9 +314,9 @@ def reg_forward_twiddles(nfft: int, device: torch.device) -> torch.Tensor:
     :data:`REG_PLANS`, its own table, float64 on the host rounded once to
     complex64."""
     forward = _reg_pass_tables(nfft, False)
-    pairs = dict(REG_PAIRS)
-    if nfft in pairs:
-        return reg_twiddles(nfft, pairs[nfft], device)[: forward.size]
+    nfft_out = next((n2 for n1, n2 in REG_PAIRS if n1 == nfft), None)
+    if nfft_out is not None:
+        return reg_twiddles(nfft, nfft_out, device)[: forward.size]
     return torch.from_numpy(forward.astype('complex64')).to(device)
 
 
@@ -300,16 +367,56 @@ def cluster_smem(nfft: int, nfft_out: int) -> int:
     return 8 * (m + m // 16 + offsets['fwd_cross'])
 
 
+@functools.lru_cache(maxsize=None)
+def _split_tables(nfft: int, nfft_out: int) -> tuple:
+    """the split route's tables for a pair it takes, in float64, and the
+    offset of each part, in the order csrc/ola_split.cu iqt_ola_split takes
+    their pointers ((C1, M1), (C2, M2) = :func:`split_plan`):
+
+    * ``'fwd_passes'`` / ``'inv_passes'``: the register-resident tables of
+      the M1-point forward and the M2-point inverse (:func:`_reg_pass_tables`),
+      which each passes kernel copies into its shared memory;
+    * ``'fwd_cross'``: row r < C1 of M1 factors exp(-2 pi i r n / nfft), the
+      twiddles of the forward radix-C1 step's output r (row 0 is ones);
+    * ``'inv_cross'``: row p < C2 of M2 factors exp(+2 pi i p n / nfft_out),
+      those the inverse passes of part p store their points with;
+    * ``'fwd_dft'`` / ``'inv_dft'``: exp(-2 pi i j / C1), j < C1, and
+      exp(+2 pi i j / C2), j < C2, the twiddles of the radix steps' own
+      Stockham passes."""
+    (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
+    parts = {
+        'fwd_passes': _reg_pass_tables(m1, False),
+        'inv_passes': _reg_pass_tables(m2, True),
+        'fwd_cross': np.exp(-2j * np.pi * np.outer(np.arange(c1), np.arange(m1)) / nfft).ravel(),
+        'inv_cross': np.exp(2j * np.pi * np.outer(np.arange(c2), np.arange(m2)) / nfft_out).ravel(),
+        'fwd_dft': np.exp(-2j * np.pi * np.arange(c1) / c1),
+        'inv_dft': np.exp(2j * np.pi * np.arange(c2) / c2),
+    }
+    offsets = dict(zip(parts, np.cumsum([0] + [p.size for p in parts.values()])[:-1].tolist()))
+    return np.concatenate(list(parts.values())), offsets
+
+
+@functools.lru_cache(maxsize=None)
+def split_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor:
+    """the tables of :func:`_split_tables`, rounded once to complex64 and
+    kept on ``device`` (read only)."""
+    table, _ = _split_tables(nfft, nfft_out)
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
 def frames_route(nfft: int, nfft_out: int) -> str:
     """the kernel :func:`fused_ola_frames` launches for a supported size
     pair: ``'reg'`` (``fused_ola_frames_reg_kernel``) at the pairs of
     :data:`REG_PAIRS`, ``'cluster'`` (``fused_ola_frames_cluster_kernel``)
-    at those of :data:`CLUSTER_PAIRS`, ``'generic'``
+    at those of :data:`CLUSTER_PAIRS`, ``'split'`` (the kernels of
+    csrc/ola_split.cu) at those of :func:`split_takes`, ``'generic'``
     (``fused_ola_frames_kernel``) at every other, an unresampled nfft_out
     == nfft among them."""
     if (nfft, nfft_out) in REG_PAIRS:
         return 'reg'
-    return 'cluster' if (nfft, nfft_out) in CLUSTER_PAIRS else 'generic'
+    if (nfft, nfft_out) in CLUSTER_PAIRS:
+        return 'cluster'
+    return 'split' if split_takes(nfft, nfft_out) else 'generic'
 
 
 def fused_ola_frames(
@@ -354,6 +461,16 @@ def _fused_ola_frames_generic(frames: torch.Tensor, **kw) -> torch.Tensor:
     return _launch_frames(frames, 'generic', **kw)
 
 
+def _fused_ola_frames_split(frames: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`fused_ola_frames` on a CUDA tensor through the split route's
+    kernels at a pair above one block that :data:`CLUSTER_PAIRS` lists:
+    the split route timed beside the cluster kernel in chip_smoke.py,
+    never a route of the port."""
+    if None in split_plan(kw['nfft'], kw['nfft_out']):
+        raise NotImplementedError(f'no split shape for {kw["nfft"]} -> {kw["nfft_out"]}')
+    return _launch_frames(frames, 'split', **kw)
+
+
 def _launch_frames(
     frames: torch.Tensor,
     route: str,
@@ -367,17 +484,22 @@ def _launch_frames(
     bounds_in,
     bounds_out,
 ) -> torch.Tensor:
-    """launch ``route``'s frame kernel ('reg', 'cluster' or 'generic') on
-    CUDA ``frames``; counts the launch in ``fused_ola_frames.launches`` and
-    ``fused_ola_frames.route_launches[route]``."""
+    """launch ``route``'s frame kernel ('reg', 'cluster', 'split' or
+    'generic') on CUDA ``frames``; counts the launch in
+    ``fused_ola_frames.launches`` and ``fused_ola_frames.route_launches[route]``
+    (the split route's three or four kernels count as one launch). The
+    split route takes batch * M * nfft complex64 of scratch from the caching
+    allocator (the frames' size), besides the output."""
     dev = frames.device
     if not fused_ola_frames_supported(nfft, nfft_out, dev):
         raise NotImplementedError(
             'the CUDA frame-batch OLA kernels take sizes 2^a 3^b 5^c whose '
             f'frame fits one block\'s shared memory ({_build.smem_optin(dev)} '
-            'bytes, 8 a point) and, split over a cluster of blocks, the pairs '
-            f'{sorted(CLUSTER_PAIRS)}; got nfft={nfft}, nfft_out={nfft_out} '
-            '(ROADMAP Queue 2 item 1)'
+            'bytes, 8 a point), split over a cluster of blocks the pairs '
+            f'{sorted(CLUSTER_PAIRS)}, and above one block sizes C M with M '
+            f'in {sorted(REG_PLANS)} (of the output, in {sorted(SPLIT_INV_PLANS)}) '
+            f'and C <= {SPLIT_MAX_C} of the factors 2, 3 and 5; got '
+            f'nfft={nfft}, nfft_out={nfft_out} (ROADMAP Queue 2 item 1)'
         )
     if frames.dtype != torch.complex64:
         raise TypeError(f'frames must be torch.complex64, not {frames.dtype}')
@@ -403,7 +525,11 @@ def _launch_frames(
     y = torch.empty((batch, n_frames, nfft_out), dtype=torch.complex64, device=dev)
     _build.prepare('iqt_fused_ola_frames_prepare', dev)
     zero_hi = nfft if zero_hi is None else int(zero_hi)
-    if route in ('reg', 'cluster'):
+    if route == 'split':
+        err = _launch_split(f3, y, w_in, w_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+                            zero_lo=int(zero_lo), zero_hi=zero_hi, in_lo=int(in_lo),
+                            out_lo=int(out_lo), out_hi=int(out_hi))
+    elif route in ('reg', 'cluster'):
         if route == 'reg':
             tw, entry = reg_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_reg'
         else:
@@ -432,10 +558,36 @@ def _launch_frames(
     return y.reshape(*lead, n_frames, nfft_out)
 
 
+def _launch_split(f3, y, w_in, *, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                  out_hi) -> int:
+    """the split route's launches on (batch, M, nfft) frames ``f3`` into
+    ``y`` (batch, M, nfft_out); returns the C entry's error code."""
+    dev = f3.device
+    _build.prepare('iqt_ola_split_prepare', dev)
+    (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
+    _, off = _split_tables(nfft, nfft_out)
+    tw = split_twiddles(nfft, nfft_out, dev)
+    at = {k: tw.data_ptr() + 8 * v for k, v in off.items()}
+    # the forward bins the mask and the trim keep, and the shift from a
+    # kept forward bin to its inverse bin
+    lo = max(zero_lo, in_lo)
+    hi = min(zero_hi, in_lo + out_hi - out_lo)
+    a = torch.empty(f3.shape, dtype=torch.complex64, device=dev)
+    return _build.library().iqt_ola_split(
+        f3.data_ptr(), f3.stride(0), f3.stride(1), w_in.data_ptr(), w_out.data_ptr(),
+        at['fwd_passes'], at['inv_passes'], at['fwd_cross'], at['inv_cross'], at['fwd_dft'],
+        at['inv_dft'], a.data_ptr(), y.data_ptr(), off['inv_passes'],
+        off['fwd_cross'] - off['inv_passes'], f3.shape[0], f3.shape[1], c1, m1,
+        *_build.plan_code(c1), c2, m2, *_build.plan_code(c2), lo, hi, out_lo - in_lo,
+        _build.stream_of(f3),
+    )
+
+
 fused_ola_frames.launches = 0
 # launches by kernel: 'reg' (fused_ola_frames_reg_kernel), 'cluster'
-# (fused_ola_frames_cluster_kernel), 'generic' (fused_ola_frames_kernel)
-fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'generic': 0}
+# (fused_ola_frames_cluster_kernel), 'split' (the kernels of
+# csrc/ola_split.cu, one count a call), 'generic' (fused_ola_frames_kernel)
+fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'split': 0, 'generic': 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -535,9 +687,9 @@ def fused_ola_plain(
 
 def ola_route(nfft: int, nfft_out: int) -> str:
     """the kernel :func:`fused_ola` launches for a supported pair:
-    ``'reg'`` (``fused_ola_reg_kernel``) at :data:`OLA_REG_PAIR`,
+    ``'reg'`` (``fused_ola_reg_kernel``) at :data:`OLA_REG_PAIRS`,
     ``'generic'`` (the radix-2 ``fused_ola_kernel``) at every other."""
-    return 'reg' if (nfft, nfft_out) == OLA_REG_PAIR else 'generic'
+    return 'reg' if (nfft, nfft_out) in OLA_REG_PAIRS else 'generic'
 
 
 def fused_ola_cuda_supported(nfft: int, nfft_out: int, noverlap_in: int, noverlap_out: int) -> bool:
@@ -593,9 +745,9 @@ def fused_ola(
 
 def _fused_ola_generic(x: torch.Tensor, **kw) -> torch.Tensor:
     """:func:`fused_ola` on a CUDA tensor through the radix-2
-    ``fused_ola_kernel`` at any supported pair, the flagship pair too: the
-    yardstick of ``fused_ola_reg_kernel`` in chip_smoke.py and the card
-    tests, never a route of the port."""
+    ``fused_ola_kernel`` at any supported pair, those of
+    :data:`OLA_REG_PAIRS` too: the yardstick of ``fused_ola_reg_kernel`` in
+    chip_smoke.py and the card tests, never a route of the port."""
     _build.require(x, 'x', device=x.device, dtype=torch.complex64)
     y, _ = _launch_ola(x, None, 'generic', counter=fused_ola, tail=False, **kw)
     return y

@@ -65,6 +65,7 @@ from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route
 from iqwaveform_torch.ops.kernels.corr import corr_blocking
 from iqwaveform_torch.ops.kernels.fused_ola import (
     CLUSTER_PAIRS,
+    split_takes,
     fused_ola_strided_plain,
     _fused_ola_frames_generic,
     _fused_ola_generic,
@@ -190,17 +191,55 @@ def test_ola_register_kernel_matches_plain_and_generic(monitor, batch):
 
 
 def test_other_ola_pairs_take_the_radix2_kernel(card):
-    """a 2:1 pair other than 16384 -> 8192 keeps fused_ola_kernel."""
-    nfft, nfft_out = 8192, 4096
+    """a 2:1 pair outside OLA_REG_PAIRS (4096 -> 2048; 8192 -> 4096 was one
+    until the register kernel took it) keeps fused_ola_kernel."""
+    nfft, nfft_out = 4096, 2048
     assert ola_route(nfft, nfft_out) == 'generic'
     kw = dict(w_in=_noise(nfft, 26), w_shift_out=_noise(nfft_out, 27), nfft=nfft,
               nfft_out=nfft_out, noverlap_in=nfft // 2, noverlap_out=nfft_out // 2,
-              zero_lo=300, zero_hi=7900, bounds_in=(2048, 6144), bounds_out=(0, 4096))
-    x = _noise((2, 20 * 4096 + 7), 28)
+              zero_lo=150, zero_hi=3950, bounds_in=(1024, 3072), bounds_out=(0, 2048))
+    x = _noise((2, 20 * 2048 + 7), 28)
     _reset_routes()
     got = kernels.fused_ola(x, **kw)
     assert kernels.fused_ola.route_launches == {'reg': 0, 'generic': 1}
     assert rel_rms(got, kernels.fused_ola_plain(x, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize('pair', [(8192, 4096), (16384, 4096)])
+@pytest.mark.parametrize('dtype', [torch.complex64, torch.int16])
+def test_ola_register_kernel_at_the_new_pairs(card, pair, dtype):
+    """fused_ola_reg_kernel at the hamming pairs of 122.88 -> 61.44 and
+    122.88 -> 30.72 MS/s with min_fft_size=4095, through fused_ola_strided
+    on complex64 and on int16 planes with a halo and the tail: one launch
+    on the register route, within 1e-5 of the plain version and of the
+    radix-2 kernel; its complex128 error at most twice the radix-2
+    kernel's."""
+    nfft, nfft_out = pair
+    assert ola_route(nfft, nfft_out) == 'reg'
+    hop = nfft // 2
+    kw = dict(w_in=_noise(nfft, 60) / nfft, w_shift_out=_noise(nfft_out, 61), nfft=nfft,
+              nfft_out=nfft_out, zero_lo=300, zero_hi=nfft - 300,
+              bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2), bounds_out=(0, nfft_out))
+    x = _noise((2, 24 * hop), 62)
+    halo = _noise((2, hop), 63)
+    src, h = x, halo
+    if dtype != torch.complex64:
+        src, h = (torch.stack([v.real, v.imag], dim=-2) * 3000 for v in (x, halo))
+    prec = 'highest' if dtype == torch.complex64 else 'i16'
+    skw = dict(n_frames=24, hop_in=hop, precision=prec, **kw)
+    kernels.fused_ola_strided.route_launches.update(reg=0, generic=0)
+    got, tail = kernels.fused_ola_strided(src, h, **skw)
+    assert kernels.fused_ola_strided.route_launches == {'reg': 1, 'generic': 0}
+    ref, ref_tail = kernels.fused_ola_strided_plain(src, h, **skw)
+    assert got.shape == ref.shape and tail.shape == ref_tail.shape
+    assert rel_rms(got, ref) <= 1e-5 and rel_rms(tail, ref_tail) <= 1e-5
+    okw = dict(noverlap_in=hop, noverlap_out=nfft_out // 2, **kw)
+    y = kernels.fused_ola(x, **okw)
+    generic = _fused_ola_generic(x, **okw)
+    plain = kernels.fused_ola_plain(x, **okw)
+    assert rel_rms(y, plain) <= 1e-5 and rel_rms(y, generic) <= 1e-5
+    ref64 = kernels.fused_ola_plain(x.to(torch.complex128), **_wide(okw))
+    assert rel_rms(y, ref64) <= 2 * rel_rms(generic, ref64)
 
 
 @pytest.mark.parametrize('channels', [64, 48])
@@ -568,6 +607,15 @@ def test_fold_over_two_chunks_matches_plain_fold(card, hist_bins):
 
 # ---- the filtering path: frame-batch OLA and upfirdn ----
 
+# the pairs of the 122.88 MS/s monitor grid that the split route takes
+# (tests/test_torch_ola_split.py SPLIT_PAIRS)
+SPLIT_PAIRS = (
+    (32768, 4096), (49152, 12288), (49152, 16384), (61440, 20480), (65536, 8192),
+    (65536, 16384), (73728, 24576), (81920, 20480), (98304, 12288), (98304, 49152),
+    (122880, 40960), (131072, 16384), (147456, 49152), (163840, 20480), (163840, 81920),
+    (196608, 24576), (196608, 49152), (245760, 81920), (327680, 40960), (327680, 81920),
+    (393216, 49152), (655360, 81920), (163840, 40960), (36864, 12288), (40960, 20480),
+)
 R_DESIGNS = {  # window -> the monitor design's (nfft, nfft_out)
     'hamming': (16384, 8192),
     'blackman': (12288, 6144),
@@ -623,15 +671,19 @@ def test_ola_filter_takes_the_frame_kernel(card):
     _reset_frame_routes()
     got = it.ola_filter(x, **kw)
     assert kernels.fused_ola_frames.launches == 1
-    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'cluster': 0, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(reg=1)
     ref = it.ola_filter(x, fft_backend='xla', **kw)
     assert kernels.fused_ola_frames.launches == 1
     assert rel_rms(got, ref) <= 1e-5
 
 
+def _frame_routes(reg=0, cluster=0, split=0, generic=0):
+    return {'reg': reg, 'cluster': cluster, 'split': split, 'generic': generic}
+
+
 def _reset_frame_routes():
     kernels.fused_ola_frames.launches = 0
-    kernels.fused_ola_frames.route_launches.update(reg=0, cluster=0, generic=0)
+    kernels.fused_ola_frames.route_launches.update(reg=0, cluster=0, split=0, generic=0)
 
 
 @pytest.mark.parametrize('window', ['hamming', 'blackman'])
@@ -648,9 +700,9 @@ def test_register_kernel_matches_plain_and_generic(card, window):
     frames = capture[:, 5:].unfold(-1, nfft, mon.hop_in)
     _reset_frame_routes()
     got = kernels.fused_ola_frames(frames, **kw)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'cluster': 0, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(reg=1)
     generic = _fused_ola_frames_generic(frames, **kw)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 1, 'cluster': 0, 'generic': 1}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(reg=1, generic=1)
     ref = kernels.fused_ola_frames_plain(frames, **kw)
     assert got.shape == generic.shape == ref.shape == (3, frames.shape[1], nfft_out)
     assert rel_rms(got, ref) <= 1e-5
@@ -673,22 +725,25 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
               bounds_out=(0, 768))
     _reset_frame_routes()
     got = kernels.fused_ola_frames(frames, **kw)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 0, 'generic': 1}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(generic=1)
     assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
 
 
 def test_frames_above_shared_memory_raise(card):
-    """frames above one block's shared memory that no cluster pair takes
-    (the blackman design at 122.88 -> 15.36 MS/s: 196608 -> 24576, and
-    131072 -> 32768) raise in the frame kernel's wrapper, naming ROADMAP
-    Queue 2 item 1; the monitor at such a design takes the plain frames on
-    the card (routes['ola'] 'plain', picked before any launch): it
-    constructs, its step launches no frame kernel and matches
-    reference_step; ola_filter takes its torch.fft stage chain there. The
-    98304- and 163840-point frames of 122.88 -> 30.72 MS/s, which raised
-    before clusters of 6 and 10 blocks, step
-    (test_cluster_monitor_constructs_and_steps)."""
-    for nfft, nfft_out in ((196608, 24576), (131072, 32768)):
+    """frames above one block's shared memory that no cluster pair and no
+    split shape takes (the blackman design at 107.52 -> 15.36 MS/s:
+    172032 -> 24576, and 114688 -> 32768, both 7 x 2^k) raise in the frame
+    kernel's wrapper, naming ROADMAP Queue 2 item 1; the monitor at such a
+    design takes the plain frames on the card (routes['ola'] 'plain',
+    picked before any launch): it constructs, its step launches no frame
+    kernel and matches reference_step; ola_filter takes its torch.fft stage
+    chain there. The 98304- and 163840-point frames of 122.88 -> 30.72
+    MS/s, which raised before clusters of 6 and 10 blocks (the latter on
+    the split route since), step
+    (test_cluster_monitor_constructs_and_steps); the 196608-point frames of
+    122.88 -> 15.36 MS/s, which raised before the split route, too
+    (test_split_monitor_constructs_and_steps)."""
+    for nfft, nfft_out in ((172032, 24576), (114688, 32768)):
         assert frames_route(nfft, nfft_out) == 'generic'
         with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
             kernels.fused_ola_frames(
@@ -699,9 +754,9 @@ def test_frames_above_shared_memory_raise(card):
                 bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
                 bounds_out=(0, nfft_out),
             )
-    design = it.design_wideband_monitor(122.88e6, 15.36e6, bw=10e6, fs_sdr=122.88e6,
+    design = it.design_wideband_monitor(107.52e6, 15.36e6, bw=10e6, fs_sdr=107.52e6,
                                         window='blackman')
-    assert (design.nfft, design.nfft_out) == (196608, 24576)
+    assert (design.nfft, design.nfft_out) == (172032, 24576)
     mon = it.WidebandMonitor(design)
     assert mon.routes['ola'] == 'plain'
     x = _noise(2 * mon.min_input_multiple(), 13)
@@ -722,9 +777,9 @@ def test_frames_above_shared_memory_raise(card):
     assert int(a.sum()) == int(b.sum())
     assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
     _reset_frame_routes()
-    assert it.ola_filter(_noise(4 * 196608, 12), fs=122.88e6, nfft=196608, nfft_out=24576,
+    assert it.ola_filter(_noise(4 * 172032, 12), fs=107.52e6, nfft=172032, nfft_out=24576,
                          window='blackman', passband=(-5e6, 5e6)).shape == (4 * 24576,)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 0, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes()
 
 
 def _cluster_kwargs(nfft, nfft_out, seed):
@@ -755,13 +810,13 @@ def test_cluster_kernel_matches_plain_and_complex128(card, pair):
     _reset_frame_routes()
     got = kernels.fused_ola_frames(frames, **kw)
     torch.cuda.synchronize()
-    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 1, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(cluster=1)
     ref = kernels.fused_ola_frames_plain(frames, **kw)
     assert got.shape == ref.shape == (2, frames.shape[1], nfft_out)
     assert rel_rms(got, ref) <= 1e-5
     batch = frames[1].contiguous()
     assert rel_rms(kernels.fused_ola_frames(batch, **kw), ref[1]) <= 1e-5
-    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 2, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(cluster=2)
     wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
     ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **wide)
     assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
@@ -779,9 +834,10 @@ def test_cluster_kernel_matches_plain_and_complex128(card, pair):
 ])
 def test_cluster_monitor_constructs_and_steps(card, rates, kw, pair):
     """the monitor at the designs whose frames the cluster kernel takes
-    (among them 98304 -> 24576 on clusters of 6 blocks and 163840 -> 40960
-    on 10): it constructs, and a step launches that kernel once and
-    matches the plain-version step (channel power within 1e-5)."""
+    (among them 98304 -> 24576 on clusters of 6 blocks; 163840 -> 40960,
+    once on 10, on the split route, which beat it): it constructs, and a
+    step launches that kernel once and matches the plain-version step
+    (channel power within 1e-5)."""
     mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw))
     assert (mon.design.nfft, mon.design.nfft_out) == pair
     x = _noise(4 * mon.min_input_multiple(), 42)
@@ -791,23 +847,122 @@ def test_cluster_monitor_constructs_and_steps(card, rates, kw, pair):
     out = mon.step(x)
     torch.cuda.synchronize()
     assert kernels.fused_ola_frames.launches == 1 and kernels.fused_ola.launches == 0
-    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 1, 'generic': 0}
+    want = _frame_routes(split=1) if pair == (163840, 40960) else _frame_routes(cluster=1)
+    assert kernels.fused_ola_frames.route_launches == want
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
 
 
 def test_ola_filter_takes_the_cluster_kernel(card):
-    """ola_filter at the blackmanharris 40960 -> 20480 frames: one launch
-    of the cluster kernel, within 1e-5 of the torch.fft stage chain."""
-    kw = dict(fs=122.88e6, nfft=40960, nfft_out=20480, window='blackmanharris',
+    """ola_filter at the blackmanharris 81920 -> 40960 frames (its 40960 ->
+    20480 frames are on the split route since it tied with the cluster of
+    5): one launch of the cluster kernel, within 1e-5 of the torch.fft
+    stage chain."""
+    kw = dict(fs=122.88e6, nfft=81920, nfft_out=40960, window='blackmanharris',
               passband=(-20e6, 20e6))
-    x = _noise(8 * 40960, 43)
+    x = _noise(8 * 81920, 43)
     _reset_frame_routes()
     got = it.ola_filter(x, **kw)
-    assert kernels.fused_ola_frames.route_launches == {'reg': 0, 'cluster': 1, 'generic': 0}
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(cluster=1)
     ref = it.ola_filter(x, fft_backend='xla', **kw)
     assert got.shape == ref.shape and rel_rms(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize('pair', sorted(SPLIT_PAIRS))
+def test_split_route_matches_plain_and_complex128(card, pair):
+    """the split route at each pair of the 122.88 MS/s grid it takes, on a
+    strided view with a batch axis and on a contiguous batch: one launch
+    each on its route, within 1e-5 of the plain chain, its complex128 error
+    at most twice the plain chain's (the torch.fft chain in float32)."""
+    nfft, nfft_out = pair
+    assert split_takes(nfft, nfft_out) and frames_route(nfft, nfft_out) == 'split'
+    kw = _cluster_kwargs(nfft, nfft_out, 64)
+    hop = nfft // 3
+    capture = _noise((2, 2 * hop + nfft + 5), 65)
+    frames = capture[:, 5:].unfold(-1, nfft, hop)
+    _reset_frame_routes()
+    got = kernels.fused_ola_frames(frames, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    ref = kernels.fused_ola_frames_plain(frames, **kw)
+    assert got.shape == ref.shape == (2, frames.shape[1], nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    batch = frames[1].contiguous()
+    assert rel_rms(kernels.fused_ola_frames(batch, **kw), ref[1]) <= 1e-5
+    ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
+
+
+@pytest.mark.parametrize('pair', [(49152, 24576), (81920, 40960), (98304, 24576)])
+def test_split_yardstick_at_cluster_pairs(card, pair):
+    """the split route forced at a cluster pair (chip_smoke.py 22e times
+    it beside the cluster kernel): one split launch, within 1e-5 of the
+    plain chain."""
+    from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_split
+
+    nfft, nfft_out = pair
+    assert frames_route(nfft, nfft_out) == 'cluster'
+    kw = _cluster_kwargs(nfft, nfft_out, 67)
+    hop = nfft // 3
+    frames = _noise(4 * hop + nfft, 68).unfold(-1, nfft, hop)
+    _reset_frame_routes()
+    got = _fused_ola_frames_split(frames, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize('fs_out,kw,pair', [
+    (30.72e6, dict(window='hamming', min_fft_size=16383), (65536, 16384)),
+    (15.36e6, dict(window='blackman', min_fft_size=8191), (196608, 24576)),
+    (15.36e6, dict(window='blackmanharris', min_fft_size=16383), (655360, 81920)),
+])
+def test_split_monitor_constructs_and_steps(card, fs_out, kw, pair):
+    """the monitor at designs whose frames the split route takes: it
+    constructs with routes['ola'] 'split', and a step launches the route
+    once and matches the plain-version step (channel power within 1e-5)."""
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, fs_out, fs_sdr=122.88e6, **kw))
+    assert (mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == 'split'
+    x = _noise(2 * mon.min_input_multiple(), 66)
+    _reset_frame_routes()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+
+
+def test_ola_filter_takes_the_split_route(card):
+    """ola_filter at 131072 -> 16384 frames: one launch of the split
+    route, within 1e-5 of the torch.fft stage chain."""
+    kw = dict(fs=122.88e6, nfft=131072, nfft_out=16384, window='hamming', passband=(-6e6, 6e6))
+    x = _noise(6 * 131072, 67)
+    _reset_frame_routes()
+    got = it.ola_filter(x, **kw)
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    ref = it.ola_filter(x, fft_backend='xla', **kw)
+    assert got.shape == ref.shape and rel_rms(got, ref) <= 1e-5
+
+
+def test_frame_register_kernel_at_12288_to_4096(card):
+    """fused_ola_frames_reg_kernel at the hamming frames of 122.88 -> 40.96
+    MS/s (min_fft_size=4095): one launch on the register route, within 1e-5
+    of the plain chain and of the generic kernel, its complex128 error at
+    most twice the generic kernel's."""
+    nfft, nfft_out = 12288, 4096
+    assert frames_route(nfft, nfft_out) == 'reg'
+    kw = _cluster_kwargs(nfft, nfft_out, 68)
+    frames = _noise((2, 20 * 6144 + nfft), 69).unfold(-1, nfft, 6144)
+    _reset_frame_routes()
+    got = kernels.fused_ola_frames(frames, **kw)
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(reg=1)
+    generic = _fused_ola_frames_generic(frames, **kw)
+    ref = kernels.fused_ola_frames_plain(frames, **kw)
+    assert rel_rms(got, ref) <= 1e-5 and rel_rms(got, generic) <= 1e-5
+    ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(generic, ref64)
 
 
 @pytest.mark.parametrize('up,down', [(1, 2), (2, 3), (3, 2), (2, 5)])
@@ -1173,13 +1328,13 @@ LAYOUT_OF_TIER = {'highest': 'float32', 'i16': 'int16', 'bf16': 'bfloat16'}
 
 
 def _strided_kw(monitor, route, tier):
-    """the flagship pair (the register kernel) or 8192 -> 4096 (the radix-2
-    kernel) at ``tier``."""
+    """the flagship pair (the register kernel) or 4096 -> 2048 (the radix-2
+    kernel; 8192 -> 4096 until the register kernel took it) at ``tier``."""
     if route == 'reg':
         return {**monitor.strided_kwargs, 'precision': tier}
-    return dict(hop_in=4096, nfft=8192, nfft_out=4096, zero_lo=300, zero_hi=7900,
-                bounds_in=(2048, 6144), bounds_out=(0, 4096), w_in=_noise(8192, 26),
-                w_shift_out=_noise(4096, 27), precision=tier)
+    return dict(hop_in=2048, nfft=4096, nfft_out=2048, zero_lo=150, zero_hi=3950,
+                bounds_in=(1024, 3072), bounds_out=(0, 2048), w_in=_noise(4096, 26),
+                w_shift_out=_noise(2048, 27), precision=tier)
 
 
 def _reset_strided():

@@ -50,7 +50,7 @@ from iqwaveform_torch.ops.kernels.chan_stats import (
 from iqwaveform_torch.ops.kernels.colhist import quantize_uniform
 from iqwaveform_torch.ops.kernels.fused_ola import (
     H100_SMEM_OPTIN,
-    OLA_REG_PAIR,
+    OLA_REG_PAIRS,
     REG_PAIRS,
     REG_PLANS,
     REG_THREADS,
@@ -419,19 +419,20 @@ def test_host_tables_are_the_models(pair):
 def test_shared_memory_per_block():
     """the padded exchange buffer of nfft and both transforms' tables, as
     RegShape sizes the launch: one block within an H100's opt-in."""
-    want = {(16384, 8192): 154880, (12288, 6144): 117504}
+    want = {(16384, 8192): 154880, (12288, 6144): 117504, (12288, 4096): 118016}
     for nfft, nfft_out in REG_PAIRS:
         n2 = nfft + nfft // 16 + tables(nfft, False)[0].size + tables(nfft_out, True)[0].size
         assert 8 * n2 == want[(nfft, nfft_out)] <= H100_SMEM_OPTIN
 
 
 def test_route_by_size():
-    """the specialised kernel takes exactly its two pairs; unresampled,
-    swapped and other sizes keep the generic kernel, and the scope of
-    fused_ola_frames_supported is as before, with the cluster kernel's
-    pairs above one block's shared memory added to it
-    (tests/test_torch_ola_cluster.py)."""
-    assert REG_PAIRS == ((16384, 8192), (12288, 6144))
+    """the specialised kernel takes exactly its three pairs; unresampled,
+    swapped and other one-block sizes keep the generic kernel, and the
+    scope of fused_ola_frames_supported is as before, with the cluster
+    kernel's pairs (tests/test_torch_ola_cluster.py) and the split route's
+    sizes above one block's shared memory (tests/test_torch_ola_split.py)
+    added to it."""
+    assert REG_PAIRS == ((16384, 8192), (12288, 6144), (12288, 4096))
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg'
         assert fused_ola_frames_supported(*pair)
@@ -440,8 +441,9 @@ def test_route_by_size():
         assert frames_route(*pair) == 'generic', pair
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
                  (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): False,
-                 (32768, 16384): True, (32768, 32768): False, (98304, 24576): True,
-                 (163840, 40960): True, (196608, 24576): False, (1, 1): True}
+                 (32768, 16384): True, (32768, 32768): True, (98304, 24576): True,
+                 (163840, 40960): True, (196608, 24576): True, (1, 1): True,
+                 (7 * 16384, 16384): False}
     for pair, ok in supported.items():
         assert fused_ola_frames_supported(*pair) == ok, pair
 
@@ -466,7 +468,7 @@ def _flagship_ola_kwargs():
     mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP),
                              device='cpu')
     kw = mon.ola_kwargs
-    assert (kw['nfft'], kw['nfft_out']) == OLA_REG_PAIR
+    assert (kw['nfft'], kw['nfft_out']) == OLA_REG_PAIRS[0]
     assert (kw['noverlap_in'], kw['noverlap_out']) == (8192, 4096)
     return kw
 
@@ -478,7 +480,7 @@ def test_ola_model_matches_plain(batch):
     hop_in, not of nfft: the last frame reads 8192 samples past the end,
     which the halo makes zero) and batch 1 and 2."""
     kw = _flagship_ola_kwargs()
-    nfft, nfft_out = OLA_REG_PAIR
+    nfft, nfft_out = OLA_REG_PAIRS[0]
     rng = np.random.default_rng(batch)
     x = rng.standard_normal((batch, 3 * nfft // 2)) + 1j * rng.standard_normal((batch, 3 * nfft // 2))
     wide = {k: v.to(torch.complex128) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
@@ -505,7 +507,7 @@ def test_strided_model_matches_plain(n_halo):
     and the tail) in complex128, on two rows of 5 hops; a halo shorter
     than noverlap_in reads zeros after it."""
     kw = _flagship_ola_kwargs()
-    nfft, nfft_out = OLA_REG_PAIR
+    nfft, nfft_out = OLA_REG_PAIRS[0]
     rng = np.random.default_rng(n_halo)
     planes = rng.standard_normal((2, 2, 5 * nfft // 2))
     halo = rng.standard_normal((2, 2, n_halo))
@@ -573,13 +575,16 @@ def test_forward_table_is_a_view_of_the_pair_table():
 
 
 def test_ola_and_channelizer_routes():
-    """fused_ola takes the register-resident kernel at 16384 -> 8192 only;
+    """fused_ola takes the register-resident kernel at 16384 -> 8192,
+    8192 -> 4096 and 16384 -> 4096 (OLA_REG_PAIRS) only;
     chan_stats the channel-only register kernel at every one-block size
     (16384 among them), the mixed-size statistics kernel in the other modes
     there, the radix-2 kernel at the powers of two 64-512 (and
     test_stats_route_and_cpu_tensors, tests/test_torch_chan_sizes.py)."""
-    assert ola_route(*OLA_REG_PAIR) == 'reg' and fused_ola_cuda_supported(16384, 8192, 8192, 4096)
-    for pair in [(8192, 4096), (16384, 16384), (4096, 2048), (16384, 4096), (8192, 16384), (64, 32)]:
+    assert ola_route(*OLA_REG_PAIRS[0]) == 'reg' and fused_ola_cuda_supported(16384, 8192, 8192, 4096)
+    for pair in [(8192, 4096), (16384, 4096)]:
+        assert ola_route(*pair) == 'reg', pair
+    for pair in [(16384, 16384), (4096, 2048), (8192, 16384), (64, 32), (4096, 4096)]:
         assert ola_route(*pair) == 'generic', pair
     assert chan_route(REG_NFFT, emit_psd=False, emit_pbin=False) == 'reg'
     for args, want in [((16384, True, True), 'mixed'), ((16384, True, False), 'mixed'),

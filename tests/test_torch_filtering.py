@@ -138,8 +138,10 @@ def test_ola_filter_routes_by_design():
     """'auto' takes the frame-batch kernel where its scope covers the
     design and the stage chain elsewhere, quietly; 'pallas' outside the
     scope raises ValueError. The scope on a CPU device is that of an H100:
-    sizes 2^a 3^b 5^c whose frame fits 227 KiB of shared memory, and the
-    pairs a thread-block cluster takes above that (CLUSTER_PAIRS)."""
+    sizes 2^a 3^b 5^c whose frame fits 227 KiB of shared memory, the
+    pairs a thread-block cluster takes above that (CLUSTER_PAIRS), and the
+    split route's sizes C M above it (M a register plan's size, C <= 64 of
+    the factors 2, 3 and 5)."""
     cpu = torch.device('cpu')
 
     def route(nfft, nfft_out, noverlap, size=10**8):
@@ -150,9 +152,10 @@ def test_ola_filter_routes_by_design():
     assert route(16384, 8192, 8192) == 'pallas'  # BASELINE config #2
     assert route(12288, 6144, 8192) == 'pallas'  # monitor blackman
     assert route(20480, 10240, 16384) == 'pallas'  # monitor blackmanharris
-    assert route(40960, 20480, 32768) == 'pallas'  # a cluster pair
+    assert route(40960, 20480, 32768) == 'pallas'  # a former cluster pair, now split
     assert route(98304, 24576, 65536) == 'pallas'  # a cluster pair of 6 blocks
-    assert route(196608, 24576, 131072) == 'xla'  # above shared memory, no cluster pair
+    assert route(196608, 24576, 131072) == 'pallas'  # above shared memory: the split route
+    assert route(172032, 24576, 114688) == 'xla'  # above shared memory, factor 7
     assert route(14 * 1024, 7 * 1024, 7 * 1024) == 'xla'  # factor 7
     assert route(4096, 2048, 2048, size=4000) == 'xla'  # shorter than a frame
     assert TF.fused_ola_frames_supported(28800, 14400)

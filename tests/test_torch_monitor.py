@@ -153,7 +153,7 @@ def test_step_matches_jax_at_the_cluster_designs(window):
         assert torch.equal(v, got[key]), key
 
 
-# the frames the clusters of 6 and 10 blocks take: the blackman and
+# the frames a cluster of 6 blocks and the split route take: the blackman and
 # blackmanharris designs at 122.88 -> 30.72 MS/s (98304 -> 24576 at R = 3,
 # 163840 -> 40960 at R = 5; a 16 x 256 channelizer at navg 1, 2048 edges)
 WIDER_CLUSTER_DESIGNS = {

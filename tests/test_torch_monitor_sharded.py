@@ -154,7 +154,8 @@ def _routes(rates, **kw):
     ('flagship', {'ola': 'reg', 'chan': 'reg', 'apd': 'bucket'}),
     ('blackman12288', {'ola': 'reg', 'chan': 'mixed', 'apd': 'bucket'}),
     ('cluster', {'ola': 'cluster', 'chan': 'reg', 'apd': 'bucket'}),
-    ('frames196608', {'ola': 'plain', 'chan': 'reg', 'apd': 'bucket'}),
+    ('frames196608', {'ola': 'split', 'chan': 'reg', 'apd': 'bucket'}),
+    ('frames172032', {'ola': 'plain', 'chan': 'reg', 'apd': 'bucket'}),
     ('chan36864', {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}),
     ('navg256', {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}),
     ('edges40000', {'ola': 'reg', 'chan': 'reg', 'apd': 'plain'}),
@@ -171,6 +172,7 @@ def test_monitor_routes_by_shape(case, expect):
         'blackman12288': ((30.72e6, 15.36e6), DESIGNS['blackman'][1]),
         'cluster': ((122.88e6, 61.44e6), dict(bw=40e6, fs_sdr=122.88e6, window='blackman')),
         'frames196608': ((122.88e6, 15.36e6), dict(bw=10e6, fs_sdr=122.88e6, window='blackman')),
+        'frames172032': ((107.52e6, 15.36e6), dict(bw=10e6, fs_sdr=107.52e6, window='blackman')),
         'chan36864': ((122.88e6, 61.44e6), {**flag, 'channel_count': 48,
                                             'fft_size_per_channel': 768, 'apd_navg': 1}),
         'navg256': ((122.88e6, 61.44e6), {**flag, 'channel_count': 48, 'apd_navg': 256}),
@@ -182,36 +184,58 @@ def test_monitor_routes_by_shape(case, expect):
     mon, routes = _routes(rates, **kw)
     if case == 'frames196608':
         assert (mon.design.nfft, mon.design.nfft_out) == (196608, 24576)
+    if case == 'frames172032':
+        assert (mon.design.nfft, mon.design.nfft_out) == (172032, 24576)
     if case in ('chan36864', 'navg256'):
         assert mon._chan is it.ops.kernels.chan_stats_plain
     assert routes == expect
 
 
-@pytest.mark.parametrize('case', ['frames196608', 'chan36864', 'edges40000'])
+def _step_equals_reference(mon, seed=11):
+    """one step of noise on the CPU, equal to reference_step; returns the
+    input"""
+    n = mon.min_input_multiple()
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
+    got = mon.step(x)
+    for k, v in mon.reference_step(x).items():
+        assert torch.equal(v, got[k]), k
+    return x, got
+
+
+def test_monitor_steps_on_the_split_route():
+    """the blackman 122.88 -> 15.36 MS/s design, 196608-point frames that
+    no block holds and no cluster pair lists, routes its OLA to the split
+    route, constructs and steps, equal to reference_step on the CPU"""
+    rates = (122.88e6, 15.36e6)
+    kw = dict(bw=10e6, fs_sdr=122.88e6, window='blackman', apd_bins=256)
+    mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw), device='cpu')
+    assert (mon.design.nfft, mon.design.nfft_out) == (196608, 24576)
+    assert mon.routes['ola'] == 'split'
+    _step_equals_reference(mon)
+
+
+@pytest.mark.parametrize('case', ['frames172032', 'chan36864', 'edges40000'])
 def test_monitor_steps_where_a_kernel_refuses(case):
-    """the designs whose shapes no CUDA kernel takes construct and step,
-    equal to reference_step on the CPU, and near the JAX monitor
-    (assert_step_close) at the channelizer size outside CHAN_SIZES and the
-    APD edges above hist's shared memory"""
+    """the designs whose shapes no CUDA kernel takes (172032-point frames,
+    a channelizer size outside CHAN_SIZES, APD edges above hist's shared
+    memory) construct and step, equal to reference_step on the CPU, and
+    near the JAX monitor (assert_step_close) at the channelizer size
+    outside CHAN_SIZES and the APD edges above hist's shared memory"""
     flag = dict(bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
                 window='hamming', apd_navg=16, min_fft_size=8191)
     rates, kw = {
-        'frames196608': ((122.88e6, 15.36e6), dict(bw=10e6, fs_sdr=122.88e6,
+        'frames172032': ((107.52e6, 15.36e6), dict(bw=10e6, fs_sdr=107.52e6,
                                                     window='blackman', apd_bins=256)),
         'chan36864': ((122.88e6, 61.44e6), {**flag, 'channel_count': 48,
                                             'fft_size_per_channel': 768, 'apd_bins': 256}),
         'edges40000': ((122.88e6, 61.44e6), {**flag, 'apd_bins': 40000}),
     }[case]
     mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw), device='cpu')
-    n = mon.min_input_multiple()
-    rng = np.random.default_rng(11)
-    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype('complex64')
-    got = mon.step(x)
-    for k, v in mon.reference_step(x).items():
-        assert torch.equal(v, got[k]), k
-    if case == 'edges40000':
-        assert mon.routes['apd'] == 'plain'
-    if case != 'frames196608':
+    assert mon.routes['ola' if case == 'frames172032' else
+                      'chan' if case == 'chan36864' else 'apd'] == 'plain'
+    x, got = _step_equals_reference(mon)
+    if case != 'frames172032':
         jm = JaxMonitor(jax_design(*rates, **kw))
         ref = {k: np.asarray(v) for k, v in jax.jit(jm.step)(jnp.asarray(x)).items()}
         assert_step_close(got, ref)

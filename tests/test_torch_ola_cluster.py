@@ -57,11 +57,14 @@ from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_packed
 
 PAIRS = sorted(CLUSTER_PAIRS)
 # frames above one block's shared memory that no CUDA route takes yet
-# (ROADMAP Queue 2 item 1): blackman at 122.88 -> 15.36 MS/s, and a
-# power-of-two pair; the blackman and blackmanharris frames at 122.88 ->
-# 30.72 MS/s (98304 -> 24576, 163840 -> 40960) were here until clusters of
-# 6 and 10 blocks took them
-OUTSIDE = ((196608, 24576), (131072, 32768))
+# (ROADMAP Queue 2 item 1): sizes with a prime factor 7 (blackman at 107.52
+# -> 15.36 MS/s is 172032 -> 24576). The blackman and blackmanharris frames
+# at 122.88 -> 30.72 MS/s (98304 -> 24576, 163840 -> 40960) were here until
+# clusters of 6 and 10 blocks took them (163840 -> 40960 since on the split
+# route, which beat the cluster of 10); blackman at 122.88 -> 15.36 MS/s
+# (196608 -> 24576) and 131072 -> 32768 until the split route
+# (tests/test_torch_ola_split.py) took them
+OUTSIDE = ((172032, 24576), (7 * 16384, 32768))
 
 
 def model_tables(nfft, nfft_out):
@@ -263,38 +266,45 @@ def test_host_tables_are_the_models(pair):
 
 def test_cluster_shapes_and_shared_memory():
     """each pair splits into sizes that csrc/fft_reg.cuh has plans for, by
-    a cluster of at most 10 blocks (above the portable 8 only at 163840 ->
-    40960, whose instance opts in to a non-portable size), and one block's
+    a cluster of at most the portable 8 blocks (163840 -> 40960 on 10 left
+    for the split route), and one block's
     buffer and pass tables fit an H100's opt-in shared memory (one block an
-    SM)."""
-    want = {(49152, 24576): 154880, (81920, 40960): 154880, (40960, 20480): 82176,
+    SM). Every pair's frame is above one block's shared memory but the two
+    of 24576 points, which a cluster of 2 takes in place of the generic
+    kernel."""
+    want = {(49152, 24576): 154880, (81920, 40960): 154880,
             (40960, 40960): 83200, (32768, 8192): 153856, (32768, 16384): 154880,
-            (36864, 12288): 118016, (98304, 24576): 153856, (163840, 40960): 153856}
+            (98304, 24576): 153856,
+            (24576, 12288): 117504, (24576, 8192): 118016}
     assert set(want) == set(CLUSTER_PAIRS)
-    assert [p for p, c in CLUSTER_PAIRS.items() if c > 8] == [(163840, 40960)]
     for (nfft, nfft_out), c in CLUSTER_PAIRS.items():
-        assert 2 <= c <= 10 and nfft % c == 0 and nfft_out % c == 0
+        assert 2 <= c <= 8 and nfft % c == 0 and nfft_out % c == 0
         m1, m2 = nfft // c, nfft_out // c
         assert m1 in REG_PLANS and m2 in REG_PLANS
-        assert 8 * max(nfft, nfft_out) > H100_SMEM_OPTIN  # one block cannot hold it
+        # one block cannot hold it, but at 24576 points
+        assert (8 * max(nfft, nfft_out) > H100_SMEM_OPTIN) == (nfft != 24576)
         assert cluster_smem(nfft, nfft_out) == want[(nfft, nfft_out)] <= H100_SMEM_OPTIN
 
 
 def test_route_and_scope_by_size():
     """'cluster' at exactly the compiled pairs, which the scope now takes
-    (the 98304- and 163840-point frames among them); the register-resident
-    pairs, the generic sizes and the scope of every other size as before;
-    the frames of OUTSIDE outside."""
+    (the 98304-point frames among them, and 24576 -> 12288 in place of the
+    generic kernel); the register-resident pairs, the generic sizes and the
+    scope of every other size as before; frames above one block that no
+    cluster pair lists on the split route, 163840 -> 40960 among them; the
+    frames of OUTSIDE outside."""
     for pair in PAIRS:
         assert frames_route(*pair) == 'cluster'
         assert fused_ola_frames_supported(*pair)
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg' and fused_ola_frames_supported(*pair)
     for pair, ok in {(1536, 768): True, (20480, 10240): True, (28800, 14400): True,
-                     (24576, 12288): True, (32768, 32768): False, (49152, 49152): False,
-                     (81920, 20480): False, (7 * 1024, 3584): False}.items():
+                     (24576, 24576): True, (7 * 1024, 3584): False}.items():
         assert frames_route(*pair) == 'generic', pair
         assert fused_ola_frames_supported(*pair) == ok, pair
+    for pair in ((32768, 32768), (49152, 49152), (81920, 20480), (163840, 40960),
+                 (36864, 12288), (40960, 20480)):
+        assert frames_route(*pair) == 'split' and fused_ola_frames_supported(*pair), pair
     for pair in OUTSIDE:
         assert frames_route(*pair) == 'generic' and not fused_ola_frames_supported(*pair)
 
@@ -314,36 +324,35 @@ def test_route_and_scope_by_size():
 ])
 def test_designs_take_the_cluster_route(rates, kw, pair):
     """the monitor designs whose frames the cluster kernel takes (the JAX
-    package's packed kernel takes them too), the blackman and
-    blackmanharris frames of 122.88 -> 30.72 MS/s among them on clusters of
-    6 and 10 blocks: the route functions the monitor and ola_filter
-    consult pick it, with no change of their own."""
+    package's packed kernel takes them too), the blackman frames of 122.88
+    -> 30.72 MS/s among them on clusters of 6 blocks (the blackmanharris
+    ones, 163840 -> 40960, on the split route, which beat the cluster of
+    10 blocks): the route functions the monitor and ola_filter consult pick
+    it, with no change of their own."""
     d = it.design_wideband_monitor(*rates, **kw)
     assert (d.nfft, d.nfft_out) == pair
     jd = jax_design(*rates, **kw)
     assert (jd.nfft, jd.nfft_out) == pair
-    covered = pair in CLUSTER_PAIRS
-    assert fused_ola_frames_supported(*pair) == covered
-    assert frames_route(*pair) == ('cluster' if covered else 'generic')
-    if covered:
-        # the monitor's OLA goes through the frame kernel's wrapper
-        ola = it.WidebandMonitor(d, device='cpu')._ola
-        assert ola.func is ola_grouped and ola.keywords == {
-            'frames_fn': kernels.fused_ola_frames}
+    assert fused_ola_frames_supported(*pair)
+    assert frames_route(*pair) == ('split' if pair == (163840, 40960) else 'cluster')
+    assert (pair in CLUSTER_PAIRS) == (pair != (163840, 40960))
+    # the monitor's OLA goes through the frame kernel's wrapper
+    ola = it.WidebandMonitor(d, device='cpu')._ola
+    assert ola.func is ola_grouped and ola.keywords == {'frames_fn': kernels.fused_ola_frames}
 
 
 def test_cpu_tensors_take_the_plain_chain_at_the_cluster_sizes():
     """on the CPU the wrapper runs the plain version at the cluster pairs,
     and counts no launch."""
     rng = np.random.default_rng(6)
-    nfft, nfft_out = 40960, 20480
+    nfft, nfft_out = 81920, 40960
     frames = torch.from_numpy((rng.standard_normal((2, nfft)) + 0j).astype('complex64'))
     kw = dict(w_in=torch.ones(nfft, dtype=torch.complex64),
               w_shift_out=torch.ones(nfft_out, dtype=torch.complex64), nfft=nfft,
               nfft_out=nfft_out, zero_lo=0, zero_hi=None,
-              bounds_in=(10240, 30720), bounds_out=(0, 20480))
+              bounds_in=(20480, 61440), bounds_out=(0, 40960))
     before = dict(kernels.fused_ola_frames.route_launches), kernels.fused_ola_frames.launches
-    assert set(before[0]) == {'reg', 'cluster', 'generic'}
+    assert set(before[0]) == {'reg', 'cluster', 'split', 'generic'}
     got = kernels.fused_ola_frames(frames, **kw)
     torch.testing.assert_close(got, kernels.fused_ola_frames_plain(frames, **kw))
     assert (dict(kernels.fused_ola_frames.route_launches), kernels.fused_ola_frames.launches) == before
@@ -377,8 +386,9 @@ def test_plain_chain_matches_jax_packed_at_the_slice_design():
 @pytest.mark.parametrize('window,pair', [('blackman', (98304, 24576)),
                                          ('blackmanharris', (163840, 40960))])
 def test_plain_chain_matches_jax_packed_at_the_wider_clusters(window, pair):
-    """row 2 at the pairs of the clusters of 6 and 10 blocks, the blackman
-    and blackmanharris designs of 122.88 -> 30.72 MS/s: the plain chain
+    """row 2 at the pairs of the clusters of 6 and (until the split route
+    beat it) 10 blocks, the blackman and blackmanharris designs of 122.88
+    -> 30.72 MS/s: the plain chain
     against the JAX package's fused_ola_packed in interpret mode
     ('highest'), on 2 frames of the design's windows and bounds, within
     1e-5 relative RMS."""
@@ -386,7 +396,8 @@ def test_plain_chain_matches_jax_packed_at_the_wider_clusters(window, pair):
     mon = it.WidebandMonitor(it.design_from_reference(dataclasses.asdict(d)), device='cpu')
     kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
     nfft, nfft_out = kw['nfft'], kw['nfft_out']
-    assert (nfft, nfft_out) == pair and frames_route(*pair) == 'cluster'
+    assert (nfft, nfft_out) == pair
+    assert frames_route(*pair) == {(98304, 24576): 'cluster', (163840, 40960): 'split'}[pair]
     rng = np.random.default_rng(nfft)
     frames = (rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))).astype(
         'complex64')
