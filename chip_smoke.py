@@ -320,7 +320,39 @@ cluster pair takes, and the grid's pairs that ran the older bodies:
    error), timed beside the older body and the ``torch.fft`` chain, with
    a monitor step at each design, whose launches the row carries; (e) the
    split route beside the cluster kernel at each cluster pair above one
-   block, on 2^24 samples at hop nfft / 3.
+   block, on 2^24 samples at hop nfft / 3;
+
+then the host layer on the card (the machine has no matplotlib or pandas,
+so nothing is drawn: the figures' drawing is held on the CPU by the tests),
+and row 3's split route through ola_filter:
+
+23. (a) ``io.write_sigmf(datatype='npy')`` of two captures of 2^24 samples
+   at 122.88 MS/s made on the card (tone + noise from seed 0, two center
+   frequencies, an NTIA CalibrationAnnotation at a preselector gain of 30
+   dB), ``io.read_sigmf(stack=True, ntia_extensions=True)`` and
+   ``utils.to_device_array`` back onto the card (equal to the capture
+   scaled in memory), then the flagship ``WidebandMonitor.step`` on the
+   (2, 2^24) batch: ``torch.equal`` to the step on the arrays scaled in
+   memory on every output, the same launches, rows 1, 5 and 6 each
+   launched, no library FFT in its profile; the write and read times (host
+   clock) and the step's (CUDA events); (b) what ``plot_power_ccdf`` and
+   ``plot_spectrogram_heatmap_from_iq`` compute, on one capture: the
+   power averaged over 16 samples in dB (within 1e-4 dB of the
+   ``device='cpu'`` run), its 0.01 dB bin grid and ``sample_ccdf`` (one
+   ``hist_bucket_kernel`` launch, counts equal to the plain CPU call's),
+   the spectrogram at a 1024-point hann window (within 1e-5 relative RMS of
+   the CPU's), each timed; (c) ``fourier.fft`` of a (4096, 16384) complex64
+   batch whole and under ``set_max_cupy_fft_chunk(2**24)``: within 1e-6
+   relative RMS, each call's peak device memory above its input (cuFFT's
+   workspace) and time; (d) ``sliding_window_view`` of card tensors of 2^24
+   samples is a view (its pointer, numpy's strides, no allocation),
+   ``binned_mean`` and ``grouped_views_along_axis`` equal to the same calls
+   on the CPU; (e) ``ola_filter`` at 131072 -> 16384 (hamming) on
+   99,999,744 samples: one launch on the split route, within 1e-5 of the
+   plain route and of the torch.fft stage chain, the split kernels a call
+   from its profile, timed beside both, and the split frames alone beside
+   their bound and plain version (kernels-line row
+   ``split_ola_filter_131072``). Rows 1, 5 and 6 gain ``host_layer``.
 
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
@@ -4655,6 +4687,340 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     return rows
 
 
+# ---- phase 23: the host layer on the card (SigMF recordings into the
+# flagship step, the figures' computations, the FFT chunk bound, the framing
+# helpers) and row 3's split route through ola_filter
+N_HOST = 1 << 24  # samples a capture of 23a (two captures)
+HOST_FS = 122.88e6
+HOST_FREQS = (3.55e9, 3.65e9)  # the captures' center frequencies
+HOST_STAMP = '2026-01-01T00:00:00+00:00'
+# an NTIA CalibrationAnnotation with the fields that
+# io.extract_ntia_calibration_metadata reads
+HOST_CAL = {'ntia-core:annotation_type': 'CalibrationAnnotation',
+            'ntia-sensor:temperature': 21.0, 'ntia-sensor:noise_figure_sensor': 4.5,
+            'ntia-sensor:gain_preselector': 30.0}
+HOST_DIR = ROOT / 'build' / 'host_layer'
+CCDF_NAVG = 16  # 23b: samples a detector bin of plot_power_ccdf's averaged power
+SPG_NFFT = 1024  # 23b: plot_spectrogram_heatmap_from_iq's window
+FFT_BATCH = (4096, 16384)  # 23c: the batch transformed whole and chunked
+FFT_CHUNK = 1 << 24  # 23c: the chunk bound, in samples
+N_WINDOW = 1024  # 23d: sliding_window_view's span
+BINNED_COUNT = 16  # 23d: binned_mean's bin
+GROUP_MAX = 1 << 20  # 23d: grouped_views_along_axis's bound
+# 23e: ola_filter at the pair of tests/test_torch_cuda.py
+# test_ola_filter_takes_the_split_route, on the largest multiple of its
+# noverlap (8192) at or below BASELINE #2's 99,999,744 samples
+SPLIT_FILTER_KW = dict(fs=122.88e6, nfft=131072, nfft_out=16384, window='hamming',
+                       passband=(-6e6, 6e6))
+N_SPLIT_FILTER = 12207 * 8192
+SPLIT_FILTER_ROW = 'split_ola_filter_131072'
+KERNEL_INFO[SPLIT_FILTER_ROW] = ('iqwaveform_torch/csrc/ola_split.cu',
+                                 'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394')
+
+
+def host_captures(dev) -> torch.Tensor:
+    """23a's (2, N_HOST) complex64 capture: a tone at +PSD_TONE_HZ and one
+    at -PSD_TONE_HZ / 2, each with complex white noise PSD_SNR_DB below
+    it, made on the card from SEED."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = torch.arange(N_HOST, device=dev, dtype=torch.float64) / HOST_FS
+    tones = torch.stack([torch.exp(2j * math.pi * f * t) for f in (PSD_TONE_HZ, -PSD_TONE_HZ / 2)])
+    noise = torch.randn((2, N_HOST), dtype=torch.complex64, device=dev, generator=gen)
+    return tones.to(torch.complex64) + 10 ** (-PSD_SNR_DB / 20) * noise
+
+
+def device_launches(fn, kernels_of) -> dict:
+    """launches a call makes of each device kernel whose name holds one of
+    ``kernels_of``, by short name, from one profiled call (retaken up to
+    PROFILE_TRIES times while the trace holds none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(k in e.name for k in kernels_of):
+                key = short_name(e.name)
+                counts[key] = counts.get(key, 0) + 1
+        if counts:
+            return counts
+    return {}
+
+
+def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
+    """phase 23; returns the kernels line's row of row 3's split route
+    through ola_filter, and the host-layer entries of rows 1, 5 and 6."""
+    from scipy import signal
+
+    import iqwaveform_torch as it
+    from iqwaveform_torch import figures
+    from iqwaveform_torch import io as tio
+    from iqwaveform_torch.ops import filtering as TF
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.utils import (
+        binned_mean,
+        grouped_views_along_axis,
+        sliding_window_view,
+        to_device_array,
+    )
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+
+    def launched():
+        return {name: k.launches for name, k in kset.items() if k.launches}
+
+    host_layer = {}
+
+    # ---- 23a: two captures through write_sigmf / read_sigmf (npy, the NTIA
+    # gain) into the flagship step, against the step on the same scaled
+    # arrays made in memory
+    x = host_captures(dev)
+    HOST_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        _, meta_path = tio.write_sigmf(HOST_DIR / 'two_captures', list(x), HOST_FS,
+                                       center_frequency=HOST_FREQS, datatype='npy',
+                                       timestamps=HOST_STAMP, annotations=[HOST_CAL])
+        write_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        caps, freqs, Ts, cal = tio.read_sigmf(meta_path, stack=True, ntia_extensions=True)
+        read_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for path in HOST_DIR.glob('two_captures*'):
+            path.unlink()
+    t0 = time.perf_counter()
+    xf = to_device_array(caps.T, 'complex64')
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    require(caps.shape == (N_HOST, 2) and tuple(freqs) == HOST_FREQS and Ts == 1 / HOST_FS,
+            f'23a read_sigmf: {caps.shape}, {freqs}, {Ts}')
+    require(cal == {'ambient temperature (K)': 21.0 + 273.15, 'noise figure (dB)': 4.5,
+                    'gain (dB)': 30.0}, f'23a calibration {cal}')
+    scale = tio._voltage_scale_from_cal(cal, True, 50)
+    x_mem = (x.to(torch.complex128) * scale).to(torch.complex64)
+    require(xf.device == x_mem.device and torch.equal(xf, x_mem),
+            '23a the recording read back differs from the scaled capture made in memory')
+    print(f'23a write_sigmf (npy, 2 x {N_HOST} samples from the card) {write_ms:.1f} ms, '
+          f'read_sigmf(stack=True, ntia_extensions=True) {read_ms:.1f} ms, to_device_array '
+          f'{copy_ms:.1f} ms (host clock; {smi}); voltage scale {scale:.6g}')
+
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP))
+    reset_counts()
+    out = mon.step(xf)
+    torch.cuda.synchronize()
+    from_file = launched()
+    reset_counts()
+    ref = mon.step(x_mem)
+    torch.cuda.synchronize()
+    in_memory = launched()
+    print(f'23a step on the (2, {N_HOST}) recording: launches {json.dumps(from_file)}; the '
+          f'in-memory step {json.dumps(in_memory)}')
+    require(from_file == in_memory, f'23a launches {from_file} differ from {in_memory}')
+    for kname in MONITOR_KERNELS:
+        require(from_file.get(kname, 0) > 0, f'23a the step launched no {kname} kernel')
+    for key, v in out.items():
+        require(v.shape == ref[key].shape and v.shape[0] == 2 and torch.equal(v, ref[key]),
+                f'23a step {key} differs from the in-memory step')
+        if v.is_floating_point():
+            require(bool(torch.isfinite(v).all()), f'23a step {key} not finite')
+    names, _ = device_kernels(lambda: mon.step(xf), OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
+    for k in (OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL):
+        require(any(k in n for n in names), f'23a profiler shows no {k} in the step')
+    bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
+    require(not bad, f'23a library FFT / GEMM kernels in the step: {bad}')
+    step_ms = timed_ms(lambda: mon.step(xf))
+    print(f'23a step: {step_ms:.4f} ms for 2 x {N_HOST} samples = '
+          f'{2 * N_HOST / step_ms / 1e3:.1f} MS/s ({smi})')
+    for kname in MONITOR_KERNELS:
+        host_layer[kname] = {'path': f'WidebandMonitor.step on the (2, {N_HOST}) SigMF recording',
+                             'launches': from_file.get(kname, 0), 'path_ms': step_ms}
+    host_layer['fused_ola'].update(write_ms=write_ms, read_ms=read_ms, copy_ms=copy_ms)
+    del out, ref, x, x_mem, caps, mon
+
+    # ---- 23b: what plot_power_ccdf and plot_spectrogram_heatmap_from_iq
+    # compute, on the card, against device='cpu'
+    x0 = xf[0]
+    x0_cpu = x0.cpu()
+    Tavg = CCDF_NAVG / HOST_FS
+    reset_counts()
+    navg, p_dB = figures._averaged_power_dB(x0, Ts, Tavg, False, device=dev)
+    bins = figures._ccdf_bin_grid(p_dB, None)
+    counts = it.sample_ccdf(p_dB, bins, density=False, device=dev)
+    torch.cuda.synchronize()
+    ccdf_calls = launched()
+    ccdf_routes = dict(kernels.hist.route_launches)
+    _, p_cpu = figures._averaged_power_dB(x0_cpu, Ts, Tavg, False, device='cpu')
+    err_dB = max_abs(p_dB.cpu(), p_cpu)
+    ref_counts = it.sample_ccdf(p_dB.cpu(), bins, density=False, device='cpu')
+    print(f'23b plot_power_ccdf data: Navg {navg}, {p_dB.numel()} values in dB, {bins.size} edges '
+          f'of 0.01 dB; launches {json.dumps(ccdf_calls)}, hist routes {json.dumps(ccdf_routes)}; '
+          f'dB vs the CPU run max {err_dB:.3g} dB; counts equal to the CPU\'s '
+          f'{torch.equal(counts.cpu(), ref_counts)}')
+    require(ccdf_calls == {'hist': 1} and ccdf_routes == {'bucket': 1, 'generic': 0},
+            f'23b launches {ccdf_calls}, routes {ccdf_routes}')
+    require(err_dB <= 1e-4, f'23b averaged power {err_dB:.3g} dB from the CPU run')
+    require(torch.equal(counts.cpu(), ref_counts), '23b CCDF counts differ from the plain CPU run')
+    window = signal.get_window('hann', SPG_NFFT)
+    freqs, times, spg = figures._spectrogram_from_iq(x0, window, Ts, device=dev)
+    freqs_cpu, times_cpu, spg_cpu = figures._spectrogram_from_iq(x0_cpu, window, Ts, device='cpu')
+    err_spg = rel_rms(spg.cpu(), spg_cpu)
+    print(f'23b plot_spectrogram_heatmap_from_iq data: {tuple(spg.shape)} vs the CPU run relative '
+          f'RMS {err_spg:.3g}')
+    require(np.array_equal(freqs, freqs_cpu) and np.array_equal(times, times_cpu),
+            '23b spectrogram axes differ from the CPU run')
+    require(err_spg <= 1e-5, f'23b spectrogram relative RMS {err_spg:.3g} > 1e-5')
+    power_ms = timed_ms(lambda: figures._averaged_power_dB(x0, Ts, Tavg, False, device=dev))
+    ccdf_ms = timed_ms(lambda: it.sample_ccdf(p_dB, bins, density=False, device=dev))
+    spg_ms = timed_ms(lambda: figures._spectrogram_from_iq(x0, window, Ts, device=dev))
+    print(f'23b averaged power {power_ms:.4f} ms, sample_ccdf {ccdf_ms:.4f} ms, spectrogram '
+          f'{spg_ms:.4f} ms on {N_HOST} samples ({smi})')
+    host_layer['hist'].update(ccdf={
+        'path': f'plot_power_ccdf data: sample_ccdf of {p_dB.numel()} averaged dB values, '
+                f'{bins.size} edges', 'launches': ccdf_calls.get('hist', 0), 'ms': ccdf_ms,
+        'power_ms': power_ms, 'spectrogram_ms': spg_ms})
+    del p_dB, p_cpu, counts, spg, spg_cpu, x0_cpu
+
+    # ---- 23c: fft of a batch whole and under set_max_cupy_fft_chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = torch.randn(FFT_BATCH, dtype=torch.complex64, device=dev, generator=gen)
+    results, peaks, times_ms = {}, {}, {}
+    for bound in (None, FFT_CHUNK):
+        it.set_max_cupy_fft_chunk(bound)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            results[bound] = it.fourier.fft(batch)
+            torch.cuda.synchronize()
+            peaks[bound] = torch.cuda.max_memory_allocated(dev) - base
+            times_ms[bound] = timed_ms(lambda: it.fourier.fft(batch))
+        finally:
+            it.set_max_cupy_fft_chunk(None)
+    err = rel_rms(results[FFT_CHUNK], results[None])
+    print(f'23c fft of {FFT_BATCH} complex64: whole {times_ms[None]:.4f} ms, peak '
+          f'{peaks[None] / 2**20:.1f} MiB above the input; at {FFT_CHUNK} samples a call '
+          f'{times_ms[FFT_CHUNK]:.4f} ms, peak {peaks[FFT_CHUNK] / 2**20:.1f} MiB; relative RMS '
+          f'{err:.3g} ({smi})')
+    require(err <= 1e-6, f'23c chunked fft relative RMS {err:.3g} > 1e-6')
+    host_layer['fused_ola'].update(fft_chunk={
+        'shape': list(FFT_BATCH), 'bound': FFT_CHUNK, 'ms': times_ms[None],
+        'chunked_ms': times_ms[FFT_CHUNK], 'peak_bytes': peaks[None],
+        'chunked_peak_bytes': peaks[FFT_CHUNK]})
+    del batch, results
+
+    # ---- 23d: the framing helpers on card tensors of N_HOST samples
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    v = sliding_window_view(x0, N_WINDOW)
+    v2 = sliding_window_view(xf, (1, N_WINDOW), axis=(0, 1))
+    mem1 = torch.cuda.memory_allocated(dev)
+    require(v.data_ptr() == x0.data_ptr() and v.stride() == (1, 1)
+            and tuple(v.shape) == (N_HOST - N_WINDOW + 1, N_WINDOW),
+            f'23d sliding_window_view: {tuple(v.shape)}, strides {v.stride()}')
+    require(v2.data_ptr() == xf.data_ptr() and v2.stride() == (N_HOST, 1, N_HOST, 1)
+            and tuple(v2.shape) == (2, N_HOST - N_WINDOW + 1, 1, N_WINDOW),
+            f'23d sliding_window_view 2-D: {tuple(v2.shape)}, strides {v2.stride()}')
+    require(v._base is xf and v2._base is xf and mem1 <= mem0,
+            f'23d sliding_window_view is no view of the capture (device memory {mem0} -> {mem1})')
+    host_x0 = x0.cpu().numpy()
+    for row in (0, N_HOST // 2 + 7, N_HOST - N_WINDOW):
+        require(np.array_equal(v[row].cpu().numpy(), np.lib.stride_tricks.sliding_window_view(
+            host_x0, N_WINDOW)[row]), f'23d sliding_window_view row {row}')
+    p = x0.real * x0.real + x0.imag * x0.imag
+    for kw in (dict(axis=0), dict(axis=0, reject_extrema=True, fft=False)):
+        got = binned_mean(p, BINNED_COUNT, **kw)
+        err = rel_rms(got.cpu(), binned_mean(p.cpu(), BINNED_COUNT, **kw))
+        require(got.device.type == dev.type and err <= 1e-6,
+                f'23d binned_mean {kw}: relative RMS {err:.3g} against the CPU')
+    xr = x0.reshape(4096, N_HOST // 4096)
+    views = list(grouped_views_along_axis(xr, GROUP_MAX, axis=1))
+    views_cpu = list(grouped_views_along_axis(xr.cpu(), GROUP_MAX, axis=1))
+    require(len(views) == len(views_cpu) > 1
+            and all(g.data_ptr() >= xr.data_ptr() and torch.equal(g.cpu(), c)
+                    for g, c in zip(views, views_cpu)),
+            '23d grouped_views_along_axis differs from the CPU')
+    print(f'23d sliding_window_view {tuple(v.shape)} and {tuple(v2.shape)}: views (device '
+          f'memory {mem0} -> {mem1} bytes); binned_mean within 1e-6 of the CPU; grouped_views_along_axis '
+          f'{len(views)} views of {views[0].numel()} samples equal to the CPU\'s')
+    del v, v2, p, views, views_cpu, xf, x0
+
+    # ---- 23e: row 3's split route through ola_filter (131072 -> 16384)
+    kw = SPLIT_FILTER_KW
+    nfft, nfft_out = kw['nfft'], kw['nfft_out']
+    hop = nfft // 2
+    frames_k = kernels.fused_ola_frames
+    xs = torch.randn(N_SPLIT_FILTER, dtype=torch.complex64, device=dev, generator=gen)
+    it.ola_filter(xs[: 4 * nfft], **kw)  # warm-up: first-use setup
+    torch.cuda.synchronize()
+    reset_counts()
+    y = it.ola_filter(xs, **kw)
+    torch.cuda.synchronize()
+    calls = launched()
+    routes = dict(frames_k.route_launches)
+    print(f'23e ola_filter {nfft} -> {nfft_out} on {N_SPLIT_FILTER} samples: launches '
+          f'{json.dumps(calls)}, frame routes {json.dumps(routes)}')
+    require(calls == {'fused_ola_frames': 1}
+            and routes == {'reg': 0, 'cluster': 0, 'split': 1, 'generic': 0},
+            f'23e launches {calls}, routes {routes}')
+    plain_y = it.ola_filter(xs, **kw, plain=True)
+    chain_y = it.ola_filter(xs, **kw, fft_backend='xla')
+    err_plain, err_chain = rel_rms(y, plain_y), rel_rms(y, chain_y)
+    print(f'23e vs the plain route relative RMS {err_plain:.3g}, vs the torch.fft stage chain '
+          f'{err_chain:.3g}')
+    # the output covers the input's whole hops of nfft / 2, as the JAX
+    # package's ola_filter gives it (1525 of 1525.875 here)
+    require(y.shape == plain_y.shape == chain_y.shape == ((N_SPLIT_FILTER // hop) * nfft_out // 2,)
+            and bool(torch.isfinite(torch.view_as_real(y)).all()), f'23e output {tuple(y.shape)}')
+    require(err_plain <= 1e-5 and err_chain <= 1e-5,
+            f'23e relative RMS {err_plain:.3g} (plain), {err_chain:.3g} (chain) > 1e-5')
+    del plain_y, chain_y
+    split_calls = device_launches(lambda: it.ola_filter(xs, **kw), SPLIT_KERNELS)
+    print(f'23e device kernels of the split route in one call: {json.dumps(split_calls)}')
+    require(all(any(k in n for n in split_calls) for k in SPLIT_KERNELS),
+            f'23e the profile shows the split kernels {split_calls}')
+    path_ms = timed_ms(lambda: it.ola_filter(xs, **kw), reps=FILTER_REPS, warmup=1)
+    plain_path_ms = timed_ms(lambda: it.ola_filter(xs, **kw, plain=True), reps=FILTER_REPS,
+                             warmup=1)
+    chain_path_ms = timed_ms(lambda: it.ola_filter(xs, **kw, fft_backend='xla'),
+                             reps=FILTER_REPS, warmup=1)
+    enbw = it.equivalent_noise_bandwidth(kw['window'], nfft_out, fftbins=False)
+    zero_lo, zero_hi, b_in, b_out = TF._ola_bin_bounds(nfft, nfft_out, kw['fs'], kw['passband'],
+                                                       enbw, True)
+    w_in, w_out = TF._ola_windows(kw['window'], nfft, nfft_out, hop, dev)
+    fkw = dict(w_in=w_in, w_shift_out=w_out, nfft=nfft, nfft_out=nfft_out, zero_lo=zero_lo,
+               zero_hi=zero_hi, bounds_in=b_in, bounds_out=b_out)
+    frames = xs.unfold(-1, nfft, hop)
+    got_f = frames_k(frames, **fkw)
+    ref_f = kernels.fused_ola_frames_plain(frames, **fkw)
+    err = rel_rms(got_f, ref_f)
+    require(err <= 1e-5, f'23e the split frames vs plain: relative RMS {err:.3g}')
+    row = kernel_row(
+        SPLIT_FILTER_ROW, {'launches': calls.get('fused_ola_frames', 0),
+                           'max_abs_err': max_abs(got_f, ref_f)},
+        8 * xs.numel() + 8 * y.numel() + 8 * (nfft + nfft_out),
+        frames.shape[0] * (fft_ops(nfft) + fft_ops(nfft_out) + 6 * (nfft + nfft_out)),
+        lambda: frames_k(frames, **fkw),
+        lambda: kernels.fused_ola_frames_plain(frames, **fkw),
+        lambda: kernels.fused_ola_frames_plain(frames, **fkw),
+        mem_rate, fp32_rate, reps=FILTER_REPS, warmup=1,
+    )
+    row.update(path=f'ola_filter {nfft} -> {nfft_out}, hamming, on {N_SPLIT_FILTER} samples '
+                    '(the split route)',
+               path_ms=path_ms, plain_path_ms=plain_path_ms, chain_path_ms=chain_path_ms,
+               split_kernels_a_call=split_calls)
+    print(f'23e ola_filter {path_ms:.4f} ms = {N_SPLIT_FILTER / path_ms / 1e3:.1f} MS/s, the plain '
+          f'route {plain_path_ms:.4f} ms, the torch.fft stage chain {chain_path_ms:.4f} ms; the '
+          f'split frames alone ({frames.shape[0]} frames) {row["ms"]:.4f} ms, bound '
+          f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}, plain {row["plain_ms"]:.4f} ms ({smi})')
+    del xs, y, frames, got_f, ref_f
+    torch.cuda.empty_cache()
+    return [row], host_layer
+
+
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
 
@@ -5066,6 +5432,14 @@ def main(parent: str | None = None) -> int:
     # block that no cluster pair takes) and the register / cluster instances
     # of the grid's five remaining pairs
     rows = merge_rows(rows, split_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 23: the host layer on the card, and row 3's split route
+    # through ola_filter (rows 1, 5 and 6 gain the host-layer entries)
+    host_rows, host_layer = host_phases(dev, smi, mem_rate, fp32_rate)
+    rows = merge_rows(rows, host_rows)
+    for row in rows:
+        if row['name'] in host_layer:
+            row['host_layer'] = host_layer[row['name']]
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

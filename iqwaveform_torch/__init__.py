@@ -10,16 +10,29 @@ synchronization, symbol decoding; models.CellSearch) and
 channelize_power run on an NVIDIA Hopper card through hand-written CUDA
 kernels (ops.kernels), and on the CPU through their plain PyTorch
 versions. Entry points run on the card unless the caller
-passes ``device='cpu'``. The package imports torch, numpy and scipy, and
-nothing of JAX.
+passes ``device='cpu'``. The host layer (SigMF recordings in io, the
+plots of figures, the notebook setup of env) runs on the host and hands
+its computations to the port. The package imports torch, numpy and scipy,
+and nothing of JAX; pandas and matplotlib only where a function needs
+them.
 """
 
 __version__ = '0.1.0'
 
 from . import fourier, io, models, ofdm, ops, parallel, power_analysis, utils  # noqa: F401
-from .fourier import (  # noqa: F401
+from . import type_stubs, util, windows  # noqa: F401
+from .utils import lazy_import as _lazy_import
+
+figures = _lazy_import('iqwaveform_torch.figures')
+
+from .fourier import (  # noqa: F401, E402
     design_fir_lpf,
     design_fir_resampler,
+    fftfreq,
+    find_window_param_from_enbw,
+    get_max_cupy_fft_chunk,
+    set_max_cupy_fft_chunk,
+    to_blocks,
     iq_to_stft_spectrogram,
     istft,
     oaconvolve,
@@ -32,7 +45,8 @@ from .fourier import (  # noqa: F401
     time_to_frequency,
     upfirdn,
 )
-from .models import (  # noqa: F401
+from .io import waveform_to_frame  # noqa: F401, E402
+from .models import (  # noqa: F401, E402
     CellSearch,
     CellSearchResult,
     MonitorDesign,
@@ -42,13 +56,13 @@ from .models import (  # noqa: F401
     monitor_carry_from_reference,
     resolve_monitor_design,
 )
-from .ops import (  # noqa: F401
+from .ops import (  # noqa: F401, E402
     channelize_power,
     design_cola_resampler,
     equivalent_noise_bandwidth,
     get_window,
 )
-from .power_analysis import (  # noqa: F401
+from .power_analysis import (  # noqa: F401, E402
     dBlinmean,
     dBlinsum,
     dBtopow,
@@ -60,14 +74,14 @@ from .power_analysis import (  # noqa: F401
     powtodB,
     sample_ccdf,
 )
-from .utils import (  # noqa: F401
+from .utils import (  # noqa: F401, E402
     Domain,
     get_input_domain,
     histogram_last_axis,
     isroundmod,
     set_input_domain,
 )
-from .parallel import (  # noqa: F401
+from .parallel import (  # noqa: F401, E402
     carry_from_reference,
     design_persistence,
     persistence_apd_fold,
@@ -98,7 +112,11 @@ __all__ = [
     'envtodB',
     'envtopow',
     'equivalent_noise_bandwidth',
+    'fftfreq',
+    'figures',
+    'find_window_param_from_enbw',
     'fourier',
+    'get_max_cupy_fft_chunk',
     'get_input_domain',
     'get_window',
     'histogram_last_axis',
@@ -128,11 +146,17 @@ __all__ = [
     'resolve_monitor_design',
     'sample_ccdf',
     'set_input_domain',
+    'set_max_cupy_fft_chunk',
     'spectrogram',
     'stft',
     'streaming_apd',
     'streaming_persistence_spectrum',
     'time_to_frequency',
+    'to_blocks',
+    'type_stubs',
     'upfirdn',
+    'util',
     'utils',
+    'waveform_to_frame',
+    'windows',
 ]

@@ -1,31 +1,54 @@
-"""Reading raw IQ captures from disk for the port's streaming paths.
+"""Reading and writing spectrum-monitoring captures for the port.
 
-The host half of iqwaveform_tpu/io.py (:303-643): ``read_iq_data`` and
-``read_iq_planes`` load a span of a raw interleaved SigMF payload
-(``ci16_le`` int16 pairs or ``cf32_le`` complex64), ``iter_capture_chunks``
-walks a capture in fixed chunks, and ``CapturePrefetcher`` reads the next
-chunk on a background thread while the card works on the current one
-(``WidebandMonitor.accumulate_step``, ``persistence_apd_fold``). Numpy
-reads through ``np.memmap`` and converts on a few threads; the JAX
-package's optional native loader (``native/iqio.c``) and the SigMF
-metadata half are not part of the port.
-Everything here runs on the host and returns numpy arrays.
+The port of iqwaveform_tpu/io.py (reference io.py:1-152). Everything here
+runs on the host and returns numpy arrays (or pandas objects).
+
+* SigMF recordings: ``read_sigmf_metadata`` / ``read_sigmf`` (npy payloads,
+  cut at the captures' sorted starts, scaled to volts from an NTIA
+  calibration annotation), ``read_sigmf_to_df``, ``waveform_to_frame``,
+  ``resample_iq`` and ``write_sigmf`` (cf32_le, ci16_le or npy payloads; a
+  tensor on the card is copied to the host). The JSON is read and written
+  directly, with no ``sigmf`` package, in the JAX package's layout, so a
+  recording written by either package reads in the other.
+* Raw payload streams: ``read_iq_data`` and ``read_iq_planes`` load a span
+  of a raw interleaved SigMF payload (``ci16_le`` int16 pairs or
+  ``cf32_le`` complex64), ``iter_capture_chunks`` walks a capture in fixed
+  chunks, and ``CapturePrefetcher`` reads the next chunk on a background
+  thread while the card works on the current one
+  (``WidebandMonitor.accumulate_step``, ``persistence_apd_fold``). Numpy
+  reads through ``np.memmap`` and converts on a few threads; the JAX
+  package's optional native loader (``native/iqio.c``) is not part of the
+  port.
+
+pandas and scipy.signal are imported at first use (the machine with the
+card has no pandas).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
+from .utils import to_host
+
 __all__ = [
     'CapturePrefetcher',
+    'extract_ntia_calibration_metadata',
     'iter_capture_chunks',
     'read_iq_data',
     'read_iq_planes',
+    'read_sigmf',
+    'read_sigmf_metadata',
+    'read_sigmf_to_df',
+    'resample_iq',
+    'waveform_to_frame',
+    'write_sigmf',
 ]
 
 # bytes of one complex sample of each raw format
@@ -296,3 +319,256 @@ def iter_capture_chunks(
     for offset, n in spans:
         yield load(path, sample_format=sample_format, offset_samples=offset, num_samples=n,
                    scale=scale)
+
+
+# ---- SigMF recordings (iqwaveform_tpu/io.py:43-300)
+
+# NTIA sensor annotation fields -> (output key, value transform)
+_NTIA_CAL_FIELDS = {
+    'ntia-sensor:temperature': ('ambient temperature (K)', lambda c: c + 273.15),
+    'ntia-sensor:noise_figure_sensor': ('noise figure (dB)', lambda v: v),
+    'ntia-sensor:gain_preselector': ('gain (dB)', lambda v: v),
+}
+
+
+def extract_ntia_calibration_metadata(metadata: dict) -> dict:
+    """pull calibration values from an NTIA CalibrationAnnotation
+    (reference io.py:13-32)."""
+    cal = {key: None for key, _ in _NTIA_CAL_FIELDS.values()}
+
+    annotations = (
+        a
+        for a in metadata['annotations']
+        if a['ntia-core:annotation_type'] == 'CalibrationAnnotation'
+    )
+    for annotation in annotations:
+        for field, (key, convert) in _NTIA_CAL_FIELDS.items():
+            cal[key] = convert(annotation[field])
+        break
+
+    return cal
+
+
+def read_sigmf_metadata(metadata_fn, ntia=False):
+    """read capture table + sample rate (+ NTIA calibration) from SigMF
+    metadata (reference io.py:35-55)."""
+    metadata = json.loads(Path(metadata_fn).read_text())
+
+    # {sample_start: value} maps for each capture field
+    def by_start(field):
+        return {c['core:sample_start']: c[f'core:{field}'] for c in metadata['captures']}
+
+    cal = extract_ntia_calibration_metadata(metadata) if ntia else {}
+
+    return (
+        by_start('frequency'),
+        by_start('datetime'),
+        metadata['global']['core:sample_rate'],
+        cal,
+    )
+
+
+def _load_sigmf_payload(metadata_path: Path, data_ext: str) -> np.ndarray:
+    """load the raw sample payload stored next to a .sigmf-meta file."""
+    if data_ext != '.npy':
+        raise TypeError(f'SIGMF data extension {data_ext} not supported')
+    return np.load(metadata_path.with_suffix('.sigmf-data.npy'))
+
+
+def _cut_at_capture_starts(x: np.ndarray, capture_starts, stack: bool):
+    """cut the flat payload at each capture's sample_start offset; with
+    ``stack`` the per-capture segments become columns of one 2-D array."""
+    interior_cuts = sorted(capture_starts)[1:]
+    segments = np.array_split(x, interior_cuts)
+    return np.vstack(segments).T if stack else segments
+
+
+def _voltage_scale_from_cal(cal: dict, require: bool, z0: float):
+    """multiplicative raw-sample -> volts factor from the calibrated
+    front-end gain (1/sqrt(2*G/z0)), or None when uncalibrated."""
+    gain_dB = cal.get('gain (dB)', None)
+    if gain_dB is None:
+        if require:
+            raise LookupError('no calibration data is available in NTIA extensions')
+        return None
+    return 1.0 / np.sqrt(2.0 * 10.0 ** (gain_dB / 10.0) / z0)
+
+
+def read_sigmf(
+    metadata_path: str, force_sample_rate: float = None, sigmf_data_ext='.npy',
+    stack=False, ntia_extensions=False, z0=50,
+):
+    """load a SigMF capture stored in npy format, split by capture start,
+    with optional gain de-embedding to volts.
+
+    Behavior parity with reference io.py:58-96 (return contract:
+    ``(captures, center_frequencies, Ts, calibration)``, numpy arrays);
+    ``utils.to_device_array`` moves the captures to the card.
+    """
+    metadata_path = Path(metadata_path)
+    center_freqs, _timestamps, sample_rate, cal = read_sigmf_metadata(
+        metadata_path, ntia=ntia_extensions
+    )
+    Ts = 1.0 / (force_sample_rate if force_sample_rate is not None else sample_rate)
+
+    payload = _load_sigmf_payload(metadata_path, sigmf_data_ext)
+    # segments follow sorted capture starts; sort the start -> frequency
+    # pairs together so out-of-order capture metadata cannot misassign a
+    # frequency to another segment (the JAX package's fix, docs/PARITY.md)
+    starts = sorted(center_freqs)
+    freqs = np.array([center_freqs[s] for s in starts])
+    captures = _cut_at_capture_starts(payload, starts, stack)
+
+    scale = _voltage_scale_from_cal(cal, require=ntia_extensions, z0=z0)
+    if scale is not None and (stack or len({c.shape[0] for c in captures}) == 1):
+        captures = np.multiply(captures, scale)
+    elif scale is not None:
+        # captures of different lengths are scaled one by one (the JAX
+        # package's np.multiply of the ragged list raises ValueError)
+        captures = [c * scale for c in captures]
+
+    return captures, freqs, Ts, cal
+
+
+def read_sigmf_to_df(metadata_path: str, force_sample_rate: float = None, sigmf_data_ext='.npy'):
+    """(reference io.py:99-106; stacking enabled so the captures become
+    DataFrame columns, labelled 'Frequency (GHz)', as the JAX package
+    does, docs/PARITY.md)"""
+    import pandas as pd
+
+    x_split, center_freqs, Ts, cal = read_sigmf(
+        metadata_path,
+        force_sample_rate=force_sample_rate,
+        sigmf_data_ext=sigmf_data_ext,
+        stack=True,
+    )
+    return waveform_to_frame(
+        x_split, Ts, columns=pd.Index(center_freqs / 1e9), column_name='Frequency (GHz)',
+    )
+
+
+def waveform_to_frame(waveform, Ts: float, columns=None, column_name=None):
+    """pack IQ data (numpy, or a tensor, copied to the host) into a pandas
+    Series or DataFrame with a time index (reference io.py:109-147)."""
+    import pandas as pd
+
+    waveform = to_host(waveform)
+    if waveform.ndim not in (1, 2):
+        raise TypeError('iq must have 1 or 2 dimensions')
+
+    n = waveform.shape[0]
+    index = pd.Index(np.linspace(0.0, n * Ts, n, endpoint=False), name='Time elapsed (s)')
+
+    if waveform.ndim == 1:
+        return pd.Series(waveform, index=index)
+
+    if columns is None:
+        columns = np.arange(waveform.shape[1])
+    frame = pd.DataFrame(waveform, index=index, columns=columns)
+    if column_name is not None:
+        frame.columns.name = column_name
+    return frame
+
+
+def resample_iq(iq, Ts, scale, axis=0):
+    """Fourier resampling of ``iq`` (numpy, or a tensor, copied to the
+    host) by ``scale`` on the host with scipy (reference io.py:150-152)."""
+    from scipy import signal
+
+    iq = to_host(iq)
+    N = int(np.round(iq.shape[0] * scale))
+    return signal.resample(iq, num=N, axis=axis), Ts / scale
+
+
+def write_sigmf(
+    path_stem,
+    iq,
+    sample_rate: float,
+    *,
+    center_frequency=0.0,
+    datatype: str = 'cf32_le',
+    timestamps=None,
+    scale: float = None,
+    annotations=(),
+    global_fields: dict = None,
+):
+    """persist captured IQ + metadata as a SigMF recording, as
+    iqwaveform_tpu.io.write_sigmf does (the same data file byte for byte,
+    the same JSON); it reads back through ``read_sigmf`` (npy) and
+    ``read_iq_data`` (cf32_le, ci16_le) of either package.
+
+    Args:
+        path_stem: output path; '.sigmf-meta'/'.sigmf-data' suffixes are
+            added (or replaced)
+        iq: one 1-D complex waveform, or a list of per-capture waveforms:
+            numpy arrays or tensors (a tensor on the card is copied to the
+            host)
+        sample_rate: samples/s, stored as core:sample_rate
+        center_frequency: scalar, or one value per capture
+        datatype: payload encoding: 'cf32_le' (complex64), 'ci16_le'
+            (scaled int16), or 'npy' (numpy format, read_sigmf compatible)
+        timestamps: ISO-8601 string(s) per capture (default: now, UTC)
+        scale: full-scale amplitude for ci16_le quantization
+            (default 32768, matching read_iq_data's 1/32768)
+        annotations: SigMF annotation dicts, stored verbatim
+        global_fields: extra keys merged into the global object
+
+    Returns:
+        (data_path, meta_path) as Paths
+    """
+    import datetime as _dt
+
+    stem = Path(path_stem)
+    while stem.suffix in ('.sigmf-meta', '.sigmf-data', '.npy'):
+        stem = stem.with_suffix('')
+
+    caps = list(iq) if isinstance(iq, (list, tuple)) else [iq]
+    caps = [np.ascontiguousarray(to_host(c).reshape(-1)) for c in caps]
+    freqs = np.broadcast_to(np.asarray(center_frequency, float), (len(caps),))
+    if timestamps is None:
+        now = _dt.datetime.now(_dt.timezone.utc).isoformat()
+        timestamps = [now] * len(caps)
+    elif isinstance(timestamps, str):
+        timestamps = [timestamps] * len(caps)
+
+    starts = np.concatenate([[0], np.cumsum([c.shape[0] for c in caps])[:-1]])
+    data = np.concatenate(caps) if len(caps) > 1 else caps[0]
+
+    meta = {
+        'global': {
+            'core:datatype': datatype,
+            'core:sample_rate': float(sample_rate),
+            'core:version': '1.0.0',
+            **(global_fields or {}),
+        },
+        'captures': [
+            {
+                'core:sample_start': int(s),
+                'core:frequency': float(f),
+                'core:datetime': t,
+            }
+            for s, f, t in zip(starts, freqs, timestamps)
+        ],
+        'annotations': list(annotations),
+    }
+
+    # append (never with_suffix-replace) so stems containing dots keep
+    # their full name and the data/meta pair stays consistent
+    if datatype == 'cf32_le':
+        data_path = Path(str(stem) + '.sigmf-data')
+        data.astype('<c8').tofile(data_path)
+    elif datatype == 'ci16_le':
+        data_path = Path(str(stem) + '.sigmf-data')
+        full_scale = 32768.0 if scale is None else float(scale)
+        planes = np.stack([data.real, data.imag], axis=-1) * full_scale
+        quantized = np.clip(np.round(planes), -32768, 32767).astype('<i2')
+        quantized.tofile(data_path)
+    elif datatype == 'npy':
+        data_path = Path(str(stem) + '.sigmf-data.npy')
+        np.save(data_path, data.astype('complex64'))
+    else:
+        raise ValueError(f"datatype must be 'cf32_le', 'ci16_le', or 'npy', not {datatype!r}")
+
+    meta_path = Path(str(stem) + '.sigmf-meta')
+    meta_path.write_text(json.dumps(meta, indent=1))
+    return data_path, meta_path

@@ -229,9 +229,11 @@ def _monitor_passband_bounds(d: MonitorDesign):
     return (0 if zero_lo is None else zero_lo), zero_hi, bounds_in, bounds_out
 
 
-def resolve_monitor_design(design: MonitorDesign) -> MonitorDesign:
+def resolve_monitor_design(design: MonitorDesign, *, tpu: bool = None) -> MonitorDesign:
     """validate the implementation-choice fields and resolve
-    ``fft_precision='auto'`` to 'highest' (float32 throughout).
+    ``fft_precision='auto'`` to 'highest' (float32 throughout). ``tpu`` is
+    accepted for API compatibility (the JAX package's platform override)
+    and changes nothing.
 
     Raises ValueError for a value the JAX package does not accept either."""
     d = design
@@ -278,8 +280,8 @@ class WidebandMonitor:
         apd_counts: (apd_bins + 1,) int32 power histogram counts
     """
 
-    def __init__(self, design: MonitorDesign, device=None, *, mesh=None,
-                 time_axis: str = TIME_AXIS, batch_axis: str = BATCH_AXIS):
+    def __init__(self, design: MonitorDesign, mesh=None, time_axis: str = TIME_AXIS,
+                 batch_axis: str = BATCH_AXIS, *, device=None):
         self.requested_design = design
         design = resolve_monitor_design(design)
         self.design = design
@@ -824,7 +826,7 @@ class WidebandMonitor:
             'apd_counts': apd,
         }
 
-    def sharded_step(self, iq_local) -> dict:
+    def sharded_step(self, iq) -> dict:
         """forward step over the mesh, on this rank's (B_local, N_local)
         complex block (or (N_local,)): receivers split over the mesh's
         ``batch_axis`` where it has one, time over its ``time_axis``, with
@@ -841,7 +843,7 @@ class WidebandMonitor:
         if self.mesh is None:
             raise ValueError('construct WidebandMonitor with a mesh to use sharded_step')
         group, _, n_time = axis_of(self.mesh, self.time_axis)
-        x = self._input(iq_local)
+        x = self._input(iq)
         if x.shape[-1] % self.hop_in:
             raise ValueError(
                 f'each rank\'s shard must hold whole OLA hops of {self.hop_in} samples, not '

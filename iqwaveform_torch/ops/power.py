@@ -53,6 +53,7 @@ from .fft import to_float32
 
 __all__ = [
     'binned_mean',
+    'binned_mean_matmul',
     'dBlinmean',
     'dBlinsum',
     'dBtopow',
@@ -384,6 +385,7 @@ def iq_to_bin_power(
     truncate=False,
     axis=0,
     *,
+    key=None,
     generator: torch.Generator = None,
     device=None,
 ):
@@ -401,6 +403,9 @@ def iq_to_bin_power(
         kind: named statistic ('max','mean','median','min','peak','rms'),
             a quantile, or a callable ufunc
         truncate: truncate the last samples to an integer number of bins
+        key: for randomize=True where ``generator`` is None, an int seed of
+            the draws or a torch.Generator (the JAX package takes a jax
+            PRNG key here)
 
     Returns:
         float32 tensor of the bins' statistics
@@ -423,8 +428,10 @@ def iq_to_bin_power(
             raise ValueError('only axis=0 is currently supported when randomize=True')
 
         size = iq.shape[0] // N
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
+        if generator is None and isinstance(key, torch.Generator):
+            generator = key
+        elif generator is None:
+            generator = torch.Generator().manual_seed(0 if key is None else int(key))
         starts = torch.randint(
             0, iq.shape[0] - N, (size,), generator=generator, device=generator.device
         ).to(iq.device)
@@ -658,6 +665,15 @@ def binned_mean(p: torch.Tensor, navg: int) -> torch.Tensor:
         return p
     n = (p.shape[-1] // navg) * navg
     return p[..., :n].reshape(*p.shape[:-1], n // navg, navg).mean(dim=-1)
+
+
+def binned_mean_matmul(p, navg: int, *, precision=None, device=None) -> torch.Tensor:
+    """mean over consecutive ``navg``-sample groups of the flattened ``p``
+    (a trailing partial group is dropped), under the name and signature of
+    the JAX package's block-diagonal matmul form (ops/power.py:509): the
+    port's ``binned_mean``. ``p`` moves to ``device`` (None: the card);
+    ``precision`` is accepted and changes nothing."""
+    return binned_mean(to_device(p, resolve_device(device)).reshape(-1), navg)
 
 
 def sample_ccdf(a, edges, density: bool = True, *, device=None):

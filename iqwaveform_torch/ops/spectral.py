@@ -519,6 +519,23 @@ def _psd_kernel_route(
     return stack.to(torch.float32)
 
 
+def _stft_power(iq, window, nfft: int, Ts: float, overlap=True, *, device=None):
+    """``iq_to_stft_spectrogram``'s values before the DataFrame: numpy
+    frequencies and times, and the (frames, nfft) power tensor on
+    ``device`` (None: the card). Needs no pandas."""
+    freqs, times, X = stft(
+        iq,
+        fs=1.0 / Ts,
+        window=window,
+        nperseg=nfft,
+        noverlap=nfft // 2 if overlap else 0,
+        norm='power',
+        axis=0,
+        device=device,
+    )
+    return freqs, times, envtopow(X)
+
+
 def iq_to_stft_spectrogram(
     iq,
     window,
@@ -534,18 +551,8 @@ def iq_to_stft_spectrogram(
     (reference fourier.py:1418-1456). The STFT runs on ``device`` (None:
     the card); the frame comes back on the host."""
     pd = lazy_import('pandas')
-    freqs, times, X = stft(
-        iq,
-        fs=1.0 / Ts,
-        window=window,
-        nperseg=nfft,
-        noverlap=nfft // 2 if overlap else 0,
-        norm='power',
-        axis=0,
-        device=device,
-    )
-
-    spg = pd.DataFrame(to_host(envtopow(X)), columns=freqs, index=times)
+    freqs, times, P = _stft_power(iq, window, nfft, Ts, overlap, device=device)
+    spg = pd.DataFrame(to_host(P), columns=freqs, index=times)
 
     if analysis_bandwidth is not None:
         throwaway = spg.shape[1] * (1 - analysis_bandwidth * Ts)

@@ -114,7 +114,7 @@ def _local_stft(x, w: np.ndarray, nperseg: int, noverlap: int, norm, group) -> t
 
 
 def sharded_stft(
-    x_local,
+    x,
     *,
     mesh,
     window,
@@ -130,7 +130,7 @@ def sharded_stft(
     if norm not in ('power', None):
         raise TypeError('norm must be "power" or None')
     group, _, _ = axis_of(mesh, axis_name)
-    x = _shard_on(x_local, mesh)
+    x = _shard_on(x, mesh)
     _check_shard(x.shape[0], nperseg - noverlap, noverlap)
     w = get_window(window, nperseg, xp=np, dtype=np.dtype(str(x.dtype).split('.')[-1]).name,
                    norm=(norm == 'power'), fftshift=True)
@@ -138,7 +138,7 @@ def sharded_stft(
 
 
 def sharded_spectrogram(
-    x_local,
+    x,
     *,
     mesh,
     window,
@@ -148,12 +148,12 @@ def sharded_spectrogram(
 ) -> torch.Tensor:
     """power spectrogram (norm='power') of a time-sharded capture: this
     rank's frames."""
-    return envtopow(sharded_stft(x_local, mesh=mesh, window=window, nperseg=nperseg,
+    return envtopow(sharded_stft(x, mesh=mesh, window=window, nperseg=nperseg,
                                  noverlap=noverlap, norm='power', axis_name=axis_name))
 
 
 def sharded_channelize_power(
-    x_local,
+    x,
     *,
     mesh,
     Ts: float,
@@ -175,7 +175,7 @@ def sharded_channelize_power(
         raise ValueError('the number of analysis bins cannot be greater than FFT size')
 
     spg = sharded_spectrogram(
-        x_local, mesh=mesh, window=window, nperseg=fft_size_per_channel * channel_count,
+        x, mesh=mesh, window=window, nperseg=fft_size_per_channel * channel_count,
         noverlap=fft_overlap_per_channel * channel_count, axis_name=axis_name,
     )
     skip = channel_count * (fft_size_per_channel - analysis_bins_per_channel)
@@ -187,7 +187,7 @@ def sharded_channelize_power(
 
 
 def sharded_ola_filter(
-    x_local,
+    x,
     *,
     mesh,
     fs: float,
@@ -210,7 +210,7 @@ def sharded_ola_filter(
     ``ola_filter`` takes for 'mxu' and 'pallas' (ValueError outside the
     kernel's scope)."""
     group, _, n_dev = axis_of(mesh, axis_name)
-    x = _shard_on(x_local, mesh).to(torch.complex64)
+    x = _shard_on(x, mesh).to(torch.complex64)
     dev = x.device
     nfft_out, noverlap_out, overlap_scale, _ = _ola_filter_parameters(
         x.shape[0] * n_dev, window=window, nfft_out=nfft_out, nfft=nfft, extend=True
@@ -339,7 +339,7 @@ def _sharded_exact_quantiles(dB, *, group, qs, hist, mean, pmin, pmax, edges_dB)
 
 
 def sharded_psd_stats(
-    x_local,
+    x,
     *,
     mesh,
     fs: float,
@@ -372,7 +372,7 @@ def sharded_psd_stats(
         edges. Bins in fftshift order, as the spectrogram's.
     """
     group, _, _ = axis_of(mesh, axis_name)
-    x = _shard_on(x_local, mesh)
+    x = _shard_on(x, mesh)
     _check_shard(x.shape[0], nperseg - noverlap, noverlap)
 
     statistics = tuple(statistics)
@@ -474,7 +474,7 @@ def quantile_from_histogram(hist: torch.Tensor, edges, q) -> torch.Tensor:
 
 # ---- the APD
 
-def sharded_apd_histogram(x_local, *, mesh, edges, axis_name: str = TIME_AXIS) -> torch.Tensor:
+def sharded_apd_histogram(x, *, mesh, edges, axis_name: str = TIME_AXIS) -> torch.Tensor:
     """global amplitude (power) distribution counts of a time-sharded
     capture: counts[b] = #{e[b-1] < |x|^2 <= e[b]} over every rank's shard
     (``ops.power.histogram_edge_counts`` of |x|^2 per rank, on the card
@@ -484,7 +484,7 @@ def sharded_apd_histogram(x_local, *, mesh, edges, axis_name: str = TIME_AXIS) -
     samples), int64 elsewhere. Feed it to :func:`ccdf_from_counts` for the
     APD / CCDF, the sharded counterpart of ``ops.power.sample_ccdf``."""
     group, _, n_dev = axis_of(mesh, axis_name)
-    x = _shard_on(x_local, mesh)
+    x = _shard_on(x, mesh)
     p = (x.real * x.real + x.imag * x.imag) if x.is_complex() else x * x
     counts = coll.psum(histogram_edge_counts(p, np.asarray(edges, dtype='float32')), group)
     return counts.to(torch.int32) if p.shape[0] * n_dev < 2**31 else counts

@@ -1,6 +1,6 @@
 """Reference-compatible facade for power_analysis (reference
-power_analysis.py), with the names of iqwaveform_tpu/power_analysis.py but
-its type stubs. Implementations live in iqwaveform_torch.ops.power."""
+power_analysis.py), with the names of iqwaveform_tpu/power_analysis.py.
+Implementations live in iqwaveform_torch.ops.power."""
 
 from .ops.power import (  # noqa: F401
     dBlinmean,
@@ -26,6 +26,7 @@ from .ops.power import (  # noqa: F401
 
 # names the reference's power_analysis module also exposes via its own
 # imports (`from iqwaveform.power_analysis import X` compatibility)
+from .type_stubs import ArrayLike, ArrayType  # noqa: F401
 from .utils import (  # noqa: F401
     Domain,
     array_namespace,

@@ -1,7 +1,7 @@
 """Host-side caching and lazy-import helpers.
 
 Copied from iqwaveform_tpu/utils/caching.py (reference util.py:35-56,
-util.py:109-115). Every cached function in the port returns host design
+util.py:109-115, and ``optional_import``). Every cached function in the port returns host design
 data (windows, bin bounds, index tables), never a device tensor that a
 caller could mutate.
 """
@@ -12,7 +12,7 @@ import functools
 import importlib.util
 import sys
 
-__all__ = ['lazy_import', 'lru_cache']
+__all__ = ['lazy_import', 'lru_cache', 'optional_import']
 
 
 def lru_cache(maxsize: int | None = 128, typed: bool = False):
@@ -42,3 +42,11 @@ def lazy_import(module_name: str):
     sys.modules[module_name] = module
     lazy.exec_module(module)
     return module
+
+
+def optional_import(module_name: str):
+    """return the module if importable, else None (for xarray/pandas gating)."""
+    try:
+        return importlib.import_module(module_name)
+    except ImportError:
+        return None

@@ -38,14 +38,22 @@ def fence(tree):
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str, *, create_perfetto_link: bool = False):
     """record a ``torch.profiler`` trace of the CPU and, where there is
-    one, the card into ``log_dir`` (a TensorBoard / Chrome trace).
+    one, the card into ``log_dir`` (a TensorBoard / Chrome trace, which
+    opens in Perfetto as it is).
+
+    ``create_perfetto_link`` is accepted as the JAX package's ``trace``
+    takes it, but no link is served (the port makes no network
+    connection): with it set, the context prints the trace files' paths
+    on exit, to open in Perfetto by hand.
 
     Usage:
         with trace('traces/step'):
             out = fence(mon.step(x))
     """
+    from pathlib import Path
+
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
@@ -53,6 +61,9 @@ def trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
         yield
+    if create_perfetto_link:
+        for path in sorted(Path(log_dir).glob('*.json')):
+            print(f'trace: {path} (opens in Perfetto)')
 
 
 class StageTimer:
