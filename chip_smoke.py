@@ -284,7 +284,7 @@ process group and a one-rank time mesh:
    ``sharded_apd_histogram`` on 2^24 samples x 513 edges: one
    ``hist_bucket_kernel`` launch, counts and CCDF equal to
    ``sample_ccdf``'s, timed; (f) the monitor where a kernel refuses the
-   design (172032 -> 24576 frames, 48 x 768 channels, 40,000 APD edges):
+   design (135168 -> 24576 frames, 48 x 768 channels, 40,000 APD edges):
    it constructs and steps, the stage's route is 'plain' and its kernel
    never launches, within phase 3's gates of ``reference_step``. Each
    kernel these paths launch gains a ``sharded`` entry on its kernels-line
@@ -353,6 +353,35 @@ and row 3's split route through ola_filter:
    from its profile, timed beside both, and the split frames alone beside
    their bound and plain version (kernels-line row
    ``split_ola_filter_131072``). Rows 1, 5 and 6 gain ``host_layer``.
+
+then rows 2-3's storage tiers and radix-7 frames:
+
+24. (a) each frame kernel's plane instances (int16, bfloat16 and float32
+   planes of integer counts near 2^24 samples, read at the hop): the
+   register kernel at 16384 -> 8192 (and 12288 -> 6144), the cluster of 3
+   at 49152 -> 24576, the split route at 131072 -> 16384 and the generic
+   kernel at 20480 -> 10240; one launch each on its element type, within
+   1e-6 relative RMS of the complex64 instance on the dequantized frames
+   and 1e-5 of the plain chain, the instance named in its profile, timed
+   beside the complex64 instance and beside the rounding pass into
+   complex64 plus that instance, its bound at the planes' bytes (rows
+   ``frames_reg_i16`` ... ``frames_generic_f32``); (b) ``ola_filter`` at
+   'i16' and 'bf16' on BASELINE #2's 99,999,744 samples of integer counts:
+   one launch of the plane instance, named in the profile, within 1e-6 of
+   the complex64 route on the stored values and 1e-5 of the plain route
+   and the stage chain, timed beside 'highest'; (c) the blackman monitor of
+   the flagship rates (49152 -> 24576) at 'i16', ``step_planes`` on 2^24
+   int16 counts: one launch of the cluster kernel's int16 instance, no
+   PyTorch op that makes a float32 or complex copy of the input (a dispatch
+   mode records them), within phase 3's step gates of 'high' on the scaled
+   counts, profiled, timed; (d) the monitor at 107.52 -> 15.36 MS/s,
+   hamming, blackman and blackmanharris (57344 -> 8192, 172032 -> 24576,
+   286720 -> 40960: radix-7 steps of 7, 14 and 28) near 2^24 samples: one
+   split launch, within the step gates of ``reference_step``, 8 frames
+   within 1e-6 of the plain chain and against complex128 (at most twice
+   the chain's error), profiled, timed beside the plain frames (rows
+   ``split_radix7_hamming_57344``, ``split_radix7_blackman_172032``,
+   ``split_radix7_blackmanharris_286720``).
 
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
@@ -427,15 +456,15 @@ KERNEL_INFO = {
     # reported inside the colhist row
     'colhist_values': ('iqwaveform_torch/csrc/colhist.cu',
                        'iqwaveform_tpu/ops/pallas/colhist_pallas.py:106'),
-    'fused_ola_frames': ('iqwaveform_torch/csrc/fused_ola.cu',
+    'fused_ola_frames': ('iqwaveform_torch/csrc/ola_frames.cuh',
                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
     # the same wrapper's cluster route (fused_ola_frames_cluster_kernel), as
     # the monitor's grouped overlap-add runs it at R = 3
-    'fused_ola_frames_cluster': ('iqwaveform_torch/csrc/fused_ola.cu',
+    'fused_ola_frames_cluster': ('iqwaveform_torch/csrc/ola_frames.cuh',
                                  'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
     # its instance on clusters of 6 blocks (98304 -> 24576), as the
     # monitor at 122.88 -> 30.72 MS/s runs it
-    'fused_ola_frames_cluster6': ('iqwaveform_torch/csrc/fused_ola.cu',
+    'fused_ola_frames_cluster6': ('iqwaveform_torch/csrc/ola_frames.cuh',
                                   'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
     # the channelizer statistics at the other frame sizes of one block
     # (chan_stats_mixed_kernel) and above one block (chan_stats_cluster_kernel),
@@ -1361,12 +1390,15 @@ def trace_call(name: str) -> int:
     channels48|channels96|channels64x512|stats4096|planes_i16|stream|
     psd_default|psd_histogram_1024|psd_histogram_2048|sample_ccdf|
     psd_sort_2e28|psd_refined_2e28|split_hamming_65536|split_blackman_196608|
-    split_blackmanharris_655360|split_blackmanharris_163840``: make the
-    call of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a or 22b at its shapes, on noise from ``SEED``
+    split_blackmanharris_655360|split_blackmanharris_163840|split_ola_filter|
+    tier_<row of 24a>|tier_ola_filter_i16|tier_ola_filter_bf16|tier_step_planes_i16|
+    radix7_hamming|radix7_blackman|radix7_blackmanharris``: make the call
+    of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a, 22b, 23e or 24 at its shapes, on noise from ``SEED``
     (phases 19-20's on their tone + noise; the kernels' work does not
     depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
-    line, a JSON object. Exits 1 if the trace lacks a kernel. ``--trace
+    line, a JSON object (``--trace split_ola_filter``: the launches by
+    kernel, ``device_launches``). Exits 1 if the trace lacks a kernel. ``--trace
     stats4096`` prints ``stats4096_device_ms`` instead (phase 17a)."""
     sys.path.insert(0, str(ROOT))
     from iqwaveform_torch import WidebandMonitor, channelize_power, design_wideband_monitor, ofdm
@@ -1452,6 +1484,17 @@ def trace_call(name: str) -> int:
             return mon.step(x)
 
         expect = SPLIT_KERNELS
+    elif name == 'split_ola_filter':
+        import iqwaveform_torch as it
+
+        xs = torch.randn(N_SPLIT_FILTER, dtype=torch.complex64, device=dev, generator=gen)
+        it.ola_filter(xs, **SPLIT_FILTER_KW)
+        torch.cuda.synchronize()
+        counts = device_launches(lambda: it.ola_filter(xs, **SPLIT_FILTER_KW), SPLIT_KERNELS)
+        print(json.dumps({'counts': counts}))
+        return 0 if counts else 1
+    elif name.startswith(('tier_', 'radix7_')):
+        fn, expect = tier_trace(name, dev, gen)
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -4059,13 +4102,14 @@ def refinement_phases(dev, smi: str) -> dict:
 # sharded entry points and WidebandMonitor.sharded_step) on one NCCL rank
 
 N_SHARDS = 4  # the in-process shards of 21b
-# the Step 0 designs (21f): frames no CUDA frame kernel takes (172032 ->
-# 24576 at 107.52 -> 15.36 MS/s, 7 x 2^k; 196608 -> 24576 at 122.88 ->
-# 15.36 MS/s until the split route took it), a channelizer size outside
+# the Step 0 designs (21f): frames no CUDA frame kernel takes (135168 ->
+# 24576 at 135.168 -> 24.576 MS/s, 11 x 12288; 196608 -> 24576 at 122.88
+# -> 15.36 MS/s until the split route took it, 172032 -> 24576 at 107.52 ->
+# 15.36 MS/s until its radix-7 step, phase 24d), a channelizer size outside
 # CHAN_SIZES (48 x 768 = 36864) and APD edges above hist's shared memory
 # (40,000)
 REFUSED_DESIGNS = {
-    'frames172032': ((107.52e6, 15.36e6), dict(bw=10e6, fs_sdr=107.52e6, window='blackman'),
+    'frames135168': ((135.168e6, 24.576e6), dict(bw=10e6, fs_sdr=135.168e6, window='blackman'),
                      'ola', 'fused_ola_frames'),
     'chan36864': ((122.88e6, 61.44e6), dict(FLAGSHIP, channel_count=48,
                                             fft_size_per_channel=768, apd_navg=1),
@@ -4410,7 +4454,8 @@ NEW_INSTANCES = {
     'fused_ola_frames_cluster2_8192': ((40.96e6, 'hamming', 8191), (24576, 8192), 'cluster'),
 }
 for _name in NEW_INSTANCES:
-    KERNEL_INFO[_name] = ('iqwaveform_torch/csrc/fused_ola.cu',
+    KERNEL_INFO[_name] = ('iqwaveform_torch/csrc/'
+                          + ('fused_ola.cu' if _name.startswith('fused_ola_reg') else 'ola_frames.cuh'),
                           'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:'
                           + ('571' if _name.startswith('fused_ola_reg') else '492'))
 for _name in SPLIT_STEPS:
@@ -4729,10 +4774,11 @@ def host_captures(dev) -> torch.Tensor:
     return tones.to(torch.complex64) + 10 ** (-PSD_SNR_DB / 20) * noise
 
 
-def device_launches(fn, kernels_of) -> dict:
+def device_launches(fn, kernels_of, fresh: str | None = None) -> dict:
     """launches a call makes of each device kernel whose name holds one of
     ``kernels_of``, by short name, from one profiled call (retaken up to
-    PROFILE_TRIES times while the trace holds none)."""
+    PROFILE_TRIES times while the trace holds none, then, where ``fresh``
+    names the call, in a fresh process: see ``device_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILE_TRIES):
@@ -4747,7 +4793,16 @@ def device_launches(fn, kernels_of) -> dict:
                 counts[key] = counts.get(key, 0) + 1
         if counts:
             return counts
-    return {}
+    if fresh is None:
+        return {}
+    print(f'profiler: taking the launches of {fresh} in a fresh process')
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), '--trace', fresh],
+                          capture_output=True, text=True, timeout=FRESH_TRACE_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode or not lines:
+        print(f'profiler: the fresh process exited {proc.returncode}: {proc.stderr[-2000:]}')
+        return {}
+    return json.loads(lines[-1]).get('counts', {})
 
 
 def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
@@ -4978,7 +5033,8 @@ def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     require(err_plain <= 1e-5 and err_chain <= 1e-5,
             f'23e relative RMS {err_plain:.3g} (plain), {err_chain:.3g} (chain) > 1e-5')
     del plain_y, chain_y
-    split_calls = device_launches(lambda: it.ola_filter(xs, **kw), SPLIT_KERNELS)
+    split_calls = device_launches(lambda: it.ola_filter(xs, **kw), SPLIT_KERNELS,
+                                  fresh='split_ola_filter')
     print(f'23e device kernels of the split route in one call: {json.dumps(split_calls)}')
     require(all(any(k in n for n in split_calls) for k in SPLIT_KERNELS),
             f'23e the profile shows the split kernels {split_calls}')
@@ -5019,6 +5075,386 @@ def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     del xs, y, frames, got_f, ref_f
     torch.cuda.empty_cache()
     return [row], host_layer
+
+
+# ---- phase 24: rows 2-3's storage tiers (the frame kernels' plane
+# instances) and radix-7 frames
+# 24a: each frame kernel at its pair and hop, on (2, n) planes of int16
+# counts (their float32 and bfloat16 conversions too) near 2^24 samples:
+# (name, nfft, nfft_out, hop, kernel name in the profile); the register
+# kernel's second pair rides in its rows
+TIER_KERNELS = {
+    'frames_reg': (16384, 8192, 8192, 'fused_ola_frames_reg_kernel'),
+    'frames_cluster3': (49152, 24576, 16384, CLUSTER_KERNEL),
+    'frames_split': (131072, 16384, 65536, 'split_radix_kernel'),
+    'frames_generic': (20480, 10240, 4096, GENERIC_KERNEL),
+}
+TIER_REG_SECOND = (12288, 6144, 4096)
+N_TIER = 1 << 24
+# the plane types: the profile's name of each instance's element type, the
+# row's suffix, and the bytes of a plane value
+PLANE_TYPES = {torch.int16: ('short', 'i16', 2), torch.bfloat16: ('__nv_bfloat16', 'bf16', 2),
+               torch.float32: ('float', 'f32', 4)}
+TIER_SCALE = 3000.0  # the planes' RMS in counts
+# 24c: the blackman monitor of the flagship rates at 'i16' (49152 -> 24576
+# on the cluster of 3), step_planes on 2^24 int16 counts
+TIER_STEP = dict(CLUSTER_MONITOR)
+# 24d: the three designs at 107.52 -> 15.36 MS/s (7:1), 7 x 2^k frames on
+# the split route's radix-7 steps: window -> (pair, kernels-line row)
+RADIX7_STEPS = {
+    'hamming': ((57344, 8192), 'split_radix7_hamming_57344'),
+    'blackman': ((172032, 24576), 'split_radix7_blackman_172032'),
+    'blackmanharris': ((286720, 40960), 'split_radix7_blackmanharris_286720'),
+}
+N_RADIX7_F64 = 8  # 24d: frames held against complex128
+for _kname, (_n1, _n2, _hop, _kern) in TIER_KERNELS.items():
+    for _dt, (_, _sfx, _) in PLANE_TYPES.items():
+        KERNEL_INFO[f'{_kname}_{_sfx}'] = (
+            'iqwaveform_torch/csrc/' + ('ola_split.cu' if _kname == 'frames_split'
+                                        else 'ola_frames.cuh'),
+            'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492')
+for _, _row in RADIX7_STEPS.values():
+    KERNEL_INFO[_row] = ('iqwaveform_torch/csrc/ola_split.cu',
+                         'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492')
+del _kname, _n1, _n2, _hop, _kern, _dt, _sfx, _row
+
+
+def widening_mode(n: int):
+    """a dispatch mode whose ``hits`` record every PyTorch op that reads an
+    int16 or bfloat16 tensor of at least ``n`` elements and makes a float32
+    or complex tensor of it: a dequantized (complex64 or float32) copy of
+    the input. The kernels, called through ctypes, are no PyTorch op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Widening(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            narrow = [a for a in tree_leaves((args, kwargs or {}))
+                      if isinstance(a, torch.Tensor) and a.numel() >= n
+                      and a.dtype in (torch.int16, torch.bfloat16)]
+            wide = [o for o in tree_leaves(out) if isinstance(o, torch.Tensor)
+                    and (o.is_complex() or o.dtype in (torch.float32, torch.float64))]
+            if narrow and wide:
+                self.hits.append(str(func))
+            return out
+
+    mode = Widening()
+    mode.hits = []
+    return mode
+
+
+def tier_planes(n: int, dtype, gen, dev) -> torch.Tensor:
+    """(2, n) planes of integer counts (RMS TIER_SCALE) in ``dtype``."""
+    return (TIER_SCALE * torch.randn((2, n), device=dev, generator=gen)).round().to(dtype)
+
+
+def tier_kwargs(nfft: int, nfft_out: int, gen, dev) -> dict:
+    """the frame kernels' arguments: random windows (w_in scaled by 1 /
+    (TIER_SCALE nfft)) and the centred trim with a band mask."""
+    w = torch.randn(nfft + nfft_out, dtype=torch.complex64, device=dev, generator=gen)
+    lo = (nfft - nfft_out) // 2
+    return dict(w_in=w[:nfft] / (TIER_SCALE * nfft), w_shift_out=w[nfft:], nfft=nfft,
+                nfft_out=nfft_out, zero_lo=lo + nfft_out // 16, zero_hi=lo + nfft_out - nfft_out // 16,
+                bounds_in=(lo, lo + nfft_out), bounds_out=(0, nfft_out))
+
+
+def tier_frames_input(kname: str, dtype, gen, dev) -> tuple:
+    """24a's input of one frame kernel: (planes of integer counts in
+    ``dtype`` near N_TIER samples, the kernel's arguments, the hop)."""
+    nfft, nfft_out, hop, _ = TIER_KERNELS[kname]
+    kw = tier_kwargs(nfft, nfft_out, gen, dev)
+    n = (N_TIER // hop) * hop + nfft - hop
+    return tier_planes(n, dtype, gen, dev), kw, hop
+
+
+def tier_filter_input(gen, dev) -> torch.Tensor:
+    """24b's input: BASELINE #2's N_OLA complex64 samples of integer counts
+    (RMS TIER_SCALE)."""
+    x = TIER_SCALE * torch.randn(N_OLA, dtype=torch.complex64, device=dev, generator=gen)
+    return torch.complex(x.real.round(), x.imag.round())
+
+
+def tier_step_monitors() -> tuple:
+    """24c's monitors: the blackman design of the flagship rates at 'i16'
+    (input_scale I16_INPUT_SCALE) and at 'high'."""
+    import dataclasses
+
+    import iqwaveform_torch as it
+
+    base = it.design_wideband_monitor(122.88e6, 61.44e6, **TIER_STEP)
+    return (it.WidebandMonitor(dataclasses.replace(base, fft_precision='i16',
+                                                   input_scale=I16_INPUT_SCALE)),
+            it.WidebandMonitor(dataclasses.replace(base, fft_precision='high')))
+
+
+def radix7_monitor(window: str):
+    """24d's monitor at 107.52 -> 15.36 MS/s (min_fft_size=8191)."""
+    import iqwaveform_torch as it
+
+    return it.WidebandMonitor(it.design_wideband_monitor(
+        107.52e6, 15.36e6, fs_sdr=107.52e6, window=window, min_fft_size=8191))
+
+
+def tier_trace(name: str, dev, gen) -> tuple:
+    """(call, kernels its trace must hold) of phase 24's profiled call
+    ``name`` (``trace_call``): 'tier_<24a row>', 'tier_ola_filter_<tier>',
+    'tier_step_planes_i16' or 'radix7_<window>'."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels
+
+    if name.startswith('radix7_'):
+        mon = radix7_monitor(name[len('radix7_'):])
+        x, _ = split_step_frames(mon, N_STEP, gen, dev)
+        return (lambda: mon.step(x)), SPLIT_KERNELS
+    if name == 'tier_step_planes_i16':
+        mon, _ = tier_step_monitors()
+        m8 = 8 * mon.min_input_multiple()
+        counts = tier_planes((N_STEP // m8) * m8, torch.int16, gen, dev)
+        return (lambda: mon.step_planes(counts)), (CLUSTER_KERNEL,)
+    if name.startswith('tier_ola_filter_'):
+        x, tier = tier_filter_input(gen, dev), name[len('tier_ola_filter_'):]
+        return (lambda: it.ola_filter(x, fft_precision=tier, **OLA_KW)), (REG_KERNEL,)
+    kname, sfx = name[len('tier_'):].rsplit('_', 1)
+    dtype = next(d for d, (_, s, _) in PLANE_TYPES.items() if s == sfx)
+    planes, kw, hop = tier_frames_input(kname, dtype, gen, dev)
+    return (lambda: kernels.fused_ola_frames(planes, hop_in=hop, **kw)), (TIER_KERNELS[kname][3],)
+
+
+def plane_check(planes, hop: int, kw: dict, label: str) -> tuple:
+    """one frame kernel's plane instance on ``planes`` at ``hop``: one launch
+    on its element type, within 1e-6 relative RMS of the complex64
+    instance on the dequantized frames and within 1e-5 of the plain chain.
+    Returns (output, its errors, the complex64 frames)."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import dequantize
+
+    frames_k = kernels.fused_ola_frames
+    name = str(planes.dtype).split('.')[-1]
+    reset_counts()
+    got = frames_k(planes, hop_in=hop, **kw)
+    torch.cuda.synchronize()
+    require(frames_k.launches == 1 and frames_k.layout_launches[name] == 1,
+            f'{label}: launches {frames_k.launches}, by type {frames_k.layout_launches}')
+    frames = dequantize(planes).unfold(-1, kw['nfft'], hop)
+    err_c64 = rel_rms(got, frames_k(frames, **kw))
+    plain = kernels.fused_ola_frames_plain(planes, hop_in=hop, **kw)
+    err = rel_rms(got, plain)
+    require(err_c64 <= 1e-6, f'{label}: vs the complex64 instance relative RMS {err_c64:.3g}')
+    require(err <= 1e-5, f'{label}: vs the plain chain relative RMS {err:.3g}')
+    return got, {'c64_rel_rms': err_c64, 'plain_rel_rms': err, 'max_abs_err': max_abs(got, plain)}
+
+
+def tier_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 24; returns the kernels line's rows of the plane instances and
+    of the radix-7 split steps."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import dequantize, frames_route, split_plan, stored
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames_k = kernels.fused_ola_frames
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = {}
+
+    # ---- 24a: each frame kernel's plane instances against its complex64
+    # instance and its plain version, timed beside the complex64 instance
+    # and beside the rounding pass into complex64 plus that instance
+    for kname, (nfft, nfft_out, hop, kernel) in TIER_KERNELS.items():
+        route = kname.split('_')[1].rstrip('0123456789')
+        require(frames_route(nfft, nfft_out) == route,
+                f'24a {kname}: frames_route {frames_route(nfft, nfft_out)}')
+        counts, kw, _ = tier_frames_input(kname, torch.int16, gen, dev)
+        n = counts.shape[-1]
+        c64 = dequantize(counts).unfold(-1, nfft, hop)
+        c64_ms = timed_ms(lambda: frames_k(c64, **kw))
+        for dtype, (tname, sfx, width) in PLANE_TYPES.items():
+            planes = counts.to(dtype)
+            label = f'24a {kname} {sfx}'
+            got, errs = plane_check(planes, hop, kw, label)
+            m = got.shape[-2]
+            names, _ = device_kernels(lambda: frames_k(planes, hop_in=hop, **kw), kernel,
+                                      fresh=f'tier_{kname}_{sfx}')
+            inst = [k for k in names if kernel in k and f'{tname}>' in short_name(k)]
+            require(inst, f'{label}: the profile holds no {kernel} instance of {tname}: {names}')
+            nbytes = 2 * width * n + 8 * got.numel()
+            nops = m * (fft_ops(nfft) + fft_ops(nfft_out) + 6 * (nfft + nfft_out))
+            row = kernel_row(
+                f'{kname}_{sfx}', {'launches': 1, 'max_abs_err': errs['max_abs_err']},
+                nbytes, nops, lambda: frames_k(planes, hop_in=hop, **kw),
+                lambda: kernels.fused_ola_frames_plain(planes, hop_in=hop, **kw),
+                lambda: kernels.fused_ola_frames_plain(planes, hop_in=hop, **kw),
+                mem_rate, fp32_rate)
+            row['c64_ms'] = c64_ms
+            row['rounding_c64_ms'] = timed_ms(
+                lambda: frames_k(dequantize(planes).unfold(-1, nfft, hop), **kw))
+            row['pair'] = f'{nfft}->{nfft_out}'
+            row['frames'] = m
+            row['instance'] = (short_name(inst[0]) if inst else None)
+            row.update({k: v for k, v in errs.items() if k != 'max_abs_err'})
+            print(f'{label} ({nfft} -> {nfft_out}, {m} frames at hop {hop}, {row["instance"]}): '
+                  f'vs complex64 instance {errs["c64_rel_rms"]:.3g}, vs plain '
+                  f'{errs["plain_rel_rms"]:.3g}; {row["ms"]:.4f} ms, the complex64 instance '
+                  f'{c64_ms:.4f} ms, rounding pass + complex64 instance {row["rounding_c64_ms"]:.4f} '
+                  f'ms, plain {row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms by '
+                  f'{row["bound_by"]} ({smi})')
+            if kname == 'frames_reg':
+                n1, n2, h2 = TIER_REG_SECOND
+                kw2 = tier_kwargs(n1, n2, gen, dev)
+                p2 = tier_planes((N_TIER // h2) * h2 + n1 - h2, dtype, gen, dev)
+                got2, errs2 = plane_check(p2, h2, kw2, f'{label} {n1} -> {n2}')
+                c2 = dequantize(p2).unfold(-1, n1, h2)
+                row['pairs'] = {f'{n1}->{n2}': {
+                    **errs2, 'ms': timed_ms(lambda: frames_k(p2, hop_in=h2, **kw2)),
+                    'c64_ms': timed_ms(lambda: frames_k(c2, **kw2)),
+                    'rounding_c64_ms': timed_ms(
+                        lambda: frames_k(dequantize(p2).unfold(-1, n1, h2), **kw2))}}
+                print(f'{label} {n1} -> {n2}: ' + json.dumps(row['pairs'][f'{n1}->{n2}']))
+                del p2, c2, got2
+            rows[row['name']] = row
+            del planes, got
+        del counts, c64
+        torch.cuda.empty_cache()
+
+    # ---- 24b: ola_filter at 'i16' and 'bf16' on BASELINE #2
+    nfft, nfft_out = OLA_KW['nfft'], OLA_KW['nfft_out']
+    x = tier_filter_input(gen, dev)
+    ref_ms = timed_ms(lambda: it.ola_filter(x, **OLA_KW), reps=10)
+    for tier, dtype in (('i16', torch.int16), ('bf16', torch.bfloat16)):
+        tname, sfx, _ = PLANE_TYPES[dtype]
+        label = f'24b ola_filter {tier}'
+        it.ola_filter(x[: 4 * nfft], fft_precision=tier, **OLA_KW)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = it.ola_filter(x, fft_precision=tier, **OLA_KW)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        by_type = dict(frames_k.layout_launches)
+        require(launched == {'fused_ola_frames': 1} and by_type[str(dtype).split('.')[-1]] == 1,
+                f'{label}: launches {launched}, by type {by_type}')
+        xs = dequantize(stored(x, tier))
+        err_c64 = rel_rms(y, it.ola_filter(xs, **OLA_KW))
+        err_plain = rel_rms(y, it.ola_filter(x, fft_precision=tier, plain=True, **OLA_KW))
+        err_chain = rel_rms(y, it.ola_filter(x, fft_precision=tier, fft_backend='xla', **OLA_KW))
+        require(err_c64 <= 1e-6 and err_plain <= 1e-5 and err_chain <= 1e-5,
+                f'{label}: vs complex64 {err_c64:.3g}, plain {err_plain:.3g}, chain '
+                f'{err_chain:.3g}')
+        names, _ = device_kernels(lambda: it.ola_filter(x, fft_precision=tier, **OLA_KW),
+                                  REG_KERNEL, fresh=f'tier_ola_filter_{tier}')
+        inst = [k for k in names if REG_KERNEL in k and f'{tname}>' in short_name(k)]
+        require(inst and not library_kernels(names),
+                f'{label}: the profile holds no {REG_KERNEL} of {tname}, or a library kernel: '
+                f'{names}')
+        ms = timed_ms(lambda: it.ola_filter(x, fft_precision=tier, **OLA_KW), reps=10)
+        entry = {'launches': 1, 'ms': ms, 'highest_ms': ref_ms, 'c64_rel_rms': err_c64,
+                 'plain_rel_rms': err_plain, 'chain_rel_rms': err_chain,
+                 'instance': (short_name(inst[0]) if inst else None), 'samples': N_OLA}
+        rows[f'frames_reg_{sfx}']['ola_filter'] = entry
+        print(f'{label} on {N_OLA} samples ({nfft} -> {nfft_out}): one launch of '
+              f'{entry["instance"]}; vs complex64 {err_c64:.3g}, plain route {err_plain:.3g}, '
+              f'stage chain {err_chain:.3g}; {ms:.4f} ms, at \'highest\' {ref_ms:.4f} ms ({smi})')
+        del y, xs
+    del x
+    torch.cuda.empty_cache()
+
+    # ---- 24c: the blackman 'i16' step_planes on 2^24 int16 counts
+    mon, high = tier_step_monitors()
+    require(mon.routes['ola'] == 'cluster', f'24c routes {mon.routes}')
+    m8 = 8 * mon.min_input_multiple()
+    counts = tier_planes((N_STEP // m8) * m8, torch.int16, gen, dev)
+    mon.step_planes(counts[:, :m8])
+    torch.cuda.synchronize()
+    reset_counts()
+    with widening_mode(counts.shape[-1]) as mode:
+        out = mon.step_planes(counts)
+        torch.cuda.synchronize()
+    launched = {k: c.launches for k, c in kset.items() if c.launches}
+    by_type = dict(frames_k.layout_launches)
+    require(launched.get('fused_ola_frames') == 1 and by_type['int16'] == 1
+            and frames_k.route_launches['cluster'] == 1,
+            f'24c launches {launched}, by type {by_type}, routes {frames_k.route_launches}')
+    require(not mode.hits, f'24c: ops that widen the int16 input: {mode.hits}')
+    scaled = counts.float() * I16_INPUT_SCALE
+    ref = high.step_planes(scaled)
+    check_step(out, ref, "24c step_planes 'i16' vs 'high' on the scaled counts")
+    names, device_us = device_kernels(lambda: mon.step_planes(counts), CLUSTER_KERNEL,
+                                      fresh='tier_step_planes_i16')
+    inst = [k for k in names if CLUSTER_KERNEL in k and 'short>' in short_name(k)]
+    require(inst and not library_kernels(names),
+            f'24c: the profile holds no {CLUSTER_KERNEL} of short, or a library kernel: {names}')
+    ms = timed_ms(lambda: mon.step_planes(counts), reps=10)
+    high_ms = timed_ms(lambda: high.step_planes(scaled), reps=10)
+    busy = sum(device_us.values()) / 1e3
+    rows['frames_cluster3_i16']['step_planes'] = {
+        'launches': launched, 'ms': ms, 'high_ms': high_ms, 'samples': counts.shape[-1],
+        'instance': (short_name(inst[0]) if inst else None), 'widening_ops': mode.hits,
+        'device_us': device_us, 'idle_share': max(0.0, 1 - busy / ms)}
+    print(f'24c blackman step_planes \'i16\' on {counts.shape[-1]} int16 counts: launches '
+          f'{json.dumps(launched)}, {(short_name(inst[0]) if inst else None)}, no op widens the input; within the '
+          f'step gates of \'high\'; {ms:.4f} ms, \'high\' on float32 planes {high_ms:.4f} ms; '
+          f'device busy {busy:.4f} ms ({smi})')
+    print('24c device time by kernel (us): ' + json.dumps(
+        dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+    del mon, high, counts, scaled, out, ref
+    torch.cuda.empty_cache()
+
+    # ---- 24d: the three 107.52 -> 15.36 MS/s designs on the split route
+    for window, (pair, rname) in RADIX7_STEPS.items():
+        mon = radix7_monitor(window)
+        label = f'24d {window} 107.52 -> 15.36 MS/s'
+        require((mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == 'split',
+                f'{label}: {mon.design.nfft} -> {mon.design.nfft_out}, routes {mon.routes}')
+        (c1, m1), (c2, m2) = split_plan(*pair)
+        x, frames = split_step_frames(mon, N_STEP, gen, dev)
+        mon.step(x[: mon.min_input_multiple()])
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        require(launched.get('fused_ola_frames') == 1 and frames_k.route_launches['split'] == 1,
+                f'{label}: launches {launched}, routes {frames_k.route_launches}')
+        check_step(out, mon.reference_step(x), f'{label} vs reference_step')
+        kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+        few = frames[:N_RADIX7_F64]
+        got, ref = frames_k(few, **kw), kernels.fused_ola_frames_plain(few, **kw)
+        ref64 = kernels.fused_ola_frames_plain(few.to(torch.complex128), **_wide_kw(kw))
+        err, err64, plain64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+        require(err <= 1e-6 and err64 <= 2 * plain64,
+                f'{label}: {N_RADIX7_F64} frames vs plain {err:.3g}, vs complex128 {err64:.4g} '
+                f'(the plain chain {plain64:.4g})')
+        step_ms = timed_ms(lambda: mon.step(x), reps=10)
+
+        def plain_step(mon=mon, x=x):
+            return mon._outputs(mon._step_ola(mon._input(x), plain=True), mon._chan, mon._counts)
+
+        plain_ms = timed_ms(plain_step, reps=10)
+        names, device_us = device_kernels(lambda: mon.step(x), *SPLIT_KERNELS,
+                                          fresh=f'radix7_{window}')
+        require(all(any(k in n for n in names) for k in SPLIT_KERNELS)
+                and not library_kernels(names),
+                f'{label}: the profile lacks a split kernel or holds a library kernel: {names}')
+        busy = sum(device_us.values()) / 1e3
+        print(f'{label} ({pair[0]} -> {pair[1]}: {c1} x {m1} -> {c2} x {m2}), {x.numel()} '
+              f'samples: launches {json.dumps(launched)}; within the step gates of '
+              f'reference_step; {N_RADIX7_F64} frames vs plain {err:.3g}, vs complex128 '
+              f'{err64:.4g}, the plain chain {plain64:.4g}; {step_ms:.4f} ms, through the plain '
+              f'frames {plain_ms:.4f} ms; device busy {busy:.4f} ms (idle share '
+              f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+        row = cluster_frame_row(rname, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
+                                smi, kernels_of=SPLIT_KERNELS)
+        row.update({'path': f'WidebandMonitor.step, {window} 107.52 -> 15.36 MS/s '
+                            f'min_fft_size=8191, {pair[0]} -> {pair[1]}',
+                    'plan': f'{c1} x {m1} -> {c2} x {m2}', 'plain_frames_path_ms': plain_ms,
+                    'idle_share': max(0.0, 1 - busy / step_ms),
+                    'few_frames': {'frames': N_RADIX7_F64, 'relative_rms': err,
+                                   'f64_rel_rms': err64, 'plain_f64_rel_rms': plain64}})
+        rows[rname] = row
+        del mon, x, frames, out, few, got, ref, ref64
+        torch.cuda.empty_cache()
+    print(f'phase 24 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return list(rows.values())
 
 
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
@@ -5440,6 +5876,11 @@ def main(parent: str | None = None) -> int:
     for row in rows:
         if row['name'] in host_layer:
             row['host_layer'] = host_layer[row['name']]
+
+    # ---- phase 24: rows 2-3's storage tiers (the frame kernels' plane
+    # instances, ola_filter and the monitor at 'i16' / 'bf16') and the split
+    # route's radix-7 frames
+    rows = merge_rows(rows, tier_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -1,6 +1,6 @@
 // Shared device code of the port's kernels: complex arithmetic, an in-place
-// radix-2 FFT in shared memory, and an in-place mixed-radix (2, 3, 4, 5)
-// one for sizes 2^a 3^b 5^c.
+// radix-2 FFT in shared memory, and an in-place mixed-radix (2, 3, 4, 5, 7)
+// one for sizes 2^a 3^b 5^c 7^d.
 //
 // Each kernel computes its DFT in its own body, as the TPU kernels it
 // replaces do (they run the DFT as matmuls against constant planes). The
@@ -49,7 +49,7 @@ __device__ inline void fft_radix2(float2* a, const float2* __restrict__ tw,
   }
 }
 
-// ---- mixed-radix (2, 3, 4, 5) in-place FFT ------------------------------
+// ---- mixed-radix (2, 3, 4, 5, 7) in-place FFT ---------------------------
 //
 // n = r_0 r_1 ... r_{S-1}. The input sits in shared memory in the plan's
 // digit-reversed order (the host's permutation table: input sample i goes
@@ -126,6 +126,47 @@ __device__ __forceinline__ void dft_small<5>(float2* v, bool inverse) {
   v[4] = make_float2(a1.x - b1.x, a1.y - b1.y);
   v[2] = make_float2(a2.x + b2.x, a2.y + b2.y);
   v[3] = make_float2(a2.x - b2.x, a2.y - b2.y);
+}
+
+// cos and sin of 2 pi j / 7, j = 1, 2, 3
+__host__ __device__ constexpr float cos7(int j) {
+  return j == 1 ? 0.62348980185873353053f : (j == 2 ? -0.22252093395631440429f
+                                                    : -0.90096886790241912624f);
+}
+__host__ __device__ constexpr float sin7(int j) {
+  return j == 1 ? 0.78183148246802980871f : (j == 2 ? 0.97492791218182360702f
+                                                    : 0.43388373911755812048f);
+}
+
+// y_m = a_m + b_m and y_{7-m} = a_m - b_m (m = 1, 2, 3), with t_k = v_k +
+// v_{7-k}, d_k = v_k - v_{7-k}, a_m = v_0 + sum_k cos(2 pi m k / 7) t_k
+// and b_m = -i sum_k sin(2 pi m k / 7) d_k (forward; +i inverse); m k mod
+// 7 folds onto 1, 2, 3 with the sine's sign
+template <>
+__device__ __forceinline__ void dft_small<7>(float2* v, bool inverse) {
+  float2 t[4], d[4];
+#pragma unroll
+  for (int k = 1; k <= 3; ++k) {
+    t[k] = make_float2(v[k].x + v[7 - k].x, v[k].y + v[7 - k].y);
+    d[k] = make_float2(v[k].x - v[7 - k].x, v[k].y - v[7 - k].y);
+  }
+  const float2 v0 = v[0];
+#pragma unroll
+  for (int m = 1; m <= 3; ++m) {
+    float2 a = v0, b = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 1; k <= 3; ++k) {
+      const int j = (m * k) % 7;
+      const float c = cos7(j <= 3 ? j : 7 - j);
+      const float s = j <= 3 ? sin7(j) : -sin7(7 - j);
+      a = make_float2(a.x + c * t[k].x, a.y + c * t[k].y);
+      b = make_float2(b.x + s * d[k].x, b.y + s * d[k].y);
+    }
+    b = rot90(b, inverse);
+    v[m] = make_float2(a.x + b.x, a.y + b.y);
+    v[7 - m] = make_float2(a.x - b.x, a.y - b.y);
+  }
+  v[0] = make_float2(v0.x + t[1].x + t[2].x + t[3].x, v0.y + t[1].y + t[2].y + t[3].y);
 }
 
 // the multiple of B below A B that is 1 mod A (A, B coprime)
@@ -216,6 +257,7 @@ __device__ inline void fft_mixed(float2* a, const float2* __restrict__ tw,
       case 2: fft_stage<2>(a, tw, plan.n, m, inverse); break;
       case 3: fft_stage<3>(a, tw, plan.n, m, inverse); break;
       case 4: fft_stage<4>(a, tw, plan.n, m, inverse); break;
+      case 7: fft_stage<7>(a, tw, plan.n, m, inverse); break;
       default: fft_stage<5>(a, tw, plan.n, m, inverse); break;
     }
     m *= r;

@@ -1,0 +1,11 @@
+// The frame-batch OLA kernels (csrc/ola_frames.cuh) on (2, n) planes of
+// float32: their host launchers, called through the C entries of
+// csrc/fused_ola.cu, compiled in a source of their own so that nvcc builds
+// the element types in parallel.
+#include "ola_frames.cuh"
+
+namespace iqt {
+namespace ola {
+IQT_FRAMES_INSTANCES(, float)
+}  // namespace ola
+}  // namespace iqt

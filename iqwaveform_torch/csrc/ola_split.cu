@@ -10,8 +10,11 @@
 //   The host route (frames_route 'split') takes every pair whose larger
 //   frame no block holds and that CLUSTER_PAIRS does not list, where both
 //   sizes are C M, M a size of csrc/fft_reg.cuh's plans (1024-16384) and
-//   C <= 64 of the factors 2, 3 and 5 (the forward and inverse may differ:
-//   N1 = C1 M1, N2 = C2 M2).
+//   C <= 64 of the factors 2, 3, 5 and 7 (the forward and inverse may
+//   differ: N1 = C1 M1, N2 = C2 M2). The frames are complex64, or (2, n)
+//   planes of float32, int16 or bfloat16 (the storage tiers), which the
+//   forward radix step, the only kernel that reads them, dequantizes on
+//   load (csrc/ola_frames.cuh Src).
 //
 // The algorithm is the cluster kernel's (csrc/fft_cluster.cuh), with
 // device memory in place of distributed shared memory as the exchange
@@ -21,7 +24,7 @@
 //      32 to 512, C1 TN <= 2048: tile_log2); it reads samples c M1 + n (c <
 //      C1) times w_in (TN consecutive samples a part: coalesced), takes
 //      their C1-point DFT in shared memory (Stockham passes of radix 4, 2,
-//      3 and 5 over the TN columns), and stores output r times
+//      3, 5 and 7 over the TN columns), and stores output r times
 //      exp(-2 pi i n r / N1) at offset n of part r of the scratch `a`
 //      (batch, frames, C1, M1);
 //   2. split_fwd_passes_kernel<M1>, one block per (frame, part r): the
@@ -67,6 +70,7 @@
 // gather), and the scratch kept in L2.
 #include "fft.cuh"
 #include "fft_reg.cuh"
+#include "ola_frames.cuh"
 
 namespace {
 
@@ -116,14 +120,16 @@ __device__ __forceinline__ void radix_pass(const float2* src, float2* dst, const
 
 // A radix-C step on TN = 2^lt offsets of one frame (blockIdx.x = frame *
 // (m / TN) + tile, blockIdx.y = batch row): point (c, n) of the frame lies at
-// in + c * m + n, times pre[c * m + n] where pre is given; the C-point DFT
-// (the plan's radices in bits [3s, 3s + 3) of `code`, tab = exp(-+2 pi i j
-// / C), j < C, with the direction's sign); output (r, n) times post[r * m +
-// n] and `scale` to out + r * m + n. `in` and `out` may be the same frames
-// (step 4): a block reads all its points before it writes any.
-template <bool INV>
+// in + c * m + n (elements of E: complex64, or a plane whose imaginary
+// plane lies in_plane elements further), times pre[c * m + n] where pre is
+// given; the C-point DFT (the plan's radices in bits [3s, 3s + 3) of
+// `code`, tab = exp(-+2 pi i j / C), j < C, with the direction's sign);
+// output (r, n) times post[r * m + n] and `scale` to out + r * m + n. `in`
+// and `out` may be the same frames (step 4, E = float2): a block reads all
+// its points before it writes any.
+template <bool INV, class E>
 __global__ void __launch_bounds__(kRadixThreads)
-split_radix_kernel(const float2* in, long long in_batch, long long in_frame,
+split_radix_kernel(const E* in, long long in_batch, long long in_frame, long long in_plane,
                    const float2* __restrict__ pre, const float2* __restrict__ post, float scale,
                    const float2* __restrict__ dft_tab, float2* out, long long out_batch,
                    long long out_frame, int m, int c, int lt, int stages, int code) {
@@ -133,12 +139,17 @@ split_radix_kernel(const float2* in, long long in_batch, long long in_frame,
   const int tiles = m >> lt;
   const int f = blockIdx.x / tiles;
   const int n0 = (blockIdx.x - f * tiles) << lt;
-  const float2* src = in + blockIdx.y * in_batch + f * in_frame + n0;
+  const E* src = in + blockIdx.y * in_batch + f * in_frame + n0;
   float2* dst = out + blockIdx.y * out_batch + f * out_frame + n0;
   for (int e = threadIdx.x; e < c; e += kRadixThreads) tab[e] = __ldg(&dft_tab[e]);
   for (int e = threadIdx.x; e < c << lt; e += kRadixThreads) {
     const int at = (e >> lt) * m + (e & (tn - 1));
-    float2 v = src[at];
+    float2 v;
+    if constexpr (iqt::ola::Src<E>::kRows == 1) {
+      v = src[at];
+    } else {
+      v = make_float2(iqt::ola::to_float(src[at]), iqt::ola::to_float(src[in_plane + at]));
+    }
     if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
     buf[0][e] = v;
   }
@@ -150,7 +161,8 @@ split_radix_kernel(const float2* in, long long in_batch, long long in_frame,
       case 2: radix_pass<2, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
       case 3: radix_pass<3, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
       case 4: radix_pass<4, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
-      default: radix_pass<5, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      case 5: radix_pass<5, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      default: radix_pass<7, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
     }
     __syncthreads();
     cur ^= 1;
@@ -310,7 +322,7 @@ bool radix_ok(int c, int m, int stages, int code) {
   int prod = 1;
   for (int s = 0; s < stages; ++s) {
     const int r = (code >> (3 * s)) & 7;
-    if (r < 2 || r > 5) return false;
+    if (r < 2 || r > 7 || r == 6) return false;
     prod *= r;
   }
   return prod == c;
@@ -334,23 +346,27 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
   return cudaSuccess;
 }
 
-// The split frame chain: frames x (batch, n_frames, nfft) complex64 at the
-// given element strides (the last one 1), y (batch, n_frames, nfft_out)
-// contiguous, a (batch, n_frames, nfft) contiguous scratch. nfft = c1 m1,
+// The split frame chain: frames x (batch, n_frames, nfft) of `layout`
+// (csrc/fused_ola.cu IQT_LAYOUTS: 0 complex64, 1-3 planes of float32, int16,
+// bfloat16, the imaginary plane plane_stride elements after the real one)
+// at the given element strides (the last one 1), y (batch, n_frames,
+// nfft_out) contiguous, a (batch, n_frames, nfft) contiguous scratch. nfft = c1 m1,
 // nfft_out = c2 m2; plan1 / plan2 the radix steps' plans (stages, code);
 // tw_fwd / tw_inv the m1- and m2-point pass tables (n_fwd / n_inv
 // entries), fwd_cross (c1 x m1), inv_cross (c2 x m2), dft1 (c1), dft2 (c2);
 // [lo, hi) the forward bins kept, d = out_lo - in_lo. Launches steps 1-3,
 // and step 4 where c2 > 1, on `stream`; returns the first error. A size or
 // table that no instance takes: cudaErrorInvalidValue, before any launch.
-extern "C" int iqt_ola_split(const void* x, long long batch_stride, long long frame_stride,
-                             const void* w_in, const void* w_out, const void* tw_fwd,
-                             const void* tw_inv, const void* fwd_cross, const void* inv_cross,
+extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
+                             long long frame_stride, long long plane_stride, const void* w_in,
+                             const void* w_out, const void* tw_fwd, const void* tw_inv,
+                             const void* fwd_cross, const void* inv_cross,
                              const void* dft1, const void* dft2, void* a, void* y, int n_fwd,
                              int n_inv, int batch, int n_frames, int c1, int m1, int stages1,
                              int code1, int c2, int m2, int stages2, int code2, int lo, int hi,
                              int d, void* stream) {
-  if (passes_table(m1) != n_fwd || passes_table(m2) != n_inv) return cudaErrorInvalidValue;
+  if (passes_table(m1) != n_fwd || passes_table(m2) != n_inv || layout < 0 || layout > 3)
+    return cudaErrorInvalidValue;
   if (!radix_ok(c1, m1, stages1, code1) || !radix_ok(c2, m2, stages2, code2))
     return cudaErrorInvalidValue;
   const int lt1 = tile_log2(c1), lt2 = tile_log2(c2);
@@ -364,11 +380,20 @@ extern "C" int iqt_ola_split(const void* x, long long batch_stride, long long fr
   const long long n2 = static_cast<long long>(c2) * m2;
   const float inv_n2 = 1.0f / static_cast<float>(n2);
   cudaError_t err;
-  // 1. the forward radix-c1 step into `a`
-  split_radix_kernel<false><<<dim3(n_frames * (m1 >> lt1), batch), kRadixThreads, 0, s>>>(
-      static_cast<const float2*>(x), batch_stride, frame_stride,
-      static_cast<const float2*>(w_in), static_cast<const float2*>(fwd_cross), 1.0f,
-      static_cast<const float2*>(dft1), ap, n_frames * n1, n1, m1, c1, lt1, stages1, code1);
+  // 1. the forward radix-c1 step into `a`, reading the layout's elements
+  const auto forward = [&](auto element) {
+    using E = decltype(element);
+    split_radix_kernel<false, E><<<dim3(n_frames * (m1 >> lt1), batch), kRadixThreads, 0, s>>>(
+        static_cast<const E*>(x), batch_stride, frame_stride, plane_stride,
+        static_cast<const float2*>(w_in), static_cast<const float2*>(fwd_cross), 1.0f,
+        static_cast<const float2*>(dft1), ap, n_frames * n1, n1, m1, c1, lt1, stages1, code1);
+  };
+  switch (layout) {
+    case 0: forward(float2{}); break;
+    case 1: forward(float{}); break;
+    case 2: forward(short{}); break;
+    default: forward(__nv_bfloat16{}); break;
+  }
   if ((err = cudaGetLastError())) return err;
   // 2. the m1-point forward passes, the kept bins into y's inverse parts
   if ((err = fwd_passes(m1, batch, n_frames, s, ap, static_cast<const float2*>(tw_fwd), yp, c1,
@@ -382,8 +407,9 @@ extern "C" int iqt_ola_split(const void* x, long long batch_stride, long long fr
     return err;
   if (last) return cudaSuccess;
   // 4. the inverse radix-c2 step in place, scaled, windowed
-  split_radix_kernel<true><<<dim3(n_frames * (m2 >> lt2), batch), kRadixThreads, 0, s>>>(
-      yp, n_frames * n2, n2, nullptr, static_cast<const float2*>(w_out), inv_n2,
-      static_cast<const float2*>(dft2), yp, n_frames * n2, n2, m2, c2, lt2, stages2, code2);
+  split_radix_kernel<true, float2>
+      <<<dim3(n_frames * (m2 >> lt2), batch), kRadixThreads, 0, s>>>(
+          yp, n_frames * n2, n2, 0, nullptr, static_cast<const float2*>(w_out), inv_n2,
+          static_cast<const float2*>(dft2), yp, n_frames * n2, n2, m2, c2, lt2, stages2, code2);
   return cudaGetLastError();
 }

@@ -104,10 +104,11 @@ class MonitorDesign:
       'auto', 'highest' and 'high' store float32 (or complex64); 'bf16'
       stores bfloat16 planes and 'i16' int16 counts (float samples round to
       the nearest integer first; pass raw ADC counts and set
-      ``input_scale``). The 2:1 kernel reads int16 and bfloat16 planes as
-      they are and dequantizes on load; beyond 2:1 one rounding pass makes
-      complex64 for the frame kernel. The TPU tiers' 1-pass and 3-pass
-      bf16 dots are not copied: only the stored samples differ.
+      ``input_scale``). The OLA kernels (the 2:1 kernel and the frame
+      kernels beyond 2:1) read int16 and bfloat16 planes as they are and
+      dequantize on load; no complex64 copy of the input is made. The TPU
+      tiers' 1-pass and 3-pass bf16 dots are not copied: only the stored
+      samples differ.
     * ``apd_kernel`` 'auto', 'sort' and 'pallas' count the APD with the
       edge histogram (``hist``: exact float32 compares). 'packed' takes the
       JAX package's packed rule: levels ceil((10 log10 p - lo) / w)
@@ -454,16 +455,23 @@ class WidebandMonitor:
         self.routes['apd'] = 'plain'
         return hist_plain(p, self.apd_edges)
 
-    def _tiered(self, x: torch.Tensor) -> torch.Tensor:
-        """complex ``x`` or real (..., 2, N) planes through the storage
-        tier's rounding, as complex64 (complex64 ``x`` itself at the float32
-        tiers)."""
-        return dequantize(stored(x, self.design.fft_precision))
+    def _stored(self, x: torch.Tensor) -> torch.Tensor:
+        """complex ``x`` or real (..., 2, N) planes as the OLA kernels read
+        them (``stored``): complex ``x`` as complex64 at the float32 tiers,
+        else the storage tier's (..., 2, N) planes; planes as they are where
+        the tier holds their values exactly."""
+        return stored(x, self.design.fft_precision)
 
     def _step_ola(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """the OLA stage of ``step``: complex ``x`` (..., N), the capture end
-        zero-extended and the last frame's tail dropped."""
-        return (fused_ola_plain if plain else self._ola)(self._tiered(x), **self.ola_kwargs)
+        zero-extended and the last frame's tail dropped. Beyond 2:1 the frame
+        kernels read the storage tier's planes; the 2:1 ``fused_ola`` reads
+        their values as complex64."""
+        src = self._stored(x)
+        if self._strided:
+            return (fused_ola_plain if plain else fused_ola)(dequantize(src), **self.ola_kwargs)
+        return ola_grouped(src, frames_fn=fused_ola_frames_plain if plain else self._frames,
+                           **self.ola_kwargs)
 
     def _resample(self, src: torch.Tensor, halo=None, plain: bool = False,
                   tail: bool = True) -> tuple:
@@ -474,15 +482,17 @@ class WidebandMonitor:
         the same layout) or zeros. Returns (y, tail): the resampled (...,
         N / hop_in * hop_out) complex64 and the final frame's dangling (...,
         noverlap_out), or None for ``tail=False``. At 2:1 one launch of
-        ``fused_ola_strided``; beyond, the tier's rounding into complex64
-        and the grouped overlap-add of the OLA route's frames."""
+        ``fused_ola_strided``; beyond, the grouped overlap-add of the OLA
+        route's frames, which read the storage tier's planes (complex64 at
+        the float32 tiers)."""
         n_frames = src.shape[-1] // self.hop_in
         if self._strided:
             fn = fused_ola_strided_plain if plain else fused_ola_strided
             return fn(src, halo, n_frames=n_frames, tail=tail, **self.strided_kwargs)
         y, t = ola_grouped(
-            self._tiered(src), halo=None if halo is None else self._tiered(halo), return_tail=True,
-            frames_fn=fused_ola_frames_plain if plain else self._frames, **self.ola_kwargs,
+            self._stored(src), halo=None if halo is None else self._stored(halo),
+            return_tail=True, frames_fn=fused_ola_frames_plain if plain else self._frames,
+            **self.ola_kwargs,
         )
         return y, t if tail else None
 
@@ -788,11 +798,6 @@ class WidebandMonitor:
     # not formed) and the all-reduces are the identity, so the step equals
     # :meth:`step` on the same block.
 
-    def _shard_source(self, x_local) -> torch.Tensor:
-        """a shard as the OLA reads it: complex64 at the float32 tiers, the
-        storage tier's (..., 2, N) planes at 'bf16' and 'i16'."""
-        return stored(x_local, self.design.fft_precision)
-
     def _shard_body(self, x_local, halo=None, tail_in=None, tail: bool = True) -> tuple:
         """the rank body of :meth:`sharded_step` on one shard, with no
         collective: ``x_local`` (..., N) complex (or the storage tier's
@@ -803,8 +808,8 @@ class WidebandMonitor:
         own tail for its right neighbour (None for ``tail=False``). Several
         shards run in one process through it, in order, each taking the
         previous one's tail."""
-        h = None if halo is None else self._shard_source(halo)
-        y, tail_out = self._ola_chunk(self._shard_source(x_local), h, tail_in, tail=tail)
+        h = None if halo is None else self._stored(halo)
+        y, tail_out = self._ola_chunk(self._stored(x_local), h, tail_in, tail=tail)
         return self._outputs(y, self._chan, self._counts), tail_out
 
     def _merge_time(self, out: dict, group, n_time: int, n_binned: int) -> dict:
@@ -850,7 +855,7 @@ class WidebandMonitor:
                 f'{x.shape[-1]}; min_input_multiple(n_time_shards) gives capture lengths whose '
                 'shards also give whole channelizer frames'
             )
-        src = self._shard_source(x)
+        src = self._stored(x)
         halo = _collectives.right_halo(src, self.noverlap_in, group) if self.noverlap_in else None
         y, tail = self._resample(src, halo, tail=n_time > 1 and self.noverlap_out > 0)
         tail_in = None if tail is None else _collectives.tail_to_right(tail, group)

@@ -42,9 +42,12 @@ from ..utils import (
 )
 from .fft import check_fft_backend, fftfreq, to_float32
 from .kernels.fused_ola import (
+    dequantize,
     fused_ola_frames,
     fused_ola_frames_plain,
     fused_ola_frames_supported,
+    storage_dtype,
+    stored,
 )
 from .stft import _axis_tuple, _unstack_stft_windows, _gather_frames, broadcast_onto, istft, stft
 from .window_design import equivalent_noise_bandwidth, get_window
@@ -536,19 +539,27 @@ def _ola_bin_bounds(nfft: int, nfft_out: int, fs: float, passband, enbw, resampl
     return zero_lo, zero_hi, bounds_in, bounds_out
 
 
-# fft_precision: every accepted tier is float32 throughout here
-_PRECISIONS = ('auto', 'highest', 'high')
+# fft_precision: the arithmetic is float32 at every tier; 'bf16' and 'i16'
+# store the samples as bfloat16 or int16 first (ops.kernels.fused_ola.stored)
+_PRECISIONS = ('auto', 'highest', 'high', 'bf16', 'i16')
 
 
 def _check_precision(fft_precision: str) -> None:
-    if fft_precision in ('bf16', 'i16'):
-        raise NotImplementedError(
-            f"fft_precision={fft_precision!r} is not ported here (ROADMAP Queue 2 "
-            "item 3: the frame kernel's storage tiers); 'auto', 'highest' and 'high' "
-            "all run float32"
-        )
     if fft_precision not in _PRECISIONS:
         raise ValueError(f'fft_precision must be one of {_PRECISIONS}, not {fft_precision!r}')
+
+
+def _tiered(x: torch.Tensor, axis: int, fft_precision: str):
+    """``x`` along ``axis`` in the storage of ``fft_precision``'s tier, as
+    the JAX package's ``_to_storage`` converts the frames
+    (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:348): None at the
+    float32 tiers, else (..., 2, N) planes (``axis`` last) of bfloat16 or of
+    int16 counts (float samples rounded half to even; real input has a
+    zero imaginary plane)."""
+    if storage_dtype(fft_precision) == torch.float32:
+        return None
+    xm = x.movedim(axis, -1)
+    return stored(xm if xm.is_complex() else xm.to(torch.complex64), fft_precision)
 
 
 def _kernel_route_covers(*, nfft, nfft_out, noverlap_in, size, device) -> bool:
@@ -587,22 +598,28 @@ def _ola_windows(window, nfft: int, nfft_out: int, hop_in: int, device: torch.de
 
 def _ola_filter_fused(
     x: torch.Tensor, *, nfft, nfft_out, noverlap_in, noverlap_out, window,
-    zero_lo, zero_hi, bounds_in, bounds_out, axis: int, plain: bool,
+    zero_lo, zero_hi, bounds_in, bounds_out, axis: int, plain: bool, planes=None,
 ):
     """the ola_filter spectral chain (stft -> zero -> trim -> istft) through
     the frame-batch kernel (its plain version if ``plain``), on the public
     frame set (offsets 0, hop, ... <= N - nfft), then the grouped
     overlap-add: the JAX package's ``_ola_filter_fused``
-    (iqwaveform_tpu/ops/filtering.py:610-669) at any ``axis``."""
+    (iqwaveform_tpu/ops/filtering.py:610-669) at any ``axis``. ``planes``:
+    ``x`` in a storage tier's planes (:func:`_tiered`), which the kernel
+    reads at the hop in place of complex64 frames."""
     axis = axis % x.ndim
-    w_in, w_out = _ola_windows(window, nfft, nfft_out, nfft - noverlap_in, x.device)
-    xm = x.movedim(axis, -1).to(torch.complex64).contiguous()
-    frames = _gather_frames(xm, nfft, noverlap_in, axis=-1)
+    hop_in = nfft - noverlap_in
+    w_in, w_out = _ola_windows(window, nfft, nfft_out, hop_in, x.device)
+    if planes is None:
+        xm = x.movedim(axis, -1).to(torch.complex64).contiguous()
+        frames, kw = _gather_frames(xm, nfft, noverlap_in, axis=-1), {}
+    else:
+        frames, kw = planes.contiguous(), dict(hop_in=hop_in)
     frames_fn = fused_ola_frames_plain if plain else fused_ola_frames
     xstack = frames_fn(
         frames, w_in=w_in, w_shift_out=w_out, nfft=nfft, nfft_out=nfft_out,
         zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
-        bounds_out=bounds_out,
+        bounds_out=bounds_out, **kw,
     )
     y = _unstack_stft_windows(xstack, noverlap=noverlap_out, nperseg=nfft_out, axis=xstack.ndim - 2)
     return y.movedim(-1, axis)
@@ -652,7 +669,13 @@ def ola_filter(
             scope covers the design, else the stage chain), 'pallas' or
             'mxu' (the kernel; ValueError outside its scope), 'xla' (the
             stft -> zero -> trim -> istft chain on torch.fft)
-        fft_precision: 'auto', 'highest' or 'high'; all run float32
+        fft_precision: 'auto', 'highest' or 'high' (float32 samples), or
+            the storage tiers 'bf16' and 'i16': the samples are stored as
+            bfloat16 or as int16 counts (float input rounded to the nearest
+            integer, as the JAX package's tier does: pass raw ADC counts),
+            which the frame kernel reads as they are on the kernel route and
+            every other route reads dequantized; the arithmetic is float32
+            at every tier
         plain: on the kernel route, run the kernel's plain version on
             ``device`` (the yardstick the kernel is held against)
 
@@ -666,6 +689,7 @@ def ola_filter(
         int(x.numel()), window=window, nfft_out=nfft_out, nfft=nfft, extend=extend,
     )
     axis = axis % x.ndim
+    planes = _tiered(x, axis, fft_precision)
     noverlap_in = round(nfft * overlap_scale)
     size_out = round(x.shape[axis] * nfft_out / nfft)
 
@@ -692,11 +716,13 @@ def ola_filter(
             x, nfft=nfft, nfft_out=nfft_out, noverlap_in=noverlap_in,
             noverlap_out=noverlap, window=window, zero_lo=zero_lo,
             zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out,
-            axis=axis, plain=plain,
+            axis=axis, plain=plain, planes=planes,
         )
         return _centered_size_trim(y, size_out, axis=axis)
 
     check_fft_backend(fft_backend)
+    if planes is not None:
+        x = dequantize(planes).movedim(-1, axis)
     freqs, _, y = stft(
         x, fs=fs, window=window, nperseg=nfft, noverlap=noverlap_in, axis=axis,
         truncate=False, fft_backend=fft_backend, device=dev,
@@ -860,6 +886,8 @@ def oaresample(
     the design is a pure trim (nfft_out <= nfft, no STFT-domain FIR) in
     the kernel's scope, and the stage chain otherwise; 'xla' the chain.
     'mxu' and 'pallas' raise ValueError, as in the JAX package.
+    fft_precision: as in :func:`ola_filter` (the storage tiers 'bf16' and
+    'i16' store the samples first, on every route).
     """
     if down < 1 or up < 1 or up != int(up) or down != int(down):
         raise ValueError(f'up ({up}) and down ({down}) must be positive integers')
@@ -895,6 +923,7 @@ def oaresample(
         )
     check_fft_backend(fft_backend)
     axis = axis % x.ndim
+    planes = _tiered(x, axis, fft_precision)
 
     if fft_backend == 'auto' and nfft_out <= nfft and not has_fir:
         # a pure trim: full-pass mask (zero_lo=0, zero_hi=None), the copy
@@ -911,9 +940,12 @@ def oaresample(
                 x, nfft=nfft, nfft_out=nfft_out, noverlap_in=noverlap_in,
                 noverlap_out=noverlap, window=window, zero_lo=0, zero_hi=None,
                 bounds_in=bounds_in, bounds_out=bounds_out, axis=axis,
-                plain=False,
+                plain=False, planes=planes,
             )
             return xr * (xr.numel() / size_in * scale)
+
+    if planes is not None:
+        x = dequantize(planes).movedim(-1, axis)
 
     y = stft(
         x, fs=fs, window=window, nperseg=nfft, noverlap=noverlap_in, axis=axis,

@@ -53,10 +53,11 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
-    'common.cu', 'fused_ola.cu', 'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu',
-    'spectrogram.cu', 'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu',
+    'common.cu', 'fused_ola.cu', 'fused_ola_f32.cu', 'fused_ola_i16.cu', 'fused_ola_bf16.cu',
+    'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu', 'spectrogram.cu',
+    'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu',
 )
-HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh')
+HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh', 'ola_frames.cuh')
 
 # no --use_fast_math: the kernels are held to 1e-5 relative RMS against
 # full-precision float32, with accurate logf and division
@@ -79,12 +80,12 @@ SIGNATURES = {
     'iqt_fused_ola': ([_P, _I, _P, _I] + [_P] * 6 + [_I] * 13 + [_P], _I),
     'iqt_fused_ola_reg': ([_P, _I, _P, _I] + [_P] * 5 + [_I] * 14 + [_P], _I),
     'iqt_fused_ola_frames_prepare': ([_I], _I),
-    'iqt_fused_ola_frames': ([_P, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
-    'iqt_fused_ola_frames_reg': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
-    'iqt_fused_ola_frames_cluster': ([_P, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
-    'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _P], _I),
+    'iqt_fused_ola_frames': ([_P, _I, _L, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
+    'iqt_fused_ola_frames_reg': ([_P, _I, _L, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
+    'iqt_fused_ola_frames_cluster': ([_P, _I, _L, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
+    'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _I, _P], _I),
     'iqt_ola_split_prepare': ([_I], _I),
-    'iqt_ola_split': ([_P, _L, _L] + [_P] * 10 + [_I] * 15 + [_P], _I),
+    'iqt_ola_split': ([_P, _I, _L, _L, _L] + [_P] * 10 + [_I] * 15 + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),
@@ -302,15 +303,15 @@ def log2_exact(n: int) -> int:
 
 def fft_plan(n: int) -> tuple:
     """the radices of the mixed-radix FFT of ``csrc/fft.cuh`` for ``n``
-    points: 4s (and one 2 for an odd power of two), then 3s, then 5s.
-    Empty for n = 1; ValueError for a size with another prime factor."""
+    points: 4s (and one 2 for an odd power of two), then 3s, then 5s, then
+    7s. Empty for n = 1; ValueError for a size with another prime factor."""
     radices, rest = [], n
-    for r in (4, 2, 3, 5):
+    for r in (4, 2, 3, 5, 7):
         while rest % r == 0 and (r != 2 or rest % 4):
             radices.append(r)
             rest //= r
     if rest != 1 or n < 1:
-        raise ValueError(f'{n} is not of the form 2^a 3^b 5^c')
+        raise ValueError(f'{n} is not of the form 2^a 3^b 5^c 7^d')
     return tuple(radices)
 
 

@@ -20,7 +20,9 @@ Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
   before the launch).
 * :func:`fused_ola_frames` replaces ``fused_ola_pallas`` (:394) and
   ``fused_ola_packed`` (:492): the same per-frame chain on a batch of
-  frames, at sizes 2^a 3^b 5^c, with no overlap-add. At the size pairs of
+  complex64 frames, or on frames read at a hop from (2, N) sample planes of
+  the storage tiers (float32, int16, bfloat16, dequantized on load), at
+  sizes 2^a 3^b 5^c 7^d, with no overlap-add. At the size pairs of
   :data:`REG_PAIRS` it launches ``fused_ola_frames_reg_kernel``,
   register-resident radix-16 passes compiled for those sizes
   (``csrc/fft_reg.cuh``); at the pairs of :data:`CLUSTER_PAIRS` (frames of
@@ -28,7 +30,7 @@ Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
   split over a thread-block cluster of C blocks (``csrc/fft_cluster.cuh``);
   at every other pair whose larger frame one block cannot hold, where both
   sizes split into C M with M a size of :data:`REG_PLANS` and C <= 64 of
-  the factors 2, 3 and 5 (:func:`split_shape`), the split route of
+  the factors 2, 3, 5 and 7 (:func:`split_shape`), the split route of
   ``csrc/ola_split.cu``: a radix-C step, the M-point passes and the
   inverse's through device memory, four launches (three where the output
   is one part); at every other size the generic mixed-radix
@@ -175,6 +177,18 @@ def _copy_bounds(nfft, nfft_out, bounds_in, bounds_out):
     return tuple(bounds_in), tuple(bounds_out)
 
 
+def _plane_frames(planes: torch.Tensor, nfft: int, hop_in) -> int:
+    """the frames of (..., 2, N) sample planes read at ``hop_in``: every
+    whole frame from offset 0 (ValueError for complex or short input)."""
+    if hop_in is None or hop_in < 1:
+        raise ValueError(f'frames read from sample planes need a positive hop_in, not {hop_in}')
+    if planes.dim() < 2 or planes.shape[-2] != 2 or planes.is_complex():
+        raise ValueError(f'planes must be real (..., 2, N), not {tuple(planes.shape)}')
+    if planes.shape[-1] < nfft:
+        raise ValueError(f'planes of {planes.shape[-1]} samples hold no frame of {nfft}')
+    return (planes.shape[-1] - nfft) // hop_in + 1
+
+
 def fused_ola_frames_plain(
     frames: torch.Tensor,
     *,
@@ -186,8 +200,13 @@ def fused_ola_frames_plain(
     zero_hi,
     bounds_in,
     bounds_out,
+    hop_in: int = None,
 ) -> torch.Tensor:
-    """plain PyTorch version of :func:`fused_ola_frames` (same arguments)."""
+    """plain PyTorch version of :func:`fused_ola_frames` (same arguments):
+    planes are dequantized to complex64, then framed."""
+    if not frames.is_complex():
+        n_frames = _plane_frames(frames, nfft, hop_in)
+        frames = _local_frames(dequantize(frames), nfft, hop_in, n_frames)
     Y = torch.fft.fft(frames * w_in, dim=-1)
     if zero_lo > 0:
         Y[..., :zero_lo] = 0
@@ -205,20 +224,24 @@ def fused_ola_frames_plain(
     return torch.fft.ifft(Y, dim=-1) * w_shift_out
 
 
-def _smooth235(n: int) -> bool:
-    for p in (2, 3, 5):
-        while n % p == 0:
-            n //= p
-    return n == 1
+def _smooth(n: int) -> bool:
+    """the mixed-radix FFT of csrc/fft.cuh (and the split route's radix
+    steps) has a plan for ``n`` points (:func:`_build.fft_plan`: n = 2^a
+    3^b 5^c 7^d)."""
+    try:
+        _build.fft_plan(n)
+    except ValueError:
+        return False
+    return True
 
 
 def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
     """the frame-batch kernels' scope: the pairs of :data:`CLUSTER_PAIRS`
     (a frame split over a cluster of blocks), the pairs of the split route
-    (:func:`split_takes`), and both sizes of the form 2^a 3^b 5^c with the
-    larger frame (8 bytes a point) within the opt-in shared memory of one
-    block of ``device`` (an H100's where ``device`` is not a card: about
-    29k points)."""
+    (:func:`split_takes`), and both sizes of the form 2^a 3^b 5^c 7^d with
+    the larger frame (8 bytes a point) within the opt-in shared memory of
+    one block of ``device`` (an H100's where ``device`` is not a card:
+    about 29k points)."""
     device = torch.device('cpu' if device is None else device)
     smem = _build.smem_optin(device) if device.type == 'cuda' else H100_SMEM_OPTIN
     if (nfft, nfft_out) in CLUSTER_PAIRS:
@@ -227,8 +250,8 @@ def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
         return max(split_smem(m) for _, m in split_plan(nfft, nfft_out)) <= smem
     return (
         min(nfft, nfft_out) >= 1
-        and _smooth235(nfft)
-        and _smooth235(nfft_out)
+        and _smooth(nfft)
+        and _smooth(nfft_out)
         and 8 * max(nfft, nfft_out) <= smem
         and nfft_out <= _FRAMES_THREADS * _FRAMES_MAX_BINS_PER_THREAD
     )
@@ -238,13 +261,13 @@ def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
 def split_shape(n: int, inverse: bool = False):
     """(C, M) of an ``n``-point transform on the split route: the largest M
     of :data:`REG_PLANS` (:data:`SPLIT_INV_PLANS` for the ``inverse``)
-    with n = C M, C at most :data:`SPLIT_MAX_C` and of the factors 2, 3
-    and 5 (C = 1 where n is itself such a size); None where there is none
+    with n = C M, C at most :data:`SPLIT_MAX_C` and of the factors 2, 3, 5
+    and 7 (C = 1 where n is itself such a size); None where there is none
     (another prime factor, fewer than 2^10 in n, or C above
     SPLIT_MAX_C)."""
     for m in sorted(SPLIT_INV_PLANS if inverse else REG_PLANS, reverse=True):
         c, rest = divmod(n, m)
-        if rest == 0 and 1 <= c <= SPLIT_MAX_C and _smooth235(c):
+        if rest == 0 and 1 <= c <= SPLIT_MAX_C and _smooth(c):
             return c, m
     return None
 
@@ -430,21 +453,28 @@ def fused_ola_frames(
     zero_hi,
     bounds_in,
     bounds_out,
+    hop_in: int = None,
 ) -> torch.Tensor:
-    """OLA spectral chain of each frame of ``frames`` (..., M, nfft)
-    complex64: times ``w_in`` (the analysis window with 1/sum|w[::hop_in]|
-    and any input scale folded in), FFT, bins outside [zero_lo, zero_hi)
-    zeroed, bins [bounds_in) moved to [bounds_out) of an nfft_out-bin
-    spectrum, inverse FFT, times ``w_shift_out``.
+    """OLA spectral chain of each frame of ``frames``: times ``w_in`` (the
+    analysis window with 1/sum|w[::hop_in]| and any input scale folded in),
+    FFT, bins outside [zero_lo, zero_hi) zeroed, bins [bounds_in) moved to
+    [bounds_out) of an nfft_out-bin spectrum, inverse FFT, times
+    ``w_shift_out``.
 
-    ``frames`` may be a strided view of a capture (``x.unfold(-1, nfft,
-    hop)``): the kernel reads each frame where it lies. Returns (..., M,
-    nfft_out) complex64, one row per frame, not overlap-added.
+    frames: (..., M, nfft) complex64, which may be a strided view of a
+        capture (``x.unfold(-1, nfft, hop)``): the kernel reads each frame
+        where it lies; or real (..., 2, N) sample planes of float32, int16
+        or bfloat16 (a storage tier's, :func:`stored`), whose frames start
+        at 0, ``hop_in``, ... (every whole frame, M = (N - nfft) // hop_in
+        + 1), dequantized on load.
+
+    Returns (..., M, nfft_out) complex64, one row per frame, not
+    overlap-added.
     """
     kw = dict(
         w_in=w_in, w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
         zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
-        bounds_out=bounds_out,
+        bounds_out=bounds_out, hop_in=hop_in,
     )
     if frames.device.type == 'cpu':
         return fused_ola_frames_plain(frames, **kw)
@@ -483,67 +513,87 @@ def _launch_frames(
     zero_hi,
     bounds_in,
     bounds_out,
+    hop_in: int = None,
 ) -> torch.Tensor:
     """launch ``route``'s frame kernel ('reg', 'cluster', 'split' or
-    'generic') on CUDA ``frames``; counts the launch in
-    ``fused_ola_frames.launches`` and ``fused_ola_frames.route_launches[route]``
-    (the split route's three or four kernels count as one launch). The
-    split route takes batch * M * nfft complex64 of scratch from the caching
-    allocator (the frames' size), besides the output."""
+    'generic') on CUDA ``frames`` (complex64 frames, or sample planes of a
+    type of :data:`LAYOUTS` read at ``hop_in``: the kernel's instance of
+    that element type); counts the launch in ``fused_ola_frames.launches``,
+    ``fused_ola_frames.route_launches[route]`` (the split route's three or
+    four kernels count as one launch) and
+    ``fused_ola_frames.layout_launches[dtype name]``. The split route
+    takes batch * M * nfft complex64 of scratch from the caching allocator
+    (the frames' size at complex64), besides the output."""
     dev = frames.device
     if not fused_ola_frames_supported(nfft, nfft_out, dev):
         raise NotImplementedError(
-            'the CUDA frame-batch OLA kernels take sizes 2^a 3^b 5^c whose '
+            'the CUDA frame-batch OLA kernels take sizes 2^a 3^b 5^c 7^d whose '
             f'frame fits one block\'s shared memory ({_build.smem_optin(dev)} '
             'bytes, 8 a point), split over a cluster of blocks the pairs '
             f'{sorted(CLUSTER_PAIRS)}, and above one block sizes C M with M '
             f'in {sorted(REG_PLANS)} (of the output, in {sorted(SPLIT_INV_PLANS)}) '
-            f'and C <= {SPLIT_MAX_C} of the factors 2, 3 and 5; got '
+            f'and C <= {SPLIT_MAX_C} of the factors 2, 3, 5 and 7; got '
             f'nfft={nfft}, nfft_out={nfft_out} (ROADMAP Queue 2 item 1)'
         )
-    if frames.dtype != torch.complex64:
-        raise TypeError(f'frames must be torch.complex64, not {frames.dtype}')
-    if frames.dim() < 2 or frames.shape[-1] != nfft or frames.stride(-1) != 1:
-        raise ValueError(
-            f'frames must be (..., M, {nfft}) with unit stride along the '
-            f'last axis, not shape {tuple(frames.shape)} strides {frames.stride()}'
-        )
+    if frames.dtype not in LAYOUTS:
+        raise TypeError(f'the frame kernels read {sorted(map(str, LAYOUTS))}, not {frames.dtype}')
     _build.require(w_in, 'w_in', device=dev, dtype=torch.complex64, shape=(nfft,))
     _build.require(
         w_shift_out, 'w_shift_out', device=dev, dtype=torch.complex64,
         shape=(nfft_out,),
     )
-    lead = frames.shape[:-2]
-    f3 = frames.reshape(-1, *frames.shape[-2:]) if frames.dim() != 3 else frames
-    batch, n_frames = f3.shape[0], f3.shape[1]
+    if frames.is_complex():
+        if frames.dim() < 2 or frames.shape[-1] != nfft or frames.stride(-1) != 1:
+            raise ValueError(
+                f'frames must be (..., M, {nfft}) with unit stride along the '
+                f'last axis, not shape {tuple(frames.shape)} strides {frames.stride()}'
+            )
+        lead = frames.shape[:-2]
+        f3 = frames.reshape(-1, *frames.shape[-2:]) if frames.dim() != 3 else frames
+        batch, n_frames = f3.shape[0], f3.shape[1]
+        # element strides of a batch row and of a frame; one plane
+        strides = (f3.stride(0), f3.stride(1), 0)
+    else:
+        n_frames = _plane_frames(frames, nfft, hop_in)
+        _build.require(frames, 'planes', device=dev, dtype=frames.dtype)
+        lead = frames.shape[:-2]
+        n = frames.shape[-1]
+        batch = frames.numel() // (2 * n)
+        f3 = frames
+        # a batch row holds both planes; frame m starts at m hop_in of the
+        # real plane, its imaginary plane n elements further
+        strides = (2 * n, hop_in, n)
+        if n >= 2**31:
+            raise ValueError('fused_ola_frames takes planes below 2**31 samples a row')
     if batch == 0 or n_frames == 0:
         raise ValueError('fused_ola_frames needs at least one frame')
     if batch >= 2**16 or n_frames >= 2**31:
         raise ValueError('fused_ola_frames takes batches below 2**16 and below 2**31 frames')
     (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
 
+    layout = LAYOUTS[frames.dtype]
     y = torch.empty((batch, n_frames, nfft_out), dtype=torch.complex64, device=dev)
     _build.prepare('iqt_fused_ola_frames_prepare', dev)
     zero_hi = nfft if zero_hi is None else int(zero_hi)
     if route == 'split':
-        err = _launch_split(f3, y, w_in, w_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
-                            zero_lo=int(zero_lo), zero_hi=zero_hi, in_lo=int(in_lo),
-                            out_lo=int(out_lo), out_hi=int(out_hi))
+        err = _launch_split(f3, layout, strides, y, w_in, w_out=w_shift_out, nfft=nfft,
+                            nfft_out=nfft_out, zero_lo=int(zero_lo), zero_hi=zero_hi,
+                            in_lo=int(in_lo), out_lo=int(out_lo), out_hi=int(out_hi))
     elif route in ('reg', 'cluster'):
         if route == 'reg':
             tw, entry = reg_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_reg'
         else:
-            _require_cluster_residency(nfft, nfft_out, dev)
+            _require_cluster_residency(nfft, nfft_out, dev, layout)
             tw, entry = cluster_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_cluster'
         err = getattr(_build.library(), entry)(
-            f3.data_ptr(), f3.stride(0), f3.stride(1), w_in.data_ptr(),
+            f3.data_ptr(), layout, *strides, w_in.data_ptr(),
             w_shift_out.data_ptr(), tw.data_ptr(), y.data_ptr(), tw.numel(),
             batch, n_frames, nfft, nfft_out, int(zero_lo), zero_hi,
             int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
         )
     else:
         err = _build.library().iqt_fused_ola_frames(
-            f3.data_ptr(), f3.stride(0), f3.stride(1),
+            f3.data_ptr(), layout, *strides,
             w_in.data_ptr(), _build.twiddles_full(nfft, dev).data_ptr(),
             _build.digit_reversal(nfft, dev).data_ptr(),
             w_shift_out.data_ptr(), _build.twiddles_full(nfft_out, dev).data_ptr(),
@@ -552,16 +602,19 @@ def _launch_frames(
             nfft_out, *_build.plan_code(nfft_out), int(zero_lo), zero_hi,
             int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
         )
-    _build.check(err, f'fused_ola_frames ({route} kernel)')
+    _build.check(err, f'fused_ola_frames ({route} kernel, {frames.dtype} input)')
     fused_ola_frames.launches += 1
     fused_ola_frames.route_launches[route] += 1
+    fused_ola_frames.layout_launches[str(frames.dtype).split('.')[-1]] += 1
     return y.reshape(*lead, n_frames, nfft_out)
 
 
-def _launch_split(f3, y, w_in, *, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
-                  out_hi) -> int:
-    """the split route's launches on (batch, M, nfft) frames ``f3`` into
-    ``y`` (batch, M, nfft_out); returns the C entry's error code."""
+def _launch_split(f3, layout, strides, y, w_in, *, w_out, nfft, nfft_out, zero_lo, zero_hi,
+                  in_lo, out_lo, out_hi) -> int:
+    """the split route's launches on the frames at ``f3`` (``layout``'s
+    elements at ``strides``: a batch row's, a frame's, the imaginary
+    plane's) into ``y`` (batch, M, nfft_out); returns the C entry's error
+    code."""
     dev = f3.device
     _build.prepare('iqt_ola_split_prepare', dev)
     (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
@@ -572,12 +625,12 @@ def _launch_split(f3, y, w_in, *, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo
     # kept forward bin to its inverse bin
     lo = max(zero_lo, in_lo)
     hi = min(zero_hi, in_lo + out_hi - out_lo)
-    a = torch.empty(f3.shape, dtype=torch.complex64, device=dev)
+    a = torch.empty((*y.shape[:2], nfft), dtype=torch.complex64, device=dev)
     return _build.library().iqt_ola_split(
-        f3.data_ptr(), f3.stride(0), f3.stride(1), w_in.data_ptr(), w_out.data_ptr(),
+        f3.data_ptr(), layout, *strides, w_in.data_ptr(), w_out.data_ptr(),
         at['fwd_passes'], at['inv_passes'], at['fwd_cross'], at['inv_cross'], at['fwd_dft'],
         at['inv_dft'], a.data_ptr(), y.data_ptr(), off['inv_passes'],
-        off['fwd_cross'] - off['inv_passes'], f3.shape[0], f3.shape[1], c1, m1,
+        off['fwd_cross'] - off['inv_passes'], y.shape[0], y.shape[1], c1, m1,
         *_build.plan_code(c1), c2, m2, *_build.plan_code(c2), lo, hi, out_lo - in_lo,
         _build.stream_of(f3),
     )
@@ -586,23 +639,26 @@ def _launch_split(f3, y, w_in, *, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo
 fused_ola_frames.launches = 0
 # launches by kernel: 'reg' (fused_ola_frames_reg_kernel), 'cluster'
 # (fused_ola_frames_cluster_kernel), 'split' (the kernels of
-# csrc/ola_split.cu, one count a call), 'generic' (fused_ola_frames_kernel)
+# csrc/ola_split.cu, one count a call), 'generic' (fused_ola_frames_kernel);
+# and by the input's element type (complex64 frames, or planes)
 fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'split': 0, 'generic': 0}
+fused_ola_frames.layout_launches = {'complex64': 0, 'float32': 0, 'int16': 0, 'bfloat16': 0}
 
 
 @functools.lru_cache(maxsize=None)
-def _require_cluster_residency(nfft: int, nfft_out: int, device: torch.device) -> int:
-    """the clusters of the pair's kernel that ``device`` can hold at
-    once (cudaOccupancyMaxActiveClusters), asked once per pair and device
-    before the first launch; raises where it is none: a cluster the card
-    cannot co-schedule fails only at the launch, and there is no other
-    route on the card."""
+def _require_cluster_residency(nfft: int, nfft_out: int, device: torch.device,
+                               layout: int = 0) -> int:
+    """the clusters of the pair's kernel of ``layout`` (:data:`LAYOUTS`)
+    that ``device`` can hold at once (cudaOccupancyMaxActiveClusters),
+    asked once per pair, layout and device before the first launch; raises
+    where it is none: a cluster the card cannot co-schedule fails only at
+    the launch, and there is no other route on the card."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         _build.prepare('iqt_fused_ola_frames_prepare', device)
         _build.check(
             _build.library().iqt_fused_ola_frames_cluster_occupancy(
-                nfft, nfft_out, ctypes.addressof(out)),
+                nfft, nfft_out, layout, ctypes.addressof(out)),
             f'cluster occupancy of the {nfft} -> {nfft_out} frame kernel',
         )
     if out.value < 1:
@@ -631,29 +687,33 @@ def ola_grouped(
     halo: torch.Tensor = None,
     return_tail: bool = False,
 ):
-    """the monitor's OLA stage at any COLA overlap: ``x`` (..., N)
-    extended by ``noverlap_in`` samples (``halo`` (..., noverlap_in), the
-    next chunk's head, or zeros), ``N // hop_in`` frames at ``hop_in``
-    through ``frames_fn`` (:func:`fused_ola_frames` or its plain version),
-    then the R = nfft_out / hop_out groups of every R-th frame added at
-    their offsets in a fixed order (the grouped pass of
-    iqwaveform_tpu/models/monitor.py:789-804 and :1162-1168). Returns (...,
-    (N // hop_in) * hop_out) complex64; with ``return_tail``, also the final
-    frame's dangling tail (..., noverlap_out), which is dropped otherwise."""
+    """the monitor's OLA stage at any COLA overlap: ``x`` (..., N) complex,
+    or real (..., 2, N) sample planes of a storage tier (:func:`stored`),
+    extended by ``noverlap_in`` samples in its own type (``halo`` in the same
+    layout with noverlap_in samples a row, the next chunk's head, or zeros),
+    ``N // hop_in`` frames at ``hop_in`` through ``frames_fn``
+    (:func:`fused_ola_frames` or its plain version: complex frames as a
+    strided view, planes with ``hop_in``, which the frame kernels read and
+    dequantize where they lie), then the R = nfft_out / hop_out groups of
+    every R-th frame added at their offsets in a fixed order (the grouped
+    pass of iqwaveform_tpu/models/monitor.py:789-804 and :1162-1168).
+    Returns (..., (N // hop_in) * hop_out) complex64; with ``return_tail``,
+    also the final frame's dangling tail (..., noverlap_out), which is
+    dropped otherwise."""
     hop_in = nfft - noverlap_in
     hop_out = nfft_out - noverlap_out
-    lead = x.shape[:-1]
     n_frames = x.shape[-1] // hop_in
 
     if noverlap_in > 0:
-        ext = x.new_zeros(*lead, noverlap_in) if halo is None else halo.to(x.dtype)
+        ext = x.new_zeros(*x.shape[:-1], noverlap_in) if halo is None else halo.to(x.dtype)
         x = torch.cat([x, ext], dim=-1)
-    xstack = frames_fn(
-        _local_frames(x, nfft, hop_in, n_frames), w_in=w_in,
-        w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
-        zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
-        bounds_out=bounds_out,
-    )
+    kw = dict(w_in=w_in, w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+              zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out)
+    if x.is_complex():
+        xstack = frames_fn(_local_frames(x, nfft, hop_in, n_frames), **kw)
+    else:
+        # every whole frame of the extended planes: n_frames of them
+        xstack = frames_fn(x.contiguous(), hop_in=hop_in, **kw)
     y = _unstack_stft_windows(xstack, noverlap=noverlap_out, nperseg=nfft_out, axis=xstack.ndim - 2)
     n_out = n_frames * hop_out
     if return_tail:
@@ -786,13 +846,20 @@ def to_storage(planes: torch.Tensor, precision) -> torch.Tensor:
 
 
 def stored(x: torch.Tensor, precision) -> torch.Tensor:
-    """the 2:1 kernels' input for ``x``: a complex64 (..., N) tensor as it
-    is at the float32 tier, else its planes; real (..., 2, N) planes in the
-    tier's storage type (:func:`to_storage`)."""
+    """the OLA kernels' input for ``x``: a complex64 (..., N) tensor as it
+    is at the float32 tier, else its planes in the tier's storage type,
+    written straight from the complex samples (rounded half to even at
+    'i16', as :func:`to_storage` rounds), with no float32 copy of the
+    capture on the way; real (..., 2, N) planes in the tier's storage type
+    (:func:`to_storage`)."""
     if x.is_complex():
-        if storage_dtype(precision) == torch.float32:
+        sdt = storage_dtype(precision)
+        if sdt == torch.float32:
             return x.to(torch.complex64)
-        x = torch.stack([x.real, x.imag], dim=-2)
+        out = torch.empty((*x.shape[:-1], 2, x.shape[-1]), dtype=sdt, device=x.device)
+        for k, part in enumerate((x.real, x.imag)):
+            out[..., k, :] = torch.round(part) if sdt == torch.int16 else part
+        return out
     if x.dim() < 2 or x.shape[-2] != 2:
         raise ValueError(f'planes must be (..., 2, N) real, not {tuple(x.shape)}')
     return to_storage(x, precision)

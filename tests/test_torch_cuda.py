@@ -65,6 +65,7 @@ from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route
 from iqwaveform_torch.ops.kernels.corr import corr_blocking
 from iqwaveform_torch.ops.kernels.fused_ola import (
     CLUSTER_PAIRS,
+    dequantize,
     split_takes,
     fused_ola_strided_plain,
     _fused_ola_frames_generic,
@@ -731,19 +732,17 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
 
 def test_frames_above_shared_memory_raise(card):
     """frames above one block's shared memory that no cluster pair and no
-    split shape takes (the blackman design at 107.52 -> 15.36 MS/s:
-    172032 -> 24576, and 114688 -> 32768, both 7 x 2^k) raise in the frame
-    kernel's wrapper, naming ROADMAP Queue 2 item 1; the monitor at such a
-    design takes the plain frames on the card (routes['ola'] 'plain',
-    picked before any launch): it constructs, its step launches no frame
-    kernel and matches reference_step; ola_filter takes its torch.fft stage
-    chain there. The 98304- and 163840-point frames of 122.88 -> 30.72
-    MS/s, which raised before clusters of 6 and 10 blocks (the latter on
-    the split route since), step
-    (test_cluster_monitor_constructs_and_steps); the 196608-point frames of
-    122.88 -> 15.36 MS/s, which raised before the split route, too
-    (test_split_monitor_constructs_and_steps)."""
-    for nfft, nfft_out in ((172032, 24576), (114688, 32768)):
+    split shape takes (a factor of 11: the blackman design at 135.168 ->
+    24.576 MS/s is 135168 -> 24576; 11 x 16384 -> 32768; a radix step above
+    64, 2^21 -> 16384) raise in the frame kernel's wrapper, naming ROADMAP
+    Queue 2 item 1; the monitor at such a design takes the plain frames on
+    the card (routes['ola'] 'plain', picked before any launch): it
+    constructs, its step launches no frame kernel and matches
+    reference_step; ola_filter takes its torch.fft stage chain there. The
+    factor-7 frames of 107.52 -> 15.36 MS/s (172032 -> 24576 among them),
+    which raised here before the split route's radix-7 step, step on the
+    split route (test_radix_7_monitor_takes_the_split_route)."""
+    for nfft, nfft_out in ((135168, 24576), (11 * 16384, 32768), (1 << 21, 16384)):
         assert frames_route(nfft, nfft_out) == 'generic'
         with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
             kernels.fused_ola_frames(
@@ -754,9 +753,9 @@ def test_frames_above_shared_memory_raise(card):
                 bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
                 bounds_out=(0, nfft_out),
             )
-    design = it.design_wideband_monitor(107.52e6, 15.36e6, bw=10e6, fs_sdr=107.52e6,
+    design = it.design_wideband_monitor(135.168e6, 24.576e6, bw=10e6, fs_sdr=135.168e6,
                                         window='blackman')
-    assert (design.nfft, design.nfft_out) == (172032, 24576)
+    assert (design.nfft, design.nfft_out) == (135168, 24576)
     mon = it.WidebandMonitor(design)
     assert mon.routes['ola'] == 'plain'
     x = _noise(2 * mon.min_input_multiple(), 13)
@@ -777,10 +776,85 @@ def test_frames_above_shared_memory_raise(card):
     assert int(a.sum()) == int(b.sum())
     assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
     _reset_frame_routes()
-    assert it.ola_filter(_noise(4 * 172032, 12), fs=107.52e6, nfft=172032, nfft_out=24576,
+    assert it.ola_filter(_noise(4 * 135168, 12), fs=135.168e6, nfft=135168, nfft_out=24576,
                          window='blackman', passband=(-5e6, 5e6)).shape == (4 * 24576,)
     assert kernels.fused_ola_frames.route_launches == _frame_routes()
 
+
+# each frame kernel's pair and hop for its plane instances: the register
+# kernel, a cluster pair, the split route (radix 2 and radix 7) and the
+# generic kernel (radix 2 and radix 7)
+PLANE_PAIRS = {
+    (16384, 8192): 8192, (12288, 6144): 4096, (49152, 24576): 16384, (131072, 16384): 65536,
+    (57344, 8192): 28672, (172032, 24576): 57344, (1536, 768): 512, (7168, 1024): 3584,
+}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.int16, torch.bfloat16])
+@pytest.mark.parametrize('pair', sorted(PLANE_PAIRS))
+def test_frame_kernels_read_planes(card, pair, dtype):
+    """each frame kernel's plane instance on (2, 2, N) planes of integer
+    counts read at the hop: one launch counted on its route and its element
+    type, within 1e-6 relative RMS of the complex64 instance on the
+    dequantized frames (the same float32 arithmetic on the same values) and
+    within 1e-5 of the plain chain."""
+    nfft, nfft_out = pair
+    hop = PLANE_PAIRS[pair]
+    in_lo, out_lo, out_hi = (nfft - nfft_out) // 2 + 5, nfft_out // 9, nfft_out - nfft_out // 7
+    kw = dict(w_in=_noise(nfft, 70) / nfft, w_shift_out=_noise(nfft_out, 71), nfft=nfft,
+              nfft_out=nfft_out, zero_lo=nfft // 17, zero_hi=nfft - nfft // 13,
+              bounds_in=(in_lo, in_lo + out_hi - out_lo), bounds_out=(out_lo, out_hi))
+    gen = torch.Generator(device='cuda').manual_seed(71)
+    planes = torch.randint(-3000, 3000, (2, 2, 5 * hop + nfft), device='cuda',
+                           generator=gen).to(dtype)
+    frames = dequantize(planes).unfold(-1, nfft, hop)
+    _reset_frame_routes()
+    kernels.fused_ola_frames.layout_launches.update(
+        {k: 0 for k in kernels.fused_ola_frames.layout_launches})
+    got = kernels.fused_ola_frames(planes, hop_in=hop, **kw)
+    torch.cuda.synchronize()
+    route = frames_route(nfft, nfft_out)
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(**{route: 1})
+    name = str(dtype).split('.')[-1]
+    assert kernels.fused_ola_frames.layout_launches[name] == 1
+    assert got.shape == (2, 6, nfft_out)
+    assert rel_rms(got, kernels.fused_ola_frames(frames, **kw)) <= 1e-6
+    assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize('window,pair', [
+    ('hamming', (57344, 8192)), ('blackman', (172032, 24576)),
+    ('blackmanharris', (286720, 40960)),
+])
+def test_radix_7_monitor_takes_the_split_route(card, window, pair):
+    """the monitor at 107.52 -> 15.36 MS/s (7 x 2^k frames): routes['ola']
+    'split', a step launches the split route once (its radix-7 steps) and
+    matches the plain-version step (channel power within 1e-5); at 'i16'
+    step_planes on int16 counts launches the int16 instance."""
+    import dataclasses
+
+    design = it.design_wideband_monitor(107.52e6, 15.36e6, fs_sdr=107.52e6, window=window,
+                                        min_fft_size=8191)
+    mon = it.WidebandMonitor(design)
+    assert (design.nfft, design.nfft_out) == pair and mon.routes['ola'] == 'split'
+    x = _noise(8 * mon.min_input_multiple(), 72)
+    _reset_frame_routes()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+    mon16 = it.WidebandMonitor(dataclasses.replace(design, fft_precision='i16',
+                                                   input_scale=2.0**-15))
+    counts = (torch.view_as_real(x).T * 3000).round().to(torch.int16).contiguous()
+    kernels.fused_ola_frames.layout_launches.update(
+        {k: 0 for k in kernels.fused_ola_frames.layout_launches})
+    got = mon16.step_planes(counts)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.layout_launches['int16'] == 1
+    ref = mon16.reference_step(dequantize(counts))
+    assert rel_rms(got['channel_power'], ref['channel_power']) <= 1e-5
 
 def _cluster_kwargs(nfft, nfft_out, seed):
     """random windows and an offset trim (a nonzero zero_lo, an output

@@ -429,9 +429,10 @@ def test_route_by_size():
     """the specialised kernel takes exactly its three pairs; unresampled,
     swapped and other one-block sizes keep the generic kernel, and the
     scope of fused_ola_frames_supported is as before, with the cluster
-    kernel's pairs (tests/test_torch_ola_cluster.py) and the split route's
+    kernel's pairs (tests/test_torch_ola_cluster.py), the split route's
     sizes above one block's shared memory (tests/test_torch_ola_split.py)
-    added to it."""
+    and the radix-7 sizes (tests/test_torch_ola_tiers.py) added to it; a
+    factor of 11 stays outside."""
     assert REG_PAIRS == ((16384, 8192), (12288, 6144), (12288, 4096))
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg'
@@ -440,10 +441,11 @@ def test_route_by_size():
                  (8192, 16384), (20480, 10240), (3072, 1536), (16384, 4096)]:
         assert frames_route(*pair) == 'generic', pair
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
-                 (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): False,
+                 (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): True,
+                 (11 * 1024, 5632): False, (11 * 16384, 16384): False,
                  (32768, 16384): True, (32768, 32768): True, (98304, 24576): True,
                  (163840, 40960): True, (196608, 24576): True, (1, 1): True,
-                 (7 * 16384, 16384): False}
+                 (7 * 16384, 16384): True}
     for pair, ok in supported.items():
         assert fused_ola_frames_supported(*pair) == ok, pair
 

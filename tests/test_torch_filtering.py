@@ -138,10 +138,10 @@ def test_ola_filter_routes_by_design():
     """'auto' takes the frame-batch kernel where its scope covers the
     design and the stage chain elsewhere, quietly; 'pallas' outside the
     scope raises ValueError. The scope on a CPU device is that of an H100:
-    sizes 2^a 3^b 5^c whose frame fits 227 KiB of shared memory, the
+    sizes 2^a 3^b 5^c 7^d whose frame fits 227 KiB of shared memory, the
     pairs a thread-block cluster takes above that (CLUSTER_PAIRS), and the
     split route's sizes C M above it (M a register plan's size, C <= 64 of
-    the factors 2, 3 and 5)."""
+    the factors 2, 3, 5 and 7); a factor of 11 takes the stage chain."""
     cpu = torch.device('cpu')
 
     def route(nfft, nfft_out, noverlap, size=10**8):
@@ -155,14 +155,16 @@ def test_ola_filter_routes_by_design():
     assert route(40960, 20480, 32768) == 'pallas'  # a former cluster pair, now split
     assert route(98304, 24576, 65536) == 'pallas'  # a cluster pair of 6 blocks
     assert route(196608, 24576, 131072) == 'pallas'  # above shared memory: the split route
-    assert route(172032, 24576, 114688) == 'xla'  # above shared memory, factor 7
-    assert route(14 * 1024, 7 * 1024, 7 * 1024) == 'xla'  # factor 7
+    assert route(172032, 24576, 114688) == 'pallas'  # above shared memory, factor 7: split
+    assert route(14 * 1024, 7 * 1024, 7 * 1024) == 'pallas'  # factor 7: one block
+    assert route(270336, 24576, 180224) == 'xla'  # above shared memory, factor 11
+    assert route(22 * 1024, 11 * 1024, 11 * 1024) == 'xla'  # factor 11
     assert route(4096, 2048, 2048, size=4000) == 'xla'  # shorter than a frame
     assert TF.fused_ola_frames_supported(28800, 14400)
     assert not TF.fused_ola_frames_supported(30000, 15000)
 
-    x = _complex(np.random.default_rng(5), 4 * 7168)
-    kw = dict(fs=10e6, nfft=7168, nfft_out=3584, window='hamming', passband=(-3e6, 3e6))
+    x = _complex(np.random.default_rng(5), 4 * 5632)
+    kw = dict(fs=10e6, nfft=5632, nfft_out=2816, window='hamming', passband=(-3e6, 3e6))
     with pytest.raises(ValueError, match='frame-batch'):
         T.ola_filter(x, fft_backend='pallas', device=CPU, **kw)
     ref = np.asarray(J.ola_filter(jnp.asarray(x), fft_backend='xla', **kw))

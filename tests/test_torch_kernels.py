@@ -205,5 +205,7 @@ def test_mixed_radix_plan_computes_the_dft(n):
     ref = np.fft.fft(x)
     assert np.abs(_mixed_radix_model(x) - ref).max() <= 1e-12 * np.abs(ref).max()
     assert np.abs(_mixed_radix_model(x, inverse=True) - np.fft.ifft(x) * n).max() <= 1e-12 * np.abs(ref).max()
-    with pytest.raises(ValueError, match='2\\^a 3\\^b 5\\^c'):
-        _build.fft_plan(7 * n)
+    # a factor of 11 is no radix of the plan (7 is, since the radix-7
+    # stage: tests/test_torch_ola_tiers.py)
+    with pytest.raises(ValueError, match='2\\^a 3\\^b 5\\^c 7\\^d'):
+        _build.fft_plan(11 * n)

@@ -155,7 +155,8 @@ def _routes(rates, **kw):
     ('blackman12288', {'ola': 'reg', 'chan': 'mixed', 'apd': 'bucket'}),
     ('cluster', {'ola': 'cluster', 'chan': 'reg', 'apd': 'bucket'}),
     ('frames196608', {'ola': 'split', 'chan': 'reg', 'apd': 'bucket'}),
-    ('frames172032', {'ola': 'plain', 'chan': 'reg', 'apd': 'bucket'}),
+    ('frames172032', {'ola': 'split', 'chan': 'reg', 'apd': 'bucket'}),
+    ('frames135168', {'ola': 'plain', 'chan': 'reg', 'apd': 'bucket'}),
     ('chan36864', {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}),
     ('navg256', {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}),
     ('edges40000', {'ola': 'reg', 'chan': 'reg', 'apd': 'plain'}),
@@ -164,7 +165,9 @@ def _routes(rates, **kw):
 def test_monitor_routes_by_shape(case, expect):
     """each stage's route, picked in the constructor by the kernels'
     predicates (the card's shared memory on the CPU): the plain version
-    where no CUDA kernel takes the design's shapes"""
+    where no CUDA kernel takes the design's shapes (a factor of 11 in the
+    frames); the 172032-point frames (7 x 24576), plain until the split
+    route's radix-7 step, on the split route"""
     flag = dict(bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
                 window='hamming', apd_bins=2048, apd_navg=16, min_fft_size=8191)
     designs = {
@@ -173,6 +176,8 @@ def test_monitor_routes_by_shape(case, expect):
         'cluster': ((122.88e6, 61.44e6), dict(bw=40e6, fs_sdr=122.88e6, window='blackman')),
         'frames196608': ((122.88e6, 15.36e6), dict(bw=10e6, fs_sdr=122.88e6, window='blackman')),
         'frames172032': ((107.52e6, 15.36e6), dict(bw=10e6, fs_sdr=107.52e6, window='blackman')),
+        'frames135168': ((135.168e6, 24.576e6), dict(bw=10e6, fs_sdr=135.168e6,
+                                                     window='blackman')),
         'chan36864': ((122.88e6, 61.44e6), {**flag, 'channel_count': 48,
                                             'fft_size_per_channel': 768, 'apd_navg': 1}),
         'navg256': ((122.88e6, 61.44e6), {**flag, 'channel_count': 48, 'apd_navg': 256}),
@@ -186,6 +191,8 @@ def test_monitor_routes_by_shape(case, expect):
         assert (mon.design.nfft, mon.design.nfft_out) == (196608, 24576)
     if case == 'frames172032':
         assert (mon.design.nfft, mon.design.nfft_out) == (172032, 24576)
+    if case == 'frames135168':
+        assert (mon.design.nfft, mon.design.nfft_out) == (135168, 24576)
     if case in ('chan36864', 'navg256'):
         assert mon._chan is it.ops.kernels.chan_stats_plain
     assert routes == expect
@@ -215,27 +222,31 @@ def test_monitor_steps_on_the_split_route():
     _step_equals_reference(mon)
 
 
-@pytest.mark.parametrize('case', ['frames172032', 'chan36864', 'edges40000'])
+@pytest.mark.parametrize('case', ['frames172032', 'chan36864', 'edges40000', 'frames135168'])
 def test_monitor_steps_where_a_kernel_refuses(case):
-    """the designs whose shapes no CUDA kernel takes (172032-point frames,
-    a channelizer size outside CHAN_SIZES, APD edges above hist's shared
-    memory) construct and step, equal to reference_step on the CPU, and
-    near the JAX monitor (assert_step_close) at the channelizer size
-    outside CHAN_SIZES and the APD edges above hist's shared memory"""
+    """the designs whose shapes no CUDA kernel takes (135168-point
+    frames, 11 x 12288; a channelizer size outside CHAN_SIZES; APD edges
+    above hist's shared memory) construct and step, equal to reference_step
+    on the CPU, and near the JAX monitor (assert_step_close) at the
+    channelizer size outside CHAN_SIZES and the APD edges above hist's
+    shared memory; the 172032-point frames, which no kernel took until the
+    split route's radix-7 step, step there on the split route"""
     flag = dict(bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
                 window='hamming', apd_navg=16, min_fft_size=8191)
     rates, kw = {
         'frames172032': ((107.52e6, 15.36e6), dict(bw=10e6, fs_sdr=107.52e6,
                                                     window='blackman', apd_bins=256)),
+        'frames135168': ((135.168e6, 24.576e6), dict(bw=10e6, fs_sdr=135.168e6,
+                                                     window='blackman', apd_bins=256)),
         'chan36864': ((122.88e6, 61.44e6), {**flag, 'channel_count': 48,
                                             'fft_size_per_channel': 768, 'apd_bins': 256}),
         'edges40000': ((122.88e6, 61.44e6), {**flag, 'apd_bins': 40000}),
     }[case]
     mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw), device='cpu')
-    assert mon.routes['ola' if case == 'frames172032' else
-                      'chan' if case == 'chan36864' else 'apd'] == 'plain'
+    stage = 'ola' if case.startswith('frames') else 'chan' if case == 'chan36864' else 'apd'
+    assert mon.routes[stage] == ('split' if case == 'frames172032' else 'plain')
     x, got = _step_equals_reference(mon)
-    if case != 'frames172032':
+    if not case.startswith('frames'):
         jm = JaxMonitor(jax_design(*rates, **kw))
         ref = {k: np.asarray(v) for k, v in jax.jit(jm.step)(jnp.asarray(x)).items()}
         assert_step_close(got, ref)

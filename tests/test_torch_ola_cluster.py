@@ -57,14 +57,16 @@ from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_packed
 
 PAIRS = sorted(CLUSTER_PAIRS)
 # frames above one block's shared memory that no CUDA route takes yet
-# (ROADMAP Queue 2 item 1): sizes with a prime factor 7 (blackman at 107.52
-# -> 15.36 MS/s is 172032 -> 24576). The blackman and blackmanharris frames
-# at 122.88 -> 30.72 MS/s (98304 -> 24576, 163840 -> 40960) were here until
-# clusters of 6 and 10 blocks took them (163840 -> 40960 since on the split
-# route, which beat the cluster of 10); blackman at 122.88 -> 15.36 MS/s
-# (196608 -> 24576) and 131072 -> 32768 until the split route
-# (tests/test_torch_ola_split.py) took them
-OUTSIDE = ((172032, 24576), (7 * 16384, 32768))
+# (ROADMAP Queue 2 item 1): sizes with a prime factor 11 (blackman at
+# 135.168 -> 12.288 MS/s is 270336 -> 24576). The blackman and
+# blackmanharris frames at 122.88 -> 30.72 MS/s (98304 -> 24576, 163840 ->
+# 40960) were here until clusters of 6 and 10 blocks took them (163840 ->
+# 40960 since on the split route, which beat the cluster of 10); blackman
+# at 122.88 -> 15.36 MS/s (196608 -> 24576) and 131072 -> 32768 until the
+# split route (tests/test_torch_ola_split.py) took them; the factor-7 sizes
+# of 107.52 -> 15.36 MS/s (172032 -> 24576, 7 x 16384 -> 32768) until its
+# radix-7 step (tests/test_torch_ola_tiers.py)
+OUTSIDE = ((270336, 24576), (11 * 16384, 32768))
 
 
 def model_tables(nfft, nfft_out):
@@ -299,7 +301,8 @@ def test_route_and_scope_by_size():
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg' and fused_ola_frames_supported(*pair)
     for pair, ok in {(1536, 768): True, (20480, 10240): True, (28800, 14400): True,
-                     (24576, 24576): True, (7 * 1024, 3584): False}.items():
+                     (24576, 24576): True, (7 * 1024, 3584): True,
+                     (11 * 1024, 5632): False}.items():
         assert frames_route(*pair) == 'generic', pair
         assert fused_ola_frames_supported(*pair) == ok, pair
     for pair in ((32768, 32768), (49152, 49152), (81920, 20480), (163840, 40960),

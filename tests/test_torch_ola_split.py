@@ -86,9 +86,11 @@ SPLIT_PAIRS = (
     (393216, 49152), (655360, 81920), (163840, 40960), (36864, 12288), (40960, 20480),
 )
 # sizes the split route leaves outside (ROADMAP Queue 2 item 1): another
-# prime factor (7 x 2^k: blackman at 107.52 -> 15.36 MS/s is 172032 ->
-# 24576), fewer than 2^10 in a size, a radix step above SPLIT_MAX_C
-OUTSIDE = ((114688, 16384), (172032, 24576), (40000, 8192), (32768, 1000),
+# prime factor (11 x 2^k: blackman at 135.168 -> 12.288 MS/s is 270336 ->
+# 24576; the factor-7 sizes of 107.52 -> 15.36 MS/s were here until the
+# radix-7 step, tests/test_torch_ola_tiers.py), fewer than 2^10 in a size,
+# a radix step above SPLIT_MAX_C
+OUTSIDE = ((180224, 16384), (270336, 24576), (40000, 8192), (32768, 1000),
            (2 ** 20 * 5 // 4 * 13, 16384), (1 << 21, 16384))
 
 
