@@ -283,10 +283,14 @@ process group and a one-rank time mesh:
    plain chain in complex128, timed beside ``ola_filter``; (e)
    ``sharded_apd_histogram`` on 2^24 samples x 513 edges: one
    ``hist_bucket_kernel`` launch, counts and CCDF equal to
-   ``sample_ccdf``'s, timed; (f) the monitor where a kernel refuses the
-   design (135168 -> 24576 frames, 48 x 768 channels, 40,000 APD edges):
-   it constructs and steps, the stage's route is 'plain' and its kernel
-   never launches, within phase 3's gates of ``reference_step``. Each
+   ``sample_ccdf``'s, timed; (f) the monitor at the designs an older kernel
+   refused (135168 -> 24576 frames, 48 x 768 channels, 40,000 APD edges):
+   it constructs and steps, the stage on its phase-25 route (the split
+   frames, the channelizer's split route, the histogram's slices) with one
+   launch of its kernel, and at one the JAX kernel refuses too (navg 256
+   at 12288 points) the stage's route is 'plain' and its kernel never
+   launches; each within phase 3's gates of ``reference_step`` and of the
+   CPU step on one ``min_input_multiple()``. Each
    kernel these paths launch gains a ``sharded`` entry on its kernels-line
    row (launches and ms by path).
 
@@ -382,6 +386,37 @@ then rows 2-3's storage tiers and radix-7 frames:
    the chain's error), profiled, timed beside the plain frames (rows
    ``split_radix7_hamming_57344``, ``split_radix7_blackman_172032``,
    ``split_radix7_blackmanharris_286720``).
+
+25. Rows 4-6 at every shape the JAX kernels take: (a) the channelizer's
+   split route (``csrc/chan_split.cu`` on the radix step of
+   ``csrc/split_radix.cuh``) at 36864, 11264, 81920 and 131072 points in
+   the statistics mode (navg 16) and the channel-only mode, and at 2^21
+   points binned by 128 (the bin kernel), on 2^23 samples, held as phase
+   17a holds ``CHAN_SIZES`` (1e-5 of the plain version, each output's
+   complex128 error within ``CHAN_F64_LIMIT`` of the plain version's),
+   timed beside its bound and the ``torch.fft`` chain; (b) the monitor of
+   the flagship rates at 48 x 768, 22 x 512, 80 x 1024 and 128 x 1024
+   channels, navg 1 and 16, near 2^24 samples: routes, one launch of each
+   kernel, phase 3's gates against ``reference_step``, the step and the
+   plain step timed, the 48 x 768 step profiled (row
+   ``chan_stats_split``); (c) ``channelize_power`` at 48 channels of 576
+   of 768 bins (36864 points): one split launch, against the plain version
+   and the CPU port (row ``chan_stats_split_channels``); (d) the monitor
+   with 40,000 and 100,000 APD edges on the histogram's slices, against
+   ``reference_step``, the slices equal to the plain version on its binned
+   stream and on 2^24 samples, timed beside the sort (row
+   ``hist_slices``); a row of 2^31 float32 samples (8 GiB) through
+   ``hist`` at 513 and 40,000 edges, ``sample_ccdf`` and ``apd_fold``:
+   int64 counts equal to the plain version's summed over pieces of 2^27;
+   (e) the blackman monitor at 135.168 -> 24.576 MS/s (135168 -> 24576, 11
+   x 12288: the split frame route's radix-11 step through its prime pass)
+   near 2^24 samples against ``reference_step``, 8 frames against the
+   plain chain and complex128 (row ``split_blackman_135168``); (f) the
+   flagship 2:1 step at 'i16' and 'bf16': one launch of
+   ``fused_ola_strided`` on the tier's planes, against ``reference_step``,
+   timed in turns beside the same step through ``fused_ola`` on the planes
+   widened to complex64 (the stage before this phase's change; in rows
+   ``fused_ola_strided_i16`` / ``_bf16``).
 
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
@@ -541,7 +576,7 @@ LEVELS_GENERIC_KERNEL = 'spectrogram_kernel'
 CLUSTER_KERNEL = 'fused_ola_frames_cluster_kernel'
 # chan_stats' route counts after one launch of a register-resident kernel
 # (chan_stats_reg_kernel or chan_power_reg_kernel)
-CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'generic': 0}
+CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'split': 0, 'generic': 0}
 # kernels whose ptxas report must show no spill
 # the channelizer statistics at the other sizes of one block and above it
 MIXED_KERNEL = 'chan_stats_mixed_kernel'
@@ -598,7 +633,7 @@ CHAN_F64_LIMIT = {'channel_power': 2, 'psd_log_sum': 3, 'psd_max': 2, 'p_binned'
 STATS_CMP_CALLS = 10
 STATS_CMP_NAVG = (1, 16)
 # chan_stats' route counts before a launch
-CHAN_NO_ROUTE = {'reg': 0, 'mixed': 0, 'cluster': 0, 'generic': 0}
+CHAN_NO_ROUTE = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split': 0, 'generic': 0}
 # each compiled pair on a few frames against the plain chain and complex128
 N_CLUSTER_FRAMES = 64
 
@@ -984,13 +1019,13 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     results['colhist'] = {'max_abs_err': float(ch_l1)}
 
     pbin = lv['p_binned']
-    kernels.hist.route_launches.update(bucket=0, generic=0)
+    kernels.hist.route_launches.update(bucket=0, generic=0, slices=0)
     ac = kernels.hist(pbin, apd_edges)
     hist_routes = dict(kernels.hist.route_launches)
     ac_l1 = int((ac.long() - kernels.hist_plain(pbin, apd_edges).long()).abs().sum())
     print(f'hist: {tuple(pbin.shape)} -> {tuple(ac.shape)} L1 vs plain {ac_l1}; '
           f'kernels {json.dumps(hist_routes)}')
-    require(hist_routes == {'bucket': 1, 'generic': 0}, f'hist kernels {hist_routes}')
+    require(hist_routes == {'bucket': 1, 'generic': 0, 'slices': 0}, f'hist kernels {hist_routes}')
     require(ac_l1 == 0 and int(ac.sum()) == pbin.numel(), 'hist differs from sort + searchsorted')
     results['hist'] = {'max_abs_err': float(ac_l1)}
     torch.cuda.synchronize()
@@ -1019,7 +1054,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
         k.launches = 0
     for k in (kernels.spectrogram_levels, kernels.colhist):
         k.route_launches.update(reg=0, generic=0)
-    kernels.hist.route_launches.update(bucket=0, generic=0)
+    kernels.hist.route_launches.update(bucket=0, generic=0, slices=0)
     t0 = time.perf_counter()
     for i in range(N_CHUNKS):
         carry, apd = fold(carry, apd, i)
@@ -1036,7 +1071,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
             f'levels kernels over {N_CHUNKS} chunks {routes}, not {LEVELS_REG_KERNEL} alone')
     require(ch_routes == {'reg': N_CHUNKS, 'generic': 0},
             f'column counters over {N_CHUNKS} chunks {ch_routes}, not {COLHIST_REG_KERNEL} alone')
-    require(hist_routes == {'bucket': N_CHUNKS, 'generic': 0},
+    require(hist_routes == {'bucket': N_CHUNKS, 'generic': 0, 'slices': 0},
             f'histogram kernels over {N_CHUNKS} chunks {hist_routes}, not {HIST_KERNEL} alone')
     for kname in ('spectrogram_levels', 'colhist', 'hist'):
         require(launched[kname] == N_CHUNKS,
@@ -1114,7 +1149,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     # the tail, each binned by APD_NAVG and counted by the histogram kernel
     for k in kernels.KERNELS:
         k.launches = 0
-    kernels.hist.route_launches.update(bucket=0, generic=0)
+    kernels.hist.route_launches.update(bucket=0, generic=0, slices=0)
     apd5 = P.streaming_apd(xc, edges=apd_edges, chunk_size=CHUNK, navg=APD_NAVG, device=dev)
     apd_launches = kernels.hist.launches
     hist_routes = dict(kernels.hist.route_launches)
@@ -1122,7 +1157,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
                                plain=True)
     print(f'streaming_apd: {n5} samples, {apd_launches} histogram launches, kernels '
           f'{json.dumps(hist_routes)}, equal to the plain path: {torch.equal(apd5, apd5_ref)}')
-    require(hist_routes == {'bucket': N_FOLD_CHECK + 1, 'generic': 0},
+    require(hist_routes == {'bucket': N_FOLD_CHECK + 1, 'generic': 0, 'slices': 0},
             f'streaming_apd histogram kernels {hist_routes}')
     require(torch.equal(apd5, apd5_ref), 'streaming_apd differs from the plain path')
     require(int(apd5.sum()) == n5 // APD_NAVG, 'streaming_apd: total')
@@ -1845,7 +1880,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     print(f'blackman step channelizer kernels: {json.dumps(chan_routes)}; histogram kernels '
           f'{json.dumps(hist_routes)}')
     require(chan_routes == CHAN_REG_ROUTE, f'blackman step channelizer kernels {chan_routes}')
-    require(hist_routes == {'bucket': 1, 'generic': 0}, f'blackman step histogram kernels {hist_routes}')
+    require(hist_routes == {'bucket': 1, 'generic': 0, 'slices': 0}, f'blackman step histogram kernels {hist_routes}')
     check_step(out, mon.reference_step(x10), 'blackman step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x10))
     names, device_us = device_kernels(lambda: mon.step(x10), REG_KERNEL,
@@ -2464,7 +2499,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             f'cluster step launches {launched}')
     require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
                        'chan_stats': CHAN_REG_ROUTE,
-                       'hist': {'bucket': 1, 'generic': 0}},
+                       'hist': {'bucket': 1, 'generic': 0, 'slices': 0}},
             f'cluster step routes {routes}')
     n_fr = N_CLUSTER_STEP // mon.hop_in
     require(out['channel_power'].shape[-2] == n_fr * mon.hop_out // mon.chan_kwargs['nfft_big'],
@@ -4066,11 +4101,16 @@ def refinement_phases(dev, smi: str) -> dict:
     routes['fold_1536'] = {'launches': launched, 'gate': g, 'hist_drift': drift}
     p = it.envtopow(x)
     edges = (10 ** (np.linspace(-40.0, 15.0, ROUTE_EDGES) / 10)).astype('float32')
+    _, ccdf_launched, ccdf_routes = psd_launches(lambda: it.sample_ccdf(p, edges, density=False))
     got, _, _, launched = peak_call(lambda: it.sample_ccdf(p, edges, density=False))
-    require(launched == {}, f'20d: sample_ccdf with {ROUTE_EDGES} edges launched {launched}')
+    require(launched == {'hist': 1} and ccdf_routes == {'hist': {'slices': 1}},
+            f'20d: sample_ccdf with {ROUTE_EDGES} edges launched {launched}, {ccdf_routes}')
     require(torch.equal(got.cpu(), it.sample_ccdf(p.cpu(), edges, density=False, device='cpu')),
             f'20d: sample_ccdf with {ROUTE_EDGES} edges differs from the CPU\'s')
-    routes['sample_ccdf_40000'] = {'launches': launched}
+    plain_counts = kernels.hist_plain(p, torch.from_numpy(edges).to(dev)).long()
+    require(torch.equal(got, (p.numel() - plain_counts.cumsum(0))[:-1]),
+            f'20d: sample_ccdf with {ROUTE_EDGES} edges differs from the plain path\'s')
+    routes['sample_ccdf_40000'] = {'launches': launched, 'routes': ccdf_routes}
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xs = torch.randn((1, N_ROUTE_UPFIRDN), device=dev, generator=gen)
     h = torch.randn(ROUTE_TAPS, device=dev, generator=gen) / math.sqrt(ROUTE_TAPS)
@@ -4079,8 +4119,9 @@ def refinement_phases(dev, smi: str) -> dict:
     err = rel_rms(got.cpu(), it.fourier.upfirdn(h.cpu(), xs.cpu(), 1, 1, device='cpu'))
     require(err <= 1e-5, f'20d: upfirdn at {ROUTE_TAPS} taps vs the CPU: {err:.3g}')
     routes['upfirdn_40000'] = {'launches': launched, 'rel_rms_vs_cpu': err}
-    print('20d: the routes at shapes the kernels do not take (no launch of the refusing '
-          'kernel; each against the CPU port): ' + json.dumps(routes))
+    print('20d: the routes at shapes the kernels did not take (the PSD and fold as before; '
+          'sample_ccdf at 40,000 edges on the histogram\'s slices, against the CPU port and the '
+          'plain path): ' + json.dumps(routes))
     summary['20d'] = routes
     print('phase 20 summary: ' + json.dumps(summary))
     del x, small, p, xs, h, got
@@ -4102,19 +4143,23 @@ def refinement_phases(dev, smi: str) -> dict:
 # sharded entry points and WidebandMonitor.sharded_step) on one NCCL rank
 
 N_SHARDS = 4  # the in-process shards of 21b
-# the Step 0 designs (21f): frames no CUDA frame kernel takes (135168 ->
-# 24576 at 135.168 -> 24.576 MS/s, 11 x 12288; 196608 -> 24576 at 122.88
-# -> 15.36 MS/s until the split route took it, 172032 -> 24576 at 107.52 ->
-# 15.36 MS/s until its radix-7 step, phase 24d), a channelizer size outside
-# CHAN_SIZES (48 x 768 = 36864) and APD edges above hist's shared memory
-# (40,000)
+# the Step 0 designs (21f), each with the stage, its route and its kernel:
+# the shapes no CUDA kernel took before phase 25's routes (135168 -> 24576
+# at 135.168 -> 24.576 MS/s, 11 x 12288, on the split route's prime pass; a
+# channelizer size outside CHAN_SIZES, 48 x 768 = 36864, on its split
+# route; 40,000 APD edges, above one block's table, on the slices; 196608
+# -> 24576 and 172032 -> 24576 left this list earlier, phases 22 and 24d),
+# and one the JAX kernel refuses too (navg 256 at a size no power of two:
+# the plain version, chan_stats never launched)
 REFUSED_DESIGNS = {
     'frames135168': ((135.168e6, 24.576e6), dict(bw=10e6, fs_sdr=135.168e6, window='blackman'),
-                     'ola', 'fused_ola_frames'),
+                     'ola', 'split', 'fused_ola_frames'),
     'chan36864': ((122.88e6, 61.44e6), dict(FLAGSHIP, channel_count=48,
                                             fft_size_per_channel=768, apd_navg=1),
-                  'chan', 'chan_stats'),
-    'edges40000': ((122.88e6, 61.44e6), dict(FLAGSHIP, apd_bins=40000), 'apd', 'hist'),
+                  'chan', 'split', 'chan_stats'),
+    'edges40000': ((122.88e6, 61.44e6), dict(FLAGSHIP, apd_bins=40000), 'apd', 'slices', 'hist'),
+    'navg256': ((122.88e6, 61.44e6), dict(FLAGSHIP, channel_count=48, apd_navg=256),
+                'chan', 'plain', 'chan_stats'),
 }
 
 
@@ -4400,17 +4445,27 @@ def sharded_phases(dev, smi: str) -> dict:
         torch.cuda.empty_cache()
 
         # ---- 21f: Step 0, the monitor where a kernel refuses the design
-        for name, (rates, kw, stage, refused) in REFUSED_DESIGNS.items():
+        for name, (rates, kw, stage, route, kname) in REFUSED_DESIGNS.items():
             mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw))
             m = mon.min_input_multiple()
             xs = torch.randn((N_STEP // m) * m, dtype=torch.complex64, device=dev, generator=gen)
             out, launched, routes = psd_launches(lambda: mon.step(xs))
-            require(mon.routes[stage] == 'plain' and refused not in launched,
-                    f'21f {name}: routes {mon.routes}, launches {launched}')
+            if route == 'plain':
+                require(mon.routes[stage] == 'plain' and kname not in launched,
+                        f'21f {name}: routes {mon.routes}, launches {launched}')
+            else:
+                require(mon.routes[stage] == route and launched.get(kname) == 1
+                        and routes[kname].get(route) == 1,
+                        f'21f {name}: routes {mon.routes}, launches {launched}, by route {routes}')
             check_step(out, mon.reference_step(xs), f'21f {name} vs reference_step')
+            small = xs[:m]
+            check_step({k: v.cpu() for k, v in mon.step(small).items()},
+                       it.WidebandMonitor(mon.design, device='cpu').step(small.cpu()),
+                       f'21f {name} card step vs CPU step (one min_input_multiple)')
             ms = timed_ms(lambda: mon.step(xs), reps=5, warmup=1)
             print(f'21f {name}: routes {json.dumps(mon.routes)}, launches {json.dumps(launched)}, '
-                  f'no {refused} launch; within phase 3\'s gates of reference_step; '
+                  f'by route {json.dumps(routes)} ({kname} {"not launched" if route == "plain" else "on its " + route + " route"}); '
+                  f'within phase 3\'s gates of reference_step and of the CPU step; '
                   f'{ms:.4f} ms for {xs.numel()} samples ({smi})')
             del mon, xs, out
             torch.cuda.empty_cache()
@@ -4914,7 +4969,7 @@ def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
           f'of 0.01 dB; launches {json.dumps(ccdf_calls)}, hist routes {json.dumps(ccdf_routes)}; '
           f'dB vs the CPU run max {err_dB:.3g} dB; counts equal to the CPU\'s '
           f'{torch.equal(counts.cpu(), ref_counts)}')
-    require(ccdf_calls == {'hist': 1} and ccdf_routes == {'bucket': 1, 'generic': 0},
+    require(ccdf_calls == {'hist': 1} and ccdf_routes == {'bucket': 1, 'generic': 0, 'slices': 0},
             f'23b launches {ccdf_calls}, routes {ccdf_routes}')
     require(err_dB <= 1e-4, f'23b averaged power {err_dB:.3g} dB from the CPU run')
     require(torch.equal(counts.cpu(), ref_counts), '23b CCDF counts differ from the plain CPU run')
@@ -5457,6 +5512,442 @@ def tier_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     return list(rows.values())
 
 
+# ---- phase 25: rows 4-6 at every shape the JAX kernels take: the
+# channelizer's split route (csrc/chan_split.cu on csrc/split_radix.cuh),
+# the edge histogram's slices and int64 rows (csrc/hist.cu), the frame
+# route's prime radix steps, and the 2:1 step reading its storage tier
+
+# the monitor of the flagship rates at the channelizer designs the split
+# route takes: name -> (design arguments, channelizer frame size)
+SPLIT_CHAN_DESIGNS = {
+    'chan36864': (dict(channel_count=48, fft_size_per_channel=768), 36864),
+    'chan11264': (dict(channel_count=22, fft_size_per_channel=512), 11264),
+    'chan81920': (dict(channel_count=80, fft_size_per_channel=1024), 81920),
+    'chan131072': (dict(channel_count=128, fft_size_per_channel=1024), 131072),
+}
+SPLIT_CHAN_NAVG = (1, 16)  # each design's steps
+SPLIT_ROW_DESIGN = 'chan36864'  # the design whose step gives the kernels-line row
+# 25a: the route's modes on CHAN_SIZE_SAMPLES, phase 17a's gates; 2^21
+# points at navg 128 bins in the separate bin kernel (128 parts, tiles of 16)
+SPLIT_SIZE_MODES = {'stats': CHAN_SIZE_MODES['stats'], 'channels': CHAN_SIZE_MODES['channels']}
+SPLIT_WIDE = (1 << 21, dict(emit_psd=True, emit_pbin=True, navg=128))
+SPLIT_CHAN_KERNELS = ('chan_split_radix_kernel', 'chan_split_passes_kernel')
+# 25c: channelize_power at 48 channels of 576 of 768 bins (36864 points)
+CHANNELIZE_SPLIT = (768, 48, 576)
+# 25d: APD edges above one block's table, the samples they are timed on,
+# and the row of 2^31 samples (8 GiB) with its edges
+SLICE_EDGES = (40000, 100000)
+N_SLICES = 1 << 24
+N_WIDE = 1 << 31
+WIDE_PIECE = 1 << 27  # the plain version's pieces on the wide row
+WIDE_EDGES = (CCDF_EDGES, 40000)
+WIDE_REPS = 3
+# 25e: the blackman design at 135.168 -> 24.576 MS/s: 135168 -> 24576 on
+# the split route, its radix-11 step through the prime pass
+PRIME_RATES = (135.168e6, 24.576e6)
+PRIME_MONITOR = dict(bw=10e6, fs_sdr=135.168e6, window='blackman')
+PRIME_ROW = 'split_blackman_135168'
+# 25f: the flagship 2:1 step at the integer and bfloat16 tiers, before
+# (fused_ola on the planes widened to complex64) and after (fused_ola_strided
+# on the planes), timed in turns before, after, after, before
+TIER_STEP_REPS = 10
+STEP_TIERS = {'i16': 'fused_ola_strided_i16', 'bf16': 'fused_ola_strided_bf16'}
+KERNEL_INFO.update({
+    'chan_stats_split': ('iqwaveform_torch/csrc/chan_split.cu',
+                         'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
+    'chan_stats_split_channels': ('iqwaveform_torch/csrc/chan_split.cu',
+                                  'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:248'),
+    'hist_slices': ('iqwaveform_torch/csrc/hist.cu', 'iqwaveform_tpu/ops/pallas/hist_pallas.py:51'),
+    PRIME_ROW: ('iqwaveform_torch/csrc/ola_split.cu',
+                'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492'),
+})
+
+
+def wide_row(dev, gen) -> torch.Tensor:
+    """N_WIDE float32 samples of noise power, made on the card in pieces."""
+    p = torch.empty(N_WIDE, device=dev)
+    for i in range(0, N_WIDE, 1 << 28):
+        p[i:i + (1 << 28)] = torch.randn(1 << 28, device=dev, generator=gen).square_()
+    return p
+
+
+def pieces_counts(p, edges) -> torch.Tensor:
+    """the plain version's int64 counts of a long row, summed over pieces of
+    WIDE_PIECE samples (each below 2^31: its sort fits the card)."""
+    from iqwaveform_torch.ops import kernels
+
+    total = None
+    for i in range(0, p.numel(), WIDE_PIECE):
+        c = kernels.hist_plain(p[i:i + WIDE_PIECE], edges).long()
+        total = c if total is None else total + c
+    return total
+
+
+def hist_work(n: int, n_edges: int) -> tuple:
+    """the histogram's bound work: each sample read once (4 B), the edges
+    read and the counts written once; a binary search of the edges a
+    sample."""
+    return 4 * n + 4 * n_edges + 8 * (n_edges + 1), n * math.ceil(math.log2(n_edges + 1))
+
+
+def rows46_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
+    """phase 25; returns the kernels line's rows of the channelizer's split
+    route, the histogram's slices and the frame route's prime step, and the
+    2:1 tier steps to attach to phase 18's rows."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels, spectral
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.chan_stats import split_shape
+    from iqwaveform_torch.ops.kernels.fused_ola import dequantize
+    from iqwaveform_torch.ops.kernels.hist import hist_route, slice_edges
+    from iqwaveform_torch.parallel import apd_fold
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+
+    # ---- 25a: the split route at each new size in the monitor's statistics
+    # mode and the channel-only mode (phase 17a's gates: 1e-5 of the plain
+    # version, CHAN_F64_LIMIT of its complex128 error), and at 2^21 points
+    # binned by 128 in the separate bin kernel
+    sizes = {}
+    checks = [(nb, name, mode) for _, nb in SPLIT_CHAN_DESIGNS.values()
+              for name, mode in SPLIT_SIZE_MODES.items()] + [(SPLIT_WIDE[0], 'stats128',
+                                                            SPLIT_WIDE[1])]
+    for nb, name, mode in checks:
+        r = chan_size_check(nb, mode, gen, dev, mem_rate, fp32_rate)
+        require(r['route'] == 'split', f'25a chan_stats at {nb} {name}: route {r["route"]}')
+        r['split_shape'] = list(split_shape(nb))
+        sizes.setdefault(str(nb), {})[name] = r
+        print(f'25a chan_stats at {nb} ({name}, C x M = {r["split_shape"]}): ' + json.dumps(
+            {k: (v if not isinstance(v, dict) else
+                 {e: f'{x:.3g}' for e, x in v.items() if 'f64' in e})
+             for k, v in r.items() if k not in ('frames', 'max_abs_err', 'bound_by')}) + f' ({smi})')
+        torch.cuda.empty_cache()
+
+    # ---- 25b: the monitor at each design, navg 1 and 16, on whole
+    # min_input_multiple()s near 2^24 samples: routes, launches, phase 3's
+    # gates against reference_step, the step and the plain step timed; the
+    # row's design profiled, its channelizer on the step's stream timed
+    designs = {}
+    for name, (extra, nb) in SPLIT_CHAN_DESIGNS.items():
+        for navg in SPLIT_CHAN_NAVG:
+            mon = it.WidebandMonitor(it.design_wideband_monitor(
+                122.88e6, 61.44e6, **dict(FLAGSHIP, **extra, apd_navg=navg)))
+            require(mon.chan_kwargs['nfft_big'] == nb, f'25b {name}: {mon.chan_kwargs["nfft_big"]}')
+            require(mon.routes == {'ola': 'reg', 'chan': 'split', 'apd': 'bucket'},
+                    f'25b {name} navg {navg}: routes {mon.routes}')
+            m = mon.min_input_multiple()
+            x = torch.randn(max(1, N_STEP // m) * m, dtype=torch.complex64, device=dev,
+                            generator=gen)
+            mon.step(x[:m])  # warm-up: first-use setup
+            torch.cuda.synchronize()
+            reset_counts()
+            out = mon.step(x)
+            torch.cuda.synchronize()
+            launched = {k: v.launches for k, v in kset.items() if v.launches}
+            routes = dict(kernels.chan_stats.route_launches)
+            require(launched == {'fused_ola': 1, 'chan_stats': 1, 'hist': 1},
+                    f'25b {name} navg {navg}: launches {launched}')
+            require(routes == dict(CHAN_NO_ROUTE, split=1), f'25b {name}: routes {routes}')
+            check_step(out, mon.reference_step(x), f'25b {name} navg {navg} vs reference_step')
+            step_ms = timed_ms(lambda: mon.step(x), reps=10)
+            plain_ms = timed_ms(lambda: mon.reference_step(x), reps=5, warmup=1)
+            key = f'{name}_navg{navg}'
+            designs[key] = {'samples': x.numel(), 'launches': launched, 'step_ms': step_ms,
+                            'plain_step_ms': plain_ms, 'split_shape': list(split_shape(nb))}
+            print(f'25b {key}: launches {json.dumps(launched)}, chan_stats routes '
+                  f'{json.dumps(routes)}; within phase 3\'s gates of reference_step; step '
+                  f'{step_ms:.4f} ms for {x.numel()} samples = {x.numel() / step_ms / 1e3:.1f} MS/s, '
+                  f'the plain step {plain_ms:.4f} ms ({smi})')
+            if name == SPLIT_ROW_DESIGN and navg == 16:
+                names, device_us = device_kernels(lambda: mon.step(x), *SPLIT_CHAN_KERNELS)
+                for k in SPLIT_CHAN_KERNELS:
+                    require(any(k in nm for nm in names), f'25b: profiler shows no {k} in the step')
+                bad = library_kernels(names)
+                require(not bad, f'25b: library kernels in the {key} step: {bad}')
+                busy = sum(device_us.values()) / 1e3
+                print(f'25b {key} step device time by kernel (us): ' + json.dumps(
+                    dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+                y = kernels.fused_ola(x, **mon.ola_kwargs)
+                ckw = mon.chan_kwargs
+                cs = kernels.chan_stats(y, **ckw)
+                ref = kernels.chan_stats_plain(y, **ckw)
+                for k in ref:
+                    err = rel_rms(cs[k], ref[k])
+                    require(err <= 1e-5, f'25b chan_stats {k} on the {key} stream: {err:.3g}')
+                row = kernel_row(
+                    'chan_stats_split',
+                    {'launches': launched.get('chan_stats', 0),
+                     'max_abs_err': max(max_abs(cs[k], ref[k]) for k in ref)},
+                    8 * y.numel() + 8 * nb + 4 * sum(v.numel() for v in cs.values()),
+                    (y.shape[-1] // nb) * (fft_ops(nb) + 12 * nb),
+                    lambda: kernels.chan_stats(y, **ckw),
+                    lambda: kernels.chan_stats_plain(y, **ckw),
+                    lambda: kernels.chan_stats_plain(y, **ckw),
+                    mem_rate, fp32_rate,
+                )
+                row['profiled_device_ms'] = sum(
+                    us for k, us in device_us.items()
+                    if 'chan_split' in k or 'chan_fold' in k) / 1e3
+                row['path'] = (f'WidebandMonitor.step, 48 x 768 channels ({nb} points, C x M = '
+                               f'{split_shape(nb)}), navg 16')
+                row['path_ms'] = step_ms
+                row['plain_path_ms'] = plain_ms
+                row['idle_share'] = max(0.0, 1 - busy / step_ms)
+                rows.append(row)
+                print(f'chan_stats_split at {nb}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} '
+                      f'ms by {row["bound_by"]}, plain / torch.fft chain {row["plain_ms"]:.4f} ms), '
+                      f'{row["profiled_device_ms"]:.4f} ms of device time in the profiled step; '
+                      f'step idle share {row["idle_share"]:.3f} ({smi})')
+                del y, cs, ref
+            del mon, x, out
+            torch.cuda.empty_cache()
+    rows[-1]['sizes'] = sizes
+    rows[-1]['designs'] = designs
+
+    # ---- 25c: channelize_power at 36864 points (BASELINE #4's call at a
+    # size outside CHAN_SIZES): one launch of the split route, against the
+    # plain version and the CPU port
+    per, n_ch, abins = CHANNELIZE_SPLIT
+    nperseg = per * n_ch
+    iq = torch.randn((CHANNELIZE_FRAMES * 16384 // nperseg) * nperseg, dtype=torch.complex64,
+                     device=dev, generator=gen)
+    pkw = dict(analysis_bins_per_channel=abins, window='hamming', channel_count=n_ch)
+    it.channelize_power(iq, CHANNELIZE_TS, per, **pkw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    _, _, cp = it.channelize_power(iq, CHANNELIZE_TS, per, **pkw)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in kset.items() if v.launches}
+    routes = dict(kernels.chan_stats.route_launches)
+    require(launched == {'chan_stats': 1} and routes == dict(CHAN_NO_ROUTE, split=1),
+            f'25c channelize_power at {nperseg}: launches {launched}, routes {routes}')
+    skip = n_ch * (per - abins)
+    ckw = dict(nfft_big=nperseg, channel_count=n_ch, skip_bins=skip, emit_psd=False,
+               emit_pbin=False, window=spectral._kernel_window('hamming', nperseg, dev))
+    cp_ref = kernels.chan_stats_plain(iq, **ckw)['channel_power']
+    err = rel_rms(cp, cp_ref)
+    short = iq[: 4 * nperseg]
+    _, _, cp_cpu = it.channelize_power(short.cpu(), CHANNELIZE_TS, per, device='cpu', **pkw)
+    _, _, cp_short = it.channelize_power(short, CHANNELIZE_TS, per, **pkw)
+    err_cpu = rel_rms(cp_short.cpu(), cp_cpu)
+    print(f'25c channelize_power at {n_ch} x {per} = {nperseg} points on {iq.numel()} samples: '
+          f'{tuple(cp.shape)}, kernels {json.dumps(routes)}, vs the plain version relative RMS '
+          f'{err:.3g}, vs the CPU port on 4 frames {err_cpu:.3g}')
+    require(err <= 1e-5 and err_cpu <= 1e-5, f'25c channelize_power at {nperseg}: {err:.3g}, '
+            f'{err_cpu:.3g}')
+    n_frames = iq.numel() // nperseg
+    row = kernel_row(
+        'chan_stats_split_channels',
+        {'launches': launched.get('chan_stats', 0), 'max_abs_err': max_abs(cp, cp_ref)},
+        8 * iq.numel() + 8 * nperseg + 4 * cp.numel(),
+        n_frames * (fft_ops(nperseg) + 6 * nperseg + 2 * (nperseg - skip)),
+        lambda: kernels.chan_stats(iq, **ckw),
+        lambda: kernels.chan_stats_plain(iq, **ckw),
+        lambda: kernels.chan_stats_plain(iq, **ckw),
+        mem_rate, fp32_rate,
+    )
+    row['path'] = f'channelize_power, {n_ch} channels of {abins} of {per} bins ({nperseg} points)'
+    row['path_ms'] = timed_ms(lambda: it.channelize_power(iq, CHANNELIZE_TS, per, **pkw))
+    print(f'chan_stats_split_channels at {nperseg}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} '
+          f'ms by {row["bound_by"]}, plain / torch.fft chain {row["plain_ms"]:.4f} ms); '
+          f'channelize_power {row["path_ms"]:.4f} ms ({smi})')
+    rows.append(row)
+    del iq, cp, cp_ref, short
+    torch.cuda.empty_cache()
+
+    # ---- 25d: the histogram above one block's table: the flagship monitor
+    # with 40,000 and 100,000 APD edges (routes, launches, reference_step),
+    # the slices timed on its binned stream and on N_SLICES samples; then a
+    # row of 2^31 samples: int64 counts through hist, sample_ccdf and
+    # apd_fold, exact against the plain version's pieces
+    smem = _build.smem_optin(dev)
+    slice_runs = {}
+    hist_row = None
+    for n_edges in SLICE_EDGES:
+        mon = it.WidebandMonitor(it.design_wideband_monitor(
+            122.88e6, 61.44e6, **dict(FLAGSHIP, apd_bins=n_edges)))
+        x = torch.randn(N_STEP, dtype=torch.complex64, device=dev, generator=gen)
+        mon.step(x[: mon.min_input_multiple()])
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: v.launches for k, v in kset.items() if v.launches}
+        hroutes = dict(kernels.hist.route_launches)
+        require(mon.routes == {'ola': 'reg', 'chan': 'reg', 'apd': 'slices'}
+                and launched == {'fused_ola': 1, 'chan_stats': 1, 'hist': 1}
+                and hroutes == {'bucket': 0, 'generic': 0, 'slices': 1},
+                f'25d {n_edges} edges: routes {mon.routes}, launches {launched}, hist {hroutes}')
+        check_step(out, mon.reference_step(x), f'25d {n_edges} APD edges vs reference_step')
+        step_ms = timed_ms(lambda: mon.step(x), reps=10)
+        p = kernels.chan_stats(kernels.fused_ola(x, **mon.ola_kwargs), **mon.chan_kwargs)['p_binned']
+        edges = mon.apd_edges
+        got = kernels.hist(p, edges)
+        ref = kernels.hist_plain(p, edges)
+        require(torch.equal(got, ref), f'25d hist at {n_edges} edges differs from the plain version')
+        q = torch.randn(N_SLICES, device=dev, generator=gen).square_()
+        got_q, ref_q = kernels.hist(q, edges), kernels.hist_plain(q, edges)
+        require(torch.equal(got_q, ref_q), f'25d hist at {n_edges} edges on {N_SLICES} samples')
+        run = {'route': hist_route(n_edges, smem), 'slice_edges': slice_edges(n_edges, smem),
+               'step_ms': step_ms, 'step_launches': launched,
+               'ms_step_stream': timed_ms(lambda: kernels.hist(p, edges)),
+               'plain_ms_step_stream': timed_ms(lambda: kernels.hist_plain(p, edges), reps=5),
+               f'ms_{N_SLICES}': timed_ms(lambda: kernels.hist(q, edges)),
+               f'plain_ms_{N_SLICES}': timed_ms(lambda: kernels.hist_plain(q, edges), reps=5)}
+        nbytes, nops = hist_work(N_SLICES, n_edges)
+        run[f'bound_ms_{N_SLICES}'] = max(nbytes / mem_rate, nops / fp32_rate) * 1e3
+        slice_runs[str(n_edges)] = run
+        print(f'25d {n_edges} APD edges: routes {json.dumps(mon.routes)}, launches '
+              f'{json.dumps(launched)}, hist {json.dumps(hroutes)}; within phase 3\'s gates; '
+              f'equal to the plain version on the step\'s {p.numel()} and on {N_SLICES} samples; '
+              + json.dumps(run) + f' ({smi})')
+        if hist_row is None:
+            nbytes, nops = hist_work(p.numel(), n_edges)
+            hist_row = kernel_row(
+                'hist_slices', {'launches': launched.get('hist', 0), 'max_abs_err': 0.0}, nbytes, nops,
+                lambda: kernels.hist(p, edges), lambda: kernels.hist_plain(p, edges), None,
+                mem_rate, fp32_rate,
+            )
+            hist_row['path'] = f'WidebandMonitor.step, flagship with {n_edges} APD edges'
+            hist_row['path_ms'] = step_ms
+        del mon, x, out, p, q, got, ref, got_q, ref_q
+        torch.cuda.empty_cache()
+    hist_row['edges'] = slice_runs
+
+    wide = {}
+    p = wide_row(dev, gen)
+    for n_edges in WIDE_EDGES:
+        edges = torch.logspace(-4, 1.5, n_edges, device=dev)
+        reset_counts()
+        got = kernels.hist(p, edges)
+        torch.cuda.synchronize()
+        hroutes = {k: v for k, v in kernels.hist.route_launches.items() if v}
+        want = pieces_counts(p, edges)
+        require(got.dtype == torch.int64 and torch.equal(got, want) and int(got.sum()) == N_WIDE,
+                f'25d hist on {N_WIDE} samples x {n_edges} edges: {got.dtype}, sum {int(got.sum())}')
+        ms = timed_ms(lambda: kernels.hist(p, edges), reps=WIDE_REPS, warmup=1)
+        nbytes, nops = hist_work(N_WIDE, n_edges)
+        wide[str(n_edges)] = {'routes': hroutes, 'dtype': str(got.dtype), 'ms': ms,
+                              'bound_ms': max(nbytes / mem_rate, nops / fp32_rate) * 1e3}
+        if n_edges == CCDF_EDGES:
+            reset_counts()
+            ccdf = it.sample_ccdf(p, edges, density=False)
+            acc = apd_fold(torch.zeros(n_edges + 1, dtype=torch.int64, device=dev), p, edges=edges)
+            torch.cuda.synchronize()
+            launched = {k: v.launches for k, v in kset.items() if v.launches}
+            require(launched == {'hist': 2}, f'25d sample_ccdf + apd_fold on 2^31: {launched}')
+            require(torch.equal(ccdf, (N_WIDE - want.cumsum(0))[:-1]),
+                    '25d sample_ccdf on 2^31 samples differs from the plain pieces')
+            require(torch.equal(acc, want), '25d apd_fold on 2^31 samples differs')
+            wide[str(n_edges)]['sample_ccdf_ms'] = timed_ms(
+                lambda: it.sample_ccdf(p, edges, density=False), reps=WIDE_REPS, warmup=1)
+            wide[str(n_edges)]['apd_fold_launches'] = launched
+        print(f'25d hist on {N_WIDE} samples x {n_edges} edges: ' + json.dumps(wide[str(n_edges)])
+              + f'; equal to the plain version\'s pieces of {WIDE_PIECE} ({smi})')
+    hist_row['wide_2e31'] = wide
+    rows.append(hist_row)
+    print(f'hist_slices at {SLICE_EDGES[0]} edges on the step\'s stream: {hist_row["ms"]:.4f} ms '
+          f'(bound {hist_row["bound_ms"]:.4f} ms by {hist_row["bound_by"]}, plain (sort) '
+          f'{hist_row["plain_ms"]:.4f} ms) ({smi})')
+    del p, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 25e: the prime split route: the blackman design at 135.168 ->
+    # 24.576 MS/s (135168 -> 24576, 11 x 12288) on whole
+    # min_input_multiple()s near 2^24 samples
+    mon = it.WidebandMonitor(it.design_wideband_monitor(*PRIME_RATES, **PRIME_MONITOR))
+    d = mon.design
+    require((d.nfft, d.nfft_out) == (135168, 24576) and mon.routes['ola'] == 'split',
+            f'25e: {(d.nfft, d.nfft_out)} routes {mon.routes}')
+    x, frames = split_step_frames(mon, N_STEP, gen, dev)
+    mon.step(x[: mon.min_input_multiple()])
+    torch.cuda.synchronize()
+    reset_counts()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in kset.items() if v.launches}
+    froutes = dict(kernels.fused_ola_frames.route_launches)
+    require(launched.get('fused_ola_frames') == 1 and froutes['split'] == 1,
+            f'25e step launches {launched}, frame routes {froutes}')
+    check_step(out, mon.reference_step(x), '25e prime split step vs reference_step')
+    kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    few = frames[:N_F64_FRAMES].contiguous()
+    got = kernels.fused_ola_frames(few, **kw)
+    ref = kernels.fused_ola_frames_plain(few, **kw)
+    ref64 = kernels.fused_ola_frames_plain(few.to(torch.complex128), **_wide_kw(kw))
+    err, e64, p64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+    require(err <= 1e-5 and e64 <= 2 * p64,
+            f'25e frames: relative RMS {err:.3g}, complex128 {e64:.3g} vs the chain\'s {p64:.3g}')
+    step_ms = timed_ms(lambda: mon.step(x), reps=10)
+    row = kernel_row(
+        PRIME_ROW, {'launches': launched.get('fused_ola_frames', 0), 'max_abs_err': max_abs(got, ref)},
+        8 * frames.shape[0] * (d.nfft + d.nfft_out) + 8 * (d.nfft + d.nfft_out),
+        frames.shape[0] * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)),
+        lambda: kernels.fused_ola_frames(frames, **kw),
+        lambda: kernels.fused_ola_frames_plain(frames, **kw),
+        lambda: kernels.fused_ola_frames_plain(frames, **kw),
+        mem_rate, fp32_rate,
+    )
+    row.update({'f64_rel_rms': e64, 'plain_f64_rel_rms': p64, 'path_ms': step_ms,
+                'path': 'WidebandMonitor.step, blackman 135.168 -> 24.576 MS/s (11 x 12288)'})
+    rows.append(row)
+    print(f'25e {PRIME_ROW}: step launches {json.dumps(launched)}, frame routes '
+          f'{json.dumps(froutes)}; frames {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+          f'{row["bound_by"]}, plain / torch.fft chain {row["plain_ms"]:.4f} ms), complex128 '
+          f'{e64:.3g} vs the chain\'s {p64:.3g}; step {step_ms:.4f} ms for {x.numel()} samples '
+          f'({smi})')
+    del mon, x, frames, out, few, got, ref, ref64
+    torch.cuda.empty_cache()
+
+    # ---- 25f: the flagship 2:1 step at 'i16' and 'bf16': one launch of
+    # fused_ola_strided on the tier's planes; timed beside the same step with
+    # the parent's OLA stage (fused_ola on the planes widened to complex64)
+    tiers = {}
+    for tier, rname in STEP_TIERS.items():
+        mon = it.WidebandMonitor(it.design_wideband_monitor(
+            122.88e6, 61.44e6, **dict(FLAGSHIP, fft_precision=tier)))
+        x = torch.randn(N_STEP, dtype=torch.complex64, device=dev, generator=gen) * PLANES_SCALE
+        mon.step(x[: mon.min_input_multiple()])
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: v.launches for k, v in kset.items() if v.launches}
+        layouts = {k: v for k, v in kernels.fused_ola_strided.layout_launches.items() if v}
+        require(launched == {'fused_ola_strided': 1, 'chan_stats': 1, 'hist': 1}
+                and layouts == {TIER_LAYOUT[tier]: 1},
+                f'25f {tier} step launches {launched}, layouts {layouts}')
+        # phase 3's gates hold the psd in dB above -100 dB for unit-power
+        # input: the psd of samples scaled by PLANES_SCALE (integer counts
+        # at 'i16') is shifted back by the scale's dB on both sides alike
+        shift = 20 * math.log10(PLANES_SCALE)
+        check_step(*({k: v - shift if k.startswith('psd') else v for k, v in o.items()}
+                     for o in (out, mon.reference_step(x))), f'25f {tier} step vs reference_step')
+        after = mon._step_ola
+
+        def before(xs, plain=False, mon=mon):
+            return kernels.fused_ola(dequantize(mon._stored(xs)), **mon.ola_kwargs)
+
+        times = []
+        for stage in (before, after, after, before):
+            mon._step_ola = stage
+            times.append(timed_ms(lambda: mon.step(x), reps=TIER_STEP_REPS))
+        mon._step_ola = after
+        tiers[rname] = {'tier': tier, 'launches': launched, 'layouts': layouts,
+                        'before_ms': [times[0], times[3]], 'after_ms': [times[1], times[2]],
+                        'samples': N_STEP}
+        print(f'25f flagship step at {tier}: launches {json.dumps(launched)}, layouts '
+              f'{json.dumps(layouts)}; within phase 3\'s gates; ms before (fused_ola on complex64), '
+              f'after, after, before: {[round(t, 4) for t in times]} on {N_STEP} samples ({smi})')
+        del mon, x, out
+        torch.cuda.empty_cache()
+    print(f'phase 25 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows, tiers
+
+
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
 
@@ -5689,14 +6180,14 @@ def main(parent: str | None = None) -> int:
     cs = kernels.chan_stats(y, **mon.chan_kwargs)
 
     p = cs['p_binned']
-    kernels.hist.route_launches.update(bucket=0, generic=0)
+    kernels.hist.route_launches.update(bucket=0, generic=0, slices=0)
     counts = kernels.hist(p, mon.apd_edges)
     hist_routes = dict(kernels.hist.route_launches)
     counts_ref = kernels.hist_plain(p, mon.apd_edges)
     diff = (counts.long() - counts_ref.long()).abs()
     print(f'hist: {tuple(p.shape)} -> {tuple(counts.shape)} L1 vs plain {int(diff.sum())}; '
           f'kernels {json.dumps(hist_routes)}')
-    require(hist_routes == {'bucket': 1, 'generic': 0}, f'hist kernels {hist_routes}')
+    require(hist_routes == {'bucket': 1, 'generic': 0, 'slices': 0}, f'hist kernels {hist_routes}')
     require(int(diff.sum()) == 0, 'hist differs from sort + searchsorted')
     require(int(counts.sum()) == p.numel(), 'hist total differs from sample count')
     results['hist'] = {'max_abs_err': float(diff.max())}
@@ -5716,7 +6207,7 @@ def main(parent: str | None = None) -> int:
               'hist': dict(kernels.hist.route_launches)}
     print('kernels by route in one step: ' + json.dumps(routes))
     require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': CHAN_REG_ROUTE,
-                       'hist': {'bucket': 1, 'generic': 0}},
+                       'hist': {'bucket': 1, 'generic': 0, 'slices': 0}},
             f'the step\'s routes {routes}')
 
     step_kernels = (OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
@@ -5881,6 +6372,15 @@ def main(parent: str | None = None) -> int:
     # instances, ola_filter and the monitor at 'i16' / 'bf16') and the split
     # route's radix-7 frames
     rows = merge_rows(rows, tier_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 25: rows 4-6 at every shape the JAX kernels take (the
+    # channelizer's split route, the histogram's slices and int64 rows), the
+    # split frame route's prime radix steps, the 2:1 step at its tiers
+    split_rows, tier_steps = rows46_phases(dev, smi, mem_rate, fp32_rate)
+    rows = merge_rows(rows, split_rows)
+    for row in rows:
+        if row['name'] in tier_steps:
+            row['monitor_step'] = tier_steps[row['name']]
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -10,7 +10,7 @@
 //   The host route (frames_route 'split') takes every pair whose larger
 //   frame no block holds and that CLUSTER_PAIRS does not list, where both
 //   sizes are C M, M a size of csrc/fft_reg.cuh's plans (1024-16384) and
-//   C <= 64 of the factors 2, 3, 5 and 7 (the forward and inverse may
+//   C <= 64 of any prime factors (the forward and inverse may
 //   differ: N1 = C1 M1, N2 = C2 M2). The frames are complex64, or (2, n)
 //   planes of float32, int16 or bfloat16 (the storage tiers), which the
 //   forward radix step, the only kernel that reads them, dequantizes on
@@ -21,10 +21,12 @@
 // between parts, and one launch per step:
 //   1. split_radix_kernel<false>, the forward radix-C1 step: a block takes
 //      TN consecutive offsets n < M1 of one frame (TN a power of two from
-//      32 to 512, C1 TN <= 2048: tile_log2); it reads samples c M1 + n (c <
-//      C1) times w_in (TN consecutive samples a part: coalesced), takes
-//      their C1-point DFT in shared memory (Stockham passes of radix 4, 2,
-//      3, 5 and 7 over the TN columns), and stores output r times
+//      32 to 512 at C1 <= 64, C1 TN <= 2048: csrc/split_radix.cuh
+//      tile_log2); it reads samples c M1 + n (c < C1) times w_in (TN
+//      consecutive samples a part: coalesced), takes their C1-point DFT in
+//      shared memory (split_radix.cuh radix_step: Stockham passes of radix
+//      4, 2, 3, 5 and 7 over the TN columns, and of any prime above 7
+//      through its generic pass), and stores output r times
 //      exp(-2 pi i n r / N1) at offset n of part r of the scratch `a`
 //      (batch, frames, C1, M1);
 //   2. split_fwd_passes_kernel<M1>, one block per (frame, part r): the
@@ -64,85 +66,47 @@
 // through device memory three times more: the forward radix step writes
 // `a` (N1 points) and the passes read it; the inverse side writes and
 // reads y in place once per step. The radix steps run any C (its plan is a
-// launch argument) in one instance per direction; the passes kernels are
+// launch argument) in one instance per direction and element type; a prime
+// factor above 7 costs O(p) operations a point there (the generic pass);
+// the passes kernels are
 // one instance per size of REG_PLANS and direction (no 15360-point inverse). Not done here: the
 // radix steps folded into the neighbouring passes (the cluster kernel's
 // gather), and the scratch kept in L2.
 #include "fft.cuh"
 #include "fft_reg.cuh"
 #include "ola_frames.cuh"
+#include "split_radix.cuh"
 
 namespace {
 
 namespace R = iqt::reg;
-
-// a radix step's block: TN = 2^lt offsets (columns) of one frame, all C
-// parts, at most kPoints points
-constexpr int kRadixThreads = 256;
-constexpr int kMaxC = 64;
-constexpr int kPoints = 2048;
-
-// log2 of a radix step's tile width at C parts: the widest power of two
-// from 32 to 512 columns with C TN <= kPoints (32 at C = 64)
-int tile_log2(int c) {
-  int lt = 9;
-  while (lt > 5 && (c << lt) > kPoints) --lt;
-  return lt;
-}
-
-// one Stockham pass of radix RADIX over the C-point columns of `src`
-// (element c of column t at c TN + t): butterfly b < C / RADIX, k = b mod
-// ns, reads points b + r C / RADIX, multiplies point r by
-// exp(-+2 pi i r k / (ns RADIX)) = tab[r k C / (ns RADIX)], takes the
-// RADIX-point DFT and writes point r to (b - k) RADIX + k + r ns of `dst`.
-// A warp takes 32 columns of one butterfly: conflict-free.
-template <int RADIX, bool INV>
-__device__ __forceinline__ void radix_pass(const float2* src, float2* dst, const float2* tab,
-                                           int c, int ns, int lt) {
-  const int nb = c / RADIX;
-  const int step = c / (ns * RADIX);
-  const int tn = 1 << lt;
-  for (int e = threadIdx.x; e < nb << lt; e += kRadixThreads) {
-    const int t = e & (tn - 1);
-    const int b = e >> lt;
-    const int k = b % ns;
-    float2 v[RADIX];
-#pragma unroll
-    for (int r = 0; r < RADIX; ++r) v[r] = src[((b + r * nb) << lt) + t];
-#pragma unroll
-    for (int r = 1; r < RADIX; ++r) v[r] = iqt::cmul(v[r], tab[r * k * step]);
-    iqt::dft_small<RADIX>(v, INV);
-    const int base = (b - k) * RADIX + k;
-#pragma unroll
-    for (int r = 0; r < RADIX; ++r) dst[((base + r * ns) << lt) + t] = v[r];
-  }
-}
+namespace S = iqt::split;
 
 // A radix-C step on TN = 2^lt offsets of one frame (blockIdx.x = frame *
 // (m / TN) + tile, blockIdx.y = batch row): point (c, n) of the frame lies at
 // in + c * m + n (elements of E: complex64, or a plane whose imaginary
 // plane lies in_plane elements further), times pre[c * m + n] where pre is
-// given; the C-point DFT (the plan's radices in bits [3s, 3s + 3) of
-// `code`, tab = exp(-+2 pi i j / C), j < C, with the direction's sign);
-// output (r, n) times post[r * m + n] and `scale` to out + r * m + n. `in`
-// and `out` may be the same frames (step 4, E = float2): a block reads all
-// its points before it writes any.
+// given; the C-point DFT of csrc/split_radix.cuh (dft_tab = exp(-+2 pi i j
+// / C), j < C, with the direction's sign); output (r, n) times post[r * m +
+// n] and `scale` to out + r * m + n. `in` and `out` may be the same frames
+// (step 4, E = float2): a block reads all its points before it writes any.
 template <bool INV, class E>
-__global__ void __launch_bounds__(kRadixThreads)
+__global__ void __launch_bounds__(S::kRadixThreads)
 split_radix_kernel(const E* in, long long in_batch, long long in_frame, long long in_plane,
                    const float2* __restrict__ pre, const float2* __restrict__ post, float scale,
                    const float2* __restrict__ dft_tab, float2* out, long long out_batch,
-                   long long out_frame, int m, int c, int lt, int stages, int code) {
-  __shared__ float2 buf[2][kPoints];
-  __shared__ float2 tab[kMaxC];
+                   long long out_frame, int m, int c, int lt, S::RadixPlan plan) {
+  extern __shared__ float2 smem[];
+  float2* const buf[2] = {smem, smem + (c << lt)};
+  float2* tab = smem + 2 * (c << lt);
   const int tn = 1 << lt;
   const int tiles = m >> lt;
   const int f = blockIdx.x / tiles;
   const int n0 = (blockIdx.x - f * tiles) << lt;
   const E* src = in + blockIdx.y * in_batch + f * in_frame + n0;
   float2* dst = out + blockIdx.y * out_batch + f * out_frame + n0;
-  for (int e = threadIdx.x; e < c; e += kRadixThreads) tab[e] = __ldg(&dft_tab[e]);
-  for (int e = threadIdx.x; e < c << lt; e += kRadixThreads) {
+  for (int e = threadIdx.x; e < c; e += S::kRadixThreads) tab[e] = __ldg(&dft_tab[e]);
+  for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
     const int at = (e >> lt) * m + (e & (tn - 1));
     float2 v;
     if constexpr (iqt::ola::Src<E>::kRows == 1) {
@@ -154,21 +118,8 @@ split_radix_kernel(const E* in, long long in_batch, long long in_frame, long lon
     buf[0][e] = v;
   }
   __syncthreads();
-  int cur = 0, ns = 1;
-  for (int s = 0; s < stages; ++s) {
-    const int r = (code >> (3 * s)) & 7;
-    switch (r) {
-      case 2: radix_pass<2, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
-      case 3: radix_pass<3, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
-      case 4: radix_pass<4, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
-      case 5: radix_pass<5, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
-      default: radix_pass<7, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
-    }
-    __syncthreads();
-    cur ^= 1;
-    ns *= r;
-  }
-  for (int e = threadIdx.x; e < c << lt; e += kRadixThreads) {
+  const int cur = S::radix_step<INV>(buf, tab, c, lt, plan);
+  for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
     const int at = (e >> lt) * m + (e & (tn - 1));
     const float2 v = buf[cur][e];
     dst[at] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&post[n0 + at]));
@@ -316,18 +267,6 @@ int passes_table(int m) {
   return -1;
 }
 
-// a radix step's launch: c parts of m points, plan (stages, code)
-bool radix_ok(int c, int m, int stages, int code) {
-  if (c < 1 || c > kMaxC || m % (1 << tile_log2(c))) return false;
-  int prod = 1;
-  for (int s = 0; s < stages; ++s) {
-    const int r = (code >> (3 * s)) & 7;
-    if (r < 2 || r > 7 || r == 6) return false;
-    prod *= r;
-  }
-  return prod == c;
-}
-
 }  // namespace
 
 // once per device, before the first launch: every passes kernel's dynamic
@@ -351,7 +290,8 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
 // bfloat16, the imaginary plane plane_stride elements after the real one)
 // at the given element strides (the last one 1), y (batch, n_frames,
 // nfft_out) contiguous, a (batch, n_frames, nfft) contiguous scratch. nfft = c1 m1,
-// nfft_out = c2 m2; plan1 / plan2 the radix steps' plans (stages, code);
+// nfft_out = c2 m2; plan1 / plan2 the radix steps' plans, host arrays of
+// the stage count and the radices (csrc/split_radix.cuh plan_from);
 // tw_fwd / tw_inv the m1- and m2-point pass tables (n_fwd / n_inv
 // entries), fwd_cross (c1 x m1), inv_cross (c2 x m2), dft1 (c1), dft2 (c2);
 // [lo, hi) the forward bins kept, d = out_lo - in_lo. Launches steps 1-3,
@@ -362,14 +302,14 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
                              const void* w_out, const void* tw_fwd, const void* tw_inv,
                              const void* fwd_cross, const void* inv_cross,
                              const void* dft1, const void* dft2, void* a, void* y, int n_fwd,
-                             int n_inv, int batch, int n_frames, int c1, int m1, int stages1,
-                             int code1, int c2, int m2, int stages2, int code2, int lo, int hi,
+                             int n_inv, int batch, int n_frames, int c1, int m1,
+                             const int* plan1, int c2, int m2, const int* plan2, int lo, int hi,
                              int d, void* stream) {
   if (passes_table(m1) != n_fwd || passes_table(m2) != n_inv || layout < 0 || layout > 3)
     return cudaErrorInvalidValue;
-  if (!radix_ok(c1, m1, stages1, code1) || !radix_ok(c2, m2, stages2, code2))
-    return cudaErrorInvalidValue;
-  const int lt1 = tile_log2(c1), lt2 = tile_log2(c2);
+  const S::RadixPlan p1 = S::plan_from(plan1), p2 = S::plan_from(plan2);
+  if (!S::plan_ok(c1, m1, p1) || !S::plan_ok(c2, m2, p2)) return cudaErrorInvalidValue;
+  const int lt1 = S::tile_log2(c1), lt2 = S::tile_log2(c2);
   if (static_cast<long long>(n_frames) * ((m1 >> lt1) > (m2 >> lt2) ? m1 >> lt1 : m2 >> lt2) >=
       (1LL << 31))
     return cudaErrorInvalidValue;
@@ -383,10 +323,11 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   // 1. the forward radix-c1 step into `a`, reading the layout's elements
   const auto forward = [&](auto element) {
     using E = decltype(element);
-    split_radix_kernel<false, E><<<dim3(n_frames * (m1 >> lt1), batch), kRadixThreads, 0, s>>>(
+    split_radix_kernel<false, E><<<dim3(n_frames * (m1 >> lt1), batch), S::kRadixThreads,
+                                   S::radix_smem(c1), s>>>(
         static_cast<const E*>(x), batch_stride, frame_stride, plane_stride,
         static_cast<const float2*>(w_in), static_cast<const float2*>(fwd_cross), 1.0f,
-        static_cast<const float2*>(dft1), ap, n_frames * n1, n1, m1, c1, lt1, stages1, code1);
+        static_cast<const float2*>(dft1), ap, n_frames * n1, n1, m1, c1, lt1, p1);
   };
   switch (layout) {
     case 0: forward(float2{}); break;
@@ -408,8 +349,8 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   if (last) return cudaSuccess;
   // 4. the inverse radix-c2 step in place, scaled, windowed
   split_radix_kernel<true, float2>
-      <<<dim3(n_frames * (m2 >> lt2), batch), kRadixThreads, 0, s>>>(
+      <<<dim3(n_frames * (m2 >> lt2), batch), S::kRadixThreads, S::radix_smem(c2), s>>>(
           yp, n_frames * n2, n2, 0, nullptr, static_cast<const float2*>(w_out), inv_n2,
-          static_cast<const float2*>(dft2), yp, n_frames * n2, n2, m2, c2, lt2, stages2, code2);
+          static_cast<const float2*>(dft2), yp, n_frames * n2, n2, m2, c2, lt2, p2);
   return cudaGetLastError();
 }

@@ -1,0 +1,189 @@
+// The radix-C step of the split routes (csrc/ola_split.cu, the frame-batch
+// OLA chain; csrc/chan_split.cu, the channelizer statistics): the C-point
+// DFT across the C parts of M points of a frame of N = C M points, on TN
+// consecutive offsets n < M at once (a tile), in shared memory.
+//
+// A block holds the tile's C TN points, element c of column t at c TN + t,
+// in two buffers, and runs the C-point DFT of every column as Stockham
+// passes over the step's plan (RadixPlan): radices 2, 3, 4, 5 and 7 through
+// the butterflies of csrc/fft.cuh (dft_small), any prime p above 7 through
+// a generic pass that computes each of its p outputs as a sum of p terms,
+// O(p) operations a point. Every twiddle, of the passes and of the DFTs in
+// them, comes from one table tab = exp(-+2 pi i j / C), j < C, with the
+// direction's sign, built on the host in float64 and rounded once.
+//
+// The tile: TN = 2^lt, the widest power of two up to 512 columns with C TN
+// <= kPoints (tile_log2): 512 columns at C <= 4, 32 at C = 64, one at C
+// above 1024. Its shared memory (radix_smem) is dynamic: two buffers of C
+// TN points and the table of C entries, at most 48 KiB at C = 2048.
+#pragma once
+
+#include "fft.cuh"
+
+namespace iqt {
+namespace split {
+
+constexpr int kRadixThreads = 256;
+constexpr int kMaxC = 2048;
+constexpr int kPoints = 2048;
+// 2048 = 2^11: no C up to kMaxC has more prime factors
+constexpr int kMaxStages = 11;
+
+// a radix step's plan: its radices in the order of the passes (those of
+// ops/kernels/_build.py split_radices: 4s, a 2, 3s, 5s, 7s, then the primes
+// above 7 in ascending order)
+struct RadixPlan {
+  int stages;
+  int radix[kMaxStages];
+};
+
+// log2 of the tile width at C parts: the widest power of two from 1 to 512
+// columns with C TN <= kPoints
+__host__ __device__ constexpr int tile_log2(int c) {
+  int lt = 9;
+  while (lt > 0 && (c << lt) > kPoints) --lt;
+  return lt;
+}
+
+// a radix step's dynamic shared memory at C parts: two buffers of the
+// tile, then the table
+__host__ __device__ constexpr size_t radix_smem(int c) {
+  return (2 * static_cast<size_t>(c << tile_log2(c)) + c) * sizeof(float2);
+}
+
+// whether p is a prime (the generic pass's radices)
+__host__ __device__ constexpr bool is_prime(int p) {
+  if (p < 2) return false;
+  for (int q = 2; q * q <= p; ++q)
+    if (p % q == 0) return false;
+  return true;
+}
+
+// a plan the step runs: C parts of M points (C <= kMaxC, TN divides M),
+// radices of 2, 3, 4, 5, 7 or a prime above 7 whose product is C
+inline bool plan_ok(int c, int m, const RadixPlan& plan) {
+  if (c < 1 || c > kMaxC || m % (1 << tile_log2(c))) return false;
+  if (plan.stages < 0 || plan.stages > kMaxStages) return false;
+  long long prod = 1;
+  for (int s = 0; s < plan.stages; ++s) {
+    const int r = plan.radix[s];
+    if (r != 4 && !is_prime(r)) return false;
+    prod *= r;
+  }
+  return prod == c;
+}
+
+// one Stockham pass of radix RADIX over the C-point columns of `src`:
+// butterfly b < C / RADIX, k = b mod ns, reads points b + r C / RADIX,
+// multiplies point r by exp(-+2 pi i r k / (ns RADIX)) = tab[r k C / (ns
+// RADIX)], takes the RADIX-point DFT and writes point r to (b - k) RADIX + k
+// + r ns of `dst`. A warp takes 32 columns of one butterfly where TN >= 32:
+// conflict-free.
+template <int RADIX, bool INV>
+__device__ __forceinline__ void radix_pass(const float2* src, float2* dst, const float2* tab,
+                                           int c, int ns, int lt) {
+  const int nb = c / RADIX;
+  const int step = c / (ns * RADIX);
+  const int tn = 1 << lt;
+  for (int e = threadIdx.x; e < nb << lt; e += kRadixThreads) {
+    const int t = e & (tn - 1);
+    const int b = e >> lt;
+    const int k = b % ns;
+    float2 v[RADIX];
+#pragma unroll
+    for (int r = 0; r < RADIX; ++r) v[r] = src[((b + r * nb) << lt) + t];
+#pragma unroll
+    for (int r = 1; r < RADIX; ++r) v[r] = cmul(v[r], tab[r * k * step]);
+    dft_small<RADIX>(v, INV);
+    const int base = (b - k) * RADIX + k;
+#pragma unroll
+    for (int r = 0; r < RADIX; ++r) dst[((base + r * ns) << lt) + t] = v[r];
+  }
+}
+
+// the same pass at a prime radix p above 7, one output point a thread: output
+// r of butterfly b (b < C / p, k = b mod ns) is sum_j src[b + j C / p] exp(-+2
+// pi i j (k / (ns p) + r / p)), and the exponent j (k + r ns) C / (ns p) is
+// an index of tab taken mod C, so each term costs one table read and one
+// complex multiply-add. Term j goes to accumulator j mod kPrimeAcc, in
+// order, and the accumulators are added as a tree: a large p rounds as
+// p / kPrimeAcc terms in a row.
+constexpr int kPrimeAcc = 8;
+
+template <bool INV>
+__device__ __forceinline__ void prime_pass(const float2* src, float2* dst, const float2* tab,
+                                           int c, int p, int ns, int lt) {
+  const int nb = c / p;
+  const int step = c / (ns * p);
+  const int tn = 1 << lt;
+  for (int e = threadIdx.x; e < c << lt; e += kRadixThreads) {
+    const int t = e & (tn - 1);
+    const int o = e >> lt;
+    const int r = o / nb;
+    const int b = o - r * nb;
+    const int k = b % ns;
+    const int q = (k + r * ns) * step;  // < ns p step = C
+    float2 acc[kPrimeAcc];
+#pragma unroll
+    for (int a = 0; a < kPrimeAcc; ++a) acc[a] = make_float2(0.f, 0.f);
+    int at = 0;
+    for (int j0 = 0; j0 < p; j0 += kPrimeAcc) {
+#pragma unroll
+      for (int a = 0; a < kPrimeAcc; ++a) {
+        if (j0 + a < p) {
+          const float2 v = src[((b + (j0 + a) * nb) << lt) + t];
+          const float2 w = tab[at];
+          acc[a].x = fmaf(v.x, w.x, fmaf(-v.y, w.y, acc[a].x));
+          acc[a].y = fmaf(v.x, w.y, fmaf(v.y, w.x, acc[a].y));
+          at += q;
+          if (at >= c) at -= c;
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 1; h < kPrimeAcc; h <<= 1) {
+#pragma unroll
+      for (int a = 0; a + h < kPrimeAcc; a += 2 * h)
+        acc[a] = make_float2(acc[a].x + acc[a + h].x, acc[a].y + acc[a + h].y);
+    }
+    dst[((((b - k) * p + k) + r * ns) << lt) + t] = acc[0];
+  }
+}
+
+// The step's C-point DFT of the TN columns in buf[0] (C TN points each of
+// buf[0] and buf[1], tab the C entries of the table, all in shared memory;
+// the block's writes of buf[0] and tab done before the call, behind a
+// barrier). Returns the buffer that holds the output (0 or 1); a barrier
+// follows each pass.
+template <bool INV>
+__device__ __forceinline__ int radix_step(float2* const (&buf)[2], const float2* tab, int c,
+                                          int lt, const RadixPlan& plan) {
+  int cur = 0, ns = 1;
+  for (int s = 0; s < plan.stages; ++s) {
+    const int r = plan.radix[s];
+    switch (r) {
+      case 2: radix_pass<2, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      case 3: radix_pass<3, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      case 4: radix_pass<4, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      case 5: radix_pass<5, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      case 7: radix_pass<7, INV>(buf[cur], buf[cur ^ 1], tab, c, ns, lt); break;
+      default: prime_pass<INV>(buf[cur], buf[cur ^ 1], tab, c, r, ns, lt); break;
+    }
+    __syncthreads();
+    cur ^= 1;
+    ns *= r;
+  }
+  return cur;
+}
+
+// the host side of a plan: plan[0] stages, plan[1 ..] the radices (the
+// wrappers' int array), as a RadixPlan
+inline RadixPlan plan_from(const int* plan) {
+  RadixPlan p{};
+  p.stages = plan[0];
+  for (int s = 0; s < p.stages && s < kMaxStages; ++s) p.radix[s] = plan[1 + s];
+  return p;
+}
+
+}  // namespace split
+}  // namespace iqt

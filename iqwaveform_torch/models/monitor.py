@@ -400,9 +400,11 @@ class WidebandMonitor:
         if not self._strided:
             self._ola = functools.partial(ola_grouped, frames_fn=self._frames)
 
-        # the channelizer statistics: sizes outside CHAN_SIZES, or navg above
-        # 128 at a size no power of two (ROADMAP Queue 2 item 2), take the
-        # plain version
+        # the channelizer statistics: a kernel at every size the JAX kernel
+        # takes (the split route beyond CHAN_SIZES); navg above 128 at a size
+        # no power of two (the JAX package's XLA path too) and sizes above
+        # the split route's limit (ROADMAP Queue 2 item 2) take the plain
+        # version
         if covers(self._nfft_big, d.apd_navg):
             self._chan = chan_stats
             self.routes['chan'] = chan_route(self._nfft_big, True, True, d.apd_navg)
@@ -411,9 +413,9 @@ class WidebandMonitor:
             self.routes['chan'] = 'plain'
 
         # the APD counter, from the design: the edge histogram (routed per
-        # call by the sample count, :meth:`_hist_counts`; above its shared
-        # memory the sort path, ROADMAP Queue 2 item 5), or the packed
-        # rule's uniform dB levels in 128 columns (_packed_counts)
+        # call by the edges, :meth:`_hist_counts`: above one block's table
+        # the slices route), or the packed rule's uniform dB levels in 128
+        # columns (_packed_counts)
         if d.apd_kernel == 'packed':
             n_levels = d.apd_bins + 2  # the levels and the padding's
             if colhist_takes(n_levels, self._smem):
@@ -445,8 +447,9 @@ class WidebandMonitor:
     def _hist_counts(self, p: torch.Tensor) -> torch.Tensor:
         """the edge-histogram APD counts of ``p`` (..., n): ``hist`` where
         its kernels take the edges, the row length and the rows
-        (``hist_takes``, asked each call), ``hist_plain`` elsewhere; the
-        route taken is kept in ``routes['apd']``."""
+        (``hist_takes``, asked each call: every shape with an edge),
+        ``hist_plain`` elsewhere; the route taken is kept in
+        ``routes['apd']``."""
         n_edges, n = self.apd_edges.shape[0], p.shape[-1]
         rows = p.numel() // n if n else 0
         if hist_takes(n_edges, n, self._smem, rows):
@@ -464,12 +467,25 @@ class WidebandMonitor:
 
     def _step_ola(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """the OLA stage of ``step``: complex ``x`` (..., N), the capture end
-        zero-extended and the last frame's tail dropped. Beyond 2:1 the frame
-        kernels read the storage tier's planes; the 2:1 ``fused_ola`` reads
-        their values as complex64."""
+        zero-extended and the last frame's tail dropped. The kernels read
+        the storage tier's planes: beyond 2:1 the frame kernels, at 2:1
+        ``fused_ola_strided`` at the 'bf16' and 'i16' tiers (no tail; the
+        samples past the last whole hop, zero-extended, as its halo), and
+        ``fused_ola`` the complex64 samples of the float32 tiers."""
         src = self._stored(x)
+        if self._strided and plain:
+            return fused_ola_plain(dequantize(src), **self.ola_kwargs)
+        if self._strided and src.is_complex():
+            return fused_ola(src, **self.ola_kwargs)
         if self._strided:
-            return (fused_ola_plain if plain else fused_ola)(dequantize(src), **self.ola_kwargs)
+            n_frames = src.shape[-1] // self.hop_in
+            body, rest = src[..., : n_frames * self.hop_in], src[..., n_frames * self.hop_in:]
+            halo = None
+            if rest.shape[-1]:
+                halo = torch.nn.functional.pad(rest, (0, self.hop_in - rest.shape[-1]))
+            y, _ = fused_ola_strided(body.contiguous(), halo, n_frames=n_frames, tail=False,
+                                     **self.strided_kwargs)
+            return y
         return ola_grouped(src, frames_fn=fused_ola_frames_plain if plain else self._frames,
                            **self.ola_kwargs)
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -38,6 +39,8 @@ __all__ = [
     'digit_reversal',
     'fft_plan',
     'plan_code',
+    'radix_plan_arg',
+    'split_radices',
     'library',
     'log2_exact',
     'prepare',
@@ -55,9 +58,10 @@ CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
     'common.cu', 'fused_ola.cu', 'fused_ola_f32.cu', 'fused_ola_i16.cu', 'fused_ola_bf16.cu',
     'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu', 'spectrogram.cu',
-    'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu',
+    'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu',
 )
-HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh', 'ola_frames.cuh')
+HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh', 'ola_frames.cuh',
+           'split_radix.cuh')
 
 # no --use_fast_math: the kernels are held to 1e-5 relative RMS against
 # full-precision float32, with accurate logf and division
@@ -85,7 +89,8 @@ SIGNATURES = {
     'iqt_fused_ola_frames_cluster': ([_P, _I, _L, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
     'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _I, _P], _I),
     'iqt_ola_split_prepare': ([_I], _I),
-    'iqt_ola_split': ([_P, _I, _L, _L, _L] + [_P] * 10 + [_I] * 15 + [_P], _I),
+    'iqt_ola_split': ([_P, _I, _L, _L, _L] + [_P] * 10 + [_I] * 6 + [_P, _I, _I, _P] + [_I] * 3
+                      + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),
@@ -96,9 +101,12 @@ SIGNATURES = {
     'iqt_chan_cluster_prepare': ([_I], _I),
     'iqt_chan_cluster_occupancy': ([_I, _P], _I),
     'iqt_chan_stats_cluster': ([_P] * 9 + [_I] * 11 + [_P], _I),
+    'iqt_chan_split_prepare': ([_I], _I),
+    'iqt_chan_split_occupancy': ([_I, _P], _I),
+    'iqt_chan_stats_split': ([_P] * 12 + [_I] * 13 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
-    'iqt_hist': ([_P] * 3 + [_I] * 4 + [_P], _I),
-    'iqt_hist_bucket': ([_P] * 3 + [_I] * 4 + [_P], _I),
+    'iqt_hist': ([_P] * 3 + [_I, _L] + [_I] * 3 + [_P], _I),
+    'iqt_hist_bucket': ([_P] * 3 + [_I, _L] + [_I] * 4 + [_P], _I),
     'iqt_spectrogram_prepare': ([_I], _I),
     'iqt_spectrogram': ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
     'iqt_spectrogram_levels_reg': ([_P] * 10 + [_I] * 9 + [_F] * 2 + [_P], _I),
@@ -313,6 +321,34 @@ def fft_plan(n: int) -> tuple:
     if rest != 1 or n < 1:
         raise ValueError(f'{n} is not of the form 2^a 3^b 5^c 7^d')
     return tuple(radices)
+
+
+def split_radices(c: int) -> tuple:
+    """the radices of a split route's radix-C step (csrc/split_radix.cuh
+    RadixPlan): :func:`fft_plan` of C's part of the form 2^a 3^b 5^c 7^d,
+    then its prime factors above 7 in ascending order, each a pass of the
+    generic prime radix. Empty for C = 1."""
+    if c < 1:
+        raise ValueError(f'a radix step takes C >= 1 parts, not {c}')
+    rest = c
+    for r in (2, 3, 5, 7):
+        while rest % r == 0:
+            rest //= r
+    primes, q = [], 11
+    while rest > 1:
+        while rest % q == 0:
+            primes.append(q)
+            rest //= q
+        q += 2
+    return fft_plan(c // math.prod(primes)) + tuple(primes)
+
+
+def radix_plan_arg(c: int):
+    """C's :func:`split_radices` as the C entries of the split routes take
+    them: a host int array of the stage count, then the radices (hold it
+    until the call returns; pass ``ctypes.addressof``)."""
+    radices = split_radices(c)
+    return (ctypes.c_int * (1 + len(radices)))(len(radices), *radices)
 
 
 def plan_code(n: int) -> tuple:

@@ -1,5 +1,5 @@
-"""One-pass channelizer statistics: the CUDA kernel and its plain PyTorch
-version.
+"""One-pass channelizer statistics: the CUDA kernels and their plain
+PyTorch version.
 
 Replaces the TPU kernels ``chan_stats_packed_pallas`` and
 ``chan_stats_pallas`` (iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301
@@ -7,19 +7,18 @@ and :248, through ``_chan_call``): per channelizer frame the windowed FFT,
 the spectrogram's running sum of logs and max, the per-channel power and
 the detector-binned power, in one read of the resampled stream
 (``csrc/chan_stats.cu``). What bounds it on the card and what its design
-does about that are set out at the head of the CUDA source.
+does about that are set out at the head of each CUDA source.
 
 With ``emit_psd=False, emit_pbin=False`` (the arguments of
 ``chan_stats_pallas``, chan_stats_pallas.py:259-260) only the channel power
 is computed: the channel-only mode that ``channelize_power`` takes
 (iqwaveform_tpu/ops/spectral.py:708-801).
 
-The CUDA kernels take the frame sizes of :data:`CHAN_SIZES` (every
-``nfft_big = 2^a 3^b 5^c`` up to 65536 with 2^a >= 1024 and b, c <= 1:
-the products of the usual channel counts and channel FFT sizes that the
-JAX kernel takes, multiples of 1024) at navg 1-128, and the
-powers of two 64-512 (:func:`covers`); :func:`chan_route` picks, before
-the launch:
+The CUDA kernels take every frame size the JAX kernel takes
+(``chan_stats_supported``: ``nfft_big`` a multiple of 1024) at navg 1-128,
+up to 2^21 points and above wherever a part size of :func:`split_shape`
+divides, and the powers of two 64-512 (:func:`covers`); :func:`chan_route`
+picks, before the launch:
 
 * ``'reg'``: the channel-only mode at the one-block sizes
   (:data:`ONE_BLOCK_SIZES`, 1024-16384 points), ``chan_power_reg_kernel``;
@@ -27,15 +26,23 @@ the launch:
   ``chan_stats_reg_kernel``;
 * ``'mixed'``: every other mode at the one-block sizes but 15360
   (:data:`MIXED_SIZES`), ``chan_stats_mixed_kernel`` (``csrc/chan_mixed.cu``);
-* ``'cluster'``: frames above 16384 points, and 15360 in its statistics
-  modes (:data:`CLUSTER_SIZES`), each on a thread-block cluster of C
-  blocks, ``chan_stats_cluster_kernel`` (``csrc/chan_cluster.cu``);
+* ``'cluster'``: frames above 16384 points of :data:`CLUSTER_SIZES` (2^a
+  3^b 5^c up to 65536 with b, c <= 1), and 15360 in its statistics modes,
+  each on a thread-block cluster of C blocks, ``chan_stats_cluster_kernel``
+  (``csrc/chan_cluster.cu``);
+* ``'split'``: every other multiple of 1024 (36864 = 48 x 768, 11264 = 22 x
+  512, 81920, 131072, ...), a frame of N = C M points split into C parts
+  of M through device memory (:func:`split_shape`): the radix-C step of
+  ``csrc/split_radix.cuh`` (any prime factor), the M-point passes of each
+  part with its statistics, and fixed-order folds (``csrc/chan_split.cu``);
 * ``'generic'``: the radix-2 ``chan_stats_kernel`` at the powers of two
   64-512, and at powers of two up to 16384 binned by navg above 128.
 
 All but the radix-2 kernel run on the register-resident passes of
-``csrc/fft_reg.cuh``. Any other size raises ``NotImplementedError``
-(ROADMAP Queue 2 item 2).
+``csrc/fft_reg.cuh``. Any other size or navg raises
+``NotImplementedError``: navg above 128 at a size no power of two (the JAX
+kernel takes navg dividing 128 alone) and sizes above the split route's
+limit (ROADMAP Queue 2 item 2).
 
 The plain version is the XLA formulation of the monitor
 (iqwaveform_tpu/models/monitor.py:703-719) on ``torch.fft``, returning the
@@ -59,7 +66,7 @@ from . import _build
 from .fused_ola import _reg_pass_tables, reg_forward_twiddles
 
 __all__ = ['CHAN_SIZES', 'chan_route', 'chan_stats', 'chan_stats_plain', 'cluster_tables',
-           'covers']
+           'covers', 'split_shape', 'split_tables']
 
 _EPS = 1e-25
 MAX_CUDA_FFT = 16384
@@ -89,10 +96,15 @@ CLUSTER_SIZES = {
     15360: 5, 20480: 5, 24576: 3, 30720: 5, 32768: 2, 40960: 5, 49152: 3, 61440: 5, 65536: 4,
 }
 CHAN_SIZES = frozenset(ONE_BLOCK_SIZES) | frozenset(CLUSTER_SIZES)
-# the binnings of the mixed and cluster kernels (the JAX kernel's: navg
-# divides 128), and the powers of two only the radix-2 kernel takes
+# the binnings of the mixed, cluster and split kernels (the JAX kernel's:
+# navg divides 128), and the powers of two only the radix-2 kernel takes
 NAVG = (1, 2, 4, 8, 16, 32, 64, 128)
 RADIX2_SIZES = (64, 128, 256, 512)
+# the split route (csrc/chan_split.cu): its part sizes (the passes
+# instances, those of the mixed kernel: 15360 spills under the frame loop)
+# and its largest radix step (csrc/split_radix.cuh kMaxC)
+SPLIT_PARTS = MIXED_SIZES
+SPLIT_MAX_C = 2048
 
 
 def chan_stats_plain(
@@ -128,11 +140,26 @@ def chan_stats_plain(
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def split_shape(nfft_big: int):
+    """(C, M) of the split route at ``nfft_big`` points: the largest M of
+    :data:`SPLIT_PARTS` with nfft_big = C M and C at most
+    :data:`SPLIT_MAX_C`, of any prime factors; None where there is none
+    (no multiple of 1024, or above 2^21 points where no larger M divides
+    with C <= 2048)."""
+    for m in sorted(SPLIT_PARTS, reverse=True):
+        c, rest = divmod(nfft_big, m)
+        if rest == 0 and 1 <= c <= SPLIT_MAX_C:
+            return c, m
+    return None
+
+
 def covers(nfft_big: int, navg: int = 1) -> bool:
     """whether the CUDA kernels take frames of ``nfft_big`` points binned
-    by ``navg``: a size of :data:`CHAN_SIZES` with navg in :data:`NAVG`, or
-    a power of two in [64, MAX_CUDA_FFT] that navg divides."""
-    if nfft_big in CHAN_SIZES and navg in NAVG:
+    by ``navg``: a size of :data:`CHAN_SIZES` or of the split route
+    (:func:`split_shape`) with navg in :data:`NAVG`, or a power of two in
+    [64, MAX_CUDA_FFT] that navg divides."""
+    if (nfft_big in CHAN_SIZES or split_shape(nfft_big) is not None) and navg in NAVG:
         return True
     return 64 <= nfft_big <= MAX_CUDA_FFT and _build.log2_exact(nfft_big) > 0 and nfft_big % navg == 0
 
@@ -146,9 +173,10 @@ def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True,
     (``chan_stats_reg_kernel``); ``'mixed'`` (``chan_stats_mixed_kernel``)
     in every other mode at :data:`MIXED_SIZES`; ``'cluster'``
     (``chan_stats_cluster_kernel``) at :data:`CLUSTER_SIZES` (15360 in its
-    statistics modes among them); ``'generic'`` (``chan_stats_kernel``) at
-    the powers of two 64-512, and where the binned power is on at a navg
-    outside :data:`NAVG`."""
+    statistics modes among them); ``'split'`` (``csrc/chan_split.cu``) at
+    every other size of :func:`split_shape`; ``'generic'``
+    (``chan_stats_kernel``) at the powers of two 64-512, and where the
+    binned power is on at a navg outside :data:`NAVG`."""
     if nfft_big in RADIX2_SIZES or (emit_pbin and navg not in NAVG):
         return 'generic'
     if not emit_psd and not emit_pbin and nfft_big in ONE_BLOCK_SIZES:
@@ -157,7 +185,9 @@ def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True,
         return 'reg'
     if nfft_big in MIXED_SIZES:
         return 'mixed'
-    return 'cluster' if nfft_big in CLUSTER_SIZES else 'generic'
+    if nfft_big in CLUSTER_SIZES:
+        return 'cluster'
+    return 'split' if split_shape(nfft_big) is not None else 'generic'
 
 
 def _wave_grid(n_frames: int, batch: int, slots: int) -> tuple:
@@ -193,6 +223,36 @@ def cluster_tables(nfft_big: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
+def split_tables(nfft_big: int) -> tuple:
+    """the split route's table for a size of :func:`split_shape`, in
+    float64, and the offset of each part, in the order csrc/chan_split.cu
+    iqt_chan_stats_split reads them ((C, M) = split_shape(nfft_big)):
+
+    * ``'passes'``: the register-resident tables of the M-point forward
+      transform (ops/kernels/fused_ola.py _reg_pass_tables), which each
+      passes block copies into its shared memory;
+    * ``'cross'``: row r < C of M factors exp(-2 pi i r n / nfft_big), the
+      twiddles of the radix-C step's output r (row 0 is ones);
+    * ``'dft'``: exp(-2 pi i j / C), j < C, the radix step's own table."""
+    c, m = split_shape(nfft_big)
+    parts = {
+        'passes': _reg_pass_tables(m, False),
+        'cross': np.exp(-2j * np.pi * np.outer(np.arange(c), np.arange(m)) / nfft_big).ravel(),
+        'dft': np.exp(-2j * np.pi * np.arange(c) / c),
+    }
+    offsets = dict(zip(parts, np.cumsum([0] + [p.size for p in parts.values()])[:-1].tolist()))
+    return np.concatenate(list(parts.values())), offsets
+
+
+@functools.lru_cache(maxsize=None)
+def _split_twiddles(nfft_big: int, device: torch.device) -> torch.Tensor:
+    """:func:`split_tables` rounded once to complex64, on ``device`` (read
+    only)."""
+    table, _ = split_tables(nfft_big)
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def _cluster_twiddles(nfft_big: int, device: torch.device) -> torch.Tensor:
     """:func:`cluster_tables` rounded once to complex64, on ``device``
     (read only)."""
@@ -202,11 +262,13 @@ def _cluster_twiddles(nfft_big: int, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _occupancy(route: str, nfft_big: int, device: torch.device) -> int:
-    """the blocks of the mixed kernel one SM holds, or the clusters of the
+    """the blocks of the mixed kernel (or of the split route's M-point
+    passes kernel, ``nfft_big`` = M) one SM holds, or the clusters of the
     cluster kernel the card holds, at ``nfft_big`` (asked once per size
     and device); raises where it is none: there is no other route on the
     card."""
-    entry = {'mixed': 'iqt_chan_mixed', 'cluster': 'iqt_chan_cluster'}[route]
+    entry = {'mixed': 'iqt_chan_mixed', 'cluster': 'iqt_chan_cluster',
+             'split': 'iqt_chan_split'}[route]
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         _build.prepare(entry + '_prepare', device)
@@ -295,14 +357,15 @@ def _launch(
     emit_psd: bool = True,
     emit_pbin: bool = True,
 ) -> dict:
-    """launch ``route``'s kernel ('reg', 'mixed', 'cluster' or 'generic')
-    on CUDA ``y``; counts the launch in ``chan_stats.launches`` and
+    """launch ``route``'s kernel ('reg', 'mixed', 'cluster', 'split' or
+    'generic') on CUDA ``y``; counts the launch in ``chan_stats.launches`` and
     ``chan_stats.route_launches[route]``."""
     log2n = _build.log2_exact(nfft_big)
     if not covers(nfft_big, navg):
         raise NotImplementedError(
-            'the CUDA channelizer-statistics kernels take nfft_big = 2^a 3^b 5^c up to '
-            '65536 with 2^a >= 1024 and b, c <= 1 at navg 1-128, and powers of two in '
+            'the CUDA channelizer-statistics kernels take nfft_big a multiple of 1024 '
+            f'that splits into C M with M in {sorted(SPLIT_PARTS)} and C <= {SPLIT_MAX_C} '
+            '(every multiple up to 2^21) at navg 1-128, and powers of two in '
             f'[64, {MAX_CUDA_FFT}] that navg divides; got nfft_big={nfft_big}, '
             f'navg={navg} (ROADMAP Queue 2 item 2)'
         )
@@ -334,6 +397,11 @@ def _launch(
             tw.numel(), batch, row_len, n_frames, nfft_big, channel_count, abins,
             skip_bins // 2, _build.stream_of(y),
         )
+    elif route == 'split':
+        err = _launch_split(y, out, batch=batch, row_len=row_len, n_frames=n_frames,
+                            nfft_big=nfft_big, window=window, navg=navg,
+                            channel_count=channel_count, abins=abins, skip_half=skip_bins // 2,
+                            emit_psd=emit_psd, emit_pbin=emit_pbin)
     elif route != 'generic':
         # the statistics kernels: the flagship's (route 'reg' with both
         # outputs on), the mixed-size one, the cluster one; one C signature
@@ -403,8 +471,47 @@ def _launch(
     return {key: v.reshape(*lead, *shapes[key]) for key, v in out.items()}
 
 
+def _launch_split(y, out: dict, *, batch, row_len, n_frames, nfft_big, window, navg,
+                  channel_count, abins, skip_half, emit_psd, emit_pbin) -> int:
+    """the split route's launches (csrc/chan_split.cu) on CUDA ``y``,
+    filling ``out`` (its 'channel_power' given) with the outputs of the
+    mode; returns the C entry's error code. Scratch from the caching allocator:
+    the parts (batch * frames * nfft_big complex64, the frames' size), the
+    channel partials (C floats a channel and frame) and the statistics'
+    partial rows."""
+    dev = y.device
+    c, m = split_shape(nfft_big)
+    _build.prepare('iqt_chan_split_prepare', dev)
+    slots = max(1, _occupancy('split', m, dev) * _build.sm_count(dev) // c)
+    frames_per_run, n_runs = _wave_grid(n_frames, batch, slots)
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty((2, batch, n_runs, nfft_big), **f32) if emit_psd else None
+    if emit_psd:
+        for key in ('psd_log_sum', 'psd_max'):
+            out[key] = torch.empty((batch, nfft_big), **f32)
+    if emit_pbin:
+        out['p_binned'] = torch.empty((batch, n_frames * nfft_big // navg), **f32)
+    a = torch.empty((batch, n_frames, nfft_big), dtype=torch.complex64, device=dev)
+    cpart = torch.empty((batch, n_frames, c, channel_count), **f32)
+    tw = _split_twiddles(nfft_big, dev)
+    plan = _build.radix_plan_arg(c)
+
+    def ptr(key):
+        return out[key].data_ptr() if key in out else None
+
+    return _build.library().iqt_chan_stats_split(
+        y.data_ptr(), window.data_ptr(), tw.data_ptr(),
+        part[0].data_ptr() if emit_psd else None, part[1].data_ptr() if emit_psd else None,
+        ptr('psd_log_sum'), ptr('psd_max'), out['channel_power'].data_ptr(), ptr('p_binned'),
+        a.data_ptr(), cpart.data_ptr(), ctypes.addressof(plan), tw.numel(), batch, row_len,
+        n_frames, nfft_big, navg, channel_count, abins, skip_half, frames_per_run, n_runs, c, m,
+        _build.stream_of(y),
+    )
+
+
 chan_stats.launches = 0
-# launches by kernel: 'reg' (chan_power_reg_kernel or
+# launches by route: 'reg' (chan_power_reg_kernel or
 # chan_stats_reg_kernel), 'mixed' (chan_stats_mixed_kernel), 'cluster'
-# (chan_stats_cluster_kernel), 'generic' (chan_stats_kernel)
-chan_stats.route_launches = {'reg': 0, 'mixed': 0, 'cluster': 0, 'generic': 0}
+# (chan_stats_cluster_kernel), 'split' (the kernels of csrc/chan_split.cu,
+# one count a call), 'generic' (chan_stats_kernel)
+chan_stats.route_launches = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split': 0, 'generic': 0}

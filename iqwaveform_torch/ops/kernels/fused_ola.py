@@ -29,9 +29,10 @@ Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
   24576-98304 points) ``fused_ola_frames_cluster_kernel``, each frame
   split over a thread-block cluster of C blocks (``csrc/fft_cluster.cuh``);
   at every other pair whose larger frame one block cannot hold, where both
-  sizes split into C M with M a size of :data:`REG_PLANS` and C <= 64 of
-  the factors 2, 3, 5 and 7 (:func:`split_shape`), the split route of
-  ``csrc/ola_split.cu``: a radix-C step, the M-point passes and the
+  sizes split into C M with M a size of :data:`REG_PLANS` and C <= 64
+  (:func:`split_shape`), the split route of ``csrc/ola_split.cu``: a
+  radix-C step (``csrc/split_radix.cuh``, prime factors above 7 through
+  its generic pass), the M-point passes and the
   inverse's through device memory, four launches (three where the output
   is one part); at every other size the generic mixed-radix
   ``fused_ola_frames_kernel`` (:func:`frames_route` picks by size, before
@@ -152,8 +153,10 @@ CLUSTER_PAIRS = {
 # and hamming at 122.88 -> 61.44 and 122.88 -> 30.72 MS/s with
 # min_fft_size=4095
 OLA_REG_PAIRS = ((16384, 8192), (8192, 4096), (16384, 4096))
-# the split route's largest radix step (csrc/ola_split.cu kMaxC): the
-# 122.88 MS/s grid needs 40 (655360 = 40 x 16384)
+# the frame route's largest radix step: the 122.88 MS/s grid needs 40
+# (655360 = 40 x 16384). csrc/split_radix.cuh runs up to kMaxC = 2048
+# parts (the channelizer's split route takes them); frames of more than 64
+# parts are left to a later change (ROADMAP Queue 2 item 1)
 SPLIT_MAX_C = 64
 # the split route's inverse part sizes: REG_PLANS but 15360, whose inverse
 # passes kernel spilled (a 15360-point output part splits as 3 x 5120)
@@ -261,13 +264,13 @@ def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
 def split_shape(n: int, inverse: bool = False):
     """(C, M) of an ``n``-point transform on the split route: the largest M
     of :data:`REG_PLANS` (:data:`SPLIT_INV_PLANS` for the ``inverse``)
-    with n = C M, C at most :data:`SPLIT_MAX_C` and of the factors 2, 3, 5
-    and 7 (C = 1 where n is itself such a size); None where there is none
-    (another prime factor, fewer than 2^10 in n, or C above
-    SPLIT_MAX_C)."""
+    with n = C M and C at most :data:`SPLIT_MAX_C`, of any prime factors
+    (C = 1 where n is itself such a size; csrc/split_radix.cuh takes a
+    prime above 7 through its generic pass); None where there is none
+    (fewer than 2^10 in n, or C above SPLIT_MAX_C)."""
     for m in sorted(SPLIT_INV_PLANS if inverse else REG_PLANS, reverse=True):
         c, rest = divmod(n, m)
-        if rest == 0 and 1 <= c <= SPLIT_MAX_C and _smooth(c):
+        if rest == 0 and 1 <= c <= SPLIT_MAX_C:
             return c, m
     return None
 
@@ -532,7 +535,7 @@ def _launch_frames(
             'bytes, 8 a point), split over a cluster of blocks the pairs '
             f'{sorted(CLUSTER_PAIRS)}, and above one block sizes C M with M '
             f'in {sorted(REG_PLANS)} (of the output, in {sorted(SPLIT_INV_PLANS)}) '
-            f'and C <= {SPLIT_MAX_C} of the factors 2, 3, 5 and 7; got '
+            f'and C <= {SPLIT_MAX_C}; got '
             f'nfft={nfft}, nfft_out={nfft_out} (ROADMAP Queue 2 item 1)'
         )
     if frames.dtype not in LAYOUTS:
@@ -626,12 +629,13 @@ def _launch_split(f3, layout, strides, y, w_in, *, w_out, nfft, nfft_out, zero_l
     lo = max(zero_lo, in_lo)
     hi = min(zero_hi, in_lo + out_hi - out_lo)
     a = torch.empty((*y.shape[:2], nfft), dtype=torch.complex64, device=dev)
+    plan1, plan2 = _build.radix_plan_arg(c1), _build.radix_plan_arg(c2)
     return _build.library().iqt_ola_split(
         f3.data_ptr(), layout, *strides, w_in.data_ptr(), w_out.data_ptr(),
         at['fwd_passes'], at['inv_passes'], at['fwd_cross'], at['inv_cross'], at['fwd_dft'],
         at['inv_dft'], a.data_ptr(), y.data_ptr(), off['inv_passes'],
         off['fwd_cross'] - off['inv_passes'], y.shape[0], y.shape[1], c1, m1,
-        *_build.plan_code(c1), c2, m2, *_build.plan_code(c2), lo, hi, out_lo - in_lo,
+        ctypes.addressof(plan1), c2, m2, ctypes.addressof(plan2), lo, hi, out_lo - in_lo,
         _build.stream_of(f3),
     )
 

@@ -613,7 +613,7 @@ def _sorted_edge_counts(a: torch.Tensor, edges) -> torch.Tensor:
 def _kernel_edges(a: torch.Tensor, edges):
     """the edges as float32 on ``a``'s device where the CUDA ``hist``
     kernel counts ``a`` (1-D float32 samples on the card, 1-D edges in
-    order, as many edges and samples as the kernel takes), else None."""
+    order: any number of edges and samples, ``hist_takes``), else None."""
     if a.device.type != 'cuda' or a.ndim != 1 or a.dtype != torch.float32:
         return None
     from .kernels import _build
@@ -639,7 +639,8 @@ def histogram_edge_counts(a, edges):
 
     numpy input: searchsorted + bincount (1-D). A 1-D float32 tensor on
     the card against 1-D edges in order: the CUDA ``hist`` kernel, where it
-    takes the edges and the sample count (``hist_takes``). Any other
+    takes the edges and the sample count (``hist_takes``: any number of
+    either). Any other
     tensor: sort + searchsorted of the edges into the sorted samples,
     batched over the leading axes. Tensor counts are int64; the edges
     compare in the samples' dtype.

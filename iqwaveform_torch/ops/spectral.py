@@ -43,9 +43,9 @@ route at every size.
 ``channelize_power`` (reference fourier.py:1330-1415) has two routes:
 
 * a 1-D complex input with a window spec, no overlap, an even trim, more
-  than one channel and a frame size the kernels take (``covers``: the
-  sizes of ``CHAN_SIZES``, 1024-65536 points of the form 2^a 3^b 5^c with
-  2^a >= 1024 and b, c <= 1, the JAX kernel's, and the powers of two
+  than one channel and a frame size the kernels take (``covers``: every
+  multiple of 1024 the JAX kernel takes, up to 2^21 points and above where
+  the split route's parts divide, 36864 among them, and the powers of two
   64-512) goes through the ``chan_stats`` kernels in their channel-only
   mode (ops.kernels.chan_stats, ``emit_psd=False, emit_pbin=False``; the
   JAX package's ``_channelize_power_pallas``, :708-801); on the CPU that

@@ -145,8 +145,9 @@ def _card_kernels(nfft: int, n_bins: int, device: torch.device) -> _Kernels:
 
 def _apd_counts(k: _Kernels, p: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """APD counts of the 1-D power ``p``: ``k.hist`` where the CUDA
-    histogram kernels take the edges and the sample count (or on the CPU),
-    the sort path (``hist_plain``) on the card elsewhere."""
+    histogram kernels take the edges and the sample count (every shape with
+    an edge, the slices route above one block's table; or on the CPU), the
+    sort path (``hist_plain``) on the card elsewhere."""
     if p.device.type == 'cuda' and not hist_takes(
         edges.shape[0], p.shape[-1], _build.smem_optin(p.device)
     ):
@@ -444,9 +445,8 @@ def apd_fold(
     workflow); the chunk length must then be a multiple of navg. ``edges``
     are the power edges (numpy or tensor); counts[b] = #{e[b-1] < p <=
     e[b]}. ``kernel`` ('auto', 'sort', 'pallas') is kept for code written
-    for the JAX package: the device and the shapes decide (the ``hist``
-    kernel on the card where it takes the edges and the sample count, the
-    sort path elsewhere and on the CPU).
+    for the JAX package: the device decides (the ``hist`` kernel on the
+    card, at any number of edges and samples; the sort path on the CPU).
     """
     if kernel not in _APD_KERNELS:
         raise ValueError(f'kernel must be one of {_APD_KERNELS}, not {kernel!r}')

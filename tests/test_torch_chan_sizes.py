@@ -38,6 +38,7 @@ from iqwaveform_torch.ops.kernels.chan_stats import (
     chan_route,
     cluster_tables,
     covers,
+    split_shape,
 )
 from iqwaveform_torch.ops.kernels.fused_ola import H100_SMEM_OPTIN, REG_PLANS
 from iqwaveform_tpu.ops.pallas.chan_stats_pallas import (
@@ -83,11 +84,15 @@ def test_chan_sizes_are_the_products_of_the_usual_counts_and_ffts():
 @pytest.mark.parametrize('n', sorted(smooth_sizes() | {64, 128, 256, 512, 7168, 28672, 1536, 131072,
                                                        98304, 3584, 48, 40}))
 def test_covers_exactly_chan_sizes_and_the_small_powers_of_two(n):
-    """covers is true at navg 1 on CHAN_SIZES and the powers of two 64-512
-    (and no other size: 7168, 28672, 1536, 131072, 98304, ... not), at
-    every navg of NAVG there; a navg outside 1-128 only at the powers of
-    two up to 16384 that it divides (the radix-2 kernel)."""
-    inside = n in CHAN_SIZES or n in RADIX2_SIZES
+    """covers is true at navg 1 on CHAN_SIZES, the powers of two 64-512 and
+    the split route's multiples of 1024 (7168, 28672, 131072, 98304 among
+    them; tests/test_torch_chan_split.py), and at no other size (1536,
+    3584, 48, 40 not), at every navg of NAVG there; a navg outside 1-128
+    only at the powers of two up to 16384 that it divides (the radix-2
+    kernel)."""
+    split = n not in CHAN_SIZES and split_shape(n) is not None
+    assert split == (n in (7168, 28672, 131072, 98304) or (n % 1024 == 0 and n not in CHAN_SIZES))
+    inside = n in CHAN_SIZES or n in RADIX2_SIZES or split
     assert covers(n) == inside
     for navg in NAVG:
         assert covers(n, navg) == (inside and n % navg == 0)
@@ -430,7 +435,7 @@ def test_cpu_tensors_take_the_plain_version_at_the_new_sizes():
     """on the CPU the wrapper runs the plain version at a mixed and a
     cluster size, and counts no launch."""
     before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
-    assert set(before[0]) == {'reg', 'mixed', 'cluster', 'generic'}
+    assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split', 'generic'}
     for n in (12288, 24576):
         y, w = _row(n, 2, 3)
         kw = dict(nfft_big=n, channel_count=48, window=torch.from_numpy(w).to(torch.complex64),

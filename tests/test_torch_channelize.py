@@ -180,15 +180,18 @@ def test_kernel_window_is_the_jax_window():
 
 
 def test_chan_stats_covers():
-    """the powers of two 64-16384 as before, and now the frame sizes above
-    16384 and the non-powers of two of CHAN_SIZES (test_torch_chan_sizes.py
-    holds the whole set); other sizes, and navg outside 1-128 there, not."""
+    """the powers of two 64-16384 as before, the frame sizes above 16384
+    and the non-powers of two of CHAN_SIZES (test_torch_chan_sizes.py holds
+    the whole set), and every other multiple of 1024 the split route takes
+    (7168, 28672, 8 x 16384; test_torch_chan_split.py); other sizes, and
+    navg outside 1-128 there, not."""
     from iqwaveform_torch.ops.kernels.chan_stats import MAX_CUDA_FFT, covers
 
     assert covers(64) and covers(MAX_CUDA_FFT) and covers(1024, navg=16)
     assert covers(2 * MAX_CUDA_FFT) and covers(12288) and covers(61440, navg=128)
-    assert not covers(32) and not covers(8 * MAX_CUDA_FFT) and not covers(1536)
-    assert not covers(7168) and not covers(28672) and not covers(32768, navg=256)
+    assert covers(8 * MAX_CUDA_FFT) and covers(7168) and covers(28672)
+    assert not covers(32) and not covers(1536) and not covers(1024 * 2053)
+    assert not covers(32768, navg=256) and not covers(7168, navg=256)
     assert not covers(1024, navg=3)
 
 

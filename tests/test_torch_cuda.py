@@ -137,8 +137,8 @@ def _reset_routes():
         k.route_launches.update(dict.fromkeys(k.route_launches, 0))
 
 
-def _chan_routes(reg=0, mixed=0, cluster=0, generic=0):
-    return {'reg': reg, 'mixed': mixed, 'cluster': cluster, 'generic': generic}
+def _chan_routes(reg=0, mixed=0, cluster=0, split=0, generic=0):
+    return {'reg': reg, 'mixed': mixed, 'cluster': cluster, 'split': split, 'generic': generic}
 
 
 def test_step_launches_each_kernel_and_matches_plain_step(monitor):
@@ -389,9 +389,9 @@ def test_hist_bucket_kernel_matches_plain(card, case):
     k = kernels.hist
     k.route_launches.update(bucket=0, generic=0)
     got = k(p, edges)
-    assert k.route_launches == {'bucket': 1, 'generic': 0}
+    assert k.route_launches == {'bucket': 1, 'generic': 0, 'slices': 0}
     old = _hist_generic(p, edges)
-    assert k.route_launches == {'bucket': 1, 'generic': 1}
+    assert k.route_launches == {'bucket': 1, 'generic': 1, 'slices': 0}
     assert got.shape == (*p.shape[:-1], edges.numel() + 1) and got.dtype == torch.int32
     assert torch.equal(got, kernels.hist_plain(p, edges))
     assert torch.equal(got, old)
@@ -408,7 +408,7 @@ def test_hist_above_the_bucket_kernel_takes_the_older_kernel(card):
     k = kernels.hist
     k.route_launches.update(bucket=0, generic=0)
     got = k(p, edges)
-    assert k.route_launches == {'bucket': 0, 'generic': 1}
+    assert k.route_launches == {'bucket': 0, 'generic': 1, 'slices': 0}
     assert torch.equal(got, kernels.hist_plain(p, edges))
 
 
@@ -732,17 +732,21 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
 
 def test_frames_above_shared_memory_raise(card):
     """frames above one block's shared memory that no cluster pair and no
-    split shape takes (a factor of 11: the blackman design at 135.168 ->
-    24.576 MS/s is 135168 -> 24576; 11 x 16384 -> 32768; a radix step above
-    64, 2^21 -> 16384) raise in the frame kernel's wrapper, naming ROADMAP
-    Queue 2 item 1; the monitor at such a design takes the plain frames on
-    the card (routes['ola'] 'plain', picked before any launch): it
-    constructs, its step launches no frame kernel and matches
-    reference_step; ola_filter takes its torch.fft stage chain there. The
-    factor-7 frames of 107.52 -> 15.36 MS/s (172032 -> 24576 among them),
-    which raised here before the split route's radix-7 step, step on the
-    split route (test_radix_7_monitor_takes_the_split_route)."""
-    for nfft, nfft_out in ((135168, 24576), (11 * 16384, 32768), (1 << 21, 16384)):
+    split shape takes (a radix step above 64 parts: the blackmanharris
+    design at 122.88 -> 3.84 MS/s is 1310720 -> 40960, 80 x 16384; 2^21 ->
+    16384; 67 x 16384 -> 16384; a size no multiple of 1024, 37000 -> 8192)
+    raise in the frame kernel's wrapper, naming ROADMAP Queue 2 item 1; the
+    monitor at such a design takes the plain frames on the card
+    (routes['ola'] 'plain', picked before any launch): it constructs, its
+    step launches no frame kernel and matches reference_step; ola_filter
+    takes its torch.fft stage chain there. The factor-7 frames of 107.52 ->
+    15.36 MS/s (172032 -> 24576 among them) and the factor-11 frames of
+    135.168 -> 24.576 MS/s (135168 -> 24576), which raised here before the
+    split route's radix-7 step and its prime pass, step on the split route
+    (test_radix_7_monitor_takes_the_split_route,
+    test_split_route_takes_prime_factors_above_7)."""
+    for nfft, nfft_out in ((1310720, 40960), (1 << 21, 16384), (67 * 16384, 16384),
+                           (37000, 8192)):
         assert frames_route(nfft, nfft_out) == 'generic'
         with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
             kernels.fused_ola_frames(
@@ -753,9 +757,9 @@ def test_frames_above_shared_memory_raise(card):
                 bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
                 bounds_out=(0, nfft_out),
             )
-    design = it.design_wideband_monitor(135.168e6, 24.576e6, bw=10e6, fs_sdr=135.168e6,
-                                        window='blackman')
-    assert (design.nfft, design.nfft_out) == (135168, 24576)
+    design = it.design_wideband_monitor(122.88e6, 3.84e6, bw=2e6, fs_sdr=122.88e6,
+                                        window='blackmanharris')
+    assert (design.nfft, design.nfft_out) == (1310720, 40960)
     mon = it.WidebandMonitor(design)
     assert mon.routes['ola'] == 'plain'
     x = _noise(2 * mon.min_input_multiple(), 13)
@@ -776,8 +780,8 @@ def test_frames_above_shared_memory_raise(card):
     assert int(a.sum()) == int(b.sum())
     assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
     _reset_frame_routes()
-    assert it.ola_filter(_noise(4 * 135168, 12), fs=135.168e6, nfft=135168, nfft_out=24576,
-                         window='blackman', passband=(-5e6, 5e6)).shape == (4 * 24576,)
+    assert it.ola_filter(_noise(4 * 1310720, 12), fs=122.88e6, nfft=1310720, nfft_out=40960,
+                         window='blackmanharris', passband=(-1e6, 1e6)).shape == (4 * 40960,)
     assert kernels.fused_ola_frames.route_launches == _frame_routes()
 
 
@@ -1327,17 +1331,21 @@ def test_chan_stats_cluster_channel_chunks(card):
     _check_chan(got, ref, kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw)))
 
 
-@pytest.mark.parametrize('kw,routes,quiet', [
+@pytest.mark.parametrize('kw,routes,stage,launched', [
     (dict(channel_count=48, fft_size_per_channel=768, apd_navg=1),
-     {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}, 'chan_stats'),
-    (dict(apd_bins=40000), {'ola': 'reg', 'chan': 'reg', 'apd': 'plain'}, 'hist'),
+     {'ola': 'reg', 'chan': 'split', 'apd': 'bucket'}, 'chan_stats', 1),
+    (dict(apd_bins=40000), {'ola': 'reg', 'chan': 'reg', 'apd': 'slices'}, 'hist', 1),
+    (dict(channel_count=48, apd_navg=256), {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'},
+     'chan_stats', 0),
 ])
-def test_monitor_routes_refused_shapes_to_plain(card, kw, routes, quiet):
-    """the monitor at a channelizer size outside CHAN_SIZES (48 x 768 =
-    36864, ROADMAP Queue 2 item 2) and at APD edges above hist's shared
-    memory (40,000, Queue 2 item 5): the plain version of that stage on the
-    card, picked by the kernel's predicate before any launch; the refused
-    kernel never launches; the step matches reference_step"""
+def test_monitor_routes_refused_shapes_to_plain(card, kw, routes, stage, launched):
+    """the monitor at the shapes the older kernels refused, a channelizer
+    size outside CHAN_SIZES (48 x 768 = 36864) and APD edges above one
+    block's table (40,000), now on the split route and the slices route,
+    whose kernel launches once; at a shape the JAX kernel refuses too (navg
+    256 at 12288 points, ROADMAP Queue 2 item 2) the plain version of that
+    stage on the card, picked by the kernel's predicate before any launch,
+    the refused kernel never launched; the step matches reference_step"""
     mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **{**FLAGSHIP, **kw}))
     x = _noise(4 * mon.min_input_multiple(), 14)
     for k in kernels.KERNELS:
@@ -1345,7 +1353,7 @@ def test_monitor_routes_refused_shapes_to_plain(card, kw, routes, quiet):
     out = mon.step(x)
     torch.cuda.synchronize()
     assert mon.routes == routes
-    assert getattr(kernels, quiet).launches == 0 and kernels.fused_ola.launches == 1
+    assert getattr(kernels, stage).launches == launched and kernels.fused_ola.launches == 1
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -1355,9 +1363,11 @@ def test_monitor_routes_refused_shapes_to_plain(card, kw, routes, quiet):
 
 
 def test_chan_stats_raises_outside_its_sizes(card):
-    """frames outside CHAN_SIZES and the powers of two 64-512 raise,
-    naming ROADMAP Queue 2 item 2; so does navg 256 at a cluster size."""
-    for nfft, navg in ((7168, 1), (28672, 1), (131072, 1), (32768, 256)):
+    """frames outside every route raise, naming ROADMAP Queue 2 item 2:
+    above the split route's limit (1024 x 2053: C would be 2053 parts), a
+    size no multiple of 1024 nor a small power of two (7000), and navg 256
+    at a cluster size and at a split size."""
+    for nfft, navg in ((1024 * 2053, 1), (7000, 1), (32768, 256), (36864, 256)):
         with pytest.raises(NotImplementedError, match='Queue 2 item 2'):
             kernels.chan_stats(_noise(2 * nfft, 56), **_chan_kwargs(nfft, 57, navg=navg))
 
@@ -1631,18 +1641,20 @@ def test_sample_ccdf_launches_the_histogram_kernel(card):
 
 
 def test_sample_ccdf_raises_above_the_kernels_edges(card):
-    """40,000 edges, above what the histogram kernels keep in shared
-    memory, no longer raise: the route takes the sort path before any
-    launch, with the CPU's counts."""
+    """40,000 edges, above what one block keeps in shared memory, neither
+    raise nor leave the kernel: the route launches the histogram's slices
+    once, with the CPU's counts; the wrapper raises only on edges it
+    cannot read (none)."""
     gen = torch.Generator(device='cuda').manual_seed(24)
     p = torch.rand(1 << 16, device='cuda', generator=gen)
     edges = np.linspace(0, 1, 40000).astype('float32')
     kernels.hist.launches = 0
+    kernels.hist.route_launches.update(bucket=0, generic=0, slices=0)
     got = it.sample_ccdf(p, edges, density=False)
-    assert kernels.hist.launches == 0
+    assert kernels.hist.launches == 1 and kernels.hist.route_launches['slices'] == 1
     assert torch.equal(got.cpu(), it.sample_ccdf(p.cpu(), edges, density=False, device='cpu'))
-    with pytest.raises(NotImplementedError, match='40000 edges'):
-        kernels.hist(p, torch.from_numpy(edges).cuda())
+    with pytest.raises(ValueError, match='non-empty'):
+        kernels.hist(p, torch.zeros(0, device='cuda'))
 
 
 def test_upfirdn_auto_beyond_the_kernel_s_taps_takes_the_plain_conv(card):
@@ -1707,3 +1719,172 @@ def test_psd_refinement_equals_the_sort_on_the_card(card, monkeypatch):
     monkeypatch.setattr(spectral, '_FOLD_CHUNK_SAMPLES', 1 << 22)  # 3 chunks and a tail
     refined = it.power_spectral_density(x, **kw)
     assert torch.equal(refined[1:], sort[1:])
+
+
+# ---- rows 4-6 at every shape the JAX kernels take: the channelizer's split
+# route (csrc/chan_split.cu), the edge histogram's slices and wide rows, the
+# frame route's prime radix steps, the 2:1 step at the storage tiers
+
+
+@pytest.mark.parametrize('nfft,channels', [(36864, 48), (11264, 22), (81920, 80), (131072, 128),
+                                           (13312, 13), (9216, 36)])
+@pytest.mark.parametrize('mode', [(True, True, 1), (True, True, 16), (True, True, 128),
+                                  (True, False, 1), (False, False, 1)])
+def test_chan_split_matches_plain_and_complex128(card, nfft, channels, mode):
+    """the split route at the sizes of this slice's designs (48 x 768, 22 x
+    512, 80 x 1024, 128 x 1024) and at 13 x 1024 and 9216 points, in every
+    mode and at navg 1, 16 and 128, on two rows of 5 frames and 77 samples
+    that join no frame: one launch of the route, each output within 1e-5 of
+    the plain version and the channel power's complex128 error at most
+    twice the plain version's (_check_chan)."""
+    emit_psd, emit_pbin, navg = mode
+    kw = dict(_chan_kwargs(nfft, 60, channels=channels, navg=navg, emit=(emit_psd, emit_pbin)),
+              skip_bins=0)
+    assert chan_route(nfft, emit_psd, emit_pbin, navg) == 'split'
+    y = _noise((2, 5 * nfft + 77), 61)
+    _reset_routes()
+    got = kernels.chan_stats(y, **kw)
+    torch.cuda.synchronize()
+    assert kernels.chan_stats.route_launches == _chan_routes(split=1)
+    ref = kernels.chan_stats_plain(y, **kw)
+    _check_chan(got, ref, kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw)))
+
+
+def test_chan_split_with_a_trim_and_many_frames(card):
+    """36864 points with a trim of 4096 bins (40 channels of 819.2: 32768
+    kept bins as 32 of 1024), 300 frames on one row (runs of several frames
+    a block): within the gates of _check_chan."""
+    kw = dict(nfft_big=36864, channel_count=32, window=_noise(36864, 62) / 36864, navg=16,
+              skip_bins=4096)
+    y = _noise(300 * 36864, 63)
+    got = kernels.chan_stats(y, **kw)
+    ref = kernels.chan_stats_plain(y, **kw)
+    _check_chan(got, ref, kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw)))
+
+
+def test_channelize_power_at_36864_takes_the_split_route(card):
+    """channelize_power at nperseg 36864 (48 channels of 768, BASELINE #4's
+    call at a size outside CHAN_SIZES): one launch of the split route,
+    within 1e-5 of the CPU port's result."""
+    x = _noise(64 * 36864, 64)
+    kw = dict(fft_size_per_channel=768, analysis_bins_per_channel=576, window='hamming',
+              channel_count=48)
+    _reset_routes()
+    _, _, got = it.channelize_power(x, 1 / 122.88e6, **kw)
+    torch.cuda.synchronize()
+    assert kernels.chan_stats.route_launches == _chan_routes(split=1)
+    _, _, ref = it.channelize_power(x.cpu(), 1 / 122.88e6, device='cpu', **kw)
+    assert rel_rms(got.cpu(), ref) <= 1e-5
+
+
+@pytest.mark.parametrize('n_edges,route', [(40000, 'slices'), (100000, 'slices'),
+                                           (27000, 'generic'), (26999, 'bucket')])
+def test_hist_at_any_edge_count_is_exact(card, n_edges, route):
+    """the histogram above one block's table (the slices) and at the
+    boundaries of the other routes, on 2^22 samples with values on edges
+    and at the slices' boundaries, NaN and +-inf, and on a batch of 3 rows:
+    equal to the plain version."""
+    from iqwaveform_torch.ops.kernels.hist import slice_edges
+
+    gen = torch.Generator(device='cuda').manual_seed(n_edges)
+    edges = torch.sort(torch.randn(n_edges, device='cuda', generator=gen) * 3).values
+    p = torch.randn(3, 1 << 22, device='cuda', generator=gen) * 3
+    flat = p.view(-1)
+    flat[::7] = edges[torch.randint(0, n_edges, flat[::7].shape, device='cuda', generator=gen)]
+    cut = slice_edges(n_edges, _build.smem_optin(card))
+    flat[5::97] = edges[min(cut, n_edges) - 1]
+    flat[1::101] = float('nan')
+    flat[2::103] = float('inf')
+    flat[3::107] = -float('inf')
+    for rows in (p[0], p):
+        kernels.hist.route_launches.update(bucket=0, generic=0, slices=0)
+        got = kernels.hist(rows.contiguous(), edges)
+        assert kernels.hist.route_launches[route] == 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, kernels.hist_plain(rows.contiguous(), edges))
+
+
+def test_hist_on_a_batch_of_2_16_rows(card):
+    """70,000 rows of 100 samples (more than the grid's 65,535 rows at
+    once) against 513 edges and against 40,000: equal to the plain
+    version row by row."""
+    gen = torch.Generator(device='cuda').manual_seed(65)
+    p = torch.randn(70000, 100, device='cuda', generator=gen).exp()
+    for n_edges in (513, 40000):
+        edges = torch.logspace(-2, 1, n_edges, device='cuda')
+        got = kernels.hist(p, edges)
+        ref = torch.cat([kernels.hist_plain(p[i:i + 10000], edges) for i in range(0, 70000, 10000)])
+        assert torch.equal(got, ref)
+
+
+def test_hist_on_a_row_of_2_31_samples_counts_in_int64(card):
+    """one row of 2^31 float32 samples (8 GiB) against 513 and 40,000
+    edges: int64 counts, equal to the sum of the plain version's over
+    pieces of 2^27, summing to 2^31."""
+    n = 1 << 31
+    gen = torch.Generator(device='cuda').manual_seed(66)
+    p = torch.empty(n, device='cuda')
+    for i in range(0, n, 1 << 28):
+        p[i:i + (1 << 28)] = torch.randn(1 << 28, device='cuda', generator=gen).exp_()
+    for n_edges in (513, 40000):
+        edges = torch.logspace(-3, 1, n_edges, device='cuda')
+        got = kernels.hist(p, edges)
+        assert got.dtype == torch.int64 and int(got.sum()) == n
+        ref = sum(kernels.hist_plain(p[i:i + (1 << 27)], edges).long()
+                  for i in range(0, n, 1 << 27))
+        assert torch.equal(got, ref)
+    del p
+    torch.cuda.empty_cache()
+
+
+def test_split_route_takes_prime_factors_above_7(card):
+    """frames of 11 x 12288 (the blackman design at 135.168 -> 24.576 MS/s)
+    and 11 x 16384 -> 32768 on the split route, its radix-11 step through
+    the prime pass: within 1e-5 of the plain chain; the monitor at that
+    design routes its OLA 'split' and its step launches the route once,
+    within phase 3's gates of reference_step."""
+    for nfft, nfft_out in ((135168, 24576), (11 * 16384, 32768)):
+        assert frames_route(nfft, nfft_out) == 'split'
+        frames = _noise((3, nfft), 67)
+        kw = dict(w_in=_noise(nfft, 68), w_shift_out=_noise(nfft_out, 69), nfft=nfft,
+                  nfft_out=nfft_out, zero_lo=100, zero_hi=nfft - 300,
+                  bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
+                  bounds_out=(0, nfft_out))
+        _reset_frame_routes()
+        got = kernels.fused_ola_frames(frames, **kw)
+        assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+        assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
+    design = it.design_wideband_monitor(135.168e6, 24.576e6, bw=10e6, fs_sdr=135.168e6,
+                                        window='blackman')
+    mon = it.WidebandMonitor(design)
+    assert mon.routes['ola'] == 'split'
+    x = _noise(2 * mon.min_input_multiple(), 70)
+    _reset_frame_routes()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+
+
+@pytest.mark.parametrize('tier', ['i16', 'bf16'])
+def test_flagship_step_at_a_storage_tier_reads_its_planes(card, tier):
+    """the flagship's 2:1 step at 'i16' and 'bf16': one launch of
+    fused_ola_strided on the tier's planes (its int16 / bfloat16 layout),
+    none of fused_ola; the step within phase 3's gates of reference_step."""
+    mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **{
+        **FLAGSHIP, 'fft_precision': tier}))
+    x = _noise(4 * mon.min_input_multiple(), 71) * 1000
+    for k in kernels.KERNELS:
+        k.launches = 0
+    kernels.fused_ola_strided.layout_launches.update(
+        dict.fromkeys(kernels.fused_ola_strided.layout_launches, 0))
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_strided.launches == 1 and kernels.fused_ola.launches == 0
+    layout = {'i16': 'int16', 'bf16': 'bfloat16'}[tier]
+    assert kernels.fused_ola_strided.layout_launches[layout] == 1
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key

@@ -156,18 +156,21 @@ def _routes(rates, **kw):
     ('cluster', {'ola': 'cluster', 'chan': 'reg', 'apd': 'bucket'}),
     ('frames196608', {'ola': 'split', 'chan': 'reg', 'apd': 'bucket'}),
     ('frames172032', {'ola': 'split', 'chan': 'reg', 'apd': 'bucket'}),
-    ('frames135168', {'ola': 'plain', 'chan': 'reg', 'apd': 'bucket'}),
-    ('chan36864', {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}),
+    ('frames135168', {'ola': 'split', 'chan': 'reg', 'apd': 'bucket'}),
+    ('chan36864', {'ola': 'reg', 'chan': 'split', 'apd': 'bucket'}),
     ('navg256', {'ola': 'reg', 'chan': 'plain', 'apd': 'bucket'}),
-    ('edges40000', {'ola': 'reg', 'chan': 'reg', 'apd': 'plain'}),
+    ('edges40000', {'ola': 'reg', 'chan': 'reg', 'apd': 'slices'}),
     ('packed40000', {'ola': 'reg', 'chan': 'reg', 'apd': 'generic'}),
 ])
 def test_monitor_routes_by_shape(case, expect):
     """each stage's route, picked in the constructor by the kernels'
     predicates (the card's shared memory on the CPU): the plain version
-    where no CUDA kernel takes the design's shapes (a factor of 11 in the
-    frames); the 172032-point frames (7 x 24576), plain until the split
-    route's radix-7 step, on the split route"""
+    where no CUDA kernel takes the design's shapes (navg 256 at a size no
+    power of two, as the JAX kernel); the 172032-point frames (7 x 24576),
+    plain until the split route's radix-7 step, and the 135168-point frames
+    (11 x 12288), plain until its prime pass, on the split route; 48 x 768
+    channels (36864 points) on the channelizer's split route; 40,000 APD
+    edges on the histogram's slices"""
     flag = dict(bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
                 window='hamming', apd_bins=2048, apd_navg=16, min_fft_size=8191)
     designs = {
@@ -193,8 +196,10 @@ def test_monitor_routes_by_shape(case, expect):
         assert (mon.design.nfft, mon.design.nfft_out) == (172032, 24576)
     if case == 'frames135168':
         assert (mon.design.nfft, mon.design.nfft_out) == (135168, 24576)
-    if case in ('chan36864', 'navg256'):
+    if case == 'navg256':
         assert mon._chan is it.ops.kernels.chan_stats_plain
+    if case == 'chan36864':
+        assert mon._chan is it.ops.kernels.chan_stats
     assert routes == expect
 
 
@@ -224,13 +229,13 @@ def test_monitor_steps_on_the_split_route():
 
 @pytest.mark.parametrize('case', ['frames172032', 'chan36864', 'edges40000', 'frames135168'])
 def test_monitor_steps_where_a_kernel_refuses(case):
-    """the designs whose shapes no CUDA kernel takes (135168-point
-    frames, 11 x 12288; a channelizer size outside CHAN_SIZES; APD edges
-    above hist's shared memory) construct and step, equal to reference_step
-    on the CPU, and near the JAX monitor (assert_step_close) at the
-    channelizer size outside CHAN_SIZES and the APD edges above hist's
-    shared memory; the 172032-point frames, which no kernel took until the
-    split route's radix-7 step, step there on the split route"""
+    """the designs whose shapes no CUDA kernel took before (172032- and
+    135168-point frames, 7 x 24576 and 11 x 12288; a channelizer size
+    outside CHAN_SIZES; APD edges above one block's histogram table)
+    construct and step on their new routes (the split route's radix-7 step
+    and prime pass, the channelizer's split route, the histogram's slices),
+    equal to reference_step on the CPU, and near the JAX monitor
+    (assert_step_close) at the channelizer size and the APD edges"""
     flag = dict(bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
                 window='hamming', apd_navg=16, min_fft_size=8191)
     rates, kw = {
@@ -244,7 +249,7 @@ def test_monitor_steps_where_a_kernel_refuses(case):
     }[case]
     mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw), device='cpu')
     stage = 'ola' if case.startswith('frames') else 'chan' if case == 'chan36864' else 'apd'
-    assert mon.routes[stage] == ('split' if case == 'frames172032' else 'plain')
+    assert mon.routes[stage] == ('slices' if case == 'edges40000' else 'split')
     x, got = _step_equals_reference(mon)
     if not case.startswith('frames'):
         jm = JaxMonitor(jax_design(*rates, **kw))

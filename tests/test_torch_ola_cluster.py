@@ -57,16 +57,19 @@ from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_packed
 
 PAIRS = sorted(CLUSTER_PAIRS)
 # frames above one block's shared memory that no CUDA route takes yet
-# (ROADMAP Queue 2 item 1): sizes with a prime factor 11 (blackman at
-# 135.168 -> 12.288 MS/s is 270336 -> 24576). The blackman and
-# blackmanharris frames at 122.88 -> 30.72 MS/s (98304 -> 24576, 163840 ->
-# 40960) were here until clusters of 6 and 10 blocks took them (163840 ->
-# 40960 since on the split route, which beat the cluster of 10); blackman
-# at 122.88 -> 15.36 MS/s (196608 -> 24576) and 131072 -> 32768 until the
-# split route (tests/test_torch_ola_split.py) took them; the factor-7 sizes
-# of 107.52 -> 15.36 MS/s (172032 -> 24576, 7 x 16384 -> 32768) until its
-# radix-7 step (tests/test_torch_ola_tiers.py)
-OUTSIDE = ((270336, 24576), (11 * 16384, 32768))
+# (ROADMAP Queue 2 item 1): more than 64 parts of the largest plan size
+# (blackmanharris at 122.88 -> 3.84 MS/s is 1310720 -> 40960, 80 x 16384).
+# The blackman and blackmanharris frames at 122.88 -> 30.72 MS/s (98304 ->
+# 24576, 163840 -> 40960) were here until clusters of 6 and 10 blocks took
+# them (163840 -> 40960 since on the split route, which beat the cluster of
+# 10); blackman at 122.88 -> 15.36 MS/s (196608 -> 24576) and 131072 ->
+# 32768 until the split route (tests/test_torch_ola_split.py) took them;
+# the factor-7 sizes of 107.52 -> 15.36 MS/s (172032 -> 24576, 7 x 16384
+# -> 32768) until its radix-7 step (tests/test_torch_ola_tiers.py); the
+# factor-11 sizes (blackman at 135.168 -> 12.288 MS/s, 270336 -> 24576; 11
+# x 16384 -> 32768) until its prime pass (SPLIT_PRIME)
+OUTSIDE = ((1310720, 40960), (67 * 16384, 32768))
+SPLIT_PRIME = ((270336, 24576), (11 * 16384, 32768))
 
 
 def model_tables(nfft, nfft_out):
@@ -307,6 +310,8 @@ def test_route_and_scope_by_size():
         assert fused_ola_frames_supported(*pair) == ok, pair
     for pair in ((32768, 32768), (49152, 49152), (81920, 20480), (163840, 40960),
                  (36864, 12288), (40960, 20480)):
+        assert frames_route(*pair) == 'split' and fused_ola_frames_supported(*pair), pair
+    for pair in SPLIT_PRIME:
         assert frames_route(*pair) == 'split' and fused_ola_frames_supported(*pair), pair
     for pair in OUTSIDE:
         assert frames_route(*pair) == 'generic' and not fused_ola_frames_supported(*pair)

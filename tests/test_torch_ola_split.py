@@ -85,13 +85,19 @@ SPLIT_PAIRS = (
     (196608, 24576), (196608, 49152), (245760, 81920), (327680, 40960), (327680, 81920),
     (393216, 49152), (655360, 81920), (163840, 40960), (36864, 12288), (40960, 20480),
 )
-# sizes the split route leaves outside (ROADMAP Queue 2 item 1): another
-# prime factor (11 x 2^k: blackman at 135.168 -> 12.288 MS/s is 270336 ->
-# 24576; the factor-7 sizes of 107.52 -> 15.36 MS/s were here until the
-# radix-7 step, tests/test_torch_ola_tiers.py), fewer than 2^10 in a size,
-# a radix step above SPLIT_MAX_C
-OUTSIDE = ((180224, 16384), (270336, 24576), (40000, 8192), (32768, 1000),
+# sizes the split route leaves outside (ROADMAP Queue 2 item 1): fewer than
+# 2^10 in a size, a radix step above SPLIT_MAX_C (blackmanharris at 122.88
+# -> 3.84 MS/s is 1310720 -> 40960, 80 x 16384; 67 x 16384). The factor-7
+# sizes of 107.52 -> 15.36 MS/s were here until the radix-7 step
+# (tests/test_torch_ola_tiers.py), the factor-11 sizes of PRIME_PAIRS until
+# the prime pass
+OUTSIDE = ((1310720, 40960), (67 * 16384, 16384), (40000, 8192), (32768, 1000),
            (2 ** 20 * 5 // 4 * 13, 16384), (1 << 21, 16384))
+# pairs whose radix steps take a prime above 7 (csrc/split_radix.cuh
+# prime_pass): blackman at 135.168 -> 24.576 MS/s (11 x 12288 -> 24576), at
+# 135.168 -> 12.288 MS/s (270336 -> 24576, 22 x 12288), and 11 x 16384 ->
+# 16384
+PRIME_PAIRS = ((135168, 24576), (270336, 24576), (180224, 16384))
 
 
 def _design(fs_out, window, min_fft, bw):
@@ -116,22 +122,30 @@ def model_tables(nfft, nfft_out):
 
 def radix_model(x, tab, inverse):
     """a radix step's C-point DFT of each column of ``x`` (C, columns) as
-    split_radix_kernel runs it: Stockham passes over the plan's radices,
-    butterfly b < C / R, k = b mod NS, point r times tab[r k C / (NS R)],
-    the R-point DFT, point r to (b - k) R + k + r NS."""
+    csrc/split_radix.cuh radix_step runs it: Stockham passes over the
+    plan's radices (``_build.split_radices``), butterfly b < C / R, k = b
+    mod NS; at R of 2-7 point r times tab[r k C / (NS R)], the R-point DFT,
+    point r to (b - k) R + k + r NS; at a prime R above 7 (prime_pass)
+    output r the sum over j of point j times tab[j (k + r NS) C / (NS R)
+    mod C], to the same place."""
     c = x.shape[0]
     sign = 1 if inverse else -1
     src, ns = x.copy(), 1
-    for radix in _build.fft_plan(c):
+    for radix in _build.split_radices(c):
         nb, step = c // radix, c // (ns * radix)
         dft = np.exp(sign * 2j * np.pi * np.outer(np.arange(radix), np.arange(radix)) / radix)
         dst = np.full_like(src, np.nan)
         for b in range(nb):
             k = b % ns
             v = np.stack([src[b + r * nb] for r in range(radix)])
-            for r in range(1, radix):
-                v[r] *= tab[r * k * step]
-            v = dft @ v
+            if radix > 7:
+                q = (k + np.arange(radix) * ns) * step
+                assert q.max() < c
+                v = tab[np.outer(q, np.arange(radix)) % c] @ v
+            else:
+                for r in range(1, radix):
+                    v[r] *= tab[r * k * step]
+                v = dft @ v
             for r in range(radix):
                 dst[(b - k) * radix + k + r * ns] = v[r]
         assert not np.isnan(dst).any()
@@ -375,6 +389,57 @@ def test_plain_chain_matches_jax_packed_at_split_pairs(fs_out, window, min_fft, 
         precision='highest', interpret=True,
     ))
     ref = (packed[:, :128] + 1j * packed[:, 128:]).reshape(n_frames, nfft_out)
+    got = kernels.fused_ola_frames(torch.from_numpy(frames), **kw).numpy()
+    assert got.shape == ref.shape and got.dtype == np.complex64
+    assert rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize('pair', PRIME_PAIRS)
+def test_split_route_takes_prime_factors_above_7(pair):
+    """the pairs of PRIME_PAIRS on the split route (radix steps of 11 and
+    2 x 11 parts, the prime pass), the modelled chain on one frame with
+    random windows and an offset trim against the np.fft chain in
+    complex128 within 1e-12."""
+    nfft, nfft_out = pair
+    assert split_takes(*pair) and frames_route(*pair) == 'split'
+    (c1, m1), _ = split_plan(*pair)
+    assert c1 % 11 == 0 and m1 == 12288 if nfft != 180224 else (c1, m1) == (11, 16384)
+    rng = np.random.default_rng(nfft)
+    frame = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    w_in = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    w_out = rng.standard_normal(nfft_out) + 1j * rng.standard_normal(nfft_out)
+    tr = _trim(nfft, nfft_out)
+    ref = kernels.fused_ola_frames_plain(
+        torch.from_numpy(frame[None]), w_in=torch.from_numpy(w_in),
+        w_shift_out=torch.from_numpy(w_out), nfft=nfft, nfft_out=nfft_out,
+        zero_lo=tr['zero_lo'], zero_hi=tr['zero_hi'],
+        bounds_in=(tr['in_lo'], tr['in_lo'] + tr['out_hi'] - tr['out_lo']),
+        bounds_out=(tr['out_lo'], tr['out_hi']),
+    ).numpy()[0]
+    assert rel(split_chain_model(frame, w_in, w_out, nfft, nfft_out, **tr), ref) <= 1e-12
+
+
+def test_plain_chain_matches_jax_packed_at_a_prime_split_pair():
+    """the blackman design at 135.168 -> 24.576 MS/s (135168 -> 24576, a
+    radix-11 step): fused_ola_frames_plain against the JAX package's
+    fused_ola_packed in interpret mode ('highest') on 2 frames of the
+    design's windows and bounds, within 1e-5 relative RMS; the monitor
+    routes its OLA 'split'."""
+    d = jax_design(135.168e6, 24.576e6, fs_sdr=135.168e6, window='blackman', bw=10e6)
+    mon = it.WidebandMonitor(it.design_from_reference(dataclasses.asdict(d)), device='cpu')
+    assert mon.routes['ola'] == 'split'
+    kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
+    nfft, nfft_out = kw['nfft'], kw['nfft_out']
+    assert (nfft, nfft_out) == (135168, 24576)
+    rng = np.random.default_rng(nfft)
+    frames = (rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))).astype('complex64')
+    packed = np.asarray(fused_ola_packed(
+        jnp.asarray(frames.real), jnp.asarray(frames.imag), nfft=nfft, nfft_out=nfft_out,
+        zero_lo=kw['zero_lo'], zero_hi=kw['zero_hi'], bounds_in=kw['bounds_in'],
+        bounds_out=kw['bounds_out'], w_in=kw['w_in'].numpy(), w_shift_out=kw['w_shift_out'].numpy(),
+        precision='highest', interpret=True,
+    ))
+    ref = (packed[:, :128] + 1j * packed[:, 128:]).reshape(2, nfft_out)
     got = kernels.fused_ola_frames(torch.from_numpy(frames), **kw).numpy()
     assert got.shape == ref.shape and got.dtype == np.complex64
     assert rel(got, ref) <= 1e-5

@@ -458,7 +458,8 @@ def test_radix_7_designs_take_the_split_route(window):
     take the split route (routes['ola'] 'split', before any launch), on
     the CPU it steps equal to reference_step, and ola_filter takes the
     kernel route there; the JAX resolver arms its Pallas kernel at the
-    hamming design. A factor of 11 keeps the plain frames."""
+    hamming design. A factor of 11 takes the split route too (its radix
+    step's prime pass); more than 64 parts keep the plain frames."""
     (nfft, nfft_out), fwd, inv = RADIX7_DESIGNS[window]
     assert split_shape(nfft) == fwd and split_shape(nfft_out, inverse=True) == inv
     assert split_takes(nfft, nfft_out) and frames_route(nfft, nfft_out) == 'split'
@@ -480,4 +481,8 @@ def test_radix_7_designs_take_the_split_route(window):
     eleven = it.WidebandMonitor(it.design_wideband_monitor(
         135.168e6, 12.288e6, fs_sdr=135.168e6, window=window, min_fft_size=8191), device='cpu')
     assert 11 * 2048 * (eleven.design.nfft // (11 * 2048)) == eleven.design.nfft
-    assert eleven.routes['ola'] == 'plain'
+    assert eleven.routes['ola'] == 'split'
+    wide = it.WidebandMonitor(it.design_wideband_monitor(
+        122.88e6, 3.84e6, bw=2e6, fs_sdr=122.88e6, window='blackmanharris'), device='cpu')
+    assert (wide.design.nfft, wide.design.nfft_out) == (1310720, 40960)
+    assert wide.routes['ola'] == 'plain'
