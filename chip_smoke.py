@@ -418,6 +418,35 @@ then rows 2-3's storage tiers and radix-7 frames:
    widened to complex64 (the stage before this phase's change; in rows
    ``fused_ola_strided_i16`` / ``_bf16``).
 
+26. Rows 1-3 at every monitor design the JAX kernels take: (a) the 2:1
+   route on the frame kernels (``fused_ola_strided``, route '<frame
+   route>+add': a frame kernel of ``csrc/ola_frames.cuh`` or
+   ``csrc/ola_split.cu`` reads the frames straight from the capture and the
+   samples past its end from the halo, ``ola_add_kernel`` of
+   ``csrc/ola_add.cu`` overlap-adds and forms the tail) at the 21 hamming
+   pairs of the 122.88 MS/s grid the older 2:1 kernels do not take, on 8
+   frames with a halo and the tail: one launch each, within 1e-5 of
+   ``fused_ola_strided_plain``, its complex128 error at most twice the
+   plain chain's; int16 and bfloat16 planes at one pair a frame route; (b)
+   the monitor step near 2^24 samples at 12288 -> 4096 (reg), 32768 ->
+   16384 (cluster), 20480 -> 4096 (generic) and 65536 -> 16384 (split):
+   routes, one launch of the route and of ``ola_add``, no frame wrapper,
+   no concatenation kernel in the profile, phase 3's gates against
+   ``reference_step``, timed beside the same step through ``ola_grouped``
+   on the same frame kernel (the route before, ``_fused_ola_grouped``) and
+   through the plain OLA, profiled (rows ``ola_2to1_reg_12288`` ...
+   ``ola_2to1_split_65536``; ``ola_add``, equal to ``ola_add_plain``,
+   beside ``torch.nn.functional.fold``); (c) at 12288 -> 4096 the stream
+   of 8 chunks against one step and ``reference_step``, 16 chunks (2^28
+   samples) timed, and ``sharded_step`` on one NCCL rank ``torch.equal`` to
+   ``step`` and within phase 3's gates of ``reference_step``; (d) the four
+   grid designs that took the plain frames (1310720 -> 81920, 1572864 ->
+   49152, 1310720 -> 40960, 2621440 -> 81920: radix steps of 80, 96 and
+   160 parts) near 2^24 samples: one split launch, against
+   ``reference_step``, the frames against the plain chain and complex128,
+   profiled, timed beside the plain frames (rows ``split_c80_1310720_81920``
+   ... ``split_c160_2621440``).
+
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
 package alone (run in turns on two trees to compare them); ``--ranks N``
@@ -434,6 +463,7 @@ machine without CUDA, or a directory without the package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -730,14 +760,17 @@ def timed_ms(fn, reps=REPS, warmup=WARMUP) -> float:
     return float(sorted(times)[len(times) // 2])
 
 
-def check_step(out, ref, label: str) -> None:
+def check_step(out, ref, label: str, psd: bool = True) -> None:
     """the slice's tolerances: channel power 1e-5 relative RMS; psd within
-    0.01 dB where the reference is above -100 dB; APD totals equal and L1
-    within max(2, total // 1000)."""
+    0.01 dB where the reference is above -100 dB (``psd=False``: the caller
+    holds the psd itself, as 26d does against complex128); APD totals equal
+    and L1 within max(2, total // 1000)."""
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        if key not in out:  # a stream's flush holds no channel_power series
+            continue
         err = rel_rms(out[key], ref[key])
         require(err <= 1e-5, f'{label} {key}: relative RMS {err:.3g} > 1e-5')
-    for key in ('psd_mean', 'psd_max'):
+    for key in ('psd_mean', 'psd_max') if psd else ():
         band = ref[key] > -100
         require(int(band.sum()) > 0, f'{label} {key}: no bin above -100 dB')
         err = max_abs(out[key][band], ref[key][band])
@@ -1427,8 +1460,10 @@ def trace_call(name: str) -> int:
     psd_sort_2e28|psd_refined_2e28|split_hamming_65536|split_blackman_196608|
     split_blackmanharris_655360|split_blackmanharris_163840|split_ola_filter|
     tier_<row of 24a>|tier_ola_filter_i16|tier_ola_filter_bf16|tier_step_planes_i16|
-    radix7_hamming|radix7_blackman|radix7_blackmanharris``: make the call
-    of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a, 22b, 23e or 24 at its shapes, on noise from ``SEED``
+    radix7_hamming|radix7_blackman|radix7_blackmanharris|host_step|
+    ola_2to1_<route>_<nfft> (ADD_STEPS)|split_c<C>_<nfft>... (WIDE_SPLIT)``:
+    make the call of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a, 22b,
+    23a, 23e, 24, 26b or 26d at its shapes, on noise from ``SEED``
     (phases 19-20's on their tone + noise; the kernels' work does not
     depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us by kernel) as the last
@@ -1514,6 +1549,34 @@ def trace_call(name: str) -> int:
         fo, kw, _ = SPLIT_STEPS[name]
         mon = split_design(fo, kw['window'], kw['min_fft_size'])
         x, _ = split_step_frames(mon, N_SPLIT_STEP, gen, dev)
+
+        def fn():
+            return mon.step(x)
+
+        expect = SPLIT_KERNELS
+    elif name == 'host_step':
+        # 23a's step on the (2, N_HOST) capture (the recording's samples, as
+        # read back from its SigMF file, are these)
+        mon = WidebandMonitor(design_wideband_monitor(122.88e6, 61.44e6, **FLAGSHIP))
+        x = host_captures(dev)
+
+        def fn():
+            return mon.step(x)
+
+        expect = (OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
+    elif name in ADD_STEPS:
+        (fo, m), _, _, frame_kernels = ADD_STEPS[name]
+        mon = split_design(fo, 'hamming', m)
+        x = add_step_input(mon, gen, dev)
+
+        def fn():
+            return mon.step(x)
+
+        expect = (ADD_KERNEL,) + frame_kernels
+    elif name in WIDE_SPLIT:
+        (fo, w, m), _ = WIDE_SPLIT[name]
+        mon = split_design(fo, w, m)
+        x = add_step_input(mon, gen, dev)
 
         def fn():
             return mon.step(x)
@@ -2406,6 +2469,14 @@ def reset_counts() -> None:
                 counts.update(dict.fromkeys(counts, 0))
 
 
+def ola_routes(**counts) -> dict:
+    """the 2:1 wrappers' route counts (fused_ola.route_launches): ``counts``
+    and 0 on every other route of OLA_ROUTES."""
+    from iqwaveform_torch.ops.kernels.fused_ola import OLA_ROUTES
+
+    return {**dict.fromkeys(OLA_ROUTES, 0), **counts}
+
+
 def cluster_kwargs(nfft: int, nfft_out: int, gen, dev) -> dict:
     """the frame kernel's arguments at a cluster pair: random windows and an
     offset trim (a nonzero zero_lo, an output range inside the spectrum,
@@ -2590,13 +2661,15 @@ def _wide_kw(kw):
 
 
 def cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
-                      smi, kernels_of=(CLUSTER_KERNEL,)) -> dict:
+                      smi, kernels_of=(CLUSTER_KERNEL,), launches=None) -> dict:
     """the cluster frame kernel (or the route of ``kernels_of``, by device
     kernel name) alone on the frames of ``mon``'s step on ``x``: within
     1e-5 of the plain chain, its first N_F64_FRAMES frames against
     complex128 (at most twice the plain chain's error), and its
     kernels-line row, timed beside its bound, the plain chain and the
-    torch.fft chain (its library call)."""
+    torch.fft chain (its library call). ``launches``: the row's launches in
+    the step where they are not the frame wrapper's (the 2:1 route's frame
+    kernel counts in fused_ola's)."""
     from iqwaveform_torch.ops import kernels
 
     label = '+'.join(kernels_of)
@@ -2619,7 +2692,8 @@ def cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32
             f'{label} on the step\'s frames: complex128 error {err64:.4g} > 2 x the '
             f'plain chain\'s {plain64:.4g}')
     row = kernel_row(
-        name, {'launches': launched.get('fused_ola_frames', 0), 'max_abs_err': max_abs(got, ref)},
+        name, {'launches': launched.get('fused_ola_frames', 0) if launches is None else launches,
+               'max_abs_err': max_abs(got, ref)},
         8 * x.numel() + 8 * got.numel(),
         n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)),
         lambda: kernels.fused_ola_frames(fr, **kw),
@@ -3124,7 +3198,7 @@ def stream_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         require(launched['fused_ola_strided'] == 1 and launched['chan_stats'] == 1
                 and launched['hist'] == 1 and launched['fused_ola'] == 0,
                 f'step_planes ({tier}) launches {launched}')
-        require(strided.route_launches == {'reg': 1, 'generic': 0},
+        require(strided.route_launches == ola_routes(reg=1),
                 f'step_planes ({tier}): routes {strided.route_launches}')
         require(layouts[TIER_LAYOUT[tier]] == 1, f'step_planes ({tier}): inputs {layouts}')
         row_launches = launched['fused_ola_strided']
@@ -4147,13 +4221,21 @@ N_SHARDS = 4  # the in-process shards of 21b
 # the shapes no CUDA kernel took before phase 25's routes (135168 -> 24576
 # at 135.168 -> 24.576 MS/s, 11 x 12288, on the split route's prime pass; a
 # channelizer size outside CHAN_SIZES, 48 x 768 = 36864, on its split
-# route; 40,000 APD edges, above one block's table, on the slices; 196608
-# -> 24576 and 172032 -> 24576 left this list earlier, phases 22 and 24d),
+# route; 40,000 APD edges, above one block's table, on the slices; the
+# blackmanharris frames of 122.88 -> 3.84 MS/s, 1310720 -> 40960, on a
+# radix step of 80 parts; 196608 -> 24576 and 172032 -> 24576 left this
+# list earlier, phases 22 and 24d),
 # and one the JAX kernel refuses too (navg 256 at a size no power of two:
 # the plain version, chan_stats never launched)
 REFUSED_DESIGNS = {
     'frames135168': ((135.168e6, 24.576e6), dict(bw=10e6, fs_sdr=135.168e6, window='blackman'),
                      'ola', 'split', 'fused_ola_frames'),
+    # 80 x 16384 -> 4 x 10240, the grid's design (split_design's): the plain
+    # frames until the split route's radix steps took up to 2048 parts
+    # (phase 26d)
+    'frames1310720': ((122.88e6, 3.84e6), dict(fs_sdr=122.88e6, window='blackmanharris',
+                                               min_fft_size=8191),
+                      'ola', 'split', 'fused_ola_frames'),
     'chan36864': ((122.88e6, 61.44e6), dict(FLAGSHIP, channel_count=48,
                                             fft_size_per_channel=768, apd_navg=1),
                   'chan', 'split', 'chan_stats'),
@@ -4566,12 +4648,15 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         for bw in (math.inf, 0.66 * fo):
             mon = split_design(fo, w, m, bw)
             pair = (mon.design.nfft, mon.design.nfft_out)
-            route = mon.routes['ola']
+            route, frame = mon.routes['ola'], frames_route(*pair)
             table[f'{fo / 1e6:g} {w} {m} {"inf" if bw == math.inf else "0.66"}'] = (
                 f'{pair[0]}->{pair[1]} {route}')
-            require(route in ('reg', 'cluster', 'split'),
+            # the 2:1 (hamming) designs name their frame kernel through
+            # ola_route ('<frame route>+add'), but the register 2:1 pairs
+            require(route == (ola_route(*pair) if mon._strided else frame)
+                    and (route == 'reg' or frame in ('reg', 'cluster', 'split')),
                     f'22d: {w} 122.88 -> {fo / 1e6:g} MS/s min_fft_size={m}: route {route}')
-            if route == 'split':
+            if frame == 'split':
                 split_pairs.add(pair)
     print('22d the OLA routes of the 36 grid designs (bw = inf, 0.66 of the output rate): '
           + json.dumps(table))
@@ -4635,7 +4720,11 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     rows = []
     for name, (fo, kw, pair) in SPLIT_STEPS.items():
         mon = split_design(fo, kw['window'], kw['min_fft_size'])
-        require((mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == 'split',
+        # the hamming design's frames take the split kernels inside the 2:1
+        # route (fused_ola, 'split+add': the frame wrapper not launched)
+        add = kw['window'] == 'hamming'
+        require((mon.design.nfft, mon.design.nfft_out) == pair
+                and mon.routes['ola'] == ('split+add' if add else 'split'),
                 f'22b {name}: {mon.design.nfft} -> {mon.design.nfft_out}, routes {mon.routes}')
         x, _ = split_step_frames(mon, N_SPLIT_STEP, gen, dev)
         mon.step(x[: mon.min_input_multiple()])  # warm-up: first-use setup
@@ -4647,8 +4736,14 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         routes = dict(frames_k.route_launches)
         print(f'22b {name} ({x.numel()} samples, {pair[0]} -> {pair[1]}): launches '
               f'{json.dumps(launched)}; frame routes {json.dumps(routes)}')
-        require(routes == no_split and launched.get('fused_ola_frames') == 1
-                and 'fused_ola' not in launched, f'22b {name}: launches {launched}, {routes}')
+        if add:
+            add_routes = dict(kernels.fused_ola.route_launches)
+            require(add_routes == ola_routes(**{'split+add': 1}) and launched.get('ola_add') == 1
+                    and 'fused_ola_frames' not in launched,
+                    f'22b {name}: launches {launched}, {add_routes}')
+        else:
+            require(routes == no_split and launched.get('fused_ola_frames') == 1
+                    and 'fused_ola' not in launched, f'22b {name}: launches {launched}, {routes}')
         check_step(out, mon.reference_step(x), f'22b {name} vs reference_step')
         step_ms = timed_ms(lambda: mon.step(x))
 
@@ -4670,7 +4765,9 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
               f'ms; device busy {busy:.4f} ms (idle share {max(0.0, 1 - busy / step_ms):.3f}) '
               f'({smi})')
         row = cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
-                                smi, kernels_of=SPLIT_KERNELS)
+                                smi, kernels_of=SPLIT_KERNELS,
+                                launches=kernels.fused_ola.route_launches['split+add'] if add
+                                else None)
         row['path'] = (f'WidebandMonitor.step, {kw["window"]} 122.88 -> {fo / 1e6:g} MS/s '
                        f'min_fft_size={kw["min_fft_size"]}, {pair[0]} -> {pair[1]}')
         row['plain_frames_path_ms'] = plain_step_ms
@@ -4688,7 +4785,11 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     # each design, whose launches the row carries
     for name, ((fo, w, m), pair, route) in NEW_INSTANCES.items():
         mon = split_design(fo, w, m)
-        require((mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == route,
+        # a frame kernel's hamming (2:1) design steps through the 2:1 route
+        # on that kernel ('<route>+add', counted in fused_ola's routes)
+        via_add = w == 'hamming' and not name.startswith('fused_ola_reg')
+        step_route = route + '+add' if via_add else route
+        require((mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == step_route,
                 f'22c {name}: {mon.design.nfft} -> {mon.design.nfft_out}, routes {mon.routes}')
         x, frames = split_step_frames(mon, N_SPLIT_STEP, gen, dev)
         strided = name.startswith('fused_ola_reg')
@@ -4728,14 +4829,16 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         out = mon.step(x)
         torch.cuda.synchronize()
         launched = {k: c.launches for k, c in kset.items() if c.launches}
-        require(wrapper.launches == 1 and wrapper.route_launches[route] == 1
-                and wrapper.route_launches['generic'] == 0,
-                f'22c {name} step: launches {launched}, {dict(wrapper.route_launches)}')
+        stepper = kernels.fused_ola if via_add else wrapper
+        require(stepper.launches == 1 and stepper.route_launches[step_route] == 1
+                and stepper.route_launches['generic'] == 0
+                and (not via_add or 'fused_ola_frames' not in launched),
+                f'22c {name} step: launches {launched}, {dict(stepper.route_launches)}')
         check_step(out, mon.reference_step(x), f'22c {name} step vs reference_step')
         d = mon.design
         n_fr = frames.shape[0]
         row = kernel_row(
-            name, {'launches': launched.get(wrapper.__name__, 0), 'max_abs_err': max_abs(got, ref)},
+            name, {'launches': stepper.route_launches[step_route], 'max_abs_err': max_abs(got, ref)},
             8 * x.numel() + 8 * got.numel(),
             n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)),
             call, plain, plain, mem_rate, fp32_rate,
@@ -4936,7 +5039,8 @@ def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
                 f'23a step {key} differs from the in-memory step')
         if v.is_floating_point():
             require(bool(torch.isfinite(v).all()), f'23a step {key} not finite')
-    names, _ = device_kernels(lambda: mon.step(xf), OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL)
+    names, _ = device_kernels(lambda: mon.step(xf), OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL,
+                              fresh='host_step')
     for k in (OLA_REG_KERNEL, STATS_REG_KERNEL, HIST_KERNEL):
         require(any(k in n for n in names), f'23a profiler shows no {k} in the step')
     bad = [n for n in names if any(f in n.lower() for f in FORBIDDEN)]
@@ -5458,7 +5562,10 @@ def tier_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     for window, (pair, rname) in RADIX7_STEPS.items():
         mon = radix7_monitor(window)
         label = f'24d {window} 107.52 -> 15.36 MS/s'
-        require((mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == 'split',
+        # the hamming design steps through the 2:1 route on the split frames
+        add = window == 'hamming'
+        require((mon.design.nfft, mon.design.nfft_out) == pair
+                and mon.routes['ola'] == ('split+add' if add else 'split'),
                 f'{label}: {mon.design.nfft} -> {mon.design.nfft_out}, routes {mon.routes}')
         (c1, m1), (c2, m2) = split_plan(*pair)
         x, frames = split_step_frames(mon, N_STEP, gen, dev)
@@ -5468,8 +5575,14 @@ def tier_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         out = mon.step(x)
         torch.cuda.synchronize()
         launched = {k: c.launches for k, c in kset.items() if c.launches}
-        require(launched.get('fused_ola_frames') == 1 and frames_k.route_launches['split'] == 1,
-                f'{label}: launches {launched}, routes {frames_k.route_launches}')
+        if add:
+            require(launched.get('fused_ola') == 1 and launched.get('ola_add') == 1
+                    and kernels.fused_ola.route_launches['split+add'] == 1
+                    and 'fused_ola_frames' not in launched,
+                    f'{label}: launches {launched}, routes {kernels.fused_ola.route_launches}')
+        else:
+            require(launched.get('fused_ola_frames') == 1 and frames_k.route_launches['split'] == 1,
+                    f'{label}: launches {launched}, routes {frames_k.route_launches}')
         check_step(out, mon.reference_step(x), f'{label} vs reference_step')
         kw = {k: v for k, v in mon.ola_kwargs.items() if not k.startswith('noverlap')}
         few = frames[:N_RADIX7_F64]
@@ -5498,7 +5611,9 @@ def tier_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
               f'frames {plain_ms:.4f} ms; device busy {busy:.4f} ms (idle share '
               f'{max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
         row = cluster_frame_row(rname, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
-                                smi, kernels_of=SPLIT_KERNELS)
+                                smi, kernels_of=SPLIT_KERNELS,
+                                launches=kernels.fused_ola.route_launches['split+add'] if add
+                                else None)
         row.update({'path': f'WidebandMonitor.step, {window} 107.52 -> 15.36 MS/s '
                             f'min_fft_size=8191, {pair[0]} -> {pair[1]}',
                     'plan': f'{c1} x {m1} -> {c2} x {m2}', 'plain_frames_path_ms': plain_ms,
@@ -5948,6 +6063,424 @@ def rows46_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     return rows, tiers
 
 
+# ---- phase 26: rows 1-3 at every monitor design the JAX kernels take: the
+# 2:1 route on the frame kernels ('<frame route>+add': a frame kernel reads
+# the frames and the halo where they lie, csrc/ola_add.cu overlap-adds) at
+# the 21 hamming pairs of the 122.88 MS/s grid the older 2:1 kernels do not
+# take, and the split frame route up to 2048 parts at the grid's four
+# designs that took the plain frames
+
+ADD_RATES = (61.44e6, 40.96e6, 30.72e6, 24.576e6, 20.48e6, 15.36e6, 7.68e6, 3.84e6)
+N_ADD_FRAMES = 8  # 26a: frames a pair, with a halo and the tail
+# 26a: the pairs held at the int16 and bfloat16 tiers too, one a frame route
+ADD_TIER_PAIRS = ((12288, 4096), (32768, 16384), (20480, 4096), (65536, 16384))
+ADD_KERNEL = 'ola_add_kernel'
+# 26b: one hamming design a frame route, the kernels-line row of its 2:1
+# route: row -> ((output rate, min_fft_size), pair, route, its frame kernels)
+ADD_STEPS = {
+    'ola_2to1_reg_12288': ((40.96e6, 4095), (12288, 4096), 'reg+add', (REG_KERNEL,)),
+    'ola_2to1_cluster_32768': ((61.44e6, 16383), (32768, 16384), 'cluster+add',
+                               (CLUSTER_KERNEL,)),
+    'ola_2to1_generic_20480': ((24.576e6, 4095), (20480, 4096), 'generic+add', (GENERIC_KERNEL,)),
+    'ola_2to1_split_65536': ((30.72e6, 16383), (65536, 16384), 'split+add',
+                             ('split_radix_kernel', 'split_fwd_passes_kernel')),
+}
+ADD_STREAM_ROW = 'ola_2to1_reg_12288'  # 26c: the design of the stream and sharded_step
+N_ADD_STREAM = 16  # 26c: chunks of about 2^24 samples, 2^28 in all
+N_ADD_STREAM_CHECK = 8  # 26c: chunks held against one step and reference_step
+# 26d: the grid's designs that took the plain frames: row -> ((output rate,
+# window, min_fft_size), pair)
+WIDE_SPLIT = {
+    'split_c80_1310720_81920': ((7.68e6, 'blackmanharris', 16383), (1310720, 81920)),
+    'split_c96_1572864': ((3.84e6, 'blackman', 16383), (1572864, 49152)),
+    'split_c80_1310720_40960': ((3.84e6, 'blackmanharris', 8191), (1310720, 40960)),
+    'split_c160_2621440': ((3.84e6, 'blackmanharris', 16383), (2621440, 81920)),
+}
+KERNEL_INFO['ola_add'] = ('iqwaveform_torch/csrc/ola_add.cu',
+                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571')
+for _name, (_, _, _route, _) in ADD_STEPS.items():
+    KERNEL_INFO[_name] = ('iqwaveform_torch/csrc/'
+                          + ('ola_split.cu' if _route == 'split+add' else 'ola_frames.cuh'),
+                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571')
+for _name in WIDE_SPLIT:
+    KERNEL_INFO[_name] = ('iqwaveform_torch/csrc/ola_split.cu',
+                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492')
+del _name, _route
+
+
+def strided_f64(src, halo, kw) -> tuple:
+    """the plain 2:1 chain (fused_ola_strided_plain's) on the stored values
+    ``src`` and ``halo`` in complex128: (output, tail)."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import dequantize, ola_grouped
+
+    wide = _wide_kw({k: v for k, v in kw.items() if k not in ('hop_in', 'precision')})
+    return ola_grouped(
+        dequantize(src).to(torch.complex128), frames_fn=kernels.fused_ola_frames_plain,
+        halo=dequantize(halo).to(torch.complex128), return_tail=True,
+        noverlap_in=kw['hop_in'], noverlap_out=kw['nfft_out'] // 2, **wide)
+
+
+def ola_add_library(frames):
+    """the 2:1 overlap-add of (B, F, 2h) complex64 frames by one PyTorch call,
+    torch.nn.functional.fold on their real and imaginary planes: (B, (F +
+    1) h), the last h samples the tail."""
+    b, f, n = frames.shape
+    cols = torch.view_as_real(frames).permute(0, 3, 2, 1).reshape(b, 2 * n, f)
+    out = torch.nn.functional.fold(cols, output_size=(1, (f + 1) * (n // 2)),
+                                   kernel_size=(1, n), stride=(1, n // 2))
+    return torch.view_as_complex(out.reshape(b, 2, -1).permute(0, 2, 1).contiguous())
+
+
+def wide_psd_check(mon, x, out, ref, label: str) -> dict:
+    """26d's psd gate: psd_mean and psd_max of the step ``out`` on ``x``
+    within phase 3's 0.01 dB of ``ref`` (reference_step) on the bins above
+    -100 dB, or, where the float32 plain step is itself that far off, the
+    step's error against the same step in complex128 (the plain OLA and
+    channelizer on the widened capture) at most twice reference_step's.
+    Returns the errors, dB."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import ola_grouped
+
+    y = ola_grouped(x.to(torch.complex128), frames_fn=kernels.fused_ola_frames_plain,
+                    **_wide_kw(mon.ola_kwargs))
+    cs = kernels.chan_stats_plain(y, **_wide_kw(mon.chan_kwargs))
+    n = cs['channel_power'].shape[-2]
+    ref64 = {'psd_mean': (10.0 / math.log(10.0)) * cs['psd_log_sum'] / n,
+             'psd_max': 10.0 * torch.log10(cs['psd_max'] + 1e-25)}
+    del y, cs
+    errors = {}
+    for key in ('psd_mean', 'psd_max'):
+        band = ref[key] > -100
+        require(int(band.sum()) > 0, f'{label} {key}: no bin above -100 dB')
+        err = max_abs(out[key][band], ref[key][band])
+        err64 = max_abs(out[key][band], ref64[key][band])
+        plain64 = max_abs(ref[key][band], ref64[key][band])
+        errors[key] = {'vs_plain': err, 'vs_complex128': err64, 'plain_vs_complex128': plain64}
+        require(err <= 0.01 or err64 <= 2 * plain64,
+                f'{label} {key}: {err:.4g} dB from reference_step, {err64:.4g} dB from the '
+                f'complex128 step (reference_step {plain64:.4g})')
+    print(f'{label}: psd max |diff| above -100 dB ' + json.dumps(errors))
+    return errors
+
+
+def add_step_input(mon, gen, dev):
+    """whole min_input_multiple()s of noise near N_SPLIT_STEP samples."""
+    m = mon.min_input_multiple()
+    return torch.randn(max(1, round(N_SPLIT_STEP / m)) * m, dtype=torch.complex64, device=dev,
+                       generator=gen)
+
+
+def add_route_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 26; returns the kernels line's rows of the 2:1 route on the
+    frame kernels, of ola_add_kernel and of the split route above 64
+    parts."""
+    import os
+
+    import torch.distributed as dist
+
+    import iqwaveform_torch as it
+    from iqwaveform_torch import parallel
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_grouped,
+        frames_route,
+        ola_route,
+        split_plan,
+        stored,
+    )
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    strided, ola, add = kernels.fused_ola_strided, kernels.fused_ola, kernels.ola_add
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- 26a: the 21 hamming pairs on N_ADD_FRAMES frames with a halo and the
+    # tail, against the plain version and complex128; the planes of int16 and
+    # bfloat16 at one pair a frame route
+    designs = {}
+    for fo, m in itertools.product(ADD_RATES, (4095, 8191, 16383)):
+        mon = split_design(fo, 'hamming', m)
+        if mon.routes['ola'].endswith('+add'):
+            designs.setdefault((mon.design.nfft, mon.design.nfft_out), mon)
+    require(len(designs) == 21, f'26a: {len(designs)} hamming pairs on a \'+add\' route, not 21')
+    pairs = {}
+    for pair, mon in sorted(designs.items()):
+        route = mon.routes['ola']
+        require(route == ola_route(*pair) == frames_route(*pair) + '+add',
+                f'26a {pair}: route {route}')
+        hop = mon.hop_in
+        entry = {'route': route}
+        for tier in ('highest',) + (('i16', 'bf16') if pair in ADD_TIER_PAIRS else ()):
+            kw = dict(mon.strided_kwargs, precision=tier)
+            x = torch.randn((N_ADD_FRAMES + 1) * hop, dtype=torch.complex64, device=dev,
+                            generator=gen)
+            src, halo = x[:-hop], x[-hop:]
+            if tier != 'highest':
+                src, halo = (stored(PLANES_SCALE * v, tier) for v in (src, halo))
+            reset_counts()
+            got, tail = strided(src, halo, n_frames=N_ADD_FRAMES, **kw)
+            torch.cuda.synchronize()
+            launched = {k: c.launches for k, c in kset.items() if c.launches}
+            require(launched == {'fused_ola_strided': 1, 'ola_add': 1}
+                    and strided.route_launches == ola_routes(**{route: 1}),
+                    f'26a {pair} {tier}: launches {launched}, {strided.route_launches}')
+            ref, ref_tail = kernels.fused_ola_strided_plain(src, halo, n_frames=N_ADD_FRAMES, **kw)
+            y64, t64 = strided_f64(stored(src, tier), stored(halo, tier), kw)
+            both, plain = torch.cat([got, tail]), torch.cat([ref, ref_tail])
+            ref64 = torch.cat([y64, t64])
+            err, err64, plain64 = rel_rms(both, plain), rel_rms(both, ref64), rel_rms(plain, ref64)
+            entry[tier] = {'relative_rms': err, 'f64_rel_rms': err64, 'plain_f64_rel_rms': plain64}
+            print(f'26a {pair[0]} -> {pair[1]} {route} at \'{tier}\', {N_ADD_FRAMES} frames, halo '
+                  f'and tail: vs plain {err:.3g}; vs complex128 {err64:.4g}, the plain chain '
+                  f'{plain64:.4g}')
+            require(err <= 1e-5, f'26a {pair} {tier}: relative RMS {err:.3g}')
+            require(err64 <= 2 * plain64,
+                    f'26a {pair} {tier}: complex128 error {err64:.4g} > 2 x the plain chain\'s '
+                    f'{plain64:.4g}')
+        pairs[f'{pair[0]}->{pair[1]}'] = entry
+    del designs
+    torch.cuda.empty_cache()
+
+    # ---- 26b: the monitor step near 2^24 samples at one design a frame
+    # route: routes, launches (one of the 2:1 route, no frame wrapper, no
+    # torch.cat of the input in the profile), reference_step's gates, times
+    # beside the same step through ola_grouped on the same frame kernel
+    # (the route before) and through the plain OLA
+    rows = []
+    add_row = None
+    for name, ((fo, m), pair, route, frame_kernels) in ADD_STEPS.items():
+        mon = split_design(fo, 'hamming', m)
+        d = mon.design
+        require((d.nfft, d.nfft_out) == pair and mon.routes['ola'] == route,
+                f'26b {name}: {d.nfft} -> {d.nfft_out}, routes {mon.routes}')
+        x = add_step_input(mon, gen, dev)
+        mon.step(x[: mon.min_input_multiple()])  # warm-up: first-use setup
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        ola_launches = dict(ola.route_launches)
+        print(f'26b {name} ({x.numel()} samples, {pair[0]} -> {pair[1]}): launches '
+              f'{json.dumps(launched)}; fused_ola routes {json.dumps(ola_launches)}')
+        require(launched.get('fused_ola') == 1 and launched.get('ola_add') == 1
+                and 'fused_ola_frames' not in launched and ola_launches == ola_routes(**{route: 1}),
+                f'26b {name}: launches {launched}, {ola_launches}')
+        check_step(out, mon.reference_step(x), f'26b {name} vs reference_step')
+
+        def grouped_step(mon=mon, x=x):
+            return mon._outputs(_fused_ola_grouped(x, **mon.ola_kwargs), mon._chan, mon._counts)
+
+        def plain_step(mon=mon, x=x):
+            return mon._outputs(mon._step_ola(x, plain=True), mon._chan, mon._counts)
+
+        check_step(grouped_step(), out, f'26b {name} through ola_grouped vs the step')
+        step_ms = timed_ms(lambda: mon.step(x))
+        grouped_ms = timed_ms(grouped_step)
+        plain_ms = timed_ms(plain_step)
+        names, device_us = device_kernels(lambda: mon.step(x), ADD_KERNEL, *frame_kernels,
+                                          fresh=name)
+        require(all(any(k in n for n in names) for k in (ADD_KERNEL,) + frame_kernels),
+                f'26b {name}: the profile lacks {ADD_KERNEL} or {frame_kernels}: {names}')
+        require(not library_kernels(names), f'26b {name}: library kernels {library_kernels(names)}')
+        cats = [n for n in names if 'CatArray' in n]
+        require(not cats, f'26b {name}: the step concatenates on the card: {cats}')
+        copies = {k: us for k, us in device_us.items() if 'copy' in k.lower()}
+        g_names, g_us = device_kernels(grouped_step, 'CatArray', *frame_kernels)
+        g_cats = {k: us for k, us in g_us.items() if 'CatArray' in k}
+        busy = sum(device_us.values()) / 1e3
+        route_us = {k: us for k, us in device_us.items()
+                    if any(f in k for f in (ADD_KERNEL,) + frame_kernels + SPLIT_KERNELS)}
+        print(f'26b {name} device time by kernel (us): ' + json.dumps(
+            dict(sorted(device_us.items(), key=lambda kv: -kv[1]))))
+        print(f'26b {name}: no CatArray kernel in the step, copy kernels {json.dumps(copies)}; '
+              f'through ola_grouped: {json.dumps(g_cats)} of concatenation')
+        print(f'26b {name}: {step_ms:.4f} ms for {x.numel()} samples = '
+              f'{x.numel() / step_ms / 1e3:.1f} MS/s; through ola_grouped on the same frame kernel '
+              f'{grouped_ms:.4f} ms; through the plain OLA {plain_ms:.4f} ms; device busy '
+              f'{busy:.4f} ms (idle share {max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+
+        # the route alone on the step's capture, its row
+        okw = mon.ola_kwargs
+        y = ola(x, **okw)
+        y_plain = kernels.fused_ola_plain(x, **okw)
+        err = rel_rms(y, y_plain)
+        require(err <= 1e-5, f'26b {name}: fused_ola vs plain relative RMS {err:.3g}')
+        n_fr = x.numel() // mon.hop_in
+        row = kernel_row(
+            name, {'launches': ola_launches[route], 'max_abs_err': max_abs(y, y_plain)},
+            8 * x.numel() + 8 * y.numel() + 8 * (d.nfft + d.nfft_out),
+            n_fr * (fft_ops(d.nfft) + fft_ops(d.nfft_out) + 6 * (d.nfft + d.nfft_out)),
+            lambda: ola(x, **okw), lambda: kernels.fused_ola_plain(x, **okw),
+            lambda: kernels.fused_ola_plain(x, **okw), mem_rate, fp32_rate,
+        )
+        row.update({
+            'pair': f'{pair[0]}->{pair[1]}', 'ola_route': route,
+            'path': f'WidebandMonitor.step, hamming 122.88 -> {fo / 1e6:g} MS/s min_fft_size={m}',
+            'relative_rms': err, 'grouped_ms': timed_ms(lambda: _fused_ola_grouped(x, **okw)),
+            'path_ms': step_ms, 'grouped_path_ms': grouped_ms, 'plain_path_ms': plain_ms,
+            'profiled_device_ms': sum(route_us.values()) / 1e3,
+            'grouped_cat_device_ms': sum(g_cats.values()) / 1e3,
+            'copy_device_us': copies, 'idle_share': max(0.0, 1 - busy / step_ms),
+            'device_us': device_us,
+        })
+        print(f'26b {name} route alone: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+              f'{row["bound_by"]}); through ola_grouped {row["grouped_ms"]:.4f} ms; plain (torch.fft '
+              f'chain) {row["plain_ms"]:.4f} ms; {row["profiled_device_ms"]:.4f} ms of route '
+              f'device time in the profiled step ({smi})')
+        if route == 'split+add':
+            row['pairs'] = pairs
+        rows.append(row)
+
+        # ola_add_kernel alone on frames of this step's shape: its row from
+        # the register design's step
+        if add_row is None:
+            frames = torch.randn((1, n_fr, d.nfft_out), dtype=torch.complex64, device=dev,
+                                 generator=gen)
+            got, tail = add(frames, tail=True)
+            ref, ref_tail = kernels.ola_add_plain(frames, tail=True)
+            require(torch.equal(got, ref) and torch.equal(tail, ref_tail),
+                    f'26b ola_add: differs from ola_add_plain')
+            lib = ola_add_library(frames)
+            lib_err = rel_rms(torch.cat([got, tail], -1), lib)
+            require(lib_err <= 1e-6, f'26b ola_add vs fold: relative RMS {lib_err:.3g}')
+            h = d.nfft_out // 2
+            add_row = kernel_row(
+                'ola_add', {'launches': launched.get('ola_add', 0), 'max_abs_err': 0.0},
+                8 * frames.numel() + 8 * (n_fr + 1) * h, 2 * n_fr * h,
+                lambda: add(frames, tail=True), lambda: kernels.ola_add_plain(frames, tail=True),
+                lambda: ola_add_library(frames), mem_rate, fp32_rate,
+            )
+            add_row.update({'frames': list(frames.shape), 'path': row['path'],
+                            'fold_rel_rms': lib_err,
+                            'profiled_device_ms': device_ms(device_us, ADD_KERNEL)})
+            print(f'26b ola_add on {tuple(frames.shape)}: equal to ola_add_plain; {add_row["ms"]:.4f} '
+                  f'ms (bound {add_row["bound_ms"]:.4f} ms by {add_row["bound_by"]}), plain '
+                  f'{add_row["plain_ms"]:.4f} ms, torch.nn.functional.fold '
+                  f'{add_row["library_ms"]:.4f} ms ({smi})')
+        del mon, x, out, y, y_plain
+        torch.cuda.empty_cache()
+    rows.append(add_row)
+
+    # ---- 26c: the stream over 2^28 samples and sharded_step on one NCCL
+    # rank at 12288 -> 4096, each against its plain path
+    (fo, m), pair, route, _ = ADD_STEPS[ADD_STREAM_ROW]
+    mon = split_design(fo, 'hamming', m)
+    chunk = (STREAM_CHUNK // mon.min_input_multiple()) * mon.min_input_multiple()
+    x = torch.randn(N_ADD_STREAM_CHECK * chunk, dtype=torch.complex64, device=dev, generator=gen)
+    got, _ = _stream(mon, x.split(chunk))
+    worst = check_stream(got, mon.step(x), f'26c stream of {N_ADD_STREAM_CHECK} chunks vs one step')
+    check_step(got, mon.reference_step(x), f'26c stream of {N_ADD_STREAM_CHECK} chunks vs '
+                                           'reference_step')
+    print(f'26c stream of {N_ADD_STREAM_CHECK} x {chunk} samples at {pair[0]} -> {pair[1]}: '
+          f'equal apd_counts and max |diff| {json.dumps(worst)} against one step, within '
+          f'phase 3\'s gates of reference_step')
+    del x, got
+    torch.cuda.empty_cache()
+    chunks = [torch.randn(chunk, dtype=torch.complex64, device=dev, generator=gen)
+              for _ in range(N_ADD_STREAM)]
+    _stream(mon, chunks[:2])  # warm up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats, n_chunks = _stream(mon, chunks)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launched = {k: c.launches for k, c in kset.items() if c.launches}
+    require(launched.get('fused_ola_strided') == n_chunks and launched.get('ola_add') == n_chunks
+            and strided.route_launches == ola_routes(**{route: n_chunks})
+            and 'fused_ola_frames' not in launched,
+            f'26c stream: launches {launched}, routes {strided.route_launches}')
+    n_total = n_chunks * chunk
+    require(int(stats['apd_counts'].sum())
+            == n_total // mon.hop_in * mon.hop_out // mon.design.apd_navg,
+            '26c stream: the APD total differs from its binned samples')
+    stream = {'chunks': n_chunks, 'samples': n_total, 's': stream_s, 'launches': launched,
+              'ms_per_s': n_total / stream_s / 1e6}
+    print(f'26c stream: {n_chunks} chunks, {n_total} samples in {stream_s:.4f} s = '
+          f'{n_total / stream_s / 1e6:.1f} MS/s; launches {json.dumps(launched)} ({smi})')
+    del chunks, stats
+    torch.cuda.empty_cache()
+
+    store = ROOT / 'build' / 'nccl_rank0_store_26'
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group('nccl', init_method=f'file://{store}', rank=0, world_size=1)
+    try:
+        mon_s = it.WidebandMonitor(mon.design, mesh=parallel.time_mesh(1))
+        xs = add_step_input(mon, gen, dev)[None]
+        sharded = sharded_step_check(mon_s, mon, xs, f'26c {ADD_STREAM_ROW}', smi)
+        require(sharded['launches'].get('fused_ola_strided') == 1
+                and sharded['launches'].get('ola_add') == 1
+                and 'fused_ola_frames' not in sharded['launches'],
+                f'26c sharded_step launches {sharded["launches"]}')
+        check_step(mon_s.sharded_step(xs), mon.reference_step(xs),
+                   '26c sharded_step vs reference_step')
+    finally:
+        dist.destroy_process_group()
+    del mon, mon_s, xs
+    torch.cuda.empty_cache()
+    row = next(r for r in rows if r['name'] == ADD_STREAM_ROW)
+    row['stream'] = stream
+    row['sharded'] = sharded
+
+    # ---- 26d: the four grid designs that took the plain frames, on the
+    # split route's radix steps of 80 to 160 parts
+    for name, ((fo, w, m), pair) in WIDE_SPLIT.items():
+        mon = split_design(fo, w, m)
+        d = mon.design
+        require((d.nfft, d.nfft_out) == pair and mon.routes['ola'] == 'split',
+                f'26d {name}: {d.nfft} -> {d.nfft_out}, routes {mon.routes}')
+        (c1, m1), (c2, m2) = split_plan(*pair)
+        x = add_step_input(mon, gen, dev)
+        mon.step(x[: mon.min_input_multiple()])
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        frame_routes = dict(kernels.fused_ola_frames.route_launches)
+        require(launched.get('fused_ola_frames') == 1 and frame_routes['split'] == 1
+                and 'fused_ola' not in launched,
+                f'26d {name}: launches {launched}, {frame_routes}')
+        ref = mon.reference_step(x)
+        check_step(out, ref, f'26d {name} vs reference_step', psd=False)
+        psd_errors = wide_psd_check(mon, x, out, ref, f'26d {name}')
+        del ref
+        step_ms = timed_ms(lambda: mon.step(x), reps=10)
+
+        def plain_step(mon=mon, x=x):
+            return mon._outputs(mon._step_ola(x, plain=True), mon._chan, mon._counts)
+
+        plain_ms = timed_ms(plain_step, reps=10)
+        names, device_us = device_kernels(lambda: mon.step(x), *SPLIT_KERNELS, fresh=name)
+        require(all(any(k in n for n in names) for k in SPLIT_KERNELS)
+                and not library_kernels(names),
+                f'26d {name}: the profile lacks a split kernel or holds a library kernel: {names}')
+        busy = sum(device_us.values()) / 1e3
+        print(f'26d {name} ({pair[0]} -> {pair[1]}: {c1} x {m1} -> {c2} x {m2}), {x.numel()} '
+              f'samples: launches {json.dumps(launched)}; within the step gates of '
+              f'reference_step; {step_ms:.4f} ms, through the plain frames {plain_ms:.4f} ms; '
+              f'device busy {busy:.4f} ms (idle share {max(0.0, 1 - busy / step_ms):.3f}) ({smi})')
+        row = cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32_rate,
+                                smi, kernels_of=SPLIT_KERNELS)
+        row.update({'path': f'WidebandMonitor.step, {w} 122.88 -> {fo / 1e6:g} MS/s '
+                            f'min_fft_size={m}, {pair[0]} -> {pair[1]}',
+                    'plan': f'{c1} x {m1} -> {c2} x {m2}', 'plain_frames_path_ms': plain_ms,
+                    'idle_share': max(0.0, 1 - busy / step_ms), 'psd_errors': psd_errors,
+                    'split_device_us': {k: v for k, v in device_us.items()
+                                        if k.split('<')[0] in SPLIT_KERNELS}})
+        rows.append(row)
+        del mon, x, out
+        torch.cuda.empty_cache()
+    print(f'phase 26 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
+
+
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
 
@@ -6206,7 +6739,7 @@ def main(parent: str | None = None) -> int:
               'chan_stats': dict(kernels.chan_stats.route_launches),
               'hist': dict(kernels.hist.route_launches)}
     print('kernels by route in one step: ' + json.dumps(routes))
-    require(routes == {'fused_ola': {'reg': 1, 'generic': 0}, 'chan_stats': CHAN_REG_ROUTE,
+    require(routes == {'fused_ola': ola_routes(reg=1), 'chan_stats': CHAN_REG_ROUTE,
                        'hist': {'bucket': 1, 'generic': 0, 'slices': 0}},
             f'the step\'s routes {routes}')
 
@@ -6381,6 +6914,11 @@ def main(parent: str | None = None) -> int:
     for row in rows:
         if row['name'] in tier_steps:
             row['monitor_step'] = tier_steps[row['name']]
+
+    # ---- phase 26: rows 1-3 at every monitor design the JAX kernels take:
+    # the 2:1 route on the frame kernels with ola_add_kernel, the split route
+    # above 64 parts
+    rows = merge_rows(rows, add_route_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -143,8 +143,12 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const void* x, c
 // (fused_ola_pallas.py fused_ola_strided), with the same contract, at the
 // size pairs of IQT_OLA_REG_PAIRS below: the flagship monitor step's
 // 16384 -> 8192 at 2:1 (the hamming COLA design), 8192 -> 4096 and 16384
-// -> 4096. Every other pair keeps fused_ola_kernel; the host route
-// (ops/kernels/fused_ola.py ola_route) picks by size before the launch.
+// -> 4096. Every other pair of powers of two up to 16384 keeps
+// fused_ola_kernel, and every other 2:1 pair runs a frame kernel of
+// csrc/ola_frames.cuh or csrc/ola_split.cu, which reads the frames and the
+// halo where they lie, and the overlap-add of csrc/ola_add.cu; the host
+// route (ops/kernels/fused_ola.py ola_route) picks by size before the
+// launch.
 //
 // Per frame m of batch row b (block m, blockIdx.y = b): the chain of
 // fused_ola_frames_reg_kernel (reg_frame_chain, csrc/ola_frames.cuh) on the
@@ -384,15 +388,21 @@ namespace {
   }
 
 iqt::ola::FrameArgs frame_args(const void* x, long long batch_stride, long long frame_stride,
-                               long long plane_stride, const void* w_in, const void* w_out,
-                               void* y, int batch, int n_frames, int nfft, int nfft_out,
-                               int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi,
-                               void* stream) {
+                               long long plane_stride, const void* halo, long long halo_batch,
+                               long long halo_plane, int n_in, int n_halo, const void* w_in,
+                               const void* w_out, void* y, int batch, int n_frames, int nfft,
+                               int nfft_out, int zero_lo, int zero_hi, int in_lo, int out_lo,
+                               int out_hi, void* stream) {
   iqt::ola::FrameArgs a = {};
   a.x = x;
   a.batch_stride = batch_stride;
   a.frame_stride = frame_stride;
   a.plane_stride = plane_stride;
+  a.halo = halo;
+  a.halo_batch = halo_batch;
+  a.halo_plane = halo_plane;
+  a.n_in = n_in;
+  a.n_halo = n_halo;
   a.w_in = static_cast<const float2*>(w_in);
   a.w_out = static_cast<const float2*>(w_out);
   a.y = static_cast<float2*>(y);
@@ -425,21 +435,26 @@ extern "C" int iqt_fused_ola_frames_prepare(int max_smem) {
 // (2, n) planes of float32, int16, bfloat16): frame (b, m) starts at x + b
 // batch_stride + m frame_stride, in elements of the layout's type (the last
 // stride 1), its imaginary plane plane_stride elements after its real one;
-// y: (batch, n_frames, nfft_out) complex64, contiguous. A layout, pair or
-// table length that no instance takes: cudaErrorInvalidValue, before any
-// launch.
+// with n_in > 0, a row's samples at and past n_in are read from the halo
+// (n_halo samples a row at halo + b halo_batch, the imaginary plane
+// halo_plane further), zeros after it (ola_frames.cuh Edge; n_in = 0, halo
+// nullptr: every frame inside its row); y: (batch, n_frames, nfft_out)
+// complex64, contiguous. A layout, pair or table length that no instance
+// takes: cudaErrorInvalidValue, before any launch.
 
 // the pairs of IQT_CLUSTER_PAIRS, by fused_ola_frames_cluster_kernel: tw
 // the n_tw entries of the pair's cluster table; a cluster the card refuses:
 // the launch's own error
 extern "C" int iqt_fused_ola_frames_cluster(
     const void* x, int layout, long long batch_stride, long long frame_stride,
-    long long plane_stride, const void* w_in, const void* w_out, const void* tw, void* y,
+    long long plane_stride, const void* halo, long long halo_batch, long long halo_plane,
+    int n_in, int n_halo, const void* w_in, const void* w_out, const void* tw, void* y,
     int n_tw, int batch, int n_frames, int nfft, int nfft_out, int zero_lo, int zero_hi,
     int in_lo, int out_lo, int out_hi, void* stream) {
-  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, w_in, w_out, y,
-                                     batch, n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo,
-                                     out_lo, out_hi, stream);
+  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, halo,
+                                     halo_batch, halo_plane, n_in, n_halo, w_in, w_out, y, batch,
+                                     n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                                     out_hi, stream);
   a.tw = static_cast<const float2*>(tw);
   a.n_tw = n_tw;
   IQT_BY_LAYOUT(frames_cluster, a)
@@ -457,12 +472,14 @@ extern "C" int iqt_fused_ola_frames_cluster_occupancy(int nfft, int nfft_out, in
 // n_tw twiddle-table entries of the pair
 extern "C" int iqt_fused_ola_frames_reg(
     const void* x, int layout, long long batch_stride, long long frame_stride,
-    long long plane_stride, const void* w_in, const void* w_out, const void* tw, void* y,
+    long long plane_stride, const void* halo, long long halo_batch, long long halo_plane,
+    int n_in, int n_halo, const void* w_in, const void* w_out, const void* tw, void* y,
     int n_tw, int batch, int n_frames, int nfft, int nfft_out, int zero_lo, int zero_hi,
     int in_lo, int out_lo, int out_hi, void* stream) {
-  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, w_in, w_out, y,
-                                     batch, n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo,
-                                     out_lo, out_hi, stream);
+  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, halo,
+                                     halo_batch, halo_plane, n_in, n_halo, w_in, w_out, y, batch,
+                                     n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                                     out_hi, stream);
   a.tw = static_cast<const float2*>(tw);
   a.n_tw = n_tw;
   IQT_BY_LAYOUT(frames_reg, a)
@@ -473,13 +490,15 @@ extern "C" int iqt_fused_ola_frames_reg(
 // tw_* the full twiddle tables exp(-2 pi i t / n), t < n
 extern "C" int iqt_fused_ola_frames(
     const void* x, int layout, long long batch_stride, long long frame_stride,
-    long long plane_stride, const void* w_in, const void* tw_in, const void* perm_in,
+    long long plane_stride, const void* halo, long long halo_batch, long long halo_plane,
+    int n_in, int n_halo, const void* w_in, const void* tw_in, const void* perm_in,
     const void* w_out, const void* tw_out, const void* perm_out, void* y, int batch,
     int n_frames, int nfft, int stages_in, int code_in, int nfft_out, int stages_out,
     int code_out, int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi, void* stream) {
-  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, w_in, w_out, y,
-                                     batch, n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo,
-                                     out_lo, out_hi, stream);
+  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, halo,
+                                     halo_batch, halo_plane, n_in, n_halo, w_in, w_out, y, batch,
+                                     n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                                     out_hi, stream);
   a.tw_in = static_cast<const float2*>(tw_in);
   a.tw_out = static_cast<const float2*>(tw_out);
   a.perm_in = static_cast<const int*>(perm_in);

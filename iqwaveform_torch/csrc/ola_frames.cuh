@@ -53,6 +53,41 @@ struct Src<float2> {
   }
 };
 
+// ---- a row's end and the halo past it -------------------------------------
+//
+// Edge<E> lets a frame kernel read its frames straight from rows of n_in
+// samples, frame m of row b starting at sample m frame_stride of the row
+// (the 2:1 route of ops/kernels/fused_ola.py reads every frame of a row at
+// hop_in = nfft / 2 so, the last one reaching hop_in samples past the
+// row's end): the samples at and past n_in come from the row's halo (n_halo
+// samples at halo + b halo_batch, the next chunk's or shard's head; its
+// imaginary plane halo_plane elements further), zeros after it, as
+// csrc/fused_ola.cu frame_sample reads them for the older 2:1 kernels.
+// n_in = 0: no edge, every frame lies inside its row (the launches of
+// fused_ola_frames and ola_filter), and the kernels load as they did.
+template <class E>
+struct Edge {
+  const E* halo;
+  long long halo_batch, halo_plane;
+  int n_in, n_halo;
+  // whether the n-sample frame starting at sample `start` of its row reaches
+  // past the row's end (block-uniform: one test a frame)
+  __device__ bool reaches(long long start, long long n) const {
+    return n_in > 0 && start + n > n_in;
+  }
+  // sample i of the frame at xf (its imaginary plane at xi) that starts at
+  // sample `start` of row b
+  __device__ float2 read(const E* __restrict__ xf, const E* __restrict__ xi, long long start,
+                         int i, int b) const {
+    const long long p = start + i;
+    if (p < n_in) return Src<E>::read(xf, xi, i);
+    const long long h = p - n_in;
+    if (h >= n_halo) return make_float2(0.f, 0.f);
+    const E* hr = halo + b * halo_batch;
+    return Src<E>::read(hr, Src<E>::imag(hr, halo_plane), static_cast<int>(h));
+  }
+};
+
 // The staging of a whole frame of planes by 16-byte loads: each thread
 // reads 16 / sizeof(E) consecutive values of each plane at once (four
 // rounds a 16384-point frame for int16 and bfloat16, eight for float32,
@@ -134,7 +169,7 @@ constexpr int kFrameThreads = 1024;
 template <int PT, class E>
 __global__ void __launch_bounds__(kFrameThreads, 1)
 fused_ola_frames_kernel(const E* __restrict__ x, long long batch_stride, long long frame_stride,
-                        long long plane_stride, const float2* __restrict__ w_in,
+                        long long plane_stride, Edge<E> edge, const float2* __restrict__ w_in,
                         const float2* __restrict__ tw_in, const int* __restrict__ perm_in,
                         const float2* __restrict__ w_out, const float2* __restrict__ tw_out,
                         const int* __restrict__ perm_out, float2* __restrict__ y, int n_frames,
@@ -144,11 +179,17 @@ fused_ola_frames_kernel(const E* __restrict__ x, long long batch_stride, long lo
   const int nfft = plan_in.n;
   const int nfft_out = plan_out.n;
   const int m = blockIdx.x;
-  const E* xf = x + blockIdx.y * batch_stride + m * frame_stride;
+  const long long start = m * frame_stride;
+  const E* xf = x + blockIdx.y * batch_stride + start;
   const E* xi = Src<E>::imag(xf, plane_stride);
 
-  for (int n = threadIdx.x; n < nfft; n += blockDim.x) {
-    buf[__ldg(&perm_in[n])] = iqt::cmul(Src<E>::read(xf, xi, n), w_in[n]);
+  if (edge.reaches(start, nfft)) {
+    for (int n = threadIdx.x; n < nfft; n += blockDim.x)
+      buf[__ldg(&perm_in[n])] = iqt::cmul(edge.read(xf, xi, start, n, blockIdx.y), w_in[n]);
+  } else {
+    for (int n = threadIdx.x; n < nfft; n += blockDim.x) {
+      buf[__ldg(&perm_in[n])] = iqt::cmul(Src<E>::read(xf, xi, n), w_in[n]);
+    }
   }
   iqt::fft_mixed(buf, tw_in, plan_in, false);
 
@@ -312,19 +353,38 @@ __device__ __forceinline__ void reg_frame_chain(float2* smem, const float2* __re
 template <int N1, int N2, int T, class E>
 __global__ void __launch_bounds__(T, 1)
 fused_ola_frames_reg_kernel(const E* __restrict__ x, long long batch_stride,
-                            long long frame_stride, long long plane_stride,
+                            long long frame_stride, long long plane_stride, Edge<E> edge,
                             const float2* __restrict__ w_in, const float2* __restrict__ w_out,
                             const float2* __restrict__ tw, float2* __restrict__ y, int n_frames,
                             int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi) {
   extern __shared__ float2 smem[];
   const int m = blockIdx.x;
-  const E* xf = x + blockIdx.y * batch_stride + m * frame_stride;
+  const long long start = m * frame_stride;
+  const E* xf = x + blockIdx.y * batch_stride + start;
   float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * N2;
   const auto store = [yf](int n, float2 v) { yf[n] = v; };
+  const auto staged = [](int) { return make_float2(0.f, 0.f); };
+  // a frame past its row's end (the halo's) is staged through the exchange
+  // buffer at every input type, as the 2:1 kernel's edge frame is: the
+  // branch in the load leaves pass 0 too few registers
+  const auto stage_edge = [&] {
+    const E* xi = Src<E>::imag(xf, plane_stride);
+#pragma unroll 2
+    for (int i = threadIdx.x; i < N1; i += T)
+      smem[iqt::reg::pad(i)] = iqt::cmul(edge.read(xf, xi, start, i, blockIdx.y), __ldg(&w_in[i]));
+  };
   if constexpr (Src<E>::kRows == 2) {
-    stage_planes<N1, T>(smem, xf, Src<E>::imag(xf, plane_stride), w_in);
+    if (edge.reaches(start, N1)) {
+      stage_edge();
+    } else {
+      stage_planes<N1, T>(smem, xf, Src<E>::imag(xf, plane_stride), w_in);
+    }
     reg_frame_chain<N1, N2, T, true>(smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
-                                     [](int) { return make_float2(0.f, 0.f); }, store);
+                                     staged, store);
+  } else if (edge.reaches(start, N1)) {
+    stage_edge();
+    reg_frame_chain<N1, N2, T, true>(smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
+                                     staged, store);
   } else {
     reg_frame_chain<N1, N2, T>(
         smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
@@ -409,7 +469,7 @@ struct ClusterShape {
 template <int N1, int N2, int C, int T, class E>
 __global__ void __launch_bounds__(T, 1)
 fused_ola_frames_cluster_kernel(const E* __restrict__ x, long long batch_stride,
-                                long long frame_stride, long long plane_stride,
+                                long long frame_stride, long long plane_stride, Edge<E> edge,
                                 const float2* __restrict__ w_in, const float2* __restrict__ w_out,
                                 const float2* __restrict__ tw, float2* __restrict__ y,
                                 int n_frames, int zero_lo, int zero_hi, int in_lo, int out_lo,
@@ -425,7 +485,8 @@ fused_ola_frames_cluster_kernel(const E* __restrict__ x, long long batch_stride,
   CL::cg::cluster_group cluster = CL::cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int m = blockIdx.x / C;
-  const E* xf = x + blockIdx.y * batch_stride + m * frame_stride;
+  const long long start = m * frame_stride;
+  const E* xf = x + blockIdx.y * batch_stride + start;
   const E* xi = Src<E>::imag(xf, plane_stride);
   float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * N2;
   // block c's exchange buffer, mapped where it is used: an array of C
@@ -436,18 +497,25 @@ fused_ola_frames_cluster_kernel(const E* __restrict__ x, long long batch_stride,
   for (int e = threadIdx.x; e < S::passes; e += T) tw_fwd[e] = __ldg(&tw[e]);
   cluster.sync();
 
-  // 2. the forward radix-C step over this block's slice of offsets
-  for (int n = CL::slice_lo(M1, rank, C) + threadIdx.x; n < CL::slice_lo(M1, rank + 1, C);
-       n += T) {
-    float2 v[C];
+  // 2. the forward radix-C step over this block's slice of offsets, each
+  // sample read by `read` (a frame past its row's end reads the halo)
+  const auto forward = [&](auto read) {
+    for (int n = CL::slice_lo(M1, rank, C) + threadIdx.x; n < CL::slice_lo(M1, rank + 1, C);
+         n += T) {
+      float2 v[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      v[c] = iqt::cmul(Src<E>::read(xf, xi, c * M1 + n), __ldg(&w_in[c * M1 + n]));
-    iqt::dft_small<C>(v, false);
-    part(0)[R::pad(n)] = v[0];
+      for (int c = 0; c < C; ++c) v[c] = iqt::cmul(read(c * M1 + n), __ldg(&w_in[c * M1 + n]));
+      iqt::dft_small<C>(v, false);
+      part(0)[R::pad(n)] = v[0];
 #pragma unroll
-    for (int r = 1; r < C; ++r)
-      part(r)[R::pad(n)] = iqt::cmul(v[r], __ldg(&tw[S::fwd_cross + r * M1 + n]));
+      for (int r = 1; r < C; ++r)
+        part(r)[R::pad(n)] = iqt::cmul(v[r], __ldg(&tw[S::fwd_cross + r * M1 + n]));
+    }
+  };
+  if (edge.reaches(start, N1)) {
+    forward([&](int i) { return edge.read(xf, xi, start, i, blockIdx.y); });
+  } else {
+    forward([&](int i) { return Src<E>::read(xf, xi, i); });
   }
   cluster.sync();
 
@@ -518,13 +586,18 @@ constexpr int kClusterThreads = 512;
 
 // one launch's arguments: frames (batch, n_frames) of element type E at x +
 // b batch_stride + m frame_stride (elements of E; for planes the imaginary
-// plane plane_stride elements after the real one), y (batch, n_frames,
-// nfft_out) complex64; tw the register / cluster kernel's table (n_tw
+// plane plane_stride elements after the real one), the halo past a row's
+// n_in samples where n_in > 0 (edge), y (batch, n_frames, nfft_out)
+// complex64; tw the register / cluster kernel's table (n_tw
 // entries); tw_in, perm_in, tw_out, perm_out and the plans the generic
 // kernel's
 struct FrameArgs {
   const void* x;
   long long batch_stride, frame_stride, plane_stride;
+  // the rows' end and the halo past it (Edge; n_in = 0: none)
+  const void* halo;
+  long long halo_batch, halo_plane;
+  int n_in, n_halo;
   const float2 *w_in, *w_out, *tw;
   int n_tw;
   float2* y;
@@ -534,6 +607,11 @@ struct FrameArgs {
   const int *perm_in, *perm_out;
   iqt::FftPlan plan_in, plan_out;
 };
+
+template <class E>
+Edge<E> edge_of(const FrameArgs& a) {
+  return Edge<E>{static_cast<const E*>(a.halo), a.halo_batch, a.halo_plane, a.n_in, a.n_halo};
+}
 
 template <int N1, int N2, int C, int T, class E>
 cudaLaunchConfig_t cluster_config(dim3 grid, cudaStream_t stream, cudaLaunchAttribute* attr) {
@@ -591,9 +669,9 @@ cudaError_t frames_generic(const FrameArgs& a) {
 #define IQT_FRAMES(P)                                                                          \
   if (need <= P) {                                                                             \
     fused_ola_frames_kernel<P, E><<<grid, kFrameThreads, smem, a.stream>>>(                    \
-        static_cast<const E*>(a.x), a.batch_stride, a.frame_stride, a.plane_stride, a.w_in,    \
-        a.tw_in, a.perm_in, a.w_out, a.tw_out, a.perm_out, a.y, a.n_frames, a.plan_in,         \
-        a.plan_out, a.zero_lo, a.zero_hi, a.in_lo, a.out_lo, a.out_hi);                        \
+        static_cast<const E*>(a.x), a.batch_stride, a.frame_stride, a.plane_stride,            \
+        edge_of<E>(a), a.w_in, a.tw_in, a.perm_in, a.w_out, a.tw_out, a.perm_out, a.y,         \
+        a.n_frames, a.plan_in, a.plan_out, a.zero_lo, a.zero_hi, a.in_lo, a.out_lo, a.out_hi); \
     return cudaGetLastError();                                                                 \
   }
   IQT_FRAMES(1)
@@ -616,8 +694,8 @@ cudaError_t frames_reg(const FrameArgs& a) {
     fused_ola_frames_reg_kernel<N1, N2, kRegThreads, E>                                        \
         <<<dim3(a.n_frames, a.batch), kRegThreads, RegShape<N1, N2>::smem, a.stream>>>(        \
             static_cast<const E*>(a.x), a.batch_stride, a.frame_stride, a.plane_stride,        \
-            a.w_in, a.w_out, a.tw, a.y, a.n_frames, a.zero_lo, a.zero_hi, a.in_lo, a.out_lo,   \
-            a.out_hi);                                                                         \
+            edge_of<E>(a), a.w_in, a.w_out, a.tw, a.y, a.n_frames, a.zero_lo, a.zero_hi,       \
+            a.in_lo, a.out_lo, a.out_hi);                                                      \
     return cudaGetLastError();                                                                 \
   }
   IQT_FRAMES_REG_PAIRS(IQT_LAUNCH_REG)
@@ -639,8 +717,9 @@ cudaError_t frames_cluster(const FrameArgs& a) {
         dim3(a.n_frames * C, a.batch), a.stream, &attr);                                      \
     const cudaError_t err = cudaLaunchKernelEx(                                               \
         &cfg, fused_ola_frames_cluster_kernel<N1, N2, C, kClusterThreads, E>,                 \
-        static_cast<const E*>(a.x), a.batch_stride, a.frame_stride, a.plane_stride, a.w_in,   \
-        a.w_out, a.tw, a.y, a.n_frames, a.zero_lo, a.zero_hi, a.in_lo, a.out_lo, a.out_hi);   \
+        static_cast<const E*>(a.x), a.batch_stride, a.frame_stride, a.plane_stride,           \
+        edge_of<E>(a), a.w_in, a.w_out, a.tw, a.y, a.n_frames, a.zero_lo, a.zero_hi, a.in_lo, \
+        a.out_lo, a.out_hi);                                                                  \
     if (err != cudaSuccess) return err;                                                       \
     return cudaGetLastError();                                                                \
   }

@@ -7,23 +7,28 @@
 //   N1 points, the [zero_lo, zero_hi) mask, the trim of bins [in_lo, ...)
 //   to [out_lo, out_hi) of an N2-bin spectrum, inverse DFT, times w_out /
 //   N2), with the contract of ops/kernels/fused_ola.py fused_ola_frames.
-//   The host route (frames_route 'split') takes every pair whose larger
-//   frame no block holds and that CLUSTER_PAIRS does not list, where both
-//   sizes are C M, M a size of csrc/fft_reg.cuh's plans (1024-16384) and
-//   C <= 64 of any prime factors (the forward and inverse may
-//   differ: N1 = C1 M1, N2 = C2 M2). The frames are complex64, or (2, n)
-//   planes of float32, int16 or bfloat16 (the storage tiers), which the
-//   forward radix step, the only kernel that reads them, dequantizes on
-//   load (csrc/ola_frames.cuh Src).
+//   The host route (frames_route 'split') takes every pair that
+//   CLUSTER_PAIRS does not list and whose larger frame no block holds, or
+//   whose sizes have a prime factor above 7 (which the one-block generic
+//   kernel has no pass for), where both sizes are C M, M a size of
+//   csrc/fft_reg.cuh's plans (1024-16384) and C <= 2048 of any prime
+//   factors (the forward and inverse may differ: N1 = C1 M1, N2 = C2 M2).
+//   The frames are complex64, or (2, n) planes of float32, int16 or
+//   bfloat16 (the storage tiers), which the forward radix step, the only
+//   kernel that reads them, dequantizes on load (csrc/ola_frames.cuh Src),
+//   either as a batch of frames or straight from rows of n_in samples at a
+//   hop, the samples past a row's end from its halo (Edge: the 2:1 route
+//   of ops/kernels/fused_ola.py, whose overlap-add is csrc/ola_add.cu).
 //
 // The algorithm is the cluster kernel's (csrc/fft_cluster.cuh), with
 // device memory in place of distributed shared memory as the exchange
 // between parts, and one launch per step:
 //   1. split_radix_kernel<false>, the forward radix-C1 step: a block takes
 //      TN consecutive offsets n < M1 of one frame (TN a power of two from
-//      32 to 512 at C1 <= 64, C1 TN <= 2048: csrc/split_radix.cuh
-//      tile_log2); it reads samples c M1 + n (c < C1) times w_in (TN
-//      consecutive samples a part: coalesced), takes their C1-point DFT in
+//      1 to 512, C1 TN <= 2048: 32 at C1 = 64, 8 at C1 = 160, 1 above
+//      1024; csrc/split_radix.cuh tile_log2); it reads samples c M1 + n
+//      (c < C1) times w_in (TN consecutive samples a part: coalesced from
+//      TN = 8 up), takes their C1-point DFT in
 //      shared memory (split_radix.cuh radix_step: Stockham passes of radix
 //      4, 2, 3, 5 and 7 over the TN columns, and of any prime above 7
 //      through its generic pass), and stores output r times
@@ -90,10 +95,13 @@ namespace S = iqt::split;
 // / C), j < C, with the direction's sign); output (r, n) times post[r * m +
 // n] and `scale` to out + r * m + n. `in` and `out` may be the same frames
 // (step 4, E = float2): a block reads all its points before it writes any.
+// `edge` (step 1): a frame that reaches past its row's n_in samples reads
+// the samples there from the row's halo, zeros after it (csrc/ola_frames.cuh
+// Edge; n_in = 0 at step 4 and wherever the frames lie inside their rows).
 template <bool INV, class E>
 __global__ void __launch_bounds__(S::kRadixThreads)
 split_radix_kernel(const E* in, long long in_batch, long long in_frame, long long in_plane,
-                   const float2* __restrict__ pre, const float2* __restrict__ post, float scale,
+                   iqt::ola::Edge<E> edge, const float2* __restrict__ pre, const float2* __restrict__ post, float scale,
                    const float2* __restrict__ dft_tab, float2* out, long long out_batch,
                    long long out_frame, int m, int c, int lt, S::RadixPlan plan) {
   extern __shared__ float2 smem[];
@@ -103,19 +111,32 @@ split_radix_kernel(const E* in, long long in_batch, long long in_frame, long lon
   const int tiles = m >> lt;
   const int f = blockIdx.x / tiles;
   const int n0 = (blockIdx.x - f * tiles) << lt;
-  const E* src = in + blockIdx.y * in_batch + f * in_frame + n0;
+  const long long start = f * in_frame;
+  const E* src = in + blockIdx.y * in_batch + start + n0;
   float2* dst = out + blockIdx.y * out_batch + f * out_frame + n0;
   for (int e = threadIdx.x; e < c; e += S::kRadixThreads) tab[e] = __ldg(&dft_tab[e]);
-  for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
-    const int at = (e >> lt) * m + (e & (tn - 1));
-    float2 v;
-    if constexpr (iqt::ola::Src<E>::kRows == 1) {
-      v = src[at];
-    } else {
-      v = make_float2(iqt::ola::to_float(src[at]), iqt::ola::to_float(src[in_plane + at]));
+  if (edge.reaches(start, static_cast<long long>(c) * m)) {
+    // the frame at src - n0 (its imaginary plane in_plane further)
+    const E* xf = src - n0;
+    const E* xi = iqt::ola::Src<E>::imag(xf, in_plane);
+    for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
+      const int at = (e >> lt) * m + (e & (tn - 1));
+      float2 v = edge.read(xf, xi, start, n0 + at, blockIdx.y);
+      if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
+      buf[0][e] = v;
     }
-    if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
-    buf[0][e] = v;
+  } else {
+    for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
+      const int at = (e >> lt) * m + (e & (tn - 1));
+      float2 v;
+      if constexpr (iqt::ola::Src<E>::kRows == 1) {
+        v = src[at];
+      } else {
+        v = make_float2(iqt::ola::to_float(src[at]), iqt::ola::to_float(src[in_plane + at]));
+      }
+      if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
+      buf[0][e] = v;
+    }
   }
   __syncthreads();
   const int cur = S::radix_step<INV>(buf, tab, c, lt, plan);
@@ -288,7 +309,9 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
 // The split frame chain: frames x (batch, n_frames, nfft) of `layout`
 // (csrc/fused_ola.cu IQT_LAYOUTS: 0 complex64, 1-3 planes of float32, int16,
 // bfloat16, the imaginary plane plane_stride elements after the real one)
-// at the given element strides (the last one 1), y (batch, n_frames,
+// at the given element strides (the last one 1), a row's samples at and past
+// n_in > 0 read from the halo (n_halo a row at halo + b halo_batch, the
+// imaginary plane halo_plane further; n_in = 0: none), y (batch, n_frames,
 // nfft_out) contiguous, a (batch, n_frames, nfft) contiguous scratch. nfft = c1 m1,
 // nfft_out = c2 m2; plan1 / plan2 the radix steps' plans, host arrays of
 // the stage count and the radices (csrc/split_radix.cuh plan_from);
@@ -298,7 +321,9 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
 // and step 4 where c2 > 1, on `stream`; returns the first error. A size or
 // table that no instance takes: cudaErrorInvalidValue, before any launch.
 extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
-                             long long frame_stride, long long plane_stride, const void* w_in,
+                             long long frame_stride, long long plane_stride, const void* halo,
+                             long long halo_batch, long long halo_plane, int n_in, int n_halo,
+                             const void* w_in,
                              const void* w_out, const void* tw_fwd, const void* tw_inv,
                              const void* fwd_cross, const void* inv_cross,
                              const void* dft1, const void* dft2, void* a, void* y, int n_fwd,
@@ -326,6 +351,7 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
     split_radix_kernel<false, E><<<dim3(n_frames * (m1 >> lt1), batch), S::kRadixThreads,
                                    S::radix_smem(c1), s>>>(
         static_cast<const E*>(x), batch_stride, frame_stride, plane_stride,
+        iqt::ola::Edge<E>{static_cast<const E*>(halo), halo_batch, halo_plane, n_in, n_halo},
         static_cast<const float2*>(w_in), static_cast<const float2*>(fwd_cross), 1.0f,
         static_cast<const float2*>(dft1), ap, n_frames * n1, n1, m1, c1, lt1, p1);
   };
@@ -350,7 +376,8 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   // 4. the inverse radix-c2 step in place, scaled, windowed
   split_radix_kernel<true, float2>
       <<<dim3(n_frames * (m2 >> lt2), batch), S::kRadixThreads, S::radix_smem(c2), s>>>(
-          yp, n_frames * n2, n2, 0, nullptr, static_cast<const float2*>(w_out), inv_n2,
+          yp, n_frames * n2, n2, 0, iqt::ola::Edge<float2>{}, nullptr,
+          static_cast<const float2*>(w_out), inv_n2,
           static_cast<const float2*>(dft2), yp, n_frames * n2, n2, m2, c2, lt2, p2);
   return cudaGetLastError();
 }

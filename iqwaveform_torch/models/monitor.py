@@ -12,12 +12,16 @@ of any length chunk by chunk at fixed memory (BASELINE config #5), and
 the statistics merged by all-reduces).
 
 On the card each stage is a hand-written CUDA kernel (ops.kernels:
-``fused_ola`` / ``fused_ola_strided`` at 2:1 overlap, ``fused_ola_frames``
-with a grouped overlap-add for the blackman (R=3) and blackmanharris (R=5)
-COLA windows, ``chan_stats``, ``hist`` or, for ``apd_kernel='packed'``,
-``colhist``), where it takes the design's shapes (``routes``), else the
-kernel's plain version on the card; on the CPU each is that kernel's
-plain PyTorch version. The
+``fused_ola`` / ``fused_ola_strided`` at 2:1 overlap, the hamming COLA
+window, at every pair the JAX package's strided kernel takes (the 2:1
+kernels with their overlap-add by atomics at powers of two up to 16384,
+elsewhere a frame kernel reading the frames straight from the capture and
+its halo, then ``ola_add``), ``fused_ola_frames`` with a grouped
+overlap-add for the blackman (R=3) and blackmanharris (R=5) COLA windows,
+``chan_stats``, ``hist`` or, for ``apd_kernel='packed'``, ``colhist``),
+where it takes the design's shapes (``routes``), else the kernel's plain
+version on the card; on the CPU each is that kernel's plain PyTorch
+version. The
 design layer (windows, bin geometry, APD edges) is host numpy, equal bit
 for bit to the JAX package's.
 """
@@ -373,12 +377,16 @@ class WidebandMonitor:
         self._smem = _build.smem_optin(dev) if dev.type == 'cuda' else H100_SMEM_OPTIN
         self.routes = {}
 
-        # the OLA: the 2:1 kernel with its in-kernel overlap-add where it
-        # applies (hamming at power-of-two sizes), else the frame-batch
-        # kernel and a grouped overlap-add in a fixed order
-        # (iqwaveform_tpu/models/monitor.py:789-804); frames no CUDA frame
-        # kernel takes (ROADMAP Queue 2 item 1) take the torch.fft chain
-        # there, as ola_filter does
+        # the OLA: at 2:1 (hamming) the 2:1 route of ola_route, with the
+        # overlap-add, the halo and the tail on the card (the 2:1 kernels at
+        # powers of two up to 16384, else a frame kernel reading the capture
+        # where it lies and ola_add_kernel), at every pair the JAX package
+        # arms its strided kernel (iqwaveform_tpu/models/monitor.py:528-550);
+        # beyond 2:1 the frame-batch kernel and a grouped overlap-add in a
+        # fixed order (iqwaveform_tpu/models/monitor.py:789-804); frames no
+        # CUDA frame kernel takes (above 2^21 points where no part size
+        # divides with C <= 2048, ROADMAP Queue 2 item 1) take the torch.fft
+        # chain there, as ola_filter does
         self._strided = fused_ola_cuda_supported(
             d.nfft, d.nfft_out, self.noverlap_in, self.noverlap_out
         )
@@ -471,7 +479,8 @@ class WidebandMonitor:
         the storage tier's planes: beyond 2:1 the frame kernels, at 2:1
         ``fused_ola_strided`` at the 'bf16' and 'i16' tiers (no tail; the
         samples past the last whole hop, zero-extended, as its halo), and
-        ``fused_ola`` the complex64 samples of the float32 tiers."""
+        ``fused_ola`` the complex64 samples of the float32 tiers, on the
+        route of ``routes['ola']`` (no copy of the input either way)."""
         src = self._stored(x)
         if self._strided and plain:
             return fused_ola_plain(dequantize(src), **self.ola_kwargs)
@@ -498,9 +507,10 @@ class WidebandMonitor:
         the same layout) or zeros. Returns (y, tail): the resampled (...,
         N / hop_in * hop_out) complex64 and the final frame's dangling (...,
         noverlap_out), or None for ``tail=False``. At 2:1 one launch of
-        ``fused_ola_strided``; beyond, the grouped overlap-add of the OLA
-        route's frames, which read the storage tier's planes (complex64 at
-        the float32 tiers)."""
+        ``fused_ola_strided`` (its halo read past the end in the kernel, its
+        overlap-add and tail in the kernel or in ``ola_add``); beyond, the
+        grouped overlap-add of the OLA route's frames, which read the storage
+        tier's planes (complex64 at the float32 tiers)."""
         n_frames = src.shape[-1] // self.hop_in
         if self._strided:
             fn = fused_ola_strided_plain if plain else fused_ola_strided

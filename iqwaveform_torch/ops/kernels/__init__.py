@@ -17,6 +17,8 @@ from .fused_ola import (
     fused_ola_plain,
     fused_ola_strided,
     fused_ola_strided_plain,
+    ola_add,
+    ola_add_plain,
 )
 from .hist import hist, hist_plain
 from .spectrogram import (
@@ -29,7 +31,7 @@ from .upfirdn import upfirdn_cuda, upfirdn_plain
 
 KERNELS = (
     fused_ola, chan_stats, hist, spectrogram_dB, spectrogram_levels, colhist,
-    fused_ola_frames, upfirdn_cuda, corr, fused_ola_strided,
+    fused_ola_frames, upfirdn_cuda, corr, fused_ola_strided, ola_add,
 )
 
 __all__ = [
@@ -48,6 +50,8 @@ __all__ = [
     'fused_ola_strided_plain',
     'hist',
     'hist_plain',
+    'ola_add',
+    'ola_add_plain',
     'spectrogram_dB',
     'spectrogram_dB_plain',
     'spectrogram_levels',

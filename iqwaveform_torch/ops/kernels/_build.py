@@ -58,7 +58,7 @@ CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
     'common.cu', 'fused_ola.cu', 'fused_ola_f32.cu', 'fused_ola_i16.cu', 'fused_ola_bf16.cu',
     'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu', 'spectrogram.cu',
-    'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu',
+    'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu', 'ola_add.cu',
 )
 HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh', 'ola_frames.cuh',
            'split_radix.cuh')
@@ -74,6 +74,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+# the frame entries' rows' end and halo (csrc/ola_frames.cuh Edge): the
+# halo's pointer, its row and plane strides, n_in and n_halo
+_EDGE = [_P, _L, _L, _I, _I]
 
 # C signatures: pointers and the stream as c_void_p (a plain int would be
 # cut to 32 bits), sizes as int, quantization constants as float
@@ -84,13 +87,15 @@ SIGNATURES = {
     'iqt_fused_ola': ([_P, _I, _P, _I] + [_P] * 6 + [_I] * 13 + [_P], _I),
     'iqt_fused_ola_reg': ([_P, _I, _P, _I] + [_P] * 5 + [_I] * 14 + [_P], _I),
     'iqt_fused_ola_frames_prepare': ([_I], _I),
-    'iqt_fused_ola_frames': ([_P, _I, _L, _L, _L] + [_P] * 7 + [_I] * 13 + [_P], _I),
-    'iqt_fused_ola_frames_reg': ([_P, _I, _L, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
-    'iqt_fused_ola_frames_cluster': ([_P, _I, _L, _L, _L] + [_P] * 4 + [_I] * 10 + [_P], _I),
+    'iqt_fused_ola_frames': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 7 + [_I] * 13 + [_P], _I),
+    'iqt_fused_ola_frames_reg': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10 + [_P], _I),
+    'iqt_fused_ola_frames_cluster': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10 + [_P],
+                                     _I),
     'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _I, _P], _I),
     'iqt_ola_split_prepare': ([_I], _I),
-    'iqt_ola_split': ([_P, _I, _L, _L, _L] + [_P] * 10 + [_I] * 6 + [_P, _I, _I, _P] + [_I] * 3
-                      + [_P], _I),
+    'iqt_ola_split': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 10 + [_I] * 6 + [_P, _I, _I, _P]
+                      + [_I] * 3 + [_P], _I),
+    'iqt_ola_add': ([_P] * 3 + [_I] * 3 + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),
     'iqt_chan_power_reg': ([_P] * 4 + [_I] * 8 + [_P], _I),

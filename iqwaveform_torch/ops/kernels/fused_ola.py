@@ -1,45 +1,56 @@
 """Fused OLA bandpass + rational resample: the CUDA kernels and their
 plain PyTorch versions.
 
-Two wrappers of the kernels of ``csrc/fused_ola.cu``, one block per frame
-(one thread-block cluster per frame on the cluster route):
+Three wrappers of the kernels of ``csrc/fused_ola.cu``, ``csrc/ola_frames.cuh``,
+``csrc/ola_split.cu`` and ``csrc/ola_add.cu``:
 
 * :func:`fused_ola_strided` and :func:`fused_ola` replace the TPU kernel
   ``fused_ola_strided`` (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571):
   framing at 2:1 overlap, analysis window, forward DFT, passband mask,
-  trim nfft -> nfft_out, inverse DFT, shift window and overlap-add, in
-  one kernel. :func:`fused_ola_strided` has the TPU kernel's contract:
-  (2, N) sample planes of float32, int16 or bfloat16 (the storage tiers,
+  trim nfft -> nfft_out, inverse DFT, shift window and overlap-add.
+  :func:`fused_ola_strided` has the TPU kernel's contract: (2, N) sample
+  planes of float32, int16 or bfloat16 (the storage tiers,
   :func:`to_storage`) or complex64, dequantized on load, a halo read past
   the end and the final frame's tail returned; :func:`fused_ola` reads
-  complex64, zero-extends the end and drops the tail. At the pairs of
-  :data:`OLA_REG_PAIRS` (the flagship 16384 -> 8192, 8192 -> 4096 and
-  16384 -> 4096) both launch ``fused_ola_reg_kernel``, on the
-  register-resident passes of the frame kernel below; at every other pair
-  the radix-2 ``fused_ola_kernel`` (:func:`ola_route` picks by size,
-  before the launch).
+  complex64, zero-extends the end and drops the tail. Both take every 2:1
+  pair the JAX kernel takes (:func:`fused_ola_cuda_supported`), on the
+  route of :func:`ola_route`, picked by size before the launch: at powers
+  of two up to 16384 one kernel a call with the overlap-add in it
+  (``fused_ola_reg_kernel`` at :data:`OLA_REG_PAIRS`: the flagship 16384 ->
+  8192, 8192 -> 4096 and 16384 -> 4096; the radix-2 ``fused_ola_kernel`` at
+  the others); at every other pair ('<frame route>+add': 12288 -> 4096,
+  the cluster pairs 24576 / 32768 -> 8192 and 32768 -> 16384, 20480 -> 4096,
+  the split pairs from 32768 -> 4096 to 524288 -> 16384) the frame kernel
+  of :func:`frames_route` reading the frames straight from the rows at
+  hop_in, the last frame's samples past a row's end from its halo
+  (``csrc/ola_frames.cuh`` Edge), into (batch, frames, nfft_out) of
+  scratch, then the 2:1 overlap-add and the tail in ``ola_add_kernel``
+  (:func:`ola_add`). No copy of the input appends the halo.
 * :func:`fused_ola_frames` replaces ``fused_ola_pallas`` (:394) and
   ``fused_ola_packed`` (:492): the same per-frame chain on a batch of
   complex64 frames, or on frames read at a hop from (2, N) sample planes of
-  the storage tiers (float32, int16, bfloat16, dequantized on load), at
-  sizes 2^a 3^b 5^c 7^d, with no overlap-add. At the size pairs of
-  :data:`REG_PAIRS` it launches ``fused_ola_frames_reg_kernel``,
-  register-resident radix-16 passes compiled for those sizes
-  (``csrc/fft_reg.cuh``); at the pairs of :data:`CLUSTER_PAIRS` (frames of
-  24576-98304 points) ``fused_ola_frames_cluster_kernel``, each frame
-  split over a thread-block cluster of C blocks (``csrc/fft_cluster.cuh``);
-  at every other pair whose larger frame one block cannot hold, where both
-  sizes split into C M with M a size of :data:`REG_PLANS` and C <= 64
-  (:func:`split_shape`), the split route of ``csrc/ola_split.cu``: a
+  the storage tiers (float32, int16, bfloat16, dequantized on load), with
+  no overlap-add. At the size pairs of :data:`REG_PAIRS` it launches
+  ``fused_ola_frames_reg_kernel``, register-resident radix-16 passes
+  compiled for those sizes (``csrc/fft_reg.cuh``); at the pairs of
+  :data:`CLUSTER_PAIRS` (frames of 24576-98304 points)
+  ``fused_ola_frames_cluster_kernel``, each frame split over a thread-block
+  cluster of C blocks (``csrc/fft_cluster.cuh``); at every other pair
+  whose larger frame one block cannot hold, or whose sizes have a prime
+  factor above 7, where both sizes split into C M with M a size of
+  :data:`REG_PLANS` and C <= 2048 (:func:`split_shape`: every multiple of
+  1024 up to 2^21 points), the split route of ``csrc/ola_split.cu``: a
   radix-C step (``csrc/split_radix.cuh``, prime factors above 7 through
   its generic pass), the M-point passes and the
   inverse's through device memory, four launches (three where the output
-  is one part); at every other size the generic mixed-radix
-  ``fused_ola_frames_kernel`` (:func:`frames_route` picks by size, before
-  the launch). The public
-  ``ola_filter`` / ``oaresample`` and the monitor's overlap of more than
-  2:1 (blackman R=3, blackmanharris R=5) add its frames up outside, as a
-  sum of R groups in a fixed order (:func:`ola_grouped`).
+  is one part); at every other size 2^a 3^b 5^c 7^d the generic
+  mixed-radix ``fused_ola_frames_kernel`` (:func:`frames_route` picks by
+  size, before the launch). The public ``ola_filter`` / ``oaresample`` and
+  the monitor's overlap of more than 2:1 (blackman R=3, blackmanharris
+  R=5) add its frames up outside, as a sum of R groups in a fixed order
+  (:func:`ola_grouped`).
+* :func:`ola_add`: the 2:1 overlap-add of frames, the second half of the
+  '+add' routes.
 
 What bounds each on the card (device memory) and what its design does
 about that are set out in the CUDA source.
@@ -81,14 +92,18 @@ __all__ = [
     'fused_ola_strided',
     'fused_ola_strided_plain',
     'frames_route',
+    'ola_add',
+    'ola_add_plain',
     'ola_grouped',
     'ola_route',
     'reg_forward_twiddles',
     'reg_twiddles',
     'split_plan',
     'split_shape',
+    'split_limits',
     'split_smem',
     'split_takes',
+    'split_tile_log2',
     'split_twiddles',
     'storage_dtype',
     'stored',
@@ -153,11 +168,15 @@ CLUSTER_PAIRS = {
 # and hamming at 122.88 -> 61.44 and 122.88 -> 30.72 MS/s with
 # min_fft_size=4095
 OLA_REG_PAIRS = ((16384, 8192), (8192, 4096), (16384, 4096))
-# the frame route's largest radix step: the 122.88 MS/s grid needs 40
-# (655360 = 40 x 16384). csrc/split_radix.cuh runs up to kMaxC = 2048
-# parts (the channelizer's split route takes them); frames of more than 64
-# parts are left to a later change (ROADMAP Queue 2 item 1)
-SPLIT_MAX_C = 64
+# the frame route's largest radix step, csrc/split_radix.cuh kMaxC: every
+# multiple of 1024 up to 2^21 points has a split shape, and above it every
+# size that a part size of REG_PLANS divides with C <= 2048 (the 122.88 MS/s
+# grid's largest frame, blackmanharris at 122.88 -> 3.84 MS/s, is 2621440 =
+# 160 x 16384); the channelizer's split route has the same limit
+SPLIT_MAX_C = 2048
+# csrc/split_radix.cuh kPoints: a radix step's tile holds C TN <= 2048
+# points, TN a power of two up to 512 (tile_log2)
+_SPLIT_TILE_POINTS = 2048
 # the split route's inverse part sizes: REG_PLANS but 15360, whose inverse
 # passes kernel spilled (a 15360-point output part splits as 3 x 5120)
 SPLIT_INV_PLANS = tuple(m for m in REG_PLANS if m != 15360)
@@ -267,7 +286,8 @@ def split_shape(n: int, inverse: bool = False):
     with n = C M and C at most :data:`SPLIT_MAX_C`, of any prime factors
     (C = 1 where n is itself such a size; csrc/split_radix.cuh takes a
     prime above 7 through its generic pass); None where there is none
-    (fewer than 2^10 in n, or C above SPLIT_MAX_C)."""
+    (fewer than 2^10 in n, or, above 2^21 points, C above SPLIT_MAX_C at
+    every part size: 2053 x 1024 = 2102272)."""
     for m in sorted(SPLIT_INV_PLANS if inverse else REG_PLANS, reverse=True):
         c, rest = divmod(n, m)
         if rest == 0 and 1 <= c <= SPLIT_MAX_C:
@@ -281,14 +301,51 @@ def split_plan(nfft: int, nfft_out: int) -> tuple:
 
 
 def split_takes(nfft: int, nfft_out: int) -> bool:
-    """the split route's pairs: the larger frame is above one H100 block's
-    shared memory (8 bytes a point), :data:`CLUSTER_PAIRS` does not list
-    the pair, and both sizes have a :func:`split_shape`."""
+    """the split route's pairs: :data:`CLUSTER_PAIRS` does not list the
+    pair, both sizes have a :func:`split_shape`, and either the larger
+    frame is above one H100 block's shared memory (8 bytes a point) or a
+    size has a prime factor above 7, for which the one-block generic kernel
+    has no pass (11264 -> 1024 and 22528 -> 2048, 11 parts of 1024 and of
+    2048, through the radix step's prime pass)."""
     return (
-        8 * max(nfft, nfft_out) > H100_SMEM_OPTIN
-        and (nfft, nfft_out) not in CLUSTER_PAIRS
+        (nfft, nfft_out) not in CLUSTER_PAIRS
         and None not in split_plan(nfft, nfft_out)
+        and (8 * max(nfft, nfft_out) > H100_SMEM_OPTIN or not (_smooth(nfft) and _smooth(nfft_out)))
     )
+
+
+def split_tile_log2(c: int) -> int:
+    """log2 of a radix step's tile width at ``c`` parts (csrc/split_radix.cuh
+    tile_log2): the widest power of two up to 512 columns with c TN <=
+    2048 points (32 at c = 64, 8 at c = 160, 1 above 1024)."""
+    lt = 9
+    while lt > 0 and (c << lt) > _SPLIT_TILE_POINTS:
+        lt -= 1
+    return lt
+
+
+def split_limits(nfft: int, nfft_out: int, batch: int, n_frames: int, device) -> None:
+    """raise before any launch where the split route's kernels cannot run
+    ``batch`` rows of ``n_frames`` frames of the pair on ``device``: a
+    tile that does not divide its parts, a grid of 2^31 blocks or more
+    along x (frames x M / TN of a radix step, frames x C of the passes), or
+    more device memory than the card holds for the scratch ``a`` (batch x
+    frames x nfft complex64) and the frames out (batch x frames x nfft_out),
+    beside the cross-twiddle tables (C x M a side)."""
+    for c, m in split_plan(nfft, nfft_out):
+        tn = 1 << split_tile_log2(c)
+        if m % tn:
+            raise ValueError(f'the split route\'s tile of {tn} columns does not divide {m}')
+        if n_frames * (m // tn) >= 2**31 or n_frames * c >= 2**31:
+            raise ValueError(
+                f'{n_frames} frames of {c} x {m} points need 2^31 blocks or more on the split route')
+    need = 8 * (batch * n_frames * (nfft + nfft_out) + nfft + nfft_out)
+    total = torch.cuda.get_device_properties(device).total_memory
+    if need > total:
+        raise MemoryError(
+            f'the split route at {nfft} -> {nfft_out} needs {need / 2**30:.2f} GiB of scratch, '
+            f'frames and tables for {batch} x {n_frames} frames; the card holds '
+            f'{total / 2**30:.2f} GiB')
 
 
 def split_smem(m: int) -> int:
@@ -572,39 +629,13 @@ def _launch_frames(
         raise ValueError('fused_ola_frames needs at least one frame')
     if batch >= 2**16 or n_frames >= 2**31:
         raise ValueError('fused_ola_frames takes batches below 2**16 and below 2**31 frames')
-    (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
 
-    layout = LAYOUTS[frames.dtype]
     y = torch.empty((batch, n_frames, nfft_out), dtype=torch.complex64, device=dev)
-    _build.prepare('iqt_fused_ola_frames_prepare', dev)
-    zero_hi = nfft if zero_hi is None else int(zero_hi)
-    if route == 'split':
-        err = _launch_split(f3, layout, strides, y, w_in, w_out=w_shift_out, nfft=nfft,
-                            nfft_out=nfft_out, zero_lo=int(zero_lo), zero_hi=zero_hi,
-                            in_lo=int(in_lo), out_lo=int(out_lo), out_hi=int(out_hi))
-    elif route in ('reg', 'cluster'):
-        if route == 'reg':
-            tw, entry = reg_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_reg'
-        else:
-            _require_cluster_residency(nfft, nfft_out, dev, layout)
-            tw, entry = cluster_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_cluster'
-        err = getattr(_build.library(), entry)(
-            f3.data_ptr(), layout, *strides, w_in.data_ptr(),
-            w_shift_out.data_ptr(), tw.data_ptr(), y.data_ptr(), tw.numel(),
-            batch, n_frames, nfft, nfft_out, int(zero_lo), zero_hi,
-            int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
-        )
-    else:
-        err = _build.library().iqt_fused_ola_frames(
-            f3.data_ptr(), layout, *strides,
-            w_in.data_ptr(), _build.twiddles_full(nfft, dev).data_ptr(),
-            _build.digit_reversal(nfft, dev).data_ptr(),
-            w_shift_out.data_ptr(), _build.twiddles_full(nfft_out, dev).data_ptr(),
-            _build.digit_reversal(nfft_out, dev).data_ptr(), y.data_ptr(),
-            batch, n_frames, nfft, *_build.plan_code(nfft),
-            nfft_out, *_build.plan_code(nfft_out), int(zero_lo), zero_hi,
-            int(in_lo), int(out_lo), int(out_hi), _build.stream_of(frames),
-        )
+    err = _frames_kernel(
+        f3, strides, y, route, w_in=w_in, w_shift_out=w_shift_out, nfft=nfft,
+        nfft_out=nfft_out, zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
+        bounds_out=bounds_out,
+    )
     _build.check(err, f'fused_ola_frames ({route} kernel, {frames.dtype} input)')
     fused_ola_frames.launches += 1
     fused_ola_frames.route_launches[route] += 1
@@ -612,13 +643,66 @@ def _launch_frames(
     return y.reshape(*lead, n_frames, nfft_out)
 
 
-def _launch_split(f3, layout, strides, y, w_in, *, w_out, nfft, nfft_out, zero_lo, zero_hi,
-                  in_lo, out_lo, out_hi) -> int:
+# a launch whose frames all lie inside their rows: no halo, n_in = 0
+# (csrc/ola_frames.cuh Edge)
+_NO_EDGE = (None, 0, 0, 0, 0)
+
+
+def _frames_kernel(src, strides, y, route, *, edge=_NO_EDGE, w_in, w_shift_out, nfft, nfft_out,
+                   zero_lo, zero_hi, bounds_in, bounds_out) -> int:
+    """launch ``route``'s frame kernel ('reg', 'cluster', 'split' or
+    'generic') on the frames at ``src`` (elements of its type of
+    :data:`LAYOUTS` at ``strides``: a batch row's, a frame's, the imaginary
+    plane's) into ``y`` (batch, frames, nfft_out) complex64; ``edge`` =
+    (halo or None, its row stride, its plane stride, n_in, n_halo): a row's
+    samples at and past n_in come from the halo, zeros after it (n_in = 0:
+    every frame inside its row). Returns the C entry's error code; counts
+    nothing."""
+    dev = src.device
+    layout = LAYOUTS[src.dtype]
+    batch, n_frames = y.shape[0], y.shape[1]
+    halo, *edge_args = edge
+    edge = [None if halo is None else halo.data_ptr(), *edge_args]
+    (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
+    _build.prepare('iqt_fused_ola_frames_prepare', dev)
+    zero_hi = nfft if zero_hi is None else int(zero_hi)
+    if route == 'split':
+        return _launch_split(src, layout, strides, edge, y, w_in, w_out=w_shift_out, nfft=nfft,
+                             nfft_out=nfft_out, zero_lo=int(zero_lo), zero_hi=zero_hi,
+                             in_lo=int(in_lo), out_lo=int(out_lo), out_hi=int(out_hi))
+    if route in ('reg', 'cluster'):
+        if route == 'reg':
+            tw, entry = reg_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_reg'
+        else:
+            _require_cluster_residency(nfft, nfft_out, dev, layout)
+            tw, entry = cluster_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_cluster'
+        return getattr(_build.library(), entry)(
+            src.data_ptr(), layout, *strides, *edge, w_in.data_ptr(),
+            w_shift_out.data_ptr(), tw.data_ptr(), y.data_ptr(), tw.numel(),
+            batch, n_frames, nfft, nfft_out, int(zero_lo), zero_hi,
+            int(in_lo), int(out_lo), int(out_hi), _build.stream_of(src),
+        )
+    return _build.library().iqt_fused_ola_frames(
+        src.data_ptr(), layout, *strides, *edge,
+        w_in.data_ptr(), _build.twiddles_full(nfft, dev).data_ptr(),
+        _build.digit_reversal(nfft, dev).data_ptr(),
+        w_shift_out.data_ptr(), _build.twiddles_full(nfft_out, dev).data_ptr(),
+        _build.digit_reversal(nfft_out, dev).data_ptr(), y.data_ptr(),
+        batch, n_frames, nfft, *_build.plan_code(nfft),
+        nfft_out, *_build.plan_code(nfft_out), int(zero_lo), zero_hi,
+        int(in_lo), int(out_lo), int(out_hi), _build.stream_of(src),
+    )
+
+
+def _launch_split(f3, layout, strides, edge, y, w_in, *, w_out, nfft, nfft_out, zero_lo,
+                  zero_hi, in_lo, out_lo, out_hi) -> int:
     """the split route's launches on the frames at ``f3`` (``layout``'s
     elements at ``strides``: a batch row's, a frame's, the imaginary
-    plane's) into ``y`` (batch, M, nfft_out); returns the C entry's error
-    code."""
+    plane's; ``edge`` the C entries' halo arguments) into ``y`` (batch, M,
+    nfft_out); returns the C entry's error code, after
+    :func:`split_limits`."""
     dev = f3.device
+    split_limits(nfft, nfft_out, y.shape[0], y.shape[1], dev)
     _build.prepare('iqt_ola_split_prepare', dev)
     (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
     _, off = _split_tables(nfft, nfft_out)
@@ -631,7 +715,7 @@ def _launch_split(f3, layout, strides, y, w_in, *, w_out, nfft, nfft_out, zero_l
     a = torch.empty((*y.shape[:2], nfft), dtype=torch.complex64, device=dev)
     plan1, plan2 = _build.radix_plan_arg(c1), _build.radix_plan_arg(c2)
     return _build.library().iqt_ola_split(
-        f3.data_ptr(), layout, *strides, w_in.data_ptr(), w_out.data_ptr(),
+        f3.data_ptr(), layout, *strides, *edge, w_in.data_ptr(), w_out.data_ptr(),
         at['fwd_passes'], at['inv_passes'], at['fwd_cross'], at['inv_cross'], at['fwd_dft'],
         at['inv_dft'], a.data_ptr(), y.data_ptr(), off['inv_passes'],
         off['fwd_cross'] - off['inv_passes'], y.shape[0], y.shape[1], c1, m1,
@@ -749,22 +833,44 @@ def fused_ola_plain(
     )
 
 
-def ola_route(nfft: int, nfft_out: int) -> str:
-    """the kernel :func:`fused_ola` launches for a supported pair:
-    ``'reg'`` (``fused_ola_reg_kernel``) at :data:`OLA_REG_PAIRS`,
-    ``'generic'`` (the radix-2 ``fused_ola_kernel``) at every other."""
-    return 'reg' if (nfft, nfft_out) in OLA_REG_PAIRS else 'generic'
-
-
-def fused_ola_cuda_supported(nfft: int, nfft_out: int, noverlap_in: int, noverlap_out: int) -> bool:
-    """the CUDA kernel's scope: power-of-two sizes up to MAX_CUDA_FFT at
-    exactly 2:1 overlap on both sides (the hamming COLA design)."""
+def _radix2_pair(nfft: int, nfft_out: int) -> bool:
+    """the sizes the older 2:1 kernels of csrc/fused_ola.cu take: powers of
+    two up to :data:`MAX_CUDA_FFT`."""
     return (
         _build.log2_exact(nfft) > 0
         and _build.log2_exact(nfft_out) > 0
         and max(nfft, nfft_out) <= MAX_CUDA_FFT
-        and nfft == 2 * noverlap_in
+    )
+
+
+def ola_route(nfft: int, nfft_out: int) -> str:
+    """the kernels :func:`fused_ola` and :func:`fused_ola_strided` launch
+    for a supported pair: ``'reg'`` (``fused_ola_reg_kernel``) at
+    :data:`OLA_REG_PAIRS`, ``'generic'`` (the radix-2 ``fused_ola_kernel``)
+    at every other pair of powers of two up to :data:`MAX_CUDA_FFT`; at
+    every other pair ``'<frame route>+add'``: the frame kernel of
+    :func:`frames_route` ('reg', 'cluster', 'split' or 'generic') reading
+    the frames straight from the rows with the halo past their end, then
+    the 2:1 overlap-add and the tail in ``ola_add_kernel``
+    (csrc/ola_add.cu)."""
+    if _radix2_pair(nfft, nfft_out):
+        return 'reg' if (nfft, nfft_out) in OLA_REG_PAIRS else 'generic'
+    return frames_route(nfft, nfft_out) + '+add'
+
+
+def fused_ola_cuda_supported(nfft: int, nfft_out: int, noverlap_in: int, noverlap_out: int) -> bool:
+    """the 2:1 kernels' scope: exactly 2:1 overlap on both sides (the
+    hamming COLA design), at powers of two up to MAX_CUDA_FFT (the older
+    2:1 kernels) or wherever the frame kernels take the pair
+    (:func:`fused_ola_frames_supported` on an H100, the frames then
+    overlap-added by ``ola_add_kernel``): every 2:1 pair the JAX package's
+    ``fused_ola_strided_supported``
+    (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:559) takes, both sizes
+    multiples of 1024 up to 2^21 points among them."""
+    return (
+        nfft == 2 * noverlap_in
         and nfft_out == 2 * noverlap_out
+        and (_radix2_pair(nfft, nfft_out) or fused_ola_frames_supported(nfft, nfft_out))
     )
 
 
@@ -805,6 +911,16 @@ def fused_ola(
     _build.require(x, 'x', device=x.device, dtype=torch.complex64)
     y, _ = _launch_ola(x, None, ola_route(nfft, nfft_out), counter=fused_ola, tail=False, **kw)
     return y
+
+
+def _fused_ola_grouped(x: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`fused_ola` on a CUDA tensor through the frame kernel's wrapper
+    and :func:`ola_grouped`'s torch overlap-add (the zero extension copied
+    onto the input, every frame written whole, the grouped add): the path
+    of the 2:1 pairs outside the older 2:1 kernels before the '+add'
+    routes, timed beside them in chip_smoke.py, never a route of the
+    port."""
+    return ola_grouped(x, frames_fn=fused_ola_frames, **kw)
 
 
 def _fused_ola_generic(x: torch.Tensor, **kw) -> torch.Tensor:
@@ -1019,21 +1135,25 @@ def _launch_ola(
     bounds_in,
     bounds_out,
 ) -> tuple:
-    """launch ``route``'s 2:1 kernel ('reg' or 'generic') on CUDA ``src``
+    """launch ``route``'s 2:1 kernels (:func:`ola_route`) on CUDA ``src``
     (complex64 (..., N), or (..., 2, N) planes of a type of
     :data:`LAYOUTS`), reading ``halo`` (the same layout, ``noverlap_in``
     samples a row, or None) past the end; returns (y, tail), tail None
     unless asked for. With a halo or a tail, each row's last frame takes
-    the register kernel's edge path (csrc/fused_ola.cu reg_ola_frame).
-    Counts the launch in ``counter.launches`` (the calling wrapper),
-    ``counter.route_launches[route]`` and
+    the register kernel's edge path (csrc/fused_ola.cu reg_ola_frame); on a
+    '+add' route the frame kernel reads the last frame's samples past the
+    row's end from the halo (csrc/ola_frames.cuh Edge) into (batch, frames,
+    nfft_out) of scratch from the caching allocator, which
+    :func:`ola_add` overlap-adds. Counts the launch in ``counter.launches``
+    (the calling wrapper; a '+add' route's two or more kernels count as one
+    launch), ``counter.route_launches[route]`` and
     ``counter.layout_launches[dtype name]``."""
     if not fused_ola_cuda_supported(nfft, nfft_out, noverlap_in, noverlap_out):
         raise NotImplementedError(
-            'the CUDA fused OLA kernel takes power-of-two sizes up to '
-            f'{MAX_CUDA_FFT} at 2:1 overlap (hamming COLA); got nfft={nfft}, '
-            f'nfft_out={nfft_out}, noverlap_in={noverlap_in}, '
-            f'noverlap_out={noverlap_out} (ROADMAP Queue 2 item 1)'
+            'the CUDA 2:1 OLA kernels take exactly 2:1 overlap (hamming COLA) at '
+            f'powers of two up to {MAX_CUDA_FFT} or at a pair the frame kernels take '
+            '(fused_ola_frames_supported); got the pair '
+            f'{nfft} -> {nfft_out}, noverlap_in={noverlap_in}, noverlap_out={noverlap_out}'
         )
     dev = src.device
     if src.dtype not in LAYOUTS:
@@ -1067,11 +1187,53 @@ def _launch_ola(
                 f'halo must hold at most {noverlap_in} samples a row of the input\'s '
                 f'{batch} rows, not shape {tuple(halo.shape)}'
             )
+
+    if route.endswith('+add'):
+        strides, edge = _row_frames(rows, n_in, hop_in, n_halo)
+        frames = torch.empty((batch, n_frames, nfft_out), dtype=torch.complex64, device=dev)
+        _build.check(
+            _frames_kernel(src, strides, frames, route[: -len('+add')], edge=(halo, *edge),
+                           w_in=w_in, w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+                           zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
+                           bounds_out=bounds_out),
+            f'{counter.__name__} ({route} route\'s frame kernel, {src.dtype} input)',
+        )
+        y, t = ola_add(frames, tail=tail)
+    else:
+        y, t = _launch_radix2(src, halo, route, counter, tail, w_in=w_in,
+                              w_shift_out=w_shift_out, nfft=nfft, nfft_out=nfft_out,
+                              batch=batch, n_in=n_in, n_frames=n_frames, n_out=n_out,
+                              hop_in=hop_in, hop_out=hop_out, n_halo=n_halo, zero_lo=zero_lo,
+                              zero_hi=zero_hi, bounds_in=bounds_in, bounds_out=bounds_out)
+    counter.launches += 1
+    counter.route_launches[route] += 1
+    counter.layout_launches[str(src.dtype).split('.')[-1]] += 1
+    return y.reshape(*lead, n_out), None if t is None else t.reshape(*lead, noverlap_out)
+
+
+def _row_frames(rows: int, n_in: int, hop_in: int, n_halo: int) -> tuple:
+    """the frame kernels' arguments for frames read straight from rows of
+    ``n_in`` samples at ``hop_in`` (complex64 rows, ``rows`` = 1, or (2,
+    n_in) planes, 2: a row holds both planes), the samples past a row's end
+    from its halo of ``n_halo`` samples in the same layout: ((batch stride,
+    frame stride, plane stride), (the halo's row stride, its plane stride,
+    n_in, n_halo)), in elements (csrc/ola_frames.cuh Edge)."""
+    strides = (n_in, hop_in, 0) if rows == 1 else (2 * n_in, hop_in, n_in)
+    return strides, (rows * n_halo, n_halo, n_in, n_halo)
+
+
+def _launch_radix2(src, halo, route, counter, tail, *, w_in, w_shift_out, nfft, nfft_out, batch,
+                   n_in, n_frames, n_out, hop_in, hop_out, n_halo, zero_lo, zero_hi, bounds_in,
+                   bounds_out) -> tuple:
+    """the older 2:1 kernels' launch ('reg' or 'generic'), the overlap-add
+    by atomics onto a zeroed output; returns (y, tail) of (batch, n_out)
+    and (batch, nfft_out - hop_out), tail None unless asked for."""
+    dev = src.device
+    y = torch.zeros((batch, n_out), dtype=torch.complex64, device=dev)
+    t = (torch.empty((batch, nfft_out - hop_out), dtype=torch.complex64, device=dev)
+         if tail else None)
     (in_lo, _), (out_lo, out_hi) = _copy_bounds(nfft, nfft_out, bounds_in, bounds_out)
     zero_hi = nfft if zero_hi is None else int(zero_hi)
-
-    y = torch.zeros((batch, n_out), dtype=torch.complex64, device=dev)
-    t = torch.empty((batch, noverlap_out), dtype=torch.complex64, device=dev) if tail else None
     layout = LAYOUTS[src.dtype]
     halo_ptr = None if halo is None else halo.data_ptr()
     tail_ptr = None if t is None else t.data_ptr()
@@ -1094,16 +1256,63 @@ def _launch_ola(
             _build.stream_of(src),
         )
     _build.check(err, f'{counter.__name__} ({route} kernel, {src.dtype} input)')
-    counter.launches += 1
-    counter.route_launches[route] += 1
-    counter.layout_launches[str(src.dtype).split('.')[-1]] += 1
-    return y.reshape(*lead, n_out), None if t is None else t.reshape(*lead, noverlap_out)
+    return y, t
 
 
-# launches by kernel: 'reg' (fused_ola_reg_kernel), 'generic'
-# (fused_ola_kernel); and by the input's element type
+def ola_add_plain(frames: torch.Tensor, tail: bool = False) -> tuple:
+    """plain PyTorch version of :func:`ola_add` (same arguments): the
+    first half of each frame plus the second half of the frame before it,
+    in that order."""
+    h = frames.shape[-1] // 2
+    y = frames[..., :h].clone()
+    y[..., 1:, :] += frames[..., :-1, h:]
+    y = y.reshape(*frames.shape[:-2], frames.shape[-2] * h)
+    return y, frames[..., -1, h:].clone() if tail else None
+
+
+def ola_add(frames: torch.Tensor, tail: bool = False) -> tuple:
+    """the 2:1 overlap-add of the frame kernels' (..., F, nfft_out)
+    complex64 outputs at hop nfft_out / 2: y[..., f h + s] = frames[..., f,
+    s] + frames[..., f - 1, h + s] (frame 0's first half alone), h =
+    nfft_out / 2, each sum in that fixed order; with ``tail``, also the
+    last frame's second half frames[..., F - 1, h:]. Returns (y (..., F
+    h), tail (..., h) or None). On a CUDA tensor one launch of
+    ``ola_add_kernel`` (csrc/ola_add.cu), counted in ``ola_add.launches``;
+    the plain version on the CPU."""
+    if frames.device.type == 'cpu':
+        return ola_add_plain(frames, tail)
+    if frames.device.type != 'cuda':
+        raise ValueError(f'ola_add runs on cpu or cuda tensors, not {frames.device}')
+    _build.require(frames, 'frames', device=frames.device, dtype=torch.complex64)
+    if frames.dim() < 2 or frames.shape[-1] % 2 or frames.shape[-1] == 0:
+        raise ValueError(f'frames must be (..., F, nfft_out) with nfft_out even, not '
+                         f'{tuple(frames.shape)}')
+    lead, n_frames, h = frames.shape[:-2], frames.shape[-2], frames.shape[-1] // 2
+    batch = frames.numel() // (n_frames * 2 * h) if n_frames else 0
+    if batch == 0 or n_frames == 0 or batch >= 2**16 or n_frames * h >= 2**31:
+        raise ValueError(f'ola_add takes 1 to 2**16 - 1 rows of at least one frame and below '
+                         f'2**31 samples out, not {tuple(frames.shape)}')
+    y = torch.empty((*lead, n_frames * h), dtype=torch.complex64, device=frames.device)
+    t = torch.empty((*lead, h), dtype=torch.complex64, device=frames.device) if tail else None
+    _build.check(
+        _build.library().iqt_ola_add(frames.data_ptr(), y.data_ptr(),
+                                     None if t is None else t.data_ptr(), batch, n_frames, h,
+                                     _build.stream_of(frames)),
+        'ola_add',
+    )
+    ola_add.launches += 1
+    return y, t
+
+
+ola_add.launches = 0
+# the 2:1 wrappers' routes (ola_route): the older kernels, then each frame
+# kernel with the overlap-add of csrc/ola_add.cu
+OLA_ROUTES = ('reg', 'generic', 'reg+add', 'cluster+add', 'split+add', 'generic+add')
+# launches by route: 'reg' (fused_ola_reg_kernel), 'generic'
+# (fused_ola_kernel), '<frame route>+add' (the frame kernel and
+# ola_add_kernel, one count a call); and by the input's element type
 for _wrapper in (fused_ola, fused_ola_strided):
     _wrapper.launches = 0
-    _wrapper.route_launches = {'reg': 0, 'generic': 0}
+    _wrapper.route_launches = dict.fromkeys(OLA_ROUTES, 0)
     _wrapper.layout_launches = {'complex64': 0, 'float32': 0, 'int16': 0, 'bfloat16': 0}
 del _wrapper

@@ -65,6 +65,7 @@ from iqwaveform_torch.ops.kernels.colhist import _colhist_generic, colhist_route
 from iqwaveform_torch.ops.kernels.corr import corr_blocking
 from iqwaveform_torch.ops.kernels.fused_ola import (
     CLUSTER_PAIRS,
+    OLA_ROUTES,
     dequantize,
     split_takes,
     fused_ola_strided_plain,
@@ -137,6 +138,12 @@ def _reset_routes():
         k.route_launches.update(dict.fromkeys(k.route_launches, 0))
 
 
+def _ola_routes(**counts):
+    """the 2:1 wrappers' route counts: ``counts`` and 0 on every other route
+    of OLA_ROUTES."""
+    return {**dict.fromkeys(OLA_ROUTES, 0), **counts}
+
+
 def _chan_routes(reg=0, mixed=0, cluster=0, split=0, generic=0):
     return {'reg': reg, 'mixed': mixed, 'cluster': cluster, 'split': split, 'generic': generic}
 
@@ -150,7 +157,7 @@ def test_step_launches_each_kernel_and_matches_plain_step(monitor):
     assert [k.launches for k in kernels.KERNELS] == [1, 1, 1] + [0] * (len(kernels.KERNELS) - 3)
     # the 2:1 OLA at 16384 -> 8192 through fused_ola_reg_kernel; the
     # 4096-point PSD + PBIN channelizer through chan_stats_reg_kernel
-    assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.fused_ola.route_launches == _ola_routes(reg=1)
     assert kernels.chan_stats.route_launches == _chan_routes(reg=1)
     ref = monitor.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
@@ -180,9 +187,9 @@ def test_ola_register_kernel_matches_plain_and_generic(monitor, batch):
     x = _noise((n,) if batch is None else (batch, n), 25)
     _reset_routes()
     got = kernels.fused_ola(x, **kw)
-    assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.fused_ola.route_launches == _ola_routes(reg=1)
     generic = _fused_ola_generic(x, **kw)
-    assert kernels.fused_ola.route_launches == {'reg': 1, 'generic': 1}
+    assert kernels.fused_ola.route_launches == _ola_routes(reg=1, generic=1)
     ref = kernels.fused_ola_plain(x, **kw)
     assert got.shape == generic.shape == ref.shape
     assert rel_rms(got, ref) <= 1e-5
@@ -202,7 +209,7 @@ def test_other_ola_pairs_take_the_radix2_kernel(card):
     x = _noise((2, 20 * 2048 + 7), 28)
     _reset_routes()
     got = kernels.fused_ola(x, **kw)
-    assert kernels.fused_ola.route_launches == {'reg': 0, 'generic': 1}
+    assert kernels.fused_ola.route_launches == _ola_routes(generic=1)
     assert rel_rms(got, kernels.fused_ola_plain(x, **kw)) <= 1e-5
 
 
@@ -228,9 +235,9 @@ def test_ola_register_kernel_at_the_new_pairs(card, pair, dtype):
         src, h = (torch.stack([v.real, v.imag], dim=-2) * 3000 for v in (x, halo))
     prec = 'highest' if dtype == torch.complex64 else 'i16'
     skw = dict(n_frames=24, hop_in=hop, precision=prec, **kw)
-    kernels.fused_ola_strided.route_launches.update(reg=0, generic=0)
+    _reset_strided()
     got, tail = kernels.fused_ola_strided(src, h, **skw)
-    assert kernels.fused_ola_strided.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.fused_ola_strided.route_launches == _ola_routes(reg=1)
     ref, ref_tail = kernels.fused_ola_strided_plain(src, h, **skw)
     assert got.shape == ref.shape and tail.shape == ref_tail.shape
     assert rel_rms(got, ref) <= 1e-5 and rel_rms(tail, ref_tail) <= 1e-5
@@ -731,22 +738,22 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
 
 
 def test_frames_above_shared_memory_raise(card):
-    """frames above one block's shared memory that no cluster pair and no
-    split shape takes (a radix step above 64 parts: the blackmanharris
-    design at 122.88 -> 3.84 MS/s is 1310720 -> 40960, 80 x 16384; 2^21 ->
-    16384; 67 x 16384 -> 16384; a size no multiple of 1024, 37000 -> 8192)
-    raise in the frame kernel's wrapper, naming ROADMAP Queue 2 item 1; the
-    monitor at such a design takes the plain frames on the card
-    (routes['ola'] 'plain', picked before any launch): it constructs, its
-    step launches no frame kernel and matches reference_step; ola_filter
-    takes its torch.fft stage chain there. The factor-7 frames of 107.52 ->
-    15.36 MS/s (172032 -> 24576 among them) and the factor-11 frames of
-    135.168 -> 24.576 MS/s (135168 -> 24576), which raised here before the
-    split route's radix-7 step and its prime pass, step on the split route
-    (test_radix_7_monitor_takes_the_split_route,
+    """the pairs no frame route takes raise in the frame kernel's wrapper,
+    naming ROADMAP Queue 2 item 1: a size no multiple of 1024 with a prime
+    factor above 7 (37000 -> 8192, which the JAX kernel refuses too) and
+    2053 x 1024 = 2102272 -> 1024 (which the JAX kernel takes, but no part
+    size of REG_PLANS divides with C <= 2048). The four designs of the
+    122.88 MS/s grid that took the plain frames until the split route's
+    radix steps took up to 2048 parts (1310720 -> 81920, 80 x 16384;
+    1572864 -> 49152, 96; 1310720 -> 40960, 80; 2621440 -> 81920, 160)
+    route their OLA 'split' before any launch, their step launches the
+    split route once and matches reference_step; ola_filter at 1310720 ->
+    40960 takes it too. The factor-7 frames of 107.52 -> 15.36 MS/s and
+    the factor-11 frames of 135.168 -> 24.576 MS/s, which raised here
+    before the split route's radix-7 step and its prime pass, step on the
+    split route (test_radix_7_monitor_takes_the_split_route,
     test_split_route_takes_prime_factors_above_7)."""
-    for nfft, nfft_out in ((1310720, 40960), (1 << 21, 16384), (67 * 16384, 16384),
-                           (37000, 8192)):
+    for nfft, nfft_out in ((37000, 8192), (2053 * 1024, 1024)):
         assert frames_route(nfft, nfft_out) == 'generic'
         with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
             kernels.fused_ola_frames(
@@ -757,32 +764,38 @@ def test_frames_above_shared_memory_raise(card):
                 bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
                 bounds_out=(0, nfft_out),
             )
-    design = it.design_wideband_monitor(122.88e6, 3.84e6, bw=2e6, fs_sdr=122.88e6,
-                                        window='blackmanharris')
-    assert (design.nfft, design.nfft_out) == (1310720, 40960)
-    mon = it.WidebandMonitor(design)
-    assert mon.routes['ola'] == 'plain'
-    x = _noise(2 * mon.min_input_multiple(), 13)
-    for k in kernels.KERNELS:
-        k.launches = 0
-    _reset_frame_routes()
-    out = mon.step(x)
-    torch.cuda.synchronize()
-    assert kernels.fused_ola_frames.launches == 0 and kernels.fused_ola.launches == 0
-    assert kernels.chan_stats.launches == 1 and kernels.hist.launches == 1
-    ref = mon.reference_step(x)
-    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
-        assert rel_rms(out[key], ref[key]) <= 1e-5, key
-    for key in ('psd_mean', 'psd_max'):
-        band = ref[key] > -100
-        assert float((out[key] - ref[key])[band].abs().max()) <= 0.01, key
-    a, b = out['apd_counts'].long(), ref['apd_counts'].long()
-    assert int(a.sum()) == int(b.sum())
-    assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
+    for seed, (fs_out, window, min_fft, pair) in enumerate((
+            (7.68e6, 'blackmanharris', 16383, (1310720, 81920)),
+            (3.84e6, 'blackman', 16383, (1572864, 49152)),
+            (3.84e6, 'blackmanharris', 8191, (1310720, 40960)),
+            (3.84e6, 'blackmanharris', 16383, (2621440, 81920)))):
+        design = it.design_wideband_monitor(122.88e6, fs_out, fs_sdr=122.88e6, window=window,
+                                            min_fft_size=min_fft)
+        assert (design.nfft, design.nfft_out) == pair
+        mon = it.WidebandMonitor(design)
+        assert mon.routes['ola'] == 'split' and split_takes(*pair)
+        x = _noise(2 * mon.min_input_multiple(), 13 + seed)
+        for k in kernels.KERNELS:
+            k.launches = 0
+        _reset_frame_routes()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+        assert kernels.fused_ola.launches == 0
+        assert kernels.chan_stats.launches == 1 and kernels.hist.launches == 1
+        ref = mon.reference_step(x)
+        for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+            assert rel_rms(out[key], ref[key]) <= 1e-5, key
+        for key in ('psd_mean', 'psd_max'):
+            band = ref[key] > -100
+            assert float((out[key] - ref[key])[band].abs().max()) <= 0.01, key
+        a, b = out['apd_counts'].long(), ref['apd_counts'].long()
+        assert int(a.sum()) == int(b.sum())
+        assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
     _reset_frame_routes()
     assert it.ola_filter(_noise(4 * 1310720, 12), fs=122.88e6, nfft=1310720, nfft_out=40960,
                          window='blackmanharris', passband=(-1e6, 1e6)).shape == (4 * 40960,)
-    assert kernels.fused_ola_frames.route_launches == _frame_routes()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
 
 
 # each frame kernel's pair and hop for its plane instances: the register
@@ -832,7 +845,8 @@ def test_frame_kernels_read_planes(card, pair, dtype):
 ])
 def test_radix_7_monitor_takes_the_split_route(card, window, pair):
     """the monitor at 107.52 -> 15.36 MS/s (7 x 2^k frames): routes['ola']
-    'split', a step launches the split route once (its radix-7 steps) and
+    'split' ('split+add' at the hamming design: the 2:1 route on the split
+    frames), a step launches the split route once (its radix-7 steps) and
     matches the plain-version step (channel power within 1e-5); at 'i16'
     step_planes on int16 counts launches the int16 instance."""
     import dataclasses
@@ -840,12 +854,19 @@ def test_radix_7_monitor_takes_the_split_route(card, window, pair):
     design = it.design_wideband_monitor(107.52e6, 15.36e6, fs_sdr=107.52e6, window=window,
                                         min_fft_size=8191)
     mon = it.WidebandMonitor(design)
-    assert (design.nfft, design.nfft_out) == pair and mon.routes['ola'] == 'split'
+    add = window == 'hamming'
+    assert (design.nfft, design.nfft_out) == pair
+    assert mon.routes['ola'] == ('split+add' if add else 'split')
     x = _noise(8 * mon.min_input_multiple(), 72)
     _reset_frame_routes()
+    _reset_routes()
     out = mon.step(x)
     torch.cuda.synchronize()
-    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    if add:
+        assert kernels.fused_ola.route_launches == _ola_routes(**{'split+add': 1})
+        assert kernels.fused_ola_frames.route_launches == _frame_routes()
+    else:
+        assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -854,9 +875,11 @@ def test_radix_7_monitor_takes_the_split_route(card, window, pair):
     counts = (torch.view_as_real(x).T * 3000).round().to(torch.int16).contiguous()
     kernels.fused_ola_frames.layout_launches.update(
         {k: 0 for k in kernels.fused_ola_frames.layout_launches})
+    _reset_strided()
     got = mon16.step_planes(counts)
     torch.cuda.synchronize()
-    assert kernels.fused_ola_frames.layout_launches['int16'] == 1
+    layouts = (kernels.fused_ola_strided if add else kernels.fused_ola_frames).layout_launches
+    assert layouts['int16'] == 1
     ref = mon16.reference_step(dequantize(counts))
     assert rel_rms(got['channel_power'], ref['channel_power']) <= 1e-5
 
@@ -915,18 +938,25 @@ def test_cluster_monitor_constructs_and_steps(card, rates, kw, pair):
     (among them 98304 -> 24576 on clusters of 6 blocks; 163840 -> 40960,
     once on 10, on the split route, which beat it): it constructs, and a
     step launches that kernel once and matches the plain-version step
-    (channel power within 1e-5)."""
+    (channel power within 1e-5); at the hamming design (2:1) the step's
+    2:1 route runs the cluster kernel ('cluster+add', one fused_ola
+    launch)."""
     mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **kw))
     assert (mon.design.nfft, mon.design.nfft_out) == pair
     x = _noise(4 * mon.min_input_multiple(), 42)
     for k in kernels.KERNELS:
         k.launches = 0
     _reset_frame_routes()
+    _reset_routes()
     out = mon.step(x)
     torch.cuda.synchronize()
-    assert kernels.fused_ola_frames.launches == 1 and kernels.fused_ola.launches == 0
-    want = _frame_routes(split=1) if pair == (163840, 40960) else _frame_routes(cluster=1)
-    assert kernels.fused_ola_frames.route_launches == want
+    if kw['window'] == 'hamming':
+        assert kernels.fused_ola_frames.launches == 0 and kernels.fused_ola.launches == 1
+        assert kernels.fused_ola.route_launches == _ola_routes(**{'cluster+add': 1})
+    else:
+        assert kernels.fused_ola_frames.launches == 1 and kernels.fused_ola.launches == 0
+        want = _frame_routes(split=1) if pair == (163840, 40960) else _frame_routes(cluster=1)
+        assert kernels.fused_ola_frames.route_launches == want
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -998,15 +1028,24 @@ def test_split_yardstick_at_cluster_pairs(card, pair):
 ])
 def test_split_monitor_constructs_and_steps(card, fs_out, kw, pair):
     """the monitor at designs whose frames the split route takes: it
-    constructs with routes['ola'] 'split', and a step launches the route
-    once and matches the plain-version step (channel power within 1e-5)."""
+    constructs with routes['ola'] 'split' ('split+add' at the hamming
+    design: the 2:1 route on the split frames), and a step launches the
+    route once and matches the plain-version step (channel power within
+    1e-5)."""
     mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, fs_out, fs_sdr=122.88e6, **kw))
-    assert (mon.design.nfft, mon.design.nfft_out) == pair and mon.routes['ola'] == 'split'
+    add = kw['window'] == 'hamming'
+    assert (mon.design.nfft, mon.design.nfft_out) == pair
+    assert mon.routes['ola'] == ('split+add' if add else 'split')
     x = _noise(2 * mon.min_input_multiple(), 66)
     _reset_frame_routes()
+    _reset_routes()
     out = mon.step(x)
     torch.cuda.synchronize()
-    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    if add:
+        assert kernels.fused_ola.route_launches == _ola_routes(**{'split+add': 1})
+        assert kernels.fused_ola_frames.route_launches == _frame_routes()
+    else:
+        assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
@@ -1424,7 +1463,7 @@ def _strided_kw(monitor, route, tier):
 def _reset_strided():
     k = kernels.fused_ola_strided
     k.launches = 0
-    k.route_launches.update(reg=0, generic=0)
+    k.route_launches.update(dict.fromkeys(k.route_launches, 0))
     k.layout_launches.update(dict.fromkeys(k.layout_launches, 0))
 
 
@@ -1511,7 +1550,7 @@ def test_step_planes_i16_launches_the_int16_kernel(monitor):
     torch.cuda.synchronize()
     assert (kernels.fused_ola_strided.launches, kernels.chan_stats.launches,
             kernels.hist.launches, kernels.fused_ola.launches) == (1, 1, 1, 0)
-    assert kernels.fused_ola_strided.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.fused_ola_strided.route_launches == _ola_routes(reg=1)
     assert kernels.fused_ola_strided.layout_launches['int16'] == 1
     ref = mon.reference_step(torch.complex(counts[0].float(), counts[1].float()))
     _check_stats(out, ref, exact_apd=False)
@@ -1888,3 +1927,114 @@ def test_flagship_step_at_a_storage_tier_reads_its_planes(card, tier):
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
         assert rel_rms(out[key], ref[key]) <= 1e-5, key
+
+
+# ---- the 2:1 route on the frame kernels ('<frame route>+add'): each frame
+# route once, and a one-block pair with a factor of 11 on the split route
+ADD_PAIRS = {(12288, 4096): 'reg+add', (32768, 16384): 'cluster+add',
+             (20480, 4096): 'generic+add', (65536, 16384): 'split+add',
+             (11264, 1024): 'split+add'}
+
+
+def _strided_kwargs(nfft, nfft_out, seed):
+    """fused_ola_strided's arguments at a 2:1 pair: random windows, a
+    centred trim with a nonzero mask."""
+    lo = (nfft - nfft_out) // 2
+    return dict(w_in=_noise(nfft, seed) / nfft, w_shift_out=_noise(nfft_out, seed + 1), nfft=nfft,
+                nfft_out=nfft_out, hop_in=nfft // 2, zero_lo=lo + 37, zero_hi=lo + nfft_out - 41,
+                bounds_in=(lo, lo + nfft_out), bounds_out=(0, nfft_out))
+
+
+def _strided_f64(src, halo, kw):
+    """the plain 2:1 chain on the stored values in complex128: the frames
+    extended by the halo, the grouped overlap-add and the tail."""
+    from iqwaveform_torch.ops.kernels.fused_ola import ola_grouped
+
+    wide = _wide({k: v for k, v in kw.items() if k not in ('hop_in', 'precision')})
+    hop, nfft_out = kw['hop_in'], kw['nfft_out']
+    return ola_grouped(
+        dequantize(src).to(torch.complex128), frames_fn=kernels.fused_ola_frames_plain,
+        halo=None if halo is None else dequantize(halo).to(torch.complex128), return_tail=True,
+        noverlap_in=hop, noverlap_out=nfft_out // 2, **wide)
+
+
+@pytest.mark.parametrize('tier', ['highest', 'i16', 'bf16'])
+@pytest.mark.parametrize('pair', sorted(ADD_PAIRS))
+def test_add_route_matches_plain_and_complex128(card, pair, tier):
+    """fused_ola_strided at a 2:1 pair the older 2:1 kernels do not take, on
+    2 rows of 9 frames with a halo and the tail, at each storage tier: one
+    launch on its '+add' route (the frame kernel and ola_add_kernel), the
+    frame kernel's instance of the tier's element type, within 1e-5 of the
+    plain version (output and tail), its complex128 error at most twice
+    the plain version's; fused_ola (complex64, zeros past the end, no
+    tail) the same route, within 1e-5 of its plain version."""
+    from iqwaveform_torch.ops.kernels.fused_ola import stored
+
+    nfft, nfft_out = pair
+    route = ADD_PAIRS[pair]
+    assert ola_route(nfft, nfft_out) == route
+    kw = dict(_strided_kwargs(nfft, nfft_out, 70), precision=tier)
+    hop = nfft // 2
+    x, halo = _noise((2, 9 * hop), 72), _noise((2, hop), 73)
+    src, h = (x, halo) if tier == 'highest' else (
+        torch.stack([v.real, v.imag], dim=-2) * 3000 for v in (x, halo))
+    _reset_strided()
+    ola_add_before = kernels.ola_add.launches
+    got, tail = kernels.fused_ola_strided(src, h, n_frames=9, **kw)
+    torch.cuda.synchronize()
+    k = kernels.fused_ola_strided
+    assert k.launches == 1 and k.route_launches == _ola_routes(**{route: 1})
+    assert kernels.ola_add.launches == ola_add_before + 1
+    assert sum(k.layout_launches.values()) == 1
+    ref, ref_tail = kernels.fused_ola_strided_plain(src, h, n_frames=9, **kw)
+    assert got.shape == ref.shape == (2, 9 * nfft_out // 2)
+    assert tail.shape == ref_tail.shape == (2, nfft_out // 2)
+    assert rel_rms(got, ref) <= 1e-5 and rel_rms(tail, ref_tail) <= 1e-5
+    s = stored(src, tier)
+    y64, t64 = _strided_f64(s, stored(h, tier), kw)
+    both, plain = torch.cat([got, tail], -1), torch.cat([ref, ref_tail], -1)
+    assert rel_rms(both, torch.cat([y64, t64], -1)) <= 2 * rel_rms(plain, torch.cat([y64, t64], -1))
+    if tier == 'highest':
+        okw = {k: v for k, v in kw.items() if k not in ('hop_in', 'precision')}
+        okw.update(noverlap_in=hop, noverlap_out=nfft_out // 2)
+        xo = _noise((2, 7 * hop + 101), 74)
+        _reset_routes()
+        y = kernels.fused_ola(xo, **okw)
+        assert kernels.fused_ola.route_launches == _ola_routes(**{route: 1})
+        assert rel_rms(y, kernels.fused_ola_plain(xo, **okw)) <= 1e-5
+
+
+@pytest.mark.parametrize('tail', [True, False])
+def test_ola_add_matches_plain_bit_for_bit(card, tail):
+    """ola_add_kernel on 3 rows of 37 frames of 2 x 1000 points against
+    ola_add_plain: torch.equal (one sum of two terms a sample, in a fixed
+    order), the tail too; one launch counted."""
+    frames = _noise((3, 37, 2000), 75)
+    before = kernels.ola_add.launches
+    y, t = kernels.ola_add(frames, tail=tail)
+    assert kernels.ola_add.launches == before + 1
+    ref, ref_t = kernels.ola_add_plain(frames, tail=tail)
+    assert y.shape == ref.shape == (3, 37 * 1000) and torch.equal(y, ref)
+    assert (t is None and ref_t is None) or torch.equal(t, ref_t)
+
+
+@pytest.mark.parametrize('pair', [(1310720, 81920), (2621440, 81920)])
+def test_split_route_above_64_parts(card, pair):
+    """the split route at 80 and 160 parts of 16384 points (the
+    blackmanharris designs at 122.88 -> 7.68 and 3.84 MS/s) on 2 frames at
+    hop nfft / 5: one launch on its route, within 1e-5 of the plain chain,
+    its complex128 error at most twice the plain chain's (phase 22a's
+    bars)."""
+    nfft, nfft_out = pair
+    assert split_takes(nfft, nfft_out) and frames_route(nfft, nfft_out) == 'split'
+    kw = _cluster_kwargs(nfft, nfft_out, 76)
+    hop = nfft // 5
+    frames = _noise(hop + nfft, 77).unfold(-1, nfft, hop)
+    _reset_frame_routes()
+    got = kernels.fused_ola_frames(frames, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    ref = kernels.fused_ola_frames_plain(frames, **kw)
+    assert rel_rms(got, ref) <= 1e-5
+    ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)

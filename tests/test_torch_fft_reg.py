@@ -432,8 +432,9 @@ def test_route_by_size():
     kernel's pairs (tests/test_torch_ola_cluster.py), the split route's
     sizes above one block's shared memory (tests/test_torch_ola_split.py)
     and the radix-7 sizes (tests/test_torch_ola_tiers.py) added to it; a
-    factor of 11 stays outside in one block and takes the split route's
-    prime pass above it; more than 64 parts stay outside."""
+    factor of 11 takes the split route's prime pass where both sizes are
+    multiples of 1024, and stays outside where one is not; up to 2048
+    parts take the split route, and more (2053 x 1024) stay outside."""
     assert REG_PAIRS == ((16384, 8192), (12288, 6144), (12288, 4096))
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg'
@@ -444,7 +445,7 @@ def test_route_by_size():
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
                  (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): True,
                  (11 * 1024, 5632): False, (11 * 16384, 16384): True,
-                 (80 * 16384, 40960): False,
+                 (80 * 16384, 40960): True, (2053 * 1024, 1024): False,
                  (32768, 16384): True, (32768, 32768): True, (98304, 24576): True,
                  (163840, 40960): True, (196608, 24576): True, (1, 1): True,
                  (7 * 16384, 16384): True}

@@ -140,9 +140,10 @@ def test_ola_filter_routes_by_design():
     scope raises ValueError. The scope on a CPU device is that of an H100:
     sizes 2^a 3^b 5^c 7^d whose frame fits 227 KiB of shared memory, the
     pairs a thread-block cluster takes above that (CLUSTER_PAIRS), and the
-    split route's sizes C M above it (M a register plan's size, C <= 64,
-    primes above 7 through its radix step's prime pass); a factor of 11 in
-    one block, and more than 64 parts above it, take the stage chain."""
+    split route's sizes C M above it or with a prime factor above 7 (M a
+    register plan's size, C <= 2048, primes above 7 through its radix
+    step's prime pass); a factor of 11 in a size that is no multiple of
+    1024, and more than 2048 parts, take the stage chain."""
     cpu = torch.device('cpu')
 
     def route(nfft, nfft_out, noverlap, size=10**8):
@@ -159,8 +160,10 @@ def test_ola_filter_routes_by_design():
     assert route(172032, 24576, 114688) == 'pallas'  # above shared memory, factor 7: split
     assert route(14 * 1024, 7 * 1024, 7 * 1024) == 'pallas'  # factor 7: one block
     assert route(270336, 24576, 180224) == 'pallas'  # above shared memory, factor 11: split
-    assert route(1310720, 40960, 1048576) == 'xla'  # above shared memory, 80 parts
-    assert route(22 * 1024, 11 * 1024, 11 * 1024) == 'xla'  # factor 11
+    assert route(1310720, 40960, 1048576) == 'pallas'  # above shared memory, 80 parts
+    assert route(22 * 1024, 11 * 1024, 11 * 1024) == 'pallas'  # factor 11: the prime pass
+    assert route(2053 * 1024, 1024, 1024) == 'xla'  # 2053 parts
+    assert route(11 * 1024, 11 * 512, 11 * 512) == 'xla'  # factor 11, no multiple of 1024
     assert route(4096, 2048, 2048, size=4000) == 'xla'  # shorter than a frame
     assert TF.fused_ola_frames_supported(28800, 14400)
     assert not TF.fused_ola_frames_supported(30000, 15000)

@@ -57,9 +57,12 @@ from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_packed
 
 PAIRS = sorted(CLUSTER_PAIRS)
 # frames above one block's shared memory that no CUDA route takes yet
-# (ROADMAP Queue 2 item 1): more than 64 parts of the largest plan size
-# (blackmanharris at 122.88 -> 3.84 MS/s is 1310720 -> 40960, 80 x 16384).
-# The blackman and blackmanharris frames at 122.88 -> 30.72 MS/s (98304 ->
+# (ROADMAP Queue 2 item 1): above 2^21 points, more than 2048 parts of
+# every plan size that divides (2053 x 1024), and sizes that are no multiple
+# of 1024 with a prime factor above 7 (37000 -> 8192). Blackmanharris at
+# 122.88 -> 3.84 MS/s (1310720 -> 40960, 80 x 16384) and 67 x 16384 ->
+# 32768 were here until the split route's radix steps took up to 2048 parts
+# (tests/test_torch_ola_strided_frames.py). The blackman and blackmanharris frames at 122.88 -> 30.72 MS/s (98304 ->
 # 24576, 163840 -> 40960) were here until clusters of 6 and 10 blocks took
 # them (163840 -> 40960 since on the split route, which beat the cluster of
 # 10); blackman at 122.88 -> 15.36 MS/s (196608 -> 24576) and 131072 ->
@@ -68,8 +71,8 @@ PAIRS = sorted(CLUSTER_PAIRS)
 # -> 32768) until its radix-7 step (tests/test_torch_ola_tiers.py); the
 # factor-11 sizes (blackman at 135.168 -> 12.288 MS/s, 270336 -> 24576; 11
 # x 16384 -> 32768) until its prime pass (SPLIT_PRIME)
-OUTSIDE = ((1310720, 40960), (67 * 16384, 32768))
-SPLIT_PRIME = ((270336, 24576), (11 * 16384, 32768))
+OUTSIDE = ((2053 * 1024, 1024), (37000, 8192))
+SPLIT_PRIME = ((270336, 24576), (11 * 16384, 32768), (1310720, 40960), (67 * 16384, 32768))
 
 
 def model_tables(nfft, nfft_out):
@@ -296,8 +299,8 @@ def test_route_and_scope_by_size():
     (the 98304-point frames among them, and 24576 -> 12288 in place of the
     generic kernel); the register-resident pairs, the generic sizes and the
     scope of every other size as before; frames above one block that no
-    cluster pair lists on the split route, 163840 -> 40960 among them; the
-    frames of OUTSIDE outside."""
+    cluster pair lists on the split route, 163840 -> 40960 among them, and
+    up to 2048 parts (SPLIT_PRIME); the frames of OUTSIDE outside."""
     for pair in PAIRS:
         assert frames_route(*pair) == 'cluster'
         assert fused_ola_frames_supported(*pair)
@@ -336,7 +339,10 @@ def test_designs_take_the_cluster_route(rates, kw, pair):
     -> 30.72 MS/s among them on clusters of 6 blocks (the blackmanharris
     ones, 163840 -> 40960, on the split route, which beat the cluster of
     10 blocks): the route functions the monitor and ola_filter consult pick
-    it, with no change of their own."""
+    it, with no change of their own. The monitor's OLA at a hamming (2:1)
+    design is the 2:1 route, whose frame kernel is the cluster kernel
+    ('cluster+add'); at the others the frame kernel's wrapper with the
+    grouped overlap-add."""
     d = it.design_wideband_monitor(*rates, **kw)
     assert (d.nfft, d.nfft_out) == pair
     jd = jax_design(*rates, **kw)
@@ -344,8 +350,12 @@ def test_designs_take_the_cluster_route(rates, kw, pair):
     assert fused_ola_frames_supported(*pair)
     assert frames_route(*pair) == ('split' if pair == (163840, 40960) else 'cluster')
     assert (pair in CLUSTER_PAIRS) == (pair != (163840, 40960))
+    mon = it.WidebandMonitor(d, device='cpu')
+    if kw['window'] == 'hamming':
+        assert mon._ola is kernels.fused_ola and mon.routes['ola'] == 'cluster+add'
+        return
     # the monitor's OLA goes through the frame kernel's wrapper
-    ola = it.WidebandMonitor(d, device='cpu')._ola
+    ola = mon._ola
     assert ola.func is ola_grouped and ola.keywords == {'frames_fn': kernels.fused_ola_frames}
 
 

@@ -1,8 +1,10 @@
 """A numpy model of the split frame route (csrc/ola_split.cu), held
-against np.fft on the CPU at every pair of the 122.88 MS/s monitor grid it
-takes, its host tables, the routes of the grid's 36 designs, and the plain
-chain at two of its pairs against the JAX package's ``fused_ola_packed``
-(interpret mode).
+against np.fft on the CPU at every pair of the 122.88 MS/s monitor grid's
+36 designs of four output rates it takes and at radix steps of 67, 80 and
+160 parts,
+its host tables, the routes of the grid's 72 designs (8 output rates), and
+the plain chain at two of its pairs against the JAX package's
+``fused_ola_packed`` (interpret mode).
 
 A frame of N1 = C1 M1 points becomes an N2 = C2 M2-point output in four
 steps, each a launch, with device memory as the exchange between parts.
@@ -68,8 +70,10 @@ from iqwaveform_tpu.models import design_wideband_monitor as jax_design
 from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_packed
 
 # the monitor designs of the 122.88 MS/s grid: output rate, window and
-# min_fft_size, each at bw = inf and at 0.66 of the output rate
-GRID = list(itertools.product((61.44e6, 40.96e6, 30.72e6, 15.36e6),
+# min_fft_size, each at bw = inf and at 0.66 of the output rate; SPLIT_PAIRS
+# are the split pairs of the first four rates' 36 designs
+GRID_RATES = (61.44e6, 40.96e6, 30.72e6, 15.36e6)
+GRID = list(itertools.product(GRID_RATES + (24.576e6, 20.48e6, 7.68e6, 3.84e6),
                               ('hamming', 'blackman', 'blackmanharris'), (4095, 8191, 16383)))
 # the grid's pairs that no register-resident kernel and no cluster pair
 # takes: the split route's (163840 -> 40960, the blackmanharris frames at
@@ -85,14 +89,17 @@ SPLIT_PAIRS = (
     (196608, 24576), (196608, 49152), (245760, 81920), (327680, 40960), (327680, 81920),
     (393216, 49152), (655360, 81920), (163840, 40960), (36864, 12288), (40960, 20480),
 )
-# sizes the split route leaves outside (ROADMAP Queue 2 item 1): fewer than
-# 2^10 in a size, a radix step above SPLIT_MAX_C (blackmanharris at 122.88
-# -> 3.84 MS/s is 1310720 -> 40960, 80 x 16384; 67 x 16384). The factor-7
-# sizes of 107.52 -> 15.36 MS/s were here until the radix-7 step
+# sizes the split route leaves outside (ROADMAP Queue 2 item 1): a size no
+# multiple of 1024 (no part size divides it), a radix step above
+# SPLIT_MAX_C at every part size (2053 x 1024). The factor-7 sizes of
+# 107.52 -> 15.36 MS/s were here until the radix-7 step
 # (tests/test_torch_ola_tiers.py), the factor-11 sizes of PRIME_PAIRS until
-# the prime pass
-OUTSIDE = ((1310720, 40960), (67 * 16384, 16384), (40000, 8192), (32768, 1000),
-           (2 ** 20 * 5 // 4 * 13, 16384), (1 << 21, 16384))
+# the prime pass, blackmanharris at 122.88 -> 3.84 MS/s (1310720 -> 40960,
+# 80 x 16384), 67 x 16384, 1040 x 16384 and 2^21 until the radix steps took
+# up to 2048 parts (WIDE)
+OUTSIDE = ((40000, 8192), (32768, 1000), (37000, 8192), (2053 * 1024, 1024))
+WIDE = ((1310720, 40960), (67 * 16384, 16384), (2 ** 20 * 5 // 4 * 13, 16384),
+        (1 << 21, 16384))
 # pairs whose radix steps take a prime above 7 (csrc/split_radix.cuh
 # prime_pass): blackman at 135.168 -> 24.576 MS/s (11 x 12288 -> 24576), at
 # 135.168 -> 12.288 MS/s (270336 -> 24576, 22 x 12288), and 11 x 16384 ->
@@ -105,9 +112,10 @@ def _design(fs_out, window, min_fft, bw):
                                       min_fft_size=min_fft, bw=bw)
 
 
-def model_tables(nfft, nfft_out):
-    """the split route's tables, built here from their definitions."""
-    (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
+def model_tables(nfft, nfft_out, plan=None):
+    """the split route's tables, built here from their definitions (at
+    ``plan``'s ((C1, M1), (C2, M2)), by default the route's)."""
+    (c1, m1), (c2, m2) = plan or split_plan(nfft, nfft_out)
     rn1 = np.arange(c1)[:, None] * np.arange(m1)[None, :]
     rn2 = np.arange(c2)[:, None] * np.arange(m2)[None, :]
     return {
@@ -154,10 +162,11 @@ def radix_model(x, tab, inverse):
 
 
 def split_chain_model(frame, w_in, w_out, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
-                      out_hi):
-    """the split route's chain on one frame."""
-    (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
-    t = model_tables(nfft, nfft_out)
+                      out_hi, plan=None):
+    """the split route's chain on one frame (at ``plan``, by default the
+    route's)."""
+    (c1, m1), (c2, m2) = plan = plan or split_plan(nfft, nfft_out)
+    t = model_tables(nfft, nfft_out, plan)
     lo, hi, d = max(zero_lo, in_lo), min(zero_hi, in_lo + out_hi - out_lo), out_lo - in_lo
     # 1. the forward radix-C1 step into the scratch
     a = radix_model((frame * w_in).reshape(c1, m1), t['fwd_dft'], False) * t['fwd_cross']
@@ -208,10 +217,13 @@ def _smooth(n):
     return n == 1
 
 
-@pytest.mark.parametrize('c', [c for c in range(1, SPLIT_MAX_C + 1) if _smooth(c)])
+@pytest.mark.parametrize('c', [c for c in range(1, 65) if _smooth(c)] + [80, 96, 128, 160, 2048])
 def test_radix_step_model_matches_numpy_fft(c):
-    """the radix step's Stockham passes at every C the route takes, on 32
-    columns, against np.fft along the parts, either direction."""
+    """the radix step's Stockham passes at every C of radices 2-5 up to 64
+    and at the wide steps of the grid's frames (80, 96, 128, 160) and
+    SPLIT_MAX_C, on 32 columns, against np.fft along the parts, either
+    direction."""
+    assert c <= SPLIT_MAX_C
     rng = np.random.default_rng(c)
     x = rng.standard_normal((c, 32)) + 1j * rng.standard_normal((c, 32))
     fwd = radix_model(x, np.exp(-2j * np.pi * np.arange(c) / c), False)
@@ -264,6 +276,37 @@ def test_split_chain_model_centre_trim_and_unresampled(pair):
         assert rel(got, ref) <= 1e-12
 
 
+@pytest.mark.parametrize('c1', [67, 80, 160])
+def test_split_chain_model_at_wide_radix_steps(c1):
+    """the modelled route with a forward radix step of 67 parts (68608 ->
+    1024, the route's own plan: the prime pass), 80 and 160 parts of M =
+    1024 points into 5 x 1024 (the radix steps of the blackmanharris
+    designs at 122.88 -> 7.68 and 3.84 MS/s, 80 and 160 x 16384, at a
+    smaller part), on 2 frames with random windows and an offset trim,
+    against the np.fft chain in complex128 (fused_ola_frames_plain) within
+    1e-12."""
+    nfft = c1 * 1024
+    nfft_out = 1024 if c1 == 67 else 5 * 1024
+    plan = ((c1, 1024), (nfft_out // 1024, 1024))
+    if c1 == 67:
+        assert split_plan(nfft, nfft_out) == plan and frames_route(nfft, nfft_out) == 'split'
+    rng = np.random.default_rng(c1)
+    frames = rng.standard_normal((2, nfft)) + 1j * rng.standard_normal((2, nfft))
+    w_in = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    w_out = rng.standard_normal(nfft_out) + 1j * rng.standard_normal(nfft_out)
+    tr = _trim(nfft, nfft_out)
+    ref = kernels.fused_ola_frames_plain(
+        torch.from_numpy(frames), w_in=torch.from_numpy(w_in),
+        w_shift_out=torch.from_numpy(w_out), nfft=nfft, nfft_out=nfft_out,
+        zero_lo=tr['zero_lo'], zero_hi=tr['zero_hi'],
+        bounds_in=(tr['in_lo'], tr['in_lo'] + tr['out_hi'] - tr['out_lo']),
+        bounds_out=(tr['out_lo'], tr['out_hi']),
+    ).numpy()
+    got = np.stack([split_chain_model(f, w_in, w_out, nfft, nfft_out, **tr, plan=plan)
+                    for f in frames])
+    assert rel(got, ref) <= 1e-12
+
+
 @pytest.mark.parametrize('pair', SPLIT_PAIRS[::3])
 def test_host_tables_are_the_models(pair):
     """the tables the wrapper hands the kernels: the model's, part by part
@@ -304,7 +347,8 @@ def test_split_shapes_and_shared_memory():
 def test_route_and_scope_by_size():
     """'split' at the grid's pairs above one block that no cluster pair
     lists, the register and cluster pairs and the one-block sizes as
-    before, the sizes of OUTSIDE outside every route."""
+    before, the sizes of OUTSIDE outside every route, those of WIDE on
+    radix steps of more than 64 parts."""
     for pair in SPLIT_PAIRS:
         assert split_takes(*pair) and frames_route(*pair) == 'split', pair
         assert fused_ola_frames_supported(*pair), pair
@@ -317,6 +361,9 @@ def test_route_and_scope_by_size():
     for pair in OUTSIDE:
         assert frames_route(*pair) == 'generic', pair
         assert not fused_ola_frames_supported(*pair), pair
+    for pair in WIDE:
+        assert frames_route(*pair) == 'split' and fused_ola_frames_supported(*pair), pair
+        assert split_plan(*pair)[0][0] > 64
     # an upsampling pair: the forward side one part, the inverse four
     assert frames_route(16384, 65536) == 'split'
     assert split_plan(16384, 65536) == ((1, 16384), (4, 16384))
@@ -324,26 +371,35 @@ def test_route_and_scope_by_size():
 
 @pytest.mark.parametrize('fs_out,window,min_fft', GRID)
 def test_grid_designs_take_a_kernel(fs_out, window, min_fft):
-    """each design of the 122.88 MS/s grid, at bw = inf and 0.66 of the
-    output rate, routes its OLA to a register, cluster or split kernel on
-    a card (the CPU monitor's routes are the card's): never the older
-    radix-2 or generic bodies, never 'plain'. The hamming 2:1 designs up to
-    16384 points take the 2:1 kernel, every other the frame kernel's
-    wrapper with the grouped overlap-add."""
+    """each of the 72 designs of the 122.88 MS/s grid, at bw = inf and 0.66
+    of the output rate, routes its OLA to a kernel on a card (the CPU
+    monitor's routes are the card's), never 'plain': its frames to a
+    register, cluster or split kernel (the generic one only at the 2:1
+    pairs 20480 -> 4096 and 24576 -> 4096, whose one-block frames no
+    register instance takes), never the older radix-2 body. The hamming
+    (2:1) designs take the 2:1 route (fused_ola: 'reg' at OLA_REG_PAIRS,
+    else the frame kernel and ola_add, '<frame route>+add'), every other
+    the frame kernel's wrapper with the grouped overlap-add."""
     for bw in (math.inf, 0.66 * fs_out):
         d = _design(fs_out, window, min_fft, bw)
         mon = it.WidebandMonitor(d, device='cpu')
         pair = (d.nfft, d.nfft_out)
-        assert mon.routes['ola'] in ('reg', 'cluster', 'split'), (pair, mon.routes)
+        frame = frames_route(*pair)
+        assert fused_ola_frames_supported(*pair), pair
+        assert frame in ('reg', 'cluster', 'split') or pair in OLA_REG_PAIRS or (
+            frame == 'generic' and pair in ((20480, 4096), (24576, 4096))), (pair, frame)
         strided = fused_ola_cuda_supported(*pair, mon.noverlap_in, mon.noverlap_out)
+        assert strided == (window == 'hamming') == mon._strided
         if strided:
-            assert ola_route(*pair) == 'reg' and pair in OLA_REG_PAIRS
+            assert mon.routes['ola'] == ola_route(*pair) == (
+                'reg' if pair in OLA_REG_PAIRS else frame + '+add'), (pair, mon.routes)
+            assert mon._ola is kernels.fused_ola
         else:
-            assert fused_ola_frames_supported(*pair)
-            assert mon.routes['ola'] == frames_route(*pair)
+            assert mon.routes['ola'] == frame
             assert mon._ola.func is ola_grouped
             assert mon._ola.keywords == {'frames_fn': kernels.fused_ola_frames}
-        assert (pair in SPLIT_PAIRS) == (mon.routes['ola'] == 'split')
+        if fs_out in GRID_RATES:
+            assert (pair in SPLIT_PAIRS) == (frame == 'split')
 
 
 def test_cpu_tensors_take_the_plain_chain_at_the_split_sizes():

@@ -44,7 +44,6 @@ from iqwaveform_torch import fourier as T
 from iqwaveform_torch.ops import kernels
 from iqwaveform_torch.ops.kernels import _build
 from iqwaveform_torch.ops.kernels.fused_ola import (
-    SPLIT_MAX_C,
     _split_tables,
     dequantize,
     frames_route,
@@ -387,11 +386,12 @@ def test_mixed_radix_plan_at_radix_7(n):
             <= 1e-12 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize('c', [c for c in range(7, SPLIT_MAX_C + 1, 7)
+@pytest.mark.parametrize('c', [c for c in range(7, 64 + 1, 7)
                                if _build.fft_plan(c) and max(_build.fft_plan(c)) == 7])
 def test_radix_step_model_at_radix_7(c):
-    """the split route's radix step at every C with a factor of 7 it takes
-    (7, 14, 21, 28, 35, 42, 56, 63), on 32 columns, either direction."""
+    """the split route's radix step at every C with a factor of 7 up to 64
+    parts (7, 14, 21, 28, 35, 42, 56, 63), on 32 columns, either direction
+    (tests/test_torch_ola_split.py holds the wider steps)."""
     rng = np.random.default_rng(c)
     x = rng.standard_normal((c, 32)) + 1j * rng.standard_normal((c, 32))
     fwd = radix_model(x, np.exp(-2j * np.pi * np.arange(c) / c), False)
@@ -455,11 +455,13 @@ def test_plain_chain_matches_jax_packed_at_7168():
 @pytest.mark.parametrize('window', sorted(RADIX7_DESIGNS))
 def test_radix_7_designs_take_the_split_route(window):
     """the monitor at 107.52 -> 15.36 MS/s (min_fft_size=8191): its frames
-    take the split route (routes['ola'] 'split', before any launch), on
-    the CPU it steps equal to reference_step, and ola_filter takes the
-    kernel route there; the JAX resolver arms its Pallas kernel at the
-    hamming design. A factor of 11 takes the split route too (its radix
-    step's prime pass); more than 64 parts keep the plain frames."""
+    take the split route (routes['ola'] 'split', before any launch; at the
+    hamming design the 2:1 route on the split frames, 'split+add'), on the
+    CPU it steps equal to reference_step, and ola_filter takes the kernel
+    route there; the JAX resolver arms its Pallas kernel at the hamming
+    design. A factor of 11 takes the split route too (its radix step's
+    prime pass), and so do 80 parts (1310720 -> 40960: radix steps of up to
+    2048 parts)."""
     (nfft, nfft_out), fwd, inv = RADIX7_DESIGNS[window]
     assert split_shape(nfft) == fwd and split_shape(nfft_out, inverse=True) == inv
     assert split_takes(nfft, nfft_out) and frames_route(nfft, nfft_out) == 'split'
@@ -467,7 +469,7 @@ def test_radix_7_designs_take_the_split_route(window):
     d = it.design_wideband_monitor(107.52e6, 15.36e6, **kw)
     assert (d.nfft, d.nfft_out) == (nfft, nfft_out)
     mon = it.WidebandMonitor(d, device='cpu')
-    assert mon.routes['ola'] == 'split'
+    assert mon.routes['ola'] == ('split+add' if window == 'hamming' else 'split')
     x = _complex(np.random.default_rng(40), mon.min_input_multiple())
     got = mon.step(x)
     for k, v in mon.reference_step(x).items():
@@ -481,8 +483,8 @@ def test_radix_7_designs_take_the_split_route(window):
     eleven = it.WidebandMonitor(it.design_wideband_monitor(
         135.168e6, 12.288e6, fs_sdr=135.168e6, window=window, min_fft_size=8191), device='cpu')
     assert 11 * 2048 * (eleven.design.nfft // (11 * 2048)) == eleven.design.nfft
-    assert eleven.routes['ola'] == 'split'
+    assert eleven.routes['ola'] == ('split+add' if window == 'hamming' else 'split')
     wide = it.WidebandMonitor(it.design_wideband_monitor(
         122.88e6, 3.84e6, bw=2e6, fs_sdr=122.88e6, window='blackmanharris'), device='cpu')
     assert (wide.design.nfft, wide.design.nfft_out) == (1310720, 40960)
-    assert wide.routes['ola'] == 'plain'
+    assert wide.routes['ola'] == 'split'
