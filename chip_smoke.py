@@ -364,7 +364,8 @@ then rows 2-3's storage tiers and radix-7 frames:
    planes of integer counts near 2^24 samples, read at the hop): the
    register kernel at 16384 -> 8192 (and 12288 -> 6144), the cluster of 3
    at 49152 -> 24576, the split route at 131072 -> 16384 and the generic
-   kernel at 20480 -> 10240; one launch each on its element type, within
+   kernel at 20480 -> 10240 (above the plan kernel's 16384 points); one
+   launch each on its element type, within
    1e-6 relative RMS of the complex64 instance on the dequantized frames
    and 1e-5 of the plain chain, the instance named in its profile, timed
    beside the complex64 instance and beside the rounding pass into
@@ -429,7 +430,8 @@ then rows 2-3's storage tiers and radix-7 frames:
    ``fused_ola_strided_plain``, its complex128 error at most twice the
    plain chain's; int16 and bfloat16 planes at one pair a frame route; (b)
    the monitor step near 2^24 samples at 12288 -> 4096 (reg), 32768 ->
-   16384 (cluster), 20480 -> 4096 (generic) and 65536 -> 16384 (split):
+   16384 (cluster), 20480 -> 4096 (generic; above the plan kernel's 16384
+   points) and 65536 -> 16384 (split):
    routes, one launch of the route and of ``ola_add``, no frame wrapper,
    no concatenation kernel in the profile, phase 3's gates against
    ``reference_step``, timed beside the same step through ``ola_grouped``
@@ -446,6 +448,38 @@ then rows 2-3's storage tiers and radix-7 frames:
    ``reference_step``, the frames against the plain chain and complex128,
    profiled, timed beside the plain frames (rows ``split_c80_1310720_81920``
    ... ``split_c160_2621440``).
+
+27. The plan frame kernel of rows 1-3 (``fused_ola_frames_plan_kernel`` on
+   the run-time plans of ``csrc/fft_plan.cuh``; routes 'plan' and
+   'plan+add') at every one-block pair the generic frame kernel and the
+   radix-2 2:1 kernel took: ptxas's registers and spills of its four
+   instances (none may spill); (a) the 52 monitor pairs that ran an
+   older body on 8 frames against the plain chain (1e-5) and complex128
+   (twice the chain's error), int16 and bfloat16 planes at one pair a size
+   class, the 27 2:1 pairs through 'plan+add' with a halo and the tail;
+   the pairs it does not hold listed (frames above 16384 points: the generic
+   kernel); (b) ten pairs on a step's frames near 2^24 samples (rows
+   ``plan_4096_2048`` ... ``plan_16384_8192``; ``generic_20480_4096`` and the
+   like at the pairs it does not hold), each beside its older body (``generic_ms``:
+   the radix-2 kernel, 'generic+add' or the generic frame kernel), the
+   plain version and the ``torch.fft`` chain, the frame kernels alone
+   (``plan_frames_ms``, ``generic_frames_ms``; at 16384 -> 8192 also the
+   compile-time register instance, ``reg_frames_ms``), profiled; (c) the
+   monitor step near 2^24 samples at the example's 61.44 -> 30.72 MS/s
+   hamming design (4096 -> 2048), 122.88 -> 40.96 MS/s hamming at
+   min_fft_size 2047 (6144 -> 2048), blackman 122.88 -> 40.96 MS/s (9216 ->
+   3072) and blackmanharris 30.72 -> 15.36 MS/s at 1023 (10240 -> 5120):
+   routes, one launch of the plan
+   route, no generic frame kernel or radix-2 2:1 kernel in the profile,
+   phase 3's gates against ``reference_step`` and against the same step
+   through the older body, timed beside it; (d) the stream at the example
+   design (8 chunks against one step and ``reference_step``, 16 chunks,
+   2^28 samples, timed) and ``ola_filter`` at 8192 -> 4096 on BASELINE #2's
+   capture against its plain route (row ``fused_ola_frames_plan``: the
+   example pair's times, the launches of (c)'s steps), and ``ola_filter`` at
+   row 3's split pair 1310720 -> 40960 (80 parts) near BASELINE #2's
+   capture, timed beside its plain route and the stage chain, with its
+   bound (the row's ``split_ola_filter_1310720``).
 
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
@@ -1404,9 +1438,10 @@ def library_kernels(names) -> list:
     return [n for n in names if any(f in short_name(n).lower() for f in FORBIDDEN + ('cudnn',))]
 
 
-def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
+def device_kernels(fn, *expect: str, fresh: str | None = None, counts: dict | None = None) -> tuple:
     """run ``fn`` once under the profiler: (sorted device kernel names,
-    device microseconds by short name).
+    device microseconds by short name); ``counts``, where given, gets the
+    trace's device events by short name.
 
     On an H100 (torch 2.11, CUDA 12.8) a trace of a call made only of the
     port's kernels (``corr_at_indices``, ``channelize_power``) late in this
@@ -1434,6 +1469,8 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
             for e in events:
                 key = short_name(e.name)
                 device_us[key] = device_us.get(key, 0.0) + e.time_range.elapsed_us()
+                if counts is not None:
+                    counts[key] = counts.get(key, 0) + 1
             return sorted({e.name for e in events}), device_us
         host = sorted({e.name for e in prof.events() if e.name.startswith('cuda')})
         print(f'profiler: trace {attempt + 1} of {PROFILE_TRIES} holds no {missing} '
@@ -1450,6 +1487,8 @@ def device_kernels(fn, *expect: str, fresh: str | None = None) -> tuple:
         print(f'profiler: the fresh process exited {proc.returncode}: {proc.stderr[-2000:]}')
         return [], {}
     got = json.loads(lines[-1])
+    if counts is not None:
+        counts.update(got.get('counts', {}))
     return got['names'], got['device_us']
 
 
@@ -1461,13 +1500,14 @@ def trace_call(name: str) -> int:
     split_blackmanharris_655360|split_blackmanharris_163840|split_ola_filter|
     tier_<row of 24a>|tier_ola_filter_i16|tier_ola_filter_bf16|tier_step_planes_i16|
     radix7_hamming|radix7_blackman|radix7_blackmanharris|host_step|
-    ola_2to1_<route>_<nfft> (ADD_STEPS)|split_c<C>_<nfft>... (WIDE_SPLIT)``:
+    ola_2to1_<route>_<nfft> (ADD_STEPS)|split_c<C>_<nfft>... (WIDE_SPLIT)|
+    plan_<design> (PLAN_STEPS)|plan_frames_<nfft>_<nfft_out> (PLAN_TIMED)``:
     make the call of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a, 22b,
-    23a, 23e, 24, 26b or 26d at its shapes, on noise from ``SEED``
+    23a, 23e, 24, 26b, 26d, 27b or 27c at its shapes, on noise from ``SEED``
     (phases 19-20's on their tone + noise; the kernels' work does not
     depend on the values), warm it up, trace it with
-    ``device_kernels`` and print (names, device us by kernel) as the last
-    line, a JSON object (``--trace split_ola_filter``: the launches by
+    ``device_kernels`` and print (names, device us and events by kernel)
+    as the last line, a JSON object (``--trace split_ola_filter``: the launches by
     kernel, ``device_launches``). Exits 1 if the trace lacks a kernel. ``--trace
     stats4096`` prints ``stats4096_device_ms`` instead (phase 17a)."""
     sys.path.insert(0, str(ROOT))
@@ -1573,6 +1613,17 @@ def trace_call(name: str) -> int:
             return mon.step(x)
 
         expect = (ADD_KERNEL,) + frame_kernels
+    elif name in PLAN_STEPS:
+        mon = plan_design(name)
+        x = plan_step_input(mon, gen, dev)
+
+        def fn():
+            return mon.step(x)
+
+        expect = (PLAN_KERNEL,)
+    elif name.startswith('plan_frames_'):
+        fn, kernel = plan_frames_trace(name, gen, dev)
+        expect = (kernel,)
     elif name in WIDE_SPLIT:
         (fo, w, m), _ = WIDE_SPLIT[name]
         mon = split_design(fo, w, m)
@@ -1608,8 +1659,9 @@ def trace_call(name: str) -> int:
         raise ValueError(f'no call named {name!r} to trace')
     fn()
     torch.cuda.synchronize()
-    names, device_us = device_kernels(fn, *expect)
-    print(json.dumps({'names': names, 'device_us': device_us}))
+    counts = {}
+    names, device_us = device_kernels(fn, *expect, counts=counts)
+    print(json.dumps({'names': names, 'device_us': device_us, 'counts': counts}))
     return 0 if names else 1
 
 
@@ -1774,7 +1826,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'generic': 0},
+        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'plan': 0, 'generic': 0},
                 f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2189,7 +2241,7 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float, parent: str | 
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'generic': 0},
+        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'plan': 0, 'generic': 0},
                 f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2514,7 +2566,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         got = kernels.fused_ola_frames(frames, **kw)
         torch.cuda.synchronize()
         routes = dict(kernels.fused_ola_frames.route_launches)
-        require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
+        require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
                 f'fused_ola_frames at {nfft} -> {nfft_out}: kernels {routes}')
         ref = kernels.fused_ola_frames_plain(frames, **kw)
         ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
@@ -2541,7 +2593,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     out = mon.step(x)
     torch.cuda.synchronize()
     routes = dict(kernels.fused_ola_frames.route_launches)
-    require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
+    require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
             f'blackmanharris step kernels {routes}')
     check_step(out, mon.reference_step(x), 'blackmanharris 81920 -> 40960 step vs plain-version step')
     print(f'blackmanharris step: {N_CLUSTER_STEP_BH} samples, 81920 -> 40960 frames, kernels '
@@ -2568,7 +2620,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'cluster step launches: {json.dumps(launched)}; kernels by route {json.dumps(routes)}')
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'cluster step launches {launched}')
-    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
+    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
                        'chan_stats': CHAN_REG_ROUTE,
                        'hist': {'bucket': 1, 'generic': 0, 'slices': 0}},
             f'cluster step routes {routes}')
@@ -2628,7 +2680,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
           f'{CLUSTER_PAIRS[pair]}): launches {json.dumps(launched)}; routes {json.dumps(routes)}')
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'{window} 30.72 MS/s step launches {launched}')
-    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'generic': 0},
+    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
                        'chan_stats': CHAN_REG_ROUTE}, f'{window} 30.72 MS/s step routes {routes}')
     check_step(out, mon.reference_step(x), f'{window} 30.72 MS/s step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x))
@@ -4639,7 +4691,7 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     frames_k = kernels.fused_ola_frames
     torch.cuda.reset_peak_memory_stats(dev)
-    no_split = {'reg': 0, 'cluster': 0, 'split': 1, 'generic': 0}
+    no_split = {'reg': 0, 'cluster': 0, 'split': 1, 'plan': 0, 'generic': 0}
 
     # ---- 22d first (no launch): the routes of the 36 grid designs on the
     # card; the split pairs of 22a are the grid's
@@ -5178,7 +5230,7 @@ def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     print(f'23e ola_filter {nfft} -> {nfft_out} on {N_SPLIT_FILTER} samples: launches '
           f'{json.dumps(calls)}, frame routes {json.dumps(routes)}')
     require(calls == {'fused_ola_frames': 1}
-            and routes == {'reg': 0, 'cluster': 0, 'split': 1, 'generic': 0},
+            and routes == {'reg': 0, 'cluster': 0, 'split': 1, 'plan': 0, 'generic': 0},
             f'23e launches {calls}, routes {routes}')
     plain_y = it.ola_filter(xs, **kw, plain=True)
     chain_y = it.ola_filter(xs, **kw, fft_backend='xla')
@@ -6481,6 +6533,534 @@ def add_route_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     return rows
 
 
+# ---- phase 27: the plan frame kernel of rows 1-3
+# (fused_ola_frames_plan_kernel on the run-time plans of csrc/fft_plan.cuh)
+# at every one-block pair the generic frame kernel and the radix-2 2:1
+# kernel took: 'plan' frames, 'plan+add' at 2:1
+
+PLAN_KERNEL = 'fused_ola_frames_plan_kernel'
+# 27a: the monitor pairs that routed to an older body
+# (tests/test_torch_ola_plan.py ENUMERATED): the 12 power-of-two 2:1 pairs of
+# the radix-2 kernel, the 15 of 'generic+add', the 25 blackman /
+# blackmanharris frame pairs of the generic kernel
+PLAN_RADIX2 = ((1024, 1024), (2048, 1024), (2048, 2048), (4096, 1024), (4096, 2048),
+               (4096, 4096), (8192, 1024), (8192, 2048), (8192, 8192), (16384, 1024),
+               (16384, 2048), (16384, 16384))
+PLAN_GENERIC_ADD = ((1536, 1024), (3072, 1024), (3072, 2048), (5120, 1024), (6144, 1024),
+                    (6144, 2048), (6144, 4096), (10240, 1024), (10240, 2048), (12288, 2048),
+                    (12288, 8192), (20480, 2048), (20480, 4096), (24576, 4096), (24576, 16384))
+PLAN_R_FRAMES = ((3072, 3072), (5120, 5120), (6144, 3072), (6144, 6144), (7680, 3072),
+                 (9216, 3072), (10240, 5120), (10240, 10240), (12288, 3072), (12288, 12288),
+                 (12800, 5120), (15360, 3072), (15360, 5120), (15360, 6144), (18432, 3072),
+                 (18432, 6144), (19200, 5120), (20480, 5120), (20480, 10240), (20480, 20480),
+                 (21504, 3072), (24576, 3072), (24576, 6144), (24576, 24576), (25600, 5120))
+N_PLAN_FRAMES = 8  # 27a: frames a pair
+# 27a: the pairs held on int16 and bfloat16 planes too, one a size class:
+# grouped small frames, one frame a block, the largest frames
+PLAN_TIER_PAIRS = ((1024, 1024), (9216, 3072), (16384, 2048))
+# 27b: the pairs timed on a step's frames near 2^24 samples, each at its
+# design's hop: the radix-2 kernel's 4096 -> 2048 and 16384 -> 1024, grouped
+# 1024 -> 1024, 'generic+add''s 6144 -> 2048 (and 20480 -> 4096 and 24576
+# -> 4096, which the plan kernel does not hold), the R > 2 frames 9216 ->
+# 3072 (and 20480 -> 10240 and 25600 -> 5120, not held), and 16384 -> 8192
+# beside its compile-time register instance; a pair the plan kernel does
+# not hold gives the row of its generic route
+PLAN_TIMED = {(4096, 2048): 2048, (16384, 1024): 8192, (1024, 1024): 512,
+              (20480, 4096): 10240, (24576, 4096): 12288, (6144, 2048): 3072,
+              (9216, 3072): 3072, (20480, 10240): 4096, (25600, 5120): 5120,
+              (16384, 8192): 8192}
+N_PLAN_STEP = 1 << 24
+PLAN_TRACE_CALLS = 3  # 27b: frame calls in one trace, each a launch of the pair's kernel
+# 27c: the monitor designs of the slice: row -> (fs_sdr, output rate,
+# window, min_fft_size, pair, route)
+PLAN_STEPS = {
+    'plan_example_4096': (61.44e6, 30.72e6, 'hamming', 2047, (4096, 2048), 'plan+add'),
+    'plan_hamming_6144': (122.88e6, 40.96e6, 'hamming', 2047, (6144, 2048), 'plan+add'),
+    'plan_blackman_9216': (122.88e6, 40.96e6, 'blackman', 1023, (9216, 3072), 'plan'),
+    'plan_blackmanharris_10240': (30.72e6, 15.36e6, 'blackmanharris', 1023, (10240, 5120),
+                                  'plan'),
+}
+N_PLAN_STREAM = 16  # 27d: chunks of about 2^24 samples, 2^28 in all
+N_PLAN_STREAM_CHECK = 8  # 27d: chunks held against one step and reference_step
+# 27d: ola_filter at a 'plan' pair on BASELINE #2's capture, and at row 3's
+# split pair (blackmanharris 1310720 -> 40960, 80 parts, the split route) on the
+# largest multiple of its output overlap (32768) at or below BASELINE #2's
+# 99,999,744 samples, timed beside its plain route and the stage chain
+PLAN_FILTER_KW = dict(OLA_KW, nfft=8192, nfft_out=4096)
+SPLIT80_FILTER_KW = dict(fs=122.88e6, nfft=1310720, nfft_out=40960, window='blackmanharris',
+                         passband=(-1e6, 1e6))
+N_SPLIT80_FILTER = 3051 * 32768
+# the summary row is the example design's 2:1 pair, 'plan+add' (row 1)
+KERNEL_INFO['fused_ola_frames_plan'] = ('iqwaveform_torch/csrc/ola_frames.cuh',
+                                        'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571')
+for _pair in PLAN_TIMED:
+    for _route in ('plan', 'generic'):
+        KERNEL_INFO[f'{_route}_{_pair[0]}_{_pair[1]}'] = (
+            'iqwaveform_torch/csrc/ola_frames.cuh', 'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:'
+            + ('571' if _pair in PLAN_RADIX2 + PLAN_GENERIC_ADD else '492'))
+del _pair, _route
+
+
+def plan_spills(report: str) -> dict:
+    """ptxas's spills (and registers) of each instance of the plan kernel,
+    by instance; a spill of any inlined pass shows in its kernel's line."""
+    import re
+
+    lines, out = report.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r'Compiling entry function .?(_Z\S*plan_kernel\S*)', line)
+        if not m:
+            continue
+        e = re.search(r'plan_kernelI(\w+?)EEv', m.group(1))
+        props = out.setdefault(e.group(1) if e else m.group(1)[:60],
+                               {'spill_stores': 0, 'spill_loads': 0, 'registers': 0})
+        for ln in lines[i + 1:i + 4]:
+            sp = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+            rg = re.search(r'Used (\d+) registers', ln)
+            if sp:
+                props['spill_stores'] = max(props['spill_stores'], int(sp.group(1)))
+                props['spill_loads'] = max(props['spill_loads'], int(sp.group(2)))
+            if rg:
+                props['registers'] = max(props['registers'], int(rg.group(1)))
+    return out
+
+
+def named_ms(device_us: dict, kernel: str) -> float:
+    """the device milliseconds of every kernel whose name holds ``kernel``
+    (any namespace and instance) in a device_kernels breakdown."""
+    return sum(us for k, us in device_us.items() if kernel in k) / 1e3
+
+
+def plan_frames_input(pair, gen, dev) -> tuple:
+    """27b's input at ``pair``: (near N_PLAN_STEP samples of noise, their
+    frames at the pair's PLAN_TIMED hop, zeros past the end, the frame
+    kernels' arguments)."""
+    n1, n2 = pair
+    hop = PLAN_TIMED[pair]
+    kw = tier_kwargs(n1, n2, gen, dev)
+    n_fr = N_PLAN_STEP // hop
+    x = torch.randn(n_fr * hop, dtype=torch.complex64, device=dev, generator=gen)
+    return x, torch.cat([x, x.new_zeros(n1 - hop)]).unfold(-1, n1, hop)[:n_fr], kw
+
+
+def plan_frames_fn(pair, frames, kw) -> tuple:
+    """27b's frame call at ``pair`` and its kernel's name: the plan kernel
+    where it holds the pair (at a register pair too), else the generic."""
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_frames_generic,
+        _fused_ola_frames_plan,
+        plan_takes,
+    )
+
+    if plan_takes(*pair):
+        return (lambda: _fused_ola_frames_plan(frames, **kw)), PLAN_KERNEL
+    return (lambda: _fused_ola_frames_generic(frames, **kw)), GENERIC_KERNEL
+
+
+def plan_frames_trace(name: str, gen, dev) -> tuple:
+    """``--trace plan_frames_<nfft>_<nfft_out>``: (PLAN_TRACE_CALLS of 27b's
+    frame calls at the pair, its kernel's name)."""
+    pair = tuple(int(v) for v in name.removeprefix('plan_frames_').split('_'))
+    _, frames, kw = plan_frames_input(pair, gen, dev)
+    fn, kernel = plan_frames_fn(pair, frames, kw)
+    return (lambda: [fn() for _ in range(PLAN_TRACE_CALLS)]), kernel
+
+
+def plan_design(name: str, device='cuda'):
+    """27c's monitor ``name`` on ``device``."""
+    import iqwaveform_torch as it
+
+    fs, fo, w, m, _, _ = PLAN_STEPS[name]
+    return it.WidebandMonitor(it.design_wideband_monitor(fs, fo, fs_sdr=fs, window=w,
+                                                         min_fft_size=m), device=device)
+
+
+def plan_step_input(mon, gen, dev):
+    """whole min_input_multiple()s of noise near N_PLAN_STEP samples."""
+    m = mon.min_input_multiple()
+    return torch.randn(max(1, round(N_PLAN_STEP / m)) * m, dtype=torch.complex64, device=dev,
+                       generator=gen)
+
+
+def older_step(mon, x):
+    """the step on ``x`` through the older body of its OLA pair (the
+    radix-2 kernel, 'generic+add' or the generic frame kernel): the
+    yardstick of 27c, never a route."""
+    import functools
+
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_frames_generic,
+        _fused_ola_older,
+        ola_grouped,
+    )
+
+    if mon._strided:
+        y = _fused_ola_older(x, **mon.ola_kwargs)
+    else:
+        y = functools.partial(ola_grouped, frames_fn=_fused_ola_frames_generic)(
+            x, **mon.ola_kwargs)
+    return mon._outputs(y, mon._chan, mon._counts)
+
+
+def frame_routes(**counts) -> dict:
+    """fused_ola_frames' route counts: ``counts`` and 0 on every other."""
+    from iqwaveform_torch.ops import kernels
+
+    return {**dict.fromkeys(kernels.fused_ola_frames.route_launches, 0), **counts}
+
+
+def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 27; returns the kernels line's rows of the plan kernel: one at
+    each pair of 27b, and 'fused_ola_frames_plan' with the launches of 27c's
+    four steps and the times of the example design's pair."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_frames_generic,
+        _fused_ola_older,
+        _radix2_pair,
+        frames_route,
+        ola_route,
+        plan_shape,
+        plan_takes,
+    )
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames_k, strided = kernels.fused_ola_frames, kernels.fused_ola_strided
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ptxas: registers and spills of each instance (one an element type);
+    # none may spill
+    spills = plan_spills(_build.ptxas_report())
+    print(f'27 ptxas {PLAN_KERNEL} instances: {json.dumps(spills)}')
+    spilled = {k: v for k, v in spills.items() if v['spill_stores'] or v['spill_loads']}
+    require(len(spills) == 4 and not spilled,
+            f'27: the plan kernel\'s four instances spill or are missing: {spills}')
+
+    # ---- 27a: each enumerated pair on N_PLAN_FRAMES frames against the
+    # plain chain and complex128; planes at one pair a size class; the 2:1
+    # pairs through 'plan+add' with a halo and the tail
+    pairs, not_held = {}, []
+    two_to_one = PLAN_RADIX2 + PLAN_GENERIC_ADD
+    for pair in two_to_one + PLAN_R_FRAMES:
+        n1, n2 = pair
+        held = plan_takes(n1, n2)
+        require(frames_route(n1, n2) == ('plan' if held else 'generic'),
+                f'27a {pair}: frames_route {frames_route(n1, n2)}')
+        if not held:
+            not_held.append(f'{n1}->{n2}')
+            continue
+        kw = tier_kwargs(n1, n2, gen, dev)
+        hop = n1 // 2 if pair in two_to_one else n1 // 3
+        capture = torch.randn(N_PLAN_FRAMES * hop + n1, dtype=torch.complex64, device=dev,
+                              generator=gen)
+        frames = capture.unfold(-1, n1, hop)[:N_PLAN_FRAMES]
+        reset_counts()
+        got = frames_k(frames, **kw)
+        torch.cuda.synchronize()
+        require(frames_k.route_launches == frame_routes(plan=1),
+                f'27a {pair}: frame routes {frames_k.route_launches}')
+        ref = kernels.fused_ola_frames_plain(frames, **kw)
+        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
+        err, err64, plain64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+        entry = {'shape': list(plan_shape(n1, n2)), 'relative_rms': err, 'f64_rel_rms': err64,
+                 'plain_f64_rel_rms': plain64}
+        require(err <= 1e-5, f'27a {pair}: relative RMS {err:.3g}')
+        require(err64 <= 2 * plain64,
+                f'27a {pair}: complex128 error {err64:.4g} > 2 x the plain chain\'s {plain64:.4g}')
+        if pair in PLAN_TIER_PAIRS:
+            for dtype in (torch.int16, torch.bfloat16):
+                planes = (PLANES_SCALE * torch.stack([capture.real, capture.imag])).round().to(dtype)
+                reset_counts()
+                gp = frames_k(planes, hop_in=hop, **kw)
+                rp = kernels.fused_ola_frames_plain(planes, hop_in=hop, **kw)
+                e = rel_rms(gp, rp)
+                layout = str(dtype).split('.')[-1]
+                require(frames_k.route_launches == frame_routes(plan=1)
+                        and frames_k.layout_launches[layout] == 1,
+                        f'27a {pair} {layout}: {frames_k.route_launches} {frames_k.layout_launches}')
+                require(e <= 1e-5, f'27a {pair} {layout} planes: relative RMS {e:.3g}')
+                entry[layout] = e
+        if pair in two_to_one:
+            h = n1 // 2
+            skw = dict(hop_in=h, **kw)
+            x = torch.randn((N_PLAN_FRAMES + 1) * h, dtype=torch.complex64, device=dev,
+                            generator=gen)
+            src, halo = x[:-h], x[-h:]
+            reset_counts()
+            y, tail = strided(src, halo, n_frames=N_PLAN_FRAMES, **skw)
+            torch.cuda.synchronize()
+            launched = {k: c.launches for k, c in kset.items() if c.launches}
+            require(launched == {'fused_ola_strided': 1, 'ola_add': 1}
+                    and strided.route_launches == ola_routes(**{'plan+add': 1})
+                    and ola_route(n1, n2) == 'plan+add',
+                    f'27a {pair} 2:1: launches {launched}, {strided.route_launches}')
+            r, rt = kernels.fused_ola_strided_plain(src, halo, n_frames=N_PLAN_FRAMES, **skw)
+            y64, t64 = strided_f64(src, halo, dict(skw, precision='highest'))
+            both, plain = torch.cat([y, tail]), torch.cat([r, rt])
+            ref64 = torch.cat([y64, t64])
+            e, e64, p64 = rel_rms(both, plain), rel_rms(both, ref64), rel_rms(plain, ref64)
+            require(e <= 1e-5, f'27a {pair} plan+add: relative RMS {e:.3g}')
+            require(e64 <= 2 * p64,
+                    f'27a {pair} plan+add: complex128 error {e64:.4g} > 2 x the plain\'s {p64:.4g}')
+            entry['plan+add'] = {'relative_rms': e, 'f64_rel_rms': e64, 'plain_f64_rel_rms': p64}
+        pairs[f'{n1}->{n2}'] = entry
+    print('27a the plan kernel at the enumerated pairs (G, F, vs plain, vs complex128): '
+          + json.dumps(pairs))
+    print(f'27a pairs the plan kernel does not hold (the generic kernel): {not_held}')
+    torch.cuda.empty_cache()
+
+    # ---- 27b: each pair of PLAN_TIMED on the frames of a step near 2^24
+    # samples: the route beside its older body, the plain version and the
+    # torch.fft chain, with its bound
+    rows = []
+    for (n1, n2), hop in PLAN_TIMED.items():
+        pair = (n1, n2)
+        held = plan_takes(*pair)
+        name = f'{"plan" if held else "generic"}_{n1}_{n2}'
+        x, fr, kw = plan_frames_input(pair, gen, dev)
+        n_fr = fr.shape[0]
+        route = frames_route(*pair)
+        frames_fn, kernel = plan_frames_fn(pair, fr, kw)
+        generic_fn = lambda fr=fr, kw=kw: _fused_ola_frames_generic(fr, **kw)  # noqa: E731
+        plain_fn = lambda fr=fr, kw=kw: kernels.fused_ola_frames_plain(fr, **kw)  # noqa: E731
+        entry = {'pair': f'{n1}->{n2}', 'hop': hop, 'frames': n_fr, 'frames_route': route,
+                 'plan_shape': None if not held else list(plan_shape(*pair))}
+        # each input read once (the samples, both windows), each output
+        # written once: the 2:1 route's overlap-added signal, else the frames
+        windows = 8 * (n1 + n2)
+        nops = n_fr * (fft_ops(n1) + fft_ops(n2) + 6 * (n1 + n2))
+        if pair in two_to_one:
+            # a pair the older 2:1 bodies took: the 2:1 route
+            okw = dict(kw, noverlap_in=hop, noverlap_out=n2 // 2)
+            route = ola_route(*pair)
+            reset_counts()
+            y = kernels.fused_ola(x, **okw)
+            torch.cuda.synchronize()
+            launches = kernels.fused_ola.route_launches[route]
+            y_plain = kernels.fused_ola_plain(x, **okw)
+            err = rel_rms(y, y_plain)
+            require(err <= 1e-5, f'27b {pair}: fused_ola vs plain relative RMS {err:.3g}')
+            row = kernel_row(name, {'launches': launches, 'max_abs_err': max_abs(y, y_plain)},
+                             8 * (x.numel() + y.numel()) + windows, nops,
+                             lambda: kernels.fused_ola(x, **okw),
+                             lambda: kernels.fused_ola_plain(x, **okw),
+                             lambda: kernels.fused_ola_plain(x, **okw), mem_rate, fp32_rate)
+            row['generic_ms'] = timed_ms(lambda: _fused_ola_older(x, **okw))
+            row['older_route'] = 'generic' if _radix2_pair(n1, n2) else 'generic+add'
+            row['ola_route'] = route
+            del y, y_plain
+        else:
+            # the pair's kernel (the plan kernel at a register pair too:
+            # its row times the plan, the register instance apart)
+            reset_counts()
+            got = frames_fn()
+            torch.cuda.synchronize()
+            launches = frames_k.route_launches['plan' if held else 'generic']
+            ref = kernels.fused_ola_frames_plain(fr, **kw)
+            err = rel_rms(got, ref)
+            require(err <= 1e-5, f'27b {pair}: relative RMS {err:.3g}')
+            row = kernel_row(name, {'launches': launches, 'max_abs_err': max_abs(got, ref)},
+                             8 * (x.numel() + got.numel()) + windows, nops, frames_fn, plain_fn,
+                             plain_fn, mem_rate, fp32_rate)
+            row['generic_ms'] = timed_ms(generic_fn)
+            row['older_route'] = 'generic'
+            del got, ref
+        row.update(entry)
+        row['relative_rms'] = err
+        # the frame kernels alone on the same frames; the pair's kernel by
+        # CUDA events a call and over PLAN_TRACE_CALLS calls back to back
+        # (launch gaps hidden), and its device time in one trace of as many
+        # calls, every device kernel of the trace printed
+        row['plan_frames_ms'] = timed_ms(frames_fn) if held else None
+        row['generic_frames_ms'] = timed_ms(generic_fn)
+        if route == 'reg':
+            row['reg_frames_ms'] = timed_ms(lambda: frames_k(fr, **kw))
+        calls = lambda: [frames_fn() for _ in range(PLAN_TRACE_CALLS)]  # noqa: E731
+        row['back_to_back_ms'] = timed_ms(calls) / PLAN_TRACE_CALLS
+        counts = {}
+        _, device_us = device_kernels(calls, kernel, fresh=f'plan_frames_{n1}_{n2}',
+                                      counts=counts)
+        traced = sum(c for k, c in counts.items() if kernel in k)
+        row['profiled_device_ms'] = (named_ms(device_us, kernel) / traced
+                                     if traced == PLAN_TRACE_CALLS else None)
+        row['trace'] = {'kernel_events': traced, 'device_us': device_us}
+        prof = row['profiled_device_ms']
+        print(f'27b {n1} -> {n2} ({n_fr} frames at hop {hop}, route {row.get("ola_route", route)}, '
+              f'plan {entry["plan_shape"]}): {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+              f'{row["bound_by"]}); older body {row["older_route"]} {row["generic_ms"]:.4f} ms; '
+              f'plain / torch.fft chain {row["plain_ms"]:.4f} ms; frames alone: plan '
+              f'{row["plan_frames_ms"]}, generic {row["generic_frames_ms"]:.4f}'
+              + (f', register instance {row["reg_frames_ms"]:.4f}' if 'reg_frames_ms' in row else '')
+              + f' ms; {kernel} back to back {row["back_to_back_ms"]:.4f} ms a call, profiled '
+              + (f'{prof:.4f} ms a launch' if prof is not None else 'not measured')
+              + f' ({traced} of {PLAN_TRACE_CALLS} launches in the trace; device us '
+              f'{json.dumps(device_us)}) ({smi})')
+        rows.append(row)
+        del x, fr
+        torch.cuda.empty_cache()
+
+    # ---- 27c: the monitor steps near 2^24 samples at the four designs:
+    # routes, launches (the plan route once a step; no generic frame kernel
+    # and no radix-2 2:1 kernel in the profile), reference_step's gates,
+    # times beside the same step through the older body
+    steps, plan_launches = {}, 0
+    for sname, (fs, fo, w, m, pair, route) in PLAN_STEPS.items():
+        mon = plan_design(sname)
+        d = mon.design
+        require((d.nfft, d.nfft_out) == pair and mon.routes['ola'] == route,
+                f'27c {sname}: {d.nfft} -> {d.nfft_out}, routes {mon.routes}')
+        x = plan_step_input(mon, gen, dev)
+        mon.step(x[: mon.min_input_multiple()])
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        if route == 'plan+add':
+            ok = (launched.get('fused_ola') == 1 and launched.get('ola_add') == 1
+                  and 'fused_ola_frames' not in launched
+                  and kernels.fused_ola.route_launches == ola_routes(**{route: 1}))
+        else:
+            ok = (launched.get('fused_ola_frames') == 1 and 'fused_ola' not in launched
+                  and frames_k.route_launches == frame_routes(plan=1))
+        require(ok, f'27c {sname}: launches {launched}, fused_ola {kernels.fused_ola.route_launches}, '
+                    f'frames {frames_k.route_launches}')
+        plan_launches += (kernels.fused_ola.route_launches.get('plan+add', 0)
+                          + frames_k.route_launches.get('plan', 0))
+        check_step(out, mon.reference_step(x), f'27c {sname} vs reference_step')
+        check_step(older_step(mon, x), out, f'27c {sname} through the older body vs the step')
+        step_ms = timed_ms(lambda: mon.step(x), reps=10)
+        older_ms = timed_ms(lambda: older_step(mon, x), reps=10)
+        names, device_us = device_kernels(lambda: mon.step(x), PLAN_KERNEL, fresh=sname)
+        require(any(PLAN_KERNEL in n for n in names),
+                f'27c {sname}: the profile lacks {PLAN_KERNEL}: {names}')
+        old = [n for n in names if short_name(n) in (GENERIC_KERNEL, OLA_GENERIC_KERNEL)
+               or GENERIC_KERNEL + '<' in n or OLA_GENERIC_KERNEL + '<' in n]
+        require(not old and not library_kernels(names),
+                f'27c {sname}: older or library kernels in the step: {old} {library_kernels(names)}')
+        busy = sum(device_us.values()) / 1e3
+        steps[sname] = {'pair': f'{pair[0]}->{pair[1]}', 'route': route, 'samples': x.numel(),
+                        'step_ms': step_ms, 'older_step_ms': older_ms, 'launches': launched,
+                        'plan_device_ms': named_ms(device_us, PLAN_KERNEL),
+                        'idle_share': max(0.0, 1 - busy / step_ms), 'device_us': device_us}
+        print(f'27c {sname} ({fs / 1e6:g} -> {fo / 1e6:g} MS/s {w} min_fft_size={m}, {pair[0]} -> '
+              f'{pair[1]}, {x.numel()} samples): launches {json.dumps(launched)}; within the step '
+              f'gates of reference_step; {step_ms:.4f} ms, through the older body {older_ms:.4f} '
+              f'ms; {PLAN_KERNEL} {steps[sname]["plan_device_ms"]:.4f} ms of device time; idle '
+              f'share {steps[sname]["idle_share"]:.3f} ({smi})')
+        del mon, x, out
+        torch.cuda.empty_cache()
+
+    # ---- 27d: the stream over 2^28 samples at the example design against
+    # one step and reference_step; ola_filter at a 'plan' pair on BASELINE
+    # #2's capture against its plain route
+    mon = plan_design('plan_example_4096')
+    chunk = (STREAM_CHUNK // mon.min_input_multiple()) * mon.min_input_multiple()
+    x = torch.randn(N_PLAN_STREAM_CHECK * chunk, dtype=torch.complex64, device=dev, generator=gen)
+    got, _ = _stream(mon, x.split(chunk))
+    worst = check_stream(got, mon.step(x), f'27d stream of {N_PLAN_STREAM_CHECK} chunks vs one step')
+    check_step(got, mon.reference_step(x),
+               f'27d stream of {N_PLAN_STREAM_CHECK} chunks vs reference_step')
+    del x, got
+    torch.cuda.empty_cache()
+    chunks = [torch.randn(chunk, dtype=torch.complex64, device=dev, generator=gen)
+              for _ in range(N_PLAN_STREAM)]
+    _stream(mon, chunks[:2])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats, n_chunks = _stream(mon, chunks)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launched = {k: c.launches for k, c in kset.items() if c.launches}
+    require(launched.get('fused_ola_strided') == n_chunks
+            and strided.route_launches == ola_routes(**{'plan+add': n_chunks})
+            and 'fused_ola_frames' not in launched,
+            f'27d stream: launches {launched}, routes {strided.route_launches}')
+    stream = {'chunks': n_chunks, 'samples': n_chunks * chunk, 's': stream_s,
+              'ms_per_s': n_chunks * chunk / stream_s / 1e6, 'vs_one_step': worst,
+              'launches': launched}
+    print(f'27d stream at the example design: {n_chunks} x {chunk} samples in {stream_s:.4f} s = '
+          f'{stream["ms_per_s"]:.1f} MS/s; launches {json.dumps(launched)}; against one step '
+          f'{json.dumps(worst)} ({smi})')
+    del chunks, stats, mon
+    torch.cuda.empty_cache()
+
+    import iqwaveform_torch as it
+
+    nf, nfo = PLAN_FILTER_KW['nfft'], PLAN_FILTER_KW['nfft_out']
+    require(frames_route(nf, nfo) == 'plan', f'27d ola_filter: frames_route {frames_route(nf, nfo)}')
+    x = torch.randn(N_OLA, dtype=torch.complex64, device=dev, generator=gen)
+    it.ola_filter(x[: 4 * nf], **PLAN_FILTER_KW)
+    torch.cuda.synchronize()
+    reset_counts()
+    y = it.ola_filter(x, **PLAN_FILTER_KW)
+    torch.cuda.synchronize()
+    launched = {k: c.launches for k, c in kset.items() if c.launches}
+    require(launched == {'fused_ola_frames': 1} and frames_k.route_launches == frame_routes(plan=1),
+            f'27d ola_filter launches {launched}, {frames_k.route_launches}')
+    ref = it.ola_filter(x, **PLAN_FILTER_KW, plain=True)
+    err = rel_rms(y, ref)
+    require(err <= 1e-5, f'27d ola_filter {nf} -> {nfo}: relative RMS {err:.3g}')
+    filt = {'pair': f'{nf}->{nfo}', 'samples': N_OLA, 'relative_rms': err,
+            'ms': timed_ms(lambda: it.ola_filter(x, **PLAN_FILTER_KW), reps=FILTER_REPS),
+            'plain_ms': timed_ms(lambda: it.ola_filter(x, **PLAN_FILTER_KW, plain=True),
+                                 reps=FILTER_REPS)}
+    print(f'27d ola_filter {nf} -> {nfo} on {N_OLA} samples: one plan launch, vs its plain route '
+          f'{err:.3g}; {filt["ms"]:.4f} ms, plain route {filt["plain_ms"]:.4f} ms ({smi})')
+    del x, y, ref
+    torch.cuda.empty_cache()
+
+    kw80 = SPLIT80_FILTER_KW
+    n1, n2 = kw80['nfft'], kw80['nfft_out']
+    require(frames_route(n1, n2) == 'split', f'27d ola_filter: frames_route {frames_route(n1, n2)}')
+    x = torch.randn(N_SPLIT80_FILTER, dtype=torch.complex64, device=dev, generator=gen)
+    it.ola_filter(x[: 4 * n1], **kw80)
+    torch.cuda.synchronize()
+    reset_counts()
+    y = it.ola_filter(x, **kw80)
+    torch.cuda.synchronize()
+    launched = {k: c.launches for k, c in kset.items() if c.launches}
+    require(launched == {'fused_ola_frames': 1} and frames_k.route_launches == frame_routes(split=1),
+            f'27d ola_filter at {n1} -> {n2}: launches {launched}, {frames_k.route_launches}')
+    ref = it.ola_filter(x, **kw80, plain=True)
+    err = rel_rms(y, ref)
+    require(err <= 1e-5, f'27d ola_filter {n1} -> {n2}: relative RMS {err:.3g}')
+    n_fr = N_SPLIT80_FILTER // (n1 // 5)
+    t_bytes = 8 * (x.numel() + y.numel()) / mem_rate * 1e3
+    t_ops = n_fr * (fft_ops(n1) + fft_ops(n2) + 6 * (n1 + n2)) / fp32_rate * 1e3
+    split80 = {'pair': f'{n1}->{n2}', 'samples': N_SPLIT80_FILTER, 'frames': n_fr,
+               'relative_rms': err, 'max_abs_err': max_abs(y, ref),
+               'ms': timed_ms(lambda: it.ola_filter(x, **kw80), reps=FILTER_REPS),
+               'plain_ms': timed_ms(lambda: it.ola_filter(x, **kw80, plain=True),
+                                    reps=FILTER_REPS),
+               'chain_ms': timed_ms(lambda: it.ola_filter(x, **kw80, fft_backend='xla'),
+                                    reps=FILTER_REPS),
+               'bound_ms': max(t_bytes, t_ops), 'bound_by': 'bytes' if t_bytes >= t_ops
+               else 'operations'}
+    print(f'27d ola_filter {n1} -> {n2} (split, 80 parts) on {N_SPLIT80_FILTER} samples: one '
+          f'split launch, vs its plain route {err:.3g}; {split80["ms"]:.4f} ms (bound '
+          f'{split80["bound_ms"]:.4f} ms by {split80["bound_by"]}), plain route '
+          f'{split80["plain_ms"]:.4f} ms, stage chain (torch.fft) {split80["chain_ms"]:.4f} ms '
+          f'({smi})')
+    del x, y, ref
+    torch.cuda.empty_cache()
+
+    # the kernel's row: the example design's 2:1 pair (27b's 'plan+add',
+    # its ms the route's: the plan kernel and ola_add_kernel), the plan
+    # route's counted launches in 27c's four steps
+    main = dict(next(r for r in rows if r['pair'] == '4096->2048'))
+    main.update(name='fused_ola_frames_plan', source=KERNEL_INFO['fused_ola_frames_plan'][0],
+                replaces=KERNEL_INFO['fused_ola_frames_plan'][1], launches=plan_launches,
+                steps=steps, stream=stream, ola_filter=filt, pairs=pairs, not_held=not_held,
+                ptxas=spills, split_ola_filter_1310720=split80)
+    rows.append(main)
+    print(f'phase 27 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
+
+
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
 
@@ -6919,6 +7499,10 @@ def main(parent: str | None = None) -> int:
     # the 2:1 route on the frame kernels with ola_add_kernel, the split route
     # above 64 parts
     rows = merge_rows(rows, add_route_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 27: the plan frame kernel of rows 1-3 at every one-block
+    # pair the generic frame kernel and the radix-2 2:1 kernel took
+    rows = merge_rows(rows, plan_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -37,8 +37,16 @@
 // (frame, both spectra) in shared memory: a 16384-point frame is 128 KiB
 // of the SM's 227 KiB, so one block of 1024 threads holds an SM. What this
 // simple version pays instead is shared-memory bandwidth and one
-// block-wide barrier per radix-2 stage (27 stages per flagship frame); at
-// the flagship pair fused_ola_reg_kernel below takes its place.
+// block-wide barrier per radix-2 stage (27 stages per flagship frame), and
+// it took 1.6-1.9x the torch.fft chain's time (PERF.md). At OLA_REG_PAIRS
+// fused_ola_reg_kernel below takes its place, at every other pair the plan
+// frame kernel of csrc/ola_frames.cuh and the overlap-add of
+// csrc/ola_add.cu ('plan+add'): this kernel routes only at a power-of-two
+// pair the plan kernel does not hold (a size of 2), and is elsewhere the
+// yardstick of the others (ops/kernels/fused_ola.py _fused_ola_generic,
+// _fused_ola_older).
+#include <cstring>
+
 #include "ola_frames.cuh"
 
 namespace {
@@ -143,12 +151,11 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const void* x, c
 // (fused_ola_pallas.py fused_ola_strided), with the same contract, at the
 // size pairs of IQT_OLA_REG_PAIRS below: the flagship monitor step's
 // 16384 -> 8192 at 2:1 (the hamming COLA design), 8192 -> 4096 and 16384
-// -> 4096. Every other pair of powers of two up to 16384 keeps
-// fused_ola_kernel, and every other 2:1 pair runs a frame kernel of
-// csrc/ola_frames.cuh or csrc/ola_split.cu, which reads the frames and the
-// halo where they lie, and the overlap-add of csrc/ola_add.cu; the host
-// route (ops/kernels/fused_ola.py ola_route) picks by size before the
-// launch.
+// -> 4096. Every other 2:1 pair runs a frame kernel of csrc/ola_frames.cuh
+// (the plan kernel at the other powers of two) or csrc/ola_split.cu, which
+// reads the frames and the halo where they lie, and the overlap-add of
+// csrc/ola_add.cu; the host route (ops/kernels/fused_ola.py ola_route)
+// picks by size before the launch.
 //
 // Per frame m of batch row b (block m, blockIdx.y = b): the chain of
 // fused_ola_frames_reg_kernel (reg_frame_chain, csrc/ola_frames.cuh) on the
@@ -483,6 +490,32 @@ extern "C" int iqt_fused_ola_frames_reg(
   a.tw = static_cast<const float2*>(tw);
   a.n_tw = n_tw;
   IQT_BY_LAYOUT(frames_reg, a)
+}
+
+// any pair the plan kernel holds (ops/kernels/fused_ola.py plan_takes), by
+// fused_ola_frames_plan_kernel: plan the plan_ints ints of the pair's
+// FramePlan (ops/kernels/fused_ola.py frame_plan); tw the n_tw entries of
+// both transforms' tables (plan_twiddles). A plan the kernel does not run:
+// cudaErrorInvalidValue, before any launch.
+static_assert(sizeof(iqt::ola::FramePlan) % sizeof(int) == 0, "a FramePlan is whole ints");
+
+extern "C" int iqt_fused_ola_frames_plan(
+    const void* x, int layout, long long batch_stride, long long frame_stride,
+    long long plane_stride, const void* halo, long long halo_batch, long long halo_plane,
+    int n_in, int n_halo, const void* w_in, const void* w_out, const void* tw, void* y,
+    int n_tw, int batch, int n_frames, int nfft, int nfft_out, int zero_lo, int zero_hi,
+    int in_lo, int out_lo, int out_hi, const int* plan, int plan_ints, void* stream) {
+  if (plan_ints != static_cast<int>(sizeof(iqt::ola::FramePlan) / sizeof(int)))
+    return cudaErrorInvalidValue;
+  iqt::ola::FramePlan p;
+  std::memcpy(&p, plan, sizeof p);
+  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, halo,
+                                     halo_batch, halo_plane, n_in, n_halo, w_in, w_out, y, batch,
+                                     n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                                     out_hi, stream);
+  a.tw = static_cast<const float2*>(tw);
+  a.n_tw = n_tw;
+  IQT_BY_LAYOUT(frames_plan, a, p)
 }
 
 // any size of the mixed-radix plans, by fused_ola_frames_kernel: each plan

@@ -6,7 +6,8 @@
 // Each kernel is a template on E, the element type of the frames it reads
 // (Src below): interleaved complex64 (E = float2), or (2, n) planes of
 // float32, int16 or bfloat16, dequantized on load. The host launchers
-// (frames_generic, frames_reg, frames_cluster) are templates on E too;
+// (frames_generic, frames_reg, frames_plan, frames_cluster) are templates on
+// E too;
 // csrc/fused_ola.cu instantiates the complex64 ones and takes the plane
 // ones from csrc/fused_ola_f32.cu, fused_ola_i16.cu and fused_ola_bf16.cu
 // (IQT_FRAMES_INSTANCES), so that nvcc compiles the four element types in
@@ -17,6 +18,7 @@
 
 #include "fft.cuh"
 #include "fft_cluster.cuh"
+#include "fft_plan.cuh"
 #include "fft_reg.cuh"
 
 namespace iqt {
@@ -163,7 +165,12 @@ __device__ __forceinline__ void stage_planes(float2* buf, const E* __restrict__ 
 // kernel, the frame stays in shared memory from load to store; this simple
 // version pays a barrier and a shared-memory round trip per radix-4/2/3/5/7
 // stage (8 stages for the 16384 -> 8192 pair) and a host-built permutation
-// table for the digit-reversed load.
+// table for the digit-reversed load. It took 1.2-2x the torch.fft chain's
+// time at every one-block pair it ran (PERF.md), and since the plan kernel
+// below it routes only where none of the others holds the pair (frames of
+// 25600 points and above, sizes of one pass: ops/kernels/fused_ola.py
+// frames_route 'generic'); elsewhere it is the yardstick of the others
+// (_fused_ola_frames_generic).
 constexpr int kFrameThreads = 1024;
 
 template <int PT, class E>
@@ -227,9 +234,10 @@ fused_ola_frames_kernel(const E* __restrict__ x, long long batch_stride, long lo
 // same contract, at the size pairs its paths run: 16384 -> 8192
 // (ola_filter / oaresample at BASELINE config #2), 12288 -> 6144 (the
 // monitor's blackman design, R = 3) and 12288 -> 4096 (hamming at 122.88 ->
-// 40.96 MS/s, min_fft_size=4095). Every other one-block size keeps the
-// generic kernel; the host route (ops/kernels/fused_ola.py frames_route)
-// picks by size before the launch.
+// 40.96 MS/s, min_fft_size=4095). Every other one-block pair takes the plan
+// kernel below (the same chain on a plan chosen at run time), the generic
+// kernel only where that does not hold the pair; the host route
+// (ops/kernels/fused_ola.py frames_route) picks by size before the launch.
 //
 // Bound on an H100 (device memory: each input sample read once, each
 // output written once, 8 B each): 1.6 GB, 0.4776 ms at 3.35 TB/s for
@@ -389,6 +397,146 @@ fused_ola_frames_reg_kernel(const E* __restrict__ x, long long batch_stride,
     reg_frame_chain<N1, N2, T>(
         smem, tw, w_out, zero_lo, zero_hi, in_lo, out_lo, out_hi,
         [xf, w_in](int i) { return iqt::cmul(xf[i], __ldg(&w_in[i])); }, store);
+  }
+}
+
+// ---- the frame-batch entry on a plan chosen at run time -------------------
+//
+// Replaces the same TPU kernels as fused_ola_frames_kernel above
+// (fused_ola_pallas.py fused_ola_pallas and fused_ola_packed), with the
+// same contract, at every one-block pair that REG_PAIRS, CLUSTER_PAIRS and
+// the split route do not take and whose frames it holds (ops/kernels/
+// fused_ola.py plan_takes, frames_route 'plan'; at 2:1 'plan+add', the
+// frames then overlap-added by csrc/ola_add.cu): the chain of
+// fused_ola_frames_reg_kernel on the passes of csrc/fft_plan.cuh, whose
+// plan (radices, NS, the odd passes' multipliers, table offsets) the host
+// builds per size pair and passes as one __grid_constant__ FramePlan, so
+// that one instance per element type covers every such pair.
+//
+// What held the generic kernel back is what fused_ola_frames_reg_kernel
+// above does away with, and this kernel does the same at sizes fixed only
+// at run time: register-resident radix-16 passes, two barriers a pass, the
+// exchange padded one float2 in 16, small twiddle tables in shared memory,
+// no permutation, no integer division (masks, and a multiply-shift at the
+// odd passes). Unlike the register kernel, every pass reads and writes
+// shared memory only: the frame is staged first (coalesced, times w_in),
+// the trim is the inverse's first load, and y is written from the buffer
+// after the last pass (coalesced, times w_shift_out / nfft_out). That costs
+// two more round trips through shared memory and barriers a frame, and
+// buys passes whose points share one array of registers (csrc/fft_plan.cuh
+// pass_r) and one loader and storer: with a pass body for each loader and
+// storer (device memory, the trim) inlined into the switch, ptxas spilled
+// every radix's array to the stack and each source's build took minutes.
+//
+// Frames a block: a frame takes a group of G lanes (G a power of two from
+// 32 to 512, the least with max(N1, N2) <= 32 G) and its own barrier
+// (__syncwarp for one warp, else the named barrier 1 + its index), and the
+// block's 512 threads take up to 512 / G frames, as many as its shared
+// memory holds: 16 frames of 1024 points, one of 16384. A thread holds at
+// most 32 points (kPlanPoints), which leaves a radix-16 DFT its registers
+// within the 128 a thread has at 512 threads: frames of 16384 points and
+// below. Frames above (18432-25600 points) keep the generic kernel
+// (ops/kernels/fused_ola.py plan_takes, ROADMAP.md): at 40, 44 and 48
+// points a thread (a wider instance of radix 8 at most) ptxas spilled.
+//
+// Bound on an H100: as fused_ola_frames_reg_kernel's, device memory (8 B a
+// point in and out at complex64). Fixed-order arithmetic, plain stores, no
+// atomics: the output does not depend on block order.
+struct FramePlan {
+  iqt::plan::Transform fwd, inv;
+  int tw_count;  // float2 of both transforms' tables, forward then inverse
+  int group;     // lanes a frame
+  int frames;    // frames a block
+  int buf;       // float2 of a frame's exchange buffer
+};
+
+constexpr int kPlanThreads = 512;
+constexpr int kPlanPoints = 32;
+
+// the windowed frame of planes at (re, im), n points, by the group's lanes
+// into the padded exchange buffer: by 16-byte loads where both planes are
+// aligned and n is whole vectors, else one sample a lane at a time
+template <class E>
+__device__ __forceinline__ void stage_group(float2* buf, const E* __restrict__ re,
+                                            const E* __restrict__ im,
+                                            const float2* __restrict__ w_in, int n, int lane,
+                                            int group) {
+  constexpr int V = 16 / sizeof(E);
+  if (n % V == 0 && vector_aligned(re, im)) {
+#pragma unroll 1
+    for (int base = lane * V; base < n; base += group * V) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(re + base));
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(im + base));
+      const E* rv = reinterpret_cast<const E*>(&r);
+      const E* qv = reinterpret_cast<const E*>(&q);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float2 v = make_float2(to_float(rv[k]), to_float(qv[k]));
+        buf[iqt::reg::pad(base + k)] = iqt::cmul(v, __ldg(&w_in[base + k]));
+      }
+    }
+    return;
+  }
+#pragma unroll 2
+  for (int i = lane; i < n; i += group)
+    buf[iqt::reg::pad(i)] = iqt::cmul(Src<E>::read(re, im, i), __ldg(&w_in[i]));
+}
+
+// blockIdx.x = the block's run of plan.frames frames, blockIdx.y = batch
+// row b; frames addressed as in fused_ola_frames_kernel, each written whole
+// to y[b, m, :]. Shared memory: both transforms' tables, then one exchange
+// buffer a frame. A frame's group stages the windowed frame into its
+// buffer (coalesced: complex64 straight, planes by 16-byte loads where
+// aligned, a frame past its row's end through Edge), runs the forward
+// passes and the inverse passes there (the trim in the inverse's first
+// load), and writes y in natural order times w_shift_out / nfft_out
+// (coalesced): every pass reads and writes shared memory only.
+template <class E>
+__global__ void __launch_bounds__(kPlanThreads, 1)
+fused_ola_frames_plan_kernel(const E* __restrict__ x, long long batch_stride,
+                             long long frame_stride, long long plane_stride, Edge<E> edge,
+                             const float2* __restrict__ w_in, const float2* __restrict__ w_out,
+                             const float2* __restrict__ tw, float2* __restrict__ y, int n_frames,
+                             int zero_lo, int zero_hi, int in_lo, int out_lo, int out_hi,
+                             const __grid_constant__ FramePlan plan) {
+  namespace P = iqt::plan;
+  namespace R = iqt::reg;
+  extern __shared__ float2 smem[];
+  for (int e = threadIdx.x; e < plan.tw_count; e += kPlanThreads) smem[e] = __ldg(&tw[e]);
+  __syncthreads();
+  const int group = plan.group;
+  const int g = threadIdx.x / group;
+  const int lane = threadIdx.x - g * group;
+  const int m = blockIdx.x * plan.frames + g;
+  // a group with no frame leaves: every later barrier is its own group's
+  if (g >= plan.frames || m >= n_frames) return;
+  float2* buf = smem + plan.tw_count + g * plan.buf;
+  const int n1 = plan.fwd.n, n2 = plan.inv.n;
+  const long long start = m * frame_stride;
+  const E* xf = x + blockIdx.y * batch_stride + start;
+  const E* xi = Src<E>::imag(xf, plane_stride);
+
+  if (edge.reaches(start, n1)) {
+#pragma unroll 2
+    for (int i = lane; i < n1; i += group)
+      buf[R::pad(i)] = iqt::cmul(edge.read(xf, xi, start, i, blockIdx.y), __ldg(&w_in[i]));
+  } else if constexpr (Src<E>::kRows == 2) {
+    stage_group<E>(buf, xf, xi, w_in, n1, lane, group);
+  } else {
+#pragma unroll 4
+    for (int i = lane; i < n1; i += group) buf[R::pad(i)] = iqt::cmul(xf[i], __ldg(&w_in[i]));
+  }
+  P::group_sync(group, g);
+  const P::Trim trim{zero_lo, zero_hi, in_lo, out_lo, out_hi};
+  P::fft<false, kPlanPoints, false>(plan.fwd, buf, smem, trim, lane, group, g);
+  P::fft<true, kPlanPoints, true>(plan.inv, buf, smem, trim, lane, group, g);
+
+  const float scale = 1.0f / static_cast<float>(n2);
+  float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * n2;
+#pragma unroll 4
+  for (int n = lane; n < n2; n += group) {
+    const float2 v = buf[R::pad(n)];
+    yf[n] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&w_out[n]));
   }
 }
 
@@ -655,6 +803,7 @@ cudaError_t frames_prepare(int max_smem) {
     return err;
   IQT_CLUSTER_PAIRS(IQT_ALLOW_CLUSTER)
 #undef IQT_ALLOW_CLUSTER
+  if ((err = iqt::allow_smem(fused_ola_frames_plan_kernel<E>, max_smem))) return err;
   return cudaSuccess;
 }
 
@@ -701,6 +850,36 @@ cudaError_t frames_reg(const FrameArgs& a) {
   IQT_FRAMES_REG_PAIRS(IQT_LAUNCH_REG)
 #undef IQT_LAUNCH_REG
   return cudaErrorInvalidValue;
+}
+
+// whether `plan` is one the plan kernel runs for the launch `a`: both
+// transforms' plans (plan::transform_ok), groups of a power of two from 32
+// to 512 lanes holding max(N1, N2) at kPlanPoints a lane, at most 15 named
+// barriers a block, an exchange buffer that holds the larger transform
+// padded, the table length the launch gives
+inline bool plan_ok(const FrameArgs& a, const FramePlan& p) {
+  const int nmax = a.nfft > a.nfft_out ? a.nfft : a.nfft_out;
+  const int g = p.group;
+  return p.fwd.n == a.nfft && p.inv.n == a.nfft_out && g >= 32 && g <= kPlanThreads &&
+         (g & (g - 1)) == 0 && p.frames >= 1 && p.frames * g <= kPlanThreads &&
+         (g == 32 || p.frames <= 15) && p.buf >= iqt::reg::padded_size(nmax) &&
+         p.tw_count == a.n_tw && nmax <= kPlanPoints * g &&
+         iqt::plan::transform_ok<kPlanPoints>(p.fwd, g) &&
+         iqt::plan::transform_ok<kPlanPoints>(p.inv, g);
+}
+
+// the plan kernel on the host's plan; a plan it does not run:
+// cudaErrorInvalidValue, before any launch
+template <class E>
+cudaError_t frames_plan(const FrameArgs& a, const FramePlan& p) {
+  if (!plan_ok(a, p)) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(p.tw_count + p.frames * p.buf) * sizeof(float2);
+  const dim3 grid((a.n_frames + p.frames - 1) / p.frames, a.batch);
+  fused_ola_frames_plan_kernel<E><<<grid, kPlanThreads, smem, a.stream>>>(
+      static_cast<const E*>(a.x), a.batch_stride, a.frame_stride, a.plane_stride, edge_of<E>(a),
+      a.w_in, a.w_out, a.tw, a.y, a.n_frames, a.zero_lo, a.zero_hi, a.in_lo, a.out_lo, a.out_hi,
+      p);
+  return cudaGetLastError();
 }
 
 // the cluster kernel at a pair of IQT_CLUSTER_PAIRS; any other pair or
@@ -752,6 +931,7 @@ cudaError_t frames_cluster_occupancy(int nfft, int nfft_out, int* out) {
   EXTERN template cudaError_t frames_prepare<E>(int);                          \
   EXTERN template cudaError_t frames_generic<E>(const FrameArgs&);             \
   EXTERN template cudaError_t frames_reg<E>(const FrameArgs&);                 \
+  EXTERN template cudaError_t frames_plan<E>(const FrameArgs&, const FramePlan&);      \
   EXTERN template cudaError_t frames_cluster<E>(const FrameArgs&);             \
   EXTERN template cudaError_t frames_cluster_occupancy<E>(int, int, int*);
 

@@ -378,12 +378,16 @@ class WidebandMonitor:
         self.routes = {}
 
         # the OLA: at 2:1 (hamming) the 2:1 route of ola_route, with the
-        # overlap-add, the halo and the tail on the card (the 2:1 kernels at
-        # powers of two up to 16384, else a frame kernel reading the capture
-        # where it lies and ola_add_kernel), at every pair the JAX package
-        # arms its strided kernel (iqwaveform_tpu/models/monitor.py:528-550);
-        # beyond 2:1 the frame-batch kernel and a grouped overlap-add in a
-        # fixed order (iqwaveform_tpu/models/monitor.py:789-804); frames no
+        # overlap-add, the halo and the tail on the card (the register 2:1
+        # kernel at OLA_REG_PAIRS, else a frame kernel reading the capture
+        # where it lies and ola_add_kernel: 'plan+add' at the other powers of
+        # two and the one-block pairs no compiled instance takes), at every
+        # pair the JAX package arms its strided kernel
+        # (iqwaveform_tpu/models/monitor.py:528-550); beyond 2:1 the frame
+        # kernel of frames_route ('reg', 'cluster', 'split', 'plan'; the
+        # generic one only at frames of 25600 points and above) and a grouped
+        # overlap-add in a fixed order
+        # (iqwaveform_tpu/models/monitor.py:789-804); frames no
         # CUDA frame kernel takes (above 2^21 points where no part size
         # divides with C <= 2048, ROADMAP Queue 2 item 1) take the torch.fft
         # chain there, as ola_filter does

@@ -60,8 +60,8 @@ SOURCES = (
     'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu', 'spectrogram.cu',
     'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu', 'ola_add.cu',
 )
-HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_cluster.cuh', 'chan_common.cuh', 'ola_frames.cuh',
-           'split_radix.cuh')
+HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_plan.cuh', 'fft_cluster.cuh', 'chan_common.cuh',
+           'ola_frames.cuh', 'split_radix.cuh')
 
 # no --use_fast_math: the kernels are held to 1e-5 relative RMS against
 # full-precision float32, with accurate logf and division
@@ -89,6 +89,8 @@ SIGNATURES = {
     'iqt_fused_ola_frames_prepare': ([_I], _I),
     'iqt_fused_ola_frames': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 7 + [_I] * 13 + [_P], _I),
     'iqt_fused_ola_frames_reg': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10 + [_P], _I),
+    'iqt_fused_ola_frames_plan': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10
+                                  + [_P, _I, _P], _I),
     'iqt_fused_ola_frames_cluster': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10 + [_P],
                                      _I),
     'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _I, _P], _I),

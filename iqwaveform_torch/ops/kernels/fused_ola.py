@@ -14,18 +14,22 @@ Three wrappers of the kernels of ``csrc/fused_ola.cu``, ``csrc/ola_frames.cuh``,
   the end and the final frame's tail returned; :func:`fused_ola` reads
   complex64, zero-extends the end and drops the tail. Both take every 2:1
   pair the JAX kernel takes (:func:`fused_ola_cuda_supported`), on the
-  route of :func:`ola_route`, picked by size before the launch: at powers
-  of two up to 16384 one kernel a call with the overlap-add in it
-  (``fused_ola_reg_kernel`` at :data:`OLA_REG_PAIRS`: the flagship 16384 ->
-  8192, 8192 -> 4096 and 16384 -> 4096; the radix-2 ``fused_ola_kernel`` at
-  the others); at every other pair ('<frame route>+add': 12288 -> 4096,
-  the cluster pairs 24576 / 32768 -> 8192 and 32768 -> 16384, 20480 -> 4096,
-  the split pairs from 32768 -> 4096 to 524288 -> 16384) the frame kernel
-  of :func:`frames_route` reading the frames straight from the rows at
-  hop_in, the last frame's samples past a row's end from its halo
-  (``csrc/ola_frames.cuh`` Edge), into (batch, frames, nfft_out) of
-  scratch, then the 2:1 overlap-add and the tail in ``ola_add_kernel``
-  (:func:`ola_add`). No copy of the input appends the halo.
+  route of :func:`ola_route`, picked by size before the launch: at
+  :data:`OLA_REG_PAIRS` (the flagship 16384 -> 8192, 8192 -> 4096 and
+  16384 -> 4096) one kernel a call with the overlap-add in it,
+  ``fused_ola_reg_kernel``; at every other pair ('<frame route>+add':
+  'plan+add' at the other powers of two and at one-block pairs up to
+  16384 points such as 6144 -> 2048, 'generic+add' at 20480 -> 4096 and
+  24576 -> 4096, 'reg+add' at 12288 -> 4096, the cluster pairs 24576 /
+  32768 -> 8192 and 32768 -> 16384, the split pairs from 32768 -> 4096 to
+  524288 -> 16384) the frame kernel of :func:`frames_route` reading the
+  frames straight from the rows at hop_in, the last frame's samples past a
+  row's end from its halo (``csrc/ola_frames.cuh`` Edge), into (batch,
+  frames, nfft_out) of scratch, then the 2:1 overlap-add and the tail in
+  ``ola_add_kernel`` (:func:`ola_add`). No copy of the input appends the
+  halo. The radix-2 ``fused_ola_kernel`` is a yardstick
+  (:func:`_fused_ola_generic`, :func:`_fused_ola_older`), a route only at a
+  power-of-two pair the plan kernel does not hold (a size of 2).
 * :func:`fused_ola_frames` replaces ``fused_ola_pallas`` (:394) and
   ``fused_ola_packed`` (:492): the same per-frame chain on a batch of
   complex64 frames, or on frames read at a hop from (2, N) sample planes of
@@ -43,9 +47,15 @@ Three wrappers of the kernels of ``csrc/fused_ola.cu``, ``csrc/ola_frames.cuh``,
   radix-C step (``csrc/split_radix.cuh``, prime factors above 7 through
   its generic pass), the M-point passes and the
   inverse's through device memory, four launches (three where the output
-  is one part); at every other size 2^a 3^b 5^c 7^d the generic
-  mixed-radix ``fused_ola_frames_kernel`` (:func:`frames_route` picks by
-  size, before the launch). The public ``ola_filter`` / ``oaresample`` and
+  is one part); at every other one-block pair of sizes 2^a 3^b 5^c 7^d
+  that it holds (:func:`plan_takes`: frames up to 16384 points, sizes of
+  two passes or more) ``fused_ola_frames_plan_kernel``, register-resident
+  passes on a plan the host builds at run time (``csrc/fft_plan.cuh``,
+  :func:`frame_plan`, :func:`plan_twiddles`), several small frames a
+  block; the generic mixed-radix ``fused_ola_frames_kernel`` only at the
+  rest (one-block frames above 16384 points, sizes of one pass), and as a
+  yardstick (:func:`_fused_ola_frames_generic`). :func:`frames_route`
+  picks by size, before the launch. The public ``ola_filter`` / ``oaresample`` and
   the monitor's overlap of more than 2:1 (blackman R=3, blackmanharris
   R=5) add its frames up outside, as a sum of R groups in a fixed order
   (:func:`ola_grouped`).
@@ -183,6 +193,15 @@ SPLIT_INV_PLANS = tuple(m for m in REG_PLANS if m != 15360)
 # an H100's opt-in shared memory per block: the frame-batch kernel's
 # scope on a device that is not a card (the routes stay those of the card)
 H100_SMEM_OPTIN = 232448
+# the plan kernel (fused_ola_frames_plan_kernel, csrc/ola_frames.cuh on the
+# passes of csrc/fft_plan.cuh): its threads a block, the points a thread
+# holds (frames up to 16384 points: ptxas spilled a wider instance), the
+# most passes of a transform (plan::kMaxPasses) and the ints of one pass
+# (plan::Pass)
+PLAN_THREADS = 512
+PLAN_POINTS = 32
+_PLAN_MAX_PASSES = 16
+_PLAN_PASS_INTS = 10
 
 
 def _local_frames(x_ext: torch.Tensor, nperseg: int, hop: int, n_frames: int):
@@ -357,25 +376,31 @@ def split_smem(m: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _reg_pass_tables(n: int, inverse: bool) -> np.ndarray:
-    """the twiddle tables of ``n``'s register-resident transform, pass by
-    pass as csrc/fft_reg.cuh reads them: for pass s (radix R, NS = the
-    product of the radices before it) and r = 1 .. R-1, a row of the
-    high_count(NS) factors exp(-+2 pi i r kh LS / (NS R)), then the LS
-    factors exp(-+2 pi i r kl / (NS R)); LS = 2^ceil(log2(NS) / 2), at
-    least 16; no high factors where NS <= LS; pass 0 has none."""
+def _pass_tables(radices: tuple, inverse: bool) -> np.ndarray:
+    """the twiddle tables of the register-resident passes of ``radices``,
+    pass by pass as csrc/fft_reg.cuh and csrc/fft_plan.cuh read them,
+    float64: for pass s (radix R, NS = the product of the radices before
+    it) and r = 1 .. R-1, a row of the nh = ceil(NS / LS) high factors
+    exp(-+2 pi i r kh LS / (NS R)), then the LS low factors exp(-+2 pi i r
+    kl / (NS R)); LS = 2^ceil(log2(NS) / 2), at least 16; no high factors
+    where NS <= LS; pass 0 has none."""
     sign = 1 if inverse else -1
-    parts, ns = [], 1
-    for r in REG_PLANS[n]:
+    parts, ns = [np.zeros(0, complex)], 1
+    for r in radices:
         if ns > 1:
-            ls = max(16, 1 << (((ns - 1).bit_length() + 1) // 2))
-            nh = ns // ls if ns > ls else 0
+            ls = _low_span(ns)
+            nh = -(-ns // ls) if ns > ls else 0
             q = np.arange(1, r)[:, None]
             high = np.exp(sign * 2j * np.pi * q * np.arange(nh) * ls / (ns * r))
             low = np.exp(sign * 2j * np.pi * q * np.arange(ls) / (ns * r))
             parts.append(np.concatenate([high, low], axis=1).ravel())
         ns *= r
     return np.concatenate(parts)
+
+
+def _reg_pass_tables(n: int, inverse: bool) -> np.ndarray:
+    """the tables of ``n``'s compile-time plan (:data:`REG_PLANS`)."""
+    return _pass_tables(REG_PLANS[n], inverse)
 
 
 @functools.lru_cache(maxsize=None)
@@ -487,19 +512,150 @@ def split_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tens
     return torch.from_numpy(table.astype('complex64')).to(device)
 
 
+def plan_radices(n: int) -> tuple:
+    """the passes of csrc/fft_plan.cuh for ``n`` points: radix 16 while it
+    divides 2^a, one pass of 8, 4 or 2 for the rest of 2^a, then the 3s,
+    5s and 7s (a power of two of one pass, 4 to 16, as two: the kernel runs
+    two passes at least); ValueError for a size with another prime
+    factor."""
+    if n < 1:
+        raise ValueError(f'{n} is not of the form 2^a 3^b 5^c 7^d')
+    rest, a = n, 0
+    while rest % 2 == 0:
+        rest, a = rest // 2, a + 1
+    radices = [16] * (a // 4) + ([1 << (a % 4)] if a % 4 else [])
+    if rest == 1 and len(radices) == 1 and a >= 2:
+        radices = [1 << (a - a // 2), 1 << (a // 2)]
+    for r in (3, 5, 7):
+        while rest % r == 0:
+            radices.append(r)
+            rest //= r
+    if rest != 1:
+        raise ValueError(f'{n} is not of the form 2^a 3^b 5^c 7^d')
+    return tuple(radices)
+
+
+def plan_magic(d: int) -> tuple:
+    """(magic, shift) of the odd passes' division by NS = ``d``: b // d ==
+    (b magic >> 32) >> shift for every b < 2^31 (csrc/fft_plan.cuh
+    __umulhi); shift = floor(log2 d), one less for a power of two, magic =
+    ceil(2^(32 + shift) / d) < 2^32, whose error (magic d - 2^(32 + shift))
+    b stays below 2^(32 + shift). (0, 0) for d = 1, where the kernel takes
+    k = 0."""
+    if d == 1:
+        return 0, 0
+    shift = d.bit_length() - 1 - (d & (d - 1) == 0)
+    return -(-(1 << (32 + shift)) // d), shift
+
+
+def _low_span(ns: int) -> int:
+    """LS of a pass: 2^ceil(log2(NS) / 2), at least 16 (reg::low_span)."""
+    return max(16, 1 << (((ns - 1).bit_length() + 1) // 2))
+
+
+def _plan_passes(n: int) -> list:
+    """each pass of ``n``'s plan as (radix, NS, NB, magic, shift, LS, nh):
+    nh = ceil(NS / LS) high factors where NS > LS, else none."""
+    out, ns = [], 1
+    for r in plan_radices(n):
+        ls = _low_span(ns)
+        out.append((r, ns, n // r, *plan_magic(ns), ls, -(-ns // ls) if ns > ls else 0))
+        ns *= r
+    return out
+
+
+def plan_tables(n: int, inverse: bool = False) -> np.ndarray:
+    """the tables of ``n``'s transform on the plan kernel
+    (:func:`plan_radices`; none for a pass with NS = 1)."""
+    return _pass_tables(plan_radices(n), inverse)
+
+
+def _plan_transform(n: int, tw0: int) -> list:
+    """the ints of ``n``'s plan::Transform, its tables at ``tw0`` of the
+    frame's: n, passes, then plan::Pass (radix, ns, nb, magic, shift, tw,
+    ls, ls_log2, nh, row) of each pass, zeros up to _PLAN_MAX_PASSES."""
+    ints, tw = [n, 0], tw0
+    for r, ns, nb, magic, shift, ls, nh in _plan_passes(n):
+        ints += [r, ns, nb, magic, shift, tw, ls, ls.bit_length() - 1, nh, nh + ls]
+        tw += (r - 1) * (nh + ls) if ns > 1 else 0
+    ints[1] = (len(ints) - 2) // _PLAN_PASS_INTS
+    return ints + [0] * (2 + _PLAN_PASS_INTS * _PLAN_MAX_PASSES - len(ints))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_shape(nfft: int, nfft_out: int):
+    """(G, F, shared memory bytes) of the plan kernel at a pair: G the lanes
+    of a frame, the least power of two from 32 with max(nfft, nfft_out) <=
+    G :data:`PLAN_POINTS`, at most :data:`PLAN_THREADS`; F the frames a
+    block, at most PLAN_THREADS / G (15 where G > 32: one named barrier
+    each), as many as an H100 block's shared memory holds beside both
+    transforms' tables (a padded exchange buffer each). None where it does
+    not hold the pair: a size of fewer than two passes or of another prime
+    factor, more than _PLAN_MAX_PASSES passes, frames above 16384 points."""
+    try:
+        passes = [len(plan_radices(n)) for n in (nfft, nfft_out)]
+    except ValueError:
+        return None
+    nmax = max(nfft, nfft_out)
+    if min(passes) < 2 or max(passes) > _PLAN_MAX_PASSES or nmax > PLAN_POINTS * PLAN_THREADS:
+        return None
+    g = 32
+    while g * PLAN_POINTS < nmax:
+        g *= 2
+    tw = plan_tables(nfft, False).size + plan_tables(nfft_out, True).size
+    buf = nmax + nmax // 16
+    frames = min(PLAN_THREADS // g, 16 if g == 32 else 15)
+    while frames and 8 * (tw + frames * buf) > H100_SMEM_OPTIN:
+        frames -= 1
+    return (g, frames, 8 * (tw + frames * buf)) if frames else None
+
+
+def plan_takes(nfft: int, nfft_out: int) -> bool:
+    """the plan kernel holds the pair (:func:`plan_shape`)."""
+    return plan_shape(nfft, nfft_out) is not None
+
+
+@functools.lru_cache(maxsize=None)
+def frame_plan(nfft: int, nfft_out: int) -> np.ndarray:
+    """the plan kernel's FramePlan at a pair it holds, as the int32 array
+    its C entry takes (csrc/ola_frames.cuh FramePlan): the forward
+    transform's plan::Transform, the inverse's (its tables after the
+    forward's), then the tables' float2 count, G, F and the float2 of a
+    frame's exchange buffer (max(nfft, nfft_out) padded one in 16)."""
+    g, frames, _ = plan_shape(nfft, nfft_out)
+    n_fwd = plan_tables(nfft, False).size
+    ints = (_plan_transform(nfft, 0) + _plan_transform(nfft_out, n_fwd)
+            + [n_fwd + plan_tables(nfft_out, True).size, g, frames,
+               max(nfft, nfft_out) + max(nfft, nfft_out) // 16])
+    return np.array(ints, dtype=np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor:
+    """the plan kernel's tables at a pair it holds: the forward transform's
+    of nfft, then the inverse's of nfft_out (:func:`plan_tables`), rounded
+    once to complex64, kept on ``device`` (read only)."""
+    table = np.concatenate([plan_tables(nfft, False), plan_tables(nfft_out, True)])
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
 def frames_route(nfft: int, nfft_out: int) -> str:
     """the kernel :func:`fused_ola_frames` launches for a supported size
     pair: ``'reg'`` (``fused_ola_frames_reg_kernel``) at the pairs of
     :data:`REG_PAIRS`, ``'cluster'`` (``fused_ola_frames_cluster_kernel``)
     at those of :data:`CLUSTER_PAIRS`, ``'split'`` (the kernels of
-    csrc/ola_split.cu) at those of :func:`split_takes`, ``'generic'``
-    (``fused_ola_frames_kernel``) at every other, an unresampled nfft_out
-    == nfft among them."""
+    csrc/ola_split.cu) at those of :func:`split_takes`, ``'plan'``
+    (``fused_ola_frames_plan_kernel``) at every other pair it holds
+    (:func:`plan_takes`), an unresampled nfft_out == nfft among them, and
+    ``'generic'`` (``fused_ola_frames_kernel``) at the rest: sizes of one
+    pass, and one-block frames above 16384 points (ROADMAP.md)."""
     if (nfft, nfft_out) in REG_PAIRS:
         return 'reg'
     if (nfft, nfft_out) in CLUSTER_PAIRS:
         return 'cluster'
-    return 'split' if split_takes(nfft, nfft_out) else 'generic'
+    if split_takes(nfft, nfft_out):
+        return 'split'
+    return 'plan' if plan_takes(nfft, nfft_out) else 'generic'
 
 
 def fused_ola_frames(
@@ -546,9 +702,19 @@ def fused_ola_frames(
 def _fused_ola_frames_generic(frames: torch.Tensor, **kw) -> torch.Tensor:
     """:func:`fused_ola_frames` on a CUDA tensor through the generic
     ``fused_ola_frames_kernel`` at any supported size, the specialised
-    pairs too: the yardstick of the register-resident kernel in
-    chip_smoke.py and the card tests, never a route of the port."""
+    pairs too: the yardstick of the register-resident and plan kernels in
+    chip_smoke.py and the card tests, never a route of the port where
+    another kernel holds the pair."""
     return _launch_frames(frames, 'generic', **kw)
+
+
+def _fused_ola_frames_plan(frames: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`fused_ola_frames` on a CUDA tensor through the plan kernel at
+    any pair it holds (:func:`plan_takes`), those of the compile-time
+    register kernel too: what the run-time plan costs beside
+    ``fused_ola_frames_reg_kernel``, timed in chip_smoke.py, never a route
+    where another kernel takes the pair."""
+    return _launch_frames(frames, 'plan', **kw)
 
 
 def _fused_ola_frames_split(frames: torch.Tensor, **kw) -> torch.Tensor:
@@ -636,7 +802,8 @@ def _launch_frames(
         nfft_out=nfft_out, zero_lo=zero_lo, zero_hi=zero_hi, bounds_in=bounds_in,
         bounds_out=bounds_out,
     )
-    _build.check(err, f'fused_ola_frames ({route} kernel, {frames.dtype} input)')
+    _build.check(err, f'fused_ola_frames ({route} kernel, {frames.dtype} input, '
+                      f'{nfft} -> {nfft_out})')
     fused_ola_frames.launches += 1
     fused_ola_frames.route_launches[route] += 1
     fused_ola_frames.layout_launches[str(frames.dtype).split('.')[-1]] += 1
@@ -670,6 +837,17 @@ def _frames_kernel(src, strides, y, route, *, edge=_NO_EDGE, w_in, w_shift_out, 
         return _launch_split(src, layout, strides, edge, y, w_in, w_out=w_shift_out, nfft=nfft,
                              nfft_out=nfft_out, zero_lo=int(zero_lo), zero_hi=zero_hi,
                              in_lo=int(in_lo), out_lo=int(out_lo), out_hi=int(out_hi))
+    if route == 'plan':
+        if not plan_takes(nfft, nfft_out):
+            raise ValueError(f'the plan kernel does not hold {nfft} -> {nfft_out}')
+        plan = frame_plan(nfft, nfft_out)
+        tw = plan_twiddles(nfft, nfft_out, dev)
+        return _build.library().iqt_fused_ola_frames_plan(
+            src.data_ptr(), layout, *strides, *edge, w_in.data_ptr(), w_shift_out.data_ptr(),
+            tw.data_ptr(), y.data_ptr(), tw.numel(), batch, n_frames, nfft, nfft_out,
+            int(zero_lo), zero_hi, int(in_lo), int(out_lo), int(out_hi),
+            plan.ctypes.data, plan.size, _build.stream_of(src),
+        )
     if route in ('reg', 'cluster'):
         if route == 'reg':
             tw, entry = reg_twiddles(nfft, nfft_out, dev), 'iqt_fused_ola_frames_reg'
@@ -727,9 +905,10 @@ def _launch_split(f3, layout, strides, edge, y, w_in, *, w_out, nfft, nfft_out, 
 fused_ola_frames.launches = 0
 # launches by kernel: 'reg' (fused_ola_frames_reg_kernel), 'cluster'
 # (fused_ola_frames_cluster_kernel), 'split' (the kernels of
-# csrc/ola_split.cu, one count a call), 'generic' (fused_ola_frames_kernel);
-# and by the input's element type (complex64 frames, or planes)
-fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'split': 0, 'generic': 0}
+# csrc/ola_split.cu, one count a call), 'plan' (fused_ola_frames_plan_kernel),
+# 'generic' (fused_ola_frames_kernel); and by the input's element type
+# (complex64 frames, or planes)
+fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'split': 0, 'plan': 0, 'generic': 0}
 fused_ola_frames.layout_launches = {'complex64': 0, 'float32': 0, 'int16': 0, 'bfloat16': 0}
 
 
@@ -846,15 +1025,17 @@ def _radix2_pair(nfft: int, nfft_out: int) -> bool:
 def ola_route(nfft: int, nfft_out: int) -> str:
     """the kernels :func:`fused_ola` and :func:`fused_ola_strided` launch
     for a supported pair: ``'reg'`` (``fused_ola_reg_kernel``) at
-    :data:`OLA_REG_PAIRS`, ``'generic'`` (the radix-2 ``fused_ola_kernel``)
-    at every other pair of powers of two up to :data:`MAX_CUDA_FFT`; at
-    every other pair ``'<frame route>+add'``: the frame kernel of
-    :func:`frames_route` ('reg', 'cluster', 'split' or 'generic') reading
-    the frames straight from the rows with the halo past their end, then
-    the 2:1 overlap-add and the tail in ``ola_add_kernel``
-    (csrc/ola_add.cu)."""
+    :data:`OLA_REG_PAIRS`; at every other pair ``'<frame route>+add'``: the
+    frame kernel of :func:`frames_route` ('reg', 'cluster', 'split', 'plan'
+    or 'generic') reading the frames straight from the rows with the halo
+    past their end, then the 2:1 overlap-add and the tail in
+    ``ola_add_kernel`` (csrc/ola_add.cu); at the pairs of powers of two up
+    to :data:`MAX_CUDA_FFT` that is 'plan+add' (``'generic'``, the radix-2
+    ``fused_ola_kernel``, only where the plan kernel would not hold one)."""
     if _radix2_pair(nfft, nfft_out):
-        return 'reg' if (nfft, nfft_out) in OLA_REG_PAIRS else 'generic'
+        if (nfft, nfft_out) in OLA_REG_PAIRS:
+            return 'reg'
+        return 'plan+add' if plan_takes(nfft, nfft_out) else 'generic'
     return frames_route(nfft, nfft_out) + '+add'
 
 
@@ -921,6 +1102,18 @@ def _fused_ola_grouped(x: torch.Tensor, **kw) -> torch.Tensor:
     routes, timed beside them in chip_smoke.py, never a route of the
     port."""
     return ola_grouped(x, frames_fn=fused_ola_frames, **kw)
+
+
+def _fused_ola_older(x: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`fused_ola` on a CUDA tensor through the route the pair took
+    before the plan kernel: the radix-2 ``fused_ola_kernel`` at pairs of
+    powers of two up to :data:`MAX_CUDA_FFT`, else 'generic+add' (the
+    generic frame kernel and ``ola_add_kernel``): the yardstick of
+    'plan+add' in chip_smoke.py, never a route of the port."""
+    _build.require(x, 'x', device=x.device, dtype=torch.complex64)
+    route = 'generic' if _radix2_pair(kw['nfft'], kw['nfft_out']) else 'generic+add'
+    y, _ = _launch_ola(x, None, route, counter=fused_ola, tail=False, **kw)
+    return y
 
 
 def _fused_ola_generic(x: torch.Tensor, **kw) -> torch.Tensor:
@@ -1307,7 +1500,7 @@ def ola_add(frames: torch.Tensor, tail: bool = False) -> tuple:
 ola_add.launches = 0
 # the 2:1 wrappers' routes (ola_route): the older kernels, then each frame
 # kernel with the overlap-add of csrc/ola_add.cu
-OLA_ROUTES = ('reg', 'generic', 'reg+add', 'cluster+add', 'split+add', 'generic+add')
+OLA_ROUTES = ('reg', 'generic', 'reg+add', 'cluster+add', 'split+add', 'plan+add', 'generic+add')
 # launches by route: 'reg' (fused_ola_reg_kernel), 'generic'
 # (fused_ola_kernel), '<frame route>+add' (the frame kernel and
 # ola_add_kernel, one count a call); and by the input's element type

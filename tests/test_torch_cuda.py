@@ -200,17 +200,23 @@ def test_ola_register_kernel_matches_plain_and_generic(monitor, batch):
 
 def test_other_ola_pairs_take_the_radix2_kernel(card):
     """a 2:1 pair outside OLA_REG_PAIRS (4096 -> 2048; 8192 -> 4096 was one
-    until the register kernel took it) keeps fused_ola_kernel."""
+    until the register kernel took it) kept fused_ola_kernel until the plan
+    frame kernel took it: one launch of 'plan+add', within 1e-5 of the plain
+    version and of the radix-2 kernel (the yardstick _fused_ola_older)."""
+    from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_older
+
     nfft, nfft_out = 4096, 2048
-    assert ola_route(nfft, nfft_out) == 'generic'
+    assert ola_route(nfft, nfft_out) == 'plan+add'
     kw = dict(w_in=_noise(nfft, 26), w_shift_out=_noise(nfft_out, 27), nfft=nfft,
               nfft_out=nfft_out, noverlap_in=nfft // 2, noverlap_out=nfft_out // 2,
               zero_lo=150, zero_hi=3950, bounds_in=(1024, 3072), bounds_out=(0, 2048))
     x = _noise((2, 20 * 2048 + 7), 28)
     _reset_routes()
     got = kernels.fused_ola(x, **kw)
-    assert kernels.fused_ola.route_launches == _ola_routes(generic=1)
+    assert kernels.fused_ola.route_launches == _ola_routes(**{'plan+add': 1})
     assert rel_rms(got, kernels.fused_ola_plain(x, **kw)) <= 1e-5
+    assert rel_rms(got, _fused_ola_older(x, **kw)) <= 1e-5
+    assert kernels.fused_ola.route_launches == _ola_routes(**{'plan+add': 1, 'generic': 1})
 
 
 @pytest.mark.parametrize('pair', [(8192, 4096), (16384, 4096)])
@@ -685,13 +691,13 @@ def test_ola_filter_takes_the_frame_kernel(card):
     assert rel_rms(got, ref) <= 1e-5
 
 
-def _frame_routes(reg=0, cluster=0, split=0, generic=0):
-    return {'reg': reg, 'cluster': cluster, 'split': split, 'generic': generic}
+def _frame_routes(reg=0, cluster=0, split=0, plan=0, generic=0):
+    return {'reg': reg, 'cluster': cluster, 'split': split, 'plan': plan, 'generic': generic}
 
 
 def _reset_frame_routes():
     kernels.fused_ola_frames.launches = 0
-    kernels.fused_ola_frames.route_launches.update(reg=0, cluster=0, split=0, generic=0)
+    kernels.fused_ola_frames.route_launches.update(reg=0, cluster=0, split=0, plan=0, generic=0)
 
 
 @pytest.mark.parametrize('window', ['hamming', 'blackman'])
@@ -725,16 +731,21 @@ def test_register_kernel_matches_plain_and_generic(card, window):
 
 
 def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
+    """a one-block pair outside REG_PAIRS (1536 -> 768) took the generic
+    kernel until the plan kernel held it: one launch of 'plan', within 1e-5
+    of the plain version and of the generic kernel."""
     nfft, nfft_out = 1536, 768
-    assert frames_route(nfft, nfft_out) == 'generic'
+    assert frames_route(nfft, nfft_out) == 'plan'
     frames = _noise((7, nfft), 22)
     kw = dict(w_in=_noise(nfft, 23), w_shift_out=_noise(nfft_out, 24), nfft=nfft,
               nfft_out=nfft_out, zero_lo=100, zero_hi=1400, bounds_in=(384, 1152),
               bounds_out=(0, 768))
     _reset_frame_routes()
     got = kernels.fused_ola_frames(frames, **kw)
-    assert kernels.fused_ola_frames.route_launches == _frame_routes(generic=1)
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(plan=1)
     assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
+    assert rel_rms(got, _fused_ola_frames_generic(frames, **kw)) <= 1e-5
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(plan=1, generic=1)
 
 
 def test_frames_above_shared_memory_raise(card):
@@ -2038,3 +2049,82 @@ def test_split_route_above_64_parts(card, pair):
     assert rel_rms(got, ref) <= 1e-5
     ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide(kw))
     assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
+
+
+# ---- the plan frame kernel (fused_ola_frames_plan_kernel on the run-time
+# plans of csrc/fft_plan.cuh): each size class and tier, and 'plan+add'
+PLAN_CLASSES = {(1024, 1024): 'grouped', (4096, 2048): 'grouped', (1536, 768): 'grouped',
+                (9216, 3072): 'one block', (16384, 16384): 'one block', (1000, 1000): 'one block',
+                (16384, 1024): 'one block'}
+
+
+def _plan_kwargs(nfft, nfft_out, seed):
+    """random windows and a centred trim with a band mask."""
+    lo = (nfft - nfft_out) // 2
+    return dict(w_in=_noise(nfft, seed) / nfft, w_shift_out=_noise(nfft_out, seed + 1), nfft=nfft,
+                nfft_out=nfft_out, zero_lo=lo + nfft_out // 16,
+                zero_hi=lo + nfft_out - nfft_out // 16, bounds_in=(lo, lo + nfft_out),
+                bounds_out=(0, nfft_out))
+
+
+@pytest.mark.parametrize('layout', ['complex64', 'float32', 'int16', 'bfloat16'])
+@pytest.mark.parametrize('pair', sorted(PLAN_CLASSES))
+def test_plan_kernel_matches_plain_and_complex128(card, pair, layout):
+    """the plan kernel at a pair of each size class (several frames a
+    block, one frame a block) on 13 frames at hop nfft
+    / 3, complex64 or planes of the tier's type: one launch on 'plan' of
+    that layout, within 1e-5 of the plain chain and of the generic kernel,
+    its complex128 error at most twice the plain chain's."""
+    from iqwaveform_torch.ops.kernels.fused_ola import plan_takes
+
+    nfft, nfft_out = pair
+    assert plan_takes(nfft, nfft_out) and frames_route(nfft, nfft_out) == 'plan'
+    kw = _plan_kwargs(nfft, nfft_out, 80)
+    hop = nfft // 3
+    x = _noise(12 * hop + nfft, 81)
+    if layout == 'complex64':
+        frames, extra = x.unfold(-1, nfft, hop), {}
+    else:
+        dtype = getattr(torch, layout)
+        frames, extra = (3000 * torch.stack([x.real, x.imag])).round().to(dtype), {'hop_in': hop}
+    _reset_frame_routes()
+    kernels.fused_ola_frames.layout_launches.update(
+        dict.fromkeys(kernels.fused_ola_frames.layout_launches, 0))
+    got = kernels.fused_ola_frames(frames, **extra, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(plan=1)
+    assert kernels.fused_ola_frames.layout_launches[layout] == 1
+    ref = kernels.fused_ola_frames_plain(frames, **extra, **kw)
+    assert got.shape == ref.shape == (13, nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    assert rel_rms(got, _fused_ola_frames_generic(frames, **extra, **kw)) <= 1e-5
+    f64 = dequantize(frames).to(torch.complex128) if layout != 'complex64' else None
+    if f64 is None:
+        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide(kw))
+    else:
+        ref64 = kernels.fused_ola_frames_plain(f64.unfold(-1, nfft, hop)[:13], **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
+
+
+@pytest.mark.parametrize('pair', [(4096, 2048), (16384, 1024), (1536, 1024), (6144, 2048)])
+def test_plan_add_matches_plain_with_halo_and_tail(card, pair):
+    """'plan+add' (the plan kernel reading the rows and the halo, then
+    ola_add_kernel) at formerly radix-2 and 'generic+add' pairs, on 2 rows
+    of 9 frames with a halo and the tail: one launch on its route, within
+    1e-5 of fused_ola_strided_plain (output and tail), its complex128 error
+    at most twice the plain version's."""
+    nfft, nfft_out = pair
+    assert ola_route(nfft, nfft_out) == 'plan+add'
+    kw = _strided_kwargs(nfft, nfft_out, 82)
+    hop = nfft // 2
+    x, halo = _noise((2, 9 * hop), 83), _noise((2, hop), 84)
+    _reset_strided()
+    got, tail = kernels.fused_ola_strided(x, halo, n_frames=9, **kw)
+    torch.cuda.synchronize()
+    k = kernels.fused_ola_strided
+    assert k.launches == 1 and k.route_launches == _ola_routes(**{'plan+add': 1})
+    ref, ref_tail = fused_ola_strided_plain(x, halo, n_frames=9, **kw)
+    assert rel_rms(got, ref) <= 1e-5 and rel_rms(tail, ref_tail) <= 1e-5
+    y64, t64 = _strided_f64(x, halo, kw)
+    both, plain = torch.cat([got, tail], -1), torch.cat([ref, ref_tail], -1)
+    assert rel_rms(both, torch.cat([y64, t64], -1)) <= 2 * rel_rms(plain, torch.cat([y64, t64], -1))

@@ -427,7 +427,9 @@ def test_shared_memory_per_block():
 
 def test_route_by_size():
     """the specialised kernel takes exactly its three pairs; unresampled,
-    swapped and other one-block sizes keep the generic kernel, and the
+    swapped and other one-block sizes up to 16384 points take the plan
+    kernel (the generic one before it and above 16384 points:
+    tests/test_torch_ola_plan.py), and the
     scope of fused_ola_frames_supported is as before, with the cluster
     kernel's pairs (tests/test_torch_ola_cluster.py), the split route's
     sizes above one block's shared memory (tests/test_torch_ola_split.py)
@@ -440,8 +442,9 @@ def test_route_by_size():
         assert frames_route(*pair) == 'reg'
         assert fused_ola_frames_supported(*pair)
     for pair in [(1536, 768), (16384, 16384), (12288, 12288), (8192, 4096), (6144, 12288),
-                 (8192, 16384), (20480, 10240), (3072, 1536), (16384, 4096)]:
-        assert frames_route(*pair) == 'generic', pair
+                 (8192, 16384), (3072, 1536), (16384, 4096)]:
+        assert frames_route(*pair) == 'plan', pair
+    assert frames_route(20480, 10240) == 'generic'
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
                  (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): True,
                  (11 * 1024, 5632): False, (11 * 16384, 16384): True,
@@ -581,7 +584,8 @@ def test_forward_table_is_a_view_of_the_pair_table():
 
 def test_ola_and_channelizer_routes():
     """fused_ola takes the register-resident kernel at 16384 -> 8192,
-    8192 -> 4096 and 16384 -> 4096 (OLA_REG_PAIRS) only;
+    8192 -> 4096 and 16384 -> 4096 (OLA_REG_PAIRS) only, the plan frame
+    kernel and ola_add ('plan+add') at the other pairs of powers of two;
     chan_stats the channel-only register kernel at every one-block size
     (16384 among them), the mixed-size statistics kernel in the other modes
     there, the radix-2 kernel at the powers of two 64-512 (and
@@ -590,7 +594,7 @@ def test_ola_and_channelizer_routes():
     for pair in [(8192, 4096), (16384, 4096)]:
         assert ola_route(*pair) == 'reg', pair
     for pair in [(16384, 16384), (4096, 2048), (8192, 16384), (64, 32), (4096, 4096)]:
-        assert ola_route(*pair) == 'generic', pair
+        assert ola_route(*pair) == 'plan+add', pair
     assert chan_route(REG_NFFT, emit_psd=False, emit_pbin=False) == 'reg'
     for args, want in [((16384, True, True), 'mixed'), ((16384, True, False), 'mixed'),
                        ((16384, False, True), 'mixed'), ((4096, False, False), 'reg'),

@@ -139,12 +139,15 @@ def test_cuda_scope_is_jax_strided_scope_at_small_pairs(pair):
 
 
 def test_ola_route_unchanged_at_the_older_pairs():
-    """'reg' at OLA_REG_PAIRS and 'generic' (the radix-2 fused_ola_kernel) at
-    every other pair of powers of two up to 16384, both in the 2:1 scope,
-    as before; a power of two above 16384 takes a frame route."""
+    """'reg' at OLA_REG_PAIRS and 'plan+add' (the plan frame kernel and
+    ola_add) at every other pair of powers of two from 4 to 16384, the
+    radix-2 fused_ola_kernel ('generic') only where a size is 2 (one pass,
+    which the plan kernel does not run), all in the 2:1 scope as before; a
+    power of two above 16384 takes a frame route."""
     for nfft, nfft_out in itertools.product([1 << k for k in range(1, 15)], repeat=2):
         route = ola_route(nfft, nfft_out)
-        assert route == ('reg' if (nfft, nfft_out) in OLA_REG_PAIRS else 'generic')
+        assert route == ('reg' if (nfft, nfft_out) in OLA_REG_PAIRS
+                         else 'plan+add' if min(nfft, nfft_out) >= 4 else 'generic')
         assert fused_ola_cuda_supported(nfft, nfft_out, nfft // 2, nfft_out // 2)
     assert ola_route(32768, 16384) == 'cluster+add'
     assert ola_route(65536, 16384) == 'split+add'
@@ -300,14 +303,14 @@ def _unpack(packed):
 
 @pytest.mark.parametrize('tier', ['highest', 'bf16', 'i16'])
 def test_plain_route_matches_jax_strided_at_3072(tier):
-    """3072 -> 1024 (route 'generic+add' on the card): the plain version at
+    """3072 -> 1024 (route 'plan+add' on the card): the plain version at
     each tier, with the next frames' samples as the halo, and its tail,
     against JAX fused_ola_strided (interpret mode) at 'highest' on the same
     stored values (1e-6), and against the JAX kernel at the tier (2e-5 of
     the largest value)."""
     jm, tm = _jax_pair(30.72e6, 10.24e6, 1023, tier, (3072, 1024))
     jh, _ = _jax_pair(30.72e6, 10.24e6, 1023, 'highest', (3072, 1024))
-    assert tm.routes['ola'] == 'generic+add'
+    assert tm.routes['ola'] == 'plan+add'
     rng = np.random.default_rng({'highest': 31, 'bf16': 32, 'i16': 33}[tier])
     shape = (2, (N_FRAMES + 1) * tm.hop_in)
     x = (rng.integers(-2000, 2000, shape) if tier == 'i16'

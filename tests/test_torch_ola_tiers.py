@@ -433,10 +433,10 @@ def test_split_chain_model_at_radix_7(window):
 
 def test_plain_chain_matches_jax_packed_at_7168():
     """the plain chain at a one-block radix-7 pair (7168 -> 1024: the
-    generic kernel's) against JAX fused_ola_packed (interpret mode,
+    plan kernel's) against JAX fused_ola_packed (interpret mode,
     'highest') on the same frames: 1e-5 relative RMS."""
     nfft, nfft_out = 7168, 1024
-    assert frames_route(nfft, nfft_out) == 'generic' and fused_ola_frames_supported(nfft, nfft_out)
+    assert frames_route(nfft, nfft_out) == 'plan' and fused_ola_frames_supported(nfft, nfft_out)
     rng = np.random.default_rng(39)
     frames = np.stack([_complex(rng, nfft) for _ in range(8)])
     w_in = _complex(rng, nfft)
