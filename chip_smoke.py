@@ -363,8 +363,9 @@ then rows 2-3's storage tiers and radix-7 frames:
 24. (a) each frame kernel's plane instances (int16, bfloat16 and float32
    planes of integer counts near 2^24 samples, read at the hop): the
    register kernel at 16384 -> 8192 (and 12288 -> 6144), the cluster of 3
-   at 49152 -> 24576, the split route at 131072 -> 16384 and the generic
-   kernel at 20480 -> 10240 (above the plan kernel's 16384 points); one
+   at 49152 -> 24576, the split route at 131072 -> 16384, the two-block
+   plan kernel at 19200 -> 5120 (above the plan kernel's 16384 points) and
+   the generic kernel at 18225 -> 6075 (an odd size, where it routes); one
    launch each on its element type, within
    1e-6 relative RMS of the complex64 instance on the dequantized frames
    and 1e-5 of the plain chain, the instance named in its profile, timed
@@ -430,8 +431,8 @@ then rows 2-3's storage tiers and radix-7 frames:
    ``fused_ola_strided_plain``, its complex128 error at most twice the
    plain chain's; int16 and bfloat16 planes at one pair a frame route; (b)
    the monitor step near 2^24 samples at 12288 -> 4096 (reg), 32768 ->
-   16384 (cluster), 20480 -> 4096 (generic; above the plan kernel's 16384
-   points) and 65536 -> 16384 (split):
+   16384 (cluster), 20480 -> 4096 (split, one block: phase 28e) and 65536
+   -> 16384 (split):
    routes, one launch of the route and of ``ola_add``, no frame wrapper,
    no concatenation kernel in the profile, phase 3's gates against
    ``reference_step``, timed beside the same step through ``ola_grouped``
@@ -457,10 +458,14 @@ then rows 2-3's storage tiers and radix-7 frames:
    older body on 8 frames against the plain chain (1e-5) and complex128
    (twice the chain's error), int16 and bfloat16 planes at one pair a size
    class, the 27 2:1 pairs through 'plan+add' with a halo and the tail;
-   the pairs it does not hold listed (frames above 16384 points: the generic
-   kernel); (b) ten pairs on a step's frames near 2^24 samples (rows
-   ``plan_4096_2048`` ... ``plan_16384_8192``; ``generic_20480_4096`` and the
-   like at the pairs it does not hold), each beside its older body (``generic_ms``:
+   the pairs it does not hold listed (frames above 16384 points: the two-block
+   plan kernel or the split route, phase 28); the plan kernel forced at
+   9216 -> 3072, which the split route takes (28e); (b) ten pairs on a
+   step's frames near 2^24 samples
+   (rows ``plan_4096_2048`` ... ``plan_16384_8192``; ``plan_cluster_20480_4096``
+   and the like at the pairs it does not hold, on the two-block plan kernel
+   forced),
+   each beside its older body (``generic_ms``:
    the radix-2 kernel, 'generic+add' or the generic frame kernel), the
    plain version and the ``torch.fft`` chain, the frame kernels alone
    (``plan_frames_ms``, ``generic_frames_ms``; at 16384 -> 8192 also the
@@ -468,9 +473,9 @@ then rows 2-3's storage tiers and radix-7 frames:
    monitor step near 2^24 samples at the example's 61.44 -> 30.72 MS/s
    hamming design (4096 -> 2048), 122.88 -> 40.96 MS/s hamming at
    min_fft_size 2047 (6144 -> 2048), blackman 122.88 -> 40.96 MS/s (9216 ->
-   3072) and blackmanharris 30.72 -> 15.36 MS/s at 1023 (10240 -> 5120):
-   routes, one launch of the plan
-   route, no generic frame kernel or radix-2 2:1 kernel in the profile,
+   3072, the split route since 28e) and blackmanharris 30.72 -> 15.36 MS/s
+   at 1023 (10240 -> 5120): routes, one launch of the route, its kernel
+   and no generic frame kernel or radix-2 2:1 kernel in the profile,
    phase 3's gates against ``reference_step`` and against the same step
    through the older body, timed beside it; (d) the stream at the example
    design (8 chunks against one step and ``reference_step``, 16 chunks,
@@ -480,6 +485,42 @@ then rows 2-3's storage tiers and radix-7 frames:
    row 3's split pair 1310720 -> 40960 (80 parts) near BASELINE #2's
    capture, timed beside its plain route and the stage chain, with its
    bound (the row's ``split_ola_filter_1310720``).
+
+28. The two-block plan frame kernel of rows 1-3
+   (``fused_ola_frames_plan_cluster_kernel``: one frame on a cluster of two
+   blocks, a radix-2 step across their shared memory, each block on the
+   run-time plan passes of ``csrc/fft_plan.cuh``; routes 'plan_cluster' and
+   'plan_cluster+add') at the even one-block pairs above 16384 points no
+   other route takes (of the monitor's, 19200 -> 5120, 20480 -> 20480 and
+   24576 -> 24576; the split route takes the rest, (e)):
+   (d) ptxas's registers and spills of its eight instances (four element
+   types, blocks of 256 and 512 threads; none may spill);
+   (a) the 20 pairs of 18432-28672 points on 8 frames against the plain
+   chain (1e-5) and complex128 (twice the chain's error), the kernel forced
+   where the split route takes the pair, and at 9216 -> 3072 and 16384 ->
+   1024; int16, bfloat16 and float32 planes at one pair a size class; the
+   pair's own 2:1 route with a halo and the tail at 20480 -> 4096 and 24576
+   -> 16384 (split+add), 19200 -> 5120 and 24576 -> 24576 (plan_cluster+add);
+   (b) 25600 -> 5120, 20480 -> 10240, 20480 -> 4096, 24576 -> 4096, 9216 ->
+   3072, 16384 -> 1024, 19200 -> 5120, 20480 -> 20480 and 24576 -> 24576 on
+   a step's frames near 2^24 samples, the two-block kernel (the 2:1 route at the 2:1 pairs) beside
+   the generic kernel, the one-block plan kernel where it holds the pair
+   (in turns at the class pairs), the split route where it has a shape and
+   the ``torch.fft`` chain, back to back and single calls, with its bound
+   and ``cudaOccupancyMaxActiveClusters`` (rows
+   ``plan_cluster_<nfft>_<nfft_out>``); (e) at the 34 monitor pairs above
+   8192 points with a split shape, the split route beside the plan kernel
+   that holds the pair, frames alone and at the 2:1 pairs through the
+   '+add' routes, in turns (the times behind ``split_takes``' one-block
+   pairs); (c) the monitor step near 2^24 samples at blackmanharris 122.88
+   -> 61.44 MS/s (20480 -> 10240), 122.88 -> 24.576 MS/s at 1023 (25600 ->
+   5120) and 122.88 -> 32.768 MS/s at 1023 (19200 -> 5120), hamming 122.88
+   -> 24.576 MS/s at 4095 (20480 -> 4096, 2:1) and blackman 9216 -> 3072:
+   routes, launches, ``reference_step``'s gates, timed beside the same step
+   through the generic kernel and through each plan kernel that holds the
+   pair where the route is another, profiled with the route's kernel and
+   no generic one (row ``fused_ola_frames_plan_cluster``: 19200 -> 5120's
+   times, the launches of (c)'s steps, (e)'s turns).
 
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
@@ -638,6 +679,8 @@ LEVELS_GENERIC_KERNEL = 'spectrogram_kernel'
 # the frame kernel of frames above one block's shared memory, one frame a
 # thread-block cluster
 CLUSTER_KERNEL = 'fused_ola_frames_cluster_kernel'
+# one frame on a two-block cluster, on run-time plans (phase 28)
+PLAN_CLUSTER_KERNEL = 'fused_ola_frames_plan_cluster_kernel'
 # chan_stats' route counts after one launch of a register-resident kernel
 # (chan_stats_reg_kernel or chan_power_reg_kernel)
 CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'split': 0, 'generic': 0}
@@ -651,7 +694,7 @@ CORR_KERNELS = (CORR_KERNEL, 'corr_fold_kernel', 'corr_finish_kernel')
 NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL,
             CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL, CORR_KERNEL,
             OLA_REG_KERNEL, 'split_radix_kernel', 'split_fwd_passes_kernel',
-            'split_inv_passes_kernel')
+            'split_inv_passes_kernel', PLAN_CLUSTER_KERNEL)
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -1501,9 +1544,10 @@ def trace_call(name: str) -> int:
     tier_<row of 24a>|tier_ola_filter_i16|tier_ola_filter_bf16|tier_step_planes_i16|
     radix7_hamming|radix7_blackman|radix7_blackmanharris|host_step|
     ola_2to1_<route>_<nfft> (ADD_STEPS)|split_c<C>_<nfft>... (WIDE_SPLIT)|
-    plan_<design> (PLAN_STEPS)|plan_frames_<nfft>_<nfft_out> (PLAN_TIMED)``:
+    plan_<design> (PLAN_STEPS)|plan_frames_<nfft>_<nfft_out> (PLAN_TIMED)|
+    plan_cluster_<design> (PC_STEPS)``:
     make the call of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a, 22b,
-    23a, 23e, 24, 26b, 26d, 27b or 27c at its shapes, on noise from ``SEED``
+    23a, 23e, 24, 26b, 26d, 27b, 27c or 28c at its shapes, on noise from ``SEED``
     (phases 19-20's on their tone + noise; the kernels' work does not
     depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us and events by kernel)
@@ -1613,14 +1657,14 @@ def trace_call(name: str) -> int:
             return mon.step(x)
 
         expect = (ADD_KERNEL,) + frame_kernels
-    elif name in PLAN_STEPS:
-        mon = plan_design(name)
+    elif name in PLAN_STEPS or name in PC_STEPS:
+        mon = plan_design(name) if name in PLAN_STEPS else pc_design(name)
         x = plan_step_input(mon, gen, dev)
 
         def fn():
             return mon.step(x)
 
-        expect = (PLAN_KERNEL,)
+        expect = (route_kernel(mon.routes['ola']),)
     elif name.startswith('plan_frames_'):
         fn, kernel = plan_frames_trace(name, gen, dev)
         expect = (kernel,)
@@ -1826,7 +1870,7 @@ def filtering_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'plan': 0, 'generic': 0},
+        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'plan': 0, 'plan_cluster': 0, 'generic': 0},
                 f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2241,7 +2285,7 @@ def ofdm_phases(dev, smi: str, mem_rate: float, fp32_rate: float, parent: str | 
     def frame_routes(label):
         routes = dict(kernels.fused_ola_frames.route_launches)
         print(f'{label} frame kernels: {json.dumps(routes)}')
-        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'plan': 0, 'generic': 0},
+        require(routes == {'reg': 1, 'cluster': 0, 'split': 0, 'plan': 0, 'plan_cluster': 0, 'generic': 0},
                 f'{label} frame kernels {routes}')
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2566,7 +2610,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         got = kernels.fused_ola_frames(frames, **kw)
         torch.cuda.synchronize()
         routes = dict(kernels.fused_ola_frames.route_launches)
-        require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
+        require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'plan_cluster': 0, 'generic': 0},
                 f'fused_ola_frames at {nfft} -> {nfft_out}: kernels {routes}')
         ref = kernels.fused_ola_frames_plain(frames, **kw)
         ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
@@ -2593,7 +2637,7 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     out = mon.step(x)
     torch.cuda.synchronize()
     routes = dict(kernels.fused_ola_frames.route_launches)
-    require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
+    require(routes == {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'plan_cluster': 0, 'generic': 0},
             f'blackmanharris step kernels {routes}')
     check_step(out, mon.reference_step(x), 'blackmanharris 81920 -> 40960 step vs plain-version step')
     print(f'blackmanharris step: {N_CLUSTER_STEP_BH} samples, 81920 -> 40960 frames, kernels '
@@ -2620,7 +2664,8 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'cluster step launches: {json.dumps(launched)}; kernels by route {json.dumps(routes)}')
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'cluster step launches {launched}')
-    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
+    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0,
+                                            'plan_cluster': 0, 'generic': 0},
                        'chan_stats': CHAN_REG_ROUTE,
                        'hist': {'bucket': 1, 'generic': 0, 'slices': 0}},
             f'cluster step routes {routes}')
@@ -2680,7 +2725,8 @@ def cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
           f'{CLUSTER_PAIRS[pair]}): launches {json.dumps(launched)}; routes {json.dumps(routes)}')
     require(launched == {'fused_ola_frames': 1, 'chan_stats': 1, 'hist': 1},
             f'{window} 30.72 MS/s step launches {launched}')
-    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0, 'generic': 0},
+    require(routes == {'fused_ola_frames': {'reg': 0, 'cluster': 1, 'split': 0, 'plan': 0,
+                                            'plan_cluster': 0, 'generic': 0},
                        'chan_stats': CHAN_REG_ROUTE}, f'{window} 30.72 MS/s step routes {routes}')
     check_step(out, mon.reference_step(x), f'{window} 30.72 MS/s step vs plain-version step')
     step_ms = timed_ms(lambda: mon.step(x))
@@ -4691,7 +4737,7 @@ def split_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     frames_k = kernels.fused_ola_frames
     torch.cuda.reset_peak_memory_stats(dev)
-    no_split = {'reg': 0, 'cluster': 0, 'split': 1, 'plan': 0, 'generic': 0}
+    no_split = {'reg': 0, 'cluster': 0, 'split': 1, 'plan': 0, 'plan_cluster': 0, 'generic': 0}
 
     # ---- 22d first (no launch): the routes of the 36 grid designs on the
     # card; the split pairs of 22a are the grid's
@@ -5230,7 +5276,7 @@ def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     print(f'23e ola_filter {nfft} -> {nfft_out} on {N_SPLIT_FILTER} samples: launches '
           f'{json.dumps(calls)}, frame routes {json.dumps(routes)}')
     require(calls == {'fused_ola_frames': 1}
-            and routes == {'reg': 0, 'cluster': 0, 'split': 1, 'plan': 0, 'generic': 0},
+            and routes == {'reg': 0, 'cluster': 0, 'split': 1, 'plan': 0, 'plan_cluster': 0, 'generic': 0},
             f'23e launches {calls}, routes {routes}')
     plain_y = it.ola_filter(xs, **kw, plain=True)
     chain_y = it.ola_filter(xs, **kw, fft_backend='xla')
@@ -5293,12 +5339,15 @@ def host_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
 # 24a: each frame kernel at its pair and hop, on (2, n) planes of int16
 # counts (their float32 and bfloat16 conversions too) near 2^24 samples:
 # (name, nfft, nfft_out, hop, kernel name in the profile); the register
-# kernel's second pair rides in its rows
+# kernel's second pair rides in its rows; the two-block plan kernel at the
+# blackmanharris monitor pair it takes (122.88 -> 32.768 MS/s), the generic
+# kernel at an odd size above 16384 points (3^6 5^2), where it still routes
 TIER_KERNELS = {
     'frames_reg': (16384, 8192, 8192, 'fused_ola_frames_reg_kernel'),
     'frames_cluster3': (49152, 24576, 16384, CLUSTER_KERNEL),
     'frames_split': (131072, 16384, 65536, 'split_radix_kernel'),
-    'frames_generic': (20480, 10240, 4096, GENERIC_KERNEL),
+    'frames_plan_cluster': (19200, 5120, 3840, PLAN_CLUSTER_KERNEL),
+    'frames_generic': (18225, 6075, 6075, GENERIC_KERNEL),
 }
 TIER_REG_SECOND = (12288, 6144, 4096)
 N_TIER = 1 << 24
@@ -5473,7 +5522,7 @@ def tier_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     # instance and its plain version, timed beside the complex64 instance
     # and beside the rounding pass into complex64 plus that instance
     for kname, (nfft, nfft_out, hop, kernel) in TIER_KERNELS.items():
-        route = kname.split('_')[1].rstrip('0123456789')
+        route = kname[len('frames_'):].rstrip('0123456789')
         require(frames_route(nfft, nfft_out) == route,
                 f'24a {kname}: frames_route {frames_route(nfft, nfft_out)}')
         counts, kw, _ = tier_frames_input(kname, torch.int16, gen, dev)
@@ -6133,7 +6182,8 @@ ADD_STEPS = {
     'ola_2to1_reg_12288': ((40.96e6, 4095), (12288, 4096), 'reg+add', (REG_KERNEL,)),
     'ola_2to1_cluster_32768': ((61.44e6, 16383), (32768, 16384), 'cluster+add',
                                (CLUSTER_KERNEL,)),
-    'ola_2to1_generic_20480': ((24.576e6, 4095), (20480, 4096), 'generic+add', (GENERIC_KERNEL,)),
+    'ola_2to1_split_20480': ((24.576e6, 4095), (20480, 4096), 'split+add',
+                             ('split_radix_kernel', 'split_fwd_passes_kernel')),
     'ola_2to1_split_65536': ((30.72e6, 16383), (65536, 16384), 'split+add',
                              ('split_radix_kernel', 'split_fwd_passes_kernel')),
 }
@@ -6572,11 +6622,12 @@ PLAN_TIMED = {(4096, 2048): 2048, (16384, 1024): 8192, (1024, 1024): 512,
 N_PLAN_STEP = 1 << 24
 PLAN_TRACE_CALLS = 3  # 27b: frame calls in one trace, each a launch of the pair's kernel
 # 27c: the monitor designs of the slice: row -> (fs_sdr, output rate,
-# window, min_fft_size, pair, route)
+# window, min_fft_size, pair, route; 9216 -> 3072 on the split route since
+# 28e timed it faster than the plan kernel)
 PLAN_STEPS = {
     'plan_example_4096': (61.44e6, 30.72e6, 'hamming', 2047, (4096, 2048), 'plan+add'),
     'plan_hamming_6144': (122.88e6, 40.96e6, 'hamming', 2047, (6144, 2048), 'plan+add'),
-    'plan_blackman_9216': (122.88e6, 40.96e6, 'blackman', 1023, (9216, 3072), 'plan'),
+    'plan_blackman_9216': (122.88e6, 40.96e6, 'blackman', 1023, (9216, 3072), 'split'),
     'plan_blackmanharris_10240': (30.72e6, 15.36e6, 'blackmanharris', 1023, (10240, 5120),
                                   'plan'),
 }
@@ -6594,24 +6645,26 @@ N_SPLIT80_FILTER = 3051 * 32768
 KERNEL_INFO['fused_ola_frames_plan'] = ('iqwaveform_torch/csrc/ola_frames.cuh',
                                         'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571')
 for _pair in PLAN_TIMED:
-    for _route in ('plan', 'generic'):
+    for _route in ('plan', 'plan_cluster'):
         KERNEL_INFO[f'{_route}_{_pair[0]}_{_pair[1]}'] = (
             'iqwaveform_torch/csrc/ola_frames.cuh', 'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:'
             + ('571' if _pair in PLAN_RADIX2 + PLAN_GENERIC_ADD else '492'))
 del _pair, _route
 
 
-def plan_spills(report: str) -> dict:
-    """ptxas's spills (and registers) of each instance of the plan kernel,
-    by instance; a spill of any inlined pass shows in its kernel's line."""
+def plan_spills(report: str, kernel: str = 'plan_kernel') -> dict:
+    """ptxas's spills (and registers) of each instance of the plan kernel
+    (``kernel`` the end of its name: 'plan_cluster_kernel' for the
+    two-block one), by instance; a spill of any inlined pass shows in its
+    kernel's line."""
     import re
 
     lines, out = report.splitlines(), {}
     for i, line in enumerate(lines):
-        m = re.search(r'Compiling entry function .?(_Z\S*plan_kernel\S*)', line)
+        m = re.search(r'Compiling entry function .?(_Z\S*frames_' + kernel + r'I\S*)', line)
         if not m:
             continue
-        e = re.search(r'plan_kernelI(\w+?)EEv', m.group(1))
+        e = re.search(kernel + r'I(\w+?)EEv', m.group(1))
         props = out.setdefault(e.group(1) if e else m.group(1)[:60],
                                {'spill_stores': 0, 'spill_loads': 0, 'registers': 0})
         for ln in lines[i + 1:i + 4]:
@@ -6645,16 +6698,17 @@ def plan_frames_input(pair, gen, dev) -> tuple:
 
 def plan_frames_fn(pair, frames, kw) -> tuple:
     """27b's frame call at ``pair`` and its kernel's name: the plan kernel
-    where it holds the pair (at a register pair too), else the generic."""
+    where it holds the pair (at a register pair too), else the two-block
+    plan kernel (the route there since phase 28)."""
     from iqwaveform_torch.ops.kernels.fused_ola import (
-        _fused_ola_frames_generic,
         _fused_ola_frames_plan,
+        _fused_ola_frames_plan_cluster,
         plan_takes,
     )
 
     if plan_takes(*pair):
         return (lambda: _fused_ola_frames_plan(frames, **kw)), PLAN_KERNEL
-    return (lambda: _fused_ola_frames_generic(frames, **kw)), GENERIC_KERNEL
+    return (lambda: _fused_ola_frames_plan_cluster(frames, **kw)), PLAN_CLUSTER_KERNEL
 
 
 def plan_frames_trace(name: str, gen, dev) -> tuple:
@@ -6717,7 +6771,9 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     from iqwaveform_torch.ops.kernels import _build
     from iqwaveform_torch.ops.kernels.fused_ola import (
         _fused_ola_frames_generic,
+        _fused_ola_frames_plan,
         _fused_ola_older,
+        _fused_ola_via,
         _radix2_pair,
         frames_route,
         ola_route,
@@ -6739,25 +6795,28 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             f'27: the plan kernel\'s four instances spill or are missing: {spills}')
 
     # ---- 27a: each enumerated pair on N_PLAN_FRAMES frames against the
-    # plain chain and complex128; planes at one pair a size class; the 2:1
+    # plain chain and complex128 (forced where the split route takes the
+    # pair: 9216 -> 3072, 28e); planes at one pair a size class; the 2:1
     # pairs through 'plan+add' with a halo and the tail
     pairs, not_held = {}, []
     two_to_one = PLAN_RADIX2 + PLAN_GENERIC_ADD
     for pair in two_to_one + PLAN_R_FRAMES:
         n1, n2 = pair
         held = plan_takes(n1, n2)
-        require(frames_route(n1, n2) == ('plan' if held else 'generic'),
-                f'27a {pair}: frames_route {frames_route(n1, n2)}')
+        route = frames_route(n1, n2)
+        require(route in (('plan', 'split') if held else ('plan_cluster', 'split')),
+                f'27a {pair}: frames_route {route}')
         if not held:
             not_held.append(f'{n1}->{n2}')
             continue
+        call = frames_k if route == 'plan' else _fused_ola_frames_plan
         kw = tier_kwargs(n1, n2, gen, dev)
         hop = n1 // 2 if pair in two_to_one else n1 // 3
         capture = torch.randn(N_PLAN_FRAMES * hop + n1, dtype=torch.complex64, device=dev,
                               generator=gen)
         frames = capture.unfold(-1, n1, hop)[:N_PLAN_FRAMES]
         reset_counts()
-        got = frames_k(frames, **kw)
+        got = call(frames, **kw)
         torch.cuda.synchronize()
         require(frames_k.route_launches == frame_routes(plan=1),
                 f'27a {pair}: frame routes {frames_k.route_launches}')
@@ -6773,7 +6832,7 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             for dtype in (torch.int16, torch.bfloat16):
                 planes = (PLANES_SCALE * torch.stack([capture.real, capture.imag])).round().to(dtype)
                 reset_counts()
-                gp = frames_k(planes, hop_in=hop, **kw)
+                gp = call(planes, hop_in=hop, **kw)
                 rp = kernels.fused_ola_frames_plain(planes, hop_in=hop, **kw)
                 e = rel_rms(gp, rp)
                 layout = str(dtype).split('.')[-1]
@@ -6808,7 +6867,8 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         pairs[f'{n1}->{n2}'] = entry
     print('27a the plan kernel at the enumerated pairs (G, F, vs plain, vs complex128): '
           + json.dumps(pairs))
-    print(f'27a pairs the plan kernel does not hold (the generic kernel): {not_held}')
+    print(f'27a pairs the plan kernel does not hold (the two-block plan kernel or the split route, '
+          f'28a): {not_held}')
     torch.cuda.empty_cache()
 
     # ---- 27b: each pair of PLAN_TIMED on the frames of a step near 2^24
@@ -6818,7 +6878,7 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     for (n1, n2), hop in PLAN_TIMED.items():
         pair = (n1, n2)
         held = plan_takes(*pair)
-        name = f'{"plan" if held else "generic"}_{n1}_{n2}'
+        name = f'{"plan" if held else "plan_cluster"}_{n1}_{n2}'
         x, fr, kw = plan_frames_input(pair, gen, dev)
         n_fr = fr.shape[0]
         route = frames_route(*pair)
@@ -6832,21 +6892,24 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         windows = 8 * (n1 + n2)
         nops = n_fr * (fft_ops(n1) + fft_ops(n2) + 6 * (n1 + n2))
         if pair in two_to_one:
-            # a pair the older 2:1 bodies took: the 2:1 route
+            # a pair the older 2:1 bodies took: the 2:1 route of the row's
+            # plan kernel (the pair's route but where the split route takes
+            # it, 28e)
             okw = dict(kw, noverlap_in=hop, noverlap_out=n2 // 2)
-            route = ola_route(*pair)
+            route = ('plan' if held else 'plan_cluster') + '+add'
+            add_fn = lambda x=x, okw=okw, r=route: _fused_ola_via(x, r, **okw)  # noqa: E731
             reset_counts()
-            y = kernels.fused_ola(x, **okw)
+            y = add_fn()
             torch.cuda.synchronize()
             launches = kernels.fused_ola.route_launches[route]
             y_plain = kernels.fused_ola_plain(x, **okw)
             err = rel_rms(y, y_plain)
             require(err <= 1e-5, f'27b {pair}: fused_ola vs plain relative RMS {err:.3g}')
             row = kernel_row(name, {'launches': launches, 'max_abs_err': max_abs(y, y_plain)},
-                             8 * (x.numel() + y.numel()) + windows, nops,
-                             lambda: kernels.fused_ola(x, **okw),
+                             8 * (x.numel() + y.numel()) + windows, nops, add_fn,
                              lambda: kernels.fused_ola_plain(x, **okw),
                              lambda: kernels.fused_ola_plain(x, **okw), mem_rate, fp32_rate)
+            row['route_of_pair'] = ola_route(*pair)
             row['generic_ms'] = timed_ms(lambda: _fused_ola_older(x, **okw))
             row['older_route'] = 'generic' if _radix2_pair(n1, n2) else 'generic+add'
             row['ola_route'] = route
@@ -6857,7 +6920,7 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
             reset_counts()
             got = frames_fn()
             torch.cuda.synchronize()
-            launches = frames_k.route_launches['plan' if held else 'generic']
+            launches = frames_k.route_launches['plan' if held else 'plan_cluster']
             ref = kernels.fused_ola_frames_plain(fr, **kw)
             err = rel_rms(got, ref)
             require(err <= 1e-5, f'27b {pair}: relative RMS {err:.3g}')
@@ -6924,7 +6987,7 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
                   and kernels.fused_ola.route_launches == ola_routes(**{route: 1}))
         else:
             ok = (launched.get('fused_ola_frames') == 1 and 'fused_ola' not in launched
-                  and frames_k.route_launches == frame_routes(plan=1))
+                  and frames_k.route_launches == frame_routes(**{route: 1}))
         require(ok, f'27c {sname}: launches {launched}, fused_ola {kernels.fused_ola.route_launches}, '
                     f'frames {frames_k.route_launches}')
         plan_launches += (kernels.fused_ola.route_launches.get('plan+add', 0)
@@ -6933,9 +6996,10 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         check_step(older_step(mon, x), out, f'27c {sname} through the older body vs the step')
         step_ms = timed_ms(lambda: mon.step(x), reps=10)
         older_ms = timed_ms(lambda: older_step(mon, x), reps=10)
-        names, device_us = device_kernels(lambda: mon.step(x), PLAN_KERNEL, fresh=sname)
-        require(any(PLAN_KERNEL in n for n in names),
-                f'27c {sname}: the profile lacks {PLAN_KERNEL}: {names}')
+        kernel = route_kernel(route)
+        names, device_us = device_kernels(lambda: mon.step(x), kernel, fresh=sname)
+        require(any(kernel in n for n in names),
+                f'27c {sname}: the profile lacks {kernel}: {names}')
         old = [n for n in names if short_name(n) in (GENERIC_KERNEL, OLA_GENERIC_KERNEL)
                or GENERIC_KERNEL + '<' in n or OLA_GENERIC_KERNEL + '<' in n]
         require(not old and not library_kernels(names),
@@ -6943,12 +7007,12 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         busy = sum(device_us.values()) / 1e3
         steps[sname] = {'pair': f'{pair[0]}->{pair[1]}', 'route': route, 'samples': x.numel(),
                         'step_ms': step_ms, 'older_step_ms': older_ms, 'launches': launched,
-                        'plan_device_ms': named_ms(device_us, PLAN_KERNEL),
+                        'plan_device_ms': named_ms(device_us, kernel),
                         'idle_share': max(0.0, 1 - busy / step_ms), 'device_us': device_us}
         print(f'27c {sname} ({fs / 1e6:g} -> {fo / 1e6:g} MS/s {w} min_fft_size={m}, {pair[0]} -> '
               f'{pair[1]}, {x.numel()} samples): launches {json.dumps(launched)}; within the step '
               f'gates of reference_step; {step_ms:.4f} ms, through the older body {older_ms:.4f} '
-              f'ms; {PLAN_KERNEL} {steps[sname]["plan_device_ms"]:.4f} ms of device time; idle '
+              f'ms; {kernel} {steps[sname]["plan_device_ms"]:.4f} ms of device time; idle '
               f'share {steps[sname]["idle_share"]:.3f} ({smi})')
         del mon, x, out
         torch.cuda.empty_cache()
@@ -7060,6 +7124,458 @@ def plan_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'phase 27 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
     return rows
 
+
+
+# ---- phase 28: the two-block plan frame kernel of rows 1-3
+# (fused_ola_frames_plan_cluster_kernel: one frame on a cluster of two
+# blocks, each on the run-time plan passes of csrc/fft_plan.cuh) at the
+# one-block pairs the plan kernel does not hold: 'plan_cluster' frames,
+# 'plan_cluster+add' at 2:1
+
+# 28a: the pairs the one-block plan kernel does not hold
+# (tests/test_torch_ola_plan.py NOT_HELD): the 15 of 27a's 52 above 16384
+# points and five more monitor pairs of 25600-28672 points
+PC_PAIRS = tuple(p for p in PLAN_RADIX2 + PLAN_GENERIC_ADD + PLAN_R_FRAMES if max(p) > 16384) + (
+    (25600, 1024), (27648, 3072), (28672, 1024), (28672, 2048), (28672, 4096))
+# 28a: the pairs of 8193-16384 points both plan kernels hold, which the
+# two-block kernel does not take (28b times both there; 9216 -> 3072 takes
+# the split route, 28e), the two-block kernel forced
+PC_CLASS_PAIRS = ((9216, 3072), (16384, 1024))
+# 28a: planes of int16, bfloat16 and float32 at one pair a size class:
+# blocks of 256 threads (halves up to 8192 points), of 512, the largest frames
+PC_TIER_PAIRS = ((9216, 3072), (20480, 10240), (28672, 4096))
+# 28a: the 2:1 route with a halo and the tail (the pair's own, 'split+add'
+# at the first two since 28e, 'plan_cluster+add' at the others)
+PC_ADD_PAIRS = ((20480, 4096), (24576, 16384), (19200, 5120), (24576, 24576))
+# 28b: the pairs timed on a step's frames near 2^24 samples, each at its
+# design's hop (20480 -> 10240 blackmanharris at 122.88 -> 61.44 MS/s,
+# 25600 -> 5120 blackmanharris at 122.88 -> 24.576, the hamming 2:1 pairs
+# at 122.88 -> 24.576 and 20.48 MS/s, blackman 9216 -> 3072, 16384 -> 1024,
+# and the three monitor pairs the two-block kernel takes: blackmanharris
+# 19200 -> 5120 at 122.88 -> 32.768 MS/s at 1023, the unresampled
+# blackmanharris 20480 -> 20480 at 4095 and blackman 24576 -> 24576 at 8191)
+PC_TIMED = {(25600, 5120): 5120, (20480, 10240): 4096, (20480, 4096): 10240,
+            (24576, 4096): 12288, (9216, 3072): 3072, (16384, 1024): 8192,
+            (19200, 5120): 3840, (20480, 20480): 4096, (24576, 24576): 8192}
+PC_TURNS = 2  # 28b and 28e: turns of each comparison, in the order A B B A
+# 28c: the monitor steps near 2^24 samples: row -> (fs_sdr, output rate,
+# window, min_fft_size, pair)
+PC_STEPS = {
+    'plan_cluster_blackmanharris_20480': (122.88e6, 61.44e6, 'blackmanharris', 2047,
+                                          (20480, 10240)),
+    'plan_cluster_blackmanharris_25600': (122.88e6, 24.576e6, 'blackmanharris', 1023,
+                                          (25600, 5120)),
+    'plan_cluster_hamming_20480': (122.88e6, 24.576e6, 'hamming', 4095, (20480, 4096)),
+    'plan_blackman_9216': PLAN_STEPS['plan_blackman_9216'][:5],
+    'plan_cluster_blackmanharris_19200': (122.88e6, 32.768e6, 'blackmanharris', 1023,
+                                          (19200, 5120)),
+}
+# 28e: the monitor pairs of 27a / 28a above 8192 points (those with a
+# split shape; none is a compiled pair): the split route beside the plan
+# kernel that holds the pair, on a step's frames near 2^24 samples at the
+# pair's PC_TIMED hop (else half the frame at 2:1, a third otherwise),
+# frames alone and at 2:1 the '+add' routes, in turns
+PC_SPLIT_PAIRS = tuple(p for p in PLAN_RADIX2 + PLAN_GENERIC_ADD + PLAN_R_FRAMES + PC_PAIRS[-5:]
+                       if max(p) > 8192)
+# the summary row is the blackmanharris 19200 -> 5120 frames (row 2)
+KERNEL_INFO['fused_ola_frames_plan_cluster'] = (
+    'iqwaveform_torch/csrc/ola_frames.cuh', 'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:492')
+for _pair in PC_TIMED:
+    KERNEL_INFO[f'plan_cluster_{_pair[0]}_{_pair[1]}'] = (
+        'iqwaveform_torch/csrc/ola_frames.cuh', 'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:'
+        + ('571' if _pair in PLAN_RADIX2 + PLAN_GENERIC_ADD else '492'))
+del _pair
+
+
+def route_kernel(route: str) -> str:
+    """the device kernel of a frame route ('plan', 'plan_cluster' or
+    'split', or any with '+add'; the split route's radix step)."""
+    if route.startswith('split'):
+        return 'split_radix_kernel'
+    return PLAN_CLUSTER_KERNEL if route.startswith('plan_cluster') else PLAN_KERNEL
+
+
+def pc_design(name: str, device='cuda'):
+    """28c's monitor ``name`` on ``device``."""
+    import iqwaveform_torch as it
+
+    fs, fo, w, m, _ = PC_STEPS[name]
+    return it.WidebandMonitor(it.design_wideband_monitor(fs, fo, fs_sdr=fs, window=w,
+                                                         min_fft_size=m), device=device)
+
+
+def pc_frames_input(pair, gen, dev) -> tuple:
+    """28b's input at ``pair``: (near N_PLAN_STEP samples of noise, their
+    frames at the pair's PC_TIMED hop, zeros past the end, the frame
+    kernels' arguments)."""
+    n1, n2 = pair
+    hop = PC_TIMED[pair]
+    kw = tier_kwargs(n1, n2, gen, dev)
+    n_fr = N_PLAN_STEP // hop
+    x = torch.randn(n_fr * hop, dtype=torch.complex64, device=dev, generator=gen)
+    return x, torch.cat([x, x.new_zeros(n1 - hop)]).unfold(-1, n1, hop)[:n_fr], kw
+
+
+def split_beside_plans(dev, smi: str) -> dict:
+    """28e: at each pair of PC_SPLIT_PAIRS with a split shape, on a step's
+    frames near N_PLAN_STEP samples, the split route (three or four
+    launches through device memory, the parts on the compile-time passes of
+    csrc/fft_reg.cuh) against the plan kernel that holds the pair
+    (one-block up to 16384 points, else the two-block kernel), frames alone
+    and at 2:1 through the '+add' routes, single-call CUDA events in turns;
+    the split route's frames held against the plan kernel's. Returns
+    {pair: entry}."""
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_frames_plan,
+        _fused_ola_frames_plan_cluster,
+        _fused_ola_frames_split,
+        _fused_ola_via,
+        frames_route,
+        ola_route,
+        plan_takes,
+        split_plan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    two_to_one = PLAN_RADIX2 + PLAN_GENERIC_ADD
+    out = {}
+    for pair in PC_SPLIT_PAIRS:
+        n1, n2 = pair
+        if None in split_plan(n1, n2):
+            continue
+        plan = 'plan' if plan_takes(n1, n2) else 'plan_cluster'
+        plan_frames = _fused_ola_frames_plan if plan == 'plan' else _fused_ola_frames_plan_cluster
+        hop = PC_TIMED.get(pair, n1 // 2 if pair in two_to_one else n1 // 3)
+        kw = tier_kwargs(n1, n2, gen, dev)
+        n_fr = N_PLAN_STEP // hop
+        x = torch.randn(n_fr * hop, dtype=torch.complex64, device=dev, generator=gen)
+        fr = torch.cat([x, x.new_zeros(n1 - hop)]).unfold(-1, n1, hop)[:n_fr]
+        split_fn = lambda fr=fr, kw=kw: _fused_ola_frames_split(fr, **kw)  # noqa: E731
+        plan_fn = lambda fr=fr, kw=kw, f=plan_frames: f(fr, **kw)  # noqa: E731
+        err = rel_rms(split_fn(), plan_fn())
+        require(err <= 1e-5, f'28e {pair}: split vs {plan} relative RMS {err:.3g}')
+        ts, tp = turns_ms(split_fn, plan_fn)
+        entry = {'hop': hop, 'frames': n_fr, 'split': [list(s) for s in split_plan(n1, n2)],
+                 'frames_route': frames_route(n1, n2), 'plan': plan,
+                 'split_frames_ms': ts, f'{plan}_frames_ms': tp, 'split_vs_plan_rel_rms': err}
+        if pair in two_to_one:
+            okw = dict(kw, noverlap_in=n1 - n1 // 2, noverlap_out=n2 // 2)
+            add_split = lambda x=x, okw=okw: _fused_ola_via(x, 'split+add', **okw)  # noqa: E731
+            add_plan = lambda x=x, okw=okw: _fused_ola_via(x, plan + '+add', **okw)  # noqa: E731
+            e2 = rel_rms(add_split(), add_plan())
+            require(e2 <= 1e-5, f'28e {pair}: split+add vs {plan}+add relative RMS {e2:.3g}')
+            ta, tb = turns_ms(add_split, add_plan)
+            entry.update({'ola_route': ola_route(n1, n2), 'split+add_ms': ta,
+                          f'{plan}+add_ms': tb})
+        out[f'{n1}->{n2}'] = entry
+        print(f'28e {n1} -> {n2} ({n_fr} frames at hop {hop}, split {entry["split"]}, route '
+              f'{entry.get("ola_route", entry["frames_route"])}): frames alone, split '
+              f'{json.dumps(ts)} ms against {plan} {json.dumps(tp)}'
+              + (f'; 2:1 split+add {json.dumps(entry["split+add_ms"])} against {plan}+add '
+                 f'{json.dumps(entry[plan + "+add_ms"])}' if 'ola_route' in entry else '')
+              + f' ({smi})')
+        del x, fr
+        torch.cuda.empty_cache()
+    return out
+
+
+def turns_ms(a, b, turns: int = PC_TURNS) -> tuple:
+    """medians of single-call CUDA-event times of ``a`` and ``b`` in turns
+    a, b, b, a (``turns`` of each): (a's, b's)."""
+    ta, tb = [], []
+    for k in range(turns):
+        for fn, out in (((a, ta), (b, tb)) if k % 2 == 0 else ((b, tb), (a, ta))):
+            out.append(timed_ms(fn))
+    return ta, tb
+
+
+def plan_cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 28; returns the kernels line's rows of the two-block plan
+    kernel: one at each pair of 28b, and 'fused_ola_frames_plan_cluster'
+    with the launches of 28c's steps and the times of 19200 -> 5120."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_frames_generic,
+        _fused_ola_frames_plan,
+        _fused_ola_frames_plan_cluster,
+        _fused_ola_frames_split,
+        _fused_ola_older,
+        _fused_ola_via,
+        _require_plan_cluster_residency,
+        frames_route,
+        ola_grouped,
+        ola_route,
+        plan_cluster_shape,
+        plan_cluster_takes,
+        plan_takes,
+        split_plan,
+    )
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames_k, strided = kernels.fused_ola_frames, kernels.fused_ola_strided
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- 28d: ptxas's registers and spills of each instance (an element
+    # type and a block size each); none may spill
+    spills = plan_spills(_build.ptxas_report(), 'plan_cluster_kernel')
+    print(f'28d ptxas {PLAN_CLUSTER_KERNEL} instances: {json.dumps(spills)}')
+    spilled = {k: v for k, v in spills.items() if v['spill_stores'] or v['spill_loads']}
+    require(len(spills) == 8 and not spilled,
+            f'28d: the two-block plan kernel\'s eight instances (four element types, blocks of '
+            f'256 and 512 threads) spill or are missing: {spills}')
+
+    # ---- 28a: each pair the plan kernel does not hold on N_PLAN_FRAMES
+    # frames against the plain chain and complex128, the class pairs
+    # forced; planes at one pair a size class; '+add' with a halo and the tail
+    pairs = {}
+    two_to_one = PLAN_RADIX2 + PLAN_GENERIC_ADD
+    for pair in PC_PAIRS + PC_CLASS_PAIRS:
+        n1, n2 = pair
+        cls = pair in PC_CLASS_PAIRS
+        route = frames_route(n1, n2)
+        require(route in (('plan', 'split') if cls else ('plan_cluster', 'split'))
+                and plan_takes(n1, n2) == cls, f'28a {pair}: frames_route {route}')
+        call = frames_k if route == 'plan_cluster' else _fused_ola_frames_plan_cluster
+        kw = tier_kwargs(n1, n2, gen, dev)
+        hop = n1 // 2 if pair in two_to_one else n1 // 3
+        capture = torch.randn(N_PLAN_FRAMES * hop + n1, dtype=torch.complex64, device=dev,
+                              generator=gen)
+        frames = capture.unfold(-1, n1, hop)[:N_PLAN_FRAMES]
+        reset_counts()
+        got = call(frames, **kw)
+        torch.cuda.synchronize()
+        require(frames_k.route_launches == frame_routes(plan_cluster=1),
+                f'28a {pair}: frame routes {frames_k.route_launches}')
+        ref = kernels.fused_ola_frames_plain(frames, **kw)
+        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
+        err, err64, plain64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+        entry = {'shape': list(plan_cluster_shape(n1, n2)), 'route': route, 'relative_rms': err,
+                 'f64_rel_rms': err64, 'plain_f64_rel_rms': plain64}
+        require(err <= 1e-5, f'28a {pair}: relative RMS {err:.3g}')
+        require(err64 <= 2 * plain64,
+                f'28a {pair}: complex128 error {err64:.4g} > 2 x the plain chain\'s {plain64:.4g}')
+        if pair in PC_TIER_PAIRS:
+            for dtype in (torch.int16, torch.bfloat16, torch.float32):
+                planes = (PLANES_SCALE * torch.stack([capture.real, capture.imag])).round().to(dtype)
+                reset_counts()
+                gp = call(planes, hop_in=hop, **kw)
+                torch.cuda.synchronize()
+                rp = kernels.fused_ola_frames_plain(planes, hop_in=hop, **kw)
+                e = rel_rms(gp, rp)
+                layout = str(dtype).split('.')[-1]
+                require(frames_k.route_launches == frame_routes(plan_cluster=1)
+                        and frames_k.layout_launches[layout] == 1,
+                        f'28a {pair} {layout}: {frames_k.route_launches} {frames_k.layout_launches}')
+                require(e <= 1e-5, f'28a {pair} {layout} planes: relative RMS {e:.3g}')
+                entry[layout] = e
+        if pair in PC_ADD_PAIRS:
+            h = n1 // 2
+            skw = dict(hop_in=h, **kw)
+            x = torch.randn((N_PLAN_FRAMES + 1) * h, dtype=torch.complex64, device=dev,
+                            generator=gen)
+            src, halo = x[:-h], x[-h:]
+            add_route = ola_route(n1, n2)
+            reset_counts()
+            y, tail = strided(src, halo, n_frames=N_PLAN_FRAMES, **skw)
+            torch.cuda.synchronize()
+            launched = {k: c.launches for k, c in kset.items() if c.launches}
+            require(launched == {'fused_ola_strided': 1, 'ola_add': 1}
+                    and strided.route_launches == ola_routes(**{add_route: 1})
+                    and add_route == route + '+add',
+                    f'28a {pair} 2:1: launches {launched}, {strided.route_launches}')
+            r, rt = kernels.fused_ola_strided_plain(src, halo, n_frames=N_PLAN_FRAMES, **skw)
+            y64, t64 = strided_f64(src, halo, dict(skw, precision='highest'))
+            both, plain = torch.cat([y, tail]), torch.cat([r, rt])
+            ref64 = torch.cat([y64, t64])
+            e, e64, p64 = rel_rms(both, plain), rel_rms(both, ref64), rel_rms(plain, ref64)
+            require(e <= 1e-5, f'28a {pair} {add_route}: relative RMS {e:.3g}')
+            require(e64 <= 2 * p64, f'28a {pair} {add_route}: complex128 error {e64:.4g} '
+                                    f'> 2 x the plain\'s {p64:.4g}')
+            entry[add_route] = {'relative_rms': e, 'f64_rel_rms': e64, 'plain_f64_rel_rms': p64}
+        pairs[f'{n1}->{n2}'] = entry
+    print('28a the two-block plan kernel at the pairs the plan kernel does not hold and at the '
+          'class pairs, forced where another route takes them (G, shared memory, vs plain, vs '
+          'complex128); the 2:1 pairs\' own route with a halo and the tail: ' + json.dumps(pairs))
+    torch.cuda.empty_cache()
+
+    # ---- 28b: each pair of PC_TIMED on the frames of a step near 2^24
+    # samples: the two-block kernel beside the generic kernel, the one-block
+    # plan kernel where it holds the pair, the split route where it has a
+    # shape and the torch.fft chain, with its bound; the class pairs' two
+    # plan kernels in turns
+    rows = []
+    for (n1, n2), hop in PC_TIMED.items():
+        pair = (n1, n2)
+        x, fr, kw = pc_frames_input(pair, gen, dev)
+        n_fr = fr.shape[0]
+        shape = plan_cluster_shape(*pair)
+        pc_fn = lambda fr=fr, kw=kw: _fused_ola_frames_plan_cluster(fr, **kw)  # noqa: E731
+        plain_fn = lambda fr=fr, kw=kw: kernels.fused_ola_frames_plain(fr, **kw)  # noqa: E731
+        entry = {'pair': f'{n1}->{n2}', 'hop': hop, 'frames': n_fr,
+                 'frames_route': frames_route(*pair), 'shape': list(shape),
+                 'active_clusters': _require_plan_cluster_residency(n1, n2, dev, 0)}
+        windows = 8 * (n1 + n2)
+        nops = n_fr * (fft_ops(n1) + fft_ops(n2) + 6 * (n1 + n2))
+        reset_counts()
+        got = pc_fn()
+        torch.cuda.synchronize()
+        launches = frames_k.route_launches['plan_cluster']
+        ref = plain_fn()
+        err = rel_rms(got, ref)
+        require(launches == 1 and err <= 1e-5, f'28b {pair}: {launches} launches, relative RMS '
+                                               f'{err:.3g}')
+        if pair in two_to_one:
+            # the 2:1 route: the frame kernel reading the rows, then ola_add
+            okw = dict(kw, noverlap_in=hop, noverlap_out=n2 // 2)
+            add_fn = lambda x=x, okw=okw: _fused_ola_via(x, 'plan_cluster+add', **okw)  # noqa: E731
+            ola_plain = lambda x=x, okw=okw: kernels.fused_ola_plain(x, **okw)  # noqa: E731
+            y, y_plain = add_fn(), ola_plain()
+            e2 = rel_rms(y, y_plain)
+            require(e2 <= 1e-5, f'28b {pair}: plan_cluster+add vs plain relative RMS {e2:.3g}')
+            row = kernel_row(f'plan_cluster_{n1}_{n2}', {'launches': launches,
+                                                          'max_abs_err': max_abs(y, y_plain)},
+                             8 * (x.numel() + y.numel()) + windows, nops, add_fn, ola_plain,
+                             ola_plain, mem_rate, fp32_rate)
+            row['ola_route'] = ola_route(*pair)
+            row['generic_ms'] = timed_ms(lambda: _fused_ola_older(x, **okw))
+            if plan_takes(*pair):
+                plan_add = lambda x=x, okw=okw: _fused_ola_via(x, 'plan+add', **okw)  # noqa: E731
+                row['plan_ms'] = timed_ms(plan_add)
+                row['turns_ms'] = dict(zip(('plan+add', 'plan_cluster+add'),
+                                           turns_ms(plan_add, add_fn)))
+            row['relative_rms'] = e2
+            del y, y_plain
+        else:
+            row = kernel_row(f'plan_cluster_{n1}_{n2}', {'launches': launches,
+                                                          'max_abs_err': max_abs(got, ref)},
+                             8 * (x.numel() + got.numel()) + windows, nops, pc_fn, plain_fn,
+                             plain_fn, mem_rate, fp32_rate)
+            row['generic_ms'] = timed_ms(lambda: _fused_ola_frames_generic(fr, **kw))
+            if plan_takes(*pair):
+                plan_fn = lambda fr=fr, kw=kw: _fused_ola_frames_plan(fr, **kw)  # noqa: E731
+                row['plan_ms'] = timed_ms(plan_fn)
+                row['turns_ms'] = dict(zip(('plan', 'plan_cluster'), turns_ms(plan_fn, pc_fn)))
+            row['relative_rms'] = err
+        del got, ref
+        row.update(entry)
+        # the frame kernels alone on the same frames: the two-block kernel by
+        # CUDA events a call and over PLAN_TRACE_CALLS calls back to back,
+        # the one-block plan kernel, the generic kernel, the split route
+        # (a yardstick where it has a shape) and the chain
+        row['plan_cluster_frames_ms'] = timed_ms(pc_fn)
+        row['back_to_back_ms'] = timed_ms(
+            lambda: [pc_fn() for _ in range(PLAN_TRACE_CALLS)]) / PLAN_TRACE_CALLS
+        row['plan_frames_ms'] = (timed_ms(lambda: _fused_ola_frames_plan(fr, **kw))
+                                 if plan_takes(*pair) else None)
+        row['generic_frames_ms'] = timed_ms(lambda: _fused_ola_frames_generic(fr, **kw))
+        row['split_frames_ms'] = (timed_ms(lambda: _fused_ola_frames_split(fr, **kw))
+                                  if None not in split_plan(*pair) else None)
+        row['chain_frames_ms'] = timed_ms(plain_fn)
+        print(f'28b {n1} -> {n2} ({n_fr} frames at hop {hop}, route '
+              f'{row.get("ola_route", row["frames_route"])}, G {shape[0]}, '
+              f'{row["active_clusters"]} clusters at once): {row["ms"]:.4f} ms (bound '
+              f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}); generic {row["generic_ms"]:.4f} ms'
+              + (f', one-block plan {row["plan_ms"]:.4f} ms' if 'plan_ms' in row else '')
+              + f'; plain / torch.fft chain {row["plain_ms"]:.4f} ms; frames alone: two-block '
+              f'{row["plan_cluster_frames_ms"]:.4f} (back to back {row["back_to_back_ms"]:.4f}), '
+              f'one-block plan {row["plan_frames_ms"]}, generic {row["generic_frames_ms"]:.4f}, '
+              f'split {row["split_frames_ms"]}, chain {row["chain_frames_ms"]:.4f} ms'
+              + (f'; turns {json.dumps(row["turns_ms"])}' if 'turns_ms' in row else '')
+              + f' ({smi})')
+        rows.append(row)
+        del x, fr
+        torch.cuda.empty_cache()
+
+    # ---- 28e: the split route beside the plan kernels at the monitor pairs
+    # above 8192 points (the times that decide split_takes' one-block pairs)
+    split_turns = split_beside_plans(dev, smi)
+
+    # ---- 28c: the monitor steps near 2^24 samples: routes, launches (the
+    # route once a step), reference_step's gates, times beside the same
+    # step through the generic kernel and through each plan kernel that
+    # holds the pair where the route is another, profiled: the route's
+    # kernel and no generic one
+    steps, pc_launches = {}, 0
+    for sname, (fs, fo, w, m, pair) in PC_STEPS.items():
+        mon = pc_design(sname)
+        d = mon.design
+        route = mon.routes['ola']
+        want = ola_route(*pair) if mon._strided else frames_route(*pair)
+        require((d.nfft, d.nfft_out) == pair and route == want,
+                f'28c {sname}: {d.nfft} -> {d.nfft_out}, routes {mon.routes}')
+        x = plan_step_input(mon, gen, dev)
+        mon.step(x[: mon.min_input_multiple()])
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        if route.endswith('+add'):
+            ok = (launched.get('fused_ola') == 1 and launched.get('ola_add') == 1
+                  and 'fused_ola_frames' not in launched
+                  and kernels.fused_ola.route_launches == ola_routes(**{route: 1}))
+        else:
+            ok = (launched.get('fused_ola_frames') == 1 and 'fused_ola' not in launched
+                  and frames_k.route_launches == frame_routes(**{route: 1}))
+        require(ok, f'28c {sname}: launches {launched}, fused_ola {kernels.fused_ola.route_launches}, '
+                    f'frames {frames_k.route_launches}')
+        pc_launches += (kernels.fused_ola.route_launches.get('plan_cluster+add', 0)
+                        + frames_k.route_launches.get('plan_cluster', 0))
+        check_step(out, mon.reference_step(x), f'28c {sname} vs reference_step')
+        check_step(older_step(mon, x), out, f'28c {sname} through the generic kernel vs the step')
+        step_ms = timed_ms(lambda: mon.step(x), reps=10)
+        older_ms = timed_ms(lambda: older_step(mon, x), reps=10)
+        entry = {'pair': f'{pair[0]}->{pair[1]}', 'route': route, 'samples': x.numel(),
+                 'step_ms': step_ms, 'generic_step_ms': older_ms, 'launches': launched}
+        for other, takes, other_frames in (
+                ('plan', plan_takes, _fused_ola_frames_plan),
+                ('plan_cluster', plan_cluster_takes, _fused_ola_frames_plan_cluster)):
+            if route.removesuffix('+add') == other or not takes(*pair):
+                continue
+            # the same step through this plan kernel
+            if mon._strided:
+                via = lambda o=other: mon._outputs(  # noqa: E731
+                    _fused_ola_via(x, o + '+add', **mon.ola_kwargs), mon._chan, mon._counts)
+            else:
+                via = lambda f=other_frames: mon._outputs(  # noqa: E731
+                    ola_grouped(x, frames_fn=f, **mon.ola_kwargs), mon._chan, mon._counts)
+            check_step(via(), out, f'28c {sname} through {other} vs the step')
+            entry[f'{other}_step_ms'] = timed_ms(via, reps=10)
+        kernel = route_kernel(route)
+        names, device_us = device_kernels(lambda: mon.step(x), kernel, fresh=sname)
+        require(any(kernel in n for n in names), f'28c {sname}: the profile lacks {kernel}: {names}')
+        old = [n for n in names if short_name(n) in (GENERIC_KERNEL, OLA_GENERIC_KERNEL)
+               or GENERIC_KERNEL + '<' in n or OLA_GENERIC_KERNEL + '<' in n]
+        require(not old and not library_kernels(names),
+                f'28c {sname}: older or library kernels in the step: {old} {library_kernels(names)}')
+        busy = sum(device_us.values()) / 1e3
+        entry.update(kernel_device_ms=named_ms(device_us, kernel),
+                     idle_share=max(0.0, 1 - busy / step_ms), device_us=device_us)
+        steps[sname] = entry
+        print(f'28c {sname} ({fs / 1e6:g} -> {fo / 1e6:g} MS/s {w} min_fft_size={m}, {pair[0]} -> '
+              f'{pair[1]}, {x.numel()} samples, route {route}): launches {json.dumps(launched)}; '
+              f'within the step gates of reference_step; {step_ms:.4f} ms, through the generic '
+              f'kernel {older_ms:.4f} ms'
+              + ''.join(f', through {o} {entry[o + "_step_ms"]:.4f} ms'
+                        for o in ('plan', 'plan_cluster') if o + '_step_ms' in entry)
+              + f'; {kernel} {entry["kernel_device_ms"]:.4f} ms of device time; idle share '
+              f'{entry["idle_share"]:.3f} ({smi})')
+        del mon, x, out
+        torch.cuda.empty_cache()
+
+    # the kernel's row: the blackmanharris 19200 -> 5120 frames (28b), the
+    # two-block route's counted launches in 28c's steps
+    require(pc_launches >= 1, f'28c: no step launched {PLAN_CLUSTER_KERNEL}')
+    main = dict(next(r for r in rows if r['pair'] == '19200->5120'))
+    main.update(name='fused_ola_frames_plan_cluster',
+                source=KERNEL_INFO['fused_ola_frames_plan_cluster'][0],
+                replaces=KERNEL_INFO['fused_ola_frames_plan_cluster'][1], launches=pc_launches,
+                steps=steps, pairs=pairs, ptxas=spills, split_turns=split_turns)
+    rows.append(main)
+    print(f'phase 28 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
 
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
@@ -7503,6 +8019,10 @@ def main(parent: str | None = None) -> int:
     # ---- phase 27: the plan frame kernel of rows 1-3 at every one-block
     # pair the generic frame kernel and the radix-2 2:1 kernel took
     rows = merge_rows(rows, plan_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 28: the two-block plan frame kernel of rows 1-3 at the
+    # one-block pairs the plan kernel does not hold
+    rows = merge_rows(rows, plan_cluster_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

@@ -120,12 +120,13 @@ struct Trim {
 // shared by every radix: with an array of its own in each radix's body,
 // inlined into one switch, ptxas spilled them to a stack frame of their
 // summed size, where any one radix alone spilled none), through the trim
-// where TRIM (the inverse's first pass), the group's barrier, each
-// butterfly's points written.
-template <int R, bool INV, int B, bool TRIM, int S>
+// (Trim, or csrc/fft_cluster.cuh ClusterTrim) where TRIM (the inverse's first pass), the barrier
+// `mid` (the group's, or the cluster's where the reads reach another
+// block's buffer), each butterfly's points written.
+template <int R, bool INV, int B, bool TRIM, int S, class Load, class Mid>
 __device__ __forceinline__ void pass_r(const Pass& p, float2 (&v)[S], float2* buf,
-                                       const float2* tabs, const Trim& trim, int lane,
-                                       int group, int g) {
+                                       const float2* tabs, const Load& trim, int lane,
+                                       int group, Mid mid) {
   static_assert(B * R <= S, "the shared array holds the pass's points");
 #pragma unroll
   for (int i = 0; i < B; ++i) {
@@ -138,7 +139,7 @@ __device__ __forceinline__ void pass_r(const Pass& p, float2 (&v)[S], float2* bu
       }
     }
   }
-  group_sync(group, g);
+  mid();
   const float2* t = tabs + p.tw;
 #pragma unroll
   for (int i = 0; i < B; ++i) {
@@ -178,13 +179,13 @@ __host__ __device__ constexpr int slots() {
 }
 
 // pass p by its radix (the host built the plan from the instance's radices)
-template <bool INV, int PMAX, bool TRIM, int S>
+template <bool INV, int PMAX, bool TRIM, int S, class Load, class Mid>
 __device__ __forceinline__ void pass(const Pass& p, float2 (&v)[S], float2* buf,
-                                     const float2* tabs, const Trim& trim, int lane, int group,
-                                     int g) {
-#define IQT_PLAN_RADIX(R)                                                                   \
-  case R:                                                                                   \
-    pass_r<R, INV, butterflies<PMAX, R>(), TRIM>(p, v, buf, tabs, trim, lane, group, g);   \
+                                     const float2* tabs, const Load& trim, int lane, int group,
+                                     Mid mid) {
+#define IQT_PLAN_RADIX(R)                                                                     \
+  case R:                                                                                     \
+    pass_r<R, INV, butterflies<PMAX, R>(), TRIM>(p, v, buf, tabs, trim, lane, group, mid);   \
     break;
   switch (p.radix) {
     IQT_PLAN_RADIX(16)
@@ -199,21 +200,33 @@ __device__ __forceinline__ void pass(const Pass& p, float2 (&v)[S], float2* buf,
 #undef IQT_PLAN_RADIX
 }
 
-// The transform of plan tp by frame group g, in place in `buf` (natural
-// order in and out; TRIM: pass 0 reads its points through `trim`): each
-// pass by its radix, the group's barrier after each, so that the caller
-// reads `buf` after the call.
-template <bool INV, int PMAX, bool TRIM>
+// The transform of plan tp by lane `lane` of a group of `group` lanes, in
+// place in `buf` (natural order in and out; TRIM: pass 0 reads its points
+// through `trim`): each pass by its radix, the barrier `sync` between each
+// pass's reads and writes and after each pass, so that the caller reads
+// `buf` after the call; pass 0 waits at `first_mid` between its reads and
+// its writes (the cluster's barrier where it reads another block's buffer,
+// which that block's own pass 0 then overwrites).
+template <bool INV, int PMAX, bool TRIM, class Load, class First, class Sync>
 __device__ __forceinline__ void fft(const Transform& tp, float2* buf, const float2* tabs,
-                                    const Trim& trim, int lane, int group, int g) {
+                                    const Load& trim, int lane, int group, First first_mid,
+                                    Sync sync) {
   float2 v[slots<PMAX>()];
-  pass<INV, PMAX, TRIM>(tp.pass[0], v, buf, tabs, trim, lane, group, g);
-  group_sync(group, g);
+  pass<INV, PMAX, TRIM>(tp.pass[0], v, buf, tabs, trim, lane, group, first_mid);
+  sync();
 #pragma unroll 1
   for (int s = 1; s < tp.passes; ++s) {
-    pass<INV, PMAX, false>(tp.pass[s], v, buf, tabs, trim, lane, group, g);
-    group_sync(group, g);
+    pass<INV, PMAX, false>(tp.pass[s], v, buf, tabs, trim, lane, group, sync);
+    sync();
   }
+}
+
+// the same by frame group g, every barrier the group's
+template <bool INV, int PMAX, bool TRIM, class Load>
+__device__ __forceinline__ void fft(const Transform& tp, float2* buf, const float2* tabs,
+                                    const Load& trim, int lane, int group, int g) {
+  const auto sync = [group, g] { group_sync(group, g); };
+  fft<INV, PMAX, TRIM>(tp, buf, tabs, trim, lane, group, sync, sync);
 }
 
 // the host's check of a transform's plan for an instance of PMAX points a

@@ -371,10 +371,12 @@ cudaError_t allow_reg() {
 }  // namespace
 
 
-// the frame-batch launchers of the plane element types, instantiated in
-// csrc/fused_ola_f32.cu, fused_ola_i16.cu and fused_ola_bf16.cu
+// the frame-batch launchers of every element type, instantiated in
+// csrc/fused_ola_c64.cu, fused_ola_f32.cu, fused_ola_i16.cu and
+// fused_ola_bf16.cu
 namespace iqt {
 namespace ola {
+IQT_FRAMES_INSTANCES(extern, float2)
 IQT_FRAMES_INSTANCES(extern, float)
 IQT_FRAMES_INSTANCES(extern, short)
 IQT_FRAMES_INSTANCES(extern, __nv_bfloat16)
@@ -516,6 +518,46 @@ extern "C" int iqt_fused_ola_frames_plan(
   a.tw = static_cast<const float2*>(tw);
   a.n_tw = n_tw;
   IQT_BY_LAYOUT(frames_plan, a, p)
+}
+
+// any pair the two-block plan kernel holds (ops/kernels/fused_ola.py
+// plan_cluster_takes), by fused_ola_frames_plan_cluster_kernel: plan the
+// plan_ints ints of the pair's ClusterPlan (ops/kernels/fused_ola.py
+// cluster_plan); tw the n_tw entries of both halves' pass tables and the
+// cross twiddles (plan_cluster_twiddles). A plan the kernel does not run:
+// cudaErrorInvalidValue, before any launch; a cluster the card refuses: the
+// launch's own error.
+static_assert(sizeof(iqt::ola::ClusterPlan) % sizeof(int) == 0, "a ClusterPlan is whole ints");
+
+extern "C" int iqt_fused_ola_frames_plan_cluster(
+    const void* x, int layout, long long batch_stride, long long frame_stride,
+    long long plane_stride, const void* halo, long long halo_batch, long long halo_plane,
+    int n_in, int n_halo, const void* w_in, const void* w_out, const void* tw, void* y,
+    int n_tw, int batch, int n_frames, int nfft, int nfft_out, int zero_lo, int zero_hi,
+    int in_lo, int out_lo, int out_hi, const int* plan, int plan_ints, void* stream) {
+  if (plan_ints != static_cast<int>(sizeof(iqt::ola::ClusterPlan) / sizeof(int)))
+    return cudaErrorInvalidValue;
+  iqt::ola::ClusterPlan p;
+  std::memcpy(&p, plan, sizeof p);
+  iqt::ola::FrameArgs a = frame_args(x, batch_stride, frame_stride, plane_stride, halo,
+                                     halo_batch, halo_plane, n_in, n_halo, w_in, w_out, y, batch,
+                                     n_frames, nfft, nfft_out, zero_lo, zero_hi, in_lo, out_lo,
+                                     out_hi, stream);
+  a.tw = static_cast<const float2*>(tw);
+  a.n_tw = n_tw;
+  IQT_BY_LAYOUT(frames_plan_cluster, a, p)
+}
+
+// out[0] = the clusters of the two-block plan kernel of `layout` at the
+// plan's block size and shared memory that the current device can hold at
+// once (0: it cannot launch one); after iqt_fused_ola_frames_prepare
+extern "C" int iqt_fused_ola_frames_plan_cluster_occupancy(const int* plan, int plan_ints,
+                                                           int layout, int* out) {
+  if (plan_ints != static_cast<int>(sizeof(iqt::ola::ClusterPlan) / sizeof(int)))
+    return cudaErrorInvalidValue;
+  iqt::ola::ClusterPlan p;
+  std::memcpy(&p, plan, sizeof p);
+  IQT_BY_LAYOUT(frames_plan_cluster_occupancy, p, out)
 }
 
 // any size of the mixed-radix plans, by fused_ola_frames_kernel: each plan

@@ -6,12 +6,12 @@
 // Each kernel is a template on E, the element type of the frames it reads
 // (Src below): interleaved complex64 (E = float2), or (2, n) planes of
 // float32, int16 or bfloat16, dequantized on load. The host launchers
-// (frames_generic, frames_reg, frames_plan, frames_cluster) are templates on
-// E too;
-// csrc/fused_ola.cu instantiates the complex64 ones and takes the plane
-// ones from csrc/fused_ola_f32.cu, fused_ola_i16.cu and fused_ola_bf16.cu
-// (IQT_FRAMES_INSTANCES), so that nvcc compiles the four element types in
-// parallel.
+// (frames_generic, frames_reg, frames_plan, frames_plan_cluster,
+// frames_cluster) are templates on E too; csrc/fused_ola.cu calls them
+// through its C entries and takes every element type's from a source of
+// its own, csrc/fused_ola_c64.cu, fused_ola_f32.cu, fused_ola_i16.cu and
+// fused_ola_bf16.cu (IQT_FRAMES_INSTANCES), so that nvcc compiles the four
+// element types and the 2:1 kernels in parallel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -167,9 +167,12 @@ __device__ __forceinline__ void stage_planes(float2* buf, const E* __restrict__ 
 // stage (8 stages for the 16384 -> 8192 pair) and a host-built permutation
 // table for the digit-reversed load. It took 1.2-2x the torch.fft chain's
 // time at every one-block pair it ran (PERF.md), and since the plan kernel
-// below it routes only where none of the others holds the pair (frames of
-// 25600 points and above, sizes of one pass: ops/kernels/fused_ola.py
-// frames_route 'generic'); elsewhere it is the yardstick of the others
+// (frames up to 16384 points), the two-block plan kernel below (the even
+// one-block frames above) and the split route (one-block frames above 8192
+// points whose forward transform splits) it routes only where none of the
+// others holds the pair (sizes of one pass,
+// odd sizes above 16384 points: ops/kernels/fused_ola.py frames_route
+// 'generic'); elsewhere it is the yardstick of the others
 // (_fused_ola_frames_generic).
 constexpr int kFrameThreads = 1024;
 
@@ -435,9 +438,10 @@ fused_ola_frames_reg_kernel(const E* __restrict__ x, long long batch_stride,
 // memory holds: 16 frames of 1024 points, one of 16384. A thread holds at
 // most 32 points (kPlanPoints), which leaves a radix-16 DFT its registers
 // within the 128 a thread has at 512 threads: frames of 16384 points and
-// below. Frames above (18432-25600 points) keep the generic kernel
-// (ops/kernels/fused_ola.py plan_takes, ROADMAP.md): at 40, 44 and 48
-// points a thread (a wider instance of radix 8 at most) ptxas spilled.
+// below (ops/kernels/fused_ola.py plan_takes). At 40, 44 and 48 points a
+// thread (a wider instance of radix 8 at most) ptxas spilled; the one-block
+// frames above (18432-28672 points) run a half a block on two blocks,
+// fused_ola_frames_plan_cluster_kernel below.
 //
 // Bound on an H100: as fused_ola_frames_reg_kernel's, device memory (8 B a
 // point in and out at complex64). Fixed-order arithmetic, plain stores, no
@@ -538,6 +542,169 @@ fused_ola_frames_plan_kernel(const E* __restrict__ x, long long batch_stride,
     const float2 v = buf[R::pad(n)];
     yf[n] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&w_out[n]));
   }
+}
+
+// ---- the frame-batch entry on a plan chosen at run time, one frame on a
+// ---- two-block cluster
+//
+// Replaces the same TPU kernels as fused_ola_frames_kernel above
+// (fused_ola_pallas.py fused_ola_pallas and fused_ola_packed), with the
+// contract of fused_ola_frames_plan_kernel, at the one-block pairs whose
+// frames that kernel does not hold (above 16384 points) and where
+// REG_PAIRS, CLUSTER_PAIRS and the split route do not take the pair (of the
+// monitor's, 19200 -> 5120, 20480 -> 20480 and 24576 -> 24576; the split
+// route, faster, takes the pairs whose forward transform splits, such as
+// 20480 -> 10240 and 25600 -> 5120: PERF.md) (ops/kernels/fused_ola.py
+// plan_cluster_takes, frames_route 'plan_cluster'; at 2:1
+// 'plan_cluster+add', the frames then overlap-added by csrc/ola_add.cu).
+//
+// One frame of N1 points runs on a thread-block cluster of two blocks
+// (cudaLaunchKernelEx with a cluster dimension of 2; blockIdx.x = 2 m +
+// rank), each holding M1 = N1 / 2, then M2 = N2 / 2 points in its own padded
+// exchange buffer, on the run-time plan passes of csrc/fft_plan.cuh (the
+// radix-2 split as csrc/fft_cluster.cuh sets it out for C blocks):
+//   1. the pass tables into shared memory; cluster barrier: every block has
+//      begun;
+//   2. the forward radix-2 step: block `rank` owns the offsets n of its half
+//      of [0, M1): it reads samples n and M1 + n times w_in, coalesced (a
+//      value of each plane, for planes; a frame past its row's end through
+//      Edge), and stores their sum at n in block 0's buffer and their
+//      difference times exp(-2 pi i n / N1) at n in block 1's;  cluster
+//      barrier;
+//   3. block r's M1-point forward plan passes in its buffer: bins 2 k + r;
+//      cluster barrier;
+//   4. block r's M2-point inverse plan passes, the first of which reads the
+//      trim (cluster::ClusterTrim: inverse bin 2 i + r is a forward bin of one
+//      block, at a fixed offset from i, for i in one range) from that
+//      block's buffer, with the cluster's barrier between its reads and its
+//      writes;  cluster barrier;
+//   5. the inverse radix-2 step: block `rank` owns the offsets n of its half
+//      of [0, M2): u = point n of block 0, v = point n of block 1 times
+//      exp(+2 pi i n / N2); it writes y[n] = u + v and y[M2 + n] = u - v,
+//      times w_shift_out / N2, coalesced;  cluster barrier, so that no block
+//      exits while the other reads its buffer.
+// The cross twiddles come from the host's table (built in float64, rounded
+// once to float32) and are read from device memory (L2), consecutive
+// threads reading consecutive entries; the pass tables sit in shared memory
+// before the buffer, as in the plan kernel.
+//
+// What this buys over the plan kernel: a half of at most 16384 points on
+// 512 lanes at kPlanPoints a lane, so frames up to 32768 points (one block's
+// shared memory holds 29056); and where both halves are at most 8192 points
+// the blocks take 256 lanes, so that two blocks (two barrier domains) share
+// an SM within its 65536 registers (128 a thread) and its shared memory,
+// where the plan kernel runs one 512-lane frame at a time per SM above 8192
+// points. Two blocks of 256 lanes hold as many warps as one of 512, though:
+// at 9216 -> 3072 the one-block plan kernel stayed the faster (PERF.md), so
+// the route takes the plan kernel wherever it holds the pair. What it
+// costs: the radix-2 steps through distributed shared memory and five
+// cluster barriers a frame.
+//
+// Bound on an H100: as fused_ola_frames_plan_kernel's, device memory (8 B a
+// point in and out at complex64). Fixed-order arithmetic, plain stores, no
+// atomics: the output does not depend on block order.
+struct ClusterPlan {
+  iqt::plan::Transform fwd, inv;  // the halves: M1 = N1 / 2, M2 = N2 / 2 points
+  int tw_count;   // float2 of both halves' pass tables, forward then inverse
+  int fwd_cross;  // offset of exp(-2 pi i n / N1), n < M1, in the host's table
+  int inv_cross;  // offset of exp(+2 pi i n / N2), n < M2
+  int group;      // threads a block: 256 or 512 (G)
+  int buf;        // float2 of a block's exchange buffer
+};
+
+constexpr int kPlanCluster = 2;
+
+// G, the threads of a block, is a template argument (256 or 512): with G
+// read from the plan at run time ptxas spilled 16-36 bytes a thread in the
+// passes, with G a constant none
+template <int G, class E>
+__global__ void __launch_bounds__(kPlanThreads, 1)
+fused_ola_frames_plan_cluster_kernel(const E* __restrict__ x, long long batch_stride,
+                                     long long frame_stride, long long plane_stride,
+                                     Edge<E> edge, const float2* __restrict__ w_in,
+                                     const float2* __restrict__ w_out,
+                                     const float2* __restrict__ tw, float2* __restrict__ y,
+                                     int n_frames, int zero_lo, int zero_hi, int in_lo,
+                                     int out_lo, int out_hi,
+                                     const __grid_constant__ ClusterPlan plan) {
+  namespace P = iqt::plan;
+  namespace R = iqt::reg;
+  namespace CL = iqt::cluster;
+  extern __shared__ float2 smem[];
+  CL::cg::cluster_group cluster = CL::cg::this_cluster();
+  float2* buf = smem + plan.tw_count;
+  constexpr int group = G;
+
+  // 1. the pass tables, read after the barriers below; every block begun
+  for (int e = threadIdx.x; e < plan.tw_count; e += group) smem[e] = __ldg(&tw[e]);
+  cluster.sync();
+
+  // 2. the forward radix-2 step over this block's half of the offsets
+  {
+    const int rank = CL::fresh_rank();
+    const int m1 = plan.fwd.n;
+    const int m = CL::fresh_block_x() / kPlanCluster;
+    const long long start = m * frame_stride;
+    const E* xf = x + blockIdx.y * batch_stride + start;
+    const E* xi = Src<E>::imag(xf, plane_stride);
+    const float2* cross = tw + plan.fwd_cross;
+    const unsigned sum = CL::map_addr(buf, 0), diff = CL::map_addr(buf, 1);
+    const auto forward = [&](auto read) {
+      for (int n = CL::slice_lo(m1, rank, kPlanCluster) + threadIdx.x;
+           n < CL::slice_lo(m1, rank + 1, kPlanCluster); n += group) {
+        const float2 a = iqt::cmul(read(n), __ldg(&w_in[n]));
+        const float2 b = iqt::cmul(read(m1 + n), __ldg(&w_in[m1 + n]));
+        const unsigned at = static_cast<unsigned>(R::pad(n) * sizeof(float2));
+        CL::st_remote(sum + at, make_float2(a.x + b.x, a.y + b.y));
+        CL::st_remote(diff + at,
+                      iqt::cmul(make_float2(a.x - b.x, a.y - b.y), __ldg(&cross[n])));
+      }
+    };
+    if (edge.reaches(start, 2 * m1)) {
+      forward([&](int i) { return edge.read(xf, xi, start, i, blockIdx.y); });
+    } else {
+      forward([&](int i) { return Src<E>::read(xf, xi, i); });
+    }
+  }
+  cluster.sync();
+
+  // 3. the M1-point forward passes in this block's buffer (a block is one
+  // group of lanes: its barrier is the block's)
+  const auto block_sync = [] { __syncthreads(); };
+  P::fft<false, kPlanPoints, false>(plan.fwd, buf, smem, P::Trim{}, threadIdx.x, group,
+                                    block_sync, block_sync);
+  cluster.sync();
+
+  // 4. the M2-point inverse passes, the first reading the trim from the
+  // block that holds each bin, the cluster's barrier before its stores
+  {
+    const CL::ClusterTrim trim = CL::cluster_trim(zero_lo, zero_hi, in_lo, out_lo, out_hi,
+                                                  CL::fresh_rank(), plan.inv.n, buf);
+    P::fft<true, kPlanPoints, true>(plan.inv, buf, smem, trim, threadIdx.x, group,
+                                    [] { CL::cg::this_cluster().sync(); }, block_sync);
+  }
+  cluster.sync();
+
+  // 5. the inverse radix-2 step over this block's half, scaled, windowed
+  {
+    const int rank = CL::fresh_rank();
+    const int m2 = plan.inv.n;
+    const int m = CL::fresh_block_x() / kPlanCluster;
+    const float scale = 1.0f / static_cast<float>(2 * m2);
+    const float2* cross = tw + plan.inv_cross;
+    const unsigned lo = CL::map_addr(buf, 0), hi = CL::map_addr(buf, 1);
+    float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * (2 * m2);
+    for (int n = CL::slice_lo(m2, rank, kPlanCluster) + threadIdx.x;
+         n < CL::slice_lo(m2, rank + 1, kPlanCluster); n += group) {
+      const unsigned at = static_cast<unsigned>(R::pad(n) * sizeof(float2));
+      const float2 u = CL::ld_remote(lo + at);
+      const float2 v = iqt::cmul(CL::ld_remote(hi + at), __ldg(&cross[n]));
+      yf[n] = iqt::cmul(make_float2((u.x + v.x) * scale, (u.y + v.y) * scale), __ldg(&w_out[n]));
+      yf[m2 + n] = iqt::cmul(make_float2((u.x - v.x) * scale, (u.y - v.y) * scale),
+                             __ldg(&w_out[m2 + n]));
+    }
+  }
+  cluster.sync();
 }
 
 // ---- the frame-batch entry above one block's shared memory --------------
@@ -804,6 +971,10 @@ cudaError_t frames_prepare(int max_smem) {
   IQT_CLUSTER_PAIRS(IQT_ALLOW_CLUSTER)
 #undef IQT_ALLOW_CLUSTER
   if ((err = iqt::allow_smem(fused_ola_frames_plan_kernel<E>, max_smem))) return err;
+  if ((err = iqt::allow_smem(fused_ola_frames_plan_cluster_kernel<kPlanThreads, E>, max_smem)))
+    return err;
+  if ((err = iqt::allow_smem(fused_ola_frames_plan_cluster_kernel<kPlanThreads / 2, E>, max_smem)))
+    return err;
   return cudaSuccess;
 }
 
@@ -882,6 +1053,73 @@ cudaError_t frames_plan(const FrameArgs& a, const FramePlan& p) {
   return cudaGetLastError();
 }
 
+// whether `plan` is one the two-block plan kernel runs for the launch `a`:
+// halves of both sizes (plan::transform_ok at kPlanPoints a lane), blocks
+// of 256 or 512 threads holding the larger half, an exchange buffer that
+// holds it padded, the pass tables then the cross twiddles (M1, then M2)
+// making up the launch's table
+inline bool cluster_plan_ok(const FrameArgs& a, const ClusterPlan& p) {
+  const int g = p.group;
+  const int mmax = p.fwd.n > p.inv.n ? p.fwd.n : p.inv.n;
+  return kPlanCluster * p.fwd.n == a.nfft && kPlanCluster * p.inv.n == a.nfft_out &&
+         (g == kPlanThreads || g == kPlanThreads / 2) && mmax <= kPlanPoints * g &&
+         p.buf >= iqt::reg::padded_size(mmax) && p.tw_count >= 0 &&
+         p.fwd_cross == p.tw_count && p.inv_cross == p.fwd_cross + p.fwd.n &&
+         a.n_tw == p.inv_cross + p.inv.n && iqt::plan::transform_ok<kPlanPoints>(p.fwd, g) &&
+         iqt::plan::transform_ok<kPlanPoints>(p.inv, g);
+}
+
+inline cudaLaunchConfig_t plan_cluster_config(const ClusterPlan& p, dim3 grid,
+                                              cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(p.group);
+  cfg.dynamicSmemBytes = static_cast<size_t>(p.tw_count + p.buf) * sizeof(float2);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kPlanCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the two-block plan kernel on the host's plan; a plan it does not run:
+// cudaErrorInvalidValue, before any launch; a cluster the card refuses: the
+// launch's own error
+template <class E>
+cudaError_t frames_plan_cluster(const FrameArgs& a, const ClusterPlan& p) {
+  if (!cluster_plan_ok(a, p)) return cudaErrorInvalidValue;
+  if (static_cast<long long>(a.n_frames) * kPlanCluster >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      plan_cluster_config(p, dim3(a.n_frames * kPlanCluster, a.batch), a.stream, &attr);
+  const auto kernel = p.group == kPlanThreads
+                          ? fused_ola_frames_plan_cluster_kernel<kPlanThreads, E>
+                          : fused_ola_frames_plan_cluster_kernel<kPlanThreads / 2, E>;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const E*>(a.x), a.batch_stride, a.frame_stride, a.plane_stride,
+      edge_of<E>(a), a.w_in, a.w_out, a.tw, a.y, a.n_frames, a.zero_lo, a.zero_hi, a.in_lo,
+      a.out_lo, a.out_hi, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// out[0] = the clusters of the two-block plan kernel at plan `p` the
+// current device can hold at once (0: it cannot launch one)
+template <class E>
+cudaError_t frames_plan_cluster_occupancy(const ClusterPlan& p, int* out) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = plan_cluster_config(p, dim3(kPlanCluster), nullptr, &attr);
+  if (p.group == kPlanThreads)
+    return cudaOccupancyMaxActiveClusters(
+        out, fused_ola_frames_plan_cluster_kernel<kPlanThreads, E>, &cfg);
+  return cudaOccupancyMaxActiveClusters(
+      out, fused_ola_frames_plan_cluster_kernel<kPlanThreads / 2, E>, &cfg);
+}
+
 // the cluster kernel at a pair of IQT_CLUSTER_PAIRS; any other pair or
 // table length: cudaErrorInvalidValue; a cluster the card refuses: the
 // launch's own error
@@ -932,6 +1170,8 @@ cudaError_t frames_cluster_occupancy(int nfft, int nfft_out, int* out) {
   EXTERN template cudaError_t frames_generic<E>(const FrameArgs&);             \
   EXTERN template cudaError_t frames_reg<E>(const FrameArgs&);                 \
   EXTERN template cudaError_t frames_plan<E>(const FrameArgs&, const FramePlan&);      \
+  EXTERN template cudaError_t frames_plan_cluster<E>(const FrameArgs&, const ClusterPlan&); \
+  EXTERN template cudaError_t frames_plan_cluster_occupancy<E>(const ClusterPlan&, int*); \
   EXTERN template cudaError_t frames_cluster<E>(const FrameArgs&);             \
   EXTERN template cudaError_t frames_cluster_occupancy<E>(int, int, int*);
 

@@ -384,9 +384,11 @@ class WidebandMonitor:
         # two and the one-block pairs no compiled instance takes), at every
         # pair the JAX package arms its strided kernel
         # (iqwaveform_tpu/models/monitor.py:528-550); beyond 2:1 the frame
-        # kernel of frames_route ('reg', 'cluster', 'split', 'plan'; the
-        # generic one only at frames of 25600 points and above) and a grouped
-        # overlap-add in a fixed order
+        # kernel of frames_route ('reg', 'cluster', 'split', 'plan',
+        # 'plan_cluster' at the one-block frames above 16384 points the split
+        # route does not take; the generic one only at sizes of one pass and
+        # odd sizes above 16384 points) and a grouped overlap-add in a fixed
+        # order
         # (iqwaveform_tpu/models/monitor.py:789-804); frames no
         # CUDA frame kernel takes (above 2^21 points where no part size
         # divides with C <= 2048, ROADMAP Queue 2 item 1) take the torch.fft

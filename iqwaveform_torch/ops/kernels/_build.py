@@ -56,7 +56,8 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 SOURCES = (
-    'common.cu', 'fused_ola.cu', 'fused_ola_f32.cu', 'fused_ola_i16.cu', 'fused_ola_bf16.cu',
+    'common.cu', 'fused_ola.cu', 'fused_ola_c64.cu', 'fused_ola_f32.cu', 'fused_ola_i16.cu',
+    'fused_ola_bf16.cu',
     'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu', 'spectrogram.cu',
     'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu', 'ola_add.cu',
 )
@@ -91,6 +92,9 @@ SIGNATURES = {
     'iqt_fused_ola_frames_reg': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10 + [_P], _I),
     'iqt_fused_ola_frames_plan': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10
                                   + [_P, _I, _P], _I),
+    'iqt_fused_ola_frames_plan_cluster': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10
+                                          + [_P, _I, _P], _I),
+    'iqt_fused_ola_frames_plan_cluster_occupancy': ([_P, _I, _I, _P], _I),
     'iqt_fused_ola_frames_cluster': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 4 + [_I] * 10 + [_P],
                                      _I),
     'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _I, _P], _I),

@@ -19,8 +19,8 @@ Three wrappers of the kernels of ``csrc/fused_ola.cu``, ``csrc/ola_frames.cuh``,
   16384 -> 4096) one kernel a call with the overlap-add in it,
   ``fused_ola_reg_kernel``; at every other pair ('<frame route>+add':
   'plan+add' at the other powers of two and at one-block pairs up to
-  16384 points such as 6144 -> 2048, 'generic+add' at 20480 -> 4096 and
-  24576 -> 4096, 'reg+add' at 12288 -> 4096, the cluster pairs 24576 /
+  16384 points such as 6144 -> 2048, 'plan_cluster+add' at 20480 -> 4096
+  and 24576 -> 4096, 'reg+add' at 12288 -> 4096, the cluster pairs 24576 /
   32768 -> 8192 and 32768 -> 16384, the split pairs from 32768 -> 4096 to
   524288 -> 16384) the frame kernel of :func:`frames_route` reading the
   frames straight from the rows at hop_in, the last frame's samples past a
@@ -52,9 +52,14 @@ Three wrappers of the kernels of ``csrc/fused_ola.cu``, ``csrc/ola_frames.cuh``,
   two passes or more) ``fused_ola_frames_plan_kernel``, register-resident
   passes on a plan the host builds at run time (``csrc/fft_plan.cuh``,
   :func:`frame_plan`, :func:`plan_twiddles`), several small frames a
-  block; the generic mixed-radix ``fused_ola_frames_kernel`` only at the
-  rest (one-block frames above 16384 points, sizes of one pass), and as a
-  yardstick (:func:`_fused_ola_frames_generic`). :func:`frames_route`
+  block; at the even one-block pairs above 16384 points
+  (:func:`plan_cluster_takes`: 18432-28672 points among the monitor's)
+  ``fused_ola_frames_plan_cluster_kernel``, one frame on a cluster of two
+  blocks, each on those passes over half the frame (:func:`cluster_plan`,
+  :func:`plan_cluster_twiddles`); the generic mixed-radix
+  ``fused_ola_frames_kernel`` only at the rest (sizes of one pass, odd
+  sizes above 16384 points), and as a yardstick
+  (:func:`_fused_ola_frames_generic`). :func:`frames_route`
   picks by size, before the launch. The public ``ola_filter`` / ``oaresample`` and
   the monitor's overlap of more than 2:1 (blackman R=3, blackmanharris
   R=5) add its frames up outside, as a sum of R groups in a fixed order
@@ -195,13 +200,18 @@ SPLIT_INV_PLANS = tuple(m for m in REG_PLANS if m != 15360)
 H100_SMEM_OPTIN = 232448
 # the plan kernel (fused_ola_frames_plan_kernel, csrc/ola_frames.cuh on the
 # passes of csrc/fft_plan.cuh): its threads a block, the points a thread
-# holds (frames up to 16384 points: ptxas spilled a wider instance), the
+# holds (frames up to 16384 points: ptxas spilled a wider instance, and
+# larger one-block frames take the two-block plan kernel,
+# fused_ola_frames_plan_cluster_kernel, a half of the frame a block, or the
+# split route where it is faster: split_takes), the
 # most passes of a transform (plan::kMaxPasses) and the ints of one pass
 # (plan::Pass)
 PLAN_THREADS = 512
 PLAN_POINTS = 32
 _PLAN_MAX_PASSES = 16
 _PLAN_PASS_INTS = 10
+# the blocks of the two-block plan kernel's cluster (kPlanCluster)
+PLAN_CLUSTER = 2
 
 
 def _local_frames(x_ext: torch.Tensor, nperseg: int, hop: int, n_frames: int):
@@ -319,17 +329,34 @@ def split_plan(nfft: int, nfft_out: int) -> tuple:
     return split_shape(nfft), split_shape(nfft_out, inverse=True)
 
 
+def _split_beats_plans(nfft: int, nfft_out: int) -> bool:
+    """a one-block pair above 8192 points whose forward transform splits
+    (C1 >= 2 parts) and whose inverse does not (C2 = 1): there the split
+    route, its parts on the compile-time passes of csrc/fft_reg.cuh, took
+    0.51-0.95 of the time of the plan kernel that holds the pair at each
+    of the 18 monitor pairs of that shape (9216 -> 3072 and 18432-28672
+    points; chip_smoke.py 28e, beyond the spread of its turns); at C1 = 1
+    (10240-16384 points) it took 0.95-1.28 of it, at C2 = 2 (20480 ->
+    20480, 24576 -> 24576) 1.06-1.21."""
+    shapes = split_plan(nfft, nfft_out)
+    return (None not in shapes and max(nfft, nfft_out) > 8192
+            and shapes[0][0] > 1 and shapes[1][0] == 1)
+
+
 def split_takes(nfft: int, nfft_out: int) -> bool:
     """the split route's pairs: :data:`CLUSTER_PAIRS` does not list the
     pair, both sizes have a :func:`split_shape`, and either the larger
-    frame is above one H100 block's shared memory (8 bytes a point) or a
+    frame is above one H100 block's shared memory (8 bytes a point), or a
     size has a prime factor above 7, for which the one-block generic kernel
     has no pass (11264 -> 1024 and 22528 -> 2048, 11 parts of 1024 and of
-    2048, through the radix step's prime pass)."""
+    2048, through the radix step's prime pass), or the split route beats
+    the plan kernels at the pair's shape (:func:`_split_beats_plans`:
+    9216 -> 3072, 20480 -> 10240, 25600 -> 5120 among them)."""
     return (
         (nfft, nfft_out) not in CLUSTER_PAIRS
         and None not in split_plan(nfft, nfft_out)
-        and (8 * max(nfft, nfft_out) > H100_SMEM_OPTIN or not (_smooth(nfft) and _smooth(nfft_out)))
+        and (8 * max(nfft, nfft_out) > H100_SMEM_OPTIN or not (_smooth(nfft) and _smooth(nfft_out))
+             or _split_beats_plans(nfft, nfft_out))
     )
 
 
@@ -639,23 +666,108 @@ def plan_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tenso
     return torch.from_numpy(table.astype('complex64')).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def plan_cluster_shape(nfft: int, nfft_out: int):
+    """(G, shared memory bytes a block) of the two-block plan kernel
+    (``fused_ola_frames_plan_cluster_kernel``) at a pair of one-block
+    frames (the larger within an H100 block's shared memory at 8 bytes a
+    point, the frame kernels' scope there: larger frames take the split
+    route): both sizes even, each half (M1 = nfft / 2, M2 = nfft_out / 2)
+    of the form 2^a 3^b 5^c 7^d with two passes at least and at most
+    _PLAN_MAX_PASSES, the larger half at most :data:`PLAN_POINTS` x
+    :data:`PLAN_THREADS` (16384) points; G, the threads of each block, 256
+    where both halves are at most 8192 points (two blocks an SM), else 512;
+    a block's shared memory (both halves' pass tables and the larger half's
+    padded exchange buffer) within an H100 block's. None where it does not
+    hold the pair."""
+    if (nfft % PLAN_CLUSTER or nfft_out % PLAN_CLUSTER or min(nfft, nfft_out) < 1
+            or 8 * max(nfft, nfft_out) > H100_SMEM_OPTIN):
+        return None
+    m1, m2 = nfft // PLAN_CLUSTER, nfft_out // PLAN_CLUSTER
+    try:
+        passes = [len(plan_radices(m)) for m in (m1, m2)]
+    except ValueError:
+        return None
+    mmax = max(m1, m2)
+    if min(passes) < 2 or max(passes) > _PLAN_MAX_PASSES or mmax > PLAN_POINTS * PLAN_THREADS:
+        return None
+    g = PLAN_THREADS // 2 if mmax <= PLAN_POINTS * PLAN_THREADS // 2 else PLAN_THREADS
+    smem = 8 * (plan_tables(m1, False).size + plan_tables(m2, True).size + mmax + mmax // 16)
+    return (g, smem) if smem <= H100_SMEM_OPTIN else None
+
+
+def plan_cluster_takes(nfft: int, nfft_out: int) -> bool:
+    """the two-block plan kernel holds the pair (:func:`plan_cluster_shape`)."""
+    return plan_cluster_shape(nfft, nfft_out) is not None
+
+
+def _plan_cluster_tables(nfft: int, nfft_out: int) -> tuple:
+    """the two-block plan kernel's table at a pair it holds, float64, and
+    the float2 of its pass tables: the M1-point forward half's pass tables,
+    the M2-point inverse half's (:func:`plan_tables`; each block copies
+    both into its shared memory), then the cross twiddles the radix-2 steps
+    read from device memory: exp(-2 pi i n / nfft), n < M1, and exp(+2 pi i
+    n / nfft_out), n < M2."""
+    m1, m2 = nfft // PLAN_CLUSTER, nfft_out // PLAN_CLUSTER
+    passes = np.concatenate([plan_tables(m1, False), plan_tables(m2, True)])
+    cross = [np.exp(-2j * np.pi * np.arange(m1) / nfft),
+             np.exp(2j * np.pi * np.arange(m2) / nfft_out)]
+    return np.concatenate([passes, *cross]), passes.size
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(nfft: int, nfft_out: int) -> np.ndarray:
+    """the two-block plan kernel's ClusterPlan at a pair it holds, as the
+    int32 array its C entry takes (csrc/ola_frames.cuh ClusterPlan): the
+    forward half's plan::Transform, the inverse half's (its tables after
+    the forward's), then the pass tables' float2 count, the offsets of the
+    forward and inverse cross twiddles in the table, G and the float2 of a
+    block's exchange buffer (the larger half padded one in 16)."""
+    g, _ = plan_cluster_shape(nfft, nfft_out)
+    m1, m2 = nfft // PLAN_CLUSTER, nfft_out // PLAN_CLUSTER
+    n_fwd = plan_tables(m1, False).size
+    n_pass = n_fwd + plan_tables(m2, True).size
+    mmax = max(m1, m2)
+    ints = (_plan_transform(m1, 0) + _plan_transform(m2, n_fwd)
+            + [n_pass, n_pass, n_pass + m1, g, mmax + mmax // 16])
+    return np.array(ints, dtype=np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_cluster_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor:
+    """the table of :func:`_plan_cluster_tables`, rounded once to complex64
+    and kept on ``device`` (read only)."""
+    table, _ = _plan_cluster_tables(nfft, nfft_out)
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
 def frames_route(nfft: int, nfft_out: int) -> str:
     """the kernel :func:`fused_ola_frames` launches for a supported size
     pair: ``'reg'`` (``fused_ola_frames_reg_kernel``) at the pairs of
     :data:`REG_PAIRS`, ``'cluster'`` (``fused_ola_frames_cluster_kernel``)
     at those of :data:`CLUSTER_PAIRS`, ``'split'`` (the kernels of
-    csrc/ola_split.cu) at those of :func:`split_takes`, ``'plan'``
+    csrc/ola_split.cu) at those of :func:`split_takes` (above one block,
+    and the one-block pairs where it beats the plan kernels: 9216 -> 3072
+    and 18 of the 20 monitor pairs of 18432-28672 points), ``'plan'``
     (``fused_ola_frames_plan_kernel``) at every other pair it holds
-    (:func:`plan_takes`), an unresampled nfft_out == nfft among them, and
-    ``'generic'`` (``fused_ola_frames_kernel``) at the rest: sizes of one
-    pass, and one-block frames above 16384 points (ROADMAP.md)."""
+    (:func:`plan_takes`: frames up to 16384 points; the two-block kernel
+    was the slower at 9216 -> 3072, chip_smoke.py 28b), an unresampled
+    nfft_out == nfft among them, ``'plan_cluster'``
+    (``fused_ola_frames_plan_cluster_kernel``, a frame on two blocks) at
+    every other pair it holds (:func:`plan_cluster_takes`: the one-block
+    frames of 16386-29056 points with even sizes; of the monitor's 19200
+    -> 5120, which has no split shape, 20480 -> 20480 and 24576 -> 24576),
+    and ``'generic'`` (``fused_ola_frames_kernel``) at the rest: sizes of
+    one pass, odd sizes above 16384 points (ROADMAP.md)."""
     if (nfft, nfft_out) in REG_PAIRS:
         return 'reg'
     if (nfft, nfft_out) in CLUSTER_PAIRS:
         return 'cluster'
     if split_takes(nfft, nfft_out):
         return 'split'
-    return 'plan' if plan_takes(nfft, nfft_out) else 'generic'
+    if plan_takes(nfft, nfft_out):
+        return 'plan'
+    return 'plan_cluster' if plan_cluster_takes(nfft, nfft_out) else 'generic'
 
 
 def fused_ola_frames(
@@ -717,6 +829,14 @@ def _fused_ola_frames_plan(frames: torch.Tensor, **kw) -> torch.Tensor:
     return _launch_frames(frames, 'plan', **kw)
 
 
+def _fused_ola_frames_plan_cluster(frames: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`fused_ola_frames` on a CUDA tensor through the two-block plan
+    kernel at any pair it holds (:func:`plan_cluster_takes`), those of the
+    one-block plan kernel too: the two timed beside each other in
+    chip_smoke.py, never a route where another kernel takes the pair."""
+    return _launch_frames(frames, 'plan_cluster', **kw)
+
+
 def _fused_ola_frames_split(frames: torch.Tensor, **kw) -> torch.Tensor:
     """:func:`fused_ola_frames` on a CUDA tensor through the split route's
     kernels at a pair above one block that :data:`CLUSTER_PAIRS` lists:
@@ -741,10 +861,10 @@ def _launch_frames(
     bounds_out,
     hop_in: int = None,
 ) -> torch.Tensor:
-    """launch ``route``'s frame kernel ('reg', 'cluster', 'split' or
-    'generic') on CUDA ``frames`` (complex64 frames, or sample planes of a
-    type of :data:`LAYOUTS` read at ``hop_in``: the kernel's instance of
-    that element type); counts the launch in ``fused_ola_frames.launches``,
+    """launch ``route``'s frame kernel ('reg', 'cluster', 'split', 'plan',
+    'plan_cluster' or 'generic') on CUDA ``frames`` (complex64 frames, or
+    sample planes of a type of :data:`LAYOUTS` read at ``hop_in``: the
+    kernel's instance of that element type); counts the launch in ``fused_ola_frames.launches``,
     ``fused_ola_frames.route_launches[route]`` (the split route's three or
     four kernels count as one launch) and
     ``fused_ola_frames.layout_launches[dtype name]``. The split route
@@ -817,10 +937,10 @@ _NO_EDGE = (None, 0, 0, 0, 0)
 
 def _frames_kernel(src, strides, y, route, *, edge=_NO_EDGE, w_in, w_shift_out, nfft, nfft_out,
                    zero_lo, zero_hi, bounds_in, bounds_out) -> int:
-    """launch ``route``'s frame kernel ('reg', 'cluster', 'split' or
-    'generic') on the frames at ``src`` (elements of its type of
-    :data:`LAYOUTS` at ``strides``: a batch row's, a frame's, the imaginary
-    plane's) into ``y`` (batch, frames, nfft_out) complex64; ``edge`` =
+    """launch ``route``'s frame kernel ('reg', 'cluster', 'split', 'plan',
+    'plan_cluster' or 'generic') on the frames at ``src`` (elements of its
+    type of :data:`LAYOUTS` at ``strides``: a batch row's, a frame's, the
+    imaginary plane's) into ``y`` (batch, frames, nfft_out) complex64; ``edge`` =
     (halo or None, its row stride, its plane stride, n_in, n_halo): a row's
     samples at and past n_in come from the halo, zeros after it (n_in = 0:
     every frame inside its row). Returns the C entry's error code; counts
@@ -843,6 +963,18 @@ def _frames_kernel(src, strides, y, route, *, edge=_NO_EDGE, w_in, w_shift_out, 
         plan = frame_plan(nfft, nfft_out)
         tw = plan_twiddles(nfft, nfft_out, dev)
         return _build.library().iqt_fused_ola_frames_plan(
+            src.data_ptr(), layout, *strides, *edge, w_in.data_ptr(), w_shift_out.data_ptr(),
+            tw.data_ptr(), y.data_ptr(), tw.numel(), batch, n_frames, nfft, nfft_out,
+            int(zero_lo), zero_hi, int(in_lo), int(out_lo), int(out_hi),
+            plan.ctypes.data, plan.size, _build.stream_of(src),
+        )
+    if route == 'plan_cluster':
+        if not plan_cluster_takes(nfft, nfft_out):
+            raise ValueError(f'the two-block plan kernel does not hold {nfft} -> {nfft_out}')
+        _require_plan_cluster_residency(nfft, nfft_out, dev, layout)
+        plan = cluster_plan(nfft, nfft_out)
+        tw = plan_cluster_twiddles(nfft, nfft_out, dev)
+        return _build.library().iqt_fused_ola_frames_plan_cluster(
             src.data_ptr(), layout, *strides, *edge, w_in.data_ptr(), w_shift_out.data_ptr(),
             tw.data_ptr(), y.data_ptr(), tw.numel(), batch, n_frames, nfft, nfft_out,
             int(zero_lo), zero_hi, int(in_lo), int(out_lo), int(out_hi),
@@ -906,9 +1038,11 @@ fused_ola_frames.launches = 0
 # launches by kernel: 'reg' (fused_ola_frames_reg_kernel), 'cluster'
 # (fused_ola_frames_cluster_kernel), 'split' (the kernels of
 # csrc/ola_split.cu, one count a call), 'plan' (fused_ola_frames_plan_kernel),
-# 'generic' (fused_ola_frames_kernel); and by the input's element type
-# (complex64 frames, or planes)
-fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'split': 0, 'plan': 0, 'generic': 0}
+# 'plan_cluster' (fused_ola_frames_plan_cluster_kernel), 'generic'
+# (fused_ola_frames_kernel); and by the input's element type (complex64
+# frames, or planes)
+fused_ola_frames.route_launches = {'reg': 0, 'cluster': 0, 'split': 0, 'plan': 0,
+                                   'plan_cluster': 0, 'generic': 0}
 fused_ola_frames.layout_launches = {'complex64': 0, 'float32': 0, 'int16': 0, 'bfloat16': 0}
 
 
@@ -934,6 +1068,32 @@ def _require_cluster_residency(nfft: int, nfft_out: int, device: torch.device,
             f'of the {nfft} -> {nfft_out} frame kernel '
             f'({cluster_smem(nfft, nfft_out)} bytes of shared memory a block)'
         )
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _require_plan_cluster_residency(nfft: int, nfft_out: int, device: torch.device,
+                                    layout: int = 0) -> int:
+    """the clusters of the two-block plan kernel of ``layout`` at the pair's
+    block size and shared memory that ``device`` can hold at once
+    (cudaOccupancyMaxActiveClusters), asked once per pair, layout and device
+    before the first launch; raises where it is none (no other route takes
+    the pair on the card)."""
+    out = ctypes.c_int(0)
+    plan = cluster_plan(nfft, nfft_out)
+    with torch.cuda.device(device):
+        _build.prepare('iqt_fused_ola_frames_prepare', device)
+        _build.check(
+            _build.library().iqt_fused_ola_frames_plan_cluster_occupancy(
+                plan.ctypes.data, plan.size, layout, ctypes.addressof(out)),
+            f'cluster occupancy of the two-block plan kernel at {nfft} -> {nfft_out}',
+        )
+    if out.value < 1:
+        g, smem = plan_cluster_shape(nfft, nfft_out)
+        raise RuntimeError(
+            f'the card cannot hold one cluster of {PLAN_CLUSTER} blocks of {g} threads of the '
+            f'two-block plan kernel at {nfft} -> {nfft_out} ({smem} bytes of shared memory a '
+            'block)')
     return out.value
 
 
@@ -1026,16 +1186,21 @@ def ola_route(nfft: int, nfft_out: int) -> str:
     """the kernels :func:`fused_ola` and :func:`fused_ola_strided` launch
     for a supported pair: ``'reg'`` (``fused_ola_reg_kernel``) at
     :data:`OLA_REG_PAIRS`; at every other pair ``'<frame route>+add'``: the
-    frame kernel of :func:`frames_route` ('reg', 'cluster', 'split', 'plan'
-    or 'generic') reading the frames straight from the rows with the halo
-    past their end, then the 2:1 overlap-add and the tail in
-    ``ola_add_kernel`` (csrc/ola_add.cu); at the pairs of powers of two up
-    to :data:`MAX_CUDA_FFT` that is 'plan+add' (``'generic'``, the radix-2
-    ``fused_ola_kernel``, only where the plan kernel would not hold one)."""
+    frame kernel of :func:`frames_route` ('reg', 'cluster', 'split', 'plan',
+    'plan_cluster' or 'generic') reading the frames straight from the rows
+    with the halo past their end, then the 2:1 overlap-add and the tail in
+    ``ola_add_kernel`` (csrc/ola_add.cu): 'plan+add' at the pairs of powers
+    of two up to :data:`MAX_CUDA_FFT` and at one-block pairs up to 16384
+    points such as 6144 -> 2048, 'split+add' above one block and at 20480
+    -> 4096 and 24576 -> 4096 (:func:`split_takes`), 'plan_cluster+add' at
+    the even one-block pairs above 16384 points no other route takes;
+    ``'generic'``, the radix-2 ``fused_ola_kernel``, only at a pair of
+    powers of two neither plan kernel holds (a size of 2)."""
     if _radix2_pair(nfft, nfft_out):
         if (nfft, nfft_out) in OLA_REG_PAIRS:
             return 'reg'
-        return 'plan+add' if plan_takes(nfft, nfft_out) else 'generic'
+        route = frames_route(nfft, nfft_out)
+        return 'generic' if route == 'generic' else route + '+add'
     return frames_route(nfft, nfft_out) + '+add'
 
 
@@ -1109,9 +1274,24 @@ def _fused_ola_older(x: torch.Tensor, **kw) -> torch.Tensor:
     before the plan kernel: the radix-2 ``fused_ola_kernel`` at pairs of
     powers of two up to :data:`MAX_CUDA_FFT`, else 'generic+add' (the
     generic frame kernel and ``ola_add_kernel``): the yardstick of
-    'plan+add' in chip_smoke.py, never a route of the port."""
+    'plan+add' and 'plan_cluster+add' in chip_smoke.py, never a route of
+    the port."""
     _build.require(x, 'x', device=x.device, dtype=torch.complex64)
     route = 'generic' if _radix2_pair(kw['nfft'], kw['nfft_out']) else 'generic+add'
+    y, _ = _launch_ola(x, None, route, counter=fused_ola, tail=False, **kw)
+    return y
+
+
+def _fused_ola_via(x: torch.Tensor, route: str, **kw) -> torch.Tensor:
+    """:func:`fused_ola` on a CUDA tensor through the 2:1 route ``route``
+    ('plan+add', 'plan_cluster+add' or 'split+add') at a pair its frame
+    kernel holds: the routes timed beside each other at 2:1 in
+    chip_smoke.py, never a route of the port."""
+    _build.require(x, 'x', device=x.device, dtype=torch.complex64)
+    takes = {'plan+add': plan_takes, 'plan_cluster+add': plan_cluster_takes,
+             'split+add': lambda n1, n2: None not in split_plan(n1, n2)}[route]
+    if not takes(kw['nfft'], kw['nfft_out']):
+        raise ValueError(f'{route} does not hold {kw["nfft"]} -> {kw["nfft_out"]}')
     y, _ = _launch_ola(x, None, route, counter=fused_ola, tail=False, **kw)
     return y
 
@@ -1500,7 +1680,8 @@ def ola_add(frames: torch.Tensor, tail: bool = False) -> tuple:
 ola_add.launches = 0
 # the 2:1 wrappers' routes (ola_route): the older kernels, then each frame
 # kernel with the overlap-add of csrc/ola_add.cu
-OLA_ROUTES = ('reg', 'generic', 'reg+add', 'cluster+add', 'split+add', 'plan+add', 'generic+add')
+OLA_ROUTES = ('reg', 'generic', 'reg+add', 'cluster+add', 'split+add', 'plan+add',
+              'plan_cluster+add', 'generic+add')
 # launches by route: 'reg' (fused_ola_reg_kernel), 'generic'
 # (fused_ola_kernel), '<frame route>+add' (the frame kernel and
 # ola_add_kernel, one count a call); and by the input's element type

@@ -672,7 +672,7 @@ def test_monitor_beyond_2_to_1_launches_the_frame_kernel(card, window):
     torch.cuda.synchronize()
     assert kernels.fused_ola_frames.launches == 1 and kernels.fused_ola.launches == 0
     route = frames_route(mon.design.nfft, mon.design.nfft_out)
-    assert route == ('reg' if window == 'blackman' else 'generic')
+    assert route == ('reg' if window == 'blackman' else 'split')
     assert kernels.fused_ola_frames.route_launches[route] == 1
     ref = mon.reference_step(x)
     for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
@@ -691,13 +691,15 @@ def test_ola_filter_takes_the_frame_kernel(card):
     assert rel_rms(got, ref) <= 1e-5
 
 
-def _frame_routes(reg=0, cluster=0, split=0, plan=0, generic=0):
-    return {'reg': reg, 'cluster': cluster, 'split': split, 'plan': plan, 'generic': generic}
+def _frame_routes(reg=0, cluster=0, split=0, plan=0, generic=0, plan_cluster=0):
+    return {'reg': reg, 'cluster': cluster, 'split': split, 'plan': plan,
+            'plan_cluster': plan_cluster, 'generic': generic}
 
 
 def _reset_frame_routes():
     kernels.fused_ola_frames.launches = 0
-    kernels.fused_ola_frames.route_launches.update(reg=0, cluster=0, split=0, plan=0, generic=0)
+    kernels.fused_ola_frames.route_launches.update(reg=0, cluster=0, split=0, plan=0,
+                                                   plan_cluster=0, generic=0)
 
 
 @pytest.mark.parametrize('window', ['hamming', 'blackman'])
@@ -1941,10 +1943,11 @@ def test_flagship_step_at_a_storage_tier_reads_its_planes(card, tier):
 
 
 # ---- the 2:1 route on the frame kernels ('<frame route>+add'): each frame
-# route once, and a one-block pair with a factor of 11 on the split route
+# route once, and one-block pairs with a factor of 11 and of a forward
+# transform in two parts on the split route
 ADD_PAIRS = {(12288, 4096): 'reg+add', (32768, 16384): 'cluster+add',
-             (20480, 4096): 'generic+add', (65536, 16384): 'split+add',
-             (11264, 1024): 'split+add'}
+             (19200, 5120): 'plan_cluster+add', (65536, 16384): 'split+add',
+             (11264, 1024): 'split+add', (20480, 4096): 'split+add'}
 
 
 def _strided_kwargs(nfft, nfft_out, seed):
@@ -2029,6 +2032,48 @@ def test_ola_add_matches_plain_bit_for_bit(card, tail):
     assert (t is None and ref_t is None) or torch.equal(t, ref_t)
 
 
+@pytest.mark.parametrize('layout', ['complex64', 'int16'])
+@pytest.mark.parametrize('pair', [(9216, 3072), (20480, 10240), (25600, 5120), (28672, 4096)])
+def test_split_route_at_one_block_matches_plain_and_complex128(card, pair, layout):
+    """the split route at one-block pairs whose forward transform splits
+    (3, 2, 5 and 7 parts; it beat both plan kernels there) on 13 frames at
+    hop nfft / 3, complex64 or int16 planes: one launch on 'split' of that
+    layout, within 1e-5 of the plain chain and of the two-block plan kernel
+    (the one-block one at 9216 -> 3072), its complex128 error at most twice
+    the plain chain's."""
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        _fused_ola_frames_plan,
+        _fused_ola_frames_plan_cluster,
+        plan_takes,
+    )
+
+    nfft, nfft_out = pair
+    assert split_takes(nfft, nfft_out) and frames_route(nfft, nfft_out) == 'split'
+    kw = _plan_kwargs(nfft, nfft_out, 95)
+    hop = nfft // 3
+    x = _noise(12 * hop + nfft, 96)
+    if layout == 'complex64':
+        frames, extra = x.unfold(-1, nfft, hop), {}
+    else:
+        frames = (3000 * torch.stack([x.real, x.imag])).round().to(torch.int16)
+        extra = {'hop_in': hop}
+    _reset_frame_routes()
+    kernels.fused_ola_frames.layout_launches.update(
+        dict.fromkeys(kernels.fused_ola_frames.layout_launches, 0))
+    got = kernels.fused_ola_frames(frames, **extra, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    assert kernels.fused_ola_frames.layout_launches[layout] == 1
+    ref = kernels.fused_ola_frames_plain(frames, **extra, **kw)
+    assert got.shape == ref.shape == (13, nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    plan = _fused_ola_frames_plan if plan_takes(nfft, nfft_out) else _fused_ola_frames_plan_cluster
+    assert rel_rms(got, plan(frames, **extra, **kw)) <= 1e-5
+    c128 = (dequantize(frames) if layout != 'complex64' else x).to(torch.complex128)
+    ref64 = kernels.fused_ola_frames_plain(c128.unfold(-1, nfft, hop)[:13], **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
+
+
 @pytest.mark.parametrize('pair', [(1310720, 81920), (2621440, 81920)])
 def test_split_route_above_64_parts(card, pair):
     """the split route at 80 and 160 parts of 16384 points (the
@@ -2073,12 +2118,15 @@ def test_plan_kernel_matches_plain_and_complex128(card, pair, layout):
     """the plan kernel at a pair of each size class (several frames a
     block, one frame a block) on 13 frames at hop nfft
     / 3, complex64 or planes of the tier's type: one launch on 'plan' of
-    that layout, within 1e-5 of the plain chain and of the generic kernel,
-    its complex128 error at most twice the plain chain's."""
-    from iqwaveform_torch.ops.kernels.fused_ola import plan_takes
+    that layout (the kernel forced at 9216 -> 3072, which the split route
+    takes), within 1e-5 of the plain chain and of the generic kernel, its
+    complex128 error at most twice the plain chain's."""
+    from iqwaveform_torch.ops.kernels.fused_ola import _fused_ola_frames_plan, plan_takes
 
     nfft, nfft_out = pair
-    assert plan_takes(nfft, nfft_out) and frames_route(nfft, nfft_out) == 'plan'
+    route = frames_route(nfft, nfft_out)
+    assert plan_takes(nfft, nfft_out) and route == ('split' if pair == (9216, 3072) else 'plan')
+    call = kernels.fused_ola_frames if route == 'plan' else _fused_ola_frames_plan
     kw = _plan_kwargs(nfft, nfft_out, 80)
     hop = nfft // 3
     x = _noise(12 * hop + nfft, 81)
@@ -2090,7 +2138,7 @@ def test_plan_kernel_matches_plain_and_complex128(card, pair, layout):
     _reset_frame_routes()
     kernels.fused_ola_frames.layout_launches.update(
         dict.fromkeys(kernels.fused_ola_frames.layout_launches, 0))
-    got = kernels.fused_ola_frames(frames, **extra, **kw)
+    got = call(frames, **extra, **kw)
     torch.cuda.synchronize()
     assert kernels.fused_ola_frames.route_launches == _frame_routes(plan=1)
     assert kernels.fused_ola_frames.layout_launches[layout] == 1
@@ -2123,6 +2171,66 @@ def test_plan_add_matches_plain_with_halo_and_tail(card, pair):
     torch.cuda.synchronize()
     k = kernels.fused_ola_strided
     assert k.launches == 1 and k.route_launches == _ola_routes(**{'plan+add': 1})
+    ref, ref_tail = fused_ola_strided_plain(x, halo, n_frames=9, **kw)
+    assert rel_rms(got, ref) <= 1e-5 and rel_rms(tail, ref_tail) <= 1e-5
+    y64, t64 = _strided_f64(x, halo, kw)
+    both, plain = torch.cat([got, tail], -1), torch.cat([ref, ref_tail], -1)
+    assert rel_rms(both, torch.cat([y64, t64], -1)) <= 2 * rel_rms(plain, torch.cat([y64, t64], -1))
+
+
+# ---- the two-block plan frame kernel (fused_ola_frames_plan_cluster_kernel:
+# a frame on a cluster of two blocks, each on the run-time plan passes) at
+# the one-block pairs the plan kernel does not hold and the split route does
+# not take
+@pytest.mark.parametrize('layout', ['complex64', 'int16'])
+@pytest.mark.parametrize('pair', [(19200, 5120), (20480, 20480), (24576, 24576)])
+def test_plan_cluster_kernel_matches_plain_and_complex128(card, pair, layout):
+    """the two-block plan kernel on 13 frames at hop nfft / 3, complex64 or
+    int16 planes: one launch on 'plan_cluster' of that layout, within 1e-5
+    of the plain chain and of the generic kernel, its complex128 error at
+    most twice the plain chain's."""
+    nfft, nfft_out = pair
+    assert frames_route(nfft, nfft_out) == 'plan_cluster'
+    kw = _plan_kwargs(nfft, nfft_out, 90)
+    hop = nfft // 3
+    x = _noise(12 * hop + nfft, 91)
+    if layout == 'complex64':
+        frames, extra = x.unfold(-1, nfft, hop), {}
+    else:
+        frames = (3000 * torch.stack([x.real, x.imag])).round().to(torch.int16)
+        extra = {'hop_in': hop}
+    _reset_frame_routes()
+    kernels.fused_ola_frames.layout_launches.update(
+        dict.fromkeys(kernels.fused_ola_frames.layout_launches, 0))
+    got = kernels.fused_ola_frames(frames, **extra, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(plan_cluster=1)
+    assert kernels.fused_ola_frames.layout_launches[layout] == 1
+    ref = kernels.fused_ola_frames_plain(frames, **extra, **kw)
+    assert got.shape == ref.shape == (13, nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    assert rel_rms(got, _fused_ola_frames_generic(frames, **extra, **kw)) <= 1e-5
+    c128 = (dequantize(frames) if layout != 'complex64' else x).to(torch.complex128)
+    ref64 = kernels.fused_ola_frames_plain(c128.unfold(-1, nfft, hop)[:13], **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
+
+
+def test_plan_cluster_add_matches_plain_with_halo_and_tail(card):
+    """'plan_cluster+add' at 19200 -> 5120 (the two-block plan kernel
+    reading the rows and the halo, then ola_add_kernel) on 2 rows of 9
+    frames with a halo and the tail: one launch on its route, within 1e-5
+    of fused_ola_strided_plain, its complex128 error at most twice the
+    plain version's."""
+    nfft, nfft_out = 19200, 5120
+    assert ola_route(nfft, nfft_out) == 'plan_cluster+add'
+    kw = _strided_kwargs(nfft, nfft_out, 92)
+    hop = nfft // 2
+    x, halo = _noise((2, 9 * hop), 93), _noise((2, hop), 94)
+    _reset_strided()
+    got, tail = kernels.fused_ola_strided(x, halo, n_frames=9, **kw)
+    torch.cuda.synchronize()
+    k = kernels.fused_ola_strided
+    assert k.launches == 1 and k.route_launches == _ola_routes(**{'plan_cluster+add': 1})
     ref, ref_tail = fused_ola_strided_plain(x, halo, n_frames=9, **kw)
     assert rel_rms(got, ref) <= 1e-5 and rel_rms(tail, ref_tail) <= 1e-5
     y64, t64 = _strided_f64(x, halo, kw)

@@ -428,8 +428,8 @@ def test_shared_memory_per_block():
 def test_route_by_size():
     """the specialised kernel takes exactly its three pairs; unresampled,
     swapped and other one-block sizes up to 16384 points take the plan
-    kernel (the generic one before it and above 16384 points:
-    tests/test_torch_ola_plan.py), and the
+    kernel (the generic one before it; above 16384 points the two-block
+    plan kernel or the split route: tests/test_torch_ola_plan.py), and the
     scope of fused_ola_frames_supported is as before, with the cluster
     kernel's pairs (tests/test_torch_ola_cluster.py), the split route's
     sizes above one block's shared memory (tests/test_torch_ola_split.py)
@@ -444,7 +444,7 @@ def test_route_by_size():
     for pair in [(1536, 768), (16384, 16384), (12288, 12288), (8192, 4096), (6144, 12288),
                  (8192, 16384), (3072, 1536), (16384, 4096)]:
         assert frames_route(*pair) == 'plan', pair
-    assert frames_route(20480, 10240) == 'generic'
+    assert frames_route(20480, 10240) == 'split'
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
                  (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): True,
                  (11 * 1024, 5632): False, (11 * 16384, 16384): True,

@@ -298,7 +298,8 @@ def test_route_and_scope_by_size():
     """'cluster' at exactly the compiled pairs, which the scope now takes
     (the 98304-point frames among them, and 24576 -> 12288 in place of the
     generic kernel); the register-resident pairs as before, the one-block
-    sizes on the plan kernel (the generic one above its 16384 points), the
+    sizes on the plan kernel (above its 16384 points the two-block plan
+    kernel, or the split route where it beat both), the
     scope of every other size as before; frames above one block that no
     cluster pair lists on the split route, 163840 -> 40960 among them, and
     up to 2048 parts (SPLIT_PRIME); the frames of OUTSIDE outside."""
@@ -307,8 +308,9 @@ def test_route_and_scope_by_size():
         assert fused_ola_frames_supported(*pair)
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg' and fused_ola_frames_supported(*pair)
-    for pair, (route, ok) in {(1536, 768): ('plan', True), (20480, 10240): ('generic', True),
-                              (28800, 14400): ('generic', True), (24576, 24576): ('generic', True),
+    for pair, (route, ok) in {(1536, 768): ('plan', True), (20480, 10240): ('split', True),
+                              (28800, 14400): ('plan_cluster', True),
+                              (24576, 24576): ('plan_cluster', True),
                               (7 * 1024, 3584): ('plan', True),
                               (11 * 1024, 5632): ('generic', False)}.items():
         assert frames_route(*pair) == route, pair
@@ -372,7 +374,7 @@ def test_cpu_tensors_take_the_plain_chain_at_the_cluster_sizes():
               nfft_out=nfft_out, zero_lo=0, zero_hi=None,
               bounds_in=(20480, 61440), bounds_out=(0, 40960))
     before = dict(kernels.fused_ola_frames.route_launches), kernels.fused_ola_frames.launches
-    assert set(before[0]) == {'reg', 'cluster', 'split', 'plan', 'generic'}
+    assert set(before[0]) == {'reg', 'cluster', 'split', 'plan', 'plan_cluster', 'generic'}
     got = kernels.fused_ola_frames(frames, **kw)
     torch.testing.assert_close(got, kernels.fused_ola_frames_plain(frames, **kw))
     assert (dict(kernels.fused_ola_frames.route_launches), kernels.fused_ola_frames.launches) == before

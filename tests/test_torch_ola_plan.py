@@ -18,8 +18,12 @@ the CPU.
   'generic+add', 25 blackman / blackmanharris frame pairs on the generic
   kernel), ``frames_route`` / ``ola_route`` give 'plan' / 'plan+add', but at
   the sizes the kernel does not hold (NOT_HELD: frames above 16384 points,
-  which keep the generic kernel); routes unchanged at REG_PAIRS, OLA_REG_PAIRS, CLUSTER_PAIRS and
-  the split pairs; both scope predicates as before.
+  which take the two-block plan kernel, 'plan_cluster' / 'plan_cluster+add':
+  tests/test_torch_ola_plan_cluster.py) and at the pairs the split route
+  takes at one block (SPLIT_ONE_BLOCK: 'split' / 'split+add', the rule
+  checked by shape); routes unchanged at REG_PAIRS,
+  OLA_REG_PAIRS, CLUSTER_PAIRS and the split pairs; both scope predicates as
+  before.
 * The plain paths against the JAX package: the monitor step at the
   example's design (61.44 -> 30.72 MS/s hamming, min_fft_size=2047: 4096 ->
   2048) and at blackman 30.72 -> 10.24 MS/s, min_fft_size=1023 (9216 ->
@@ -66,6 +70,7 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     plan_tables,
     plan_takes,
     plan_twiddles,
+    split_plan,
     split_takes,
 )
 from iqwaveform_torch.utils import counter_value
@@ -89,9 +94,16 @@ R_FRAME_PAIRS = ((3072, 3072), (5120, 5120), (6144, 3072), (6144, 6144), (7680, 
 ENUMERATED = RADIX2_PAIRS + GENERIC_ADD_PAIRS + R_FRAME_PAIRS
 # the monitor pairs whose frames the plan kernel does not hold (above 16384
 # points, 32 a lane at 512 lanes: ptxas spilled a wider instance): the
-# generic kernel
+# two-block plan kernel
 NOT_HELD = tuple(p for p in ENUMERATED if max(p) > 16384) + (
     (25600, 1024), (27648, 3072), (28672, 1024), (28672, 2048), (28672, 4096))
+# the monitor pairs the split route takes at one block (chip_smoke.py 28e
+# timed it faster than the plan kernels there): above 8192 points, a forward
+# transform of C1 >= 2 parts and an inverse of one
+SPLIT_ONE_BLOCK = ((9216, 3072), (18432, 3072), (18432, 6144), (20480, 2048), (20480, 4096),
+                   (20480, 5120), (20480, 10240), (21504, 3072), (24576, 3072), (24576, 4096),
+                   (24576, 6144), (24576, 16384), (25600, 1024), (25600, 5120), (27648, 3072),
+                   (28672, 1024), (28672, 2048), (28672, 4096))
 # the transform sizes the model runs beside the held pairs'
 SPREAD = (64, 96, 160, 224, 375, 448, 1000, 1536, 2187, 2401, 3125, 3584, 6272, 7168, 11025,
           12005, 14336, 15625)
@@ -342,20 +354,45 @@ def test_grouping_of_small_frames():
 SPLIT_SAMPLE = ((65536, 16384), (196608, 24576), (11264, 1024), (1310720, 40960))
 
 
+def _plan_route(pair) -> str:
+    """the route the enumerated pair takes: the split route at
+    SPLIT_ONE_BLOCK, else the plan kernel that holds it."""
+    if pair in SPLIT_ONE_BLOCK:
+        return 'split'
+    return 'plan' if pair not in NOT_HELD else 'plan_cluster'
+
+
 def test_enumerated_pairs_route_to_the_plan_kernel():
     """the 52 pairs: 'plan' frames and 'plan+add' at 2:1, the sizes of
-    NOT_HELD on the generic kernel (15 of the 52); the 2:1 scope at the 27
-    2:1 pairs and the frame scope at every pair, as before."""
+    NOT_HELD on the two-block plan kernel (15 of the 52), the pairs of
+    SPLIT_ONE_BLOCK on the split route; the 2:1 scope at the 27 2:1 pairs
+    and the frame scope at every pair, as before."""
     assert len(ENUMERATED) == 52 == len(set(ENUMERATED))
     assert len([p for p in ENUMERATED if p in NOT_HELD]) == 15
     for pair in ENUMERATED + NOT_HELD:
         held = pair not in NOT_HELD
         assert plan_takes(*pair) == held, pair
-        assert frames_route(*pair) == ('plan' if held else 'generic'), pair
+        assert frames_route(*pair) == _plan_route(pair), pair
+        assert split_takes(*pair) == (pair in SPLIT_ONE_BLOCK), pair
         assert fused_ola_frames_supported(*pair), pair
     for pair in RADIX2_PAIRS + GENERIC_ADD_PAIRS + ((25600, 1024),):
         assert fused_ola_cuda_supported(*pair, pair[0] // 2, pair[1] // 2), pair
-        assert ola_route(*pair) == ('plan+add' if pair not in NOT_HELD else 'generic+add'), pair
+        assert ola_route(*pair) == _plan_route(pair) + '+add', pair
+
+
+def test_split_route_at_one_block_by_its_shape():
+    """split_takes at one-block pairs of smooth sizes: above 8192 points
+    where the forward transform splits into C1 >= 2 parts and the inverse
+    into one (9216 = 3 x 3072, 20480 = 2 x 10240, 28672 = 7 x 4096); not
+    where C1 = 1 (10240, 12288, 15360, 16384 points), where C2 >= 2
+    (20480 -> 20480, 24576 -> 24576), where a size has no split shape
+    (19200, 12800) or at 8192 points and fewer (7168 -> 1024)."""
+    for pair in SPLIT_ONE_BLOCK:
+        (c1, m1), (c2, m2) = split_plan(*pair)
+        assert c1 >= 2 and c2 == 1 and max(pair) > 8192 and c1 * m1 == pair[0], pair
+    for pair in ((10240, 5120), (12288, 3072), (15360, 6144), (16384, 1024), (20480, 20480),
+                 (24576, 24576), (19200, 5120), (12800, 5120), (7168, 1024), (8192, 2048)):
+        assert not split_takes(*pair) and frames_route(*pair) != 'split', pair
 
 
 def test_routes_unchanged_at_the_compiled_and_split_pairs():
@@ -393,18 +430,20 @@ def test_scope_predicates_as_before():
 def test_monitor_routes_at_the_slice_designs():
     """the CPU monitor's routes (those of the card) at the designs of the
     slice's path: 'plan+add' at the example design and at 122.88 -> 40.96
-    MS/s hamming (6144 -> 2048), 'plan' at blackman 9216 -> 3072 and at
-    blackmanharris 10240 -> 5120; the 122.88 MS/s grid's 20480 -> 4096 and
-    24576 -> 4096 and blackmanharris 20480 -> 10240 keep the generic
-    frame kernel ('generic+add', 'generic')."""
+    MS/s hamming (6144 -> 2048), 'plan' at blackmanharris 10240 -> 5120;
+    blackman 9216 -> 3072, the 122.88 MS/s grid's 20480 -> 4096 and 24576
+    -> 4096 and blackmanharris 20480 -> 10240 on the split route ('split',
+    'split+add'); blackmanharris 19200 -> 5120 on the two-block plan kernel
+    ('plan_cluster')."""
     designs = {
         (61.44e6, 30.72e6, 'hamming', 2047): ((4096, 2048), 'plan+add'),
         (122.88e6, 40.96e6, 'hamming', 2047): ((6144, 2048), 'plan+add'),
-        (30.72e6, 10.24e6, 'blackman', 1023): ((9216, 3072), 'plan'),
+        (30.72e6, 10.24e6, 'blackman', 1023): ((9216, 3072), 'split'),
         (30.72e6, 15.36e6, 'blackmanharris', 1023): ((10240, 5120), 'plan'),
-        (122.88e6, 24.576e6, 'hamming', 4095): ((20480, 4096), 'generic+add'),
-        (122.88e6, 20.48e6, 'hamming', 4095): ((24576, 4096), 'generic+add'),
-        (30.72e6, 15.36e6, 'blackmanharris', 2047): ((20480, 10240), 'generic'),
+        (122.88e6, 24.576e6, 'hamming', 4095): ((20480, 4096), 'split+add'),
+        (122.88e6, 20.48e6, 'hamming', 4095): ((24576, 4096), 'split+add'),
+        (30.72e6, 15.36e6, 'blackmanharris', 2047): ((20480, 10240), 'split'),
+        (122.88e6, 32.768e6, 'blackmanharris', 1023): ((19200, 5120), 'plan_cluster'),
     }
     for (fs, fo, window, m), (pair, route) in designs.items():
         mon = it.WidebandMonitor(it.design_wideband_monitor(
@@ -461,10 +500,11 @@ def _assert_step_close(got, ref, floor_dB=-90, exact_apd=False):
 @pytest.mark.parametrize('name', ['example', 'blackman_9216'])
 def test_step_matches_jax_at_the_slice_designs(name):
     """the CPU step at the example design (4096 -> 2048, 'plan+add' on the
-    card) and at blackman 9216 -> 3072 ('plan'), against the JAX step on
-    the same capture; the step equal to reference_step."""
+    card) and at blackman 9216 -> 3072 ('split' since the split route beat
+    the plan kernel there), against the JAX step on the same capture; the
+    step equal to reference_step."""
     design, pair, route = {'example': (EXAMPLE, (4096, 2048), 'plan+add'),
-                           'blackman_9216': (BLACKMAN_9216, (9216, 3072), 'plan')}[name]
+                           'blackman_9216': (BLACKMAN_9216, (9216, 3072), 'split')}[name]
     jm, tm = _jax_pair(design)
     assert (tm.design.nfft, tm.design.nfft_out) == pair and tm.routes['ola'] == route
     x = _noise(4 * jm.min_input_multiple(), 41)

@@ -356,8 +356,8 @@ def test_route_and_scope_by_size():
         assert frames_route(*pair) == 'cluster' and not split_takes(*pair)
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg' and not split_takes(*pair)
-    for pair, route in [((1536, 768), 'plan'), ((20480, 10240), 'generic'),
-                        ((28800, 14400), 'generic'), ((16384, 4096), 'plan'),
+    for pair, route in [((1536, 768), 'plan'), ((20480, 10240), 'split'),
+                        ((28800, 14400), 'plan_cluster'), ((16384, 4096), 'plan'),
                         ((8192, 4096), 'plan')]:
         assert frames_route(*pair) == route and fused_ola_frames_supported(*pair), pair
     for pair in OUTSIDE:
@@ -376,10 +376,10 @@ def test_grid_designs_take_a_kernel(fs_out, window, min_fft):
     """each of the 72 designs of the 122.88 MS/s grid, at bw = inf and 0.66
     of the output rate, routes its OLA to a kernel on a card (the CPU
     monitor's routes are the card's), never 'plain': its frames to a
-    register, cluster or split kernel (the generic one only at the 2:1
-    pairs 20480 -> 4096 and 24576 -> 4096, whose one-block frames no
-    register instance takes and the plan kernel does not hold), never the
-    older radix-2 body. The hamming
+    register, cluster or split kernel (the split route at the 2:1 pairs
+    20480 -> 4096 and 24576 -> 4096 too, whose one-block frames it takes
+    faster than the two-block plan kernel, chip_smoke.py 28e), never the
+    generic frame kernel or the older radix-2 body. The hamming
     (2:1) designs take the 2:1 route (fused_ola: 'reg' at OLA_REG_PAIRS,
     else the frame kernel and ola_add, '<frame route>+add'), every other
     the frame kernel's wrapper with the grouped overlap-add."""
@@ -389,8 +389,7 @@ def test_grid_designs_take_a_kernel(fs_out, window, min_fft):
         pair = (d.nfft, d.nfft_out)
         frame = frames_route(*pair)
         assert fused_ola_frames_supported(*pair), pair
-        assert frame in ('reg', 'cluster', 'split') or pair in OLA_REG_PAIRS or (
-            frame == 'generic' and pair in ((20480, 4096), (24576, 4096))), (pair, frame)
+        assert frame in ('reg', 'cluster', 'split') or pair in OLA_REG_PAIRS, (pair, frame)
         strided = fused_ola_cuda_supported(*pair, mon.noverlap_in, mon.noverlap_out)
         assert strided == (window == 'hamming') == mon._strided
         if strided:
@@ -416,7 +415,7 @@ def test_cpu_tensors_take_the_plain_chain_at_the_split_sizes():
               nfft_out=nfft_out, zero_lo=0, zero_hi=None,
               bounds_in=(28672, 36864), bounds_out=(0, 8192))
     before = dict(kernels.fused_ola_frames.route_launches), kernels.fused_ola_frames.launches
-    assert set(before[0]) == {'reg', 'cluster', 'split', 'plan', 'generic'}
+    assert set(before[0]) == {'reg', 'cluster', 'split', 'plan', 'plan_cluster', 'generic'}
     got = kernels.fused_ola_frames(frames, **kw)
     torch.testing.assert_close(got, kernels.fused_ola_frames_plain(frames, **kw))
     assert (dict(kernels.fused_ola_frames.route_launches),
