@@ -683,7 +683,8 @@ CLUSTER_KERNEL = 'fused_ola_frames_cluster_kernel'
 PLAN_CLUSTER_KERNEL = 'fused_ola_frames_plan_cluster_kernel'
 # chan_stats' route counts after one launch of a register-resident kernel
 # (chan_stats_reg_kernel or chan_power_reg_kernel)
-CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'split': 0, 'generic': 0}
+CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'split_block': 0, 'split': 0,
+                  'split_older': 0, 'generic': 0}
 # kernels whose ptxas report must show no spill
 # the channelizer statistics at the other sizes of one block and above it
 MIXED_KERNEL = 'chan_stats_mixed_kernel'
@@ -740,7 +741,8 @@ CHAN_F64_LIMIT = {'channel_power': 2, 'psd_log_sum': 3, 'psd_max': 2, 'p_binned'
 STATS_CMP_CALLS = 10
 STATS_CMP_NAVG = (1, 16)
 # chan_stats' route counts before a launch
-CHAN_NO_ROUTE = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split': 0, 'generic': 0}
+CHAN_NO_ROUTE = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split_block': 0, 'split': 0,
+                 'split_older': 0, 'generic': 0}
 # each compiled pair on a few frames against the plain chain and complex128
 N_CLUSTER_FRAMES = 64
 
@@ -783,6 +785,7 @@ CORR_HOST_CALLS = 100  # corr_at_indices calls (three launches each) host_ms ave
 HOST_ROUNDS = 6  # turns of the two wrappers whose host times hist_times compares
 PROFILE_SETTLE_S = 0.05
 FRESH_TRACE_TIMEOUT_S = 300
+FRESH_TRACE_PROCESSES = 2  # fresh processes fresh_traces takes at most
 
 
 class CheckFailed(RuntimeError):
@@ -1545,9 +1548,10 @@ def trace_call(name: str) -> int:
     radix7_hamming|radix7_blackman|radix7_blackmanharris|host_step|
     ola_2to1_<route>_<nfft> (ADD_STEPS)|split_c<C>_<nfft>... (WIDE_SPLIT)|
     plan_<design> (PLAN_STEPS)|plan_frames_<nfft>_<nfft_out> (PLAN_TIMED)|
-    plan_cluster_<design> (PC_STEPS)``:
+    plan_cluster_<design> (PC_STEPS)|splitcall_<n>_<mode>_<route>|
+    splitstep_<design>_navg<navg> (split_call_trace)``:
     make the call of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a, 22b,
-    23a, 23e, 24, 26b, 26d, 27b, 27c or 28c at its shapes, on noise from ``SEED``
+    23a, 23e, 24, 25b, 26b, 26d, 27b, 27c, 28c, 29b or 29c at its shapes, on noise from ``SEED``
     (phases 19-20's on their tone + noise; the kernels' work does not
     depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us and events by kernel)
@@ -1688,6 +1692,8 @@ def trace_call(name: str) -> int:
         return 0 if counts else 1
     elif name.startswith(('tier_', 'radix7_')):
         fn, expect = tier_trace(name, dev, gen)
+    elif name.startswith(('splitcall_', 'splitstep_')):
+        fn, expect = split_call_trace(name, gen, dev)
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -2812,6 +2818,16 @@ def cluster_frame_row(name, mon, x, launched, device_us, step_ms, mem_rate, fp32
     return row
 
 
+def chan_size_input(n: int, mode: dict, gen, dev) -> tuple:
+    """phase 17a's input at ``n`` points: CHAN_SIZE_SAMPLES of noise in
+    whole frames, a random window over n, 24 channels with a trim of n / 4
+    bins; (y, chan_stats keyword arguments)."""
+    y = torch.randn((CHAN_SIZE_SAMPLES // n) * n, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    w = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen) / n
+    return y, dict(nfft_big=n, channel_count=24, window=w, skip_bins=n // 4, **mode)
+
+
 def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: float) -> dict:
     """one channelizer frame size in one mode (``mode``: emit_psd,
     emit_pbin, navg) on CHAN_SIZE_SAMPLES of noise in whole frames, 24
@@ -2832,9 +2848,7 @@ def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: fl
     )
 
     frames = CHAN_SIZE_SAMPLES // n
-    y = torch.randn(frames * n, dtype=torch.complex64, device=dev, generator=gen)
-    w = torch.randn(n, dtype=torch.complex64, device=dev, generator=gen) / n
-    kw = dict(nfft_big=n, channel_count=24, window=w, skip_bins=n // 4, **mode)
+    y, kw = chan_size_input(n, mode, gen, dev)
     route = chan_route(n, mode['emit_psd'], mode['emit_pbin'], mode['navg'])
     reset_counts()
     got = kernels.chan_stats(y, **kw)
@@ -5744,10 +5758,12 @@ SPLIT_CHAN_DESIGNS = {
 SPLIT_CHAN_NAVG = (1, 16)  # each design's steps
 SPLIT_ROW_DESIGN = 'chan36864'  # the design whose step gives the kernels-line row
 # 25a: the route's modes on CHAN_SIZE_SAMPLES, phase 17a's gates; 2^21
-# points at navg 128 bins in the separate bin kernel (128 parts, tiles of 16)
+# points at navg 128 (128 parts, tiles of 16: since phase 29 the tiles' run
+# partials, folded in the passes kernel's epilogue); 11264 on the one-block
+# kernel since phase 29
 SPLIT_SIZE_MODES = {'stats': CHAN_SIZE_MODES['stats'], 'channels': CHAN_SIZE_MODES['channels']}
 SPLIT_WIDE = (1 << 21, dict(emit_psd=True, emit_pbin=True, navg=128))
-SPLIT_CHAN_KERNELS = ('chan_split_radix_kernel', 'chan_split_passes_kernel')
+SPLIT_CHAN_KERNELS = ('chan_split_step_kernel', 'chan_split_passes_kernel')
 # 25c: channelize_power at 48 channels of 576 of 768 bins (36864 points)
 CHANNELIZE_SPLIT = (768, 48, 576)
 # 25d: APD edges above one block's table, the samples they are timed on,
@@ -5806,6 +5822,15 @@ def hist_work(n: int, n_edges: int) -> tuple:
     return 4 * n + 4 * n_edges + 8 * (n_edges + 1), n * math.ceil(math.log2(n_edges + 1))
 
 
+def split_route(n: int, mode: dict) -> str:
+    """the split route chan_stats takes at ``n`` points in ``mode`` (since
+    phase 29: 'split_block' where the one-block kernel holds it)."""
+    from iqwaveform_torch.ops.kernels.chan_stats import block_plan
+
+    return ('split_block' if block_plan(n, mode['emit_psd'], mode['emit_pbin'], mode['navg'])
+            else 'split')
+
+
 def rows46_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
     """phase 25; returns the kernels line's rows of the channelizer's split
     route, the histogram's slices and the frame route's prime step, and the
@@ -5833,7 +5858,8 @@ def rows46_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
                                                             SPLIT_WIDE[1])]
     for nb, name, mode in checks:
         r = chan_size_check(nb, mode, gen, dev, mem_rate, fp32_rate)
-        require(r['route'] == 'split', f'25a chan_stats at {nb} {name}: route {r["route"]}')
+        want = split_route(nb, mode)
+        require(r['route'] == want, f'25a chan_stats at {nb} {name}: route {r["route"]}, not {want}')
         r['split_shape'] = list(split_shape(nb))
         sizes.setdefault(str(nb), {})[name] = r
         print(f'25a chan_stats at {nb} ({name}, C x M = {r["split_shape"]}): ' + json.dumps(
@@ -5852,7 +5878,8 @@ def rows46_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
             mon = it.WidebandMonitor(it.design_wideband_monitor(
                 122.88e6, 61.44e6, **dict(FLAGSHIP, **extra, apd_navg=navg)))
             require(mon.chan_kwargs['nfft_big'] == nb, f'25b {name}: {mon.chan_kwargs["nfft_big"]}')
-            require(mon.routes == {'ola': 'reg', 'chan': 'split', 'apd': 'bucket'},
+            want = split_route(nb, dict(emit_psd=True, emit_pbin=True, navg=navg))
+            require(mon.routes == {'ola': 'reg', 'chan': want, 'apd': 'bucket'},
                     f'25b {name} navg {navg}: routes {mon.routes}')
             m = mon.min_input_multiple()
             x = torch.randn(max(1, N_STEP // m) * m, dtype=torch.complex64, device=dev,
@@ -5866,7 +5893,7 @@ def rows46_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
             routes = dict(kernels.chan_stats.route_launches)
             require(launched == {'fused_ola': 1, 'chan_stats': 1, 'hist': 1},
                     f'25b {name} navg {navg}: launches {launched}')
-            require(routes == dict(CHAN_NO_ROUTE, split=1), f'25b {name}: routes {routes}')
+            require(routes == dict(CHAN_NO_ROUTE, **{want: 1}), f'25b {name}: routes {routes}')
             check_step(out, mon.reference_step(x), f'25b {name} navg {navg} vs reference_step')
             step_ms = timed_ms(lambda: mon.step(x), reps=10)
             plain_ms = timed_ms(lambda: mon.reference_step(x), reps=5, warmup=1)
@@ -5878,7 +5905,8 @@ def rows46_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> tuple:
                   f'{step_ms:.4f} ms for {x.numel()} samples = {x.numel() / step_ms / 1e3:.1f} MS/s, '
                   f'the plain step {plain_ms:.4f} ms ({smi})')
             if name == SPLIT_ROW_DESIGN and navg == 16:
-                names, device_us = device_kernels(lambda: mon.step(x), *SPLIT_CHAN_KERNELS)
+                names, device_us = device_kernels(lambda: mon.step(x), *SPLIT_CHAN_KERNELS,
+                                                  fresh=f'splitstep_{name}_navg{navg}')
                 for k in SPLIT_CHAN_KERNELS:
                     require(any(k in nm for nm in names), f'25b: profiler shows no {k} in the step')
                 bad = library_kernels(names)
@@ -6657,25 +6685,7 @@ def plan_spills(report: str, kernel: str = 'plan_kernel') -> dict:
     (``kernel`` the end of its name: 'plan_cluster_kernel' for the
     two-block one), by instance; a spill of any inlined pass shows in its
     kernel's line."""
-    import re
-
-    lines, out = report.splitlines(), {}
-    for i, line in enumerate(lines):
-        m = re.search(r'Compiling entry function .?(_Z\S*frames_' + kernel + r'I\S*)', line)
-        if not m:
-            continue
-        e = re.search(kernel + r'I(\w+?)EEv', m.group(1))
-        props = out.setdefault(e.group(1) if e else m.group(1)[:60],
-                               {'spill_stores': 0, 'spill_loads': 0, 'registers': 0})
-        for ln in lines[i + 1:i + 4]:
-            sp = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
-            rg = re.search(r'Used (\d+) registers', ln)
-            if sp:
-                props['spill_stores'] = max(props['spill_stores'], int(sp.group(1)))
-                props['spill_loads'] = max(props['spill_loads'], int(sp.group(2)))
-            if rg:
-                props['registers'] = max(props['registers'], int(rg.group(1)))
-    return out
+    return kernel_ptxas(report, 'frames_' + kernel)
 
 
 def named_ms(device_us: dict, kernel: str) -> float:
@@ -7279,14 +7289,21 @@ def split_beside_plans(dev, smi: str) -> dict:
     return out
 
 
+def turns_many(fns: dict, turns: int = PC_TURNS) -> dict:
+    """medians of single-call CUDA-event times of each of ``fns`` in turns:
+    in order, then in reverse, ``turns`` rounds; {name: [ms a round]}."""
+    out = {k: [] for k in fns}
+    for t in range(turns):
+        for k in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+            out[k].append(timed_ms(fns[k]))
+    return out
+
+
 def turns_ms(a, b, turns: int = PC_TURNS) -> tuple:
     """medians of single-call CUDA-event times of ``a`` and ``b`` in turns
     a, b, b, a (``turns`` of each): (a's, b's)."""
-    ta, tb = [], []
-    for k in range(turns):
-        for fn, out in (((a, ta), (b, tb)) if k % 2 == 0 else ((b, tb), (a, ta))):
-            out.append(timed_ms(fn))
-    return ta, tb
+    t = turns_many({'a': a, 'b': b}, turns)
+    return t['a'], t['b']
 
 
 def plan_cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
@@ -7576,6 +7593,440 @@ def plan_cluster_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> lis
     rows.append(main)
     print(f'phase 28 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
     return rows
+
+
+# ---- phase 29: the channelizer's split route redesigned where it lost to
+# torch.fft: the one-block kernel (csrc/chan_split_block.cu, route
+# 'split_block') and the device-memory route's radix step with the binned
+# power and the cross twiddles on chip (csrc/chan_split.cu, route 'split')
+
+# the sizes traced and timed (29b): (points, mode) with the modes of 25a and
+# 2^21 points at navg 128
+SPLIT_TRACE = ((11264, 'channels'), (11264, 'stats'), (1 << 21, 'stats128'),
+               (36864, 'channels'), (36864, 'stats'), (81920, 'channels'), (81920, 'stats'),
+               (131072, 'channels'), (131072, 'stats'))
+SPLIT_MODES = dict(CHAN_SIZE_MODES, stats128=SPLIT_WIDE[1])
+SPLIT_TRACE_CALLS = 4  # calls in one trace, its device times divided by them
+SPLIT_HOST_CALLS = 200  # calls host_ms averages
+SPLIT_WALL_REPS = 20
+
+
+def split_device(device_us: dict) -> dict:
+    """a trace of SPLIT_TRACE_CALLS calls (device us by kernel) a call:
+    device_us by kernel, longest first, and device_ms (None where the trace
+    was empty)."""
+    per_call = {k: us / SPLIT_TRACE_CALLS for k, us in device_us.items()}
+    return {'device_us': dict(sorted(per_call.items(), key=lambda kv: -kv[1])),
+            'device_ms': sum(per_call.values()) / 1e3 if per_call else None}
+
+
+def split_trace(call, expect: str) -> dict:
+    """one call of a channelizer route (``call``, no arguments): the device
+    microseconds of each kernel a call (``split_device`` of a trace of
+    SPLIT_TRACE_CALLS calls, retaken until it holds ``expect``, at most
+    PROFILE_TRIES times), the call by CUDA events (median of single
+    calls), the host milliseconds a call takes to return (host_ms) and the
+    host clock around a call and a synchronize (median of
+    SPLIT_WALL_REPS)."""
+    _, device_us = device_kernels(lambda: [call() for _ in range(SPLIT_TRACE_CALLS)], expect)
+    wall = []
+    for _ in range(SPLIT_WALL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return {
+        **split_device(device_us),
+        'event_ms': timed_ms(call),
+        'host_ms': host_ms(call, SPLIT_HOST_CALLS),
+        'wall_ms': float(np.median(wall)),
+    }
+
+SPLIT_BLOCK_KERNEL = 'chan_split_block_kernel'
+SPLIT_STEP_KERNEL = 'chan_split_step_kernel'
+# the kernel a trace of each split route must hold
+SPLIT_ROUTE_KERNEL = {'split_block': SPLIT_BLOCK_KERNEL, 'split': SPLIT_STEP_KERNEL,
+                      'split_older': 'chan_split_radix_kernel'}
+
+
+def split_call_trace(name: str, gen, dev) -> tuple:
+    """``--trace splitcall_<n>_<mode>_<route>``: 29b's SPLIT_TRACE_CALLS
+    calls of chan_stats at n points in SPLIT_MODES[mode] on ``route``
+    (chan_size_input's input); ``--trace splitstep_<design>_navg<navg>``:
+    the monitor step of 25b and 29c at a design of SPLIT_CHAN_DESIGNS (its
+    input warmed up). (call, kernels its trace must hold)."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_via
+
+    if name.startswith('splitcall_'):
+        _, n, mode, route = name.split('_', 3)
+        y, kw = chan_size_input(int(n), SPLIT_MODES[mode], gen, dev)
+        return (lambda: [_chan_stats_via(y, route, **kw) for _ in range(SPLIT_TRACE_CALLS)],
+                (SPLIT_ROUTE_KERNEL[route],))
+    design, navg = name.removeprefix('splitstep_').split('_navg')
+    extra, _ = dict(SPLIT_CHAN_DESIGNS, **SPLIT_BLOCK_STEPS)[design]
+    mon = it.WidebandMonitor(it.design_wideband_monitor(
+        122.88e6, 61.44e6, **dict(FLAGSHIP, **extra, apd_navg=int(navg))))
+    m = mon.min_input_multiple()
+    x = torch.randn(max(1, N_STEP // m) * m, dtype=torch.complex64, device=dev, generator=gen)
+    mon.step(x[:m])
+    expect = ((SPLIT_BLOCK_KERNEL,) if mon.routes['chan'] == 'split_block'
+              else SPLIT_CHAN_KERNELS)
+    return (lambda: mon.step(x)), expect
+
+
+def trace_split_calls(names: str) -> int:
+    """``python3 chip_smoke.py --traces <name>,<name>,...`` (names of
+    ``split_call_trace``): each call made, warmed up and traced with
+    ``device_kernels`` in this one process; prints {name: {names,
+    device_us}} of the traces that held their kernels as the last line.
+    Exits 1 if none did."""
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    got = {}
+    for name in names.split(','):
+        fn, expect = split_call_trace(name, gen, dev)
+        fn()
+        torch.cuda.synchronize()
+        kernel_names, device_us = device_kernels(fn, *expect)
+        if kernel_names:
+            got[name] = {'names': kernel_names, 'device_us': device_us}
+        del fn
+        torch.cuda.empty_cache()
+    print(json.dumps(got))
+    return 0 if got else 1
+
+
+def fresh_traces(names: list) -> dict:
+    """the traces of ``names`` (``split_call_trace``'s) retaken, all in one
+    fresh process (``trace_split_calls``), those that did not hold their
+    kernels there once more in another: name -> (kernel names, device us
+    by short name), for the traces that held their kernels."""
+    got = {}
+    for _ in range(FRESH_TRACE_PROCESSES):
+        left = [n for n in names if n not in got]
+        if not left:
+            break
+        print(f'profiler: taking the traces of {", ".join(left)} in one fresh process')
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), '--traces',
+                               ','.join(left)], capture_output=True, text=True,
+                              timeout=FRESH_TRACE_TIMEOUT_S)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f'profiler (fresh process): {line}')
+        if proc.returncode or not lines:
+            print(f'profiler: the fresh process exited {proc.returncode}: {proc.stderr[-2000:]}')
+            continue
+        got.update({k: (v['names'], v['device_us']) for k, v in json.loads(lines[-1]).items()})
+    return got
+
+# the older route's radix step (the C M cross twiddles) and bin kernel: on
+# no default path since phase 29
+SPLIT_OLDER_KERNELS = ('chan_split_radix_kernel', 'chan_split_bin_kernel')
+# 29a: the modes the one-block kernel is held in at each size its route
+# takes (25a holds 11264 and the device-memory route's sizes), and the
+# device-memory route's sizes held here (the first above the one-block
+# limits, a prime radix step of 13, 2^21 in the channel-only mode)
+SPLIT_BLOCK_MODES = {'channels': CHAN_SIZE_MODES['channels'], 'stats': CHAN_SIZE_MODES['stats'],
+                     'stats128': SPLIT_WIDE[1]}
+SPLIT_STEP_CHECKS = ((17408, 'stats'), (18432, 'stats'), (26624, 'channels'), (26624, 'stats128'),
+                     (1 << 21, 'channels'))
+# 29c: the monitor steps of the new route and of the redesigned one
+SPLIT_BLOCK_STEPS = {'chan11264': (dict(channel_count=22, fft_size_per_channel=512), 11264),
+                     'chan36864': (dict(channel_count=48, fft_size_per_channel=768), 36864)}
+SPLIT_STEP_NAVG = (16, 128)
+# 29d: row 4's radix-2 kernel at its sizes, channel-only, against its chain
+RADIX2_TIMED = (64, 128, 256, 512)
+KERNEL_INFO.update({
+    'chan_split_block': ('iqwaveform_torch/csrc/chan_split_block.cu',
+                         'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
+    'chan_split_step': ('iqwaveform_torch/csrc/chan_split.cu',
+                        'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
+})
+
+
+def kernel_ptxas(report: str, kernel: str) -> dict:
+    """ptxas's registers and spills of each instance of ``kernel`` (by its
+    mangled template arguments, or 'kernel' where it has none)."""
+    import re
+
+    lines, out = report.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r'Compiling entry function .?(_Z\S*' + kernel + r'\S*)', line)
+        if not m:
+            continue
+        e = re.search(kernel + r'I(\w+?)EEv', m.group(1))
+        props = out.setdefault(e.group(1) if e else 'kernel',
+                               {'spill_stores': 0, 'spill_loads': 0, 'registers': 0})
+        for ln in lines[i + 1:i + 4]:
+            sp = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+            rg = re.search(r'Used (\d+) registers', ln)
+            if sp:
+                props['spill_stores'] = max(props['spill_stores'], int(sp.group(1)))
+                props['spill_loads'] = max(props['spill_loads'], int(sp.group(2)))
+            if rg:
+                props['registers'] = max(props['registers'], int(rg.group(1)))
+    return out
+
+
+def split_block_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 29; returns the kernels line's rows of the one-block kernel
+    ('chan_split_block', the 22 x 512 step's stream) and of the redesigned
+    device-memory route ('chan_split_step', 2^21 points at navg 128)."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.chan_stats import (
+        CHAN_SIZES,
+        _chan_stats_via,
+        block_plan,
+        split_shape,
+    )
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    report = _build.ptxas_report()
+    ptxas = {k: kernel_ptxas(report, k) for k in (SPLIT_BLOCK_KERNEL, SPLIT_STEP_KERNEL,
+                                                   'chan_split_passes_kernel')}
+    print('29 ptxas: ' + json.dumps(ptxas))
+
+    # ---- 29a: the one-block kernel at every size and mode its route takes
+    # (17a's gates: 1e-5 of the plain version, CHAN_F64_LIMIT of its
+    # complex128 error), and the device-memory route at the sizes beside
+    sizes = {}
+    checks = [(n, name) for n in range(1024, 65536 + 1, 1024)
+              if n not in CHAN_SIZES and split_shape(n) is not None and n != 11264
+              for name, mode in SPLIT_BLOCK_MODES.items()
+              if block_plan(n, mode['emit_psd'], mode['emit_pbin'], mode['navg'])]
+    for n, name in checks + list(SPLIT_STEP_CHECKS):
+        mode = SPLIT_MODES.get(name, SPLIT_BLOCK_MODES.get(name))
+        r = chan_size_check(n, mode, gen, dev, mem_rate, fp32_rate)
+        want = split_route(n, mode)
+        require(r['route'] == want, f'29a chan_stats at {n} {name}: route {r["route"]}, not {want}')
+        r['plan'] = (list(block_plan(n, mode['emit_psd'], mode['emit_pbin'], mode['navg']))
+                     if want == 'split_block' else list(split_shape(n)))
+        sizes.setdefault(str(n), {})[name] = r
+        print(f'29a chan_stats at {n} ({name}, {want}, plan {r["plan"]}): ' + json.dumps(
+            {k: (v if not isinstance(v, dict) else
+                 {e: f'{x:.3g}' for e, x in v.items() if 'f64' in e})
+             for k, v in r.items() if k not in ('frames', 'max_abs_err', 'bound_by', 'plan')})
+            + f' ({smi})')
+        torch.cuda.empty_cache()
+
+    # ---- 29b: the default route (one-block kernel or redesigned step), the
+    # redesigned step forced at a one-block size, the older split route and
+    # the torch.fft chain at the SPLIT_TRACE sizes: profiled device time by
+    # kernel, event / host / wall times of each, then event times in turns
+    traces = {}
+    for n, name in SPLIT_TRACE:
+        mode = SPLIT_MODES[name]
+        y, kw = chan_size_input(n, mode, gen, dev)
+        want = split_route(n, mode)
+        calls = {want: lambda y=y, kw=kw: kernels.chan_stats(y, **kw)}
+        if want == 'split_block':
+            calls['split'] = lambda y=y, kw=kw: _chan_stats_via(y, 'split', **kw)
+        calls['split_older'] = lambda y=y, kw=kw: _chan_stats_via(y, 'split_older', **kw)
+        ref = kernels.chan_stats_plain(y, **kw)
+        entry = {'route': want, 'frames': y.numel() // n}
+        for route, fn in calls.items():
+            reset_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            require(kernels.chan_stats.route_launches == dict(CHAN_NO_ROUTE, **{route: 1}),
+                    f'29b {n} {name} {route}: routes {kernels.chan_stats.route_launches}')
+            err = max(rel_rms(got[k], ref[k]) for k in ref)
+            require(err <= 1e-5, f'29b {n} {name} {route}: relative RMS {err:.3g}')
+            entry[route] = dict(split_trace(fn, SPLIT_ROUTE_KERNEL[route]), relative_rms=err)
+            del got
+        entry['chain'] = {'event_ms': timed_ms(lambda y=y, kw=kw: kernels.chan_stats_plain(y, **kw))}
+        entry['turns'] = turns_many(dict(calls, chain=lambda y=y, kw=kw: kernels.chan_stats_plain(
+            y, **kw)))
+        traces[f'{n}_{name}'] = entry
+        print(f'29b {n} {name} ({entry["frames"]} frames): ' + json.dumps(
+            {r: {k: (round(v, 4) if isinstance(v, float) else v) for k, v in e.items()
+                 if k in ('device_ms', 'event_ms', 'host_ms', 'wall_ms')}
+             for r, e in entry.items() if isinstance(e, dict) and r != 'turns'})
+            + '; device us by kernel ' + json.dumps(
+                {r: {k[:48]: round(us, 1) for k, us in e['device_us'].items()}
+                 for r, e in entry.items() if isinstance(e, dict) and 'device_us' in e})
+            + '; in turns ' + json.dumps({k: [round(t, 4) for t in v]
+                                          for k, v in entry['turns'].items()}) + f' ({smi})')
+        del y, kw, ref
+        torch.cuda.empty_cache()
+    # the default route's trace must hold its kernel: the traces that did
+    # not are retaken, all in one fresh process; a forced route's may stay
+    # empty (device_ms None)
+    retake = {f'splitcall_{key}_{e["route"]}': e for key, e in traces.items()
+              if not any(SPLIT_ROUTE_KERNEL[e['route']] in k for k in e[e['route']]['device_us'])}
+    for call, (_, device_us) in fresh_traces(list(retake)).items():
+        e = retake[call]
+        e[e['route']].update(split_device(device_us))
+        print(f'29b {call} (fresh process): device us by kernel ' + json.dumps(
+            {k[:48]: round(us, 1) for k, us in e[e['route']]['device_us'].items()}))
+    for key, e in traces.items():
+        names = set(e[e['route']]['device_us'])
+        kernel = SPLIT_ROUTE_KERNEL[e['route']]
+        require(any(kernel in k for k in names), f'29b {key}: no {kernel} in {sorted(names)}')
+        old = [k for k in names if any(o in k for o in SPLIT_OLDER_KERNELS)]
+        require(not old, f'29b {key}: the older split kernels on the default route: {old}')
+
+    # ---- 29c: the monitor at 22 x 512 (the one-block kernel) and 48 x 768
+    # (the redesigned step), navg 16 and 128, near 2^24 samples: routes,
+    # launches with the counts set to 0 just before, phase 3's gates against
+    # reference_step (the psd 26d's), the step and the plain step timed, a
+    # profile
+    steps, launches, streams, profiles = {}, {}, {}, {}
+    for name, (extra, nb) in SPLIT_BLOCK_STEPS.items():
+        for navg in SPLIT_STEP_NAVG:
+            mode = dict(emit_psd=True, emit_pbin=True, navg=navg)
+            want = split_route(nb, mode)
+            mon = it.WidebandMonitor(it.design_wideband_monitor(
+                122.88e6, 61.44e6, **dict(FLAGSHIP, **extra, apd_navg=navg)))
+            require(mon.chan_kwargs['nfft_big'] == nb and mon.routes['chan'] == want,
+                    f'29c {name} navg {navg}: {mon.chan_kwargs["nfft_big"]}, {mon.routes}')
+            m = mon.min_input_multiple()
+            x = torch.randn(max(1, N_STEP // m) * m, dtype=torch.complex64, device=dev,
+                            generator=gen)
+            mon.step(x[:m])  # warm-up: first-use setup
+            torch.cuda.synchronize()
+            reset_counts()
+            out = mon.step(x)
+            torch.cuda.synchronize()
+            launched = {k: v.launches for k, v in kset.items() if v.launches}
+            routes = dict(kernels.chan_stats.route_launches)
+            require(launched == {'fused_ola': 1, 'chan_stats': 1, 'hist': 1},
+                    f'29c {name} navg {navg}: launches {launched}')
+            require(routes == dict(CHAN_NO_ROUTE, **{want: 1}), f'29c {name}: routes {routes}')
+            launches[want] = launches.get(want, 0) + routes[want]
+            # the psd by 26d's gate: the float32 reference_step can itself sit
+            # 0.03 dB from complex128 at a bin just above -100 dB (the 48 x 768
+            # step, ROADMAP Queue 3's absolute gate), so a step that far from it
+            # is held to complex128 instead
+            ref = mon.reference_step(x)
+            check_step(out, ref, f'29c {name} navg {navg} vs reference_step', psd=False)
+            psd_err = wide_psd_check(mon, x, out, ref, f'29c {name} navg {navg}')
+            del ref
+            kernel = SPLIT_BLOCK_KERNEL if want == 'split_block' else SPLIT_STEP_KERNEL
+            key = f'{name}_navg{navg}'
+            profiles[key] = (kernel,) + device_kernels(lambda: mon.step(x), kernel)
+            step_ms = timed_ms(lambda: mon.step(x), reps=10)
+            plain_ms = timed_ms(lambda: mon.reference_step(x), reps=5, warmup=1)
+            steps[key] = {'samples': x.numel(), 'route': want, 'launches': launched,
+                          'psd_errors_db': psd_err, 'step_ms': step_ms, 'plain_step_ms': plain_ms}
+            print(f'29c {key}: launches {json.dumps(launched)}, chan_stats route {want}; within '
+                  f'phase 3\'s gates of reference_step (the psd 26d\'s); step {step_ms:.4f} ms for '
+                  f'{x.numel()} samples = {x.numel() / step_ms / 1e3:.1f} MS/s, the plain step '
+                  f'{plain_ms:.4f} ms ({smi})')
+            if navg == 16:
+                streams[want] = (kernels.fused_ola(x, **mon.ola_kwargs), dict(mon.chan_kwargs),
+                                 name)
+            del mon, x, out
+            torch.cuda.empty_cache()
+    require(launches.get('split_block', 0) >= 1 and launches.get('split', 0) >= 1,
+            f'29c: a kernel of the path launched no time: {launches}')
+    # each step's profile must hold its kernel: the traces that did not are
+    # retaken, all in one fresh process
+    retake = [f'splitstep_{key}' for key, (kernel, names, _) in profiles.items()
+              if not any(kernel in k for k in names)]
+    for call, got in fresh_traces(retake).items():
+        key = call.removeprefix('splitstep_')
+        profiles[key] = (profiles[key][0],) + got
+    for key, (kernel, names, device_us) in profiles.items():
+        require(any(kernel in k for k in names), f'29c {key}: profiler shows no {kernel}')
+        old = [k for k in names if any(o in k for o in SPLIT_OLDER_KERNELS)]
+        require(not old, f'29c {key}: the older split kernels in the step: {old}')
+        bad = library_kernels(names)
+        require(not bad, f'29c {key}: library kernels in the step: {bad}')
+        busy = sum(device_us.values()) / 1e3
+        chan_us = sum(us for k, us in device_us.items() if 'chan_split' in k or 'chan_fold' in k)
+        steps[key].update(channelizer_device_ms=chan_us / 1e3,
+                          idle_share=max(0.0, 1 - busy / steps[key]['step_ms']))
+        print(f'29c {key}: channelizer {chan_us:.1f} us of device time, idle share '
+              f'{steps[key]["idle_share"]:.3f} ({smi})')
+
+    # the kernels line's rows: the one-block kernel on the 22 x 512 step's
+    # stream (navg 16); the redesigned step at 2^21 points, navg 128
+    y, ckw, name = streams['split_block']
+    nb = ckw['nfft_big']
+    cs, ref = kernels.chan_stats(y, **ckw), kernels.chan_stats_plain(y, **ckw)
+    for k in ref:
+        require(rel_rms(cs[k], ref[k]) <= 1e-5, f'29 chan_split_block {k} on the {name} stream')
+    row = kernel_row(
+        'chan_split_block',
+        {'launches': launches['split_block'], 'max_abs_err': max(max_abs(cs[k], ref[k]) for k in ref)},
+        8 * y.numel() + 8 * nb + 4 * sum(v.numel() for v in cs.values()),
+        (y.shape[-1] // nb) * (fft_ops(nb) + 12 * nb),
+        lambda: kernels.chan_stats(y, **ckw), lambda: kernels.chan_stats_plain(y, **ckw),
+        lambda: kernels.chan_stats_plain(y, **ckw), mem_rate, fp32_rate)
+    row.update(path=f'WidebandMonitor.step, 22 x 512 channels ({nb} points), navg 16, the '
+                    'launches of 29c\'s steps at navg 16 and 128',
+               older_ms=timed_ms(lambda: _chan_stats_via(y, 'split_older', **ckw)),
+               sizes=sizes, ptxas=ptxas[SPLIT_BLOCK_KERNEL], steps=steps,
+               traces={k: v for k, v in traces.items() if v['route'] == 'split_block'})
+    rows.append(row)
+    print(f'chan_split_block at {nb}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+          f'{row["bound_by"]}, plain / torch.fft chain {row["plain_ms"]:.4f} ms, the older split '
+          f'route {row["older_ms"]:.4f} ms) ({smi})')
+    del y, cs, ref, streams
+    torch.cuda.empty_cache()
+
+    n, mode = SPLIT_WIDE
+    y, kw = chan_size_input(n, mode, gen, dev)
+    cs, ref = kernels.chan_stats(y, **kw), kernels.chan_stats_plain(y, **kw)
+    row = kernel_row(
+        'chan_split_step',
+        {'launches': launches['split'], 'max_abs_err': max(max_abs(cs[k], ref[k]) for k in ref)},
+        8 * y.numel() + 8 * n + 4 * sum(v.numel() for v in cs.values()),
+        (y.shape[-1] // n) * (fft_ops(n) + 12 * n),
+        lambda: kernels.chan_stats(y, **kw), lambda: kernels.chan_stats_plain(y, **kw),
+        lambda: kernels.chan_stats_plain(y, **kw), mem_rate, fp32_rate)
+    row.update(path=f'chan_stats at {n} points (C x M = {split_shape(n)}), navg 128, on '
+                    f'{y.numel()} samples; launches: 29c\'s 48 x 768 steps',
+               older_ms=timed_ms(lambda: _chan_stats_via(y, 'split_older', **kw)),
+               ptxas=ptxas[SPLIT_STEP_KERNEL],
+               traces={k: v for k, v in traces.items() if v['route'] == 'split'})
+    rows.append(row)
+    print(f'chan_split_step at {n} navg 128: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms '
+          f'by {row["bound_by"]}, plain / torch.fft chain {row["plain_ms"]:.4f} ms, the older '
+          f'split route {row["older_ms"]:.4f} ms) ({smi})')
+    del y, cs, ref
+    torch.cuda.empty_cache()
+
+    # ---- 29e: the one-block kernel beside the redesigned device-memory
+    # route and the chain, in turns, at every size and mode its plan takes
+    # (the measurement behind block_plan's limits)
+    beside = {}
+    for n, name in checks + [(11264, m) for m in SPLIT_BLOCK_MODES]:
+        mode = SPLIT_BLOCK_MODES[name]
+        y, kw = chan_size_input(n, mode, gen, dev)
+        t = turns_many({
+            'split_block': lambda: _chan_stats_via(y, 'split_block', **kw),
+            'split': lambda: _chan_stats_via(y, 'split', **kw),
+            'chain': lambda: kernels.chan_stats_plain(y, **kw)})
+        beside[f'{n}_{name}'] = t
+        print(f'29e {n} {name}: in turns ' + json.dumps(
+            {k: [round(x, 4) for x in v] for k, v in t.items()}) + f' ({smi})')
+        del y, kw
+        torch.cuda.empty_cache()
+    rows[0]['block_beside_split'] = beside
+
+    # ---- 29d: row 4's radix-2 kernel at 64-512 points, channel-only,
+    # against its chain (phase 17a's check)
+    radix2 = {}
+    for n in RADIX2_TIMED:
+        r = chan_size_check(n, CHAN_SIZE_MODES['channels'], gen, dev, mem_rate, fp32_rate)
+        require(r['route'] == 'generic', f'29d chan_stats at {n}: route {r["route"]}')
+        radix2[str(n)] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'frames')}
+        print(f'29d chan_stats_kernel at {n} (channel-only, {r["frames"]} frames): {r["ms"]:.4f} '
+              f'ms, its chain {r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms ({smi})')
+    rows[0]['radix2_channels'] = radix2
+    print(f'phase 29 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
+
 
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
@@ -8024,6 +8475,11 @@ def main(parent: str | None = None) -> int:
     # one-block pairs the plan kernel does not hold
     rows = merge_rows(rows, plan_cluster_phases(dev, smi, mem_rate, fp32_rate))
 
+    # ---- phase 29: the channelizer's split route redesigned: the one-block
+    # kernel at the split sizes one block holds, the device-memory route's
+    # binned power and cross twiddles on chip
+    rows = merge_rows(rows, split_block_phases(dev, smi, mem_rate, fp32_rate))
+
     print(json.dumps({'kernels': rows}))
     print(json.dumps({
         'ok': True,
@@ -8039,6 +8495,8 @@ def main(parent: str | None = None) -> int:
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--trace':
         sys.exit(trace_call(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--traces':
+        sys.exit(trace_split_calls(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == '--corr-times':
         if not torch.cuda.is_available():
             sys.exit(1)

@@ -166,51 +166,100 @@ struct StatsSmem {
 namespace {
 
 // psd_log_sum / psd_max per (row, bin) from the blocks' partials (batch,
-// n_blocks, nfft), in a fixed order: a block of 32 warps owns 32
-// consecutive partial entries j (one a lane); warp w folds blocks w, w +
-// 32, ..., and warp 0 then folds the 32 warps' results in warp order. A
-// partial row holds the bins of C blocks of a cluster, block r's M = nfft
-// / C bins C k + r at r M + k (C = 1: natural order): entry j is written
-// to bin C (j mod M) + j / M.
+// n_blocks, nfft), in a fixed order: a group of W warps (W the least power
+// of two >= n_blocks, at most 32) owns 32 partial entries (one a lane);
+// warp w of the group folds blocks w, w + W, ..., and the group's first
+// warp then folds its W warps' results in warp order. At every W that is
+// the order of W = 32 (warps past the last block hold 0 and -inf, which
+// the fold's last steps add exactly), so the result does not depend on W;
+// a small W spares the 32 warps a bin that one block's partials would keep
+// mostly idle.
+//
+// A partial row holds the bins of C parts, part r's M = nfft / C bins C k +
+// r at entry j = r M + k (C = 1: natural order). A block of 32 warps owns
+// a tile of its 32 / W groups' entries: TK = 2^lg_tk consecutive k of each
+// of 32 (32 / W) / TK consecutive parts r, so that its lanes read TK
+// consecutive entries of a part and its bins C k + r, run through a
+// transpose in shared memory, are written in runs of the tile's parts
+// (the whole tile's C TK bins at once where it holds every part; at W = 32
+// and C above 4, one part's 32 entries, as the fold's first form).
 constexpr int kFoldWarps = 32;
 
 __global__ void __launch_bounds__(kFoldWarps * 32)
 chan_fold_kernel(const float* __restrict__ part_log, const float* __restrict__ part_max,
                  float* __restrict__ log_sum, float* __restrict__ max_out, int n_blocks,
-                 int nfft, int c) {
+                 int nfft, int c, int lg_w, int lg_tk) {
   __shared__ float ws[kFoldWarps][32], wx[kFoldWarps][32];
+  __shared__ float ts[kFoldWarps * 32], tx[kFoldWarps * 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * 32 + lane;  // nfft is a multiple of 32
+  const int group = warp >> lg_w;
+  const int wl = warp - (group << lg_w);
+  const int lg_rows = 10 - lg_w - lg_tk;  // parts a tile
+  const int per = nfft / c;
+  const int row_tiles = (c + (1 << lg_rows) - 1) >> lg_rows;
+  const int kt = blockIdx.x / row_tiles;
+  const int r0 = (blockIdx.x - kt * row_tiles) << lg_rows;
+  const int q = group * 32 + lane;  // the entry's slot in the tile
+  const int r = r0 + (q >> lg_tk);
+  const int k = (kt << lg_tk) + (q & ((1 << lg_tk) - 1));
   const long long row = blockIdx.y;
   float s = 0.f;
   float m = -INFINITY;
-  for (int b = warp; b < n_blocks; b += kFoldWarps) {
-    const long long i = (row * n_blocks + b) * nfft + j;
-    s += part_log[i];
-    m = fmaxf(m, part_max[i]);
+  if (r < c) {
+    const long long j = static_cast<long long>(r) * per + k;
+    for (int b = wl; b < n_blocks; b += 1 << lg_w) {
+      const long long i = (row * n_blocks + b) * nfft + j;
+      s += part_log[i];
+      m = fmaxf(m, part_max[i]);
+    }
   }
   ws[warp][lane] = s;
   wx[warp][lane] = m;
   __syncthreads();
-  if (warp != 0) return;
-  s = 0.f;
-  m = -INFINITY;
-  for (int v = 0; v < kFoldWarps; ++v) {
-    s += ws[v][lane];
-    m = fmaxf(m, wx[v][lane]);
+  if (wl == 0) {
+    s = 0.f;
+    m = -INFINITY;
+    for (int v = warp; v < warp + (1 << lg_w); ++v) {
+      s += ws[v][lane];
+      m = fmaxf(m, wx[v][lane]);
+    }
+    // the tile in bin order: k first, then r
+    const int at = ((q & ((1 << lg_tk) - 1)) << lg_rows) + (q >> lg_tk);
+    ts[at] = s;
+    tx[at] = m;
   }
-  const int per = nfft / c;
-  const int k = c * (j % per) + j / per;
-  log_sum[row * nfft + k] = s;
-  max_out[row * nfft + k] = m;
+  __syncthreads();
+  const int p = threadIdx.x;
+  if (p >= (kFoldWarps * 32) >> lg_w) return;
+  const int rp = r0 + (p & ((1 << lg_rows) - 1));
+  if (rp >= c) return;
+  const long long bin = row * nfft + static_cast<long long>(c) * ((kt << lg_tk) + (p >> lg_rows)) + rp;
+  log_sum[bin] = ts[p];
+  max_out[bin] = tx[p];
 }
 
 cudaError_t launch_fold(const float* part_log, const float* part_max, float* log_sum,
                                float* max_out, int batch, int n_blocks, int nfft, int c,
                                cudaStream_t stream) {
-  chan_fold_kernel<<<dim3(nfft / 32, batch), kFoldWarps * 32, 0, stream>>>(
-      part_log, part_max, log_sum, max_out, n_blocks, nfft, c);
+  int lg_w = 0;
+  while (lg_w < 5 && (1 << lg_w) < n_blocks) ++lg_w;
+  // TK: the tile's parts all of C where at least 8 k a part fit; else 8 k
+  // of as many parts as fit (one 32-byte sector a part), but at W = 32 (a
+  // tile of 32 entries) 32 k of one part, its bins written at a stride of C
+  const int lg_slots = 10 - lg_w;
+  int lg_tk = lg_slots;
+  if (c > 1) {
+    int lg_c = 0;
+    while ((1 << lg_c) < c) ++lg_c;
+    lg_tk = lg_slots - lg_c;
+    if (lg_tk < 3) lg_tk = lg_w == 5 ? lg_slots : 3;
+  }
+  const int per = nfft / c;
+  if (nfft % c || per % (1 << lg_tk)) return cudaErrorInvalidValue;
+  const int row_tiles = (c + (1 << (lg_slots - lg_tk)) - 1) >> (lg_slots - lg_tk);
+  chan_fold_kernel<<<dim3((per >> lg_tk) * row_tiles, batch), kFoldWarps * 32, 0, stream>>>(
+      part_log, part_max, log_sum, max_out, n_blocks, nfft, c, lg_w, lg_tk);
   return cudaGetLastError();
 }
 

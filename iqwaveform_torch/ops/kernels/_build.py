@@ -59,7 +59,8 @@ SOURCES = (
     'common.cu', 'fused_ola.cu', 'fused_ola_c64.cu', 'fused_ola_f32.cu', 'fused_ola_i16.cu',
     'fused_ola_bf16.cu',
     'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu', 'spectrogram.cu',
-    'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu', 'ola_add.cu',
+    'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu', 'chan_split_block.cu',
+    'ola_add.cu',
 )
 HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_plan.cuh', 'fft_cluster.cuh', 'chan_common.cuh',
            'ola_frames.cuh', 'split_radix.cuh')
@@ -115,6 +116,10 @@ SIGNATURES = {
     'iqt_chan_split_prepare': ([_I], _I),
     'iqt_chan_split_occupancy': ([_I, _P], _I),
     'iqt_chan_stats_split': ([_P] * 12 + [_I] * 13 + [_P], _I),
+    'iqt_chan_stats_split_step': ([_P] * 13 + [_I] * 14 + [_P], _I),
+    'iqt_chan_split_block_prepare': ([_I], _I),
+    'iqt_chan_split_block_occupancy': ([_I, _I, _I, _P], _I),
+    'iqt_chan_stats_split_block': ([_P] * 10 + [_I] * 16 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I, _L] + [_I] * 3 + [_P], _I),
     'iqt_hist_bucket': ([_P] * 3 + [_I, _L] + [_I] * 4 + [_P], _I),

@@ -30,16 +30,24 @@ picks, before the launch:
   3^b 5^c up to 65536 with b, c <= 1), and 15360 in its statistics modes,
   each on a thread-block cluster of C blocks, ``chan_stats_cluster_kernel``
   (``csrc/chan_cluster.cu``);
-* ``'split'``: every other multiple of 1024 (36864 = 48 x 768, 11264 = 22 x
-  512, 81920, 131072, ...), a frame of N = C M points split into C parts
-  of M through device memory (:func:`split_shape`): the radix-C step of
-  ``csrc/split_radix.cuh`` (any prime factor), the M-point passes of each
-  part with its statistics, and fixed-order folds (``csrc/chan_split.cu``);
+* ``'split_block'``: every other multiple of 1024 whose frame of N = C M
+  points (:func:`split_shape`) one block holds in the mode
+  (:func:`block_plan`: 7168-25600 points without the PSD outputs,
+  7168-14336 with them; 11264 = 22 x 512 among them), in one kernel
+  (``csrc/chan_split_block.cu``): the radix-C step of
+  ``csrc/split_radix.cuh`` tile by tile into the frame in shared memory,
+  the M-point passes of each part, the statistics and the channel sums;
+* ``'split'``: the other multiples of 1024 (36864 = 48 x 768, 81920,
+  131072, 2^21, ...), the frame split into C parts of M through device
+  memory: the radix-C step with the binned power and the cross twiddles on
+  chip, the M-point passes of each part with its statistics, and
+  fixed-order folds (``csrc/chan_split.cu``);
 * ``'generic'``: the radix-2 ``chan_stats_kernel`` at the powers of two
   64-512, and at powers of two up to 16384 binned by navg above 128.
 
 All but the radix-2 kernel run on the register-resident passes of
-``csrc/fft_reg.cuh``. Any other size or navg raises
+``csrc/fft_reg.cuh``. The split route as it was before its redesign stays
+callable as a yardstick (:func:`_chan_stats_via`, 'split_older'). Any other size or navg raises
 ``NotImplementedError``: navg above 128 at a size no power of two (the JAX
 kernel takes navg dividing 128 alone) and sizes above the split route's
 limit (ROADMAP Queue 2 item 2).
@@ -105,6 +113,14 @@ RADIX2_SIZES = (64, 128, 256, 512)
 # and its largest radix step (csrc/split_radix.cuh kMaxC)
 SPLIT_PARTS = MIXED_SIZES
 SPLIT_MAX_C = 2048
+# the one-block split kernel (csrc/chan_split_block.cu IQT_CHAN_BLOCK_PARTS):
+# its part sizes, the H100 block's opt-in shared memory it is planned for,
+# its smallest and largest tiles (log2 of the columns a tile of the radix
+# step takes) and its most parts
+BLOCK_PARTS = (1024, 2048, 3072, 5120, 6144)
+BLOCK_SMEM = 232448
+BLOCK_TILE_LOG2 = (7, 9)
+BLOCK_MAX_C = 23
 
 
 def chan_stats_plain(
@@ -154,6 +170,68 @@ def split_shape(nfft_big: int):
     return None
 
 
+def _block_bytes(c: int, m: int, lt: int, sums32: bool, psd: bool, max_smem: bool) -> int:
+    """the one-block kernel's shared memory (csrc/chan_split_block.cu
+    layout): the frame's C padded buffers, the pass tables, the radix
+    step's table and its tiles of C 2^lt points (one where the step is one
+    pass, as at a prime C; two for a plan of several), then as float the
+    warps' sums of 32 samples (navg 64, 128), the running ln sums and the
+    maxima."""
+    n = c * m
+    tiles = 1 if len(_build.split_radices(c)) == 1 else 2
+    float2s = c * (m + m // 16) + _reg_pass_tables(m, False).size + c + tiles * (c << lt)
+    floats = 2 * float2s + (n // 32 if sums32 else 0) + (n if psd else 0)
+    return 4 * (floats + (n if psd and max_smem else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True, navg: int = 1):
+    """(C, M, lt, max_smem) of the one-block split kernel at ``nfft_big``
+    points in a mode, or None where its shared memory does not fit one
+    H100 block (:data:`BLOCK_SMEM` bytes) with a tile of at least 128
+    columns, or the part size is not one of :data:`BLOCK_PARTS`, or C is
+    above :data:`BLOCK_MAX_C` (the largest C of the range: the radix step's
+    prime pass holds a column of C points in registers).
+
+    The frame takes 8.5 bytes a point (C padded buffers of M), a tile 8 C
+    2^lt bytes, the running ln sums 4 a point and the maxima 4 more
+    where they stay in shared memory (else they run in device memory, as
+    chan_stats_mixed_kernel's at 16384). The tile is the widest power of
+    two up to 512 columns that fits; in the statistics modes the maxima
+    stay in shared memory where that leaves a tile of at least 128
+    columns. So the kernel takes the split sizes from 7168 to 25600 points
+    (7168, 9216, 11264, 13312, 14336, 17408, 18432, 19456, 21504, 22528,
+    23552, 25600) without the PSD outputs, and 7168-14336 with them (the
+    maxima in shared memory at 7168, 9216 and 11264, in device memory at
+    13312 and 14336); above, the frame alone outgrows the block (26624 = 13
+    x 2048 needs 226,304 bytes before its tiles), and at 17408 with the
+    PSD outputs only a tile of 64 columns fits, where the kernel ran
+    1.2-1.3x slower than the device-memory route (chip_smoke.py phase 29).
+    :func:`chan_route` takes it wherever this is not None."""
+    shape = split_shape(nfft_big)
+    if (nfft_big in CHAN_SIZES or shape is None or shape[1] not in BLOCK_PARTS
+            or shape[0] > BLOCK_MAX_C):
+        return None
+    c, m = shape
+    sums32 = emit_pbin and navg > 32
+    lo, hi = BLOCK_TILE_LOG2
+
+    def widest(max_smem):
+        for lt in range(hi, lo - 1, -1):
+            if m % (1 << lt) == 0 and _block_bytes(c, m, lt, sums32, emit_psd,
+                                                   max_smem) <= BLOCK_SMEM:
+                return lt
+        return None
+
+    in_smem = widest(True) if emit_psd else None
+    if in_smem is not None and in_smem >= 7:
+        return c, m, in_smem, True
+    lt = widest(False)
+    if lt is None:
+        return None if in_smem is None else (c, m, in_smem, True)
+    return (c, m, lt, False) if in_smem is None or lt > in_smem else (c, m, in_smem, True)
+
+
 def covers(nfft_big: int, navg: int = 1) -> bool:
     """whether the CUDA kernels take frames of ``nfft_big`` points binned
     by ``navg``: a size of :data:`CHAN_SIZES` or of the split route
@@ -173,8 +251,11 @@ def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True,
     (``chan_stats_reg_kernel``); ``'mixed'`` (``chan_stats_mixed_kernel``)
     in every other mode at :data:`MIXED_SIZES`; ``'cluster'``
     (``chan_stats_cluster_kernel``) at :data:`CLUSTER_SIZES` (15360 in its
-    statistics modes among them); ``'split'`` (``csrc/chan_split.cu``) at
-    every other size of :func:`split_shape`; ``'generic'``
+    statistics modes among them); ``'split_block'``
+    (``chan_split_block_kernel``, ``csrc/chan_split_block.cu``) at every
+    other size of :func:`split_shape` where :func:`block_plan` fits the
+    mode in one block; ``'split'`` (``csrc/chan_split.cu``) at the rest;
+    ``'generic'``
     (``chan_stats_kernel``) at the powers of two 64-512, and where the
     binned power is on at a navg outside :data:`NAVG`."""
     if nfft_big in RADIX2_SIZES or (emit_pbin and navg not in NAVG):
@@ -187,7 +268,9 @@ def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True,
         return 'mixed'
     if nfft_big in CLUSTER_SIZES:
         return 'cluster'
-    return 'split' if split_shape(nfft_big) is not None else 'generic'
+    if split_shape(nfft_big) is None:
+        return 'generic'
+    return 'split_block' if block_plan(nfft_big, emit_psd, emit_pbin, navg) else 'split'
 
 
 def _wave_grid(n_frames: int, batch: int, slots: int) -> tuple:
@@ -244,6 +327,53 @@ def split_tables(nfft_big: int) -> tuple:
     return np.concatenate(list(parts.values())), offsets
 
 
+def cross_log2(nfft_big: int) -> int:
+    """lg of the cross twiddles' factor L = 2^lg: the least with L^2 >=
+    nfft_big (csrc/split_radix.cuh cross_twiddle)."""
+    lg = 0
+    while 1 << (2 * lg) < nfft_big:
+        lg += 1
+    return lg
+
+
+@functools.lru_cache(maxsize=None)
+def factored_tables(nfft_big: int) -> tuple:
+    """the table of the one-block kernel and the redesigned split route at
+    a size of :func:`split_shape`, in float64, and the offset of each part,
+    in the order csrc/chan_split_block.cu and csrc/chan_split.cu
+    iqt_chan_stats_split_step read them ((C, M) = split_shape(nfft_big), L
+    = 2^cross_log2(nfft_big)):
+
+    * ``'passes'``: the M-point forward pass tables (as :func:`split_tables`);
+    * ``'dft'``: exp(-2 pi i j / C), j < C, the radix step's own table;
+    * ``'cross_hi'``: exp(-2 pi i j L / nfft_big), j < ceil(nfft_big / L);
+    * ``'cross_lo'``: exp(-2 pi i l / nfft_big), l < L.
+
+    The radix step's output r at offset n takes exp(-2 pi i q / nfft_big),
+    q = r n < nfft_big, as cross_hi[q // L] cross_lo[q mod L]: about
+    2 sqrt(nfft_big) entries (3072 at 2^21) in place of :func:`split_tables`'
+    C M."""
+    c, m = split_shape(nfft_big)
+    lg = cross_log2(nfft_big)
+    big = 1 << lg
+    parts = {
+        'passes': _reg_pass_tables(m, False),
+        'dft': np.exp(-2j * np.pi * np.arange(c) / c),
+        'cross_hi': np.exp(-2j * np.pi * np.arange(-(-nfft_big // big)) * big / nfft_big),
+        'cross_lo': np.exp(-2j * np.pi * np.arange(big) / nfft_big),
+    }
+    offsets = dict(zip(parts, np.cumsum([0] + [p.size for p in parts.values()])[:-1].tolist()))
+    return np.concatenate(list(parts.values())), offsets
+
+
+@functools.lru_cache(maxsize=None)
+def _factored_twiddles(nfft_big: int, device: torch.device) -> torch.Tensor:
+    """:func:`factored_tables` rounded once to complex64, on ``device``
+    (read only)."""
+    table, _ = factored_tables(nfft_big)
+    return torch.from_numpy(table.astype('complex64')).to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def _split_twiddles(nfft_big: int, device: torch.device) -> torch.Tensor:
     """:func:`split_tables` rounded once to complex64, on ``device`` (read
@@ -258,6 +388,22 @@ def _cluster_twiddles(nfft_big: int, device: torch.device) -> torch.Tensor:
     (read only)."""
     table, _ = cluster_tables(nfft_big)
     return torch.from_numpy(table.astype('complex64')).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_occupancy(m: int, c: int, nbytes: int, device: torch.device) -> int:
+    """the one-block kernel's blocks one SM holds at C = ``c`` parts of
+    ``m`` points and ``nbytes`` of shared memory (asked once per shape and
+    device); raises where it is none."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        _build.prepare('iqt_chan_split_block_prepare', device)
+        _build.check(_build.library().iqt_chan_split_block_occupancy(
+            m, c, nbytes, ctypes.addressof(out)), f'occupancy of the one-block split kernel at M = {m}')
+    if out[0] < 1:
+        raise RuntimeError(f'the card cannot hold one block of the one-block split kernel at M = '
+                           f'{m} with {nbytes} bytes of shared memory')
+    return out[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -345,6 +491,22 @@ def _chan_stats_mixed(y: torch.Tensor, **kw) -> dict:
     return _launch(y, 'mixed', **kw)
 
 
+def _chan_stats_via(y: torch.Tensor, route: str, **kw) -> dict:
+    """:func:`chan_stats` on a CUDA tensor through a split route at a size
+    of :func:`split_shape`: 'split_older' (the route before its redesign),
+    'split' (the redesigned device-memory route) or 'split_block' (where
+    :func:`block_plan` takes the mode): the routes timed beside each other
+    in chip_smoke.py, never a route of the port where another takes the
+    size."""
+    if route not in ('split', 'split_older', 'split_block'):
+        raise ValueError(f'no forced channelizer route {route!r}')
+    emit = (kw.get('emit_psd', True), kw.get('emit_pbin', True), kw.get('navg', 1))
+    if split_shape(kw['nfft_big']) is None or kw['nfft_big'] in CHAN_SIZES or (
+            route == 'split_block' and block_plan(kw['nfft_big'], *emit) is None):
+        raise ValueError(f'{route} does not take {kw["nfft_big"]} points in this mode')
+    return _launch(y, route, **kw)
+
+
 def _launch(
     y: torch.Tensor,
     route: str,
@@ -357,9 +519,9 @@ def _launch(
     emit_psd: bool = True,
     emit_pbin: bool = True,
 ) -> dict:
-    """launch ``route``'s kernel ('reg', 'mixed', 'cluster', 'split' or
-    'generic') on CUDA ``y``; counts the launch in ``chan_stats.launches`` and
-    ``chan_stats.route_launches[route]``."""
+    """launch ``route``'s kernel ('reg', 'mixed', 'cluster', 'split_block',
+    'split', 'split_older' or 'generic') on CUDA ``y``; counts the launch in
+    ``chan_stats.launches`` and ``chan_stats.route_launches[route]``."""
     log2n = _build.log2_exact(nfft_big)
     if not covers(nfft_big, navg):
         raise NotImplementedError(
@@ -397,11 +559,12 @@ def _launch(
             tw.numel(), batch, row_len, n_frames, nfft_big, channel_count, abins,
             skip_bins // 2, _build.stream_of(y),
         )
-    elif route == 'split':
-        err = _launch_split(y, out, batch=batch, row_len=row_len, n_frames=n_frames,
-                            nfft_big=nfft_big, window=window, navg=navg,
-                            channel_count=channel_count, abins=abins, skip_half=skip_bins // 2,
-                            emit_psd=emit_psd, emit_pbin=emit_pbin)
+    elif route in ('split', 'split_older', 'split_block'):
+        launch = _launch_split_block if route == 'split_block' else _launch_split
+        err = launch(y, out, batch=batch, row_len=row_len, n_frames=n_frames, nfft_big=nfft_big,
+                     window=window, navg=navg, channel_count=channel_count, abins=abins,
+                     skip_half=skip_bins // 2, emit_psd=emit_psd, emit_pbin=emit_pbin,
+                     older=route == 'split_older')
     elif route != 'generic':
         # the statistics kernels: the flagship's (route 'reg' with both
         # outputs on), the mixed-size one, the cluster one; one C signature
@@ -471,47 +634,110 @@ def _launch(
     return {key: v.reshape(*lead, *shapes[key]) for key, v in out.items()}
 
 
-def _launch_split(y, out: dict, *, batch, row_len, n_frames, nfft_big, window, navg,
-                  channel_count, abins, skip_half, emit_psd, emit_pbin) -> int:
-    """the split route's launches (csrc/chan_split.cu) on CUDA ``y``,
-    filling ``out`` (its 'channel_power' given) with the outputs of the
-    mode; returns the C entry's error code. Scratch from the caching allocator:
-    the parts (batch * frames * nfft_big complex64, the frames' size), the
-    channel partials (C floats a channel and frame) and the statistics'
-    partial rows."""
-    dev = y.device
-    c, m = split_shape(nfft_big)
-    _build.prepare('iqt_chan_split_prepare', dev)
-    slots = max(1, _occupancy('split', m, dev) * _build.sm_count(dev) // c)
-    frames_per_run, n_runs = _wave_grid(n_frames, batch, slots)
+def _stats_outputs(out: dict, part_rows: int, *, batch, n_frames, nfft_big, navg, emit_psd,
+                   emit_pbin, dev):
+    """fill ``out`` with the PSD and binned-power outputs of the mode;
+    return the statistics' partial rows (2, batch, part_rows, nfft_big), or
+    None without the PSD."""
     f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty((2, batch, n_runs, nfft_big), **f32) if emit_psd else None
     if emit_psd:
         for key in ('psd_log_sum', 'psd_max'):
             out[key] = torch.empty((batch, nfft_big), **f32)
     if emit_pbin:
         out['p_binned'] = torch.empty((batch, n_frames * nfft_big // navg), **f32)
+    return torch.empty((2, batch, part_rows, nfft_big), **f32) if emit_psd else None
+
+
+def _ptr(out: dict, key: str):
+    return out[key].data_ptr() if key in out else None
+
+
+def _tile_log2(c: int) -> int:
+    """csrc/split_radix.cuh tile_log2: the widest power of two up to 512
+    columns with C TN <= 2048."""
+    lt = 9
+    while lt > 0 and c << lt > 2048:
+        lt -= 1
+    return lt
+
+
+def _launch_split(y, out: dict, *, batch, row_len, n_frames, nfft_big, window, navg,
+                  channel_count, abins, skip_half, emit_psd, emit_pbin, older) -> int:
+    """the split route's launches (csrc/chan_split.cu) on CUDA ``y``,
+    filling ``out`` (its 'channel_power' given) with the outputs of the
+    mode; returns the C entry's error code. ``older``: the route before its
+    redesign (``chan_split_radix_kernel`` reading the C M cross twiddles,
+    ``chan_split_bin_kernel`` where navg exceeds the radix step's tile),
+    else the redesigned step (``chan_split_step_kernel``: the cross
+    twiddles from :func:`factored_tables`, the binned power at every navg
+    in its one read of y). Scratch from the caching allocator: the parts
+    (batch * frames * nfft_big complex64, the frames' size), the channel
+    partials (C floats a channel and frame), the statistics' partial rows
+    and, where the redesigned step's run partials fold into the bins, one
+    float a tile column of each part (1 / TN of the samples)."""
+    dev = y.device
+    c, m = split_shape(nfft_big)
+    _build.prepare('iqt_chan_split_prepare', dev)
+    slots = max(1, _occupancy('split', m, dev) * _build.sm_count(dev) // c)
+    frames_per_run, n_runs = _wave_grid(n_frames, batch, slots)
+    part = _stats_outputs(out, n_runs, batch=batch, n_frames=n_frames, nfft_big=nfft_big,
+                          navg=navg, emit_psd=emit_psd, emit_pbin=emit_pbin, dev=dev)
     a = torch.empty((batch, n_frames, nfft_big), dtype=torch.complex64, device=dev)
-    cpart = torch.empty((batch, n_frames, c, channel_count), **f32)
-    tw = _split_twiddles(nfft_big, dev)
+    cpart = torch.empty((batch, n_frames, c, channel_count), dtype=torch.float32, device=dev)
     plan = _build.radix_plan_arg(c)
+    stats = (part[0].data_ptr() if emit_psd else None, part[1].data_ptr() if emit_psd else None,
+             _ptr(out, 'psd_log_sum'), _ptr(out, 'psd_max'), out['channel_power'].data_ptr(),
+             _ptr(out, 'p_binned'), a.data_ptr(), cpart.data_ptr())
+    shape = (batch, row_len, n_frames, nfft_big, navg, channel_count, abins, skip_half,
+             frames_per_run, n_runs, c, m, _build.stream_of(y))
+    if older:
+        tw = _split_twiddles(nfft_big, dev)
+        return _build.library().iqt_chan_stats_split(
+            y.data_ptr(), window.data_ptr(), tw.data_ptr(), *stats, ctypes.addressof(plan),
+            tw.numel(), *shape)
+    tw = _factored_twiddles(nfft_big, dev)
+    lt = _tile_log2(c)
+    ppart = (torch.empty((batch, (n_frames * nfft_big) >> lt), dtype=torch.float32, device=dev)
+             if emit_pbin and navg > 1 << lt else None)
+    return _build.library().iqt_chan_stats_split_step(
+        y.data_ptr(), window.data_ptr(), tw.data_ptr(), *stats,
+        None if ppart is None else ppart.data_ptr(), ctypes.addressof(plan), tw.numel(),
+        cross_log2(nfft_big), *shape)
 
-    def ptr(key):
-        return out[key].data_ptr() if key in out else None
 
-    return _build.library().iqt_chan_stats_split(
+def _launch_split_block(y, out: dict, *, batch, row_len, n_frames, nfft_big, window, navg,
+                        channel_count, abins, skip_half, emit_psd, emit_pbin, older) -> int:
+    """the one-block split kernel's launch (csrc/chan_split_block.cu) on
+    CUDA ``y`` at a shape of :func:`block_plan`, then the statistics' fold,
+    filling ``out`` as :func:`_launch_split`; returns the C entry's error
+    code. Its grid: runs of frames that make one wave of the blocks the
+    card holds at once (one an SM at every shape of the range)."""
+    dev = y.device
+    c, m, lt, max_smem = block_plan(nfft_big, emit_psd, emit_pbin, navg)
+    nbytes = _block_bytes(c, m, lt, emit_pbin and navg > 32, emit_psd, max_smem)
+    slots = _block_occupancy(m, c, nbytes, dev) * _build.sm_count(dev)
+    frames_per_block, n_blocks = _wave_grid(n_frames, batch, slots)
+    part = _stats_outputs(out, n_blocks, batch=batch, n_frames=n_frames, nfft_big=nfft_big,
+                          navg=navg, emit_psd=emit_psd, emit_pbin=emit_pbin, dev=dev)
+    tw = _factored_twiddles(nfft_big, dev)
+    plan = _build.radix_plan_arg(c)
+    return _build.library().iqt_chan_stats_split_block(
         y.data_ptr(), window.data_ptr(), tw.data_ptr(),
         part[0].data_ptr() if emit_psd else None, part[1].data_ptr() if emit_psd else None,
-        ptr('psd_log_sum'), ptr('psd_max'), out['channel_power'].data_ptr(), ptr('p_binned'),
-        a.data_ptr(), cpart.data_ptr(), ctypes.addressof(plan), tw.numel(), batch, row_len,
-        n_frames, nfft_big, navg, channel_count, abins, skip_half, frames_per_run, n_runs, c, m,
-        _build.stream_of(y),
+        _ptr(out, 'psd_log_sum'), _ptr(out, 'psd_max'), out['channel_power'].data_ptr(),
+        _ptr(out, 'p_binned'), ctypes.addressof(plan), tw.numel(), cross_log2(nfft_big), batch,
+        row_len, n_frames, nfft_big, navg, channel_count, abins, skip_half, frames_per_block,
+        n_blocks, c, m, lt, int(max_smem), _build.stream_of(y),
     )
 
 
 chan_stats.launches = 0
 # launches by route: 'reg' (chan_power_reg_kernel or
 # chan_stats_reg_kernel), 'mixed' (chan_stats_mixed_kernel), 'cluster'
-# (chan_stats_cluster_kernel), 'split' (the kernels of csrc/chan_split.cu,
-# one count a call), 'generic' (chan_stats_kernel)
-chan_stats.route_launches = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split': 0, 'generic': 0}
+# (chan_stats_cluster_kernel), 'split_block' (chan_split_block_kernel),
+# 'split' (the redesigned kernels of csrc/chan_split.cu, one count a call),
+# 'split_older' (the older split route, a yardstick _chan_stats_via forces),
+# 'generic'
+# (chan_stats_kernel)
+chan_stats.route_launches = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split_block': 0, 'split': 0,
+                             'split_older': 0, 'generic': 0}

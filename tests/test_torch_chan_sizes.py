@@ -435,7 +435,8 @@ def test_cpu_tensors_take_the_plain_version_at_the_new_sizes():
     """on the CPU the wrapper runs the plain version at a mixed and a
     cluster size, and counts no launch."""
     before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
-    assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split', 'generic'}
+    assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split_block', 'split', 'split_older',
+                              'generic'}
     for n in (12288, 24576):
         y, w = _row(n, 2, 3)
         kw = dict(nfft_big=n, channel_count=48, window=torch.from_numpy(w).to(torch.complex64),

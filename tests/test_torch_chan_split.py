@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_fft_reg import fft_model, fold_model, rel, tables, warp_sum
+from test_torch_chan_split_block import radix_from_model
 from test_torch_monitor import assert_step_close
 from test_torch_ola_split import radix_model
 
@@ -50,8 +51,11 @@ from iqwaveform_torch.ops.kernels.chan_stats import (
     SPLIT_MAX_C,
     SPLIT_PARTS,
     _split_twiddles,
+    block_plan,
     chan_route,
     covers,
+    cross_log2,
+    factored_tables,
     split_shape,
     split_tables,
 )
@@ -83,9 +87,10 @@ def tile_log2(c):
 
 def test_covers_every_multiple_of_1024_up_to_2_21():
     """every multiple of 1024 up to 2^21 points, at every navg of 1-128,
-    takes a CUDA kernel: its CHAN_SIZES route where it had one, 'split'
-    elsewhere, never 'plain' (covers) nor the radix-2 kernel; the JAX
-    predicate's sizes among them at navg 1-128 are all covered."""
+    takes a CUDA kernel: its CHAN_SIZES route where it had one, a split
+    route elsewhere ('split_block' where block_plan fits the mode in one
+    block, else 'split'), never 'plain' (covers) nor the radix-2 kernel;
+    the JAX predicate's sizes among them at navg 1-128 are all covered."""
     for n in range(1024, (1 << 21) + 1, 1024):
         c, m = split_shape(n)
         assert c * m == n and m in SPLIT_PARTS and c <= SPLIT_MAX_C, n
@@ -94,7 +99,10 @@ def test_covers_every_multiple_of_1024_up_to_2_21():
         for emit in MODES.values():
             route = chan_route(n, *emit, navg=16)
             assert route != 'generic', (n, emit)
-            assert (route == 'split') == (n not in CHAN_SIZES), (n, emit, route)
+            assert (route in ('split', 'split_block')) == (n not in CHAN_SIZES), (n, emit, route)
+            if n not in CHAN_SIZES:
+                block = block_plan(n, *emit, 16) is not None
+                assert route == ('split_block' if block else 'split'), (n, emit, route)
         assert chan_stats_supported(n, 1, 0, 128)
 
 
@@ -127,12 +135,15 @@ def test_split_shapes():
 
 
 def test_routes_of_the_slice_designs_and_chan_sizes():
-    """'split' at the designs of this slice in every mode; every CHAN_SIZES
-    route as before (tests/test_torch_chan_sizes.py pins them)."""
+    """'split' at the designs of this slice in every mode but 22 x 512
+    (11264), which the one-block kernel takes in every mode
+    ('split_block'); every CHAN_SIZES route as before
+    (tests/test_torch_chan_sizes.py pins them)."""
     for n in DESIGNS:
+        want = 'split_block' if n == 11264 else 'split'
         for emit in MODES.values():
             for navg in (1, 16, 128):
-                assert chan_route(n, *emit, navg=navg) == 'split', (n, emit, navg)
+                assert chan_route(n, *emit, navg=navg) == want, (n, emit, navg)
     for n in CHAN_SIZES:
         for emit in MODES.values():
             assert chan_route(n, *emit, navg=16) in ('reg', 'mixed', 'cluster'), n
@@ -142,8 +153,8 @@ def test_routes_of_the_slice_designs_and_chan_sizes():
 
 def test_monitor_routes_at_the_slice_designs():
     """with the H100's shared memory (the CPU monitor's), the channelizer
-    of each design of this slice routes to 'split'; the flagship's routes
-    are unchanged."""
+    of each design of this slice routes to 'split' (22 x 512 to
+    'split_block'); the flagship's routes are unchanged."""
     flag = dict(bw=40e6, fs_sdr=122.88e6, channel_count=16, fft_size_per_channel=256,
                 window='hamming', apd_bins=2048, apd_navg=16, min_fft_size=8191)
     mon = it.WidebandMonitor(it.design_wideband_monitor(122.88e6, 61.44e6, **flag), device='cpu')
@@ -154,7 +165,8 @@ def test_monitor_routes_at_the_slice_designs():
                 **flag, 'channel_count': channels, 'fft_size_per_channel': per, 'apd_navg': navg})
             mon = it.WidebandMonitor(d, device='cpu')
             assert mon.chan_kwargs['nfft_big'] == n
-            assert mon.routes == {'ola': 'reg', 'chan': 'split', 'apd': 'bucket'}, (n, navg)
+            chan = 'split_block' if n == 11264 else 'split'
+            assert mon.routes == {'ola': 'reg', 'chan': chan, 'apd': 'bucket'}, (n, navg)
 
 
 @pytest.mark.parametrize('n', sorted(DESIGNS) + [1024 * 13])
@@ -199,26 +211,63 @@ def test_radix_step_with_prime_factors_matches_numpy(c):
 # ---- the float64 model of the route ----------------------------------------
 
 
-def split_model(y, w, n, channel_count, skip_half, abins, navg, per_run, emit_psd, emit_pbin):
-    """csrc/chan_split.cu on one float64 row, in the kernels' order."""
+def split_model(y, w, n, channel_count, skip_half, abins, navg, per_run, emit_psd, emit_pbin,
+                older=True):
+    """csrc/chan_split.cu on one float64 row, in the kernels' order: the
+    route before its redesign (``older``: chan_split_radix_kernel reading the
+    C x M cross twiddles, the bins in its tile or in chan_split_bin_kernel)
+    or the redesigned one (chan_split_step_kernel: radix_from_model's
+    passes, the cross twiddles from factored_tables, the tiles' run
+    partials where navg exceeds the tile, folded in order by the passes
+    kernel's epilogue)."""
     c, m = split_shape(n)
-    table, off = split_tables(n)
-    cross = table[off['cross']:off['dft']].reshape(c, m)
-    dft = table[off['dft']:]
     n_frames = y.size // n
-    tn = 1 << tile_log2(c)
+    lt = tile_log2(c)
+    tn = 1 << lt
     # (a) the radix step into the parts, the binned power
     a = np.full((n_frames, c, m), np.nan, complex)
     pbin = np.full(n_frames * n // navg, np.nan)
+    if older:
+        table, off = split_tables(n)
+        cross = table[off['cross']:off['dft']].reshape(c, m)
+        dft = table[off['dft']:]
+    else:
+        table, off = factored_tables(n)
+        dft = table[off['dft']:off['cross_hi']]
+        hi, lo = table[off['cross_hi']:off['cross_lo']], table[off['cross_lo']:]
+        lg = cross_log2(n)
+        q = np.arange(c)[:, None] * np.arange(m)[None, :]
+        cross = hi[q >> lg] * lo[q & ((1 << lg) - 1)]
     for f in range(n_frames):
         fr = y[f * n:(f + 1) * n]
-        for n0 in range(0, m, tn):
-            cols = (np.arange(c)[:, None] * m + n0 + np.arange(tn)[None, :])
-            a[f][:, n0:n0 + tn] = radix_model(fr[cols] * w[cols], dft, False) * cross[:, n0:n0 + tn]
-        # in the step's tile (navg divides TN) or in the bin kernel: each
-        # run of navg samples summed in order, over navg
-        runs = (np.abs(fr) ** 2).reshape(-1, navg)
-        pbin[f * (n // navg):(f + 1) * (n // navg)] = np.cumsum(runs, axis=1)[:, -1] / navg
+        pb = pbin[f * (n // navg):(f + 1) * (n // navg)]
+        if older:
+            for n0 in range(0, m, tn):
+                cols = (np.arange(c)[:, None] * m + n0 + np.arange(tn)[None, :])
+                a[f][:, n0:n0 + tn] = (radix_model(fr[cols] * w[cols], dft, False)
+                                       * cross[:, n0:n0 + tn])
+            # in the step's tile (navg divides TN) or in the bin kernel: each
+            # run of navg samples summed in order, over navg
+            runs = (np.abs(fr) ** 2).reshape(-1, navg)
+            pb[:] = np.cumsum(runs, axis=1)[:, -1] / navg
+            continue
+        # the DFT of every column at once: columns are independent, so the
+        # tiles change no value
+        cols = np.arange(c)[:, None] * m + np.arange(m)[None, :]
+        a[f] = radix_from_model(fr[cols] * w[cols], dft, False) * cross
+        p = np.abs(fr) ** 2
+        if navg <= tn:  # each bin in its tile
+            pb[:] = p.reshape(-1, navg).sum(-1) / navg
+            continue
+        ppart = np.full(n // tn, np.nan)
+        for n0 in range(0, m, tn):  # each tile: the sum of each part's TN samples
+            at = np.arange(c) * m + n0
+            ppart[at // tn] = p[at[:, None] + np.arange(tn)].sum(-1)
+        per = navg // tn
+        for r in range(c):  # the passes kernel's epilogue: part r's bins in order
+            src = ppart[r * m // tn:(r + 1) * m // tn]
+            for k in range(m // navg):
+                pb[r * m // navg + k] = np.cumsum(src[k * per:(k + 1) * per])[-1] / navg
     # (b) each run of frames and part
     n_runs = -(-n_frames // per_run)
     cpart = np.full((n_frames, c, channel_count), np.nan)
@@ -298,6 +347,36 @@ def test_split_model_matches_plain(n, frames, navg, channels, skip, mode, per_ru
         assert np.abs(got[key] - r).max() <= 1e-12 * np.abs(r).max(), key
 
 
+@pytest.mark.parametrize('navg', [1, 16, 128])
+@pytest.mark.parametrize('n,frames,channels,skip,mode,per_run', [
+    (1 << 21, 1, 128, 0, 'stats', 1),
+    (131072, 2, 128, 0, 'stats', 1),
+    (131072, 3, 120, 8192, 'channels', 2),
+])
+def test_step_model_matches_plain(n, frames, channels, skip, mode, per_run, navg):
+    """the modelled redesigned route (chan_split_step_kernel: the cross
+    twiddles from the factored tables, the binned power at every navg in
+    the one read of y, the run partials folded in the passes kernel's
+    epilogue) at 2^21 points (C = 128 parts of 16384 and tiles of 16
+    columns: navg 16 in the tile, 128 through the partials; one frame, the
+    card's width) and at 131072 (8 x 16384, tiles of 256), navg 1, 16 and
+    128, against the plain version in float64: every output within 1e-12
+    of its largest value and of relative RMS."""
+    y, w = _row(n, frames, n + navg)
+    emit = MODES[mode]
+    abins = (n - skip) // channels
+    got = split_model(y, w, n, channels, skip // 2, abins, navg, per_run, *emit, older=False)
+    ref = kernels.chan_stats_plain(torch.from_numpy(y), nfft_big=n, channel_count=channels,
+                                   window=torch.from_numpy(w), navg=navg, skip_bins=skip,
+                                   emit_psd=emit[0], emit_pbin=emit[1])
+    assert set(ref) == set(got)
+    for key, r in ref.items():
+        r = r.numpy()
+        assert got[key].shape == r.shape, key
+        assert np.abs(got[key] - r).max() <= 1e-12 * np.abs(r).max(), key
+        assert rel(got[key], r) <= 1e-12, key
+
+
 def test_parts_hold_each_bin_once_and_channels_each_kept_bin_once():
     """at every design of this slice, part r's bins C k + r cover every bin
     once, and the channels' runs of k over the parts cover each kept bin
@@ -325,7 +404,8 @@ def test_cpu_tensors_take_the_plain_version_at_the_split_sizes():
     """on the CPU the wrapper runs the plain version at a split size, and
     counts no launch."""
     before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
-    assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split', 'generic'}
+    assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split_block', 'split', 'split_older',
+                              'generic'}
     y, w = _row(11264, 2, 3)
     kw = dict(nfft_big=11264, channel_count=22, window=torch.from_numpy(w).to(torch.complex64),
               navg=16, skip_bins=0)

@@ -144,8 +144,9 @@ def _ola_routes(**counts):
     return {**dict.fromkeys(OLA_ROUTES, 0), **counts}
 
 
-def _chan_routes(reg=0, mixed=0, cluster=0, split=0, generic=0):
-    return {'reg': reg, 'mixed': mixed, 'cluster': cluster, 'split': split, 'generic': generic}
+def _chan_routes(reg=0, mixed=0, cluster=0, split_block=0, split=0, split_older=0, generic=0):
+    return {'reg': reg, 'mixed': mixed, 'cluster': cluster, 'split_block': split_block,
+            'split': split, 'split_older': split_older, 'generic': generic}
 
 
 def test_step_launches_each_kernel_and_matches_plain_step(monitor):
@@ -1783,23 +1784,53 @@ def test_psd_refinement_equals_the_sort_on_the_card(card, monkeypatch):
 @pytest.mark.parametrize('mode', [(True, True, 1), (True, True, 16), (True, True, 128),
                                   (True, False, 1), (False, False, 1)])
 def test_chan_split_matches_plain_and_complex128(card, nfft, channels, mode):
-    """the split route at the sizes of this slice's designs (48 x 768, 22 x
+    """the split routes at the sizes of this slice's designs (48 x 768, 22 x
     512, 80 x 1024, 128 x 1024) and at 13 x 1024 and 9216 points, in every
     mode and at navg 1, 16 and 128, on two rows of 5 frames and 77 samples
-    that join no frame: one launch of the route, each output within 1e-5 of
-    the plain version and the channel power's complex128 error at most
-    twice the plain version's (_check_chan)."""
+    that join no frame: one launch of the route ('split_block' at 11264,
+    13312 and 9216, which one block holds, 'split' above), each output
+    within 1e-5 of the plain version and the channel power's complex128
+    error at most twice the plain version's (_check_chan)."""
     emit_psd, emit_pbin, navg = mode
     kw = dict(_chan_kwargs(nfft, 60, channels=channels, navg=navg, emit=(emit_psd, emit_pbin)),
               skip_bins=0)
-    assert chan_route(nfft, emit_psd, emit_pbin, navg) == 'split'
+    route = chan_route(nfft, emit_psd, emit_pbin, navg)
+    assert route == ('split_block' if nfft in (11264, 13312, 9216) else 'split')
     y = _noise((2, 5 * nfft + 77), 61)
     _reset_routes()
     got = kernels.chan_stats(y, **kw)
     torch.cuda.synchronize()
-    assert kernels.chan_stats.route_launches == _chan_routes(split=1)
+    assert kernels.chan_stats.route_launches == _chan_routes(**{route: 1})
     ref = kernels.chan_stats_plain(y, **kw)
     _check_chan(got, ref, kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw)))
+
+
+@pytest.mark.parametrize('nfft', [7168, 9216, 11264, 13312, 14336, 17408, 18432, 19456, 21504,
+                                  22528, 23552, 25600])
+def test_chan_split_block_routes_against_each_other(card, nfft):
+    """at every size the one-block kernel takes, in each mode its plan holds
+    (navg 1, 16 and 128; the PSD modes up to 14336 points), on two rows of
+    3 frames and 5 samples that join no frame with a trim: the one-block
+    kernel, the redesigned device-memory route and the older one each
+    launched through _chan_stats_via, each within 1e-5 of the plain version
+    (_check_chan), one launch counted on its own route."""
+    from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_via, block_plan
+
+    y = _noise((2, 3 * nfft + 5), 70)
+    for emit in ((False, False), (False, True), (True, False), (True, True)):
+        for navg in (1, 16, 128):
+            if block_plan(nfft, *emit, navg) is None:
+                assert emit[0] and nfft > 14336
+                continue
+            kw = _chan_kwargs(nfft, 71, channels=16, navg=navg, emit=emit)
+            ref = kernels.chan_stats_plain(y, **kw)
+            wide = kernels.chan_stats_plain(y.to(torch.complex128), **_wide(kw))
+            for route in ('split_block', 'split', 'split_older'):
+                _reset_routes()
+                got = _chan_stats_via(y, route, **kw)
+                torch.cuda.synchronize()
+                assert kernels.chan_stats.route_launches == _chan_routes(**{route: 1})
+                _check_chan(got, ref, wide)
 
 
 def test_chan_split_with_a_trim_and_many_frames(card):
