@@ -522,6 +522,30 @@ then rows 2-3's storage tiers and radix-7 frames:
    no generic one (row ``fused_ola_frames_plan_cluster``: 19200 -> 5120's
    times, the launches of (c)'s steps, (e)'s turns).
 
+30. Rows 9-10 at every nfft 64-16384 the JAX kernels take (the frame-group
+   kernels ``spectrogram_levels_reg_kernel`` / ``spectrogram_db_reg_kernel``
+   at 64-1024, ``spectrogram_block_kernel`` at 2048-16384) and rows 4-5 at
+   64-512 points (``chan_stats_small_kernel``), none of which may spill:
+   (a) on phase 19's capture, row 9 at every size and row 10 in the levels
+   and stats modes above 1024 points (apd_navg 0, 16) and at 1024 (32-128),
+   held to the plain version and the radix-2 body (dB and min of dB within
+   the float32 FFT bound of a value, mean and max of dB by ``psd_gate``,
+   the levels by phase 4's rule, the binned power 1e-5, float64 at most
+   twice the radix-2 body's error, both input layouts and the levels and
+   stats modes bit-equal), timed beside the body, the ``torch.fft`` chain
+   and the bound, each profiled (a trace without its kernel retaken in a
+   fresh process, ``--traces spg30_<mode>_<nfft>_<navg>_<route>``), and
+   held untimed at six more sizes below 1024; (c) the channelizer at
+   64-512 points channel-only and at navg 1 and 16 (17a's gates, timed
+   beside the radix-2 kernel, profiled), four more modes held; (b)
+   ``power_spectral_density`` at fs / 256, fs / 2048 and fs / 4096 and the
+   persistence fold at nfft 2048 against the CPU (20d's ``psd_gate``),
+   their launches on the new routes and profiles with no radix-2 body;
+   then the small blackman monitor (4 x 64-point channelizer frames)
+   against ``reference_step`` (phase 3's gates, the psd 26d's), one launch
+   of the small-frame channelizer, timed and profiled (rows
+   ``spectrogram_block``, ``spectrogram_db_small``, ``chan_stats_small``).
+
 ``python3 chip_smoke.py --parent DIR`` adds phase 11's comparison with
 DIR's package; ``--step-times DIR`` times the flagship step through DIR's
 package alone (run in turns on two trees to compare them); ``--ranks N``
@@ -684,7 +708,7 @@ PLAN_CLUSTER_KERNEL = 'fused_ola_frames_plan_cluster_kernel'
 # chan_stats' route counts after one launch of a register-resident kernel
 # (chan_stats_reg_kernel or chan_power_reg_kernel)
 CHAN_REG_ROUTE = {'reg': 1, 'mixed': 0, 'cluster': 0, 'split_block': 0, 'split': 0,
-                  'split_older': 0, 'generic': 0}
+                  'split_older': 0, 'small': 0, 'generic': 0}
 # kernels whose ptxas report must show no spill
 # the channelizer statistics at the other sizes of one block and above it
 MIXED_KERNEL = 'chan_stats_mixed_kernel'
@@ -695,7 +719,8 @@ CORR_KERNELS = (CORR_KERNEL, 'corr_fold_kernel', 'corr_finish_kernel')
 NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LEVELS_REG_KERNEL,
             CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL, CORR_KERNEL,
             OLA_REG_KERNEL, 'split_radix_kernel', 'split_fwd_passes_kernel',
-            'split_inv_passes_kernel', PLAN_CLUSTER_KERNEL)
+            'split_inv_passes_kernel', PLAN_CLUSTER_KERNEL, 'spectrogram_block_kernel',
+            'chan_stats_small_kernel')
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -742,7 +767,7 @@ STATS_CMP_CALLS = 10
 STATS_CMP_NAVG = (1, 16)
 # chan_stats' route counts before a launch
 CHAN_NO_ROUTE = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split_block': 0, 'split': 0,
-                 'split_older': 0, 'generic': 0}
+                 'split_older': 0, 'small': 0, 'generic': 0}
 # each compiled pair on a few frames against the plain chain and complex128
 N_CLUSTER_FRAMES = 64
 
@@ -1165,8 +1190,8 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     torch.cuda.synchronize()
     for k in kernels.KERNELS:
         k.launches = 0
-    for k in (kernels.spectrogram_levels, kernels.colhist):
-        k.route_launches.update(reg=0, generic=0)
+    kernels.spectrogram_levels.route_launches.update(reg=0, block=0, generic=0)
+    kernels.colhist.route_launches.update(reg=0, generic=0)
     kernels.hist.route_launches.update(bucket=0, generic=0, slices=0)
     t0 = time.perf_counter()
     for i in range(N_CHUNKS):
@@ -1180,7 +1205,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     print(f'launches over {N_CHUNKS} chunks: ' + json.dumps(launched)
           + f'; levels kernels {json.dumps(routes)}; column counters {json.dumps(ch_routes)}'
           + f'; histogram kernels {json.dumps(hist_routes)}')
-    require(routes == {'reg': N_CHUNKS, 'generic': 0},
+    require(routes == {'reg': N_CHUNKS, 'block': 0, 'generic': 0},
             f'levels kernels over {N_CHUNKS} chunks {routes}, not {LEVELS_REG_KERNEL} alone')
     require(ch_routes == {'reg': N_CHUNKS, 'generic': 0},
             f'column counters over {N_CHUNKS} chunks {ch_routes}, not {COLHIST_REG_KERNEL} alone')
@@ -1278,7 +1303,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
 
     # ---- phase 6: the unfused path (2048 bins), one chunk
     d6 = P.design_persistence(**dict(PERSISTENCE, hist_bins=2048))
-    kernels.spectrogram_dB.route_launches.update(reg=0, generic=0)
+    kernels.spectrogram_dB.route_launches.update(reg=0, block=0, generic=0)
     db = kernels.spectrogram_dB(c0, w, nfft)
     db_routes = dict(kernels.spectrogram_dB.route_launches)
     db_ref = kernels.spectrogram_dB_plain(c0, w, nfft)
@@ -1292,7 +1317,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
           f'|dB diff| {err_db:.3g} on the {float(shallow.double().mean()):.6f} of values above '
           f'-100 dB and within 40 dB of their frame mean, {max_abs(db[band], db_ref[band]):.3g} on '
           f'all above -100 dB; vs the radix-2 body {err_generic:.3g} on the first')
-    require(db_routes == {'reg': 1, 'generic': 0}, f'spectrogram_dB kernels {db_routes}')
+    require(db_routes == {'reg': 1, 'block': 0, 'generic': 0}, f'spectrogram_dB kernels {db_routes}')
     require(err_db <= 1e-3, f'spectrogram_dB: {err_db:.4g} dB > 1e-3 dB')
     require(err_generic <= 1e-3, f'spectrogram_dB vs the radix-2 body: {err_generic:.4g} dB > 1e-3 dB')
     results['spectrogram_dB'] = {'max_abs_err': err_db}
@@ -1321,7 +1346,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     results['colhist_values'] = {'max_abs_err': 0.0}
     for k in kernels.KERNELS:
         k.launches = 0
-    kernels.spectrogram_dB.route_launches.update(reg=0, generic=0)
+    kernels.spectrogram_dB.route_launches.update(reg=0, block=0, generic=0)
     c6_init = P.persistence_init(d6, dev)
     c6 = P.persistence_fold(c6_init, c0, d6)
     torch.cuda.synchronize()
@@ -1329,7 +1354,7 @@ def persistence_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     db_routes = dict(kernels.spectrogram_dB.route_launches)
     require(launched['spectrogram_dB'] == 1 == launched['colhist']
             and launched['spectrogram_levels'] == 0, f'unfused fold launches {launched}')
-    require(db_routes == {'reg': 1, 'generic': 0},
+    require(db_routes == {'reg': 1, 'block': 0, 'generic': 0},
             f'unfused fold dB kernels {db_routes}, not {DB_REG_KERNEL} alone')
     results['spectrogram_dB']['launches'] = launched['spectrogram_dB']
     results['colhist_values']['launches'] = launched['colhist']
@@ -2828,7 +2853,8 @@ def chan_size_input(n: int, mode: dict, gen, dev) -> tuple:
     return y, dict(nfft_big=n, channel_count=24, window=w, skip_bins=n // 4, **mode)
 
 
-def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: float) -> dict:
+def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: float,
+                    timed: bool = True) -> dict:
     """one channelizer frame size in one mode (``mode``: emit_psd,
     emit_pbin, navg) on CHAN_SIZE_SAMPLES of noise in whole frames, 24
     channels of (3 / 4) n / 24 bins: the kernel its route launches, once,
@@ -2839,7 +2865,7 @@ def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: fl
     on that input rounded to float16; timed beside its bound, the torch.fft
     formulation (the plain version, its library call) and, at the powers
     of two, the radix-2 kernel (at 4096 also the mixed-size kernel beside
-    the flagship's)."""
+    the flagship's). ``timed`` False times nothing."""
     from iqwaveform_torch.ops import kernels
     from iqwaveform_torch.ops.kernels.chan_stats import (
         _chan_stats_generic,
@@ -2878,13 +2904,15 @@ def chan_size_check(n: int, mode: dict, gen, dev, mem_rate: float, fp32_rate: fl
     t_bytes, t_ops = nbytes / mem_rate * 1e3, frames * (fft_ops(n) + 12 * n) / fp32_rate * 1e3
     out['bound_ms'] = max(t_bytes, t_ops)
     out['bound_by'] = 'bytes' if t_bytes >= t_ops else 'operations'
+    out['max_abs_err'] = max(max_abs(got[k], ref[k]) for k in ref)
+    if not timed:
+        return out
     out['ms'] = timed_ms(lambda: kernels.chan_stats(y, **kw))
     out['plain_ms'] = timed_ms(lambda: kernels.chan_stats_plain(y, **kw))
     if n & (n - 1) == 0 and n <= 16384:
         out['generic_ms'] = timed_ms(lambda: _chan_stats_generic(y, **kw))
     if route == 'reg' and mode['emit_psd']:
         out['mixed_ms'] = timed_ms(lambda: _chan_stats_mixed(y, **kw))
-    out['max_abs_err'] = max(max_abs(got[k], ref[k]) for k in ref)
     return out
 
 
@@ -7659,6 +7687,12 @@ def split_call_trace(name: str, gen, dev) -> tuple:
     import iqwaveform_torch as it
     from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_via
 
+    if name.startswith('spg30_'):
+        return spg_trace(name, dev)
+    if name.startswith('chan30_'):
+        return chan_small_trace(name, gen, dev)
+    if name.startswith('spgpath_') or name == 'smallstep':
+        return path_trace(name, gen, dev)
     if name.startswith('splitcall_'):
         _, n, mode, route = name.split('_', 3)
         y, kw = chan_size_input(int(n), SPLIT_MODES[mode], gen, dev)
@@ -7737,8 +7771,6 @@ SPLIT_STEP_CHECKS = ((17408, 'stats'), (18432, 'stats'), (26624, 'channels'), (2
 SPLIT_BLOCK_STEPS = {'chan11264': (dict(channel_count=22, fft_size_per_channel=512), 11264),
                      'chan36864': (dict(channel_count=48, fft_size_per_channel=768), 36864)}
 SPLIT_STEP_NAVG = (16, 128)
-# 29d: row 4's radix-2 kernel at its sizes, channel-only, against its chain
-RADIX2_TIMED = (64, 128, 256, 512)
 KERNEL_INFO.update({
     'chan_split_block': ('iqwaveform_torch/csrc/chan_split_block.cu',
                          'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
@@ -8014,17 +8046,539 @@ def split_block_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
         torch.cuda.empty_cache()
     rows[0]['block_beside_split'] = beside
 
-    # ---- 29d: row 4's radix-2 kernel at 64-512 points, channel-only,
-    # against its chain (phase 17a's check)
-    radix2 = {}
-    for n in RADIX2_TIMED:
-        r = chan_size_check(n, CHAN_SIZE_MODES['channels'], gen, dev, mem_rate, fp32_rate)
-        require(r['route'] == 'generic', f'29d chan_stats at {n}: route {r["route"]}')
-        radix2[str(n)] = {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by', 'frames')}
-        print(f'29d chan_stats_kernel at {n} (channel-only, {r["frames"]} frames): {r["ms"]:.4f} '
-              f'ms, its chain {r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms ({smi})')
-    rows[0]['radix2_channels'] = radix2
     print(f'phase 29 peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
+
+
+# ---- phase 30: rows 9-10 at every nfft the JAX kernels take (the
+# frame-group kernels at 64-1024, csrc/spectrogram_group.cuh; the block
+# kernel at 2048-16384, csrc/spectrogram_block.cu) and rows 4-5 at 64-512
+# points (chan_stats_small_kernel, csrc/chan_small.cu), each beside the
+# radix-2 body it replaces there
+
+SPG_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+# 30a: row 10 timed at the sizes the radix-2 body ran (the JAX levels
+# kernel's above 1024 at apd_navg 0 and 16; 1024 at the apd_navg its
+# register kernel did not take), in the levels (1024 bins) and stats modes
+SPG_LEVELS_TIMED = tuple((n, a) for n in (2048, 4096, 8192, 16384) for a in (0, 16)) + (
+    (1024, 32), (1024, 64), (1024, 128))
+# and held to the plain version alone at the frame-group sizes below 1024
+SPG_LEVELS_HELD = ((64, 0), (64, 64), (128, 2), (256, 32), (512, 16), (512, 128))
+SPG_HIST_BINS = 1024
+SPG_TRACE_CALLS = 4  # calls in one trace, its device times divided by them
+BLOCK_KERNEL = 'spectrogram_block_kernel'
+REDUCE_KERNEL = 'spectrogram_reduce_kernel'
+# 30b: power_spectral_density's resolutions fs / n, the persistence fold's nfft
+SPG_PSD_NFFT = (256, 2048, 4096)
+SPG_FOLD_NFFT = 2048
+# 30c: rows 4-5 at 64-512 in the channel-only mode and the statistics
+# modes at navg 1 and 16 (timed), and held in the other modes
+CHAN_SMALL_KERNEL = 'chan_stats_small_kernel'
+CHAN_SMALL_MODES = {'channels': CHAN_SIZE_MODES['channels'],
+                    'stats1': dict(emit_psd=True, emit_pbin=True, navg=1),
+                    'stats': CHAN_SIZE_MODES['stats']}
+CHAN_SMALL_HELD = ((64, dict(emit_psd=True, emit_pbin=False, navg=1)),
+                   (128, dict(emit_psd=False, emit_pbin=True, navg=128)),
+                   (256, dict(emit_psd=True, emit_pbin=True, navg=64)),
+                   (512, dict(emit_psd=False, emit_pbin=True, navg=4)))
+# the monitor step whose channelizer frame is 256 points: the small
+# blackman design of ROADMAP Queue 3 (4 x 64 points)
+SMALL_MONITOR = ((2e6, 1e6), dict(bw=0.8e6, channel_count=4, fft_size_per_channel=64,
+                                  window='blackman', apd_bins=256, min_fft_size=255, fs_sdr=2e6))
+KERNEL_INFO.update({
+    'spectrogram_block': ('iqwaveform_torch/csrc/spectrogram_block.cu',
+                          'iqwaveform_tpu/ops/pallas/spectrogram_pallas.py:258'),
+    'spectrogram_db_small': ('iqwaveform_torch/csrc/spectrogram_group.cuh',
+                             'iqwaveform_tpu/ops/pallas/spectrogram_pallas.py:258'),
+    'chan_stats_small': ('iqwaveform_torch/csrc/chan_small.cu',
+                         'iqwaveform_tpu/ops/pallas/chan_stats_pallas.py:301'),
+})
+
+
+def spg_kernel(route: str, db: bool) -> str:
+    """the device kernel a spectrogram route launches"""
+    if route == 'generic':
+        return LEVELS_GENERIC_KERNEL
+    if route == 'block':
+        return BLOCK_KERNEL
+    return DB_REG_KERNEL if db else LEVELS_REG_KERNEL
+
+
+def spg_window(nfft: int, dev):
+    """BASELINE #3's design at ``nfft`` (hann, SPG_HIST_BINS bins over
+    (-150, 50) dB): (the kernels' window on the card, the histogram rule)"""
+    from iqwaveform_torch import parallel as P
+
+    design = P.design_persistence(nfft=nfft, window=PERSISTENCE['window'], hist_bins=SPG_HIST_BINS,
+                                  hist_range_dB=PERSISTENCE['hist_range_dB'])
+    return torch.from_numpy(design['kernel_window']).to(dev), design['quant']
+
+
+def spg_call(mode: str, nfft: int, navg: int, route: str, x, w, quant):
+    """one call of row 9 (mode 'dB') or row 10 (mode 'levels' or 'stats') on
+    ``route`` ('new': the port's route; 'generic': the radix-2 body)"""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.spectrogram import (
+        _spectrogram_dB_generic,
+        _spectrogram_levels_generic,
+    )
+
+    q = quant if mode == 'levels' else None
+    if mode == 'dB':
+        fn = kernels.spectrogram_dB if route == 'new' else _spectrogram_dB_generic
+        return lambda: fn(x, w, nfft)
+    fn = kernels.spectrogram_levels if route == 'new' else _spectrogram_levels_generic
+    return lambda: fn(x, w, nfft, quant=q, apd_navg=navg)
+
+
+def spg_input(mode: str, dev):
+    """phase 19's capture, complex64 (row 9, the PSD's layout) or as (2, n)
+    float32 planes (row 10, the fold's)"""
+    x = psd_capture(dev)
+    return x if mode == 'dB' else torch.stack([x.real, x.imag])
+
+
+def spg_trace(name: str, dev) -> tuple:
+    """``--traces spg30_<mode>_<nfft>_<navg>_<route>``: SPG_TRACE_CALLS calls
+    of spg_call on phase 19's capture; (call, kernels its trace must hold)"""
+    from iqwaveform_torch.ops.kernels.spectrogram import db_route, levels_route
+
+    _, mode, nfft, navg, route = name.split('_')
+    nfft, navg = int(nfft), int(navg)
+    w, quant = spg_window(nfft, dev)
+    call = spg_call(mode, nfft, navg, route, spg_input(mode, dev), w, quant)
+    real = route if route == 'generic' else (db_route(nfft) if mode == 'dB'
+                                            else levels_route(nfft, navg))
+    return (lambda: [call() for _ in range(SPG_TRACE_CALLS)]), (spg_kernel(real, mode == 'dB'),)
+
+
+def chan_small_trace(name: str, gen, dev) -> tuple:
+    """``--traces chan30_<n>_<mode>_<route>``: SPG_TRACE_CALLS calls of
+    chan_stats at n points in CHAN_SMALL_MODES[mode] on 17a's input,
+    through the port's route ('new') or the radix-2 kernel ('generic')"""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.chan_stats import _chan_stats_generic
+
+    _, n, mode, route = name.split('_')
+    y, kw = chan_size_input(int(n), CHAN_SMALL_MODES[mode], gen, dev)
+    fn = kernels.chan_stats if route == 'new' else _chan_stats_generic
+    kernel = CHAN_SMALL_KERNEL if route == 'new' else STATS_GENERIC_KERNEL
+    return (lambda: [fn(y, **kw) for _ in range(SPG_TRACE_CALLS)]), (kernel,)
+
+
+def path_trace(name: str, gen, dev) -> tuple:
+    """``--traces spgpath_psd<nfft>|spgpath_fold<nfft>|smallstep``: 30b's PSD
+    or fold call on phase 19's capture, or 30c's small monitor step (its
+    input warmed up); (call, kernels its trace must hold)"""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops.kernels.spectrogram import db_route
+
+    if name == 'smallstep':
+        rates, extra = SMALL_MONITOR
+        mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **extra))
+        m = mon.min_input_multiple()
+        xs = torch.randn(max(1, N_STEP // m) * m, dtype=torch.complex64, device=dev, generator=gen)
+        mon.step(xs[:m])
+        return (lambda: mon.step(xs)), (CHAN_SMALL_KERNEL,)
+    x = psd_capture(dev)
+    key = name.removeprefix('spgpath_')
+    if key.startswith('psd'):
+        nfft = int(key[3:])
+        kw = dict(fs=PSD_FS, window='hann', resolution=PSD_FS / nfft, statistics=PSD_STATS)
+        return (lambda: it.power_spectral_density(x, **kw)), (spg_kernel(db_route(nfft), True),)
+    nfft = int(key[4:])
+    fkw = dict(fs=PSD_FS, window='hann', nfft=nfft, chunk_frames=x.numel() // 4 // nfft,
+               hist_bins=SPG_HIST_BINS, quantiles=[0.5, 0.99])
+    return (lambda: it.streaming_persistence_spectrum(x, **fkw)), (BLOCK_KERNEL,)
+
+
+def trace_device(call, kernel: str, name: str, retake: list) -> dict:
+    """device milliseconds a call of ``call`` (a trace of SPG_TRACE_CALLS
+    calls, by kernel, ``split_device``); where the trace holds no
+    ``kernel``, ``name`` joins ``retake`` (the traces taken again in a fresh
+    process)"""
+    _, device_us = device_kernels(lambda: [call() for _ in range(SPG_TRACE_CALLS)], kernel)
+    got = split_device(device_us)
+    if not any(kernel in k for k in device_us):
+        retake.append(name)
+    return got
+
+
+def spg_bounds(mode: str, n: int, nfft: int, navg: int, mem_rate: float, fp32_rate: float) -> dict:
+    """the least time of a row 9 / 10 call on ``n`` samples (phase 4's
+    work): the frames read once (8 B a sample), dB or the levels written
+    (4 B a sample; none in the stats mode), the binned power (4 B per navg
+    samples) and the statistics (12 B a bin); 5 nfft log2 nfft + 12 nfft
+    flop a frame"""
+    frames = n // nfft
+    nbytes = 8 * n + 8 * nfft + (4 * n if mode != 'stats' else 0)
+    if mode != 'dB':
+        nbytes += 12 * nfft + (4 * n // navg if navg else 0)
+    t_bytes = nbytes / mem_rate * 1e3
+    t_ops = frames * (fft_ops(nfft) + 12 * nfft) / fp32_rate * 1e3
+    return {'bound_ms': max(t_bytes, t_ops), 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def spg_min_readings(got, ref, level: float, nfft: int, frames: int) -> dict:
+    """min of dB of a row 10 call against another's: the largest dB
+    difference (the 1024-point card test's 5e-3 dB), the largest power
+    difference over the float32 FFT bound of a value (phase 30's gate) and
+    over the bin's mean power (phase 4's min_gate, 1e-6)"""
+    p_ref = 10 ** (ref['pmin'].double() / 10)
+    share = (10 ** (got['pmin'].double() / 10) - p_ref).abs() / fft_power_bound(p_ref, level, nfft)
+    return {'min_dB': max_abs(got['pmin'], ref['pmin']), 'min_over_bound': float(share.max()),
+            'min_power_over_mean': min_gate(got['pmin'], ref['pmin'], ref['psum'] / frames)[1]}
+
+
+def spg_check(mode: str, nfft: int, navg: int, x, w, quant, label: str) -> dict:
+    """one row 9 / 10 call on its route against the plain version and the
+    radix-2 body: dB (row 9) by value_gate, phase 19's float32 FFT bound;
+    the levels equal but where dB lies on an edge (phase 4's rule: at most
+    1e-3 of them, by one bin); mean and max of dB by psd_gate, min by the
+    float32 FFT bound of a value, the binned power within 1e-5; against float64 on
+    the first N_F64_FRAMES frames, the RMS error of mean and max of dB (of
+    dB, row 9) at most twice the radix-2 body's (phase 4's, 17a's); the
+    statistics bit-equal between the levels and stats modes, and every
+    output between the two input layouts. The gates' level is the
+    spectrum's mean power a bin (dB), of the plain version's frames. The
+    radix-2 body's min of dB against the plain version is read under the
+    same bound and phase 4's min_gate, and not held
+    ('generic_vs_plain'). Returns the errors."""
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels.spectrogram import (
+        _spectrogram_dB_generic,
+        _spectrogram_levels_generic,
+        db_route,
+        levels_route,
+    )
+
+    planes = x if x.dim() == 2 else torch.stack([x.real, x.imag])
+    cplx = torch.complex(planes[0], planes[1])
+    frames = planes.shape[1] // nfft
+    route = db_route(nfft) if mode == 'dB' else levels_route(nfft, navg)
+    require(route == ('reg' if nfft <= 1024 else 'block'), f'{label}: route {route}')
+    reset_counts()
+    got = spg_call(mode, nfft, navg, 'new', x, w, quant)()
+    torch.cuda.synchronize()
+    wrapper = kernels.spectrogram_dB if mode == 'dB' else kernels.spectrogram_levels
+    routes = dict(wrapper.route_launches)
+    want = dict.fromkeys(routes, 0)
+    want[route] = 1
+    require(routes == want, f'{label}: routes {routes}')
+    other = spg_call(mode, nfft, navg, 'new', cplx if x.dim() == 2 else planes, w, quant)()
+    level = float(10 * torch.log10((10 ** (kernels.spectrogram_dB_plain(x, w, nfft).double() / 10))
+                                   .mean()))
+    out = {'route': route, 'frames': frames, 'level_dB': level}
+    head = planes[:, : min(frames, N_F64_FRAMES) * nfft]
+    w64 = w.to(torch.complex128)
+    if mode == 'dB':
+        require(torch.equal(got, other), f'{label}: the two input layouts differ')
+        ref = kernels.spectrogram_dB_plain(x, w, nfft)
+        generic = _spectrogram_dB_generic(x, w, nfft)
+        out['plain'] = value_gate(got, ref, level, nfft, f'{label} vs plain')
+        out['generic'] = value_gate(got, generic, level, nfft, f'{label} vs the radix-2 body')
+        ref64 = kernels.spectrogram_dB_plain(head.double(), w64, nfft)
+        sel = ref64 >= level - 40
+        k = head.shape[1] // nfft
+        e64 = float((got[:k].double() - ref64)[sel].pow(2).mean().sqrt())
+        g64 = float((generic[:k].double() - ref64)[sel].pow(2).mean().sqrt())
+        require(e64 <= 2 * g64, f'{label}: float64 error {e64:.4g} > 2 x the radix-2 body\'s {g64:.4g}')
+        out.update(f64_rms_dB=e64, generic_f64_rms_dB=g64)
+        out['max_abs_err'] = out['plain']['dB']
+        return out
+    q = quant if mode == 'levels' else None
+    for key in ('levels', 'psum', 'pmax', 'pmin', 'p_binned'):
+        require((got[key] is None) == (other[key] is None)
+                and (got[key] is None or torch.equal(got[key], other[key])),
+                f'{label} {key}: the two input layouts differ')
+    if mode == 'levels':
+        stats = kernels.spectrogram_levels(x, w, nfft, apd_navg=navg)
+        for key in ('psum', 'pmax', 'pmin'):
+            require(torch.equal(stats[key], got[key]), f'{label} {key}: the stats mode differs')
+    ref = kernels.spectrogram_levels_plain(x, w, nfft, quant=q, apd_navg=navg)
+    generic = _spectrogram_levels_generic(x, w, nfft, quant=q, apd_navg=navg)
+    for name, other in (('plain', ref), ('generic', generic)):
+        e = {'mean_dB': psd_gate(got['psum'] / frames, other['psum'] / frames, level,
+                                 f'{label} mean_dB vs {name}', nfft=nfft)['dB'],
+             'max_dB': psd_gate(got['pmax'], other['pmax'], level, f'{label} max_dB vs {name}',
+                                nfft=nfft)['dB']}
+        # min of dB is each bin's deepest value, one value of the frames:
+        # its power within the float32 FFT bound of a value (phase 19's;
+        # phase 4's min_gate, 1e-6 of the bin's mean, is that bound's on
+        # white noise, where no tone sets the frames' energy)
+        e.update(spg_min_readings(got, other, level, nfft, frames))
+        require(e['min_over_bound'] <= 1,
+                f'{label} min_dB vs {name}: {e["min_over_bound"]:.3g} x the float32 FFT bound')
+        if q is not None:
+            diff = (got['levels'] - other['levels']).abs()
+            e['levels_moved'] = float((diff > 0).double().mean())
+            require(int(diff.max()) <= 1 and e['levels_moved'] <= 1e-3,
+                    f'{label} levels vs {name}: {e["levels_moved"]:.3g} moved, by up to '
+                    f'{int(diff.max())}')
+        if navg:
+            e['p_binned'] = rel_rms(got['p_binned'], other['p_binned'])
+            require(e['p_binned'] <= 1e-5, f'{label} p_binned vs {name}: {e["p_binned"]:.3g}')
+        out[name] = e
+    out['generic_vs_plain'] = spg_min_readings(generic, ref, level, nfft, frames)
+    lv64, lv64_generic = levels_f64(planes, w, nfft, q)
+    for key in lv64:
+        require(lv64[key] <= 2 * lv64_generic[key],
+                f'{label} {key}: float64 error {lv64[key]:.4g} > 2 x the radix-2 body\'s '
+                f'{lv64_generic[key]:.4g}')
+    out.update(f64_rms_dB=lv64, generic_f64_rms_dB=lv64_generic)
+    out['max_abs_err'] = max(v for k, v in out['plain'].items() if k.endswith('_dB'))
+    return out
+
+
+def small_frame_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 30; returns the kernels line's rows of the block kernel
+    ('spectrogram_block': the PSD at fs / 2048), the frame-group dB kernel
+    below 1024 points ('spectrogram_db_small': the PSD at fs / 256) and the
+    small-frame channelizer ('chan_stats_small': the small blackman
+    monitor's stream)."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.chan_stats import RADIX2_SIZES, _chan_stats_generic
+
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    report = _build.ptxas_report()
+    ptxas = {k: kernel_ptxas(report, k) for k in (BLOCK_KERNEL, CHAN_SMALL_KERNEL,
+                                                   LEVELS_REG_KERNEL, DB_REG_KERNEL)}
+    print('30 ptxas: ' + json.dumps(ptxas))
+
+    # ---- 30a: rows 9-10 at every size against the plain version and the
+    # radix-2 body, timed beside them, the torch.fft chain and the bound
+    x = psd_capture(dev)
+    n = x.numel()
+    retake, table = [], {}
+    configs = ([('dB', nfft, 0, True) for nfft in SPG_SIZES]
+               + [(m, nfft, a, True) for nfft, a in SPG_LEVELS_TIMED for m in ('levels', 'stats')]
+               + [('levels', nfft, a, False) for nfft, a in SPG_LEVELS_HELD])
+    inputs = {'dB': x, 'levels': torch.stack([x.real, x.imag])}
+    inputs['stats'] = inputs['levels']
+    for mode, nfft, navg, timed in configs:
+        w, quant = spg_window(nfft, dev)
+        xin = inputs[mode]
+        key = f'{mode}_{nfft}_{navg}'
+        label = f'30a {mode} nfft {nfft} apd_navg {navg}'
+        r = spg_check(mode, nfft, navg, xin, w, quant, label)
+        if timed:
+            r.update(spg_bounds(mode, n, nfft, navg, mem_rate, fp32_rate))
+            calls = {route: spg_call(mode, nfft, navg, route, xin, w, quant)
+                     for route in ('new', 'generic')}
+            q = quant if mode == 'levels' else None
+            chain = ((lambda: kernels.spectrogram_dB_plain(xin, w, nfft)) if mode == 'dB' else
+                     (lambda: kernels.spectrogram_levels_plain(xin, w, nfft, quant=q, apd_navg=navg)))
+            r['generic_ms'] = timed_ms(calls['generic'])
+            r['chain_ms'] = timed_ms(chain)
+            r['generic_device'] = trace_device(calls['generic'], LEVELS_GENERIC_KERNEL,
+                                               f'spg30_{key}_generic', retake)
+            r['ms'] = timed_ms(calls['new'])
+            r['device'] = trace_device(calls['new'], spg_kernel(r['route'], mode == 'dB'),
+                                       f'spg30_{key}_new', retake)
+        table[key] = r
+        print(f'{label} ({r["route"]}, {r["frames"]} frames): ' + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()
+             if k in ('ms', 'generic_ms', 'chain_ms', 'bound_ms', 'bound_by')})
+            + ' device ms ' + json.dumps({k: r[k]['device_ms'] for k in ('device', 'generic_device')
+                                          if k in r})
+            + ''.join(f' {head} ' + json.dumps({k: (f'{v:.3g}' if isinstance(v, float) else v)
+                                               for k, v in r[part].items()})
+                      for head, part in (('vs plain', 'plain'), ('radix-2 vs plain', 'generic_vs_plain'))
+                      if part in r) + f' ({smi})')
+        del w
+        torch.cuda.empty_cache()
+    del inputs
+
+    # ---- 30c: rows 4-5 at 64-512 points in every mode (17a's gates),
+    # timed beside the radix-2 kernel and the chain
+    chan_table = {}
+    for size in RADIX2_SIZES:
+        for name, mode in CHAN_SMALL_MODES.items():
+            label = f'30c chan_stats at {size} ({name})'
+            r = chan_size_check(size, mode, gen, dev, mem_rate, fp32_rate)
+            require(r['route'] == 'small', f'{label}: route {r["route"]}')
+            y, kw = chan_size_input(size, mode, gen, dev)
+            r['generic_device'] = trace_device(
+                lambda: _chan_stats_generic(y, **kw), STATS_GENERIC_KERNEL, f'chan30_{size}_{name}_generic',
+                retake)
+            r['device'] = trace_device(lambda: kernels.chan_stats(y, **kw), CHAN_SMALL_KERNEL,
+                                       f'chan30_{size}_{name}_new', retake)
+            chan_table[f'{size}_{name}'] = r
+            print(f'{label}, {r["frames"]} frames: ' + json.dumps(
+                {k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()
+                 if k in ('ms', 'generic_ms', 'plain_ms', 'bound_ms', 'bound_by')})
+                + ' device ms ' + json.dumps({k: r[k]['device_ms'] for k in ('device', 'generic_device')
+                                              if k in r}) + f' ({smi})')
+            del y, kw
+    for size, mode in CHAN_SMALL_HELD:
+        r = chan_size_check(size, mode, gen, dev, mem_rate, fp32_rate, timed=False)
+        require(r['route'] == 'small', f'30c chan_stats at {size} {mode}: route {r["route"]}')
+        print(f'30c chan_stats at {size} {json.dumps(mode)}: held to the plain version and '
+              'complex128 (17a\'s gates)')
+    torch.cuda.empty_cache()
+
+    # the traces that held no kernel, taken again in one fresh process
+    for call, (_, device_us) in fresh_traces(retake).items():
+        got = split_device(device_us)
+        parts = call.split('_')
+        entry = (table['_'.join(parts[1:4])] if call.startswith('spg30_')
+                 else chan_table['_'.join(parts[1:3])])
+        entry['device' if parts[-1] == 'new' else 'generic_device'] = dict(got, fresh=True)
+        print(f'30 {call} (fresh process): device ms {got["device_ms"]}')
+
+    # ---- 30b: power_spectral_density at fs / 256, fs / 2048, fs / 4096 and
+    # the persistence fold at nfft 2048 on phase 19's capture: the new
+    # kernels launched, no radix-2 body, 20d's psd_gate against the CPU
+    paths, spg_launches = {}, {'reg': 0, 'block': 0}
+    small = x[:N_PSD_CPU]
+    for nfft in SPG_PSD_NFFT:
+        kw = dict(fs=PSD_FS, window='hann', resolution=PSD_FS / nfft, statistics=PSD_STATS)
+        psd, launched, routes = psd_launches(lambda: it.power_spectral_density(x, **kw))
+        want = 'reg' if nfft <= 1024 else 'block'
+        require(launched == {'spectrogram_dB': 1} and routes == {'spectrogram_dB': {want: 1}},
+                f'30b psd at nfft {nfft}: launches {launched} {routes}')
+        spg_launches[want] += routes.get('spectrogram_dB', {}).get(want, 0)
+        lvl = float(10 * torch.log10((small.abs() ** 2).double().mean() / nfft))
+        g = psd_gate(it.power_spectral_density(small, **kw),
+                     it.power_spectral_density(small.cpu(), device='cpu', **kw), lvl,
+                     f'30b psd at nfft {nfft} vs the CPU', nfft=nfft)
+        kernel = spg_kernel(want, True)
+        names, device_us = device_kernels(lambda: it.power_spectral_density(x, **kw), kernel)
+        paths[f'psd{nfft}'] = {'launches': launched, 'gate': g, 'names': names,
+                               'device_us': device_us, 'kernel': kernel,
+                               'ms': timed_ms(lambda: it.power_spectral_density(x, **kw), reps=10)}
+        print(f'30b psd at nfft {nfft}: launches {json.dumps(launched)}, routes '
+              f'{json.dumps(routes)}, vs the CPU {json.dumps(g)}, '
+              f'{paths[f"psd{nfft}"]["ms"]:.4f} ms a call ({smi})')
+        del psd
+    nfft = SPG_FOLD_NFFT
+    fkw = dict(fs=PSD_FS, window='hann', nfft=nfft, chunk_frames=n // 4 // nfft,
+               hist_bins=SPG_HIST_BINS, quantiles=[0.5, 0.99])
+    fold, launched, routes = psd_launches(lambda: it.streaming_persistence_spectrum(x, **fkw))
+    require(launched.get('spectrogram_levels') == 4 and routes['spectrogram_levels'] == {'block': 4}
+            and 'spectrogram_dB' not in launched,
+            f'30b fold at nfft {nfft}: launches {launched} {routes}')
+    spg_launches['block'] += routes.get('spectrogram_levels', {}).get('block', 0)
+    small_kw = dict(fkw, chunk_frames=N_PSD_CPU // 2 // nfft)
+    card = it.streaming_persistence_spectrum(small, **small_kw)
+    cpu = it.streaming_persistence_spectrum(small.cpu(), device='cpu', **small_kw)
+    lvl = float(10 * torch.log10((small.abs() ** 2).double().mean() / nfft))
+    g = {k: psd_gate(card[k], cpu[k], lvl, f'30b fold at {nfft} {k} vs the CPU', nfft=nfft)
+         for k in ('mean_dB', 'max_dB')}
+    drift = int((card['hist'].cpu().long().cumsum(1) - cpu['hist'].long().cumsum(1)).abs().max())
+    require(drift <= 2, f'30b fold at {nfft}: cumulative counts {drift} from the CPU\'s')
+    names, device_us = device_kernels(lambda: it.streaming_persistence_spectrum(x, **fkw),
+                                      BLOCK_KERNEL)
+    paths[f'fold{nfft}'] = {'launches': launched, 'gate': g, 'hist_drift': drift, 'names': names,
+                            'device_us': device_us, 'kernel': BLOCK_KERNEL}
+    print(f'30b fold at nfft {nfft}: launches {json.dumps(launched)}, routes {json.dumps(routes)}, '
+          f'vs the CPU {json.dumps(g)}, cumulative counts within {drift}')
+    del fold, card, cpu
+    # each path's profile must hold its kernel and no radix-2 body; the
+    # traces that did not hold the kernel are retaken in a fresh process
+    retake = [f'spgpath_{key}' for key, p in paths.items()
+              if not any(p['kernel'] in k for k in p['names'])]
+    for call, got in fresh_traces(retake).items():
+        key = call.removeprefix('spgpath_')
+        paths[key]['names'], paths[key]['device_us'] = got
+    for key, p in paths.items():
+        require(any(p['kernel'] in k for k in p['names']), f'30b {key}: profiler shows no {p["kernel"]}')
+        old = [k for k in p['names'] if LEVELS_GENERIC_KERNEL in k]
+        require(not old, f'30b {key}: the radix-2 body ran: {old}')
+        bad = library_kernels(p['names'])
+        require(not bad, f'30b {key}: library kernels: {bad}')
+    require(spg_launches['block'] >= 1 and spg_launches['reg'] >= 1,
+            f'30b: a kernel of the path launched no time: {spg_launches}')
+
+    # ---- 30c (the path): the monitor step whose channelizer frame is 256
+    # points, phase 3's gates against reference_step (the psd 26d's)
+    rates, extra = SMALL_MONITOR
+    mon = it.WidebandMonitor(it.design_wideband_monitor(*rates, **extra))
+    nb = mon.chan_kwargs['nfft_big']
+    require(nb in RADIX2_SIZES and mon.routes['chan'] == 'small',
+            f'30c small monitor: {nb} points, routes {mon.routes}')
+    m = mon.min_input_multiple()
+    xs = torch.randn(max(1, N_STEP // m) * m, dtype=torch.complex64, device=dev, generator=gen)
+    mon.step(xs[:m])
+    torch.cuda.synchronize()
+    reset_counts()
+    out = mon.step(xs)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in kset.items() if v.launches}
+    chan_routes = dict(kernels.chan_stats.route_launches)
+    require(launched.get('chan_stats') == 1 and chan_routes == dict(CHAN_NO_ROUTE, small=1),
+            f'30c small monitor: launches {launched}, routes {chan_routes}')
+    ref = mon.reference_step(xs)
+    check_step(out, ref, '30c small monitor vs reference_step', psd=False)
+    psd_err = wide_psd_check(mon, xs, out, ref, '30c small monitor')
+    names, device_us = device_kernels(lambda: mon.step(xs), CHAN_SMALL_KERNEL)
+    if not any(CHAN_SMALL_KERNEL in k for k in names):
+        names, device_us = fresh_traces(['smallstep']).get('smallstep', (names, device_us))
+    require(any(CHAN_SMALL_KERNEL in k for k in names), '30c small monitor: profiler shows no '
+            f'{CHAN_SMALL_KERNEL}')
+    old = [k for k in names if STATS_GENERIC_KERNEL in k]
+    require(not old, f'30c small monitor: the radix-2 kernel ran: {old}')
+    step_ms = timed_ms(lambda: mon.step(xs), reps=10)
+    step = {'samples': xs.numel(), 'launches': launched, 'psd_errors_db': psd_err,
+            'step_ms': step_ms, 'plain_step_ms': timed_ms(lambda: mon.reference_step(xs), reps=5,
+                                                            warmup=1),
+            'chan_device_ms': sum(us for k, us in device_us.items() if 'chan_' in k) / 1e3}
+    print(f'30c small monitor ({nb}-point channelizer frames): launches {json.dumps(launched)}; '
+          f'within phase 3\'s gates (the psd 26d\'s); step {step_ms:.4f} ms for {xs.numel()} '
+          f'samples, the plain step {step["plain_step_ms"]:.4f} ms ({smi})')
+    y = mon._step_ola(xs)  # the step's resampled stream
+    ckw = dict(mon.chan_kwargs)
+    del out, ref, xs
+
+    # ---- the kernels line's rows, each at its path's shapes
+    rows = []
+    for name, nfft in (('spectrogram_block', 2048), ('spectrogram_db_small', 256)):
+        w, _ = spg_window(nfft, dev)
+        got, ref = kernels.spectrogram_dB(x, w, nfft), kernels.spectrogram_dB_plain(x, w, nfft)
+        row = kernel_row(
+            name, {'launches': spg_launches['block' if nfft > 1024 else 'reg'],
+                   'max_abs_err': max_abs(got, ref)},
+            12 * n + 8 * nfft, (n // nfft) * (fft_ops(nfft) + 12 * nfft),
+            lambda: kernels.spectrogram_dB(x, w, nfft), lambda: kernels.spectrogram_dB_plain(x, w, nfft),
+            lambda: kernels.spectrogram_dB_plain(x, w, nfft), mem_rate, fp32_rate)
+        row.update(path=f'power_spectral_density at fs / {nfft} on {n} samples (its row 9 call); '
+                        'launches: 30b\'s PSD and fold calls',
+                   generic_ms=table[f'dB_{nfft}_0']['generic_ms'], ptxas=ptxas[
+                       BLOCK_KERNEL if nfft > 1024 else DB_REG_KERNEL],
+                   sizes={k: v for k, v in table.items()
+                          if (int(k.split('_')[1]) > 1024) == (nfft > 1024)},
+                   paths={k: {kk: vv for kk, vv in p.items() if kk not in ('names',)}
+                          for k, p in paths.items()})
+        rows.append(row)
+        print(f'{name}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by {row["bound_by"]}, '
+              f'plain / torch.fft chain {row["plain_ms"]:.4f} ms, the radix-2 body '
+              f'{row["generic_ms"]:.4f} ms) ({smi})')
+        del got, ref
+    cs, ref = kernels.chan_stats(y, **ckw), kernels.chan_stats_plain(y, **ckw)
+    for k in ref:
+        require(rel_rms(cs[k], ref[k]) <= 1e-5, f'30 chan_stats_small {k} on the monitor stream')
+    row = kernel_row(
+        'chan_stats_small',
+        {'launches': chan_routes['small'], 'max_abs_err': max(max_abs(cs[k], ref[k]) for k in ref)},
+        8 * y.numel() + 8 * nb + 4 * sum(v.numel() for v in cs.values()),
+        (y.shape[-1] // nb) * (fft_ops(nb) + 12 * nb),
+        lambda: kernels.chan_stats(y, **ckw), lambda: kernels.chan_stats_plain(y, **ckw),
+        lambda: kernels.chan_stats_plain(y, **ckw), mem_rate, fp32_rate)
+    row.update(path=f'WidebandMonitor.step at the small blackman design ({nb}-point frames, '
+                    f'{ckw["channel_count"]} channels), the launch of 30c\'s step',
+               generic_ms=timed_ms(lambda: _chan_stats_generic(y, **ckw)), step=step,
+               sizes=chan_table, ptxas=ptxas[CHAN_SMALL_KERNEL])
+    rows.append(row)
+    print(f'chan_stats_small at {nb}: {row["ms"]:.4f} ms (bound {row["bound_ms"]:.4f} ms by '
+          f'{row["bound_by"]}, plain / torch.fft chain {row["plain_ms"]:.4f} ms, the radix-2 '
+          f'kernel {row["generic_ms"]:.4f} ms) ({smi})')
+    print(f'phase 30: {time.perf_counter() - t_phase:.1f} s, peak device memory '
+          f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
     return rows
 
 
@@ -8479,6 +9033,11 @@ def main(parent: str | None = None) -> int:
     # kernel at the split sizes one block holds, the device-memory route's
     # binned power and cross twiddles on chip
     rows = merge_rows(rows, split_block_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 30: rows 9-10 at every nfft the JAX kernels take (the
+    # frame-group and block kernels) and rows 4-5 at 64-512 points (the
+    # small-frame channelizer), beside the radix-2 bodies they replace
+    rows = merge_rows(rows, small_frame_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

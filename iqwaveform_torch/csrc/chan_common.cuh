@@ -13,8 +13,7 @@ namespace iqt {
 namespace chan {
 
 constexpr float kEps = 1e-25f;
-// an H100 block's opt-in dynamic shared memory
-constexpr size_t kSmemOptin = 232448;
+using reg::kSmemOptin;
 
 // The detector-binned power of the sample at index i of a frame (i in the
 // lane's own warp-aligned run of 32 consecutive indices, every lane of the

@@ -33,10 +33,13 @@
 // frame stays in shared memory (32 KiB at nfft = 4096) from load to the
 // channel sums, so y is read from device memory once, plus a second read of
 // the same frame for the binned power that L1/L2 serve. This simple version
-// pays one barrier per radix-2 stage, and is the route at the powers of two
-// 64-512 alone (and at navg above 128): in the channel-only mode at
-// 1024-16384 points chan_power_reg_kernel below takes its place, in the
-// PSD + binned-power mode at 4096 points (the monitor step's)
+// pays one barrier per radix-2 stage, and is the route only where the
+// binned power takes a navg above 128 (a power of two up to the frame,
+// which the JAX kernel does not take), at the powers of two 64-16384; it
+// stays callable at every power of two as a yardstick. At 64-512 points
+// chan_stats_small_kernel (csrc/chan_small.cu) takes every other call, in
+// the channel-only mode at 1024-16384 points chan_power_reg_kernel below,
+// in the PSD + binned-power mode at 4096 points (the monitor step's)
 // chan_stats_reg_kernel, in the other modes at one block's sizes
 // chan_stats_mixed_kernel (csrc/chan_mixed.cu) and above one block
 // chan_stats_cluster_kernel (csrc/chan_cluster.cu).
@@ -210,8 +213,8 @@ cudaError_t allow_modes(int max_smem) {
 // points takes chan_stats_reg_kernel below, the other modes at these sizes
 // chan_stats_mixed_kernel (csrc/chan_mixed.cu), frames above 16384 points
 // chan_stats_cluster_kernel (csrc/chan_cluster.cu) and the powers of two
-// 64-512 chan_stats_kernel; the host route (ops/kernels/chan_stats.py
-// chan_route) picks before the launch.
+// 64-512 chan_stats_small_kernel (csrc/chan_small.cu); the host route
+// (ops/kernels/chan_stats.py chan_route) picks before the launch.
 //
 // Per frame f of row b (block f, blockIdx.y = b): pass 0 of the forward
 // plan of csrc/fft_reg.cuh (16.16.16.4 at 16384) loads y[b, f * N + i]

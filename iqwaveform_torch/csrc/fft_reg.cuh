@@ -38,7 +38,9 @@
 // them against np.fft): 16384 = 16.16.16.4, 15360 = 16.16.4.15, 12288 =
 // 16.16.16.3, 10240 = 16.16.4.10, 8192 = 16.16.16.2, 6144 = 16.16.8.3,
 // 5120 = 16.16.4.5, 4096 = 16.16.16, 3072 = 16.16.4.3, 2048 = 16.16.8 and
-// 1024 = 16.16.4. A radix that is no power of two comes last, so that NS
+// 1024 = 16.16.4; the small frames of csrc/fft_small.cuh 512 = 16.16.2,
+// 256 = 16.16, 128 = 16.8 and 64 = 16.4 (tests/test_torch_fft_small.py).
+// A radix that is no power of two comes last, so that NS
 // is one in every pass (k = b mod NS is a mask); radices 10 and 15 are the
 // prime-factor DFTs of fft.cuh.
 #pragma once
@@ -47,6 +49,9 @@
 
 namespace iqt {
 namespace reg {
+
+// an H100 block's opt-in dynamic shared memory
+constexpr size_t kSmemOptin = 232448;
 
 template <int N>
 struct Plan;
@@ -104,6 +109,26 @@ template <>
 struct Plan<1024> {
   static constexpr int stages = 3;
   __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : 4; }
+};
+template <>
+struct Plan<512> {
+  static constexpr int stages = 3;
+  __host__ __device__ static constexpr int radix(int s) { return s < 2 ? 16 : 2; }
+};
+template <>
+struct Plan<256> {
+  static constexpr int stages = 2;
+  __host__ __device__ static constexpr int radix(int) { return 16; }
+};
+template <>
+struct Plan<128> {
+  static constexpr int stages = 2;
+  __host__ __device__ static constexpr int radix(int s) { return s < 1 ? 16 : 8; }
+};
+template <>
+struct Plan<64> {
+  static constexpr int stages = 2;
+  __host__ __device__ static constexpr int radix(int s) { return s < 1 ? 16 : 4; }
 };
 
 // NS of pass s: the product of the radices before it

@@ -60,10 +60,11 @@ SOURCES = (
     'fused_ola_bf16.cu',
     'chan_stats.cu', 'chan_mixed.cu', 'chan_cluster.cu', 'hist.cu', 'spectrogram.cu',
     'colhist.cu', 'upfirdn.cu', 'corr.cu', 'ola_split.cu', 'chan_split.cu', 'chan_split_block.cu',
-    'ola_add.cu',
+    'ola_add.cu', 'spectrogram_small.cu', 'spectrogram_block.cu', 'chan_small.cu',
 )
 HEADERS = ('fft.cuh', 'fft_reg.cuh', 'fft_plan.cuh', 'fft_cluster.cuh', 'chan_common.cuh',
-           'ola_frames.cuh', 'split_radix.cuh')
+           'ola_frames.cuh', 'split_radix.cuh', 'fft_small.cuh', 'spectrogram_common.cuh',
+           'spectrogram_group.cuh')
 
 # no --use_fast_math: the kernels are held to 1e-5 relative RMS against
 # full-precision float32, with accurate logf and division
@@ -120,6 +121,9 @@ SIGNATURES = {
     'iqt_chan_split_block_prepare': ([_I], _I),
     'iqt_chan_split_block_occupancy': ([_I, _I, _I, _P], _I),
     'iqt_chan_stats_split_block': ([_P] * 10 + [_I] * 16 + [_P], _I),
+    'iqt_chan_small_prepare': ([_I], _I),
+    'iqt_chan_small_occupancy': ([_I, _I, _I, _P], _I),
+    'iqt_chan_stats_small': ([_P] * 9 + [_I] * 11 + [_P], _I),
     'iqt_hist_prepare': ([_I], _I),
     'iqt_hist': ([_P] * 3 + [_I, _L] + [_I] * 3 + [_P], _I),
     'iqt_hist_bucket': ([_P] * 3 + [_I, _L] + [_I] * 4 + [_P], _I),
@@ -127,6 +131,9 @@ SIGNATURES = {
     'iqt_spectrogram': ([_P] * 11 + [_I] * 8 + [_F] * 2 + [_P], _I),
     'iqt_spectrogram_levels_reg': ([_P] * 10 + [_I] * 9 + [_F] * 2 + [_P], _I),
     'iqt_spectrogram_db_reg': ([_P] * 5 + [_I] * 6 + [_P], _I),
+    'iqt_spectrogram_block_prepare': ([_I], _I),
+    'iqt_spectrogram_block_occupancy': ([_I, _I, _P], _I),
+    'iqt_spectrogram_block': ([_P] * 11 + [_I] * 9 + [_F] * 2 + [_P], _I),
     'iqt_colhist_prepare': ([_I], _I),
     'iqt_colhist': ([_P] * 2 + [_I] * 7 + [_F] * 2 + [_P], _I),
     'iqt_colhist_reg': ([_P] * 2 + [_I] * 6 + [_F] * 2 + [_P], _I),

@@ -42,8 +42,12 @@ picks, before the launch:
   memory: the radix-C step with the binned power and the cross twiddles on
   chip, the M-point passes of each part with its statistics, and
   fixed-order folds (``csrc/chan_split.cu``);
-* ``'generic'``: the radix-2 ``chan_stats_kernel`` at the powers of two
-  64-512, and at powers of two up to 16384 binned by navg above 128.
+* ``'small'``: the powers of two 64-512 (:data:`RADIX2_SIZES`) at navg
+  1-128, frames in groups of nfft / 16 lanes, several to a block,
+  ``chan_stats_small_kernel`` (``csrc/chan_small.cu``);
+* ``'generic'``: the radix-2 ``chan_stats_kernel`` only at powers of two
+  up to 16384 binned by navg above 128 (which the JAX kernel does not
+  take); it stays callable as a yardstick.
 
 All but the radix-2 kernel run on the register-resident passes of
 ``csrc/fft_reg.cuh``. The split route as it was before its redesign stays
@@ -104,10 +108,29 @@ CLUSTER_SIZES = {
     15360: 5, 20480: 5, 24576: 3, 30720: 5, 32768: 2, 40960: 5, 49152: 3, 61440: 5, 65536: 4,
 }
 CHAN_SIZES = frozenset(ONE_BLOCK_SIZES) | frozenset(CLUSTER_SIZES)
-# the binnings of the mixed, cluster and split kernels (the JAX kernel's:
-# navg divides 128), and the powers of two only the radix-2 kernel takes
+# the binnings of the mixed, cluster, split and small-frame kernels (the
+# JAX kernel's: navg divides 128), and the powers of two below 1024 the
+# small-frame kernel takes (csrc/chan_small.cu; a navg above 128 there
+# takes the radix-2 kernel)
 NAVG = (1, 2, 4, 8, 16, 32, 64, 128)
 RADIX2_SIZES = (64, 128, 256, 512)
+# the small-frame kernel's block (csrc/chan_small.cu, csrc/fft_small.cuh):
+# its threads, frame groups of nfft / 16 lanes
+SMALL_THREADS = 256
+
+
+def small_smem(nfft_big: int, emit_psd: bool) -> int:
+    """the dynamic shared memory of a small-frame block at ``nfft_big``
+    points (csrc/chan_small.cu SmallSmem), in bytes: the groups' padded
+    exchange buffers and the pass tables (float2); with the PSD outputs
+    the maxima of each thread's 16 slots (float) and, at 512 points, their
+    ln sums."""
+    groups = SMALL_THREADS // (nfft_big // 16)
+    float2s = groups * (nfft_big + nfft_big // 16) + _reg_pass_tables(nfft_big, False).size
+    slots = (2 if nfft_big >= 512 else 1) * 16 * SMALL_THREADS
+    return 8 * float2s + (4 * slots if emit_psd else 0)
+
+
 # the split route (csrc/chan_split.cu): its part sizes (the passes
 # instances, those of the mixed kernel: 15360 spills under the frame loop)
 # and its largest radix step (csrc/split_radix.cuh kMaxC)
@@ -255,11 +278,13 @@ def chan_route(nfft_big: int, emit_psd: bool = True, emit_pbin: bool = True,
     (``chan_split_block_kernel``, ``csrc/chan_split_block.cu``) at every
     other size of :func:`split_shape` where :func:`block_plan` fits the
     mode in one block; ``'split'`` (``csrc/chan_split.cu``) at the rest;
-    ``'generic'``
-    (``chan_stats_kernel``) at the powers of two 64-512, and where the
-    binned power is on at a navg outside :data:`NAVG`."""
-    if nfft_big in RADIX2_SIZES or (emit_pbin and navg not in NAVG):
+    ``'small'`` (``chan_stats_small_kernel``) at :data:`RADIX2_SIZES`;
+    ``'generic'`` (``chan_stats_kernel``) where the binned power is on at a
+    navg outside :data:`NAVG`."""
+    if emit_pbin and navg not in NAVG:
         return 'generic'
+    if nfft_big in RADIX2_SIZES:
+        return 'small'
     if not emit_psd and not emit_pbin and nfft_big in ONE_BLOCK_SIZES:
         return 'reg'
     if nfft_big == STATS_REG_NFFT and emit_psd and emit_pbin and navg in STATS_REG_NAVG:
@@ -283,7 +308,7 @@ def _wave_grid(n_frames: int, batch: int, slots: int) -> tuple:
 
 # the C entry of each statistics kernel (one signature)
 STATS_ENTRIES = {'reg': 'iqt_chan_stats_reg', 'mixed': 'iqt_chan_stats_mixed',
-                 'cluster': 'iqt_chan_stats_cluster'}
+                 'cluster': 'iqt_chan_stats_cluster', 'small': 'iqt_chan_stats_small'}
 
 
 def cluster_tables(nfft_big: int) -> tuple:
@@ -407,6 +432,23 @@ def _block_occupancy(m: int, c: int, nbytes: int, device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _small_occupancy(nfft_big: int, emit_psd: bool, navg: int, device: torch.device) -> int:
+    """the blocks of the small-frame kernel's instance (``navg`` 0: no
+    binned power) one SM holds (asked once per instance and device);
+    raises where it is none."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.prepare('iqt_chan_small_prepare', device)
+        _build.check(_build.library().iqt_chan_small_occupancy(
+            nfft_big, int(emit_psd), navg, ctypes.addressof(out)),
+            f'occupancy of the small-frame channelizer kernel at {nfft_big}')
+    if out.value < 1:
+        raise RuntimeError(f'the card cannot hold one small-frame channelizer block at {nfft_big} '
+                           'points')
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
 def _occupancy(route: str, nfft_big: int, device: torch.device) -> int:
     """the blocks of the mixed kernel (or of the split route's M-point
     passes kernel, ``nfft_big`` = M) one SM holds, or the clusters of the
@@ -474,10 +516,11 @@ def chan_stats(
 
 def _chan_stats_generic(y: torch.Tensor, **kw) -> dict:
     """:func:`chan_stats` on a CUDA tensor through the radix-2
-    ``chan_stats_kernel`` in any mode, at the register-resident kernels'
-    power-of-two sizes too: the yardstick of ``chan_power_reg_kernel``,
-    ``chan_stats_reg_kernel`` and ``chan_stats_mixed_kernel`` in
-    chip_smoke.py and the card tests, never a route of the port."""
+    ``chan_stats_kernel`` in any mode, at the other kernels' power-of-two
+    sizes too: the yardstick of ``chan_power_reg_kernel``,
+    ``chan_stats_reg_kernel``, ``chan_stats_mixed_kernel`` and
+    ``chan_stats_small_kernel`` in chip_smoke.py and the card tests, a
+    route of the port only at a navg above 128."""
     if _build.log2_exact(kw['nfft_big']) < 0:
         raise ValueError(f'the radix-2 kernel takes powers of two, not {kw["nfft_big"]}')
     return _launch(y, 'generic', **kw)
@@ -519,8 +562,9 @@ def _launch(
     emit_psd: bool = True,
     emit_pbin: bool = True,
 ) -> dict:
-    """launch ``route``'s kernel ('reg', 'mixed', 'cluster', 'split_block',
-    'split', 'split_older' or 'generic') on CUDA ``y``; counts the launch in
+    """launch ``route``'s kernel ('reg', 'mixed', 'cluster', 'small',
+    'split_block', 'split', 'split_older' or 'generic') on CUDA ``y``;
+    counts the launch in
     ``chan_stats.launches`` and ``chan_stats.route_launches[route]``."""
     log2n = _build.log2_exact(nfft_big)
     if not covers(nfft_big, navg):
@@ -567,11 +611,16 @@ def _launch(
                      older=route == 'split_older')
     elif route != 'generic':
         # the statistics kernels: the flagship's (route 'reg' with both
-        # outputs on), the mixed-size one, the cluster one; one C signature
+        # outputs on), the mixed-size one, the cluster one, the small-frame
+        # one (every mode); one C signature
         if route == 'reg':
             slots, tw = STATS_REG_BLOCKS_PER_SM * _build.sm_count(dev), reg_forward_twiddles(nfft_big, dev)
         elif route == 'mixed':
             slots = _occupancy(route, nfft_big, dev) * _build.sm_count(dev)
+            tw = reg_forward_twiddles(nfft_big, dev)
+        elif route == 'small':
+            slots = _small_occupancy(nfft_big, emit_psd, navg if emit_pbin else 0,
+                                     dev) * _build.sm_count(dev)
             tw = reg_forward_twiddles(nfft_big, dev)
         else:
             slots, tw = _occupancy(route, nfft_big, dev), _cluster_twiddles(nfft_big, dev)
@@ -737,7 +786,6 @@ chan_stats.launches = 0
 # (chan_stats_cluster_kernel), 'split_block' (chan_split_block_kernel),
 # 'split' (the redesigned kernels of csrc/chan_split.cu, one count a call),
 # 'split_older' (the older split route, a yardstick _chan_stats_via forces),
-# 'generic'
-# (chan_stats_kernel)
+# 'small' (chan_stats_small_kernel), 'generic' (chan_stats_kernel)
 chan_stats.route_launches = {'reg': 0, 'mixed': 0, 'cluster': 0, 'split_block': 0, 'split': 0,
-                             'split_older': 0, 'generic': 0}
+                             'split_older': 0, 'small': 0, 'generic': 0}

@@ -153,6 +153,16 @@ REG_PLANS = {
     1024: (16, 16, 4),
 }
 REG_THREADS = 512
+# the passes of the small frames of csrc/fft_small.cuh (csrc/fft_reg.cuh
+# Plan: one radix-16 butterfly a lane in pass 0): the spectrogram's and
+# the channelizer's frame-group kernels (ops/kernels/spectrogram.py,
+# chan_stats.py); they start no pair and no split shape
+SMALL_PLANS = {
+    512: (16, 16, 2),
+    256: (16, 16),
+    128: (16, 8),
+    64: (16, 4),
+}
 # the (nfft, nfft_out) pairs fused_ola_frames_cluster_kernel is compiled
 # for, each with C, the blocks of the cluster that holds one frame: N / C
 # points of either transform a block, on the register-resident passes of
@@ -426,8 +436,9 @@ def _pass_tables(radices: tuple, inverse: bool) -> np.ndarray:
 
 
 def _reg_pass_tables(n: int, inverse: bool) -> np.ndarray:
-    """the tables of ``n``'s compile-time plan (:data:`REG_PLANS`)."""
-    return _pass_tables(REG_PLANS[n], inverse)
+    """the tables of ``n``'s compile-time plan (:data:`REG_PLANS`, or
+    :data:`SMALL_PLANS` below 1024 points)."""
+    return _pass_tables(REG_PLANS[n] if n in REG_PLANS else SMALL_PLANS[n], inverse)
 
 
 @functools.lru_cache(maxsize=None)
@@ -442,12 +453,12 @@ def reg_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tensor
 
 @functools.lru_cache(maxsize=None)
 def reg_forward_twiddles(nfft: int, device: torch.device) -> torch.Tensor:
-    """the forward tables of ``nfft`` alone (the channelizer kernels at
-    16384 and 4096 and the levels kernel at 1024 run no inverse): at a
-    size that starts a pair of :data:`REG_PAIRS`, a view of the first
-    entries of :func:`reg_twiddles`, with no copy; at any other size of
-    :data:`REG_PLANS`, its own table, float64 on the host rounded once to
-    complex64."""
+    """the forward tables of ``nfft`` alone (the channelizer and
+    spectrogram kernels run no inverse): at a size that starts a pair of
+    :data:`REG_PAIRS`, a view of the first entries of :func:`reg_twiddles`,
+    with no copy; at any other size of :data:`REG_PLANS` or
+    :data:`SMALL_PLANS`, its own table, float64 on the host rounded once
+    to complex64."""
     forward = _reg_pass_tables(nfft, False)
     nfft_out = next((n2 for n1, n2 in REG_PAIRS if n1 == nfft), None)
     if nfft_out is not None:

@@ -7,14 +7,24 @@ spectrogram_pallas.py:258 and :414): per non-overlapping ``nfft`` frame the
 windowed FFT, |Y|^2 in dB, and either the dB frame itself
 (:func:`spectrogram_dB`) or the frame's uniform histogram levels, the
 per-bin sum / max / min of dB over all frames of the call and, optionally,
-the detector-binned raw power (:func:`spectrogram_levels`). One radix-2
-CUDA body (``spectrogram_kernel``, ``csrc/spectrogram.cu``) serves both; at
-nfft 1024 (BASELINE config #3) the levels and stats modes run
-``spectrogram_levels_reg_kernel`` instead, and the dB mode its sibling
-``spectrogram_db_reg_kernel``, on the same register-resident passes of
-``csrc/fft_reg.cuh`` (:func:`levels_route` and :func:`db_route` pick by
-size, before the launch). What bounds each on the card and what its design
-does about that are set out in the source.
+the detector-binned raw power (:func:`spectrogram_levels`). Two CUDA
+designs on the register-resident passes of ``csrc/fft_reg.cuh`` serve
+every power of two 64-16384 at apd_navg 0 and every power of two up to 128
+(:func:`levels_route` and :func:`db_route` pick by size, before the
+launch):
+
+* ``'reg'``, 64-1024 points (:data:`GROUP_SIZES`): frames in groups of
+  nfft / 16 lanes, several to a block (``spectrogram_levels_reg_kernel``,
+  ``spectrogram_db_reg_kernel``, ``csrc/spectrogram_group.cuh``; BASELINE
+  config #3 at 1024);
+* ``'block'``, 2048-16384 points (:data:`BLOCK_SIZES`): a block per run of
+  frames (``spectrogram_block_kernel``, ``csrc/spectrogram_block.cu``);
+* ``'generic'``: the radix-2 ``spectrogram_kernel`` (``csrc/
+  spectrogram.cu``) only at an apd_navg above 128, which the JAX levels
+  kernel does not take; it stays callable at every size as a yardstick.
+
+What bounds each on the card and what its design does about that are set
+out in the source.
 
 Bins come out in natural (centred) order, as ``jnp.fft.fft`` gives them
 with the fftshift baked into the window; the TPU kernels' factored
@@ -31,6 +41,8 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -38,9 +50,13 @@ import torch
 from ..power import binned_mean
 from . import _build
 from .colhist import quantize_uniform
-from .fused_ola import reg_forward_twiddles
+from .fused_ola import H100_SMEM_OPTIN, _reg_pass_tables, reg_forward_twiddles
 
 __all__ = [
+    'BLOCK_SIZES',
+    'GROUP_SIZES',
+    'block_smem',
+    'group_smem',
     'db_route',
     'levels_route',
     'spectrogram_takes',
@@ -54,12 +70,52 @@ _EPS = 1e-25
 _DB_PER_LN = 10.0 / math.log(10.0)
 MAX_CUDA_FFT = 16384
 _MODE_DB, _MODE_LEVELS, _MODE_STATS = 0, 1, 2
-# spectrogram_levels_reg_kernel: its size, the apd_navg it bins power by
-# (0: none), its threads per frame group and frame groups per block
+# the frame-group kernels (csrc/spectrogram_group.cuh): their sizes, the
+# threads of a block (groups of nfft / 16 lanes, 256 / (nfft / 16) a
+# block) and the blocks per SM their grid is sized for (their launch
+# bounds')
+GROUP_SIZES = (64, 128, 256, 512, 1024)
+GROUP_THREADS = 256
+GROUP_BLOCKS_PER_SM = 2
+# BASELINE config #3's size, and its frame groups (64 lanes, 4 a block)
 LEVELS_REG_NFFT = 1024
-LEVELS_REG_NAVG = (0, 1, 2, 4, 8, 16)
-LEVELS_REG_THREADS = 64
-LEVELS_REG_GROUPS = 4
+LEVELS_REG_THREADS = LEVELS_REG_NFFT // 16
+LEVELS_REG_GROUPS = GROUP_THREADS // LEVELS_REG_THREADS
+# the block kernel (csrc/spectrogram_block.cu): its sizes and their
+# threads (nfft / 16, at most 512)
+BLOCK_SIZES = {2048: 128, 4096: 256, 8192: 512, 16384: 512}
+# the apd_navg both kernels bin power by (0: none; a navg above nfft has no
+# frame-group instance); the radix-2 body takes the others
+APD_NAVG = (0, 1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def group_smem(nfft: int, stats: bool) -> int:
+    """the dynamic shared memory of a frame-group block at ``nfft`` points
+    (csrc/spectrogram_group.cuh GroupSmem), in bytes: the groups' padded
+    exchange buffers and the pass tables (float2); with the statistics
+    (``stats``) the max and min of each thread's 16 slots and, at 1024
+    points, 16 floats a group for the binned power's second warp."""
+    lanes = nfft // 16
+    groups = GROUP_THREADS // lanes
+    float2s = groups * (nfft + nfft // 16) + _reg_pass_tables(nfft, False).size
+    floats = (2 * 16 * GROUP_THREADS + (16 * groups if lanes > 32 else 0)) if stats else 0
+    return 8 * float2s + 4 * floats
+
+
+def block_smem(nfft: int, stats: bool) -> tuple:
+    """(bytes, max and min in shared memory) of a block of the block
+    kernel at ``nfft`` points (csrc/spectrogram_block.cu BlockSmem): the
+    padded exchange buffer and the pass tables (float2); with the
+    statistics the warps' 32-sample sums (nfft / 32 floats), the running
+    sums (nfft) and, where they fit an H100 block's opt-in shared memory,
+    the running max and min (2 nfft; else they run in the block's rows of
+    the partials in device memory)."""
+    head = 8 * (nfft + nfft // 16 + _reg_pass_tables(nfft, False).size)
+    if not stats:
+        return head, False
+    head += 4 * (nfft // 32 + nfft)
+    in_smem = head + 8 * nfft <= H100_SMEM_OPTIN
+    return head + (8 * nfft if in_smem else 0), in_smem
 
 
 def _planes(x: torch.Tensor):
@@ -172,20 +228,40 @@ def _grid(n_frames: int, blocks_per_sm: int, device) -> tuple:
     return per_block, -(-n_frames // per_block)
 
 
+def _size_route(nfft: int) -> str:
+    return 'reg' if nfft in GROUP_SIZES else 'block'
+
+
 def levels_route(nfft: int, apd_navg: int = 0) -> str:
     """the kernel :func:`spectrogram_levels` launches for a supported
-    call: ``'reg'`` (``spectrogram_levels_reg_kernel``) at nfft 1024 with
-    apd_navg in :data:`LEVELS_REG_NAVG`, ``'generic'`` (the radix-2
-    ``spectrogram_kernel``) at every other."""
-    return 'reg' if nfft == LEVELS_REG_NFFT and apd_navg in LEVELS_REG_NAVG else 'generic'
+    call: ``'reg'`` (``spectrogram_levels_reg_kernel``) at
+    :data:`GROUP_SIZES` and ``'block'`` (``spectrogram_block_kernel``) at
+    :data:`BLOCK_SIZES`, with apd_navg in :data:`APD_NAVG`;
+    ``'generic'`` (the radix-2 ``spectrogram_kernel``) at an apd_navg above
+    128."""
+    return _size_route(nfft) if apd_navg in APD_NAVG else 'generic'
 
 
 def db_route(nfft: int) -> str:
     """the kernel :func:`spectrogram_dB` launches for a supported call:
-    ``'reg'`` (``spectrogram_db_reg_kernel``) at nfft 1024, ``'generic'``
-    (the radix-2 ``spectrogram_kernel``) at every other. The two
-    register-resident kernels share their frame groups and passes."""
-    return 'reg' if nfft == LEVELS_REG_NFFT else 'generic'
+    ``'reg'`` (``spectrogram_db_reg_kernel``, the levels kernel's frame
+    groups and passes) at :data:`GROUP_SIZES`, ``'block'``
+    (``spectrogram_block_kernel``) at :data:`BLOCK_SIZES`."""
+    return _size_route(nfft)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_occupancy(nfft: int, db: bool, device: torch.device) -> int:
+    """the blocks of the block kernel's instance one SM holds (asked once
+    per size, mode and device); raises where it is none."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.prepare('iqt_spectrogram_block_prepare', device)
+        _build.check(_build.library().iqt_spectrogram_block_occupancy(
+            nfft, int(db), ctypes.addressof(out)), f'occupancy of the spectrogram block kernel at {nfft}')
+    if out.value < 1:
+        raise RuntimeError(f'the card cannot hold one spectrogram block kernel at {nfft} points')
+    return out.value
 
 
 def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name, route='generic'):
@@ -194,8 +270,12 @@ def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name, route='gener
     _build.prepare('iqt_spectrogram_prepare', dev)
     f32 = dict(dtype=torch.float32, device=dev)
     db = levels = part = psum = pmax = pmin = pbin = None
-    # two 256-thread blocks of a register-resident kernel fit an SM
-    per_block, n_blocks = _grid(n_frames, 2 if route == 'reg' else 4, dev)
+    if route == 'reg':
+        per_block, n_blocks = _grid(n_frames, GROUP_BLOCKS_PER_SM, dev)
+    elif route == 'block':
+        per_block, n_blocks = _grid(n_frames, _block_occupancy(nfft, mode == _MODE_DB, dev), dev)
+    else:
+        per_block, n_blocks = _grid(n_frames, 4, dev)
     if mode == _MODE_DB:
         db = torch.empty((n_frames, nfft), **f32)
     else:
@@ -226,6 +306,14 @@ def _launch(x, window, nfft, mode, *, quant=None, apd_navg=0, name, route='gener
             n_frames, nfft, mode, int(n_bins), int(apd_navg), per_block, n_blocks,
             float(lo), float(scale), _build.stream_of(x),
         )
+    elif route == 'block':
+        tw = reg_forward_twiddles(nfft, dev)
+        err = _build.library().iqt_spectrogram_block(
+            xr.data_ptr(), xi.data_ptr(), window.data_ptr(), tw.data_ptr(), ptr(db), ptr(levels),
+            ptr(part), ptr(psum), ptr(pmax), ptr(pmin), ptr(pbin), tw.numel(), stride, n_frames,
+            nfft, mode, int(n_bins), int(apd_navg), per_block, n_blocks, float(lo), float(scale),
+            _build.stream_of(x),
+        )
     else:
         err = _build.library().iqt_spectrogram(
             xr.data_ptr(), xi.data_ptr(), window.data_ptr(),
@@ -253,15 +341,15 @@ def spectrogram_dB(x: torch.Tensor, window: torch.Tensor, nfft: int) -> torch.Te
 
 def _spectrogram_dB_generic(x: torch.Tensor, window: torch.Tensor, nfft: int) -> torch.Tensor:
     """:func:`spectrogram_dB` on a CUDA tensor through the radix-2
-    ``spectrogram_kernel`` at any supported size, 1024 too: the yardstick
-    of ``spectrogram_db_reg_kernel`` in chip_smoke.py and the card tests,
+    ``spectrogram_kernel`` at any supported size: the yardstick of the
+    frame-group and block kernels in chip_smoke.py and the card tests,
     never a route of the port."""
     return _launch_dB(x, window, nfft, 'generic')
 
 
 def _launch_dB(x, window, nfft, route: str) -> torch.Tensor:
-    """launch ``route``'s kernel ('reg' or 'generic') in the dB mode; counts
-    the launch in ``spectrogram_dB.launches`` and
+    """launch ``route``'s kernel ('reg', 'block' or 'generic') in the dB
+    mode; counts the launch in ``spectrogram_dB.launches`` and
     ``spectrogram_dB.route_launches[route]``."""
     out = _launch(x, window, nfft, _MODE_DB, name='spectrogram_dB', route=route)
     spectrogram_dB.launches += 1
@@ -270,9 +358,9 @@ def _launch_dB(x, window, nfft, route: str) -> torch.Tensor:
 
 
 spectrogram_dB.launches = 0
-# launches by kernel: 'reg' (spectrogram_db_reg_kernel), 'generic'
-# (spectrogram_kernel)
-spectrogram_dB.route_launches = {'reg': 0, 'generic': 0}
+# launches by kernel: 'reg' (spectrogram_db_reg_kernel), 'block'
+# (spectrogram_block_kernel), 'generic' (spectrogram_kernel)
+spectrogram_dB.route_launches = {'reg': 0, 'block': 0, 'generic': 0}
 
 
 def spectrogram_levels(
@@ -309,15 +397,16 @@ def _spectrogram_levels_generic(
     x: torch.Tensor, window: torch.Tensor, nfft: int, *, quant: tuple = None, apd_navg: int = 0
 ) -> dict:
     """:func:`spectrogram_levels` on a CUDA tensor through the radix-2
-    ``spectrogram_kernel`` at any supported size, 1024 too: the yardstick
-    of ``spectrogram_levels_reg_kernel`` in chip_smoke.py and the card
-    tests, never a route of the port."""
+    ``spectrogram_kernel`` at any supported size: the yardstick of the
+    frame-group and block kernels in chip_smoke.py and the card tests, a
+    route of the port only at an apd_navg above 128."""
     return _launch_levels(x, window, nfft, quant, apd_navg, 'generic')
 
 
 def _launch_levels(x, window, nfft, quant, apd_navg, route: str) -> dict:
-    """launch ``route``'s kernel ('reg' or 'generic') in the levels mode
-    (or the stats mode where ``quant`` is None); counts the launch in
+    """launch ``route``'s kernel ('reg', 'block' or 'generic') in the
+    levels mode (or the stats mode where ``quant`` is None); counts the
+    launch in
     ``spectrogram_levels.launches`` and
     ``spectrogram_levels.route_launches[route]``."""
     mode = _MODE_STATS if quant is None else _MODE_LEVELS
@@ -329,6 +418,6 @@ def _launch_levels(x, window, nfft, quant, apd_navg, route: str) -> dict:
 
 
 spectrogram_levels.launches = 0
-# launches by kernel: 'reg' (spectrogram_levels_reg_kernel), 'generic'
-# (spectrogram_kernel)
-spectrogram_levels.route_launches = {'reg': 0, 'generic': 0}
+# launches by kernel: 'reg' (spectrogram_levels_reg_kernel), 'block'
+# (spectrogram_block_kernel), 'generic' (spectrogram_kernel)
+spectrogram_levels.route_launches = {'reg': 0, 'block': 0, 'generic': 0}

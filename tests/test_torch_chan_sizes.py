@@ -104,7 +104,8 @@ def test_routes_at_every_size_and_mode():
     """'reg': the channel-only register kernel at one block's sizes, the
     flagship's 4096-point kernel at navg 1-16; 'mixed' every other mode
     there (but 15360's statistics); 'cluster' above 16384 and 15360's
-    statistics; 'generic' the powers of two 64-512 and navg above 128."""
+    statistics; 'small' the powers of two 64-512 (chan_stats_small_kernel);
+    'generic' navg above 128."""
     for n in sorted(CHAN_SIZES):
         assert chan_route(n, False, False) == ('reg' if n <= 16384 else 'cluster'), n
         for emit in ((True, True), (True, False), (False, True)):
@@ -115,8 +116,9 @@ def test_routes_at_every_size_and_mode():
                 assert chan_route(n, *emit, navg) == want, (n, emit, navg)
     for n in RADIX2_SIZES:
         for emit in ((True, True), (False, False)):
-            assert chan_route(n, *emit) == 'generic'
+            assert chan_route(n, *emit) == 'small'
     assert chan_route(16384, True, True, 256) == 'generic'
+    assert chan_route(512, True, True, 256) == 'generic'
 
 
 # ---- the prime-factor DFTs (csrc/fft.cuh dft_pfa) ------------------------
@@ -436,7 +438,7 @@ def test_cpu_tensors_take_the_plain_version_at_the_new_sizes():
     cluster size, and counts no launch."""
     before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
     assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split_block', 'split', 'split_older',
-                              'generic'}
+                              'small', 'generic'}
     for n in (12288, 24576):
         y, w = _row(n, 2, 3)
         kw = dict(nfft_big=n, channel_count=48, window=torch.from_numpy(w).to(torch.complex64),

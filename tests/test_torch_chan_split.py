@@ -147,7 +147,7 @@ def test_routes_of_the_slice_designs_and_chan_sizes():
     for n in CHAN_SIZES:
         for emit in MODES.values():
             assert chan_route(n, *emit, navg=16) in ('reg', 'mixed', 'cluster'), n
-    assert chan_route(512, True, True, 16) == 'generic'
+    assert chan_route(512, True, True, 16) == 'small'
     assert chan_route(8192, True, True, 256) == 'generic'
 
 
@@ -405,7 +405,7 @@ def test_cpu_tensors_take_the_plain_version_at_the_split_sizes():
     counts no launch."""
     before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
     assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split_block', 'split', 'split_older',
-                              'generic'}
+                              'small', 'generic'}
     y, w = _row(11264, 2, 3)
     kw = dict(nfft_big=11264, channel_count=22, window=torch.from_numpy(w).to(torch.complex64),
               navg=16, skip_bins=0)

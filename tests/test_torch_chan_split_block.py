@@ -349,7 +349,7 @@ def test_cpu_tensors_take_the_plain_version_at_the_block_sizes():
     sizes, and counts no launch."""
     before = dict(kernels.chan_stats.route_launches), kernels.chan_stats.launches
     assert set(before[0]) == {'reg', 'mixed', 'cluster', 'split_block', 'split', 'split_older',
-                              'generic'}
+                              'small', 'generic'}
     for n in (7168, 14336):
         y, w = _row(n, 2, 5)
         kw = dict(nfft_big=n, channel_count=28, window=torch.from_numpy(w).to(torch.complex64),

@@ -144,9 +144,15 @@ def _ola_routes(**counts):
     return {**dict.fromkeys(OLA_ROUTES, 0), **counts}
 
 
-def _chan_routes(reg=0, mixed=0, cluster=0, split_block=0, split=0, split_older=0, generic=0):
+def _chan_routes(reg=0, mixed=0, cluster=0, split_block=0, split=0, split_older=0, small=0,
+                 generic=0):
     return {'reg': reg, 'mixed': mixed, 'cluster': cluster, 'split_block': split_block,
-            'split': split, 'split_older': split_older, 'generic': generic}
+            'split': split, 'split_older': split_older, 'small': small, 'generic': generic}
+
+
+def _spg_routes(reg=0, block=0, generic=0):
+    """the spectrogram wrappers' route counts"""
+    return {'reg': reg, 'block': block, 'generic': generic}
 
 
 def test_step_launches_each_kernel_and_matches_plain_step(monitor):
@@ -499,11 +505,11 @@ def test_levels_register_kernel_matches_plain_and_radix2(card, navg, complex_inp
     planes = _planes(600 * nfft + 7, 31)[:, 7:]
     x = torch.complex(planes[0], planes[1]) if complex_input else planes
     quant = design['quant']
-    kernels.spectrogram_levels.route_launches.update(reg=0, generic=0)
+    kernels.spectrogram_levels.route_launches.update(reg=0, block=0, generic=0)
     got = kernels.spectrogram_levels(x, w, nfft, quant=quant, apd_navg=navg)
-    assert kernels.spectrogram_levels.route_launches == {'reg': 1, 'generic': 0}
+    assert kernels.spectrogram_levels.route_launches == _spg_routes(reg=1)
     generic = _spectrogram_levels_generic(x, w, nfft, quant=quant, apd_navg=navg)
-    assert kernels.spectrogram_levels.route_launches == {'reg': 1, 'generic': 1}
+    assert kernels.spectrogram_levels.route_launches == _spg_routes(reg=1, generic=1)
     ref = kernels.spectrogram_levels_plain(x, w, nfft, quant=quant, apd_navg=navg)
     frames = 600
     for other in (ref, generic):
@@ -518,7 +524,7 @@ def test_levels_register_kernel_matches_plain_and_radix2(card, navg, complex_inp
     assert stats['levels'] is None
     for key in ('psum', 'pmax', 'pmin'):
         assert torch.equal(stats[key], got[key]), key
-    assert kernels.spectrogram_levels.route_launches == {'reg': 2, 'generic': 1}
+    assert kernels.spectrogram_levels.route_launches == _spg_routes(reg=2, generic=1)
     ref64 = kernels.spectrogram_levels_plain(
         planes.double(), w.to(torch.complex128), nfft, quant=quant)
     for key, scale in (('psum', 1 / frames), ('pmax', 1.0)):
@@ -534,8 +540,8 @@ def test_db_register_kernel_matches_plain_and_radix2(card, complex_input):
     route, within phase 6's gate (1e-3 dB where the plain version is above
     -100 dB and within 40 dB below its frame's mean power) of the plain
     version and of the radix-2 body, and its RMS dB error against float64
-    on those values at most twice the radix-2 body's. Other sizes keep the
-    radix-2 body."""
+    on those values at most twice the radix-2 body's. 2048 points take the
+    block kernel."""
     nfft = 1024
     assert db_route(nfft) == 'reg'
     design = TS.design_persistence(nfft=nfft, window='hann', hist_bins=2048)
@@ -543,11 +549,11 @@ def test_db_register_kernel_matches_plain_and_radix2(card, complex_input):
     planes = _planes(601 * nfft + 3, 33)[:, 3:]
     x = torch.complex(planes[0], planes[1]) if complex_input else planes
     k = kernels.spectrogram_dB
-    k.route_launches.update(reg=0, generic=0)
+    k.route_launches.update(reg=0, block=0, generic=0)
     got = k(x, w, nfft)
-    assert k.route_launches == {'reg': 1, 'generic': 0}
+    assert k.route_launches == _spg_routes(reg=1)
     generic = _spectrogram_dB_generic(x, w, nfft)
-    assert k.route_launches == {'reg': 1, 'generic': 1}
+    assert k.route_launches == _spg_routes(reg=1, generic=1)
     ref = kernels.spectrogram_dB_plain(x, w, nfft)
     assert got.shape == generic.shape == ref.shape == (601, nfft)
     mean_dB = 10 * torch.log10((10 ** (ref.double() / 10)).mean(dim=1, keepdim=True))
@@ -561,21 +567,22 @@ def test_db_register_kernel_matches_plain_and_radix2(card, complex_input):
     assert err <= 2 * err_generic
     w2048 = torch.from_numpy(TS.design_persistence(
         nfft=2048, window='hann', hist_bins=2048)['kernel_window']).to(card)
-    assert db_route(2048) == 'generic'
+    assert db_route(2048) == 'block'
     k(planes[:, : 40 * 2048], w2048, 2048)
-    assert k.route_launches == {'reg': 1, 'generic': 2}
+    assert k.route_launches == _spg_routes(reg=1, block=1, generic=1)
 
 
 def test_levels_other_sizes_and_navg_take_the_radix2_body(card):
-    """nfft 1024 with apd_navg 32, and nfft 2048, keep spectrogram_kernel."""
-    for nfft, navg in ((1024, 32), (2048, 16)):
+    """an apd_navg above 128 (which the JAX levels kernel does not take)
+    keeps spectrogram_kernel, at 1024 and at 2048 points."""
+    for nfft, navg in ((1024, 256), (2048, 256)):
         assert levels_route(nfft, navg) == 'generic'
         design = TS.design_persistence(nfft=nfft, window='hann', hist_bins=1024)
         w = torch.from_numpy(design['kernel_window']).to(card)
         x = _planes(40 * nfft, 32)
-        kernels.spectrogram_levels.route_launches.update(reg=0, generic=0)
+        kernels.spectrogram_levels.route_launches.update(reg=0, block=0, generic=0)
         got = kernels.spectrogram_levels(x, w, nfft, quant=design['quant'], apd_navg=navg)
-        assert kernels.spectrogram_levels.route_launches == {'reg': 0, 'generic': 1}
+        assert kernels.spectrogram_levels.route_launches == _spg_routes(generic=1)
         ref = kernels.spectrogram_levels_plain(x, w, nfft, quant=design['quant'], apd_navg=navg)
         assert float((got['pmax'] - ref['pmax']).abs().max()) <= 1e-3
         assert rel_rms(got['p_binned'], ref['p_binned']) <= 1e-5
@@ -2267,3 +2274,195 @@ def test_plan_cluster_add_matches_plain_with_halo_and_tail(card):
     y64, t64 = _strided_f64(x, halo, kw)
     both, plain = torch.cat([got, tail], -1), torch.cat([ref, ref_tail], -1)
     assert rel_rms(both, torch.cat([y64, t64], -1)) <= 2 * rel_rms(plain, torch.cat([y64, t64], -1))
+
+
+# ---- rows 9-10 at every size, rows 4-5 at 64-512 ---------------------------
+
+SPG_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+SPG_NAVG = (0, 1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _spg_input(nfft, frames, seed):
+    """``frames`` frames of noise planes (a slice at an offset, as the fold
+    gives them) and the same samples as complex64"""
+    planes = _planes(frames * nfft + 5, seed)[:, 5:]
+    return planes, torch.complex(planes[0], planes[1])
+
+
+def _spg_frames(nfft):
+    return max(40, (1 << 20) // nfft) + 3  # a last block short of its frames
+
+
+@pytest.mark.parametrize('nfft', SPG_SIZES)
+def test_spectrogram_dB_routes_match_plain_and_radix2(card, nfft):
+    """rows 9's kernel at every size: the frame-group kernel up to 1024
+    points, the block kernel above; one launch on its route, phase 6's
+    gate against the plain version and the radix-2 body, the two input
+    layouts bit-equal, its RMS dB error against float64 at most twice the
+    radix-2 body's."""
+    design = TS.design_persistence(nfft=nfft, window='hann', hist_bins=2048)
+    w = torch.from_numpy(design['kernel_window']).to(card)
+    frames = _spg_frames(nfft)
+    planes, x = _spg_input(nfft, frames, 41)
+    k = kernels.spectrogram_dB
+    route = db_route(nfft)
+    assert route == ('reg' if nfft <= 1024 else 'block')
+    k.route_launches.update(reg=0, block=0, generic=0)
+    got = k(planes, w, nfft)
+    assert k.route_launches == _spg_routes(**{route: 1})
+    assert torch.equal(k(x, w, nfft), got)
+    generic = _spectrogram_dB_generic(planes, w, nfft)
+    ref = kernels.spectrogram_dB_plain(planes, w, nfft)
+    assert got.shape == generic.shape == ref.shape == (frames, nfft)
+    mean_dB = 10 * torch.log10((10 ** (ref.double() / 10)).mean(dim=1, keepdim=True))
+    band = (ref > -100) & (ref > mean_dB - 40)
+    for other in (ref, generic):
+        assert float((got - other)[band].abs().max()) <= 1e-3
+    ref64 = kernels.spectrogram_dB_plain(planes.double(), w.to(torch.complex128), nfft)
+    err = float((got.double() - ref64)[band].pow(2).mean().sqrt())
+    err_generic = float((generic.double() - ref64)[band].pow(2).mean().sqrt())
+    assert err <= 2 * err_generic
+
+
+@pytest.mark.parametrize('nfft, navg', [(n, a) for n in SPG_SIZES for a in SPG_NAVG if a <= n])
+def test_spectrogram_levels_routes_match_plain_and_radix2(card, nfft, navg):
+    """row 10's kernel at every size and apd_navg the JAX levels kernel
+    takes: one launch on its route; the gates of
+    test_levels_register_kernel_matches_plain_and_radix2 against the plain
+    version and the radix-2 body, min of dB within the float32 FFT bound of
+    a value (at 1024 points the 5e-3 dB there); the levels and stats modes'
+    statistics and the two layouts' outputs bit-equal; the float64 gate on
+    mean and max of dB."""
+    design = TS.design_persistence(nfft=nfft, window='hann', hist_bins=1024)
+    w = torch.from_numpy(design['kernel_window']).to(card)
+    quant = design['quant']
+    frames = _spg_frames(nfft)
+    planes, x = _spg_input(nfft, frames, 43 + navg)
+    route = levels_route(nfft, navg)
+    assert route == ('reg' if nfft <= 1024 else 'block')
+    k = kernels.spectrogram_levels
+    k.route_launches.update(reg=0, block=0, generic=0)
+    got = k(planes, w, nfft, quant=quant, apd_navg=navg)
+    assert k.route_launches == _spg_routes(**{route: 1})
+    other_layout = k(x, w, nfft, quant=quant, apd_navg=navg)
+    stats = k(planes, w, nfft, apd_navg=navg)
+    assert stats['levels'] is None
+    for key in ('levels', 'psum', 'pmax', 'pmin', 'p_binned'):
+        if got[key] is not None:
+            assert torch.equal(other_layout[key], got[key]), key
+        if key != 'levels' and got[key] is not None:
+            assert torch.equal(stats[key], got[key]), key
+    generic = _spectrogram_levels_generic(planes, w, nfft, quant=quant, apd_navg=navg)
+    ref = kernels.spectrogram_levels_plain(planes, w, nfft, quant=quant, apd_navg=navg)
+    # min of dB, each bin's deepest value: its power within the float32 FFT
+    # bound of one value, 4 sqrt(p L nfft) u log2(nfft) for a spectrum of
+    # mean power L a bin (the bound of chip_smoke.py phases 19 and 30; the
+    # 5e-3 dB of the 1024-point test is that bound's there, and a deep
+    # value's dB error grows with sqrt(nfft))
+    lin = float((10 ** (kernels.spectrogram_dB_plain(planes, w, nfft).double() / 10)).mean())
+    for other in (ref, generic):
+        for key, tol in (('psum', 1e-3 * frames), ('pmax', 1e-3)):
+            assert float((got[key] - other[key]).abs().max()) <= tol, key
+        p_ref = 10 ** (other['pmin'].double() / 10)
+        bound = 4 * (p_ref * lin * nfft).sqrt() * 2.0**-24 * np.log2(nfft)
+        assert float(((10 ** (got['pmin'].double() / 10) - p_ref).abs() / bound).max()) <= 1
+        diff = (got['levels'] - other['levels']).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+        if navg:
+            assert rel_rms(got['p_binned'], other['p_binned']) <= 1e-5
+    assert (got['p_binned'] is None) == (navg == 0)
+    ref64 = kernels.spectrogram_levels_plain(planes.double(), w.to(torch.complex128), nfft,
+                                             quant=quant)
+    for key, scale in (('psum', 1 / frames), ('pmax', 1.0)):
+        err = float(((got[key].double() - ref64[key]) * scale).pow(2).mean().sqrt())
+        err_generic = float(((generic[key].double() - ref64[key]) * scale).pow(2).mean().sqrt())
+        assert err <= 2 * err_generic, key
+
+
+CHAN_SMALL_MODES = {'channels': (False, False), 'psd': (True, False), 'pbin': (False, True),
+                    'stats': (True, True)}
+
+
+@pytest.mark.parametrize('n, mode, navg', [
+    (n, m, a) for n in (64, 128, 256, 512) for m, (_, pbin) in CHAN_SMALL_MODES.items()
+    for a in ((1, 2, 4, 8, 16, 32, 64, 128) if pbin else (16,)) if a <= n])
+def test_chan_small_kernel_matches_plain_and_radix2(card, n, mode, navg):
+    """rows 4-5 at 64-512 points: chan_stats_small_kernel in every mode and
+    navg 1-128, on a batch of 2 rows with a trim of n / 4 bins and 24
+    channels: one launch on its route, every output within 1e-5 relative
+    RMS of the plain version and of the radix-2 kernel."""
+    emit_psd, emit_pbin = CHAN_SMALL_MODES[mode]
+    assert chan_route(n, emit_psd, emit_pbin, navg) == 'small'
+    y = _noise((2, 300 * n + 11), 50 + n + navg)
+    w = _noise(n, 51) / n
+    kw = dict(nfft_big=n, channel_count=24, window=w, navg=navg, skip_bins=n // 4,
+              emit_psd=emit_psd, emit_pbin=emit_pbin)
+    _reset_routes()
+    got = kernels.chan_stats(y, **kw)
+    assert kernels.chan_stats.route_launches == _chan_routes(small=1)
+    ref = kernels.chan_stats_plain(y, **kw)
+    generic = _chan_stats_generic(y, **kw)
+    assert set(got) == set(ref) == set(generic)
+    for key in ref:
+        assert got[key].shape == ref[key].shape, key
+        assert rel_rms(got[key], ref[key]) <= 1e-5, key
+        assert rel_rms(got[key], generic[key]) <= 1e-5, key
+
+
+def test_small_chan_kernel_radix2_keeps_navg_above_128(card):
+    """the binned power at navg 256 (which the JAX kernel does not take)
+    keeps the radix-2 kernel at 512 points; without it the small-frame
+    kernel takes the call."""
+    y = _noise(64 * 512, 52)
+    w = _noise(512, 53) / 512
+    for emit_pbin, route in ((True, 'generic'), (False, 'small')):
+        kw = dict(nfft_big=512, channel_count=16, window=w, navg=256, emit_pbin=emit_pbin)
+        _reset_routes()
+        got = kernels.chan_stats(y, **kw)
+        assert kernels.chan_stats.route_launches == _chan_routes(**{route: 1})
+        ref = kernels.chan_stats_plain(y, **kw)
+        for key in ref:
+            assert rel_rms(got[key], ref[key]) <= 1e-5, key
+
+
+@pytest.mark.parametrize('nfft', [256, 2048, 4096])
+def test_psd_and_fold_launch_the_new_spectrogram_kernels(card, nfft):
+    """power_spectral_density at resolution fs / nfft launches row 9 once on
+    its new route, within tests/test_torch_psd.py's gate of the same call
+    on the CPU; the persistence fold at that nfft launches row 10 (levels;
+    row 9 below 1024 points) on its new route twice, one chunk at a time,
+    and no radix-2 body."""
+    from iqwaveform_torch.ops import power  # noqa: F401
+    fs = 122.88e6
+    n = 64 * 4096
+    gen = torch.Generator(device='cuda').manual_seed(54)
+    t = torch.arange(n, device='cuda', dtype=torch.float64) / fs
+    x = (torch.exp(2j * np.pi * 10.1e6 * t).to(torch.complex64)
+         + 0.3 * torch.randn(n, dtype=torch.complex64, device='cuda', generator=gen))
+    kw = dict(fs=fs, window='hann', resolution=fs / nfft, statistics=['mean', 'max', 0.5])
+    route = db_route(nfft)
+    for k in kernels.KERNELS:
+        k.launches = 0
+    kernels.spectrogram_dB.route_launches.update(reg=0, block=0, generic=0)
+    got = it.power_spectral_density(x, **kw)
+    assert kernels.spectrogram_dB.launches == 1
+    assert kernels.spectrogram_dB.route_launches == _spg_routes(**{route: 1})
+    cpu = it.power_spectral_density(x.cpu(), device='cpu', **kw)
+    level = float(10 * torch.log10((x.abs() ** 2).double().mean() / nfft))
+    shallow = cpu >= level - 40
+    assert float((got.cpu() - cpu).abs()[shallow].max()) <= 1e-3
+    # the fused fold (row 10) from 1024 points, the dB spectrogram (row 9)
+    # and the column counter below
+    k = kernels.spectrogram_levels if nfft >= 1024 else kernels.spectrogram_dB
+    for kk in kernels.KERNELS:
+        kk.launches = 0
+    k.route_launches.update(reg=0, block=0, generic=0)
+    fold = it.streaming_persistence_spectrum(x, fs=fs, window='hann', nfft=nfft,
+                                             chunk_frames=n // nfft // 2, hist_bins=1024)
+    assert k.launches == 2 and kernels.colhist.launches == 2
+    assert k.route_launches == _spg_routes(**{route: 2})
+    fold_cpu = it.streaming_persistence_spectrum(x.cpu(), device='cpu', fs=fs,
+                                                 window='hann', nfft=nfft,
+                                                 chunk_frames=n // nfft // 2, hist_bins=1024)
+    band = fold_cpu['mean_dB'] >= level - 40
+    assert float((fold['mean_dB'].cpu() - fold_cpu['mean_dB'])[band].abs().max()) <= 1e-3

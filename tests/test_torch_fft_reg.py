@@ -32,6 +32,9 @@ kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py phases 1-4, 8, 10 and 15).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -63,13 +66,16 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     reg_twiddles,
 )
 from iqwaveform_torch.ops.kernels.spectrogram import (
+    APD_NAVG,
     LEVELS_REG_GROUPS,
-    LEVELS_REG_NAVG,
     LEVELS_REG_NFFT,
     LEVELS_REG_THREADS,
     levels_route,
 )
 from iqwaveform_torch.parallel import streaming as TS
+
+sys.path.insert(0, str(Path(__file__).parent))
+from _bin_model import bin_group_model  # noqa: E402
 
 # the flagship monitor design (bench.py:83-109), whose OLA is 16384 -> 8192
 FLAGSHIP = dict(
@@ -588,7 +594,7 @@ def test_ola_and_channelizer_routes():
     kernel and ola_add ('plan+add') at the other pairs of powers of two;
     chan_stats the channel-only register kernel at every one-block size
     (16384 among them), the mixed-size statistics kernel in the other modes
-    there, the radix-2 kernel at the powers of two 64-512 (and
+    there, the small-frame kernel at the powers of two 64-512 (and
     test_stats_route_and_cpu_tensors, tests/test_torch_chan_sizes.py)."""
     assert ola_route(*OLA_REG_PAIRS[0]) == 'reg' and fused_ola_cuda_supported(16384, 8192, 8192, 4096)
     for pair in [(8192, 4096), (16384, 4096)]:
@@ -599,7 +605,7 @@ def test_ola_and_channelizer_routes():
     for args, want in [((16384, True, True), 'mixed'), ((16384, True, False), 'mixed'),
                        ((16384, False, True), 'mixed'), ((4096, False, False), 'reg'),
                        ((8192, False, False), 'reg'), ((4096, True, False), 'mixed'),
-                       ((512, False, False), 'generic'), ((64, True, True), 'generic')]:
+                       ((512, False, False), 'small'), ((64, True, True), 'small')]:
         assert chan_route(*args) == want, args
 
 
@@ -649,11 +655,22 @@ def bin_power_model(pw, navg):
     return out
 
 
+def levels_binning(pw, navg):
+    """the levels kernel's binning: fft_small.cuh bin_group, which is
+    bin_power_model's up to navg 16 and past it sums lanes across the
+    whole warp (navg 32) and the two warps of a group (navg 64, 128)"""
+    if navg <= 16:
+        return bin_power_model(pw, navg)
+    got = bin_group_model(pw, navg)
+    assert sorted(got) == list(range(1024 // navg))
+    return np.array([got[q] for q in range(1024 // navg)])
+
+
 def levels_model(xr, xi, w, quant, navg, per_block):
     """spectrogram_levels_reg_kernel on float64 planes: blocks of
     ``per_block`` frames, each walked by LEVELS_REG_GROUPS groups of 64
     threads (group g takes frames f0 + g, f0 + g + 4, ...); per frame
-    pass 0 loads x times w and keeps |x|^2 (binned by bin_power_model),
+    pass 0 loads x times w and keeps |x|^2 (binned by levels_binning),
     the last pass leaves lane t bins t + 64 i + 256 r (slot 4 i + r),
     whose dB, level (quantized in float32, as the kernel does) and sum /
     max / min it keeps; the groups fold in order into the block's
@@ -697,7 +714,7 @@ def levels_model(xr, xi, w, quant, navg, per_block):
 
                 fft_model(N, False, first, last, buf)
                 if navg:
-                    pbin[f * (N // navg):(f + 1) * (N // navg)] = bin_power_model(pw, navg)
+                    pbin[f * (N // navg):(f + 1) * (N // navg)] = levels_binning(pw, navg)
         for g in range(1, G):
             sm[0] += sm[g]
             mx[0] = np.maximum(mx[0], mx[g])
@@ -711,7 +728,7 @@ def levels_model(xr, xi, w, quant, navg, per_block):
             'p_binned': pbin if navg else None}
 
 
-@pytest.mark.parametrize('navg', LEVELS_REG_NAVG)
+@pytest.mark.parametrize('navg', APD_NAVG)
 @pytest.mark.parametrize('mode', ['levels', 'stats'])
 def test_levels_model_matches_plain(mode, navg):
     """the modelled levels kernel at BASELINE config #3's design (nfft 1024
@@ -777,13 +794,17 @@ def test_levels_last_pass_stores_consecutive_bins():
 
 def test_levels_route_and_cpu_tensors():
     """the register-resident levels kernel takes nfft 1024 at every
-    apd_navg it bins (0 to 16); other navg and every other size keep the
+    apd_navg it bins (0 and the powers of two to 128), and its frame groups
+    64-512 points; the block kernel 2048-16384; a navg above 128 keeps the
     radix-2 kernel; a CPU tensor runs the plain version and counts no
     launch."""
-    for navg in LEVELS_REG_NAVG:
+    for navg in APD_NAVG:
         assert levels_route(1024, navg) == 'reg'
-    for nfft, navg in [(1024, 32), (1024, 64), (1024, 1024), (512, 16), (2048, 16), (64, 0),
-                       (16384, 0), (4096, 1)]:
+    for nfft, navg in [(512, 16), (64, 0)]:
+        assert levels_route(nfft, navg) == 'reg', (nfft, navg)
+    for nfft, navg in [(2048, 16), (16384, 0), (4096, 1)]:
+        assert levels_route(nfft, navg) == 'block', (nfft, navg)
+    for nfft, navg in [(1024, 256), (1024, 1024), (16384, 512)]:
         assert levels_route(nfft, navg) == 'generic', (nfft, navg)
     design = TS.design_persistence(nfft=1024, window='hann', hist_bins=1024)
     rng = np.random.default_rng(4)

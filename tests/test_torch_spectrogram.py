@@ -54,7 +54,7 @@ def _rel_rms(got, ref):
     return float(np.sqrt(np.mean((got - ref) ** 2) / np.mean(ref**2)))
 
 
-@pytest.mark.parametrize('nfft', [1024, 256])
+@pytest.mark.parametrize('nfft', [1024, 256, 128, 512, 2048, 4096])
 def test_spectrogram_dB_plain_matches_pallas(nfft):
     """per value, dB within 1e-3 of the JAX kernel on bins above -100 dB and
     within 40 dB below their frame's mean power; on every bin above -100 dB,
@@ -83,12 +83,13 @@ def test_spectrogram_dB_plain_matches_pallas(nfft):
 
 
 def test_db_route_and_cpu_tensors():
-    """the register-resident dB kernel takes nfft 1024; every other size
-    keeps the radix-2 kernel; a CPU tensor runs the plain version and
-    counts no launch."""
-    assert db_route(1024) == 'reg'
-    for nfft in (64, 256, 512, 2048, 4096, 16384):
-        assert db_route(nfft) == 'generic', nfft
+    """the frame-group dB kernel takes nfft 64-1024, the block kernel
+    2048-16384: no size keeps the radix-2 kernel; a CPU tensor runs the
+    plain version and counts no launch."""
+    for nfft in (64, 256, 512, 1024):
+        assert db_route(nfft) == 'reg', nfft
+    for nfft in (2048, 4096, 16384):
+        assert db_route(nfft) == 'block', nfft
     design = port_streaming.design_persistence(nfft=1024, window='hann', hist_bins=2048)
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.standard_normal((2, 3 * 1024)).astype('float32'))
@@ -135,6 +136,40 @@ def test_spectrogram_levels_plain_matches_pallas(stats_only):
     diff = np.abs(levels.astype(np.int64) - ref_levels)
     assert diff.max() <= 1
     assert (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize('nfft, navg', [(2048, 0), (2048, 16), (4096, 0), (4096, 16), (1024, 64)])
+def test_spectrogram_levels_plain_matches_pallas_at_the_new_sizes(nfft, navg):
+    """the plain version of row 10 at the sizes the block kernel takes
+    (2048, 4096) and at an apd_navg the frame-group kernel took only from
+    this slice on (64 at 1024), against spectrogram_levels_pallas: the
+    tolerances of test_spectrogram_levels_plain_matches_pallas (mean and
+    max of dB 1e-3, min 5e-3, levels at most 1e-3 moved by one bin, the
+    binned power 1e-5 relative RMS)."""
+    jd, td = _designs(nfft)
+    x = _noise(SLAB, 23 + navg)
+    u = jd['unscramble']
+    outs = [np.asarray(o) for o in spectrogram_levels_pallas(
+        jnp.asarray(x.real), jnp.asarray(x.imag), jd['window'], nfft, jd['edges_dB'],
+        passes=6, apd_navg=navg,
+    )]
+    ref_levels = outs[0][:, u]
+    ref_sum, ref_max, ref_min = (o[u] for o in outs[1:4])
+    got = kernels.spectrogram_levels(
+        torch.from_numpy(np.stack([x.real, x.imag])), torch.from_numpy(td['kernel_window']), nfft,
+        quant=td['quant'], apd_navg=navg,
+    )
+    n_frames = SLAB // nfft
+    np.testing.assert_allclose(got['psum'].numpy() / n_frames, ref_sum / n_frames, atol=1e-3)
+    np.testing.assert_allclose(got['pmax'].numpy(), ref_max, atol=1e-3)
+    np.testing.assert_allclose(got['pmin'].numpy(), ref_min, atol=5e-3)
+    diff = np.abs(got['levels'].numpy().astype(np.int64) - ref_levels)
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    if navg:
+        assert got['p_binned'].shape == outs[4].shape == (SLAB // navg,)
+        assert _rel_rms(got['p_binned'].numpy(), outs[4]) <= 1e-5
+    else:
+        assert got['p_binned'] is None and len(outs) == 4
 
 
 def test_colhist_plain_matches_packed_raw_on_the_same_levels():
