@@ -720,7 +720,7 @@ NO_SPILL = (STATS_REG_KERNEL, COLHIST_REG_KERNEL, HIST_KERNEL, DB_REG_KERNEL, LE
             CLUSTER_KERNEL, CHAN_REG_KERNEL, MIXED_KERNEL, CHAN_CLUSTER_KERNEL, CORR_KERNEL,
             OLA_REG_KERNEL, 'split_radix_kernel', 'split_fwd_passes_kernel',
             'split_inv_passes_kernel', PLAN_CLUSTER_KERNEL, 'spectrogram_block_kernel',
-            'chan_stats_small_kernel')
+            'chan_stats_small_kernel', 'fused_ola_frames_plan_kernel', 'split_plan_passes_kernel')
 FILTER_REPS = 10
 # the monitor beyond 2:1: blackman COLA, R = 3 (tests/test_monitor.py:440-460)
 BLACKMAN = dict(fs_sdr=30.72e6, min_fft_size=2047, window='blackman')
@@ -1574,9 +1574,10 @@ def trace_call(name: str) -> int:
     ola_2to1_<route>_<nfft> (ADD_STEPS)|split_c<C>_<nfft>... (WIDE_SPLIT)|
     plan_<design> (PLAN_STEPS)|plan_frames_<nfft>_<nfft_out> (PLAN_TIMED)|
     plan_cluster_<design> (PC_STEPS)|splitcall_<n>_<mode>_<route>|
-    splitstep_<design>_navg<navg> (split_call_trace)``:
+    splitstep_<design>_navg<navg> (split_call_trace)|prime_ola_filter_<nfft>
+    (PRIME_FILTERS)|prime_step_<window> (PRIME_STEPS)``:
     make the call of phase 11, 15, 16c, 16d, 17b, 18b-c, 19d, 20a, 22b,
-    23a, 23e, 24, 25b, 26b, 26d, 27b, 27c, 28c, 29b or 29c at its shapes, on noise from ``SEED``
+    23a, 23e, 24, 25b, 26b, 26d, 27b, 27c, 28c, 29b, 29c, 31b or 31c at its shapes, on noise from ``SEED``
     (phases 19-20's on their tone + noise; the kernels' work does not
     depend on the values), warm it up, trace it with
     ``device_kernels`` and print (names, device us and events by kernel)
@@ -1719,6 +1720,8 @@ def trace_call(name: str) -> int:
         fn, expect = tier_trace(name, dev, gen)
     elif name.startswith(('splitcall_', 'splitstep_')):
         fn, expect = split_call_trace(name, gen, dev)
+    elif name.startswith('prime_'):
+        fn, expect = prime_trace(name, gen, dev)
     elif name == 'channelize':
         per = CHANNELIZE['fft_size_per_channel']
         n_use = CHANNELIZE_FRAMES * per * CHANNELIZE['channel_count']
@@ -8582,6 +8585,391 @@ def small_frame_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
     return rows
 
 
+# ---- phase 31: rows 2-3 at every frame size the JAX OLA kernel takes up
+# to 2^21 points: a prime radix above 7 as a pass of the run-time plan
+# kernels (csrc/fft_plan.cuh pass_prime) and split parts on run-time plans
+# (csrc/ola_split.cu split_plan_passes_kernel)
+
+# 31a: each new route's kernel on N_PRIME_FRAMES frames (the largest on
+# N_PRIME_BIG_FRAMES) against the plain chain and complex128: the plan
+# kernel (1408 = 11 x 128, 2816, 4224 = 33 x 128, an output of one prime
+# pass: 1408 -> 11), the two-block plan kernel (16768 = 131 x 128, 16896 ->
+# 8448 = 2^8 3 11), split parts on run-time plans (38400 = 3 x 12800,
+# 69120 = 5 x 13824, 41250 = 3 x 13750 -> 25344 = 2 x 12672, and 2096768 =
+# 128 x 16381 -> 16 x 16381, one prime pass a part, the largest prime)
+PRIME_PAIRS = {(1408, 704): 'plan', (1408, 176): 'plan', (2816, 1408): 'plan',
+               (4224, 2112): 'plan', (1408, 11): 'plan', (16768, 8384): 'plan_cluster',
+               (16896, 8448): 'plan_cluster', (76800, 38400): 'split', (69120, 69120): 'split',
+               (41250, 25344): 'split', (2096768, 262096): 'split'}
+PRIME_BIG = (2096768, 262096)
+N_PRIME_FRAMES = 64
+N_PRIME_BIG_FRAMES = 2
+PRIME_FRAME_REPS = 5
+# the plane instances at the two-block pair of 31b, and the 2:1 routes
+# with a halo and the tail
+PRIME_TIER_PAIR = (16896, 8448)
+PRIME_ADD_PAIRS = ((2816, 1408), (16768, 8384), (76800, 38400))
+# 31b: ola_filter on BASELINE #2's capture length, cut to whole input
+# hops: 135.168 MS/s in 8 kHz bins to 67.584 MS/s, and 76.8 MS/s in
+# 1 kHz bins to 38.4 MS/s
+PRIME_FILTERS = {
+    'ola_filter_16896': dict(fs=135.168e6, nfft=16896, nfft_out=8448, window='hamming',
+                             passband=(-27e6, 27e6)),
+    'ola_filter_76800': dict(fs=76.8e6, nfft=76800, nfft_out=38400, window='hamming',
+                             passband=(-15e6, 15e6)),
+}
+# 31c: the monitor at 100 -> 61.44 MS/s (a USRP X310 / N310 rate to an
+# LTE / NR sample rate), steps near 2^24 samples
+PRIME_MONITOR_RATES = (100e6, 61.44e6)
+PRIME_STEPS = {'hamming': ((13750, 8448), 'plan+add'), 'blackman': ((41250, 25344), 'split')}
+PRIME_SPLIT_KERNEL = 'split_plan_passes_kernel'
+KERNEL_INFO.update({
+    # the plan kernel at sizes with a prime above 7 (the 2:1 route 'plan+add'
+    # of the hamming monitor at 100 -> 61.44 MS/s, 13750 -> 8448)
+    'fused_ola_frames_plan_prime': ('iqwaveform_torch/csrc/fft_plan.cuh',
+                                    'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:571'),
+    # the two-block plan kernel there (ola_filter at 16896 -> 8448)
+    'fused_ola_frames_plan_cluster_prime': ('iqwaveform_torch/csrc/fft_plan.cuh',
+                                            'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
+    # the split route with parts on run-time plans (ola_filter at 76800 ->
+    # 38400; the blackman monitor at 41250 -> 25344)
+    'fused_ola_frames_split_plan': ('iqwaveform_torch/csrc/ola_split.cu',
+                                    'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
+    # the largest prime part: 2096768 = 128 x 16381 -> 16 x 16381
+    'fused_ola_frames_split_prime16381': ('iqwaveform_torch/csrc/ola_split.cu',
+                                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
+})
+
+
+def prime_frames_bound(n1: int, n2: int, frames: int, samples: int, mem_rate: float,
+                       fp32_rate: float) -> tuple:
+    """(bound ms, 'bytes' or 'operations') of ``frames`` frames of a pair
+    read from ``samples`` complex64 samples: each sample read once, each
+    output written once, the windows; 5 n log2 n a transform and the
+    windows' and trim's products."""
+    t_bytes = (8 * (samples + frames * n2) + 8 * (n1 + n2)) / mem_rate * 1e3
+    t_ops = frames * (fft_ops(n1) + fft_ops(n2) + 6 * (n1 + n2)) / fp32_rate * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def prime_route_kernel(route: str) -> str:
+    """the device kernel that shows a frame route of this phase: the
+    one-block or two-block plan kernel, or the split route's run-time
+    passes."""
+    return PRIME_SPLIT_KERNEL if route.startswith('split') else route_kernel(route)
+
+
+def prime_input(name: str, gen, dev) -> tuple:
+    """31b's or 31c's call ``name`` ('ola_filter_<nfft>' of PRIME_FILTERS,
+    'step_<window>' of PRIME_STEPS) at its shapes: (the call, its route,
+    its input, the monitor or None)."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops.kernels.fused_ola import frames_route
+
+    if name in PRIME_FILTERS:
+        okw = PRIME_FILTERS[name]
+        hop = okw['nfft'] // 2
+        x = torch.randn((N_OLA // hop) * hop, dtype=torch.complex64, device=dev, generator=gen)
+        return (lambda: it.ola_filter(x, **okw)), frames_route(okw['nfft'], okw['nfft_out']), x, None
+    window = name.removeprefix('step_')
+    mon = it.WidebandMonitor(it.design_wideband_monitor(*PRIME_MONITOR_RATES, window=window))
+    x = plan_step_input(mon, gen, dev)
+    return (lambda: mon.step(x)), mon.routes['ola'], x, mon
+
+
+def prime_trace(name: str, gen, dev) -> tuple:
+    """``--trace prime_<call>``: (31b's or 31c's call, the kernel its
+    profile must show)."""
+    fn, route, _, _ = prime_input(name.removeprefix('prime_'), gen, dev)
+    return fn, (prime_route_kernel(route),)
+
+
+def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
+    """phase 31; returns the kernels line's rows of the new routes."""
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops import filtering as TF
+    from iqwaveform_torch.ops import kernels
+    from iqwaveform_torch.ops.kernels import _build
+    from iqwaveform_torch.ops.kernels.fused_ola import (
+        frames_route,
+        ola_grouped,
+        ola_route,
+        split_part_on_plan,
+        split_plan,
+    )
+
+    t_phase = time.perf_counter()
+    kset = {k.__name__: k for k in kernels.KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    frames_k, strided = kernels.fused_ola_frames, kernels.fused_ola_strided
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- 31d: ptxas's registers and spills of the kernels that run the
+    # prime pass: none may spill
+    report = _build.ptxas_report()
+    ptxas = {k: kernel_ptxas(report, k) for k in (
+        PLAN_KERNEL, PLAN_CLUSTER_KERNEL, PRIME_SPLIT_KERNEL)}
+    print(f'31d ptxas: {json.dumps(ptxas)}')
+    spilled = {k: i for k, v in ptxas.items() for i, p in v.items()
+               if p['spill_stores'] or p['spill_loads']}
+    require(len(ptxas[PLAN_KERNEL]) == 4 and len(ptxas[PLAN_CLUSTER_KERNEL]) == 8
+            and len(ptxas[PRIME_SPLIT_KERNEL]) == 2 and not spilled,
+            f'31d: an instance spills or is missing: {spilled} {ptxas}')
+
+    # ---- 31a: each new route's kernel against the plain chain and
+    # complex128, route and launch counts, frames timed beside the chain
+    pairs = {}
+    for pair, want in PRIME_PAIRS.items():
+        n1, n2 = pair
+        route = frames_route(n1, n2)
+        require(route == want, f'31a {pair}: frames_route {route}, not {want}')
+        n_fr = N_PRIME_BIG_FRAMES if pair == PRIME_BIG else N_PRIME_FRAMES
+        kw = tier_kwargs(n1, n2, gen, dev)
+        hop = n1 // 2
+        capture = torch.randn(n_fr * hop + n1, dtype=torch.complex64, device=dev, generator=gen)
+        frames = capture.unfold(-1, n1, hop)[:n_fr]
+        reset_counts()
+        got = frames_k(frames, **kw)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        require(launched == {'fused_ola_frames': 1}
+                and frames_k.route_launches == frame_routes(**{route: 1}),
+                f'31a {pair}: launches {launched}, routes {frames_k.route_launches}')
+        ref = kernels.fused_ola_frames_plain(frames, **kw)
+        ref64 = kernels.fused_ola_frames_plain(frames.to(torch.complex128), **_wide_kw(kw))
+        err, err64, plain64 = rel_rms(got, ref), rel_rms(got, ref64), rel_rms(ref, ref64)
+        require(err <= 1e-5, f'31a {pair}: relative RMS {err:.3g}')
+        require(err64 <= 2 * plain64,
+                f'31a {pair}: complex128 error {err64:.4g} > 2 x the plain chain\'s {plain64:.4g}')
+        kernel_fn = lambda fr=frames, kw=kw: frames_k(fr, **kw)  # noqa: E731
+        chain_fn = lambda fr=frames, kw=kw: kernels.fused_ola_frames_plain(fr, **kw)  # noqa: E731
+        ms, chain_ms = (timed_ms(f, reps=PRIME_FRAME_REPS, warmup=1) for f in (kernel_fn, chain_fn))
+        bound, by = prime_frames_bound(n1, n2, n_fr, n_fr * hop + n1, mem_rate, fp32_rate)
+        entry = {'route': route, 'frames': n_fr, 'relative_rms': err, 'f64_rel_rms': err64,
+                 'plain_f64_rel_rms': plain64, 'max_abs_err': max_abs(got, ref), 'ms': ms,
+                 'chain_ms': chain_ms, 'bound_ms': bound, 'bound_by': by,
+                 'ms_over_bound': ms / bound}
+        if route == 'split':
+            entry['split'] = [list(s) for s in split_plan(n1, n2)]
+            entry['run_time_parts'] = [split_part_on_plan(split_plan(n1, n2)[0][1]),
+                                       split_part_on_plan(split_plan(n1, n2)[1][1], True)]
+        if pair == PRIME_TIER_PAIR:
+            for dtype in (torch.int16, torch.bfloat16, torch.float32):
+                planes = (PLANES_SCALE * torch.stack([capture.real, capture.imag])).round().to(dtype)
+                reset_counts()
+                gp = frames_k(planes, hop_in=hop, **kw)
+                torch.cuda.synchronize()
+                rp = kernels.fused_ola_frames_plain(planes, hop_in=hop, **kw)
+                e = rel_rms(gp, rp)
+                layout = str(dtype).split('.')[-1]
+                require(frames_k.route_launches == frame_routes(**{route: 1})
+                        and frames_k.layout_launches[layout] == 1,
+                        f'31a {pair} {layout}: {frames_k.route_launches} {frames_k.layout_launches}')
+                require(e <= 1e-5, f'31a {pair} {layout} planes: relative RMS {e:.3g}')
+                entry[layout] = {'relative_rms': e, 'ms': timed_ms(
+                    lambda p=planes: frames_k(p, hop_in=hop, **kw), reps=PRIME_FRAME_REPS,
+                    warmup=1)}
+        if pair in PRIME_ADD_PAIRS:
+            h = n1 // 2
+            skw = dict(hop_in=h, **kw)
+            x = torch.randn((n_fr + 1) * h, dtype=torch.complex64, device=dev, generator=gen)
+            src, halo = x[:-h], x[-h:]
+            add_route = ola_route(n1, n2)
+            reset_counts()
+            y, tail = strided(src, halo, n_frames=n_fr, **skw)
+            torch.cuda.synchronize()
+            launched = {k: c.launches for k, c in kset.items() if c.launches}
+            require(launched == {'fused_ola_strided': 1, 'ola_add': 1}
+                    and strided.route_launches == ola_routes(**{add_route: 1})
+                    and add_route == route + '+add',
+                    f'31a {pair} 2:1: launches {launched}, {strided.route_launches}')
+            r, rt = kernels.fused_ola_strided_plain(src, halo, n_frames=n_fr, **skw)
+            y64, t64 = strided_f64(src, halo, dict(skw, precision='highest'))
+            both, plain = torch.cat([y, tail]), torch.cat([r, rt])
+            ref64 = torch.cat([y64, t64])
+            e, e64, p64 = rel_rms(both, plain), rel_rms(both, ref64), rel_rms(plain, ref64)
+            require(e <= 1e-5, f'31a {pair} {add_route}: relative RMS {e:.3g}')
+            require(e64 <= 2 * p64, f'31a {pair} {add_route}: complex128 error {e64:.4g} '
+                                    f'> 2 x the plain\'s {p64:.4g}')
+            entry[add_route] = {'relative_rms': e, 'f64_rel_rms': e64, 'plain_f64_rel_rms': p64}
+        pairs[f'{n1}->{n2}'] = entry
+        print(f'31a {n1} -> {n2} ({route}, {n_fr} frames): vs plain {err:.3g}, vs complex128 '
+              f'{err64:.4g} (the chain {plain64:.4g}); {ms:.4f} ms, the torch.fft chain '
+              f'{chain_ms:.4f} ms, bound {bound:.4f} ms by {by} ({ms / bound:.1f}x)'
+              + ''.join(f'; {k} {json.dumps(entry[k])}' for k in entry
+                        if k in ('int16', 'bfloat16', 'float32') or k.endswith('+add'))
+              + f' ({smi})')
+        del capture, frames, got, ref, ref64
+        torch.cuda.empty_cache()
+
+    # the largest prime part's row: its 31a call and times
+    big = pairs[f'{PRIME_BIG[0]}->{PRIME_BIG[1]}']
+    rows = [{'name': 'fused_ola_frames_split_prime16381', 'route': 'cuda',
+             'source': KERNEL_INFO['fused_ola_frames_split_prime16381'][0],
+             'replaces': KERNEL_INFO['fused_ola_frames_split_prime16381'][1], 'launches': 1,
+             'max_abs_err': big['max_abs_err'], 'ms': big['ms'], 'plain_ms': big['chain_ms'],
+             'bound_ms': big['bound_ms'], 'bound_by': big['bound_by'],
+             'library_ms': big['chain_ms'], 'frames': big['frames'], 'split': big['split']}]
+
+    # ---- 31b: ola_filter through the kernel route, the plain route and
+    # the stage chain, one launch a call, at the two designs
+    for rname, okw in PRIME_FILTERS.items():
+        nfft, nfft_out = okw['nfft'], okw['nfft_out']
+        hop = nfft // 2
+        call, route, x, _ = prime_input(rname, gen, dev)
+        n = x.numel()
+        it.ola_filter(x[: 4 * nfft], **okw)
+        torch.cuda.synchronize()
+        reset_counts()
+        y = it.ola_filter(x, **okw)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        require(launched == {'fused_ola_frames': 1}
+                and frames_k.route_launches == frame_routes(**{route: 1}),
+                f'31b {rname}: launches {launched}, routes {frames_k.route_launches}')
+        route_count = frames_k.route_launches[route]
+        ref = it.ola_filter(x, **okw, plain=True)
+        require(y.shape == ref.shape == (n * nfft_out // nfft,)
+                and bool(torch.isfinite(torch.view_as_real(y)).all()),
+                f'31b {rname}: shape {tuple(y.shape)} or not finite')
+        # a prefix of whole output overlaps whose frames cover the first
+        # N_OLA_CHAIN output samples
+        o = nfft_out // 2
+        n_pre = -(-(N_OLA_CHAIN * nfft // nfft_out + 2 * nfft) // o) * o
+        chain = it.ola_filter(x[:n_pre], **okw, fft_backend='xla')
+        err_route, err_chain = rel_rms(y, ref), rel_rms(y[:N_OLA_CHAIN], chain[:N_OLA_CHAIN])
+        require(err_route <= 1e-5 and err_chain <= 1e-5,
+                f'31b {rname}: vs plain {err_route:.3g}, vs the stage chain {err_chain:.3g}')
+        del ref, chain
+        call_ms = {k: timed_ms(lambda kk=kk: it.ola_filter(x, **okw, **kk), reps=FILTER_REPS,
+                               warmup=1)
+                   for k, kk in (('kernel', {}), ('plain', {'plain': True}),
+                                 ('chain', {'fft_backend': 'xla'}))}
+        kernel = prime_route_kernel(route)
+        names, device_us = device_kernels(call, kernel, fresh=f'prime_{rname}')
+        require(any(kernel in k for k in names) and not library_kernels(names),
+                f'31b {rname}: the profile lacks {kernel} or holds library kernels: {names}')
+        busy = sum(device_us.values()) / 1e3
+        # the frame kernel alone on this call's frames, with its bound
+        enbw = it.equivalent_noise_bandwidth('hamming', nfft_out, fftbins=False)
+        zero_lo, zero_hi, b_in, b_out = TF._ola_bin_bounds(
+            nfft, nfft_out, okw['fs'], okw['passband'], enbw, True)
+        w_in, w_out = TF._ola_windows('hamming', nfft, nfft_out, hop, dev)
+        fkw = dict(w_in=w_in, w_shift_out=w_out, nfft=nfft, nfft_out=nfft_out, zero_lo=zero_lo,
+                   zero_hi=zero_hi, bounds_in=b_in, bounds_out=b_out)
+        frames = x.unfold(-1, nfft, hop)
+        got_f, ref_f = frames_k(frames, **fkw), kernels.fused_ola_frames_plain(frames, **fkw)
+        err_f = rel_rms(got_f, ref_f)
+        require(err_f <= 1e-5, f'31b {rname} frames: relative RMS {err_f:.3g}')
+        n_fr = frames.shape[0]
+        kname = ('fused_ola_frames_plan_cluster_prime' if route == 'plan_cluster'
+                 else 'fused_ola_frames_split_plan')
+        row = kernel_row(kname, {'launches': route_count,
+                                 'max_abs_err': max_abs(got_f, ref_f)},
+                         8 * x.numel() + 8 * got_f.numel() + 8 * (nfft + nfft_out),
+                         n_fr * (fft_ops(nfft) + fft_ops(nfft_out) + 6 * (nfft + nfft_out)),
+                         lambda: frames_k(frames, **fkw),
+                         lambda: kernels.fused_ola_frames_plain(frames, **fkw),
+                         lambda: kernels.fused_ola_frames_plain(frames, **fkw),
+                         mem_rate, fp32_rate, reps=FILTER_REPS, warmup=1)
+        row.update(pair=f'{nfft}->{nfft_out}', frames_route=route, frames=n_fr,
+                   relative_rms=err_f, path=f'ola_filter {okw["fs"] / 1e6:g} MS/s, {n} samples',
+                   path_ms=call_ms, path_device_us=device_us,
+                   path_idle_share=max(0.0, 1 - busy / call_ms['kernel']),
+                   path_vs_plain=err_route, path_vs_chain=err_chain,
+                   split=[list(s) for s in split_plan(nfft, nfft_out)] if route == 'split' else None)
+        rows.append(row)
+        print(f'31b {rname} ({n} samples, {nfft} -> {nfft_out}, route {route}): vs plain '
+              f'{err_route:.3g}, vs the stage chain {err_chain:.3g}; ola_filter '
+              f'{json.dumps(call_ms)} ms ({n / call_ms["kernel"] / 1e3:.1f} MS/s through the '
+              f'kernel), device busy {busy:.4f} ms; the frames alone {row["ms"]:.4f} ms (bound '
+              f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}, plain / torch.fft chain '
+              f'{row["plain_ms"]:.4f} ms) ({smi})')
+        del x, y, frames, got_f, ref_f
+        torch.cuda.empty_cache()
+
+    # ---- 31c: the monitor at 100 -> 61.44 MS/s, hamming ('plan+add') and
+    # blackman ('split' and the grouped overlap-add), near 2^24 samples
+    steps = {}
+    for window, (pair, want) in PRIME_STEPS.items():
+        call, route, x, mon = prime_input(f'step_{window}', gen, dev)
+        d = mon.design
+        require((d.nfft, d.nfft_out) == pair and route == want,
+                f'31c {window}: {d.nfft} -> {d.nfft_out}, routes {mon.routes}')
+        mon.step(x[: mon.min_input_multiple()])
+        torch.cuda.synchronize()
+        reset_counts()
+        out = mon.step(x)
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in kset.items() if c.launches}
+        if route.endswith('+add'):
+            ok = (launched.get('fused_ola') == 1 and launched.get('ola_add') == 1
+                  and kernels.fused_ola.route_launches == ola_routes(**{route: 1}))
+        else:
+            ok = (launched.get('fused_ola_frames') == 1
+                  and frames_k.route_launches == frame_routes(**{route: 1}))
+        require(ok, f'31c {window}: launches {launched}, fused_ola '
+                    f'{kernels.fused_ola.route_launches}, frames {frames_k.route_launches}')
+        route_count = (kernels.fused_ola.route_launches[route] if route.endswith('+add')
+                       else frames_k.route_launches[route])
+        check_step(out, mon.reference_step(x), f'31c {window} vs reference_step')
+        if mon._strided:
+            plain_ola = lambda: kernels.fused_ola_plain(x, **mon.ola_kwargs)  # noqa: E731
+        else:
+            plain_ola = lambda: ola_grouped(  # noqa: E731
+                x, frames_fn=kernels.fused_ola_frames_plain, **mon.ola_kwargs)
+        plain_step = lambda: mon._outputs(plain_ola(), mon._chan, mon._counts)  # noqa: E731
+        check_step(plain_step(), out, f'31c {window} through the plain route vs the step')
+        step_ms = timed_ms(lambda: mon.step(x), reps=10)
+        plain_step_ms = timed_ms(plain_step, reps=10)
+        kernel = prime_route_kernel(route)
+        names, device_us = device_kernels(call, kernel, fresh=f'prime_step_{window}')
+        require(any(kernel in k for k in names) and not library_kernels(names),
+                f'31c {window}: the profile lacks {kernel} or holds library kernels: {names}')
+        busy = sum(device_us.values()) / 1e3
+        steps[window] = {'pair': f'{pair[0]}->{pair[1]}', 'route': route, 'samples': x.numel(),
+                         'launches': launched, 'route_launches': route_count, 'step_ms': step_ms,
+                         'plain_route_step_ms': plain_step_ms, 'device_us': device_us,
+                         'kernel_device_ms': named_ms(device_us, kernel),
+                         'idle_share': max(0.0, 1 - busy / step_ms)}
+        print(f'31c {window} ({pair[0]} -> {pair[1]}, {x.numel()} samples, route {route}): '
+              f'launches {json.dumps(launched)}; within the step gates of reference_step; '
+              f'{step_ms:.4f} ms a step, through the plain route {plain_step_ms:.4f} ms; {kernel} '
+              f'{steps[window]["kernel_device_ms"]:.4f} ms of device time; idle share '
+              f'{steps[window]["idle_share"]:.3f} ({smi})')
+        if window == 'hamming':
+            # the plan kernel's row: the 2:1 route on this step's samples
+            okw = mon.ola_kwargs
+            y, y_plain = kernels.fused_ola(x, **okw), kernels.fused_ola_plain(x, **okw)
+            e = rel_rms(y, y_plain)
+            require(e <= 1e-5, f'31c {window} fused_ola: relative RMS {e:.3g}')
+            n_fr = x.numel() // mon.hop_in
+            row = kernel_row('fused_ola_frames_plan_prime',
+                             {'launches': route_count,
+                              'max_abs_err': max_abs(y, y_plain)},
+                             8 * (x.numel() + y.numel()) + 8 * (pair[0] + pair[1]),
+                             n_fr * (fft_ops(pair[0]) + fft_ops(pair[1]) + 6 * sum(pair)),
+                             lambda: kernels.fused_ola(x, **okw),
+                             lambda: kernels.fused_ola_plain(x, **okw),
+                             lambda: kernels.fused_ola_plain(x, **okw), mem_rate, fp32_rate)
+            row.update(pair=steps[window]['pair'], ola_route=route, frames=n_fr,
+                       relative_rms=e, path='WidebandMonitor.step, hamming 100 -> 61.44 MS/s',
+                       pairs=pairs, ptxas=ptxas)
+            rows.append(row)
+            print(f'31c fused_ola at {pair[0]} -> {pair[1]} ({route}): {row["ms"]:.4f} ms (bound '
+                  f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}, plain / torch.fft chain '
+                  f'{row["plain_ms"]:.4f} ms) ({smi})')
+            del y, y_plain
+        del mon, x, out
+        torch.cuda.empty_cache()
+    split_row = next(r for r in rows if r['name'] == 'fused_ola_frames_split_plan')
+    split_row['launches'] += steps['blackman']['route_launches']
+    split_row['monitor_steps'] = steps
+    print(f'phase 31: {time.perf_counter() - t_phase:.1f} s, peak device memory '
+          f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
+    return rows
+
+
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
 
 
@@ -9038,6 +9426,11 @@ def main(parent: str | None = None) -> int:
     # frame-group and block kernels) and rows 4-5 at 64-512 points (the
     # small-frame channelizer), beside the radix-2 bodies they replace
     rows = merge_rows(rows, small_frame_phases(dev, smi, mem_rate, fp32_rate))
+
+    # ---- phase 31: rows 2-3 at every frame size the JAX OLA kernel takes
+    # up to 2^21 points: the prime pass of the run-time plan kernels, split
+    # parts on run-time plans
+    rows = merge_rows(rows, prime_phases(dev, smi, mem_rate, fp32_rate))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({

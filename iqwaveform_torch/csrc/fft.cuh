@@ -273,4 +273,13 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// whether p is a prime (the radices of the split routes' generic pass and of
+// csrc/fft_plan.cuh pass_prime)
+__host__ __device__ constexpr bool is_prime(int p) {
+  if (p < 2) return false;
+  for (int q = 2; q * q <= p; ++q)
+    if (p % q == 0) return false;
+  return true;
+}
+
 }  // namespace iqt

@@ -1,16 +1,16 @@
 // Register-resident Stockham FFT passes on a plan chosen at run time.
 //
 // csrc/fft_reg.cuh compiles one plan per size (reg::Plan<N>), so every
-// index is a constant; this header runs any size N = 2^a 3^b 5^c 7^d from a
-// plan the host builds (ops/kernels/fused_ola.py plan_radices / frame_plan)
-// and passes to the kernel as one __grid_constant__ struct, so that one
-// instance per element type covers every size pair.
+// index is a constant; this header runs any size N from a plan the host
+// builds (ops/kernels/fused_ola.py plan_radices / frame_plan) and passes to
+// the kernel as one __grid_constant__ struct, so that one instance per
+// element type covers every size pair.
 //
 // The plan: radix-16 passes first, then one pass of radix 8, 4 or 2 for the
-// rest of 2^a, then the odd radices (3, 5, 7) in ascending order. The
-// passes are those of fft_reg.cuh (autosort, natural order in and out):
-// pass s with radix R, NS = the product of the radices before it, NB = N /
-// R butterflies,
+// rest of 2^a, then the odd radices (3, 5, 7) in ascending order, then the
+// primes above 7 in ascending order. The passes are those of fft_reg.cuh
+// (autosort, natural order in and out): pass s with radix R, NS = the
+// product of the radices before it, NB = N / R butterflies,
 //
 //   butterfly b < NB, k = b mod NS:
 //     v[r] = in[b + r NB]                              r < R
@@ -23,21 +23,34 @@
 // __umulhi(b, magic) >> shift, the host's multiplier for NS (exact for
 // every b < N; tests/test_torch_ola_plan.py checks every b), never `/`.
 //
-// Each pass dispatches on its radix through a switch to a function whose
-// radix is a template argument, so the butterfly and its R points stay in
-// registers. A thread of a group of G lanes takes butterflies lane, lane +
-// G, ...: at most ceil(PMAX / R) of them, PMAX the most points a thread
-// holds (the host picks G with N <= PMAX G), all read before the group's
-// barrier and written after it (the exchange is in place, in shared
-// memory: every pass reads and writes the padded buffer, and the caller
-// stages the frame in and reads the transform out).
+// Each pass of radix 2-16 dispatches on its radix through a switch to a
+// function whose radix is a template argument, so the butterfly and its R
+// points stay in registers. A thread of a group of G lanes takes
+// butterflies lane, lane + G, ...: at most ceil(PMAX / R) of them, PMAX the
+// most points a thread holds (the host picks G with N <= PMAX G), all read
+// before the group's barrier and written after it (the exchange is in
+// place, in shared memory: every pass reads and writes the padded buffer,
+// and the caller stages the frame in and reads the transform out).
+//
+// A prime radix P above 7, known only at run time (pass_prime), takes the
+// same pass output by output: a thread computes outputs e = lane + i G of
+// the pass (at most PMAX of them), each the sum over j < P of in[b + j NB]
+// times exp(sign 2 pi i j (k + r NS) / (NS P)), the Stockham twiddle and
+// the P-point DFT in one root of order NS P, from the exchange buffer;
+// holds them in the transform's register array until the group's barrier,
+// then writes them. O(P) complex multiply-adds a point (Rader or Bluestein
+// would take O(log P)): the host puts these passes last, where NS P = N.
 //
 // Twiddles: pass s's table is (R - 1) rows of nh high factors exp(sign 2 pi
 // i r kh LS / (NS R)) then LS low factors exp(sign 2 pi i r kl / (NS R)),
 // k = kh LS + kl, LS = 2^ceil(log2(NS) / 2) and at least 16, nh = ceil(NS /
-// LS) (0 where NS <= LS), as fft_reg.cuh splits them; built on the host in
-// float64, rounded once to float32, copied into shared memory once a block.
-// The exchange buffer is padded by one float2 in 16 (reg::pad).
+// LS) (0 where NS <= LS), as fft_reg.cuh splits them; a prime pass's is one
+// row of nh = ceil(NS P / LS) high roots exp(sign 2 pi i h LS / (NS P))
+// then LS low roots exp(sign 2 pi i l / (NS P)), LS = 2^ceil(log2(NS P) /
+// 2) and at least 16 (a few hundred entries where one root a point would
+// take N). All built on the host in float64, rounded once to float32,
+// copied into shared memory once a block. The exchange buffer is padded by
+// one float2 in 16 (reg::pad).
 #pragma once
 
 #include "fft_reg.cuh"
@@ -48,6 +61,10 @@ namespace plan {
 // the most passes of one transform: 2^15 in radix-16 passes and one of 8,
 // 4 or 2, then up to 11 odd radices (the host refuses a plan of more)
 constexpr int kMaxPasses = 16;
+// a prime pass's terms summed in float32 before each compensated addition
+// to the output's running sum (prime_term_sum; at 8, ptxas spilled 4 bytes
+// in split_plan_passes_kernel)
+constexpr int kPrimeBlock = 4;
 
 // one pass of a plan (all ints, in this order, as the host packs them)
 struct Pass {
@@ -57,9 +74,9 @@ struct Pass {
   unsigned magic;  // k = b - (__umulhi(b, magic) >> shift) ns (odd radices, ns > 1)
   int shift;
   int tw;      // this pass's table: offset in the frame's tables
-  int ls;      // low span LS (a power of two, >= 16)
+  int ls;      // low span LS (a power of two, >= 16; of NS P at a prime P > 7)
   int ls_log2;
-  int nh;      // high factors a row (0: none)
+  int nh;      // high factors a row (0: none; at a prime, ceil(NS P / LS) >= 1)
   int row;     // nh + ls
 };
 
@@ -165,6 +182,120 @@ __device__ __forceinline__ void pass_r(const Pass& p, float2 (&v)[S], float2* bu
   }
 }
 
+// s += x in float32 with the rounding error carried in c (Knuth's
+// two-sum: exact whatever the magnitudes; no multiplication to contract)
+__device__ __forceinline__ void two_sum(float& s, float& c, float x) {
+  const float t = s + x;
+  const float bp = t - s;
+  c += (s - (t - bp)) + (x - bp);
+  s = t;
+}
+
+// output r of butterfly b of prime pass p (k = b mod NS, step = k + r NS <
+// NS P): the sum over j < P of in[b + j NB] exp(sign 2 pi i j step / (NS
+// P)), the root of index m = j step mod NS P from the pass's table as
+// high[m >> ls_log2] low[m mod LS]. Terms in blocks of kPrimeBlock summed
+// in float32, each block added to a compensated sum: the rounding of a
+// sum of P terms grows as sqrt(kPrimeBlock), not sqrt(P).
+template <bool TRIM, class Load>
+__device__ __forceinline__ float2 prime_term_sum(const Pass& p, const float2* buf,
+                                                 const float2* t, const Load& trim, int b,
+                                                 int step) {
+  const int order = p.ns * p.radix;
+  const float2* high = t;
+  const float2* low = t + p.nh;
+  const int lmask = p.ls - 1;
+  float sx = 0.f, sy = 0.f, cx = 0.f, cy = 0.f;
+  int m = 0, at = b;
+#pragma unroll 1
+  for (int j0 = 0; j0 < p.radix; j0 += kPrimeBlock) {
+    float px = 0.f, py = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kPrimeBlock; ++jj) {
+      if (j0 + jj < p.radix) {
+        const float2 x = TRIM ? trim.read(buf, at) : buf[reg::pad(at)];
+        const float2 w = cmul(high[m >> p.ls_log2], low[m & lmask]);
+        px = fmaf(x.x, w.x, fmaf(-x.y, w.y, px));
+        py = fmaf(x.x, w.y, fmaf(x.y, w.x, py));
+        at += p.nb;
+        m += step;
+        if (m >= order) m -= order;
+      }
+    }
+    two_sum(sx, cx, px);
+    two_sum(sy, cy, py);
+  }
+  return make_float2(sx + cx, sy + cy);
+}
+
+// the butterfly b, output r and k = b mod NS of a prime pass's output e =
+// r NB + b
+__device__ __forceinline__ void prime_output(const Pass& p, int e, int& b, int& r, int& k) {
+  r = static_cast<int>(static_cast<unsigned>(e) / static_cast<unsigned>(p.nb));
+  b = e - r * p.nb;
+  k = p.ns == 1 ? 0
+                : b - static_cast<int>(__umulhi(static_cast<unsigned>(b), p.magic) >> p.shift) *
+                          p.ns;
+}
+
+// pass p at a prime radix P above 7 in the padded exchange buffer, for lane
+// `lane` of a group of G lanes (a template argument: with the group's size
+// read at run time ptxas spilled in this pass): outputs e = lane + i G (i <
+// PMAX, e < N), in the order r NB + b (consecutive lanes read consecutive
+// points where NB >= 32), each summed from the buffer (through the trim
+// where TRIM), into v[i] of the transform's register array (selected by an
+// unrolled compare, so that the array stays in registers while one copy of
+// the sum serves every i), the barrier `mid`, each output written to (b -
+// k) P + k + r NS. Kept out of pass_r: a per-output loop there would widen
+// every radix's register slots.
+template <int PMAX, bool TRIM, int G, int S, class Load, class Mid>
+__device__ __forceinline__ void pass_prime(const Pass& p, float2 (&v)[S], float2* buf,
+                                           const float2* tabs, const Load& trim, int lane,
+                                           Mid mid) {
+  static_assert(PMAX <= S, "the shared array holds a thread's outputs");
+  const int n = p.nb * p.radix;
+  const float2* t = tabs + p.tw;
+#pragma unroll 1
+  for (int i = 0; i < PMAX; ++i) {
+    const int e = lane + i * G;
+    if (e >= n) break;
+    int b, r, k;
+    prime_output(p, e, b, r, k);
+    const float2 s = prime_term_sum<TRIM>(p, buf, t, trim, b, k + r * p.ns);
+#pragma unroll
+    for (int u = 0; u < PMAX; ++u)
+      if (u == i) v[u] = s;
+  }
+  mid();
+#pragma unroll 1
+  for (int i = 0; i < PMAX; ++i) {
+    const int e = lane + i * G;
+    if (e >= n) break;
+    int b, r, k;
+    prime_output(p, e, b, r, k);
+    float2 s = v[0];
+#pragma unroll
+    for (int u = 1; u < PMAX; ++u)
+      if (u == i) s = v[u];
+    buf[reg::pad((b - k) * p.radix + k + r * p.ns)] = s;
+  }
+}
+
+// pass_prime at the group's size, one instance a power of two from 32 to
+// 512 lanes (a caller whose group is a constant keeps one)
+template <int PMAX, bool TRIM, int S, class Load, class Mid>
+__device__ __forceinline__ void pass_prime_by_group(const Pass& p, float2 (&v)[S], float2* buf,
+                                                    const float2* tabs, const Load& trim,
+                                                    int lane, int group, Mid mid) {
+  switch (group) {
+    case 32: pass_prime<PMAX, TRIM, 32>(p, v, buf, tabs, trim, lane, mid); break;
+    case 64: pass_prime<PMAX, TRIM, 64>(p, v, buf, tabs, trim, lane, mid); break;
+    case 128: pass_prime<PMAX, TRIM, 128>(p, v, buf, tabs, trim, lane, mid); break;
+    case 256: pass_prime<PMAX, TRIM, 256>(p, v, buf, tabs, trim, lane, mid); break;
+    default: pass_prime<PMAX, TRIM, 512>(p, v, buf, tabs, trim, lane, mid); break;
+  }
+}
+
 // the points a thread of PMAX holds in a pass at most: the largest R
 // ceil(PMAX / R) over the radices
 template <int PMAX>
@@ -178,7 +309,8 @@ __host__ __device__ constexpr int slots() {
   return most;
 }
 
-// pass p by its radix (the host built the plan from the instance's radices)
+// pass p by its radix (the host built the plan from the instance's radices;
+// a prime above 7 by pass_prime)
 template <bool INV, int PMAX, bool TRIM, int S, class Load, class Mid>
 __device__ __forceinline__ void pass(const Pass& p, float2 (&v)[S], float2* buf,
                                      const float2* tabs, const Load& trim, int lane, int group,
@@ -195,7 +327,9 @@ __device__ __forceinline__ void pass(const Pass& p, float2 (&v)[S], float2* buf,
     IQT_PLAN_RADIX(3)
     IQT_PLAN_RADIX(5)
     IQT_PLAN_RADIX(7)
-    default: break;
+    default:
+      pass_prime_by_group<PMAX, TRIM>(p, v, buf, tabs, trim, lane, group, mid);
+      break;
   }
 #undef IQT_PLAN_RADIX
 }
@@ -230,22 +364,30 @@ __device__ __forceinline__ void fft(const Transform& tp, float2* buf, const floa
 }
 
 // the host's check of a transform's plan for an instance of PMAX points a
-// thread and groups of `group` lanes: its radices, in the plan's order,
+// thread and groups of `group` lanes: one pass at least, its radices (2-16,
+// or a prime above 7 whose table's roots cover NS P), in the plan's order,
 // multiply to n, every NS and NB follows from them, and a thread's
-// butterflies hold every point (tests/test_torch_ola_plan.py models the
-// rest: the multipliers, the tables)
+// butterflies (a prime pass's outputs) hold every point
+// (tests/test_torch_ola_plan.py and tests/test_torch_ola_primes.py model
+// the rest: the multipliers, the tables)
 template <int PMAX>
 inline bool transform_ok(const Transform& tp, int group) {
-  if (tp.passes < 2 || tp.passes > kMaxPasses || tp.n < 1) return false;
+  if (tp.passes < 1 || tp.passes > kMaxPasses || tp.n < 1) return false;
   long long ns = 1;
   for (int s = 0; s < tp.passes; ++s) {
     const Pass& p = tp.pass[s];
     const int r = p.radix;
-    if (r != 16 && r != 8 && r != 4 && r != 2 && r != 3 && r != 5 && r != 7) return false;
+    const bool prime = r > 7 && is_prime(r);
+    if (r != 16 && r != 8 && r != 4 && r != 2 && r != 3 && r != 5 && r != 7 && !prime)
+      return false;
     if (p.ns != ns || static_cast<long long>(p.nb) * r != tp.n) return false;
     if (p.ls < 16 || (p.ls & (p.ls - 1)) || (1 << p.ls_log2) != p.ls || p.row != p.nh + p.ls)
       return false;
-    if (p.nb > static_cast<long long>(group) * ((PMAX + r - 1) / r)) return false;
+    if (prime) {
+      if (static_cast<long long>(p.nh) * p.ls < ns * r || p.nb * r > group * PMAX) return false;
+    } else if (p.nb > static_cast<long long>(group) * ((PMAX + r - 1) / r)) {
+      return false;
+    }
     ns *= r;
   }
   return ns == tp.n;

@@ -170,9 +170,10 @@ __device__ __forceinline__ void stage_planes(float2* buf, const E* __restrict__ 
 // (frames up to 16384 points), the two-block plan kernel below (the even
 // one-block frames above) and the split route (one-block frames above 8192
 // points whose forward transform splits) it routes only where none of the
-// others holds the pair (sizes of one pass,
-// odd sizes above 16384 points: ops/kernels/fused_ola.py frames_route
-// 'generic'); elsewhere it is the yardstick of the others
+// others holds the pair (sizes of one pass of radix 2-7, odd sizes above
+// 16384 points: ops/kernels/fused_ola.py frames_route 'generic'; a prime
+// factor above 7, which it has no pass for, takes the plan kernels' prime
+// pass or the split route); elsewhere it is the yardstick of the others
 // (_fused_ola_frames_generic).
 constexpr int kFrameThreads = 1024;
 
@@ -414,7 +415,10 @@ fused_ola_frames_reg_kernel(const E* __restrict__ x, long long batch_stride,
 // fused_ola_frames_reg_kernel on the passes of csrc/fft_plan.cuh, whose
 // plan (radices, NS, the odd passes' multipliers, table offsets) the host
 // builds per size pair and passes as one __grid_constant__ FramePlan, so
-// that one instance per element type covers every such pair.
+// that one instance per element type covers every such pair: sizes of any
+// factors, each prime above 7 a pass of O(p) a point (fft_plan.cuh
+// pass_prime; 1408 = 11 x 128, 13750 = 2 x 5^4 x 11, and an output of one
+// prime pass, 1408 -> 11).
 //
 // What held the generic kernel back is what fused_ola_frames_reg_kernel
 // above does away with, and this kernel does the same at sizes fixed only
@@ -552,7 +556,9 @@ fused_ola_frames_plan_kernel(const E* __restrict__ x, long long batch_stride,
 // contract of fused_ola_frames_plan_kernel, at the one-block pairs whose
 // frames that kernel does not hold (above 16384 points) and where
 // REG_PAIRS, CLUSTER_PAIRS and the split route do not take the pair (of the
-// monitor's, 19200 -> 5120, 20480 -> 20480 and 24576 -> 24576; the split
+// monitor's, 19200 -> 5120, 20480 -> 20480 and 24576 -> 24576; halves with
+// a prime above 7 through the same prime pass, 16768 = 2 x 64 x 131 and
+// 16896 -> 8448 = 2^8 3 11 among them; the split
 // route, faster, takes the pairs whose forward transform splits, such as
 // 20480 -> 10240 and 25600 -> 5120: PERF.md) (ops/kernels/fused_ola.py
 // plan_cluster_takes, frames_route 'plan_cluster'; at 2:1

@@ -9,10 +9,14 @@
 //   N2), with the contract of ops/kernels/fused_ola.py fused_ola_frames.
 //   The host route (frames_route 'split') takes every pair that
 //   CLUSTER_PAIRS does not list and whose larger frame no block holds, or
-//   whose sizes have a prime factor above 7 (which the one-block generic
-//   kernel has no pass for), where both sizes are C M, M a size of
-//   csrc/fft_reg.cuh's plans (1024-16384) and C <= 2048 of any prime
-//   factors (the forward and inverse may differ: N1 = C1 M1, N2 = C2 M2).
+//   whose sizes have a prime factor above 7 and split into parts of
+//   csrc/fft_reg.cuh's plans, or that no other frame kernel holds, where
+//   both sizes are C M, C <= 2048 of any prime factors and M <= 16384
+//   points: a size of csrc/fft_reg.cuh's plans (1024-16384) where one
+//   divides, else a part size of any factors on a plan the host builds at
+//   run time (csrc/fft_plan.cuh; ops/kernels/fused_ola.py split_shape:
+//   38400 = 3 x 12800, 2053 x 1024 = 256 x 8212); the forward and inverse
+//   may differ: N1 = C1 M1, N2 = C2 M2.
 //   The frames are complex64, or (2, n) planes of float32, int16 or
 //   bfloat16 (the storage tiers), which the forward radix step, the only
 //   kernel that reads them, dequantizes on load (csrc/ola_frames.cuh Src),
@@ -26,7 +30,8 @@
 //   1. split_radix_kernel<false>, the forward radix-C1 step: a block takes
 //      TN consecutive offsets n < M1 of one frame (TN a power of two from
 //      1 to 512, C1 TN <= 2048: 32 at C1 = 64, 8 at C1 = 160, 1 above
-//      1024; csrc/split_radix.cuh tile_log2); it reads samples c M1 + n
+//      1024; csrc/split_radix.cuh tile_log2; the last tile of a part size
+//      TN does not divide takes the columns below M1); it reads samples c M1 + n
 //      (c < C1) times w_in (TN consecutive samples a part: coalesced from
 //      TN = 8 up), takes their C1-point DFT in
 //      shared memory (split_radix.cuh radix_step: Stockham passes of radix
@@ -35,14 +40,17 @@
 //      exp(-2 pi i n r / N1) at offset n of part r of the scratch `a`
 //      (batch, frames, C1, M1);
 //   2. split_fwd_passes_kernel<M1>, one block per (frame, part r): the
-//      register-resident M1-point passes of fft_reg.cuh on part r, whose
+//      register-resident M1-point passes of fft_reg.cuh on part r (a part
+//      size on a run-time plan: split_plan_passes_kernel<false>, below,
+//      several parts a block), whose
 //      last pass holds forward bins K = C1 k + r; it stores each bin that
 //      survives the mask and the trim (K in [lo, hi), lo = max(zero_lo,
 //      in_lo), hi = min(zero_hi, in_lo + out_hi - out_lo)) as inverse bin
 //      j = K + out_lo - in_lo, at offset j / C2 of inverse part j mod C2 of
 //      y, taken as scratch (batch, frames, C2, M2). Nothing else is stored:
 //      the inverse never reads the other bins.
-//   3. split_inv_passes_kernel<M2>, one block per (frame, part p): its
+//   3. split_inv_passes_kernel<M2> (or split_plan_passes_kernel<true>),
+//      one block per (frame, part p): its
 //      pass 0 reads bin j = C2 i + p of part p where step 2 stored it, zero
 //      elsewhere; the M2-point inverse passes; the last pass stores each
 //      point n times `post`[n] and `scale` back over the part it read
@@ -74,9 +82,14 @@
 // launch argument) in one instance per direction and element type; a prime
 // factor above 7 costs O(p) operations a point there (the generic pass);
 // the passes kernels are
-// one instance per size of REG_PLANS and direction (no 15360-point inverse). Not done here: the
+// one instance per size of REG_PLANS and direction (no 15360-point inverse),
+// and one per direction on a run-time plan for every other part size, whose
+// primes above 7 cost O(p) a point too (csrc/fft_plan.cuh pass_prime). Not
+// done here: the
 // radix steps folded into the neighbouring passes (the cluster kernel's
 // gather), and the scratch kept in L2.
+#include <cstring>
+
 #include "fft.cuh"
 #include "fft_reg.cuh"
 #include "ola_frames.cuh"
@@ -88,7 +101,9 @@ namespace R = iqt::reg;
 namespace S = iqt::split;
 
 // A radix-C step on TN = 2^lt offsets of one frame (blockIdx.x = frame *
-// (m / TN) + tile, blockIdx.y = batch row): point (c, n) of the frame lies at
+// ceil(m / TN) + tile, blockIdx.y = batch row; the last tile of a part size
+// that TN does not divide takes only its columns below m, zeros in the
+// others, stored nowhere): point (c, n) of the frame lies at
 // in + c * m + n (elements of E: complex64, or a plane whose imaginary
 // plane lies in_plane elements further), times pre[c * m + n] where pre is
 // given; the C-point DFT of csrc/split_radix.cuh (dft_tab = exp(-+2 pi i j
@@ -108,9 +123,10 @@ split_radix_kernel(const E* in, long long in_batch, long long in_frame, long lon
   float2* const buf[2] = {smem, smem + (c << lt)};
   float2* tab = smem + 2 * (c << lt);
   const int tn = 1 << lt;
-  const int tiles = m >> lt;
+  const int tiles = (m + tn - 1) >> lt;
   const int f = blockIdx.x / tiles;
   const int n0 = (blockIdx.x - f * tiles) << lt;
+  const int cols = min(tn, m - n0);
   const long long start = f * in_frame;
   const E* src = in + blockIdx.y * in_batch + start + n0;
   float2* dst = out + blockIdx.y * out_batch + f * out_frame + n0;
@@ -121,26 +137,32 @@ split_radix_kernel(const E* in, long long in_batch, long long in_frame, long lon
     const E* xi = iqt::ola::Src<E>::imag(xf, in_plane);
     for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
       const int at = (e >> lt) * m + (e & (tn - 1));
-      float2 v = edge.read(xf, xi, start, n0 + at, blockIdx.y);
-      if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
+      float2 v = make_float2(0.f, 0.f);
+      if ((e & (tn - 1)) < cols) {
+        v = edge.read(xf, xi, start, n0 + at, blockIdx.y);
+        if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
+      }
       buf[0][e] = v;
     }
   } else {
     for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
       const int at = (e >> lt) * m + (e & (tn - 1));
-      float2 v;
-      if constexpr (iqt::ola::Src<E>::kRows == 1) {
-        v = src[at];
-      } else {
-        v = make_float2(iqt::ola::to_float(src[at]), iqt::ola::to_float(src[in_plane + at]));
+      float2 v = make_float2(0.f, 0.f);
+      if ((e & (tn - 1)) < cols) {
+        if constexpr (iqt::ola::Src<E>::kRows == 1) {
+          v = src[at];
+        } else {
+          v = make_float2(iqt::ola::to_float(src[at]), iqt::ola::to_float(src[in_plane + at]));
+        }
+        if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
       }
-      if (pre != nullptr) v = iqt::cmul(v, __ldg(&pre[n0 + at]));
       buf[0][e] = v;
     }
   }
   __syncthreads();
   const int cur = S::radix_step<INV>(buf, tab, c, lt, plan);
   for (int e = threadIdx.x; e < c << lt; e += S::kRadixThreads) {
+    if ((e & (tn - 1)) >= cols) continue;
     const int at = (e >> lt) * m + (e & (tn - 1));
     const float2 v = buf[cur][e];
     dst[at] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&post[n0 + at]));
@@ -221,6 +243,112 @@ split_inv_passes_kernel(float2* y, const float2* __restrict__ tw,
       });
 }
 
+// A part size on a run-time plan (ops/kernels/fused_ola.py part_plan): the
+// part's plan::Transform (csrc/fft_plan.cuh, primes above 7 included),
+// its pass tables' float2 count, the lanes of a part, the parts a block
+// and the float2 of a part's exchange buffer, as csrc/ola_frames.cuh
+// FramePlan groups frames.
+struct PartPlan {
+  iqt::plan::Transform t;
+  int tw_count;
+  int group;
+  int parts;
+  int buf;
+};
+
+constexpr int kPartThreads = iqt::ola::kPlanThreads;
+constexpr int kPartPoints = iqt::ola::kPlanPoints;
+
+// Steps 2 and 3 at a part size on a run-time plan: part u = blockIdx.x
+// plan.parts + g of batch row blockIdx.y (frame f = u / c, part r = u mod c,
+// c = c1 forward, c2 inverse) on frame group g of plan.group lanes. INV =
+// false (step 2): part r of the frame's `a`, staged into the group's
+// exchange buffer, through the forward passes; each forward bin K = c1 k
+// + r in [lo, hi) to inverse bin j = K + d of the frame's y, at (j mod c2)
+// m2 + j / c2. INV (step 3): part p of the frame's y, bin i staged where
+// c2 i + p - d lies in [lo, hi), zero elsewhere; the inverse passes; point
+// n times post[p M + n] and `scale` back over the part. A group reads its
+// whole part before its passes and writes only after them; no two groups
+// touch one part.
+template <bool INV>
+__global__ void __launch_bounds__(kPartThreads, 1)
+split_plan_passes_kernel(const float2* a, float2* y, const float2* __restrict__ tw,
+                         const float2* __restrict__ post, float scale, int n_frames, int c1,
+                         int c2, int m2, int lo, int hi, int d,
+                         const __grid_constant__ PartPlan plan) {
+  namespace P = iqt::plan;
+  extern __shared__ float2 smem[];
+  for (int e = threadIdx.x; e < plan.tw_count; e += kPartThreads) smem[e] = __ldg(&tw[e]);
+  __syncthreads();
+  const int group = plan.group;
+  const int g = threadIdx.x / group;
+  const int lane = threadIdx.x - g * group;
+  const int c = INV ? c2 : c1;
+  const int u = blockIdx.x * plan.parts + g;
+  // a group with no part leaves: every later barrier is its own group's
+  if (g >= plan.parts || u >= n_frames * c) return;
+  const int f = u / c;
+  const int r = u - f * c;
+  const int m = plan.t.n;
+  float2* buf = smem + plan.tw_count + g * plan.buf;
+  const long long frame = static_cast<long long>(blockIdx.y) * n_frames + f;
+  if constexpr (!INV) {
+    const float2* part = a + (frame * c1 + r) * m;
+    for (int i = lane; i < m; i += group) buf[R::pad(i)] = part[i];
+  } else {
+    const float2* part = y + (frame * c2 + r) * m;
+    for (int i = lane; i < m; i += group) {
+      const int K = c2 * i + r - d;
+      buf[R::pad(i)] = (K >= lo && K < hi) ? part[i] : make_float2(0.f, 0.f);
+    }
+  }
+  P::group_sync(group, g);
+  P::fft<INV, kPartPoints, false>(plan.t, buf, smem, P::Trim{}, lane, group, g);
+  if constexpr (!INV) {
+    float2* yf = y + frame * c2 * m2;
+    for (int k = lane; k < m; k += group) {
+      const int K = c1 * k + r;
+      if (K >= lo && K < hi) {
+        const int j = K + d;
+        yf[(j % c2) * m2 + j / c2] = buf[R::pad(k)];
+      }
+    }
+  } else {
+    float2* part = y + (frame * c2 + r) * m;
+    const float2* pp = post + static_cast<long long>(r) * m;
+    for (int n = lane; n < m; n += group) {
+      const float2 v = buf[R::pad(n)];
+      part[n] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&pp[n]));
+    }
+  }
+}
+
+// whether `p` is a part plan the run-time passes kernel runs at m points
+// with n_tw table entries: its transform (plan::transform_ok, one pass at
+// least), groups of a power of two from 32 to 512 lanes holding m at
+// kPartPoints a lane, at most 15 named barriers a block, a padded buffer
+inline bool part_plan_ok(const PartPlan& p, int m, int n_tw) {
+  const int g = p.group;
+  return p.t.n == m && g >= 32 && g <= kPartThreads && (g & (g - 1)) == 0 && p.parts >= 1 &&
+         p.parts * g <= kPartThreads && (g == 32 || p.parts <= 15) &&
+         p.buf >= R::padded_size(m) && p.tw_count == n_tw && m <= kPartPoints * g &&
+         iqt::plan::transform_ok<kPartPoints>(p.t, g);
+}
+
+template <bool INV>
+cudaError_t launch_plan_passes(const PartPlan& p, int batch, int n_frames, cudaStream_t stream,
+                               const float2* a, float2* y, const float2* tw, const float2* post,
+                               float scale, int c1, int c2, int m2, int lo, int hi, int d) {
+  const long long parts = static_cast<long long>(n_frames) * (INV ? c2 : c1);
+  const long long blocks = (parts + p.parts - 1) / p.parts;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(p.tw_count + p.parts * p.buf) * sizeof(float2);
+  split_plan_passes_kernel<INV><<<dim3(static_cast<unsigned>(blocks), batch), kPartThreads, smem,
+                                  stream>>>(a, y, tw, post, scale, n_frames, c1, c2, m2, lo, hi,
+                                            d, p);
+  return cudaGetLastError();
+}
+
 // the compiled part sizes (ops/kernels/fused_ola.py REG_PLANS): F(M); the
 // inverse side has no 15360-point instance (ptxas spilled 4 bytes a thread
 // there, the radix-15 last pass at 512 threads; SPLIT_INV_PLANS)
@@ -294,7 +422,6 @@ int passes_table(int m) {
 // shared memory (above 48 KiB from 5120 points up)
 extern "C" int iqt_ola_split_prepare(int max_smem) {
   cudaError_t err;
-  (void)max_smem;
 #define IQT_ALLOW_FWD(M) \
   if ((err = iqt::allow_smem(split_fwd_passes_kernel<M>, passes_smem<M>()))) return err;
 #define IQT_ALLOW_INV(M) \
@@ -303,6 +430,8 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
   IQT_SPLIT_INV_SIZES(IQT_ALLOW_INV)
 #undef IQT_ALLOW_FWD
 #undef IQT_ALLOW_INV
+  if ((err = iqt::allow_smem(split_plan_passes_kernel<false>, max_smem))) return err;
+  if ((err = iqt::allow_smem(split_plan_passes_kernel<true>, max_smem))) return err;
   return cudaSuccess;
 }
 
@@ -317,9 +446,12 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
 // the stage count and the radices (csrc/split_radix.cuh plan_from);
 // tw_fwd / tw_inv the m1- and m2-point pass tables (n_fwd / n_inv
 // entries), fwd_cross (c1 x m1), inv_cross (c2 x m2), dft1 (c1), dft2 (c2);
-// [lo, hi) the forward bins kept, d = out_lo - in_lo. Launches steps 1-3,
-// and step 4 where c2 > 1, on `stream`; returns the first error. A size or
-// table that no instance takes: cudaErrorInvalidValue, before any launch.
+// [lo, hi) the forward bins kept, d = out_lo - in_lo; part1 / part2 the
+// part1_ints / part2_ints ints of a side's PartPlan (ops/kernels/fused_ola.py
+// part_plan) where its part size runs on a run-time plan, else null and 0
+// (a compiled size). Launches steps 1-3, and step 4 where c2 > 1, on
+// `stream`; returns the first error. A size, plan or table that no instance
+// takes: cudaErrorInvalidValue, before any launch.
 extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
                              long long frame_stride, long long plane_stride, const void* halo,
                              long long halo_batch, long long halo_plane, int n_in, int n_halo,
@@ -329,14 +461,31 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
                              const void* dft1, const void* dft2, void* a, void* y, int n_fwd,
                              int n_inv, int batch, int n_frames, int c1, int m1,
                              const int* plan1, int c2, int m2, const int* plan2, int lo, int hi,
-                             int d, void* stream) {
-  if (passes_table(m1) != n_fwd || passes_table(m2) != n_inv || layout < 0 || layout > 3)
+                             int d, const int* part1, int part1_ints, const int* part2,
+                             int part2_ints, void* stream) {
+  constexpr int kPartInts = static_cast<int>(sizeof(PartPlan) / sizeof(int));
+  PartPlan q1{}, q2{};
+  if (part1 != nullptr) {
+    if (part1_ints != kPartInts) return cudaErrorInvalidValue;
+    std::memcpy(&q1, part1, sizeof q1);
+    if (!part_plan_ok(q1, m1, n_fwd)) return cudaErrorInvalidValue;
+  } else if (passes_table(m1) != n_fwd) {
     return cudaErrorInvalidValue;
+  }
+  if (part2 != nullptr) {
+    if (part2_ints != kPartInts) return cudaErrorInvalidValue;
+    std::memcpy(&q2, part2, sizeof q2);
+    if (!part_plan_ok(q2, m2, n_inv)) return cudaErrorInvalidValue;
+  } else if (passes_table(m2) != n_inv) {
+    return cudaErrorInvalidValue;
+  }
+  if (layout < 0 || layout > 3) return cudaErrorInvalidValue;
   const S::RadixPlan p1 = S::plan_from(plan1), p2 = S::plan_from(plan2);
-  if (!S::plan_ok(c1, m1, p1) || !S::plan_ok(c2, m2, p2)) return cudaErrorInvalidValue;
+  if (!S::plan_ok(c1, p1) || !S::plan_ok(c2, p2)) return cudaErrorInvalidValue;
   const int lt1 = S::tile_log2(c1), lt2 = S::tile_log2(c2);
-  if (static_cast<long long>(n_frames) * ((m1 >> lt1) > (m2 >> lt2) ? m1 >> lt1 : m2 >> lt2) >=
-      (1LL << 31))
+  // each side's tiles a frame: ceil(m / TN)
+  const int tiles1 = (m1 + (1 << lt1) - 1) >> lt1, tiles2 = (m2 + (1 << lt2) - 1) >> lt2;
+  if (static_cast<long long>(n_frames) * (tiles1 > tiles2 ? tiles1 : tiles2) >= (1LL << 31))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto yp = static_cast<float2*>(y);
@@ -348,7 +497,7 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   // 1. the forward radix-c1 step into `a`, reading the layout's elements
   const auto forward = [&](auto element) {
     using E = decltype(element);
-    split_radix_kernel<false, E><<<dim3(n_frames * (m1 >> lt1), batch), S::kRadixThreads,
+    split_radix_kernel<false, E><<<dim3(n_frames * tiles1, batch), S::kRadixThreads,
                                    S::radix_smem(c1), s>>>(
         static_cast<const E*>(x), batch_stride, frame_stride, plane_stride,
         iqt::ola::Edge<E>{static_cast<const E*>(halo), halo_batch, halo_plane, n_in, n_halo},
@@ -363,19 +512,26 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   }
   if ((err = cudaGetLastError())) return err;
   // 2. the m1-point forward passes, the kept bins into y's inverse parts
-  if ((err = fwd_passes(m1, batch, n_frames, s, ap, static_cast<const float2*>(tw_fwd), yp, c1,
-                        c2, m2, lo, hi, d)))
-    return err;
+  const auto tw1 = static_cast<const float2*>(tw_fwd);
+  err = part1 != nullptr
+            ? launch_plan_passes<false>(q1, batch, n_frames, s, ap, yp, tw1, nullptr, 1.0f, c1,
+                                        c2, m2, lo, hi, d)
+            : fwd_passes(m1, batch, n_frames, s, ap, tw1, yp, c1, c2, m2, lo, hi, d);
+  if (err) return err;
   // 3. the m2-point inverse passes in place; at c2 = 1 the output itself
   const bool last = c2 == 1;
-  if ((err = inv_passes(m2, batch, n_frames, s, yp, static_cast<const float2*>(tw_inv),
-                        static_cast<const float2*>(last ? w_out : inv_cross),
-                        last ? inv_n2 : 1.0f, c2, lo, hi, d)))
-    return err;
+  const auto tw2 = static_cast<const float2*>(tw_inv);
+  const auto post = static_cast<const float2*>(last ? w_out : inv_cross);
+  const float scale = last ? inv_n2 : 1.0f;
+  err = part2 != nullptr
+            ? launch_plan_passes<true>(q2, batch, n_frames, s, nullptr, yp, tw2, post, scale, c1,
+                                       c2, m2, lo, hi, d)
+            : inv_passes(m2, batch, n_frames, s, yp, tw2, post, scale, c2, lo, hi, d);
+  if (err) return err;
   if (last) return cudaSuccess;
   // 4. the inverse radix-c2 step in place, scaled, windowed
   split_radix_kernel<true, float2>
-      <<<dim3(n_frames * (m2 >> lt2), batch), S::kRadixThreads, S::radix_smem(c2), s>>>(
+      <<<dim3(n_frames * tiles2, batch), S::kRadixThreads, S::radix_smem(c2), s>>>(
           yp, n_frames * n2, n2, 0, iqt::ola::Edge<float2>{}, nullptr,
           static_cast<const float2*>(w_out), inv_n2,
           static_cast<const float2*>(dft2), yp, n_frames * n2, n2, m2, c2, lt2, p2);

@@ -51,18 +51,13 @@ __host__ __device__ constexpr size_t radix_smem(int c) {
   return (2 * static_cast<size_t>(c << tile_log2(c)) + c) * sizeof(float2);
 }
 
-// whether p is a prime (the generic pass's radices)
-__host__ __device__ constexpr bool is_prime(int p) {
-  if (p < 2) return false;
-  for (int q = 2; q * q <= p; ++q)
-    if (p % q == 0) return false;
-  return true;
-}
+// whether p is a prime (the generic pass's radices; csrc/fft.cuh)
+using iqt::is_prime;
 
-// a plan the step runs: C parts of M points (C <= kMaxC, TN divides M),
-// radices of 2, 3, 4, 5, 7 or a prime above 7 whose product is C
-inline bool plan_ok(int c, int m, const RadixPlan& plan) {
-  if (c < 1 || c > kMaxC || m % (1 << tile_log2(c))) return false;
+// a plan the step runs at C parts (C <= kMaxC): radices of 2, 3, 4, 5, 7
+// or a prime above 7 whose product is C
+inline bool plan_ok(int c, const RadixPlan& plan) {
+  if (c < 1 || c > kMaxC) return false;
   if (plan.stages < 0 || plan.stages > kMaxStages) return false;
   long long prod = 1;
   for (int s = 0; s < plan.stages; ++s) {
@@ -71,6 +66,12 @@ inline bool plan_ok(int c, int m, const RadixPlan& plan) {
     prod *= r;
   }
   return prod == c;
+}
+
+// the same at parts of M points that the tile divides (TN = 2^tile_log2(C)
+// columns a block, none ragged)
+inline bool plan_ok(int c, int m, const RadixPlan& plan) {
+  return m >= 1 && m % (1 << tile_log2(c)) == 0 && plan_ok(c, plan);
 }
 
 // one Stockham pass of radix RADIX over the C-point columns of `src`, by

@@ -386,13 +386,16 @@ class WidebandMonitor:
         # (iqwaveform_tpu/models/monitor.py:528-550); beyond 2:1 the frame
         # kernel of frames_route ('reg', 'cluster', 'split', 'plan',
         # 'plan_cluster' at the one-block frames above 16384 points the split
-        # route does not take; the generic one only at sizes of one pass and
-        # odd sizes above 16384 points) and a grouped overlap-add in a fixed
+        # route does not take; a prime factor above 7 a pass of the plan
+        # kernels, or parts of any factors on the split route; the generic
+        # one only at sizes of one pass of radix 2-7 and odd sizes 2^a 3^b
+        # 5^c 7^d above 16384 points) and a grouped overlap-add in a fixed
         # order
         # (iqwaveform_tpu/models/monitor.py:789-804); frames no
-        # CUDA frame kernel takes (above 2^21 points where no part size
-        # divides with C <= 2048, ROADMAP Queue 2 item 1) take the torch.fft
-        # chain there, as ola_filter does
+        # CUDA frame kernel takes (a prime factor above 16384, or above 2^21
+        # points where no part of at most 16384 points divides with C <=
+        # 2048, ROADMAP Queue 2 item 1) take the torch.fft chain there, as
+        # ola_filter does
         self._strided = fused_ola_cuda_supported(
             d.nfft, d.nfft_out, self.noverlap_in, self.noverlap_out
         )

@@ -41,25 +41,30 @@ Three wrappers of the kernels of ``csrc/fused_ola.cu``, ``csrc/ola_frames.cuh``,
   ``fused_ola_frames_cluster_kernel``, each frame split over a thread-block
   cluster of C blocks (``csrc/fft_cluster.cuh``); at every other pair
   whose larger frame one block cannot hold, or whose sizes have a prime
-  factor above 7, where both sizes split into C M with M a size of
-  :data:`REG_PLANS` and C <= 2048 (:func:`split_shape`: every multiple of
-  1024 up to 2^21 points), the split route of ``csrc/ola_split.cu``: a
-  radix-C step (``csrc/split_radix.cuh``, prime factors above 7 through
-  its generic pass), the M-point passes and the
-  inverse's through device memory, four launches (three where the output
-  is one part); at every other one-block pair of sizes 2^a 3^b 5^c 7^d
-  that it holds (:func:`plan_takes`: frames up to 16384 points, sizes of
-  two passes or more) ``fused_ola_frames_plan_kernel``, register-resident
-  passes on a plan the host builds at run time (``csrc/fft_plan.cuh``,
-  :func:`frame_plan`, :func:`plan_twiddles`), several small frames a
-  block; at the even one-block pairs above 16384 points
-  (:func:`plan_cluster_takes`: 18432-28672 points among the monitor's)
+  factor above 7 and split into compiled parts, where both sizes split
+  into C M with C <= 2048 (:func:`split_shape`: M a size of
+  :data:`REG_PLANS` where one divides, else a part of at most 16384
+  points of any factors on a run-time plan; every multiple of 128 up to
+  2^21 points), the split route of ``csrc/ola_split.cu``: a radix-C step
+  (``csrc/split_radix.cuh``, prime factors above 7 through its generic
+  pass), the M-point passes (``split_plan_passes_kernel`` for a run-time
+  part) and the inverse's through device memory, four launches (three
+  where the output is one part); at every other one-block pair that it
+  holds (:func:`plan_takes`: frames up to 16384 points of any factors, a
+  prime above 7 a pass of its own, csrc/fft_plan.cuh pass_prime; sizes of
+  two passes or more, or of one prime pass) ``fused_ola_frames_plan_kernel``,
+  register-resident passes on a plan the host builds at run time
+  (``csrc/fft_plan.cuh``, :func:`frame_plan`, :func:`plan_twiddles`),
+  several small frames a block; at the even one-block pairs above 16384
+  points (:func:`plan_cluster_takes`: 16386-29056 points)
   ``fused_ola_frames_plan_cluster_kernel``, one frame on a cluster of two
   blocks, each on those passes over half the frame (:func:`cluster_plan`,
   :func:`plan_cluster_twiddles`); the generic mixed-radix
-  ``fused_ola_frames_kernel`` only at the rest (sizes of one pass, odd
-  sizes above 16384 points), and as a yardstick
-  (:func:`_fused_ola_frames_generic`). :func:`frames_route`
+  ``fused_ola_frames_kernel`` only at the rest of its sizes (one pass of
+  radix 2-7, odd sizes 2^a 3^b 5^c 7^d above 16384 points), the split
+  route at the one-block pairs no other kernel holds (odd sizes above
+  16384 points with a prime above 7), and the generic kernel as a
+  yardstick (:func:`_fused_ola_frames_generic`). :func:`frames_route`
   picks by size, before the launch. The public ``ola_filter`` / ``oaresample`` and
   the monitor's overlap of more than 2:1 (blackman R=3, blackmanharris
   R=5) add its frames up outside, as a sum of R groups in a fixed order
@@ -87,6 +92,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -194,10 +200,11 @@ CLUSTER_PAIRS = {
 # min_fft_size=4095
 OLA_REG_PAIRS = ((16384, 8192), (8192, 4096), (16384, 4096))
 # the frame route's largest radix step, csrc/split_radix.cuh kMaxC: every
-# multiple of 1024 up to 2^21 points has a split shape, and above it every
-# size that a part size of REG_PLANS divides with C <= 2048 (the 122.88 MS/s
-# grid's largest frame, blackmanharris at 122.88 -> 3.84 MS/s, is 2621440 =
-# 160 x 16384); the channelizer's split route has the same limit
+# multiple of 128 up to 2^21 points has a split shape (parts of REG_PLANS,
+# else of at most 16384 points on a run-time plan), and above it every size
+# that such a part divides with C <= 2048 (the 122.88 MS/s grid's largest
+# frame, blackmanharris at 122.88 -> 3.84 MS/s, is 2621440 = 160 x 16384);
+# the channelizer's split route has the same limit
 SPLIT_MAX_C = 2048
 # csrc/split_radix.cuh kPoints: a radix step's tile holds C TN <= 2048
 # points, TN a power of two up to 512 (tile_log2)
@@ -209,9 +216,10 @@ SPLIT_INV_PLANS = tuple(m for m in REG_PLANS if m != 15360)
 # scope on a device that is not a card (the routes stay those of the card)
 H100_SMEM_OPTIN = 232448
 # the plan kernel (fused_ola_frames_plan_kernel, csrc/ola_frames.cuh on the
-# passes of csrc/fft_plan.cuh): its threads a block, the points a thread
-# holds (frames up to 16384 points: ptxas spilled a wider instance, and
-# larger one-block frames take the two-block plan kernel,
+# passes of csrc/fft_plan.cuh; the split route's run-time parts,
+# split_plan_passes_kernel, on the same): its threads a block, the points a
+# thread holds (frames up to 16384 points: ptxas spilled a wider instance,
+# and larger one-block frames take the two-block plan kernel,
 # fused_ola_frames_plan_cluster_kernel, a half of the frame a block, or the
 # split route where it is faster: split_takes), the
 # most passes of a transform (plan::kMaxPasses) and the ints of one pass
@@ -299,38 +307,75 @@ def _smooth(n: int) -> bool:
 def fused_ola_frames_supported(nfft: int, nfft_out: int, device=None) -> bool:
     """the frame-batch kernels' scope: the pairs of :data:`CLUSTER_PAIRS`
     (a frame split over a cluster of blocks), the pairs of the split route
-    (:func:`split_takes`), and both sizes of the form 2^a 3^b 5^c 7^d with
-    the larger frame (8 bytes a point) within the opt-in shared memory of
-    one block of ``device`` (an H100's where ``device`` is not a card:
-    about 29k points)."""
+    (:func:`split_takes`: above one block, every pair both of whose sizes
+    are C M with C <= 2048 and M <= 16384, of any factors: every multiple
+    of 128 up to 2^21 points), and the one-block pairs (the larger frame,
+    8 bytes a point, within the opt-in shared memory of one block of
+    ``device``, an H100's where ``device`` is not a card: about 29k points)
+    that a plan kernel holds (any factors, a prime above 7 a pass of its
+    own: :func:`plan_takes`, :func:`plan_cluster_takes`) or the generic
+    kernel (sizes 2^a 3^b 5^c 7^d). Outside: sizes with a prime factor
+    above 16384, and above one block sizes whose parts of at most 16384
+    points need C above 2048."""
     device = torch.device('cpu' if device is None else device)
     smem = _build.smem_optin(device) if device.type == 'cuda' else H100_SMEM_OPTIN
     if (nfft, nfft_out) in CLUSTER_PAIRS:
         return cluster_smem(nfft, nfft_out) <= smem
     if split_takes(nfft, nfft_out):
-        return max(split_smem(m) for _, m in split_plan(nfft, nfft_out)) <= smem
-    return (
-        min(nfft, nfft_out) >= 1
-        and _smooth(nfft)
-        and _smooth(nfft_out)
-        and 8 * max(nfft, nfft_out) <= smem
-        and nfft_out <= _FRAMES_THREADS * _FRAMES_MAX_BINS_PER_THREAD
-    )
+        (_, m1), (_, m2) = split_plan(nfft, nfft_out)
+        return max(split_smem(m1), split_smem(m2, inverse=True)) <= smem
+    return 8 * max(nfft, nfft_out) <= smem and (
+        _generic_takes(nfft, nfft_out) or plan_takes(nfft, nfft_out)
+        or plan_cluster_takes(nfft, nfft_out))
 
 
 @functools.lru_cache(maxsize=None)
-def split_shape(n: int, inverse: bool = False):
-    """(C, M) of an ``n``-point transform on the split route: the largest M
-    of :data:`REG_PLANS` (:data:`SPLIT_INV_PLANS` for the ``inverse``)
-    with n = C M and C at most :data:`SPLIT_MAX_C`, of any prime factors
-    (C = 1 where n is itself such a size; csrc/split_radix.cuh takes a
-    prime above 7 through its generic pass); None where there is none
-    (fewer than 2^10 in n, or, above 2^21 points, C above SPLIT_MAX_C at
-    every part size: 2053 x 1024 = 2102272)."""
+def _reg_split_shape(n: int, inverse: bool = False):
+    """(C, M) of an ``n``-point transform on compile-time parts: the largest
+    M of :data:`REG_PLANS` (:data:`SPLIT_INV_PLANS` for the ``inverse``)
+    with n = C M and C at most :data:`SPLIT_MAX_C`, or None."""
     for m in sorted(SPLIT_INV_PLANS if inverse else REG_PLANS, reverse=True):
         c, rest = divmod(n, m)
         if rest == 0 and 1 <= c <= SPLIT_MAX_C:
             return c, m
+    return None
+
+
+def _divisors(n: int) -> list:
+    """every divisor of ``n`` >= 1, from its factors (trial division)."""
+    out, rest, q = [1], n, 2
+    while q * q <= rest:
+        e = 0
+        while rest % q == 0:
+            rest, e = rest // q, e + 1
+        out = [d * q**k for d in out for k in range(e + 1)]
+        q += 1 if q == 2 else 2
+    if rest > 1:
+        out += [d * rest for d in out]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def split_shape(n: int, inverse: bool = False):
+    """(C, M) of an ``n``-point transform on the split route, C at most
+    :data:`SPLIT_MAX_C` of any prime factors (csrc/split_radix.cuh takes a
+    prime above 7 through its generic pass): the largest M of
+    :data:`REG_PLANS` (:data:`SPLIT_INV_PLANS` for the ``inverse``) with n
+    = C M, the parts then on the compile-time passes (C = 1 where n is
+    itself such a size); where none divides, a part size M of at most
+    :data:`PLAN_POINTS` x :data:`PLAN_THREADS` (16384) points of any
+    factors on a run-time plan (:func:`part_shape`; a prime above 7 a pass
+    of O(p) a point, csrc/fft_plan.cuh pass_prime), the largest (38400 = 3
+    x 12800, 30000 = 2 x 15000, 2053 x 1024 = 256 x 8212, 128 q = 128 x q
+    for a prime q in (8192, 16384]); None where there is none (a prime
+    factor above 16384, or parts of more than 16384 points at every C up to
+    SPLIT_MAX_C)."""
+    shape = _reg_split_shape(n, inverse)
+    if shape is not None or n < 1:
+        return shape
+    for m in sorted(_divisors(n), reverse=True):
+        if m <= PLAN_POINTS * PLAN_THREADS and n // m <= SPLIT_MAX_C and part_shape(m) is not None:
+            return n // m, m
     return None
 
 
@@ -339,41 +384,66 @@ def split_plan(nfft: int, nfft_out: int) -> tuple:
     return split_shape(nfft), split_shape(nfft_out, inverse=True)
 
 
+def split_part_on_plan(m: int, inverse: bool = False) -> bool:
+    """a split part of ``m`` points runs on a run-time plan
+    (``split_plan_passes_kernel``), not on the compile-time passes of its
+    size (:data:`REG_PLANS`; :data:`SPLIT_INV_PLANS` for the ``inverse``)."""
+    return m not in (SPLIT_INV_PLANS if inverse else REG_PLANS)
+
+
 def _split_beats_plans(nfft: int, nfft_out: int) -> bool:
     """a one-block pair above 8192 points whose forward transform splits
-    (C1 >= 2 parts) and whose inverse does not (C2 = 1): there the split
-    route, its parts on the compile-time passes of csrc/fft_reg.cuh, took
-    0.51-0.95 of the time of the plan kernel that holds the pair at each
-    of the 18 monitor pairs of that shape (9216 -> 3072 and 18432-28672
-    points; chip_smoke.py 28e, beyond the spread of its turns); at C1 = 1
-    (10240-16384 points) it took 0.95-1.28 of it, at C2 = 2 (20480 ->
-    20480, 24576 -> 24576) 1.06-1.21."""
-    shapes = split_plan(nfft, nfft_out)
+    into compile-time parts (C1 >= 2, M1 of REG_PLANS) and whose inverse
+    does not (C2 = 1): there the split route, its parts on the compile-time
+    passes of csrc/fft_reg.cuh, took 0.51-0.95 of the time of the plan
+    kernel that holds the pair at each of the 18 monitor pairs of that
+    shape (9216 -> 3072 and 18432-28672 points; chip_smoke.py 28e, beyond
+    the spread of its turns); at C1 = 1 (10240-16384 points) it took
+    0.95-1.28 of it, at C2 = 2 (20480 -> 20480, 24576 -> 24576) 1.06-1.21.
+    Parts on run-time plans were not timed there: a pair with one takes the
+    plan kernels at one block."""
+    shapes = _reg_split_shape(nfft), _reg_split_shape(nfft_out, inverse=True)
     return (None not in shapes and max(nfft, nfft_out) > 8192
             and shapes[0][0] > 1 and shapes[1][0] == 1)
+
+
+def _generic_takes(nfft: int, nfft_out: int) -> bool:
+    """the generic frame kernel holds the pair on an H100: both sizes of
+    the form 2^a 3^b 5^c 7^d, the larger frame within one block's shared
+    memory (8 bytes a point), nfft_out bins within its threads' registers."""
+    return (min(nfft, nfft_out) >= 1 and _smooth(nfft) and _smooth(nfft_out)
+            and 8 * max(nfft, nfft_out) <= H100_SMEM_OPTIN
+            and nfft_out <= _FRAMES_THREADS * _FRAMES_MAX_BINS_PER_THREAD)
 
 
 def split_takes(nfft: int, nfft_out: int) -> bool:
     """the split route's pairs: :data:`CLUSTER_PAIRS` does not list the
     pair, both sizes have a :func:`split_shape`, and either the larger
-    frame is above one H100 block's shared memory (8 bytes a point), or a
-    size has a prime factor above 7, for which the one-block generic kernel
-    has no pass (11264 -> 1024 and 22528 -> 2048, 11 parts of 1024 and of
-    2048, through the radix step's prime pass), or the split route beats
-    the plan kernels at the pair's shape (:func:`_split_beats_plans`:
-    9216 -> 3072, 20480 -> 10240, 25600 -> 5120 among them)."""
-    return (
-        (nfft, nfft_out) not in CLUSTER_PAIRS
-        and None not in split_plan(nfft, nfft_out)
-        and (8 * max(nfft, nfft_out) > H100_SMEM_OPTIN or not (_smooth(nfft) and _smooth(nfft_out))
-             or _split_beats_plans(nfft, nfft_out))
-    )
+    frame is above one H100 block's shared memory (8 bytes a point), or,
+    at one block, both sizes split into compile-time parts
+    (:data:`REG_PLANS`) and a size has a prime factor above 7 (11264 ->
+    1024 and 22528 -> 2048, 11 parts of 1024 and of 2048, through the radix
+    step's prime pass) or the split route beats the plan kernels at the
+    pair's shape (:func:`_split_beats_plans`: 9216 -> 3072, 20480 ->
+    10240, 25600 -> 5120 among them), or, at one block, no other frame
+    kernel holds the pair (an odd size above 16384 points with a prime
+    factor above 7)."""
+    if (nfft, nfft_out) in CLUSTER_PAIRS or None in split_plan(nfft, nfft_out):
+        return False
+    if 8 * max(nfft, nfft_out) > H100_SMEM_OPTIN:
+        return True
+    if None not in (_reg_split_shape(nfft), _reg_split_shape(nfft_out, inverse=True)):
+        return not (_smooth(nfft) and _smooth(nfft_out)) or _split_beats_plans(nfft, nfft_out)
+    return not (plan_takes(nfft, nfft_out) or plan_cluster_takes(nfft, nfft_out)
+                or _generic_takes(nfft, nfft_out))
 
 
 def split_tile_log2(c: int) -> int:
     """log2 of a radix step's tile width at ``c`` parts (csrc/split_radix.cuh
     tile_log2): the widest power of two up to 512 columns with c TN <=
-    2048 points (32 at c = 64, 8 at c = 160, 1 above 1024)."""
+    2048 points (32 at c = 64, 8 at c = 160, 1 above 1024); a part size it
+    does not divide ends in a ragged tile (csrc/ola_split.cu
+    split_radix_kernel)."""
     lt = 9
     while lt > 0 and (c << lt) > _SPLIT_TILE_POINTS:
         lt -= 1
@@ -382,17 +452,15 @@ def split_tile_log2(c: int) -> int:
 
 def split_limits(nfft: int, nfft_out: int, batch: int, n_frames: int, device) -> None:
     """raise before any launch where the split route's kernels cannot run
-    ``batch`` rows of ``n_frames`` frames of the pair on ``device``: a
-    tile that does not divide its parts, a grid of 2^31 blocks or more
-    along x (frames x M / TN of a radix step, frames x C of the passes), or
+    ``batch`` rows of ``n_frames`` frames of the pair on ``device``: a grid
+    of 2^31 blocks or more along x (frames x ceil(M / TN) of a radix step,
+    frames x C of the passes), or
     more device memory than the card holds for the scratch ``a`` (batch x
     frames x nfft complex64) and the frames out (batch x frames x nfft_out),
     beside the cross-twiddle tables (C x M a side)."""
     for c, m in split_plan(nfft, nfft_out):
         tn = 1 << split_tile_log2(c)
-        if m % tn:
-            raise ValueError(f'the split route\'s tile of {tn} columns does not divide {m}')
-        if n_frames * (m // tn) >= 2**31 or n_frames * c >= 2**31:
+        if n_frames * -(-m // tn) >= 2**31 or n_frames * c >= 2**31:
             raise ValueError(
                 f'{n_frames} frames of {c} x {m} points need 2^31 blocks or more on the split route')
     need = 8 * (batch * n_frames * (nfft + nfft_out) + nfft + nfft_out)
@@ -404,11 +472,14 @@ def split_limits(nfft: int, nfft_out: int, batch: int, n_frames: int, device) ->
             f'{total / 2**30:.2f} GiB')
 
 
-def split_smem(m: int) -> int:
+def split_smem(m: int, inverse: bool = False) -> int:
     """the dynamic shared memory of the split route's M-point passes
     kernels: the padded exchange buffer and the pass tables
     (csrc/ola_split.cu passes_smem; forward and inverse tables are of one
-    size)."""
+    size); for a part on a run-time plan (:func:`split_part_on_plan`), those
+    of its parts a block (:func:`part_shape`)."""
+    if split_part_on_plan(m, inverse):
+        return part_shape(m)[2]
     return 8 * (m + m // 16 + _reg_pass_tables(m, False).size)
 
 
@@ -420,11 +491,20 @@ def _pass_tables(radices: tuple, inverse: bool) -> np.ndarray:
     it) and r = 1 .. R-1, a row of the nh = ceil(NS / LS) high factors
     exp(-+2 pi i r kh LS / (NS R)), then the LS low factors exp(-+2 pi i r
     kl / (NS R)); LS = 2^ceil(log2(NS) / 2), at least 16; no high factors
-    where NS <= LS; pass 0 has none."""
+    where NS <= LS; pass 0 has none. A prime radix above 7 (csrc/fft_plan.cuh
+    pass_prime, any NS) has one row of the roots of order Q = NS R: nh =
+    ceil(Q / LS) high roots exp(-+2 pi i h LS / Q), then LS low roots
+    exp(-+2 pi i l / Q), LS = 2^ceil(log2(Q) / 2), at least 16."""
     sign = 1 if inverse else -1
     parts, ns = [np.zeros(0, complex)], 1
     for r in radices:
-        if ns > 1:
+        if _prime_pass(r):
+            q = ns * r
+            ls = _low_span(q)
+            nh = -(-q // ls)
+            parts.append(np.exp(sign * 2j * np.pi * np.concatenate(
+                [np.arange(nh) * ls, np.arange(ls)]) / q))
+        elif ns > 1:
             ls = _low_span(ns)
             nh = -(-ns // ls) if ns > ls else 0
             q = np.arange(1, r)[:, None]
@@ -520,8 +600,9 @@ def _split_tables(nfft: int, nfft_out: int) -> tuple:
     their pointers ((C1, M1), (C2, M2) = :func:`split_plan`):
 
     * ``'fwd_passes'`` / ``'inv_passes'``: the register-resident tables of
-      the M1-point forward and the M2-point inverse (:func:`_reg_pass_tables`),
-      which each passes kernel copies into its shared memory;
+      the M1-point forward and the M2-point inverse (:func:`_reg_pass_tables`,
+      or :func:`plan_tables` for a part on a run-time plan), which each
+      passes kernel copies into its shared memory;
     * ``'fwd_cross'``: row r < C1 of M1 factors exp(-2 pi i r n / nfft), the
       twiddles of the forward radix-C1 step's output r (row 0 is ones);
     * ``'inv_cross'``: row p < C2 of M2 factors exp(+2 pi i p n / nfft_out),
@@ -530,9 +611,11 @@ def _split_tables(nfft: int, nfft_out: int) -> tuple:
       exp(+2 pi i j / C2), j < C2, the twiddles of the radix steps' own
       Stockham passes."""
     (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
+    passes = [plan_tables(m, inv) if split_part_on_plan(m, inv) else _reg_pass_tables(m, inv)
+              for m, inv in ((m1, False), (m2, True))]
     parts = {
-        'fwd_passes': _reg_pass_tables(m1, False),
-        'inv_passes': _reg_pass_tables(m2, True),
+        'fwd_passes': passes[0],
+        'inv_passes': passes[1],
         'fwd_cross': np.exp(-2j * np.pi * np.outer(np.arange(c1), np.arange(m1)) / nfft).ravel(),
         'inv_cross': np.exp(2j * np.pi * np.outer(np.arange(c2), np.arange(m2)) / nfft_out).ravel(),
         'fwd_dft': np.exp(-2j * np.pi * np.arange(c1) / c1),
@@ -550,14 +633,21 @@ def split_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tens
     return torch.from_numpy(table.astype('complex64')).to(device)
 
 
+def _prime_pass(r: int) -> bool:
+    """a radix that is a prime above 7 (a pass of csrc/fft_plan.cuh
+    pass_prime; the compile-time plans' 10 and 15 are not)."""
+    return r > 7 and all(r % q for q in range(2, math.isqrt(r) + 1))
+
+
+@functools.lru_cache(maxsize=None)
 def plan_radices(n: int) -> tuple:
     """the passes of csrc/fft_plan.cuh for ``n`` points: radix 16 while it
     divides 2^a, one pass of 8, 4 or 2 for the rest of 2^a, then the 3s,
-    5s and 7s (a power of two of one pass, 4 to 16, as two: the kernel runs
-    two passes at least); ValueError for a size with another prime
-    factor."""
+    5s and 7s, then the primes above 7 in ascending order, each a pass of
+    its own (a power of two of one pass, 4 to 16, as two); ValueError for n
+    < 1."""
     if n < 1:
-        raise ValueError(f'{n} is not of the form 2^a 3^b 5^c 7^d')
+        raise ValueError(f'{n} points have no plan')
     rest, a = n, 0
     while rest % 2 == 0:
         rest, a = rest // 2, a + 1
@@ -568,8 +658,14 @@ def plan_radices(n: int) -> tuple:
         while rest % r == 0:
             radices.append(r)
             rest //= r
-    if rest != 1:
-        raise ValueError(f'{n} is not of the form 2^a 3^b 5^c 7^d')
+    q = 11
+    while rest > 1:
+        if q * q > rest:
+            q = rest
+        while rest % q == 0:
+            radices.append(q)
+            rest //= q
+        q += 2
     return tuple(radices)
 
 
@@ -593,11 +689,17 @@ def _low_span(ns: int) -> int:
 
 def _plan_passes(n: int) -> list:
     """each pass of ``n``'s plan as (radix, NS, NB, magic, shift, LS, nh):
-    nh = ceil(NS / LS) high factors where NS > LS, else none."""
+    nh = ceil(NS / LS) high factors where NS > LS, else none; at a prime
+    above 7, LS and nh = ceil(NS R / LS) of its roots' order NS R."""
     out, ns = [], 1
     for r in plan_radices(n):
-        ls = _low_span(ns)
-        out.append((r, ns, n // r, *plan_magic(ns), ls, -(-ns // ls) if ns > ls else 0))
+        if _prime_pass(r):
+            ls = _low_span(ns * r)
+            nh = -(-ns * r // ls)
+        else:
+            ls = _low_span(ns)
+            nh = -(-ns // ls) if ns > ls else 0
+        out.append((r, ns, n // r, *plan_magic(ns), ls, nh))
         ns *= r
     return out
 
@@ -615,37 +717,82 @@ def _plan_transform(n: int, tw0: int) -> list:
     ints, tw = [n, 0], tw0
     for r, ns, nb, magic, shift, ls, nh in _plan_passes(n):
         ints += [r, ns, nb, magic, shift, tw, ls, ls.bit_length() - 1, nh, nh + ls]
-        tw += (r - 1) * (nh + ls) if ns > 1 else 0
+        if _prime_pass(r):
+            tw += nh + ls
+        elif ns > 1:
+            tw += (r - 1) * (nh + ls)
     ints[1] = (len(ints) - 2) // _PLAN_PASS_INTS
     return ints + [0] * (2 + _PLAN_PASS_INTS * _PLAN_MAX_PASSES - len(ints))
 
 
-@functools.lru_cache(maxsize=None)
-def plan_shape(nfft: int, nfft_out: int):
-    """(G, F, shared memory bytes) of the plan kernel at a pair: G the lanes
-    of a frame, the least power of two from 32 with max(nfft, nfft_out) <=
-    G :data:`PLAN_POINTS`, at most :data:`PLAN_THREADS`; F the frames a
-    block, at most PLAN_THREADS / G (15 where G > 32: one named barrier
-    each), as many as an H100 block's shared memory holds beside both
-    transforms' tables (a padded exchange buffer each). None where it does
-    not hold the pair: a size of fewer than two passes or of another prime
-    factor, more than _PLAN_MAX_PASSES passes, frames above 16384 points."""
-    try:
-        passes = [len(plan_radices(n)) for n in (nfft, nfft_out)]
-    except ValueError:
-        return None
-    nmax = max(nfft, nfft_out)
-    if min(passes) < 2 or max(passes) > _PLAN_MAX_PASSES or nmax > PLAN_POINTS * PLAN_THREADS:
+def _plan_passes_held(sizes: tuple) -> bool:
+    """the run-time plans hold transforms of ``sizes`` (one frame's, or its
+    halves'): at least one point each, at most _PLAN_MAX_PASSES passes; a
+    size of one pass only at a pair with a prime factor above 7, which the
+    generic kernel has no pass for (a one-pass size of radix 2-7 keeps it:
+    384 -> 3)."""
+    if min(sizes) < 1:
+        return False
+    passes = [len(plan_radices(n)) for n in sizes]
+    if max(passes) > _PLAN_MAX_PASSES:
+        return False
+    return min(passes) >= 2 or not all(_smooth(n) for n in sizes)
+
+
+def _group_shape(nmax: int, tw: int):
+    """(G, F, shared memory bytes) of frames (or parts) of at most ``nmax``
+    points on a run-time plan, ``tw`` table entries in all: G the lanes of
+    one, the least power of two from 32 with nmax <= G :data:`PLAN_POINTS`;
+    F a block's, at most PLAN_THREADS / G (15 where G > 32: one named
+    barrier each), as many as an H100 block's shared memory holds beside
+    the tables (a padded exchange buffer each). None where none fits or
+    nmax is above 16384 points."""
+    if nmax > PLAN_POINTS * PLAN_THREADS:
         return None
     g = 32
     while g * PLAN_POINTS < nmax:
         g *= 2
-    tw = plan_tables(nfft, False).size + plan_tables(nfft_out, True).size
     buf = nmax + nmax // 16
     frames = min(PLAN_THREADS // g, 16 if g == 32 else 15)
     while frames and 8 * (tw + frames * buf) > H100_SMEM_OPTIN:
         frames -= 1
     return (g, frames, 8 * (tw + frames * buf)) if frames else None
+
+
+@functools.lru_cache(maxsize=None)
+def plan_shape(nfft: int, nfft_out: int):
+    """(G, F, shared memory bytes) of the plan kernel at a pair
+    (:func:`_group_shape` of its frames, beside both transforms' tables).
+    None where it does not hold the pair: more than _PLAN_MAX_PASSES
+    passes, frames above 16384 points, a size of one pass where the generic
+    kernel takes the pair (:func:`_plan_passes_held`)."""
+    if not _plan_passes_held((nfft, nfft_out)):
+        return None
+    tw = plan_tables(nfft, False).size + plan_tables(nfft_out, True).size
+    return _group_shape(max(nfft, nfft_out), tw)
+
+
+@functools.lru_cache(maxsize=None)
+def part_shape(m: int):
+    """(G, F, shared memory bytes) of the split route's run-time passes
+    kernel (``split_plan_passes_kernel``) at parts of ``m`` points
+    (:func:`_group_shape` beside its pass tables, which are of one size
+    either way), any size of at most _PLAN_MAX_PASSES passes, one pass
+    too; None where it does not hold ``m``."""
+    if m < 1 or len(plan_radices(m)) > _PLAN_MAX_PASSES:
+        return None
+    return _group_shape(m, plan_tables(m).size)
+
+
+@functools.lru_cache(maxsize=None)
+def part_plan(m: int) -> np.ndarray:
+    """the run-time passes kernel's PartPlan at parts of ``m`` points, as
+    the int32 array its C entry takes (csrc/ola_split.cu PartPlan): the
+    transform's plan::Transform, then its tables' float2 count, G, F and
+    the float2 of a part's exchange buffer."""
+    g, parts, _ = part_shape(m)
+    ints = _plan_transform(m, 0) + [plan_tables(m).size, g, parts, m + m // 16]
+    return np.array(ints, dtype=np.uint32).view(np.int32)
 
 
 def plan_takes(nfft: int, nfft_out: int) -> bool:
@@ -684,8 +831,8 @@ def plan_cluster_shape(nfft: int, nfft_out: int):
     frames (the larger within an H100 block's shared memory at 8 bytes a
     point, the frame kernels' scope there: larger frames take the split
     route): both sizes even, each half (M1 = nfft / 2, M2 = nfft_out / 2)
-    of the form 2^a 3^b 5^c 7^d with two passes at least and at most
-    _PLAN_MAX_PASSES, the larger half at most :data:`PLAN_POINTS` x
+    of any factors (:func:`_plan_passes_held`: at most _PLAN_MAX_PASSES
+    passes, one only with a prime above 7), the larger half at most :data:`PLAN_POINTS` x
     :data:`PLAN_THREADS` (16384) points; G, the threads of each block, 256
     where both halves are at most 8192 points (two blocks an SM), else 512;
     a block's shared memory (both halves' pass tables and the larger half's
@@ -695,12 +842,10 @@ def plan_cluster_shape(nfft: int, nfft_out: int):
             or 8 * max(nfft, nfft_out) > H100_SMEM_OPTIN):
         return None
     m1, m2 = nfft // PLAN_CLUSTER, nfft_out // PLAN_CLUSTER
-    try:
-        passes = [len(plan_radices(m)) for m in (m1, m2)]
-    except ValueError:
+    if not _plan_passes_held((m1, m2)):
         return None
     mmax = max(m1, m2)
-    if min(passes) < 2 or max(passes) > _PLAN_MAX_PASSES or mmax > PLAN_POINTS * PLAN_THREADS:
+    if mmax > PLAN_POINTS * PLAN_THREADS:
         return None
     g = PLAN_THREADS // 2 if mmax <= PLAN_POINTS * PLAN_THREADS // 2 else PLAN_THREADS
     smem = 8 * (plan_tables(m1, False).size + plan_tables(m2, True).size + mmax + mmax // 16)
@@ -758,18 +903,20 @@ def frames_route(nfft: int, nfft_out: int) -> str:
     :data:`REG_PAIRS`, ``'cluster'`` (``fused_ola_frames_cluster_kernel``)
     at those of :data:`CLUSTER_PAIRS`, ``'split'`` (the kernels of
     csrc/ola_split.cu) at those of :func:`split_takes` (above one block,
-    and the one-block pairs where it beats the plan kernels: 9216 -> 3072
-    and 18 of the 20 monitor pairs of 18432-28672 points), ``'plan'``
+    the one-block pairs where it beats the plan kernels: 9216 -> 3072 and
+    18 of the 20 monitor pairs of 18432-28672 points, and the one-block
+    pairs no other kernel holds), ``'plan'``
     (``fused_ola_frames_plan_kernel``) at every other pair it holds
-    (:func:`plan_takes`: frames up to 16384 points; the two-block kernel
-    was the slower at 9216 -> 3072, chip_smoke.py 28b), an unresampled
-    nfft_out == nfft among them, ``'plan_cluster'``
-    (``fused_ola_frames_plan_cluster_kernel``, a frame on two blocks) at
-    every other pair it holds (:func:`plan_cluster_takes`: the one-block
-    frames of 16386-29056 points with even sizes; of the monitor's 19200
-    -> 5120, which has no split shape, 20480 -> 20480 and 24576 -> 24576),
-    and ``'generic'`` (``fused_ola_frames_kernel``) at the rest: sizes of
-    one pass, odd sizes above 16384 points (ROADMAP.md)."""
+    (:func:`plan_takes`: frames up to 16384 points, a prime factor above 7
+    a pass of its own; the two-block kernel was the slower at 9216 ->
+    3072, chip_smoke.py 28b), an unresampled nfft_out == nfft among them,
+    ``'plan_cluster'`` (``fused_ola_frames_plan_cluster_kernel``, a frame
+    on two blocks) at every other pair it holds (:func:`plan_cluster_takes`:
+    the one-block frames of 16386-29056 points with even sizes; of the
+    monitor's 19200 -> 5120, 20480 -> 20480, 24576 -> 24576 and 16896 ->
+    8448), and ``'generic'`` (``fused_ola_frames_kernel``) at the rest:
+    sizes of one pass of radix 2-7, odd sizes 2^a 3^b 5^c 7^d above 16384
+    points, and the pairs no kernel takes (ROADMAP.md)."""
     if (nfft, nfft_out) in REG_PAIRS:
         return 'reg'
     if (nfft, nfft_out) in CLUSTER_PAIRS:
@@ -884,13 +1031,11 @@ def _launch_frames(
     dev = frames.device
     if not fused_ola_frames_supported(nfft, nfft_out, dev):
         raise NotImplementedError(
-            'the CUDA frame-batch OLA kernels take sizes 2^a 3^b 5^c 7^d whose '
-            f'frame fits one block\'s shared memory ({_build.smem_optin(dev)} '
-            'bytes, 8 a point), split over a cluster of blocks the pairs '
-            f'{sorted(CLUSTER_PAIRS)}, and above one block sizes C M with M '
-            f'in {sorted(REG_PLANS)} (of the output, in {sorted(SPLIT_INV_PLANS)}) '
-            f'and C <= {SPLIT_MAX_C}; got '
-            f'nfft={nfft}, nfft_out={nfft_out} (ROADMAP Queue 2 item 1)'
+            'the CUDA frame-batch OLA kernels take sizes whose frame fits one '
+            f'block\'s shared memory ({_build.smem_optin(dev)} bytes, 8 a point), '
+            f'and above one block sizes C M with C <= {SPLIT_MAX_C} and M <= '
+            f'{PLAN_POINTS * PLAN_THREADS}; got nfft={nfft}, nfft_out={nfft_out} '
+            '(ROADMAP Queue 2 item 1)'
         )
     if frames.dtype not in LAYOUTS:
         raise TypeError(f'the frame kernels read {sorted(map(str, LAYOUTS))}, not {frames.dtype}')
@@ -1035,13 +1180,16 @@ def _launch_split(f3, layout, strides, edge, y, w_in, *, w_out, nfft, nfft_out, 
     hi = min(zero_hi, in_lo + out_hi - out_lo)
     a = torch.empty((*y.shape[:2], nfft), dtype=torch.complex64, device=dev)
     plan1, plan2 = _build.radix_plan_arg(c1), _build.radix_plan_arg(c2)
+    # each side's PartPlan where its parts run on a run-time plan
+    parts = [(part_plan(m).ctypes.data, part_plan(m).size) if split_part_on_plan(m, inv)
+             else (None, 0) for m, inv in ((m1, False), (m2, True))]
     return _build.library().iqt_ola_split(
         f3.data_ptr(), layout, *strides, *edge, w_in.data_ptr(), w_out.data_ptr(),
         at['fwd_passes'], at['inv_passes'], at['fwd_cross'], at['inv_cross'], at['fwd_dft'],
         at['inv_dft'], a.data_ptr(), y.data_ptr(), off['inv_passes'],
         off['fwd_cross'] - off['inv_passes'], y.shape[0], y.shape[1], c1, m1,
         ctypes.addressof(plan1), c2, m2, ctypes.addressof(plan2), lo, hi, out_lo - in_lo,
-        _build.stream_of(f3),
+        *parts[0], *parts[1], _build.stream_of(f3),
     )
 
 
@@ -1222,8 +1370,8 @@ def fused_ola_cuda_supported(nfft: int, nfft_out: int, noverlap_in: int, noverla
     (:func:`fused_ola_frames_supported` on an H100, the frames then
     overlap-added by ``ola_add_kernel``): every 2:1 pair the JAX package's
     ``fused_ola_strided_supported``
-    (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:559) takes, both sizes
-    multiples of 1024 up to 2^21 points among them."""
+    (iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:559) takes, and every
+    even pair of multiples of 128 up to 2^21 points."""
     return (
         nfft == 2 * noverlap_in
         and nfft_out == 2 * noverlap_out

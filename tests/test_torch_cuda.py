@@ -760,10 +760,12 @@ def test_sizes_outside_the_pairs_take_the_generic_kernel(card):
 
 def test_frames_above_shared_memory_raise(card):
     """the pairs no frame route takes raise in the frame kernel's wrapper,
-    naming ROADMAP Queue 2 item 1: a size no multiple of 1024 with a prime
-    factor above 7 (37000 -> 8192, which the JAX kernel refuses too) and
-    2053 x 1024 = 2102272 -> 1024 (which the JAX kernel takes, but no part
-    size of REG_PLANS divides with C <= 2048). The four designs of the
+    naming ROADMAP Queue 2 item 1: a size above one block with a prime
+    factor above 16384 (32822 = 2 x 16411, which no part of at most 16384
+    points holds). 37000 -> 8192 and 2053 x 1024 = 2102272 -> 1024, which
+    raised here until the split route took parts on run-time plans (4 x
+    9250 and 256 x 8212), launch the split route once on 2 frames, within
+    1e-5 of the plain chain. The four designs of the
     122.88 MS/s grid that took the plain frames until the split route's
     radix steps took up to 2048 parts (1310720 -> 81920, 80 x 16384;
     1572864 -> 49152, 96; 1310720 -> 40960, 80; 2621440 -> 81920, 160)
@@ -774,17 +776,24 @@ def test_frames_above_shared_memory_raise(card):
     before the split route's radix-7 step and its prime pass, step on the
     split route (test_radix_7_monitor_takes_the_split_route,
     test_split_route_takes_prime_factors_above_7)."""
-    for nfft, nfft_out in ((37000, 8192), (2053 * 1024, 1024)):
-        assert frames_route(nfft, nfft_out) == 'generic'
-        with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
-            kernels.fused_ola_frames(
-                torch.zeros((2, nfft), dtype=torch.complex64, device='cuda'),
-                w_in=torch.ones(nfft, dtype=torch.complex64, device='cuda'),
-                w_shift_out=torch.ones(nfft_out, dtype=torch.complex64, device='cuda'),
-                nfft=nfft, nfft_out=nfft_out, zero_lo=0, zero_hi=None,
-                bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
-                bounds_out=(0, nfft_out),
-            )
+    for nfft, nfft_out in ((32822, 16411), (37000, 8192), (2053 * 1024, 1024)):
+        kw = dict(w_in=torch.ones(nfft, dtype=torch.complex64, device='cuda'),
+                  w_shift_out=torch.ones(nfft_out, dtype=torch.complex64, device='cuda'),
+                  nfft=nfft, nfft_out=nfft_out, zero_lo=0, zero_hi=None,
+                  bounds_in=((nfft - nfft_out) // 2, (nfft + nfft_out) // 2),
+                  bounds_out=(0, nfft_out))
+        frames = _noise((2, nfft), 12)
+        if nfft == 32822:
+            assert frames_route(nfft, nfft_out) == 'generic'
+            with pytest.raises(NotImplementedError, match='Queue 2 item 1'):
+                kernels.fused_ola_frames(frames, **kw)
+            continue
+        assert frames_route(nfft, nfft_out) == 'split'
+        _reset_frame_routes()
+        got = kernels.fused_ola_frames(frames, **kw)
+        torch.cuda.synchronize()
+        assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+        assert rel_rms(got, kernels.fused_ola_frames_plain(frames, **kw)) <= 1e-5
     for seed, (fs_out, window, min_fft, pair) in enumerate((
             (7.68e6, 'blackmanharris', 16383, (1310720, 81920)),
             (3.84e6, 'blackman', 16383, (1572864, 49152)),
@@ -1473,12 +1482,24 @@ LAYOUT_OF_TIER = {'highest': 'float32', 'i16': 'int16', 'bf16': 'bfloat16'}
 
 def _strided_kw(monitor, route, tier):
     """the flagship pair (the register kernel) or 4096 -> 2048 (the radix-2
-    kernel; 8192 -> 4096 until the register kernel took it) at ``tier``."""
+    kernel, forced there: the pair's route has been 'plan+add' since the
+    plan kernel; 8192 -> 4096 until the register kernel took it) at
+    ``tier``."""
     if route == 'reg':
         return {**monitor.strided_kwargs, 'precision': tier}
     return dict(hop_in=2048, nfft=4096, nfft_out=2048, zero_lo=150, zero_hi=3950,
                 bounds_in=(1024, 3072), bounds_out=(0, 2048), w_in=_noise(4096, 26),
                 w_shift_out=_noise(2048, 27), precision=tier)
+
+
+def _strided_generic(planes, halo, *, n_frames, hop_in, precision, **kw):
+    """fused_ola_strided's launch forced onto the radix-2 ``fused_ola_kernel``
+    (route 'generic'), counted as fused_ola_strided counts it."""
+    fo = sys.modules['iqwaveform_torch.ops.kernels.fused_ola']
+    src = fo.stored(planes, precision)
+    h = fo.stored(halo, precision).to(src.dtype)
+    return fo._launch_ola(src, h, 'generic', counter=kernels.fused_ola_strided, tail=True,
+                          **fo._strided_kwargs(kw.pop('nfft'), kw.pop('nfft_out'), hop_in, **kw))
 
 
 def _reset_strided():
@@ -1492,10 +1513,12 @@ def _reset_strided():
 @pytest.mark.parametrize('tier', sorted(LAYOUT_OF_TIER))
 def test_strided_kernel_matches_plain(monitor, tier, route):
     """fused_ola_strided on two rows of (2, N) planes of the tier's storage
-    type, with a halo: one launch on its route reading that type, the
-    output and tail as one within 1e-5 relative RMS of the plain version;
-    at float32 the same samples as complex64 give the same output bit for
-    bit, and without a halo fused_ola's."""
+    type, with a halo: one launch on its route reading that type (the
+    radix-2 kernel through _strided_generic, which fused_ola_strided's
+    launch takes forced onto 'generic'), the output and tail as one within
+    1e-5 relative RMS of the plain version; at float32 the same samples as
+    complex64 give the same output bit for bit, and without a halo
+    fused_ola's."""
     kw = _strided_kw(monitor, route, tier)
     hop, n_frames = kw['hop_in'], 41
     gen = torch.Generator(device='cuda').manual_seed(40)
@@ -1505,8 +1528,9 @@ def test_strided_kernel_matches_plain(monitor, tier, route):
     elif tier == 'bf16':
         planes = planes.to(torch.bfloat16)
     x, h = planes[..., : n_frames * hop].contiguous(), planes[..., n_frames * hop :].contiguous()
+    strided = kernels.fused_ola_strided if route == 'reg' else _strided_generic
     _reset_strided()
-    y, tail = kernels.fused_ola_strided(x, h, n_frames=n_frames, **kw)
+    y, tail = strided(x, h, n_frames=n_frames, **kw)
     torch.cuda.synchronize()
     k = kernels.fused_ola_strided
     assert (k.launches, k.route_launches[route], k.layout_launches[LAYOUT_OF_TIER[tier]]) == (1, 1, 1)
@@ -1515,7 +1539,7 @@ def test_strided_kernel_matches_plain(monitor, tier, route):
     assert rel_rms(torch.cat([y, tail], -1), torch.cat([ry, rt], -1)) <= 1e-5
     if tier == 'highest':
         z, zh = torch.complex(x[:, 0], x[:, 1]), torch.complex(h[:, 0], h[:, 1])
-        yc, tc = kernels.fused_ola_strided(z, zh, n_frames=n_frames, **kw)
+        yc, tc = strided(z, zh, n_frames=n_frames, **kw)
         assert k.layout_launches['complex64'] == 1
         assert torch.equal(yc, y) and torch.equal(tc, tail)
         ola_kw = {key: v for key, v in kw.items() if key not in ('hop_in', 'precision')}
@@ -2274,6 +2298,126 @@ def test_plan_cluster_add_matches_plain_with_halo_and_tail(card):
     y64, t64 = _strided_f64(x, halo, kw)
     both, plain = torch.cat([got, tail], -1), torch.cat([ref, ref_tail], -1)
     assert rel_rms(both, torch.cat([y64, t64], -1)) <= 2 * rel_rms(plain, torch.cat([y64, t64], -1))
+
+
+# ---- the prime pass of the run-time plan kernels (csrc/fft_plan.cuh
+# pass_prime) and the split route's parts on run-time plans
+# (split_plan_passes_kernel): rows 2-3 at every size the JAX OLA kernel
+# takes up to 2^21 points
+
+PRIME_ROUTES = {(1408, 704): 'plan', (1408, 11): 'plan', (2816, 1408): 'plan',
+                (13750, 8448): 'plan', (16768, 8384): 'plan_cluster',
+                (16896, 8448): 'plan_cluster', (76800, 38400): 'split',
+                (41250, 25344): 'split', (32288, 16144): 'split', (29056, 17025): 'split'}
+PRIME_ADD = {(2816, 1408): 'plan+add', (16768, 8384): 'plan_cluster+add',
+             (76800, 38400): 'split+add'}
+
+
+@pytest.mark.parametrize('layout', ['complex64', 'int16', 'bfloat16'])
+@pytest.mark.parametrize('pair', sorted(PRIME_ROUTES))
+def test_prime_routes_match_plain_and_complex128(card, pair, layout):
+    """a pair with a prime factor above 7 (a prime pass: 11, 131, 1009,
+    227) or a split part of any factors, on 5 frames at hop nfft / 3,
+    complex64 or planes of the tier's type: one launch on its route of that
+    layout, within 1e-5 of the plain chain, its complex128 error at most
+    twice the plain chain's."""
+    nfft, nfft_out = pair
+    route = PRIME_ROUTES[pair]
+    assert frames_route(nfft, nfft_out) == route
+    kw = _plan_kwargs(nfft, nfft_out, 95)
+    hop = nfft // 3
+    x = _noise(4 * hop + nfft, 96)
+    if layout == 'complex64':
+        frames, extra = x.unfold(-1, nfft, hop), {}
+    else:
+        dtype = getattr(torch, layout)
+        frames, extra = (3000 * torch.stack([x.real, x.imag])).round().to(dtype), {'hop_in': hop}
+    _reset_frame_routes()
+    kernels.fused_ola_frames.layout_launches.update(
+        dict.fromkeys(kernels.fused_ola_frames.layout_launches, 0))
+    got = kernels.fused_ola_frames(frames, **extra, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(**{route: 1})
+    assert kernels.fused_ola_frames.layout_launches[layout] == 1
+    ref = kernels.fused_ola_frames_plain(frames, **extra, **kw)
+    assert got.shape == ref.shape == (5, nfft_out)
+    assert rel_rms(got, ref) <= 1e-5
+    c128 = (dequantize(frames) if layout != 'complex64' else x).to(torch.complex128)
+    ref64 = kernels.fused_ola_frames_plain(c128.unfold(-1, nfft, hop)[:5], **_wide(kw))
+    assert rel_rms(got, ref64) <= 2 * rel_rms(ref, ref64)
+
+
+@pytest.mark.parametrize('tier', ['highest', 'i16', 'bf16'])
+@pytest.mark.parametrize('pair', sorted(PRIME_ADD))
+def test_prime_add_routes_match_plain_with_halo_and_tail(card, pair, tier):
+    """the 2:1 routes at prime pairs ('plan+add' at 2816 = 11 x 256,
+    'plan_cluster+add' at 16768 = 131 x 128, 'split+add' at 76800 -> 38400
+    = 3 x 12800 on a run-time part) on 2 rows of 9 frames with a halo and
+    the tail at each storage tier: one launch on the route, within 1e-5 of
+    the plain version, its complex128 error at most twice the plain
+    version's."""
+    from iqwaveform_torch.ops.kernels.fused_ola import stored
+
+    nfft, nfft_out = pair
+    route = PRIME_ADD[pair]
+    assert ola_route(nfft, nfft_out) == route
+    kw = dict(_strided_kwargs(nfft, nfft_out, 97), precision=tier)
+    hop = nfft // 2
+    x, halo = _noise((2, 9 * hop), 98), _noise((2, hop), 99)
+    src, h = (x, halo) if tier == 'highest' else (
+        torch.stack([v.real, v.imag], dim=-2) * 3000 for v in (x, halo))
+    _reset_strided()
+    got, tail = kernels.fused_ola_strided(src, h, n_frames=9, **kw)
+    torch.cuda.synchronize()
+    k = kernels.fused_ola_strided
+    assert k.launches == 1 and k.route_launches == _ola_routes(**{route: 1})
+    ref, ref_tail = kernels.fused_ola_strided_plain(src, h, n_frames=9, **kw)
+    assert rel_rms(got, ref) <= 1e-5 and rel_rms(tail, ref_tail) <= 1e-5
+    y64, t64 = _strided_f64(stored(src, tier), stored(h, tier), kw)
+    both, plain = torch.cat([got, tail], -1), torch.cat([ref, ref_tail], -1)
+    assert rel_rms(both, torch.cat([y64, t64], -1)) <= 2 * rel_rms(plain, torch.cat([y64, t64], -1))
+
+
+@pytest.mark.parametrize('window,route', [('hamming', 'plan+add'), ('blackman', 'split')])
+def test_monitor_at_100_to_61_44_takes_the_new_routes(card, window, route):
+    """the monitor at 100 -> 61.44 MS/s, whose OLA ran the torch.fft chain
+    ('plain') before the prime pass: one launch of its route ('plan+add' at
+    13750 -> 8448, 'split' at 41250 -> 25344), the step within the gates of
+    reference_step (channel power 1e-5; psd within 0.01 dB above -100 dB;
+    APD totals equal, L1 within max(2, total / 1000))."""
+    mon = it.WidebandMonitor(it.design_wideband_monitor(100e6, 61.44e6, window=window))
+    assert mon.routes['ola'] == route
+    x = _noise(2 * mon.min_input_multiple(), 100)
+    _reset_routes()
+    _reset_frame_routes()
+    out = mon.step(x)
+    torch.cuda.synchronize()
+    if route == 'plan+add':
+        assert kernels.fused_ola.route_launches == _ola_routes(**{route: 1})
+    else:
+        assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    ref = mon.reference_step(x)
+    for key in ('channel_power', 'channel_power_mean', 'channel_power_max'):
+        assert rel_rms(out[key], ref[key]) <= 1e-5, key
+    for key in ('psd_mean', 'psd_max'):
+        band = ref[key] > -100
+        assert int(band.sum()) > 0
+        assert float((out[key][band] - ref[key][band]).abs().max()) <= 0.01, key
+    a, b = out['apd_counts'].long(), ref['apd_counts'].long()
+    assert int(a.sum()) == int(b.sum())
+    assert int((a - b).abs().sum()) <= max(2, int(b.sum()) // 1000)
+
+
+def test_ola_filter_at_76800_takes_the_split_route(card):
+    """ola_filter at 76800 -> 38400 (1 kHz bins at 76.8 MS/s; 38400 = 3 x
+    12800 on a run-time part): one launch of the split route, within 1e-5
+    of the stage chain (fft_backend='xla')."""
+    x = _noise(12 * 38400, 101)
+    kw = dict(fs=76.8e6, nfft=76800, nfft_out=38400, window='hamming', passband=(-15e6, 15e6))
+    _reset_frame_routes()
+    got = it.ola_filter(x, **kw)
+    assert kernels.fused_ola_frames.route_launches == _frame_routes(split=1)
+    assert rel_rms(got, it.ola_filter(x, fft_backend='xla', **kw)) <= 1e-5
 
 
 # ---- rows 9-10 at every size, rows 4-5 at 64-512 ---------------------------

@@ -441,8 +441,10 @@ def test_route_by_size():
     sizes above one block's shared memory (tests/test_torch_ola_split.py)
     and the radix-7 sizes (tests/test_torch_ola_tiers.py) added to it; a
     factor of 11 takes the split route's prime pass where both sizes are
-    multiples of 1024, and stays outside where one is not; up to 2048
-    parts take the split route, and more (2053 x 1024) stay outside."""
+    multiples of 1024, and the plan kernel's prime pass where one is not
+    (11264 -> 5632); up to 2048 parts of 1024 take the split route, and
+    2053 x 1024 takes it in parts of 4 x 2053 points on a run-time plan;
+    a prime factor above 16384 (32822 = 2 x 16411) stays outside."""
     assert REG_PAIRS == ((16384, 8192), (12288, 6144), (12288, 4096))
     for pair in REG_PAIRS:
         assert frames_route(*pair) == 'reg'
@@ -453,13 +455,14 @@ def test_route_by_size():
     assert frames_route(20480, 10240) == 'split'
     supported = {(1536, 768): True, (16384, 16384): True, (20480, 10240): True,
                  (28800, 14400): True, (40960, 20480): True, (7 * 1024, 3584): True,
-                 (11 * 1024, 5632): False, (11 * 16384, 16384): True,
-                 (80 * 16384, 40960): True, (2053 * 1024, 1024): False,
+                 (11 * 1024, 5632): True, (11 * 16384, 16384): True,
+                 (80 * 16384, 40960): True, (2053 * 1024, 1024): True, (32822, 16411): False,
                  (32768, 16384): True, (32768, 32768): True, (98304, 24576): True,
                  (163840, 40960): True, (196608, 24576): True, (1, 1): True,
                  (7 * 16384, 16384): True}
     for pair, ok in supported.items():
         assert fused_ola_frames_supported(*pair) == ok, pair
+    assert frames_route(11 * 1024, 5632) == 'plan' and frames_route(2053 * 1024, 1024) == 'split'
 
 
 def test_cpu_tensors_take_the_plain_chain_at_the_specialised_sizes():

@@ -142,8 +142,11 @@ def test_ola_filter_routes_by_design():
     pairs a thread-block cluster takes above that (CLUSTER_PAIRS), and the
     split route's sizes C M above it or with a prime factor above 7 (M a
     register plan's size, C <= 2048, primes above 7 through its radix
-    step's prime pass); a factor of 11 in a size that is no multiple of
-    1024, and more than 2048 parts, take the stage chain."""
+    step's prime pass); since the plan kernels' prime pass and the split
+    route's run-time parts, a factor of 11 in a one-block size that is no
+    multiple of 1024 (the plan kernel) and 2053 x 1024 (256 parts of
+    8212) too; a prime factor above 16384 (32822 = 2 x 16411) takes the
+    stage chain, and 'pallas' raises there."""
     cpu = torch.device('cpu')
 
     def route(nfft, nfft_out, noverlap, size=10**8):
@@ -162,14 +165,20 @@ def test_ola_filter_routes_by_design():
     assert route(270336, 24576, 180224) == 'pallas'  # above shared memory, factor 11: split
     assert route(1310720, 40960, 1048576) == 'pallas'  # above shared memory, 80 parts
     assert route(22 * 1024, 11 * 1024, 11 * 1024) == 'pallas'  # factor 11: the prime pass
-    assert route(2053 * 1024, 1024, 1024) == 'xla'  # 2053 parts
-    assert route(11 * 1024, 11 * 512, 11 * 512) == 'xla'  # factor 11, no multiple of 1024
+    assert route(2053 * 1024, 1024, 1024) == 'pallas'  # 256 run-time parts of 4 x 2053
+    assert route(11 * 1024, 11 * 512, 11 * 512) == 'pallas'  # factor 11: the plan kernel
+    assert route(32822, 32822, 16411) == 'xla'  # a prime factor above 16384
     assert route(4096, 2048, 2048, size=4000) == 'xla'  # shorter than a frame
     assert TF.fused_ola_frames_supported(28800, 14400)
-    assert not TF.fused_ola_frames_supported(30000, 15000)
+    assert TF.fused_ola_frames_supported(30000, 15000)  # 3 x 10000 and one part of 15000
 
     x = _complex(np.random.default_rng(5), 4 * 5632)
     kw = dict(fs=10e6, nfft=5632, nfft_out=2816, window='hamming', passband=(-3e6, 3e6))
+    ref = np.asarray(J.ola_filter(jnp.asarray(x), fft_backend='xla', **kw))
+    assert max_rel(T.ola_filter(x, fft_backend='pallas', device=CPU, **kw).numpy(), ref) < 2e-6
+    assert max_rel(T.ola_filter(x, device=CPU, **kw).numpy(), ref) < 2e-6
+    x = _complex(np.random.default_rng(6), 4 * 32822)
+    kw = dict(fs=10e6, nfft=32822, nfft_out=32822, window='hamming', passband=(-3e6, 3e6))
     with pytest.raises(ValueError, match='frame-batch'):
         T.ola_filter(x, fft_backend='pallas', device=CPU, **kw)
     ref = np.asarray(J.ola_filter(jnp.asarray(x), fft_backend='xla', **kw))

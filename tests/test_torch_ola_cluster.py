@@ -56,10 +56,10 @@ from iqwaveform_tpu.models import design_wideband_monitor as jax_design
 from iqwaveform_tpu.ops.pallas.fused_ola_pallas import fused_ola_packed
 
 PAIRS = sorted(CLUSTER_PAIRS)
-# frames above one block's shared memory that no CUDA route takes yet
-# (ROADMAP Queue 2 item 1): above 2^21 points, more than 2048 parts of
-# every plan size that divides (2053 x 1024), and sizes that are no multiple
-# of 1024 with a prime factor above 7 (37000 -> 8192). Blackmanharris at
+# frames above one block's shared memory that no CUDA route took (ROADMAP
+# Queue 2 item 1): above 2^21 points, more than 2048 parts of every
+# compiled part size that divides (2053 x 1024), and sizes that are no
+# multiple of 1024 with a prime factor above 7 (37000 -> 8192). Blackmanharris at
 # 122.88 -> 3.84 MS/s (1310720 -> 40960, 80 x 16384) and 67 x 16384 ->
 # 32768 were here until the split route's radix steps took up to 2048 parts
 # (tests/test_torch_ola_strided_frames.py). The blackman and blackmanharris frames at 122.88 -> 30.72 MS/s (98304 ->
@@ -70,8 +70,13 @@ PAIRS = sorted(CLUSTER_PAIRS)
 # the factor-7 sizes of 107.52 -> 15.36 MS/s (172032 -> 24576, 7 x 16384
 # -> 32768) until its radix-7 step (tests/test_torch_ola_tiers.py); the
 # factor-11 sizes (blackman at 135.168 -> 12.288 MS/s, 270336 -> 24576; 11
-# x 16384 -> 32768) until its prime pass (SPLIT_PRIME)
-OUTSIDE = ((2053 * 1024, 1024), (37000, 8192))
+# x 16384 -> 32768) until its prime pass (SPLIT_PRIME). The two of OUTSIDE
+# were here until the split route took parts on run-time plans (2053 x 1024
+# = 256 x 8212, 37000 = 4 x 9250): each with the route it takes now.
+# STILL_OUTSIDE: a size above one block with a prime factor above 16384,
+# which no part of at most 16384 points holds
+OUTSIDE = {(2053 * 1024, 1024): 'split', (37000, 8192): 'split'}
+STILL_OUTSIDE = ((32822, 16411),)
 SPLIT_PRIME = ((270336, 24576), (11 * 16384, 32768), (1310720, 40960), (67 * 16384, 32768))
 
 
@@ -299,10 +304,12 @@ def test_route_and_scope_by_size():
     (the 98304-point frames among them, and 24576 -> 12288 in place of the
     generic kernel); the register-resident pairs as before, the one-block
     sizes on the plan kernel (above its 16384 points the two-block plan
-    kernel, or the split route where it beat both), the
+    kernel, or the split route where it beat both), 11264 -> 5632 on the
+    plan kernel's prime pass since it took primes above 7, the
     scope of every other size as before; frames above one block that no
     cluster pair lists on the split route, 163840 -> 40960 among them, and
-    up to 2048 parts (SPLIT_PRIME); the frames of OUTSIDE outside."""
+    up to 2048 parts (SPLIT_PRIME); the frames of OUTSIDE on the split
+    route's run-time parts; those of STILL_OUTSIDE outside."""
     for pair in PAIRS:
         assert frames_route(*pair) == 'cluster'
         assert fused_ola_frames_supported(*pair)
@@ -312,7 +319,7 @@ def test_route_and_scope_by_size():
                               (28800, 14400): ('plan_cluster', True),
                               (24576, 24576): ('plan_cluster', True),
                               (7 * 1024, 3584): ('plan', True),
-                              (11 * 1024, 5632): ('generic', False)}.items():
+                              (11 * 1024, 5632): ('plan', True)}.items():
         assert frames_route(*pair) == route, pair
         assert fused_ola_frames_supported(*pair) == ok, pair
     for pair in ((32768, 32768), (49152, 49152), (81920, 20480), (163840, 40960),
@@ -320,7 +327,9 @@ def test_route_and_scope_by_size():
         assert frames_route(*pair) == 'split' and fused_ola_frames_supported(*pair), pair
     for pair in SPLIT_PRIME:
         assert frames_route(*pair) == 'split' and fused_ola_frames_supported(*pair), pair
-    for pair in OUTSIDE:
+    for pair, route in OUTSIDE.items():
+        assert frames_route(*pair) == route and fused_ola_frames_supported(*pair), pair
+    for pair in STILL_OUTSIDE:
         assert frames_route(*pair) == 'generic' and not fused_ola_frames_supported(*pair)
 
 

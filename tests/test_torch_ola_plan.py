@@ -213,7 +213,8 @@ def _frame_kw(rng, nfft, nfft_out):
 
 def test_factoring_and_radix_order():
     """radix 16 first, one of 8, 4 or 2 for the rest of 2^a, then 3s, 5s,
-    7s; a one-pass power of two split in two; other primes refused."""
+    7s; a one-pass power of two split in two; the primes above 7 last, a
+    pass each (csrc/fft_plan.cuh pass_prime); no plan for 0 points."""
     assert plan_radices(16384) == (16, 16, 16, 4)
     assert plan_radices(12288) == (16, 16, 16, 3)
     assert plan_radices(9216) == (16, 16, 4, 3, 3)
@@ -227,9 +228,10 @@ def test_factoring_and_radix_order():
         assert radices[: len(twos)] == tuple(twos), 'powers of two first'
         assert list(radices[len(twos):]) == sorted(radices[len(twos):])
         assert sum(r != 16 for r in twos) <= 1 or len(radices) == 2
-    for bad in (11, 37000, 2053 * 1024, 0):
-        with pytest.raises(ValueError):
-            plan_radices(bad)
+    assert plan_radices(11) == (11,) and plan_radices(37000) == (8, 5, 5, 5, 37)
+    assert plan_radices(2053 * 1024) == (16, 16, 4, 2053)
+    with pytest.raises(ValueError):
+        plan_radices(0)
 
 
 @pytest.mark.parametrize('n', SIZES)
@@ -413,16 +415,24 @@ def test_routes_unchanged_at_the_compiled_and_split_pairs():
 def test_scope_predicates_as_before():
     """fused_ola_frames_supported and fused_ola_cuda_supported: the truth
     table of the port before the plan kernel (sizes 2^a 3^b 5^c 7^d of
-    one block, the cluster and split pairs; 2:1 on both sides)."""
-    frames = {(1536, 768): True, (25600, 5120): True, (28672, 4096): True, (29056, 1024): False,
-              (1, 1): True, (37000, 8192): False, (11 * 1024, 1024): True, (11 * 1000, 1000): False,
-              (2053 * 1024, 1024): False, (65536, 16384): True, (40960, 40960): True,
-              (16384, 32768): True, (32768, 65536): True, (7 * 4096, 4096): True}
+    one block, the cluster and split pairs; 2:1 on both sides), widened
+    by the prime pass and the split route's run-time parts: 29056 = 227 x
+    128 -> 1024 on the two-block plan kernel, 11000 -> 1000 on the plan
+    kernel, 37000 -> 8192 and 2053 x 1024 -> 1024 on the split route; a
+    prime factor above 16384 (32822 = 2 x 16411) still outside."""
+    frames = {(1536, 768): True, (25600, 5120): True, (28672, 4096): True, (29056, 1024): True,
+              (1, 1): True, (37000, 8192): True, (11 * 1024, 1024): True, (11 * 1000, 1000): True,
+              (2053 * 1024, 1024): True, (65536, 16384): True, (40960, 40960): True,
+              (16384, 32768): True, (32768, 65536): True, (7 * 4096, 4096): True,
+              (32822, 16411): False}
     for pair, ok in frames.items():
         assert fused_ola_frames_supported(*pair) == ok, pair
+    assert (frames_route(29056, 1024), frames_route(11000, 1000), frames_route(37000, 8192),
+            frames_route(2053 * 1024, 1024)) == ('plan_cluster', 'plan', 'split', 'split')
     two = {(4096, 2048, 2048, 1024): True, (4096, 2048, 4096 * 2 // 3, 1024): False,
            (20480, 4096, 10240, 2048): True, (9216, 3072, 4608, 1536): True,
-           (9216, 3072, 6144, 2048): False, (2, 2, 1, 1): True, (37000, 8192, 18500, 4096): False}
+           (9216, 3072, 6144, 2048): False, (2, 2, 1, 1): True, (37000, 8192, 18500, 4096): True,
+           (32822, 16411, 16411, 8205): False}
     for args, ok in two.items():
         assert fused_ola_cuda_supported(*args) == ok, args
 

@@ -237,17 +237,20 @@ def test_cluster_plan_layout(pair):
 
 
 def test_scope_of_the_two_block_kernel():
-    """it holds even pairs of one-block frames whose halves are 2^a 3^b 5^c
-    7^d of two passes or more: none of the odd, one-pass or other-prime
-    halves, none above one block's shared memory (the split route's, or no
-    route's)."""
+    """it holds even pairs of one-block frames whose halves are of two
+    passes or more, a prime above 7 a pass of its own (22528 -> 2048:
+    halves of 11 x 1024 and 1024, which the split route takes all the
+    same), or of one prime pass above 7: none of the odd halves or the
+    one-pass halves of radix 2-7, none above one block's shared memory (the
+    split route's, or no route's)."""
     takes = {(20480, 10240): True, (28672, 1024): True, (28800, 14400): True, (32768, 32768): False,
              (32768, 1000): False,
              (9216, 3072): True, (2, 2): False, (8, 4): False, (16384, 2): False,
-             (15625, 3125): False, (22528, 2048): False, (20480, 10241): False,
+             (15625, 3125): False, (22528, 2048): True, (20480, 10241): False,
              (34816, 1024): False, (4, 4): False, (16, 8): True}
     for pair, ok in takes.items():
         assert plan_cluster_takes(*pair) == ok, pair
+    assert frames_route(22528, 2048) == 'split'
 
 
 # ---- routes, with no launch

@@ -89,15 +89,21 @@ SPLIT_PAIRS = (
     (196608, 24576), (196608, 49152), (245760, 81920), (327680, 40960), (327680, 81920),
     (393216, 49152), (655360, 81920), (163840, 40960), (36864, 12288), (40960, 20480),
 )
-# sizes the split route leaves outside (ROADMAP Queue 2 item 1): a size no
+# sizes the split route left outside (ROADMAP Queue 2 item 1): a size no
 # multiple of 1024 (no part size divides it), a radix step above
-# SPLIT_MAX_C at every part size (2053 x 1024). The factor-7 sizes of
+# SPLIT_MAX_C at every part size (2053 x 1024); since its parts took
+# run-time plans it takes them all, each pair here with its route now (a
+# size no multiple of 1024 on parts of any factors, 40000 = 4 x 10000,
+# 1000 one part of its own, 37000 = 4 x 9250, 2053 x 1024 = 256 x 8212).
+# STILL_OUTSIDE: a prime factor above 16384, which no part holds. The factor-7 sizes of
 # 107.52 -> 15.36 MS/s were here until the radix-7 step
 # (tests/test_torch_ola_tiers.py), the factor-11 sizes of PRIME_PAIRS until
 # the prime pass, blackmanharris at 122.88 -> 3.84 MS/s (1310720 -> 40960,
 # 80 x 16384), 67 x 16384, 1040 x 16384 and 2^21 until the radix steps took
 # up to 2048 parts (WIDE)
-OUTSIDE = ((40000, 8192), (32768, 1000), (37000, 8192), (2053 * 1024, 1024))
+OUTSIDE = {(40000, 8192): 'split', (32768, 1000): 'split', (37000, 8192): 'split',
+           (2053 * 1024, 1024): 'split'}
+STILL_OUTSIDE = ((32822, 16411), (32822, 32822))
 WIDE = ((1310720, 40960), (67 * 16384, 16384), (2 ** 20 * 5 // 4 * 13, 16384),
         (1 << 21, 16384))
 # pairs whose radix steps take a prime above 7 (csrc/split_radix.cuh
@@ -338,7 +344,8 @@ def test_split_shapes_and_shared_memory():
         assert max(split_smem(m1), split_smem(m2)) <= split_smem(16384) == 148096 <= H100_SMEM_OPTIN
     assert split_shape(655360) == (40, 16384) and split_shape(61440) == (4, 15360)
     assert split_shape(40960) == (4, 10240) and split_shape(4096) == (1, 4096)
-    assert split_shape(64 * 16384) == (64, 16384) and split_shape(1000) is None
+    assert split_shape(64 * 16384) == (64, 16384) and split_shape(1000) == (1, 1000)
+    assert split_shape(16411) is None
     # no 15360-point inverse part
     assert split_shape(15360, inverse=True) == (3, 5120)
     assert split_plan(61440, 61440) == ((4, 15360), (5, 12288))
@@ -347,8 +354,9 @@ def test_split_shapes_and_shared_memory():
 def test_route_and_scope_by_size():
     """'split' at the grid's pairs above one block that no cluster pair
     lists, the register and cluster pairs and the one-block sizes as
-    before, the sizes of OUTSIDE outside every route, those of WIDE on
-    radix steps of more than 64 parts."""
+    before, the sizes of OUTSIDE on the split route's run-time parts, those
+    of STILL_OUTSIDE outside every route, those of WIDE on radix steps of
+    more than 64 parts."""
     for pair in SPLIT_PAIRS:
         assert split_takes(*pair) and frames_route(*pair) == 'split', pair
         assert fused_ola_frames_supported(*pair), pair
@@ -360,7 +368,9 @@ def test_route_and_scope_by_size():
                         ((28800, 14400), 'plan_cluster'), ((16384, 4096), 'plan'),
                         ((8192, 4096), 'plan')]:
         assert frames_route(*pair) == route and fused_ola_frames_supported(*pair), pair
-    for pair in OUTSIDE:
+    for pair, route in OUTSIDE.items():
+        assert frames_route(*pair) == route and fused_ola_frames_supported(*pair), pair
+    for pair in STILL_OUTSIDE:
         assert frames_route(*pair) == 'generic', pair
         assert not fused_ola_frames_supported(*pair), pair
     for pair in WIDE:

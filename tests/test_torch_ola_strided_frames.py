@@ -168,16 +168,19 @@ def test_former_plain_designs_take_the_split_route(design, pair, c1):
 
 def test_split_shapes_up_to_2048_parts():
     """C = 67 (the prime pass), 80, 96, 128 (2^21 points) and 160 parts;
-    none where no part size divides with C <= 2048 (2053 x 1024); the tile
+    where no compiled part size divides with C <= 2048, parts on run-time
+    plans (2053 x 1024 = 256 parts of 8212 = 4 x 2053, 37000 = 4 x 9250);
+    none where a prime factor is above 16384 (32822 = 2 x 16411); the tile
     widths of csrc/split_radix.cuh tile_log2."""
     assert split_shape(68608) == (67, 1024)
     assert split_shape(1310720) == (80, 16384)
     assert split_shape(1572864) == (96, 16384)
     assert split_shape(1 << 21) == (128, 16384)
     assert split_shape(2621440) == (160, 16384)
-    assert split_shape(2053 * 1024) is None
-    assert not split_takes(2053 * 1024, 1024) and not fused_ola_frames_supported(2053 * 1024, 1024)
-    assert not fused_ola_frames_supported(37000, 8192)
+    assert split_shape(2053 * 1024) == (256, 8212)
+    assert split_takes(2053 * 1024, 1024) and fused_ola_frames_supported(2053 * 1024, 1024)
+    assert split_shape(37000) == (4, 9250) and fused_ola_frames_supported(37000, 8192)
+    assert split_shape(32822) is None and not fused_ola_frames_supported(32822, 16411)
     assert [split_tile_log2(c) for c in (1, 4, 5, 64, 160, 1024, 1025, 2048)] == [
         9, 9, 8, 5, 3, 1, 0, 0]
 
