@@ -8600,8 +8600,14 @@ def small_frame_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list
 PRIME_PAIRS = {(1408, 704): 'plan', (1408, 176): 'plan', (2816, 1408): 'plan',
                (4224, 2112): 'plan', (1408, 11): 'plan', (16768, 8384): 'plan_cluster',
                (16896, 8448): 'plan_cluster', (76800, 38400): 'split', (69120, 69120): 'split',
-               (41250, 25344): 'split', (2096768, 262096): 'split'}
+               (41250, 25344): 'split', (2096768, 262096): 'split',
+               # the register 13-point pass: 1664 = 128 x 13 and Rader's
+               # 16380 = 4 x 9 x 5 x 7 x 13 as frames; a Rader part at 12289 =
+               # 3 x 2^12 + 1 (128 parts forward, 64 inverse)
+               (1664, 832): 'plan', (16380, 8190): 'plan', (1572992, 786496): 'split'}
 PRIME_BIG = (2096768, 262096)
+# the pairs of 31a timed on N_PRIME_BIG_FRAMES frames
+PRIME_BIG_PAIRS = (PRIME_BIG, (1572992, 786496))
 N_PRIME_FRAMES = 64
 N_PRIME_BIG_FRAMES = 2
 PRIME_FRAME_REPS = 5
@@ -8635,9 +8641,16 @@ KERNEL_INFO.update({
     # 38400; the blackman monitor at 41250 -> 25344)
     'fused_ola_frames_split_plan': ('iqwaveform_torch/csrc/ola_split.cu',
                                     'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
-    # the largest prime part: 2096768 = 128 x 16381 -> 16 x 16381
+    # the largest prime part: 2096768 = 128 x 16381 -> 16 x 16381 (by
+    # Rader's algorithm)
     'fused_ola_frames_split_prime16381': ('iqwaveform_torch/csrc/ola_split.cu',
                                           'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
+    # a Rader part of 12289 points (1572992 -> 786496), and the plan
+    # kernel's 13-point register pass (16380 -> 8190)
+    'fused_ola_frames_split_rader12289': ('iqwaveform_torch/csrc/ola_split.cu',
+                                          'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
+    'fused_ola_frames_plan_reg13': ('iqwaveform_torch/csrc/fft_plan.cuh',
+                                    'iqwaveform_tpu/ops/pallas/fused_ola_pallas.py:394'),
 })
 
 
@@ -8684,8 +8697,12 @@ def prime_trace(name: str, gen, dev) -> tuple:
     return fn, (prime_route_kernel(route),)
 
 
-def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
-    """phase 31; returns the kernels line's rows of the new routes."""
+def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float,
+                 parent: str | None = None) -> list:
+    """phase 31; returns the kernels line's rows of the new routes. With
+    ``parent`` (a tree of an earlier commit), 31e: each moved call timed
+    whole through that tree's package (:func:`prime_times`), the older
+    O(p) pass's times (``generic_ms``)."""
     import iqwaveform_torch as it
     from iqwaveform_torch.ops import filtering as TF
     from iqwaveform_torch.ops import kernels
@@ -8713,8 +8730,15 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     spilled = {k: i for k, v in ptxas.items() for i, p in v.items()
                if p['spill_stores'] or p['spill_loads']}
     require(len(ptxas[PLAN_KERNEL]) == 4 and len(ptxas[PLAN_CLUSTER_KERNEL]) == 8
-            and len(ptxas[PRIME_SPLIT_KERNEL]) == 2 and not spilled,
+            and len(ptxas[PRIME_SPLIT_KERNEL]) == 4 and not spilled,
             f'31d: an instance spills or is missing: {spilled} {ptxas}')
+
+    # ---- 31e: the parent's tree (the older O(p) pass) through its own
+    # package, in a fresh process: each moved call's time whole
+    older = prime_times_of(parent) if parent is not None else None
+    if older is not None:
+        print(f'31e {older["root"]}: {json.dumps(older)} ({smi})')
+    generic = (lambda key: older['full'].get(key)) if older else (lambda key: None)
 
     # ---- 31a: each new route's kernel against the plain chain and
     # complex128, route and launch counts, frames timed beside the chain
@@ -8723,7 +8747,7 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         n1, n2 = pair
         route = frames_route(n1, n2)
         require(route == want, f'31a {pair}: frames_route {route}, not {want}')
-        n_fr = N_PRIME_BIG_FRAMES if pair == PRIME_BIG else N_PRIME_FRAMES
+        n_fr = N_PRIME_BIG_FRAMES if pair in PRIME_BIG_PAIRS else N_PRIME_FRAMES
         kw = tier_kwargs(n1, n2, gen, dev)
         hop = n1 // 2
         capture = torch.randn(n_fr * hop + n1, dtype=torch.complex64, device=dev, generator=gen)
@@ -8747,8 +8771,8 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         bound, by = prime_frames_bound(n1, n2, n_fr, n_fr * hop + n1, mem_rate, fp32_rate)
         entry = {'route': route, 'frames': n_fr, 'relative_rms': err, 'f64_rel_rms': err64,
                  'plain_f64_rel_rms': plain64, 'max_abs_err': max_abs(got, ref), 'ms': ms,
-                 'chain_ms': chain_ms, 'bound_ms': bound, 'bound_by': by,
-                 'ms_over_bound': ms / bound}
+                 'chain_ms': chain_ms, 'generic_ms': generic(f'{n1}->{n2}'), 'bound_ms': bound,
+                 'bound_by': by, 'ms_over_bound': ms / bound}
         if route == 'split':
             entry['split'] = [list(s) for s in split_plan(n1, n2)]
             entry['run_time_parts'] = [split_part_on_plan(split_plan(n1, n2)[0][1]),
@@ -8795,21 +8819,29 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         pairs[f'{n1}->{n2}'] = entry
         print(f'31a {n1} -> {n2} ({route}, {n_fr} frames): vs plain {err:.3g}, vs complex128 '
               f'{err64:.4g} (the chain {plain64:.4g}); {ms:.4f} ms, the torch.fft chain '
-              f'{chain_ms:.4f} ms, bound {bound:.4f} ms by {by} ({ms / bound:.1f}x)'
+              f'{chain_ms:.4f} ms, the older pass {entry["generic_ms"]} ms, bound {bound:.4f} ms '
+              f'by {by} ({ms / bound:.1f}x)'
               + ''.join(f'; {k} {json.dumps(entry[k])}' for k in entry
                         if k in ('int16', 'bfloat16', 'float32') or k.endswith('+add'))
               + f' ({smi})')
         del capture, frames, got, ref, ref64
         torch.cuda.empty_cache()
 
-    # the largest prime part's row: its 31a call and times
+    # the largest prime part's row (Rader's algorithm): its 31a call and
+    # times; and the rows of a Rader part at 12289 and of the 13-point pass
     big = pairs[f'{PRIME_BIG[0]}->{PRIME_BIG[1]}']
-    rows = [{'name': 'fused_ola_frames_split_prime16381', 'route': 'cuda',
-             'source': KERNEL_INFO['fused_ola_frames_split_prime16381'][0],
-             'replaces': KERNEL_INFO['fused_ola_frames_split_prime16381'][1], 'launches': 1,
-             'max_abs_err': big['max_abs_err'], 'ms': big['ms'], 'plain_ms': big['chain_ms'],
-             'bound_ms': big['bound_ms'], 'bound_by': big['bound_by'],
-             'library_ms': big['chain_ms'], 'frames': big['frames'], 'split': big['split']}]
+    def pair_row(kname, pair):
+        e = pairs[f'{pair[0]}->{pair[1]}']
+        return {'name': kname, 'route': 'cuda', 'source': KERNEL_INFO[kname][0],
+                'replaces': KERNEL_INFO[kname][1], 'launches': 1,
+                'max_abs_err': e['max_abs_err'], 'ms': e['ms'], 'plain_ms': e['chain_ms'],
+                'bound_ms': e['bound_ms'], 'bound_by': e['bound_by'],
+                'library_ms': e['chain_ms'], 'generic_ms': e['generic_ms'],
+                'frames': e['frames'], 'pair': f'{pair[0]}->{pair[1]}', 'split': e.get('split')}
+
+    rows = [pair_row('fused_ola_frames_split_prime16381', PRIME_BIG),
+            pair_row('fused_ola_frames_split_rader12289', (1572992, 786496)),
+            pair_row('fused_ola_frames_plan_reg13', (16380, 8190))]
 
     # ---- 31b: ola_filter through the kernel route, the plain route and
     # the stage chain, one launch a call, at the two designs
@@ -8873,6 +8905,7 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
                          lambda: kernels.fused_ola_frames_plain(frames, **fkw),
                          mem_rate, fp32_rate, reps=FILTER_REPS, warmup=1)
         row.update(pair=f'{nfft}->{nfft_out}', frames_route=route, frames=n_fr,
+                   generic_path_ms=generic(rname),
                    relative_rms=err_f, path=f'ola_filter {okw["fs"] / 1e6:g} MS/s, {n} samples',
                    path_ms=call_ms, path_device_us=device_us,
                    path_idle_share=max(0.0, 1 - busy / call_ms['kernel']),
@@ -8929,12 +8962,14 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
         busy = sum(device_us.values()) / 1e3
         steps[window] = {'pair': f'{pair[0]}->{pair[1]}', 'route': route, 'samples': x.numel(),
                          'launches': launched, 'route_launches': route_count, 'step_ms': step_ms,
-                         'plain_route_step_ms': plain_step_ms, 'device_us': device_us,
+                         'plain_route_step_ms': plain_step_ms,
+                         'generic_step_ms': generic(f'step_{window}'), 'device_us': device_us,
                          'kernel_device_ms': named_ms(device_us, kernel),
                          'idle_share': max(0.0, 1 - busy / step_ms)}
         print(f'31c {window} ({pair[0]} -> {pair[1]}, {x.numel()} samples, route {route}): '
               f'launches {json.dumps(launched)}; within the step gates of reference_step; '
-              f'{step_ms:.4f} ms a step, through the plain route {plain_step_ms:.4f} ms; {kernel} '
+              f'{step_ms:.4f} ms a step, through the plain route {plain_step_ms:.4f} ms, the older '
+              f'pass {steps[window]["generic_step_ms"]} ms; {kernel} '
               f'{steps[window]["kernel_device_ms"]:.4f} ms of device time; idle share '
               f'{steps[window]["idle_share"]:.3f} ({smi})')
         if window == 'hamming':
@@ -8960,6 +8995,30 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
                   f'{row["bound_ms"]:.4f} ms by {row["bound_by"]}, plain / torch.fft chain '
                   f'{row["plain_ms"]:.4f} ms) ({smi})')
             del y, y_plain
+        else:
+            # row 2's split frames on this step's samples, as ola_grouped
+            # cuts them: the kernel, the plain chain, the bound
+            fkw = {k: v for k, v in mon.ola_kwargs.items()
+                   if k not in ('noverlap_in', 'noverlap_out')}
+            n_fr = x.shape[-1] // mon.hop_in
+            xe = torch.cat([x, x.new_zeros(*x.shape[:-1], mon.noverlap_in)], -1)
+            frames = xe.unfold(-1, pair[0], mon.hop_in)[..., :n_fr, :]
+            got, ref = kernels.fused_ola_frames(frames, **fkw), kernels.fused_ola_frames_plain(
+                frames, **fkw)
+            e = rel_rms(got, ref)
+            require(e <= 1e-5, f'31c {window} frames: relative RMS {e:.3g}')
+            bound, by = prime_frames_bound(pair[0], pair[1], n_fr, xe.shape[-1], mem_rate,
+                                           fp32_rate)
+            steps[window].update(
+                frames=n_fr, frames_relative_rms=e,
+                frames_ms=timed_ms(lambda: kernels.fused_ola_frames(frames, **fkw), reps=10),
+                frames_plain_ms=timed_ms(lambda: kernels.fused_ola_frames_plain(frames, **fkw),
+                                         reps=10),
+                frames_bound_ms=bound, frames_bound_by=by)
+            print(f'31c {window} frames at {pair[0]} -> {pair[1]} ({route}, {n_fr} frames): '
+                  f'{steps[window]["frames_ms"]:.4f} ms (bound {bound:.4f} ms by {by}, plain / '
+                  f'torch.fft chain {steps[window]["frames_plain_ms"]:.4f} ms) ({smi})')
+            del got, ref, frames, xe
         del mon, x, out
         torch.cuda.empty_cache()
     split_row = next(r for r in rows if r['name'] == 'fused_ola_frames_split_plan')
@@ -8968,6 +9027,166 @@ def prime_phases(dev, smi: str, mem_rate: float, fp32_rate: float) -> list:
     print(f'phase 31: {time.perf_counter() - t_phase:.1f} s, peak device memory '
           f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB')
     return rows
+
+
+def _prime_calls_whole(fo, gen, dev) -> dict:
+    """the calls of 31a-c whole through the package ``fo`` belongs to:
+    milliseconds by key."""
+    out = {}
+    for pair in PRIME_PAIRS:
+        n1, n2 = pair
+        n_fr = N_PRIME_BIG_FRAMES if pair in PRIME_BIG_PAIRS else N_PRIME_FRAMES
+        kw = tier_kwargs(n1, n2, gen, dev)
+        capture = torch.randn(n_fr * (n1 // 2) + n1, dtype=torch.complex64, device=dev,
+                              generator=gen)
+        frames = capture.unfold(-1, n1, n1 // 2)[:n_fr]
+        out[f'{n1}->{n2}'] = timed_ms(lambda: fo.fused_ola_frames(frames, **kw),
+                                      reps=PRIME_FRAME_REPS, warmup=1)
+        del capture, frames
+        torch.cuda.empty_cache()
+    for name in ('ola_filter_16896', 'step_hamming', 'step_blackman'):
+        call, *_ = prime_input(name, gen, dev)
+        call()
+        out[name] = timed_ms(call, reps=FILTER_REPS if name in PRIME_FILTERS else 10, warmup=1)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _import_package(root: Path):
+    """``iqwaveform_torch`` imported from ``root`` (first on sys.path), its
+    kernels built there; (the fused_ola module, the build's seconds)."""
+    sys.path.insert(0, str(root))
+    import iqwaveform_torch as it
+    from iqwaveform_torch.ops.kernels import _build
+
+    require(Path(it.__file__).resolve().is_relative_to(root),
+            f'imported {it.__file__}, not the package under {root}')
+    t0 = time.perf_counter()
+    _build.library()
+    return sys.modules['iqwaveform_torch.ops.kernels.fused_ola'], time.perf_counter() - t0
+
+
+def prime_times(root: str) -> dict:
+    """``python3 chip_smoke.py --prime-times DIR``: the calls of 31a-c whole
+    through the package of DIR as it stands (a tree of an earlier commit:
+    the older O(p) pass), built there. Prints them as the last line, a
+    JSON object."""
+    src = Path(root).resolve()
+    fo, build_s = _import_package(src)
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    return {'root': str(src), 'build_s': build_s, 'full': _prime_calls_whole(fo, gen, dev)}
+
+
+def prime_times_of(root) -> dict:
+    """:func:`prime_times` of ``root`` in a fresh process."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), '--prime-times',
+                           str(root)], capture_output=True, text=True,
+                          timeout=PRIME_TIMES_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and bool(lines),
+            f'--prime-times {root}: exit {proc.returncode}: {proc.stderr[-3000:]}')
+    return json.loads(lines[-1])
+
+
+# --prime-split DIR: where the time of the frame routes with an 11-point
+# pass goes (copies with parts left out, as ncu does not run on the card).
+# A one-off measurement for the prime pass's redesign, removable with this
+# block once ROADMAP S19 closes: a copy of the package under DIR whose
+# csrc/fft_plan.cuh takes a pass of radix 1 as left out (its barrier
+# alone; the patch matches two source lines exactly, and fails loudly once
+# they change), each case timed whole, with the passes of a prime above 7
+# left out, and with every pass left out (the staging, the trim, the
+# stores); the hamming step's frames at 100 -> 61.44 MS/s (13750 -> 8448,
+# the plan kernel) and the blackman step's (41250 -> 25344, the split
+# route's run-time parts), and the plan kernel at 16384 -> 8192 (no prime)
+# beside them, near 2^24 samples.
+PRIME_SPLIT_CASES = {'plan_13750_8448': ((13750, 8448), 6875, 'plan'),
+                     'split_41250_25344': ((41250, 25344), 13750, 'split'),
+                     'plan_16384_8192': ((16384, 8192), 8192, 'plan')}
+PRIME_SPLIT_MODES = ('full', 'no_prime', 'floor')
+PRIME_SPLIT_PATCHES = (
+    ('    const int r = p.radix;\n',
+     '    const int r = p.radix;\n    if (r == 1) return true;  // a pass left out\n'),
+    ('  switch (p.radix) {\n', '  switch (p.radix) {\n    case 1: mid(); break;  // left out\n'),
+)
+PRIME_TIMES_TIMEOUT_S = 900
+_PLAN_INTS = 2 + 10 * 16  # a plan::Transform's ints
+
+
+def _left_out(ints: np.ndarray, offsets, mode: str) -> np.ndarray:
+    """a copy of a plan's ints with the passes of its transforms at
+    ``offsets`` left out (radix 1): those of a prime above 7 ('no_prime';
+    the radix-16 passes stay), or all but one, itself left out ('floor')."""
+    a = ints.copy()
+    for off in offsets:
+        passes = int(a[off + 1])
+        for s in range(passes):
+            base = off + 2 + 10 * s
+            r = int(a[base])
+            if mode == 'floor' or (r > 7 and all(r % q for q in range(2, math.isqrt(r) + 1))):
+                a[base] = 1
+        if mode == 'floor':
+            a[off + 1] = 1
+    return a
+
+
+def prime_split(root: str) -> dict:
+    """``python3 chip_smoke.py --prime-split DIR``: the package under DIR
+    copied into build/prime_split/ and patched (PRIME_SPLIT_PATCHES), built
+    there: each case of PRIME_SPLIT_CASES in each mode of
+    PRIME_SPLIT_MODES, its time by events and its device microseconds by
+    kernel. Prints them as the last line, a JSON object."""
+    import hashlib
+    import shutil
+
+    src = Path(root).resolve()
+    dst = ROOT / 'build' / 'prime_split' / hashlib.sha256(str(src).encode()).hexdigest()[:12]
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src / 'iqwaveform_torch', dst / 'iqwaveform_torch',
+                    ignore=shutil.ignore_patterns('__pycache__'))
+    header = dst / 'iqwaveform_torch' / 'csrc' / 'fft_plan.cuh'
+    text = header.read_text()
+    for old, new in PRIME_SPLIT_PATCHES:
+        require(text.count(old) == 1, f'--prime-split: {header} holds {old!r} {text.count(old)} times')
+        text = text.replace(old, new)
+    header.write_text(text)
+    fo, build_s = _import_package(dst)
+    out = {'root': str(src), 'build_s': build_s, 'cases': {}}
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    mode = {'now': 'full'}
+    kept = {}
+    frame_plan, part_plan = fo.frame_plan, fo.part_plan
+
+    def edited(kind, key, ints, offsets):
+        # the kernels read the ints where the wrapper found them: keep each copy
+        if mode['now'] == 'full':
+            return ints
+        k = (kind, key, mode['now'])
+        if k not in kept:
+            kept[k] = _left_out(ints, offsets, mode['now'])
+        return kept[k]
+
+    fo.frame_plan = lambda n1, n2: edited('frame', (n1, n2), frame_plan(n1, n2), (0, _PLAN_INTS))
+    fo.part_plan = lambda m: edited('part', m, part_plan(m), (0,))
+    for name, ((n1, n2), hop, route) in PRIME_SPLIT_CASES.items():
+        kw = tier_kwargs(n1, n2, gen, dev)
+        x = torch.randn(N_PLAN_STEP, dtype=torch.complex64, device=dev, generator=gen)
+        frames = x.unfold(-1, n1, hop)
+        entry = out['cases'][name] = {'frames': frames.shape[0], 'route': route}
+        for m in PRIME_SPLIT_MODES:
+            mode['now'] = m
+            call = lambda: fo._launch_frames(frames, route, **kw)  # noqa: E731
+            call()
+            torch.cuda.synchronize()
+            _, device_us = device_kernels(call)
+            entry[m] = {'ms': timed_ms(call, reps=10), 'device_us': device_us}
+        mode['now'] = 'full'
+        entry['chain_ms'] = timed_ms(lambda: fo.fused_ola_frames_plain(frames, **kw), reps=10)
+        del x, frames
+        torch.cuda.empty_cache()
+    return out
 
 
 MULTI_TIMEOUT_S = 120  # a collective that waits longer fails the rank
@@ -9430,7 +9649,7 @@ def main(parent: str | None = None) -> int:
     # ---- phase 31: rows 2-3 at every frame size the JAX OLA kernel takes
     # up to 2^21 points: the prime pass of the run-time plan kernels, split
     # parts on run-time plans
-    rows = merge_rows(rows, prime_phases(dev, smi, mem_rate, fp32_rate))
+    rows = merge_rows(rows, prime_phases(dev, smi, mem_rate, fp32_rate, parent))
 
     print(json.dumps({'kernels': rows}))
     print(json.dumps({
@@ -9459,11 +9678,21 @@ if __name__ == '__main__':
             sys.exit(1)
         print(json.dumps(step_times(sys.argv[2])))
         sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == '--prime-split':
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        print(json.dumps(prime_split(sys.argv[2])))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == '--prime-times':
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        print(json.dumps(prime_times(sys.argv[2])))
+        sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == '--parent':
         sys.exit(main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == '--ranks':
         sys.exit(multi_card(int(sys.argv[2])))
     if len(sys.argv) != 1:
         sys.exit(f'usage: {sys.argv[0]} [--parent DIR | --trace CALL | --corr-times DIR | '
-                 '--step-times DIR | --ranks N]')
+                 '--step-times DIR | --prime-times DIR | --prime-split DIR | --ranks N]')
     sys.exit(main())

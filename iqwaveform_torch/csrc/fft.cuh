@@ -169,6 +169,84 @@ __device__ __forceinline__ void dft_small<7>(float2* v, bool inverse) {
   v[0] = make_float2(v0.x + t[1].x + t[2].x + t[3].x, v0.y + t[1].y + t[2].y + t[3].y);
 }
 
+// cos and sin of 2 pi j / P, j = 1 .. (P - 1) / 2, at the primes of the
+// register passes above 7 (csrc/fft_plan.cuh: 11 and 13)
+template <int P>
+__host__ __device__ constexpr float prime_cos(int j) {
+  static_assert(P == 11 || P == 13, "a register prime");
+  if constexpr (P == 11) {
+    constexpr float c[] = {0.84125353283118116886f, 0.41541501300188642553f,
+                           -0.14231483827328514044f, -0.65486073394528506406f,
+                           -0.95949297361449738989f};
+    return c[j - 1];
+  } else {
+    constexpr float c[] = {0.88545602565320989590f, 0.56806474673115580251f,
+                           0.12053668025532305335f, -0.35460488704253562597f,
+                           -0.74851074817110109864f, -0.97094181742605202716f};
+    return c[j - 1];
+  }
+}
+template <int P>
+__host__ __device__ constexpr float prime_sin(int j) {
+  static_assert(P == 11 || P == 13, "a register prime");
+  if constexpr (P == 11) {
+    constexpr float s[] = {0.54064081745559758211f, 0.90963199535451837141f,
+                           0.98982144188093273238f, 0.75574957435425828377f,
+                           0.28173255684142969771f};
+    return s[j - 1];
+  } else {
+    constexpr float s[] = {0.46472317204376854566f, 0.82298386589365639458f,
+                           0.99270887409805399280f, 0.93501624268541482344f,
+                           0.66312265824079520238f, 0.23931566428755776715f};
+    return s[j - 1];
+  }
+}
+
+// the P-point DFT at a register prime (csrc/fft_plan.cuh pass_pairs), as
+// dft_small<7> by conjugate pairs, in two halves so that a caller holds no
+// second array of P points: prime_fold turns v into t_k = v_k + v_{P-k} at
+// k and d_k = v_k - v_{P-k} at P - k (k = 1 .. H, H = (P - 1) / 2);
+// prime_out then hands store(m, y_m) every output: y_0 = v_0 + t_1 + ...
+// + t_H, y_m = a_m + b_m and y_{P-m} = a_m - b_m with a_m = v_0 + sum_k
+// cos(2 pi m k / P) t_k and b_m = -i sum_k sin(2 pi m k / P) d_k (+i
+// inverse), each sum in order k = 1 .. H: 2 (P - 1) fused multiply-adds a
+// pair of outputs, every root a compile-time constant (m k mod P folded
+// onto 1 .. H with the sine's sign)
+template <int P>
+__device__ __forceinline__ void prime_fold(float2* v) {
+#pragma unroll
+  for (int k = 1; k <= (P - 1) / 2; ++k) {
+    const float2 a = v[k], c = v[P - k];
+    v[k] = make_float2(a.x + c.x, a.y + c.y);
+    v[P - k] = make_float2(a.x - c.x, a.y - c.y);
+  }
+}
+
+template <int P, class Store>
+__device__ __forceinline__ void prime_out(const float2* v, bool inverse, const Store& store) {
+  constexpr int H = (P - 1) / 2;
+  const float2 v0 = v[0];
+  float2 s0 = v0;
+#pragma unroll
+  for (int k = 1; k <= H; ++k) s0 = make_float2(s0.x + v[k].x, s0.y + v[k].y);
+  store(0, s0);
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    float2 a = v0, b = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      const int j = (m * k) % P;
+      const float c = prime_cos<P>(j <= H ? j : P - j);
+      const float s = j <= H ? prime_sin<P>(j) : -prime_sin<P>(P - j);
+      a = make_float2(fmaf(c, v[k].x, a.x), fmaf(c, v[k].y, a.y));
+      b = make_float2(fmaf(s, v[P - k].x, b.x), fmaf(s, v[P - k].y, b.y));
+    }
+    b = rot90(b, inverse);
+    store(m, make_float2(a.x + b.x, a.y + b.y));
+    store(P - m, make_float2(a.x - b.x, a.y - b.y));
+  }
+}
+
 // the multiple of B below A B that is 1 mod A (A, B coprime)
 __host__ __device__ constexpr int crt_unit(int a, int b) {
   int e = 0;

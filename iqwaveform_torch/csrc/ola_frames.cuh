@@ -536,8 +536,10 @@ fused_ola_frames_plan_kernel(const E* __restrict__ x, long long batch_stride,
   }
   P::group_sync(group, g);
   const P::Trim trim{zero_lo, zero_hi, in_lo, out_lo, out_hi};
-  P::fft<false, kPlanPoints, false>(plan.fwd, buf, smem, trim, lane, group, g);
-  P::fft<true, kPlanPoints, true>(plan.inv, buf, smem, trim, lane, group, g);
+  // the passes at an odd radix park a lane's last butterfly after the buffer
+  float2* side = buf + R::padded_size(n1 > n2 ? n1 : n2);
+  P::fft<false, kPlanPoints, false>(plan.fwd, buf, side, smem, trim, lane, group, g);
+  P::fft<true, kPlanPoints, true>(plan.inv, buf, side, smem, trim, lane, group, g);
 
   const float scale = 1.0f / static_cast<float>(n2);
   float2* yf = y + (static_cast<long long>(blockIdx.y) * n_frames + m) * n2;
@@ -677,7 +679,8 @@ fused_ola_frames_plan_cluster_kernel(const E* __restrict__ x, long long batch_st
   // 3. the M1-point forward passes in this block's buffer (a block is one
   // group of lanes: its barrier is the block's)
   const auto block_sync = [] { __syncthreads(); };
-  P::fft<false, kPlanPoints, false>(plan.fwd, buf, smem, P::Trim{}, threadIdx.x, group,
+  float2* side = buf + R::padded_size(plan.fwd.n > plan.inv.n ? plan.fwd.n : plan.inv.n);
+  P::fft<false, kPlanPoints, false>(plan.fwd, buf, side, smem, P::Trim{}, threadIdx.x, group,
                                     block_sync, block_sync);
   cluster.sync();
 
@@ -686,7 +689,7 @@ fused_ola_frames_plan_cluster_kernel(const E* __restrict__ x, long long batch_st
   {
     const CL::ClusterTrim trim = CL::cluster_trim(zero_lo, zero_hi, in_lo, out_lo, out_hi,
                                                   CL::fresh_rank(), plan.inv.n, buf);
-    P::fft<true, kPlanPoints, true>(plan.inv, buf, smem, trim, threadIdx.x, group,
+    P::fft<true, kPlanPoints, true>(plan.inv, buf, side, smem, trim, threadIdx.x, group,
                                     [] { CL::cg::this_cluster().sync(); }, block_sync);
   }
   cluster.sync();
@@ -1033,16 +1036,20 @@ cudaError_t frames_reg(const FrameArgs& a) {
 // transforms' plans (plan::transform_ok), groups of a power of two from 32
 // to 512 lanes holding max(N1, N2) at kPlanPoints a lane, at most 15 named
 // barriers a block, an exchange buffer that holds the larger transform
-// padded, the table length the launch gives
+// padded and the side buffer of both (plan::side_points), the table length
+// the launch gives
 inline bool plan_ok(const FrameArgs& a, const FramePlan& p) {
+  namespace P = iqt::plan;
   const int nmax = a.nfft > a.nfft_out ? a.nfft : a.nfft_out;
   const int g = p.group;
-  return p.fwd.n == a.nfft && p.inv.n == a.nfft_out && g >= 32 && g <= kPlanThreads &&
-         (g & (g - 1)) == 0 && p.frames >= 1 && p.frames * g <= kPlanThreads &&
-         (g == 32 || p.frames <= 15) && p.buf >= iqt::reg::padded_size(nmax) &&
-         p.tw_count == a.n_tw && nmax <= kPlanPoints * g &&
-         iqt::plan::transform_ok<kPlanPoints>(p.fwd, g) &&
-         iqt::plan::transform_ok<kPlanPoints>(p.inv, g);
+  if (!(p.fwd.n == a.nfft && p.inv.n == a.nfft_out && g >= 32 && g <= kPlanThreads &&
+        (g & (g - 1)) == 0 && p.frames >= 1 && p.frames * g <= kPlanThreads &&
+        (g == 32 || p.frames <= 15) && p.tw_count == a.n_tw && nmax <= kPlanPoints * g &&
+        P::transform_ok<kPlanPoints>(p.fwd, g) && P::transform_ok<kPlanPoints>(p.inv, g)))
+    return false;
+  const int side_f = P::side_points<kPlanPoints>(p.fwd, g);
+  const int side_i = P::side_points<kPlanPoints>(p.inv, g);
+  return p.buf >= iqt::reg::padded_size(nmax) + (side_f > side_i ? side_f : side_i);
 }
 
 // the plan kernel on the host's plan; a plan it does not run:
@@ -1062,17 +1069,22 @@ cudaError_t frames_plan(const FrameArgs& a, const FramePlan& p) {
 // whether `plan` is one the two-block plan kernel runs for the launch `a`:
 // halves of both sizes (plan::transform_ok at kPlanPoints a lane), blocks
 // of 256 or 512 threads holding the larger half, an exchange buffer that
-// holds it padded, the pass tables then the cross twiddles (M1, then M2)
-// making up the launch's table
+// holds it padded and both halves' side buffer (plan::side_points), the
+// pass tables then the cross twiddles (M1, then M2) making up the launch's
+// table
 inline bool cluster_plan_ok(const FrameArgs& a, const ClusterPlan& p) {
+  namespace P = iqt::plan;
   const int g = p.group;
   const int mmax = p.fwd.n > p.inv.n ? p.fwd.n : p.inv.n;
-  return kPlanCluster * p.fwd.n == a.nfft && kPlanCluster * p.inv.n == a.nfft_out &&
-         (g == kPlanThreads || g == kPlanThreads / 2) && mmax <= kPlanPoints * g &&
-         p.buf >= iqt::reg::padded_size(mmax) && p.tw_count >= 0 &&
-         p.fwd_cross == p.tw_count && p.inv_cross == p.fwd_cross + p.fwd.n &&
-         a.n_tw == p.inv_cross + p.inv.n && iqt::plan::transform_ok<kPlanPoints>(p.fwd, g) &&
-         iqt::plan::transform_ok<kPlanPoints>(p.inv, g);
+  if (!(kPlanCluster * p.fwd.n == a.nfft && kPlanCluster * p.inv.n == a.nfft_out &&
+        (g == kPlanThreads || g == kPlanThreads / 2) && mmax <= kPlanPoints * g &&
+        p.tw_count >= 0 && p.fwd_cross == p.tw_count && p.inv_cross == p.fwd_cross + p.fwd.n &&
+        a.n_tw == p.inv_cross + p.inv.n && P::transform_ok<kPlanPoints>(p.fwd, g) &&
+        P::transform_ok<kPlanPoints>(p.inv, g)))
+    return false;
+  const int side_f = P::side_points<kPlanPoints>(p.fwd, g);
+  const int side_i = P::side_points<kPlanPoints>(p.inv, g);
+  return p.buf >= iqt::reg::padded_size(mmax) + (side_f > side_i ? side_f : side_i);
 }
 
 inline cudaLaunchConfig_t plan_cluster_config(const ClusterPlan& p, dim3 grid,

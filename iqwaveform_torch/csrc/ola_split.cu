@@ -244,16 +244,20 @@ split_inv_passes_kernel(float2* y, const float2* __restrict__ tw,
 }
 
 // A part size on a run-time plan (ops/kernels/fused_ola.py part_plan): the
-// part's plan::Transform (csrc/fft_plan.cuh, primes above 7 included),
+// part's plan::Transform (csrc/fft_plan.cuh, primes above 13 included),
 // its pass tables' float2 count, the lanes of a part, the parts a block
 // and the float2 of a part's exchange buffer, as csrc/ola_frames.cuh
-// FramePlan groups frames.
+// FramePlan groups frames. A part that is a prime m above 13 whose m - 1
+// has only radices of the register passes (rader = 1; 16381 = 4 x 9 x 5 x
+// 7 x 13 + 1 among them) runs by Rader's algorithm: t is then the (m -
+// 1)-point forward transform, which it runs twice.
 struct PartPlan {
   iqt::plan::Transform t;
   int tw_count;
   int group;
   int parts;
   int buf;
+  int rader;
 };
 
 constexpr int kPartThreads = iqt::ola::kPlanThreads;
@@ -270,11 +274,32 @@ constexpr int kPartPoints = iqt::ola::kPlanPoints;
 // n times post[p M + n] and `scale` back over the part. A group reads its
 // whole part before its passes and writes only after them; no two groups
 // touch one part.
-template <bool INV>
+//
+// RADER: the part is a prime m, its DFT (exp(-2 pi i n k / m) forward,
+// exp(+...) in INV) by Rader's algorithm inside the group, with L = m - 1
+// and g a generator of the integers mod m (the host's tables: idx[q] = g^q
+// mod m, then idx[L + q] = g^-q mod m; b the L-point DFT of exp(-+2 pi i
+// g^-q / m), q < L, over L):
+//   1. a_q = x[g^q] gathered from device memory into the exchange buffer
+//      (through the mask in INV), x_0 to the float2 after the padded
+//      buffer;
+//   2. the L-point forward transform in place: A; A[0], the sum of every
+//      x_n but x_0, to the float2 after x_0;
+//   3. conj(A[k] b[k]) in place, then the same forward transform: its
+//      conjugate is c, the cyclic convolution of a with the roots (the
+//      inverse transform as conj(DFT(conj(.))): one transform's tables);
+//   4. X[0] = x_0 + A[0], X[g^-q] = x_0 + c_q, stored as above: the forward
+//      bins scattered into y's inverse parts, the inverse's points back
+//      over the part (L2 takes the scattered stores).
+// O(log m) a point where the single prime pass took O(m); one buffer of L
+// points in place (a second, of m, does not fit a block beside it at m =
+// 16381), the permutations in the device loads and stores.
+template <bool INV, bool RADER>
 __global__ void __launch_bounds__(kPartThreads, 1)
 split_plan_passes_kernel(const float2* a, float2* y, const float2* __restrict__ tw,
                          const float2* __restrict__ post, float scale, int n_frames, int c1,
                          int c2, int m2, int lo, int hi, int d,
+                         const float2* __restrict__ rader_b, const int* __restrict__ rader_idx,
                          const __grid_constant__ PartPlan plan) {
   namespace P = iqt::plan;
   extern __shared__ float2 smem[];
@@ -287,38 +312,89 @@ split_plan_passes_kernel(const float2* a, float2* y, const float2* __restrict__ 
   const int u = blockIdx.x * plan.parts + g;
   // a group with no part leaves: every later barrier is its own group's
   if (g >= plan.parts || u >= n_frames * c) return;
-  const int f = u / c;
-  const int r = u - f * c;
-  const int m = plan.t.n;
+  const int m = RADER ? plan.t.n + 1 : plan.t.n;
   float2* buf = smem + plan.tw_count + g * plan.buf;
-  const long long frame = static_cast<long long>(blockIdx.y) * n_frames + f;
-  if constexpr (!INV) {
-    const float2* part = a + (frame * c1 + r) * m;
-    for (int i = lane; i < m; i += group) buf[R::pad(i)] = part[i];
-  } else {
-    const float2* part = y + (frame * c2 + r) * m;
-    for (int i = lane; i < m; i += group) {
+  // the part's frame and index, from a read of the block's index that the
+  // compiler does not merge with another: taken again after the transforms,
+  // so that none of them is live across the passes (kept, they spilled 4-12
+  // B a thread), and by a Rader part at each point it stores (taken once
+  // after its two transforms, they spilled 36-48 B)
+  const auto part_of = [&](long long& frame, int& r) {
+    unsigned bx, by;
+    asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
+    asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(by));
+    const int u2 = static_cast<int>(bx) * plan.parts + g;
+    const int f = u2 / c;
+    r = u2 - f * c;
+    frame = static_cast<long long>(by) * n_frames + f;
+  };
+  long long frame;
+  int r;
+  part_of(frame, r);
+  // point i of the part as the transform reads it: a's, or y's through the mask
+  const float2* fwd_part = a + (frame * c1 + r) * m;
+  float2* inv_part = y + (frame * c2 + r) * m;
+  const auto load = [=](int i) {
+    if constexpr (!INV) {
+      return fwd_part[i];
+    } else {
       const int K = c2 * i + r - d;
-      buf[R::pad(i)] = (K >= lo && K < hi) ? part[i] : make_float2(0.f, 0.f);
+      return (K >= lo && K < hi) ? inv_part[i] : make_float2(0.f, 0.f);
     }
-  }
-  P::group_sync(group, g);
-  P::fft<INV, kPartPoints, false>(plan.t, buf, smem, P::Trim{}, lane, group, g);
-  if constexpr (!INV) {
-    float2* yf = y + frame * c2 * m2;
-    for (int k = lane; k < m; k += group) {
+  };
+  // output k of part r of the frame's transform to where the next step reads it
+  const auto store = [&](long long frame, int r, int k, float2 v) {
+    float2* inv_part = y + (frame * c2 + r) * m;
+    if constexpr (!INV) {
       const int K = c1 * k + r;
       if (K >= lo && K < hi) {
         const int j = K + d;
-        yf[(j % c2) * m2 + j / c2] = buf[R::pad(k)];
+        y[frame * c2 * m2 + (j % c2) * m2 + j / c2] = v;
       }
+    } else {
+      inv_part[k] = iqt::cmul(make_float2(v.x * scale, v.y * scale),
+                              __ldg(&post[static_cast<long long>(r) * m + k]));
     }
+  };
+  if constexpr (!RADER) {
+    for (int i = lane; i < m; i += group) buf[R::pad(i)] = load(i);
+    P::group_sync(group, g);
+    // the passes at an odd radix park a lane's last butterfly after the buffer
+    P::fft<INV, kPartPoints, false>(plan.t, buf, buf + R::padded_size(m), smem, P::Trim{}, lane,
+                                    group, g);
+    part_of(frame, r);
+    for (int k = lane; k < m; k += group) store(frame, r, k, buf[R::pad(k)]);
   } else {
-    float2* part = y + (frame * c2 + r) * m;
-    const float2* pp = post + static_cast<long long>(r) * m;
-    for (int n = lane; n < m; n += group) {
-      const float2 v = buf[R::pad(n)];
-      part[n] = iqt::cmul(make_float2(v.x * scale, v.y * scale), __ldg(&pp[n]));
+    const int L = plan.t.n;
+    // x_0 and A[0] after the padded buffer (no pass touches them), then
+    // the side buffer of the passes at an odd radix
+    float2* const side = buf + R::padded_size(L) + 2;
+    for (int q = lane; q < L; q += group) buf[R::pad(q)] = load(__ldg(&rader_idx[q]));
+    if (lane == 0) buf[R::padded_size(plan.t.n)] = load(0);
+    P::group_sync(group, g);
+    P::fft<false, kPartPoints, false, false>(plan.t, buf, side, smem, P::Trim{}, lane, group, g);
+    // A[0] held, then conj(A[k] b[k]) in place (bin 0 is lane 0's own)
+    if (lane == 0) buf[R::padded_size(plan.t.n) + 1] = buf[R::pad(0)];
+    for (int q = lane; q < L; q += group) {
+      const float2 v = iqt::cmul(buf[R::pad(q)], __ldg(&rader_b[q]));
+      buf[R::pad(q)] = make_float2(v.x, -v.y);
+    }
+    P::group_sync(group, g);
+    P::fft<false, kPartPoints, false, false>(plan.t, buf, buf + R::padded_size(plan.t.n) + 2, smem,
+                                             P::Trim{}, lane, group, g);
+    const auto store_at = [&](int k, float2 v) {
+      long long frame_k;
+      int r_k;
+      part_of(frame_k, r_k);
+      store(frame_k, r_k, k, v);
+    };
+    const float2 x0 = buf[R::padded_size(plan.t.n)];
+    if (lane == 0)
+      store_at(0, make_float2(x0.x + buf[R::padded_size(plan.t.n) + 1].x,
+                              x0.y + buf[R::padded_size(plan.t.n) + 1].y));
+    for (int q = lane; q < L; q += group) {
+      const float2 v = buf[R::pad(q)];
+      store_at(__ldg(&rader_idx[L + q]), make_float2(x0.x + v.x, x0.y - v.y));
     }
   }
 }
@@ -327,26 +403,50 @@ split_plan_passes_kernel(const float2* a, float2* y, const float2* __restrict__ 
 // with n_tw table entries: its transform (plan::transform_ok, one pass at
 // least), groups of a power of two from 32 to 512 lanes holding m at
 // kPartPoints a lane, at most 15 named barriers a block, a padded buffer
+// and the side buffer (plan::side_points); a Rader part: m a prime above
+// 13, its transform of m - 1 points with no pass of pass_prime, the buffer
+// two float2 longer before the side buffer
 inline bool part_plan_ok(const PartPlan& p, int m, int n_tw) {
+  namespace P = iqt::plan;
   const int g = p.group;
-  return p.t.n == m && g >= 32 && g <= kPartThreads && (g & (g - 1)) == 0 && p.parts >= 1 &&
-         p.parts * g <= kPartThreads && (g == 32 || p.parts <= 15) &&
-         p.buf >= R::padded_size(m) && p.tw_count == n_tw && m <= kPartPoints * g &&
-         iqt::plan::transform_ok<kPartPoints>(p.t, g);
+  const int n = p.rader ? m - 1 : m;
+  if (!(p.t.n == n && g >= 32 && g <= kPartThreads && (g & (g - 1)) == 0 && p.parts >= 1 &&
+        p.parts * g <= kPartThreads && (g == 32 || p.parts <= 15) && p.tw_count == n_tw &&
+        n <= kPartPoints * g))
+    return false;
+  if (p.rader == 0)
+    return P::transform_ok<kPartPoints>(p.t, g) &&
+           p.buf >= R::padded_size(m) + P::side_points<kPartPoints>(p.t, g);
+  return p.rader == 1 && m > P::kRegPrimeMax && iqt::is_prime(m) &&
+         P::transform_ok<kPartPoints, false>(p.t, g) &&
+         p.buf >= R::padded_size(n) + 2 + P::side_points<kPartPoints>(p.t, g);
 }
 
-template <bool INV>
+template <bool INV, bool RADER>
 cudaError_t launch_plan_passes(const PartPlan& p, int batch, int n_frames, cudaStream_t stream,
                                const float2* a, float2* y, const float2* tw, const float2* post,
-                               float scale, int c1, int c2, int m2, int lo, int hi, int d) {
+                               float scale, int c1, int c2, int m2, int lo, int hi, int d,
+                               const float2* rader_b, const int* rader_idx) {
   const long long parts = static_cast<long long>(n_frames) * (INV ? c2 : c1);
   const long long blocks = (parts + p.parts - 1) / p.parts;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(p.tw_count + p.parts * p.buf) * sizeof(float2);
-  split_plan_passes_kernel<INV><<<dim3(static_cast<unsigned>(blocks), batch), kPartThreads, smem,
-                                  stream>>>(a, y, tw, post, scale, n_frames, c1, c2, m2, lo, hi,
-                                            d, p);
+  split_plan_passes_kernel<INV, RADER>
+      <<<dim3(static_cast<unsigned>(blocks), batch), kPartThreads, smem, stream>>>(
+          a, y, tw, post, scale, n_frames, c1, c2, m2, lo, hi, d, rader_b, rader_idx, p);
   return cudaGetLastError();
+}
+
+// the instance of the part's plan: Rader's where p.rader
+template <bool INV>
+cudaError_t plan_passes(const PartPlan& p, int batch, int n_frames, cudaStream_t stream,
+                        const float2* a, float2* y, const float2* tw, const float2* post,
+                        float scale, int c1, int c2, int m2, int lo, int hi, int d,
+                        const float2* rader_b, const int* rader_idx) {
+  return p.rader ? launch_plan_passes<INV, true>(p, batch, n_frames, stream, a, y, tw, post,
+                                                 scale, c1, c2, m2, lo, hi, d, rader_b, rader_idx)
+                 : launch_plan_passes<INV, false>(p, batch, n_frames, stream, a, y, tw, post,
+                                                  scale, c1, c2, m2, lo, hi, d, nullptr, nullptr);
 }
 
 // the compiled part sizes (ops/kernels/fused_ola.py REG_PLANS): F(M); the
@@ -430,8 +530,10 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
   IQT_SPLIT_INV_SIZES(IQT_ALLOW_INV)
 #undef IQT_ALLOW_FWD
 #undef IQT_ALLOW_INV
-  if ((err = iqt::allow_smem(split_plan_passes_kernel<false>, max_smem))) return err;
-  if ((err = iqt::allow_smem(split_plan_passes_kernel<true>, max_smem))) return err;
+  if ((err = iqt::allow_smem(split_plan_passes_kernel<false, false>, max_smem))) return err;
+  if ((err = iqt::allow_smem(split_plan_passes_kernel<true, false>, max_smem))) return err;
+  if ((err = iqt::allow_smem(split_plan_passes_kernel<false, true>, max_smem))) return err;
+  if ((err = iqt::allow_smem(split_plan_passes_kernel<true, true>, max_smem))) return err;
   return cudaSuccess;
 }
 
@@ -449,7 +551,9 @@ extern "C" int iqt_ola_split_prepare(int max_smem) {
 // [lo, hi) the forward bins kept, d = out_lo - in_lo; part1 / part2 the
 // part1_ints / part2_ints ints of a side's PartPlan (ops/kernels/fused_ola.py
 // part_plan) where its part size runs on a run-time plan, else null and 0
-// (a compiled size). Launches steps 1-3, and step 4 where c2 > 1, on
+// (a compiled size); rader1_b / rader1_idx, rader2_b / rader2_idx a side's
+// Rader tables (split_plan_passes_kernel) where its PartPlan has rader =
+// 1, else null. Launches steps 1-3, and step 4 where c2 > 1, on
 // `stream`; returns the first error. A size, plan or table that no instance
 // takes: cudaErrorInvalidValue, before any launch.
 extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
@@ -462,7 +566,8 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
                              int n_inv, int batch, int n_frames, int c1, int m1,
                              const int* plan1, int c2, int m2, const int* plan2, int lo, int hi,
                              int d, const int* part1, int part1_ints, const int* part2,
-                             int part2_ints, void* stream) {
+                             int part2_ints, const void* rader1_b, const int* rader1_idx,
+                             const void* rader2_b, const int* rader2_idx, void* stream) {
   constexpr int kPartInts = static_cast<int>(sizeof(PartPlan) / sizeof(int));
   PartPlan q1{}, q2{};
   if (part1 != nullptr) {
@@ -479,6 +584,9 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   } else if (passes_table(m2) != n_inv) {
     return cudaErrorInvalidValue;
   }
+  if ((q1.rader && (rader1_b == nullptr || rader1_idx == nullptr)) ||
+      (q2.rader && (rader2_b == nullptr || rader2_idx == nullptr)))
+    return cudaErrorInvalidValue;
   if (layout < 0 || layout > 3) return cudaErrorInvalidValue;
   const S::RadixPlan p1 = S::plan_from(plan1), p2 = S::plan_from(plan2);
   if (!S::plan_ok(c1, p1) || !S::plan_ok(c2, p2)) return cudaErrorInvalidValue;
@@ -514,8 +622,8 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   // 2. the m1-point forward passes, the kept bins into y's inverse parts
   const auto tw1 = static_cast<const float2*>(tw_fwd);
   err = part1 != nullptr
-            ? launch_plan_passes<false>(q1, batch, n_frames, s, ap, yp, tw1, nullptr, 1.0f, c1,
-                                        c2, m2, lo, hi, d)
+            ? plan_passes<false>(q1, batch, n_frames, s, ap, yp, tw1, nullptr, 1.0f, c1, c2, m2,
+                                 lo, hi, d, static_cast<const float2*>(rader1_b), rader1_idx)
             : fwd_passes(m1, batch, n_frames, s, ap, tw1, yp, c1, c2, m2, lo, hi, d);
   if (err) return err;
   // 3. the m2-point inverse passes in place; at c2 = 1 the output itself
@@ -524,8 +632,8 @@ extern "C" int iqt_ola_split(const void* x, int layout, long long batch_stride,
   const auto post = static_cast<const float2*>(last ? w_out : inv_cross);
   const float scale = last ? inv_n2 : 1.0f;
   err = part2 != nullptr
-            ? launch_plan_passes<true>(q2, batch, n_frames, s, nullptr, yp, tw2, post, scale, c1,
-                                       c2, m2, lo, hi, d)
+            ? plan_passes<true>(q2, batch, n_frames, s, nullptr, yp, tw2, post, scale, c1, c2,
+                                m2, lo, hi, d, static_cast<const float2*>(rader2_b), rader2_idx)
             : inv_passes(m2, batch, n_frames, s, yp, tw2, post, scale, c2, lo, hi, d);
   if (err) return err;
   if (last) return cudaSuccess;

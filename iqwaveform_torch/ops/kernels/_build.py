@@ -102,7 +102,7 @@ SIGNATURES = {
     'iqt_fused_ola_frames_cluster_occupancy': ([_I, _I, _I, _P], _I),
     'iqt_ola_split_prepare': ([_I], _I),
     'iqt_ola_split': ([_P, _I, _L, _L, _L] + _EDGE + [_P] * 10 + [_I] * 6 + [_P, _I, _I, _P]
-                      + [_I] * 3 + [_P, _I, _P, _I] + [_P], _I),
+                      + [_I] * 3 + [_P, _I, _P, _I] + [_P] * 4 + [_P], _I),
     'iqt_ola_add': ([_P] * 3 + [_I] * 3 + [_P], _I),
     'iqt_chan_stats_prepare': ([_I], _I),
     'iqt_chan_stats': ([_P] * 9 + [_I] * 12 + [_P], _I),

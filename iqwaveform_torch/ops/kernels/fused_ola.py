@@ -230,6 +230,11 @@ _PLAN_MAX_PASSES = 16
 _PLAN_PASS_INTS = 10
 # the blocks of the two-block plan kernel's cluster (kPlanCluster)
 PLAN_CLUSTER = 2
+# the primes of the run-time plans' register passes (csrc/fft_plan.cuh
+# pass_r, as radix 3, 5 and 7; kRegPrimeMax the largest): a prime above 13
+# is a pass of pass_prime, O(p) a point, or, where a split part is that
+# prime alone, Rader's algorithm (rader_takes)
+PLAN_REG_PRIMES = (11, 13)
 
 
 def _local_frames(x_ext: torch.Tensor, nperseg: int, hop: int, n_frames: int):
@@ -601,7 +606,7 @@ def _split_tables(nfft: int, nfft_out: int) -> tuple:
 
     * ``'fwd_passes'`` / ``'inv_passes'``: the register-resident tables of
       the M1-point forward and the M2-point inverse (:func:`_reg_pass_tables`,
-      or :func:`plan_tables` for a part on a run-time plan), which each
+      or :func:`part_tables` for a part on a run-time plan), which each
       passes kernel copies into its shared memory;
     * ``'fwd_cross'``: row r < C1 of M1 factors exp(-2 pi i r n / nfft), the
       twiddles of the forward radix-C1 step's output r (row 0 is ones);
@@ -609,9 +614,11 @@ def _split_tables(nfft: int, nfft_out: int) -> tuple:
       those the inverse passes of part p store their points with;
     * ``'fwd_dft'`` / ``'inv_dft'``: exp(-2 pi i j / C1), j < C1, and
       exp(+2 pi i j / C2), j < C2, the twiddles of the radix steps' own
-      Stockham passes."""
+      Stockham passes.
+
+    A Rader part's own tables are :func:`rader_tables`."""
     (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
-    passes = [plan_tables(m, inv) if split_part_on_plan(m, inv) else _reg_pass_tables(m, inv)
+    passes = [part_tables(m, inv) if split_part_on_plan(m, inv) else _reg_pass_tables(m, inv)
               for m, inv in ((m1, False), (m2, True))]
     parts = {
         'fwd_passes': passes[0],
@@ -633,10 +640,15 @@ def split_twiddles(nfft: int, nfft_out: int, device: torch.device) -> torch.Tens
     return torch.from_numpy(table.astype('complex64')).to(device)
 
 
+def _is_prime(n: int) -> bool:
+    return n > 1 and all(n % q for q in range(2, math.isqrt(n) + 1))
+
+
 def _prime_pass(r: int) -> bool:
-    """a radix that is a prime above 7 (a pass of csrc/fft_plan.cuh
-    pass_prime; the compile-time plans' 10 and 15 are not)."""
-    return r > 7 and all(r % q for q in range(2, math.isqrt(r) + 1))
+    """a radix that is a prime above 13 (a pass of csrc/fft_plan.cuh
+    pass_prime; 11 and 13 are register passes, :data:`PLAN_REG_PRIMES`, and
+    the compile-time plans' 10 and 15 are not primes)."""
+    return r > max(PLAN_REG_PRIMES) and _is_prime(r)
 
 
 @functools.lru_cache(maxsize=None)
@@ -739,20 +751,45 @@ def _plan_passes_held(sizes: tuple) -> bool:
     return min(passes) >= 2 or not all(_smooth(n) for n in sizes)
 
 
-def _group_shape(nmax: int, tw: int):
-    """(G, F, shared memory bytes) of frames (or parts) of at most ``nmax``
-    points on a run-time plan, ``tw`` table entries in all: G the lanes of
-    one, the least power of two from 32 with nmax <= G :data:`PLAN_POINTS`;
-    F a block's, at most PLAN_THREADS / G (15 where G > 32: one named
-    barrier each), as many as an H100 block's shared memory holds beside
-    the tables (a padded exchange buffer each). None where none fits or
-    nmax is above 16384 points."""
+def side_points(sizes: tuple, g: int) -> int:
+    """the float2 of the side buffer of transforms of ``sizes`` on groups of
+    ``g`` lanes (csrc/fft_plan.cuh side_points): the most over their passes
+    at a radix PLAN_POINTS does not divide (3, 5, 7, 11, 13) of (NB - H g)
+    R, H = PLAN_POINTS // R the butterflies a lane holds in registers; the
+    outputs of a lane's one more (pass_r, pass_pairs). 2486 at 13750 on 512
+    lanes (1250 11-point butterflies), 3068 at 16380 (1260 of 13)."""
+    most = 0
+    for n in sizes:
+        for r, _, nb, *_ in _plan_passes(n):
+            if r <= max(PLAN_REG_PRIMES) and PLAN_POINTS % r:
+                most = max(most, (nb - PLAN_POINTS // r * g) * r)
+    return most
+
+
+def _group_buf(sizes: tuple, g: int, extra: int = 0) -> int:
+    """the float2 of the exchange buffer of a frame (or part) whose
+    transforms are of ``sizes`` on ``g`` lanes: the largest padded one in
+    16, ``extra`` float2, then the side buffer (:func:`side_points`)."""
+    nmax = max(sizes)
+    return nmax + nmax // 16 + extra + side_points(sizes, g)
+
+
+def _group_shape(sizes: tuple, tw: int, extra: int = 0):
+    """(G, F, shared memory bytes) of frames (or parts) whose transforms are
+    of ``sizes`` (at most nmax points) on a run-time plan, ``tw`` table
+    entries in all: G the lanes of one, the least power of two from 32 with
+    nmax <= G :data:`PLAN_POINTS`; F a block's, at most PLAN_THREADS / G
+    (15 where G > 32: one named barrier each), as many as an H100 block's
+    shared memory holds beside the tables (an exchange buffer each,
+    :func:`_group_buf`). None where none fits or nmax is above 16384
+    points."""
+    nmax = max(sizes)
     if nmax > PLAN_POINTS * PLAN_THREADS:
         return None
     g = 32
     while g * PLAN_POINTS < nmax:
         g *= 2
-    buf = nmax + nmax // 16
+    buf = _group_buf(sizes, g, extra)
     frames = min(PLAN_THREADS // g, 16 if g == 32 else 15)
     while frames and 8 * (tw + frames * buf) > H100_SMEM_OPTIN:
         frames -= 1
@@ -769,7 +806,70 @@ def plan_shape(nfft: int, nfft_out: int):
     if not _plan_passes_held((nfft, nfft_out)):
         return None
     tw = plan_tables(nfft, False).size + plan_tables(nfft_out, True).size
-    return _group_shape(max(nfft, nfft_out), tw)
+    return _group_shape((nfft, nfft_out), tw)
+
+
+def _rader_generator(p: int) -> int:
+    """the least generator of the integers mod the prime ``p``."""
+    factors = {q for q in range(2, p) if (p - 1) % q == 0 and _is_prime(q)}
+    return next(g for g in range(2, p) if all(pow(g, (p - 1) // q, p) != 1 for q in factors))
+
+
+@functools.lru_cache(maxsize=None)
+def _rader_shape(m: int):
+    """(G, F, shared memory bytes) of a split part of ``m`` points by
+    Rader's algorithm (``split_plan_passes_kernel``'s RADER instances): m a
+    prime above 13 whose m - 1 has a plan of register passes only (no prime
+    above 13: :data:`PLAN_REG_PRIMES`), at most _PLAN_MAX_PASSES of them;
+    the group's size from the m - 1 points of its transform (run twice,
+    the second as the inverse, conj(DFT(conj(.)))), beside its forward
+    tables, the buffer two float2 longer (x_0 and A[0]). None where m is
+    not such a prime or it does not fit."""
+    if m <= max(PLAN_REG_PRIMES) or not _is_prime(m):
+        return None
+    radices = plan_radices(m - 1)
+    if len(radices) > _PLAN_MAX_PASSES or any(_prime_pass(r) for r in radices):
+        return None
+    return _group_shape((m - 1,), plan_tables(m - 1, False).size, extra=2)
+
+
+def rader_takes(m: int) -> bool:
+    """a split part of ``m`` points runs by Rader's algorithm on two
+    transforms of m - 1 points (:func:`_rader_shape`): 228 of the 1889
+    primes in (31, 16384], 16381 = 4 x 9 x 5 x 7 x 13 + 1 among them; every
+    other prime part is one pass of pass_prime, O(m) a point."""
+    return _rader_shape(m) is not None
+
+
+@functools.lru_cache(maxsize=None)
+def rader_index(m: int) -> np.ndarray:
+    """the permutations of a Rader part of ``m`` points as int32: g^q mod
+    m, then g^-q mod m, q < m - 1, g the least generator
+    (:func:`_rader_generator`)."""
+    g, n = _rader_generator(m), m - 1
+    fwd = [pow(g, q, m) for q in range(n)]
+    return np.array(fwd + [pow(g, -q, m) for q in range(n)], dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def rader_kernel(m: int, inverse: bool = False) -> np.ndarray:
+    """B of a Rader part of ``m`` points, float64: the (m - 1)-point DFT of
+    the roots exp(-+2 pi i g^-q / m), q < m - 1 (+ for the ``inverse``),
+    over m - 1, which the kernel multiplies bin k of the forward transform
+    by."""
+    n = m - 1
+    sign = 1 if inverse else -1
+    roots = np.exp(sign * 2j * np.pi * rader_index(m)[n:].astype(np.float64) / m)
+    return np.fft.fft(roots) / n
+
+
+@functools.lru_cache(maxsize=None)
+def rader_tables(m: int, inverse: bool, device: torch.device) -> tuple:
+    """a Rader part's tables on ``device`` (read only): B
+    (:func:`rader_kernel`, float64 rounded once to complex64) and the
+    permutations (:func:`rader_index`, int32)."""
+    b = torch.from_numpy(rader_kernel(m, inverse).astype('complex64')).to(device)
+    return b, torch.from_numpy(rader_index(m)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -778,20 +878,41 @@ def part_shape(m: int):
     kernel (``split_plan_passes_kernel``) at parts of ``m`` points
     (:func:`_group_shape` beside its pass tables, which are of one size
     either way), any size of at most _PLAN_MAX_PASSES passes, one pass
-    too; None where it does not hold ``m``."""
+    too; a prime part by Rader's algorithm where it takes it
+    (:func:`_rader_shape`); None where it does not hold ``m``."""
+    if rader_takes(m):
+        return _rader_shape(m)
     if m < 1 or len(plan_radices(m)) > _PLAN_MAX_PASSES:
         return None
-    return _group_shape(m, plan_tables(m).size)
+    return _group_shape((m,), plan_tables(m).size)
+
+
+def part_tables(m: int, inverse: bool = False) -> np.ndarray:
+    """the pass tables of a part of ``m`` points on a run-time plan, as
+    ``split_plan_passes_kernel`` copies them into shared memory: the
+    part's (:func:`plan_tables`), or a Rader part's: the m - 1 points'
+    forward tables (either side)."""
+    if rader_takes(m):
+        return plan_tables(m - 1, False)
+    return plan_tables(m, inverse)
 
 
 @functools.lru_cache(maxsize=None)
 def part_plan(m: int) -> np.ndarray:
     """the run-time passes kernel's PartPlan at parts of ``m`` points, as
     the int32 array its C entry takes (csrc/ola_split.cu PartPlan): the
-    transform's plan::Transform, then its tables' float2 count, G, F and
-    the float2 of a part's exchange buffer."""
+    transform's plan::Transform, then its tables' float2 count, G, F, the
+    float2 of a part's exchange buffer (:func:`_group_buf`) and the Rader
+    flag: for a Rader part (:func:`rader_takes`) the m - 1 points' forward
+    transform, the float2 of the buffer, its two held values and the side
+    buffer, and 1, else 0."""
     g, parts, _ = part_shape(m)
-    ints = _plan_transform(m, 0) + [plan_tables(m).size, g, parts, m + m // 16]
+    if not rader_takes(m):
+        ints = _plan_transform(m, 0) + [plan_tables(m).size, g, parts, _group_buf((m,), g), 0]
+    else:
+        n = m - 1
+        ints = (_plan_transform(n, 0)
+                + [plan_tables(n, False).size, g, parts, _group_buf((n,), g, 2), 1])
     return np.array(ints, dtype=np.uint32).view(np.int32)
 
 
@@ -806,12 +927,13 @@ def frame_plan(nfft: int, nfft_out: int) -> np.ndarray:
     its C entry takes (csrc/ola_frames.cuh FramePlan): the forward
     transform's plan::Transform, the inverse's (its tables after the
     forward's), then the tables' float2 count, G, F and the float2 of a
-    frame's exchange buffer (max(nfft, nfft_out) padded one in 16)."""
+    frame's exchange buffer (max(nfft, nfft_out) padded one in 16, then
+    the side buffer: :func:`_group_buf`)."""
     g, frames, _ = plan_shape(nfft, nfft_out)
     n_fwd = plan_tables(nfft, False).size
     ints = (_plan_transform(nfft, 0) + _plan_transform(nfft_out, n_fwd)
             + [n_fwd + plan_tables(nfft_out, True).size, g, frames,
-               max(nfft, nfft_out) + max(nfft, nfft_out) // 16])
+               _group_buf((nfft, nfft_out), g)])
     return np.array(ints, dtype=np.uint32).view(np.int32)
 
 
@@ -835,9 +957,9 @@ def plan_cluster_shape(nfft: int, nfft_out: int):
     passes, one only with a prime above 7), the larger half at most :data:`PLAN_POINTS` x
     :data:`PLAN_THREADS` (16384) points; G, the threads of each block, 256
     where both halves are at most 8192 points (two blocks an SM), else 512;
-    a block's shared memory (both halves' pass tables and the larger half's
-    padded exchange buffer) within an H100 block's. None where it does not
-    hold the pair."""
+    a block's shared memory (both halves' pass tables and the exchange
+    buffer, :func:`_group_buf`) within an H100 block's. None where it does
+    not hold the pair."""
     if (nfft % PLAN_CLUSTER or nfft_out % PLAN_CLUSTER or min(nfft, nfft_out) < 1
             or 8 * max(nfft, nfft_out) > H100_SMEM_OPTIN):
         return None
@@ -848,7 +970,8 @@ def plan_cluster_shape(nfft: int, nfft_out: int):
     if mmax > PLAN_POINTS * PLAN_THREADS:
         return None
     g = PLAN_THREADS // 2 if mmax <= PLAN_POINTS * PLAN_THREADS // 2 else PLAN_THREADS
-    smem = 8 * (plan_tables(m1, False).size + plan_tables(m2, True).size + mmax + mmax // 16)
+    smem = 8 * (plan_tables(m1, False).size + plan_tables(m2, True).size
+                + _group_buf((m1, m2), g))
     return (g, smem) if smem <= H100_SMEM_OPTIN else None
 
 
@@ -878,14 +1001,14 @@ def cluster_plan(nfft: int, nfft_out: int) -> np.ndarray:
     forward half's plan::Transform, the inverse half's (its tables after
     the forward's), then the pass tables' float2 count, the offsets of the
     forward and inverse cross twiddles in the table, G and the float2 of a
-    block's exchange buffer (the larger half padded one in 16)."""
+    block's exchange buffer (the larger half padded one in 16, then the
+    side buffer: :func:`_group_buf`)."""
     g, _ = plan_cluster_shape(nfft, nfft_out)
     m1, m2 = nfft // PLAN_CLUSTER, nfft_out // PLAN_CLUSTER
     n_fwd = plan_tables(m1, False).size
     n_pass = n_fwd + plan_tables(m2, True).size
-    mmax = max(m1, m2)
     ints = (_plan_transform(m1, 0) + _plan_transform(m2, n_fwd)
-            + [n_pass, n_pass, n_pass + m1, g, mmax + mmax // 16])
+            + [n_pass, n_pass, n_pass + m1, g, _group_buf((m1, m2), g)])
     return np.array(ints, dtype=np.uint32).view(np.int32)
 
 
@@ -1180,16 +1303,20 @@ def _launch_split(f3, layout, strides, edge, y, w_in, *, w_out, nfft, nfft_out, 
     hi = min(zero_hi, in_lo + out_hi - out_lo)
     a = torch.empty((*y.shape[:2], nfft), dtype=torch.complex64, device=dev)
     plan1, plan2 = _build.radix_plan_arg(c1), _build.radix_plan_arg(c2)
-    # each side's PartPlan where its parts run on a run-time plan
-    parts = [(part_plan(m).ctypes.data, part_plan(m).size) if split_part_on_plan(m, inv)
-             else (None, 0) for m, inv in ((m1, False), (m2, True))]
+    # each side's PartPlan where its parts run on a run-time plan, and a
+    # Rader part's tables (B, the permutations)
+    on_plan = [split_part_on_plan(m, inv) for m, inv in ((m1, False), (m2, True))]
+    parts = [(part_plan(m).ctypes.data, part_plan(m).size) if on else (None, 0)
+             for m, on in zip((m1, m2), on_plan)]
+    rader = [tuple(t.data_ptr() for t in rader_tables(m, inv, dev)) if on and rader_takes(m)
+             else (None, None) for m, inv, on in zip((m1, m2), (False, True), on_plan)]
     return _build.library().iqt_ola_split(
         f3.data_ptr(), layout, *strides, *edge, w_in.data_ptr(), w_out.data_ptr(),
         at['fwd_passes'], at['inv_passes'], at['fwd_cross'], at['inv_cross'], at['fwd_dft'],
         at['inv_dft'], a.data_ptr(), y.data_ptr(), off['inv_passes'],
         off['fwd_cross'] - off['inv_passes'], y.shape[0], y.shape[1], c1, m1,
         ctypes.addressof(plan1), c2, m2, ctypes.addressof(plan2), lo, hi, out_lo - in_lo,
-        *parts[0], *parts[1], _build.stream_of(f3),
+        *parts[0], *parts[1], *rader[0], *rader[1], _build.stream_of(f3),
     )
 
 

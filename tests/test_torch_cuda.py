@@ -73,6 +73,10 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     _fused_ola_generic,
     frames_route,
     ola_route,
+    part_plan,
+    plan_radices,
+    rader_takes,
+    split_plan,
 )
 from iqwaveform_torch.ops.kernels.hist import _hist_generic, hist_route
 from iqwaveform_torch.ops.kernels.spectrogram import (
@@ -2308,7 +2312,12 @@ def test_plan_cluster_add_matches_plain_with_halo_and_tail(card):
 PRIME_ROUTES = {(1408, 704): 'plan', (1408, 11): 'plan', (2816, 1408): 'plan',
                 (13750, 8448): 'plan', (16768, 8384): 'plan_cluster',
                 (16896, 8448): 'plan_cluster', (76800, 38400): 'split',
-                (41250, 25344): 'split', (32288, 16144): 'split', (29056, 17025): 'split'}
+                (41250, 25344): 'split', (32288, 16144): 'split', (29056, 17025): 'split',
+                # the 13-point register pass: 1664 = 128 x 13, 16380 = 4 x 9 x 5 x 7 x
+                # 13; Rader parts: 2096768 = 128 x 16381 -> 16 x 16381, 1572992 = 128 x
+                # 12289 -> 64 x 12289
+                (1664, 832): 'plan', (16380, 8190): 'plan', (2096768, 262096): 'split',
+                (1572992, 786496): 'split'}
 PRIME_ADD = {(2816, 1408): 'plan+add', (16768, 8384): 'plan_cluster+add',
              (76800, 38400): 'split+add'}
 
@@ -2316,14 +2325,18 @@ PRIME_ADD = {(2816, 1408): 'plan+add', (16768, 8384): 'plan_cluster+add',
 @pytest.mark.parametrize('layout', ['complex64', 'int16', 'bfloat16'])
 @pytest.mark.parametrize('pair', sorted(PRIME_ROUTES))
 def test_prime_routes_match_plain_and_complex128(card, pair, layout):
-    """a pair with a prime factor above 7 (a prime pass: 11, 131, 1009,
-    227) or a split part of any factors, on 5 frames at hop nfft / 3,
-    complex64 or planes of the tier's type: one launch on its route of that
-    layout, within 1e-5 of the plain chain, its complex128 error at most
-    twice the plain chain's."""
+    """a pair with a prime factor above 7 (the register passes at 11 and
+    13; pass_prime at 131, 1009, 227), a split part of any factors, or a
+    split part that is one prime by Rader's algorithm (16381, 12289), on 5
+    frames at hop nfft / 3, complex64 or planes of the tier's type: one
+    launch on its route of that layout, within 1e-5 of the plain chain, its
+    complex128 error at most twice the plain chain's."""
     nfft, nfft_out = pair
     route = PRIME_ROUTES[pair]
     assert frames_route(nfft, nfft_out) == route
+    if route == 'split' and nfft in (2096768, 1572992):
+        (_, m1), (_, m2) = split_plan(nfft, nfft_out)
+        assert m1 == m2 and rader_takes(m1) and part_plan(m1)[2 + 10 * 16 + 4] == 1
     kw = _plan_kwargs(nfft, nfft_out, 95)
     hop = nfft // 3
     x = _noise(4 * hop + nfft, 96)
@@ -2382,11 +2395,14 @@ def test_prime_add_routes_match_plain_with_halo_and_tail(card, pair, tier):
 def test_monitor_at_100_to_61_44_takes_the_new_routes(card, window, route):
     """the monitor at 100 -> 61.44 MS/s, whose OLA ran the torch.fft chain
     ('plain') before the prime pass: one launch of its route ('plan+add' at
-    13750 -> 8448, 'split' at 41250 -> 25344), the step within the gates of
+    13750 -> 8448, 'split' at 41250 -> 25344 on parts of 13750 and 12672),
+    every transform's 11 a register pass, the step within the gates of
     reference_step (channel power 1e-5; psd within 0.01 dB above -100 dB;
     APD totals equal, L1 within max(2, total / 1000))."""
     mon = it.WidebandMonitor(it.design_wideband_monitor(100e6, 61.44e6, window=window))
     assert mon.routes['ola'] == route
+    sizes = (13750, 8448) if route == 'plan+add' else (13750, 12672)
+    assert all(11 in plan_radices(n) and max(plan_radices(n)) <= 16 for n in sizes)
     x = _noise(2 * mon.min_input_multiple(), 100)
     _reset_routes()
     _reset_frame_routes()

@@ -55,6 +55,7 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     plan_radices,
     plan_tables,
     plan_takes,
+    side_points,
     split_takes,
 )
 from iqwaveform_tpu.models import WidebandMonitor as JaxMonitor
@@ -223,7 +224,9 @@ def test_cluster_plan_layout(pair):
     assert plan['inv_cross'] == plan['fwd_cross'] + m1
     mmax = max(m1, m2)
     assert g == (PLAN_THREADS // 2 if mmax <= PLAN_POINTS * PLAN_THREADS // 2 else PLAN_THREADS)
-    assert mmax <= PLAN_POINTS * g and plan['buf'] == mmax + mmax // 16
+    assert mmax <= PLAN_POINTS * g
+    # the larger half padded, then the side buffer of the odd-radix passes
+    assert plan['buf'] == mmax + mmax // 16 + side_points((m1, m2), g)
     assert smem == 8 * (plan['tw_count'] + plan['buf']) <= H100_SMEM_OPTIN
     if g == PLAN_THREADS // 2:
         # two blocks an SM: their shared memory and 128 registers a thread

@@ -67,11 +67,15 @@ from iqwaveform_torch.ops.kernels.fused_ola import (
     ola_route,
     part_plan,
     part_shape,
+    part_tables,
     plan_cluster_twiddles,
     plan_radices,
     plan_shape,
     plan_tables,
     plan_twiddles,
+    rader_index,
+    rader_kernel,
+    rader_takes,
     split_part_on_plan,
     split_plan,
     split_shape,
@@ -244,7 +248,7 @@ def test_prime_transform_model_matches_numpy_fft(n):
     equal their definition; the primes above 7 last, a pass each."""
     radices = plan_radices(n)
     assert int(np.prod(radices)) == n
-    primes = [r for r in radices if fo._prime_pass(r)]
+    primes = [r for r in radices if r > 7 and fo._is_prime(r)]
     assert primes and list(radices[-len(primes):]) == sorted(primes)
     rng = np.random.default_rng(n)
     x = _complex(rng, 2, n)
@@ -295,7 +299,8 @@ def test_frame_plan_chain_model_matches_the_plain_chain(pair, monkeypatch):
     n_fwd = plan_tables(nfft, False).size
     assert plan['tw_count'] == n_fwd + plan_tables(nfft_out, True).size
     assert plan['fwd'][1][0]['tw'] == 0 and plan['inv'][1][0]['tw'] == n_fwd
-    assert plan['buf'] == max(pair) + max(pair) // 16
+    # the larger frame padded, then the side buffer of the passes at 11 and 13
+    assert plan['buf'] == max(pair) + max(pair) // 16 + fo.side_points(pair, group)
     assert smem == 8 * (plan['tw_count'] + frames_a_block * plan['buf'])
     wide_kw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
     ref = fused_ola_frames_plain(torch.from_numpy(frames), **wide_kw).numpy()
@@ -328,15 +333,37 @@ def test_cluster_plan_chain_model_matches_the_plain_chain(pair, monkeypatch):
 
 def parse_part_plan(ints):
     """the PartPlan of csrc/ola_split.cu from the host's ints: the part's
-    n and passes, then tw_count, group, parts, buf."""
+    n and passes (a Rader part's m - 1 points), then tw_count, group,
+    parts, buf and the Rader flag."""
     a = ints.view(np.uint32).astype(np.int64)
     size = 2 + len(PASS_FIELDS) * 16
-    assert a.size == size + 4
+    assert a.size == size + 5
     n, count = int(a[0]), int(a[1])
     passes = [dict(zip(PASS_FIELDS, a[2 + len(PASS_FIELDS) * s:][:len(PASS_FIELDS)]))
               for s in range(count)]
     assert not a[2 + len(PASS_FIELDS) * count: size].any()
-    return n, passes, dict(zip(('tw_count', 'group', 'parts', 'buf'), a[size:].tolist()))
+    return n, passes, dict(zip(('tw_count', 'group', 'parts', 'buf', 'rader'), a[size:].tolist()))
+
+
+def rader_model(x, m, fwd, tabs, inverse, group, b=None, transform=None):
+    """a Rader part of ``m`` points on the rows of ``x`` (float64) as
+    split_plan_passes_kernel<INV, true> runs it on the host's tables: a_q =
+    x[g^q] gathered, the (m - 1)-point forward transform on the passes
+    ``fwd``, A[0] held, conj(A[k] B[k]) in place (``b``: rader_kernel's, or
+    the complex64 copy the card reads), the same forward transform again,
+    its conjugate c; X[0] = x_0 + A[0] and X[g^-q] = x_0 + c_q
+    (``transform``: this file's model of the passes, or another's)."""
+    n = m - 1
+    idx = rader_index(m)
+    b = rader_kernel(m, inverse) if b is None else b
+    transform = model_transform if transform is None else transform
+    spec = transform(x[:, idx[:n]], fwd, tabs, False, group, PLAN_POINTS)
+    conv = np.conj(transform(np.conj(spec * b), fwd, tabs, False, group, PLAN_POINTS))
+    out = np.full(x.shape, np.nan, complex)
+    out[:, 0] = x[:, 0] + spec[:, 0]
+    out[:, idx[n:]] = x[:, :1] + conv
+    assert not np.isnan(out).any(), 'the stores cover every point'
+    return out
 
 
 def split_model(frame, kw, tabs=None):
@@ -350,7 +377,9 @@ def split_model(frame, kw, tabs=None):
     nfft, nfft_out = kw['nfft'], kw['nfft_out']
     (c1, m1), (c2, m2) = split_plan(nfft, nfft_out)
     table, off = _split_tables(nfft, nfft_out)
-    if tabs is not None:
+    # the card's copy: the tables and a Rader part's B rounded to complex64
+    low = tabs is not None
+    if low:
         table = tabs
     ends = list(off.values())[1:] + [table.size]
     t = {name: table[start:end] for (name, start), end in zip(off.items(), ends)}
@@ -363,9 +392,20 @@ def split_model(frame, kw, tabs=None):
         if not split_part_on_plan(m, inverse):
             return np.fft.ifft(x) * m if inverse else np.fft.fft(x)
         n, passes, tail = parse_part_plan(part_plan(m))
-        assert n == m and tail['tw_count'] == tabs.size == plan_tables(m).size
         g, parts, _ = part_shape(m)
-        assert (tail['group'], tail['parts'], tail['buf']) == (g, parts, m + m // 16)
+        assert tail['tw_count'] == tabs.size == part_tables(m).size
+        if tail['rader']:
+            # a prime part by Rader's algorithm: a transform of m - 1 points, twice
+            assert rader_takes(m) and n == m - 1
+            assert (tail['group'], tail['parts'], tail['buf']) == (
+                g, parts, n + n // 16 + 2 + fo.side_points((n,), g))
+            b = rader_kernel(m, inverse)
+            if low:
+                b = b.astype(np.complex64).astype(np.complex128)
+            return rader_model(x[None], m, passes, tabs, inverse, g, b)[0]
+        assert n == m and not rader_takes(m)
+        assert (tail['group'], tail['parts'], tail['buf']) == (
+            g, parts, m + m // 16 + fo.side_points((m,), g))
         return model_transform(x[None], passes, tabs, inverse, g, PLAN_POINTS)[0]
 
     a = radix_model((frame * kw['w_in']).reshape(c1, m1), t['fwd_dft'], False)
@@ -408,7 +448,7 @@ def test_split_with_run_time_parts_matches_the_plain_chain(pair):
     assert max(split_smem(m1), split_smem(m2, True)) <= fo.H100_SMEM_OPTIN
     table, off = _split_tables(nfft, nfft_out)
     for name, m, inverse in (('fwd_passes', m1, False), ('inv_passes', m2, True)):
-        want = (plan_tables(m, inverse) if split_part_on_plan(m, inverse)
+        want = (part_tables(m, inverse) if split_part_on_plan(m, inverse)
                 else fo._reg_pass_tables(m, inverse))
         np.testing.assert_array_equal(table[off[name]:][:want.size], want)
     rng = np.random.default_rng(nfft + nfft_out)
